@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``nunchaku_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--f32-steps N]
 
 Phases, each fatal on failure:
   1. device    -- the card's name, count, and nvidia-smi's name and power limit;
@@ -13,12 +13,15 @@ Phases, each fatal on failure:
                   sheet: 3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16);
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
-                  and noise; the latents must agree;
+                  and noise, in the default (f32 stream) and the turbo (bf16
+                  stream, fused qkv prologue) configuration; the latents must agree;
   5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
-                  blocks, random weights from a seed) serves 2 requests of
-                  1024x1024 text-to-latents through FluxPipeline(vae=None); the
-                  kernels' launch counts must match the path, the latents must be
-                  finite.
+                  blocks, random weights from a seed) through FluxPipeline(vae=None)
+                  at 1024x1024: first the default configuration (one request of
+                  --f32-steps steps), then the same model switched to the turbo
+                  configuration serves 2 requests of --steps steps. Each path's
+                  launch counts (reset just before it) must match the path, the
+                  latents must be finite.
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -78,12 +81,30 @@ def gemm_bytes(m, k, n, r, out_bytes):
     return m * k + 4 * m + k * n + 4 * n + 4 * m * r + 2 * r * n + 2 * n + out_bytes
 
 
+def ln_bytes(m, k, r, batch=1):
+    # x bf16, mod scale + shift f32, smooth, proj_down -> q int8, ascale, lora_act
+    return 2 * m * k + 8 * batch * k + 2 * k + 2 * k * r + m * k + 4 * m + 4 * m * r
+
+
+def rope_bytes(s, r=RANK):
+    # qkv bf16, cos + sin f32, two norm weights, lora_act, proj_up -> q, k, v bf16
+    n3 = 3 * HEADS * HD
+    return 2 * s * n3 + 8 * s * HD + 4 * HD + 4 * s * r + 2 * r * n3 + 2 * s * n3
+
+
+def res_bytes(m, n, batch, r2):
+    # the residual operands: x, gate[, extra, extra_la, extra_pu]
+    return 2 * m * n + 4 * batch * n + (2 * m * n + 4 * m * r2 + 2 * r2 * n if r2 else 0)
+
+
 def kernel_phase(dev):
     from nunchaku_tpu_torch.ops import checks
-    from nunchaku_tpu_torch.ops.attention import flash_attention, flash_attention_plain
+    from nunchaku_tpu_torch.ops.attention import (
+        flash_attention, flash_attention_plain, qkv_rope_producer, qkv_rope_producer_plain)
     from nunchaku_tpu_torch.ops.gemm import (
         dequant_w4a8, dequant_w4a8_plain, gemm_w8a8_grouped, gemm_w8a8_grouped_plain,
-        svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain)
+        gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain)
+    from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
     from nunchaku_tpu_torch.ops.reference import int8_matmul
 
     rows = {}
@@ -150,24 +171,85 @@ def kernel_phase(dev):
            bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS),
            cuda_ms(lambda: sdpa(q, kk, v, scale=math.log(2.0)), 20))
     del q, kk, v
+
+    # 5. LN + modulate + quantize producer: a single block's (M 4608, K 3072, R 32)
+    m, k = S_IMG + S_TXT, DIM
+    args = checks.ln_mod_quant_case(1, m, k, RANK, device=dev)
+    err, ok, detail = checks.check_ln_mod_quant(*args)
+    x = args[0]
+    record("ln_mod_quant_int8", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu", "nunchaku_tpu/ops/quantize.py:149",
+           f"M={m} K={k} R={RANK}", ok, err, detail,
+           cuda_ms(lambda: ln_mod_quant_int8(*args), 50), cuda_ms(lambda: ln_mod_quant_int8_plain(*args), 5),
+           bound(ln_bytes(m, k, RANK), bf16_ops=2 * m * k * RANK),
+           cuda_ms(lambda: torch.nn.functional.layer_norm(x, (k,), eps=1e-6), 50))
+    del args, x
+
+    # 6. qkv / RoPE producer with the low-rank term: the single block's call
+    # (S 4608) is the timed row; the dual block's two shared-buffer calls
+    # (4096 img rows at 512, then 512 txt rows at 0) are checked and timed too
+    streams, cos, sin = checks.qkv_rope_case(1, (S_TXT, S_IMG), HEADS, HD, RANK, device=dev)
+    err2, ok2, detail2 = checks.check_qkv_rope(streams, cos, sin)
+    dual_ms = cuda_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 20)
+    log(f"[kernel] qkv_rope_producer, dual block (S_txt {S_TXT} + S_img {S_IMG} into one buffer): "
+        f"{'PASS' if ok2 else 'FAIL'} {detail2}; {dual_ms:.4f} ms for both calls, bound "
+        f"{bound(rope_bytes(S_IMG) + rope_bytes(S_TXT))[0]:.4f} ms")
+    del streams, cos, sin
+    s = S_IMG + S_TXT
+    streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, RANK, device=dev)
+    err, ok, detail = checks.check_qkv_rope(streams, cos, sin)
+    qkv, la, pu = streams[0][0], streams[0][3], streams[0][4]
+    la16 = la.to(torch.bfloat16)
+    record("qkv_rope_producer", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
+           "nunchaku_tpu/ops/attention.py:158", f"B=1 S={s} H={HEADS} D={HD} R={RANK}", ok and ok2,
+           max(err, err2), detail + f"; dual block: {detail2}",
+           cuda_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50),
+           cuda_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5),
+           bound(rope_bytes(s), bf16_ops=2 * s * 3 * HEADS * HD * RANK),
+           cuda_ms(lambda: torch.matmul(la16, pu), 50))
+    del streams, cos, sin, qkv, la, pu, la16
+
+    # 3'. grouped consumer, gated-residual mode with extra and extra low-rank:
+    # single-block fc2 (M 4608, K 12288 in 8 groups, N 3072)
+    m, k, n, g = S_IMG + S_TXT, HID, DIM, HID // 1536
+    args = checks.grouped_res_case(m, k, n, g, RANK, device=dev)
+    err, ok, detail = checks.check_grouped_res(*args)
+    qa, w = args[0], args[2]
+    record("gemm_w8a8_grouped_res", "nunchaku_tpu_torch/csrc/gemm_w8a8_grouped.cu",
+           "nunchaku_tpu/ops/gemm.py:395", f"M={m} K={k} N={n} G={g} R={RANK} +x,gate,extra,extra_lora",
+           ok, err, detail,
+           cuda_ms(lambda: gemm_w8a8_grouped_res(*args), 20),
+           cuda_ms(lambda: gemm_w8a8_grouped_plain(*args), 3),
+           bound(gemm_bytes(m, k, n, RANK, 2 * m * n) + 4 * g * m + res_bytes(m, n, 1, RANK),
+                 2 * m * n * k, 4 * m * n * RANK),
+           cuda_ms(lambda: int8_matmul(qa, w), 20))
+    del args, qa, w
     torch.cuda.empty_cache()
     return rows, failed
 
 
 def per_forward_bounds(cfg) -> dict:
-    """Least time per 1024px forward for each kernel, summed over the path's shapes."""
+    """Least time per 1024px forward for each kernel, summed over the path's
+    shapes (the default path's and the turbo path's kernels)."""
     L, Ls, T = cfg.num_layers, cfg.num_single_layers, S_IMG + S_TXT
 
     def deq(k, n):
         return bound(k // 2 * n + 2 * (k // 64) * n + k * n)[0]
 
-    def chain(m):
+    def chain(m, res=0):
+        """res: 0 none, 1 (x, gate), 2 (x, gate, extra, extra_la, extra_pu)."""
         nj = HID // 1536
         prod = bound(gemm_bytes(m, DIM, HID, RANK, m * HID + 4 * nj * m + 4 * m * RANK),
                      2 * m * HID * DIM, 4 * m * HID * RANK)[0]
-        cons = bound(gemm_bytes(m, HID, DIM, RANK, 2 * m * DIM) + 4 * nj * m,
-                     2 * m * HID * DIM, 2 * m * DIM * RANK)[0]
+        extra = 0 if res == 0 else res_bytes(m, DIM, 1, RANK if res == 2 else 0)
+        cons = bound(gemm_bytes(m, HID, DIM, RANK, 2 * m * DIM) + 4 * nj * m + extra,
+                     2 * m * HID * DIM, (2 + 2 * (res == 2)) * m * DIM * RANK)[0]
         return prod, cons
+
+    def lnq(m):
+        return bound(ln_bytes(m, DIM, RANK), bf16_ops=2 * m * DIM * RANK)[0]
+
+    def rope(s):
+        return bound(rope_bytes(s), bf16_ops=2 * s * 3 * DIM * RANK)[0]
 
     dual = [chain(S_IMG), chain(S_TXT)]
     single = chain(T)
@@ -177,11 +259,15 @@ def per_forward_bounds(cfg) -> dict:
         "gemm_w8a8_gelu_quant": L * (dual[0][0] + dual[1][0]) + Ls * single[0],
         "gemm_w8a8_grouped": L * (dual[0][1] + dual[1][1]) + Ls * single[1],
         "flash_fixed": (L + Ls) * bound(4 * T * HEADS * HD * 2, bf16_ops=4 * T * T * HD * HEADS)[0],
+        "ln_mod_quant_int8": L * 2 * (lnq(S_IMG) + lnq(S_TXT)) + Ls * 2 * lnq(T),
+        "qkv_rope_producer": L * (rope(S_IMG) + rope(S_TXT)) + Ls * rope(T),
+        "gemm_w8a8_grouped_res": L * (chain(S_IMG, 1)[1] + chain(S_TXT, 1)[1]) + Ls * chain(T, 2)[1],
     }
 
 
 def reference_phase(dev):
-    """Small model: kernels on the card against the plain twins on the CPU."""
+    """Small model: kernels on the card against the plain twins on the CPU,
+    in the default and then the turbo configuration."""
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
@@ -194,33 +280,27 @@ def reference_phase(dev):
     pooled = torch.randn((1, 256), generator=gen).to(torch.bfloat16)
     lat = torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16)
     kw = dict(height=256, width=256, num_inference_steps=2)
-    ref = FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float()
-    out = FluxPipeline(gpu_model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
-    rel = ((out - ref).abs().max() / ref.abs().max()).item()
-    ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2
-    log(f"[reference] 1+1-block FLUX (dim 768), 2 steps at 256x256: card vs CPU plain latents "
-        f"rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if ok else 'FAIL'}")
-    return ok
+    all_ok = True
+    for name in ("default (f32 stream)", "turbo (bf16 stream, fused qkv prologue)"):
+        if name.startswith("turbo"):
+            for mdl in (cpu_model, gpu_model):
+                mdl.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        ref = FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float()
+        out = FluxPipeline(gpu_model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2
+        log(f"[reference] {name}: 1+1-block FLUX (dim 768), 2 steps at 256x256: card vs CPU plain "
+            f"latents rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+    return all_ok
 
 
-def slice_phase(dev, steps: int, requests: int):
-    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+def serve(pipe, cfg, dev, steps, requests, label):
+    """Requests through the pipeline with the launch counts reset just
+    before; -> (finite, seconds per request, counts, peak GiB)."""
     from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
-    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
-    cfg = FluxConfig(precision="w4a8")
-    t0 = time.perf_counter()
-    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
-    log(f"[slice] FLUX.1-dev w4a8: {cfg.num_layers} dual + {cfg.num_single_layers} single blocks, "
-        f"dim {cfg.dim}, {cfg.num_attention_heads} heads; weights {nbytes / 2**30:.2f} GiB, "
-        f"random init {time.perf_counter() - t0:.1f} s")
-    pipe = FluxPipeline(model, vae=None)
-    L, Ls = cfg.num_layers, cfg.num_single_layers
-    per_forward = {"dequant_w4a8": 8 * L + 4 * Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
-                   "gemm_w8a8_grouped": 2 * L + Ls, "flash_fixed": L + Ls}
-
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     req_s, finite = [], True
@@ -235,23 +315,59 @@ def slice_phase(dev, steps: int, requests: int):
         req_s.append(time.perf_counter() - t0)
         ok = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat.float()).all())
         finite = finite and ok
-        log(f"[slice] request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / steps:.3f} s/step), "
+        log(f"[slice] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / steps:.4f} s/step), "
             f"latents {tuple(lat.shape)} finite={ok}, |lat| mean {lat.float().abs().mean().item():.4f}")
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    expected = {k: v * steps * requests for k, v in per_forward.items()}
-    counts_ok = counts == expected
-    log(f"[slice] {requests} requests x {steps} steps; s/request {[round(s, 3) for s in req_s]}, "
-        f"s/step (after the first request) {req_s[-1] / steps:.4f}; peak allocated {peak:.2f} GiB")
-    log(f"[slice] launches {counts}; expected {expected} "
-        f"(per forward {per_forward}): {'PASS' if counts_ok else 'FAIL'}")
-    return finite and counts_ok, counts, per_forward, cfg
+    log(f"[slice] {label}: {requests} request(s) x {steps} steps; s/request {[round(x, 3) for x in req_s]}, "
+        f"s/step (last request) {req_s[-1] / steps:.4f}; peak allocated {peak:.2f} GiB")
+    return finite, req_s, counts, peak
+
+
+def check_counts(label, counts, per_forward, forwards):
+    expected = {k: per_forward.get(k, 0) * forwards for k in counts}
+    ok = counts == expected
+    log(f"[slice] {label} launches {counts}; expected {expected} "
+        f"(per forward {per_forward}): {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def slice_phase(dev, steps: int, requests: int, f32_steps: int):
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    cfg = FluxConfig(precision="w4a8")
+    t0 = time.perf_counter()
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    log(f"[slice] FLUX.1-dev w4a8: {cfg.num_layers} dual + {cfg.num_single_layers} single blocks, "
+        f"dim {cfg.dim}, {cfg.num_attention_heads} heads; weights {nbytes / 2**30:.2f} GiB, "
+        f"random init {time.perf_counter() - t0:.1f} s")
+    pipe = FluxPipeline(model, vae=None)
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    paths = {
+        "default": {"dequant_w4a8": 8 * L + 4 * Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
+                    "gemm_w8a8_grouped": 2 * L + Ls, "flash_fixed": L + Ls},
+        "turbo": {"dequant_w4a8": 8 * L + 4 * Ls, "ln_mod_quant_int8": 4 * L + 2 * Ls,
+                  "qkv_rope_producer": 2 * L + Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
+                  "gemm_w8a8_grouped_res": 2 * L + Ls, "flash_fixed": L + Ls},
+    }
+    finite, _, counts_f32, _ = serve(pipe, cfg, dev, f32_steps, 1, "default (f32 stream)")
+    ok = finite and check_counts("default", counts_f32, paths["default"], f32_steps)
+    model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    finite, _, counts_turbo, _ = serve(pipe, cfg, dev, steps, requests, "turbo (bf16 stream, fused prologue)")
+    ok = ok and finite and check_counts("turbo", counts_turbo, paths["turbo"], steps * requests)
+    counts = {k: counts_f32[k] + counts_turbo[k] for k in counts_f32}
+    return ok, counts, paths, cfg
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
-                    help="denoise steps per request (50: the step count of bench.py's main path)")
+                    help="denoise steps per turbo request (50: the step count of bench.py's main path)")
+    ap.add_argument("--f32-steps", type=int, default=3,
+                    help="denoise steps of the one default-configuration (f32 stream) request")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU", file=sys.stderr)
@@ -280,14 +396,15 @@ def main(argv=None) -> int:
     rows, failed = kernel_phase(dev)
     ref_ok = reference_phase(dev)
     reset_launch_counts()
-    slice_ok, counts, per_forward, cfg = slice_phase(dev, args.steps, requests=2)
+    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, f32_steps=args.f32_steps)
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
-        log(f"[bound] {name}: {per_forward[name]} launches per 1024px forward, "
-            f"least time {b:.3f} ms per forward")
+        per = {p: f[name] for p, f in paths.items() if name in f}
+        log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
+            f"of the path(s) it runs in")
     ran = [name for name, c in counts.items() if c > 0]
-    log(f"[kernels] ran on the main path: {', '.join(ran)}")
+    log(f"[kernels] ran on the main paths: {', '.join(ran)}")
     ok = not failed and ref_ok and slice_ok and len(ran) == len(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {'PASS' if ref_ok else 'FAIL'}, "

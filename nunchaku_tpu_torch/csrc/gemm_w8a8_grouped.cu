@@ -1,21 +1,28 @@
-// fc2 GEMM over grouped activation scales (the fused MLP chain's consumer).
+// fc2 GEMM over grouped activation scales (the fused MLP chain's consumer),
+// with the transformer block's gated residual add as an optional epilogue.
 //
 // Replaces nunchaku_tpu/ops/gemm.py _gemm_w8a8_kernel (:344) in its
-// grouped_as mode, launched by _svdq_gemm_w4a4 (:1906, pallas_call :2300),
-// without the gated-residual epilogue:
+// grouped_as mode, launched by _svdq_gemm_w4a4 (:1906, pallas_call :2300):
 //   acc = sum over K groups g, in order, of f32(i32(qact[:, g] @ w[g, :])) * ascale[g, m]
 //   out = bf16(acc * wscale[n] + bf16(lora_act) @ proj_up + bias)
+// and, with the residual operands (its n_res epilogue, gemm.py:395-412;
+// RES = true here), the block's gated residual instead:
+//   t = bf16(out);  e = bf16(extra + bf16(extra_la) @ extra_pu)  (if extra)
+//   out = bf16(x + gate[m / S] * (t + e))
 // The producer (gemm_w8a8_gelu_quant.cu) emits one scale per (token,
 // K group), so each group's exact int32 partial is scaled before it joins
 // the f32 sum -- the same order as the JAX kernel, one group per K step.
 //
 // Bound on the H100: operations (2*M*N*K int8 ops; at FLUX.1-dev shapes
-// K = 12288, N = 3072, M up to 4608, well above the int8 ridge). Design: the
-// tensor-core main loop of int8_gemm.cuh runs once per K group into int32
-// WMMA fragments; after each group the fragments pass through a per-warp
-// shared-memory scratch into f32 registers (64 per thread), where the
-// group's scale is applied. The epilogue adds the rank-r branch and bias
-// and writes bf16 in 16-byte vectors.
+// K = 12288, N = 3072, M up to 4608, well above the int8 ridge). The
+// residual operands add 2-3 bf16 (M, N) reads, well under 1% of the bound.
+// Design: the tensor-core main loop of int8_gemm.cuh runs
+// once per K group into int32 WMMA fragments; after each group the
+// fragments pass through a per-warp shared-memory scratch into f32
+// registers (64 per thread), where the group's scale is applied. The
+// epilogue adds the rank-r branch and bias (and, with RES, the extra
+// operand's rank-r2 branch through the same shared-memory tile code and
+// the gated add) and writes bf16 in 16-byte vectors.
 #include "int8_gemm.cuh"
 
 namespace {
@@ -25,17 +32,41 @@ using namespace i8gemm;
 struct Smem {
   union {
     Stage st[2];
-    LoraTile lora;  // after the main loop
+    struct {
+      LoraTile lora;   // after the main loop
+      LoraTile elora;  // the extra operand's low-rank branch (RES)
+    } epi;
   } u;
   int scratch[THREADS / 32][16 * 16];  // one accumulator fragment per warp
 };
 
+// Gated-residual operands: x, extra (M, N) bf16; gate (B, N) f32, row m
+// takes gate[m / S]; extra_la (M, R2) f32 with extra_pu (R2, N) bf16.
+struct Res {
+  const bf16* x;
+  const float* gate;
+  const bf16* extra;
+  const float* ela;
+  const bf16* epu;
+  int S, R2;
+};
+
+__device__ __forceinline__ void load8(float (&d)[8], const bf16* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) d[i] = bf2f(b[i]);
+}
+
+__device__ __forceinline__ float round_bf16(float v) { return bf2f(__float2bfloat16(v)); }
+
+template <bool RES>
 __global__ void __launch_bounds__(THREADS)
     gemm_grouped_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as,
                         const int8_t* __restrict__ wt, const float* __restrict__ ws,
                         const float* __restrict__ la, const bf16* __restrict__ pu,
                         const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K,
-                        int G, int R) {
+                        int G, int R, Res res) {
   __shared__ __align__(128) Smem sm;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int gk = K / G;
@@ -60,7 +91,8 @@ __global__ void __launch_bounds__(THREADS)
     });
   }
 
-  if (R > 0) stage_lora(sm.u.lora, la, pu, m0, n0, N, R);
+  if (R > 0) stage_lora(sm.u.epi.lora, la, pu, m0, n0, N, R);
+  if (RES && res.R2 > 0) stage_lora(sm.u.epi.elora, res.ela, res.epu, m0, n0, N, res.R2);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;
   const int r = lane >> 1, c0 = (lane & 1) * 8;
@@ -73,7 +105,23 @@ __global__ void __launch_bounds__(THREADS)
       float o[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) o[i] = __fmul_rn(facc[fm][fn][i], ws[n + i]);
-      add_lora_bias(sm.u.lora, o, ml, nl, n, R, bias);
+      add_lora_bias(sm.u.epi.lora, o, ml, nl, n, R, bias);
+      if (RES) {
+        const size_t at = static_cast<size_t>(m) * N + n;
+        float xv[8], e[8];
+        load8(xv, res.x + at);
+        const float* g = res.gate + static_cast<size_t>(m / res.S) * N + n;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] = round_bf16(o[i]);
+        if (res.extra != nullptr) {
+          load8(e, res.extra + at);
+          add_lora_bias(sm.u.epi.elora, e, ml, nl, n, res.R2, nullptr);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(o[i], round_bf16(e[i]));
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(xv[i], __fmul_rn(g[i], o[i]));
+      }
       uint4 packed;
       bf16* pb = reinterpret_cast<bf16*>(&packed);
 #pragma unroll
@@ -87,17 +135,27 @@ __global__ void __launch_bounds__(THREADS)
 
 // qact (M, K) int8, ascales (G, M) f32, wt (N, K) int8 (the (K, N) weight
 // K-contiguous), wscales (N,) f32,
-// lora_act (M, R) f32 | null, proj_up (R, N) bf16 | null, bias (N,) bf16 | null
-// -> out (M, N) bf16. Needs M % 128 == 0, N % 128 == 0, (K / G) % 64 == 0, R <= 32.
+// lora_act (M, R) f32 | null, proj_up (R, N) bf16 | null, bias (N,) bf16 | null,
+// residual: x (M, N) bf16 | null (no residual), gate (B, N) f32 with S = M / B
+// rows per batch, extra (M, N) bf16 | null, extra_la (M, R2) f32 | null,
+// extra_pu (R2, N) bf16 | null
+// -> out (M, N) bf16. Needs M % 128 == 0, N % 128 == 0, (K / G) % 64 == 0, R, R2 <= 32.
 extern "C" int nt_gemm_w8a8_grouped(const void* qact, const void* ascales, const void* wt,
                                     const void* wscales, const void* lora_act, const void* proj_up,
-                                    const void* bias, void* out, int M, int N, int K, int G, int R,
+                                    const void* bias, const void* x, const void* gate,
+                                    const void* extra, const void* extra_la, const void* extra_pu,
+                                    void* out, int M, int N, int K, int G, int R, int S, int R2,
                                     void* stream) {
   dim3 grid(N / BN, M / BM);
-  gemm_grouped_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Res res{static_cast<const bf16*>(x), static_cast<const float*>(gate), static_cast<const bf16*>(extra),
+                static_cast<const float*>(extra_la), static_cast<const bf16*>(extra_pu), S,
+                extra_la == nullptr ? 0 : R2};
+  auto kernel = x != nullptr ? gemm_grouped_kernel<true> : gemm_grouped_kernel<false>;
+  kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const int8_t*>(qact), static_cast<const float*>(ascales),
       static_cast<const int8_t*>(wt), static_cast<const float*>(wscales),
       static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, G, R);
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, G, R, res);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,173 @@
+// Fused attention prologue of the bf16-stream configuration: split the
+// fused-QKV GEMM output by head, add the projection's low-rank term, RMSNorm
+// q and k, rotate them with the half-split RoPE, prescale q, and write q, k,
+// v in flash's (B, H, S, D) layout -- at a row offset of caller-given
+// buffers, so a dual block's txt and img streams share one joint buffer.
+//
+// Replaces nunchaku_tpu/ops/attention.py _qkv_rope_producer_kernel (:158,
+// launched by qkv_rope_producer :212). Per (token, head), D = 128:
+//   a = x [+ bf16(lora_act) @ proj_up[:, head slice]]             (f32)
+//   q, k: a = a * rsqrt(mean(a^2) + 1e-6) * w;  o = a*cos + roll(a, 64)*sin
+//         (sin's first half negated), q: o *= q_scale;  v: o = a
+//
+// Bound on the H100: bytes (read the (S, 3*H*D) bf16 GEMM output once,
+// write q, k, v once; about 15 operations per element). Design: a block
+// takes 64 tokens of one head (grid: token tiles x heads x batch). With the
+// low-rank term, the block stages bf16(lora_act) of its tokens and the
+// head's three proj_up slices in shared memory and forms the (64 x 32) @
+// (32 x 128) products on the tensor cores (WMMA bf16, f32 accumulate) into
+// a shared f32 tile, section by section. A warp then takes one token at a
+// time: each lane holds 4 of the 128 channels (8-byte loads and stores, a
+// token's head row is one 256-byte segment), the RMS sum is a warp
+// shuffle, and roll(a, 64) is a shuffle with lane ^ 16.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int D = 128, TS = 64, THREADS = 256, WARPS = THREADS / 32, MAX_R = 32;
+constexpr int LDA = MAX_R + 8, LDP = D + 8, LDL = D + 4;
+constexpr float EPS = 1e-6f;
+
+struct Smem {
+  bf16 la[TS][LDA];      // bf16(lora_act) of the block's tokens
+  bf16 pu[3][MAX_R][LDP];  // proj_up columns of this head's q, k, v slices
+  float lr[TS][LDL];     // low-rank term of the current section
+};
+
+__device__ __forceinline__ void load4(float (&d)[4], const bf16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const bf16* b = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] = bf2f(b[i]);
+}
+
+__device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
+  uint2 raw;
+  bf16* b = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) b[i] = __float2bfloat16(v[i]);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__global__ void __launch_bounds__(THREADS)
+    qkv_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cosr,
+                    const float* __restrict__ sinr, const bf16* __restrict__ nq,
+                    const bf16* __restrict__ nk, const float* __restrict__ la,
+                    const bf16* __restrict__ pu, bf16* __restrict__ qo, bf16* __restrict__ ko,
+                    bf16* __restrict__ vo, int S, int H, int S_out, int off, int R, float q_scale) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int s0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int HD = H * D;
+  const size_t row_base = static_cast<size_t>(b) * S;  // token row of (b, s0) is row_base + s0
+
+  if (R > 0) {
+    for (int i = threadIdx.x; i < TS * MAX_R; i += THREADS) {
+      const int t = i / MAX_R, r = i % MAX_R;
+      const float v = (s0 + t < S && r < R) ? la[(row_base + s0 + t) * R + r] : 0.f;
+      sm.la[t][r] = __float2bfloat16(v);
+    }
+    for (int i = threadIdx.x; i < 3 * MAX_R * D; i += THREADS) {
+      const int sec = i / (MAX_R * D), r = (i / D) % MAX_R, c = i % D;
+      sm.pu[sec][r][c] = r < R ? pu[static_cast<size_t>(r) * 3 * HD + sec * HD + h * D + c] : __float2bfloat16(0.f);
+    }
+  }
+
+  const int c0 = lane * 4;
+  bf16* outs[3] = {qo, ko, vo};
+  for (int sec = 0; sec < 3; ++sec) {
+    if (R > 0) {
+      __syncthreads();  // staging done / the previous section's lr tile is consumed
+      // (64 x 128) = la (64 x 32) @ pu (32 x 128): warp w takes row tile w / 2, column tiles 4 (w % 2) .. +4
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
+      const int fr = warp / 2, fc = (warp % 2) * 4;
+#pragma unroll
+      for (int kk = 0; kk < MAX_R; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, &sm.la[fr * 16][kk], LDA);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
+          wmma::load_matrix_sync(bf, &sm.pu[sec][kk][(fc + j) * 16], LDP);
+          wmma::mma_sync(acc[j], a, bf, acc[j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::store_matrix_sync(&sm.lr[fr * 16][(fc + j) * 16], acc[j], LDL, wmma::mem_row_major);
+      __syncthreads();
+    }
+    const bf16* w = sec == 0 ? nq : nk;
+    float wv[4];
+    if (sec < 2) load4(wv, w + c0);
+    for (int t = warp; t < TS; t += WARPS) {
+      const int s = s0 + t;
+      if (s >= S) break;
+      float a[4];
+      load4(a, qkv + (row_base + s) * 3 * HD + sec * HD + h * D + c0);
+      if (R > 0) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = __fadd_rn(a[i], sm.lr[t][c0 + i]);
+      }
+      if (sec < 2) {
+        float ss = 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ss = __fadd_rn(ss, __fmul_rn(a[i], a[i]));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
+        const float rs = __frsqrt_rn(__fadd_rn(__fmul_rn(ss, 1.0f / D), EPS));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = __fmul_rn(__fmul_rn(a[i], rs), wv[i]);
+        const float4 cv = *reinterpret_cast<const float4*>(cosr + static_cast<size_t>(s) * D + c0);
+        const float4 sv = *reinterpret_cast<const float4*>(sinr + static_cast<size_t>(s) * D + c0);
+        const float cc[4] = {cv.x, cv.y, cv.z, cv.w}, sn[4] = {sv.x, sv.y, sv.z, sv.w};
+        float o[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float rolled = __shfl_xor_sync(0xffffffffu, a[i], 16);  // channel (c + 64) % 128
+          o[i] = __fadd_rn(__fmul_rn(a[i], cc[i]), __fmul_rn(rolled, sn[i]));
+          if (sec == 0 && q_scale != 1.f) o[i] = __fmul_rn(o[i], q_scale);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = o[i];
+      }
+      store4(outs[sec] + ((static_cast<size_t>(b) * H + h) * S_out + off + s) * D + c0, a);
+    }
+  }
+}
+
+}  // namespace
+
+// qkv (B, S, 3*H*128) bf16, cos / sin (S, 128) f32, norm_q / norm_k (128,)
+// bf16, lora_act (B*S, R) f32 | null, proj_up (R, 3*H*128) bf16 | null
+// -> rows [off, off + S) of q, k, v, each (B, H, S_out, 128) bf16.
+// Needs R in {0, 16, 32}.
+extern "C" int nt_qkv_rope_producer(const void* qkv, const void* cos, const void* sin, const void* norm_q,
+                                    const void* norm_k, const void* lora_act, const void* proj_up, void* q,
+                                    void* k, void* v, int B, int S, int H, int S_out, int off, int R,
+                                    float q_scale, void* stream) {
+  if (R % 16 != 0 || R > MAX_R || (R > 0 && (lora_act == nullptr || proj_up == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = R > 0 ? static_cast<int>(sizeof(Smem)) : 0;
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(qkv_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(sizeof(Smem)));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  dim3 grid((S + TS - 1) / TS, H, B);
+  qkv_rope_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(cos), static_cast<const float*>(sin),
+      static_cast<const bf16*>(norm_q), static_cast<const bf16*>(norm_k), static_cast<const float*>(lora_act),
+      static_cast<const bf16*>(proj_up), static_cast<bf16*>(q), static_cast<bf16*>(k), static_cast<bf16*>(v), S,
+      H, S_out, off, R, q_scale);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,24 +1,30 @@
 """FLUX joint attention and the quantized MLP chain.
 
 Counterparts of ``nunchaku_tpu/models/attention.py``: ``qkv_norm_rope``
-(:38), ``FluxAttention`` on its unfused branch (:470-513: fused QKV
-projection, q/k RMSNorm and interleaved RoPE as tensor ops, fixed-shift
-flash attention with (B, S, H*D) output), and ``FeedForward`` /
-``gelu_mlp`` on the int8 / w4a8 chain route (:647-737): fc1's GEMM emits
-fc2's int8 activations through the GELU -> requantize epilogue and fc2
-consumes their grouped scales.
+(:38); the half-split weight permutation (``permute_qk_halfsplit`` :148);
+``FluxAttention`` on its unfused branch (:470-513: fused QKV projection,
+q/k RMSNorm and interleaved RoPE as tensor ops) and its fused branch
+(``_forward_fused`` :242-368: the qkv/RoPE producer kernel, with the
+projections' low-rank terms inside it and the dual block's txt and img
+streams in one joint buffer), both ending in fixed-shift flash attention
+with (B, S, H*D) output; and ``FeedForward`` / ``gelu_mlp`` on the int8 /
+w4a8 chain route (:585-737): fc1's GEMM emits fc2's int8 activations
+through the GELU -> requantize epilogue and fc2 consumes their grouped
+scales, optionally fed by the LN + modulate + quantize producer and ending
+in the block's gated residual add.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import LOG2E, flash_attention
-from ..ops.gemm import dequant_w4a8, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant
-from ..ops.quantize import rsmooth_of
+from ..ops.attention import KERNEL_HEAD_DIM, LOG2E, flash_attention, qkv_rope_producer
+from ..ops.gemm import dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant
+from ..ops.quantize import ln_mod_quant_int8, rsmooth_of
 from ..ops.reference import rmsnorm
 from .embeddings import apply_rope
 from .linear import SVDQW4A4Linear
@@ -33,6 +39,60 @@ def qkv_norm_rope(qkv, head_dim, norm_q, norm_k, rot, prescale):
     q = apply_rope(rmsnorm(q, norm_q).to(qkv.dtype), rot, scale=prescale)
     k = apply_rope(rmsnorm(k, norm_k).to(qkv.dtype), rot)
     return q, k, v
+
+
+def _halfsplit_head_perm(head_dim: int) -> np.ndarray:
+    """Channel order that moves the interleaved rope pairs (2i, 2i+1) to
+    the half-split pairs (i, i + D/2): new[i] = old[2i], new[i + D/2] =
+    old[2i + 1]."""
+    return np.concatenate([np.arange(0, head_dim, 2), np.arange(1, head_dim, 2)])
+
+
+def _halfsplit_qkv_perm(heads: int, head_dim: int, n: int) -> np.ndarray:
+    """Output-channel order of a fused [q | k | v] projection: each head of
+    the q and k sections in half-split order, v and any padding in place."""
+    hd = heads * head_dim
+    per_head = (np.arange(heads)[:, None] * head_dim + _halfsplit_head_perm(head_dim)[None]).ravel()
+    parts = [per_head, hd + per_head, 2 * hd + np.arange(hd)]
+    if n > 3 * hd:
+        parts.append(np.arange(3 * hd, n))
+    return np.concatenate(parts)
+
+
+def _permute_out_channels(lin: SVDQW4A4Linear, perm: np.ndarray) -> None:
+    """Reorder a quantized linear's output channels in place: every N-axis
+    buffer moves together. An int8 weight stays K-contiguous."""
+    idx = torch.as_tensor(perm, device=lin.qweight.device)
+    for name in ("qweight", "wscales", "proj_up", "bias", "rescales"):
+        t = getattr(lin, name)
+        if t is None:
+            continue
+        t = t.index_select(-1, idx)
+        if name == "qweight" and lin.precision == "int8":
+            t = t.t().contiguous().t()
+        setattr(lin, name, t)
+
+
+def permute_qk_halfsplit(attn: "FluxAttention") -> None:
+    """Put the q/k output channels of the QKV projections and the q/k
+    RMSNorm weights in half-split rope order, and switch the module to the
+    fused prologue. The attention's result is unchanged: q and k move
+    together, v and the output projections stay."""
+    if attn.prep_fused:
+        raise ValueError("the attention weights are already in half-split order")
+    if attn.head_dim != KERNEL_HEAD_DIM:
+        raise NotImplementedError(f"the fused qkv prologue is ported for head_dim {KERNEL_HEAD_DIM}")
+    heads = attn.to_qkv.out_features // 3 // attn.head_dim
+    perm = _halfsplit_qkv_perm(heads, attn.head_dim, attn.to_qkv.out_features)
+    hperm = torch.as_tensor(_halfsplit_head_perm(attn.head_dim), device=attn.norm_q.device)
+    _permute_out_channels(attn.to_qkv, perm)
+    attn.norm_q = attn.norm_q.index_select(-1, hperm)
+    attn.norm_k = attn.norm_k.index_select(-1, hperm)
+    if attn.add_qkv_proj is not None:
+        _permute_out_channels(attn.add_qkv_proj, perm)
+        attn.norm_added_q = attn.norm_added_q.index_select(-1, hperm)
+        attn.norm_added_k = attn.norm_added_k.index_select(-1, hperm)
+    attn.prep_fused = True
 
 
 class FluxAttention(nn.Module):
@@ -53,6 +113,7 @@ class FluxAttention(nn.Module):
                         ("norm_added_k", norm_added_k)):
             self.register_buffer(name, t)
         self.head_dim = head_dim
+        self.prep_fused = False  # set by permute_qk_halfsplit
 
     @classmethod
     def random_init(cls, gen, dim, heads, head_dim, joint=True, rank=32, precision="w4a8",
@@ -71,15 +132,41 @@ class FluxAttention(nn.Module):
                    add_qkv_proj=lin(dim, 3 * inner), norm_added_q=ones(), norm_added_k=ones(),
                    to_add_out=lin(inner, dim), head_dim=head_dim)
 
-    def forward(self, hidden, encoder_hidden, rot):
-        """Dual: (img_attn_out, txt_attn_out). Single: raw attention (B, S, H*D)."""
-        qkv = self.to_qkv(hidden)
+    def forward(self, hidden, encoder_hidden, rot, mods=None):
+        """Dual: (img_attn_out, txt_attn_out). Single: raw attention (B, S, H*D).
+
+        ``mods = ((scale, shift), (scale_txt, shift_txt) | None)``: the
+        inputs are the RAW bf16 streams and LayerNorm + AdaLN modulation run
+        in the projections' quantize producers (``forward_modulated``).
+        After :func:`permute_qk_halfsplit`, ``rot`` is the half-split
+        ``(cos, sin)`` pair and the prologue is the qkv/RoPE producer
+        kernel; with ``mods`` the qkv GEMMs then skip their low-rank
+        epilogue and the producer adds it."""
+        fused = self.prep_fused and isinstance(rot, tuple)
+        lora_img = None
+        if mods is None:
+            qkv = self.to_qkv(hidden)
+        elif fused:
+            qkv, la = self.to_qkv.forward_modulated(hidden, *mods[0], skip_lora=True)
+            if la is not None:
+                lora_img = (la, self.to_qkv.proj_up)
+        else:
+            qkv = self.to_qkv.forward_modulated(hidden, *mods[0])
+        if fused:
+            return self._forward_fused(qkv, encoder_hidden, rot, lora_img,
+                                       None if mods is None else mods[1])
+        if isinstance(rot, tuple):
+            raise ValueError("the half-split (cos, sin) rope table needs the fused prologue "
+                             "(permute_qk_halfsplit)")
         prescale = LOG2E / math.sqrt(self.head_dim)
         if encoder_hidden is None:
             q, k, v = qkv_norm_rope(qkv, self.head_dim, self.norm_q, self.norm_k, rot, prescale)
             return flash_attention(q, k, v)
         s_txt = encoder_hidden.shape[1]
-        qkv_txt = self.add_qkv_proj(encoder_hidden)
+        if mods is not None and mods[1] is not None:
+            qkv_txt = self.add_qkv_proj.forward_modulated(encoder_hidden, *mods[1])
+        else:
+            qkv_txt = self.add_qkv_proj(encoder_hidden)
         q_i, k_i, v_i = qkv_norm_rope(qkv, self.head_dim, self.norm_q, self.norm_k, rot[s_txt:],
                                       prescale)
         q_t, k_t, v_t = qkv_norm_rope(qkv_txt, self.head_dim, self.norm_added_q,
@@ -89,17 +176,64 @@ class FluxAttention(nn.Module):
         txt_o, img_o = o[:, :s_txt], o[:, s_txt:]
         return self.to_out(img_o), self.to_add_out(txt_o)
 
+    def _forward_fused(self, qkv, encoder_hidden, rot, lora_img, mods_txt):
+        cos, sin = rot
+        kw = dict(q_scale=LOG2E / math.sqrt(self.head_dim))
 
-def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor) -> torch.Tensor:
+        def lora(pair):
+            return {} if pair is None else dict(lora_act=pair[0], proj_up=pair[1])
+
+        if encoder_hidden is None:
+            q, k, v = qkv_rope_producer(qkv, cos, sin, self.norm_q, self.norm_k, **kw, **lora(lora_img))
+            return flash_attention(q, k, v)
+        b, s_img, _ = qkv.shape
+        s_txt = encoder_hidden.shape[1]
+        lora_txt = None
+        if mods_txt is not None:
+            qkv_txt, la = self.add_qkv_proj.forward_modulated(encoder_hidden, *mods_txt, skip_lora=True)
+            if la is not None:
+                lora_txt = (la, self.add_qkv_proj.proj_up)
+        else:
+            qkv_txt = self.add_qkv_proj(encoder_hidden)
+        # both streams write one (B, H, S_txt + S_img, D) buffer set: img
+        # rows after the txt rows, no concatenation
+        heads = qkv.shape[-1] // 3 // self.head_dim
+        joint = tuple(torch.empty((b, heads, s_txt + s_img, self.head_dim), dtype=torch.bfloat16,
+                                  device=qkv.device) for _ in range(3))
+        qkv_rope_producer(qkv, cos[s_txt:], sin[s_txt:], self.norm_q, self.norm_k, out=joint,
+                          s_offset=s_txt, **kw, **lora(lora_img))
+        q, k, v = qkv_rope_producer(qkv_txt, cos[:s_txt], sin[:s_txt], self.norm_added_q,
+                                    self.norm_added_k, out=joint, s_offset=0, **kw, **lora(lora_txt))
+        o = flash_attention(q, k, v)
+        txt_o, img_o = o[:, :s_txt], o[:, s_txt:]
+        return self.to_out(img_o), self.to_add_out(txt_o)
+
+
+def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None,
+             residual=None) -> torch.Tensor:
     """fc1 -> GELU -> fc2 on the int8 / w4a8 chain: w4a8 weights are
     dequantized to int8 (fc1, then fc2), fc1's GEMM emits fc2's int8
     activations with one scale per (token, bn-column group), and fc2's GEMM
-    consumes them group by group."""
+    consumes them group by group.
+
+    ``mod = (scale, shift)``: x is the RAW bf16 stream (B, S, K) and the LN
+    + modulate + quantize producer makes fc1's activations. ``residual =
+    (x_stream, gate[, extra[, extra_lora_act, extra_proj_up]])`` (all (B, S,
+    ·), gate (B, N)) returns ``x_stream + gate * (mlp_out [+ extra +
+    extra_lora])``, fused into the grouped consumer's epilogue."""
     if not (fc1.precision == fc2.precision and fc1.precision in ("int8", "w4a8")):
         raise NotImplementedError("gelu_mlp is ported for matching int8 / w4a8 linears")
     lead = x.shape[:-1]
     m = math.prod(lead)
-    qact, asc, la = fc1.quantize(x.reshape(m, x.shape[-1]))
+    if mod is not None:
+        qact, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), mod[0], mod[1], fc1.smooth, fc1.proj_down)
+        pad = (-m) % 128  # the chain kernels take 128-row tiles; the producer does not pad
+        if pad:
+            qact = nn.functional.pad(qact, (0, 0, 0, pad))
+            asc = nn.functional.pad(asc, (0, pad))
+            la = nn.functional.pad(la, (0, 0, 0, pad))
+    else:
+        qact, asc, la = fc1.quantize(x.reshape(m, x.shape[-1]))
     w1, w2 = fc1.qweight, fc2.qweight
     if fc1.precision == "w4a8":
         w1 = dequant_w4a8(fc1.qweight, fc1.rescales)
@@ -107,8 +241,20 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor) -> torch
     qout, qs, la2 = svdq_gemm_w8a8_gelu_quant(
         qact, asc, w1, fc1.wscales, la, fc1.proj_up, fc1.bias, rsmooth_of(fc2.smooth),
         fc2.proj_down)
-    out = svdq_gemm_w4a4(qout, qs, w2, fc2.wscales, la2, fc2.proj_up, fc2.bias, precision="int8")
-    return out[:m].reshape(*lead, out.shape[-1])
+    res = None
+    if residual is not None and qout.shape[0] == m:
+        xr, gate, extra, ela, epu = tuple(residual) + (None,) * (5 - len(residual))
+
+        def flat(t):
+            return None if t is None else t.reshape(m, t.shape[-1])
+
+        res = (flat(xr), gate, flat(extra), flat(ela), epu)
+    out = svdq_gemm_w4a4(qout, qs, w2, fc2.wscales, la2, fc2.proj_up, fc2.bias, precision="int8",
+                         residual=res)
+    out = out[:m].reshape(*lead, out.shape[-1])
+    if residual is not None and res is None:  # padded rows: the add follows the slice
+        out = res_apply(out, *residual)
+    return out
 
 
 class FeedForward(nn.Module):
@@ -127,5 +273,5 @@ class FeedForward(nn.Module):
             SVDQW4A4Linear.random_init(gen, hidden, dim, rank=rank, precision=precision, device=device),
         )
 
-    def forward(self, x):
-        return gelu_mlp(self.fc1, self.fc2, x)
+    def forward(self, x, mod=None, residual=None):
+        return gelu_mlp(self.fc1, self.fc2, x, mod=mod, residual=residual)

@@ -14,8 +14,8 @@ import torch
 from torch import nn
 
 from ..ops.gemm import svdq_gemm_w4a4
-from ..ops.quantize import quantize_w4a4_act_fuse_lora
-from ..ops.reference import GROUP_INT4, bf16_matmul
+from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
+from ..ops.reference import GROUP_INT4, bf16_matmul, layer_norm
 
 PAD_TOKENS = 256  # token padding quantum of the quantized linears (JAX linear.py:26)
 
@@ -110,12 +110,46 @@ class SVDQW4A4Linear(nn.Module):
         return quantize_w4a4_act_fuse_lora(x2d, self.proj_down, self.smooth,
                                            precision=self.precision)
 
-    def forward_quant(self, qact, ascales, lora_act):
-        return svdq_gemm_w4a4(qact, ascales, self.qweight, self.wscales, lora_act, self.proj_up,
-                              self.bias, self.rescales, precision=self.precision)
+    def forward_quant(self, qact, ascales, lora_act, *, skip_lora=False, residual=None):
+        """The GEMM on quantized activations. ``skip_lora`` leaves out the
+        low-rank epilogue (the caller adds ``lora_act @ proj_up`` itself);
+        ``residual`` is :func:`~nunchaku_tpu_torch.ops.gemm.res_apply`'s
+        operands."""
+        return svdq_gemm_w4a4(qact, ascales, self.qweight, self.wscales, None if skip_lora else lora_act,
+                              None if skip_lora else self.proj_up, self.bias, self.rescales,
+                              precision=self.precision, residual=residual)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         m = math.prod(lead)
         out = self.forward_quant(*self.quantize(x.reshape(m, x.shape[-1])))
         return out[:m].reshape(*lead, out.shape[-1])
+
+    def forward_parts(self, x: torch.Tensor):
+        """Like :meth:`forward` without the low-rank epilogue: returns
+        ``(out_without_lora, lora_act)`` so the caller can add the low-rank
+        term downstream (the chain consumer's residual epilogue)."""
+        lead = x.shape[:-1]
+        m = math.prod(lead)
+        q, a, la = self.quantize(x.reshape(m, x.shape[-1]))
+        out = self.forward_quant(q, a, la, skip_lora=True)
+        return out[:m].reshape(*lead, out.shape[-1]), la[:m].reshape(*lead, la.shape[-1])
+
+    def forward_modulated(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
+                          skip_lora=False):
+        """``LN(x) * (1 + scale) + shift`` -> this linear, x (B, S, K) the raw
+        bf16 stream, scale / shift (B, K): one LN + modulate + quantize
+        producer (:func:`~nunchaku_tpu_torch.ops.quantize.ln_mod_quant_int8`)
+        feeds the GEMM. ``skip_lora`` returns ``(out_without_lora, lora_act
+        (B, S, R))``. Like the JAX method, a stream whose S has no divisor
+        among 512 ... 8 takes the multi-pass LayerNorm / modulate / quantize
+        chain, and ``lora_act`` is then None (the low-rank term stays in the
+        GEMM)."""
+        b, s, k = x.shape
+        if s % 8 == 0 and k == self.in_features:
+            q, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), scale, shift, self.smooth, self.proj_down)
+            out = self.forward_quant(q, asc, la, skip_lora=skip_lora).reshape(b, s, -1)
+            return (out, la.reshape(b, s, -1)) if skip_lora else out
+        y = layer_norm(x) * (1.0 + scale.float()[:, None]) + shift.float()[:, None]
+        out = self(y.to(torch.bfloat16))
+        return (out, None) if skip_lora else out

@@ -7,9 +7,9 @@ low-rank branch (``_mod_linear``).
 
 from __future__ import annotations
 
-import torch
 from torch import nn
 
+from ..ops.reference import layer_norm
 from .linear import Linear, SVDQW4A4Linear
 
 
@@ -20,16 +20,6 @@ def mod_linear(gen, dim, out_dim, device="cuda") -> SVDQW4A4Linear:
     lin.proj_down.zero_()
     lin.proj_up.zero_()
     return lin
-
-
-def layer_norm(x: torch.Tensor) -> torch.Tensor:
-    """Parameter-free LayerNorm in f32, eps 1e-6 (mean, then the mean of
-    squared deviations, like ``jnp.var``)."""
-    xf = x.float()
-    mu = xf.mean(dim=-1, keepdim=True)
-    d = xf - mu
-    var = (d * d).mean(dim=-1, keepdim=True)
-    return d * torch.rsqrt(var + 1e-6)
 
 
 def _modulation(linear, temb):
@@ -54,6 +44,12 @@ class AdaLayerNormZero(nn.Module):
         out = layer_norm(x) * (scale_msa[:, None] + 1.0) + shift_msa[:, None]
         return out.to(x.dtype), gate_msa, shift_mlp, scale_mlp, gate_mlp
 
+    def mod_vectors(self, temb):
+        """The six (B, D) f32 modulation vectors (shift_msa, scale_msa,
+        gate_msa, shift_mlp, scale_mlp, gate_mlp) without the norm, for the
+        fused LN + modulate + quantize producer."""
+        return _modulation(self.linear, temb).chunk(6, dim=-1)
+
 
 class AdaLayerNormZeroSingle(nn.Module):
     """Single-stream variant: returns (norm_x, gate_msa)."""
@@ -70,6 +66,10 @@ class AdaLayerNormZeroSingle(nn.Module):
         shift_msa, scale_msa, gate_msa = _modulation(self.linear, temb).chunk(3, dim=-1)
         out = layer_norm(x) * (scale_msa[:, None] + 1.0) + shift_msa[:, None]
         return out.to(x.dtype), gate_msa
+
+    def mod_vectors(self, temb):
+        """(shift_msa, scale_msa, gate_msa), each (B, D) f32, without the norm."""
+        return _modulation(self.linear, temb).chunk(3, dim=-1)
 
 
 class AdaLayerNormContinuous(nn.Module):

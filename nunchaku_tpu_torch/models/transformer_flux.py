@@ -1,11 +1,20 @@
-"""FLUX.1 transformer on the f32 residual stream.
+"""FLUX.1 transformer.
 
 Counterpart of ``nunchaku_tpu/models/transformers/transformer_flux.py``:
 ``FluxConfig``, ``FluxTransformerBlock``, ``FluxSingleTransformerBlock`` and
 ``FluxTransformer2DModel`` with ``embed`` / ``run_dual`` / ``run_singles`` /
-``head``, for the default (f32-stream, unfused-attention) configuration
-without ControlNet. The JAX ``lax.scan`` over stacked blocks becomes a
-Python loop over per-layer modules, each holding its own tensors.
+``head``, without ControlNet, in two configurations:
+
+* the default: an f32 residual stream and the unfused attention prologue;
+* the turbo configuration ``bench.py`` serves, after
+  ``set_stream_dtype(torch.bfloat16)`` and ``enable_fused_qkv_prep()``: a
+  bf16 stream whose LayerNorm + AdaLN modulation ride the projections'
+  quantize producer, the qkv/RoPE producer kernel, and the blocks' gated
+  residual adds in the MLP consumer's epilogue (the JAX ``FUSED_LN_QUANT``
+  and ``RES_EPILOGUE`` branches, always on here).
+
+The JAX ``lax.scan`` over stacked blocks becomes a Python loop over
+per-layer modules, each holding its own tensors.
 """
 
 from __future__ import annotations
@@ -15,7 +24,8 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .attention import FeedForward, FluxAttention, gelu_mlp
+from ..ops.attention import rope_table_halfsplit
+from .attention import FeedForward, FluxAttention, gelu_mlp, permute_qk_halfsplit
 from .embeddings import CombinedTimestepEmbeddings, rope_table
 from .linear import Linear, SVDQW4A4Linear
 from .normalization import (
@@ -72,19 +82,33 @@ class FluxTransformerBlock(nn.Module):
 
     def forward(self, img, txt, temb, rot):
         sdt = img.dtype
-        norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(img, temb)
-        norm_txt, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(txt, temb)
-        attn_img, attn_txt = self.attn(norm_img, norm_txt, rot)
+        fused_ln = sdt == torch.bfloat16  # the producers' route: bf16 stream, int8 / w4a8 linears
+        if fused_ln:
+            shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1.mod_vectors(temb)
+            c_shift_msa, c_scale_msa, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
+                self.norm1_context.mod_vectors(temb))
+            attn_img, attn_txt = self.attn(img, txt, rot,
+                                           mods=((scale_msa, shift_msa), (c_scale_msa, c_shift_msa)))
+        else:
+            norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(img, temb)
+            norm_txt, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(txt, temb)
+            attn_img, attn_txt = self.attn(norm_img, norm_txt, rot)
 
         img = (img + gate_msa[:, None] * attn_img.float()).to(sdt)
-        h = layer_norm(img) * (1.0 + scale_mlp[:, None]) + shift_mlp[:, None]
-        ff_out = self.ff(h.to(attn_img.dtype))
-        img = (img + gate_mlp[:, None] * ff_out.float()).to(sdt)
+        if fused_ln:  # the gated residual add rides the MLP consumer's epilogue
+            img = self.ff(img, mod=(scale_mlp, shift_mlp), residual=(img, gate_mlp))
+        else:
+            h = layer_norm(img) * (1.0 + scale_mlp[:, None]) + shift_mlp[:, None]
+            ff_out = self.ff(h.to(attn_img.dtype))
+            img = (img + gate_mlp[:, None] * ff_out.float()).to(sdt)
 
         txt = (txt + c_gate_msa[:, None] * attn_txt.float()).to(sdt)
-        h = layer_norm(txt) * (1.0 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
-        ffc_out = self.ff_context(h.to(attn_txt.dtype))
-        txt = (txt + c_gate_mlp[:, None] * ffc_out.float()).to(sdt)
+        if fused_ln:
+            txt = self.ff_context(txt, mod=(c_scale_mlp, c_shift_mlp), residual=(txt, c_gate_mlp))
+        else:
+            h = layer_norm(txt) * (1.0 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
+            ffc_out = self.ff_context(h.to(attn_txt.dtype))
+            txt = (txt + c_gate_mlp[:, None] * ffc_out.float()).to(sdt)
         return img, txt
 
 
@@ -118,6 +142,15 @@ class FluxSingleTransformerBlock(nn.Module):
         )
 
     def forward(self, x, temb, rot):
+        if x.dtype == torch.bfloat16:
+            # x + gate * (attn_out + mlp) in the MLP consumer's epilogue:
+            # attn_out's main term enters as `extra`, its low-rank branch as
+            # (lora_act, proj_up)
+            shift, scale, gate = self.norm.mod_vectors(temb)
+            attn = self.attn(x, None, rot, mods=((scale, shift), None))
+            attn_main, attn_la = self.attn_out.forward_parts(attn)
+            return gelu_mlp(self.mlp_fc1, self.mlp_fc2, x, mod=(scale, shift),
+                            residual=(x, gate, attn_main, attn_la, self.attn_out.proj_up))
         norm_x, gate = self.norm(x, temb)
         attn = self.attn(norm_x, None, rot)
         mlp = gelu_mlp(self.mlp_fc1, self.mlp_fc2, norm_x)
@@ -126,7 +159,8 @@ class FluxSingleTransformerBlock(nn.Module):
 
 
 class FluxTransformer2DModel(nn.Module):
-    """Full FLUX transformer (diffusers forward contract), f32 residual stream."""
+    """Full FLUX transformer (diffusers forward contract); f32 residual
+    stream unless :meth:`set_stream_dtype` says otherwise."""
 
     def __init__(self, cfg: FluxConfig, x_embedder: Linear, context_embedder: Linear,
                  time_text_embed: CombinedTimestepEmbeddings, transformer_blocks,
@@ -140,6 +174,8 @@ class FluxTransformer2DModel(nn.Module):
         self.single_transformer_blocks = nn.ModuleList(single_transformer_blocks)
         self.norm_out = norm_out
         self.proj_out = proj_out
+        self.stream_dtype = torch.float32
+        self.rope_halfsplit = False
 
     @classmethod
     def random_init(cls, cfg: FluxConfig, seed: int = 0, device="cuda"):
@@ -161,13 +197,36 @@ class FluxTransformer2DModel(nn.Module):
             Linear.random_init(gen, dim, cfg.out_channels, device=device),
         )
 
+    def set_stream_dtype(self, dtype) -> "FluxTransformer2DModel":
+        """Residual-stream dtype: f32 (default) or bf16, which halves the
+        stream's traffic and selects the blocks' fused producer branches."""
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"stream dtype must be float32 or bfloat16, got {dtype}")
+        self.stream_dtype = dtype
+        return self
+
+    def enable_fused_qkv_prep(self) -> "FluxTransformer2DModel":
+        """Permute every QKV projection's q/k channels and the q/k RMSNorm
+        weights into half-split rope order and run the attention prologue
+        as the qkv/RoPE producer kernel (:func:`permute_qk_halfsplit`).
+        The model's outputs are unchanged up to rounding. Once per model:
+        a second call raises."""
+        for block in [*self.transformer_blocks, *self.single_transformer_blocks]:
+            permute_qk_halfsplit(block.attn)
+        self.rope_halfsplit = True
+        return self
+
     def embed(self, hidden_states, encoder_hidden_states, pooled_projections, timestep, img_ids,
               txt_ids, guidance=None):
-        """-> (img f32, txt f32, temb bf16, rot (S_txt + S_img, D/2, 2))."""
-        img = self.x_embedder(hidden_states).float()
-        txt = self.context_embedder(encoder_hidden_states).float()
+        """-> (img, txt in the stream dtype, temb bf16, rot): rot is the
+        (S_txt + S_img, D/2, 2) table, or its half-split (cos, sin) pair once
+        the fused qkv prologue is on."""
+        img = self.x_embedder(hidden_states).to(self.stream_dtype)
+        txt = self.context_embedder(encoder_hidden_states).to(self.stream_dtype)
         temb = self.time_text_embed(timestep, pooled_projections, guidance).to(torch.bfloat16)
         rot = rope_table(torch.cat([txt_ids, img_ids], dim=0), self.cfg.axes_dims_rope)
+        if self.rope_halfsplit:
+            rot = rope_table_halfsplit(rot)
         return img, txt, temb, rot
 
     def run_dual(self, img, txt, temb, rot, start=0, stop=None):

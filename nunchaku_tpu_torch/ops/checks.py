@@ -16,16 +16,24 @@ import math
 
 import torch
 
-from .attention import flash_attention, flash_attention_plain
+from .attention import (
+    LOG2E,
+    flash_attention,
+    flash_attention_plain,
+    qkv_rope_producer,
+    qkv_rope_producer_plain,
+)
 from .gemm import (
     chain_tile_n,
     dequant_w4a8,
     dequant_w4a8_plain,
     gemm_w8a8_grouped,
     gemm_w8a8_grouped_plain,
+    gemm_w8a8_grouped_res,
     svdq_gemm_w8a8_gelu_quant,
     svdq_gemm_w8a8_gelu_quant_plain,
 )
+from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
 
 
 def _gen(seed: int, device) -> torch.Generator:
@@ -78,6 +86,64 @@ def flash_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
     return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
+def ln_mod_quant_case(b, s, k, r=32, *, mod=True, seed=0, device="cuda"):
+    """A (B, S, K) bf16 stream with a spread of row means and scales; the
+    modulation as two (B, K) chunks of one (B, 6K) AdaLN vector, like the
+    model passes them."""
+    g = _gen(seed, device)
+    x = (torch.randn((b, s, k), device=device, generator=g) * 4.0
+         + torch.randn((b, s, 1), device=device, generator=g)).to(torch.bfloat16)
+    sc = sh = None
+    if mod:
+        vec = torch.randn((b, 6 * k), device=device, generator=g) * 0.3
+        sh, sc = vec.chunk(6, dim=-1)[:2]
+    smooth = (torch.rand((k,), device=device, generator=g) * 1.5 + 0.5).to(torch.bfloat16)
+    pd = (torch.randn((k, r), device=device, generator=g) * 0.02).to(torch.bfloat16)
+    return x, sc, sh, smooth, pd
+
+
+def qkv_rope_case(b, seqs, heads, d=128, r=32, *, seed=0, device="cuda"):
+    """Streams that fill one joint (B, H, sum(seqs), D) buffer set: the
+    dual block's (S_txt, S_img), or a single block's (S,). Returns
+    (streams, cos, sin) with streams a list of (qkv, norm_q, norm_k,
+    lora_act, proj_up, row offset), last stream first (the model's call
+    order); ``r = 0`` leaves out the low-rank term."""
+    g = _gen(seed, device)
+    n3 = 3 * heads * d
+    s_all = sum(seqs)
+    ang = torch.rand((s_all, d // 2), device=device, generator=g) * 6.0
+    cos = torch.cat([torch.cos(ang)] * 2, dim=-1).contiguous()
+    sin = torch.cat([-torch.sin(ang), torch.sin(ang)], dim=-1).contiguous()
+    streams, off = [], 0
+    for s in seqs:
+        qkv = (torch.randn((b, s, n3), device=device, generator=g) * 2.0).to(torch.bfloat16)
+        nq = (torch.rand((d,), device=device, generator=g) + 0.5).to(torch.bfloat16)
+        nk = (torch.rand((d,), device=device, generator=g) + 0.5).to(torch.bfloat16)
+        la = pu = None
+        if r:
+            la = torch.randn((b, s, r), device=device, generator=g)
+            pu = (torch.randn((r, n3), device=device, generator=g) * 0.05).to(torch.bfloat16)
+        streams.append((qkv, nq, nk, la, pu, off))
+        off += s
+    return streams[::-1], cos, sin
+
+
+def grouped_res_case(m, k, n, groups, r=32, *, batch=1, extra=True, seed=0, device="cuda"):
+    """grouped_case's operands plus the residual (x, gate[, extra, extra_la,
+    extra_pu]) of a batch of ``batch`` streams of M / batch rows."""
+    args = grouped_case(m, k, n, groups, r, seed=seed, device=device)
+    g = _gen(seed + 2, device)
+    x = (torch.randn((m, n), device=device, generator=g) * 2.0).to(torch.bfloat16)
+    gate = torch.randn((batch, n), device=device, generator=g) * 0.5
+    res = (x, gate)
+    if extra:
+        ex = (torch.randn((m, n), device=device, generator=g) * 0.5).to(torch.bfloat16)
+        ela = torch.randn((m, r), device=device, generator=g)
+        epu = (torch.randn((r, n), device=device, generator=g) * 0.02).to(torch.bfloat16)
+        res = res + (ex, ela, epu)
+    return args + (res,)
+
+
 def check_dequant(qw, rs):
     """Exact: every int8 code equals the plain version's."""
     out = dequant_w4a8(qw, rs)
@@ -119,3 +185,53 @@ def check_flash(q, k, v):
     err, rel = _rel(out, ref)
     ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"
+
+
+def check_ln_mod_quant(x, sc, sh, smooth, pd):
+    """Codes: at most one code apart, on at most 0.1% of elements (the
+    LayerNorm sums run in another order); scales: relative error <= 1e-5;
+    lora_act: max error <= 1e-2 of its max |value|."""
+    q, s, la = ln_mod_quant_int8(x, sc, sh, smooth, pd)
+    qr, sr, lr = ln_mod_quant_int8_plain(x, sc, sh, smooth, pd)
+    diff = (q.int() - qr.int()).abs()
+    code_max = diff.max().item()
+    frac = (diff > 0).float().mean().item()
+    s_rel = ((s - sr).abs() / sr.abs().clamp_min(1e-30)).max().item()
+    _, l_rel = _rel(la, lr)
+    ok = (code_max <= 1 and frac <= 1e-3 and s_rel <= 1e-5 and l_rel <= 1e-2
+          and q.shape == qr.shape and s.shape == sr.shape and la.shape == lr.shape)
+    detail = (f"max code diff {code_max} on {frac:.2e} of codes (tol 1 on <=1e-3); "
+              f"scale rel {s_rel:.2e} (tol 1e-5); lora_act rel {l_rel:.2e} (tol 1e-2)")
+    return float(code_max), ok, detail
+
+
+def run_qkv_rope(fn, streams, cos, sin, q_scale=LOG2E / math.sqrt(128)):
+    """Every stream through ``fn`` into one joint buffer set."""
+    b, _, n3 = streams[0][0].shape
+    d = streams[0][1].shape[0]
+    s_all = cos.shape[0]
+    out = tuple(torch.empty((b, n3 // 3 // d, s_all, d), dtype=torch.bfloat16, device=cos.device)
+                for _ in range(3))
+    for qkv, nq, nk, la, pu, off in streams:
+        s = qkv.shape[1]
+        fn(qkv, cos[off:off + s], sin[off:off + s], nq, nk, q_scale=q_scale, lora_act=la, proj_up=pu,
+           out=out, s_offset=off)
+    return out
+
+
+def check_qkv_rope(streams, cos, sin):
+    """q, k, v (bf16): max error <= 1e-2 of the plain output's max |value|."""
+    out = run_qkv_rope(qkv_rope_producer, streams, cos, sin)
+    ref = run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin)
+    errs = [_rel(o, r) for o, r in zip(out, ref)]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    ok = rel <= 1e-2 and all(bool(torch.isfinite(o.float()).all()) for o in out)
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} over q, k, v (tol 1e-2)"
+
+
+def check_grouped_res(qa, ascales, w, wscales, la, pu, bias, residual):
+    """bf16 output: max error <= 1e-2 of the plain output's max |value|."""
+    out = gemm_w8a8_grouped_res(qa, ascales, w, wscales, la, pu, bias, residual)
+    ref = gemm_w8a8_grouped_plain(qa, ascales, w, wscales, la, pu, bias, residual)
+    err, rel = _rel(out, ref)
+    return err, rel <= 1e-2 and out.shape == ref.shape, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"

@@ -11,7 +11,10 @@ int8 once per layer, then int8 x int8 products):
   (JAX ``_gemm_w8a8_gelu_quant_kernel`` :460), the fc1 GEMM whose epilogue
   emits fc2's int8 activations;
 * :func:`gemm_w8a8_grouped` -- kernel ``csrc/gemm_w8a8_grouped.cu`` (JAX
-  ``_gemm_w8a8_kernel`` :344 in grouped-scale mode), the fc2 consumer;
+  ``_gemm_w8a8_kernel`` :344 in grouped-scale mode), the fc2 consumer; with
+  ``residual=`` it takes the block's gated residual add into its epilogue
+  (the kernel's ``n_res`` mode, counted as :func:`gemm_w8a8_grouped_res`),
+  and :func:`res_apply` is the same add for routes that do not fuse it;
 * :func:`gemm_w8a8` -- the standalone int8 GEMM with rank-1 scales, which
   JAX leaves to XLA (``_gemm_w8a8_xla`` :1221): ``torch._int_mm`` plus
   PyTorch epilogue ops.
@@ -42,11 +45,6 @@ def _stream(t: torch.Tensor) -> int:
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
-
-
-def _require(cond: bool, what: str) -> None:
-    if not cond:
-        raise ValueError(what)
 
 
 def chain_tile_n(n: int) -> int:
@@ -84,10 +82,10 @@ def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor) -> torch.Tensor:
         return dequant_w4a8_plain(qweight, rescales)
     half, n = qweight.shape
     k = half * 2
-    _require(qweight.dtype == torch.int8 and qweight.is_contiguous(), "qweight: contiguous int8")
-    _require(rescales.dtype == torch.bfloat16 and rescales.is_contiguous(), "rescales: contiguous bf16")
-    _require(k % PACK_BLOCK == 0 and n % 64 == 0, f"dequant kernel needs K % 256 == 0, N % 64 == 0 (K={k}, N={n})")
-    _require(tuple(rescales.shape) == (k // GROUP_INT4, n), f"rescales must be (K/64, N), got {tuple(rescales.shape)}")
+    _build.require(qweight.dtype == torch.int8 and qweight.is_contiguous(), "qweight: contiguous int8")
+    _build.require(rescales.dtype == torch.bfloat16 and rescales.is_contiguous(), "rescales: contiguous bf16")
+    _build.require(k % PACK_BLOCK == 0 and n % 64 == 0, f"dequant kernel needs K % 256 == 0, N % 64 == 0 (K={k}, N={n})")
+    _build.require(tuple(rescales.shape) == (k // GROUP_INT4, n), f"rescales must be (K/64, N), got {tuple(rescales.shape)}")
     out_t = torch.empty((n, k), dtype=torch.int8, device=qweight.device)
     lib = _build.library()
     _build.check(lib.nt_dequant_w4a8(qweight.data_ptr(), rescales.data_ptr(), out_t.data_ptr(), k, n,
@@ -163,9 +161,9 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     bn = chain_tile_n(n)
     r = 0 if lora_act is None else lora_act.shape[1]
     r2 = proj_down_next.shape[1]
-    _require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % KERNEL_TILE_K == 0,
+    _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % KERNEL_TILE_K == 0,
              f"gelu-quant kernel needs M % 128, N % 128, K % 64 == 0 (M={m}, N={n}, K={k})")
-    _require(r <= KERNEL_MAX_RANK and r2 <= KERNEL_MAX_RANK, f"rank {r}/{r2} > {KERNEL_MAX_RANK}")
+    _build.require(r <= KERNEL_MAX_RANK and r2 <= KERNEL_MAX_RANK, f"rank {r}/{r2} > {KERNEL_MAX_RANK}")
     dev = qact.device
     qa = qact.contiguous()
     a_s = ascales.reshape(m).float().contiguous()
@@ -176,9 +174,9 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     rsm = rsmooth_next.reshape(n).float().contiguous()
     pd = proj_down_next.to(torch.bfloat16).contiguous()
-    _require(qa.dtype == torch.int8 and wt.dtype == torch.int8, "int8 operands expected")
+    _build.require(qa.dtype == torch.int8 and wt.dtype == torch.int8, "int8 operands expected")
     tiles = n // KERNEL_TILE_N
-    _require(n // bn <= 256, f"at most 256 scale groups per row, got {n // bn}")
+    _build.require(n // bn <= 256, f"at most 256 scale groups per row, got {n // bn}")
     gbuf = torch.empty((m, n), dtype=torch.float32, device=dev)  # scratch: g between the two kernels
     amax_part = torch.empty((tiles, m), dtype=torch.float32, device=dev)
     lora_part = torch.empty((tiles, m, KERNEL_MAX_RANK), dtype=torch.float32, device=dev)
@@ -199,11 +197,28 @@ svdq_gemm_w8a8_gelu_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# kernel 3: grouped-scale consumer
+# kernel 3: grouped-scale consumer, with the gated-residual epilogue
 # ---------------------------------------------------------------------------
 
 
-def gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias):
+def res_apply(out, x, gate, extra=None, extra_la=None, extra_pu=None):
+    """The block's gated residual add on a finished GEMM output (JAX
+    ``_res_apply_xla``, gemm.py:1869): ``x + gate * (out + bf16(extra +
+    bf16(extra_la) @ extra_pu))`` in f32, rounded to ``out``'s dtype. ``out``,
+    ``x``, ``extra`` are (M, N) or (B, S, N) with M = B*S; ``gate`` is the
+    (B, N) AdaLN gate of each batch row."""
+    b, n = gate.shape
+    t = out.float()
+    if extra is not None:
+        e = extra.float()
+        if extra_la is not None:
+            e = e + bf16_matmul(extra_la, extra_pu)
+        t = t + e.to(torch.bfloat16).float()
+    r = x.float().reshape(b, -1, n) + gate.float().reshape(b, 1, n) * t.reshape(b, -1, n)
+    return r.reshape(out.shape).to(out.dtype)
+
+
+def gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual=None):
     m, k = qact.shape
     ga = ascales.shape[0]
     bk = k // ga
@@ -217,23 +232,19 @@ def gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, 
         out = out + bf16_matmul(lora_act, proj_up)
     if bias is not None:
         out = out + bias.reshape(1, -1).float()
-    return out.to(torch.bfloat16)
+    out = out.to(torch.bfloat16)
+    return out if residual is None else res_apply(out, *residual)
 
 
-def gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias):
-    """int8 GEMM over grouped activation scales ``ascales (G, M)``: each
-    K/G-wide group's int32 partial is scaled by its scale before the f32
-    sum; then ``* wscale + bf16(lora_act) @ proj_up + bias`` -> bf16."""
-    if not qact.is_cuda:
-        return gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
+def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual):
     m, k = qact.shape
     n = qweight.shape[1]
     ga = ascales.shape[0]
     r = 0 if lora_act is None else lora_act.shape[1]
-    _require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % ga == 0
-             and (k // ga) % KERNEL_TILE_K == 0,
-             f"grouped kernel needs M % 128, N % 128, (K/G) % 64 == 0 (M={m}, N={n}, K={k}, G={ga})")
-    _require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}")
+    _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % ga == 0
+                   and (k // ga) % KERNEL_TILE_K == 0,
+                   f"grouped kernel needs M % 128, N % 128, (K/G) % 64 == 0 (M={m}, N={n}, K={k}, G={ga})")
+    _build.require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}")
     qa = qact.contiguous()
     a_s = ascales.float().contiguous()
     wt = qweight.t().contiguous()  # (N, K): free for the dequant kernel's K-contiguous output
@@ -241,17 +252,61 @@ def gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias):
     la = None if lora_act is None else lora_act.float().contiguous()
     pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
-    _require(qa.dtype == torch.int8 and wt.dtype == torch.int8, "int8 operands expected")
+    _build.require(qa.dtype == torch.int8 and wt.dtype == torch.int8, "int8 operands expected")
+    x = gate = extra = ela = epu = None
+    rows, r2 = m, 0
+    if residual is not None:
+        x, gate, extra, ela, epu = tuple(residual) + (None,) * (5 - len(residual))
+        _build.require(m % gate.shape[0] == 0 and gate.shape[1] == n, "gate must be (B, N) with B | M")
+        rows = m // gate.shape[0]
+        x = x.reshape(m, n).to(torch.bfloat16).contiguous()
+        gate = gate.float().contiguous()
+        if extra is not None:
+            extra = extra.reshape(m, n).to(torch.bfloat16).contiguous()
+        if ela is not None:
+            _build.require(extra is not None, "extra_la needs extra")
+            r2 = ela.shape[-1]
+            _build.require(r2 <= KERNEL_MAX_RANK, f"rank {r2} > {KERNEL_MAX_RANK}")
+            ela = ela.reshape(m, r2).float().contiguous()
+            epu = epu.to(torch.bfloat16).contiguous()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
     lib = _build.library()
     _build.check(lib.nt_gemm_w8a8_grouped(
         qa.data_ptr(), a_s.data_ptr(), wt.data_ptr(), w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b),
-        out.data_ptr(), m, n, k, ga, r, _stream(qact)), "gemm_w8a8_grouped")
+        _ptr(x), _ptr(gate), _ptr(extra), _ptr(ela), _ptr(epu), out.data_ptr(), m, n, k, ga, r, rows, r2,
+        _stream(qact)), "gemm_w8a8_grouped")
+    return out
+
+
+def gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual=None):
+    """int8 GEMM over grouped activation scales ``ascales (G, M)``: each
+    K/G-wide group's int32 partial is scaled by its scale before the f32
+    sum; then ``* wscale + bf16(lora_act) @ proj_up + bias`` -> bf16.
+
+    ``residual = (x, gate[, extra[, extra_la, extra_pu]])`` returns
+    :func:`res_apply` of that output instead, computed in the kernel's
+    epilogue (:func:`gemm_w8a8_grouped_res` on the card)."""
+    if residual is not None:
+        return gemm_w8a8_grouped_res(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
+    if not qact.is_cuda:
+        return gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
+    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, None)
     gemm_w8a8_grouped.launches += 1
     return out
 
 
+def gemm_w8a8_grouped_res(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual):
+    """The grouped consumer in its gated-residual mode (its own launch
+    count, so a run shows which mode it went through)."""
+    if not qact.is_cuda:
+        return gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
+    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
+    gemm_w8a8_grouped_res.launches += 1
+    return out
+
+
 gemm_w8a8_grouped.launches = 0
+gemm_w8a8_grouped_res.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -260,21 +315,22 @@ gemm_w8a8_grouped.launches = 0
 
 
 def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None, bias=None,
-                   rescales=None, *, precision="int8"):
+                   rescales=None, *, precision="int8", residual=None):
     """The int8 / w4a8 branches of the JAX ``svdq_gemm_w4a4``.
 
     int8: qact (M, K) int8, ascales (1, M) per token or (G, M) grouped,
     qweight (K, N) int8, wscales (1, N). w4a8: qweight is packed int4
     (K/2, N) with ``rescales`` (K/64, N); it is dequantized to int8 first.
     Grouped scales (G > 1, from the chain producer) go to the grouped
-    kernel, per-token scales to the standalone int8 GEMM."""
+    kernel, per-token scales to the standalone int8 GEMM. ``residual = (x,
+    gate[, extra[, extra_la, extra_pu]])`` adds the block's gated residual
+    (:func:`res_apply`): in the grouped kernel's epilogue, else after the
+    standalone GEMM."""
     if precision == "w4a8":
         qweight = dequant_w4a8(qweight, rescales)
     elif precision != "int8":
         raise NotImplementedError(f"precision {precision!r} is not ported")
     if ascales.ndim == 2 and ascales.shape[0] > 1:
-        return gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
-    return gemm_w8a8(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
-
-
-KERNELS = (dequant_w4a8, svdq_gemm_w8a8_gelu_quant, gemm_w8a8_grouped)
+        return gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
+    out = gemm_w8a8(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
+    return out if residual is None else res_apply(out, *residual)

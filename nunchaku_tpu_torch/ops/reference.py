@@ -2,7 +2,8 @@
 
 Copies of what ``nunchaku_tpu/ops/reference.py`` defines for the w4a8
 FLUX path: the int4 group size, the post-GELU shift of unsigned next
-layers, the tanh-approximated GELU and RMSNorm.
+layers, the tanh-approximated GELU and RMSNorm; and the parameter-free
+LayerNorm of ``nunchaku_tpu/models/normalization.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +31,16 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return xf * torch.rsqrt(var + 1e-6) * weight.float()
+
+
+def layer_norm(x: torch.Tensor) -> torch.Tensor:
+    """Parameter-free LayerNorm in f32, eps 1e-6 (mean, then the mean of
+    squared deviations, like ``jnp.var``)."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    d = xf - mu
+    var = (d * d).mean(dim=-1, keepdim=True)
+    return d * torch.rsqrt(var + 1e-6)
 
 
 def bf16_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,15 @@
 """Where one FLUX.1-dev w4a8 denoise step spends its time on the card.
 
-    python -m nunchaku_tpu_torch.tools.profile_step [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step [--turbo] [--out TABLE.txt]
 
-Builds the full-width, full-depth model from random weights, runs one warm
-1024x1024 transformer forward, then traces one more with ``torch.profiler``
-(CUDA activity). Prints the forward's wall time, the device's busy time and
-idle share, device time by group (the port's kernels, PyTorch's int8 and
-float GEMMs, the rest) and the top kernels; with ``--out``, the full
-``key_averages`` table goes to that file. Needs a CUDA device.
+Builds the full-width, full-depth model from random weights (with
+``--turbo``: switched to the bf16-stream configuration with the fused qkv
+prologue, as ``bench.py`` serves it), runs one warm 1024x1024 transformer
+forward, then traces one more with ``torch.profiler`` (CUDA activity).
+Prints the forward's wall time, the device's busy time and idle share,
+device time by group (the port's kernels, PyTorch's int8 and float GEMMs,
+the rest) and the top kernels; with ``--out``, the full ``key_averages``
+table goes to that file. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from pathlib import Path
 import torch
 
 PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel",
-                "gemm_grouped_kernel", "flash_fixed_kernel")
+                "gemm_grouped_kernel", "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel")
 
 
 def group_of(name: str) -> str:
@@ -39,6 +41,8 @@ def group_of(name: str) -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="profile one FLUX.1-dev w4a8 forward")
     ap.add_argument("--out", help="file for the full key_averages table")
+    ap.add_argument("--turbo", action="store_true",
+                    help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
@@ -52,6 +56,8 @@ def main(argv=None) -> int:
                          capture_output=True, text=True, check=True).stdout.strip()
     cfg = FluxConfig(precision="w4a8")
     model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    if args.turbo:
+        model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
     gen = torch.Generator(device=dev).manual_seed(0)
     inputs = (
         torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
@@ -84,7 +90,8 @@ def main(argv=None) -> int:
         t, n = kernels.get(ev.name, (0.0, 0))
         kernels[ev.name] = (t + us, n + 1)
     busy_ms = sum(groups.values()) / 1e3
-    lines = [f"card: {smi}; torch {torch.__version__}",
+    lines = [f"card: {smi}; torch {torch.__version__}; "
+             f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}",
              f"forward wall {wall_plain * 1e3:.1f} ms untraced, {wall * 1e3:.1f} ms traced; "
              f"device busy {busy_ms:.1f} ms (kernel time summed); idle share "
              f"{max(0.0, 1 - busy_ms / (wall * 1e3)):.3f} of the traced forward"]

@@ -1,5 +1,6 @@
 """Card tests: each Hopper kernel of nunchaku_tpu_torch against its plain
-PyTorch twin on the GPU, at FLUX.1-dev main-path shapes and at ragged ones.
+PyTorch twin on the GPU, at FLUX.1-dev main-path shapes (f32 and bf16-stream
+configurations) and at ragged ones.
 
 They need an NVIDIA GPU and nvcc, and skip elsewhere (decided inside a
 fixture, so every worker collects the same tests). This file imports no
@@ -8,10 +9,14 @@ JAX; on the card, run it without the JAX-side conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import copy
+
 import pytest
 import torch
 
+from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
+from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
 
 pytestmark = pytest.mark.cuda
@@ -54,6 +59,29 @@ def test_flash(dev, b, h, sq, skv):
     assert ok, detail
 
 
+@pytest.mark.parametrize("b,s,k,mod", [(1, 4608, 3072, True), (1, 512, 3072, True), (2, 300, 768, True),
+                                       (1, 40, 256, False)])
+def test_ln_mod_quant(dev, b, s, k, mod):
+    _, ok, detail = checks.check_ln_mod_quant(*checks.ln_mod_quant_case(b, s, k, mod=mod, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("b,seqs,heads,r", [(1, (512, 4096), 24, 32), (1, (4608,), 24, 32),
+                                            (2, (77, 130), 3, 16), (1, (200,), 2, 0)])
+def test_qkv_rope_producer(dev, b, seqs, heads, r):
+    _, ok, detail = checks.check_qkv_rope(*checks.qkv_rope_case(b, seqs, heads, r=r, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,groups,batch,extra", [(4608, 12288, 3072, 8, 1, True),
+                                                      (4096, 12288, 3072, 8, 1, False),
+                                                      (512, 3072, 256, 2, 2, True)])
+def test_grouped_res(dev, m, k, n, groups, batch, extra):
+    _, ok, detail = checks.check_grouped_res(
+        *checks.grouped_res_case(m, k, n, groups, batch=batch, extra=extra, device=dev))
+    assert ok, detail
+
+
 def test_launch_counts_and_shape_errors(dev):
     reset_launch_counts()
     dequant_w4a8(*checks.dequant_case(256, 128, device=dev))
@@ -64,3 +92,32 @@ def test_launch_counts_and_shape_errors(dev):
     with pytest.raises(ValueError):  # K group of 100 is not a multiple of 64
         gemm_w8a8_grouped(*checks.grouped_case(128, 200, 128, 2, device=dev))
     assert launch_counts()["gemm_w8a8_gelu_quant"] == 0
+    args = checks.grouped_res_case(256, 1024, 256, 2, device=dev)
+    gemm_w8a8_grouped(*args)  # the residual operands select the residual mode's count
+    assert launch_counts()["gemm_w8a8_grouped_res"] == 1 and launch_counts()["gemm_w8a8_grouped"] == 0
+
+
+def test_turbo_small_model_batch2_matches_cpu(dev):
+    """A 1 + 1-block turbo model (6 heads: two requantize groups, so the MLP
+    ends in the grouped residual kernel) at B = 2 on the card against the
+    plain twins on the CPU; each batch row within 2e-2 of the reference's
+    max |value|."""
+    cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
+                     joint_attention_dim=512, pooled_projection_dim=256)
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=5, device="cpu")
+    cpu_model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(6)
+    args = (torch.randn((2, 256, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((2, 128, 512), generator=gen).to(torch.bfloat16),
+            torch.randn((2, 256), generator=gen).to(torch.bfloat16),
+            torch.tensor([0.3, 0.8]), make_img_ids(16, 16), torch.zeros((128, 3), dtype=torch.int32),
+            torch.tensor([3.5, 2.0]))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args).float()
+        out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+    counts = launch_counts()
+    assert counts["gemm_w8a8_grouped_res"] == 3 and counts["ln_mod_quant_int8"] == 6
+    for i in range(2):
+        assert ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item() <= 2e-2
