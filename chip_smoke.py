@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``nunchaku_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--steps N] [--f32-steps N]
+    python3 chip_smoke.py [--steps N]
 
 Phases, each fatal on failure:
   1. device    -- the card's name, count, and nvidia-smi's name and power limit;
@@ -18,10 +18,11 @@ Phases, each fatal on failure:
   5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline(vae=None)
                   at 1024x1024: first the default configuration (one request of
-                  --f32-steps steps), then the same model switched to the turbo
-                  configuration serves 2 requests of --steps steps. Each path's
-                  launch counts (reset just before it) must match the path, the
-                  latents must be finite.
+                  min(3, --steps) steps), then the same model switched to the
+                  turbo configuration serves 2 requests of --steps steps. Each
+                  path first runs one untimed 1-step request (first-use work),
+                  then its counts are reset; its launch counts must match the
+                  path, the latents must be finite.
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -296,18 +297,24 @@ def reference_phase(dev):
 
 
 def serve(pipe, cfg, dev, steps, requests, label):
-    """Requests through the pipeline with the launch counts reset just
-    before; -> (finite, seconds per request, counts, peak GiB)."""
+    """Requests through the pipeline, after one untimed 1-step request that
+    takes the path's first-use work, with the launch counts reset just
+    before the timed ones; -> (finite, seconds per request, counts, peak GiB)."""
     from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
 
+    def prompt(seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pe = torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
+        pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16)
+        return pe, pooled
+
+    pipe(*prompt(requests), height=1024, width=1024, num_inference_steps=1, seed=requests)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     req_s, finite = [], True
     for seed in range(requests):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        pe = torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
-        pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16)
+        pe, pooled = prompt(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         lat = pipe(pe, pooled, height=1024, width=1024, num_inference_steps=steps, seed=seed).latents
@@ -332,7 +339,7 @@ def check_counts(label, counts, per_forward, forwards):
     return ok
 
 
-def slice_phase(dev, steps: int, requests: int, f32_steps: int):
+def slice_phase(dev, steps: int, requests: int):
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
@@ -353,6 +360,7 @@ def slice_phase(dev, steps: int, requests: int, f32_steps: int):
                   "qkv_rope_producer": 2 * L + Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
                   "gemm_w8a8_grouped_res": 2 * L + Ls, "flash_fixed": L + Ls},
     }
+    f32_steps = min(3, steps)
     finite, _, counts_f32, _ = serve(pipe, cfg, dev, f32_steps, 1, "default (f32 stream)")
     ok = finite and check_counts("default", counts_f32, paths["default"], f32_steps)
     model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
@@ -365,9 +373,8 @@ def slice_phase(dev, steps: int, requests: int, f32_steps: int):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
-                    help="denoise steps per turbo request (50: the step count of bench.py's main path)")
-    ap.add_argument("--f32-steps", type=int, default=3,
-                    help="denoise steps of the one default-configuration (f32 stream) request")
+                    help="denoise steps per turbo request (50: the step count of bench.py's main "
+                         "path); the one default-configuration request takes min(3, N)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU", file=sys.stderr)
@@ -396,7 +403,7 @@ def main(argv=None) -> int:
     rows, failed = kernel_phase(dev)
     ref_ok = reference_phase(dev)
     reset_launch_counts()
-    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, f32_steps=args.f32_steps)
+    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2)
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():

@@ -138,26 +138,26 @@ class FluxAttention(nn.Module):
         ``mods = ((scale, shift), (scale_txt, shift_txt) | None)``: the
         inputs are the RAW bf16 streams and LayerNorm + AdaLN modulation run
         in the projections' quantize producers (``forward_modulated``).
-        After :func:`permute_qk_halfsplit`, ``rot`` is the half-split
+        After :func:`permute_qk_halfsplit`, ``rot`` must be the half-split
         ``(cos, sin)`` pair and the prologue is the qkv/RoPE producer
         kernel; with ``mods`` the qkv GEMMs then skip their low-rank
-        epilogue and the producer adds it."""
-        fused = self.prep_fused and isinstance(rot, tuple)
-        lora_img = None
-        if mods is None:
-            qkv = self.to_qkv(hidden)
-        elif fused:
-            qkv, la = self.to_qkv.forward_modulated(hidden, *mods[0], skip_lora=True)
-            if la is not None:
+        epilogue and the producer adds it. A rope table in the other layout
+        than the weights' raises."""
+        if self.prep_fused:
+            if not isinstance(rot, tuple):
+                raise ValueError("the q/k weights are in half-split order (permute_qk_halfsplit): "
+                                 "rot must be the (cos, sin) pair of rope_table_halfsplit")
+            if mods is None:
+                qkv, lora_img = self.to_qkv(hidden), None
+            else:
+                qkv, la = self.to_qkv.forward_modulated(hidden, *mods[0], skip_lora=True)
                 lora_img = (la, self.to_qkv.proj_up)
-        else:
-            qkv = self.to_qkv.forward_modulated(hidden, *mods[0])
-        if fused:
             return self._forward_fused(qkv, encoder_hidden, rot, lora_img,
                                        None if mods is None else mods[1])
         if isinstance(rot, tuple):
             raise ValueError("the half-split (cos, sin) rope table needs the fused prologue "
                              "(permute_qk_halfsplit)")
+        qkv = self.to_qkv(hidden) if mods is None else self.to_qkv.forward_modulated(hidden, *mods[0])
         prescale = LOG2E / math.sqrt(self.head_dim)
         if encoder_hidden is None:
             q, k, v = qkv_norm_rope(qkv, self.head_dim, self.norm_q, self.norm_k, rot, prescale)
@@ -188,13 +188,11 @@ class FluxAttention(nn.Module):
             return flash_attention(q, k, v)
         b, s_img, _ = qkv.shape
         s_txt = encoder_hidden.shape[1]
-        lora_txt = None
         if mods_txt is not None:
             qkv_txt, la = self.add_qkv_proj.forward_modulated(encoder_hidden, *mods_txt, skip_lora=True)
-            if la is not None:
-                lora_txt = (la, self.add_qkv_proj.proj_up)
+            lora_txt = (la, self.add_qkv_proj.proj_up)
         else:
-            qkv_txt = self.add_qkv_proj(encoder_hidden)
+            qkv_txt, lora_txt = self.add_qkv_proj(encoder_hidden), None
         # both streams write one (B, H, S_txt + S_img, D) buffer set: img
         # rows after the txt rows, no concatenation
         heads = qkv.shape[-1] // 3 // self.head_dim

@@ -15,7 +15,7 @@ from torch import nn
 
 from ..ops.gemm import svdq_gemm_w4a4
 from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
-from ..ops.reference import GROUP_INT4, bf16_matmul, layer_norm
+from ..ops.reference import GROUP_INT4, bf16_matmul
 
 PAD_TOKENS = 256  # token padding quantum of the quantized linears (JAX linear.py:26)
 
@@ -140,16 +140,11 @@ class SVDQW4A4Linear(nn.Module):
         """``LN(x) * (1 + scale) + shift`` -> this linear, x (B, S, K) the raw
         bf16 stream, scale / shift (B, K): one LN + modulate + quantize
         producer (:func:`~nunchaku_tpu_torch.ops.quantize.ln_mod_quant_int8`)
-        feeds the GEMM. ``skip_lora`` returns ``(out_without_lora, lora_act
-        (B, S, R))``. Like the JAX method, a stream whose S has no divisor
-        among 512 ... 8 takes the multi-pass LayerNorm / modulate / quantize
-        chain, and ``lora_act`` is then None (the low-rank term stays in the
-        GEMM)."""
-        b, s, k = x.shape
-        if s % 8 == 0 and k == self.in_features:
-            q, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), scale, shift, self.smooth, self.proj_down)
-            out = self.forward_quant(q, asc, la, skip_lora=skip_lora).reshape(b, s, -1)
-            return (out, la.reshape(b, s, -1)) if skip_lora else out
-        y = layer_norm(x) * (1.0 + scale.float()[:, None]) + shift.float()[:, None]
-        out = self(y.to(torch.bfloat16))
-        return (out, None) if skip_lora else out
+        feeds the GEMM at any S (the kernel masks the rows past B*S, so the
+        JAX method's multi-pass fallback for an S without a tile divisor has
+        no counterpart here). ``skip_lora`` returns ``(out_without_lora,
+        lora_act (B, S, R))``."""
+        b, s, _ = x.shape
+        q, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), scale, shift, self.smooth, self.proj_down)
+        out = self.forward_quant(q, asc, la, skip_lora=skip_lora).reshape(b, s, -1)
+        return (out, la.reshape(b, s, -1)) if skip_lora else out

@@ -175,7 +175,6 @@ class FluxTransformer2DModel(nn.Module):
         self.norm_out = norm_out
         self.proj_out = proj_out
         self.stream_dtype = torch.float32
-        self.rope_halfsplit = False
 
     @classmethod
     def random_init(cls, cfg: FluxConfig, seed: int = 0, device="cuda"):
@@ -213,8 +212,15 @@ class FluxTransformer2DModel(nn.Module):
         a second call raises."""
         for block in [*self.transformer_blocks, *self.single_transformer_blocks]:
             permute_qk_halfsplit(block.attn)
-        self.rope_halfsplit = True
         return self
+
+    @property
+    def rope_halfsplit(self) -> bool:
+        """Whether the blocks take the half-split (cos, sin) rope table: the
+        attention modules' own layout, so a block left in the other layout
+        raises instead of rotating the wrong channel pairs."""
+        return any(block.attn.prep_fused
+                   for block in [*self.transformer_blocks, *self.single_transformer_blocks])
 
     def embed(self, hidden_states, encoder_hidden_states, pooled_projections, timestep, img_ids,
               txt_ids, guidance=None):

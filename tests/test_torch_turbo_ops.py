@@ -20,12 +20,15 @@ import torch
 from nunchaku_tpu.models import attention as jatt
 from nunchaku_tpu.models import embeddings as jemb
 from nunchaku_tpu.models import linear as jlin
+from nunchaku_tpu.models import normalization as jnorm
 from nunchaku_tpu.ops import attention as jops_att
 from nunchaku_tpu.ops import gemm as jgemm
 from nunchaku_tpu.ops import quantize as jquant
 from nunchaku_tpu_torch.convert import to_torch
 from nunchaku_tpu_torch.models import attention as tatt
+from nunchaku_tpu_torch.models import embeddings as temb
 from nunchaku_tpu_torch.models import linear as tlin
+from nunchaku_tpu_torch.models import transformer_flux as tflux
 from nunchaku_tpu_torch.ops import attention as tops_att
 from nunchaku_tpu_torch.ops import gemm as tgemm
 from nunchaku_tpu_torch.ops import quantize as tquant
@@ -245,17 +248,26 @@ def test_permute_qk_halfsplit_bit_exact(precision):
         tatt.permute_qk_halfsplit(ta)
 
 
-@pytest.mark.parametrize("precision", ["w4a8", "int8"])
-def test_forward_modulated_matches_jax(precision):
+@pytest.mark.parametrize("precision,s", [("w4a8", 64), ("int8", 64), ("w4a8", 77), ("int8", 77)],
+                         ids=["w4a8", "int8", "w4a8-ragged", "int8-ragged"])
+def test_forward_modulated_matches_jax(precision, s):
+    """The producer feeds the GEMM at every S. At a ragged S (77: no tile
+    divisor) the JAX method takes its multi-pass chain and keeps the
+    low-rank term in the GEMM, so the port's ``skip_lora`` parts are held
+    to JAX's ``forward_parts`` of the modulated stream. rel <= 1e-2."""
     jl = jlin.SVDQW4A4Linear.random_init(jax.random.PRNGKey(9), 512, 384, precision=precision)
     rng = np.random.default_rng(70)
-    x = _bf16(rng, (2, 64, 512), 2.0)
+    x = _bf16(rng, (2, s, 512), 2.0)
     sc, sh = (jnp.asarray(rng.standard_normal((2, 512)) * 0.3, jnp.float32) for _ in range(2))
     tl = port_svdq(jl)
     ref = jl.forward_modulated(x, sc, sh)
     assert _rel(tl.forward_modulated(_t(x), _t(sc), _t(sh)), ref) <= 1e-2
     ref_main, ref_la = jl.forward_modulated(x, sc, sh, skip_lora=True)
+    if ref_la is None:
+        y = jnorm.layer_norm(x) * (1.0 + sc)[:, None] + sh[:, None]
+        ref_main, ref_la = jl.forward_parts(y.astype(jnp.bfloat16))
     main, la = tl.forward_modulated(_t(x), _t(sc), _t(sh), skip_lora=True)
+    assert tuple(main.shape) == (2, s, 384) and tuple(la.shape) == (2, s, 32)
     assert _rel(main, ref_main) <= 1e-2 and _rel(la, ref_la) <= 1e-2
     main_p, la_p = tl.forward_parts(_t(x))
     ref_main_p, ref_la_p = jl.forward_parts(x)
@@ -288,6 +300,36 @@ def test_fused_flux_attention_matches_jax(joint):
     for o, r in zip(out, ref):
         assert tuple(o.shape) == tuple(r.shape)
         assert _rel(o, r) <= 2e-2
+
+
+def test_rope_layout_mismatch_raises():
+    """Weights and rope table in different layouts raise in both
+    directions, and the model's rope layout is read from its attention
+    modules: a block left unpermuted then refuses the half-split table."""
+    ja = jatt.FluxAttention.random_init(jax.random.PRNGKey(12), 256, 2, 128, joint=False, precision="w4a8")
+    ta = port_attention(ja)
+    s = 64
+    ids = torch.zeros((s, 3), dtype=torch.int32)
+    ids[:, 2] = torch.arange(s)
+    rot = temb.rope_table(ids, (16, 56, 56))
+    pair = tops_att.rope_table_halfsplit(rot)
+    x = torch.from_numpy(np.random.default_rng(73).standard_normal((1, s, 256)).astype(np.float32))
+    x = x.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="fused prologue"):
+        ta(x, None, pair)
+    tatt.permute_qk_halfsplit(ta)
+    with pytest.raises(ValueError, match="half-split order"):
+        ta(x, None, rot)
+    assert tuple(ta(x, None, pair).shape) == (1, s, 256)
+
+    tm = tflux.FluxTransformer2DModel.random_init(
+        tflux.FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=2,
+                         joint_attention_dim=256, pooled_projection_dim=256), seed=0, device="cpu")
+    assert not tm.rope_halfsplit
+    tatt.permute_qk_halfsplit(tm.transformer_blocks[0].attn)
+    assert tm.rope_halfsplit
+    with pytest.raises(ValueError, match="fused prologue"):
+        tm.single_transformer_blocks[0].attn(x, None, pair)
 
 
 @pytest.mark.parametrize("precision,dim,s,full", [("w4a8", 768, 256, False), ("w4a8", 768, 256, True),
