@@ -14,15 +14,25 @@ Phases, each fatal on failure:
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
-                  stream, fused qkv prologue) configuration; the latents must agree;
+                  stream, fused qkv prologue) configuration; the latents must agree.
+                  Then the turbo model with the double first-block cache (hit
+                  ratio 0.5) and a small VAE whose 512-wide mid block takes the
+                  online flash kernel, at 512x512: cache hits equal, latents and
+                  images (whole, and tiled in 3 x 3 tiles) must agree;
   5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
-                  blocks, random weights from a seed) through FluxPipeline(vae=None)
-                  at 1024x1024: first the default configuration (one request of
-                  min(3, --steps) steps), then the same model switched to the
-                  turbo configuration serves 2 requests of --steps steps. Each
-                  path first runs one untimed 1-step request (first-use work),
-                  then its counts are reset; its launch counts must match the
-                  path, the latents must be finite.
+                  blocks, random weights from a seed) through FluxPipeline at
+                  1024x1024: first the default configuration (one request of
+                  min(3, --steps) steps, no VAE), then the same model switched to
+                  the turbo configuration serves 2 requests of --steps steps (no
+                  VAE), then bench.py's image path: with the full FLUX VAE (tiled
+                  decode) and cache="double_fb", cache_hit_ratio=0.5, 2 requests
+                  of --steps steps to (1, 1024, 1024, 3) images. Each path first
+                  runs one untimed 1-step request (first-use work), then its
+                  counts are reset; its launch counts must match the path (a
+                  cached request: the misses' full forwards, the hits' dual and
+                  single block 0, 9 flash_online for the 9 tiles), the outputs
+                  must be finite (images in [0, 1]). Last, one tiled and one
+                  whole-image decode of the last latents are timed alone.
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -46,6 +56,8 @@ PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 
 # FLUX.1-dev at 1024x1024: 4096 image tokens, 512 text tokens
 S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
+# its VAE's mid-block attention: one head of 512 over a 64x64-latent tile or the whole 128x128 latent
+VAE_D, VAE_TILE_S, VAE_WHOLE_S, VAE_TILES = 512, 64 * 64, 128 * 128, 9
 
 
 def log(msg: str) -> None:
@@ -101,7 +113,8 @@ def res_bytes(m, n, batch, r2):
 def kernel_phase(dev):
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.attention import (
-        flash_attention, flash_attention_plain, qkv_rope_producer, qkv_rope_producer_plain)
+        flash_attention, flash_attention_online, flash_attention_online_plain, flash_attention_plain,
+        qkv_rope_producer, qkv_rope_producer_plain)
     from nunchaku_tpu_torch.ops.gemm import (
         dequant_w4a8, dequant_w4a8_plain, gemm_w8a8_grouped, gemm_w8a8_grouped_plain,
         gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain)
@@ -224,6 +237,31 @@ def kernel_phase(dev):
                  2 * m * n * k, 4 * m * n * RANK),
            cuda_ms(lambda: int8_matmul(qa, w), 20))
     del args, qa, w
+
+    # 8. online flash: the VAE mid block of one 64x64-latent tile (S 4096, one
+    # head of 512); also checked at a whole 1024px image's S 16384 and a ragged S
+    s = VAE_TILE_S
+    q, kk, v = checks.flash_online_case(1, 1, s, s, VAE_D, device=dev)
+    err, ok, detail = checks.check_flash_online(q, kk, v)
+    for s2 in (VAE_WHOLE_S, 1000):
+        args = checks.flash_online_case(1, 1, s2, s2, VAE_D, seed=1, device=dev)
+        err2, ok2, detail2 = checks.check_flash_online(*args)
+        extra = ""
+        if s2 == VAE_WHOLE_S:
+            extra = (f"; {cuda_ms(lambda: flash_attention_online(*args), 5):.4f} ms (plain "
+                     f"{cuda_ms(lambda: flash_attention_online_plain(*args), 1, warmup=1):.4f} ms, SDPA "
+                     f"{cuda_ms(lambda: sdpa(*args, scale=1 / math.sqrt(VAE_D)), 5):.4f} ms, bound "
+                     f"{bound(4 * s2 * VAE_D * 2, bf16_ops=4 * s2 * s2 * VAE_D)[0]:.4f} ms)")
+        log(f"[kernel] flash_online @ B=1 H=1 S={s2} D={VAE_D}: {'PASS' if ok2 else 'FAIL'} {detail2}{extra}")
+        ok, err = ok and ok2, max(err, err2)
+        del args
+    record("flash_online", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:607",
+           f"B=1 H=1 S={s} D={VAE_D}", ok, err, detail,
+           cuda_ms(lambda: flash_attention_online(q, kk, v), 50),
+           cuda_ms(lambda: flash_attention_online_plain(q, kk, v), 3),
+           bound(4 * s * VAE_D * 2, bf16_ops=4 * s * s * VAE_D),
+           cuda_ms(lambda: sdpa(q, kk, v, scale=1 / math.sqrt(VAE_D)), 50))
+    del q, kk, v
     torch.cuda.empty_cache()
     return rows, failed
 
@@ -293,13 +331,60 @@ def reference_phase(dev):
         log(f"[reference] {name}: 1+1-block FLUX (dim 768), 2 steps at 256x256: card vs CPU plain "
             f"latents rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if ok else 'FAIL'}")
         all_ok = all_ok and ok
-    return all_ok
+    image_ok = reference_image_path(cpu_model, gpu_model, dev)
+    return all_ok and image_ok
 
 
-def serve(pipe, cfg, dev, steps, requests, label):
+def reference_image_path(cpu_model, gpu_model, dev):
+    """The turbo model with the double FB cache and a small VAE (mid block
+    512 wide, so the card takes the online flash kernel at 64x64 = 4096
+    tokens whole and 32x32 = 1024 tokens in each of 3 x 3 tiles), 4 steps at
+    512x512, on the card against the CPU. The resnet branches' second convs
+    are damped (x 0.25) as in tests/test_torch_vae.py, so bf16 rounding
+    flips do not grow through the random decoder beyond a trained one's."""
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline, unpack_latents
+
+    cpu_vae = AutoencoderKL.random_init(seed=5, block_out_channels=(32, 32, 32, 512), layers_per_block=1,
+                                        device="cpu")
+    for name, buf in cpu_vae.named_buffers():
+        if name.endswith("conv2.weight"):
+            buf.mul_(0.25)
+    gpu_vae = copy.deepcopy(cpu_vae).to(dev)
+    gen = torch.Generator().manual_seed(6)
+    pe = torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16)
+    pooled = torch.randn((1, 256), generator=gen).to(torch.bfloat16)
+    lat = torch.randn((1, 1024, 64), generator=gen).to(torch.bfloat16)
+    kw = dict(height=512, width=512, num_inference_steps=4, cache="double_fb", cache_hit_ratio=0.5)
+    ref = FluxPipeline(cpu_model, vae=cpu_vae)(pe, pooled, latents=lat, **kw)
+    reset_launch_counts()
+    out = FluxPipeline(gpu_model, vae=gpu_vae)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw)
+    whole_launches = launch_counts()["flash_online"]
+    rel = ((out.latents.float().cpu() - ref.latents.float()).abs().max() / ref.latents.float().abs().max()).item()
+    img_err = (out.images.cpu() - ref.images).abs().max().item()
+    for vae in (cpu_vae, gpu_vae):
+        vae.enable_tiling(tile_latent_size=32)
+    ref_t = cpu_vae.decode(unpack_latents(ref.latents, 64, 64))
+    reset_launch_counts()
+    out_t = gpu_vae.decode(unpack_latents(out.latents, 64, 64))
+    tiled_launches = launch_counts()["flash_online"]
+    tiled_err = (out_t.cpu() - ref_t).abs().max().item()
+    ok = (out.cache_hits == ref.cache_hits == 2 and rel <= 2e-2 and img_err <= 2e-2 and tiled_err <= 2e-2
+          and whole_launches == 1 and tiled_launches == 9 and tuple(out.images.shape) == (1, 512, 512, 3)
+          and bool(torch.isfinite(out.images).all()) and bool(torch.isfinite(out_t).all()))
+    log(f"[reference] turbo + double_fb (ratio 0.5, 4 steps) + VAE (32, 32, 32, 512) at 512x512: cache hits "
+        f"card {out.cache_hits} / CPU {ref.cache_hits}; latents rel max error {rel:.3e} (tol 2e-2); images "
+        f"max abs error whole {img_err:.3e}, tiled {tiled_err:.3e} (tol 2e-2); flash_online launches whole "
+        f"{whole_launches}, tiled {tiled_launches} (expected 1, 9): {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def serve(pipe, cfg, dev, steps, requests, label, **call_kw):
     """Requests through the pipeline, after one untimed 1-step request that
     takes the path's first-use work, with the launch counts reset just
-    before the timed ones; -> (finite, seconds per request, counts, peak GiB)."""
+    before the timed ones; -> (outputs finite (images in [0, 1]), seconds
+    per request, counts, peak GiB, cache hits per request, last latents)."""
     from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
 
     def prompt(seed):
@@ -308,38 +393,82 @@ def serve(pipe, cfg, dev, steps, requests, label):
         pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16)
         return pe, pooled
 
-    pipe(*prompt(requests), height=1024, width=1024, num_inference_steps=1, seed=requests)
+    pipe(*prompt(requests), height=1024, width=1024, num_inference_steps=1, seed=requests, **call_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    req_s, finite = [], True
+    req_s, hits, finite = [], [], True
     for seed in range(requests):
         pe, pooled = prompt(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        lat = pipe(pe, pooled, height=1024, width=1024, num_inference_steps=steps, seed=seed).latents
+        out = pipe(pe, pooled, height=1024, width=1024, num_inference_steps=steps, seed=seed, **call_kw)
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t0)
+        lat = out.latents
         ok = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat.float()).all())
+        what = f"latents {tuple(lat.shape)} finite={ok}, |lat| mean {lat.float().abs().mean().item():.4f}"
+        if out.images is not None:
+            img = out.images
+            img_ok = (tuple(img.shape) == (1, 1024, 1024, 3) and img.dtype == torch.float32
+                      and bool(torch.isfinite(img).all()) and img.min().item() >= 0.0 and img.max().item() <= 1.0)
+            ok = ok and img_ok
+            what += (f"; images {tuple(img.shape)} finite and in [0, 1]={img_ok} (min {img.min().item():.4f}, "
+                     f"max {img.max().item():.4f}, mean {img.mean().item():.4f})")
+        if out.cache_hits is not None:
+            hits.append(out.cache_hits)
+            what += f"; cache_hits {out.cache_hits}"
         finite = finite and ok
-        log(f"[slice] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / steps:.4f} s/step), "
-            f"latents {tuple(lat.shape)} finite={ok}, |lat| mean {lat.float().abs().mean().item():.4f}")
+        log(f"[slice] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / steps:.4f} s/step), {what}")
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[slice] {label}: {requests} request(s) x {steps} steps; s/request {[round(x, 3) for x in req_s]}, "
         f"s/step (last request) {req_s[-1] / steps:.4f}; peak allocated {peak:.2f} GiB")
-    return finite, req_s, counts, peak
+    return finite, req_s, counts, peak, hits, lat
 
 
-def check_counts(label, counts, per_forward, forwards):
-    expected = {k: per_forward.get(k, 0) * forwards for k in counts}
+def check_counts(label, counts, per_forward, forwards, extra=None):
+    """counts == per_forward x forwards (+ extra, a dict of whole counts)."""
+    extra = extra or {}
+    expected = {k: per_forward.get(k, 0) * forwards + extra.get(k, 0) for k in counts}
     ok = counts == expected
     log(f"[slice] {label} launches {counts}; expected {expected} "
-        f"(per forward {per_forward}): {'PASS' if ok else 'FAIL'}")
+        f"(per forward {per_forward}{f', plus {extra}' if extra else ''}): {'PASS' if ok else 'FAIL'}")
+    return ok
+
+
+def decode_alone(vae, lat, dev):
+    """One tiled, then one whole-image decode of the last request's
+    latents, each timed alone with its flash_online launches and peak."""
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import unpack_latents
+
+    z = unpack_latents(lat, 128, 128)
+    ok = True
+    for label, tiles in (("tiled", VAE_TILES), ("whole-image", 1)):
+        if tiles == 1:
+            vae.disable_tiling()
+            vae.decode(z)  # first use of the whole-image shapes, untimed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        img = vae.decode(z)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = launch_counts()["flash_online"]
+        good = n == tiles and tuple(img.shape) == (1, 1024, 1024, 3) and bool(torch.isfinite(img).all())
+        ok = ok and good
+        log(f"[slice] {label} decode of 128x128 latents: {sec:.4f} s, flash_online launches {n} (expected "
+            f"{tiles}), peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (transformer "
+            f"resident): {'PASS' if good else 'FAIL'}")
+    vae.enable_tiling()
     return ok
 
 
 def slice_phase(dev, steps: int, requests: int):
+    from nunchaku_tpu_torch.caching.fbcache import make_hit_schedule
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
@@ -353,28 +482,53 @@ def slice_phase(dev, steps: int, requests: int):
         f"random init {time.perf_counter() - t0:.1f} s")
     pipe = FluxPipeline(model, vae=None)
     L, Ls = cfg.num_layers, cfg.num_single_layers
+    # turbo launches of one dual and one single block
+    dual = {"dequant_w4a8": 8, "ln_mod_quant_int8": 4, "qkv_rope_producer": 2, "gemm_w8a8_gelu_quant": 2,
+            "gemm_w8a8_grouped_res": 2, "flash_fixed": 1}
+    single = {"dequant_w4a8": 4, "ln_mod_quant_int8": 2, "qkv_rope_producer": 1, "gemm_w8a8_gelu_quant": 1,
+              "gemm_w8a8_grouped_res": 1, "flash_fixed": 1}
     paths = {
         "default": {"dequant_w4a8": 8 * L + 4 * Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
                     "gemm_w8a8_grouped": 2 * L + Ls, "flash_fixed": L + Ls},
-        "turbo": {"dequant_w4a8": 8 * L + 4 * Ls, "ln_mod_quant_int8": 4 * L + 2 * Ls,
-                  "qkv_rope_producer": 2 * L + Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
-                  "gemm_w8a8_grouped_res": 2 * L + Ls, "flash_fixed": L + Ls},
+        "turbo": {k: L * dual[k] + Ls * single[k] for k in dual},
     }
     f32_steps = min(3, steps)
-    finite, _, counts_f32, _ = serve(pipe, cfg, dev, f32_steps, 1, "default (f32 stream)")
+    finite, _, counts_f32, *_ = serve(pipe, cfg, dev, f32_steps, 1, "default (f32 stream)")
     ok = finite and check_counts("default", counts_f32, paths["default"], f32_steps)
     model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
-    finite, _, counts_turbo, _ = serve(pipe, cfg, dev, steps, requests, "turbo (bf16 stream, fused prologue)")
+    finite, _, counts_turbo, *_ = serve(pipe, cfg, dev, steps, requests, "turbo (bf16 stream, fused prologue)")
     ok = ok and finite and check_counts("turbo", counts_turbo, paths["turbo"], steps * requests)
-    counts = {k: counts_f32[k] + counts_turbo[k] for k in counts_f32}
+
+    # bench.py's image path: the double FB cache at a forced hit ratio of
+    # 0.5, then the full FLUX VAE's tiled decode
+    t0 = time.perf_counter()
+    vae = AutoencoderKL.random_init(seed=0, device=dev)
+    vae.enable_tiling()
+    torch.cuda.synchronize()
+    log(f"[slice] FLUX VAE decoder: latent 16, blocks (128, 256, 512, 512), 2 layers; weights "
+        f"{sum(b.numel() * b.element_size() for b in vae.buffers()) / 2**20:.1f} MiB, random init "
+        f"{time.perf_counter() - t0:.1f} s; tiles of 64 latents, overlap 0.25")
+    pipe = FluxPipeline(model, vae=vae)
+    hits = int(make_hit_schedule(steps, 0.5).sum())
+    finite, _, counts_img, _, req_hits, lat = serve(
+        pipe, cfg, dev, steps, requests, "image path (turbo, double_fb 0.5, tiled VAE)", cache="double_fb",
+        cache_hit_ratio=0.5)
+    # a hit runs dual block 0 and single block 0; a miss the full forward
+    hit_runs = {k: (dual[k] + single[k]) * hits * requests for k in dual}
+    ok = ok and finite and req_hits == [hits] * requests and check_counts(
+        "image path", counts_img, paths["turbo"], (steps - hits) * requests,
+        hit_runs | {"flash_online": VAE_TILES * requests})
+    log(f"[slice] image path cache hits per request {req_hits} (expected {hits} of {steps} steps)")
+    ok = decode_alone(vae, lat, dev) and ok
+    counts = {k: counts_f32[k] + counts_turbo[k] + counts_img[k] for k in counts_f32}
     return ok, counts, paths, cfg
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
-                    help="denoise steps per turbo request (50: the step count of bench.py's main "
-                         "path); the one default-configuration request takes min(3, N)")
+                    help="denoise steps per turbo and per image request (50: the step count of "
+                         "bench.py's main path); the one default-configuration request takes min(3, N)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's kernels run only on the GPU", file=sys.stderr)
@@ -410,7 +564,13 @@ def main(argv=None) -> int:
         per = {p: f[name] for p, f in paths.items() if name in f}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
             f"of the path(s) it runs in")
-    ran = [name for name, c in counts.items() if c > 0]
+
+    def online(s):
+        return bound(4 * s * VAE_D * 2, bf16_ops=4 * s * s * VAE_D)[0]
+
+    log(f"[bound] flash_online: launches per 1024px image tiled {VAE_TILES}, whole 1; least time "
+        f"{VAE_TILES * online(VAE_TILE_S):.3f} ms per tiled image, {online(VAE_WHOLE_S):.3f} ms per whole image")
+    ran =[name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
     ok = not failed and ref_ok and slice_ok and len(ran) == len(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "

@@ -1,11 +1,11 @@
-"""Carry FLUX weights from the JAX package into the port.
+"""Carry FLUX and VAE weights from the JAX package into the port.
 
 ``flux_from_jax_params`` takes the dotted names of the JAX
 ``Module.named_parameters()`` (``nunchaku_tpu/core/module.py``) mapped to
 numpy arrays -- the blocks' leaves carry a leading layer axis -- and builds
 the port's per-layer modules from them. Static attributes (precision, head
 dim) come from the config, and every linear's shape is checked against the
-config's dims.
+config's dims. ``vae_from_jax_params`` does the same for the VAE decoder.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .models.attention import FeedForward, FluxAttention
+from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, ResnetBlock, Upsample
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
 from .models.linear import Linear, SVDQW4A4Linear
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
@@ -109,3 +110,58 @@ def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTr
     if unused:
         raise KeyError(f"parameters the port does not take: {unused[:8]}")
     return model
+
+
+def vae_from_jax_params(params: dict, *, latent_channels=16, block_out_channels=(128, 256, 512, 512),
+                        layers_per_block=2, scaling_factor=0.3611, shift_factor=0.1159,
+                        device="cuda") -> AutoencoderKL:
+    """The port's decoder from the JAX ``AutoencoderKL.named_parameters()``,
+    every shape checked against the given structure. The JAX encoder's
+    ``encoder.*`` leaves are skipped (the port has no encoder yet); any
+    other name the decoder does not take raises."""
+    used = set()
+
+    def get(name, shape):
+        used.add(name)
+        a = np.asarray(params[name])
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(a.shape)} does not match the structure's {tuple(shape)}")
+        return to_torch(a, device)
+
+    def conv(prefix, cin, cout, k=3):
+        return Conv2d(get(prefix + ".weight", (cout, cin, k, k)), get(prefix + ".bias", (cout,)), 1,
+                      1 if k == 3 else 0)
+
+    def vec(name, c):
+        return get(name, (c,))
+
+    def resnet(prefix, cin, cout):
+        sc = conv(prefix + ".shortcut", cin, cout, k=1) if cin != cout else None
+        return ResnetBlock(vec(prefix + ".norm1_w", cin), vec(prefix + ".norm1_b", cin),
+                           conv(prefix + ".conv1", cin, cout), vec(prefix + ".norm2_w", cout),
+                           vec(prefix + ".norm2_b", cout), conv(prefix + ".conv2", cout, cout), sc)
+
+    d = "decoder"
+    ch = block_out_channels[-1]
+    rev = list(reversed(block_out_channels))
+    up_blocks, upsamplers, prev = [], [], ch
+    for i, c in enumerate(rev):
+        blocks = []
+        for j in range(layers_per_block + 1):
+            blocks.append(resnet(f"{d}.up_blocks.{i}.{j}", prev, c))
+            prev = c
+        up_blocks.append(blocks)
+        if i < len(rev) - 1:
+            upsamplers.append(Upsample(conv(f"{d}.upsamplers.{i}.conv", c, c)))
+    a = d + ".mid_attn"
+    decoder = Decoder(
+        conv(d + ".conv_in", latent_channels, ch), resnet(d + ".mid_r1", ch, ch),
+        AttnBlock(vec(a + ".norm_w", ch), vec(a + ".norm_b", ch),
+                  *[conv(f"{a}.{n}", ch, ch, k=1) for n in ("q", "k", "v", "out")]),
+        resnet(d + ".mid_r2", ch, ch), up_blocks, upsamplers,
+        vec(d + ".norm_out_w", block_out_channels[0]), vec(d + ".norm_out_b", block_out_channels[0]),
+        conv(d + ".conv_out", block_out_channels[0], 3))
+    unused = sorted(n for n in set(params) - used if not n.startswith("encoder."))
+    if unused:
+        raise KeyError(f"parameters the port does not take: {unused[:8]}")
+    return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder)

@@ -1,0 +1,301 @@
+"""AutoencoderKL decoder (the FLUX / SDXL VAE).
+
+Counterpart of ``nunchaku_tpu/models/autoencoder.py``: ``Conv2d`` and
+``_conv``, ``group_norm``, ``ResnetBlock``, ``AttnBlock``, ``Upsample``,
+``Decoder``, ``AutoencoderKL`` (``random_init`` with the decoder only,
+``enable_tiling`` / ``disable_tiling``, ``decode`` whole or in blended tiles)
+and ``_tile_blend_mask``. The encoder side (``Encoder``, ``Downsample``,
+``encode``) and the diffusers state-dict loader wait for later slices. Layout
+NCHW, weights (out, in, kh, kw) bf16 and norms bf16, as in the JAX package.
+
+Rounding. The JAX package leaves the convolutions to XLA: bf16 operands,
+f32 accumulation, f32 bias, one rounding to bf16. Here they are
+``torch.nn.functional.conv2d`` on bf16 operands with f32 accumulation
+(cuDNN on the card, oneDNN on the CPU; TF32 does not apply to bf16). oneDNN
+adds the bias before its one rounding; PyTorch's cuDNN route rounds the sum
+to bf16 and then adds the bias in bf16, a second rounding: within one bf16
+ulp of the JAX result per convolution (exact for zero biases, as
+``random_init`` makes them). GroupNorm runs in f32 (the
+statistics' sums in another order); the single-head mid-block attention
+takes the online flash kernel where the JAX package takes its Pallas
+kernel (``c % 128 == 0`` and ``h * w >= 1024``), else an f32 einsum softmax.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.attention import flash_attention_online
+
+SCALE_FACTOR = 8  # the decoder's spatial upscale (three 2x upsamplers)
+
+
+def _conv(x, w, b=None, stride=1, padding=1):
+    """NCHW convolution, w (out, in, kh, kw): bf16 operands, bf16 result."""
+    return F.conv2d(x.to(torch.bfloat16), w.to(torch.bfloat16), None if b is None else b.to(torch.bfloat16),
+                    stride=stride, padding=padding)
+
+
+def group_norm(x, weight, bias, groups=32, eps=1e-6):
+    """GroupNorm with f32 statistics and affine, result in x's dtype.
+
+    The statistics come from ``torch.var_mean`` over each group, whose
+    reduction spreads a group over many blocks; ``F.group_norm``'s CUDA
+    kernel gives each (batch, group) one block, 32 blocks for the VAE's
+    groups of up to 8M elements (48% of a 1024px decode's device time on
+    an H100). The affine then runs as one multiply-add per element with
+    per-channel scale and shift, written straight to x's dtype."""
+    b, c = x.shape[:2]
+    var, mu = torch.var_mean(x.float().reshape(b, groups, -1), dim=-1, correction=0)
+    rstd = torch.rsqrt(var + eps).repeat_interleave(c // groups, dim=1)  # (B, C)
+    scale = rstd * weight.float()
+    shift = bias.float() - mu.repeat_interleave(c // groups, dim=1) * scale
+    out = torch.empty_like(x)
+    return torch.addcmul(shift[:, :, None, None], x, scale[:, :, None, None], out=out)
+
+
+def _silu_norm(x, weight, bias):
+    """silu(group_norm(x)): silu of the norm's rounded output, computed in f32
+    and rounded once (as PyTorch's bf16 silu does), as in the JAX package."""
+    return F.silu(group_norm(x, weight, bias))
+
+
+def _bf16_weight(gen, shape, fan_in, device):
+    return (torch.randn(shape, generator=gen, device=device) / math.sqrt(fan_in)).to(torch.bfloat16)
+
+
+class Conv2d(nn.Module):
+    def __init__(self, weight, bias=None, stride=1, padding=1):
+        super().__init__()
+        self.register_buffer("weight", weight)
+        self.register_buffer("bias", bias)
+        self.stride = stride
+        self.padding = padding
+
+    @classmethod
+    def random_init(cls, gen, cin, cout, k=3, stride=1, padding=1, device="cuda"):
+        w = _bf16_weight(gen, (cout, cin, k, k), cin * k * k, device)
+        return cls(w, torch.zeros((cout,), dtype=torch.bfloat16, device=device), stride, padding)
+
+    def forward(self, x):
+        return _conv(x, self.weight, self.bias, self.stride, self.padding)
+
+
+def _norm_params(c, device):
+    return (torch.ones((c,), dtype=torch.bfloat16, device=device),
+            torch.zeros((c,), dtype=torch.bfloat16, device=device))
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, norm1_w, norm1_b, conv1, norm2_w, norm2_b, conv2, shortcut=None):
+        super().__init__()
+        self.register_buffer("norm1_w", norm1_w)
+        self.register_buffer("norm1_b", norm1_b)
+        self.conv1 = conv1
+        self.register_buffer("norm2_w", norm2_w)
+        self.register_buffer("norm2_b", norm2_b)
+        self.conv2 = conv2
+        self.shortcut = shortcut
+
+    @classmethod
+    def random_init(cls, gen, cin, cout, device="cuda"):
+        return cls(*_norm_params(cin, device), Conv2d.random_init(gen, cin, cout, device=device),
+                   *_norm_params(cout, device), Conv2d.random_init(gen, cout, cout, device=device),
+                   Conv2d.random_init(gen, cin, cout, k=1, padding=0, device=device) if cin != cout else None)
+
+    def forward(self, x):
+        h = self.conv1(_silu_norm(x, self.norm1_w, self.norm1_b))
+        h = self.conv2(_silu_norm(h, self.norm2_w, self.norm2_b))
+        sc = x if self.shortcut is None else self.shortcut(x)
+        return (sc + h).to(x.dtype)  # bf16 operands: added in f32, rounded once
+
+
+class AttnBlock(nn.Module):
+    """Single-head spatial self-attention (diffusers Attention in the VAE)."""
+
+    def __init__(self, norm_w, norm_b, q, k, v, out):
+        super().__init__()
+        self.register_buffer("norm_w", norm_w)
+        self.register_buffer("norm_b", norm_b)
+        self.q, self.k, self.v, self.out = q, k, v, out
+
+    @classmethod
+    def random_init(cls, gen, c, device="cuda"):
+        return cls(*_norm_params(c, device),
+                   *[Conv2d.random_init(gen, c, c, k=1, padding=0, device=device) for _ in range(4)])
+
+    def forward(self, x):
+        b, c, h, w = x.shape
+        hn = group_norm(x, self.norm_w, self.norm_b)
+        q = self.q(hn).reshape(b, c, h * w)
+        k = self.k(hn).reshape(b, c, h * w)
+        v = self.v(hn).reshape(b, c, h * w)
+        if c % 128 == 0 and h * w >= 1024:
+            # the flash kernel with one head of D = c: at 1024px the whole-
+            # image mid block attends over 16384 tokens, whose (S, S) f32
+            # scores would take 1 GiB
+            o = flash_attention_online(*(t.transpose(1, 2)[:, None] for t in (q, k, v)),
+                                       scale=1.0 / math.sqrt(c))
+            o = o[:, 0].transpose(1, 2)  # (b, c, hw)
+        else:
+            attn = torch.softmax(torch.einsum("bcq,bck->bqk", q.float(), k.float()) / math.sqrt(c), dim=-1)
+            o = torch.einsum("bqk,bck->bcq", attn, v.float())
+        o = self.out(o.reshape(b, c, h, w).to(x.dtype))
+        return (x + o).to(x.dtype)
+
+
+class Upsample(nn.Module):
+    def __init__(self, conv):
+        super().__init__()
+        self.conv = conv
+
+    @classmethod
+    def random_init(cls, gen, c, device="cuda"):
+        return cls(Conv2d.random_init(gen, c, c, device=device))
+
+    def forward(self, x):
+        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+
+class Decoder(nn.Module):
+    """conv_in, mid (resnet, attention, resnet), up blocks of resnets with an
+    upsampler after each but the last, GroupNorm + SiLU, conv_out.
+    ``upsamplers[i]`` belongs to up block ``i``."""
+
+    def __init__(self, conv_in, mid_r1, mid_attn, mid_r2, up_blocks, upsamplers, norm_out_w, norm_out_b,
+                 conv_out):
+        super().__init__()
+        self.conv_in = conv_in
+        self.mid_r1 = mid_r1
+        self.mid_attn = mid_attn
+        self.mid_r2 = mid_r2
+        self.up_blocks = nn.ModuleList(nn.ModuleList(blocks) for blocks in up_blocks)
+        self.upsamplers = nn.ModuleList(upsamplers)
+        self.register_buffer("norm_out_w", norm_out_w)
+        self.register_buffer("norm_out_b", norm_out_b)
+        self.conv_out = conv_out
+
+    @classmethod
+    def random_init(cls, gen, latent_channels, block_out_channels, layers_per_block, device="cuda"):
+        ch = block_out_channels[-1]
+        up_blocks, upsamplers = [], []
+        prev = ch
+        rev = list(reversed(block_out_channels))
+        mid = (ResnetBlock.random_init(gen, ch, ch, device), AttnBlock.random_init(gen, ch, device),
+               ResnetBlock.random_init(gen, ch, ch, device))
+        for i, c in enumerate(rev):
+            blocks = []
+            for _ in range(layers_per_block + 1):
+                blocks.append(ResnetBlock.random_init(gen, prev, c, device))
+                prev = c
+            up_blocks.append(blocks)
+            if i < len(rev) - 1:
+                upsamplers.append(Upsample.random_init(gen, c, device))
+        return cls(Conv2d.random_init(gen, latent_channels, ch, device=device), *mid, up_blocks, upsamplers,
+                   *_norm_params(block_out_channels[0], device),
+                   Conv2d.random_init(gen, block_out_channels[0], 3, device=device))
+
+    def forward(self, z):
+        h = self.conv_in(z)
+        h = self.mid_r2(self.mid_attn(self.mid_r1(h)))
+        for i, blocks in enumerate(self.up_blocks):
+            for blk in blocks:
+                h = blk(h)
+            if i < len(self.upsamplers):
+                h = self.upsamplers[i](h)
+        return self.conv_out(_silu_norm(h, self.norm_out_w, self.norm_out_b))
+
+
+def _tile_blend_mask(size: int, blend: int, *, top, bottom, left, right, device="cpu"):
+    """(1, size, size, 1) linear cross-fade weights for one decoded tile:
+    1/(blend+1) .. blend/(blend+1) over the overlap on each interior edge;
+    the mask-sum normalization of the tiled decode removes the rest."""
+    up = ((torch.arange(size, dtype=torch.float32, device=device) + 1.0) / (blend + 1.0)).clamp(max=1.0)
+    down = up.flip(0)
+    rows = torch.ones((size,), dtype=torch.float32, device=device)
+    cols = torch.ones((size,), dtype=torch.float32, device=device)
+    if top:
+        rows = rows * up
+    if bottom:
+        rows = rows * down
+    if left:
+        cols = cols * up
+    if right:
+        cols = cols * down
+    return (rows[:, None] * cols[None, :])[None, :, :, None]
+
+
+class AutoencoderKL(nn.Module):
+    """The KL autoencoder's decoder, with diffusers-style spatial tiling."""
+
+    def __init__(self, *, scaling_factor, shift_factor, decoder):
+        super().__init__()
+        self.scaling_factor = scaling_factor
+        self.shift_factor = shift_factor
+        self.decoder = decoder
+        self.tile_latent_size = None  # None: whole-image decode
+        self.tile_overlap = 0.25
+
+    @classmethod
+    def random_init(cls, seed=0, latent_channels=16, block_out_channels=(128, 256, 512, 512), layers_per_block=2,
+                    scaling_factor=0.3611, shift_factor=0.1159, device="cuda"):
+        """Random decoder weights with the distributions of the JAX
+        ``random_init`` (not its bits), made on ``device`` from ``seed``."""
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed)
+        return cls(scaling_factor=scaling_factor, shift_factor=shift_factor,
+                   decoder=Decoder.random_init(gen, latent_channels, block_out_channels, layers_per_block, device))
+
+    def enable_tiling(self, tile_latent_size: int = 64, overlap: float = 0.25):
+        """Decode in overlapping latent tiles (diffusers enable_vae_tiling):
+        64-latent (512px) tiles bound the activations' peak at a tile's."""
+        self.tile_latent_size = tile_latent_size
+        self.tile_overlap = overlap
+
+    def disable_tiling(self):
+        self.tile_latent_size = None
+
+    @torch.no_grad()
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """(B, C_lat, h, w) scaled latents -> (B, 8h, 8w, 3) f32 in [0, 1]."""
+        ts = self.tile_latent_size
+        if ts is not None and (z.shape[2] > ts or z.shape[3] > ts):
+            return self._decode_tiled(z)
+        return self._decode_impl(z)
+
+    def _decode_tiled(self, z):
+        """Overlapping latent tiles of one size, blended linearly over the
+        overlap; the last tile of a row or column sits flush against the
+        edge (diffusers AutoencoderKL.tiled_decode as the JAX package has it)."""
+        b, _, h, w = z.shape
+        ts, f = self.tile_latent_size, SCALE_FACTOR
+        stride = max(int(ts * (1.0 - self.tile_overlap)), 1)
+        blend = (ts - stride) * f
+
+        def offsets(extent):
+            if extent <= ts:
+                return [0]
+            return list(range(0, extent - ts, stride)) + [extent - ts]
+
+        rows_off, cols_off = offsets(h), offsets(w)
+        out = torch.zeros((b, h * f, w * f, 3), dtype=torch.float32, device=z.device)
+        wsum = torch.zeros((1, h * f, w * f, 1), dtype=torch.float32, device=z.device)
+        for i in rows_off:
+            for j in cols_off:
+                dec = self._decode_impl(z[:, :, i:i + ts, j:j + ts])
+                mask = _tile_blend_mask(ts * f, blend, top=i > 0, bottom=i != rows_off[-1], left=j > 0,
+                                        right=j != cols_off[-1], device=z.device)
+                out[:, i * f:(i + ts) * f, j * f:(j + ts) * f] += dec * mask
+                wsum[:, i * f:(i + ts) * f, j * f:(j + ts) * f] += mask
+        return out / wsum.clamp_min(1e-8)
+
+    def _decode_impl(self, z):
+        # the factors round to bf16 first, as JAX's weakly typed scalars do
+        sf = torch.tensor(self.scaling_factor, dtype=torch.bfloat16)
+        sh = torch.tensor(self.shift_factor, dtype=torch.bfloat16)
+        img = self.decoder(z.to(torch.bfloat16) / sf + sh)
+        return torch.clamp(img.float().permute(0, 2, 3, 1) / 2 + 0.5, 0.0, 1.0)

@@ -7,7 +7,7 @@ twin), so a run can show which kernels the main path went through.
 
 from __future__ import annotations
 
-from .attention import flash_attention, qkv_rope_producer
+from .attention import flash_attention, flash_attention_online, qkv_rope_producer
 from .gemm import dequant_w4a8, gemm_w8a8_grouped, gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant
 from .quantize import ln_mod_quant_int8
 
@@ -19,6 +19,7 @@ KERNEL_WRAPPERS = {
     "ln_mod_quant_int8": ln_mod_quant_int8,
     "qkv_rope_producer": qkv_rope_producer,
     "gemm_w8a8_grouped_res": gemm_w8a8_grouped_res,
+    "flash_online": flash_attention_online,
 }
 
 

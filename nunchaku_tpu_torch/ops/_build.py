@@ -37,6 +37,7 @@ SIGNATURES = {
     "nt_gemm_w8a8_gelu_quant": [_P] * 15 + [_I] * 6 + [_F, _P],
     "nt_gemm_w8a8_grouped": [_P] * 13 + [_I] * 7 + [_P],
     "nt_flash_fixed": [_P] * 4 + [_I] * 4 + [_P],
+    "nt_flash_online": [_P] * 4 + [_I] * 5 + [_F, _P],
     "nt_ln_mod_quant": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "nt_qkv_rope_producer": [_P] * 10 + [_I] * 6 + [_F, _P],
 }

@@ -12,6 +12,10 @@
   :158): the fused attention prologue of the bf16-stream configuration
   (split, head transpose, optional low-rank add, q/k RMSNorm, half-split
   RoPE, q prescale), writing q, k, v in flash's (B, H, S, D) layout.
+* :func:`flash_attention_online` -- kernel ``csrc/flash_online.cu``,
+  counterpart of ``flash_attention`` with ``fixed_softmax=False,
+  out_bshd=False`` and no kv mask (``_flash_kernel`` :607): the running-max
+  softmax the VAE's single-head mid-block attention takes (D = 512).
 """
 
 from __future__ import annotations
@@ -28,6 +32,9 @@ FIXED_SHIFT = 16.0
 FIXED_CAP = 116.0
 KERNEL_HEAD_DIM = 128
 RMS_EPS = 1e-6
+NEG_INF = -1e30
+ONLINE_HEAD_DIMS = (128, 256, 512)  # the online kernel's instantiations
+ONLINE_BKV = 32  # the online kernel's kv tile: its rescale steps
 
 
 def rope_table_halfsplit(rot: torch.Tensor):
@@ -162,3 +169,59 @@ def flash_attention(q, k, v):
 
 
 flash_attention.launches = 0
+
+
+def _logit_scale(scale, d) -> float:
+    """The factor on f32(q . k): scale * log2(e), or 1 when ``scale == 1``
+    means q already carries it (the JAX convention); rounded to f32."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    return float(torch.tensor(1.0 if scale == 1.0 else scale * LOG2E, dtype=torch.float32))
+
+
+def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV):
+    """The kernel's recurrence in torch ops, over kv chunks of ``bkv``
+    columns (the kernel's tile by default, so the rescales fall where the
+    kernel's do). The last chunk is cut at Skv instead of masked: a masked
+    column's p is exactly 0 and never the row max, so the two agree."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    c = _logit_scale(scale, d)
+    qf = q.float()
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    for j in range(0, skv, bkv):
+        s = (qf @ k[:, :, j:j + bkv].float().transpose(-1, -2)) * c
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp2((s - m_new).to(torch.bfloat16).float()).to(torch.bfloat16).float()
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ v[:, :, j:j + bkv].float()
+        m = m_new
+    return (acc / l).to(torch.bfloat16)
+
+
+def flash_attention_online(q, k, v, scale=None):
+    """Non-causal attention with a running-max softmax over (B, H, S, D)
+    bf16 q, k, v -> (B, H, Sq, D) bf16; ``scale`` defaults to 1/sqrt(D),
+    and ``scale=1.0`` means q already carries scale * log2(e)."""
+    if not q.is_cuda:
+        return flash_attention_online_plain(q, k, v, scale)
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    _build.require(d in ONLINE_HEAD_DIMS, f"online flash kernel is built for head dims {ONLINE_HEAD_DIMS}, got {d}")
+    _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "online flash kernel takes bf16 q, k, v")
+    _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d) and skv > 0,
+                   "k and v must be (B, H, Skv, D) like q, Skv > 0")
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=q.device)
+    lib = _build.library()
+    _build.check(lib.nt_flash_online(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, sq,
+                                     skv, d, _logit_scale(scale, d),
+                                     torch.cuda.current_stream(q.device).cuda_stream), "flash_online")
+    flash_attention_online.launches += 1
+    return out
+
+
+flash_attention_online.launches = 0

@@ -19,6 +19,8 @@ import torch
 from .attention import (
     LOG2E,
     flash_attention,
+    flash_attention_online,
+    flash_attention_online_plain,
     flash_attention_plain,
     qkv_rope_producer,
     qkv_rope_producer_plain,
@@ -81,6 +83,16 @@ def flash_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
     g = _gen(seed, device)
     # q carries softmax-scale * log2(e) like the FLUX path's prescaled q
     q = (torch.randn((b, h, sq, d), device=device, generator=g) * (1.4426950408889634 / math.sqrt(d)) * 2.0)
+    k = torch.randn((b, h, skv, d), device=device, generator=g) * 2.0
+    v = torch.randn((b, h, skv, d), device=device, generator=g)
+    return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+
+
+def flash_online_case(b, h, sq, skv, d=512, *, seed=0, device="cuda"):
+    """Unscaled q, k, v with logits q . k / sqrt(D) of std ~4: the running
+    max moves over the kv tiles and p spans many binades."""
+    g = _gen(seed, device)
+    q = torch.randn((b, h, sq, d), device=device, generator=g) * 2.0
     k = torch.randn((b, h, skv, d), device=device, generator=g) * 2.0
     v = torch.randn((b, h, skv, d), device=device, generator=g)
     return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
@@ -182,6 +194,16 @@ def check_flash(q, k, v):
     """bf16 output: max error <= 1e-2 of the plain output's max |value|."""
     out = flash_attention(q, k, v)
     ref = flash_attention_plain(q, k, v)
+    err, rel = _rel(out, ref)
+    ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"
+
+
+def check_flash_online(q, k, v):
+    """bf16 output, softmax scale 1/sqrt(D): max error <= 1e-2 of the plain
+    output's max |value| (the twin runs the kernel's 32-column kv steps)."""
+    out = flash_attention_online(q, k, v)
+    ref = flash_attention_online_plain(q, k, v)
     err, rel = _rel(out, ref)
     ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"

@@ -1,7 +1,8 @@
-"""FLUX text-to-latents pipeline (counterpart of
-``nunchaku_tpu/pipeline/pipeline_flux.py`` for ``prompt_embeds``,
-``vae=None`` and no step cache). The denoise loop is a Python loop of
-transformer forwards and Euler steps; it returns packed latents.
+"""FLUX text-to-image pipeline (counterpart of
+``nunchaku_tpu/pipeline/pipeline_flux.py`` for ``prompt_embeds``, the
+first-block caches ``"fb"`` and ``"double_fb"``, and an optional VAE).
+The denoise loop is a Python loop of transformer forwards (cached or not)
+and Euler steps; with a VAE the latents are decoded to images.
 """
 
 from __future__ import annotations
@@ -11,7 +12,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..caching.fbcache import fb_cached_forward, init_fb_state, make_hit_schedule
 from .scheduler import euler_step, flux_sigmas
+
+CACHES = (None, "fb", "double_fb")
 
 
 def pack_latents(lat: torch.Tensor) -> torch.Tensor:
@@ -38,20 +42,31 @@ def make_img_ids(h_tokens: int, w_tokens: int, device="cpu") -> torch.Tensor:
 
 @dataclass
 class FluxPipelineOutput:
-    latents: torch.Tensor  # (B, S, 64) packed, bf16 (no VAE decode in the port yet)
+    images: torch.Tensor | None  # (B, H, W, 3) f32 in [0, 1]; None without a VAE
+    latents: torch.Tensor  # (B, S, 64) packed, bf16
+    cache_hits: int | None = None  # dual-level hits, when a cache ran
 
 
 class FluxPipeline:
     def __init__(self, transformer, vae=None):
-        if vae is not None:
-            raise NotImplementedError("the VAE decode is not ported yet; pass vae=None for latents")
         self.transformer = transformer
+        self.vae = vae
 
     @torch.no_grad()
     def __call__(self, prompt_embeds: torch.Tensor, pooled_prompt_embeds: torch.Tensor,
                  height: int = 1024, width: int = 1024, num_inference_steps: int = 50,
-                 guidance_scale: float = 3.5, seed: int = 0,
-                 latents: torch.Tensor | None = None) -> FluxPipelineOutput:
+                 guidance_scale: float = 3.5, seed: int = 0, latents: torch.Tensor | None = None,
+                 cache: str | None = None, cache_hit_ratio: float | None = None,
+                 residual_diff_threshold: float = 0.12,
+                 single_residual_diff_threshold: float = 0.09) -> FluxPipelineOutput:
+        """``cache``: None, ``"fb"`` or ``"double_fb"`` (first-block caches,
+        thresholds as in the JAX pipeline); ``cache_hit_ratio`` forces a
+        stated hit count (:func:`make_hit_schedule`) instead of threshold
+        decisions."""
+        if cache not in CACHES:
+            raise ValueError(f"cache must be one of {CACHES} (TeaCache is not ported), got {cache!r}")
+        if cache_hit_ratio is not None and cache is None:
+            raise ValueError("cache_hit_ratio needs an FB cache")
         model = self.transformer
         cfg = model.cfg
         device = prompt_embeds.device
@@ -68,10 +83,25 @@ class FluxPipeline:
         sigmas = flux_sigmas(num_inference_steps, s_img)
         guidance = (torch.full((b,), guidance_scale, dtype=torch.float32, device=device)
                     if cfg.guidance_embeds else None)
+        state = init_fb_state(b, s_img, s_txt, cfg.dim, device) if cache is not None else None
+        force = (make_hit_schedule(num_inference_steps, cache_hit_ratio).tolist() if cache_hit_ratio is not None
+                 else [None] * num_inference_steps)
         lat = latents.float()
         for i in range(num_inference_steps):
             t = torch.full((b,), float(sigmas[i]), dtype=torch.float32, device=device)
-            vel = model(lat.to(torch.bfloat16), prompt_embeds, pooled_prompt_embeds, t, img_ids,
-                        txt_ids, guidance)
+            x = lat.to(torch.bfloat16)
+            if state is None:
+                vel = model(x, prompt_embeds, pooled_prompt_embeds, t, img_ids, txt_ids, guidance)
+            else:
+                vel, state = fb_cached_forward(
+                    model, state, x, prompt_embeds, pooled_prompt_embeds, t, img_ids, txt_ids, guidance,
+                    residual_diff_threshold=residual_diff_threshold,
+                    single_residual_diff_threshold=single_residual_diff_threshold if cache == "double_fb" else None,
+                    force=force[i])
             lat = euler_step(lat, vel, sigmas[i], sigmas[i + 1])
-        return FluxPipelineOutput(latents=lat.to(torch.bfloat16))
+        latents = lat.to(torch.bfloat16)
+        images = None
+        if self.vae is not None:
+            images = self.vae.decode(unpack_latents(latents, lh, lw))
+        return FluxPipelineOutput(images=images, latents=latents,
+                                  cache_hits=None if state is None else state.hits)

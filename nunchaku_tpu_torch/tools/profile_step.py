@@ -1,15 +1,19 @@
-"""Where one FLUX.1-dev w4a8 denoise step spends its time on the card.
+"""Where one FLUX.1-dev w4a8 denoise step, or one VAE decode, spends its
+time on the card.
 
     python -m nunchaku_tpu_torch.tools.profile_step [--turbo] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
-Builds the full-width, full-depth model from random weights (with
+Default: builds the full-width, full-depth model from random weights (with
 ``--turbo``: switched to the bf16-stream configuration with the fused qkv
 prologue, as ``bench.py`` serves it), runs one warm 1024x1024 transformer
 forward, then traces one more with ``torch.profiler`` (CUDA activity).
-Prints the forward's wall time, the device's busy time and idle share,
-device time by group (the port's kernels, PyTorch's int8 and float GEMMs,
-the rest) and the top kernels; with ``--out``, the full ``key_averages``
-table goes to that file. Needs a CUDA device.
+``--decode``: the same for one decode of 128x128 latents (a 1024x1024
+image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
+(``--whole``: in one piece). Prints the wall time, the device's busy time
+and idle share, device time by group (the port's kernels, PyTorch's GEMMs
+or cuDNN's convolutions, the rest) and the top kernels; with ``--out``,
+the full ``key_averages`` table goes to that file. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,8 +26,9 @@ from pathlib import Path
 
 import torch
 
-PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel",
-                "gemm_grouped_kernel", "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel")
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
+                "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_online_kernel")
 
 
 def group_of(name: str) -> str:
@@ -38,27 +43,124 @@ def group_of(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+def decode_group_of(name: str) -> str:
+    low = name.lower()
+    if "flash_online_kernel" in low:
+        return "port kernel flash_online_kernel (mid-block attention)"
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "convolution layout conversions (cuDNN NCHW <-> NHWC)"
+    if any(s in low for s in ("conv", "fprop", "implicit", "xmma", "cudnn", "cutlass", "gemm")):
+        return "convolutions (cuDNN)"
+    if any(s in low for s in ("welford", "addcmul", "rsqrt", "silu")):
+        return "GroupNorm statistics and affine / SiLU"
+    if "upsample" in low:
+        return "nearest 2x upsample"
+    return "casts, bias and residual adds, tile blend, copies (elementwise)"
+
+
+def conv_flop(vae, z) -> int:
+    """2 * Cout * Cin * kh * kw * Hout * Wout summed over every convolution
+    one decode of ``z`` runs (counted by forward hooks on a decode)."""
+    from nunchaku_tpu_torch.models.autoencoder import Conv2d
+
+    total = [0]
+
+    def hook(mod, _, out):
+        cout, cin, kh, kw = mod.weight.shape
+        total[0] += 2 * cout * cin * kh * kw * out.shape[0] * out.shape[2] * out.shape[3]
+
+    hooks = [m.register_forward_hook(hook) for m in vae.modules() if isinstance(m, Conv2d)]
+    vae.decode(z)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def _trace(fn):
+    """One warm call, one timed untraced call, one traced call -> (seconds
+    untraced, seconds traced, profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return wall_plain, wall, prof
+
+
+def _report(header, what, wall_plain, wall, prof, grouping, out):
+    groups: dict[str, float] = {}
+    kernels: dict[str, tuple[float, int]] = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.time_range.elapsed_us()
+        groups[grouping(ev.name)] = groups.get(grouping(ev.name), 0.0) + us
+        t, n = kernels.get(ev.name, (0.0, 0))
+        kernels[ev.name] = (t + us, n + 1)
+    busy_ms = sum(groups.values()) / 1e3
+    lines = [header,
+             f"{what} wall {wall_plain * 1e3:.1f} ms untraced, {wall * 1e3:.1f} ms traced; "
+             f"device busy {busy_ms:.1f} ms (kernel time summed); idle share "
+             f"{max(0.0, 1 - busy_ms / (wall * 1e3)):.3f} of the traced {what}"]
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        lines.append(f"  {us / 1e3:9.2f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  {name}")
+    lines.append("top kernels (ms total, calls):")
+    for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]:
+        lines.append(f"  {us / 1e3:9.2f} ms {n:5d}  {name[:150]}")
+    print("\n".join(lines))
+    if out:
+        path = Path(out)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text("\n".join(lines) + "\n\n" + prof.key_averages().table(
+            sort_by="device_time_total", row_limit=80, max_name_column_width=120))
+        print(f"full table: {path}")
+
+
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev w4a8 forward")
+    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev w4a8 forward or one VAE decode")
     ap.add_argument("--out", help="file for the full key_averages table")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
+    ap.add_argument("--decode", action="store_true", help="profile one 1024px VAE decode instead of a forward")
+    ap.add_argument("--whole", action="store_true", help="with --decode: one piece instead of 64-latent tiles")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 1
-    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
-    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
-
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = "cuda"
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if args.decode:
+        from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+
+        vae = AutoencoderKL.random_init(seed=0, device=dev)
+        if not args.whole:
+            vae.enable_tiling()
+        z = torch.randn((1, 16, 128, 128), generator=gen, device=dev).to(torch.bfloat16)
+        flop = conv_flop(vae, z)
+        wall_plain, wall, prof = _trace(lambda: vae.decode(z))
+        header = (f"card: {smi}; torch {torch.__version__}; FLUX VAE decode of 128x128 latents "
+                  f"({'whole image' if args.whole else '3 x 3 tiles of 64 latents'}); convolutions "
+                  f"{flop / 1e12:.3f} TFLOP, least time {flop / PEAK_BF16 * 1e3:.2f} ms at 989 TFLOP/s bf16")
+        _report(header, "decode", wall_plain, wall, prof, decode_group_of, args.out)
+        return 0
+
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
     cfg = FluxConfig(precision="w4a8")
     model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
     if args.turbo:
         model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
-    gen = torch.Generator(device=dev).manual_seed(0)
     inputs = (
         torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
         torch.randn((1, 512, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
@@ -67,46 +169,10 @@ def main(argv=None) -> int:
         torch.zeros((512, 3), dtype=torch.int32, device=dev), torch.full((1,), 3.5, device=dev),
     )
     with torch.no_grad():
-        model(*inputs)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model(*inputs)
-        torch.cuda.synchronize()
-        wall_plain = time.perf_counter() - t0
-        acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            model(*inputs)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-
-    groups: dict[str, float] = {}
-    kernels: dict[str, tuple[float, int]] = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = ev.time_range.elapsed_us()
-        groups[group_of(ev.name)] = groups.get(group_of(ev.name), 0.0) + us
-        t, n = kernels.get(ev.name, (0.0, 0))
-        kernels[ev.name] = (t + us, n + 1)
-    busy_ms = sum(groups.values()) / 1e3
-    lines = [f"card: {smi}; torch {torch.__version__}; "
-             f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}",
-             f"forward wall {wall_plain * 1e3:.1f} ms untraced, {wall * 1e3:.1f} ms traced; "
-             f"device busy {busy_ms:.1f} ms (kernel time summed); idle share "
-             f"{max(0.0, 1 - busy_ms / (wall * 1e3)):.3f} of the traced forward"]
-    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        lines.append(f"  {us / 1e3:9.2f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  {name}")
-    lines.append("top kernels (ms total, calls):")
-    for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]:
-        lines.append(f"  {us / 1e3:9.2f} ms {n:5d}  {name[:150]}")
-    print("\n".join(lines))
-    if args.out:
-        out = Path(args.out)
-        out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text("\n".join(lines) + "\n\n" + prof.key_averages().table(
-            sort_by="device_time_total", row_limit=80, max_name_column_width=120))
-        print(f"full table: {out}")
+        wall_plain, wall, prof = _trace(lambda: model(*inputs))
+    header = (f"card: {smi}; torch {torch.__version__}; "
+              f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}")
+    _report(header, "forward", wall_plain, wall, prof, group_of, args.out)
     return 0
 
 

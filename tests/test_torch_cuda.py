@@ -17,6 +17,7 @@ import torch
 from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+from nunchaku_tpu_torch.ops.attention import flash_attention_online
 from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
 
 pytestmark = pytest.mark.cuda
@@ -57,6 +58,25 @@ def test_grouped(dev, m, k, n, groups):
 def test_flash(dev, b, h, sq, skv):
     _, ok, detail = checks.check_flash(*checks.flash_case(b, h, sq, skv, device=dev))
     assert ok, detail
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d", [(1, 1, 4096, 4096, 512), (1, 1, 16384, 16384, 512),
+                                          (1, 1, 300, 300, 512), (2, 2, 77, 333, 512),
+                                          (1, 2, 200, 130, 128), (1, 1, 65, 97, 256)])
+def test_flash_online(dev, b, h, sq, skv, d):
+    _, ok, detail = checks.check_flash_online(*checks.flash_online_case(b, h, sq, skv, d, device=dev))
+    assert ok, detail
+
+
+def test_flash_online_counts_and_refusals(dev):
+    reset_launch_counts()
+    q, k, v = checks.flash_online_case(1, 1, 100, 100, 512, device=dev)
+    flash_attention_online(q, k, v)
+    assert launch_counts()["flash_online"] == 1
+    for bad in (q.float(), q[..., :384].contiguous()):  # not bf16; a head dim not built
+        with pytest.raises(ValueError):
+            flash_attention_online(bad, bad.to(torch.bfloat16), bad.to(torch.bfloat16))
+    assert launch_counts()["flash_online"] == 1
 
 
 @pytest.mark.parametrize("b,s,k,mod", [(1, 4608, 3072, True), (1, 512, 3072, True), (2, 300, 768, True),
