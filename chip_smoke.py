@@ -10,7 +10,9 @@ Phases, each fatal on failure:
                   main-path shapes, its time (CUDA events over warm launches),
                   the plain twin's time, a one-call PyTorch yardstick where one
                   exists, and the least time the card could take (H100 SXM data
-                  sheet: 3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16);
+                  sheet: 3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16); the W4A4
+                  GEMM once per mode (int4, int4 with unsigned activations,
+                  nvfp4), the AWQ GEMV at both modulation widths;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -18,7 +20,9 @@ Phases, each fatal on failure:
                   Then the turbo model with the double first-block cache (hit
                   ratio 0.5) and a small VAE whose 512-wide mid block takes the
                   online flash kernel, at 512x512: cache hits equal, latents and
-                  images (whole, and tiled in 3 x 3 tiles) must agree;
+                  images (whole, and tiled in 3 x 3 tiles) must agree. Last, the
+                  small model at int4 and at nvfp4 (AdaLN modulation damped, see
+                  checks.damp_modulation), card against CPU;
   5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
                   1024x1024: first the default configuration (one request of
@@ -26,13 +30,17 @@ Phases, each fatal on failure:
                   the turbo configuration serves 2 requests of --steps steps (no
                   VAE), then bench.py's image path: with the full FLUX VAE (tiled
                   decode) and cache="double_fb", cache_hit_ratio=0.5, 2 requests
-                  of --steps steps to (1, 1024, 1024, 3) images. Each path first
-                  runs one untimed 1-step request (first-use work), then its
-                  counts are reset; its launch counts must match the path (a
-                  cached request: the misses' full forwards, the hits' dual and
-                  single block 0, 9 flash_online for the 9 tiles), the outputs
-                  must be finite (images in [0, 1]). Last, one tiled and one
-                  whole-image decode of the last latents are timed alone.
+                  of --steps steps to (1, 1024, 1024, 3) images; one tiled and one
+                  whole-image decode of the last latents are timed alone. Then the
+                  w4a8 model is freed and the int4 model (default configuration,
+                  AWQ modulation) serves 2 requests of min(4, --steps) steps to
+                  images through the tiled VAE, and the nvfp4 model 1 request of
+                  min(2, --steps) steps to latents. Each path first runs one
+                  untimed 1-step request (first-use work), then its counts are
+                  reset; its launch counts must match the path (a cached request:
+                  the misses' full forwards, the hits' dual and single block 0;
+                  9 flash_online per tiled decode), the outputs must be finite
+                  (images in [0, 1]); each path reports its peak memory.
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -110,14 +118,29 @@ def res_bytes(m, n, batch, r2):
     return 2 * m * n + 4 * batch * n + (2 * m * n + 4 * m * r2 + 2 * r2 * n if r2 else 0)
 
 
+def w4a4_bytes(m, k, n, g, r=RANK):
+    # qact, ascales, weight, wscales (packed 4-bit, bf16 group scales), lora_act, proj_up, bias -> bf16 out
+    return m * k // 2 + 2 * (k // g) * m + k // 2 * n + 2 * (k // g) * n + 4 * m * r + 2 * r * n + 2 * n + 2 * m * n
+
+
+def w4a4_bound(m, k, n, g, r=RANK):
+    return bound(w4a4_bytes(m, k, n, g, r), bf16_ops=2 * m * n * (k + r))
+
+
+def gemv_bound(m, k, n):
+    # x bf16, packed weight, scales and zeros, bias -> f32 out
+    return bound(2 * m * k + k // 2 * n + 4 * (k // 64) * n + 2 * n + 4 * m * n, bf16_ops=2 * m * k * n)
+
+
 def kernel_phase(dev):
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.attention import (
         flash_attention, flash_attention_online, flash_attention_online_plain, flash_attention_plain,
         qkv_rope_producer, qkv_rope_producer_plain)
     from nunchaku_tpu_torch.ops.gemm import (
-        dequant_w4a8, dequant_w4a8_plain, gemm_w8a8_grouped, gemm_w8a8_grouped_plain,
-        gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain)
+        dequant_w4a8, dequant_w4a8_plain, gemm_w4a4, gemm_w4a4_plain, gemm_w8a8_grouped, gemm_w8a8_grouped_plain,
+        gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain, w4a4_values)
+    from nunchaku_tpu_torch.ops.gemv import awq_dequant, awq_w4a16_linear, awq_w4a16_linear_plain
     from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
     from nunchaku_tpu_torch.ops.reference import int8_matmul
 
@@ -262,13 +285,51 @@ def kernel_phase(dev):
            bound(4 * s * VAE_D * 2, bf16_ops=4 * s * s * VAE_D),
            cuda_ms(lambda: sdpa(q, kk, v, scale=1 / math.sqrt(VAE_D)), 50))
     del q, kk, v
+
+    # 9. W4A4 GEMM, one row per mode: single-block fc1 (M 4608, K 3072, N
+    # 12288) for int4 and nvfp4, single-block fc2 (K 12288, N 3072) for the
+    # unsigned post-GELU activations of int4
+    for name, (m, k, n), precision, unsigned in (
+            ("gemm_w4a4_int4", (S_IMG + S_TXT, DIM, HID), "int4", False),
+            ("gemm_w4a4_int4_unsigned", (S_IMG + S_TXT, HID, DIM), "int4", True),
+            ("gemm_w4a4_nvfp4", (S_IMG + S_TXT, DIM, HID), "nvfp4", False)):
+        args, kw = checks.w4a4_case(m, k, n, precision, unsigned, device=dev)
+        err, ok, detail = checks.check_w4a4(args, kw)
+        g = 16 if precision == "nvfp4" else 64
+        qa, asc, qw, wsc = args[:4]
+        a16 = (w4a4_values(qa, -1, precision=precision, unsigned=unsigned)
+               * asc.float().repeat_interleave(g, dim=0).t()).to(torch.bfloat16)
+        w16 = (w4a4_values(qw, 0, precision=precision) * wsc.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+        record(name, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
+               f"M={m} K={k} N={n} R={RANK} {precision}{' unsigned' if unsigned else ''}", ok, err, detail,
+               cuda_ms(lambda: gemm_w4a4(*args, **kw), 20), cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3),
+               w4a4_bound(m, k, n, g), cuda_ms(lambda: torch.matmul(a16, w16), 20))
+        del args, qa, asc, qw, wsc, a16, w16
+
+    # 10. AWQ GEMV: the dual block's AdaLN modulation (M 1, K 3072, N 18432),
+    # also checked and timed at the single block's N 9216
+    timed = {}
+    for n in (6 * DIM, 3 * DIM):
+        args = checks.awq_case(1, DIM, n, device=dev)
+        w16 = awq_dequant(*args[1:4])
+        timed[n] = (checks.check_awq(*args), cuda_ms(lambda: awq_w4a16_linear(*args), 200),
+                    cuda_ms(lambda: awq_w4a16_linear_plain(*args), 20), gemv_bound(1, DIM, n),
+                    cuda_ms(lambda: torch.matmul(args[0], w16), 200))
+        del args, w16
+    (err2, ok2, detail2), ms2, plain2, bnd2, lib2 = timed[3 * DIM]
+    log(f"[kernel] gemv_awq @ M=1 K={DIM} N={3 * DIM}: {'PASS' if ok2 else 'FAIL'} {detail2}; {ms2:.4f} ms "
+        f"(plain {plain2:.4f} ms, library {lib2:.4f} ms, bound {bnd2[0]:.4f} ms by {bnd2[1]})")
+    (err, ok, detail), ms, plain, bnd, lib = timed[6 * DIM]
+    record("gemv_awq", "nunchaku_tpu_torch/csrc/gemv_awq.cu", "nunchaku_tpu/ops/gemv.py:25",
+           f"M=1 K={DIM} N={6 * DIM}", ok and ok2, max(err, err2), detail + f"; N {3 * DIM}: {detail2}",
+           ms, plain, bnd, lib)
     torch.cuda.empty_cache()
     return rows, failed
 
 
 def per_forward_bounds(cfg) -> dict:
     """Least time per 1024px forward for each kernel, summed over the path's
-    shapes (the default path's and the turbo path's kernels)."""
+    shapes (the default and turbo paths' kernels; the 4-bit paths')."""
     L, Ls, T = cfg.num_layers, cfg.num_single_layers, S_IMG + S_TXT
 
     def deq(k, n):
@@ -287,6 +348,9 @@ def per_forward_bounds(cfg) -> dict:
     def lnq(m):
         return bound(ln_bytes(m, DIM, RANK), bf16_ops=2 * m * DIM * RANK)[0]
 
+    def w4a4_signed(m, g):
+        return sum(w4a4_bound(m, DIM, n, g)[0] for n in (3 * DIM, DIM, HID))
+
     def rope(s):
         return bound(rope_bytes(s), bf16_ops=2 * s * 3 * DIM * RANK)[0]
 
@@ -301,6 +365,14 @@ def per_forward_bounds(cfg) -> dict:
         "ln_mod_quant_int8": L * 2 * (lnq(S_IMG) + lnq(S_TXT)) + Ls * 2 * lnq(T),
         "qkv_rope_producer": L * (rope(S_IMG) + rope(S_TXT)) + Ls * rope(T),
         "gemm_w8a8_grouped_res": L * (chain(S_IMG, 1)[1] + chain(S_TXT, 1)[1]) + Ls * chain(T, 2)[1],
+        # the 4-bit paths: qkv, out projection, fc1 (signed) and fc2 (unsigned at int4) of each
+        # stream of a dual block and of a single block
+        "gemm_w4a4_int4": sum(L * w4a4_signed(m, 64) for m in (S_IMG, S_TXT)) + Ls * w4a4_signed(T, 64),
+        "gemm_w4a4_int4_unsigned": (sum(L * w4a4_bound(m, HID, DIM, 64)[0] for m in (S_IMG, S_TXT))
+                                    + Ls * w4a4_bound(T, HID, DIM, 64)[0]),
+        "gemm_w4a4_nvfp4": (sum(L * (w4a4_signed(m, 16) + w4a4_bound(m, HID, DIM, 16)[0]) for m in (S_IMG, S_TXT))
+                            + Ls * (w4a4_signed(T, 16) + w4a4_bound(T, HID, DIM, 16)[0])),
+        "gemv_awq": 2 * L * gemv_bound(1, DIM, 6 * DIM)[0] + Ls * gemv_bound(1, DIM, 3 * DIM)[0],
     }
 
 
@@ -332,7 +404,40 @@ def reference_phase(dev):
             f"latents rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if ok else 'FAIL'}")
         all_ok = all_ok and ok
     image_ok = reference_image_path(cpu_model, gpu_model, dev)
-    return all_ok and image_ok
+    return all_ok and image_ok and reference_4bit(dev, pe, pooled, lat, kw)
+
+
+def reference_4bit(dev, pe, pooled, lat, kw):
+    """The small model at int4 and at nvfp4, its AdaLN modulation damped
+    (checks.damp_modulation), card against CPU; every GEMM and modulation
+    on the card through its kernel."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    all_ok = True
+    for precision in ("int4", "nvfp4"):
+        cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6, joint_attention_dim=512,
+                         pooled_projection_dim=256, precision=precision)
+        cpu_model = FluxTransformer2DModel.random_init(cfg, seed=3, device="cpu")
+        checks.damp_modulation(cpu_model)
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        ref = FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float()
+        reset_launch_counts()
+        out = FluxPipeline(gpu_model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
+        c = launch_counts()
+        gemms = {k: v for k, v in c.items() if k.startswith("gemm_w4a4") and v}
+        forwards = kw["num_inference_steps"]
+        expect = ({"gemm_w4a4_int4": 9 * forwards, "gemm_w4a4_int4_unsigned": 3 * forwards}
+                  if precision == "int4" else {"gemm_w4a4_nvfp4": 12 * forwards})
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        ok = (out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2 and gemms == expect
+              and c["gemv_awq"] == 3 * forwards)
+        log(f"[reference] {precision} (f32 stream, AWQ modulation x {checks.MOD_DAMP}): 1+1-block FLUX (dim 768), "
+            f"{forwards} steps at 256x256: card vs CPU plain latents rel max error {rel:.3e} (tolerance 2e-2); "
+            f"launches {gemms}, gemv_awq {c['gemv_awq']}: {'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+    return all_ok
 
 
 def reference_image_path(cpu_model, gpu_model, dev):
@@ -520,8 +625,44 @@ def slice_phase(dev, steps: int, requests: int):
         hit_runs | {"flash_online": VAE_TILES * requests})
     log(f"[slice] image path cache hits per request {req_hits} (expected {hits} of {steps} steps)")
     ok = decode_alone(vae, lat, dev) and ok
-    counts = {k: counts_f32[k] + counts_turbo[k] + counts_img[k] for k in counts_f32}
-    return ok, counts, paths, cfg
+    del pipe, model
+    torch.cuda.empty_cache()
+    ok4, counts4 = slice_4bit(dev, steps, vae, paths)
+    counts = {k: counts_f32[k] + counts_turbo[k] + counts_img[k] + counts4[k] for k in counts_f32}
+    return ok and ok4, counts, paths, cfg
+
+
+def slice_4bit(dev, steps: int, vae, paths):
+    """The int4 model (default configuration, AWQ modulation) through the
+    tiled VAE, then the nvfp4 model to latents, at full width and depth;
+    ``paths`` gains their per-forward launch counts."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    ok, total = True, {}
+    for precision, requests, nsteps, with_vae in (("int4", 2, min(4, steps), True),
+                                                  ("nvfp4", 1, min(2, steps), False)):
+        cfg = FluxConfig(precision=precision)
+        L, Ls = cfg.num_layers, cfg.num_single_layers
+        t0 = time.perf_counter()
+        model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+        log(f"[slice] FLUX.1-dev {precision}: {L} dual + {Ls} single blocks, dim {cfg.dim}; weights "
+            f"{nbytes / 2**30:.2f} GiB, random init {time.perf_counter() - t0:.1f} s")
+        gemm = ({"gemm_w4a4_int4": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned": 2 * L + Ls} if precision == "int4"
+                else {"gemm_w4a4_nvfp4": 8 * L + 4 * Ls})
+        paths[precision] = gemm | {"gemv_awq": 2 * L + Ls, "flash_fixed": L + Ls}
+        label = f"{precision} (f32 stream{', tiled VAE' if with_vae else ''})"
+        finite, _, counts, _, _, _ = serve(FluxPipeline(model, vae=vae if with_vae else None), cfg, dev, nsteps,
+                                           requests, label)
+        extra = {"flash_online": VAE_TILES * requests} if with_vae else {}
+        counts_ok = check_counts(precision, counts, paths[precision], nsteps * requests, extra)
+        ok = ok and finite and counts_ok
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        del model
+        torch.cuda.empty_cache()
+    return ok, total
 
 
 def main(argv=None) -> int:
@@ -561,7 +702,7 @@ def main(argv=None) -> int:
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
-        per = {p: f[name] for p, f in paths.items() if name in f}
+        per = {p: f[name] for p, f in paths.items() if f.get(name)}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
             f"of the path(s) it runs in")
 

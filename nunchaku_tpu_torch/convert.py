@@ -3,9 +3,9 @@
 ``flux_from_jax_params`` takes the dotted names of the JAX
 ``Module.named_parameters()`` (``nunchaku_tpu/core/module.py``) mapped to
 numpy arrays -- the blocks' leaves carry a leading layer axis -- and builds
-the port's per-layer modules from them. Static attributes (precision, head
-dim) come from the config, and every linear's shape is checked against the
-config's dims. ``vae_from_jax_params`` does the same for the VAE decoder.
+the port's per-layer modules from them. Static attributes (precision, the
+int4 fc2 layers' unsigned activations, head dim) come from the config, and
+every linear's shape is checked against the config's dims. ``vae_from_jax_params`` does the same for the VAE decoder.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 from .models.attention import FeedForward, FluxAttention
 from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, ResnetBlock, Upsample
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
-from .models.linear import Linear, SVDQW4A4Linear
+from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
 from .models.transformer_flux import (
     FluxConfig,
@@ -48,21 +48,33 @@ def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTr
     def linear(prefix):
         return Linear(get(prefix + ".weight"), opt(prefix + ".bias"))
 
-    def svdq(prefix, layer, precision, k, n):
-        lin = SVDQW4A4Linear(
-            get(prefix + ".qweight", layer), get(prefix + ".wscales", layer),
-            get(prefix + ".smooth", layer), get(prefix + ".proj_down", layer),
-            get(prefix + ".proj_up", layer), opt(prefix + ".bias", layer),
-            opt(prefix + ".rescales", layer), precision=precision)
+    def check(prefix, lin, k, n):
         if (lin.in_features, lin.out_features) != (k, n):
             raise ValueError(f"{prefix}: ({lin.in_features}, {lin.out_features}) does not match "
                              f"the config's ({k}, {n})")
         return lin
 
+    def svdq(prefix, layer, precision, k, n, act_unsigned=False):
+        return check(prefix, SVDQW4A4Linear(
+            get(prefix + ".qweight", layer), get(prefix + ".wscales", layer),
+            get(prefix + ".smooth", layer), get(prefix + ".proj_down", layer),
+            get(prefix + ".proj_up", layer), opt(prefix + ".bias", layer),
+            opt(prefix + ".rescales", layer), precision=precision, act_unsigned=act_unsigned), k, n)
+
     p = cfg.precision
-    if p not in ("int8", "w4a8"):
+    if p not in ("int8", "w4a8", "int4", "nvfp4"):
         raise NotImplementedError(f"precision {p!r} is not ported")
     dim = cfg.dim
+    unsigned_fc2 = p == "int4"  # the post-GELU layers of an int4 model take unsigned activations
+
+    def mod(prefix, layer, n):
+        """The modulation linear: AWQ at int4 / nvfp4, int8 SVDQ otherwise."""
+        if p in ("int4", "nvfp4"):
+            return check(prefix, AWQW4A16Linear(
+                get(prefix + ".qweight", layer), get(prefix + ".wscales", layer),
+                get(prefix + ".wzeros", layer), opt(prefix + ".bias", layer)), dim, n)
+        return svdq(prefix, layer, "int8", dim, n)
+
     def attn(prefix, layer, joint):
         kw = dict(head_dim=cfg.attention_head_dim)
         qkv = svdq(prefix + ".to_qkv", layer, p, dim, 3 * dim)
@@ -78,22 +90,22 @@ def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTr
 
     def ff(prefix, layer):
         return FeedForward(svdq(prefix + ".fc1", layer, p, dim, 4 * dim),
-                           svdq(prefix + ".fc2", layer, p, 4 * dim, dim))
+                           svdq(prefix + ".fc2", layer, p, 4 * dim, dim, unsigned_fc2))
 
     dual = []
     for i in range(cfg.num_layers):
         t = "transformer_blocks"
         dual.append(FluxTransformerBlock(
-            AdaLayerNormZero(svdq(t + ".norm1.linear", i, "int8", dim, 6 * dim)),
-            AdaLayerNormZero(svdq(t + ".norm1_context.linear", i, "int8", dim, 6 * dim)),
+            AdaLayerNormZero(mod(t + ".norm1.linear", i, 6 * dim)),
+            AdaLayerNormZero(mod(t + ".norm1_context.linear", i, 6 * dim)),
             attn(t + ".attn", i, True), ff(t + ".ff", i), ff(t + ".ff_context", i)))
     single = []
     for i in range(cfg.num_single_layers):
         t = "single_transformer_blocks"
         single.append(FluxSingleTransformerBlock(
-            AdaLayerNormZeroSingle(svdq(t + ".norm.linear", i, "int8", dim, 3 * dim)),
+            AdaLayerNormZeroSingle(mod(t + ".norm.linear", i, 3 * dim)),
             attn(t + ".attn", i, False),
-            svdq(t + ".mlp_fc1", i, p, dim, 4 * dim), svdq(t + ".mlp_fc2", i, p, 4 * dim, dim),
+            svdq(t + ".mlp_fc1", i, p, dim, 4 * dim), svdq(t + ".mlp_fc2", i, p, 4 * dim, dim, unsigned_fc2),
             svdq(t + ".attn_out", i, p, dim, dim)))
     te = "time_text_embed"
     guidance = None

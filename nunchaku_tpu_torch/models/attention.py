@@ -7,11 +7,12 @@ q/k RMSNorm and interleaved RoPE as tensor ops) and its fused branch
 (``_forward_fused`` :242-368: the qkv/RoPE producer kernel, with the
 projections' low-rank terms inside it and the dual block's txt and img
 streams in one joint buffer), both ending in fixed-shift flash attention
-with (B, S, H*D) output; and ``FeedForward`` / ``gelu_mlp`` on the int8 /
-w4a8 chain route (:585-737): fc1's GEMM emits fc2's int8 activations
+with (B, S, H*D) output; and ``FeedForward`` / ``gelu_mlp`` (:527-768):
+on the int8 / w4a8 chain route fc1's GEMM emits fc2's int8 activations
 through the GELU -> requantize epilogue and fc2 consumes their grouped
 scales, optionally fed by the LN + modulate + quantize producer and ending
-in the block's gated residual add.
+in the block's gated residual add; the int4 / nvfp4 linears take the
+unfused route (fc1, GELU, fc2 through their own quantize steps).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from torch import nn
 from ..ops.attention import KERNEL_HEAD_DIM, LOG2E, flash_attention, qkv_rope_producer
 from ..ops.gemm import dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant
 from ..ops.quantize import ln_mod_quant_int8, rsmooth_of
-from ..ops.reference import rmsnorm
+from ..ops.reference import gelu_jax, layer_norm, rmsnorm
 from .embeddings import apply_rope
 from .linear import SVDQW4A4Linear
 
@@ -61,14 +62,14 @@ def _halfsplit_qkv_perm(heads: int, head_dim: int, n: int) -> np.ndarray:
 
 def _permute_out_channels(lin: SVDQW4A4Linear, perm: np.ndarray) -> None:
     """Reorder a quantized linear's output channels in place: every N-axis
-    buffer moves together. An int8 weight stays K-contiguous."""
+    buffer moves together. A K-contiguous weight stays K-contiguous."""
     idx = torch.as_tensor(perm, device=lin.qweight.device)
     for name in ("qweight", "wscales", "proj_up", "bias", "rescales"):
         t = getattr(lin, name)
         if t is None:
             continue
         t = t.index_select(-1, idx)
-        if name == "qweight" and lin.precision == "int8":
+        if name == "qweight" and lin.precision != "w4a8":
             t = t.t().contiguous().t()
         setattr(lin, name, t)
 
@@ -118,6 +119,7 @@ class FluxAttention(nn.Module):
     @classmethod
     def random_init(cls, gen, dim, heads, head_dim, joint=True, rank=32, precision="w4a8",
                     device="cuda"):
+        """Quantized projections of ``precision`` (JAX attention.py:444-468)."""
         inner = heads * head_dim
 
         def lin(k, n):
@@ -207,20 +209,34 @@ class FluxAttention(nn.Module):
         return self.to_out(img_o), self.to_add_out(txt_o)
 
 
+def can_chain(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear) -> bool:
+    """Whether the pair takes the int8 requantize chain (JAX ``_can_chain``
+    on its default route): matching int8 or w4a8 linears."""
+    return fc1.precision == fc2.precision and fc1.precision in ("int8", "w4a8")
+
+
 def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None,
              residual=None) -> torch.Tensor:
-    """fc1 -> GELU -> fc2 on the int8 / w4a8 chain: w4a8 weights are
-    dequantized to int8 (fc1, then fc2), fc1's GEMM emits fc2's int8
-    activations with one scale per (token, bn-column group), and fc2's GEMM
-    consumes them group by group.
+    """fc1 -> GELU -> fc2.
 
-    ``mod = (scale, shift)``: x is the RAW bf16 stream (B, S, K) and the LN
-    + modulate + quantize producer makes fc1's activations. ``residual =
-    (x_stream, gate[, extra[, extra_lora_act, extra_proj_up]])`` (all (B, S,
-    ·), gate (B, N)) returns ``x_stream + gate * (mlp_out [+ extra +
-    extra_lora])``, fused into the grouped consumer's epilogue."""
-    if not (fc1.precision == fc2.precision and fc1.precision in ("int8", "w4a8")):
-        raise NotImplementedError("gelu_mlp is ported for matching int8 / w4a8 linears")
+    int8 / w4a8 (:func:`can_chain`): w4a8 weights are dequantized to int8
+    (fc1, then fc2), fc1's GEMM emits fc2's int8 activations with one scale
+    per (token, bn-column group), and fc2's GEMM consumes them group by
+    group. Other precisions (int4, nvfp4) run fc1, the f32 GELU of
+    ``jax.nn.gelu(approximate=True)`` and fc2 (its quantize adds the
+    post-GELU shift of an unsigned fc2).
+
+    ``mod = (scale, shift)``: x is the RAW bf16 stream (B, S, K) and LN +
+    modulate come first (on the chain, the LN + modulate + quantize
+    producer makes fc1's activations). ``residual = (x_stream, gate[, extra[,
+    extra_lora_act, extra_proj_up]])`` (all (B, S, ·), gate (B, N)) returns
+    ``x_stream + gate * (mlp_out [+ extra + extra_lora])``, on the chain
+    fused into the grouped consumer's epilogue."""
+    if not can_chain(fc1, fc2):
+        if mod is not None:
+            x = (layer_norm(x) * (1.0 + mod[0].float()[:, None]) + mod[1].float()[:, None]).to(torch.bfloat16)
+        out = fc2(gelu_jax(fc1(x)).to(torch.bfloat16))
+        return out if residual is None else res_apply(out, *residual)
     lead = x.shape[:-1]
     m = math.prod(lead)
     if mod is not None:
@@ -256,7 +272,8 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
 
 
 class FeedForward(nn.Module):
-    """fc1 -> GELU(tanh) -> fc2 through the requantize chain."""
+    """fc1 -> GELU(tanh) -> fc2; at int4, fc2 takes unsigned activations
+    (the shifted GELU output)."""
 
     def __init__(self, fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear):
         super().__init__()
@@ -268,7 +285,8 @@ class FeedForward(nn.Module):
         hidden = 4 * dim
         return cls(
             SVDQW4A4Linear.random_init(gen, dim, hidden, rank=rank, precision=precision, device=device),
-            SVDQW4A4Linear.random_init(gen, hidden, dim, rank=rank, precision=precision, device=device),
+            SVDQW4A4Linear.random_init(gen, hidden, dim, rank=rank, precision=precision,
+                                       act_unsigned=precision == "int4", device=device),
         )
 
     def forward(self, x, mod=None, residual=None):

@@ -1,9 +1,11 @@
-"""Linear layers: plain bf16 ``Linear`` and the SVDQuant ``SVDQW4A4Linear``
-at ``int8`` and ``w4a8``.
+"""Linear layers: plain bf16 ``Linear``, the SVDQuant ``SVDQW4A4Linear``
+(``int8``, ``w4a8``, ``int4``, ``nvfp4``) and the weight-only 4-bit
+``AWQW4A16Linear``.
 
-Counterparts of ``nunchaku_tpu/models/linear.py`` ``Linear`` (:61) and
-``SVDQW4A4Linear`` (:87). Weights keep the JAX package's layouts: (K, N)
-K-major, packed int4 as (K/2, N) in the block-split-half layout.
+Counterparts of ``nunchaku_tpu/models/linear.py`` ``Linear`` (:61),
+``SVDQW4A4Linear`` (:87) and ``AWQW4A16Linear`` (:564, without its LoRA
+branch). Weights keep the JAX package's layouts: (K, N) K-major, packed
+4-bit as (K/2, N) in the block-split-half layout.
 """
 
 from __future__ import annotations
@@ -14,8 +16,9 @@ import torch
 from torch import nn
 
 from ..ops.gemm import svdq_gemm_w4a4
+from ..ops.gemv import AWQ_XLA_MIN_M, awq_w4a16_linear, awq_w4a16_linear_plain
 from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
-from ..ops.reference import GROUP_INT4, bf16_matmul
+from ..ops.reference import GROUP_INT4, bf16_matmul, group_size
 
 PAD_TOKENS = 256  # token padding quantum of the quantized linears (JAX linear.py:26)
 
@@ -52,63 +55,74 @@ class Linear(nn.Module):
 
 
 class SVDQW4A4Linear(nn.Module):
-    """SVDQuant linear with a rank-r low-rank branch, at ``int8`` or ``w4a8``.
+    """SVDQuant linear with a rank-r low-rank branch.
 
-    Buffers (JAX layouts): ``qweight`` (K, N) int8 or packed (K/2, N) for
-    w4a8; ``wscales`` (1, N) f32 per channel; ``rescales`` (K/64, N) bf16
-    (w4a8 only); ``smooth`` (K,); ``proj_down`` (K, R); ``proj_up`` (R, N);
-    ``bias`` (N,) or None. Always returns bf16. Activations are signed int8
-    (the unsigned post-GELU codes of the JAX package are an int4 mode).
+    Buffers (JAX layouts): ``qweight`` (K, N) int8 (int8), or packed 4-bit
+    (K/2, N) (w4a8: int4 codes; int4 / nvfp4: int4 or e2m1 codes);
+    ``wscales`` (1, N) f32 per channel (int8, w4a8) or (K/G, N) bf16 per
+    group (int4: G = 64, nvfp4: G = 16); ``rescales`` (K/64, N) bf16 (w4a8
+    only); ``smooth`` (K,); ``proj_down`` (K, R); ``proj_up`` (R, N);
+    ``bias`` (N,) or None. The int8, int4 and nvfp4 weights are stored
+    K-contiguous (the same (K, N) or (K/2, N) values), the layout their
+    kernels read. ``act_unsigned`` (int4 only): the layer's activations
+    are shifted GELU outputs, quantized unsigned. Always returns bf16.
     """
 
     def __init__(self, qweight, wscales, smooth, proj_down, proj_up, bias=None, rescales=None, *,
-                 precision: str = "w4a8"):
+                 precision: str = "w4a8", act_unsigned: bool = False):
         super().__init__()
-        if precision not in ("int8", "w4a8"):
+        if precision not in ("int8", "w4a8", "int4", "nvfp4"):
             raise NotImplementedError(f"SVDQW4A4Linear precision {precision!r} is not ported")
-        if precision == "int8":
-            # same (K, N) values stored K-contiguous: the int8 tensor cores'
-            # layout, like the dequant kernel's output for w4a8
+        if act_unsigned and precision != "int4":
+            raise NotImplementedError(f"unsigned activations are an int4 mode, not {precision!r}")
+        if precision != "w4a8":
             qweight = qweight.t().contiguous().t()
         for name, t in (("qweight", qweight), ("wscales", wscales), ("smooth", smooth),
                         ("proj_down", proj_down), ("proj_up", proj_up), ("bias", bias),
                         ("rescales", rescales)):
             self.register_buffer(name, t)
         self.precision = precision
-        self.in_features = qweight.shape[0] * (2 if precision == "w4a8" else 1)
+        self.act_unsigned = act_unsigned
+        self.in_features = qweight.shape[0] * (1 if precision == "int8" else 2)
         self.out_features = qweight.shape[1]
 
     @classmethod
-    def random_init(cls, gen, in_features, out_features, rank=32, precision="w4a8", device="cuda"):
+    def random_init(cls, gen, in_features, out_features, rank=32, precision="w4a8", act_unsigned=False,
+                    device="cuda"):
         """The distributions of the JAX ``random_init`` (linear.py:134-197).
         FLUX's dims need none of the JAX package's odd-dim K/N padding."""
         std = 1.0 / math.sqrt(in_features)
         if in_features % 256 or out_features % 128:
             raise ValueError("the port takes kernel-aligned dims (K % 256, N % 128)")
-        ws = (_randn((1, out_features), gen, device).abs() * std / 127).float()
+        if precision in ("int4", "nvfp4"):
+            g = group_size(precision)
+            ws = (_randn((in_features // g, out_features), gen, device).abs() * std / 7).to(torch.bfloat16)
+        else:
+            ws = (_randn((1, out_features), gen, device).abs() * std / 127).float()
         rescales = None
         if precision == "int8":
             qw = torch.randint(-128, 128, (in_features, out_features), dtype=torch.int8,
                                generator=gen, device=device)
-        elif precision == "w4a8":
+        elif precision in ("w4a8", "int4", "nvfp4"):
             qw = torch.randint(-128, 128, (in_features // 2, out_features), dtype=torch.int8,
                                generator=gen, device=device)
-            rescales = (torch.rand((in_features // GROUP_INT4, out_features), generator=gen,
-                                   device=device) * (127.0 / 7.0 - 1.0) + 1.0).to(torch.bfloat16)
         else:
             raise NotImplementedError(f"precision {precision!r} is not ported")
+        if precision == "w4a8":
+            rescales = (torch.rand((in_features // GROUP_INT4, out_features), generator=gen,
+                                   device=device) * (127.0 / 7.0 - 1.0) + 1.0).to(torch.bfloat16)
         smooth = torch.ones((in_features,), dtype=torch.bfloat16, device=device)
         pd = _randn((in_features, rank), gen, device, 0.02).to(torch.bfloat16)
         pu = _randn((rank, out_features), gen, device, 0.02).to(torch.bfloat16)
         b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16)
-        return cls(qw, ws, smooth, pd, pu, b, rescales, precision=precision)
+        return cls(qw, ws, smooth, pd, pu, b, rescales, precision=precision, act_unsigned=act_unsigned)
 
     def quantize(self, x2d: torch.Tensor):
-        """(M, K) -> (qact, ascales (1, M'), lora_act), M padded to 256
-        (to 8 when M <= 8)."""
+        """(M, K) -> (qact, ascales, lora_act), M padded to 256 (to 8 when
+        M <= 8): ascales (1, M') per token (int8, w4a8) or (K/G, M') per group."""
         x2d = pad_rows(x2d, 8 if x2d.shape[0] <= 8 else PAD_TOKENS)
-        return quantize_w4a4_act_fuse_lora(x2d, self.proj_down, self.smooth,
-                                           precision=self.precision)
+        return quantize_w4a4_act_fuse_lora(x2d, self.proj_down, self.smooth, precision=self.precision,
+                                           act_unsigned=self.act_unsigned)
 
     def forward_quant(self, qact, ascales, lora_act, *, skip_lora=False, residual=None):
         """The GEMM on quantized activations. ``skip_lora`` leaves out the
@@ -117,7 +131,7 @@ class SVDQW4A4Linear(nn.Module):
         operands."""
         return svdq_gemm_w4a4(qact, ascales, self.qweight, self.wscales, None if skip_lora else lora_act,
                               None if skip_lora else self.proj_up, self.bias, self.rescales,
-                              precision=self.precision, residual=residual)
+                              precision=self.precision, act_unsigned=self.act_unsigned, residual=residual)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -144,7 +158,47 @@ class SVDQW4A4Linear(nn.Module):
         JAX method's multi-pass fallback for an S without a tile divisor has
         no counterpart here). ``skip_lora`` returns ``(out_without_lora,
         lora_act (B, S, R))``."""
+        if self.precision not in ("int8", "w4a8"):
+            raise NotImplementedError("the LN + modulate + quantize producer makes int8 activations; "
+                                      f"{self.precision!r} takes LN + modulate + forward")
         b, s, _ = x.shape
         q, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), scale, shift, self.smooth, self.proj_down)
         out = self.forward_quant(q, asc, la, skip_lora=skip_lora).reshape(b, s, -1)
         return (out, la.reshape(b, s, -1)) if skip_lora else out
+
+
+class AWQW4A16Linear(nn.Module):
+    """Weight-only 4-bit linear for the small-M modulation layers of the
+    int4 / nvfp4 models: ``w = q * wscales - wzeros`` with q unsigned, 64-row
+    groups. Buffers (JAX layouts): ``qweight`` (K/2, N) int8, ``wscales``
+    and ``wzeros`` (K/64, N) bf16, ``bias`` (N,) or None. Returns the
+    input's dtype. M < 16 takes the GEMV kernel, larger M the dequantize-
+    then-multiply route (JAX linear.py:616-647)."""
+
+    def __init__(self, qweight, wscales, wzeros, bias=None, *, group_size: int = GROUP_INT4):
+        super().__init__()
+        for name, t in (("qweight", qweight), ("wscales", wscales), ("wzeros", wzeros), ("bias", bias)):
+            self.register_buffer(name, t)
+        self.group_size = group_size
+        self.in_features = qweight.shape[0] * 2
+        self.out_features = qweight.shape[1]
+
+    @classmethod
+    def random_init(cls, gen, in_features, out_features, device="cuda"):
+        """The distributions of the JAX ``random_init`` (linear.py:607)."""
+        std = 1.0 / math.sqrt(in_features)
+        g = GROUP_INT4
+        qw = torch.randint(-128, 128, (in_features // 2, out_features), dtype=torch.int8, generator=gen,
+                           device=device)
+        ws = (_randn((in_features // g, out_features), gen, device).abs() * std / 8).to(torch.bfloat16)
+        wz = _randn((in_features // g, out_features), gen, device, std).to(torch.bfloat16)
+        b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16)
+        return cls(qw, ws, wz, b, group_size=g)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-1]
+        m = math.prod(lead)
+        fwd = awq_w4a16_linear if m < AWQ_XLA_MIN_M else awq_w4a16_linear_plain
+        out = fwd(x.reshape(m, x.shape[-1]), self.qweight, self.wscales, self.wzeros, self.bias,
+                  group_size=self.group_size)
+        return out.reshape(*lead, out.shape[-1]).to(x.dtype)

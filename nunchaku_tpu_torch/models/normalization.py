@@ -1,8 +1,8 @@
 """LayerNorm and the AdaLN modulations of FLUX.
 
-Counterparts of ``nunchaku_tpu/models/normalization.py``. On the int8 /
-w4a8 path the modulation linears are int8 SVDQ linears with a zero
-low-rank branch (``_mod_linear``).
+Counterparts of ``nunchaku_tpu/models/normalization.py``. The modulation
+linears follow ``_mod_linear``: AWQ W4A16 for the int4 / nvfp4 models,
+int8 SVDQ linears with a zero low-rank branch for int8 / w4a8.
 """
 
 from __future__ import annotations
@@ -10,12 +10,14 @@ from __future__ import annotations
 from torch import nn
 
 from ..ops.reference import layer_norm
-from .linear import Linear, SVDQW4A4Linear
+from .linear import AWQW4A16Linear, Linear, SVDQW4A4Linear
 
 
-def mod_linear(gen, dim, out_dim, device="cuda") -> SVDQW4A4Linear:
-    """int8 SVDQ modulation linear with a zero rank-16 branch (JAX
-    ``_mod_linear`` for int8 / w4a8 models)."""
+def mod_linear(gen, dim, out_dim, precision="w4a8", device="cuda"):
+    """The modulation linear of a ``precision`` model (JAX ``_mod_linear``):
+    AWQ W4A16 for int4 / nvfp4, else int8 SVDQ with a zero rank-16 branch."""
+    if precision in ("int4", "nvfp4"):
+        return AWQW4A16Linear.random_init(gen, dim, out_dim, device=device)
     lin = SVDQW4A4Linear.random_init(gen, dim, out_dim, rank=16, precision="int8", device=device)
     lin.proj_down.zero_()
     lin.proj_up.zero_()
@@ -35,8 +37,8 @@ class AdaLayerNormZero(nn.Module):
         self.linear = linear
 
     @classmethod
-    def random_init(cls, gen, dim, device="cuda"):
-        return cls(mod_linear(gen, dim, 6 * dim, device))
+    def random_init(cls, gen, dim, precision="w4a8", device="cuda"):
+        return cls(mod_linear(gen, dim, 6 * dim, precision, device))
 
     def forward(self, x, temb):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = _modulation(
@@ -59,8 +61,8 @@ class AdaLayerNormZeroSingle(nn.Module):
         self.linear = linear
 
     @classmethod
-    def random_init(cls, gen, dim, device="cuda"):
-        return cls(mod_linear(gen, dim, 3 * dim, device))
+    def random_init(cls, gen, dim, precision="w4a8", device="cuda"):
+        return cls(mod_linear(gen, dim, 3 * dim, precision, device))
 
     def forward(self, x, temb):
         shift_msa, scale_msa, gate_msa = _modulation(self.linear, temb).chunk(3, dim=-1)

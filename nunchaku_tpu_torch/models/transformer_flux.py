@@ -3,15 +3,18 @@
 Counterpart of ``nunchaku_tpu/models/transformers/transformer_flux.py``:
 ``FluxConfig``, ``FluxTransformerBlock``, ``FluxSingleTransformerBlock`` and
 ``FluxTransformer2DModel`` with ``embed`` / ``run_dual`` / ``run_singles`` /
-``head``, without ControlNet, in two configurations:
+``head``, without ControlNet, at the precisions w4a8, int8, int4 and nvfp4,
+in two configurations:
 
 * the default: an f32 residual stream and the unfused attention prologue;
 * the turbo configuration ``bench.py`` serves, after
   ``set_stream_dtype(torch.bfloat16)`` and ``enable_fused_qkv_prep()``: a
-  bf16 stream whose LayerNorm + AdaLN modulation ride the projections'
-  quantize producer, the qkv/RoPE producer kernel, and the blocks' gated
-  residual adds in the MLP consumer's epilogue (the JAX ``FUSED_LN_QUANT``
-  and ``RES_EPILOGUE`` branches, always on here).
+  bf16 stream, the qkv/RoPE producer kernel, and for int8 / w4a8 linears
+  (``_ln_producer_ok``) the LayerNorm + AdaLN modulation in the
+  projections' quantize producer and the blocks' gated residual adds in the
+  MLP consumer's epilogue (the JAX ``FUSED_LN_QUANT`` and ``RES_EPILOGUE``
+  branches, always on here). int4 / nvfp4 blocks on a bf16 stream take the
+  unfused branches, as in the JAX package.
 
 The JAX ``lax.scan`` over stacked blocks becomes a Python loop over
 per-layer modules, each holding its own tensors.
@@ -34,6 +37,12 @@ from .normalization import (
     AdaLayerNormZeroSingle,
     layer_norm,
 )
+
+
+def _ln_producer_ok(lin) -> bool:
+    """The LN + modulate + quantize producer feeds int8 activations: int8
+    and w4a8 linears take it (JAX ``_ln_producer_ok`` on its default route)."""
+    return lin.precision in ("int8", "w4a8")
 
 
 @dataclass(frozen=True)
@@ -71,8 +80,8 @@ class FluxTransformerBlock(nn.Module):
     def random_init(cls, gen, cfg: FluxConfig, device="cuda"):
         dim = cfg.dim
         return cls(
-            AdaLayerNormZero.random_init(gen, dim, device),
-            AdaLayerNormZero.random_init(gen, dim, device),
+            AdaLayerNormZero.random_init(gen, dim, cfg.precision, device),
+            AdaLayerNormZero.random_init(gen, dim, cfg.precision, device),
             FluxAttention.random_init(gen, dim, cfg.num_attention_heads, cfg.attention_head_dim,
                                       joint=True, rank=cfg.rank, precision=cfg.precision,
                                       device=device),
@@ -82,7 +91,7 @@ class FluxTransformerBlock(nn.Module):
 
     def forward(self, img, txt, temb, rot):
         sdt = img.dtype
-        fused_ln = sdt == torch.bfloat16  # the producers' route: bf16 stream, int8 / w4a8 linears
+        fused_ln = sdt == torch.bfloat16 and _ln_producer_ok(self.attn.to_qkv)
         if fused_ln:
             shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1.mod_vectors(temb)
             c_shift_msa, c_scale_msa, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
@@ -129,20 +138,22 @@ class FluxSingleTransformerBlock(nn.Module):
     def random_init(cls, gen, cfg: FluxConfig, device="cuda"):
         dim = cfg.dim
 
-        def lin(k, n):
+        def lin(k, n, act_unsigned=False):
             return SVDQW4A4Linear.random_init(gen, k, n, rank=cfg.rank, precision=cfg.precision,
-                                              device=device)
+                                              act_unsigned=act_unsigned, device=device)
 
         return cls(
-            AdaLayerNormZeroSingle.random_init(gen, dim, device),
+            AdaLayerNormZeroSingle.random_init(gen, dim, cfg.precision, device),
             FluxAttention.random_init(gen, dim, cfg.num_attention_heads, cfg.attention_head_dim,
                                       joint=False, rank=cfg.rank, precision=cfg.precision,
                                       device=device),
-            lin(dim, 4 * dim), lin(4 * dim, dim), lin(dim, dim),
+            lin(dim, 4 * dim), lin(4 * dim, dim, act_unsigned=cfg.precision == "int4"), lin(dim, dim),
         )
 
     def forward(self, x, temb, rot):
-        if x.dtype == torch.bfloat16:
+        fused_ln = x.dtype == torch.bfloat16 and _ln_producer_ok(self.attn.to_qkv) and _ln_producer_ok(
+            self.mlp_fc1)
+        if fused_ln:
             # x + gate * (attn_out + mlp) in the MLP consumer's epilogue:
             # attn_out's main term enters as `extra`, its low-rank branch as
             # (lora_act, proj_up)
@@ -198,7 +209,8 @@ class FluxTransformer2DModel(nn.Module):
 
     def set_stream_dtype(self, dtype) -> "FluxTransformer2DModel":
         """Residual-stream dtype: f32 (default) or bf16, which halves the
-        stream's traffic and selects the blocks' fused producer branches."""
+        stream's traffic and, for int8 / w4a8 linears, selects the blocks'
+        fused producer branches."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"stream dtype must be float32 or bfloat16, got {dtype}")
         self.stream_dtype = dtype

@@ -40,6 +40,8 @@ SIGNATURES = {
     "nt_flash_online": [_P] * 4 + [_I] * 5 + [_F, _P],
     "nt_ln_mod_quant": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 4 + [_P],
     "nt_qkv_rope_producer": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "nt_gemm_w4a4": [_P] * 8 + [_I] * 5 + [_P],
+    "nt_gemv_awq": [_P] * 7 + [_I] * 3 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

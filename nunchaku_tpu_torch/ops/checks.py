@@ -29,13 +29,17 @@ from .gemm import (
     chain_tile_n,
     dequant_w4a8,
     dequant_w4a8_plain,
+    gemm_w4a4,
+    gemm_w4a4_plain,
     gemm_w8a8_grouped,
     gemm_w8a8_grouped_plain,
     gemm_w8a8_grouped_res,
     svdq_gemm_w8a8_gelu_quant,
     svdq_gemm_w8a8_gelu_quant_plain,
 )
+from .gemv import awq_w4a16_linear, awq_w4a16_linear_plain
 from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
+from .reference import group_size
 
 
 def _gen(seed: int, device) -> torch.Generator:
@@ -156,6 +160,59 @@ def grouped_res_case(m, k, n, groups, r=32, *, batch=1, extra=True, seed=0, devi
     return args + (res,)
 
 
+def w4a4_case(m, k, n, precision="int4", act_unsigned=False, r=32, *, seed=0, device="cuda"):
+    """Random 4-bit codes on both sides (every nibble, so nvfp4 meets the
+    stray code -8 too) with group scales that bring the outputs to O(1); the
+    weight stored K-contiguous, as ``SVDQW4A4Linear`` keeps it. Returns the
+    positional operands of :func:`~.gemm.gemm_w4a4` and its keywords."""
+    g = _gen(seed, device)
+    gs = group_size(precision)
+    qa = torch.randint(-128, 128, (m, k // 2), dtype=torch.int8, device=device, generator=g)
+    qw = torch.randint(-128, 128, (n, k // 2), dtype=torch.int8, device=device, generator=g).t()
+    asc = ((torch.rand((k // gs, m), device=device, generator=g) + 0.5) / 4.6).to(torch.bfloat16)
+    wsc = ((torch.rand((k // gs, n), device=device, generator=g) + 0.5) / (4.6 * math.sqrt(k))).to(torch.bfloat16)
+    la = torch.randn((m, r), device=device, generator=g)
+    pu = (torch.randn((r, n), device=device, generator=g) * 0.02).to(torch.bfloat16)
+    bias = (torch.randn((n,), device=device, generator=g) * 0.02).to(torch.bfloat16)
+    return (qa, asc, qw, wsc, la, pu, bias), dict(precision=precision, act_unsigned=act_unsigned)
+
+
+def awq_case(m, k, n, *, seed=0, device="cuda"):
+    """bf16 activations and an AWQ weight with the JAX ``random_init``
+    distributions: (x, qweight, wscales, wzeros, bias)."""
+    g = _gen(seed, device)
+    std = 1.0 / math.sqrt(k)
+    x = torch.randn((m, k), device=device, generator=g).to(torch.bfloat16)
+    qw = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device=device, generator=g)
+    ws = (torch.randn((k // 64, n), device=device, generator=g).abs() * std / 8).to(torch.bfloat16)
+    wz = (torch.randn((k // 64, n), device=device, generator=g) * std).to(torch.bfloat16)
+    bias = (torch.randn((n,), device=device, generator=g) * 0.02).to(torch.bfloat16)
+    return x, qw, ws, wz, bias
+
+
+def check_w4a4(args, kw):
+    """bf16 output: every element within one bf16 rounding step of the plain
+    output (|err| <= 2^-7 |ref|) plus 1e-4 of max |ref| for sums that
+    cancel: the same bf16 operands and products, f32 sums in another order."""
+    out = gemm_w4a4(*args, **kw)
+    ref = gemm_w4a4_plain(*args, **kw)
+    err, rel = _rel(out, ref)
+    o, r = out.float(), ref.float()
+    beyond = ((o - r).abs() > 2.0 ** -7 * r.abs() + 1e-4 * r.abs().max()).sum().item()
+    ok = beyond == 0 and out.shape == ref.shape and bool(torch.isfinite(o).all())
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e}; {beyond} elements beyond one bf16 step (tol 0)"
+
+
+def check_awq(x, qw, ws, wz, bias):
+    """f32 output: max error <= 1e-4 of the plain output's max |value| (the
+    same bf16 weights, f32 sums in another order)."""
+    out = awq_w4a16_linear(x, qw, ws, wz, bias)
+    ref = awq_w4a16_linear_plain(x, qw, ws, wz, bias)
+    err, rel = _rel(out, ref)
+    ok = rel <= 1e-4 and out.shape == ref.shape and bool(torch.isfinite(out).all())
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-4)"
+
+
 def check_dequant(qw, rs):
     """Exact: every int8 code equals the plain version's."""
     out = dequant_w4a8(qw, rs)
@@ -257,3 +314,22 @@ def check_grouped_res(qa, ascales, w, wscales, la, pu, bias, residual):
     ref = gemm_w8a8_grouped_plain(qa, ascales, w, wscales, la, pu, bias, residual)
     err, rel = _rel(out, ref)
     return err, rel <= 1e-2 and out.shape == ref.shape, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"
+
+
+MOD_DAMP = 0.125  # AdaLN modulation damping of small 4-bit models compared across devices
+
+
+def damp_modulation(model, factor: float = MOD_DAMP) -> None:
+    """Scale the AWQ modulation linears' scales and zeros (so their outputs)
+    by ``factor`` in place. ``random_init``'s AdaLN gates and scales reach
+    ~4; a 4-bit activation code is a seventh of its group's range, so an
+    input one bf16 step apart can flip codes, and such gates multiply the
+    flips into the next block (two correct implementations of a 1 + 1-block
+    int4 model end ~10% apart). A small model compared across two devices
+    damps them to at most ~0.5, as a trained model's gates are small."""
+    from ..models.linear import AWQW4A16Linear
+
+    for mod in model.modules():
+        if isinstance(mod, AWQW4A16Linear):
+            mod.wscales.copy_((mod.wscales.float() * factor).to(torch.bfloat16))
+            mod.wzeros.copy_((mod.wzeros.float() * factor).to(torch.bfloat16))

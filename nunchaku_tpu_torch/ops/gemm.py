@@ -1,5 +1,5 @@
-"""Quantized GEMMs of the w4a8 / int8 path: three Hopper kernels and the
-standalone int8 product.
+"""Quantized GEMMs: the w4a8 / int8 path's three Hopper kernels and
+standalone int8 product, and the int4 / nvfp4 W4A4 kernel.
 
 Counterparts of ``nunchaku_tpu/ops/gemm.py`` on the route the JAX package
 takes by default for w4a8 (packed int4 weights dequantized to per-channel
@@ -17,7 +17,11 @@ int8 once per layer, then int8 x int8 products):
   and :func:`res_apply` is the same add for routes that do not fuse it;
 * :func:`gemm_w8a8` -- the standalone int8 GEMM with rank-1 scales, which
   JAX leaves to XLA (``_gemm_w8a8_xla`` :1221): ``torch._int_mm`` plus
-  PyTorch epilogue ops.
+  PyTorch epilogue ops;
+* :func:`gemm_w4a4` -- kernel ``csrc/gemm_w4a4.cu`` (JAX ``_gemm_w4a4_kernel``
+  :125, non-stacked), the W4A4 product of the int4 / nvfp4 modes: 4-bit
+  codes on both sides, decoded and scaled to bf16 per group, f32
+  accumulation.
 
 Each kernel has a plain PyTorch twin (``*_plain``) with the same numerics.
 A wrapper takes the twin only for tensors on the CPU; for CUDA tensors it
@@ -26,12 +30,23 @@ launches the kernel (or raises) and adds one to its ``launches`` count.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
-from ..core.packing import PACK_BLOCK
+from ..core.packing import PACK_BLOCK, unpack_int4
 from . import _build
 from .quantize import rcp
-from .reference import GELU_SHIFT, GROUP_INT4, RCP127, bf16_matmul, gelu, int8_matmul
+from .reference import (
+    GELU_SHIFT,
+    GROUP_INT4,
+    RCP127,
+    bf16_matmul,
+    decode_e2m1,
+    gelu,
+    group_size,
+    int8_matmul,
+)
 
 KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/int8_gemm.cuh)
 KERNEL_TILE_N = 128
@@ -310,22 +325,103 @@ gemm_w8a8_grouped_res.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernel 8: the int4 / nvfp4 W4A4 GEMM
+# ---------------------------------------------------------------------------
+
+W4A4_TILE_N = 128  # csrc/gemm_w4a4.cu block tile
+# (precision, act_unsigned) -> the kernel's mode and the name of its launch count
+W4A4_MODES = {("int4", False): (0, "gemm_w4a4_int4"), ("int4", True): (1, "gemm_w4a4_int4_unsigned"),
+              ("nvfp4", False): (2, "gemm_w4a4_nvfp4")}
+W4A4_COUNTS = {name: SimpleNamespace(launches=0) for _, name in W4A4_MODES.values()}
+
+
+def w4a4_values(packed: torch.Tensor, dim: int, *, precision: str, unsigned: bool = False) -> torch.Tensor:
+    """Packed 4-bit codes -> their f32 values in logical order along ``dim``:
+    int4 nibbles (sign-extended unless ``unsigned``) or e2m1 codes."""
+    raw = unpack_int4(packed, dim, unsigned=unsigned)
+    return decode_e2m1(raw) if precision == "nvfp4" else raw.float()
+
+
+def gemm_w4a4_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, precision, act_unsigned=False):
+    """``bf16(sum_k bf16(a_k sa) bf16(w_k sw) + bf16(lora_act) @ proj_up +
+    bias)`` with f32 sums (JAX ``_gemm_w4a4_kernel``: each value x group
+    scale product rounded to bf16 on both operands)."""
+    g = group_size(precision)
+    a = w4a4_values(qact, -1, precision=precision, unsigned=act_unsigned)  # (M, K)
+    w = w4a4_values(qweight, 0, precision=precision)  # (K, N)
+    a = (a * ascales.float().repeat_interleave(g, dim=0).t()).to(torch.bfloat16)
+    w = (w * wscales.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+    out = a.float() @ w.float()  # bf16 x bf16 products are exact in f32
+    if lora_act is not None:
+        out = out + bf16_matmul(lora_act, proj_up)
+    if bias is not None:
+        out = out + bias.reshape(1, -1).float()
+    return out.to(torch.bfloat16)
+
+
+def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, precision, act_unsigned=False):
+    """The W4A4 product of :func:`gemm_w4a4_plain` -> (M, N) bf16.
+
+    qact (M, K/2) int8 packed along K; ascales (K/G, M) bf16; qweight the
+    (K/2, N) packed weight (the kernel reads it K-contiguous: stored so, as
+    ``SVDQW4A4Linear`` does, it is taken as it is); wscales (K/G, N) bf16;
+    lora_act (M, R) f32, proj_up (R, N), bias (N,) or None. G = 64 (int4)
+    or 16 (nvfp4); ``act_unsigned`` only with int4. Each mode keeps its own
+    launch count (:data:`W4A4_COUNTS`)."""
+    if (precision, bool(act_unsigned)) not in W4A4_MODES:
+        raise ValueError(f"no W4A4 mode for precision {precision!r} with act_unsigned={act_unsigned}")
+    if not qact.is_cuda:
+        return gemm_w4a4_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
+                               precision=precision, act_unsigned=act_unsigned)
+    mode, count = W4A4_MODES[(precision, bool(act_unsigned))]
+    m, half = qact.shape
+    k, n = 2 * half, qweight.shape[1]
+    g = group_size(precision)
+    _build.require(qact.dtype == torch.int8 and qact.is_contiguous(), "qact: contiguous int8")
+    _build.require(qweight.dtype == torch.int8 and qweight.shape[0] == half, "qweight: (K/2, N) int8")
+    _build.require(k % PACK_BLOCK == 0 and n % W4A4_TILE_N == 0 and m % 8 == 0,
+                   f"W4A4 kernel needs K % 256, N % 128, M % 8 == 0 (M={m}, K={k}, N={n})")
+    for name, s, cols in (("ascales", ascales, m), ("wscales", wscales, n)):
+        _build.require(s.dtype == torch.bfloat16 and s.is_contiguous() and tuple(s.shape) == (k // g, cols),
+                       f"{name}: contiguous bf16 (K/{g}, {cols}), got {s.dtype} {tuple(s.shape)}")
+    wt = qweight.t()
+    if not wt.is_contiguous():
+        wt = wt.contiguous()
+    r = 0 if lora_act is None else lora_act.shape[1]
+    la = None if lora_act is None else lora_act.float().contiguous()
+    pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
+    b = None if bias is None else bias.to(torch.bfloat16).contiguous()
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
+    lib = _build.library()
+    _build.check(lib.nt_gemm_w4a4(qact.data_ptr(), ascales.data_ptr(), wt.data_ptr(), wscales.data_ptr(),
+                                  _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m, n, k, r, mode,
+                                  _stream(qact)), "gemm_w4a4")
+    W4A4_COUNTS[count].launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
 
 def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None, bias=None,
-                   rescales=None, *, precision="int8", residual=None):
-    """The int8 / w4a8 branches of the JAX ``svdq_gemm_w4a4``.
+                   rescales=None, *, precision="int8", act_unsigned=False, residual=None):
+    """The non-stacked branches of the JAX ``svdq_gemm_w4a4``.
 
     int8: qact (M, K) int8, ascales (1, M) per token or (G, M) grouped,
     qweight (K, N) int8, wscales (1, N). w4a8: qweight is packed int4
     (K/2, N) with ``rescales`` (K/64, N); it is dequantized to int8 first.
     Grouped scales (G > 1, from the chain producer) go to the grouped
-    kernel, per-token scales to the standalone int8 GEMM. ``residual = (x,
-    gate[, extra[, extra_la, extra_pu]])`` adds the block's gated residual
-    (:func:`res_apply`): in the grouped kernel's epilogue, else after the
-    standalone GEMM."""
+    kernel, per-token scales to the standalone int8 GEMM. int4 / nvfp4
+    (``act_unsigned``: unsigned int4 activations): :func:`gemm_w4a4`.
+    ``residual = (x, gate[, extra[, extra_la, extra_pu]])`` adds the
+    block's gated residual (:func:`res_apply`): in the grouped kernel's
+    epilogue, else after the GEMM."""
+    if precision in ("int4", "nvfp4"):
+        out = gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, precision=precision,
+                        act_unsigned=act_unsigned)
+        return out if residual is None else res_apply(out, *residual)
     if precision == "w4a8":
         qweight = dequant_w4a8(qweight, rescales)
     elif precision != "int8":

@@ -1,8 +1,11 @@
-"""Per-token int8 activation quantization with the fused low-rank down-projection.
+"""Activation quantization with the fused low-rank down-projection.
 
-* :func:`quantize_w4a4_act_fuse_lora` -- the int8/w4a8 branch of
-  ``nunchaku_tpu/ops/quantize.py`` ``quantize_w4a4_act_fuse_lora``
-  (:40-102), which JAX leaves to XLA; here it is plain PyTorch.
+* :func:`quantize_w4a4_act_fuse_lora` -- ``nunchaku_tpu/ops/quantize.py``
+  ``quantize_w4a4_act_fuse_lora`` (:40-131) without its GLU fusion, which JAX
+  leaves to XLA; here it is plain PyTorch: per-token int8 (int8 / w4a8),
+  per-(token, 64-group) int4 with bf16 scales (signed, or unsigned after the
+  post-GELU shift), per-(token, 16-group) nvfp4 with e4m3 scales and e2m1
+  codes, round to nearest even; 4-bit codes are packed two to a byte.
 * :func:`ln_mod_quant_int8` -- kernel ``csrc/ln_mod_quant.cu`` (JAX
   ``_ln_mod_quant_kernel`` :149, ``ln_mod_quant_int8`` :179): LayerNorm,
   AdaLN modulation and the same quantization in one pass over the bf16
@@ -18,10 +21,22 @@ from __future__ import annotations
 
 import torch
 
+from ..core.packing import pack_int4
 from . import _build
-from .reference import RCP127, bf16_matmul
+from .reference import (
+    E2M1_MAX,
+    GELU_SHIFT,
+    RCP7,
+    RCP15,
+    RCP127,
+    RCP_E2M1_MAX,
+    bf16_matmul,
+    e2m1_value_to_code,
+    group_size,
+)
 
 LN_EPS = 1e-6
+E4M3_NAN_ABOVE = 464.0  # f32 values above this round past e4m3fn's largest finite value, 448
 KERNEL_LN_MAX_K = 3072  # the kernel holds a row in registers: K / 256 <= 12 vectors a lane
 
 
@@ -40,19 +55,49 @@ def rsmooth_of(smooth: torch.Tensor) -> torch.Tensor:
 
 def quantize_w4a4_act_fuse_lora(x: torch.Tensor, proj_down: torch.Tensor,
                                 smooth: torch.Tensor | None = None, *,
-                                precision: str = "int8"):
-    """(M, K) activations -> (qact (M, K) int8, ascales (1, M) f32,
-    lora_act (M, R) f32)."""
-    if precision not in ("int8", "w4a8"):
+                                precision: str = "int8", act_unsigned: bool = False):
+    """(M, K) activations -> (qact, ascales, lora_act (M, R) f32).
+
+    int8 / w4a8: qact (M, K) int8, ascales (1, M) f32 per token. int4 /
+    nvfp4: qact (M, K/2) int8 packed along K, ascales (K/G, M) bf16 (G = 64
+    / 16). ``act_unsigned`` (int4) adds :data:`GELU_SHIFT` and quantizes to
+    [0, 15]. Every divisor is a multiply by the f32 reciprocal, as XLA
+    compiles the JAX package's ``absmax / 127.0`` (and ``/ 7``, ``/ 15``,
+    ``/ E2M1_MAX``), so codes and scales match it bit for bit."""
+    if precision not in ("int8", "w4a8", "int4", "nvfp4"):
         raise NotImplementedError(f"activation quantization for {precision!r} is not ported")
-    m = x.shape[0]
+    m, k = x.shape
     lora_act = bf16_matmul(x, proj_down)
     xs = x.float()
+    if act_unsigned:
+        xs = xs + GELU_SHIFT
     if smooth is not None:
         xs = xs * rsmooth_of(smooth)[None, :]
-    scale = xs.abs().amax(dim=-1) * RCP127
-    q = torch.round(xs * rcp(scale)[:, None]).clamp(-127, 127).to(torch.int8)
-    return q, scale.reshape(1, m), lora_act
+    if precision in ("int8", "w4a8"):
+        scale = xs.abs().amax(dim=-1) * RCP127
+        q = torch.round(xs * rcp(scale)[:, None]).clamp(-127, 127).to(torch.int8)
+        return q, scale.reshape(1, m), lora_act
+    g = group_size(precision)
+    grp = xs.reshape(m, k // g, g)
+    absmax = grp.abs().amax(dim=-1)
+    if precision == "int4":
+        qmax = 15.0 if act_unsigned else 7.0
+        # the scale rounded to its bf16 storage before it divides
+        scale = (absmax * (RCP15 if act_unsigned else RCP7)).to(torch.bfloat16).float()
+        q = torch.round(grp * rcp(scale)[..., None]).clamp(0.0 if act_unsigned else -qmax, qmax)
+    else:
+        s32 = absmax * RCP_E2M1_MAX
+        # e4m3 rounding; above 464 XLA's conversion gives NaN where torch's saturates at 448
+        scale = torch.where(s32 > E4M3_NAN_ABOVE, torch.nan, s32.to(torch.float8_e4m3fn).float())
+        v = grp * rcp(scale)[..., None]
+        # e2m1 round to nearest even: snap |v| to {0, .5, 1, 1.5, 2, 3, 4, 6},
+        # spacing 2^(e-1) in binade e = clip(floor(log2 |v|), 0, 2)
+        av = v.abs().clamp(0.0, E2M1_MAX)
+        e = torch.floor(torch.log2(av.clamp_min(1.0))).clamp(0.0, 2.0)
+        mag = torch.round(av * torch.exp2(1.0 - e)) * torch.exp2(e - 1.0)
+        q = e2m1_value_to_code(torch.where(v < 0, -mag, mag))
+    qact = pack_int4(q.reshape(m, k).to(torch.int8), -1)
+    return qact, scale.t().to(torch.bfloat16).contiguous(), lora_act
 
 
 # ---------------------------------------------------------------------------

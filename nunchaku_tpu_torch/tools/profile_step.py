@@ -1,13 +1,17 @@
-"""Where one FLUX.1-dev w4a8 denoise step, or one VAE decode, spends its
-time on the card.
+"""Where one FLUX.1-dev denoise step, or one VAE decode, spends its time on
+the card.
 
-    python -m nunchaku_tpu_torch.tools.profile_step [--turbo] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
-Default: builds the full-width, full-depth model from random weights (with
-``--turbo``: switched to the bf16-stream configuration with the fused qkv
-prologue, as ``bench.py`` serves it), runs one warm 1024x1024 transformer
-forward, then traces one more with ``torch.profiler`` (CUDA activity).
+Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
+from random weights (with ``--turbo``: switched to the bf16-stream
+configuration with the fused qkv prologue, as ``bench.py`` serves it), runs
+one warm 1024x1024 transformer forward, then traces one more with
+``torch.profiler`` (CUDA activity). At int4 / nvfp4 the torch glue is also
+split by caller: the tool wraps the activation quantize and the MLP's GELU
+in ``record_function`` ranges (in this process only) and sums the device
+kernels each range launched.
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -28,7 +32,34 @@ import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
-                "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_online_kernel")
+                "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_online_kernel",
+                "gemm_w4a4_kernel", "gemv_awq_kernel", "gemv_awq_finish")
+QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
+
+
+def _ranged(fn, name):
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def glue_by_range(prof) -> dict[str, float]:
+    """Device ms of the kernels launched under each ``record_function``
+    range (through the CPU ops' linked kernels and their parents)."""
+    out: dict[str, float] = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not ev.kernels:
+            continue
+        p = ev
+        while p is not None and p.name not in (QUANT_RANGE, GELU_RANGE):
+            p = p.cpu_parent
+        if p is None:
+            continue
+        for k in ev.kernels:
+            key = p.name + (", its float GEMM" if group_of(k.name) == "torch float GEMM" else "")
+            out[key] = out.get(key, 0.0) + k.duration / 1e3
+    return out
 
 
 def group_of(name: str) -> str:
@@ -94,11 +125,12 @@ def _trace(fn):
     return wall_plain, wall, prof
 
 
-def _report(header, what, wall_plain, wall, prof, grouping, out):
+def _report(header, what, wall_plain, wall, prof, grouping, out, extra=None):
     groups: dict[str, float] = {}
     kernels: dict[str, tuple[float, int]] = {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        # the record_function ranges also appear as device-side annotations: not kernels
+        if ev.device_type != torch.autograd.DeviceType.CUDA or ev.name in (QUANT_RANGE, GELU_RANGE):
             continue
         us = ev.time_range.elapsed_us()
         groups[grouping(ev.name)] = groups.get(grouping(ev.name), 0.0) + us
@@ -111,6 +143,8 @@ def _report(header, what, wall_plain, wall, prof, grouping, out):
              f"{max(0.0, 1 - busy_ms / (wall * 1e3)):.3f} of the traced {what}"]
     for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         lines.append(f"  {us / 1e3:9.2f} ms  {100 * us / 1e3 / busy_ms:5.1f}%  {name}")
+    if extra:
+        lines.extend(extra(prof))
     lines.append("top kernels (ms total, calls):")
     for name, (us, n) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:25]:
         lines.append(f"  {us / 1e3:9.2f} ms {n:5d}  {name[:150]}")
@@ -124,10 +158,12 @@ def _report(header, what, wall_plain, wall, prof, grouping, out):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev w4a8 forward or one VAE decode")
+    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev forward or one VAE decode")
     ap.add_argument("--out", help="file for the full key_averages table")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
+    ap.add_argument("--precision", choices=("w4a8", "int4", "nvfp4"), default="w4a8",
+                    help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs)")
     ap.add_argument("--decode", action="store_true", help="profile one 1024px VAE decode instead of a forward")
     ap.add_argument("--whole", action="store_true", help="with --decode: one piece instead of 64-latent tiles")
     args = ap.parse_args(argv)
@@ -157,8 +193,18 @@ def main(argv=None) -> int:
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 
-    cfg = FluxConfig(precision="w4a8")
+    cfg = FluxConfig(precision=args.precision)
     model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    extra = None
+    if args.precision in ("int4", "nvfp4"):
+        from nunchaku_tpu_torch.models import attention, linear
+
+        linear.quantize_w4a4_act_fuse_lora = _ranged(linear.quantize_w4a4_act_fuse_lora, QUANT_RANGE)
+        attention.gelu_jax = _ranged(attention.gelu_jax, GELU_RANGE)
+
+        def extra(prof):
+            return ["torch glue by caller (device ms, inside the groups above):"] + [
+                f"  {ms:9.2f} ms  {name}" for name, ms in sorted(glue_by_range(prof).items())]
     if args.turbo:
         model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
     inputs = (
@@ -170,9 +216,9 @@ def main(argv=None) -> int:
     )
     with torch.no_grad():
         wall_plain, wall, prof = _trace(lambda: model(*inputs))
-    header = (f"card: {smi}; torch {torch.__version__}; "
+    header = (f"card: {smi}; torch {torch.__version__}; FLUX.1-dev {args.precision}, "
               f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}")
-    _report(header, "forward", wall_plain, wall, prof, group_of, args.out)
+    _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
     return 0
 
 

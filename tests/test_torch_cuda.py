@@ -18,7 +18,8 @@ from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransform
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.attention import flash_attention_online
-from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
+from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w4a4, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
+from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +142,78 @@ def test_turbo_small_model_batch2_matches_cpu(dev):
     assert counts["gemm_w8a8_grouped_res"] == 3 and counts["ln_mod_quant_int8"] == 6
     for i in range(2):
         assert ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item() <= 2e-2
+
+
+@pytest.mark.parametrize("m,k,n,precision,unsigned", [
+    (4608, 3072, 12288, "int4", False),
+    (4608, 12288, 3072, "int4", True),
+    (4608, 3072, 12288, "nvfp4", False),
+    (512, 3072, 9216, "nvfp4", False),
+    (200, 256, 128, "int4", True),
+    (136, 512, 384, "nvfp4", False),
+])
+def test_gemm_w4a4(dev, m, k, n, precision, unsigned):
+    _, ok, detail = checks.check_w4a4(*checks.w4a4_case(m, k, n, precision, unsigned, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("precision", ["int4", "nvfp4"])
+def test_gemm_w4a4_without_lora_or_bias(dev, precision):
+    args, kw = checks.w4a4_case(256, 512, 256, precision, r=16, device=dev)
+    qa, asc, qw, wsc, la, pu, bias = args
+    for extra in ((None, None, bias), (la, pu, None), (None, None, None)):
+        _, ok, detail = checks.check_w4a4((qa, asc, qw, wsc) + extra, kw)
+        assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 3072, 18432), (1, 3072, 9216), (5, 512, 768), (12, 1024, 512)])
+def test_awq_gemv(dev, m, k, n):
+    _, ok, detail = checks.check_awq(*checks.awq_case(m, k, n, device=dev))
+    assert ok, detail
+
+
+def test_4bit_counts_and_refusals(dev):
+    reset_launch_counts()
+    for precision, unsigned in (("int4", False), ("int4", True), ("nvfp4", False)):
+        args, kw = checks.w4a4_case(128, 256, 128, precision, unsigned, device=dev)
+        gemm_w4a4(*args, **kw)
+    awq_w4a16_linear(*checks.awq_case(12, 256, 256, device=dev))  # 8 + 4 rows: two launches
+    counts = launch_counts()
+    assert (counts["gemm_w4a4_int4"], counts["gemm_w4a4_int4_unsigned"], counts["gemm_w4a4_nvfp4"],
+            counts["gemv_awq"]) == (1, 1, 1, 2)
+    args, kw = checks.w4a4_case(100, 256, 128, device=dev)
+    with pytest.raises(ValueError):  # M not a multiple of 8
+        gemm_w4a4(*args, **kw)
+    args, kw = checks.w4a4_case(128, 256, 128, "nvfp4", device=dev)
+    with pytest.raises(ValueError):  # unsigned activations are an int4 mode
+        gemm_w4a4(*args, precision="nvfp4", act_unsigned=True)
+    with pytest.raises(ValueError):  # N not a multiple of the 256-column block
+        awq_w4a16_linear(*checks.awq_case(1, 256, 384, device=dev))
+    assert launch_counts()["gemm_w4a4_nvfp4"] == 1 and launch_counts()["gemv_awq"] == 2
+
+
+@pytest.mark.parametrize("precision", ["int4", "nvfp4"])
+def test_4bit_small_model_matches_cpu(dev, precision):
+    """A 1 + 1-block model at 6 heads with its AdaLN modulation damped
+    (``checks.damp_modulation``) on the card against the plain twins on the
+    CPU: within 2e-2 of the reference's max |value|; every GEMM and
+    modulation took its kernel."""
+    cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
+                     joint_attention_dim=512, pooled_projection_dim=256, precision=precision)
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=7, device="cpu")
+    checks.damp_modulation(cpu_model)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    args = (torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen).to(torch.bfloat16),
+            torch.tensor([0.6]), make_img_ids(16, 16), torch.zeros((128, 3), dtype=torch.int32),
+            torch.tensor([3.5]))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args).float()
+        out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+    counts = launch_counts()
+    gemms = sum(counts[k] for k in ("gemm_w4a4_int4", "gemm_w4a4_int4_unsigned", "gemm_w4a4_nvfp4"))
+    assert gemms == 12 and counts["gemv_awq"] == 3
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
