@@ -5,7 +5,8 @@
 numpy arrays -- the blocks' leaves carry a leading layer axis -- and builds
 the port's per-layer modules from them. Static attributes (precision, the
 int4 fc2 layers' unsigned activations, head dim) come from the config, and
-every linear's shape is checked against the config's dims. ``vae_from_jax_params`` does the same for the VAE decoder.
+every linear's shape is checked against the config's dims.
+``vae_from_jax_params`` does the same for the VAE decoder.
 """
 
 from __future__ import annotations
