@@ -22,7 +22,10 @@ Phases, each fatal on failure:
                   online flash kernel, at 512x512: cache hits equal, latents and
                   images (whole, and tiled in 3 x 3 tiles) must agree. Last, the
                   small model at int4 and at nvfp4 (AdaLN modulation damped, see
-                  checks.damp_modulation), card against CPU;
+                  checks.damp_modulation), card against CPU, and each modulation
+                  linear alone; the undamped model's error and that of four wrong
+                  modulations are reported (each wrong one must fail the
+                  linear-level check);
   5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
                   1024x1024: first the default configuration (one request of
@@ -410,16 +413,26 @@ def reference_phase(dev):
 def reference_4bit(dev, pe, pooled, lat, kw):
     """The small model at int4 and at nvfp4, its AdaLN modulation damped
     (checks.damp_modulation), card against CPU; every GEMM and modulation
-    on the card through its kernel."""
+    on the card through its kernel, and each modulation linear alone within
+    one bf16 step of the CPU's. Reported, not gated: the undamped model's
+    error, and the damped model's with each wrong modulation of
+    checks.MOD_MUTATIONS on the card (gated: the linear-level check fails
+    each)."""
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    def rel_err(model, ref):
+        out = FluxPipeline(model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
+        return ((out - ref).abs().max() / ref.abs().max()).item()
 
     all_ok = True
     for precision in ("int4", "nvfp4"):
         cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6, joint_attention_dim=512,
                          pooled_projection_dim=256, precision=precision)
         cpu_model = FluxTransformer2DModel.random_init(cfg, seed=3, device="cpu")
+        undamped = rel_err(copy.deepcopy(cpu_model).to(dev),
+                           FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float())
         checks.damp_modulation(cpu_model)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         ref = FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float()
@@ -434,9 +447,20 @@ def reference_4bit(dev, pe, pooled, lat, kw):
         ok = (out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2 and gemms == expect
               and c["gemv_awq"] == 3 * forwards)
         log(f"[reference] {precision} (f32 stream, AWQ modulation x {checks.MOD_DAMP}): 1+1-block FLUX (dim 768), "
-            f"{forwards} steps at 256x256: card vs CPU plain latents rel max error {rel:.3e} (tolerance 2e-2); "
-            f"launches {gemms}, gemv_awq {c['gemv_awq']}: {'PASS' if ok else 'FAIL'}")
-        all_ok = all_ok and ok
+            f"{forwards} steps at 256x256: card vs CPU plain latents rel max error {rel:.3e} (tolerance 2e-2; "
+            f"undamped, not gated: {undamped:.3e}); launches {gemms}, gemv_awq {c['gemv_awq']}: "
+            f"{'PASS' if ok else 'FAIL'}")
+        _, mod_ok, detail = checks.check_modulation(cpu_model, gpu_model)
+        log(f"[reference] {precision} modulation linears, card vs CPU: {detail}: {'PASS' if mod_ok else 'FAIL'}")
+        all_ok = all_ok and ok and mod_ok
+        for name in checks.MOD_MUTATIONS:
+            wrong = copy.deepcopy(gpu_model)
+            checks.mutate_modulation(wrong, name)
+            _, caught, detail = checks.check_modulation(cpu_model, wrong)
+            log(f"[reference] {precision} with a wrong modulation ({name}): latents rel max error "
+                f"{rel_err(wrong, ref):.3e} (reported); linear-level check {detail}: "
+                f"{'PASS (caught)' if not caught else 'FAIL (missed)'}")
+            all_ok = all_ok and not caught
     return all_ok
 
 

@@ -25,6 +25,7 @@ from .models.transformer_flux import (
     FluxTransformer2DModel,
     FluxTransformerBlock,
 )
+from .ops.reference import is_4bit
 
 
 def to_torch(a, device="cuda") -> torch.Tensor:
@@ -70,7 +71,7 @@ def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTr
 
     def mod(prefix, layer, n):
         """The modulation linear: AWQ at int4 / nvfp4, int8 SVDQ otherwise."""
-        if p in ("int4", "nvfp4"):
+        if is_4bit(p):
             return check(prefix, AWQW4A16Linear(
                 get(prefix + ".qweight", layer), get(prefix + ".wscales", layer),
                 get(prefix + ".wzeros", layer), opt(prefix + ".bias", layer)), dim, n)

@@ -68,10 +68,9 @@ def _permute_out_channels(lin: SVDQW4A4Linear, perm: np.ndarray) -> None:
         t = getattr(lin, name)
         if t is None:
             continue
+        k_contiguous = name == "qweight" and t.t().is_contiguous()
         t = t.index_select(-1, idx)
-        if name == "qweight" and lin.precision != "w4a8":
-            t = t.t().contiguous().t()
-        setattr(lin, name, t)
+        setattr(lin, name, t.t().contiguous().t() if k_contiguous else t)
 
 
 def permute_qk_halfsplit(attn: "FluxAttention") -> None:
@@ -212,7 +211,7 @@ class FluxAttention(nn.Module):
 def can_chain(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear) -> bool:
     """Whether the pair takes the int8 requantize chain (JAX ``_can_chain``
     on its default route): matching int8 or w4a8 linears."""
-    return fc1.precision == fc2.precision and fc1.precision in ("int8", "w4a8")
+    return fc1.precision == fc2.precision and fc1.int8_acts
 
 
 def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None,

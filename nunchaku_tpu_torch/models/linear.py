@@ -18,7 +18,7 @@ from torch import nn
 from ..ops.gemm import svdq_gemm_w4a4
 from ..ops.gemv import AWQ_XLA_MIN_M, awq_w4a16_linear, awq_w4a16_linear_plain
 from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
-from ..ops.reference import GROUP_INT4, bf16_matmul, group_size
+from ..ops.reference import GROUP_INT4, bf16_matmul, group_size, is_4bit
 
 PAD_TOKENS = 256  # token padding quantum of the quantized linears (JAX linear.py:26)
 
@@ -86,6 +86,13 @@ class SVDQW4A4Linear(nn.Module):
         self.in_features = qweight.shape[0] * (1 if precision == "int8" else 2)
         self.out_features = qweight.shape[1]
 
+    @property
+    def int8_acts(self) -> bool:
+        """Whether the GEMM takes int8 activations (int8, w4a8): the LN +
+        modulate + quantize producer and the fc1 -> fc2 requantize chain
+        feed only such linears; int4 / nvfp4 quantize their own."""
+        return not is_4bit(self.precision)
+
     @classmethod
     def random_init(cls, gen, in_features, out_features, rank=32, precision="w4a8", act_unsigned=False,
                     device="cuda"):
@@ -94,7 +101,7 @@ class SVDQW4A4Linear(nn.Module):
         std = 1.0 / math.sqrt(in_features)
         if in_features % 256 or out_features % 128:
             raise ValueError("the port takes kernel-aligned dims (K % 256, N % 128)")
-        if precision in ("int4", "nvfp4"):
+        if is_4bit(precision):
             g = group_size(precision)
             ws = (_randn((in_features // g, out_features), gen, device).abs() * std / 7).to(torch.bfloat16)
         else:
@@ -158,7 +165,7 @@ class SVDQW4A4Linear(nn.Module):
         JAX method's multi-pass fallback for an S without a tile divisor has
         no counterpart here). ``skip_lora`` returns ``(out_without_lora,
         lora_act (B, S, R))``."""
-        if self.precision not in ("int8", "w4a8"):
+        if not self.int8_acts:
             raise NotImplementedError("the LN + modulate + quantize producer makes int8 activations; "
                                       f"{self.precision!r} takes LN + modulate + forward")
         b, s, _ = x.shape
@@ -175,11 +182,10 @@ class AWQW4A16Linear(nn.Module):
     input's dtype. M < 16 takes the GEMV kernel, larger M the dequantize-
     then-multiply route (JAX linear.py:616-647)."""
 
-    def __init__(self, qweight, wscales, wzeros, bias=None, *, group_size: int = GROUP_INT4):
+    def __init__(self, qweight, wscales, wzeros, bias=None):
         super().__init__()
         for name, t in (("qweight", qweight), ("wscales", wscales), ("wzeros", wzeros), ("bias", bias)):
             self.register_buffer(name, t)
-        self.group_size = group_size
         self.in_features = qweight.shape[0] * 2
         self.out_features = qweight.shape[1]
 
@@ -187,18 +193,17 @@ class AWQW4A16Linear(nn.Module):
     def random_init(cls, gen, in_features, out_features, device="cuda"):
         """The distributions of the JAX ``random_init`` (linear.py:607)."""
         std = 1.0 / math.sqrt(in_features)
-        g = GROUP_INT4
+        groups = in_features // GROUP_INT4
         qw = torch.randint(-128, 128, (in_features // 2, out_features), dtype=torch.int8, generator=gen,
                            device=device)
-        ws = (_randn((in_features // g, out_features), gen, device).abs() * std / 8).to(torch.bfloat16)
-        wz = _randn((in_features // g, out_features), gen, device, std).to(torch.bfloat16)
+        ws = (_randn((groups, out_features), gen, device).abs() * std / 8).to(torch.bfloat16)
+        wz = _randn((groups, out_features), gen, device, std).to(torch.bfloat16)
         b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16)
-        return cls(qw, ws, wz, b, group_size=g)
+        return cls(qw, ws, wz, b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         m = math.prod(lead)
         fwd = awq_w4a16_linear if m < AWQ_XLA_MIN_M else awq_w4a16_linear_plain
-        out = fwd(x.reshape(m, x.shape[-1]), self.qweight, self.wscales, self.wzeros, self.bias,
-                  group_size=self.group_size)
+        out = fwd(x.reshape(m, x.shape[-1]), self.qweight, self.wscales, self.wzeros, self.bias)
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)

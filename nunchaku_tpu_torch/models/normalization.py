@@ -9,14 +9,14 @@ from __future__ import annotations
 
 from torch import nn
 
-from ..ops.reference import layer_norm
+from ..ops.reference import is_4bit, layer_norm
 from .linear import AWQW4A16Linear, Linear, SVDQW4A4Linear
 
 
 def mod_linear(gen, dim, out_dim, precision="w4a8", device="cuda"):
     """The modulation linear of a ``precision`` model (JAX ``_mod_linear``):
     AWQ W4A16 for int4 / nvfp4, else int8 SVDQ with a zero rank-16 branch."""
-    if precision in ("int4", "nvfp4"):
+    if is_4bit(precision):
         return AWQW4A16Linear.random_init(gen, dim, out_dim, device=device)
     lin = SVDQW4A4Linear.random_init(gen, dim, out_dim, rank=16, precision="int8", device=device)
     lin.proj_down.zero_()

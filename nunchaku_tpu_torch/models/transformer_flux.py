@@ -9,12 +9,13 @@ in two configurations:
 * the default: an f32 residual stream and the unfused attention prologue;
 * the turbo configuration ``bench.py`` serves, after
   ``set_stream_dtype(torch.bfloat16)`` and ``enable_fused_qkv_prep()``: a
-  bf16 stream, the qkv/RoPE producer kernel, and for int8 / w4a8 linears
-  (``_ln_producer_ok``) the LayerNorm + AdaLN modulation in the
-  projections' quantize producer and the blocks' gated residual adds in the
-  MLP consumer's epilogue (the JAX ``FUSED_LN_QUANT`` and ``RES_EPILOGUE``
-  branches, always on here). int4 / nvfp4 blocks on a bf16 stream take the
-  unfused branches, as in the JAX package.
+  bf16 stream, the qkv/RoPE producer kernel, and for linears that take
+  int8 activations (``SVDQW4A4Linear.int8_acts``, JAX ``_ln_producer_ok``)
+  the LayerNorm + AdaLN modulation in the projections' quantize producer
+  and the blocks' gated residual adds in the MLP consumer's epilogue (the
+  JAX ``FUSED_LN_QUANT`` and ``RES_EPILOGUE`` branches, always on here).
+  int4 / nvfp4 blocks on a bf16 stream take the unfused branches, as in
+  the JAX package.
 
 The JAX ``lax.scan`` over stacked blocks becomes a Python loop over
 per-layer modules, each holding its own tensors.
@@ -37,12 +38,6 @@ from .normalization import (
     AdaLayerNormZeroSingle,
     layer_norm,
 )
-
-
-def _ln_producer_ok(lin) -> bool:
-    """The LN + modulate + quantize producer feeds int8 activations: int8
-    and w4a8 linears take it (JAX ``_ln_producer_ok`` on its default route)."""
-    return lin.precision in ("int8", "w4a8")
 
 
 @dataclass(frozen=True)
@@ -91,7 +86,7 @@ class FluxTransformerBlock(nn.Module):
 
     def forward(self, img, txt, temb, rot):
         sdt = img.dtype
-        fused_ln = sdt == torch.bfloat16 and _ln_producer_ok(self.attn.to_qkv)
+        fused_ln = sdt == torch.bfloat16 and self.attn.to_qkv.int8_acts
         if fused_ln:
             shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1.mod_vectors(temb)
             c_shift_msa, c_scale_msa, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
@@ -151,8 +146,7 @@ class FluxSingleTransformerBlock(nn.Module):
         )
 
     def forward(self, x, temb, rot):
-        fused_ln = x.dtype == torch.bfloat16 and _ln_producer_ok(self.attn.to_qkv) and _ln_producer_ok(
-            self.mlp_fc1)
+        fused_ln = x.dtype == torch.bfloat16 and self.attn.to_qkv.int8_acts and self.mlp_fc1.int8_acts
         if fused_ln:
             # x + gate * (attn_out + mlp) in the MLP consumer's epilogue:
             # attn_out's main term enters as `extra`, its low-rank branch as

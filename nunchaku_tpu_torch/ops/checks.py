@@ -319,17 +319,64 @@ def check_grouped_res(qa, ascales, w, wscales, la, pu, bias, residual):
 MOD_DAMP = 0.125  # AdaLN modulation damping of small 4-bit models compared across devices
 
 
-def damp_modulation(model, factor: float = MOD_DAMP) -> None:
+def damp_modulation(model) -> None:
     """Scale the AWQ modulation linears' scales and zeros (so their outputs)
-    by ``factor`` in place. ``random_init``'s AdaLN gates and scales reach
+    by :data:`MOD_DAMP` in place. ``random_init``'s AdaLN gates and scales reach
     ~4; a 4-bit activation code is a seventh of its group's range, so an
     input one bf16 step apart can flip codes, and such gates multiply the
-    flips into the next block (two correct implementations of a 1 + 1-block
-    int4 model end ~10% apart). A small model compared across two devices
-    damps them to at most ~0.5, as a trained model's gates are small."""
+    flips into the next block (the JAX package's two int4 GEMM routes, sums
+    in another order only, end beyond 2e-2 apart on a 1 + 1-block model:
+    tests/test_torch_int4_flux.py). A small model compared across two
+    devices damps them to at most ~0.5, as a trained model's gates are
+    small; :func:`check_modulation` checks the modulation linears alone."""
+    for mod in _awq_linears(model):
+        mod.wscales.copy_((mod.wscales.float() * MOD_DAMP).to(torch.bfloat16))
+        mod.wzeros.copy_((mod.wzeros.float() * MOD_DAMP).to(torch.bfloat16))
+
+
+def _awq_linears(model):
     from ..models.linear import AWQW4A16Linear
 
-    for mod in model.modules():
-        if isinstance(mod, AWQW4A16Linear):
-            mod.wscales.copy_((mod.wscales.float() * factor).to(torch.bfloat16))
-            mod.wzeros.copy_((mod.wzeros.float() * factor).to(torch.bfloat16))
+    return [m for m in model.modules() if isinstance(m, AWQW4A16Linear)]
+
+
+def check_modulation(cpu_model, model, *, seed=0):
+    """Every AWQ modulation linear of ``model`` against its counterpart in
+    ``cpu_model`` (the plain twin) on one seeded (1, K) SiLU-like input:
+    every output element within one bf16 rounding step (|err| <= 2^-7
+    |ref| + 1e-4 max |ref|). Damping scales both sides alike, so this check
+    keeps its power on a damped model."""
+    pairs = list(zip(_awq_linears(cpu_model), _awq_linears(model)))
+    worst, beyond = 0.0, 0
+    with torch.no_grad():
+        for ref_lin, lin in pairs:
+            x = torch.nn.functional.silu(torch.randn((1, ref_lin.in_features), generator=_gen(seed, "cpu")) * 2.0)
+            x = x.to(torch.bfloat16)
+            r = ref_lin(x).float()
+            o = lin(x.to(lin.qweight.device)).float().cpu()
+            worst = max(worst, (o - r).abs().max().item())
+            beyond += ((o - r).abs() > 2.0 ** -7 * r.abs() + 1e-4 * r.abs().max()).sum().item()
+    ok = beyond == 0 and len(pairs) > 0
+    return worst, ok, f"{len(pairs)} linears, max abs {worst:.3e}; {beyond} elements beyond one bf16 step (tol 0)"
+
+
+def _swap_planes(m):
+    q = m.qweight
+    m.qweight = (((q & 0xF) << 4) | ((q >> 4) & 0xF)).to(torch.int8)
+
+
+# Wrong modulation kernels, emulated by wrong weights in the modulation
+# linears: what a kernel that misread its operands would compute.
+MOD_MUTATIONS = {
+    "nibble planes swapped": _swap_planes,
+    "scale groups shifted by one": lambda m: setattr(m, "wscales", torch.roll(m.wscales, 1, 0)),
+    "zeros left out": lambda m: setattr(m, "wzeros", torch.zeros_like(m.wzeros)),
+    "bias left out": lambda m: setattr(m, "bias", None),
+}
+
+
+def mutate_modulation(model, name: str) -> None:
+    """Apply :data:`MOD_MUTATIONS` ``name`` to every AWQ modulation linear
+    of ``model`` in place."""
+    for mod in _awq_linears(model):
+        MOD_MUTATIONS[name](mod)

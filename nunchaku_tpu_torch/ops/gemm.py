@@ -46,6 +46,7 @@ from .reference import (
     gelu,
     group_size,
     int8_matmul,
+    is_4bit,
 )
 
 KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/int8_gemm.cuh)
@@ -364,7 +365,7 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
 
     qact (M, K/2) int8 packed along K; ascales (K/G, M) bf16; qweight the
     (K/2, N) packed weight (the kernel reads it K-contiguous: stored so, as
-    ``SVDQW4A4Linear`` does, it is taken as it is); wscales (K/G, N) bf16;
+    ``SVDQW4A4Linear`` keeps it; another layout raises); wscales (K/G, N) bf16;
     lora_act (M, R) f32, proj_up (R, N), bias (N,) or None. G = 64 (int4)
     or 16 (nvfp4); ``act_unsigned`` only with int4. Each mode keeps its own
     launch count (:data:`W4A4_COUNTS`)."""
@@ -378,22 +379,20 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
     k, n = 2 * half, qweight.shape[1]
     g = group_size(precision)
     _build.require(qact.dtype == torch.int8 and qact.is_contiguous(), "qact: contiguous int8")
-    _build.require(qweight.dtype == torch.int8 and qweight.shape[0] == half, "qweight: (K/2, N) int8")
+    _build.require(qweight.dtype == torch.int8 and qweight.shape[0] == half and qweight.t().is_contiguous(),
+                   "qweight: (K/2, N) int8 stored K-contiguous")
     _build.require(k % PACK_BLOCK == 0 and n % W4A4_TILE_N == 0 and m % 8 == 0,
                    f"W4A4 kernel needs K % 256, N % 128, M % 8 == 0 (M={m}, K={k}, N={n})")
     for name, s, cols in (("ascales", ascales, m), ("wscales", wscales, n)):
         _build.require(s.dtype == torch.bfloat16 and s.is_contiguous() and tuple(s.shape) == (k // g, cols),
                        f"{name}: contiguous bf16 (K/{g}, {cols}), got {s.dtype} {tuple(s.shape)}")
-    wt = qweight.t()
-    if not wt.is_contiguous():
-        wt = wt.contiguous()
     r = 0 if lora_act is None else lora_act.shape[1]
     la = None if lora_act is None else lora_act.float().contiguous()
     pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
     lib = _build.library()
-    _build.check(lib.nt_gemm_w4a4(qact.data_ptr(), ascales.data_ptr(), wt.data_ptr(), wscales.data_ptr(),
+    _build.check(lib.nt_gemm_w4a4(qact.data_ptr(), ascales.data_ptr(), qweight.data_ptr(), wscales.data_ptr(),
                                   _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m, n, k, r, mode,
                                   _stream(qact)), "gemm_w4a4")
     W4A4_COUNTS[count].launches += 1
@@ -418,7 +417,7 @@ def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None,
     ``residual = (x, gate[, extra[, extra_la, extra_pu]])`` adds the
     block's gated residual (:func:`res_apply`): in the grouped kernel's
     epilogue, else after the GEMM."""
-    if precision in ("int4", "nvfp4"):
+    if is_4bit(precision):
         out = gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, precision=precision,
                         act_unsigned=act_unsigned)
         return out if residual is None else res_apply(out, *residual)

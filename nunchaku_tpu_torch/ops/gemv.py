@@ -29,40 +29,38 @@ KERNEL_COLS = 256  # columns per block of csrc/gemv_awq.cu
 KERNEL_K_BLOCK = 512  # k per block (the kernel's K split)
 
 
-def awq_dequant(qweight: torch.Tensor, wscales: torch.Tensor, wzeros: torch.Tensor,
-                group_size: int = GROUP_INT4) -> torch.Tensor:
+def awq_dequant(qweight: torch.Tensor, wscales: torch.Tensor, wzeros: torch.Tensor) -> torch.Tensor:
     """(K/2, N) packed unsigned nibbles -> (K, N) bf16 ``q * s - z``."""
     q = unpack_int4(qweight, 0, unsigned=True).float()
-    s = wscales.float().repeat_interleave(group_size, dim=0)
-    z = wzeros.float().repeat_interleave(group_size, dim=0)
+    s = wscales.float().repeat_interleave(GROUP_INT4, dim=0)
+    z = wzeros.float().repeat_interleave(GROUP_INT4, dim=0)
     return (q * s - z).to(torch.bfloat16)
 
 
-def awq_w4a16_linear_plain(x, qweight, wscales, wzeros, bias=None, *, group_size: int = GROUP_INT4):
+def awq_w4a16_linear_plain(x, qweight, wscales, wzeros, bias=None):
     """``x @ dequant(qweight) + bias`` -> (M, N) f32, bf16 operands and f32
     sums: the kernel's twin and the large-M route."""
-    out = bf16_matmul(x, awq_dequant(qweight, wscales, wzeros, group_size))
+    out = bf16_matmul(x, awq_dequant(qweight, wscales, wzeros))
     if bias is not None:
         out = out + bias.float()[None, :]
     return out
 
 
-def awq_w4a16_linear(x, qweight, wscales, wzeros, bias=None, *, group_size: int = GROUP_INT4):
+def awq_w4a16_linear(x, qweight, wscales, wzeros, bias=None):
     """:func:`awq_w4a16_linear_plain` for small M: x (M, K) bf16, qweight
     (K/2, N) int8, wscales / wzeros (K/64, N) bf16, bias (N,) or None ->
     (M, N) f32. On the card each launch takes up to 8 rows of x."""
     if not x.is_cuda:
-        return awq_w4a16_linear_plain(x, qweight, wscales, wzeros, bias, group_size=group_size)
+        return awq_w4a16_linear_plain(x, qweight, wscales, wzeros, bias)
     m, k = x.shape
     n = qweight.shape[1]
-    _build.require(group_size == GROUP_INT4, f"the AWQ kernel takes groups of {GROUP_INT4}, got {group_size}")
     _build.require(x.dtype == torch.bfloat16, "x: bf16 expected")
     _build.require(qweight.dtype == torch.int8 and qweight.is_contiguous() and tuple(qweight.shape) == (k // 2, n),
                    "qweight: contiguous (K/2, N) int8")
     _build.require(k % PACK_BLOCK == 0 and n % KERNEL_COLS == 0,
                    f"AWQ kernel needs K % 256 == 0, N % 256 == 0 (K={k}, N={n})")
     for name, t in (("wscales", wscales), ("wzeros", wzeros)):
-        _build.require(t.dtype == torch.bfloat16 and t.is_contiguous() and tuple(t.shape) == (k // group_size, n),
+        _build.require(t.dtype == torch.bfloat16 and t.is_contiguous() and tuple(t.shape) == (k // GROUP_INT4, n),
                        f"{name}: contiguous bf16 (K/64, N)")
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     lib = _build.library()

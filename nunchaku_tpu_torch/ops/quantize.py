@@ -33,6 +33,7 @@ from .reference import (
     bf16_matmul,
     e2m1_value_to_code,
     group_size,
+    is_4bit,
 )
 
 LN_EPS = 1e-6
@@ -73,7 +74,7 @@ def quantize_w4a4_act_fuse_lora(x: torch.Tensor, proj_down: torch.Tensor,
         xs = xs + GELU_SHIFT
     if smooth is not None:
         xs = xs * rsmooth_of(smooth)[None, :]
-    if precision in ("int8", "w4a8"):
+    if not is_4bit(precision):
         scale = xs.abs().amax(dim=-1) * RCP127
         q = torch.round(xs * rcp(scale)[:, None]).clamp(-127, 127).to(torch.int8)
         return q, scale.reshape(1, m), lora_act

@@ -24,6 +24,14 @@ RCP127 = 1.0 / 127.0
 RCP7, RCP15, RCP_E2M1_MAX = 1.0 / 7.0, 1.0 / 15.0, 1.0 / E2M1_MAX
 
 
+def is_4bit(precision: str) -> bool:
+    """The SVDQuant parity precisions: 4-bit codes with per-group scales on
+    both operands (int4, nvfp4). Their linears quantize their own
+    activations (no int8 producer or chain) and their modulation linears
+    are AWQ W4A16; int8 and w4a8 linears take int8 activations."""
+    return precision in ("int4", "nvfp4")
+
+
 def group_size(precision: str) -> int:
     """Scale group along K of the 4-bit precisions; -1: one group per row (int8)."""
     if precision == "int4":

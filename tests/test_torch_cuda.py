@@ -187,21 +187,30 @@ def test_4bit_counts_and_refusals(dev):
     args, kw = checks.w4a4_case(128, 256, 128, "nvfp4", device=dev)
     with pytest.raises(ValueError):  # unsigned activations are an int4 mode
         gemm_w4a4(*args, precision="nvfp4", act_unsigned=True)
+    qa, asc, qw, wsc, la, pu, bias = args
+    with pytest.raises(ValueError):  # the weight stored N-contiguous, not K-contiguous
+        gemm_w4a4(qa, asc, qw.contiguous(), wsc, la, pu, bias, **kw)
     with pytest.raises(ValueError):  # N not a multiple of the 256-column block
         awq_w4a16_linear(*checks.awq_case(1, 256, 384, device=dev))
     assert launch_counts()["gemm_w4a4_nvfp4"] == 1 and launch_counts()["gemv_awq"] == 2
 
 
+@pytest.mark.parametrize("turbo", [False, True])
 @pytest.mark.parametrize("precision", ["int4", "nvfp4"])
-def test_4bit_small_model_matches_cpu(dev, precision):
+def test_4bit_small_model_matches_cpu(dev, precision, turbo):
     """A 1 + 1-block model at 6 heads with its AdaLN modulation damped
     (``checks.damp_modulation``) on the card against the plain twins on the
     CPU: within 2e-2 of the reference's max |value|; every GEMM and
-    modulation took its kernel."""
+    modulation took its kernel, and each modulation linear alone is within
+    one bf16 step of the CPU's. ``turbo``: on a bf16 stream with the fused
+    qkv prologue, the 4-bit blocks' unfused branches feed the qkv/RoPE
+    producer, and no int8 producer runs."""
     cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
                      joint_attention_dim=512, pooled_projection_dim=256, precision=precision)
     cpu_model = FluxTransformer2DModel.random_init(cfg, seed=7, device="cpu")
     checks.damp_modulation(cpu_model)
+    if turbo:
+        cpu_model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     gen = torch.Generator().manual_seed(8)
     args = (torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16),
@@ -215,5 +224,8 @@ def test_4bit_small_model_matches_cpu(dev, precision):
         out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
     counts = launch_counts()
     gemms = sum(counts[k] for k in ("gemm_w4a4_int4", "gemm_w4a4_int4_unsigned", "gemm_w4a4_nvfp4"))
-    assert gemms == 12 and counts["gemv_awq"] == 3
+    assert gemms == 12 and counts["gemv_awq"] == 3 and counts["flash_fixed"] == 2
+    assert counts["qkv_rope_producer"] == (3 if turbo else 0) and counts["ln_mod_quant_int8"] == 0
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+    _, ok, detail = checks.check_modulation(cpu_model, gpu_model)
+    assert ok, detail

@@ -12,11 +12,17 @@ flash twin, XLA's tanh) can move a layer's output by percents where the
 w4a8 model's int8 codes move it by a fraction of one. The random AdaLN
 modulation of ``random_init`` (gates and scales up to ~4) multiplies that:
 even the JAX package's own two int4 GEMM routes, which differ in summation
-order only, end 8% apart at this size. So these tests damp the modulation
-linears on both sides (scales and zeros x ``checks.MOD_DAMP`` = 0.125,
-gates up to ~0.5, as a trained model's are), as the card's small-model
-checks do; at x 0.25 the JAX routes already agree within 1.6%.
+order only, end more than 2e-2 apart at this size
+(``test_jax_int4_routes_agree_only_when_damped``). So these tests damp the
+modulation linears on both sides (scales and zeros x ``checks.MOD_DAMP`` =
+0.125, gates up to ~0.5, as a trained model's are), as the card's
+small-model checks do. Damping scales both sides alike, so the modulation
+linears are also checked alone, undamped in effect
+(``checks.check_modulation``, which fails every wrong modulation of
+``checks.MOD_MUTATIONS``).
 """
+
+import copy
 
 import numpy as np
 import jax
@@ -30,6 +36,7 @@ from nunchaku_tpu.pipeline.pipeline_flux import FluxPipeline as JaxPipeline
 from nunchaku_tpu_torch.convert import flux_from_jax_params, to_torch
 from nunchaku_tpu_torch.models.linear import AWQW4A16Linear
 from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+from nunchaku_tpu_torch.ops import checks
 from nunchaku_tpu_torch.ops.checks import MOD_DAMP
 from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
@@ -68,17 +75,21 @@ def _inputs():
         np.array([3.5], np.float32)
 
 
-def damped_jax_model(precision):
+def damped_jax_model(precision, damp=True):
     """The JAX ``random_init`` model with its AdaLN modulation damped (the
     AWQ linears' scales and zeros x MOD_DAMP) -> (model, its parameters)."""
     jm = JaxFlux.random_init(jax.random.PRNGKey(1), JaxFluxConfig(precision=precision, **TINY))
     for blocks, names in ((jm.transformer_blocks, ("norm1", "norm1_context")),
                           (jm.single_transformer_blocks, ("norm",))):
-        for name in names:
+        for name in names if damp else ():
             lin = getattr(blocks, name).linear
             lin.wscales = (lin.wscales.astype(jnp.float32) * MOD_DAMP).astype(jnp.bfloat16)
             lin.wzeros = (lin.wzeros.astype(jnp.float32) * MOD_DAMP).astype(jnp.bfloat16)
     return jm, {k: np.asarray(v) for k, v in jm.named_parameters()}
+
+
+def _jax_forward(jm):
+    return np.asarray(jax.jit(lambda m, *a: m(*a))(jm, *map(jnp.asarray, _inputs())), np.float32)
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +105,7 @@ def models():
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_forward_matches_jax(models, precision):
     jm, _, tm = models[precision]
-    ref = np.asarray(jax.jit(lambda m, *a: m(*a))(jm, *map(jnp.asarray, _inputs())), np.float32)
+    ref = _jax_forward(jm)
     with torch.no_grad():
         out = tm(*[to_torch(a, "cpu") for a in _inputs()])
     assert out.shape == (1, S_IMG, 64) and out.dtype == torch.bfloat16
@@ -158,3 +169,31 @@ def test_random_init_mirrors_the_jax_parameter_tree(models, precision):
         shape = a.shape[1:] if name.split(".")[0] in ("transformer_blocks", "single_transformer_blocks") else a.shape
         theirs[name] = (tuple(shape), str(a.dtype))
     assert ours == theirs
+
+
+@pytest.mark.parametrize("damp", [False, True])
+def test_jax_int4_routes_agree_only_when_damped(monkeypatch, damp):
+    """The reason for damping: the JAX package's Pallas int4 GEMM and its
+    XLA route (``NUNCHAKU_TPU_INT4_XLA=1`` with the f32 epilogue, so the
+    same bf16 operands and products, f32 sums in another order) end more
+    than 2e-2 apart on the undamped 1 + 1-block model, and within 2e-2 once
+    the modulation is damped."""
+    jm, _ = damped_jax_model("int4", damp=damp)
+    pallas = _jax_forward(jm)
+    monkeypatch.setenv("NUNCHAKU_TPU_INT4_XLA", "1")
+    monkeypatch.setenv("NUNCHAKU_TPU_XLA_LORA_BF16", "0")
+    xla = _jax_forward(jm)
+    rel = _rel(xla, pallas)
+    assert (rel <= 2e-2) if damp else (rel > 2e-2), rel
+
+
+@pytest.mark.parametrize("mutation", [None, *checks.MOD_MUTATIONS])
+def test_check_modulation_catches_wrong_modulations(models, mutation):
+    """The modulation linears checked alone on the damped model: an exact
+    copy passes; each wrong modulation fails."""
+    tm = models["int4"][2]
+    other = copy.deepcopy(tm)
+    if mutation is not None:
+        checks.mutate_modulation(other, mutation)
+    _, ok, detail = checks.check_modulation(tm, other)
+    assert ok == (mutation is None), detail

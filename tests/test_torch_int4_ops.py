@@ -73,8 +73,9 @@ def port_svdq(jl):
 
 
 def port_awq(jl):
+    assert jl.group_size == tref.GROUP_INT4  # the port's AWQ layers take 64-row groups only
     return tlin.AWQW4A16Linear(_t(jl.qweight), _t(jl.wscales), _t(jl.wzeros),
-                               None if jl.bias is None else _t(jl.bias), group_size=jl.group_size)
+                               None if jl.bias is None else _t(jl.bias))
 
 
 # ---------------------------------------------------------------------------
