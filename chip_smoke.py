@@ -12,7 +12,10 @@ Phases, each fatal on failure:
                   exists, and the least time the card could take (H100 SXM data
                   sheet: 3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16); the W4A4
                   GEMM once per mode (int4, int4 with unsigned activations,
-                  nvfp4), the AWQ GEMV at both modulation widths;
+                  nvfp4), the AWQ GEMV at both modulation widths; the kv-mask
+                  forms of both flash kernels at Qwen-Image's 1024px shapes (B 2,
+                  24 heads, 211 text + 4096 image tokens, batch row 1 keeping 97
+                  text keys), with SDPA under the same additive mask as yardstick;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -25,7 +28,10 @@ Phases, each fatal on failure:
                   checks.damp_modulation), card against CPU, and each modulation
                   linear alone; the undamped model's error and that of four wrong
                   modulations are reported (each wrong one must fail the
-                  linear-level check);
+                  linear-level check). Then a 2-block Qwen-Image model (2 heads,
+                  joint 320) through QwenImagePipeline with true CFG and padded
+                  prompts at B 2, card against CPU: w4a8, int4 (damped, modulation
+                  linears checked alone), int4 under fixed_softmax = False;
   5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
                   1024x1024: first the default configuration (one request of
@@ -44,6 +50,18 @@ Phases, each fatal on failure:
                   the misses' full forwards, the hits' dual and single block 0;
                   9 flash_online per tiled decode), the outputs must be finite
                   (images in [0, 1]); each path reports its peak memory.
+  6. qwen      -- after the FLUX models are freed, full-width, full-depth
+                  Qwen-Image int4 (60 joint blocks, dim 3072, joint 3584, AWQ
+                  modulation) at 1024x1024 through QwenImagePipeline: request A,
+                  true CFG 4.0 at B 2 (prompts of 211 and 97 valid tokens padded to
+                  211, negatives of 12), min(4, --steps) steps, decoded by the tiled
+                  FLUX VAE; request D, the same model under fixed_softmax = False
+                  (the online kernel's mask form), B 1, min(2, --steps) steps;
+                  request B, after enable_fused_qkv_prep(), lightning-4step at B 1;
+                  request C, cache="fb" (fn_blocks 8, threshold 0.12) with true CFG
+                  at B 1, min(8, --steps) steps. Each request first runs untimed
+                  once; its launch counts must be exact per forward (a cache hit
+                  runs blocks 0-7 only).
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -69,6 +87,8 @@ PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
 S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
 # its VAE's mid-block attention: one head of 512 over a 64x64-latent tile or the whole 128x128 latent
 VAE_D, VAE_TILE_S, VAE_WHOLE_S, VAE_TILES = 512, 64 * 64, 128 * 128, 9
+# Qwen-Image at 1024x1024: prompts padded to 211 tokens (211 and 97 valid), negatives of 12
+QWEN_S_TXT, QWEN_VALID, QWEN_NEG = 211, (211, 97), 12
 
 
 def log(msg: str) -> None:
@@ -289,6 +309,25 @@ def kernel_phase(dev):
            cuda_ms(lambda: sdpa(q, kk, v, scale=1 / math.sqrt(VAE_D)), 50))
     del q, kk, v
 
+    # 11. the kv-mask forms of both flash kernels: Qwen-Image's joint
+    # sequence at B 2, batch row 1 keeping 97 of its 211 text keys
+    from nunchaku_tpu_torch.ops.attention import kv_bias
+
+    b, s = 2, QWEN_S_TXT + S_IMG
+    q, kk, v, mask = checks.flash_masked_case(b, HEADS, QWEN_S_TXT, S_IMG, QWEN_VALID, device=dev)
+    nat = (kv_bias(mask, b, s) * math.log(2.0)).to(torch.bfloat16)[:, None, None, :]  # the mask in nats
+    lib_ms = cuda_ms(lambda: sdpa(q, kk, v, attn_mask=nat, scale=math.log(2.0)), 20)
+    for name, online, src, line in (("flash_fixed_masked", False, "flash_fixed.cu", 403),
+                                    ("flash_online_masked", True, "flash_online.cu", 607)):
+        err, ok, detail = checks.check_flash_masked(q, kk, v, mask, online)
+        record(name, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/attention.py:{line}",
+               f"B={b} H={HEADS} S={s} (S_txt {QWEN_S_TXT}, valid {QWEN_VALID}) D={HD} mask", ok, err, detail,
+               cuda_ms(lambda: checks.run_flash_masked(q, kk, v, mask, online), 20),
+               cuda_ms(lambda: checks.run_flash_masked(q, kk, v, mask, online, plain=True), 3),
+               bound(4 * b * s * HEADS * HD * 2 + 4 * b * s, bf16_ops=4 * b * HEADS * s * s * HD), lib_ms)
+    del q, kk, v, mask, nat
+    torch.cuda.empty_cache()
+
     # 9. W4A4 GEMM, one row per mode: single-block fc1 (M 4608, K 3072, N
     # 12288) for int4 and nvfp4, single-block fc2 (K 12288, N 3072) for the
     # unsigned post-GELU activations of int4
@@ -407,7 +446,56 @@ def reference_phase(dev):
             f"latents rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if ok else 'FAIL'}")
         all_ok = all_ok and ok
     image_ok = reference_image_path(cpu_model, gpu_model, dev)
-    return all_ok and image_ok and reference_4bit(dev, pe, pooled, lat, kw)
+    ok4 = reference_4bit(dev, pe, pooled, lat, kw)
+    return all_ok and image_ok and ok4 and reference_qwen(dev)
+
+
+def reference_qwen(dev):
+    """The 2-block Qwen-Image model of the CPU tests (2 heads of 128, joint
+    320) through QwenImagePipeline at 128x128, true CFG 4.0 with padded
+    prompts (24 and 9 valid tokens of 24; negatives of 6, all valid) at B 2,
+    2 steps, card against CPU: w4a8; int4 with its AdaLN modulation damped
+    (checks.damp_modulation), its modulation linears also held alone; int4
+    under fixed_softmax = False (the online kernel's mask form)."""
+    from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+    from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_qwenimage import QwenImagePipeline
+
+    gen = torch.Generator().manual_seed(11)
+    pe = torch.randn((2, 24, 320), generator=gen).to(torch.bfloat16)
+    neg = torch.randn((2, 6, 320), generator=gen).to(torch.bfloat16)
+    lat = torch.randn((2, 64, 64), generator=gen).to(torch.bfloat16)
+    mask = torch.arange(24)[None, :] < torch.tensor([[24], [9]])
+    neg_mask = torch.ones((2, 6), dtype=torch.bool)
+    kw = dict(height=128, width=128, num_inference_steps=2, true_cfg_scale=4.0)
+    all_ok = True
+    for precision, online in (("w4a8", False), ("int4", False), ("int4", True)):
+        cfg = QwenImageConfig(num_layers=2, num_attention_heads=2, joint_attention_dim=320, precision=precision)
+        cpu_model = QwenImageTransformer2DModel.random_init(cfg, seed=12, device="cpu")
+        if precision == "int4":
+            checks.damp_modulation(cpu_model)
+        for block in cpu_model.blocks:
+            block.attn.fixed_softmax = not online
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        ref = QwenImagePipeline(cpu_model)(pe, neg, mask, neg_mask, latents=lat, **kw).latents.float()
+        reset_launch_counts()
+        out = QwenImagePipeline(gpu_model)(pe.to(dev), neg.to(dev), mask.to(dev), neg_mask.to(dev),
+                                           latents=lat.to(dev), **kw).latents.float().cpu()
+        masked = launch_counts()["flash_online_masked" if online else "flash_fixed_masked"]
+        rel = max(((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item() for i in range(2))
+        ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2 and masked == 8
+        label = f"{precision}{', AWQ modulation x ' + str(checks.MOD_DAMP) if precision == 'int4' else ''}" + (
+            ", fixed_softmax False" if online else "")
+        log(f"[reference] Qwen-Image 2 blocks (dim 256, joint 320) {label}: true CFG 4.0, padded prompts at B 2, "
+            f"2 steps at 128x128: card vs CPU plain latents rel max error {rel:.3e} per batch row (tolerance "
+            f"2e-2); masked flash launches {masked} (expected 8): {'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+        if precision == "int4" and not online:
+            _, mod_ok, detail = checks.check_modulation(cpu_model, gpu_model)
+            log(f"[reference] Qwen-Image int4 modulation linears, card vs CPU: {detail}: "
+                f"{'PASS' if mod_ok else 'FAIL'}")
+            all_ok = all_ok and mod_ok
+    return all_ok
 
 
 def reference_4bit(dev, pe, pooled, lat, kw):
@@ -689,6 +777,125 @@ def slice_4bit(dev, steps: int, vae, paths):
     return ok, total
 
 
+def qwen_phase(dev, steps: int):
+    """Full-width, full-depth Qwen-Image int4 at 1024x1024 through
+    QwenImagePipeline: requests A, D, B and C (module docstring), each after
+    one untimed run of itself, with exact launch counts per forward; ->
+    (ok, launch counts summed over the requests, per-forward counts, cfg)."""
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+    from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_qwenimage import QwenImagePipeline
+
+    cfg = QwenImageConfig()
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = QwenImageTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    vae = AutoencoderKL.random_init(seed=1, device=dev)
+    vae.enable_tiling()
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    log(f"[qwen] Qwen-Image {cfg.precision}: {L} joint blocks, dim {cfg.dim}, {cfg.num_attention_heads} heads, joint "
+        f"dim {cfg.joint_attention_dim}, rank {cfg.rank}; weights {nbytes / 2**30:.2f} GiB, random init (with the "
+        f"VAE) {time.perf_counter() - t0:.1f} s")
+    block = {"gemm_w4a4_int4": 6, "gemm_w4a4_int4_unsigned": 2, "gemv_awq": 2, "flash_fixed_masked": 1}
+    paths = {"qwen": {k: L * v for k, v in block.items()}}
+    paths["qwen online"] = {**{k: L * v for k, v in block.items() if k != "flash_fixed_masked"},
+                            "flash_online_masked": L}
+    fused_block = {**block, "qkv_rope_producer": 2}
+    paths["qwen fused"] = {k: L * v for k, v in fused_block.items()}
+
+    def prompts(b, valid, seed):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pe = torch.randn((b, QWEN_S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
+        neg = torch.randn((b, QWEN_NEG, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
+        mask = torch.arange(QWEN_S_TXT, device=dev)[None, :] < torch.tensor(valid, device=dev)[:, None]
+        return pe, neg, mask, torch.ones((b, QWEN_NEG), dtype=torch.bool, device=dev)
+
+    total = {}  # launch counts summed over the timed requests
+
+    def request(label, pipe, valid, nsteps, seed, **kw):
+        """One untimed run, then the timed one -> (ok, counts, output)."""
+        args = prompts(len(valid), valid, seed)
+        pipe(*args, height=1024, width=1024, num_inference_steps=nsteps, seed=0, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = pipe(*args, height=1024, width=1024, num_inference_steps=nsteps, seed=1, **kw)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        b = len(valid)
+        lat = out.latents.float()
+        ok = tuple(lat.shape) == (b, S_IMG, 4 * cfg.out_channels) and bool(torch.isfinite(lat).all())
+        what = f"latents {tuple(lat.shape)} finite={ok}, |lat| mean {lat.abs().mean().item():.4f}"
+        if out.images is not None:
+            img = out.images
+            img_ok = (tuple(img.shape) == (b, 1024, 1024, 3) and bool(torch.isfinite(img).all())
+                      and img.min().item() >= 0.0 and img.max().item() <= 1.0)
+            ok = ok and img_ok
+            what += (f"; images {tuple(img.shape)} finite and in [0, 1]={img_ok} (min {img.min().item():.4f}, "
+                     f"max {img.max().item():.4f}, mean {img.mean().item():.4f})")
+        if out.cache_hits is not None:
+            what += f"; cache_hits {out.cache_hits}"
+        log(f"[qwen] {label}: {sec:.3f} s/request, {sec / nsteps:.4f} s/step ({nsteps} steps, B {b}); peak allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {what}")
+        return ok, counts, out
+
+    pipe = QwenImagePipeline(model, vae=vae)
+    # A: true CFG at B 2 with padded prompts, to images through the tiled VAE
+    n = min(4, steps)
+    ok, counts, _ = request("request A (true CFG 4.0, B 2, masks, tiled VAE)", pipe, QWEN_VALID, n, 1,
+                            true_cfg_scale=4.0)
+    ok = check_counts("qwen A", counts, paths["qwen"], 2 * n, {"flash_online": VAE_TILES}) and ok
+    # D: the online softmax's mask form, to latents
+    for blk in model.blocks:
+        blk.attn.fixed_softmax = False
+    pipe = QwenImagePipeline(model)
+    n = min(2, steps)
+    okd, counts, _ = request("request D (fixed_softmax False, B 1, mask)", pipe, QWEN_VALID[1:], n, 2,
+                             true_cfg_scale=1.0)
+    ok = check_counts("qwen D", counts, paths["qwen online"], n) and okd and ok
+    for blk in model.blocks:
+        blk.attn.fixed_softmax = True
+    # B: the fused qkv prologue, lightning-4step at B 1
+    model.enable_fused_qkv_prep()
+    okb, counts, _ = request("request B (fused prologue, lightning-4step, B 1, mask)", pipe, QWEN_VALID[1:], 4,
+                             3, lightning="lightning-4step")
+    ok = check_counts("qwen B", counts, paths["qwen fused"], 4) and okb and ok
+    # C: the first-8-blocks cache at its natural threshold, true CFG at B 1
+    n = min(8, steps)
+    fn = 8
+    okc, counts, out = request(f"request C (cache fb, fn_blocks {fn}, threshold 0.12, true CFG 4.0, B 1)", pipe,
+                               (150,), n, 4, true_cfg_scale=4.0, cache="fb", fn_blocks=fn)
+    forwards, hits = 2 * n, out.cache_hits
+    blocks_run = fn * forwards + (L - fn) * (forwards - hits)
+    log(f"[qwen] request C: {hits} hits of {forwards - 2} possible; {blocks_run} block runs "
+        f"({fn} per forward, all {L} on a miss)")
+    ok = check_counts("qwen C", counts, fused_block, blocks_run) and okc and ok
+    del pipe, model, vae
+    torch.cuda.empty_cache()
+    return ok, total, paths, cfg
+
+
+def qwen_bounds(cfg, b=1) -> dict:
+    """Least time per Qwen-Image 1024px forward at batch ``b`` for each
+    kernel it runs (S_txt 211, padded to the 256-row quantum in the GEMMs)."""
+    L, D = cfg.num_layers, cfg.dim
+    s = QWEN_S_TXT + S_IMG
+    ms = [b * S_IMG, b * 256]
+    return {
+        "gemm_w4a4_int4": L * sum(w4a4_bound(m, D, n, 64)[0] for m in ms for n in (3 * D, D, 4 * D)),
+        "gemm_w4a4_int4_unsigned": L * sum(w4a4_bound(m, 4 * D, D, 64)[0] for m in ms),
+        "gemv_awq": 2 * L * gemv_bound(b, D, 6 * D)[0],
+        "flash_fixed_masked": L * bound(4 * b * s * HEADS * HD * 2 + 4 * b * s,
+                                        bf16_ops=4 * b * HEADS * s * s * HD)[0],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -723,12 +930,17 @@ def main(argv=None) -> int:
     ref_ok = reference_phase(dev)
     reset_launch_counts()
     slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2)
+    qwen_ok, qcounts, qpaths, qcfg = qwen_phase(dev, args.steps)
+    counts = {k: counts[k] + qcounts[k] for k in counts}
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
         per = {p: f[name] for p, f in paths.items() if f.get(name)}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
             f"of the path(s) it runs in")
+    for name, b in qwen_bounds(qcfg).items():
+        per = {p: f[name] for p, f in qpaths.items() if f.get(name)}
+        log(f"[bound] {name}: launches per Qwen-Image 1024px forward {per}, least time {b:.3f} ms per B 1 forward")
 
     def online(s):
         return bound(4 * s * VAE_D * 2, bf16_ops=4 * s * s * VAE_D)[0]
@@ -737,10 +949,10 @@ def main(argv=None) -> int:
         f"{VAE_TILES * online(VAE_TILE_S):.3f} ms per tiled image, {online(VAE_WHOLE_S):.3f} ms per whole image")
     ran =[name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
-    ok = not failed and ref_ok and slice_ok and len(ran) == len(rows)
+    ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {'PASS' if ref_ok else 'FAIL'}, "
-        f"slice {'PASS' if slice_ok else 'FAIL'}")
+        f"slice {'PASS' if slice_ok else 'FAIL'}, qwen {'PASS' if qwen_ok else 'FAIL'}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -1,12 +1,16 @@
-"""First-block cache (FB cache) and double FB cache for the FLUX transformer.
+"""First-block cache (FB cache) and double FB cache for the FLUX transformer,
+and the first-N-blocks cache of Qwen-Image.
 
 Counterpart of ``nunchaku_tpu/caching/fbcache.py`` (``FBCacheState``,
 ``init_fb_state``, ``_similar``, ``make_hit_schedule``, ``_apply_force``,
-``fb_cached_forward``). Each step runs dual block 0; when its residual is
+``fb_cached_forward``; ``QwenFBCacheState``, ``init_qwen_fb_state``,
+``qwenimage_fb_cached_forward``). Each FLUX step runs dual block 0; when its residual is
 close (mean relative L1 below the threshold) to the one stored at the last
 miss, the cached residual of the remaining dual blocks (and, single-level,
 of all single blocks) is added instead of running them. Double FB takes a
-second decision of its own at single block 0.
+second decision of its own at single block 0. Qwen-Image's cache runs its
+first ``fn_blocks`` joint blocks (8, the reference's Fn_compute_blocks) as
+the indicator, and one decision covers the remaining blocks.
 
 Two differences from the JAX package, which keeps the whole step one
 program with ``lax.cond``:
@@ -14,10 +18,12 @@ program with ``lax.cond``:
 * Decisions are taken on the host. A threshold decision costs one
   ``.item()`` synchronisation; a forced decision (``force`` 0 or 1, from
   :func:`make_hit_schedule`) is known on the host and needs none.
-* A miss continues from block 0's outputs (``run_dual(start=1)``,
-  ``run_singles(start=1)``) instead of rerunning block 0, which the JAX
-  package does to keep XLA from copying a slice of its stacked weights. The
-  values are the same; each miss runs one dual and one single block fewer.
+* A miss continues from the indicator's outputs (``run_dual(start=1)``,
+  ``run_singles(start=1)``, Qwen's ``run_blocks(start=fn_blocks)``) instead
+  of rerunning the indicator blocks, which the JAX package does to keep XLA
+  from copying a slice of its stacked weights. The values are the same; a
+  FLUX miss runs one dual and one single block fewer, a Qwen miss
+  ``fn_blocks`` blocks fewer.
 """
 
 from __future__ import annotations
@@ -144,3 +150,49 @@ def fb_cached_forward(model, state: FBCacheState, hidden_states, encoder_hidden_
         hits=state.hits + int(hit),
     )
     return out, new_state
+
+
+@dataclass
+class QwenFBCacheState:
+    prev_first_residual: torch.Tensor  # (B, S_img, D) bf16, the indicator blocks' at the last miss
+    cached_rest_residual: torch.Tensor  # (B, S_img, D) bf16, the remaining blocks'
+    valid: bool = False
+    hits: int = 0
+
+
+def init_qwen_fb_state(batch, s_img, dim, device="cuda") -> QwenFBCacheState:
+    def z():
+        return torch.zeros((batch, s_img, dim), dtype=torch.bfloat16, device=device)
+
+    return QwenFBCacheState(z(), z())
+
+
+def qwenimage_fb_cached_forward(model, state: QwenFBCacheState, hidden_states, encoder_hidden_states, timestep,
+                                img_ids, txt_ids=None, *, residual_diff_threshold: float = 0.12,
+                                fn_blocks: int = 8, encoder_hidden_states_mask=None, force=None):
+    """One cached Qwen-Image step -> (velocity, new state).
+
+    Blocks [0, fn) are the indicator (fn = ``fn_blocks`` within [1, L - 1]);
+    their image-stream residual is compared with the one stored at the last
+    miss. A hit adds the cached residual of blocks [fn, L) instead of running
+    them; the text stream is only an intermediate, so a hit needs none of
+    it. ``force``: None or < 0 threshold decision, 0 force a miss, 1 force a
+    hit (a hit needs a valid state: step 0 always misses)."""
+    fn = max(1, min(int(fn_blocks), model.cfg.num_layers - 1))
+    img0, txt0, temb, rot = model.embed(hidden_states, encoder_hidden_states, timestep, img_ids, txt_ids)
+    kv_mask = model.kv_mask_for(img0, encoder_hidden_states_mask)
+    img1, txt1 = model.run_blocks(img0, txt0, temb, rot, start=0, stop=fn, kv_mask=kv_mask)
+    first_res = (img1 - img0).to(torch.bfloat16)
+    hit = state.valid and _apply_force(
+        lambda: _similar(first_res, state.prev_first_residual, residual_diff_threshold), force)
+    if hit:
+        rest = state.cached_rest_residual
+        img_f = img1 + rest
+    else:
+        img_f, _ = model.run_blocks(img1, txt1, temb, rot, start=fn, kv_mask=kv_mask)
+        rest = (img_f - img1).to(torch.bfloat16)
+    new_state = QwenFBCacheState(
+        # store-on-miss: hits keep comparing against the last miss's residual
+        prev_first_residual=state.prev_first_residual if hit else first_res,
+        cached_rest_residual=rest, valid=True, hits=state.hits + int(hit))
+    return model.head(img_f, temb), new_state

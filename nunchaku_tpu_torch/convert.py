@@ -1,9 +1,10 @@
-"""Carry FLUX and VAE weights from the JAX package into the port.
+"""Carry FLUX, Qwen-Image and VAE weights from the JAX package into the port.
 
-``flux_from_jax_params`` takes the dotted names of the JAX
-``Module.named_parameters()`` (``nunchaku_tpu/core/module.py``) mapped to
-numpy arrays -- the blocks' leaves carry a leading layer axis -- and builds
-the port's per-layer modules from them. Static attributes (precision, the
+``flux_from_jax_params`` (``qwenimage_from_jax_params`` alike) takes the
+dotted names of the JAX ``Module.named_parameters()``
+(``nunchaku_tpu/core/module.py``) mapped to numpy arrays -- the blocks'
+leaves carry a leading layer axis -- and builds the port's per-layer
+modules from them. Static attributes (precision, the
 int4 fc2 layers' unsigned activations, head dim) come from the config, and
 every linear's shape is checked against the config's dims.
 ``vae_from_jax_params`` does the same for the VAE decoder.
@@ -25,6 +26,7 @@ from .models.transformer_flux import (
     FluxTransformer2DModel,
     FluxTransformerBlock,
 )
+from .models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
 from .ops.reference import is_4bit
 
 
@@ -36,93 +38,132 @@ def to_torch(a, device="cuda") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTransformer2DModel:
-    used = set()
+class _Params:
+    """The JAX parameters by dotted name, read as torch tensors; remembers
+    which names were taken, so :meth:`done` can refuse leftovers."""
 
-    def get(name, layer=None):
-        used.add(name)
-        a = np.asarray(params[name])
-        return to_torch(a if layer is None else a[layer], device)
+    def __init__(self, params: dict, device):
+        self.params, self.device, self.used = params, device, set()
 
-    def opt(name, layer=None):
-        return get(name, layer) if name in params else None
+    def get(self, name, layer=None):
+        self.used.add(name)
+        a = np.asarray(self.params[name])
+        return to_torch(a if layer is None else a[layer], self.device)
 
-    def linear(prefix):
-        return Linear(get(prefix + ".weight"), opt(prefix + ".bias"))
+    def opt(self, name, layer=None):
+        return self.get(name, layer) if name in self.params else None
 
-    def check(prefix, lin, k, n):
-        if (lin.in_features, lin.out_features) != (k, n):
-            raise ValueError(f"{prefix}: ({lin.in_features}, {lin.out_features}) does not match "
-                             f"the config's ({k}, {n})")
+    def linear(self, prefix, shape=None):
+        """A plain linear; ``shape``: the (K, N) its weight must have."""
+        lin = Linear(self.get(prefix + ".weight"), self.opt(prefix + ".bias"))
+        if shape is not None and tuple(lin.weight.shape) != shape:
+            raise ValueError(f"{prefix}: weight {tuple(lin.weight.shape)} does not match the config's {shape}")
         return lin
 
-    def svdq(prefix, layer, precision, k, n, act_unsigned=False):
-        return check(prefix, SVDQW4A4Linear(
-            get(prefix + ".qweight", layer), get(prefix + ".wscales", layer),
-            get(prefix + ".smooth", layer), get(prefix + ".proj_down", layer),
-            get(prefix + ".proj_up", layer), opt(prefix + ".bias", layer),
-            opt(prefix + ".rescales", layer), precision=precision, act_unsigned=act_unsigned), k, n)
+    def mlp_embedder(self, prefix):
+        return MLPEmbedder(self.linear(prefix + ".fc1"), self.linear(prefix + ".fc2"))
 
-    p = cfg.precision
-    if p not in ("int8", "w4a8", "int4", "nvfp4"):
-        raise NotImplementedError(f"precision {p!r} is not ported")
-    dim = cfg.dim
-    unsigned_fc2 = p == "int4"  # the post-GELU layers of an int4 model take unsigned activations
+    def done(self):
+        unused = sorted(set(self.params) - self.used)
+        if unused:
+            raise KeyError(f"parameters the port does not take: {unused[:8]}")
 
-    def mod(prefix, layer, n):
+
+def _check(prefix, lin, k, n):
+    if (lin.in_features, lin.out_features) != (k, n):
+        raise ValueError(f"{prefix}: ({lin.in_features}, {lin.out_features}) does not match "
+                         f"the config's ({k}, {n})")
+    return lin
+
+
+class _BlockReader:
+    """Builds the FLUX blocks of one precision (shared by FLUX and Qwen-Image)."""
+
+    def __init__(self, P: _Params, cfg: FluxConfig):
+        if cfg.precision not in ("int8", "w4a8", "int4", "nvfp4"):
+            raise NotImplementedError(f"precision {cfg.precision!r} is not ported")
+        self.P, self.cfg, self.dim = P, cfg, cfg.dim
+        self.unsigned_fc2 = cfg.precision == "int4"  # an int4 model's post-GELU layers take unsigned activations
+
+    def svdq(self, prefix, layer, k, n, act_unsigned=False, precision=None):
+        P = self.P
+        return _check(prefix, SVDQW4A4Linear(
+            P.get(prefix + ".qweight", layer), P.get(prefix + ".wscales", layer),
+            P.get(prefix + ".smooth", layer), P.get(prefix + ".proj_down", layer),
+            P.get(prefix + ".proj_up", layer), P.opt(prefix + ".bias", layer),
+            P.opt(prefix + ".rescales", layer), precision=precision or self.cfg.precision,
+            act_unsigned=act_unsigned), k, n)
+
+    def mod(self, prefix, layer, n):
         """The modulation linear: AWQ at int4 / nvfp4, int8 SVDQ otherwise."""
-        if is_4bit(p):
-            return check(prefix, AWQW4A16Linear(
-                get(prefix + ".qweight", layer), get(prefix + ".wscales", layer),
-                get(prefix + ".wzeros", layer), opt(prefix + ".bias", layer)), dim, n)
-        return svdq(prefix, layer, "int8", dim, n)
+        P = self.P
+        if is_4bit(self.cfg.precision):
+            return _check(prefix, AWQW4A16Linear(
+                P.get(prefix + ".qweight", layer), P.get(prefix + ".wscales", layer),
+                P.get(prefix + ".wzeros", layer), P.opt(prefix + ".bias", layer)), self.dim, n)
+        return self.svdq(prefix, layer, self.dim, n, precision="int8")
 
-    def attn(prefix, layer, joint):
-        kw = dict(head_dim=cfg.attention_head_dim)
-        qkv = svdq(prefix + ".to_qkv", layer, p, dim, 3 * dim)
-        nq, nk = get(prefix + ".norm_q", layer), get(prefix + ".norm_k", layer)
+    def attn(self, prefix, layer, joint):
+        dim, P = self.dim, self.P
+        kw = dict(head_dim=self.cfg.attention_head_dim)
+        qkv = self.svdq(prefix + ".to_qkv", layer, dim, 3 * dim)
+        nq, nk = P.get(prefix + ".norm_q", layer), P.get(prefix + ".norm_k", layer)
         if not joint:
             return FluxAttention(qkv, nq, nk, **kw)
         return FluxAttention(
-            qkv, nq, nk, to_out=svdq(prefix + ".to_out", layer, p, dim, dim),
-            add_qkv_proj=svdq(prefix + ".add_qkv_proj", layer, p, dim, 3 * dim),
-            norm_added_q=get(prefix + ".norm_added_q", layer),
-            norm_added_k=get(prefix + ".norm_added_k", layer),
-            to_add_out=svdq(prefix + ".to_add_out", layer, p, dim, dim), **kw)
+            qkv, nq, nk, to_out=self.svdq(prefix + ".to_out", layer, dim, dim),
+            add_qkv_proj=self.svdq(prefix + ".add_qkv_proj", layer, dim, 3 * dim),
+            norm_added_q=P.get(prefix + ".norm_added_q", layer),
+            norm_added_k=P.get(prefix + ".norm_added_k", layer),
+            to_add_out=self.svdq(prefix + ".to_add_out", layer, dim, dim), **kw)
 
-    def ff(prefix, layer):
-        return FeedForward(svdq(prefix + ".fc1", layer, p, dim, 4 * dim),
-                           svdq(prefix + ".fc2", layer, p, 4 * dim, dim, unsigned_fc2))
+    def ff(self, prefix, layer):
+        return FeedForward(self.svdq(prefix + ".fc1", layer, self.dim, 4 * self.dim),
+                           self.svdq(prefix + ".fc2", layer, 4 * self.dim, self.dim, self.unsigned_fc2))
 
-    dual = []
-    for i in range(cfg.num_layers):
-        t = "transformer_blocks"
-        dual.append(FluxTransformerBlock(
-            AdaLayerNormZero(mod(t + ".norm1.linear", i, 6 * dim)),
-            AdaLayerNormZero(mod(t + ".norm1_context.linear", i, 6 * dim)),
-            attn(t + ".attn", i, True), ff(t + ".ff", i), ff(t + ".ff_context", i)))
-    single = []
-    for i in range(cfg.num_single_layers):
-        t = "single_transformer_blocks"
-        single.append(FluxSingleTransformerBlock(
-            AdaLayerNormZeroSingle(mod(t + ".norm.linear", i, 3 * dim)),
-            attn(t + ".attn", i, False),
-            svdq(t + ".mlp_fc1", i, p, dim, 4 * dim), svdq(t + ".mlp_fc2", i, p, 4 * dim, dim, unsigned_fc2),
-            svdq(t + ".attn_out", i, p, dim, dim)))
+    def dual(self, t, i):
+        """Dual block ``i`` of the stacked blocks named ``t``."""
+        return FluxTransformerBlock(
+            AdaLayerNormZero(self.mod(t + ".norm1.linear", i, 6 * self.dim)),
+            AdaLayerNormZero(self.mod(t + ".norm1_context.linear", i, 6 * self.dim)),
+            self.attn(t + ".attn", i, True), self.ff(t + ".ff", i), self.ff(t + ".ff_context", i))
+
+    def single(self, t, i):
+        dim = self.dim
+        return FluxSingleTransformerBlock(
+            AdaLayerNormZeroSingle(self.mod(t + ".norm.linear", i, 3 * dim)),
+            self.attn(t + ".attn", i, False),
+            self.svdq(t + ".mlp_fc1", i, dim, 4 * dim), self.svdq(t + ".mlp_fc2", i, 4 * dim, dim, self.unsigned_fc2),
+            self.svdq(t + ".attn_out", i, dim, dim))
+
+
+def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTransformer2DModel:
+    P = _Params(params, device)
+    R = _BlockReader(P, cfg)
+    dual = [R.dual("transformer_blocks", i) for i in range(cfg.num_layers)]
+    single = [R.single("single_transformer_blocks", i) for i in range(cfg.num_single_layers)]
     te = "time_text_embed"
-    guidance = None
-    if cfg.guidance_embeds:
-        guidance = MLPEmbedder(linear(te + ".guidance_embedder.fc1"), linear(te + ".guidance_embedder.fc2"))
+    guidance = P.mlp_embedder(te + ".guidance_embedder") if cfg.guidance_embeds else None
     model = FluxTransformer2DModel(
-        cfg, linear("x_embedder"), linear("context_embedder"),
-        CombinedTimestepEmbeddings(
-            MLPEmbedder(linear(te + ".timestep_embedder.fc1"), linear(te + ".timestep_embedder.fc2")),
-            MLPEmbedder(linear(te + ".text_embedder.fc1"), linear(te + ".text_embedder.fc2")),
-            guidance),
-        dual, single, AdaLayerNormContinuous(linear("norm_out.linear")), linear("proj_out"))
-    unused = sorted(set(params) - used)
-    if unused:
-        raise KeyError(f"parameters the port does not take: {unused[:8]}")
+        cfg, P.linear("x_embedder"), P.linear("context_embedder"),
+        CombinedTimestepEmbeddings(P.mlp_embedder(te + ".timestep_embedder"),
+                                   P.mlp_embedder(te + ".text_embedder"), guidance),
+        dual, single, AdaLayerNormContinuous(P.linear("norm_out.linear")), P.linear("proj_out"))
+    P.done()
+    return model
+
+
+def qwenimage_from_jax_params(params: dict, cfg: QwenImageConfig, device="cuda") -> QwenImageTransformer2DModel:
+    """The port's Qwen-Image model from the JAX model's parameters (its
+    stacked ``blocks`` are FLUX dual blocks; ``txt_norm`` when it has one)."""
+    P = _Params(params, device)
+    R = _BlockReader(P, cfg.as_flux())
+    blocks = [R.dual("blocks", i) for i in range(cfg.num_layers)]
+    model = QwenImageTransformer2DModel(
+        cfg, P.linear("img_in", (cfg.in_channels, cfg.dim)), P.linear("txt_in", (cfg.joint_attention_dim, cfg.dim)),
+        P.mlp_embedder("time_embed"), blocks, AdaLayerNormContinuous(P.linear("norm_out.linear")),
+        P.linear("proj_out", (cfg.dim, cfg.proj_out_channels)), P.opt("txt_norm"))
+    P.done()
     return model
 
 

@@ -1,8 +1,9 @@
 // Fixed-shift flash attention, non-causal, head_dim 128.
 //
 // Replaces nunchaku_tpu/ops/attention.py _flash_kernel_fixed (:403, launched
-// by flash_attention :672 with fixed_softmax=True, out_bshd=True):
-//   s = f32(q . k);  padded kv columns -> -1e30
+// by flash_attention :672 with fixed_softmax=True, out_bshd=True), with and
+// without its kv mask (:410-411, :428-429):
+//   s = f32(q . k) [+ mask[b, col]];  padded kv columns -> -1e30
 //   p = exp2(min(s, 116) - 16)        (no running max: q carries the log2(e)
 //                                      softmax scale, so s stays far below 116)
 //   l = sum of the f32 p;  o = (bf16(p) @ v) / l, written as (B, S, H*D) bf16
@@ -20,6 +21,17 @@
 // p @ v product (V's B fragments come from ldmatrix.trans). With no running
 // max there is no rescaling; the f32 row sums meet across the lane quad at
 // the end.
+//
+// The mask form (MASK = true; Qwen-Image's padded prompts) adds a (B, S_kv)
+// f32 log2-domain bias, 0 or -1e30 for a bool mask, to the logits before the
+// cap: each thread reads the bias of its 16 columns of a kv tile (L1-resident:
+// every warp of the block reads the same 64) and seeds its mma accumulators
+// with it, so the loads are in flight during the q . k product and s = bias
+// + q . k. A 0 bias leaves the logits bit for bit those of the unmasked
+// kernel; a masked column gives exp2(min(-1e30 + q . k, 116) - 16) =
+// exp2(-1e30), exactly 0, so it adds nothing to the row sum or to p @ v. The text keys
+// come first in the joint sequence, so masked columns sit in the first kv
+// tiles, which the loop treats like any other.
 #include "mma.cuh"
 
 namespace {
@@ -48,10 +60,11 @@ __device__ __forceinline__ void load_kv(Stage& st, const bf16* kp, const bf16* v
   }
 }
 
+template <bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fixed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ out, int H, int Sq,
-                       int Skv) {
+                       const bf16* __restrict__ v, const float* __restrict__ mask,
+                       bf16* __restrict__ out, int H, int Sq, int Skv) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -62,6 +75,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
   const bf16* kp = k + static_cast<size_t>(bh) * Skv * D;
   const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
+  const float* mp = MASK ? mask + static_cast<size_t>(b) * Skv : nullptr;
 
   bf16(*qs)[LDK] = reinterpret_cast<bf16(*)[LDK]>(&sm.st[1]);
   for (int c = threadIdx.x; c < BQ * (D / 8); c += THREADS) {
@@ -99,7 +113,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 
     float s[BKV / 8][4];  // logits, then p: kv tile j, (row g | g+8) x (column pair t4)
 #pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < BKV / 8; ++j) {
+      float m0 = 0.f, m1 = 0.f;  // the bias of columns col, col + 1 (0 past Skv: masked below)
+      if (MASK) {
+        const int col = t * BKV + j * 8 + t4 * 2;
+        if (col < Skv) m0 = __ldg(mp + col);
+        if (col + 1 < Skv) m1 = __ldg(mp + col + 1);
+      }
+      s[j][0] = s[j][2] = m0;
+      s[j][1] = s[j][3] = m1;
+    }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
 #pragma unroll
@@ -161,23 +184,31 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-}  // namespace
-
-// q (B, H, Sq, 128) carrying softmax-scale * log2(e), k/v (B, H, Skv, 128)
-// bf16 -> out (B, Sq, H*128) bf16.
-extern "C" int nt_flash_fixed(const void* q, const void* k, const void* v, void* out, int B, int H,
-                              int Sq, int Skv, void* stream) {
+template <bool MASK>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
+           int Sq, int Skv, cudaStream_t stream) {
   static bool configured = false;
   const int smem = static_cast<int>(sizeof(Smem));
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fixed_kernel,
+    cudaError_t e = cudaFuncSetAttribute(flash_fixed_kernel<MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fixed_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_fixed_kernel<MASK><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, Sq, Skv);
+      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (B, H, Sq, 128) carrying softmax-scale * log2(e), k/v (B, H, Skv, 128)
+// bf16, mask null or (B, Skv) f32 log2-domain bias -> out (B, Sq, H*128) bf16.
+extern "C" int nt_flash_fixed(const void* q, const void* k, const void* v, const void* mask, void* out,
+                              int B, int H, int Sq, int Skv, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return mask ? launch<true>(q, k, v, mask, out, B, H, Sq, Skv, s)
+              : launch<false>(q, k, v, mask, out, B, H, Sq, Skv, s);
 }

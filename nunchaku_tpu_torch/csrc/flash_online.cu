@@ -2,9 +2,10 @@
 // (512: the VAE decoder's single-head mid-block attention; 128 and 256 too).
 //
 // Replaces nunchaku_tpu/ops/attention.py _flash_kernel (:607, launched by
-// flash_attention :672 with fixed_softmax=False, out_bshd=False and no kv
-// mask). Per 32-column kv tile, for each query row:
-//   s = f32(q . k) * (scale * log2 e);   kv columns >= Skv -> -1e30
+// flash_attention :672 with fixed_softmax=False), with and without its kv
+// mask (:610-613, :634-635), writing (B, H, Sq, D) or, as out_bshd=True,
+// (B, Sq, H*D). Per 32-column kv tile, for each query row:
+//   s = f32(q . k) * (scale * log2 e) [+ mask[b, col]];   kv columns >= Skv -> -1e30
 //   m_new = max(m, rowmax(s));  p = bf16(exp2(bf16(s - m_new)))
 //   alpha = exp2(m - m_new);  l = l * alpha + sum(f32(p))
 //   acc = acc * alpha + p @ v (f32);  at the end out = bf16(acc / l), (B, H, Sq, D).
@@ -29,6 +30,17 @@
 // stream through a two-stage cp.async ring. At D = 512 that is 65 KB of q,
 // 130 KB of k/v stages and 16 KB of logit exchange: one block per SM, and
 // Sq / 64 blocks per (batch, head) (64 at S = 4096: half the SMs idle).
+//
+// The mask form (MASK = true, built at D = 128: Qwen-Image's attention
+// under fixed_softmax = False) adds a (B, S_kv) f32 log2-domain bias, 0 or
+// -1e30 for a bool mask, to the scaled logits, each thread loading the 8
+// values of its columns of a kv tile before the tile's q . k product, so
+// their latency hides behind it. A masked column's -1e30 only becomes
+// a row's running max while every column seen so far was masked (a prompt
+// whose first tile is all padding); the first unmasked tile then rescales
+// l and acc by exp2(-1e30 - m) = 0, and from there on a masked column's p
+// is exp2(-1e30) = 0. Every row of the joint sequence has valid keys (image
+// keys are never masked), so the result is that of the unmasked keys alone.
 #include "mma.cuh"
 
 namespace {
@@ -71,16 +83,17 @@ __device__ __forceinline__ float bf16_exp2(float x) {  // bf16(exp2(bf16(x)))
   return bf2f(__float2bfloat16_rn(exp2f(bf2f(__float2bfloat16_rn(x)))));
 }
 
-template <int D>
+template <int D, bool MASK>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ out, int Sq, int Skv,
-                        float scale_log2) {
+                        const bf16* __restrict__ v, const float* __restrict__ mask,
+                        bf16* __restrict__ out, int H, int Sq, int Skv, float scale_log2,
+                        int bshd) {
   constexpr int DH = D / 2, NT = BKV / 8;
   using Smem = OnlineSmem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rg = warp & 3, c0 = (warp >> 2) * DH;  // row group, first head-dim column
@@ -89,6 +102,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
   const bf16* kp = k + static_cast<size_t>(bh) * Skv * D;
   const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
+  const float* mp = MASK ? mask + static_cast<size_t>(b) * Skv : nullptr;
 
   load_rows<D>(sm.q, qp, q0, BQ, Sq);
   load_rows<D>(sm.k[0], kp, 0, BKV, Skv);
@@ -114,6 +128,16 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async_wait<1>();
     __syncthreads();
 
+    float mk[NT][2] = {};  // the bias of this thread's columns (0 past Skv: masked below)
+    if (MASK) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = t * BKV + j * 8 + t4 * 2 + c;
+          if (col < Skv) mk[j][c] = __ldg(mp + col);
+        }
+    }
     float s[NT][4];  // kv tile j, (row g | g+8) x (column pair t4)
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
@@ -146,7 +170,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = t * BKV + j * 8 + t4 * 2 + (e & 1);
-        const float x = __fmul_rn(__fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]), scale_log2);
+        float x = __fmul_rn(__fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]), scale_log2);
+        if (MASK) x = __fadd_rn(x, mk[j][e & 1]);
         s[j][e] = col < Skv ? x : NEG_INF;
         if (e < 2) mx0 = fmaxf(mx0, s[j][e]); else mx1 = fmaxf(mx1, s[j][e]);
       }
@@ -200,8 +225,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const int row0 = q0 + rg * 16 + g, row1 = row0 + 8;
-  bf16* dst0 = out + (static_cast<size_t>(bh) * Sq + row0) * D + c0;
-  bf16* dst1 = dst0 + static_cast<size_t>(8) * D;
+  // (B, Sq, H*D): row stride H*D from (b, 0, h); (B, H, Sq, D): stride D from (b, h, 0)
+  const size_t ld = bshd ? static_cast<size_t>(H) * D : D;
+  bf16* base = out + (bshd ? (static_cast<size_t>(b) * Sq * H + h) * D : static_cast<size_t>(bh) * Sq * D);
+  bf16* dst0 = base + row0 * ld + c0;
+  bf16* dst1 = dst0 + 8 * ld;
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
     const int d = n * 8 + t4 * 2;
@@ -214,36 +242,42 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* out, int BH, int Sq, int Skv,
-           float scale_log2, cudaStream_t stream) {
+template <int D, bool MASK>
+int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
+           int Sq, int Skv, float scale_log2, int bshd, cudaStream_t stream) {
   static_assert(sizeof(OnlineSmem<D>) <= 232448, "shared memory over the H100's 227 KB");
   static bool configured = false;
   const int smem = static_cast<int>(sizeof(OnlineSmem<D>));
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D>,
+    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D, MASK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  dim3 grid((Sq + BQ - 1) / BQ, BH);
-  flash_online_kernel<D><<<grid, THREADS, smem, stream>>>(
+  dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  flash_online_kernel<D, MASK><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), Sq, Skv, scale_log2);
+      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv, scale_log2, bshd);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q (B, H, Sq, D), k/v (B, H, Skv, D) bf16 -> out (B, H, Sq, D) bf16, D in
-// {128, 256, 512}; scale_log2 = softmax scale * log2(e), as f32.
-extern "C" int nt_flash_online(const void* q, const void* k, const void* v, void* out, int B, int H,
-                               int Sq, int Skv, int D, float scale_log2, void* stream) {
+// q (B, H, Sq, D), k/v (B, H, Skv, D) bf16, mask null or (B, Skv) f32
+// log2-domain bias (D = 128 only) -> out (B, H, Sq, D) bf16, or (B, Sq, H*D)
+// when bshd != 0; D in {128, 256, 512}; scale_log2 = softmax scale * log2(e), as f32.
+extern "C" int nt_flash_online(const void* q, const void* k, const void* v, const void* mask, void* out,
+                               int B, int H, int Sq, int Skv, int D, int bshd, float scale_log2,
+                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask) {
+    if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<128, true>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
+  }
   switch (D) {
-    case 128: return launch<128>(q, k, v, out, B * H, Sq, Skv, scale_log2, s);
-    case 256: return launch<256>(q, k, v, out, B * H, Sq, Skv, scale_log2, s);
-    case 512: return launch<512>(q, k, v, out, B * H, Sq, Skv, scale_log2, s);
+    case 128: return launch<128, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
+    case 256: return launch<256, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
+    case 512: return launch<512, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

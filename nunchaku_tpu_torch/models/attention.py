@@ -6,13 +6,16 @@ Counterparts of ``nunchaku_tpu/models/attention.py``: ``qkv_norm_rope``
 q/k RMSNorm and interleaved RoPE as tensor ops) and its fused branch
 (``_forward_fused`` :242-368: the qkv/RoPE producer kernel, with the
 projections' low-rank terms inside it and the dual block's txt and img
-streams in one joint buffer), both ending in fixed-shift flash attention
-with (B, S, H*D) output; and ``FeedForward`` / ``gelu_mlp`` (:527-768):
-on the int8 / w4a8 chain route fc1's GEMM emits fc2's int8 activations
-through the GELU -> requantize epilogue and fc2 consumes their grouped
-scales, optionally fed by the LN + modulate + quantize producer and ending
-in the block's gated residual add; the int4 / nvfp4 linears take the
-unfused route (fc1, GELU, fc2 through their own quantize steps).
+streams in one joint buffer), both ending in flash attention with (B, S,
+H*D) output and an optional (B, S_kv) kv mask (Qwen-Image's padded
+prompts): fixed-shift, or online on the unfused branch when
+``fixed_softmax`` is False (JAX ``_attend`` :371); and ``FeedForward`` /
+``gelu_mlp`` (:527-768): on the int8 / w4a8 chain route fc1's GEMM emits
+fc2's int8 activations through the GELU -> requantize epilogue and fc2
+consumes their grouped scales, optionally fed by the LN + modulate +
+quantize producer and ending in the block's gated residual add; the int4 /
+nvfp4 linears take the unfused route (fc1, GELU, fc2 through their own
+quantize steps).
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import KERNEL_HEAD_DIM, LOG2E, flash_attention, qkv_rope_producer
+from ..ops.attention import KERNEL_HEAD_DIM, LOG2E, flash_attention, flash_attention_online, qkv_rope_producer
 from ..ops.gemm import dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant
 from ..ops.quantize import ln_mod_quant_int8, rsmooth_of
 from ..ops.reference import gelu_jax, layer_norm, rmsnorm
@@ -114,6 +117,9 @@ class FluxAttention(nn.Module):
             self.register_buffer(name, t)
         self.head_dim = head_dim
         self.prep_fused = False  # set by permute_qk_halfsplit
+        # the fixed-shift softmax; False takes the online kernel on the
+        # unfused branch (the fused one always takes the fixed shift, as in JAX)
+        self.fixed_softmax = True
 
     @classmethod
     def random_init(cls, gen, dim, heads, head_dim, joint=True, rank=32, precision="w4a8",
@@ -133,7 +139,7 @@ class FluxAttention(nn.Module):
                    add_qkv_proj=lin(dim, 3 * inner), norm_added_q=ones(), norm_added_k=ones(),
                    to_add_out=lin(inner, dim), head_dim=head_dim)
 
-    def forward(self, hidden, encoder_hidden, rot, mods=None):
+    def forward(self, hidden, encoder_hidden, rot, mods=None, kv_mask=None):
         """Dual: (img_attn_out, txt_attn_out). Single: raw attention (B, S, H*D).
 
         ``mods = ((scale, shift), (scale_txt, shift_txt) | None)``: the
@@ -143,7 +149,8 @@ class FluxAttention(nn.Module):
         ``(cos, sin)`` pair and the prologue is the qkv/RoPE producer
         kernel; with ``mods`` the qkv GEMMs then skip their low-rank
         epilogue and the producer adds it. A rope table in the other layout
-        than the weights' raises."""
+        than the weights' raises. ``kv_mask``: (B, S_txt + S_img) validity of
+        the joint keys (bool, True = attend), passed to flash."""
         if self.prep_fused:
             if not isinstance(rot, tuple):
                 raise ValueError("the q/k weights are in half-split order (permute_qk_halfsplit): "
@@ -154,7 +161,7 @@ class FluxAttention(nn.Module):
                 qkv, la = self.to_qkv.forward_modulated(hidden, *mods[0], skip_lora=True)
                 lora_img = (la, self.to_qkv.proj_up)
             return self._forward_fused(qkv, encoder_hidden, rot, lora_img,
-                                       None if mods is None else mods[1])
+                                       None if mods is None else mods[1], kv_mask)
         if isinstance(rot, tuple):
             raise ValueError("the half-split (cos, sin) rope table needs the fused prologue "
                              "(permute_qk_halfsplit)")
@@ -162,7 +169,7 @@ class FluxAttention(nn.Module):
         prescale = LOG2E / math.sqrt(self.head_dim)
         if encoder_hidden is None:
             q, k, v = qkv_norm_rope(qkv, self.head_dim, self.norm_q, self.norm_k, rot, prescale)
-            return flash_attention(q, k, v)
+            return self._attend(q, k, v, kv_mask)
         s_txt = encoder_hidden.shape[1]
         if mods is not None and mods[1] is not None:
             qkv_txt = self.add_qkv_proj.forward_modulated(encoder_hidden, *mods[1])
@@ -172,12 +179,19 @@ class FluxAttention(nn.Module):
                                       prescale)
         q_t, k_t, v_t = qkv_norm_rope(qkv_txt, self.head_dim, self.norm_added_q,
                                       self.norm_added_k, rot[:s_txt], prescale)
-        o = flash_attention(torch.cat([q_t, q_i], dim=2), torch.cat([k_t, k_i], dim=2),
-                            torch.cat([v_t, v_i], dim=2))
+        o = self._attend(torch.cat([q_t, q_i], dim=2), torch.cat([k_t, k_i], dim=2),
+                         torch.cat([v_t, v_i], dim=2), kv_mask)
         txt_o, img_o = o[:, :s_txt], o[:, s_txt:]
         return self.to_out(img_o), self.to_add_out(txt_o)
 
-    def _forward_fused(self, qkv, encoder_hidden, rot, lora_img, mods_txt):
+    def _attend(self, q, k, v, kv_mask):
+        """Prescaled q -> (B, S, H*D): the fixed-shift kernel, or the online
+        one when ``fixed_softmax`` is False."""
+        if self.fixed_softmax:
+            return flash_attention(q, k, v, kv_mask)
+        return flash_attention_online(q, k, v, scale=1.0, kv_mask=kv_mask, out_bshd=True)
+
+    def _forward_fused(self, qkv, encoder_hidden, rot, lora_img, mods_txt, kv_mask):
         cos, sin = rot
         kw = dict(q_scale=LOG2E / math.sqrt(self.head_dim))
 
@@ -186,7 +200,7 @@ class FluxAttention(nn.Module):
 
         if encoder_hidden is None:
             q, k, v = qkv_rope_producer(qkv, cos, sin, self.norm_q, self.norm_k, **kw, **lora(lora_img))
-            return flash_attention(q, k, v)
+            return flash_attention(q, k, v, kv_mask)
         b, s_img, _ = qkv.shape
         s_txt = encoder_hidden.shape[1]
         if mods_txt is not None:
@@ -203,7 +217,7 @@ class FluxAttention(nn.Module):
                           s_offset=s_txt, **kw, **lora(lora_img))
         q, k, v = qkv_rope_producer(qkv_txt, cos[:s_txt], sin[:s_txt], self.norm_added_q,
                                     self.norm_added_k, out=joint, s_offset=0, **kw, **lora(lora_txt))
-        o = flash_attention(q, k, v)
+        o = flash_attention(q, k, v, kv_mask)
         txt_o, img_o = o[:, :s_txt], o[:, s_txt:]
         return self.to_out(img_o), self.to_add_out(txt_o)
 

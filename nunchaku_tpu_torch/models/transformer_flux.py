@@ -84,7 +84,9 @@ class FluxTransformerBlock(nn.Module):
             FeedForward.random_init(gen, dim, rank=cfg.rank, precision=cfg.precision, device=device),
         )
 
-    def forward(self, img, txt, temb, rot):
+    def forward(self, img, txt, temb, rot, kv_mask=None):
+        """``kv_mask``: optional (B, S_txt + S_img) bool validity of the joint
+        attention's keys (Qwen-Image's padded prompts)."""
         sdt = img.dtype
         fused_ln = sdt == torch.bfloat16 and self.attn.to_qkv.int8_acts
         if fused_ln:
@@ -92,11 +94,12 @@ class FluxTransformerBlock(nn.Module):
             c_shift_msa, c_scale_msa, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
                 self.norm1_context.mod_vectors(temb))
             attn_img, attn_txt = self.attn(img, txt, rot,
-                                           mods=((scale_msa, shift_msa), (c_scale_msa, c_shift_msa)))
+                                           mods=((scale_msa, shift_msa), (c_scale_msa, c_shift_msa)),
+                                           kv_mask=kv_mask)
         else:
             norm_img, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1(img, temb)
             norm_txt, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = self.norm1_context(txt, temb)
-            attn_img, attn_txt = self.attn(norm_img, norm_txt, rot)
+            attn_img, attn_txt = self.attn(norm_img, norm_txt, rot, kv_mask=kv_mask)
 
         img = (img + gate_msa[:, None] * attn_img.float()).to(sdt)
         if fused_ln:  # the gated residual add rides the MLP consumer's epilogue

@@ -1,26 +1,34 @@
 """Attention kernels of the FLUX path and their plain PyTorch twins.
 
 * :func:`flash_attention` -- kernel ``csrc/flash_fixed.cu``, counterpart of
-  ``nunchaku_tpu/ops/attention.py`` ``flash_attention`` as the FLUX path
-  calls it (``fixed_softmax=True, out_bshd=True, scale=1.0``, no kv mask;
-  ``_flash_kernel_fixed`` :403). Non-causal; q carries softmax-scale *
-  log2(e), so the logits live in the log2 domain, and the softmax uses a
-  fixed shift instead of a running max: ``p = 2^(min(s, 116) - 16)``,
-  ``out = (bf16(p) @ v) / sum(p)``.
+  ``nunchaku_tpu/ops/attention.py`` ``flash_attention`` as the FLUX and
+  Qwen-Image paths call it (``fixed_softmax=True, out_bshd=True,
+  scale=1.0``; ``_flash_kernel_fixed`` :403), with or without ``kv_mask``.
+  Non-causal; q carries softmax-scale * log2(e), so the logits live in the
+  log2 domain, and the softmax uses a fixed shift instead of a running max:
+  ``p = 2^(min(s + mask, 116) - 16)``, ``out = (bf16(p) @ v) / sum(p)``.
 * :func:`qkv_rope_producer` -- kernel ``csrc/qkv_rope_producer.cu``,
   counterpart of ``qkv_rope_producer`` (:212, ``_qkv_rope_producer_kernel``
   :158): the fused attention prologue of the bf16-stream configuration
   (split, head transpose, optional low-rank add, q/k RMSNorm, half-split
   RoPE, q prescale), writing q, k, v in flash's (B, H, S, D) layout.
 * :func:`flash_attention_online` -- kernel ``csrc/flash_online.cu``,
-  counterpart of ``flash_attention`` with ``fixed_softmax=False,
-  out_bshd=False`` and no kv mask (``_flash_kernel`` :607): the running-max
-  softmax the VAE's single-head mid-block attention takes (D = 512).
+  counterpart of ``flash_attention`` with ``fixed_softmax=False``
+  (``_flash_kernel`` :607): the running-max softmax the VAE's single-head
+  mid-block attention takes (D = 512, (B, H, S, D) out), and the FLUX /
+  Qwen-Image attention under ``fixed_softmax = False`` (D = 128, (B, S, H*D)
+  out, with or without ``kv_mask``).
+
+``kv_mask`` is the JAX ``flash_attention``'s: (B, S_kv), bool (True =
+attend) or an f32 additive log2-domain bias. The mask forms of both kernels
+count their launches apart (``flash_fixed_masked``, ``flash_online_masked``
+in :data:`MASKED_COUNTS`).
 """
 
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 
@@ -35,6 +43,21 @@ RMS_EPS = 1e-6
 NEG_INF = -1e30
 ONLINE_HEAD_DIMS = (128, 256, 512)  # the online kernel's instantiations
 ONLINE_BKV = 32  # the online kernel's kv tile: its rescale steps
+MASKED_COUNTS = {"flash_fixed_masked": SimpleNamespace(launches=0),
+                 "flash_online_masked": SimpleNamespace(launches=0)}
+
+
+def kv_bias(kv_mask: torch.Tensor, b: int, skv: int) -> torch.Tensor:
+    """(B, S_kv) kv mask -> contiguous f32 additive log2-domain bias: a bool
+    mask becomes 0 (attend) / -1e30, as the JAX ``flash_attention`` (:789-799)
+    converts it; an additive one is cast to f32."""
+    if kv_mask.dtype == torch.bool:
+        bias = torch.where(kv_mask, 0.0, NEG_INF).to(torch.float32)
+    else:
+        bias = kv_mask.float()
+    _build.require(tuple(bias.shape) == (b, skv), f"kv_mask must be (B, S_kv) = ({b}, {skv}), "
+                                                  f"got {tuple(bias.shape)}")
+    return bias.contiguous()
 
 
 def rope_table_halfsplit(rot: torch.Tensor):
@@ -135,20 +158,22 @@ def qkv_rope_producer(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_act=No
 qkv_rope_producer.launches = 0
 
 
-def flash_attention_plain(q, k, v):
+def flash_attention_plain(q, k, v, kv_mask=None):
     b, h, sq, d = q.shape
     s = q.float() @ k.float().transpose(-1, -2)  # bf16 products are exact in f32
+    if kv_mask is not None:
+        s = s + kv_bias(kv_mask, b, k.shape[2])[:, None, None, :]
     p = torch.exp2(torch.clamp(s, max=FIXED_CAP) - FIXED_SHIFT)
     l = p.sum(dim=-1, keepdim=True)
     o = (p.to(torch.bfloat16).float() @ v.float()) / l
     return o.to(q.dtype).transpose(1, 2).reshape(b, sq, h * d)
 
 
-def flash_attention(q, k, v):
+def flash_attention(q, k, v, kv_mask=None):
     """q (B, H, Sq, D) prescaled by softmax-scale * log2(e), k/v
-    (B, H, Skv, D) bf16 -> (B, Sq, H*D)."""
+    (B, H, Skv, D) bf16, optional (B, Skv) ``kv_mask`` -> (B, Sq, H*D)."""
     if not q.is_cuda:
-        return flash_attention_plain(q, k, v)
+        return flash_attention_plain(q, k, v, kv_mask)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if d != KERNEL_HEAD_DIM:
@@ -159,12 +184,14 @@ def flash_attention(q, k, v):
     if tuple(k.shape) != (b, h, skv, d) or tuple(v.shape) != (b, h, skv, d):
         raise ValueError("k and v must be (B, H, Skv, D) like q")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    bias = None if kv_mask is None else kv_bias(kv_mask.to(q.device), b, skv)
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
-    _build.check(lib.nt_flash_fixed(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h,
+    _build.check(lib.nt_flash_fixed(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                    None if bias is None else bias.data_ptr(), out.data_ptr(), b, h,
                                     sq, skv, torch.cuda.current_stream(q.device).cuda_stream),
                  "flash_fixed")
-    flash_attention.launches += 1
+    (flash_attention if bias is None else MASKED_COUNTS["flash_fixed_masked"]).launches += 1
     return out
 
 
@@ -179,48 +206,59 @@ def _logit_scale(scale, d) -> float:
     return float(torch.tensor(1.0 if scale == 1.0 else scale * LOG2E, dtype=torch.float32))
 
 
-def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV):
+def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=None, out_bshd=False):
     """The kernel's recurrence in torch ops, over kv chunks of ``bkv``
     columns (the kernel's tile by default, so the rescales fall where the
     kernel's do). The last chunk is cut at Skv instead of masked: a masked
-    column's p is exactly 0 and never the row max, so the two agree."""
+    tail column's p is exactly 0 and never the row max, so the two agree."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
     c = _logit_scale(scale, d)
+    bias = None if kv_mask is None else kv_bias(kv_mask, b, skv)[:, None, None, :]
     qf = q.float()
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
     for j in range(0, skv, bkv):
         s = (qf @ k[:, :, j:j + bkv].float().transpose(-1, -2)) * c
+        if bias is not None:
+            s = s + bias[..., j:j + bkv]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp2((s - m_new).to(torch.bfloat16).float()).to(torch.bfloat16).float()
         alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p @ v[:, :, j:j + bkv].float()
         m = m_new
-    return (acc / l).to(torch.bfloat16)
+    out = (acc / l).to(torch.bfloat16)
+    return out.transpose(1, 2).reshape(b, sq, h * d) if out_bshd else out
 
 
-def flash_attention_online(q, k, v, scale=None):
+def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
     """Non-causal attention with a running-max softmax over (B, H, S, D)
-    bf16 q, k, v -> (B, H, Sq, D) bf16; ``scale`` defaults to 1/sqrt(D),
-    and ``scale=1.0`` means q already carries scale * log2(e)."""
+    bf16 q, k, v, optional (B, Skv) ``kv_mask`` (head dim 128 on the card)
+    -> (B, H, Sq, D) bf16, or (B, Sq, H*D) with ``out_bshd``; ``scale``
+    defaults to 1/sqrt(D), and ``scale=1.0`` means q already carries
+    scale * log2(e)."""
     if not q.is_cuda:
-        return flash_attention_online_plain(q, k, v, scale)
+        return flash_attention_online_plain(q, k, v, scale, kv_mask=kv_mask, out_bshd=out_bshd)
     b, h, sq, d = q.shape
     skv = k.shape[2]
     _build.require(d in ONLINE_HEAD_DIMS, f"online flash kernel is built for head dims {ONLINE_HEAD_DIMS}, got {d}")
+    _build.require(kv_mask is None or d == KERNEL_HEAD_DIM,
+                   f"the online kernel's mask form is built for head dim {KERNEL_HEAD_DIM}, got {d}")
     _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "online flash kernel takes bf16 q, k, v")
     _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d) and skv > 0,
                    "k and v must be (B, H, Skv, D) like q, Skv > 0")
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=q.device)
+    bias = None if kv_mask is None else kv_bias(kv_mask.to(q.device), b, skv)
+    shape = (b, sq, h * d) if out_bshd else (b, h, sq, d)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
-    _build.check(lib.nt_flash_online(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, sq,
-                                     skv, d, _logit_scale(scale, d),
+    _build.check(lib.nt_flash_online(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                                     None if bias is None else bias.data_ptr(), out.data_ptr(), b, h, sq,
+                                     skv, d, int(out_bshd), _logit_scale(scale, d),
                                      torch.cuda.current_stream(q.device).cuda_stream), "flash_online")
-    flash_attention_online.launches += 1
+    (flash_attention_online if bias is None else MASKED_COUNTS["flash_online_masked"]).launches += 1
     return out
 
 

@@ -92,6 +92,54 @@ def flash_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
     return q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
 
 
+def flash_masked_case(b, h, s_txt, s_img, valid, d=128, *, seed=0, device="cuda"):
+    """flash_case's q, k, v over a joint [txt; img] sequence and a (B, S)
+    bool padded-prompt mask: batch row i keeps its first ``valid[i]`` text
+    keys and every image key."""
+    s = s_txt + s_img
+    q, k, v = flash_case(b, h, s, s, d, seed=seed, device=device)
+    mask = torch.ones((b, s), dtype=torch.bool, device=device)
+    for i, n in enumerate(valid):
+        mask[i, n:s_txt] = False
+    return q, k, v, mask
+
+
+def run_flash_masked(q, k, v, mask, online, plain=False):
+    """The fixed-shift (``online`` False) or online flash with a kv mask, or
+    its plain twin, as the attention module calls it: q prescaled, (B, S,
+    H*D) out."""
+    if online:
+        fn = flash_attention_online_plain if plain else flash_attention_online
+        return fn(q, k, v, scale=1.0, kv_mask=mask, out_bshd=True)
+    return (flash_attention_plain if plain else flash_attention)(q, k, v, mask)
+
+
+def check_flash_masked(q, k, v, mask, online=False):
+    """bf16 (B, S, H*D) output: max error <= 1e-2 of the plain twin's max
+    |value|. Also: an all-True mask gives the unmasked kernel's output bit
+    for bit; v made huge (1e4) at the masked columns changes no output bit
+    (p = 0 exactly); each batch row within 1e-2 of the kernel over that
+    row's unmasked keys alone."""
+    out = run_flash_masked(q, k, v, mask, online)
+    ref = run_flash_masked(q, k, v, mask, online, plain=True)
+    err, rel = _rel(out, ref)
+    ones = torch.ones_like(mask)
+    same_ones = torch.equal(run_flash_masked(q, k, v, ones, online), run_flash_masked(q, k, v, None, online))
+    v_big = v.clone()
+    v_big.transpose(1, 2)[~mask] = 1e4
+    same_big = torch.equal(run_flash_masked(q, k, v_big, mask, online), out)
+    alone = 0.0
+    for i in range(q.shape[0]):
+        keep = mask[i]
+        o = run_flash_masked(q[i:i + 1], k[i:i + 1, :, keep], v[i:i + 1, :, keep], None, online)
+        alone = max(alone, _rel(out[i:i + 1], o)[1])
+    ok = (rel <= 1e-2 and alone <= 1e-2 and same_ones and same_big and out.shape == ref.shape
+          and bool(torch.isfinite(out.float()).all()))
+    return err, ok, (f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2); rows vs their unmasked keys alone rel "
+                     f"{alone:.2e} (tol 1e-2); all-True mask == no mask: {same_ones}; huge v at masked "
+                     f"columns changes nothing: {same_big}")
+
+
 def flash_online_case(b, h, sq, skv, d=512, *, seed=0, device="cuda"):
     """Unscaled q, k, v with logits q . k / sqrt(D) of std ~4: the running
     max moves over the kv tiles and p spans many binades."""

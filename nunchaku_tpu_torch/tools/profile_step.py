@@ -1,7 +1,8 @@
-"""Where one FLUX.1-dev denoise step, or one VAE decode, spends its time on
-the card.
+"""Where one FLUX.1-dev or Qwen-Image denoise step, or one VAE decode,
+spends its time on the card.
 
     python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
 Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
@@ -12,6 +13,9 @@ one warm 1024x1024 transformer forward, then traces one more with
 split by caller: the tool wraps the activation quantize and the MLP's GELU
 in ``record_function`` ranges (in this process only) and sums the device
 kernels each range launched.
+``--model qwenimage``: the full Qwen-Image model (60 joint blocks; int4
+unless ``--precision`` says otherwise), one forward at B 1 from a prompt of
+97 valid tokens padded to 211 with its mask (the flash kernel's mask form).
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -158,15 +162,22 @@ def _report(header, what, wall_plain, wall, prof, grouping, out, extra=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev forward or one VAE decode")
+    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev or Qwen-Image forward or one VAE decode")
     ap.add_argument("--out", help="file for the full key_averages table")
+    ap.add_argument("--model", choices=("flux", "qwenimage"), default="flux",
+                    help="the transformer: FLUX.1-dev (w4a8 by default) or Qwen-Image (int4 by default)")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
-    ap.add_argument("--precision", choices=("w4a8", "int4", "nvfp4"), default="w4a8",
-                    help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs)")
+    ap.add_argument("--precision", choices=("w4a8", "int4", "nvfp4"),
+                    help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs); "
+                         "default w4a8 for FLUX, int4 for Qwen-Image")
     ap.add_argument("--decode", action="store_true", help="profile one 1024px VAE decode instead of a forward")
     ap.add_argument("--whole", action="store_true", help="with --decode: one piece instead of 64-latent tiles")
     args = ap.parse_args(argv)
+    if args.model == "qwenimage" and args.turbo:
+        ap.error("--turbo is a FLUX configuration")
+    if args.precision is None:
+        args.precision = "int4" if args.model == "qwenimage" else "w4a8"
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 1
@@ -190,11 +201,36 @@ def main(argv=None) -> int:
         _report(header, "decode", wall_plain, wall, prof, decode_group_of, args.out)
         return 0
 
-    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 
-    cfg = FluxConfig(precision=args.precision)
-    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    if args.model == "qwenimage":
+        from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+
+        cfg = QwenImageConfig(precision=args.precision)
+        model = QwenImageTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        s_txt = 211
+        inputs = (torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn((1, s_txt, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.full((1,), 0.7, device=dev), make_img_ids(64, 64, dev))
+        kw = dict(encoder_hidden_states_mask=torch.arange(s_txt, device=dev)[None, :] < 97)
+        what = f"Qwen-Image {args.precision} (60 joint blocks), B 1, 97 of 211 text tokens valid (masked)"
+    else:
+        from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+
+        cfg = FluxConfig(precision=args.precision)
+        model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        if args.turbo:
+            model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        inputs = (
+            torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, 512, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+            torch.full((1,), 0.7, device=dev), make_img_ids(64, 64, dev),
+            torch.zeros((512, 3), dtype=torch.int32, device=dev), torch.full((1,), 3.5, device=dev),
+        )
+        kw = {}
+        what = (f"FLUX.1-dev {args.precision}, "
+                f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}")
     extra = None
     if args.precision in ("int4", "nvfp4"):
         from nunchaku_tpu_torch.models import attention, linear
@@ -205,19 +241,9 @@ def main(argv=None) -> int:
         def extra(prof):
             return ["torch glue by caller (device ms, inside the groups above):"] + [
                 f"  {ms:9.2f} ms  {name}" for name, ms in sorted(glue_by_range(prof).items())]
-    if args.turbo:
-        model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
-    inputs = (
-        torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
-        torch.randn((1, 512, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
-        torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
-        torch.full((1,), 0.7, device=dev), make_img_ids(64, 64, dev),
-        torch.zeros((512, 3), dtype=torch.int32, device=dev), torch.full((1,), 3.5, device=dev),
-    )
     with torch.no_grad():
-        wall_plain, wall, prof = _trace(lambda: model(*inputs))
-    header = (f"card: {smi}; torch {torch.__version__}; FLUX.1-dev {args.precision}, "
-              f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}")
+        wall_plain, wall, prof = _trace(lambda: model(*inputs, **kw))
+    header = f"card: {smi}; torch {torch.__version__}; {what}"
     _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
     return 0
 

@@ -1,6 +1,7 @@
 """Card tests: each Hopper kernel of nunchaku_tpu_torch against its plain
-PyTorch twin on the GPU, at FLUX.1-dev main-path shapes (f32 and bf16-stream
-configurations) and at ragged ones.
+PyTorch twin on the GPU, at FLUX.1-dev and Qwen-Image main-path shapes (f32
+and bf16-stream configurations) and at ragged ones, and small models on the
+card against the CPU.
 
 They need an NVIDIA GPU and nvcc, and skip elsewhere (decided inside a
 fixture, so every worker collects the same tests). This file imports no
@@ -15,9 +16,10 @@ import pytest
 import torch
 
 from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
-from nunchaku_tpu_torch.ops.attention import flash_attention_online
+from nunchaku_tpu_torch.ops.attention import flash_attention, flash_attention_online
 from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w4a4, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
 from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
 
@@ -229,3 +231,67 @@ def test_4bit_small_model_matches_cpu(dev, precision, turbo):
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
     _, ok, detail = checks.check_modulation(cpu_model, gpu_model)
     assert ok, detail
+
+
+@pytest.mark.parametrize("online", [False, True], ids=["fixed", "online"])
+@pytest.mark.parametrize("b,h,s_txt,s_img,valid", [
+    (2, 24, 211, 4096, (211, 97)),  # Qwen-Image 1024px, two prompts padded to 211 tokens
+    (2, 2, 77, 130, (77, 0)),  # row 1's whole text block masked; S_txt not a multiple of 64
+    (1, 3, 50, 65, (13,)),
+])
+def test_flash_masked(dev, b, h, s_txt, s_img, valid, online):
+    _, ok, detail = checks.check_flash_masked(*checks.flash_masked_case(b, h, s_txt, s_img, valid, device=dev),
+                                              online=online)
+    assert ok, detail
+
+
+def test_flash_masked_counts_and_refusals(dev):
+    q, k, v, mask = checks.flash_masked_case(1, 2, 20, 60, (7,), device=dev)
+    reset_launch_counts()
+    flash_attention(q, k, v, mask)
+    flash_attention(q, k, v)
+    flash_attention_online(q, k, v, scale=1.0, kv_mask=mask.float(), out_bshd=True)
+    counts = launch_counts()
+    assert (counts["flash_fixed_masked"], counts["flash_fixed"], counts["flash_online_masked"],
+            counts["flash_online"]) == (1, 1, 1, 0)
+    with pytest.raises(ValueError):  # not (B, S_kv)
+        flash_attention(q, k, v, mask[:, 1:])
+    q5, k5, v5 = checks.flash_online_case(1, 1, 64, 64, 512, device=dev)
+    with pytest.raises(ValueError):  # the online mask form is built for head dim 128
+        flash_attention_online(q5, k5, v5, kv_mask=torch.ones((1, 64), dtype=torch.bool, device=dev))
+    assert launch_counts()["flash_online_masked"] == 1
+
+
+@pytest.mark.parametrize("precision,variant", [("w4a8", "fixed"), ("int4", "fixed"), ("int4", "online"),
+                                               ("int4", "fused")])
+def test_qwen_small_model_matches_cpu(dev, precision, variant):
+    """The 2-block Qwen-Image model of the CPU tests (2 heads, joint 320;
+    int4: AdaLN modulation damped) at B 2 with padded prompts (24 and 9
+    valid tokens) on the card against the plain twins on the CPU: each batch
+    row within 2e-2 of the reference's max |value|; every attention took a
+    mask form (``online``: fixed_softmax False; ``fused``: the qkv/RoPE
+    producer)."""
+    cfg = QwenImageConfig(num_layers=2, num_attention_heads=2, joint_attention_dim=320, precision=precision)
+    cpu_model = QwenImageTransformer2DModel.random_init(cfg, seed=9, device="cpu")
+    if precision == "int4":
+        checks.damp_modulation(cpu_model)
+    if variant == "fused":
+        cpu_model.enable_fused_qkv_prep()
+    for block in cpu_model.blocks:
+        block.attn.fixed_softmax = variant != "online"
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(10)
+    mask = torch.arange(24)[None, :] < torch.tensor([[24], [9]])
+    args = (torch.randn((2, 64, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((2, 24, 320), generator=gen).to(torch.bfloat16), torch.tensor([0.4, 0.9]),
+            make_img_ids(8, 8))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args, encoder_hidden_states_mask=mask).float()
+        out = gpu_model(*[a.to(dev) for a in args], encoder_hidden_states_mask=mask.to(dev)).float().cpu()
+    counts = launch_counts()
+    masked = "flash_online_masked" if variant == "online" else "flash_fixed_masked"
+    assert counts[masked] == 2 and counts["flash_fixed"] == counts["flash_online"] == 0
+    assert counts["qkv_rope_producer"] == (4 if variant == "fused" else 0)
+    for i in range(2):
+        assert ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item() <= 2e-2
