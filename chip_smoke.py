@@ -16,6 +16,10 @@ Phases, each fatal on failure:
                   forms of both flash kernels at Qwen-Image's 1024px shapes (B 2,
                   24 heads, 211 text + 4096 image tokens, batch row 1 keeping 97
                   text keys), with SDPA under the same additive mask as yardstick;
+                  the block-sparse forms of both (bs_fixed, bs_online) at FLUX
+                  2048px (S 16384 + 512, select_blocks at 0.5: 5 of 11 kv blocks
+                  of 1536) and at a ragged 1536px shape, with SDPA under the
+                  equivalent bool mask and the dense kernel at the same S;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -31,14 +35,20 @@ Phases, each fatal on failure:
                   linear-level check). Then a 2-block Qwen-Image model (2 heads,
                   joint 320) through QwenImagePipeline with true CFG and padded
                   prompts at B 2, card against CPU: w4a8, int4 (damped, modulation
-                  linears checked alone), int4 under fixed_softmax = False;
-  5. slice     -- full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
+                  linears checked alone), int4 under fixed_softmax = False. Then
+                  the small FLUX model under blocksparse 0.5 at w4a8 and int4
+                  (damped) at S 1600 + 64, card against CPU, selections equal;
+                  a small T5 (AWQ) and a small CLIP, card against CPU;
+  5. slice     -- T5-XXL (AWQ W4A16, 24 layers) and CLIP-L from random weights;
+                  full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
                   1024x1024: first the default configuration (one request of
                   min(3, --steps) steps, no VAE), then the same model switched to
                   the turbo configuration serves 2 requests of --steps steps (no
-                  VAE), then bench.py's image path: with the full FLUX VAE (tiled
-                  decode) and cache="double_fb", cache_hit_ratio=0.5, 2 requests
+                  VAE), then bench.py's image path: the prompt's T5-XXL encode
+                  from token ids inside each timed request (bench.py:159), the
+                  full FLUX VAE (tiled decode) and cache="double_fb",
+                  cache_hit_ratio=0.5, 2 requests
                   of --steps steps to (1, 1024, 1024, 3) images; one tiled and one
                   whole-image decode of the last latents are timed alone. Then the
                   w4a8 model is freed and the int4 model (default configuration,
@@ -50,7 +60,15 @@ Phases, each fatal on failure:
                   the misses' full forwards, the hits' dual and single block 0;
                   9 flash_online per tiled decode), the outputs must be finite
                   (images in [0, 1]); each path reports its peak memory.
-  6. qwen      -- after the FLUX models are freed, full-width, full-depth
+  6. highres  -- FLUX.1-dev int4 (default configuration) under
+                  set_attention_impl("blocksparse", sparsity_ratio=0.5) at
+                  2048x2048 from prompts: a stand-in tokenizer, T5-XXL + CLIP-L
+                  inside each request, 2 requests of min(4, --steps) steps to
+                  images through the tiled VAE (25 tiles); then 1-step requests:
+                  block-sparse, block-sparse under fixed_softmax = False, dense.
+                  Counts exact per forward (bs_fixed 57, gemm_w4a4_int4 228,
+                  unsigned 76, gemv_awq 76; 25 flash_online per decode).
+  7. qwen      -- after the FLUX models are freed, full-width, full-depth
                   Qwen-Image int4 (60 joint blocks, dim 3072, joint 3584, AWQ
                   modulation) at 1024x1024 through QwenImagePipeline: request A,
                   true CFG 4.0 at B 2 (prompts of 211 and 97 valid tokens padded to
@@ -89,6 +107,15 @@ S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
 VAE_D, VAE_TILE_S, VAE_WHOLE_S, VAE_TILES = 512, 64 * 64, 128 * 128, 9
 # Qwen-Image at 1024x1024: prompts padded to 211 tokens (211 and 97 valid), negatives of 12
 QWEN_S_TXT, QWEN_VALID, QWEN_NEG = 211, (211, 97), 12
+# FLUX.1-dev at 2048x2048 (examples/flux_highres_sparse.py): 16384 image + 512 text tokens, block-sparse
+# attention at sparsity 0.5 over query blocks of 768 and kv blocks of 1536; 1536px as the ragged check
+HR_SIZE, HR_S, HR_SPARSITY, HR_TILES, RAGGED_S = 2048, 16384 + 512, 0.5, 25, 9216 + 512
+# the text encoders (bench.py:85-88): T5-XXL with AWQ W4A16 linears, CLIP-L (openai/clip-vit-large-patch14)
+T5_XXL = dict(vocab=32128, d_model=4096, d_ff=10240, d_kv=64, heads=64, layers=24, quantized=True)
+CLIP_L = dict(vocab=49408, d=768, heads=12, layers=12, max_pos=77)
+T5_EOS, CLIP_EOS = 1, 2
+PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
+           "a bowl of ramen on a wooden table, studio light")
 
 
 def log(msg: str) -> None:
@@ -148,6 +175,37 @@ def w4a4_bytes(m, k, n, g, r=RANK):
 
 def w4a4_bound(m, k, n, g, r=RANK):
     return bound(w4a4_bytes(m, k, n, g, r), bf16_ops=2 * m * n * (k + r))
+
+
+def bs_bound(idx, sq, skv, bq, bkv):
+    """Least time of one block-sparse call with these ids (B, H, nq, kk):
+    4 * D flop for each (query row, selected valid column) pair; q and the
+    output once, the k and v rows of every block some query block selected
+    once, the ids once."""
+    b, h, nq, _ = idx.shape
+    ids = idx.long().cpu()
+    nk = -(-skv // bkv)
+    rows = torch.clamp(sq - torch.arange(nq) * bq, max=bq)
+    cols = torch.clamp(skv - torch.arange(nk) * bkv, max=bkv)
+    flop = 4 * HD * int((rows[None, None, :, None] * cols[ids]).sum())
+    used = torch.zeros((b, h, nk)).scatter_(-1, ids.reshape(b, h, -1), 1.0)
+    kv_rows = int((used * cols).sum())
+    return bound(2 * 2 * b * h * sq * HD + 2 * 2 * kv_rows * HD + 4 * idx.numel(), bf16_ops=flop)
+
+
+def stand_in_tokenizer(vocab: int, eos: int):
+    """A deterministic stand-in for a tokenizer (the repo holds no
+    vocabulary): each word -> 3 + crc32(word) % (vocab - 3), then ``eos``,
+    padded with 0 to ``max_length`` -> (B, max_length) int32 ids."""
+    import zlib
+
+    def tokenize(prompts, max_length):
+        ids = torch.zeros((len(prompts), max_length), dtype=torch.int32)
+        for i, p in enumerate(prompts):
+            toks = [3 + zlib.crc32(w.encode()) % (vocab - 3) for w in p.split()][:max_length - 1] + [eos]
+            ids[i, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
+        return ids
+    return tokenize
 
 
 def gemv_bound(m, k, n):
@@ -366,7 +424,51 @@ def kernel_phase(dev):
            f"M=1 K={DIM} N={6 * DIM}", ok and ok2, max(err, err2), detail + f"; N {3 * DIM}: {detail2}",
            ms, plain, bnd, lib)
     torch.cuda.empty_cache()
+    bs_kernel_rows(dev, record)
     return rows, failed
+
+
+def bs_kernel_rows(dev, record):
+    """12. The block-sparse forms of both flash kernels at FLUX.1-dev
+    2048px (B 1, 24 heads, S 16384 + 512, select_blocks at 0.5: 5 of 11 kv
+    blocks of 1536 per query block of 768), also checked at 1536px (S 9216 +
+    512 = 9728: the tail block holds 512 columns and is selected). Yardsticks:
+    SDPA under the equivalent (B, H, S, S) bool mask, and the port's dense
+    kernel of the same softmax form at the same S."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import block_sparse_mask, flash_attention, flash_attention_online
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    s = HR_S
+    q, k, v, idx, bq, bkv = checks.block_sparse_case(1, HEADS, s, HR_SPARSITY, device=dev)
+    nk, kk = -(-s // bkv), idx.shape[-1]
+    mask = block_sparse_mask(idx, s, s, bq=bq, bkv=bkv)  # 6.9 GB of bool
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=math.log(2.0)), 3, warmup=1)
+    del mask
+    torch.cuda.empty_cache()
+    dense_ms = {True: cuda_ms(lambda: flash_attention(q, k, v), 10),
+                False: cuda_ms(lambda: flash_attention_online(q, k, v, scale=1.0, out_bshd=True), 5)}
+    dense_bound = bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS)[0]
+    rq, rk, rv, ridx, rbq, rbkv = checks.block_sparse_case(1, HEADS, RAGGED_S, HR_SPARSITY, seed=1, device=dev)
+    tail = -(-RAGGED_S // rbkv) - 1
+    tail_rows = int((ridx == tail).any(dim=-1).sum())
+    for name, fixed, src, line in (("bs_fixed", True, "flash_fixed.cu", 1109),
+                                   ("bs_online", False, "flash_online.cu", 1153)):
+        err2, ok2, detail2 = checks.check_block_sparse(rq, rk, rv, ridx, rbq, rbkv, fixed, out_bshd=False)
+        log(f"[kernel] {name} @ B=1 H={HEADS} S={RAGGED_S} (1536px), kk {ridx.shape[-1]} of {tail + 1}, tail "
+            f"block {tail} ({RAGGED_S - tail * rbkv} columns) selected by {tail_rows} query blocks, (B, H, S, D) out: "
+            f"{'PASS' if ok2 else 'FAIL'} {detail2}")
+        err, ok, detail = checks.check_block_sparse(q, k, v, idx, bq, bkv, fixed)
+        ms = cuda_ms(lambda: checks.run_block_sparse(q, k, v, idx, bq, bkv, fixed), 10)
+        log(f"[kernel] {name}: the dense {'flash_fixed' if fixed else 'flash_online'} kernel at the same S "
+            f"{dense_ms[fixed]:.4f} ms (bound {dense_bound:.4f} ms); block-sparse / dense {ms / dense_ms[fixed]:.3f}")
+        record(name, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/attention.py:{line}",
+               f"B=1 H={HEADS} S={s} D={HD}, kk {kk} of {nk} kv blocks of {bkv} per query block of {bq}",
+               ok and ok2, max(err, err2), detail + f"; 1536px: {detail2}", ms,
+               cuda_ms(lambda: checks.run_block_sparse(q, k, v, idx, bq, bkv, fixed, plain=True), 1, warmup=1),
+               bs_bound(idx, s, s, bq, bkv), lib_ms)
+    del q, k, v, idx, rq, rk, rv, ridx
+    torch.cuda.empty_cache()
 
 
 def per_forward_bounds(cfg) -> dict:
@@ -425,7 +527,7 @@ def reference_phase(dev):
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
     cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
-                     joint_attention_dim=512, pooled_projection_dim=256)
+                     joint_attention_dim=512, pooled_projection_dim=256, precision="w4a8")
     cpu_model = FluxTransformer2DModel.random_init(cfg, seed=3, device="cpu")
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     gen = torch.Generator().manual_seed(4)
@@ -438,8 +540,9 @@ def reference_phase(dev):
         if name.startswith("turbo"):
             for mdl in (cpu_model, gpu_model):
                 mdl.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
-        ref = FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float()
-        out = FluxPipeline(gpu_model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
+        ref = FluxPipeline(cpu_model)(prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat, **kw).latents.float()
+        out = FluxPipeline(gpu_model)(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev),
+                                      latents=lat.to(dev), **kw).latents.float().cpu()
         rel = ((out - ref).abs().max() / ref.abs().max()).item()
         ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2
         log(f"[reference] {name}: 1+1-block FLUX (dim 768), 2 steps at 256x256: card vs CPU plain "
@@ -447,7 +550,116 @@ def reference_phase(dev):
         all_ok = all_ok and ok
     image_ok = reference_image_path(cpu_model, gpu_model, dev)
     ok4 = reference_4bit(dev, pe, pooled, lat, kw)
-    return all_ok and image_ok and ok4 and reference_qwen(dev)
+    return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
+            and reference_text_encoders(dev))
+
+
+def reference_blocksparse(dev):
+    """The small FLUX model (1 + 1 blocks, 6 heads) under
+    set_attention_impl("blocksparse", 0.5) at w4a8 and at int4 (AdaLN
+    modulation damped), 2 steps at 640x640 (S_img 1600 + S_txt 64: query
+    blocks of 768 with a ragged third of 128, kv blocks of 1536 and a ragged
+    tail of 128, 1 of 2 selected), card against CPU: the latents within
+    2e-2, every attention call a bs_fixed launch, and the selections equal
+    call for call, except in a query block whose pooled scores are so close
+    to a tie that the card's and the CPU's differ by more than the gap
+    between the kk-th and the next score (the int4 codes turn sub-ulp
+    differences into percent-level ones; such rows are counted and
+    reported). The smallest such gap is reported too."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import attention, checks, launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    gen = torch.Generator().manual_seed(13)
+    pe = torch.randn((1, 64, 512), generator=gen).to(torch.bfloat16)
+    pooled = torch.randn((1, 256), generator=gen).to(torch.bfloat16)
+    lat = torch.randn((1, 1600, 64), generator=gen).to(torch.bfloat16)
+    kw = dict(height=640, width=640, num_inference_steps=2)
+    select = attention.select_blocks
+    calls = []
+
+    def recording(q, k, ratio, *, bq, bkv):
+        idx = select(q, k, ratio, bq=bq, bkv=bkv)
+        calls.append((idx.cpu(), attention.pooled_block_scores(q, k, bq=bq, bkv=bkv).cpu()))
+        return idx
+
+    def compare(cpu_calls, gpu_calls):
+        """-> (calls with equal ids, query blocks whose ids differ, of them
+        the ones not explained by a near tie, smallest CPU top-kk gap)."""
+        equal, differ, unexplained, gap_min = 0, 0, 0, math.inf
+        for (ic, sc), (ig, sg) in zip(cpu_calls, gpu_calls):
+            kk = ic.shape[-1]
+            top = sc.sort(dim=-1, descending=True).values
+            gap = top[..., kk - 1] - top[..., kk]
+            gap_min = min(gap_min, gap.min().item())
+            rows = (ic != ig).any(dim=-1)
+            equal += int(not rows.any())
+            differ += int(rows.sum())
+            unexplained += int((rows & (gap > 2 * (sc - sg).abs().amax(dim=-1))).sum())
+        return equal, differ, unexplained, gap_min
+
+    all_ok = True
+    attention.select_blocks = recording
+    try:
+        for precision in ("w4a8", "int4"):
+            cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6, joint_attention_dim=512,
+                             pooled_projection_dim=256, precision=precision)
+            cpu_model = FluxTransformer2DModel.random_init(cfg, seed=14, device="cpu")
+            if precision == "int4":
+                checks.damp_modulation(cpu_model)
+            cpu_model.set_attention_impl("blocksparse", sparsity_ratio=HR_SPARSITY)
+            gpu_model = copy.deepcopy(cpu_model).to(dev)
+            calls.clear()
+            ref = FluxPipeline(cpu_model)(prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat,
+                                          **kw).latents.float()
+            cpu_calls = list(calls)
+            calls.clear()
+            reset_launch_counts()
+            out = FluxPipeline(gpu_model)(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev),
+                                          latents=lat.to(dev), **kw).latents.float().cpu()
+            c = launch_counts()
+            equal, differ, unexplained, gap = compare(cpu_calls, calls)
+            rel = ((out - ref).abs().max() / ref.abs().max()).item()
+            ok = (len(calls) == len(cpu_calls) == 4 and unexplained == 0 and rel <= 2e-2
+                  and bool(torch.isfinite(out).all()) and c["bs_fixed"] == 4 and c["flash_fixed"] == 0)
+            log(f"[reference] blocksparse 0.5, {precision}{' damped' if precision == 'int4' else ''}: 1+1-block FLUX "
+                f"(dim 768), 2 steps at 640x640 (S 1600 + 64, kk {cpu_calls[0][0].shape[-1]} of 2 kv blocks, 18 query "
+                f"blocks a call): selections card == CPU in {equal} of {len(calls)} calls; {differ} query blocks "
+                f"differ, {unexplained} of them not at a near tie (tol 0); smallest top-kk score gap {gap:.4e}; "
+                f"latents rel max error {rel:.3e} (tol 2e-2); bs_fixed launches {c['bs_fixed']} (expected 4): "
+                f"{'PASS' if ok else 'FAIL'}")
+            all_ok = all_ok and ok
+    finally:
+        attention.select_blocks = select
+    return all_ok
+
+
+def reference_text_encoders(dev):
+    """A small T5 with AWQ W4A16 linears (d_model 512, d_ff 1024, 8 heads,
+    2 layers; bench.py's tiny one) and a small CLIP (d 128, 2 heads, 2
+    layers) on the card against the CPU, 2 rows of 77 token ids: within
+    2e-2 of the CPU's max |value|."""
+    from nunchaku_tpu_torch.models.text_encoders.clip import CLIPTextModel
+    from nunchaku_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+
+    gen = torch.Generator().manual_seed(15)
+    ok = True
+    t5 = T5EncoderModel.random_init(d_model=512, d_ff=1024, heads=8, layers=2, quantized=True, seed=16, device="cpu")
+    clip = CLIPTextModel.random_init(seed=17, device="cpu")
+    for name, model, ids in (("T5 (AWQ, d 512, 2 layers)", t5, torch.randint(0, 32128, (2, 77), generator=gen)),
+                             ("CLIP (d 128, 2 layers)", clip, torch.randint(3, 1000, (2, 77), generator=gen))):
+        if model is clip:
+            ids[:, 20] = CLIP_EOS
+        with torch.no_grad():
+            ref = model(ids)
+            out = copy.deepcopy(model).to(dev)(ids.to(dev))
+        errs = [((o.float().cpu() - r.float()).abs().max() / r.float().abs().max()).item()
+                for o, r in zip(out if model is clip else (out,), ref if model is clip else (ref,))]
+        good = max(errs) <= 2e-2
+        log(f"[reference] {name}: card vs CPU rel max error {', '.join(f'{e:.3e}' for e in errs)} (tol 2e-2): "
+            f"{'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    return ok
 
 
 def reference_qwen(dev):
@@ -511,7 +723,8 @@ def reference_4bit(dev, pe, pooled, lat, kw):
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
     def rel_err(model, ref):
-        out = FluxPipeline(model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
+        out = FluxPipeline(model)(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev),
+                                  latents=lat.to(dev), **kw).latents.float().cpu()
         return ((out - ref).abs().max() / ref.abs().max()).item()
 
     all_ok = True
@@ -519,13 +732,14 @@ def reference_4bit(dev, pe, pooled, lat, kw):
         cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6, joint_attention_dim=512,
                          pooled_projection_dim=256, precision=precision)
         cpu_model = FluxTransformer2DModel.random_init(cfg, seed=3, device="cpu")
-        undamped = rel_err(copy.deepcopy(cpu_model).to(dev),
-                           FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float())
+        undamped = rel_err(copy.deepcopy(cpu_model).to(dev), FluxPipeline(cpu_model)(
+            prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat, **kw).latents.float())
         checks.damp_modulation(cpu_model)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
-        ref = FluxPipeline(cpu_model)(pe, pooled, latents=lat, **kw).latents.float()
+        ref = FluxPipeline(cpu_model)(prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat, **kw).latents.float()
         reset_launch_counts()
-        out = FluxPipeline(gpu_model)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw).latents.float().cpu()
+        out = FluxPipeline(gpu_model)(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev),
+                                      latents=lat.to(dev), **kw).latents.float().cpu()
         c = launch_counts()
         gemms = {k: v for k, v in c.items() if k.startswith("gemm_w4a4") and v}
         forwards = kw["num_inference_steps"]
@@ -574,9 +788,10 @@ def reference_image_path(cpu_model, gpu_model, dev):
     pooled = torch.randn((1, 256), generator=gen).to(torch.bfloat16)
     lat = torch.randn((1, 1024, 64), generator=gen).to(torch.bfloat16)
     kw = dict(height=512, width=512, num_inference_steps=4, cache="double_fb", cache_hit_ratio=0.5)
-    ref = FluxPipeline(cpu_model, vae=cpu_vae)(pe, pooled, latents=lat, **kw)
+    ref = FluxPipeline(cpu_model, vae=cpu_vae)(prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat, **kw)
     reset_launch_counts()
-    out = FluxPipeline(gpu_model, vae=gpu_vae)(pe.to(dev), pooled.to(dev), latents=lat.to(dev), **kw)
+    out = FluxPipeline(gpu_model, vae=gpu_vae)(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev),
+                                               latents=lat.to(dev), **kw)
     whole_launches = launch_counts()["flash_online"]
     rel = ((out.latents.float().cpu() - ref.latents.float()).abs().max() / ref.latents.float().abs().max()).item()
     img_err = (out.images.cpu() - ref.images).abs().max().item()
@@ -597,37 +812,66 @@ def reference_image_path(cpu_model, gpu_model, dev):
     return ok
 
 
-def serve(pipe, cfg, dev, steps, requests, label, **call_kw):
-    """Requests through the pipeline, after one untimed 1-step request that
-    takes the path's first-use work, with the launch counts reset just
-    before the timed ones; -> (outputs finite (images in [0, 1]), seconds
-    per request, counts, peak GiB, cache hits per request, last latents)."""
-    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
-
-    def prompt(seed):
+def embeds_request(cfg, dev):
+    """Requests from random prompt embeddings made from the seed (the
+    transformer paths): seed -> a function giving the pipeline's prompt
+    arguments inside the timed request."""
+    def make(seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         pe = torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16)
         pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16)
-        return pe, pooled
+        return lambda: dict(prompt_embeds=pe, pooled_prompt_embeds=pooled)
+    return make
 
-    pipe(*prompt(requests), height=1024, width=1024, num_inference_steps=1, seed=requests, **call_kw)
+
+def t5_request(cfg, dev, t5):
+    """bench.py's image request (bench.py:140-159): the prompt's T5-XXL
+    encode from 512 token ids runs inside the timed request; the pooled
+    embedding is random (bench.py passes zeros; it runs no CLIP)."""
+    tokenize = stand_in_tokenizer(T5_XXL["vocab"], T5_EOS)
+
+    def make(seed):
+        ids = tokenize([PROMPTS[seed % len(PROMPTS)]], S_TXT).to(dev).long()
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        pooled = torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16)
+        return lambda: dict(prompt_embeds=t5(ids), pooled_prompt_embeds=pooled)
+    return make
+
+
+def prompt_request(seed):
+    """A prompt string: the pipeline tokenizes it and runs both encoders."""
+    return lambda: dict(prompt=PROMPTS[seed % len(PROMPTS)])
+
+
+def serve(pipe, dev, steps, requests, label, request, size=1024, tag="slice", **call_kw):
+    """Requests through the pipeline at ``size`` x ``size``, their prompt
+    arguments from ``request(seed)`` (made inside the timed request), after
+    one untimed 1-step request that takes the path's first-use work, with
+    the launch counts reset just before the timed ones; -> (outputs finite
+    (images in [0, 1]), seconds per request, counts, peak GiB, cache hits per
+    request, last latents)."""
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    with torch.no_grad():
+        pipe(**request(requests)(), height=size, width=size, num_inference_steps=1, seed=requests, **call_kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     req_s, hits, finite = [], [], True
     for seed in range(requests):
-        pe, pooled = prompt(seed)
+        prompt = request(seed)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = pipe(pe, pooled, height=1024, width=1024, num_inference_steps=steps, seed=seed, **call_kw)
+        with torch.no_grad():
+            out = pipe(**prompt(), height=size, width=size, num_inference_steps=steps, seed=seed, **call_kw)
         torch.cuda.synchronize()
         req_s.append(time.perf_counter() - t0)
         lat = out.latents
-        ok = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat.float()).all())
+        ok = tuple(lat.shape) == (1, (size // 16) ** 2, 64) and bool(torch.isfinite(lat.float()).all())
         what = f"latents {tuple(lat.shape)} finite={ok}, |lat| mean {lat.float().abs().mean().item():.4f}"
         if out.images is not None:
             img = out.images
-            img_ok = (tuple(img.shape) == (1, 1024, 1024, 3) and img.dtype == torch.float32
+            img_ok = (tuple(img.shape) == (1, size, size, 3) and img.dtype == torch.float32
                       and bool(torch.isfinite(img).all()) and img.min().item() >= 0.0 and img.max().item() <= 1.0)
             ok = ok and img_ok
             what += (f"; images {tuple(img.shape)} finite and in [0, 1]={img_ok} (min {img.min().item():.4f}, "
@@ -636,10 +880,10 @@ def serve(pipe, cfg, dev, steps, requests, label, **call_kw):
             hits.append(out.cache_hits)
             what += f"; cache_hits {out.cache_hits}"
         finite = finite and ok
-        log(f"[slice] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / steps:.4f} s/step), {what}")
+        log(f"[{tag}] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / steps:.4f} s/step), {what}")
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[slice] {label}: {requests} request(s) x {steps} steps; s/request {[round(x, 3) for x in req_s]}, "
+    log(f"[{tag}] {label}: {requests} request(s) x {steps} steps; s/request {[round(x, 3) for x in req_s]}, "
         f"s/step (last request) {req_s[-1] / steps:.4f}; peak allocated {peak:.2f} GiB")
     return finite, req_s, counts, peak, hits, lat
 
@@ -683,7 +927,7 @@ def decode_alone(vae, lat, dev):
     return ok
 
 
-def slice_phase(dev, steps: int, requests: int):
+def slice_phase(dev, steps: int, requests: int, t5):
     from nunchaku_tpu_torch.caching.fbcache import make_hit_schedule
     from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
@@ -710,14 +954,16 @@ def slice_phase(dev, steps: int, requests: int):
         "turbo": {k: L * dual[k] + Ls * single[k] for k in dual},
     }
     f32_steps = min(3, steps)
-    finite, _, counts_f32, *_ = serve(pipe, cfg, dev, f32_steps, 1, "default (f32 stream)")
+    embeds = embeds_request(cfg, dev)
+    finite, _, counts_f32, *_ = serve(pipe, dev, f32_steps, 1, "default (f32 stream)", embeds)
     ok = finite and check_counts("default", counts_f32, paths["default"], f32_steps)
     model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
-    finite, _, counts_turbo, *_ = serve(pipe, cfg, dev, steps, requests, "turbo (bf16 stream, fused prologue)")
+    finite, _, counts_turbo, *_ = serve(pipe, dev, steps, requests, "turbo (bf16 stream, fused prologue)", embeds)
     ok = ok and finite and check_counts("turbo", counts_turbo, paths["turbo"], steps * requests)
 
-    # bench.py's image path: the double FB cache at a forced hit ratio of
-    # 0.5, then the full FLUX VAE's tiled decode
+    # bench.py's image path: the prompt's T5-XXL encode from token ids, the
+    # double FB cache at a forced hit ratio of 0.5, then the full FLUX VAE's
+    # tiled decode
     t0 = time.perf_counter()
     vae = AutoencoderKL.random_init(seed=0, device=dev)
     vae.enable_tiling()
@@ -728,8 +974,8 @@ def slice_phase(dev, steps: int, requests: int):
     pipe = FluxPipeline(model, vae=vae)
     hits = int(make_hit_schedule(steps, 0.5).sum())
     finite, _, counts_img, _, req_hits, lat = serve(
-        pipe, cfg, dev, steps, requests, "image path (turbo, double_fb 0.5, tiled VAE)", cache="double_fb",
-        cache_hit_ratio=0.5)
+        pipe, dev, steps, requests, "image path (T5-XXL encode, turbo, double_fb 0.5, tiled VAE)",
+        t5_request(cfg, dev, t5), cache="double_fb", cache_hit_ratio=0.5)
     # a hit runs dual block 0 and single block 0; a miss the full forward
     hit_runs = {k: (dual[k] + single[k]) * hits * requests for k in dual}
     ok = ok and finite and req_hits == [hits] * requests and check_counts(
@@ -766,8 +1012,8 @@ def slice_4bit(dev, steps: int, vae, paths):
                 else {"gemm_w4a4_nvfp4": 8 * L + 4 * Ls})
         paths[precision] = gemm | {"gemv_awq": 2 * L + Ls, "flash_fixed": L + Ls}
         label = f"{precision} (f32 stream{', tiled VAE' if with_vae else ''})"
-        finite, _, counts, _, _, _ = serve(FluxPipeline(model, vae=vae if with_vae else None), cfg, dev, nsteps,
-                                           requests, label)
+        finite, _, counts, _, _, _ = serve(FluxPipeline(model, vae=vae if with_vae else None), dev, nsteps,
+                                           requests, label, embeds_request(cfg, dev))
         extra = {"flash_online": VAE_TILES * requests} if with_vae else {}
         counts_ok = check_counts(precision, counts, paths[precision], nsteps * requests, extra)
         ok = ok and finite and counts_ok
@@ -775,6 +1021,94 @@ def slice_4bit(dev, steps: int, vae, paths):
         del model
         torch.cuda.empty_cache()
     return ok, total
+
+
+def text_encoders(dev):
+    """T5-XXL with AWQ W4A16 linears and CLIP-L from random weights made on
+    the card from seeds (the JAX random_init distributions)."""
+    from nunchaku_tpu_torch.models.text_encoders.clip import CLIPTextModel
+    from nunchaku_tpu_torch.models.text_encoders.t5 import T5EncoderModel
+
+    t0 = time.perf_counter()
+    t5 = T5EncoderModel.random_init(**T5_XXL, seed=20, device=dev)
+    clip = CLIPTextModel.random_init(**CLIP_L, seed=21, device=dev)
+    torch.cuda.synchronize()
+    gib = [sum(b.numel() * b.element_size() for b in m.buffers()) / 2**30 for m in (t5, clip)]
+    log(f"[encoders] T5-XXL AWQ W4A16 (d_model 4096, d_ff 10240, 64 heads of 64, 24 layers) {gib[0]:.2f} GiB, "
+        f"CLIP-L (d 768, 12 heads, 12 layers, vocab 49408, 77 positions) {gib[1]:.2f} GiB; random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    secs = []
+    for model, tokenize, n in ((t5, stand_in_tokenizer(T5_XXL["vocab"], T5_EOS), S_TXT),
+                               (clip, stand_in_tokenizer(CLIP_L["vocab"], CLIP_EOS), CLIP_L["max_pos"])):
+        ids = tokenize([PROMPTS[0]], n).to(dev).long()
+        with torch.no_grad():
+            model(ids)  # first use
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                model(ids)
+            torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t0) / 3)
+    log(f"[encoders] one encode, warm, mean of 3: T5-XXL of {S_TXT} ids {secs[0]:.4f} s, CLIP-L of "
+        f"{CLIP_L['max_pos']} ids {secs[1]:.4f} s")
+    return t5, clip
+
+
+def highres_phase(dev, steps: int, t5, clip):
+    """FLUX.1-dev int4 at full width and depth (default configuration) under
+    set_attention_impl("blocksparse", sparsity_ratio=0.5) at 2048x2048 from
+    prompts: the stand-in tokenizers, T5-XXL AWQ and CLIP-L inside each
+    request, block-sparse attention (5 of 11 kv blocks), the tiled FLUX VAE
+    (25 tiles). 2 requests of min(4, steps) steps to images; then 1-step
+    requests to latents: block-sparse again, under fixed_softmax = False
+    (bs_online), and dense (set_attention_impl("flashattn2")), the step
+    times side by side. Each request runs untimed once first; launch counts
+    exact per forward. -> (ok, counts summed, per-forward counts)."""
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    cfg = FluxConfig(precision="int4")
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    t0 = time.perf_counter()
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    vae = AutoencoderKL.random_init(seed=2, device=dev)
+    vae.enable_tiling()
+    torch.cuda.synchronize()
+    log(f"[highres] FLUX.1-dev int4 ({L} dual + {Ls} single blocks) and the FLUX VAE, random init "
+        f"{time.perf_counter() - t0:.1f} s; 2048x2048: {HR_S - S_TXT} image + {S_TXT} text tokens, block-sparse "
+        f"attention at {HR_SPARSITY}")
+    encoders = dict(text_encoder=clip, text_encoder_2=t5, tokenizer=stand_in_tokenizer(CLIP_L["vocab"], CLIP_EOS),
+                    tokenizer_2=stand_in_tokenizer(T5_XXL["vocab"], T5_EOS))
+    gemms = {"gemm_w4a4_int4": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned": 2 * L + Ls, "gemv_awq": 2 * L + Ls}
+    paths = {"highres": gemms | {"bs_fixed": L + Ls}, "highres online": gemms | {"bs_online": L + Ls},
+             "highres dense": gemms | {"flash_fixed": L + Ls}}
+    model.set_attention_impl("blocksparse", sparsity_ratio=HR_SPARSITY)
+    n = min(4, steps)
+    finite, req_s, counts, *_ = serve(FluxPipeline(model, vae=vae, **encoders), dev, n, 2,
+                                      f"int4 blocksparse {HR_SPARSITY}, T5-XXL + CLIP-L, tiled VAE", prompt_request,
+                                      size=HR_SIZE, tag="highres")
+    ok = finite and check_counts("highres", counts, paths["highres"], 2 * n, {"flash_online": HR_TILES * 2})
+    total = dict(counts)
+    pipe = FluxPipeline(model, **encoders)
+    step_s = {}
+    for label, impl, fixed in (("highres", "blocksparse", True), ("highres online", "blocksparse", False),
+                               ("highres dense", "flashattn2", True)):
+        model.set_attention_impl(impl, sparsity_ratio=HR_SPARSITY if impl == "blocksparse" else 0.0)
+        for block in [*model.transformer_blocks, *model.single_transformer_blocks]:
+            block.attn.fixed_softmax = fixed
+        finite, req_s, counts, *_ = serve(pipe, dev, 1, 1, f"{label}: 1 step to latents", prompt_request,
+                                          size=HR_SIZE, tag="highres")
+        ok = finite and check_counts(label, counts, paths[label], 1) and ok
+        step_s[label] = req_s[0]
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    log(f"[highres] one 2048px request of 1 step (encoders + 1 forward, no decode): block-sparse "
+        f"{step_s['highres']:.4f} s, block-sparse online softmax {step_s['highres online']:.4f} s, dense "
+        f"{step_s['highres dense']:.4f} s; sparse saves {step_s['highres dense'] - step_s['highres']:.4f} s a step "
+        f"({100 * (1 - step_s['highres'] / step_s['highres dense']):.1f}%)")
+    del pipe, model, vae
+    torch.cuda.empty_cache()
+    return ok, total, paths
 
 
 def qwen_phase(dev, steps: int):
@@ -896,6 +1230,31 @@ def qwen_bounds(cfg, b=1) -> dict:
     }
 
 
+def highres_bounds() -> dict:
+    """Least time per 2048px forward of the int4 model for each kernel it
+    runs: the W4A4 GEMMs and the GEMV at 16384 image and 512 text rows, the
+    attention of each block with every query block taking 5 full kv blocks
+    of 1536 (S 16896 is 11 blocks exactly, so the selection does not move
+    the bound; dense: all 11)."""
+    L, Ls = 19, 38
+    img, txt = HR_S - S_TXT, S_TXT
+
+    def signed(m):
+        return sum(w4a4_bound(m, DIM, n, 64)[0] for n in (3 * DIM, DIM, HID))
+
+    kk_cols = max(1, int(11 * (1 - HR_SPARSITY))) * 1536
+    att = bound(4 * HR_S * HEADS * HD * 2, bf16_ops=4 * HR_S * kk_cols * HD * HEADS)[0]
+    return {
+        "gemm_w4a4_int4": L * (signed(img) + signed(txt)) + Ls * signed(HR_S),
+        "gemm_w4a4_int4_unsigned": L * sum(w4a4_bound(m, HID, DIM, 64)[0] for m in (img, txt))
+        + Ls * w4a4_bound(HR_S, HID, DIM, 64)[0],
+        "gemv_awq": 2 * L * gemv_bound(1, DIM, 6 * DIM)[0] + Ls * gemv_bound(1, DIM, 3 * DIM)[0],
+        "bs_fixed": (L + Ls) * att,
+        "bs_online": (L + Ls) * att,
+        "flash_fixed": (L + Ls) * bound(4 * HR_S * HEADS * HD * 2, bf16_ops=4 * HR_S * HR_S * HD * HEADS)[0],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=50,
@@ -929,9 +1288,13 @@ def main(argv=None) -> int:
     rows, failed = kernel_phase(dev)
     ref_ok = reference_phase(dev)
     reset_launch_counts()
-    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2)
+    t5, clip = text_encoders(dev)
+    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, t5=t5)
+    hr_ok, hcounts, hpaths = highres_phase(dev, args.steps, t5, clip)
+    del t5, clip
+    torch.cuda.empty_cache()
     qwen_ok, qcounts, qpaths, qcfg = qwen_phase(dev, args.steps)
-    counts = {k: counts[k] + qcounts[k] for k in counts}
+    counts = {k: counts[k] + qcounts[k] + hcounts[k] for k in counts}
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
@@ -947,12 +1310,17 @@ def main(argv=None) -> int:
 
     log(f"[bound] flash_online: launches per 1024px image tiled {VAE_TILES}, whole 1; least time "
         f"{VAE_TILES * online(VAE_TILE_S):.3f} ms per tiled image, {online(VAE_WHOLE_S):.3f} ms per whole image")
+    for name, b in highres_bounds().items():
+        per = {p: f[name] for p, f in hpaths.items() if f.get(name)}
+        log(f"[bound] {name}: launches per 2048px forward {per}, least time {b:.3f} ms per forward")
     ran =[name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
+    ok = ok and hr_ok
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {'PASS' if ref_ok else 'FAIL'}, "
-        f"slice {'PASS' if slice_ok else 'FAIL'}, qwen {'PASS' if qwen_ok else 'FAIL'}")
+        f"slice {'PASS' if slice_ok else 'FAIL'}, highres {'PASS' if hr_ok else 'FAIL'}, "
+        f"qwen {'PASS' if qwen_ok else 'FAIL'}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -7,7 +7,8 @@ leaves carry a leading layer axis -- and builds the port's per-layer
 modules from them. Static attributes (precision, the
 int4 fc2 layers' unsigned activations, head dim) come from the config, and
 every linear's shape is checked against the config's dims.
-``vae_from_jax_params`` does the same for the VAE decoder.
+``vae_from_jax_params`` does the same for the VAE decoder, and
+``t5_from_jax_params`` / ``clip_from_jax_params`` for the text encoders.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, Resne
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
 from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
+from .models.text_encoders.clip import CLIPBlock, CLIPTextModel
+from .models.text_encoders.t5 import T5FF, T5Attention, T5Block, T5EncoderModel
 from .models.transformer_flux import (
     FluxConfig,
     FluxSingleTransformerBlock,
@@ -220,3 +223,46 @@ def vae_from_jax_params(params: dict, *, latent_channels=16, block_out_channels=
     if unused:
         raise KeyError(f"parameters the port does not take: {unused[:8]}")
     return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder)
+
+
+def t5_from_jax_params(params: dict, *, heads: int, d_kv: int, device="cuda") -> T5EncoderModel:
+    """The port's T5 encoder from the JAX ``T5EncoderModel.named_parameters()``
+    (``blocks.{i}.*``, ``embed_tokens``, ``final_norm.weight``): a linear is
+    AWQ W4A16 where it has a ``qweight``, else plain bf16."""
+    P = _Params(params, device)
+    layers = 1 + max(int(n.split(".")[1]) for n in params if n.startswith("blocks."))
+
+    def lin(prefix):
+        if prefix + ".qweight" in params:
+            return AWQW4A16Linear(P.get(prefix + ".qweight"), P.get(prefix + ".wscales"), P.get(prefix + ".wzeros"),
+                                  P.opt(prefix + ".bias"))
+        return P.linear(prefix)
+
+    blocks = []
+    for i in range(layers):
+        a, f = f"blocks.{i}.attn", f"blocks.{i}.ff"
+        attn = T5Attention(lin(a + ".q"), lin(a + ".k"), lin(a + ".v"), lin(a + ".o"), heads=heads, d_kv=d_kv,
+                           rel_bias=P.opt(a + ".rel_bias"))
+        blocks.append(T5Block(P.get(f"blocks.{i}.ln1.weight"), attn, P.get(f"blocks.{i}.ln2.weight"),
+                              T5FF(lin(f + ".wi_0"), lin(f + ".wi_1"), lin(f + ".wo"))))
+    if blocks[0].attn.rel_bias is None:
+        raise KeyError("blocks.0.attn.rel_bias: block 0 holds the shared position bias")
+    model = T5EncoderModel(P.get("embed_tokens"), blocks, P.get("final_norm.weight"), heads=heads, d_kv=d_kv)
+    P.done()
+    return model
+
+
+def clip_from_jax_params(params: dict, *, heads: int, eos_token_id: int = 2, device="cuda") -> CLIPTextModel:
+    """The port's CLIP text encoder from the JAX ``CLIPTextModel.named_parameters()``."""
+    P = _Params(params, device)
+    layers = 1 + max(int(n.split(".")[1]) for n in params if n.startswith("blocks."))
+    blocks = []
+    for i in range(layers):
+        p = f"blocks.{i}."
+        blocks.append(CLIPBlock(P.get(p + "ln1_w"), P.get(p + "ln1_b"), *[P.linear(p + n) for n in "qkvo"],
+                                P.get(p + "ln2_w"), P.get(p + "ln2_b"), P.linear(p + "fc1"), P.linear(p + "fc2"),
+                                heads=heads))
+    model = CLIPTextModel(P.get("token_embedding"), P.get("position_embedding"), blocks, P.get("final_ln_w"),
+                          P.get("final_ln_b"), eos_token_id=eos_token_id)
+    P.done()
+    return model

@@ -32,7 +32,22 @@
 // exp2(-1e30), exactly 0, so it adds nothing to the row sum or to p @ v. The text keys
 // come first in the joint sequence, so masked columns sit in the first kv
 // tiles, which the loop treats like any other.
+//
+// The block-sparse form (IDX = true) replaces _bs_kernel_fixed (:1109,
+// launched by block_sparse_attention :1241 with fixed_softmax=True): the same
+// arithmetic (logits times an f32 scale_log2, 1 when q is prescaled), but each
+// query row attends only to the kv blocks of bkv columns that select_blocks
+// picked for its query block of bq rows. The ids, (B*H, Sq/bq, kk) int32
+// ascending, stay on the card (the TPU kernel's scalar prefetch); a block reads
+// the kk ids of its own 128 rows (bq is a multiple of 128, so the tile lies in
+// one query block) and walks their 64-column sub-tiles in order. Only the
+// largest id can be the ragged tail block (ids ascend): its sub-tiles past Skv
+// are not visited, and its columns past Skv inside a visited one are masked as
+// in the dense loop. At FLUX.1-dev 2048px and sparsity 0.5 a row sees 5 of the
+// 11 kv blocks of 1536, so the bound is 5/11 of dense attention's; each
+// visited tile costs what a dense one does.
 #include "mma.cuh"
+#include "sparse_walk.cuh"
 
 namespace {
 
@@ -53,18 +68,18 @@ __device__ __forceinline__ void load_kv(Stage& st, const bf16* kp, const bf16* v
   for (int c = threadIdx.x; c < BKV * (D / 8); c += THREADS) {
     const int r = c / (D / 8), cc = c % (D / 8);
     const int row = kv0 + r;
-    const bool ok = row < Skv;
+    const bool ok = static_cast<unsigned>(row) < static_cast<unsigned>(Skv);
     const size_t off = static_cast<size_t>(ok ? row : 0) * D + cc * 8;
     cp_async16(&st.k[r][cc * 8], kp + off, ok);
     cp_async16(&st.v[r][cc * 8], vp + off, ok);
   }
 }
 
-template <bool MASK>
+template <bool MASK, bool IDX>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_fixed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ mask,
-                       bf16* __restrict__ out, int H, int Sq, int Skv) {
+                       bf16* __restrict__ out, int H, int Sq, int Skv, int bshd, Sparse sp) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
@@ -76,6 +91,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bf16* kp = k + static_cast<size_t>(bh) * Skv * D;
   const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
   const float* mp = MASK ? mask + static_cast<size_t>(b) * Skv : nullptr;
+  const KvWalk<IDX, BKV> walk(sp, bh, q0, Skv);
 
   bf16(*qs)[LDK] = reinterpret_cast<bf16(*)[LDK]>(&sm.st[1]);
   for (int c = threadIdx.x; c < BQ * (D / 8); c += THREADS) {
@@ -85,7 +101,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     cp_async16(&qs[r][cc * 8], qp + static_cast<size_t>(ok ? row : 0) * D + cc * 8, ok);
   }
   cp_async_commit();
-  load_kv(sm.st[0], kp, vp, 0, Skv);
+  load_kv(sm.st[0], kp, vp, walk.start(0), Skv);
   cp_async_commit();
   cp_async_wait<1>();
   __syncthreads();
@@ -103,20 +119,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float l0 = 0.f, l1 = 0.f;  // f32 row sums of p for rows g and g + 8
 
-  const int nt = (Skv + BKV - 1) / BKV;
+  const int nt = walk.nt;
   for (int t = 0; t < nt; ++t) {
-    if (t + 1 < nt) load_kv(sm.st[(t + 1) & 1], kp, vp, (t + 1) * BKV, Skv);
+    if (t + 1 < nt) load_kv(sm.st[(t + 1) & 1], kp, vp, walk.start(t + 1), Skv);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
     const Stage& st = sm.st[t & 1];
+    const int kv0 = walk.start(t);
 
     float s[BKV / 8][4];  // logits, then p: kv tile j, (row g | g+8) x (column pair t4)
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j) {
       float m0 = 0.f, m1 = 0.f;  // the bias of columns col, col + 1 (0 past Skv: masked below)
       if (MASK) {
-        const int col = t * BKV + j * 8 + t4 * 2;
+        const int col = kv0 + j * 8 + t4 * 2;
         if (col < Skv) m0 = __ldg(mp + col);
         if (col + 1 < Skv) m1 = __ldg(mp + col + 1);
       }
@@ -139,8 +156,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < BKV / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = t * BKV + j * 8 + t4 * 2 + (e & 1);
-        const float x = col < Skv ? s[j][e] : NEG_INF;
+        const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
+        const float x = static_cast<unsigned>(col) < static_cast<unsigned>(Skv)
+                            ? (IDX ? __fmul_rn(s[j][e], sp.scale_log2) : s[j][e])
+                            : NEG_INF;
         const float p = exp2f(fminf(x, CAP) - SHIFT);
         s[j][e] = p;
         if (e < 2) l0 += p; else l1 += p;
@@ -170,8 +189,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  bf16* dst0 = out + (static_cast<size_t>(b) * Sq + row0) * H * D + static_cast<size_t>(h) * D;
-  bf16* dst1 = dst0 + static_cast<size_t>(8) * H * D;
+  // (B, Sq, H*D): row stride H*D from (b, 0, h); (B, H, Sq, D): stride D from (b, h, 0)
+  const size_t ld = bshd ? static_cast<size_t>(H) * D : D;
+  bf16* base = out + (bshd ? (static_cast<size_t>(b) * Sq * H + h) * D : static_cast<size_t>(bh) * Sq * D);
+  bf16* dst0 = base + row0 * ld;
+  bf16* dst1 = dst0 + 8 * ld;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
     const int d = n * 8 + t4 * 2;
@@ -184,21 +206,21 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <bool MASK>
+template <bool MASK, bool IDX>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
-           int Sq, int Skv, cudaStream_t stream) {
+           int Sq, int Skv, int bshd, const Sparse& sp, cudaStream_t stream) {
   static bool configured = false;
   const int smem = static_cast<int>(sizeof(Smem));
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fixed_kernel<MASK>,
+    cudaError_t e = cudaFuncSetAttribute(flash_fixed_kernel<MASK, IDX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fixed_kernel<MASK><<<grid, THREADS, smem, stream>>>(
+  flash_fixed_kernel<MASK, IDX><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv);
+      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv, bshd, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -209,6 +231,19 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 extern "C" int nt_flash_fixed(const void* q, const void* k, const void* v, const void* mask, void* out,
                               int B, int H, int Sq, int Skv, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return mask ? launch<true>(q, k, v, mask, out, B, H, Sq, Skv, s)
-              : launch<false>(q, k, v, mask, out, B, H, Sq, Skv, s);
+  const Sparse dense{nullptr, 0, 0, 0, 0, 1.f};
+  return mask ? launch<true, false>(q, k, v, mask, out, B, H, Sq, Skv, 1, dense, s)
+              : launch<false, false>(q, k, v, mask, out, B, H, Sq, Skv, 1, dense, s);
+}
+
+// Block-sparse: q (B, H, Sq, 128), k/v (B, H, Skv, 128) bf16, idx (B*H, nq,
+// kk) int32 kv-block ids (nq = ceil(Sq / bq); bq, bkv multiples of 128),
+// logits times scale_log2 -> out (B, Sq, H*128) when bshd, else (B, H, Sq, 128).
+extern "C" int nt_bs_fixed(const void* q, const void* k, const void* v, const void* idx, void* out, int B,
+                           int H, int Sq, int Skv, int nq, int kk, int bq, int bkv, int bshd,
+                           float scale_log2, void* stream) {
+  if (bq % BQ || bkv % BKV || kk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Sparse sp{static_cast<const int*>(idx), nq, kk, bq, bkv, scale_log2};
+  return launch<false, true>(q, k, v, nullptr, out, B, H, Sq, Skv, bshd, sp,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -41,7 +41,19 @@
 // l and acc by exp2(-1e30 - m) = 0, and from there on a masked column's p
 // is exp2(-1e30) = 0. Every row of the joint sequence has valid keys (image
 // keys are never masked), so the result is that of the unmasked keys alone.
+//
+// The block-sparse form (IDX = true, built at D = 128) replaces _bs_kernel
+// (:1153, launched by block_sparse_attention :1241 with fixed_softmax=False):
+// each query row attends only to the kv blocks that select_blocks picked for
+// its query block, read from a (B*H, Sq/bq, kk) int32 id tensor on the card
+// (sparse_walk.cuh); the block walks the selected blocks' 32-column tiles in
+// ascending order and rescales once per tile, where the TPU kernel rescales
+// once per 1536-column block (the plain twin takes this kernel's tiles). The
+// first tile of a row always holds valid columns (a block starts below Skv),
+// so the running max starts from a real logit; the tail block's tiles past
+// Skv are not visited.
 #include "mma.cuh"
+#include "sparse_walk.cuh"
 
 namespace {
 
@@ -65,7 +77,7 @@ __device__ __forceinline__ void load_rows(bf16 (*dst)[D + 8], const bf16* src, i
   for (int c = threadIdx.x; c < rows * (D / 8); c += THREADS) {
     const int r = c / (D / 8), cc = c % (D / 8);
     const int row = row0 + r;
-    const bool ok = row < nrows;
+    const bool ok = static_cast<unsigned>(row) < static_cast<unsigned>(nrows);
     cp_async16(&dst[r][cc * 8], src + static_cast<size_t>(ok ? row : 0) * D + cc * 8, ok);
   }
 }
@@ -83,12 +95,12 @@ __device__ __forceinline__ float bf16_exp2(float x) {  // bf16(exp2(bf16(x)))
   return bf2f(__float2bfloat16_rn(exp2f(bf2f(__float2bfloat16_rn(x)))));
 }
 
-template <int D, bool MASK>
+template <int D, bool MASK, bool IDX>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const float* __restrict__ mask,
                         bf16* __restrict__ out, int H, int Sq, int Skv, float scale_log2,
-                        int bshd) {
+                        int bshd, Sparse sp) {
   constexpr int DH = D / 2, NT = BKV / 8;
   using Smem = OnlineSmem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -103,10 +115,11 @@ __global__ void __launch_bounds__(THREADS, 1)
   const bf16* kp = k + static_cast<size_t>(bh) * Skv * D;
   const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
   const float* mp = MASK ? mask + static_cast<size_t>(b) * Skv : nullptr;
+  const KvWalk<IDX, BKV> walk(sp, bh, q0, Skv);
 
   load_rows<D>(sm.q, qp, q0, BQ, Sq);
-  load_rows<D>(sm.k[0], kp, 0, BKV, Skv);
-  load_rows<D>(sm.v[0], vp, 0, BKV, Skv);
+  load_rows<D>(sm.k[0], kp, walk.start(0), BKV, Skv);
+  load_rows<D>(sm.v[0], vp, walk.start(0), BKV, Skv);
   cp_async_commit();
 
   float o[DH / 8][4];
@@ -117,16 +130,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* mine = &sm.xs[warp][0][0];
   const float* theirs = &sm.xs[warp ^ 4][0][0];
 
-  const int nt = (Skv + BKV - 1) / BKV;
+  const int nt = walk.nt;
   for (int t = 0; t < nt; ++t) {
     const int st = t & 1;
     if (t + 1 < nt) {
-      load_rows<D>(sm.k[st ^ 1], kp, (t + 1) * BKV, BKV, Skv);
-      load_rows<D>(sm.v[st ^ 1], vp, (t + 1) * BKV, BKV, Skv);
+      load_rows<D>(sm.k[st ^ 1], kp, walk.start(t + 1), BKV, Skv);
+      load_rows<D>(sm.v[st ^ 1], vp, walk.start(t + 1), BKV, Skv);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    const int kv0 = walk.start(t);
 
     float mk[NT][2] = {};  // the bias of this thread's columns (0 past Skv: masked below)
     if (MASK) {
@@ -134,7 +148,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const int col = t * BKV + j * 8 + t4 * 2 + c;
+          const int col = kv0 + j * 8 + t4 * 2 + c;
           if (col < Skv) mk[j][c] = __ldg(mp + col);
         }
     }
@@ -169,10 +183,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int col = t * BKV + j * 8 + t4 * 2 + (e & 1);
+        const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
         float x = __fmul_rn(__fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]), scale_log2);
         if (MASK) x = __fadd_rn(x, mk[j][e & 1]);
-        s[j][e] = col < Skv ? x : NEG_INF;
+        s[j][e] = static_cast<unsigned>(col) < static_cast<unsigned>(Skv) ? x : NEG_INF;
         if (e < 2) mx0 = fmaxf(mx0, s[j][e]); else mx1 = fmaxf(mx1, s[j][e]);
       }
     }
@@ -242,22 +256,22 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, bool MASK>
+template <int D, bool MASK, bool IDX>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
-           int Sq, int Skv, float scale_log2, int bshd, cudaStream_t stream) {
+           int Sq, int Skv, float scale_log2, int bshd, const Sparse& sp, cudaStream_t stream) {
   static_assert(sizeof(OnlineSmem<D>) <= 232448, "shared memory over the H100's 227 KB");
   static bool configured = false;
   const int smem = static_cast<int>(sizeof(OnlineSmem<D>));
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D, MASK>,
+    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D, MASK, IDX>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_online_kernel<D, MASK><<<grid, THREADS, smem, stream>>>(
+  flash_online_kernel<D, MASK, IDX><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv, scale_log2, bshd);
+      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv, scale_log2, bshd, sp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -270,14 +284,27 @@ extern "C" int nt_flash_online(const void* q, const void* k, const void* v, cons
                                int B, int H, int Sq, int Skv, int D, int bshd, float scale_log2,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Sparse dense{nullptr, 0, 0, 0, 0, 1.f};
   if (mask) {
     if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<128, true>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
+    return launch<128, true, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
   }
   switch (D) {
-    case 128: return launch<128, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
-    case 256: return launch<256, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
-    case 512: return launch<512, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, s);
+    case 128: return launch<128, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
+    case 256: return launch<256, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
+    case 512: return launch<512, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Block-sparse, D = 128: q (B, H, Sq, 128), k/v (B, H, Skv, 128) bf16, idx
+// (B*H, nq, kk) int32 kv-block ids (nq = ceil(Sq / bq); bq, bkv multiples of
+// 128) -> out (B, Sq, H*128) when bshd, else (B, H, Sq, 128).
+extern "C" int nt_bs_online(const void* q, const void* k, const void* v, const void* idx, void* out, int B,
+                            int H, int Sq, int Skv, int nq, int kk, int bq, int bkv, int bshd,
+                            float scale_log2, void* stream) {
+  if (bq % BQ || bkv % BKV || kk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Sparse sp{static_cast<const int*>(idx), nq, kk, bq, bkv, scale_log2};
+  return launch<128, false, true>(q, k, v, nullptr, out, B, H, Sq, Skv, scale_log2, bshd, sp,
+                                  static_cast<cudaStream_t>(stream));
 }

@@ -9,7 +9,10 @@ projections' low-rank terms inside it and the dual block's txt and img
 streams in one joint buffer), both ending in flash attention with (B, S,
 H*D) output and an optional (B, S_kv) kv mask (Qwen-Image's padded
 prompts): fixed-shift, or online on the unfused branch when
-``fixed_softmax`` is False (JAX ``_attend`` :371); and ``FeedForward`` /
+``fixed_softmax`` is False (JAX ``_attend`` :371), or, with no kv mask and
+``sparsity_ratio > 0`` (``set_attention_impl("blocksparse")``), block-sparse
+attention in the same softmax form (the fused prologue then stays off, as in
+JAX :424-431); and ``FeedForward`` /
 ``gelu_mlp`` (:527-768): on the int8 / w4a8 chain route fc1's GEMM emits
 fc2's int8 activations through the GELU -> requantize epilogue and fc2
 consumes their grouped scales, optionally fed by the LN + modulate +
@@ -26,7 +29,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.attention import KERNEL_HEAD_DIM, LOG2E, flash_attention, flash_attention_online, qkv_rope_producer
+from ..ops.attention import (
+    KERNEL_HEAD_DIM,
+    LOG2E,
+    block_sparse_attention,
+    flash_attention,
+    flash_attention_online,
+    qkv_rope_producer,
+)
 from ..ops.gemm import dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant
 from ..ops.quantize import ln_mod_quant_int8, rsmooth_of
 from ..ops.reference import gelu_jax, layer_norm, rmsnorm
@@ -120,6 +130,9 @@ class FluxAttention(nn.Module):
         # the fixed-shift softmax; False takes the online kernel on the
         # unfused branch (the fused one always takes the fixed shift, as in JAX)
         self.fixed_softmax = True
+        # > 0: block-sparse attention when there is no kv mask (set by
+        # FluxTransformer2DModel.set_attention_impl)
+        self.sparsity_ratio = 0.0
 
     @classmethod
     def random_init(cls, gen, dim, heads, head_dim, joint=True, rank=32, precision="w4a8",
@@ -150,8 +163,10 @@ class FluxAttention(nn.Module):
         kernel; with ``mods`` the qkv GEMMs then skip their low-rank
         epilogue and the producer adds it. A rope table in the other layout
         than the weights' raises. ``kv_mask``: (B, S_txt + S_img) validity of
-        the joint keys (bool, True = attend), passed to flash."""
-        if self.prep_fused:
+        the joint keys (bool, True = attend), passed to flash. Block-sparse
+        attention (``sparsity_ratio > 0``) runs on the unfused branch only:
+        after :func:`permute_qk_halfsplit` it raises, as in JAX."""
+        if self.prep_fused and self.sparsity_ratio == 0.0:
             if not isinstance(rot, tuple):
                 raise ValueError("the q/k weights are in half-split order (permute_qk_halfsplit): "
                                  "rot must be the (cos, sin) pair of rope_table_halfsplit")
@@ -164,7 +179,7 @@ class FluxAttention(nn.Module):
                                        None if mods is None else mods[1], kv_mask)
         if isinstance(rot, tuple):
             raise ValueError("the half-split (cos, sin) rope table needs the fused prologue "
-                             "(permute_qk_halfsplit)")
+                             "(permute_qk_halfsplit), which runs with dense attention only")
         qkv = self.to_qkv(hidden) if mods is None else self.to_qkv.forward_modulated(hidden, *mods[0])
         prescale = LOG2E / math.sqrt(self.head_dim)
         if encoder_hidden is None:
@@ -185,8 +200,12 @@ class FluxAttention(nn.Module):
         return self.to_out(img_o), self.to_add_out(txt_o)
 
     def _attend(self, q, k, v, kv_mask):
-        """Prescaled q -> (B, S, H*D): the fixed-shift kernel, or the online
-        one when ``fixed_softmax`` is False."""
+        """Prescaled q -> (B, S, H*D): block-sparse attention when there is
+        no kv mask and ``sparsity_ratio > 0``, else flash; the fixed-shift
+        form, or the online one when ``fixed_softmax`` is False."""
+        if kv_mask is None and self.sparsity_ratio > 0.0:
+            return block_sparse_attention(q, k, v, sparsity_ratio=self.sparsity_ratio, scale=1.0, out_bshd=True,
+                                          fixed_softmax=self.fixed_softmax)
         if self.fixed_softmax:
             return flash_attention(q, k, v, kv_mask)
         return flash_attention_online(q, k, v, scale=1.0, kv_mask=kv_mask, out_bshd=True)

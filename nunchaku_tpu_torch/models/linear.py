@@ -42,10 +42,10 @@ class Linear(nn.Module):
         self.register_buffer("bias", bias)
 
     @classmethod
-    def random_init(cls, gen, in_features, out_features, device="cuda"):
+    def random_init(cls, gen, in_features, out_features, bias=True, device="cuda"):
         std = 1.0 / math.sqrt(in_features)
         w = _randn((in_features, out_features), gen, device, std).to(torch.bfloat16)
-        return cls(w, _randn((out_features,), gen, device, 0.02).to(torch.bfloat16))
+        return cls(w, _randn((out_features,), gen, device, 0.02).to(torch.bfloat16) if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = bf16_matmul(x, self.weight)
@@ -190,15 +190,16 @@ class AWQW4A16Linear(nn.Module):
         self.out_features = qweight.shape[1]
 
     @classmethod
-    def random_init(cls, gen, in_features, out_features, device="cuda"):
-        """The distributions of the JAX ``random_init`` (linear.py:607)."""
+    def random_init(cls, gen, in_features, out_features, bias=True, device="cuda"):
+        """The distributions of the JAX ``random_init`` (linear.py:607);
+        ``bias=False`` for T5's linears."""
         std = 1.0 / math.sqrt(in_features)
         groups = in_features // GROUP_INT4
         qw = torch.randint(-128, 128, (in_features // 2, out_features), dtype=torch.int8, generator=gen,
                            device=device)
         ws = (_randn((groups, out_features), gen, device).abs() * std / 8).to(torch.bfloat16)
         wz = _randn((groups, out_features), gen, device, std).to(torch.bfloat16)
-        b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16)
+        b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16) if bias else None
         return cls(qw, ws, wz, b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

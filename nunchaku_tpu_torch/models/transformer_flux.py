@@ -6,7 +6,9 @@ Counterpart of ``nunchaku_tpu/models/transformers/transformer_flux.py``:
 ``head``, without ControlNet, at the precisions w4a8, int8, int4 and nvfp4,
 in two configurations:
 
-* the default: an f32 residual stream and the unfused attention prologue;
+* the default: an f32 residual stream and the unfused attention prologue,
+  with dense or, after ``set_attention_impl("blocksparse", sparsity_ratio=)``,
+  block-sparse attention (FLUX's high-resolution path);
 * the turbo configuration ``bench.py`` serves, after
   ``set_stream_dtype(torch.bfloat16)`` and ``enable_fused_qkv_prep()``: a
   bf16 stream, the qkv/RoPE producer kernel, and for linears that take
@@ -53,7 +55,7 @@ class FluxConfig:
     guidance_embeds: bool = True
     axes_dims_rope: tuple = (16, 56, 56)
     rank: int = 32
-    precision: str = "w4a8"
+    precision: str = "int4"  # the JAX FluxConfig's default (nunchaku's svdq-int4_r32)
 
     @property
     def dim(self) -> int:
@@ -211,6 +213,23 @@ class FluxTransformer2DModel(nn.Module):
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"stream dtype must be float32 or bfloat16, got {dtype}")
         self.stream_dtype = dtype
+        return self
+
+    def set_attention_impl(self, impl: str = "flashattn2", *, sparsity_ratio: float = 0.0) -> "FluxTransformer2DModel":
+        """The attention of every block (JAX :349-372): ``"flashattn2"`` or
+        ``"nunchaku-fp16"``, dense flash; ``"blocksparse"``, block-sparse
+        attention where each query block skips the fraction ``sparsity_ratio``
+        (0 < ratio < 1) of the kv blocks (``ops.attention.select_blocks``)."""
+        if impl in ("flashattn2", "nunchaku-fp16"):
+            ratio = 0.0
+        elif impl == "blocksparse":
+            if not 0.0 < sparsity_ratio < 1.0:
+                raise ValueError("blocksparse needs 0 < sparsity_ratio < 1")
+            ratio = float(sparsity_ratio)
+        else:
+            raise ValueError(f"unknown attention impl: {impl!r}")
+        for block in [*self.transformer_blocks, *self.single_transformer_blocks]:
+            block.attn.sparsity_ratio = ratio
         return self
 
     def enable_fused_qkv_prep(self) -> "FluxTransformer2DModel":

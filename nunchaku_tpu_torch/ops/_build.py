@@ -42,6 +42,8 @@ SIGNATURES = {
     "nt_qkv_rope_producer": [_P] * 10 + [_I] * 6 + [_F, _P],
     "nt_gemm_w4a4": [_P] * 8 + [_I] * 5 + [_P],
     "nt_gemv_awq": [_P] * 7 + [_I] * 3 + [_P],
+    "nt_bs_fixed": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "nt_bs_online": [_P] * 5 + [_I] * 9 + [_F, _P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -19,10 +19,19 @@
   Qwen-Image attention under ``fixed_softmax = False`` (D = 128, (B, S, H*D)
   out, with or without ``kv_mask``).
 
+* :func:`block_sparse_attention` -- the block-sparse forms of both flash
+  kernels (``IDX`` mode of ``csrc/flash_fixed.cu`` and ``csrc/flash_online.cu``),
+  counterpart of ``block_sparse_attention`` (:1241; ``_bs_kernel_fixed``
+  :1109, ``_bs_kernel`` :1153): FLUX's high-resolution attention, each query
+  block attending only to the kv blocks :func:`select_blocks` (:1204) picks
+  by mean-pooled score. The selection is torch ops, as it is XLA ops in JAX,
+  and its ids stay on the card.
+
 ``kv_mask`` is the JAX ``flash_attention``'s: (B, S_kv), bool (True =
 attend) or an f32 additive log2-domain bias. The mask forms of both kernels
 count their launches apart (``flash_fixed_masked``, ``flash_online_masked``
-in :data:`MASKED_COUNTS`).
+in :data:`MASKED_COUNTS`), and so do the block-sparse forms (``bs_fixed``,
+``bs_online`` in :data:`BS_COUNTS`).
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ ONLINE_HEAD_DIMS = (128, 256, 512)  # the online kernel's instantiations
 ONLINE_BKV = 32  # the online kernel's kv tile: its rescale steps
 MASKED_COUNTS = {"flash_fixed_masked": SimpleNamespace(launches=0),
                  "flash_online_masked": SimpleNamespace(launches=0)}
+BS_COUNTS = {"bs_fixed": SimpleNamespace(launches=0), "bs_online": SimpleNamespace(launches=0)}
+POOL_SIZE = 128  # the JAX select_blocks' default window (the reference's mask granularity)
+BS_TILE = 128  # bq and bkv of the block-sparse kernels are multiples of this
 
 
 def kv_bias(kv_mask: torch.Tensor, b: int, skv: int) -> torch.Tensor:
@@ -263,3 +275,173 @@ def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
 
 
 flash_attention_online.launches = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pooled_block_scores(q, k, *, bq: int = POOL_SIZE, bkv: int = POOL_SIZE) -> torch.Tensor:
+    """(B, H, nq, nk) f32 scores of :func:`select_blocks`: each window of
+    ``bq`` query / ``bkv`` key tokens pooled by the f32 mean over its valid
+    tokens, the pooled blocks scored by an f32 batched product."""
+    b, h, _, d = q.shape
+
+    def pool(t, blk):
+        s = t.shape[2]
+        n = -(-s // blk)
+        t = torch.nn.functional.pad(t.float(), (0, 0, 0, n * blk - s)).reshape(b, h, n, blk, d)
+        counts = (s - torch.arange(n, device=t.device) * blk).clamp(1, blk).float()
+        return t.sum(dim=3) / counts[:, None]
+
+    return pool(q, bq) @ pool(k, bkv).transpose(-1, -2)
+
+
+def select_blocks(q, k, sparsity_ratio: float, *, bq: int = POOL_SIZE, bkv: int = POOL_SIZE) -> torch.Tensor:
+    """Pooled-score top-k block selection (JAX ``select_blocks`` :1204).
+
+    q, k: (B, H, S, D) after norm and RoPE (the FLUX route passes its
+    prescaled q, as JAX does). Each query block keeps the top ``kk =
+    max(1, int(nk * (1 - sparsity_ratio)))`` kv blocks by
+    :func:`pooled_block_scores`, sorted ascending -> int32 (B, H, nq, kk) on
+    q's device (no host sync)."""
+    nk = -(-k.shape[2] // bkv)
+    kk = max(1, int(nk * (1.0 - sparsity_ratio)))
+    scores = pooled_block_scores(q, k, bq=bq, bkv=bkv)
+    return torch.topk(scores, kk, dim=-1).indices.sort(dim=-1).values.to(torch.int32)
+
+
+def block_sparse_mask(block_idx, sq: int, skv: int, *, bq: int, bkv: int) -> torch.Tensor:
+    """(B, H, nq, kk) block ids -> the (B, H, Sq, Skv) bool mask they select."""
+    b, h, nq, _ = block_idx.shape
+    allowed = torch.zeros((b, h, nq, -(-skv // bkv)), dtype=torch.bool, device=block_idx.device)
+    allowed.scatter_(-1, block_idx.long(), True)
+    tok_q = torch.arange(sq, device=block_idx.device) // bq
+    tok_k = torch.arange(skv, device=block_idx.device) // bkv
+    return allowed[:, :, tok_q][:, :, :, tok_k]
+
+
+def block_sparse_reference(q, k, v, block_idx, scale=None, *, bq=POOL_SIZE, bkv=POOL_SIZE):
+    """Oracle (JAX ``block_sparse_reference`` :1345): dense f32 attention
+    restricted to the selected kv blocks, (B, H, Sq, D) in q's dtype."""
+    d = q.shape[-1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    mask = block_sparse_mask(block_idx, q.shape[2], k.shape[2], bq=bq, bkv=bkv)
+    s = q.float() @ k.float().transpose(-1, -2)
+    s = torch.where(mask, s * scale, -math.inf)
+    return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
+
+
+def _bs_operands(q, k, v, block_idx, bq, bkv):
+    """The twins' view of the work: q in query blocks (B*H, nq, bq, D) f32
+    (ragged rows zero), and a function giving, for the j-th selected id of
+    every (head, query block), that kv block's k and v (B*H, nq, bkv, D) f32
+    and its valid columns (B*H, nq, 1, bkv)."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    nq, nk = -(-sq // bq), -(-skv // bkv)
+    pad = torch.nn.functional.pad
+    qb = pad(q, (0, 0, 0, nq * bq - sq)).reshape(b * h, nq, bq, d).float()
+    kb = pad(k, (0, 0, 0, nk * bkv - skv)).reshape(b * h, nk, bkv, d)
+    vb = pad(v, (0, 0, 0, nk * bkv - skv)).reshape(b * h, nk, bkv, d)
+    idx = block_idx.reshape(b * h, nq, -1).long()
+    rows = torch.arange(b * h, device=q.device)[:, None]
+
+    def block(j):
+        blk = idx[..., j]
+        cols = blk[..., None] * bkv + torch.arange(bkv, device=q.device)
+        return kb[rows, blk].float(), vb[rows, blk].float(), (cols < skv)[:, :, None, :]
+
+    return qb, block, idx.shape[-1]
+
+
+def _bs_out(o, q, out_bshd):
+    b, h, sq, d = q.shape
+    o = o.reshape(b, h, -1, d)[:, :, :sq].to(q.dtype)
+    return o.transpose(1, 2).reshape(b, sq, h * d) if out_bshd else o
+
+
+def block_sparse_fixed_plain(q, k, v, block_idx, *, scale=None, bq, bkv, out_bshd=False):
+    """The fixed-shift kernel's arithmetic in torch ops, block by selected
+    block: ``s = f32(q . k) * c`` (c from :func:`_logit_scale`), columns past
+    Skv -> -1e30, ``p = exp2(min(s, 116) - 16)``, ``out = sum(bf16(p) @ v) /
+    sum(p)``."""
+    c = _logit_scale(scale, q.shape[-1])
+    qb, block, kk = _bs_operands(q, k, v, block_idx, bq, bkv)
+    l = torch.zeros(qb.shape[:-1] + (1,), dtype=torch.float32, device=q.device)
+    acc = torch.zeros_like(qb)
+    for j in range(kk):
+        kj, vj, ok = block(j)
+        s = torch.where(ok, (qb @ kj.transpose(-1, -2)) * c, NEG_INF)
+        p = torch.exp2(torch.clamp(s, max=FIXED_CAP) - FIXED_SHIFT)
+        l = l + p.sum(dim=-1, keepdim=True)
+        acc = acc + p.to(torch.bfloat16).float() @ vj
+    return _bs_out(acc / l, q, out_bshd)
+
+
+def block_sparse_online_plain(q, k, v, block_idx, *, scale=None, bq, bkv, out_bshd=False, tile=ONLINE_BKV):
+    """The online kernel's recurrence in torch ops over the selected blocks
+    in ascending order, rescaling once per ``tile`` columns (the kernel's
+    32 by default; the TPU kernel rescales once per block). A tile past Skv
+    is all -1e30: it leaves m, l and acc exactly as they were, as the kernel
+    that skips it does."""
+    c = _logit_scale(scale, q.shape[-1])
+    qb, block, kk = _bs_operands(q, k, v, block_idx, bq, bkv)
+    m = torch.full(qb.shape[:-1] + (1,), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qb)
+    for j in range(kk):
+        kj, vj, ok = block(j)
+        for c0 in range(0, bkv, tile):
+            s = torch.where(ok[..., c0:c0 + tile], (qb @ kj[:, :, c0:c0 + tile].transpose(-1, -2)) * c, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp2((s - m_new).to(torch.bfloat16).float()).to(torch.bfloat16).float()
+            alpha = torch.exp2(m - m_new)
+            l = l * alpha + p.sum(dim=-1, keepdim=True)
+            acc = acc * alpha + p @ vj[:, :, c0:c0 + tile]
+            m = m_new
+    return _bs_out(acc / l, q, out_bshd)
+
+
+def block_sparse_attention(q, k, v, *, sparsity_ratio: float, scale=None, block_idx=None, bq: int = 768,
+                           bkv: int = 1536, out_bshd: bool = False, fixed_softmax: bool = False):
+    """Block-sparse non-causal attention over (B, H, S, D) bf16 q, k, v.
+
+    Each query block of ``bq`` tokens attends only to the ``kk`` kv blocks
+    of ``bkv`` tokens that :func:`select_blocks` picks for it (or
+    ``block_idx``, int32 (B, H, nq, kk), consistent with bq and bkv); the
+    softmax normalizes over the selected blocks. ``bq`` and ``bkv`` shrink
+    to the sequence rounded up to 128. ``scale`` None means 1/sqrt(D), 1.0
+    that q already carries scale * log2(e). ``fixed_softmax`` takes the
+    fixed-shift form (count ``bs_fixed``), else the running max
+    (``bs_online``). -> (B, Sq, H*D) with ``out_bshd``, else (B, H, Sq, D).
+    On the card: the kernels, head dim 128 only."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    bq = min(bq, _round_up(sq, BS_TILE))
+    bkv = min(bkv, _round_up(skv, BS_TILE))
+    if block_idx is None:
+        block_idx = select_blocks(q, k, sparsity_ratio, bq=bq, bkv=bkv)
+    if not q.is_cuda:
+        twin = block_sparse_fixed_plain if fixed_softmax else block_sparse_online_plain
+        return twin(q, k, v, block_idx, scale=scale, bq=bq, bkv=bkv, out_bshd=out_bshd)
+    nq = -(-sq // bq)
+    _build.require(d == KERNEL_HEAD_DIM, f"block-sparse kernels are built for head_dim {KERNEL_HEAD_DIM}, got {d}")
+    _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "block-sparse kernels take bf16 q, k, v")
+    _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d) and skv > 0,
+                   "k and v must be (B, H, Skv, D) like q, Skv > 0")
+    _build.require(bq % BS_TILE == 0 and bkv % BS_TILE == 0, f"bq and bkv must be multiples of {BS_TILE}")
+    _build.require(block_idx.dtype == torch.int32 and block_idx.device == q.device and block_idx.dim() == 4
+                   and tuple(block_idx.shape[:3]) == (b, h, nq) and block_idx.shape[3] >= 1,
+                   f"block_idx must be int32 (B, H, nq={nq}, kk) on q's device")
+    qc, kc, vc, idx = q.contiguous(), k.contiguous(), v.contiguous(), block_idx.contiguous()
+    out = torch.empty((b, sq, h * d) if out_bshd else (b, h, sq, d), dtype=torch.bfloat16, device=q.device)
+    name = "bs_fixed" if fixed_softmax else "bs_online"
+    lib = _build.library()
+    fn = lib.nt_bs_fixed if fixed_softmax else lib.nt_bs_online
+    _build.check(fn(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), idx.data_ptr(), out.data_ptr(), b, h, sq, skv,
+                    nq, idx.shape[3], bq, bkv, int(out_bshd), _logit_scale(scale, d),
+                    torch.cuda.current_stream(q.device).cuda_stream), name)
+    BS_COUNTS[name].launches += 1
+    return out

@@ -17,13 +17,18 @@ import math
 import torch
 
 from .attention import (
+    BS_TILE,
     LOG2E,
+    block_sparse_attention,
+    block_sparse_fixed_plain,
+    block_sparse_online_plain,
     flash_attention,
     flash_attention_online,
     flash_attention_online_plain,
     flash_attention_plain,
     qkv_rope_producer,
     qkv_rope_producer_plain,
+    select_blocks,
 )
 from .gemm import (
     chain_tile_n,
@@ -138,6 +143,44 @@ def check_flash_masked(q, k, v, mask, online=False):
     return err, ok, (f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2); rows vs their unmasked keys alone rel "
                      f"{alone:.2e} (tol 1e-2); all-True mask == no mask: {same_ones}; huge v at masked "
                      f"columns changes nothing: {same_big}")
+
+
+def block_sparse_case(b, h, s, sparsity, *, bq=768, bkv=1536, seed=0, device="cuda"):
+    """flash_case's prescaled q, k, v over S tokens, bq / bkv shrunk as
+    block_sparse_attention shrinks them, and select_blocks' ids at
+    ``sparsity`` -> (q, k, v, block_idx, bq, bkv)."""
+    q, k, v = flash_case(b, h, s, s, seed=seed, device=device)
+    bq, bkv = (min(x, -(-s // BS_TILE) * BS_TILE) for x in (bq, bkv))
+    return q, k, v, select_blocks(q, k, sparsity, bq=bq, bkv=bkv), bq, bkv
+
+
+def run_block_sparse(q, k, v, block_idx, bq, bkv, fixed, out_bshd=True, plain=False):
+    """A block-sparse kernel (fixed-shift or online), or its plain twin, as
+    the FLUX route calls it: q prescaled (scale 1.0)."""
+    if plain:
+        twin = block_sparse_fixed_plain if fixed else block_sparse_online_plain
+        return twin(q, k, v, block_idx, scale=1.0, bq=bq, bkv=bkv, out_bshd=out_bshd)
+    return block_sparse_attention(q, k, v, sparsity_ratio=0.0, scale=1.0, block_idx=block_idx, bq=bq, bkv=bkv,
+                                  out_bshd=out_bshd, fixed_softmax=fixed)
+
+
+def check_block_sparse(q, k, v, block_idx, bq, bkv, fixed, out_bshd=True):
+    """bf16 output: max error <= 1e-2 of the plain twin's max |value|
+    (the online twin takes the kernel's 32-column rescale steps). Also
+    exact: with every kv block selected the kernel walks the dense kernel's
+    tiles in the dense kernel's order, so its output equals the dense flash
+    kernel's (same softmax form) bit for bit."""
+    out = run_block_sparse(q, k, v, block_idx, bq, bkv, fixed, out_bshd)
+    ref = run_block_sparse(q, k, v, block_idx, bq, bkv, fixed, out_bshd, plain=True)
+    err, rel = _rel(out, ref)
+    b, h, sq, d = q.shape
+    nk = -(-k.shape[2] // bkv)
+    every = torch.arange(nk, dtype=torch.int32, device=q.device).expand(b, h, -(-sq // bq), nk).contiguous()
+    full = run_block_sparse(q, k, v, every, bq, bkv, fixed, out_bshd=True)
+    dense = flash_attention(q, k, v) if fixed else flash_attention_online(q, k, v, scale=1.0, out_bshd=True)
+    same = torch.equal(full, dense)
+    ok = rel <= 1e-2 and same and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    return err, ok, (f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2); every block selected == dense kernel: {same}")
 
 
 def flash_online_case(b, h, sq, skv, d=512, *, seed=0, device="cuda"):

@@ -1,8 +1,11 @@
 """FLUX text-to-image pipeline (counterpart of
-``nunchaku_tpu/pipeline/pipeline_flux.py`` for ``prompt_embeds``, the
-first-block caches ``"fb"`` and ``"double_fb"``, and an optional VAE).
-The denoise loop is a Python loop of transformer forwards (cached or not)
-and Euler steps; with a VAE the latents are decoded to images.
+``nunchaku_tpu/pipeline/pipeline_flux.py`` for a prompt or its embeddings,
+the first-block caches ``"fb"`` and ``"double_fb"``, and an optional VAE).
+A prompt is encoded from token ids by the T5 (sequence) and CLIP (pooled)
+encoders, each behind a tokenizer: any callable ``tokenizer(prompts,
+max_length) -> (B, max_length) ids``, as in JAX. The denoise loop is a
+Python loop of transformer forwards (cached or not) and Euler steps; with a
+VAE the latents are decoded to images.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from ..caching.fbcache import fb_cached_forward, init_fb_state, make_hit_schedul
 from .scheduler import euler_step, flux_sigmas
 
 CACHES = (None, "fb", "double_fb")
+CLIP_MAX_LENGTH = 77  # CLIP's token positions
 
 
 def pack_latents(lat: torch.Tensor) -> torch.Tensor:
@@ -48,21 +52,46 @@ class FluxPipelineOutput:
 
 
 class FluxPipeline:
-    def __init__(self, transformer, vae=None):
+    def __init__(self, transformer, vae=None, text_encoder=None, text_encoder_2=None, tokenizer=None,
+                 tokenizer_2=None):
+        """``text_encoder``: CLIP (pooled embeddings), ``text_encoder_2``: T5
+        (sequence embeddings), each fed by its tokenizer."""
         self.transformer = transformer
         self.vae = vae
+        self.text_encoder = text_encoder
+        self.text_encoder_2 = text_encoder_2
+        self.tokenizer = tokenizer
+        self.tokenizer_2 = tokenizer_2
 
     @torch.no_grad()
-    def __call__(self, prompt_embeds: torch.Tensor, pooled_prompt_embeds: torch.Tensor,
+    def encode_prompt(self, prompt: str | list[str], max_length: int = 512):
+        """-> (prompt_embeds (B, max_length, d_t5), pooled (B, d_clip)): T5 on
+        ids of ``max_length`` tokens, CLIP on ids of 77 (JAX :151-163)."""
+        if None in (self.text_encoder, self.text_encoder_2, self.tokenizer, self.tokenizer_2):
+            raise ValueError("pipeline was built without text encoders; pass prompt_embeds")
+        if isinstance(prompt, str):
+            prompt = [prompt]
+        t5_ids = torch.as_tensor(self.tokenizer_2(prompt, max_length)).to(self.text_encoder_2.embed_tokens.device)
+        prompt_embeds = self.text_encoder_2(t5_ids.long())
+        clip_ids = torch.as_tensor(self.tokenizer(prompt, CLIP_MAX_LENGTH)).to(self.text_encoder.token_embedding.device)
+        pooled, _ = self.text_encoder(clip_ids.long())
+        return prompt_embeds, pooled
+
+    @torch.no_grad()
+    def __call__(self, prompt: str | list[str] | None = None, prompt_embeds: torch.Tensor | None = None,
+                 pooled_prompt_embeds: torch.Tensor | None = None,
                  height: int = 1024, width: int = 1024, num_inference_steps: int = 50,
                  guidance_scale: float = 3.5, seed: int = 0, latents: torch.Tensor | None = None,
                  cache: str | None = None, cache_hit_ratio: float | None = None,
                  residual_diff_threshold: float = 0.12,
                  single_residual_diff_threshold: float = 0.09) -> FluxPipelineOutput:
-        """``cache``: None, ``"fb"`` or ``"double_fb"`` (first-block caches,
-        thresholds as in the JAX pipeline); ``cache_hit_ratio`` forces a
-        stated hit count (:func:`make_hit_schedule`) instead of threshold
-        decisions."""
+        """``prompt`` is encoded (:meth:`encode_prompt`) unless
+        ``prompt_embeds`` are given. ``cache``: None, ``"fb"`` or
+        ``"double_fb"`` (first-block caches, thresholds as in the JAX
+        pipeline); ``cache_hit_ratio`` forces a stated hit count
+        (:func:`make_hit_schedule`) instead of threshold decisions."""
+        if prompt_embeds is None:
+            prompt_embeds, pooled_prompt_embeds = self.encode_prompt(prompt)
         if cache not in CACHES:
             raise ValueError(f"cache must be one of {CACHES} (TeaCache is not ported), got {cache!r}")
         if cache_hit_ratio is not None and cache is None:

@@ -2,20 +2,26 @@
 spends its time on the card.
 
     python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
-    python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --precision int4 --size 2048 --sparsity 0.5 [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--online-softmax] \
+        [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
 Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
 from random weights (with ``--turbo``: switched to the bf16-stream
 configuration with the fused qkv prologue, as ``bench.py`` serves it), runs
-one warm 1024x1024 transformer forward, then traces one more with
-``torch.profiler`` (CUDA activity). At int4 / nvfp4 the torch glue is also
+one warm 1024x1024 (``--size``) transformer forward, then traces one more
+with ``torch.profiler`` (CUDA activity). ``--sparsity R``: block-sparse
+attention at ratio R (``set_attention_impl("blocksparse")``, FLUX's
+2048px path), its kernels a group of their own (``bs_fixed``). At int4 / nvfp4 the torch glue is also
 split by caller: the tool wraps the activation quantize and the MLP's GELU
 in ``record_function`` ranges (in this process only) and sums the device
 kernels each range launched.
 ``--model qwenimage``: the full Qwen-Image model (60 joint blocks; int4
 unless ``--precision`` says otherwise), one forward at B 1 from a prompt of
 97 valid tokens padded to 211 with its mask (the flash kernel's mask form).
+``--online-softmax``: every block's attention with ``fixed_softmax =
+False`` (the online kernel's forms).
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -27,6 +33,7 @@ the full ``key_averages`` table goes to that file. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
@@ -38,6 +45,9 @@ PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
                 "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_online_kernel",
                 "gemm_w4a4_kernel", "gemv_awq_kernel", "gemv_awq_finish")
+# the block-sparse forms, template instantiations of the flash kernels (IDX = true)
+BS_KERNELS = {r"flash_fixed_kernel<\s*false,\s*true\s*>": "bs_fixed (flash_fixed_kernel, IDX)",
+              r"flash_online_kernel<\s*128,\s*false,\s*true\s*>": "bs_online (flash_online_kernel, IDX)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 
 
@@ -67,6 +77,9 @@ def glue_by_range(prof) -> dict[str, float]:
 
 
 def group_of(name: str) -> str:
+    for pattern, group in BS_KERNELS.items():
+        if re.search(pattern, name):
+            return "port kernel " + group
     for k in PORT_KERNELS:
         if k in name:
             return "port kernel " + k
@@ -171,11 +184,18 @@ def main(argv=None) -> int:
     ap.add_argument("--precision", choices=("w4a8", "int4", "nvfp4"),
                     help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs); "
                          "default w4a8 for FLUX, int4 for Qwen-Image")
+    ap.add_argument("--size", type=int, default=1024, help="FLUX: image side in pixels (2048: 16384 image tokens)")
+    ap.add_argument("--sparsity", type=float, default=0.0,
+                    help="FLUX: block-sparse attention at this ratio (0: dense flash)")
+    ap.add_argument("--online-softmax", action="store_true",
+                    help="every block's attention with fixed_softmax = False (the online kernel)")
     ap.add_argument("--decode", action="store_true", help="profile one 1024px VAE decode instead of a forward")
     ap.add_argument("--whole", action="store_true", help="with --decode: one piece instead of 64-latent tiles")
     args = ap.parse_args(argv)
-    if args.model == "qwenimage" and args.turbo:
-        ap.error("--turbo is a FLUX configuration")
+    if args.model == "qwenimage" and (args.turbo or args.size != 1024 or args.sparsity):
+        ap.error("--turbo, --size and --sparsity are FLUX options")
+    if args.turbo and args.sparsity:
+        ap.error("block-sparse attention runs with the unfused prologue only (no --turbo)")
     if args.precision is None:
         args.precision = "int4" if args.model == "qwenimage" else "w4a8"
     if not torch.cuda.is_available():
@@ -221,16 +241,26 @@ def main(argv=None) -> int:
         model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
         if args.turbo:
             model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        if args.sparsity:
+            model.set_attention_impl("blocksparse", sparsity_ratio=args.sparsity)
+        side = args.size // 16  # latent tokens per side (VAE stride 8, 2x2 patches)
         inputs = (
-            torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, side * side, 64), generator=gen, device=dev).to(torch.bfloat16),
             torch.randn((1, 512, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
             torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
-            torch.full((1,), 0.7, device=dev), make_img_ids(64, 64, dev),
+            torch.full((1,), 0.7, device=dev), make_img_ids(side, side, dev),
             torch.zeros((512, 3), dtype=torch.int32, device=dev), torch.full((1,), 3.5, device=dev),
         )
         kw = {}
-        what = (f"FLUX.1-dev {args.precision}, "
-                f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}")
+        what = (f"FLUX.1-dev {args.precision} at {args.size}px ({side * side} image + 512 text tokens), "
+                f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}, "
+                f"{f'block-sparse attention at {args.sparsity}' if args.sparsity else 'dense attention'}")
+    if args.online_softmax:
+        blocks = model.blocks if args.model == "qwenimage" else [*model.transformer_blocks,
+                                                                 *model.single_transformer_blocks]
+        for block in blocks:
+            block.attn.fixed_softmax = False
+        what += ", fixed_softmax False"
     extra = None
     if args.precision in ("int4", "nvfp4"):
         from nunchaku_tpu_torch.models import attention, linear

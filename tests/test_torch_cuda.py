@@ -19,7 +19,7 @@ from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransform
 from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
-from nunchaku_tpu_torch.ops.attention import flash_attention, flash_attention_online
+from nunchaku_tpu_torch.ops.attention import block_sparse_attention, flash_attention, flash_attention_online
 from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w4a4, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
 from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
 
@@ -82,6 +82,63 @@ def test_flash_online_counts_and_refusals(dev):
     assert launch_counts()["flash_online"] == 1
 
 
+@pytest.mark.parametrize("fixed", [True, False])
+@pytest.mark.parametrize("b,h,s,sparsity,bq,bkv,out_bshd", [
+    (1, 24, 16896, 0.5, 768, 1536, True),  # FLUX.1-dev 2048px: 5 of 11 kv blocks
+    (1, 4, 9728, 0.5, 768, 1536, False),  # 1536px: a ragged tail block (512 of 1536)
+    (2, 3, 1000, 0.7, 256, 384, True),  # ragged q and kv, 1 of 3 kv blocks (kk 1)
+    (1, 2, 700, 0.0, 128, 256, False),  # every block selected
+])
+def test_block_sparse(dev, fixed, b, h, s, sparsity, bq, bkv, out_bshd):
+    q, k, v, idx, bq, bkv = checks.block_sparse_case(b, h, s, sparsity, bq=bq, bkv=bkv, device=dev)
+    _, ok, detail = checks.check_block_sparse(q, k, v, idx, bq, bkv, fixed, out_bshd)
+    assert ok, detail
+
+
+def test_block_sparse_tail_block_selected_and_refusals(dev):
+    """Every query block takes the ragged tail block (ids given): within
+    the twin's tolerance; counts per form; a head dim other than 128, a
+    non-int32 or misshapen block_idx and a bq off the 128 grid raise."""
+    q, k, v, idx, bq, bkv = checks.block_sparse_case(1, 2, 1664, 0.5, device=dev)  # kk 1 of 2 blocks
+    tail = torch.full_like(idx, 1)  # block 1: columns 1536-1663 of 3072
+    reset_launch_counts()
+    for fixed in (True, False):
+        _, ok, detail = checks.check_block_sparse(q, k, v, tail, bq, bkv, fixed)
+        assert ok, detail
+    counts = launch_counts()
+    assert counts["bs_fixed"] == 2 and counts["bs_online"] == 2 and counts["flash_fixed"] == 1
+    d64 = [t[..., :64].contiguous() for t in (q, k, v)]
+    for over in (dict(qkv=d64), dict(block_idx=idx.long()), dict(block_idx=idx[:, :, :1]), dict(bq=700)):
+        kw = dict(qkv=(q, k, v), block_idx=idx, bq=bq, bkv=bkv) | over
+        with pytest.raises(ValueError):
+            block_sparse_attention(*kw.pop("qkv"), sparsity_ratio=0.5, scale=1.0, fixed_softmax=True, **kw)
+    assert launch_counts()["bs_fixed"] == 2
+
+
+def test_small_flux_blocksparse_matches_cpu(dev):
+    """A 1 + 1-block w4a8 model under set_attention_impl("blocksparse",
+    0.5) at S_img 1600 + S_txt 64 (2 kv blocks of 1536, a ragged tail of
+    128; 3 query blocks of 768): card against CPU within 2e-2 of the
+    reference's max |value|, 2 block-sparse launches a forward."""
+    cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=2, joint_attention_dim=512,
+                     pooled_projection_dim=256, precision="w4a8")
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=9, device="cpu").set_attention_impl(
+        "blocksparse", sparsity_ratio=0.5)
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(10)
+    args = (torch.randn((1, 1600, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 64, 512), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen).to(torch.bfloat16), torch.tensor([0.6]), make_img_ids(40, 40),
+            torch.zeros((64, 3), dtype=torch.int32), torch.tensor([3.5]))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args).float()
+        out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert rel <= 2e-2, rel
+    assert launch_counts()["bs_fixed"] == 2 and launch_counts()["flash_fixed"] == 0
+
+
 @pytest.mark.parametrize("b,s,k,mod", [(1, 4608, 3072, True), (1, 512, 3072, True), (2, 300, 768, True),
                                        (1, 40, 256, False)])
 def test_ln_mod_quant(dev, b, s, k, mod):
@@ -126,7 +183,7 @@ def test_turbo_small_model_batch2_matches_cpu(dev):
     plain twins on the CPU; each batch row within 2e-2 of the reference's
     max |value|."""
     cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
-                     joint_attention_dim=512, pooled_projection_dim=256)
+                     joint_attention_dim=512, pooled_projection_dim=256, precision="w4a8")
     cpu_model = FluxTransformer2DModel.random_init(cfg, seed=5, device="cpu")
     cpu_model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
     gpu_model = copy.deepcopy(cpu_model).to(dev)

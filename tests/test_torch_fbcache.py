@@ -50,8 +50,8 @@ def _args():
 
 def _port(tm, vae=None, **kw):
     lat, txt, pooled = _args()
-    return FluxPipeline(tm, vae=vae)(to_torch(txt, "cpu"), to_torch(pooled, "cpu"), latents=to_torch(lat, "cpu"),
-                                     **KW, **kw)
+    return FluxPipeline(tm, vae=vae)(prompt_embeds=to_torch(txt, "cpu"), pooled_prompt_embeds=to_torch(pooled, "cpu"),
+                                     latents=to_torch(lat, "cpu"), **KW, **kw)
 
 
 def _jax(jm, vae=None, **kw):

@@ -82,7 +82,7 @@ def test_pipeline_two_steps_matches_jax(models):
     kw = dict(height=256, width=256, num_inference_steps=2)
     ref = JaxPipeline(jm, vae=None)(prompt_embeds=jnp.asarray(txt), pooled_prompt_embeds=jnp.asarray(pooled),
                                     latents=jnp.asarray(lat), **kw).latents
-    out = FluxPipeline(tm, vae=None)(to_torch(txt, "cpu"), to_torch(pooled, "cpu"),
+    out = FluxPipeline(tm, vae=None)(prompt_embeds=to_torch(txt, "cpu"), pooled_prompt_embeds=to_torch(pooled, "cpu"),
                                      latents=to_torch(lat, "cpu"), **kw).latents
     assert out.shape == (1, S_IMG, 64) and out.dtype == torch.bfloat16
     assert _rel(out, ref) <= 2e-2
@@ -92,7 +92,8 @@ def test_pipeline_noise_comes_from_the_seed(models):
     _, _, tm, _ = models["w4a8"]
     txt, pooled = (to_torch(a, "cpu") for a in _inputs()[1:3])
     pipe = FluxPipeline(tm)
-    run = lambda seed: pipe(txt, pooled, height=128, width=128, num_inference_steps=1, seed=seed).latents
+    run = lambda seed: pipe(prompt_embeds=txt, pooled_prompt_embeds=pooled, height=128, width=128,
+                            num_inference_steps=1, seed=seed).latents
     a, b, c = run(0), run(0), run(1)
     assert a.shape == (1, 64, 64) and torch.isfinite(a.float()).all()
     assert torch.equal(a, b) and not torch.equal(a, c)
@@ -105,13 +106,14 @@ def test_converter_takes_every_parameter(models):
     assert blk.ff.fc1.precision == "w4a8" and blk.norm1.linear.precision == "int8"
     assert tm.single_transformer_blocks[0].mlp_fc2.in_features == 4 * jm.cfg.dim
     with pytest.raises(KeyError):
-        flux_from_jax_params({**params, "extra.weight": np.zeros(1)}, FluxConfig(**TINY), device="cpu")
+        flux_from_jax_params({**params, "extra.weight": np.zeros(1)}, FluxConfig(precision="w4a8", **TINY),
+                             device="cpu")
 
 
 def test_random_init_mirrors_the_jax_parameter_tree(models):
     """Same parameter names, per-layer shapes and dtypes as the JAX model."""
     _, params, _, _ = models["w4a8"]
-    tm = FluxTransformer2DModel.random_init(FluxConfig(**TINY), seed=0, device="cpu")
+    tm = FluxTransformer2DModel.random_init(FluxConfig(precision="w4a8", **TINY), seed=0, device="cpu")
     ours = {}
     for name, buf in tm.named_buffers():
         parts = name.split(".")
@@ -123,3 +125,14 @@ def test_random_init_mirrors_the_jax_parameter_tree(models):
         shape = a.shape[1:] if name.split(".")[0] in ("transformer_blocks", "single_transformer_blocks") else a.shape
         theirs[name] = (tuple(shape), str(a.dtype))
     assert ours == theirs
+
+
+def test_flux_config_defaults_match_jax():
+    """``FluxConfig()`` builds the same model in both packages: every field
+    the port has defaults to the JAX value (precision "int4" included)."""
+    import dataclasses
+
+    theirs = JaxFluxConfig()
+    for f in dataclasses.fields(FluxConfig):
+        assert getattr(FluxConfig(), f.name) == getattr(theirs, f.name), f.name
+    assert FluxConfig().precision == "int4"

@@ -119,7 +119,7 @@ def test_pipeline_two_steps_matches_jax(models, precision):
     kw = dict(height=256, width=256, num_inference_steps=2)
     ref = JaxPipeline(jm, vae=None)(prompt_embeds=jnp.asarray(txt), pooled_prompt_embeds=jnp.asarray(pooled),
                                     latents=jnp.asarray(lat), **kw).latents
-    out = FluxPipeline(tm, vae=None)(to_torch(txt, "cpu"), to_torch(pooled, "cpu"),
+    out = FluxPipeline(tm, vae=None)(prompt_embeds=to_torch(txt, "cpu"), pooled_prompt_embeds=to_torch(pooled, "cpu"),
                                      latents=to_torch(lat, "cpu"), **kw).latents
     assert out.shape == (1, S_IMG, 64) and out.dtype == torch.bfloat16
     assert _rel(out, ref) <= 2e-2

@@ -324,7 +324,8 @@ def test_rope_layout_mismatch_raises():
 
     tm = tflux.FluxTransformer2DModel.random_init(
         tflux.FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=2,
-                         joint_attention_dim=256, pooled_projection_dim=256), seed=0, device="cpu")
+                         joint_attention_dim=256, pooled_projection_dim=256, precision="w4a8"), seed=0,
+        device="cpu")
     assert not tm.rope_halfsplit
     tatt.permute_qk_halfsplit(tm.transformer_blocks[0].attn)
     assert tm.rope_halfsplit
