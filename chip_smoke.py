@@ -19,7 +19,11 @@ Phases, each fatal on failure:
                   the block-sparse forms of both (bs_fixed, bs_online) at FLUX
                   2048px (S 16384 + 512, select_blocks at 0.5: 5 of 11 kv blocks
                   of 1536) and at a ragged 1536px shape, with SDPA under the
-                  equivalent bool mask and the dense kernel at the same S;
+                  equivalent bool mask and the dense kernel at the same S; the
+                  dequant's e2m1 form (nvfp4-a8) at K 3072 / N 12288 and K 12288 /
+                  N 3072, bit-exact; both chain kernels at rank 128 on the fc1 / fc2
+                  shapes and the W4A4 GEMM (int4, both modes) at rank 128 on
+                  Qwen-Image's shapes, logged beside the rank-32 rows;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -38,7 +42,11 @@ Phases, each fatal on failure:
                   linears checked alone), int4 under fixed_softmax = False. Then
                   the small FLUX model under blocksparse 0.5 at w4a8 and int4
                   (damped) at S 1600 + 64, card against CPU, selections equal;
-                  a small T5 (AWQ) and a small CLIP, card against CPU;
+                  a small T5 (AWQ) and a small CLIP, card against CPU. Last, tiny
+                  synthesized checkpoints loaded on the card and on the CPU (a
+                  1 + 1-block FLUX nvfp4 file at w4a8, i.e. nvfp4-a8, and a 2-block
+                  Qwen-Image int4 rank-128 file at w4a8): every buffer equal bit for
+                  bit, 2-step latents within 2e-2;
   5. slice     -- T5-XXL (AWQ W4A16, 24 layers) and CLIP-L from random weights;
                   full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
@@ -80,6 +88,21 @@ Phases, each fatal on failure:
                   at B 1, min(8, --steps) steps. Each request first runs untimed
                   once; its launch counts must be exact per forward (a cache hit
                   runs blocks 0-7 only).
+  8. checkpoint -- synthesized full-size files in a temporary directory
+                  (removed at the end): FLUX.1-dev nvfp4 rank 32 (nunchaku's v1
+                  schema, 19 + 38 blocks), T5-XXL TinyChat W4, CLIP-L and the FLUX
+                  VAE. Each file's write and load time; the transformer at
+                  precision="w4a8" (nvfp4-a8) serves one 1024px request from
+                  prompt ids (min(4, --steps) steps, both encoders inside, tiled
+                  decode), then one step each: nvfp4-a8, the same file at nvfp4,
+                  and nvfp4-a8 after w4a8_cache_dequant(model, 4.0) (its block-0
+                  fc1 codes equal to the dequant kernel's, its forward within 2e-2
+                  of the undialed model's). Launch counts exact per forward (the
+                  e2m1 dequant 304).
+  9. checkpoint-qwen -- a synthesized Qwen-Image int4 rank-128 file (v2
+                  schema, 60 blocks, dim 3072, joint 3584) loaded at int4 and at
+                  w4a8, one B 1 step to latents each (the W4A4 GEMM, the chain
+                  kernels at rank 128), counts exact.
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -91,6 +114,7 @@ import argparse
 import copy
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -145,6 +169,11 @@ def bound(nbytes: float, int8_ops: float = 0.0, bf16_ops: float = 0.0) -> tuple[
     t_bytes = nbytes / PEAK_BYTES
     t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def deq_bytes(k, n, g=64):
+    # packed codes, bf16 rescales of g-row groups -> int8 weight
+    return k // 2 * n + 2 * (k // g) * n + k * n
 
 
 def gemm_bytes(m, k, n, r, out_bytes):
@@ -247,8 +276,24 @@ def kernel_phase(dev):
     record("dequant_w4a8", "nunchaku_tpu_torch/csrc/dequant_w4a8.cu", "nunchaku_tpu/ops/gemm.py:1074",
            f"K={k} N={n}", ok, err, detail,
            cuda_ms(lambda: dequant_w4a8(qw, rs), 50), cuda_ms(lambda: dequant_w4a8_plain(qw, rs), 5),
-           bound(k // 2 * n + 2 * (k // 64) * n + k * n), None)
+           bound(deq_bytes(k, n)), None)
     del qw, rs
+
+    # 1e. the dequant's e2m1 form (nvfp4-a8): the fc1 weight (K 3072, N 12288) is the row; fc2's (K 12288,
+    # N 3072) is checked and timed too
+    res = {}
+    for k2, n2 in ((DIM, HID), (HID, DIM)):
+        qw, rs = checks.dequant_case(k2, n2, codes="e2m1", device=dev)
+        res[k2] = (checks.check_dequant(qw, rs, "e2m1"), cuda_ms(lambda: dequant_w4a8(qw, rs, "e2m1"), 50),
+                   cuda_ms(lambda: dequant_w4a8_plain(qw, rs, "e2m1"), 5), bound(deq_bytes(k2, n2, 16)))
+        del qw, rs
+    (err2, ok2, detail2), ms2, plain2, bnd2 = res[HID]
+    log(f"[kernel] dequant_w4a8_e2m1 @ K={HID} N={DIM}: {'PASS' if ok2 else 'FAIL'} {detail2}; {ms2:.4f} ms "
+        f"(plain {plain2:.4f} ms, bound {bnd2[0]:.4f} ms by {bnd2[1]}, {100 * bnd2[0] / ms2:.1f}% of bound)")
+    (err, ok, detail), ms, plain, bnd = res[DIM]
+    record("dequant_w4a8_e2m1", "nunchaku_tpu_torch/csrc/dequant_w4a8.cu", "nunchaku_tpu/ops/gemm.py:1074",
+           f"K={DIM} N={HID} e2m1", ok and ok2, max(err, err2), detail + f"; K {HID} N {DIM}: {detail2}",
+           ms, plain, bnd, None)
 
     # 2. GELU -> requantize producer: single-block fc1 (M 4608, K 3072, N 12288)
     m, k, n = S_IMG + S_TXT, DIM, HID
@@ -342,6 +387,30 @@ def kernel_phase(dev):
            cuda_ms(lambda: int8_matmul(qa, w), 20))
     del args, qa, w
 
+    # 2', 3' at rank 128 (nunchaku's rank-128 checkpoints): the same FLUX fc1 / fc2 shapes, logged beside the
+    # rank-32 rows
+    m = S_IMG + S_TXT
+    for name, (k, n), case, check, fn, plain_fn in (
+            ("gemm_w8a8_gelu_quant", (DIM, HID), checks.gelu_quant_case, checks.check_gelu_quant,
+             svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain),
+            ("gemm_w8a8_grouped", (HID, DIM), lambda m_, k_, n_, r_, device: checks.grouped_case(
+                m_, k_, n_, HID // 1536, r_, device=device), checks.check_grouped, gemm_w8a8_grouped,
+             gemm_w8a8_grouped_plain)):
+        args = case(m, k, n, 128, device=dev)
+        _, ok2, detail = check(*args)
+        ms = cuda_ms(lambda: fn(*args), 20)
+        plain = cuda_ms(lambda: plain_fn(*args), 3)
+        if name == "gemm_w8a8_gelu_quant":
+            bnd = bound(gemm_bytes(m, k, n, 128, m * n + 4 * (n // 1536) * m + 4 * m * 128) + 4 * n + 2 * n * 128,
+                        2 * m * n * k, 4 * m * n * 128)
+        else:
+            bnd = bound(gemm_bytes(m, k, n, 128, 2 * m * n) + 4 * (HID // 1536) * m, 2 * m * n * k, 2 * m * n * 128)
+        log(f"[kernel] {name} @ M={m} K={k} N={n} R=128: {'PASS' if ok2 else 'FAIL'} {detail}; {ms:.4f} ms "
+            f"(plain {plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+        if not ok2:
+            failed.append(f"{name}@R128")
+        del args
+
     # 8. online flash: the VAE mid block of one 64x64-latent tile (S 4096, one
     # head of 512); also checked at a whole 1024px image's S 16384 and a ragged S
     s = VAE_TILE_S
@@ -405,6 +474,19 @@ def kernel_phase(dev):
                cuda_ms(lambda: gemm_w4a4(*args, **kw), 20), cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3),
                w4a4_bound(m, k, n, g), cuda_ms(lambda: torch.matmul(a16, w16), 20))
         del args, qa, asc, qw, wsc, a16, w16
+    # the int4 modes at rank 128 on Qwen-Image's shapes (4096 image rows; qkv, fc2 with unsigned activations)
+    for (m, k, n), unsigned in (((S_IMG, DIM, 3 * DIM), False), ((S_IMG, HID, DIM), True)):
+        args, kw = checks.w4a4_case(m, k, n, "int4", unsigned, r=128, device=dev)
+        _, ok2, detail = checks.check_w4a4(args, kw)
+        ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        bnd = w4a4_bound(m, k, n, 64, r=128)
+        name = "gemm_w4a4_int4" + ("_unsigned" if unsigned else "")
+        log(f"[kernel] {name} @ M={m} K={k} N={n} R=128 (Qwen-Image r128): {'PASS' if ok2 else 'FAIL'} {detail}; "
+            f"{ms:.4f} ms (plain {plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+        if not ok2:
+            failed.append(f"{name}@R128")
+        del args
 
     # 10. AWQ GEMV: the dual block's AdaLN modulation (M 1, K 3072, N 18432),
     # also checked and timed at the single block's N 9216
@@ -476,8 +558,8 @@ def per_forward_bounds(cfg) -> dict:
     shapes (the default and turbo paths' kernels; the 4-bit paths')."""
     L, Ls, T = cfg.num_layers, cfg.num_single_layers, S_IMG + S_TXT
 
-    def deq(k, n):
-        return bound(k // 2 * n + 2 * (k // 64) * n + k * n)[0]
+    def deq(k, n, g=64):
+        return bound(deq_bytes(k, n, g))[0]
 
     def chain(m, res=0):
         """res: 0 none, 1 (x, gate), 2 (x, gate, extra, extra_la, extra_pu)."""
@@ -503,6 +585,8 @@ def per_forward_bounds(cfg) -> dict:
     return {
         "dequant_w4a8": L * 2 * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM))
         + Ls * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM)),
+        "dequant_w4a8_e2m1": L * 2 * (deq(DIM, 3 * DIM, 16) + deq(DIM, DIM, 16) + deq(DIM, HID, 16) + deq(HID, DIM, 16))
+        + Ls * (deq(DIM, 3 * DIM, 16) + deq(DIM, DIM, 16) + deq(DIM, HID, 16) + deq(HID, DIM, 16)),
         "gemm_w8a8_gelu_quant": L * (dual[0][0] + dual[1][0]) + Ls * single[0],
         "gemm_w8a8_grouped": L * (dual[0][1] + dual[1][1]) + Ls * single[1],
         "flash_fixed": (L + Ls) * bound(4 * T * HEADS * HD * 2, bf16_ops=4 * T * T * HD * HEADS)[0],
@@ -551,7 +635,7 @@ def reference_phase(dev):
     image_ok = reference_image_path(cpu_model, gpu_model, dev)
     ok4 = reference_4bit(dev, pe, pooled, lat, kw)
     return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
-            and reference_text_encoders(dev))
+            and reference_text_encoders(dev) and reference_checkpoint(dev))
 
 
 def reference_blocksparse(dev):
@@ -888,12 +972,12 @@ def serve(pipe, dev, steps, requests, label, request, size=1024, tag="slice", **
     return finite, req_s, counts, peak, hits, lat
 
 
-def check_counts(label, counts, per_forward, forwards, extra=None):
+def check_counts(label, counts, per_forward, forwards, extra=None, tag="slice"):
     """counts == per_forward x forwards (+ extra, a dict of whole counts)."""
     extra = extra or {}
     expected = {k: per_forward.get(k, 0) * forwards + extra.get(k, 0) for k in counts}
     ok = counts == expected
-    log(f"[slice] {label} launches {counts}; expected {expected} "
+    log(f"[{tag}] {label} launches {counts}; expected {expected} "
         f"(per forward {per_forward}{f', plus {extra}' if extra else ''}): {'PASS' if ok else 'FAIL'}")
     return ok
 
@@ -1215,6 +1299,273 @@ def qwen_phase(dev, steps: int):
     return ok, total, paths, cfg
 
 
+def _gib(model) -> float:
+    return sum(b.numel() * b.element_size() for b in model.buffers()) / 2**30
+
+
+def _write(synth, path, make, label, tag="checkpoint"):
+    """Draw a synthesized checkpoint on the card and write it; -> file bytes."""
+    t0 = time.perf_counter()
+    state = make()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    nbytes = synth.write(path, state)
+    t2 = time.perf_counter()
+    del state
+    torch.cuda.empty_cache()
+    log(f"[{tag}] wrote {label}: {nbytes / 2**30:.3f} GiB in {t2 - t1:.2f} s ({nbytes / 2**30 / (t2 - t1):.2f} GiB/s; "
+        f"drawn on the card in {t1 - t0:.2f} s)")
+    return nbytes
+
+
+def _load(label, fn, tag="checkpoint"):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    log(f"[{tag}] loaded {label} in {sec:.2f} s" + (f"; weights {_gib(out):.2f} GiB" if hasattr(out, "buffers") else ""))
+    return out, sec
+
+
+def _svdq_counts(model) -> dict:
+    """Kernel launches per forward of a default-configuration (f32 stream)
+    model, from its linears: a w4a8 linear's dequant (by code form), one
+    chain producer and consumer per MLP pair whose linears take int8
+    activations and share a precision."""
+    from nunchaku_tpu_torch.models.attention import FeedForward, can_chain
+    from nunchaku_tpu_torch.models.linear import SVDQW4A4Linear
+
+    c = {}
+    for m in model.modules():
+        if isinstance(m, SVDQW4A4Linear) and m.precision == "w4a8":
+            key = "dequant_w4a8_e2m1" if m.wcodes == "e2m1" else "dequant_w4a8"
+            c[key] = c.get(key, 0) + 1
+    pairs = [(m.fc1, m.fc2) for m in model.modules() if isinstance(m, FeedForward)]
+    pairs += [(b.mlp_fc1, b.mlp_fc2) for b in getattr(model, "single_transformer_blocks", [])]
+    chained = sum(can_chain(a, b) for a, b in pairs)
+    if chained:
+        c["gemm_w8a8_gelu_quant"] = c["gemm_w8a8_grouped"] = chained
+    return c
+
+
+def checkpoint_phase(dev, steps: int):
+    """Synthesized full-size checkpoints (tools/synth_checkpoint.py) written to
+    a temporary directory, removed at the end: FLUX.1-dev nvfp4 rank 32 (19
+    dual + 38 single blocks, nunchaku's v1 schema), T5-XXL TinyChat W4,
+    CLIP-L and the FLUX VAE (bf16 HF / diffusers files). The transformer
+    loads at precision="w4a8" (nvfp4-a8: e2m1 codes through the dequant
+    kernel's e2m1 form and the int8 chain) and serves one 1024px request
+    from prompt ids (min(4, steps) steps, both encoders inside, tiled
+    decode); the same file at its own precision (nvfp4) and the nvfp4-a8
+    model after w4a8_cache_dequant(model, 4.0, inplace=True) each time one
+    step, the dialed model's forward held against the undialed one's on the
+    same inputs (int8 codes equal to the dequant's). -> (ok, counts summed,
+    per-forward counts of each path)."""
+    import tempfile
+
+    from nunchaku_tpu_torch import (FluxPipeline, load_autoencoder, load_clip_text, load_flux_transformer,
+                                    load_t5_encoder, w4a8_cache_dequant)
+    from nunchaku_tpu_torch.ops.gemm import dequant_w4a8
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    ok, total, paths = True, {}, {}
+    with tempfile.TemporaryDirectory(prefix="nunchaku_ckpt_") as tmp:
+        free = shutil.disk_usage(tmp).free / 2**30
+        log(f"[checkpoint] synthesized files in a temporary directory ({free:.0f} GiB free there)")
+        files = {name: f"{tmp}/{name}.safetensors" for name in ("flux-nvfp4-r32", "t5-xxl-awq", "clip-l", "flux-vae")}
+        _write(synth, files["flux-nvfp4-r32"], lambda: synth.flux_state(precision="nvfp4", rank=RANK, seed=30, device=dev),
+               "FLUX.1-dev nvfp4 rank 32 (v1 schema)")
+        _write(synth, files["t5-xxl-awq"], lambda: synth.t5_state(seed=31, device=dev), "T5-XXL TinyChat W4 (group 128)")
+        _write(synth, files["clip-l"], lambda: synth.clip_state(seed=32, device=dev), "CLIP-L (bf16)")
+        _write(synth, files["flux-vae"], lambda: synth.vae_state(seed=33, device=dev), "FLUX VAE decoder (bf16)")
+        t5, _ = _load("T5-XXL", lambda: load_t5_encoder(files["t5-xxl-awq"], device=dev))
+        clip, _ = _load("CLIP-L", lambda: load_clip_text(files["clip-l"], device=dev))
+        vae, _ = _load("FLUX VAE", lambda: load_autoencoder(files["flux-vae"], device=dev))
+        vae.enable_tiling()
+        model, _ = _load("FLUX.1-dev at precision='w4a8' (nvfp4-a8)",
+                         lambda: load_flux_transformer(files["flux-nvfp4-r32"], "w4a8", device=dev))
+        cfg = model.cfg
+        L, Ls = cfg.num_layers, cfg.num_single_layers
+        paths["checkpoint nvfp4-a8"] = _svdq_counts(model) | {"flash_fixed": L + Ls}
+        encoders = dict(text_encoder=clip, text_encoder_2=t5, tokenizer=stand_in_tokenizer(CLIP_L["vocab"], CLIP_EOS),
+                        tokenizer_2=stand_in_tokenizer(T5_XXL["vocab"], T5_EOS))
+        n = min(4, steps)
+        finite, _, counts, *_ = serve(FluxPipeline(model, vae=vae, **encoders), dev, n, 1,
+                                      "nvfp4-a8 from the nvfp4 file: T5-XXL + CLIP-L from prompt ids, tiled VAE",
+                                      prompt_request, tag="checkpoint")
+        ok = finite and check_counts("checkpoint nvfp4-a8", counts, paths["checkpoint nvfp4-a8"], n,
+                                     {"flash_online": VAE_TILES}, tag="checkpoint")
+        total = dict(counts)
+
+        def one_step(mdl, label, path):
+            nonlocal ok, total
+            finite, req_s, counts, *_ = serve(FluxPipeline(mdl, **encoders), dev, 1, 1, f"{label}: 1 step to latents",
+                                              prompt_request, tag="checkpoint")
+            ok = finite and check_counts(label, counts, paths[path], 1, tag="checkpoint") and ok
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            return req_s[0]
+
+        step_a8 = one_step(model, "nvfp4-a8", "checkpoint nvfp4-a8")
+        gen = torch.Generator(device=dev).manual_seed(34)
+        fixed = (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
+                 torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+                 torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+                 torch.tensor([0.5], device=dev), make_img_ids(64, 64, dev),
+                 torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+        with torch.no_grad():
+            ref = model(*fixed).float()
+
+        nv, _ = _load("FLUX.1-dev at its own precision (nvfp4)", lambda: load_flux_transformer(files["flux-nvfp4-r32"],
+                                                                                             device=dev))
+        paths["checkpoint nvfp4"] = {"gemm_w4a4_nvfp4": 8 * L + 4 * Ls, "gemv_awq": 2 * L + Ls, "flash_fixed": L + Ls}
+        step_nv = one_step(nv, "nvfp4", "checkpoint nvfp4")
+        del nv
+        torch.cuda.empty_cache()
+
+        fc1 = model.transformer_blocks[0].ff.fc1
+        want = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)  # the step's codes (outside any counted run)
+        before = _gib(model)
+        t0 = time.perf_counter()
+        w4a8_cache_dequant(model, 4.0, inplace=True)
+        torch.cuda.synchronize()
+        dial_s = time.perf_counter() - t0
+        got = model.transformer_blocks[0].ff.fc1
+        codes_ok = got.precision == "int8" and torch.equal(got.qweight, want)
+        paths["checkpoint dialed"] = _svdq_counts(model) | {"flash_fixed": L + Ls}
+        step_dial = one_step(model, "nvfp4-a8 after w4a8_cache_dequant(4.0)", "checkpoint dialed")
+        with torch.no_grad():
+            out = model(*fixed).float()
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        good = codes_ok and rel <= 2e-2 and bool(torch.isfinite(out).all())
+        ok = ok and good
+        left = paths["checkpoint dialed"].get("dequant_w4a8_e2m1", 0)
+        log(f"[checkpoint] w4a8_cache_dequant(4.0) in {dial_s:.2f} s: weights {before:.2f} -> {_gib(model):.2f} GiB, "
+            f"{paths['checkpoint nvfp4-a8']['dequant_w4a8_e2m1'] - left} linears to int8 ({left} left at w4a8); "
+            f"block 0 fc1 codes equal to the dequant kernel's: {codes_ok}; forward on fixed inputs against the "
+            f"undialed model's: rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if good else 'FAIL'}")
+        log(f"[checkpoint] one 1024px step (both encoders + 1 forward, no decode): nvfp4-a8 {step_a8:.4f} s, nvfp4 "
+            f"{step_nv:.4f} s, nvfp4-a8 dialed (4.0 GiB) {step_dial:.4f} s")
+        del model, t5, clip, vae, fixed, ref, out, want
+        torch.cuda.empty_cache()
+    return ok, total, paths
+
+
+def checkpoint_qwen_phase(dev):
+    """A synthesized Qwen-Image int4 rank-128 checkpoint (nunchaku's v2
+    schema) at full width and depth (60 joint blocks, dim 3072, joint 3584),
+    loaded at int4 and at precision="w4a8", each running one B 1 step to
+    latents at 1024px with a padded prompt (97 of 211 tokens valid): the
+    W4A4 GEMM and the chain kernels at rank 128. -> (ok, counts summed,
+    per-forward counts)."""
+    import tempfile
+
+    from nunchaku_tpu_torch import QwenImagePipeline, load_qwenimage_transformer
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    ok, total, paths = True, {}, {}
+    with tempfile.TemporaryDirectory(prefix="nunchaku_ckpt_") as tmp:
+        path = f"{tmp}/qwen-image-int4-r128.safetensors"
+        _write(synth, path, lambda: synth.qwen_state(rank=128, precision="int4", seed=40, device=dev),
+               "Qwen-Image int4 rank 128 (v2 schema, 60 blocks)", tag="checkpoint-qwen")
+        gen = torch.Generator(device=dev).manual_seed(41)
+        pe = torch.randn((1, QWEN_S_TXT, 3584), generator=gen, device=dev).to(torch.bfloat16)
+        mask = torch.arange(QWEN_S_TXT, device=dev)[None, :] < QWEN_VALID[1]
+        for precision in (None, "w4a8"):
+            label = precision or "int4"
+            model, _ = _load(f"Qwen-Image rank 128 at {label}", lambda: load_qwenimage_transformer(path, precision,
+                                                                                                device=dev),
+                             tag="checkpoint-qwen")
+            L = model.cfg.num_layers
+            paths[f"qwen r128 {label}"] = ({"gemm_w4a4_int4": 6 * L, "gemm_w4a4_int4_unsigned": 2 * L, "gemv_awq": 2 * L}
+                                           if precision is None else _svdq_counts(model)) | {"flash_fixed_masked": L}
+            pipe = QwenImagePipeline(model)
+            kw = dict(height=1024, width=1024, num_inference_steps=1, true_cfg_scale=1.0)
+            with torch.no_grad():
+                pipe(pe, None, mask, None, seed=0, **kw)  # first use, untimed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                out = pipe(pe, None, mask, None, seed=1, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            counts = launch_counts()
+            lat = out.latents.float()
+            good = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat).all())
+            log(f"[checkpoint-qwen] rank 128 at {label}: one B 1 step to latents {sec:.4f} s, |lat| mean "
+                f"{lat.abs().mean().item():.4f}, finite {good}; peak allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            ok = ok and good and check_counts(f"qwen r128 {label}", counts, paths[f"qwen r128 {label}"], 1,
+                                              tag="checkpoint-qwen")
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            del pipe, model, out, lat
+            torch.cuda.empty_cache()
+    return ok, total, paths
+
+
+def reference_checkpoint(dev):
+    """Tiny synthesized checkpoints loaded on the card and on the CPU: a
+    1 + 1-block FLUX nvfp4 file at precision="w4a8" (nvfp4-a8) and a
+    2-block Qwen-Image int4 rank-128 file at w4a8. Every buffer equal bit for
+    bit (the decode runs on the device the model is built on); latents of a
+    2-step request within 2e-2 of the CPU's, the e2m1 dequant launched on the
+    card."""
+    import tempfile
+
+    from nunchaku_tpu_torch import FluxPipeline, QwenImagePipeline, load_flux_transformer, load_qwenimage_transformer
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    def same(a, b):
+        ba, bb = dict(a.named_buffers()), dict(b.named_buffers())
+        return ba.keys() == bb.keys() and all(
+            t.dtype == bb[k].dtype and torch.equal(t.cpu().contiguous().view(torch.uint8),
+                                                   bb[k].cpu().contiguous().view(torch.uint8)) for k, t in ba.items())
+
+    all_ok = True
+    with tempfile.TemporaryDirectory(prefix="nunchaku_ckpt_") as tmp:
+        fpath, qpath = f"{tmp}/flux.safetensors", f"{tmp}/qwen.safetensors"
+        synth.write(fpath, synth.flux_state(layers=1, single=1, heads=6, joint=512, pooled=256, precision="nvfp4",
+                                            seed=50, device="cpu"))
+        synth.write(qpath, synth.qwen_state(layers=2, heads=2, joint=320, rank=128, seed=51, device="cpu"))
+        gen = torch.Generator().manual_seed(52)
+        pe = torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16)
+        pooled = torch.randn((1, 256), generator=gen).to(torch.bfloat16)
+        lat = torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16)
+        qpe = torch.randn((2, 24, 320), generator=gen).to(torch.bfloat16)
+        qneg = torch.randn((2, 6, 320), generator=gen).to(torch.bfloat16)
+        qlat = torch.randn((2, 64, 64), generator=gen).to(torch.bfloat16)
+        qmask = torch.arange(24)[None, :] < torch.tensor([[24], [9]])
+        for label, load, path, call, count in (
+                ("FLUX nvfp4 file at w4a8 (nvfp4-a8)", load_flux_transformer, fpath,
+                 lambda m, d: FluxPipeline(m)(prompt_embeds=pe.to(d), pooled_prompt_embeds=pooled.to(d),
+                                              latents=lat.to(d), height=256, width=256, num_inference_steps=2),
+                 ("dequant_w4a8_e2m1", 2 * 12)),  # steps x linears
+                ("Qwen-Image int4 rank-128 file at w4a8", load_qwenimage_transformer, qpath,
+                 lambda m, d: QwenImagePipeline(m)(qpe.to(d), qneg.to(d), qmask.to(d),
+                                                   torch.ones((2, 6), dtype=torch.bool, device=d), height=128,
+                                                   width=128, num_inference_steps=2, true_cfg_scale=4.0,
+                                                   latents=qlat.to(d)),
+                 ("dequant_w4a8", 2 * 2 * 2 * 8))):  # steps x CFG branches x blocks x linears
+            cpu_model, gpu_model = load(path, "w4a8", device="cpu"), load(path, "w4a8", device=dev)
+            exact = same(gpu_model, cpu_model)
+            ref = call(cpu_model, "cpu").latents.float()
+            reset_launch_counts()
+            out = call(gpu_model, dev).latents.float().cpu()
+            launched = launch_counts()[count[0]]
+            rel = ((out - ref).abs().max() / ref.abs().max()).item()
+            ok = exact and rel <= 2e-2 and bool(torch.isfinite(out).all()) and launched == count[1]
+            log(f"[reference] checkpoint: {label}: buffers equal card vs CPU {exact}; 2-step latents rel max error "
+                f"{rel:.3e} (tolerance 2e-2); {count[0]} launches {launched} (expected {count[1]}): "
+                f"{'PASS' if ok else 'FAIL'}")
+            all_ok = all_ok and ok
+    return all_ok
+
+
 def qwen_bounds(cfg, b=1) -> dict:
     """Least time per Qwen-Image 1024px forward at batch ``b`` for each
     kernel it runs (S_txt 211, padded to the 256-row quantum in the GEMMs)."""
@@ -1294,11 +1645,13 @@ def main(argv=None) -> int:
     del t5, clip
     torch.cuda.empty_cache()
     qwen_ok, qcounts, qpaths, qcfg = qwen_phase(dev, args.steps)
-    counts = {k: counts[k] + qcounts[k] + hcounts[k] for k in counts}
+    ckpt_ok, ccounts, cpaths = checkpoint_phase(dev, args.steps)
+    ckptq_ok, cqcounts, cqpaths = checkpoint_qwen_phase(dev)
+    counts = {k: counts[k] + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0) for k in counts}
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
-        per = {p: f[name] for p, f in paths.items() if f.get(name)}
+        per = {p: f[name] for p, f in (paths | cpaths).items() if f.get(name)}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
             f"of the path(s) it runs in")
     for name, b in qwen_bounds(qcfg).items():
@@ -1315,12 +1668,18 @@ def main(argv=None) -> int:
         log(f"[bound] {name}: launches per 2048px forward {per}, least time {b:.3f} ms per forward")
     ran =[name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
+    for name, per in (cpaths | cqpaths).items():
+        log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and hr_ok
+    ok = ok and hr_ok and ckpt_ok and ckptq_ok
+
+    def verdict(good):
+        return "PASS" if good else "FAIL"
+
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
-        f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {'PASS' if ref_ok else 'FAIL'}, "
-        f"slice {'PASS' if slice_ok else 'FAIL'}, highres {'PASS' if hr_ok else 'FAIL'}, "
-        f"qwen {'PASS' if qwen_ok else 'FAIL'}")
+        f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
+        f"slice {verdict(slice_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
+        f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

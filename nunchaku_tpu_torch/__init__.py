@@ -1,12 +1,33 @@
 """PyTorch + CUDA port of nunchaku_tpu for NVIDIA Hopper (H100).
 
-The port runs the FLUX.1 w4a8 path from prompt embeddings to an image:
-packed int4 SVDQuant weights dequantized to per-channel int8, int8 x int8
-products, the first-block step caches, a tiled VAE decode, and the JAX
+The port runs FLUX.1 and Qwen-Image, from nunchaku checkpoints or random
+weights, to an image: 4-bit SVDQuant weights (int4 or nvfp4 products, or
+packed codes dequantized to per-channel int8 for int8 x int8 products), the
+text encoders, the first-block step caches, a tiled VAE decode, and the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``). It imports neither JAX nor ``nunchaku_tpu``.
 Entry points place their tensors on the card unless asked for the CPU;
 on the CPU every kernel wrapper runs its plain PyTorch twin.
+
+Public surface, under the JAX package's top-level names: the models
+(``FluxTransformer2DModel``, ``QwenImageTransformer2DModel``,
+``T5EncoderModel``, ``CLIPTextModel``, ``AutoencoderKL``), their checkpoint
+loaders (``load_flux_transformer``, ``load_qwenimage_transformer``,
+``load_t5_encoder``, ``load_clip_text``, ``load_autoencoder``; each takes
+``device=``, the card by default), the pipelines and the precision dials
+``requantize_model`` / ``w4a8_cache_dequant``.
 """
 
 __version__ = "0.1.0"
+
+from .models.autoencoder import AutoencoderKL, load_autoencoder
+from .models.linear import AWQW4A16Linear, SVDQW4A4Linear
+from .models.loader import load_flux_transformer
+from .models.loader_qwenimage import load_qwenimage_transformer
+from .models.requantize import requantize_model, w4a8_cache_dequant
+from .models.text_encoders.clip import CLIPTextModel, load_clip_text
+from .models.text_encoders.t5 import T5EncoderModel, load_t5_encoder
+from .models.transformer_flux import FluxConfig, FluxTransformer2DModel
+from .models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+from .pipeline.pipeline_flux import FluxPipeline
+from .pipeline.pipeline_qwenimage import QwenImagePipeline

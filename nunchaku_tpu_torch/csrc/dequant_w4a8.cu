@@ -1,18 +1,24 @@
-// w4a8 weight dequant: packed int4 (K/2, N) -> per-channel int8, written
-// K-contiguous as an (N, K) array (the caller views it as (K, N)).
+// w4a8 weight dequant: packed 4-bit codes (K/2, N) -> per-channel int8,
+// written K-contiguous as an (N, K) array (the caller views it as (K, N)).
 //
 // Replaces nunchaku_tpu/ops/gemm.py _dequant_w4a8_kernel (:1074, launched by
-// dequant_w4a8_pallas :1104). Packed row 128*b + j holds logical rows
-// 256*b + j (low nibble) and 256*b + 128 + j (high nibble); each nibble is
-// sign-extended, multiplied in f32 by the bf16 rescale of its 64-row group,
-// rounded half-to-even and clipped to +-127 -- the same codes, bit for bit.
+// dequant_w4a8_pallas :1104) in both of its code forms. Packed row 128*b + j
+// holds logical rows 256*b + j (low nibble) and 256*b + 128 + j (high
+// nibble); each nibble is sign-extended and, in the e2m1 form (nvfp4-a8:
+// an nvfp4 checkpoint served through the int8 products), decoded to its fp4
+// value {0, +-.5, +-1, +-1.5, +-2, +-3, +-4, +-6} (the stray code -8 to -8,
+// as the JAX package's _decode_e2m1 does), then multiplied in f32 by the
+// bf16 rescale of its group (64 rows for int4 codes, 16 for e2m1), rounded
+// half-to-even and clipped to +-127 -- the same codes, bit for bit. The
+// decode is arithmetic on registers (exact powers of two), no table.
 // The output is transposed relative to the JAX kernel's (K, N) buffer
 // because int8 tensor-core products take both operands K-contiguous (the
 // "TN" layout): the port's GEMM kernels and cuBLAS behind torch._int_mm read
 // it without another pass.
 //
 // Bound on the H100: bytes. Each weight moves 1.5 bytes (0.5 in, 1 out) plus
-// 2/64 bytes of rescale, and does one multiply -- far below the ops/byte
+// 2/64 bytes of rescale (2/16 for e2m1), and does one multiply (after a few
+// integer ops of decode in the e2m1 form) -- far below the ops/byte
 // ridge. Design: a block turns one pack block (128 packed rows = 256 logical
 // rows) by 64 columns into a 64 x 256 K-contiguous tile through shared
 // memory. Reads are 16-byte vectors along N (64 contiguous bytes per packed
@@ -26,11 +32,25 @@ constexpr int TN = 64;    // output rows (columns n of the weight) per block
 constexpr int TK = 256;   // logical k per block: one pack block
 constexpr int THREADS = 256;
 
+// signed 4-bit code -> its value: the integer itself, or the e2m1 decode
+// |v| = m / 2 for e == 0, else (1 + m / 2) 2^(e - 1), e = |c| >> 1, m = |c| & 1
+template <bool E2M1>
+__device__ __forceinline__ float code_value(int c) {
+  if (!E2M1) return static_cast<float>(c);
+  const int a = abs(c), e = a >> 1;
+  const float m = static_cast<float>(a & 1);
+  const float mag = e == 0 ? 0.5f * m : (1.0f + 0.5f * m) * static_cast<float>(1 << (e - 1));
+  return c < 0 ? -mag : mag;
+}
+
+template <bool E2M1>
 __device__ __forceinline__ int8_t rescale_code(int nib, float rs) {
-  int q = __float2int_rn(__fmul_rn(static_cast<float>(nib), rs));
+  int q = __float2int_rn(__fmul_rn(code_value<E2M1>(nib), rs));
   return static_cast<int8_t>(max(-127, min(127, q)));
 }
 
+// G: rows per rescale group (64 for int4 codes, 16 for e2m1)
+template <bool E2M1, int G>
 __global__ void __launch_bounds__(THREADS)
     dequant_w4a8_kernel(const int8_t* __restrict__ qw, const bf16* __restrict__ rs,
                         int8_t* __restrict__ out, int K, int N) {
@@ -44,8 +64,8 @@ __global__ void __launch_bounds__(THREADS)
   uint4 packed[2];
   bf16 rlo[32], rhi[32];
   const uint4* src = reinterpret_cast<const uint4*>(qw + static_cast<size_t>(p) * N + n0 + c0);
-  const uint4* slo = reinterpret_cast<const uint4*>(rs + static_cast<size_t>(row_lo / 64) * N + n0 + c0);
-  const uint4* shi = reinterpret_cast<const uint4*>(rs + static_cast<size_t>(row_hi / 64) * N + n0 + c0);
+  const uint4* slo = reinterpret_cast<const uint4*>(rs + static_cast<size_t>(row_lo / G) * N + n0 + c0);
+  const uint4* shi = reinterpret_cast<const uint4*>(rs + static_cast<size_t>(row_hi / G) * N + n0 + c0);
   packed[0] = src[0];
   packed[1] = src[1];
 #pragma unroll
@@ -59,8 +79,8 @@ __global__ void __launch_bounds__(THREADS)
     const int byte = static_cast<int>(pb[i]) & 0xFF;
     const int nib_lo = ((byte & 0xF) ^ 8) - 8;  // sign-extend each 4-bit two's-complement nibble
     const int nib_hi = ((byte >> 4) ^ 8) - 8;
-    tile[c0 + i][j] = rescale_code(nib_lo, bf2f(rlo[i]));
-    tile[c0 + i][TK / 2 + j] = rescale_code(nib_hi, bf2f(rhi[i]));
+    tile[c0 + i][j] = rescale_code<E2M1>(nib_lo, bf2f(rlo[i]));
+    tile[c0 + i][TK / 2 + j] = rescale_code<E2M1>(nib_hi, bf2f(rhi[i]));
   }
   __syncthreads();
   const int r = threadIdx.x >> 2, seg = (threadIdx.x & 3) * (TK / 4);
@@ -72,13 +92,15 @@ __global__ void __launch_bounds__(THREADS)
 
 }  // namespace
 
-// qweight (K/2, N) int8, rescales (K/64, N) bf16 -> out (N, K) int8 holding
-// the (K, N) weight K-contiguous. Needs K % 256 == 0, N % 64 == 0 (checked
-// by the Python wrapper).
-extern "C" int nt_dequant_w4a8(const void* qweight, const void* rescales, void* out, int K, int N,
+// qweight (K/2, N) int8, rescales (K/G, N) bf16 -> out (N, K) int8 holding
+// the (K, N) weight K-contiguous. e2m1 == 0: int4 codes, G = 64; e2m1 == 1:
+// e2m1 codes, G = 16. Needs K % 256 == 0, N % 64 == 0 (checked by the
+// Python wrapper).
+extern "C" int nt_dequant_w4a8(const void* qweight, const void* rescales, void* out, int K, int N, int e2m1,
                                void* stream) {
   dim3 grid(N / TN, K / TK);
-  dequant_w4a8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = e2m1 ? dequant_w4a8_kernel<true, 16> : dequant_w4a8_kernel<false, 64>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qweight), static_cast<const bf16*>(rescales),
       static_cast<int8_t*>(out), K, N);
   return static_cast<int>(cudaGetLastError());

@@ -21,6 +21,15 @@
 // quantizes, and sums the low-rank partials in tile order. The scale needs
 // a max over bn = 1536 columns, more than one GEMM tile holds, hence the
 // f32 round trip of g; keeping g on chip is left to a later version.
+//
+// Rank. The low-rank widths R (this layer) and R2 (the next) run up to 128
+// (nunchaku's rank-128 checkpoints). The epilogue's shared memory is laid
+// out at run time for the call's R and R2 (lora_bytes, the g tile, the
+// proj_down tile of R2 rounded up to 16 columns): 70 KiB at rank 32, as
+// before, 142 KiB at rank 128. The low-rank partial runs over R2 in 32-column
+// slices of two WMMA accumulators, so registers do not grow with the rank;
+// the partial buffer is sized by R2 (tiles x M x R2p), and kernel B sums the
+// tiles in tile order, as the JAX producer does.
 #include "int8_gemm.cuh"
 
 namespace {
@@ -28,21 +37,33 @@ namespace {
 using namespace i8gemm;
 
 constexpr int LDG = BN + 8;     // bf16 row stride of the g tile (272 bytes)
-constexpr int LDP = MAX_R + 8;  // bf16 row stride of the proj_down tile (80 bytes)
 constexpr int WN_WARPS = BN / WN;
 
-struct Smem {
-  union {
-    Stage st[2];
-    struct {
-      LoraTile lora;
-      bf16 g[BM][LDG];   // bf16(g) of this tile: A operand of the low-rank partial
-      bf16 pd[BN][LDP];  // proj_down_next rows n0..n0+127, zero-padded to MAX_R
-    } epi;
-  } u;
-  int scratch[THREADS / 32][16 * 16];
-  float amax[BM][WN_WARPS];
+__host__ __device__ constexpr int round16(int r) { return (r + 15) / 16 * 16; }
+
+// Dynamic shared memory, laid out at run time:
+//   [0, union)  the main loop's two stages, reused by the epilogue as
+//               lora tile (lora_bytes(R)) | g tile [BM][LDG] | pd tile [BN][R2p + 8]
+//   then        scratch[THREADS / 32][256] int, amax[BM][WN_WARPS] f32
+struct Layout {
+  size_t lora, g, pd, scratch, amax, total;
 };
+
+__host__ __device__ inline Layout layout(int R, int R2) {
+  Layout l{};
+  const size_t g_bytes = align128(static_cast<size_t>(BM) * LDG * sizeof(bf16));
+  const size_t pd_bytes = align128(static_cast<size_t>(BN) * (round16(R2) + 8) * sizeof(bf16));
+  l.lora = 0;
+  l.g = lora_bytes(R);
+  l.pd = l.g + g_bytes;
+  size_t uni = l.pd + pd_bytes;
+  const size_t stages = align128(2 * sizeof(Stage));
+  if (uni < stages) uni = stages;
+  l.scratch = uni;
+  l.amax = l.scratch + align128(static_cast<size_t>(THREADS / 32) * 256 * sizeof(int));
+  l.total = l.amax + align128(static_cast<size_t>(BM) * WN_WARPS * sizeof(float));
+  return l;
+}
 
 __global__ void __launch_bounds__(THREADS)
     gemm_gelu_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as,
@@ -53,29 +74,36 @@ __global__ void __launch_bounds__(THREADS)
                      float* __restrict__ amax_part, float* __restrict__ lora_part, int M, int N,
                      int K, int R, int R2, float shift) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const Layout L = layout(R, R2);
+  const int R2p = round16(R2), LDP = R2p + 8;
+  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  const LoraTile lora = lora_tile(smem_raw + L.lora, R);
+  bf16* gt = reinterpret_cast<bf16*>(smem_raw + L.g);    // [BM][LDG]: bf16(g) of this tile
+  bf16* pdt = reinterpret_cast<bf16*>(smem_raw + L.pd);  // [BN][LDP]: proj_down_next rows n0.., zero-padded to R2p
+  int* scratch = reinterpret_cast<int*>(smem_raw + L.scratch);
+  float* amax = reinterpret_cast<float*>(smem_raw + L.amax);  // [BM][WN_WARPS]
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   AccFrag acc[FM][FN];
   zero(acc);
-  mainloop(sm.u.st, acc, qa, wt, m0, n0, 0, K, K);
+  mainloop(st, acc, qa, wt, m0, n0, 0, K, K);
 
-  for (int i = threadIdx.x; i < BN * MAX_R; i += THREADS) {
-    const int c = i / MAX_R, r = i % MAX_R;
-    sm.u.epi.pd[c][r] = r < R2 ? pd[static_cast<size_t>(n0 + c) * R2 + r] : __float2bfloat16(0.f);
+  for (int i = threadIdx.x; i < BN * R2p; i += THREADS) {
+    const int c = i / R2p, r = i % R2p;
+    pdt[c * LDP + r] = r < R2 ? pd[static_cast<size_t>(n0 + c) * R2 + r] : __float2bfloat16(0.f);
   }
-  if (R > 0) stage_lora(sm.u.epi.lora, la, pu, m0, n0, N, R);
+  if (R > 0) stage_lora(lora, la, pu, m0, n0, N, R);
 
   float rmax[FM];
 #pragma unroll
   for (int fm = 0; fm < FM; ++fm) rmax[fm] = 0.f;
-  for_each_fragment(sm.scratch[warp], acc, [&](int fm, int, int ml, int nl, const int (&v)[8]) {
+  for_each_fragment(scratch + warp * 256, acc, [&](int fm, int, int ml, int nl, const int (&v)[8]) {
     const int m = m0 + ml, n = n0 + nl;
     const float a = as[m];
     float out[8];
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[i] = __fmul_rn(__fmul_rn(static_cast<float>(v[i]), a), ws[n + i]);
-    add_lora_bias(sm.u.epi.lora, out, ml, nl, n, R, bias);
+    add_lora_bias(lora, out, ml, nl, n, R, bias);
     float gv[8], hm = 0.f;
     uint4 gb;
     bf16* gbp = reinterpret_cast<bf16*>(&gb);
@@ -88,42 +116,49 @@ __global__ void __launch_bounds__(THREADS)
     float4* dst = reinterpret_cast<float4*>(g + static_cast<size_t>(m) * N + n);
     dst[0] = make_float4(gv[0], gv[1], gv[2], gv[3]);
     dst[1] = make_float4(gv[4], gv[5], gv[6], gv[7]);
-    *reinterpret_cast<uint4*>(&sm.u.epi.g[ml][nl]) = gb;
+    *reinterpret_cast<uint4*>(&gt[ml * LDG + nl]) = gb;
     hm = fmaxf(hm, __shfl_xor_sync(0xffffffffu, hm, 1));  // both halves of the fragment row
     rmax[fm] = fmaxf(rmax[fm], hm);
   });
   const int wm = warp / 4, wn = warp % 4;
   if ((lane & 1) == 0) {
 #pragma unroll
-    for (int fm = 0; fm < FM; ++fm) sm.amax[wm * WM + fm * 16 + (lane >> 1)][wn] = rmax[fm];
+    for (int fm = 0; fm < FM; ++fm) amax[(wm * WM + fm * 16 + (lane >> 1)) * WN_WARPS + wn] = rmax[fm];
   }
   __syncthreads();  // the g tile, the row maxima and the proj_down tile are complete
   const int tile = n0 / BN;
   if (threadIdx.x < BM) {
-    float mx = sm.amax[threadIdx.x][0];
+    float mx = amax[threadIdx.x * WN_WARPS];
 #pragma unroll
-    for (int i = 1; i < WN_WARPS; ++i) mx = fmaxf(mx, sm.amax[threadIdx.x][i]);
+    for (int i = 1; i < WN_WARPS; ++i) mx = fmaxf(mx, amax[threadIdx.x * WN_WARPS + i]);
     amax_part[static_cast<size_t>(tile) * M + m0 + threadIdx.x] = mx;
   }
 
-  // low-rank partial of this tile: bf16(g)[16 rows of this warp, 128] @ pd[128, MAX_R]
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[MAX_R / 16];
+  // low-rank partial of this tile: bf16(g)[16 rows of this warp, 128] @
+  // pd[128, R2p], 32 columns (two accumulators) at a time
+  float* dst = lora_part + (static_cast<size_t>(tile) * M + m0 + warp * 16) * R2p;
+  for (int j0 = 0; j0 < R2p; j0 += 32) {
+    const int nf = R2p - j0 >= 32 ? 2 : 1;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[2];
+    wmma::fill_fragment(lp[0], 0.f);
+    wmma::fill_fragment(lp[1], 0.f);
 #pragma unroll
-  for (int j = 0; j < MAX_R / 16; ++j) wmma::fill_fragment(lp[j], 0.f);
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
+      wmma::load_matrix_sync(ga, &gt[(warp * 16) * LDG + kk * 16], LDG);
 #pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
-    wmma::load_matrix_sync(ga, &sm.u.epi.g[warp * 16][kk * 16], LDG);
-#pragma unroll
-    for (int j = 0; j < MAX_R / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
-      wmma::load_matrix_sync(pb, &sm.u.epi.pd[kk * 16][j * 16], LDP);
-      wmma::mma_sync(lp[j], ga, pb, lp[j]);
+      for (int j = 0; j < 2; ++j) {
+        if (j < nf) {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
+          wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 + j * 16], LDP);
+          wmma::mma_sync(lp[j], ga, pb, lp[j]);
+        }
+      }
     }
-  }
-  float* dst = lora_part + (static_cast<size_t>(tile) * M + m0 + warp * 16) * MAX_R;
 #pragma unroll
-  for (int j = 0; j < MAX_R / 16; ++j) wmma::store_matrix_sync(dst + j * 16, lp[j], MAX_R, wmma::mem_row_major);
+    for (int j = 0; j < 2; ++j)
+      if (j < nf) wmma::store_matrix_sync(dst + j0 + j * 16, lp[j], R2p, wmma::mem_row_major);
+  }
 }
 
 constexpr int RQ_THREADS = 256;
@@ -135,6 +170,7 @@ __global__ void __launch_bounds__(RQ_THREADS)
                    int8_t* __restrict__ qout, float* __restrict__ qscales,
                    float* __restrict__ lora_next, int M, int N, int R2, int bn, float shift) {
   __shared__ float rcp_s[MAX_GROUPS];
+  const int R2p = round16(R2);
   const int m = blockIdx.x;
   const int tiles = N / BN, tiles_per_group = bn / BN, groups = N / bn;
   for (int j = threadIdx.x; j < groups; j += RQ_THREADS) {
@@ -148,7 +184,7 @@ __global__ void __launch_bounds__(RQ_THREADS)
   }
   for (int r = threadIdx.x; r < R2; r += RQ_THREADS) {
     float s = 0.f;
-    for (int t = 0; t < tiles; ++t) s = __fadd_rn(s, lora_part[(static_cast<size_t>(t) * M + m) * MAX_R + r]);
+    for (int t = 0; t < tiles; ++t) s = __fadd_rn(s, lora_part[(static_cast<size_t>(t) * M + m) * R2p + r]);
     lora_next[static_cast<size_t>(m) * R2 + r] = s;
   }
   __syncthreads();
@@ -175,10 +211,11 @@ __global__ void __launch_bounds__(RQ_THREADS)
 // K-contiguous), wscales (N,) f32,
 // lora_act (M, R) f32 | null, proj_up (R, N) bf16 | null, bias (N,) bf16 | null,
 // rsmooth_next (N,) f32, proj_down_next (N, R2) bf16; scratch gbuf (M, N) f32,
-// amax_part (N/128, M) f32, lora_part (N/128, M, 32) f32
+// amax_part (N/128, M) f32, lora_part (N/128, M, R2p) f32 with R2p = R2
+// rounded up to 16
 // -> qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R2) f32.
 // Needs M % 128 == 0, N % 128 == 0, K % 64 == 0, bn % 128 == 0, N / bn <= 256,
-// R, R2 <= 32.
+// R, R2 <= MAX_R (128).
 extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, const void* wt,
                                        const void* wscales, const void* lora_act,
                                        const void* proj_up, const void* bias, const void* rsmooth,
@@ -187,10 +224,11 @@ extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, co
                                        int M, int N, int K, int R, int R2, int bn, float shift,
                                        void* stream) {
   static bool configured = false;
-  const int smem = static_cast<int>(sizeof(Smem));
-  if (!configured) {
-    cudaError_t e =
-        cudaFuncSetAttribute(gemm_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (R > MAX_R || R2 > MAX_R || R2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(layout(R, R2).total);
+  if (!configured) {  // room for the largest rank once; each launch asks for its own size
+    cudaError_t e = cudaFuncSetAttribute(gemm_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(layout(MAX_R, MAX_R).total));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }

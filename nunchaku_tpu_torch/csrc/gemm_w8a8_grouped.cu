@@ -23,22 +23,33 @@
 // epilogue adds the rank-r branch and bias (and, with RES, the extra
 // operand's rank-r2 branch through the same shared-memory tile code and
 // the gated add) and writes bf16 in 16-byte vectors.
+//
+// Rank. R and R2 run up to 128 (nunchaku's rank-128 checkpoints): the two
+// low-rank tiles live in dynamic shared memory sized by the call's ranks,
+// 40 KiB in all at rank 32, as before, 136 KiB at rank 128.
 #include "int8_gemm.cuh"
 
 namespace {
 
 using namespace i8gemm;
 
-struct Smem {
-  union {
-    Stage st[2];
-    struct {
-      LoraTile lora;   // after the main loop
-      LoraTile elora;  // the extra operand's low-rank branch (RES)
-    } epi;
-  } u;
-  int scratch[THREADS / 32][16 * 16];  // one accumulator fragment per warp
+// Dynamic shared memory: [0, union) the main loop's two stages, reused after
+// it by the lora tile (lora_bytes(R)) and the extra operand's (lora_bytes(R2),
+// RES); then scratch[THREADS / 32][256] int, one accumulator fragment per warp.
+struct Layout {
+  size_t elora, scratch, total;
 };
+
+__host__ __device__ inline Layout layout(int R, int R2) {
+  Layout l{};
+  l.elora = lora_bytes(R);
+  size_t uni = l.elora + lora_bytes(R2);
+  const size_t stages = align128(2 * sizeof(Stage));
+  if (uni < stages) uni = stages;
+  l.scratch = uni;
+  l.total = l.scratch + align128(static_cast<size_t>(THREADS / 32) * 256 * sizeof(int));
+  return l;
+}
 
 // Gated-residual operands: x, extra (M, N) bf16; gate (B, N) f32, row m
 // takes gate[m / S]; extra_la (M, R2) f32 with extra_pu (R2, N) bf16.
@@ -67,7 +78,11 @@ __global__ void __launch_bounds__(THREADS)
                         const float* __restrict__ la, const bf16* __restrict__ pu,
                         const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K,
                         int G, int R, Res res) {
-  __shared__ __align__(128) Smem sm;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Layout L = layout(R, res.R2);
+  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  const LoraTile lora = lora_tile(smem_raw, R), elora = lora_tile(smem_raw + L.elora, res.R2);
+  int* scratch = reinterpret_cast<int*>(smem_raw + L.scratch);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int gk = K / G;
   float facc[FM][FN][8];
@@ -81,9 +96,9 @@ __global__ void __launch_bounds__(THREADS)
   AccFrag acc[FM][FN];
   for (int g = 0; g < G; ++g) {
     zero(acc);
-    mainloop(sm.u.st, acc, qa, wt, m0, n0, g * gk, (g + 1) * gk, K);
+    mainloop(st, acc, qa, wt, m0, n0, g * gk, (g + 1) * gk, K);
     const float* asg = as + static_cast<size_t>(g) * M + m0;
-    for_each_fragment(sm.scratch[threadIdx.x / 32], acc, [&](int fm, int fn, int ml, int, const int (&v)[8]) {
+    for_each_fragment(scratch + (threadIdx.x / 32) * 256, acc, [&](int fm, int fn, int ml, int, const int (&v)[8]) {
       const float a = asg[ml];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
@@ -91,8 +106,8 @@ __global__ void __launch_bounds__(THREADS)
     });
   }
 
-  if (R > 0) stage_lora(sm.u.epi.lora, la, pu, m0, n0, N, R);
-  if (RES && res.R2 > 0) stage_lora(sm.u.epi.elora, res.ela, res.epu, m0, n0, N, res.R2);
+  if (R > 0) stage_lora(lora, la, pu, m0, n0, N, R);
+  if (RES && res.R2 > 0) stage_lora(elora, res.ela, res.epu, m0, n0, N, res.R2);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / 4, wn = warp % 4;
   const int r = lane >> 1, c0 = (lane & 1) * 8;
@@ -105,7 +120,7 @@ __global__ void __launch_bounds__(THREADS)
       float o[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) o[i] = __fmul_rn(facc[fm][fn][i], ws[n + i]);
-      add_lora_bias(sm.u.epi.lora, o, ml, nl, n, R, bias);
+      add_lora_bias(lora, o, ml, nl, n, R, bias);
       if (RES) {
         const size_t at = static_cast<size_t>(m) * N + n;
         float xv[8], e[8];
@@ -115,7 +130,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int i = 0; i < 8; ++i) o[i] = round_bf16(o[i]);
         if (res.extra != nullptr) {
           load8(e, res.extra + at);
-          add_lora_bias(sm.u.epi.elora, e, ml, nl, n, res.R2, nullptr);
+          add_lora_bias(elora, e, ml, nl, n, res.R2, nullptr);
 #pragma unroll
           for (int i = 0; i < 8; ++i) o[i] = __fadd_rn(o[i], round_bf16(e[i]));
         }
@@ -139,7 +154,7 @@ __global__ void __launch_bounds__(THREADS)
 // residual: x (M, N) bf16 | null (no residual), gate (B, N) f32 with S = M / B
 // rows per batch, extra (M, N) bf16 | null, extra_la (M, R2) f32 | null,
 // extra_pu (R2, N) bf16 | null
-// -> out (M, N) bf16. Needs M % 128 == 0, N % 128 == 0, (K / G) % 64 == 0, R, R2 <= 32.
+// -> out (M, N) bf16. Needs M % 128 == 0, N % 128 == 0, (K / G) % 64 == 0, R, R2 <= MAX_R (128).
 extern "C" int nt_gemm_w8a8_grouped(const void* qact, const void* ascales, const void* wt,
                                     const void* wscales, const void* lora_act, const void* proj_up,
                                     const void* bias, const void* x, const void* gate,
@@ -151,8 +166,18 @@ extern "C" int nt_gemm_w8a8_grouped(const void* qact, const void* ascales, const
   const Res res{static_cast<const bf16*>(x), static_cast<const float*>(gate), static_cast<const bf16*>(extra),
                 static_cast<const float*>(extra_la), static_cast<const bf16*>(extra_pu), S,
                 extra_la == nullptr ? 0 : R2};
+  static bool configured = false;
+  if (R > MAX_R || res.R2 > MAX_R) return static_cast<int>(cudaErrorInvalidValue);
+  if (!configured) {  // room for the largest ranks once; each launch asks for its own size
+    const int most = static_cast<int>(layout(MAX_R, MAX_R).total);
+    for (auto k : {gemm_grouped_kernel<true>, gemm_grouped_kernel<false>}) {
+      cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    configured = true;
+  }
   auto kernel = x != nullptr ? gemm_grouped_kernel<true> : gemm_grouped_kernel<false>;
-  kernel<<<grid, THREADS, 0, s>>>(
+  kernel<<<grid, THREADS, static_cast<int>(layout(R, res.R2).total), s>>>(
       static_cast<const int8_t*>(qact), static_cast<const float*>(ascales),
       static_cast<const int8_t*>(wt), static_cast<const float*>(wscales),
       static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),

@@ -25,18 +25,34 @@ constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256;
 constexpr int WM = 64, WN = 32;
 constexpr int FM = WM / 16, FN = WN / 16;
 constexpr int KC = BK / 16;
-constexpr int MAX_R = 32;  // low-rank width the epilogue stages in shared memory
+constexpr int MAX_R = 128;  // largest low-rank width the wrappers pass (nunchaku's rank-128 checkpoints)
 
 struct Stage {
   int8_t a[KC][BM][16];  // a[kc][m] = qact[m0 + m, k0 + 16 kc : +16]
   int8_t b[KC][BN][16];  // b[kc][n] = w[k0 + 16 kc : +16, n0 + n]
 };
 
-// bf16(lora_act) rows and proj_up columns of one tile, staged for the epilogue
+// bf16(lora_act) rows and proj_up columns of one tile, staged for the
+// epilogue in dynamic shared memory sized by the call's rank R:
+// la[R][BM] (transposed: at a given rank column the 16 rows a warp reads
+// sit side by side, not R apart in one bank), pu[R][BN] (lora_bytes(R)
+// bytes from `base`).
 struct LoraTile {
-  bf16 la[BM][MAX_R];
-  bf16 pu[MAX_R][BN];
+  bf16* la;
+  bf16* pu;
+  int R;
 };
+
+__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
+
+__host__ __device__ constexpr size_t lora_bytes(int R) {
+  return align128(static_cast<size_t>(BM) * R * sizeof(bf16)) + align128(static_cast<size_t>(R) * BN * sizeof(bf16));
+}
+
+__device__ __forceinline__ LoraTile lora_tile(unsigned char* base, int R) {
+  return LoraTile{reinterpret_cast<bf16*>(base),
+                  reinterpret_cast<bf16*>(base + align128(static_cast<size_t>(BM) * R * sizeof(bf16))), R};
+}
 
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> AccFrag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> AFrag;
@@ -122,16 +138,16 @@ __device__ __forceinline__ void for_each_fragment(int* scr, AccFrag (&acc)[FM][F
   }
 }
 
-// Stage bf16(lora_act[m0:, :R]) and proj_up[:R, n0:] for the epilogue.
-__device__ __forceinline__ void stage_lora(LoraTile& lt, const float* la, const bf16* pu, int m0, int n0,
+// Stage bf16(lora_act[m0:, :R]) (transposed) and proj_up[:R, n0:] for the epilogue.
+__device__ __forceinline__ void stage_lora(const LoraTile& lt, const float* la, const bf16* pu, int m0, int n0,
                                            int N, int R) {
   for (int i = threadIdx.x; i < BM * R; i += THREADS) {
-    int r = i / R, j = i % R;
-    lt.la[r][j] = __float2bfloat16(la[static_cast<size_t>(m0 + r) * R + j]);
+    int j = i / BM, r = i % BM;
+    lt.la[i] = __float2bfloat16(la[static_cast<size_t>(m0 + r) * R + j]);
   }
   for (int i = threadIdx.x; i < R * BN; i += THREADS) {
     int j = i / BN, c = i % BN;
-    lt.pu[j][c] = pu[static_cast<size_t>(j) * N + n0 + c];
+    lt.pu[i] = pu[static_cast<size_t>(j) * N + n0 + c];
   }
   __syncthreads();
 }
@@ -144,9 +160,10 @@ __device__ __forceinline__ void add_lora_bias(const LoraTile& lt, float (&out)[8
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] = 0.f;
     for (int j = 0; j < R; ++j) {
-      float a = bf2f(lt.la[ml][j]);
+      float a = bf2f(lt.la[j * BM + ml]);
+      const bf16* prow = lt.pu + static_cast<size_t>(j) * BN + nl;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) s[i] = fmaf(a, bf2f(lt.pu[j][nl + i]), s[i]);
+      for (int i = 0; i < 8; ++i) s[i] = fmaf(a, bf2f(prow[i]), s[i]);
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[i] = __fadd_rn(out[i], s[i]);

@@ -252,11 +252,12 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
     """fc1 -> GELU -> fc2.
 
     int8 / w4a8 (:func:`can_chain`): w4a8 weights are dequantized to int8
-    (fc1, then fc2), fc1's GEMM emits fc2's int8 activations with one scale
-    per (token, bn-column group), and fc2's GEMM consumes them group by
-    group. Other precisions (int4, nvfp4) run fc1, the f32 GELU of
-    ``jax.nn.gelu(approximate=True)`` and fc2 (its quantize adds the
-    post-GELU shift of an unsigned fc2).
+    (fc1, then fc2; int4 or e2m1 codes), fc1's GEMM emits fc2's int8
+    activations with one scale per (token, bn-column group), shifted first
+    when fc2 takes unsigned activations (a model from an int4 checkpoint),
+    and fc2's GEMM consumes them group by group. Other precisions (int4,
+    nvfp4) run fc1, the f32 GELU of ``jax.nn.gelu(approximate=True)`` and
+    fc2 (its quantize adds the post-GELU shift of an unsigned fc2).
 
     ``mod = (scale, shift)``: x is the RAW bf16 stream (B, S, K) and LN +
     modulate come first (on the chain, the LN + modulate + quantize
@@ -282,11 +283,11 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
         qact, asc, la = fc1.quantize(x.reshape(m, x.shape[-1]))
     w1, w2 = fc1.qweight, fc2.qweight
     if fc1.precision == "w4a8":
-        w1 = dequant_w4a8(fc1.qweight, fc1.rescales)
-        w2 = dequant_w4a8(fc2.qweight, fc2.rescales)
+        w1 = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)
+        w2 = dequant_w4a8(fc2.qweight, fc2.rescales, fc2.wcodes)
     qout, qs, la2 = svdq_gemm_w8a8_gelu_quant(
         qact, asc, w1, fc1.wscales, la, fc1.proj_up, fc1.bias, rsmooth_of(fc2.smooth),
-        fc2.proj_down)
+        fc2.proj_down, act_unsigned_next=fc2.act_unsigned)
     res = None
     if residual is not None and qout.shape[0] == m:
         xr, gate, extra, ela, epu = tuple(residual) + (None,) * (5 - len(residual))

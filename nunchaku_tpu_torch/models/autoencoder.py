@@ -3,10 +3,12 @@
 Counterpart of ``nunchaku_tpu/models/autoencoder.py``: ``Conv2d`` and
 ``_conv``, ``group_norm``, ``ResnetBlock``, ``AttnBlock``, ``Upsample``,
 ``Decoder``, ``AutoencoderKL`` (``random_init`` with the decoder only,
-``enable_tiling`` / ``disable_tiling``, ``decode`` whole or in blended tiles)
-and ``_tile_blend_mask``. The encoder side (``Encoder``, ``Downsample``,
-``encode``) and the diffusers state-dict loader wait for later slices. Layout
-NCHW, weights (out, in, kh, kw) bf16 and norms bf16, as in the JAX package.
+``enable_tiling`` / ``disable_tiling``, ``decode`` whole or in blended tiles),
+``_tile_blend_mask`` and the diffusers state-dict loader ``load_autoencoder``
+(decoder keys). The encoder side (``Encoder``, ``Downsample``, ``encode``)
+waits for a later slice (ROADMAP Queue 1, item 2): until then ``encode``
+raises and the loader leaves ``encoder.*`` keys unread. Layout NCHW, weights
+(out, in, kh, kw) bf16 and norms bf16, as in the JAX package.
 
 Rounding. The JAX package leaves the convolutions to XLA: bf16 operands,
 f32 accumulation, f32 bias, one rounding to bf16. Here they are
@@ -259,6 +261,9 @@ class AutoencoderKL(nn.Module):
     def disable_tiling(self):
         self.tile_latent_size = None
 
+    def encode(self, x):
+        raise NotImplementedError("the port has no VAE encoder yet (ROADMAP Queue 1, item 2: image-to-image)")
+
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """(B, C_lat, h, w) scaled latents -> (B, 8h, 8w, 3) f32 in [0, 1]."""
@@ -299,3 +304,71 @@ class AutoencoderKL(nn.Module):
         sh = torch.tensor(self.shift_factor, dtype=torch.bfloat16)
         img = self.decoder(z.to(torch.bfloat16) / sf + sh)
         return torch.clamp(img.float().permute(0, 2, 3, 1) / 2 + 0.5, 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# diffusers state-dict loader
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def load_autoencoder(path_or_tensors, *, scaling_factor=0.3611, shift_factor=0.1159,
+                     block_out_channels=(128, 256, 512, 512), layers_per_block=2, latent_channels=16,
+                     device="cuda") -> AutoencoderKL:
+    """The decoder of a diffusers ``AutoencoderKL`` safetensors file (or a
+    dict of tensors), bf16 (JAX ``load_autoencoder``, autoencoder.py:412).
+    Every decoder tensor's shape is checked against the given structure; a
+    file without decoder keys is refused. ``encoder.*`` keys are not read
+    (the port has no encoder yet)."""
+    if isinstance(path_or_tensors, dict):
+        sd = path_or_tensors
+    else:
+        from ..utils.safetensors import load_safetensors
+
+        sd, _ = load_safetensors(path_or_tensors)
+    if "decoder.conv_in.weight" not in sd:
+        raise KeyError("no decoder.* tensors: not a diffusers AutoencoderKL state dict with a decoder")
+
+    def get(name, shape):
+        t = sd[name]
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)} does not match the structure's {tuple(shape)}")
+        return t.to(device).float().to(torch.bfloat16)
+
+    def conv(prefix, cin, cout, k=3):
+        w = sd[f"{prefix}.weight"]
+        if w.ndim == 2:  # diffusers Attention keeps its projections as Linear layers
+            w = w[:, :, None, None]
+        if tuple(w.shape) != (cout, cin, k, k):
+            raise ValueError(f"{prefix}.weight: shape {tuple(w.shape)} does not match the structure's "
+                             f"{(cout, cin, k, k)}")
+        return Conv2d(w.to(device).float().to(torch.bfloat16), get(f"{prefix}.bias", (cout,)), 1, 1 if k == 3 else 0)
+
+    def resnet(prefix, cin, cout):
+        sc = conv(f"{prefix}.conv_shortcut", cin, cout, k=1) if cin != cout else None
+        return ResnetBlock(get(f"{prefix}.norm1.weight", (cin,)), get(f"{prefix}.norm1.bias", (cin,)),
+                           conv(f"{prefix}.conv1", cin, cout), get(f"{prefix}.norm2.weight", (cout,)),
+                           get(f"{prefix}.norm2.bias", (cout,)), conv(f"{prefix}.conv2", cout, cout), sc)
+
+    def attn(prefix, c):
+        return AttnBlock(get(f"{prefix}.group_norm.weight", (c,)), get(f"{prefix}.group_norm.bias", (c,)),
+                         *[conv(f"{prefix}.{n}", c, c, k=1) for n in ("to_q", "to_k", "to_v", "to_out.0")])
+
+    d = "decoder"
+    rev = list(reversed(block_out_channels))
+    ch = rev[0]
+    up_blocks, upsamplers, prev = [], [], ch
+    for i, c in enumerate(rev):
+        blocks = []
+        for j in range(layers_per_block + 1):
+            blocks.append(resnet(f"{d}.up_blocks.{i}.resnets.{j}", prev, c))
+            prev = c
+        up_blocks.append(blocks)
+        if i < len(rev) - 1:
+            upsamplers.append(Upsample(conv(f"{d}.up_blocks.{i}.upsamplers.0.conv", c, c)))
+    c0 = block_out_channels[0]
+    decoder = Decoder(conv(f"{d}.conv_in", latent_channels, ch), resnet(f"{d}.mid_block.resnets.0", ch, ch),
+                      attn(f"{d}.mid_block.attentions.0", ch), resnet(f"{d}.mid_block.resnets.1", ch, ch),
+                      up_blocks, upsamplers, get(f"{d}.conv_norm_out.weight", (c0,)),
+                      get(f"{d}.conv_norm_out.bias", (c0,)), conv(f"{d}.conv_out", c0, 3))
+    return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder)

@@ -1,6 +1,6 @@
 """Linear layers: plain bf16 ``Linear``, the SVDQuant ``SVDQW4A4Linear``
-(``int8``, ``w4a8``, ``int4``, ``nvfp4``) and the weight-only 4-bit
-``AWQW4A16Linear``.
+(``int8``, ``w4a8`` with int4 or e2m1 codes, ``int4``, ``nvfp4``) and the
+weight-only 4-bit ``AWQW4A16Linear``.
 
 Counterparts of ``nunchaku_tpu/models/linear.py`` ``Linear`` (:61),
 ``SVDQW4A4Linear`` (:87) and ``AWQW4A16Linear`` (:564, without its LoRA
@@ -15,7 +15,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.gemm import svdq_gemm_w4a4
+from ..ops.gemm import WCODES, svdq_gemm_w4a4, w4a8_group
 from ..ops.gemv import AWQ_XLA_MIN_M, awq_w4a16_linear, awq_w4a16_linear_plain
 from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
 from ..ops.reference import GROUP_INT4, bf16_matmul, group_size, is_4bit
@@ -55,26 +55,35 @@ class Linear(nn.Module):
 
 
 class SVDQW4A4Linear(nn.Module):
-    """SVDQuant linear with a rank-r low-rank branch.
+    """SVDQuant linear with a low-rank branch of any rank R.
 
     Buffers (JAX layouts): ``qweight`` (K, N) int8 (int8), or packed 4-bit
-    (K/2, N) (w4a8: int4 codes; int4 / nvfp4: int4 or e2m1 codes);
-    ``wscales`` (1, N) f32 per channel (int8, w4a8) or (K/G, N) bf16 per
-    group (int4: G = 64, nvfp4: G = 16); ``rescales`` (K/64, N) bf16 (w4a8
-    only); ``smooth`` (K,); ``proj_down`` (K, R); ``proj_up`` (R, N);
-    ``bias`` (N,) or None. The int8, int4 and nvfp4 weights are stored
-    K-contiguous (the same (K, N) or (K/2, N) values), the layout their
-    kernels read. ``act_unsigned`` (int4 only): the layer's activations
-    are shifted GELU outputs, quantized unsigned. Always returns bf16.
+    (K/2, N) (w4a8: int4 or e2m1 codes, ``wcodes``; int4 / nvfp4: int4 or
+    e2m1 codes); ``wscales`` (1, N) f32 per channel (int8, w4a8) or (K/G, N)
+    bf16 per group (int4: G = 64, nvfp4: G = 16); ``rescales`` (K/G, N) bf16
+    (w4a8 only; G = 64 for int4 codes, 16 for e2m1); ``smooth`` (K,);
+    ``proj_down`` (K, R); ``proj_up`` (R, N); ``bias`` (N,) or None. The
+    int8, int4 and nvfp4 weights are stored K-contiguous (the same (K, N) or
+    (K/2, N) values), the layout their kernels read. ``act_unsigned``: the
+    layer's activations are shifted GELU outputs (the fc2 layers of a model
+    from an int4 checkpoint), quantized unsigned at int4 and shifted before
+    the signed int8 quantization at int8 / w4a8. ``wcodes="e2m1"`` (w4a8
+    only) is the nvfp4-a8 serving mode: an nvfp4 checkpoint's e2m1 codes
+    through the int8 products. Always returns bf16.
     """
 
     def __init__(self, qweight, wscales, smooth, proj_down, proj_up, bias=None, rescales=None, *,
-                 precision: str = "w4a8", act_unsigned: bool = False):
+                 precision: str = "w4a8", act_unsigned: bool = False, wcodes: str = "int4"):
         super().__init__()
         if precision not in ("int8", "w4a8", "int4", "nvfp4"):
             raise NotImplementedError(f"SVDQW4A4Linear precision {precision!r} is not ported")
-        if act_unsigned and precision != "int4":
-            raise NotImplementedError(f"unsigned activations are an int4 mode, not {precision!r}")
+        if act_unsigned and precision == "nvfp4":
+            raise NotImplementedError("unsigned activations are no nvfp4 mode")
+        if wcodes not in WCODES or (wcodes == "e2m1" and precision != "w4a8"):
+            raise ValueError(f"wcodes {wcodes!r} with precision {precision!r}: e2m1 codes are a w4a8 form")
+        if precision == "w4a8" and tuple(rescales.shape) != (2 * qweight.shape[0] // w4a8_group(wcodes),
+                                                              qweight.shape[1]):
+            raise ValueError(f"{wcodes} rescales must be (K/{w4a8_group(wcodes)}, N), got {tuple(rescales.shape)}")
         if precision != "w4a8":
             qweight = qweight.t().contiguous().t()
         for name, t in (("qweight", qweight), ("wscales", wscales), ("smooth", smooth),
@@ -83,6 +92,7 @@ class SVDQW4A4Linear(nn.Module):
             self.register_buffer(name, t)
         self.precision = precision
         self.act_unsigned = act_unsigned
+        self.wcodes = wcodes
         self.in_features = qweight.shape[0] * (1 if precision == "int8" else 2)
         self.out_features = qweight.shape[1]
 
@@ -97,7 +107,9 @@ class SVDQW4A4Linear(nn.Module):
     def random_init(cls, gen, in_features, out_features, rank=32, precision="w4a8", act_unsigned=False,
                     device="cuda"):
         """The distributions of the JAX ``random_init`` (linear.py:134-197).
-        FLUX's dims need none of the JAX package's odd-dim K/N padding."""
+        ``precision="nvfp4-a8"``: a w4a8 linear with e2m1 codes and group-16
+        rescales (JAX :171-182). FLUX's dims need none of the JAX package's
+        odd-dim K/N padding."""
         std = 1.0 / math.sqrt(in_features)
         if in_features % 256 or out_features % 128:
             raise ValueError("the port takes kernel-aligned dims (K % 256, N % 128)")
@@ -106,7 +118,9 @@ class SVDQW4A4Linear(nn.Module):
             ws = (_randn((in_features // g, out_features), gen, device).abs() * std / 7).to(torch.bfloat16)
         else:
             ws = (_randn((1, out_features), gen, device).abs() * std / 127).float()
-        rescales = None
+        rescales, wcodes = None, "int4"
+        if precision == "nvfp4-a8":
+            precision, wcodes = "w4a8", "e2m1"
         if precision == "int8":
             qw = torch.randint(-128, 128, (in_features, out_features), dtype=torch.int8,
                                generator=gen, device=device)
@@ -116,13 +130,15 @@ class SVDQW4A4Linear(nn.Module):
         else:
             raise NotImplementedError(f"precision {precision!r} is not ported")
         if precision == "w4a8":
-            rescales = (torch.rand((in_features // GROUP_INT4, out_features), generator=gen,
-                                   device=device) * (127.0 / 7.0 - 1.0) + 1.0).to(torch.bfloat16)
+            cmax = 6.0 if wcodes == "e2m1" else 7.0
+            rescales = (torch.rand((in_features // w4a8_group(wcodes), out_features), generator=gen,
+                                   device=device) * (127.0 / cmax - 1.0) + 1.0).to(torch.bfloat16)
         smooth = torch.ones((in_features,), dtype=torch.bfloat16, device=device)
         pd = _randn((in_features, rank), gen, device, 0.02).to(torch.bfloat16)
         pu = _randn((rank, out_features), gen, device, 0.02).to(torch.bfloat16)
         b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16)
-        return cls(qw, ws, smooth, pd, pu, b, rescales, precision=precision, act_unsigned=act_unsigned)
+        return cls(qw, ws, smooth, pd, pu, b, rescales, precision=precision, act_unsigned=act_unsigned,
+                   wcodes=wcodes)
 
     def quantize(self, x2d: torch.Tensor):
         """(M, K) -> (qact, ascales, lora_act), M padded to 256 (to 8 when
@@ -138,7 +154,8 @@ class SVDQW4A4Linear(nn.Module):
         operands."""
         return svdq_gemm_w4a4(qact, ascales, self.qweight, self.wscales, None if skip_lora else lora_act,
                               None if skip_lora else self.proj_up, self.bias, self.rescales,
-                              precision=self.precision, act_unsigned=self.act_unsigned, residual=residual)
+                              precision=self.precision, act_unsigned=self.act_unsigned, residual=residual,
+                              wcodes=self.wcodes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -176,11 +193,13 @@ class SVDQW4A4Linear(nn.Module):
 
 class AWQW4A16Linear(nn.Module):
     """Weight-only 4-bit linear for the small-M modulation layers of the
-    int4 / nvfp4 models: ``w = q * wscales - wzeros`` with q unsigned, 64-row
-    groups. Buffers (JAX layouts): ``qweight`` (K/2, N) int8, ``wscales``
-    and ``wzeros`` (K/64, N) bf16, ``bias`` (N,) or None. Returns the
-    input's dtype. M < 16 takes the GEMV kernel, larger M the dequantize-
-    then-multiply route (JAX linear.py:616-647)."""
+    int4 / nvfp4 models and T5's linears: ``w = q * wscales - wzeros`` with
+    q unsigned, in groups of G rows (64 for the modulation, the group of a
+    TinyChat file for T5; G comes from the scales' shape). Buffers (JAX
+    layouts): ``qweight`` (K/2, N) int8, ``wscales`` and ``wzeros`` (K/G, N)
+    bf16, ``bias`` (N,) or None. Returns the input's dtype. M < 16 takes the
+    GEMV kernel (G = 64), larger M the dequantize-then-multiply route (JAX
+    linear.py:616-647)."""
 
     def __init__(self, qweight, wscales, wzeros, bias=None):
         super().__init__()

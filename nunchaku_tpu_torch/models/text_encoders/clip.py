@@ -94,3 +94,36 @@ class CLIPTextModel(nn.Module):
         x = layer_norm_affine(x, self.final_ln_w, self.final_ln_b)
         eos = torch.argmax((input_ids == self.eos_token_id).to(torch.int32), dim=1)
         return x[torch.arange(b, device=x.device), eos], x
+
+
+@torch.no_grad()
+def load_clip_text(path_or_tensors, *, heads=12, layers=12, eos_token_id=2, device="cuda") -> CLIPTextModel:
+    """A CLIP text encoder from an HF ``CLIPTextModel`` state dict
+    (``text_model.*`` keys; a file or a dict of tensors), bf16 (JAX
+    ``load_clip_text``, clip.py:282)."""
+    if isinstance(path_or_tensors, dict):
+        sd = path_or_tensors
+    else:
+        from ...utils.safetensors import load_safetensors
+
+        sd, _ = load_safetensors(path_or_tensors)
+    sd = {k.removeprefix("text_model."): v for k, v in sd.items()}
+
+    def vec(name):
+        return sd[name].to(device).float().to(torch.bfloat16)
+
+    def lin(prefix):
+        w = sd[f"{prefix}.weight"].to(device).float().t().contiguous()
+        return Linear(w.to(torch.bfloat16), vec(f"{prefix}.bias"))
+
+    blocks = []
+    for i in range(layers):
+        p = f"encoder.layers.{i}"
+        blocks.append(CLIPBlock(
+            vec(f"{p}.layer_norm1.weight"), vec(f"{p}.layer_norm1.bias"),
+            *[lin(f"{p}.self_attn.{n}_proj") for n in ("q", "k", "v", "out")],
+            vec(f"{p}.layer_norm2.weight"), vec(f"{p}.layer_norm2.bias"),
+            lin(f"{p}.mlp.fc1"), lin(f"{p}.mlp.fc2"), heads=heads))
+    return CLIPTextModel(vec("embeddings.token_embedding.weight"), vec("embeddings.position_embedding.weight"),
+                         blocks, vec("final_layer_norm.weight"), vec("final_layer_norm.bias"),
+                         eos_token_id=eos_token_id)

@@ -5,11 +5,13 @@ pre-RMSNorm blocks, a relative position bias that block 0 holds and every
 block adds, unscaled f32 attention scores, a gated tanh-GELU feed-forward,
 no biases. The AWQ linears run at M = B * S >= 16, so they take the
 dequantize-then-multiply route (``ops/gemv.py``), as in JAX. The residual
-stream is f32; every linear takes bf16 inputs.
+stream is f32; every linear takes bf16 inputs. ``load_t5_encoder`` reads
+the reference's TinyChat W4 file and plain bf16 HF files.
 """
 
 from __future__ import annotations
 
+import json
 import math
 
 import torch
@@ -120,3 +122,59 @@ class T5EncoderModel(nn.Module):
         for blk in self.blocks:
             x = blk(x, pos_bias)
         return rmsnorm(x, self.final_norm).to(torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# loader
+# ---------------------------------------------------------------------------
+
+
+@torch.no_grad()
+def load_t5_encoder(path_or_tensors, config: dict | None = None, device="cuda") -> T5EncoderModel:
+    """A T5 encoder from HF-format tensors (a file or a dict of tensors),
+    4-bit where a ``qweight`` exists (JAX ``load_t5_encoder``, t5.py:165).
+
+    Takes the reference's quantized T5 single file (TinyChat W4 tensors
+    ``*.qweight`` (oc/4, ic) int16, ``wscales`` / ``wzeros`` (ic/G, oc), the
+    zeros stored negated; the group G comes from the scales) and plain bf16
+    HF files. ``config`` defaults to the file's ``config`` metadata."""
+    from ...core.packing import pack_int4
+    from ...utils import nunchaku_format as NF
+    from ...utils.safetensors import load_safetensors
+
+    if isinstance(path_or_tensors, dict):
+        sd, meta = path_or_tensors, {}
+    else:
+        sd, meta = load_safetensors(path_or_tensors)
+    if config is None:
+        config = json.loads(meta.get("config", "{}"))
+    heads = config.get("num_heads", 64)
+    d_kv = config.get("d_kv", 64)
+    layers = config.get("num_layers", 24)
+
+    def get(name):
+        return sd[name].to(device)
+
+    def bf16(name):
+        return get(name).float().to(torch.bfloat16)
+
+    def lin(prefix):
+        if f"{prefix}.qweight" in sd:
+            qw = get(f"{prefix}.qweight")
+            ws, wz = get(f"{prefix}.wscales").float(), get(f"{prefix}.wzeros").float()
+            oc, ic = qw.shape[0] * 4, qw.shape[1]
+            codes = NF.unpack_tinychat_w4(qw, oc, ic)  # (oc, ic) unsigned
+            return AWQW4A16Linear(pack_int4(codes.t(), 0), ws.to(torch.bfloat16), (-wz).to(torch.bfloat16), None)
+        return Linear(get(f"{prefix}.weight").float().t().contiguous().to(torch.bfloat16), None)
+
+    blocks = []
+    for i in range(layers):
+        p = f"encoder.block.{i}"
+        a, f = f"{p}.layer.0.SelfAttention", f"{p}.layer.1.DenseReluDense"
+        rel = get(f"{a}.relative_attention_bias.weight").float() if i == 0 else None
+        attn = T5Attention(lin(f"{a}.q"), lin(f"{a}.k"), lin(f"{a}.v"), lin(f"{a}.o"), heads=heads, d_kv=d_kv,
+                           rel_bias=rel)
+        blocks.append(T5Block(bf16(f"{p}.layer.0.layer_norm.weight"), attn, bf16(f"{p}.layer.1.layer_norm.weight"),
+                              T5FF(lin(f"{f}.wi_0"), lin(f"{f}.wi_1"), lin(f"{f}.wo"))))
+    return T5EncoderModel(bf16("shared.weight"), blocks, bf16("encoder.final_layer_norm.weight"), heads=heads,
+                          d_kv=d_kv)

@@ -3,8 +3,10 @@
 Counterpart of ``nunchaku_tpu/models/transformers/transformer_flux.py``:
 ``FluxConfig``, ``FluxTransformerBlock``, ``FluxSingleTransformerBlock`` and
 ``FluxTransformer2DModel`` with ``embed`` / ``run_dual`` / ``run_singles`` /
-``head``, without ControlNet, at the precisions w4a8, int8, int4 and nvfp4,
-in two configurations:
+``head``, without ControlNet, at the precisions w4a8, int8, int4, nvfp4 and
+nvfp4-a8 (w4a8 linears with an nvfp4 checkpoint's e2m1 codes, through the
+dequant kernel's e2m1 form and the int8 chain; JAX ``ops/gemm.py:1975``), in
+two configurations:
 
 * the default: an f32 residual stream and the unfused attention prologue,
   with dense or, after ``set_attention_impl("blocksparse", sparsity_ratio=)``,

@@ -41,6 +41,7 @@ from .gemm import (
     gemm_w8a8_grouped_res,
     svdq_gemm_w8a8_gelu_quant,
     svdq_gemm_w8a8_gelu_quant_plain,
+    w4a8_group,
 )
 from .gemv import awq_w4a16_linear, awq_w4a16_linear_plain
 from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
@@ -59,10 +60,14 @@ def _rel(x: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def dequant_case(k, n, *, seed=0, device="cuda"):
+def dequant_case(k, n, *, codes="int4", seed=0, device="cuda"):
+    """Random packed codes (every nibble: e2m1 meets the stray code -8 too)
+    and bf16 rescales in [1, 127 / max |value|] per group of 64 (int4) or
+    16 (e2m1) rows, as the w4a8 conversion makes them."""
     g = _gen(seed, device)
     qw = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device=device, generator=g)
-    rs = torch.rand((k // 64, n), device=device, generator=g) * (127.0 / 7.0 - 1.0) + 1.0
+    cmax = 6.0 if codes == "e2m1" else 7.0
+    rs = torch.rand((k // w4a8_group(codes), n), device=device, generator=g) * (127.0 / cmax - 1.0) + 1.0
     return qw, rs.to(torch.bfloat16)
 
 
@@ -304,10 +309,10 @@ def check_awq(x, qw, ws, wz, bias):
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-4)"
 
 
-def check_dequant(qw, rs):
+def check_dequant(qw, rs, codes="int4"):
     """Exact: every int8 code equals the plain version's."""
-    out = dequant_w4a8(qw, rs)
-    ref = dequant_w4a8_plain(qw, rs)
+    out = dequant_w4a8(qw, rs, codes)
+    ref = dequant_w4a8_plain(qw, rs, codes)
     err = (out.int() - ref.int()).abs().max().item()
     return float(err), err == 0, f"max code diff {err} (tolerance: exact)"
 

@@ -6,10 +6,13 @@ takes by default for w4a8 (packed int4 weights dequantized to per-channel
 int8 once per layer, then int8 x int8 products):
 
 * :func:`dequant_w4a8` -- kernel ``csrc/dequant_w4a8.cu`` (JAX
-  ``_dequant_w4a8_kernel`` :1074);
+  ``_dequant_w4a8_kernel`` :1074), for int4 codes and for the e2m1 codes of
+  nvfp4-a8 (an nvfp4 checkpoint served through the int8 products; its
+  launches count apart, as ``dequant_w4a8_e2m1``);
 * :func:`svdq_gemm_w8a8_gelu_quant` -- kernel ``csrc/gemm_w8a8_gelu_quant.cu``
   (JAX ``_gemm_w8a8_gelu_quant_kernel`` :460), the fc1 GEMM whose epilogue
-  emits fc2's int8 activations;
+  emits fc2's int8 activations (low-rank widths up to 128, here and in the
+  consumer);
 * :func:`gemm_w8a8_grouped` -- kernel ``csrc/gemm_w8a8_grouped.cu`` (JAX
   ``_gemm_w8a8_kernel`` :344 in grouped-scale mode), the fc2 consumer; with
   ``residual=`` it takes the block's gated residual add into its epilogue
@@ -39,6 +42,7 @@ from . import _build
 from .quantize import rcp
 from .reference import (
     GELU_SHIFT,
+    GROUP_FP4,
     GROUP_INT4,
     RCP127,
     bf16_matmul,
@@ -52,7 +56,7 @@ from .reference import (
 KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/int8_gemm.cuh)
 KERNEL_TILE_N = 128
 KERNEL_TILE_K = 64
-KERNEL_MAX_RANK = 32
+KERNEL_MAX_RANK = 128  # the chain kernels' largest low-rank width (nunchaku's rank-128 checkpoints)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -76,40 +80,57 @@ def chain_tile_n(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def dequant_w4a8_plain(qweight: torch.Tensor, rescales: torch.Tensor) -> torch.Tensor:
-    """(K/2, N) packed int4 + (K/G, N) bf16 rescales -> (K, N) int8 codes
-    ``clip(round(nibble * rescale), -127, 127)`` in logical row order."""
+WCODES = ("int4", "e2m1")  # the w4a8 weight's 4-bit code forms: int4, or e2m1 (nvfp4-a8)
+
+
+def w4a8_group(codes: str) -> int:
+    """Rows per w4a8 rescale: 64 for int4 codes, 16 for e2m1 (the nvfp4
+    group, JAX ``bf16_ref.py:52``)."""
+    if codes not in WCODES:
+        raise ValueError(f"w4a8 codes must be one of {WCODES}, got {codes!r}")
+    return GROUP_INT4 if codes == "int4" else GROUP_FP4
+
+
+def dequant_w4a8_plain(qweight: torch.Tensor, rescales: torch.Tensor, codes: str = "int4") -> torch.Tensor:
+    """(K/2, N) packed 4-bit codes + (K/G, N) bf16 rescales -> (K, N) int8
+    ``clip(round(value * rescale), -127, 127)`` in logical row order; the
+    value is the signed nibble (int4) or its e2m1 decode (e2m1)."""
     half, n = qweight.shape
     k = half * 2
     g = k // rescales.shape[0]
     p = qweight.reshape(k // PACK_BLOCK, PACK_BLOCK // 2, n).to(torch.int16) & 0xFF
     lo = ((p & 0xF) ^ 8) - 8
     hi = ((p >> 4) ^ 8) - 8
-    w4 = torch.stack([lo, hi], dim=1).reshape(k // g, g, n).float()
-    w = w4 * rescales.float()[:, None, :]
+    w4 = torch.stack([lo, hi], dim=1).reshape(k // g, g, n)
+    vals = decode_e2m1(w4) if codes == "e2m1" else w4.float()
+    w = vals * rescales.float()[:, None, :]
     return torch.round(w).clamp(-127, 127).to(torch.int8).reshape(k, n)
 
 
-def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor) -> torch.Tensor:
+def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor, codes: str = "int4") -> torch.Tensor:
     """The (K, N) int8 codes of :func:`dequant_w4a8_plain`. On the card the
     kernel writes them K-contiguous: the result is a (K, N) view with
-    strides (1, K), the layout int8 tensor-core products read directly."""
+    strides (1, K), the layout int8 tensor-core products read directly. The
+    e2m1 form counts its launches in :data:`DEQUANT_E2M1`."""
+    g = w4a8_group(codes)
     if not qweight.is_cuda:
-        return dequant_w4a8_plain(qweight, rescales)
+        return dequant_w4a8_plain(qweight, rescales, codes)
     half, n = qweight.shape
     k = half * 2
     _build.require(qweight.dtype == torch.int8 and qweight.is_contiguous(), "qweight: contiguous int8")
     _build.require(rescales.dtype == torch.bfloat16 and rescales.is_contiguous(), "rescales: contiguous bf16")
     _build.require(k % PACK_BLOCK == 0 and n % 64 == 0, f"dequant kernel needs K % 256 == 0, N % 64 == 0 (K={k}, N={n})")
-    _build.require(tuple(rescales.shape) == (k // GROUP_INT4, n), f"rescales must be (K/64, N), got {tuple(rescales.shape)}")
+    _build.require(tuple(rescales.shape) == (k // g, n),
+                   f"{codes} rescales must be (K/{g}, N) = {(k // g, n)}, got {tuple(rescales.shape)}")
     out_t = torch.empty((n, k), dtype=torch.int8, device=qweight.device)
     lib = _build.library()
     _build.check(lib.nt_dequant_w4a8(qweight.data_ptr(), rescales.data_ptr(), out_t.data_ptr(), k, n,
-                                     _stream(qweight)), "dequant_w4a8")
-    dequant_w4a8.launches += 1
+                                     int(codes == "e2m1"), _stream(qweight)), "dequant_w4a8")
+    (DEQUANT_E2M1 if codes == "e2m1" else dequant_w4a8).launches += 1
     return out_t.t()
 
 
+DEQUANT_E2M1 = SimpleNamespace(launches=0)  # launches of the e2m1 form
 dequant_w4a8.launches = 0
 
 
@@ -179,7 +200,8 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     r2 = proj_down_next.shape[1]
     _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % KERNEL_TILE_K == 0,
              f"gelu-quant kernel needs M % 128, N % 128, K % 64 == 0 (M={m}, N={n}, K={k})")
-    _build.require(r <= KERNEL_MAX_RANK and r2 <= KERNEL_MAX_RANK, f"rank {r}/{r2} > {KERNEL_MAX_RANK}")
+    _build.require(r <= KERNEL_MAX_RANK and 1 <= r2 <= KERNEL_MAX_RANK,
+                   f"ranks {r} / {r2}: the chain kernels take 1 <= R2, R <= {KERNEL_MAX_RANK}")
     dev = qact.device
     qa = qact.contiguous()
     a_s = ascales.reshape(m).float().contiguous()
@@ -195,7 +217,7 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     _build.require(n // bn <= 256, f"at most 256 scale groups per row, got {n // bn}")
     gbuf = torch.empty((m, n), dtype=torch.float32, device=dev)  # scratch: g between the two kernels
     amax_part = torch.empty((tiles, m), dtype=torch.float32, device=dev)
-    lora_part = torch.empty((tiles, m, KERNEL_MAX_RANK), dtype=torch.float32, device=dev)
+    lora_part = torch.empty((tiles, m, -(-r2 // 16) * 16), dtype=torch.float32, device=dev)
     qout = torch.empty((m, n), dtype=torch.int8, device=dev)
     qscales = torch.empty((n // bn, m), dtype=torch.float32, device=dev)
     lora_next = torch.empty((m, r2), dtype=torch.float32, device=dev)
@@ -405,12 +427,13 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
 
 
 def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None, bias=None,
-                   rescales=None, *, precision="int8", act_unsigned=False, residual=None):
+                   rescales=None, *, precision="int8", act_unsigned=False, residual=None, wcodes="int4"):
     """The non-stacked branches of the JAX ``svdq_gemm_w4a4``.
 
     int8: qact (M, K) int8, ascales (1, M) per token or (G, M) grouped,
     qweight (K, N) int8, wscales (1, N). w4a8: qweight is packed int4
-    (K/2, N) with ``rescales`` (K/64, N); it is dequantized to int8 first.
+    (K/2, N) with ``rescales`` (K/64, N), or e2m1 codes (``wcodes="e2m1"``,
+    nvfp4-a8) with ``rescales`` (K/16, N); it is dequantized to int8 first.
     Grouped scales (G > 1, from the chain producer) go to the grouped
     kernel, per-token scales to the standalone int8 GEMM. int4 / nvfp4
     (``act_unsigned``: unsigned int4 activations): :func:`gemm_w4a4`.
@@ -422,7 +445,7 @@ def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None,
                         act_unsigned=act_unsigned)
         return out if residual is None else res_apply(out, *residual)
     if precision == "w4a8":
-        qweight = dequant_w4a8(qweight, rescales)
+        qweight = dequant_w4a8(qweight, rescales, wcodes)
     elif precision != "int8":
         raise NotImplementedError(f"precision {precision!r} is not ported")
     if ascales.ndim == 2 and ascales.shape[0] > 1:

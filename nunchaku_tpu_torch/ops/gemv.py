@@ -11,7 +11,8 @@ Counterparts of ``nunchaku_tpu/ops/gemv.py``:
   the weight dequantized to bf16 once, then one product.
 
 Weights are asymmetric: ``w = bf16(q * wscale - wzero)`` computed in f32,
-q an unsigned nibble, one scale and zero per 64 rows of K; the (K/2, N)
+q an unsigned nibble, one scale and zero per 64 rows of K (the kernel; the
+large-M route takes any group, as T5's TinyChat files need); the (K/2, N)
 weight is packed along K in the block-split-half layout.
 """
 
@@ -30,10 +31,12 @@ KERNEL_K_BLOCK = 512  # k per block (the kernel's K split)
 
 
 def awq_dequant(qweight: torch.Tensor, wscales: torch.Tensor, wzeros: torch.Tensor) -> torch.Tensor:
-    """(K/2, N) packed unsigned nibbles -> (K, N) bf16 ``q * s - z``."""
+    """(K/2, N) packed unsigned nibbles -> (K, N) bf16 ``q * s - z``, one
+    scale and zero per K/G rows (G = K / wscales.shape[0])."""
     q = unpack_int4(qweight, 0, unsigned=True).float()
-    s = wscales.float().repeat_interleave(GROUP_INT4, dim=0)
-    z = wzeros.float().repeat_interleave(GROUP_INT4, dim=0)
+    g = q.shape[0] // wscales.shape[0]
+    s = wscales.float().repeat_interleave(g, dim=0)
+    z = wzeros.float().repeat_interleave(g, dim=0)
     return (q * s - z).to(torch.bfloat16)
 
 

@@ -1,10 +1,10 @@
 """Where one FLUX.1-dev or Qwen-Image denoise step, or one VAE decode,
 spends its time on the card.
 
-    python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|nvfp4-a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --precision int4 --size 2048 --sparsity 0.5 [--out TABLE.txt]
-    python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--online-softmax] \
-        [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--rank R] \
+        [--online-softmax] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
 Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
@@ -21,7 +21,8 @@ kernels each range launched.
 unless ``--precision`` says otherwise), one forward at B 1 from a prompt of
 97 valid tokens padded to 211 with its mask (the flash kernel's mask form).
 ``--online-softmax``: every block's attention with ``fixed_softmax =
-False`` (the online kernel's forms).
+False`` (the online kernel's forms). ``--rank``: the low-rank width (32,
+or 128 as nunchaku's rank-128 Qwen-Image checkpoints have it).
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -181,9 +182,10 @@ def main(argv=None) -> int:
                     help="the transformer: FLUX.1-dev (w4a8 by default) or Qwen-Image (int4 by default)")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
-    ap.add_argument("--precision", choices=("w4a8", "int4", "nvfp4"),
-                    help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs); "
-                         "default w4a8 for FLUX, int4 for Qwen-Image")
+    ap.add_argument("--precision", choices=("w4a8", "nvfp4-a8", "int4", "nvfp4"),
+                    help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs; nvfp4-a8: "
+                         "w4a8 with e2m1 codes); default w4a8 for FLUX, int4 for Qwen-Image")
+    ap.add_argument("--rank", type=int, default=32, help="the low-rank width of every SVDQuant linear")
     ap.add_argument("--size", type=int, default=1024, help="FLUX: image side in pixels (2048: 16384 image tokens)")
     ap.add_argument("--sparsity", type=float, default=0.0,
                     help="FLUX: block-sparse attention at this ratio (0: dense flash)")
@@ -226,18 +228,19 @@ def main(argv=None) -> int:
     if args.model == "qwenimage":
         from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
 
-        cfg = QwenImageConfig(precision=args.precision)
+        cfg = QwenImageConfig(precision=args.precision, rank=args.rank)
         model = QwenImageTransformer2DModel.random_init(cfg, seed=0, device=dev)
         s_txt = 211
         inputs = (torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
                   torch.randn((1, s_txt, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
                   torch.full((1,), 0.7, device=dev), make_img_ids(64, 64, dev))
         kw = dict(encoder_hidden_states_mask=torch.arange(s_txt, device=dev)[None, :] < 97)
-        what = f"Qwen-Image {args.precision} (60 joint blocks), B 1, 97 of 211 text tokens valid (masked)"
+        what = (f"Qwen-Image {args.precision} rank {args.rank} (60 joint blocks), B 1, 97 of 211 text tokens valid "
+                f"(masked)")
     else:
         from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
 
-        cfg = FluxConfig(precision=args.precision)
+        cfg = FluxConfig(precision=args.precision, rank=args.rank)
         model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
         if args.turbo:
             model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()

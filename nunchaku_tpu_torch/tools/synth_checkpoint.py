@@ -1,0 +1,269 @@
+"""Synthesize nunchaku-format checkpoints from a seed, at any size.
+
+The repository holds no real checkpoint, so the loaders are driven with
+files of the published layouts filled with random values:
+
+* :func:`flux_state` -- a FLUX.1 transformer in nunchaku's v1 single-file
+  schema (``svdq-int4_r32-flux.1-dev``, ``svdq-fp4_r32-flux.1-dev``): MMA-
+  packed ``qweight``, group scales (nvfp4: e4m3 micro-scales, ``wtscale``),
+  MMA-packed ``lora_down`` / ``lora_up``, AWQ GEMV modulation linears;
+* :func:`qwen_state` -- a Qwen-Image transformer in the v2 schema
+  (``svdq-int4_r128-qwen-image``): plain ``proj_down`` / ``proj_up``,
+  ``smooth_factor``, the rank in ``quantization_config``;
+* :func:`t5_state` (TinyChat W4 linears), :func:`clip_state` and
+  :func:`vae_state` (bf16 HF / diffusers files).
+
+Every packed byte is a valid weight code (any nibble is an int4 or e2m1
+code) and the packed layouts only permute values drawn independently, so
+the tensors are drawn directly in their stored shapes, with no packing
+pass. Scales are the exception to "any bytes": e4m3 micro-scales are drawn
+finite and positive (a random byte can be NaN or reach 448). Magnitudes
+follow the JAX ``random_init``: group scales ``|N| / (7 sqrt(K))``, low-rank
+factors and biases ``0.02 N``, plain weights ``N / sqrt(K)``. Tensors are
+made on ``device`` and written with :func:`write`, one at a time.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+
+import torch
+
+from ..utils.safetensors import save_safetensors
+
+
+class _Draw:
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator(device=device)
+        self.gen.manual_seed(seed)
+        self.device = device
+
+    def normal(self, shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=self.gen, device=self.device) * scale).to(dtype)
+
+    def uniform(self, shape, lo, hi, dtype=torch.bfloat16):
+        return (torch.rand(shape, generator=self.gen, device=self.device) * (hi - lo) + lo).to(dtype)
+
+    def bytes(self, shape, dtype=torch.int8):
+        """Random bytes viewed as ``dtype`` (the last dim in elements)."""
+        size = torch.empty((), dtype=dtype).element_size()
+        raw = torch.randint(-128, 128, (*shape[:-1], shape[-1] * size), dtype=torch.int8, generator=self.gen,
+                            device=self.device)
+        return raw.view(dtype)
+
+
+def _svdq(t, d: _Draw, key, k, n, rank, precision, v2=False):
+    std = 1.0 / math.sqrt(k)
+    t[f"{key}.qweight"] = d.bytes((n, k // 2))
+    if precision == "nvfp4":
+        t[f"{key}.wscales"] = d.uniform((k // 16, n), 0.5, 4.0, torch.float32).to(torch.float8_e4m3fn)
+        t[f"{key}.wtscale"] = torch.full((1,), std / 14.0, dtype=torch.float32, device=d.device)
+    else:
+        t[f"{key}.wscales"] = (d.normal((k // 64, n), dtype=torch.float32).abs() * (std / 7.0)).to(torch.bfloat16)
+    t[f"{key}.smooth_factor" if v2 else f"{key}.smooth"] = d.uniform((k,), 0.8, 1.25)
+    if v2:
+        t[f"{key}.proj_down"] = d.normal((k, rank), 0.02)
+        t[f"{key}.proj_up"] = d.normal((n, rank), 0.02)
+    else:
+        t[f"{key}.lora_down"] = d.normal((k, rank), 0.02)
+        t[f"{key}.lora_up"] = d.normal((n, rank), 0.02)
+    t[f"{key}.bias"] = d.normal((n,), 0.02)
+
+
+def _awq(t, d: _Draw, key, k, n):
+    std = 1.0 / math.sqrt(k)
+    t[f"{key}.qweight"] = d.bytes((n // 4, k // 2), torch.int32)  # (oc/4, ic/8*4), 8 nibbles a word
+    t[f"{key}.wscales"] = (d.normal((k // 64, n), dtype=torch.float32).abs() * (std / 8.0)).to(torch.bfloat16)
+    t[f"{key}.wzeros"] = d.normal((k // 64, n), std)  # stored negated; the sign of a normal draw is moot
+    t[f"{key}.bias"] = d.normal((n,), 0.02)
+
+
+def _linear(t, d: _Draw, key, k, n, bias=True):
+    t[f"{key}.weight"] = d.normal((n, k), 1.0 / math.sqrt(k))
+    if bias:
+        t[f"{key}.bias"] = d.normal((n,), 0.02)
+
+
+def _ones(t, d: _Draw, key, n):
+    t[key] = d.uniform((n,), 0.9, 1.1)
+
+
+def flux_state(*, layers=19, single=38, heads=24, head_dim=128, joint=4096, pooled=768, rank=32,
+               precision="nvfp4", seed=0, device="cuda"):
+    """-> (tensors, metadata) of a FLUX.1 v1-schema checkpoint."""
+    d, t = _Draw(seed, device), {}
+    dim = heads * head_dim
+    for i in range(layers):
+        p = f"transformer_blocks.{i}"
+        for name, k, n in (("qkv_proj", dim, 3 * dim), ("qkv_proj_context", dim, 3 * dim), ("out_proj", dim, dim),
+                           ("out_proj_context", dim, dim), ("mlp_fc1", dim, 4 * dim), ("mlp_fc2", 4 * dim, dim),
+                           ("mlp_context_fc1", dim, 4 * dim), ("mlp_context_fc2", 4 * dim, dim)):
+            _svdq(t, d, f"{p}.{name}", k, n, rank, precision)
+        _awq(t, d, f"{p}.norm1.linear", dim, 6 * dim)
+        _awq(t, d, f"{p}.norm1_context.linear", dim, 6 * dim)
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            _ones(t, d, f"{p}.{nm}.weight", head_dim)
+    for i in range(single):
+        p = f"single_transformer_blocks.{i}"
+        for name, k, n in (("qkv_proj", dim, 3 * dim), ("mlp_fc1", dim, 4 * dim), ("mlp_fc2", 4 * dim, dim),
+                           ("out_proj", dim, dim)):
+            _svdq(t, d, f"{p}.{name}", k, n, rank, precision)
+        _awq(t, d, f"{p}.norm.linear", dim, 3 * dim)
+        for nm in ("norm_q", "norm_k"):
+            _ones(t, d, f"{p}.{nm}.weight", head_dim)
+    te = "time_text_embed"
+    for name, k, n in (("x_embedder", 64, dim), ("context_embedder", joint, dim),
+                       (f"{te}.timestep_embedder.linear_1", 256, dim), (f"{te}.timestep_embedder.linear_2", dim, dim),
+                       (f"{te}.text_embedder.linear_1", pooled, dim), (f"{te}.text_embedder.linear_2", dim, dim),
+                       (f"{te}.guidance_embedder.linear_1", 256, dim), (f"{te}.guidance_embedder.linear_2", dim, dim),
+                       ("norm_out.linear", dim, 2 * dim), ("proj_out", dim, 64)):
+        _linear(t, d, name, k, n)
+    config = dict(num_layers=layers, num_single_layers=single, attention_head_dim=head_dim,
+                  num_attention_heads=heads, joint_attention_dim=joint, pooled_projection_dim=pooled,
+                  in_channels=64, guidance_embeds=True, axes_dims_rope=[16, 56, 56])
+    weight = {"dtype": "fp4_e2m1_all", "group_size": 16} if precision == "nvfp4" else {"dtype": "int4",
+                                                                                        "group_size": 64}
+    return t, _meta(config, {"method": "svdquant", "weight": weight, "rank": rank})
+
+
+def qwen_state(*, layers=60, heads=24, head_dim=128, joint=3584, rank=128, precision="int4", txt_norm=True,
+               seed=0, device="cuda"):
+    """-> (tensors, metadata) of a Qwen-Image v2-schema checkpoint."""
+    d, t = _Draw(seed, device), {}
+    dim = heads * head_dim
+    for i in range(layers):
+        p = f"transformer_blocks.{i}"
+        for name, k, n in (("attn.to_qkv", dim, 3 * dim), ("attn.add_qkv_proj", dim, 3 * dim),
+                           ("attn.to_out.0", dim, dim), ("attn.to_add_out", dim, dim),
+                           ("img_mlp.net.0.proj", dim, 4 * dim), ("img_mlp.net.2", 4 * dim, dim),
+                           ("txt_mlp.net.0.proj", dim, 4 * dim), ("txt_mlp.net.2", 4 * dim, dim)):
+            _svdq(t, d, f"{p}.{name}", k, n, rank, precision, v2=True)
+        _awq(t, d, f"{p}.img_mod.1", dim, 6 * dim)
+        _awq(t, d, f"{p}.txt_mod.1", dim, 6 * dim)
+        for nm in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            _ones(t, d, f"{p}.attn.{nm}.weight", head_dim)
+    te = "time_text_embed.timestep_embedder"
+    for name, k, n in (("img_in", 64, dim), ("txt_in", joint, dim), (f"{te}.linear_1", 256, dim),
+                       (f"{te}.linear_2", dim, dim), ("norm_out.linear", dim, 2 * dim), ("proj_out", dim, 64)):
+        _linear(t, d, name, k, n)
+    if txt_norm:
+        _ones(t, d, "txt_norm.weight", joint)
+    config = dict(num_layers=layers, attention_head_dim=head_dim, num_attention_heads=heads,
+                  joint_attention_dim=joint, in_channels=64, out_channels=16, axes_dims_rope=[16, 56, 56])
+    weight = {"dtype": "fp4_e2m1_all", "group_size": 16} if precision == "nvfp4" else {"dtype": "int4",
+                                                                                        "group_size": 64}
+    return t, _meta(config, {"method": "svdquant", "weight": weight, "rank": rank})
+
+
+def t5_state(*, vocab=32128, d_model=4096, d_ff=10240, d_kv=64, heads=64, layers=24, group=128, seed=0,
+             device="cuda"):
+    """-> (tensors, metadata) of a T5 encoder with TinyChat W4 linears
+    (``qweight`` (oc/4, ic) int16, ``wscales`` / ``wzeros`` (ic/G, oc))."""
+    d, t = _Draw(seed, device), {}
+    inner = heads * d_kv
+
+    def w4(key, ic, oc):
+        std = 1.0 / math.sqrt(ic)
+        t[f"{key}.qweight"] = d.bytes((oc // 4, ic), torch.int16)  # 4 nibbles an element
+        t[f"{key}.wscales"] = (d.normal((ic // group, oc), dtype=torch.float32).abs() * (std / 8.0)).to(torch.bfloat16)
+        t[f"{key}.wzeros"] = d.normal((ic // group, oc), std)
+
+    for i in range(layers):
+        p = f"encoder.block.{i}"
+        a, f = f"{p}.layer.0.SelfAttention", f"{p}.layer.1.DenseReluDense"
+        for nm in ("q", "k", "v"):
+            w4(f"{a}.{nm}", d_model, inner)
+        w4(f"{a}.o", inner, d_model)
+        w4(f"{f}.wi_0", d_model, d_ff)
+        w4(f"{f}.wi_1", d_model, d_ff)
+        w4(f"{f}.wo", d_ff, d_model)
+        if i == 0:
+            t[f"{a}.relative_attention_bias.weight"] = d.normal((32, heads), 0.02, torch.float32)
+        _ones(t, d, f"{p}.layer.0.layer_norm.weight", d_model)
+        _ones(t, d, f"{p}.layer.1.layer_norm.weight", d_model)
+    t["shared.weight"] = d.normal((vocab, d_model))
+    _ones(t, d, "encoder.final_layer_norm.weight", d_model)
+    return t, _meta(dict(d_model=d_model, num_heads=heads, d_kv=d_kv, num_layers=layers), None)
+
+
+def clip_state(*, vocab=49408, d=768, layers=12, max_pos=77, seed=0, device="cuda"):
+    """-> (tensors, metadata) of an HF CLIPTextModel (``text_model.*``), bf16."""
+    dr, t = _Draw(seed, device), {}
+    m = "text_model"
+    t[f"{m}.embeddings.token_embedding.weight"] = dr.normal((vocab, d), 0.02)
+    t[f"{m}.embeddings.position_embedding.weight"] = dr.normal((max_pos, d), 0.02)
+    for i in range(layers):
+        p = f"{m}.encoder.layers.{i}"
+        for ln in ("layer_norm1", "layer_norm2"):
+            _ones(t, dr, f"{p}.{ln}.weight", d)
+            t[f"{p}.{ln}.bias"] = dr.normal((d,), 0.02)
+        for nm in ("q", "k", "v", "out"):
+            _linear(t, dr, f"{p}.self_attn.{nm}_proj", d, d)
+        _linear(t, dr, f"{p}.mlp.fc1", d, 4 * d)
+        _linear(t, dr, f"{p}.mlp.fc2", 4 * d, d)
+    _ones(t, dr, f"{m}.final_layer_norm.weight", d)
+    t[f"{m}.final_layer_norm.bias"] = dr.normal((d,), 0.02)
+    return t, _meta(None, None)
+
+
+def vae_state(*, latent_channels=16, block_out_channels=(128, 256, 512, 512), layers_per_block=2, seed=0,
+              device="cuda"):
+    """-> (tensors, metadata) of a diffusers AutoencoderKL's decoder, bf16
+    (norms ones and zeros, convolutions ``N / sqrt(fan_in)`` with zero
+    biases, as the JAX ``random_init`` draws them)."""
+    dr, t = _Draw(seed, device), {}
+
+    def conv(key, cin, cout, k=3):
+        t[f"{key}.weight"] = dr.normal((cout, cin, k, k), 1.0 / math.sqrt(cin * k * k))
+        t[f"{key}.bias"] = torch.zeros((cout,), dtype=torch.bfloat16, device=device)
+
+    def norm(key, c):
+        t[f"{key}.weight"] = torch.ones((c,), dtype=torch.bfloat16, device=device)
+        t[f"{key}.bias"] = torch.zeros((c,), dtype=torch.bfloat16, device=device)
+
+    def resnet(key, cin, cout):
+        norm(f"{key}.norm1", cin)
+        conv(f"{key}.conv1", cin, cout)
+        norm(f"{key}.norm2", cout)
+        conv(f"{key}.conv2", cout, cout)
+        if cin != cout:
+            conv(f"{key}.conv_shortcut", cin, cout, k=1)
+
+    dd = "decoder"
+    rev = list(reversed(block_out_channels))
+    ch = rev[0]
+    conv(f"{dd}.conv_in", latent_channels, ch)
+    resnet(f"{dd}.mid_block.resnets.0", ch, ch)
+    a = f"{dd}.mid_block.attentions.0"
+    norm(f"{a}.group_norm", ch)
+    for nm in ("to_q", "to_k", "to_v", "to_out.0"):  # diffusers keeps these as Linear layers
+        t[f"{a}.{nm}.weight"] = dr.normal((ch, ch), 1.0 / math.sqrt(ch))
+        t[f"{a}.{nm}.bias"] = torch.zeros((ch,), dtype=torch.bfloat16, device=device)
+    resnet(f"{dd}.mid_block.resnets.1", ch, ch)
+    prev = ch
+    for i, c in enumerate(rev):
+        for j in range(layers_per_block + 1):
+            resnet(f"{dd}.up_blocks.{i}.resnets.{j}", prev, c)
+            prev = c
+        if i < len(rev) - 1:
+            conv(f"{dd}.up_blocks.{i}.upsamplers.0.conv", c, c)
+    norm(f"{dd}.conv_norm_out", block_out_channels[0])
+    conv(f"{dd}.conv_out", block_out_channels[0], 3)
+    return t, _meta(None, None)
+
+
+def _meta(config, qcfg):
+    meta = {}
+    if config is not None:
+        meta["config"] = json.dumps(config)
+    if qcfg is not None:
+        meta["quantization_config"] = json.dumps(qcfg)
+    return meta
+
+
+def write(path, state) -> int:
+    """Write ``(tensors, metadata)`` to ``path``; returns the file's bytes."""
+    tensors, meta = state
+    save_safetensors(path, tensors, meta)
+    return sum(x.numel() * x.element_size() for x in tensors.values())

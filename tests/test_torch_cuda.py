@@ -40,6 +40,56 @@ def test_dequant_w4a8_exact(dev, k, n):
     assert ok, detail
 
 
+@pytest.mark.parametrize("k,n", [(3072, 12288), (12288, 3072), (256, 64), (768, 320), (1280, 192)])
+def test_dequant_w4a8_e2m1_exact(dev, k, n):
+    """The e2m1 form at FLUX's shapes and at odd tile counts (K / 256 and
+    N / 64 of 1, 3, 5)."""
+    reset_launch_counts()
+    _, ok, detail = checks.check_dequant(*checks.dequant_case(k, n, codes="e2m1", device=dev), codes="e2m1")
+    assert ok, detail
+    c = launch_counts()
+    assert c["dequant_w4a8_e2m1"] == 1 and c["dequant_w4a8"] == 0
+
+
+def test_dequant_w4a8_e2m1_refusals(dev):
+    qw, rs = checks.dequant_case(512, 128, codes="e2m1", device=dev)
+    with pytest.raises(ValueError):
+        dequant_w4a8(qw, rs)  # group-16 rescales under int4 codes
+    with pytest.raises(ValueError):
+        dequant_w4a8(qw, rs, "fp8")
+
+
+@pytest.mark.parametrize("r", [16, 32, 48, 64, 128])
+@pytest.mark.parametrize("m,k,n,unsigned", [(4608, 3072, 12288, False), (256, 256, 3072, True)])
+def test_gelu_quant_ranks(dev, r, m, k, n, unsigned):
+    _, ok, detail = checks.check_gelu_quant(*checks.gelu_quant_case(m, k, n, r, device=dev),
+                                            act_unsigned_next=unsigned)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("r", [16, 32, 64, 128])
+@pytest.mark.parametrize("m,k,n,groups", [(4608, 12288, 3072, 8), (256, 3072, 256, 2)])
+def test_grouped_ranks(dev, r, m, k, n, groups):
+    _, ok, detail = checks.check_grouped(*checks.grouped_case(m, k, n, groups, r, device=dev))
+    assert ok, detail
+    _, ok, detail = checks.check_grouped_res(*checks.grouped_res_case(m, k, n, groups, r, device=dev))
+    assert ok, detail
+
+
+def test_chain_rank_refusal(dev):
+    args = list(checks.gelu_quant_case(256, 256, 256, 160, device=dev))
+    with pytest.raises(ValueError):
+        svdq_gemm_w8a8_gelu_quant(*args)
+
+
+@pytest.mark.parametrize("m,k,n,unsigned", [(4096, 3072, 9216, False), (4096, 12288, 3072, True), (256, 3072, 12288, False)])
+def test_gemm_w4a4_rank128(dev, m, k, n, unsigned):
+    """Qwen-Image's shapes from a rank-128 checkpoint (int4)."""
+    args, kw = checks.w4a4_case(m, k, n, "int4", unsigned, r=128, device=dev)
+    _, ok, detail = checks.check_w4a4(args, kw)
+    assert ok, detail
+
+
 @pytest.mark.parametrize("m,k,n,unsigned", [
     (512, 3072, 12288, False),
     (4608, 3072, 12288, False),
@@ -352,3 +402,52 @@ def test_qwen_small_model_matches_cpu(dev, precision, variant):
     assert counts["qkv_rope_producer"] == (4 if variant == "fused" else 0)
     for i in range(2):
         assert ((out[i] - ref[i]).abs().max() / ref[i].abs().max()).item() <= 2e-2
+
+
+def _buffers_equal(a, b):
+    """Every buffer of two models equal, bit for bit (float ones compared
+    as their bytes), and on their devices."""
+    ba, bb = dict(a.named_buffers()), dict(b.named_buffers())
+    assert ba.keys() == bb.keys()
+    for name, t in ba.items():
+        u = bb[name].cpu()
+        assert t.dtype == u.dtype and t.shape == u.shape, name
+        assert torch.equal(t.cpu().contiguous().view(torch.uint8), u.contiguous().view(torch.uint8)), name
+
+
+@pytest.mark.parametrize("model,precision", [("flux-nvfp4", None), ("flux-nvfp4", "int8"), ("flux-nvfp4", "w4a8"),
+                                             ("flux-int4", "w4a8"), ("qwen-r128", None), ("qwen-r128", "w4a8")])
+def test_loader_decodes_on_card_as_on_cpu(dev, tmp_path, model, precision):
+    """The loaders decode on the device they build on: the card's integer
+    codes, scales and rescales equal the CPU's bit for bit (true f32
+    divisions on both, round half to even)."""
+    from nunchaku_tpu_torch.models.loader import load_flux_transformer
+    from nunchaku_tpu_torch.models.loader_qwenimage import load_qwenimage_transformer
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    path = tmp_path / "ckpt.safetensors"
+    if model.startswith("flux"):
+        synth.write(path, synth.flux_state(layers=1, single=1, heads=2, joint=256, pooled=128,
+                                           precision=model.split("-")[1], device="cpu"))
+        load = load_flux_transformer
+    else:
+        synth.write(path, synth.qwen_state(layers=1, heads=2, joint=320, rank=128, device="cpu"))
+        load = load_qwenimage_transformer
+    _buffers_equal(load(path, precision, device=dev), load(path, precision, device="cpu"))
+
+
+def test_w4a8_cache_dequant_on_card(dev):
+    """The dial's int8 codes are the dequant kernel's, in both code forms."""
+    from nunchaku_tpu_torch.models.requantize import w4a8_cache_dequant
+
+    for precision in ("w4a8", "nvfp4-a8"):
+        cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=2, joint_attention_dim=256,
+                         pooled_projection_dim=128, precision=precision)
+        model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        fc1 = model.transformer_blocks[0].ff.fc1
+        want = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)
+        reset_launch_counts()
+        dialed = w4a8_cache_dequant(model, 1.0)
+        assert launch_counts()["dequant_w4a8_e2m1" if precision == "nvfp4-a8" else "dequant_w4a8"] == 12
+        got = dialed.transformer_blocks[0].ff.fc1
+        assert got.precision == "int8" and torch.equal(got.qweight, want)
