@@ -23,7 +23,12 @@ Phases, each fatal on failure:
                   dequant's e2m1 form (nvfp4-a8) at K 3072 / N 12288 and K 12288 /
                   N 3072, bit-exact; both chain kernels at rank 128 on the fc1 / fc2
                   shapes and the W4A4 GEMM (int4, both modes) at rank 128 on
-                  Qwen-Image's shapes, logged beside the rank-32 rows;
+                  Qwen-Image's shapes, logged beside the rank-32 rows; the
+                  packed-int4 w4a8 route's kernels: gemm_w4a8 (rank-1) at the
+                  qkv and out-projection shapes, gemm_w4a8_gelu_quant at fc1,
+                  gemm_w4a8_grouped at fc2, each also at rank 128, with
+                  torch._int_mm of the product on the dequantized weight as
+                  yardstick;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -36,7 +41,10 @@ Phases, each fatal on failure:
                   checks.damp_modulation), card against CPU, and each modulation
                   linear alone; the undamped model's error and that of four wrong
                   modulations are reported (each wrong one must fail the
-                  linear-level check). Then a 2-block Qwen-Image model (2 heads,
+                  linear-level check). Then the small w4a8 model on the packed
+                  route (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1),
+                  default and turbo, card against CPU, launches exact. Then a
+                  2-block Qwen-Image model (2 heads,
                   joint 320) through QwenImagePipeline with true CFG and padded
                   prompts at B 2, card against CPU: w4a8, int4 (damped, modulation
                   linears checked alone), int4 under fixed_softmax = False. Then
@@ -59,7 +67,13 @@ Phases, each fatal on failure:
                   cache_hit_ratio=0.5, 2 requests
                   of --steps steps to (1, 1024, 1024, 3) images; one tiled and one
                   whole-image decode of the last latents are timed alone. Then the
-                  w4a8 model is freed and the int4 model (default configuration,
+                  w4a8 model is freed; [packed]: a new w4a8 model, the same
+                  object on the dequant route and on the packed-int4 route (both
+                  switches) in turns A B B A of min(3, --steps) steps, default
+                  then turbo configuration, launches exact and peak memory per
+                  run, then one turbo request of min(4, --steps) steps on the
+                  packed route to an image through the tiled VAE. Then the int4
+                  model (default configuration,
                   AWQ modulation) serves 2 requests of min(4, --steps) steps to
                   images through the tiled VAE, and the nvfp4 model 1 request of
                   min(2, --steps) steps to latents. Each path first runs one
@@ -102,7 +116,8 @@ Phases, each fatal on failure:
   9. checkpoint-qwen -- a synthesized Qwen-Image int4 rank-128 file (v2
                   schema, 60 blocks, dim 3072, joint 3584) loaded at int4 and at
                   w4a8, one B 1 step to latents each (the W4A4 GEMM, the chain
-                  kernels at rank 128), counts exact.
+                  kernels at rank 128), and the w4a8 step once more on the
+                  packed route (the packed kernels at rank 128), counts exact.
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -111,9 +126,11 @@ no result. Imports neither JAX nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -200,6 +217,35 @@ def res_bytes(m, n, batch, r2):
 def w4a4_bytes(m, k, n, g, r=RANK):
     # qact, ascales, weight, wscales (packed 4-bit, bf16 group scales), lora_act, proj_up, bias -> bf16 out
     return m * k // 2 + 2 * (k // g) * m + k // 2 * n + 2 * (k // g) * n + 4 * m * r + 2 * r * n + 2 * n + 2 * m * n
+
+
+def w4a8_bytes(m, k, n, r=RANK, groups=1, out_bytes=None):
+    # qact, ascales (groups, M), packed int4 weight, bf16 rescales of 64-row groups, wscales, lora_act,
+    # proj_up, bias -> output(s) (bf16 (M, N) unless given)
+    return (m * k + 4 * groups * m + k // 2 * n + 2 * (k // 64) * n + 4 * n + 4 * m * r + 2 * r * n + 2 * n
+            + (2 * m * n if out_bytes is None else out_bytes))
+
+
+def gelu_quant_out_bytes(m, n, r=RANK):
+    # the producer's qout int8, qscales f32 per bn = 1536 columns, lora_next f32 (and rsmooth, proj_down read)
+    return m * n + 4 * (n // 1536) * m + 4 * m * r + 4 * n + 2 * n * r
+
+
+@contextlib.contextmanager
+def packed_route():
+    """The JAX package's w4a8 route switches set to the packed-int4 route
+    (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1) inside, as they
+    were after."""
+    old = {k: os.environ.get(k) for k in ("NUNCHAKU_TPU_W4A8_XLA", "NUNCHAKU_TPU_W4A8_FUSED")}
+    os.environ.update(NUNCHAKU_TPU_W4A8_XLA="0", NUNCHAKU_TPU_W4A8_FUSED="1")
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def w4a4_bound(m, k, n, g, r=RANK):
@@ -411,6 +457,8 @@ def kernel_phase(dev):
             failed.append(f"{name}@R128")
         del args
 
+    packed_kernel_rows(dev, record, failed)
+
     # 8. online flash: the VAE mid block of one 64x64-latent tile (S 4096, one
     # head of 512); also checked at a whole 1024px image's S 16384 and a ragged S
     s = VAE_TILE_S
@@ -480,13 +528,19 @@ def kernel_phase(dev):
         _, ok2, detail = checks.check_w4a4(args, kw)
         ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
         plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        qa, asc, qw, wsc = args[:4]
+        a16 = (w4a4_values(qa, -1, precision="int4", unsigned=unsigned)
+               * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
+        w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
+        lib = cuda_ms(lambda: torch.matmul(a16, w16), 20)
         bnd = w4a4_bound(m, k, n, 64, r=128)
         name = "gemm_w4a4_int4" + ("_unsigned" if unsigned else "")
         log(f"[kernel] {name} @ M={m} K={k} N={n} R=128 (Qwen-Image r128): {'PASS' if ok2 else 'FAIL'} {detail}; "
-            f"{ms:.4f} ms (plain {plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+            f"{ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, "
+            f"{100 * bnd[0] / ms:.1f}% of bound)")
         if not ok2:
             failed.append(f"{name}@R128")
-        del args
+        del args, qa, asc, qw, wsc, a16, w16
 
     # 10. AWQ GEMV: the dual block's AdaLN modulation (M 1, K 3072, N 18432),
     # also checked and timed at the single block's N 9216
@@ -508,6 +562,63 @@ def kernel_phase(dev):
     torch.cuda.empty_cache()
     bs_kernel_rows(dev, record)
     return rows, failed
+
+
+def packed_kernel_rows(dev, record, failed):
+    """10-12. The packed-int4 w4a8 route's kernels: the rank-1 GEMM at the
+    single block's qkv (M 4608, K 3072, N 9216; the out projection's N 3072
+    checked and timed too), the W4 producer at fc1 and the grouped consumer
+    at fc2 (8 groups), each again at rank 128. Yardstick: torch._int_mm of
+    the product alone on the dequant kernel's weight."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a8, gemm_w4a8_grouped, gemm_w4a8_plain,
+                                             svdq_gemm_w4a8_gelu_quant, svdq_gemm_w4a8_gelu_quant_plain)
+    from nunchaku_tpu_torch.ops.reference import int8_matmul
+
+    m = S_IMG + S_TXT
+    args = checks.w4a8_case(m, DIM, DIM, RANK, seed=1, device=dev)
+    _, ok2, detail2 = checks.check_w4a8(*args)
+    ms2 = cuda_ms(lambda: gemm_w4a8(*args), 20)
+    bnd2 = bound(w4a8_bytes(m, DIM, DIM), 2 * m * DIM * DIM, 2 * m * DIM * RANK)
+    log(f"[kernel] gemm_w4a8 @ M={m} K={DIM} N={DIM} R={RANK} (out projection): {'PASS' if ok2 else 'FAIL'} "
+        f"{detail2}; {ms2:.4f} ms (plain {cuda_ms(lambda: gemm_w4a8_plain(*args), 3):.4f} ms, bound "
+        f"{bnd2[0]:.4f} ms by {bnd2[1]}, {100 * bnd2[0] / ms2:.1f}% of bound)")
+    if not ok2:
+        failed.append("gemm_w4a8@out_projection")
+    del args
+    for name, case, src, line, fn, plain_fn, yard in (
+            ("gemm_w4a8", lambda r: checks.w4a8_case(m, DIM, 3 * DIM, r, device=dev), "gemm_w4a8.cu", 281,
+             gemm_w4a8, gemm_w4a8_plain, (DIM, 3 * DIM, 1)),
+            ("gemm_w4a8_grouped", lambda r: checks.w4a8_grouped_case(m, HID, DIM, HID // 1536, r, device=dev),
+             "gemm_w4a8.cu", 281, gemm_w4a8_grouped, gemm_w4a8_plain, (HID, DIM, HID // 1536)),
+            ("gemm_w4a8_gelu_quant", lambda r: checks.w4a8_gelu_quant_case(m, DIM, HID, r, device=dev),
+             "gemm_w8a8_gelu_quant.cu", 721, svdq_gemm_w4a8_gelu_quant, svdq_gemm_w4a8_gelu_quant_plain,
+             (DIM, HID, 1))):
+        k, n, g = yard
+        for r in (RANK, 128):
+            args = case(r)
+            check = checks.check_w4a8_gelu_quant if name == "gemm_w4a8_gelu_quant" else checks.check_w4a8
+            err, ok, detail = check(*args)
+            ms = cuda_ms(lambda: fn(*args), 20)
+            plain = cuda_ms(lambda: plain_fn(*args), 3)
+            if name == "gemm_w4a8_gelu_quant":
+                bnd = bound(w4a8_bytes(m, k, n, r, out_bytes=gelu_quant_out_bytes(m, n, r)), 2 * m * n * k,
+                            4 * m * n * r)
+            else:
+                bnd = bound(w4a8_bytes(m, k, n, r, g), 2 * m * n * k, 2 * m * n * r)
+            shape = f"M={m} K={k} N={n}{f' G={g}' if g > 1 else ''} R={r}"
+            if r == RANK:
+                qa, w8 = args[0], dequant_w4a8(args[2], args[3])
+                record(name, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/gemm.py:{line}", shape, ok, err,
+                       detail, ms, plain, bnd, cuda_ms(lambda: int8_matmul(qa, w8), 20))
+                del qa, w8
+            else:
+                log(f"[kernel] {name} @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain "
+                    f"{plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+                if not ok:
+                    failed.append(f"{name}@R128")
+            del args
+    torch.cuda.empty_cache()
 
 
 def bs_kernel_rows(dev, record):
@@ -580,9 +691,22 @@ def per_forward_bounds(cfg) -> dict:
     def rope(s):
         return bound(rope_bytes(s), bf16_ops=2 * s * 3 * DIM * RANK)[0]
 
+    def w4a8(m, k, n, groups=1):
+        return bound(w4a8_bytes(m, k, n, RANK, groups), 2 * m * n * k, 2 * m * n * RANK)[0]
+
+    def standalone(m):  # the packed route's qkv and out projection of one stream
+        return w4a8(m, DIM, 3 * DIM) + w4a8(m, DIM, DIM)
+
+    def w4prod(m):
+        return bound(w4a8_bytes(m, DIM, HID, out_bytes=gelu_quant_out_bytes(m, HID)), 2 * m * HID * DIM,
+                     4 * m * HID * RANK)[0]
+
     dual = [chain(S_IMG), chain(S_TXT)]
     single = chain(T)
     return {
+        "gemm_w4a8": L * (standalone(S_IMG) + standalone(S_TXT)) + Ls * standalone(T),
+        "gemm_w4a8_gelu_quant": L * (w4prod(S_IMG) + w4prod(S_TXT)) + Ls * w4prod(T),
+        "gemm_w4a8_grouped": L * (w4a8(S_IMG, HID, DIM, 8) + w4a8(S_TXT, HID, DIM, 8)) + Ls * w4a8(T, HID, DIM, 8),
         "dequant_w4a8": L * 2 * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM))
         + Ls * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM)),
         "dequant_w4a8_e2m1": L * 2 * (deq(DIM, 3 * DIM, 16) + deq(DIM, DIM, 16) + deq(DIM, HID, 16) + deq(HID, DIM, 16))
@@ -634,6 +758,7 @@ def reference_phase(dev):
         all_ok = all_ok and ok
     image_ok = reference_image_path(cpu_model, gpu_model, dev)
     ok4 = reference_4bit(dev, pe, pooled, lat, kw)
+    all_ok = reference_packed(dev, cfg, pe, pooled, lat, kw) and all_ok
     return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
             and reference_text_encoders(dev) and reference_checkpoint(dev))
 
@@ -791,6 +916,52 @@ def reference_qwen(dev):
             log(f"[reference] Qwen-Image int4 modulation linears, card vs CPU: {detail}: "
                 f"{'PASS' if mod_ok else 'FAIL'}")
             all_ok = all_ok and mod_ok
+    return all_ok
+
+
+def packed_per_forward(L, Ls, turbo) -> dict:
+    """Launches per forward of a FLUX w4a8 model of L dual and Ls single
+    blocks on the packed route: every standalone linear (qkv and out of
+    each stream, qkv and out of a single block) a rank-1 packed GEMM, every
+    MLP one packed chain; the fused prologue's producer in turbo, no LN
+    producer (the JAX gate), no dequant."""
+    per = {"gemm_w4a8": 4 * L + 2 * Ls, "gemm_w4a8_gelu_quant": 2 * L + Ls, "gemm_w4a8_grouped": 2 * L + Ls,
+           "flash_fixed": L + Ls}
+    return per | {"qkv_rope_producer": 2 * L + Ls} if turbo else per
+
+
+def reference_packed(dev, cfg, pe, pooled, lat, kw):
+    """The small w4a8 model of the reference phase on the packed route
+    (both switches), default then turbo configuration: card against CPU
+    within 2e-2, the card's launches exactly the packed route's."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=3, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    all_ok = True
+    with packed_route():
+        for turbo in (False, True):
+            if turbo:
+                for mdl in (cpu_model, gpu_model):
+                    mdl.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+            ref = FluxPipeline(cpu_model)(prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat,
+                                          **kw).latents.float()
+            reset_launch_counts()
+            out = FluxPipeline(gpu_model)(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev),
+                                          latents=lat.to(dev), **kw).latents.float().cpu()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            steps = kw["num_inference_steps"]
+            expect = {k: v * steps for k, v in packed_per_forward(cfg.num_layers, cfg.num_single_layers,
+                                                                  turbo).items()}
+            rel = ((out - ref).abs().max() / ref.abs().max()).item()
+            ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2 and counts == expect
+            log(f"[reference] packed route (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1), "
+                f"{'turbo' if turbo else 'default'}: 1+1-block FLUX (dim 768), {steps} steps at 256x256: card vs "
+                f"CPU plain latents rel max error {rel:.3e} (tolerance 2e-2); launches {counts} (expected "
+                f"{expect}): {'PASS' if ok else 'FAIL'}")
+            all_ok = all_ok and ok
     return all_ok
 
 
@@ -1069,9 +1240,72 @@ def slice_phase(dev, steps: int, requests: int, t5):
     ok = decode_alone(vae, lat, dev) and ok
     del pipe, model
     torch.cuda.empty_cache()
+    okp, counts_p = packed_phase(dev, steps, vae, paths)
     ok4, counts4 = slice_4bit(dev, steps, vae, paths)
-    counts = {k: counts_f32[k] + counts_turbo[k] + counts_img[k] + counts4[k] for k in counts_f32}
-    return ok and ok4, counts, paths, cfg
+    counts = {k: counts_f32[k] + counts_turbo[k] + counts_img[k] + counts_p[k] + counts4[k] for k in counts_f32}
+    return ok and okp and ok4, counts, paths, cfg
+
+
+def packed_phase(dev, steps: int, vae, paths):
+    """[packed] A new full-size FLUX.1-dev w4a8 model, the same object on
+    both routes: the dequant route (switches unset) against the packed-int4
+    route (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1) in turns A B B
+    A, min(3, steps) steps each, in the default then the turbo
+    configuration, each run's launches exact and its peak memory; then one
+    turbo request of min(4, steps) steps on the packed route to an image
+    through the tiled VAE. ``paths`` gains the packed paths' per-forward
+    counts; -> (ok, launch counts of the image request)."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    cfg = FluxConfig(precision="w4a8")
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    for turbo in (False, True):
+        paths["packed " + ("turbo" if turbo else "default")] = packed_per_forward(L, Ls, turbo)
+    embeds = embeds_request(cfg, dev)(0)
+    pipe = FluxPipeline(model)
+    n = min(3, steps)
+
+    def run(route, nsteps):
+        with packed_route() if route == "packed" else contextlib.nullcontext(), torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pipe(**embeds(), height=1024, width=1024, num_inference_steps=nsteps, seed=0)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        lat = out.latents.float()
+        finite = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat).all())
+        return sec / nsteps, launch_counts(), torch.cuda.max_memory_allocated() / 2**30, finite
+
+    ok = True
+    for config in ("default", "turbo"):
+        if config == "turbo":
+            model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        for route in ("dequant", "packed"):
+            run(route, 1)  # first use of the route, untimed
+        res = {"dequant": [], "packed": []}
+        for route in ("dequant", "packed", "packed", "dequant"):
+            sps, counts, peak, finite = run(route, n)
+            res[route].append((sps, peak))
+            per = paths[config] if route == "dequant" else paths[f"packed {config}"]
+            ok = check_counts(f"{config} {route}", counts, per, n, tag="packed") and finite and ok
+        log(f"[packed] {config}: s/step A B B A (dequant, packed, packed, dequant; {n} steps each) "
+            f"{res['dequant'][0][0]:.4f}, {res['packed'][0][0]:.4f}, {res['packed'][1][0]:.4f}, "
+            f"{res['dequant'][1][0]:.4f}; packed / dequant "
+            f"{sum(x[0] for x in res['packed']) / sum(x[0] for x in res['dequant']):.3f}; peak allocated dequant "
+            f"{max(x[1] for x in res['dequant']):.2f} GiB, packed {max(x[1] for x in res['packed']):.2f} GiB")
+    with packed_route():
+        finite, _, counts, *_ = serve(FluxPipeline(model, vae=vae), dev, min(4, steps), 1,
+                                      "packed route turbo (tiled VAE)", embeds_request(cfg, dev), tag="packed")
+    ok = check_counts("packed turbo image", counts, paths["packed turbo"], min(4, steps),
+                      {"flash_online": VAE_TILES}, tag="packed") and finite and ok
+    del pipe, model
+    torch.cuda.empty_cache()
+    return ok, counts
 
 
 def slice_4bit(dev, steps: int, vae, paths):
@@ -1483,25 +1717,30 @@ def checkpoint_qwen_phase(dev):
                                            if precision is None else _svdq_counts(model)) | {"flash_fixed_masked": L}
             pipe = QwenImagePipeline(model)
             kw = dict(height=1024, width=1024, num_inference_steps=1, true_cfg_scale=1.0)
-            with torch.no_grad():
-                pipe(pe, None, mask, None, seed=0, **kw)  # first use, untimed
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            t0 = time.perf_counter()
-            with torch.no_grad():
-                out = pipe(pe, None, mask, None, seed=1, **kw)
-            torch.cuda.synchronize()
-            sec = time.perf_counter() - t0
-            counts = launch_counts()
-            lat = out.latents.float()
-            good = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat).all())
-            log(f"[checkpoint-qwen] rank 128 at {label}: one B 1 step to latents {sec:.4f} s, |lat| mean "
-                f"{lat.abs().mean().item():.4f}, finite {good}; peak allocated "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-            ok = ok and good and check_counts(f"qwen r128 {label}", counts, paths[f"qwen r128 {label}"], 1,
-                                              tag="checkpoint-qwen")
-            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            runs = [(label, contextlib.nullcontext)]
+            if precision == "w4a8":  # and once on the packed route: 4 packed GEMMs and 2 chains per block
+                paths["qwen r128 w4a8 packed"] = {"gemm_w4a8": 4 * L, "gemm_w4a8_gelu_quant": 2 * L,
+                                                  "gemm_w4a8_grouped": 2 * L, "flash_fixed_masked": L}
+                runs.append(("w4a8 packed", packed_route))
+            for name, route in runs:
+                with route(), torch.no_grad():
+                    pipe(pe, None, mask, None, seed=0, **kw)  # first use, untimed
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_launch_counts()
+                    t0 = time.perf_counter()
+                    out = pipe(pe, None, mask, None, seed=1, **kw)
+                    torch.cuda.synchronize()
+                    sec = time.perf_counter() - t0
+                counts = launch_counts()
+                lat = out.latents.float()
+                good = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat).all())
+                log(f"[checkpoint-qwen] rank 128 at {name}: one B 1 step to latents {sec:.4f} s, |lat| mean "
+                    f"{lat.abs().mean().item():.4f}, finite {good}; peak allocated "
+                    f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+                ok = check_counts(f"qwen r128 {name}", counts, paths[f"qwen r128 {name}"], 1,
+                                  tag="checkpoint-qwen") and good and ok
+                total = {k: total.get(k, 0) + v for k, v in counts.items()}
             del pipe, model, out, lat
             torch.cuda.empty_cache()
     return ok, total, paths

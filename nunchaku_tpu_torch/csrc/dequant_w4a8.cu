@@ -10,8 +10,8 @@
 // as the JAX package's _decode_e2m1 does), then multiplied in f32 by the
 // bf16 rescale of its group (64 rows for int4 codes, 16 for e2m1), rounded
 // half-to-even and clipped to +-127 -- the same codes, bit for bit. The
-// decode is arithmetic on registers (exact powers of two), no table.
-// The output is transposed relative to the JAX kernel's (K, N) buffer
+// decode is arithmetic on registers (exact powers of two), no table; it
+// lives in w4_decode.cuh, shared with the GEMMs that decode inline. The output is transposed relative to the JAX kernel's (K, N) buffer
 // because int8 tensor-core products take both operands K-contiguous (the
 // "TN" layout): the port's GEMM kernels and cuBLAS behind torch._int_mm read
 // it without another pass.
@@ -24,30 +24,13 @@
 // memory. Reads are 16-byte vectors along N (64 contiguous bytes per packed
 // row), writes are 16-byte vectors along K (256 contiguous bytes per output
 // row), so both sides stay coalesced.
-#include "common.cuh"
+#include "w4_decode.cuh"
 
 namespace {
 
 constexpr int TN = 64;    // output rows (columns n of the weight) per block
 constexpr int TK = 256;   // logical k per block: one pack block
 constexpr int THREADS = 256;
-
-// signed 4-bit code -> its value: the integer itself, or the e2m1 decode
-// |v| = m / 2 for e == 0, else (1 + m / 2) 2^(e - 1), e = |c| >> 1, m = |c| & 1
-template <bool E2M1>
-__device__ __forceinline__ float code_value(int c) {
-  if (!E2M1) return static_cast<float>(c);
-  const int a = abs(c), e = a >> 1;
-  const float m = static_cast<float>(a & 1);
-  const float mag = e == 0 ? 0.5f * m : (1.0f + 0.5f * m) * static_cast<float>(1 << (e - 1));
-  return c < 0 ? -mag : mag;
-}
-
-template <bool E2M1>
-__device__ __forceinline__ int8_t rescale_code(int nib, float rs) {
-  int q = __float2int_rn(__fmul_rn(code_value<E2M1>(nib), rs));
-  return static_cast<int8_t>(max(-127, min(127, q)));
-}
 
 // G: rows per rescale group (64 for int4 codes, 16 for e2m1)
 template <bool E2M1, int G>
@@ -76,11 +59,8 @@ __global__ void __launch_bounds__(THREADS)
   const int8_t* pb = reinterpret_cast<const int8_t*>(packed);
 #pragma unroll
   for (int i = 0; i < 32; ++i) {
-    const int byte = static_cast<int>(pb[i]) & 0xFF;
-    const int nib_lo = ((byte & 0xF) ^ 8) - 8;  // sign-extend each 4-bit two's-complement nibble
-    const int nib_hi = ((byte >> 4) ^ 8) - 8;
-    tile[c0 + i][j] = rescale_code<E2M1>(nib_lo, bf2f(rlo[i]));
-    tile[c0 + i][TK / 2 + j] = rescale_code<E2M1>(nib_hi, bf2f(rhi[i]));
+    tile[c0 + i][j] = rescale_code<E2M1>(nibble(pb[i], false), bf2f(rlo[i]));
+    tile[c0 + i][TK / 2 + j] = rescale_code<E2M1>(nibble(pb[i], true), bf2f(rhi[i]));
   }
   __syncthreads();
   const int r = threadIdx.x >> 2, seg = (threadIdx.x & 3) * (TK / 4);

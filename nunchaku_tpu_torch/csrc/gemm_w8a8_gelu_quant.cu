@@ -1,8 +1,16 @@
 // fc1 GEMM with the GELU -> requantize epilogue (the fused MLP chain's
-// producer).
+// producer), on an int8 weight or, in its W4 form, on packed int4 weights.
 //
 // Replaces nunchaku_tpu/ops/gemm.py _gemm_w8a8_gelu_quant_kernel (:460,
-// launched by svdq_gemm_w8a8_gelu_quant :1264):
+// launched by svdq_gemm_w8a8_gelu_quant :1264) and, in the W4 form (the
+// WeightW4 operand of int8_gemm.cuh), _gemm_w4a8_gelu_quant_kernel (:721,
+// launched by _gelu_quant_w4a8 :1471 under NUNCHAKU_TPU_W4A8_FUSED=1): the
+// packed (K/2, N) codes and their (K/64, N) rescales are decoded to int8 in
+// shared memory per k tile, the same values the dequant kernel writes, so
+// both forms give the same outputs bit for bit on the same logical weight.
+// The JAX kernel decodes a (K/2, bn) stripe once into VMEM and reuses it for
+// every M tile; an SM's 228 KB holds no such stripe (fc1's is 4.7 MB), so
+// here each block decodes its own tiles again (M / 128 times per weight).
 //   out = i32(qact @ w) * ascale[m] * wscale[n] + bf16(lora_act) @ proj_up + bias
 //   g = tanh-GELU(out);  lora_next = bf16(g) @ proj_down_next
 //   h = (g [+ 0.171875]) * rsmooth_next;  one int8 scale per (token, bn-column
@@ -10,7 +18,9 @@
 //
 // Bound on the H100: operations. At FLUX.1-dev shapes (M up to 4608, K 3072,
 // N 12288) the int8 product is 2*M*N*K operations on 2*M*K + K*N input bytes
-// -- far above the int8 ridge of ~590 ops/byte. Design: two kernels.
+// -- far above the int8 ridge of ~590 ops/byte (the W4 form reads K*N/2
+// weight bytes, and its decode, about ten CUDA-core instructions per weight
+// per M tile, is work beside the products). Design: two kernels.
 // Kernel A is the tensor-core int8 GEMM (int8_gemm.cuh: WMMA s8 fragments,
 // cp.async double buffering). Its epilogue applies the scales, the rank-r
 // up-projection, the bias and the GELU; writes g as f32; reduces max|h| over
@@ -42,13 +52,15 @@ constexpr int WN_WARPS = BN / WN;
 __host__ __device__ constexpr int round16(int r) { return (r + 15) / 16 * 16; }
 
 // Dynamic shared memory, laid out at run time:
-//   [0, union)  the main loop's two stages, reused by the epilogue as
+//   [0, union)  the main loop's two stages (of the weight's stage type),
+//               reused by the epilogue as
 //               lora tile (lora_bytes(R)) | g tile [BM][LDG] | pd tile [BN][R2p + 8]
 //   then        scratch[THREADS / 32][256] int, amax[BM][WN_WARPS] f32
 struct Layout {
   size_t lora, g, pd, scratch, amax, total;
 };
 
+template <class W>
 __host__ __device__ inline Layout layout(int R, int R2) {
   Layout l{};
   const size_t g_bytes = align128(static_cast<size_t>(BM) * LDG * sizeof(bf16));
@@ -57,7 +69,7 @@ __host__ __device__ inline Layout layout(int R, int R2) {
   l.g = lora_bytes(R);
   l.pd = l.g + g_bytes;
   size_t uni = l.pd + pd_bytes;
-  const size_t stages = align128(2 * sizeof(Stage));
+  const size_t stages = align128(2 * sizeof(typename W::StageT));
   if (uni < stages) uni = stages;
   l.scratch = uni;
   l.amax = l.scratch + align128(static_cast<size_t>(THREADS / 32) * 256 * sizeof(int));
@@ -65,18 +77,19 @@ __host__ __device__ inline Layout layout(int R, int R2) {
   return l;
 }
 
+template <class W>
 __global__ void __launch_bounds__(THREADS)
-    gemm_gelu_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as,
-                     const int8_t* __restrict__ wt, const float* __restrict__ ws,
+    gemm_gelu_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as, W w,
+                     const float* __restrict__ ws,
                      const float* __restrict__ la, const bf16* __restrict__ pu,
                      const bf16* __restrict__ bias, const float* __restrict__ rsm,
                      const bf16* __restrict__ pd, float* __restrict__ g,
                      float* __restrict__ amax_part, float* __restrict__ lora_part, int M, int N,
                      int K, int R, int R2, float shift) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout L = layout(R, R2);
+  const Layout L = layout<W>(R, R2);
   const int R2p = round16(R2), LDP = R2p + 8;
-  Stage* st = reinterpret_cast<Stage*>(smem_raw);
+  auto* st = reinterpret_cast<typename W::StageT*>(smem_raw);
   const LoraTile lora = lora_tile(smem_raw + L.lora, R);
   bf16* gt = reinterpret_cast<bf16*>(smem_raw + L.g);    // [BM][LDG]: bf16(g) of this tile
   bf16* pdt = reinterpret_cast<bf16*>(smem_raw + L.pd);  // [BN][LDP]: proj_down_next rows n0.., zero-padded to R2p
@@ -86,7 +99,7 @@ __global__ void __launch_bounds__(THREADS)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   AccFrag acc[FM][FN];
   zero(acc);
-  mainloop(st, acc, qa, wt, m0, n0, 0, K, K);
+  mainloop(st, acc, qa, w, m0, n0, 0, K, K);
 
   for (int i = threadIdx.x; i < BN * R2p; i += THREADS) {
     const int c = i / R2p, r = i % R2p;
@@ -205,6 +218,38 @@ __global__ void __launch_bounds__(RQ_THREADS)
   }
 }
 
+template <class W>
+int launch(const void* qact, const void* ascales, W w, const void* wscales, const void* lora_act,
+           const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down, void* gbuf,
+           void* amax_part, void* lora_part, void* qout, void* qscales, void* lora_next, int M, int N, int K,
+           int R, int R2, int bn, float shift, void* stream) {
+  static bool configured = false;  // one flag per weight form
+  if (R > MAX_R || R2 > MAX_R || R2 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = static_cast<int>(layout<W>(R, R2).total);
+  if (!configured) {  // room for the largest rank once; each launch asks for its own size
+    cudaError_t e = cudaFuncSetAttribute(gemm_gelu_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(layout<W>(MAX_R, MAX_R).total));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid(N / BN, M / BM);
+  gemm_gelu_kernel<W><<<grid, THREADS, smem, s>>>(
+      static_cast<const int8_t*>(qact), static_cast<const float*>(ascales), w,
+      static_cast<const float*>(wscales), static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
+      static_cast<const bf16*>(bias), static_cast<const float*>(rsmooth), static_cast<const bf16*>(proj_down),
+      static_cast<float*>(gbuf), static_cast<float*>(amax_part), static_cast<float*>(lora_part), M, N, K, R, R2,
+      shift);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  requant_kernel<<<M, RQ_THREADS, 0, s>>>(
+      static_cast<const float*>(gbuf), static_cast<const float*>(rsmooth),
+      static_cast<const float*>(amax_part), static_cast<const float*>(lora_part),
+      static_cast<int8_t*>(qout), static_cast<float*>(qscales), static_cast<float*>(lora_next), M,
+      N, R2, bn, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // qact (M, K) int8, ascales (M,) f32, wt (N, K) int8 (the (K, N) weight
@@ -223,30 +268,23 @@ extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, co
                                        void* lora_part, void* qout, void* qscales, void* lora_next,
                                        int M, int N, int K, int R, int R2, int bn, float shift,
                                        void* stream) {
-  static bool configured = false;
-  if (R > MAX_R || R2 > MAX_R || R2 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(layout(R, R2).total);
-  if (!configured) {  // room for the largest rank once; each launch asks for its own size
-    cudaError_t e = cudaFuncSetAttribute(gemm_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(layout(MAX_R, MAX_R).total));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(N / BN, M / BM);
-  gemm_gelu_kernel<<<grid, THREADS, smem, s>>>(
-      static_cast<const int8_t*>(qact), static_cast<const float*>(ascales),
-      static_cast<const int8_t*>(wt), static_cast<const float*>(wscales),
-      static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
-      static_cast<const bf16*>(bias), static_cast<const float*>(rsmooth),
-      static_cast<const bf16*>(proj_down), static_cast<float*>(gbuf),
-      static_cast<float*>(amax_part), static_cast<float*>(lora_part), M, N, K, R, R2, shift);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  requant_kernel<<<M, RQ_THREADS, 0, s>>>(
-      static_cast<const float*>(gbuf), static_cast<const float*>(rsmooth),
-      static_cast<const float*>(amax_part), static_cast<const float*>(lora_part),
-      static_cast<int8_t*>(qout), static_cast<float*>(qscales), static_cast<float*>(lora_next), M,
-      N, R2, bn, shift);
-  return static_cast<int>(cudaGetLastError());
+  return launch(qact, ascales, WeightI8{static_cast<const int8_t*>(wt)}, wscales, lora_act, proj_up, bias,
+                rsmooth, proj_down, gbuf, amax_part, lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn,
+                shift, stream);
+}
+
+// The W4 form: qweight (K/2, N) int8 packed int4 codes (N-contiguous, the
+// block-split-half layout) with rescales (K/64, N) bf16 in place of wt;
+// every other operand as above. Needs K % 256 == 0 besides.
+extern "C" int nt_gemm_w4a8_gelu_quant(const void* qact, const void* ascales, const void* qweight,
+                                       const void* rescales, const void* wscales, const void* lora_act,
+                                       const void* proj_up, const void* bias, const void* rsmooth,
+                                       const void* proj_down, void* gbuf, void* amax_part,
+                                       void* lora_part, void* qout, void* qscales, void* lora_next,
+                                       int M, int N, int K, int R, int R2, int bn, float shift,
+                                       void* stream) {
+  return launch(qact, ascales,
+                WeightW4{static_cast<const int8_t*>(qweight), static_cast<const bf16*>(rescales), N}, wscales,
+                lora_act, proj_up, bias, rsmooth, proj_down, gbuf, amax_part, lora_part, qout, qscales,
+                lora_next, M, N, K, R, R2, bn, shift, stream);
 }

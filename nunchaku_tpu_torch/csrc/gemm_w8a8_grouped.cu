@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(THREADS)
   AccFrag acc[FM][FN];
   for (int g = 0; g < G; ++g) {
     zero(acc);
-    mainloop(st, acc, qa, wt, m0, n0, g * gk, (g + 1) * gk, K);
+    mainloop(st, acc, qa, WeightI8{wt}, m0, n0, g * gk, (g + 1) * gk, K);
     const float* asg = as + static_cast<size_t>(g) * M + m0;
     for_each_fragment(scratch + (threadIdx.x / 32) * 256, acc, [&](int fm, int fn, int ml, int, const int (&v)[8]) {
       const float a = asg[ml];

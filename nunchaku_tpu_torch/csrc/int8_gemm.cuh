@@ -1,5 +1,6 @@
-// int8 x int8 -> int32 tensor-core main loop shared by the two chain GEMMs
-// (gemm_w8a8_gelu_quant.cu, gemm_w8a8_grouped.cu).
+// int8 x int8 -> int32 tensor-core main loop shared by the chain GEMMs
+// (gemm_w8a8_gelu_quant.cu, gemm_w8a8_grouped.cu) and the packed-int4 w4a8
+// GEMM (gemm_w4a8.cu).
 //
 // Block tile 128 x 128 x 64, eight warps as 2 (M) x 4 (N), warp tile
 // 64 x 32 = 4 x 2 WMMA 16x16x16 s8 fragments. Both operands are
@@ -11,11 +12,17 @@
 // 32-byte-aligned 256-byte block (WMMA needs 256-bit-aligned fragment
 // pointers, which a plain 64-byte-wide row tile cannot give at odd 16-byte
 // offsets).
+//
+// The weight operand is a template parameter of mainloop: WeightI8 copies
+// the int8 (N, K) tile straight into the stage; WeightW4 copies the packed
+// int4 (K/2, N) tile and its rescale row as they lie in memory and decodes
+// them in shared memory into the same K-contiguous int8 layout before the
+// tile's products, so no int8 copy of the weight ever reaches HBM.
 #pragma once
 
 #include <mma.h>
 
-#include "common.cuh"
+#include "w4_decode.cuh"
 
 namespace i8gemm {
 
@@ -58,35 +65,110 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> AccFrag;
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> AFrag;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> BFrag;
 
-// wt is the weight's (N, K) K-contiguous storage
-__device__ __forceinline__ void load_stage(Stage& st, const int8_t* qa, const int8_t* wt, int m0,
-                                           int n0, int k0, int K) {
+// the activation tile qa[m0:+BM, k0:+BK] into st.a
+__device__ __forceinline__ void load_a(Stage& st, const int8_t* qa, int m0, int k0, int K) {
   for (int c = threadIdx.x; c < BM * KC; c += THREADS) {
     int r = c / KC, kc = c % KC;
     cp_async16(&st.a[kc][r][0], qa + static_cast<size_t>(m0 + r) * K + k0 + kc * 16, true);
   }
-  for (int c = threadIdx.x; c < BN * KC; c += THREADS) {
-    int r = c / KC, kc = c % KC;
-    cp_async16(&st.b[kc][r][0], wt + static_cast<size_t>(n0 + r) * K + k0 + kc * 16, true);
-  }
 }
 
-// acc += qa[m0:m0+BM, kb:ke] @ w[kb:ke, n0:n0+BN] with w read from its
-// (N, K) K-contiguous storage wt; (ke - kb) % BK == 0. st2 is the two-stage
-// ring. Returns with every copy landed and the block synchronised, so the
-// caller may reuse the ring's memory right away.
-__device__ __forceinline__ void mainloop(Stage* st2, AccFrag (&acc)[FM][FN], const int8_t* qa,
-                                         const int8_t* wt, int m0, int n0, int kb, int ke, int K) {
+// The int8 weight (K, N), read from its (N, K) K-contiguous storage wt.
+// load() fills a whole stage, activations first, in one function (the
+// int8 forms' code is then the same as before the weight operand was a
+// template parameter).
+struct WeightI8 {
+  using StageT = Stage;
+  static constexpr bool kDecode = false;
+  const int8_t* wt;
+  __device__ __forceinline__ void load(Stage& st, const int8_t* qa, int m0, int n0, int k0, int K) const {
+    for (int c = threadIdx.x; c < BM * KC; c += THREADS) {
+      int r = c / KC, kc = c % KC;
+      cp_async16(&st.a[kc][r][0], qa + static_cast<size_t>(m0 + r) * K + k0 + kc * 16, true);
+    }
+    for (int c = threadIdx.x; c < BN * KC; c += THREADS) {
+      int r = c / KC, kc = c % KC;
+      cp_async16(&st.b[kc][r][0], wt + static_cast<size_t>(n0 + r) * K + k0 + kc * 16, true);
+    }
+  }
+  __device__ __forceinline__ void decode(Stage&, int) const {}
+};
+
+// A stage of the packed-int4 weight: the raw tile and its rescale row beside
+// the decoded int8 tile in Stage::b.
+struct PackedStage : Stage {
+  int8_t raw[BK][BN];  // raw[j][n] = qweight[p0 + j, n0 + n], the 64 packed rows of this k tile
+  bf16 rs[BN];         // rescales[k0 / 64, n0 + n]
+};
+
+// The packed-int4 w4a8 weight: qweight (K/2, N) int8, N-contiguous, in the
+// block-split-half layout, with bf16 rescales (K/64, N); logical row k
+// decodes to clip(round(nibble * rescale[k / 64]), +-127), as the dequant
+// kernel writes it. A 64-row logical k tile (k0 % 64 == 0) is one rescale
+// group and one nibble plane of 64 consecutive packed rows: packed row
+// (k0 / 256) * 128 + k0 % 128 on, the high nibble when k0 % 256 >= 128. So
+// each packed byte is read twice, once per plane (the second read mostly
+// from L2). The copy is 16-byte cp.async vectors along N; the decode gives
+// each thread one (column, 16-k chunk) at a time: 16 byte reads down a
+// column of the raw tile (a warp reads 32 consecutive bytes of one row, no
+// bank conflict), one 16-byte store into b[kc][n].
+struct WeightW4 {
+  using StageT = PackedStage;
+  static constexpr bool kDecode = true;
+  const int8_t* qw;
+  const bf16* rs;
+  int N;
+  __device__ __forceinline__ void load(PackedStage& st, const int8_t* qa, int m0, int n0, int k0, int K) const {
+    load_a(st, qa, m0, k0, K);
+    const int p0 = k0 / 256 * 128 + k0 % 128;
+    for (int c = threadIdx.x; c < BK * BN / 16; c += THREADS) {
+      int r = c / (BN / 16), cc = c % (BN / 16);
+      cp_async16(&st.raw[r][cc * 16], qw + static_cast<size_t>(p0 + r) * N + n0 + cc * 16, true);
+    }
+    if (threadIdx.x < BN / 8)
+      cp_async16(&st.rs[threadIdx.x * 8], rs + static_cast<size_t>(k0 / 64) * N + n0 + threadIdx.x * 8, true);
+  }
+  __device__ __forceinline__ void decode(PackedStage& st, int k0) const {
+    const bool hi = k0 % 256 >= 128;
+    for (int t = threadIdx.x; t < BN * KC; t += THREADS) {
+      const int n = t % BN, kc = t / BN;
+      const float r = bf2f(st.rs[n]);
+      uint32_t v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = 0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int8_t c = rescale_code<false>(nibble(st.raw[kc * 16 + q * 4 + e][n], hi), r);
+          v[q] |= static_cast<uint32_t>(static_cast<uint8_t>(c)) << (8 * e);
+        }
+      }
+      *reinterpret_cast<uint4*>(&st.b[kc][n][0]) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
+  }
+};
+
+// acc += qa[m0:m0+BM, kb:ke] @ w[kb:ke, n0:n0+BN]; (ke - kb) % BK == 0.
+// st2 is the two-stage ring of the weight's stage type. Returns with every
+// copy landed and the block synchronised, so the caller may reuse the
+// ring's memory right away.
+template <class W>
+__device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)[FM][FN], const int8_t* qa,
+                                         const W& w, int m0, int n0, int kb, int ke, int K) {
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
   const int tiles = (ke - kb) / BK;
-  load_stage(st2[0], qa, wt, m0, n0, kb, K);
+  w.load(st2[0], qa, m0, n0, kb, K);
   cp_async_commit();
   for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) load_stage(st2[(t + 1) & 1], qa, wt, m0, n0, kb + (t + 1) * BK, K);
+    if (t + 1 < tiles) w.load(st2[(t + 1) & 1], qa, m0, n0, kb + (t + 1) * BK, K);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
+    if constexpr (W::kDecode) {  // the raw tile -> st.b, seen by every warp before the products
+      w.decode(st2[t & 1], kb + t * BK);
+      __syncthreads();
+    }
     const Stage& st = st2[t & 1];
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {

@@ -15,9 +15,11 @@ attention in the same softmax form (the fused prologue then stays off, as in
 JAX :424-431); and ``FeedForward`` /
 ``gelu_mlp`` (:527-768): on the int8 / w4a8 chain route fc1's GEMM emits
 fc2's int8 activations through the GELU -> requantize epilogue and fc2
-consumes their grouped scales, optionally fed by the LN + modulate +
-quantize producer and ending in the block's gated residual add; the int4 /
-nvfp4 linears take the unfused route (fc1, GELU, fc2 through their own
+consumes their grouped scales (w4a8: on dequantized weights, or on the
+packed ones under ``NUNCHAKU_TPU_W4A8_FUSED=1``), optionally fed by the LN +
+modulate + quantize producer and ending in the block's gated residual add;
+the int4 / nvfp4 linears, and w4a8 ones when neither w4a8 route switch
+allows a chain, take the unfused route (fc1, GELU, fc2 through their own
 quantize steps).
 """
 
@@ -37,7 +39,8 @@ from ..ops.attention import (
     flash_attention_online,
     qkv_rope_producer,
 )
-from ..ops.gemm import dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant
+from ..ops.gemm import (dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant, w4a8_fused,
+                        w4a8_use_xla)
 from ..ops.quantize import ln_mod_quant_int8, rsmooth_of
 from ..ops.reference import gelu_jax, layer_norm, rmsnorm
 from .embeddings import apply_rope
@@ -242,22 +245,29 @@ class FluxAttention(nn.Module):
 
 
 def can_chain(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear) -> bool:
-    """Whether the pair takes the int8 requantize chain (JAX ``_can_chain``
-    on its default route): matching int8 or w4a8 linears."""
-    return fc1.precision == fc2.precision and fc1.int8_acts
+    """Whether the pair takes the requantize chain (JAX ``_can_chain``,
+    attention.py:567-582): matching int8 linears, or matching w4a8 ones
+    while either route switch serves a chain (:func:`w4a8_fused` or
+    :func:`w4a8_use_xla`; with ``NUNCHAKU_TPU_W4A8_XLA=0`` and the fused
+    route off, fc1, GELU and fc2 run apart, each a packed GEMM)."""
+    p = fc1.precision
+    return fc2.precision == p and (p == "int8" or (p == "w4a8" and (w4a8_fused() or w4a8_use_xla())))
 
 
 def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None,
              residual=None) -> torch.Tensor:
     """fc1 -> GELU -> fc2.
 
-    int8 / w4a8 (:func:`can_chain`): w4a8 weights are dequantized to int8
-    (fc1, then fc2; int4 or e2m1 codes), fc1's GEMM emits fc2's int8
+    int8 / w4a8 (:func:`can_chain`): fc1's GEMM emits fc2's int8
     activations with one scale per (token, bn-column group), shifted first
     when fc2 takes unsigned activations (a model from an int4 checkpoint),
-    and fc2's GEMM consumes them group by group. Other precisions (int4,
-    nvfp4) run fc1, the f32 GELU of ``jax.nn.gelu(approximate=True)`` and
-    fc2 (its quantize adds the post-GELU shift of an unsigned fc2).
+    and fc2's GEMM consumes them group by group. w4a8 weights are
+    dequantized to int8 for the int8 chain kernels (fc1, then fc2; int4 or
+    e2m1 codes), or, under :func:`w4a8_fused` with int4 codes, read packed
+    by the W4 producer and the packed grouped consumer (JAX :674-705).
+    Otherwise (int4, nvfp4, and w4a8 with both route switches against a
+    chain) fc1, the f32 GELU of ``jax.nn.gelu(approximate=True)`` and fc2
+    run apart (fc2's quantize adds the post-GELU shift of an unsigned fc2).
 
     ``mod = (scale, shift)``: x is the RAW bf16 stream (B, S, K) and LN +
     modulate come first (on the chain, the LN + modulate + quantize
@@ -281,13 +291,15 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
             la = nn.functional.pad(la, (0, 0, 0, pad))
     else:
         qact, asc, la = fc1.quantize(x.reshape(m, x.shape[-1]))
-    w1, w2 = fc1.qweight, fc2.qweight
-    if fc1.precision == "w4a8":
+    w1, w2, precision = fc1.qweight, fc2.qweight, "int8"
+    if fc1.precision == "w4a8" and w4a8_fused() and fc1.wcodes != "e2m1":
+        precision = "w4a8"  # the packed chain: both kernels decode the int4 weights themselves
+    elif fc1.precision == "w4a8":
         w1 = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)
         w2 = dequant_w4a8(fc2.qweight, fc2.rescales, fc2.wcodes)
     qout, qs, la2 = svdq_gemm_w8a8_gelu_quant(
         qact, asc, w1, fc1.wscales, la, fc1.proj_up, fc1.bias, rsmooth_of(fc2.smooth),
-        fc2.proj_down, act_unsigned_next=fc2.act_unsigned)
+        fc2.proj_down, act_unsigned_next=fc2.act_unsigned, rescales=fc1.rescales, precision=precision)
     res = None
     if residual is not None and qout.shape[0] == m:
         xr, gate, extra, ela, epu = tuple(residual) + (None,) * (5 - len(residual))
@@ -296,8 +308,8 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
             return None if t is None else t.reshape(m, t.shape[-1])
 
         res = (flat(xr), gate, flat(extra), flat(ela), epu)
-    out = svdq_gemm_w4a4(qout, qs, w2, fc2.wscales, la2, fc2.proj_up, fc2.bias, precision="int8",
-                         residual=res)
+    out = svdq_gemm_w4a4(qout, qs, w2, fc2.wscales, la2, fc2.proj_up, fc2.bias, fc2.rescales,
+                         precision=precision, residual=res)
     out = out[:m].reshape(*lead, out.shape[-1])
     if residual is not None and res is None:  # padded rows: the add follows the slice
         out = res_apply(out, *residual)

@@ -15,7 +15,7 @@ import math
 import torch
 from torch import nn
 
-from ..ops.gemm import WCODES, svdq_gemm_w4a4, w4a8_group
+from ..ops.gemm import WCODES, svdq_gemm_w4a4, w4a8_group, w4a8_use_xla
 from ..ops.gemv import AWQ_XLA_MIN_M, awq_w4a16_linear, awq_w4a16_linear_plain
 from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
 from ..ops.reference import GROUP_INT4, bf16_matmul, group_size, is_4bit
@@ -97,11 +97,13 @@ class SVDQW4A4Linear(nn.Module):
         self.out_features = qweight.shape[1]
 
     @property
-    def int8_acts(self) -> bool:
-        """Whether the GEMM takes int8 activations (int8, w4a8): the LN +
-        modulate + quantize producer and the fc1 -> fc2 requantize chain
-        feed only such linears; int4 / nvfp4 quantize their own."""
-        return not is_4bit(self.precision)
+    def ln_producer(self) -> bool:
+        """Whether the LN + modulate + quantize producer feeds this linear
+        (JAX ``_ln_producer_ok``, transformer_flux.py:65-73, and its gate in
+        ``forward_modulated``, linear.py:371-378): int8 always; w4a8 on the
+        dequant route only (:func:`~nunchaku_tpu_torch.ops.gemm.w4a8_use_xla`,
+        read at each call); int4 / nvfp4 quantize their own activations."""
+        return self.precision == "int8" or (self.precision == "w4a8" and w4a8_use_xla())
 
     @classmethod
     def random_init(cls, gen, in_features, out_features, rank=32, precision="w4a8", act_unsigned=False,
@@ -182,9 +184,9 @@ class SVDQW4A4Linear(nn.Module):
         JAX method's multi-pass fallback for an S without a tile divisor has
         no counterpart here). ``skip_lora`` returns ``(out_without_lora,
         lora_act (B, S, R))``."""
-        if not self.int8_acts:
-            raise NotImplementedError("the LN + modulate + quantize producer makes int8 activations; "
-                                      f"{self.precision!r} takes LN + modulate + forward")
+        if not self.ln_producer:
+            raise NotImplementedError("the LN + modulate + quantize producer feeds int8 linears and w4a8 ones on "
+                                      f"the dequant route; {self.precision!r} here takes LN + modulate + forward")
         b, s, _ = x.shape
         q, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), scale, shift, self.smooth, self.proj_down)
         out = self.forward_quant(q, asc, la, skip_lora=skip_lora).reshape(b, s, -1)

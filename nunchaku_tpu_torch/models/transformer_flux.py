@@ -13,13 +13,14 @@ two configurations:
   block-sparse attention (FLUX's high-resolution path);
 * the turbo configuration ``bench.py`` serves, after
   ``set_stream_dtype(torch.bfloat16)`` and ``enable_fused_qkv_prep()``: a
-  bf16 stream, the qkv/RoPE producer kernel, and for linears that take
-  int8 activations (``SVDQW4A4Linear.int8_acts``, JAX ``_ln_producer_ok``)
+  bf16 stream, the qkv/RoPE producer kernel, and for linears the LN +
+  modulate + quantize producer feeds (``SVDQW4A4Linear.ln_producer``, JAX
+  ``_ln_producer_ok``: int8, and w4a8 unless ``NUNCHAKU_TPU_W4A8_XLA=0``)
   the LayerNorm + AdaLN modulation in the projections' quantize producer
   and the blocks' gated residual adds in the MLP consumer's epilogue (the
   JAX ``FUSED_LN_QUANT`` and ``RES_EPILOGUE`` branches, always on here).
-  int4 / nvfp4 blocks on a bf16 stream take the unfused branches, as in
-  the JAX package.
+  Other blocks on a bf16 stream (int4, nvfp4, w4a8 on the packed route)
+  take the unfused branches, as in the JAX package.
 
 The JAX ``lax.scan`` over stacked blocks becomes a Python loop over
 per-layer modules, each holding its own tensors.
@@ -92,7 +93,7 @@ class FluxTransformerBlock(nn.Module):
         """``kv_mask``: optional (B, S_txt + S_img) bool validity of the joint
         attention's keys (Qwen-Image's padded prompts)."""
         sdt = img.dtype
-        fused_ln = sdt == torch.bfloat16 and self.attn.to_qkv.int8_acts
+        fused_ln = sdt == torch.bfloat16 and self.attn.to_qkv.ln_producer
         if fused_ln:
             shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = self.norm1.mod_vectors(temb)
             c_shift_msa, c_scale_msa, c_gate_msa, c_shift_mlp, c_scale_mlp, c_gate_mlp = (
@@ -153,7 +154,7 @@ class FluxSingleTransformerBlock(nn.Module):
         )
 
     def forward(self, x, temb, rot):
-        fused_ln = x.dtype == torch.bfloat16 and self.attn.to_qkv.int8_acts and self.mlp_fc1.int8_acts
+        fused_ln = x.dtype == torch.bfloat16 and self.attn.to_qkv.ln_producer and self.mlp_fc1.ln_producer
         if fused_ln:
             # x + gate * (attn_out + mlp) in the MLP consumer's epilogue:
             # attn_out's main term enters as `extra`, its low-rank branch as

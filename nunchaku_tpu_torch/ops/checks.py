@@ -36,9 +36,14 @@ from .gemm import (
     dequant_w4a8_plain,
     gemm_w4a4,
     gemm_w4a4_plain,
+    gemm_w4a8,
+    gemm_w4a8_grouped,
+    gemm_w4a8_plain,
     gemm_w8a8_grouped,
     gemm_w8a8_grouped_plain,
     gemm_w8a8_grouped_res,
+    svdq_gemm_w4a8_gelu_quant,
+    svdq_gemm_w4a8_gelu_quant_plain,
     svdq_gemm_w8a8_gelu_quant,
     svdq_gemm_w8a8_gelu_quant_plain,
     w4a8_group,
@@ -91,6 +96,33 @@ def grouped_case(m, k, n, groups, r=32, *, seed=0, device="cuda"):
     g = _gen(seed + 1, device)
     ascales = (torch.rand((groups, m), device=device, generator=g) + 0.5) / 127.0
     return qa, ascales, w, wscales, la, pu, bias
+
+
+def w4a8_case(m, k, n, r=32, *, seed=0, device="cuda"):
+    """Operands of the packed w4a8 GEMM in rank-1 mode, (qact, ascales (1,
+    M), qweight, rescales, wscales, lora_act, proj_up, bias):
+    gelu_quant_case's activations, scales, low-rank terms and bias with
+    dequant_case's packed codes (every nibble) and rescales."""
+    qa, asc, _, ws, la, pu, bias, _, _ = gelu_quant_case(m, k, n, r, seed=seed, device=device)
+    qw, rs = dequant_case(k, n, seed=seed + 3, device=device)
+    return qa, asc, qw, rs, ws, la, pu, bias
+
+
+def w4a8_grouped_case(m, k, n, groups, r=32, *, seed=0, device="cuda"):
+    """w4a8_case with (groups, M) activation scales: the packed chain
+    consumer's operands."""
+    qa, _, qw, rs, ws, la, pu, bias = w4a8_case(m, k, n, r, seed=seed, device=device)
+    asc = (torch.rand((groups, m), device=device, generator=_gen(seed + 1, device)) + 0.5) / 127.0
+    return qa, asc, qw, rs, ws, la, pu, bias
+
+
+def w4a8_gelu_quant_case(m, k, n, r=32, *, seed=0, device="cuda"):
+    """gelu_quant_case with the weight as packed int4 codes and rescales:
+    (qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
+    rsmooth_next, proj_down_next)."""
+    qa, asc, _, ws, la, pu, bias, rsm, pd = gelu_quant_case(m, k, n, r, seed=seed, device=device)
+    qw, rs = dequant_case(k, n, seed=seed + 3, device=device)
+    return qa, asc, qw, rs, ws, la, pu, bias, rsm, pd
 
 
 def flash_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
@@ -332,6 +364,51 @@ def check_gelu_quant(qa, ascales, w, wscales, la, pu, bias, rsm, pd, act_unsigne
           and q.shape == qr.shape and s.shape == sr.shape == (w.shape[1] // chain_tile_n(w.shape[1]), qa.shape[0]))
     detail = (f"max code diff {code_max} on {frac:.2e} of codes (tol 1 on <=1e-3); "
               f"scale rel {s_rel:.2e} (tol 1e-5); lora_next rel {l_rel:.2e} (tol 1e-2)")
+    return float(code_max), ok, detail
+
+
+def check_w4a8(qa, ascales, qw, rs, wscales, la, pu, bias):
+    """The packed GEMM (rank-1 mode for (1, M) ascales, else grouped), bf16
+    output. Against the plain twin: every element within one bf16 step
+    (|err| <= 2^-7 |ref| + 1e-4 max |ref|: the low-rank term's f32 sum in
+    another order); without the low-rank term bit for bit (the same exact
+    int32 products, then the same f32 scale, group-sum and bias steps).
+    And bit for bit the int8 grouped kernel on the dequant kernel's weight:
+    the same values, the same epilogue (the two routes of the chain), where
+    that kernel takes the shape (M % 128 == 0)."""
+    fn = gemm_w4a8 if ascales.shape[0] == 1 else gemm_w4a8_grouped
+    out = fn(qa, ascales, qw, rs, wscales, la, pu, bias)
+    ref = gemm_w4a8_plain(qa, ascales, qw, rs, wscales, la, pu, bias)
+    err, rel = _rel(out, ref)
+    o, r = out.float(), ref.float()
+    beyond = ((o - r).abs() > 2.0 ** -7 * r.abs() + 1e-4 * r.abs().max()).sum().item()
+    exact = torch.equal(fn(qa, ascales, qw, rs, wscales, None, None, bias),
+                        gemm_w4a8_plain(qa, ascales, qw, rs, wscales, None, None, bias))
+    same = qa.shape[0] % 128 != 0 or torch.equal(
+        out, gemm_w8a8_grouped(qa, ascales, dequant_w4a8(qw, rs), wscales, la, pu, bias))
+    ok = beyond == 0 and exact and same and out.shape == ref.shape and bool(torch.isfinite(o).all())
+    return err, ok, (f"max abs {err:.3e}, rel {rel:.2e}; {beyond} elements beyond one bf16 step (tol 0); "
+                     f"no low-rank == twin: {exact}; == int8 grouped kernel on the dequantized weight: {same}")
+
+
+def check_w4a8_gelu_quant(qa, ascales, qw, rs, wscales, la, pu, bias, rsm, pd, act_unsigned_next=False):
+    """The W4 producer against its plain twin with check_gelu_quant's
+    tolerances, and bit for bit (codes, scales, lora_next) the int8
+    producer kernel on the dequant kernel's weight."""
+    kw = dict(act_unsigned_next=act_unsigned_next)
+    q, s, l = svdq_gemm_w4a8_gelu_quant(qa, ascales, qw, rs, wscales, la, pu, bias, rsm, pd, **kw)
+    qr, sr, lr = svdq_gemm_w4a8_gelu_quant_plain(qa, ascales, qw, rs, wscales, la, pu, bias, rsm, pd, **kw)
+    diff = (q.int() - qr.int()).abs()
+    code_max = diff.max().item()
+    frac = (diff > 0).float().mean().item()
+    s_rel = ((s - sr).abs() / sr.abs().clamp_min(1e-30)).max().item()
+    _, l_rel = _rel(l, lr)
+    int8 = svdq_gemm_w8a8_gelu_quant(qa, ascales, dequant_w4a8(qw, rs), wscales, la, pu, bias, rsm, pd, **kw)
+    same = all(torch.equal(a, b) for a, b in zip((q, s, l), int8))
+    ok = (code_max <= 1 and frac <= 1e-3 and s_rel <= 1e-5 and l_rel <= 1e-2 and same
+          and q.shape == qr.shape and s.shape == sr.shape == (qw.shape[1] // chain_tile_n(qw.shape[1]), qa.shape[0]))
+    detail = (f"max code diff {code_max} on {frac:.2e} of codes (tol 1 on <=1e-3); scale rel {s_rel:.2e} (tol "
+              f"1e-5); lora_next rel {l_rel:.2e} (tol 1e-2); == int8 producer on the dequantized weight: {same}")
     return float(code_max), ok, detail
 
 

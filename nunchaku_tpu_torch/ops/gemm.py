@@ -26,6 +26,19 @@ int8 once per layer, then int8 x int8 products):
   codes on both sides, decoded and scaled to bf16 per group, f32
   accumulation.
 
+The JAX package's two w4a8 route switches, read at each call
+(:func:`w4a8_use_xla`, :func:`w4a8_fused`), move w4a8 off the dequant route
+onto the packed-int4 route, whose kernels decode the int4 codes inside the
+int8 GEMM and never write an int8 weight to HBM:
+
+* :func:`gemm_w4a8` / :func:`gemm_w4a8_grouped` -- kernel ``csrc/gemm_w4a8.cu``
+  (JAX ``_gemm_w4a8h_kernel`` :281 in its rank-1 and grouped-scale modes,
+  and ``_gemm_w4a8_kernel`` :167, its explicit-tile twin): the standalone
+  linears under ``NUNCHAKU_TPU_W4A8_XLA=0``, the chain's fc2 consumer;
+* :func:`svdq_gemm_w4a8_gelu_quant` -- the W4 form of
+  ``csrc/gemm_w8a8_gelu_quant.cu`` (JAX ``_gemm_w4a8_gelu_quant_kernel``
+  :721), the chain's fc1 producer under ``NUNCHAKU_TPU_W4A8_FUSED=1``.
+
 Each kernel has a plain PyTorch twin (``*_plain``) with the same numerics.
 A wrapper takes the twin only for tensors on the CPU; for CUDA tensors it
 launches the kernel (or raises) and adds one to its ``launches`` count.
@@ -33,6 +46,7 @@ launches the kernel (or raises) and adds one to its ``launches`` count.
 
 from __future__ import annotations
 
+import os
 from types import SimpleNamespace
 
 import torch
@@ -134,6 +148,23 @@ DEQUANT_E2M1 = SimpleNamespace(launches=0)  # launches of the e2m1 form
 dequant_w4a8.launches = 0
 
 
+def w4a8_use_xla() -> bool:
+    """``NUNCHAKU_TPU_W4A8_XLA`` (JAX ``_w4a8_use_xla``, gemm.py:873), read at
+    each call. On (the default: unset or anything but "0"), a standalone
+    w4a8 linear dequantizes its weight to int8 and runs the int8 product,
+    and the LN + modulate + quantize producer may feed it; "0" sends it to
+    the packed GEMM (:func:`gemm_w4a8`) and turns the producer off for it."""
+    return os.environ.get("NUNCHAKU_TPU_W4A8_XLA", "1") != "0"
+
+
+def w4a8_fused() -> bool:
+    """``NUNCHAKU_TPU_W4A8_FUSED`` (JAX ``_w4a8_fused``, gemm.py:889), read at
+    each call. Off (the default: unset or "0"), the MLP chain dequantizes its
+    w4a8 weights for the int8 chain kernels; on, the chain runs on the packed
+    weights (:func:`svdq_gemm_w4a8_gelu_quant`, :func:`gemm_w4a8_grouped`)."""
+    return os.environ.get("NUNCHAKU_TPU_W4A8_FUSED", "0") != "0"
+
+
 # ---------------------------------------------------------------------------
 # standalone int8 GEMM (XLA in the JAX package; torch._int_mm here)
 # ---------------------------------------------------------------------------
@@ -182,17 +213,36 @@ def svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, qweight, wscales, lora_act, p
 
 
 def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
-                              rsmooth_next, proj_down_next, *, act_unsigned_next=False):
+                              rsmooth_next, proj_down_next, *, act_unsigned_next=False, rescales=None,
+                              precision="int8"):
     """int8 GEMM + fused GELU -> requantize: returns the NEXT layer's
     (qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R) f32).
 
     ``qweight`` is int8 (K, N); ``rsmooth_next`` (N,) is 1/next.smooth and
     ``proj_down_next`` (N, R) the next layer's low-rank down-projection;
-    ``act_unsigned_next`` adds the post-GELU shift of an unsigned next layer."""
+    ``act_unsigned_next`` adds the post-GELU shift of an unsigned next layer.
+    ``precision="w4a8"``: ``qweight`` is packed int4 (K/2, N) with
+    ``rescales`` (K/64, N), run by :func:`svdq_gemm_w4a8_gelu_quant` (JAX
+    :1303-1330)."""
+    if precision == "w4a8":
+        return svdq_gemm_w4a8_gelu_quant(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
+                                         rsmooth_next, proj_down_next, act_unsigned_next=act_unsigned_next)
+    if precision != "int8":
+        raise ValueError(f"the chain producer takes int8 or w4a8 weights, got precision {precision!r}")
     if not qact.is_cuda:
         return svdq_gemm_w8a8_gelu_quant_plain(
             qact, ascales, qweight, wscales, lora_act, proj_up, bias, rsmooth_next,
             proj_down_next, act_unsigned_next=act_unsigned_next)
+    out = _gelu_quant_launch(qact, ascales, qweight, None, wscales, lora_act, proj_up, bias, rsmooth_next,
+                             proj_down_next, act_unsigned_next)
+    svdq_gemm_w8a8_gelu_quant.launches += 1
+    return out
+
+
+def _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, rsmooth_next,
+                       proj_down_next, act_unsigned_next):
+    """Launch the producer's int8 form (``rescales`` None: qweight (K, N)
+    int8) or its W4 form (qweight packed int4 (K/2, N), rescales (K/64, N))."""
     m, k = qact.shape
     n = qweight.shape[1]
     bn = chain_tile_n(n)
@@ -205,14 +255,18 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     dev = qact.device
     qa = qact.contiguous()
     a_s = ascales.reshape(m).float().contiguous()
-    wt = qweight.t().contiguous()  # (N, K): free for the dequant kernel's K-contiguous output
+    if rescales is None:
+        _build.require(qweight.dtype == torch.int8, "int8 operands expected")
+        weight = (qweight.t().contiguous(),)  # (N, K): free for the dequant kernel's K-contiguous output
+    else:
+        weight = (qweight, rescales)
     w_s = wscales.reshape(n).float().contiguous()
     la = None if lora_act is None else lora_act.float().contiguous()
     pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     rsm = rsmooth_next.reshape(n).float().contiguous()
     pd = proj_down_next.to(torch.bfloat16).contiguous()
-    _build.require(qa.dtype == torch.int8 and wt.dtype == torch.int8, "int8 operands expected")
+    _build.require(qa.dtype == torch.int8, "int8 activations expected")
     tiles = n // KERNEL_TILE_N
     _build.require(n // bn <= 256, f"at most 256 scale groups per row, got {n // bn}")
     gbuf = torch.empty((m, n), dtype=torch.float32, device=dev)  # scratch: g between the two kernels
@@ -222,12 +276,12 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     qscales = torch.empty((n // bn, m), dtype=torch.float32, device=dev)
     lora_next = torch.empty((m, r2), dtype=torch.float32, device=dev)
     lib = _build.library()
-    _build.check(lib.nt_gemm_w8a8_gelu_quant(
-        qa.data_ptr(), a_s.data_ptr(), wt.data_ptr(), w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b),
-        rsm.data_ptr(), pd.data_ptr(), gbuf.data_ptr(), amax_part.data_ptr(), lora_part.data_ptr(),
+    entry = lib.nt_gemm_w8a8_gelu_quant if rescales is None else lib.nt_gemm_w4a8_gelu_quant
+    _build.check(entry(
+        qa.data_ptr(), a_s.data_ptr(), *(t.data_ptr() for t in weight), w_s.data_ptr(), _ptr(la), _ptr(pu),
+        _ptr(b), rsm.data_ptr(), pd.data_ptr(), gbuf.data_ptr(), amax_part.data_ptr(), lora_part.data_ptr(),
         qout.data_ptr(), qscales.data_ptr(), lora_next.data_ptr(), m, n, k, r, r2, bn,
-        GELU_SHIFT if act_unsigned_next else 0.0, _stream(qact)), "gemm_w8a8_gelu_quant")
-    svdq_gemm_w8a8_gelu_quant.launches += 1
+        GELU_SHIFT if act_unsigned_next else 0.0, _stream(qact)), entry.__name__)
     return qout, qscales, lora_next
 
 
@@ -348,6 +402,124 @@ gemm_w8a8_grouped_res.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# kernels 10-12: the packed-int4 w4a8 route (int4 decoded inside the int8 GEMM)
+# ---------------------------------------------------------------------------
+
+
+def _require_packed(qweight, rescales, k):
+    """What the packed kernels take: int4 codes (K/2, N) with bf16
+    rescales (K/64, N), K % 256 == 0. e2m1 codes (nvfp4-a8, (K/16, N)
+    rescales) have no packed kernel, as in JAX (gemm.py:2081-2085,
+    :2183-2187): they take the dequant route."""
+    n = qweight.shape[1]
+    _build.require(qweight.dtype == torch.int8 and qweight.is_contiguous() and 2 * qweight.shape[0] == k,
+                   f"qweight: contiguous int8 (K/2, N) packed int4 with K = {k}")
+    _build.require(k % PACK_BLOCK == 0, f"packed kernels need K % 256 == 0 (K={k})")
+    _build.require(rescales.dtype == torch.bfloat16 and rescales.is_contiguous()
+                   and tuple(rescales.shape) == (k // GROUP_INT4, n),
+                   f"rescales must be contiguous bf16 (K/64, N) = {(k // GROUP_INT4, n)} (int4 codes; e2m1 "
+                   f"codes take the dequant route), got {rescales.dtype} {tuple(rescales.shape)}")
+
+
+def gemm_w4a8_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias):
+    """The packed GEMM's numerics in both modes: :func:`dequant_w4a8_plain`'s
+    int8 weight, then the JAX kernel's f32 epilogue (gemm.py:224-234, :323)
+    rounded to bf16 once. ascales (1, M): ``i32 acc * as * ws``; (G, M): each
+    K/G group's partial scaled by its scale before the f32 sum, in group
+    order, then ``* ws``; both ``+ bf16(lora_act) @ proj_up + bias``. Not the
+    dequant route's :func:`gemm_w8a8`, which rounds its main term to bf16
+    before the low-rank add."""
+    return gemm_w8a8_grouped_plain(qact, ascales, dequant_w4a8_plain(qweight, rescales), wscales, lora_act,
+                                   proj_up, bias)
+
+
+def _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias):
+    m, k = qact.shape
+    n = qweight.shape[1]
+    ga = ascales.shape[0]
+    r = 0 if lora_act is None else lora_act.shape[1]
+    _build.require(qact.dtype == torch.int8 and n % KERNEL_TILE_N == 0 and k % ga == 0
+                   and (k // ga) % KERNEL_TILE_K == 0,
+                   f"packed GEMM needs int8 qact, N % 128, (K/G) % 64 == 0 (N={n}, K={k}, G={ga})")
+    _build.require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}")
+    pad = (-m) % KERNEL_TILE_M  # the kernel takes 128-row tiles; padded rows are sliced off
+    qa = torch.nn.functional.pad(qact, (0, 0, 0, pad)).contiguous()
+    a_s = torch.nn.functional.pad(ascales.float(), (0, pad)).contiguous()
+    la = None if lora_act is None else torch.nn.functional.pad(lora_act.float(), (0, 0, 0, pad)).contiguous()
+    pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
+    b = None if bias is None else bias.to(torch.bfloat16).contiguous()
+    w_s = wscales.reshape(n).float().contiguous()
+    out = torch.empty((m + pad, n), dtype=torch.bfloat16, device=qact.device)
+    lib = _build.library()
+    _build.check(lib.nt_gemm_w4a8(qa.data_ptr(), a_s.data_ptr(), qweight.data_ptr(), rescales.data_ptr(),
+                                  w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m + pad, n, k, ga,
+                                  r, _stream(qact)), "gemm_w4a8")
+    return out[:m]
+
+
+def gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None):
+    """The packed GEMM in rank-1 mode (JAX ``_gemm_w4a8h_kernel``, and
+    ``_gemm_w4a8_kernel`` of explicit tiles): qact (M, K) int8, ascales
+    (1, M) f32, qweight (K/2, N) packed int4 codes, rescales (K/64, N) bf16,
+    wscales (1, N) f32; lora_act (M, R), proj_up (R, N), bias (N,) or None
+    -> (M, N) bf16 (:func:`gemm_w4a8_plain`)."""
+    _build.require(ascales.ndim == 2 and ascales.shape[0] == 1, "rank-1 ascales must be (1, M)")
+    _require_packed(qweight, rescales, qact.shape[1])
+    if not qact.is_cuda:
+        return gemm_w4a8_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
+    out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
+    gemm_w4a8.launches += 1
+    return out
+
+
+def gemm_w4a8_grouped(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None):
+    """The packed GEMM in grouped-scale mode, the packed chain's consumer:
+    ascales (G, M), G > 1, from :func:`svdq_gemm_w4a8_gelu_quant`; other
+    operands as :func:`gemm_w4a8`. No residual epilogue: the caller applies
+    :func:`res_apply` (JAX ``res_fused = is_int8 and have_res``, :2249)."""
+    _build.require(ascales.ndim == 2 and ascales.shape[0] > 1, "grouped ascales must be (G, M) with G > 1")
+    _require_packed(qweight, rescales, qact.shape[1])
+    if not qact.is_cuda:
+        return gemm_w4a8_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
+    out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
+    gemm_w4a8_grouped.launches += 1
+    return out
+
+
+gemm_w4a8.launches = 0
+gemm_w4a8_grouped.launches = 0
+
+
+def svdq_gemm_w4a8_gelu_quant_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
+                                    rsmooth_next, proj_down_next, *, act_unsigned_next=False):
+    """The W4 producer's numerics: :func:`dequant_w4a8_plain`'s weight
+    through :func:`svdq_gemm_w8a8_gelu_quant_plain` (JAX
+    ``_gemm_w4a8_gelu_quant_kernel``'s epilogue is the int8 producer's)."""
+    return svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, dequant_w4a8_plain(qweight, rescales), wscales,
+                                           lora_act, proj_up, bias, rsmooth_next, proj_down_next,
+                                           act_unsigned_next=act_unsigned_next)
+
+
+def svdq_gemm_w4a8_gelu_quant(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
+                              rsmooth_next, proj_down_next, *, act_unsigned_next=False):
+    """The chain producer on packed int4 weights (the W4 form of
+    ``csrc/gemm_w8a8_gelu_quant.cu``): :func:`svdq_gemm_w8a8_gelu_quant`'s
+    outputs with qweight (K/2, N) packed int4 codes and rescales (K/64, N)."""
+    _require_packed(qweight, rescales, qact.shape[1])
+    if not qact.is_cuda:
+        return svdq_gemm_w4a8_gelu_quant_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up,
+                                               bias, rsmooth_next, proj_down_next,
+                                               act_unsigned_next=act_unsigned_next)
+    out = _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, rsmooth_next,
+                             proj_down_next, act_unsigned_next)
+    svdq_gemm_w4a8_gelu_quant.launches += 1
+    return out
+
+
+svdq_gemm_w4a8_gelu_quant.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # kernel 8: the int4 / nvfp4 W4A4 GEMM
 # ---------------------------------------------------------------------------
 
@@ -428,23 +600,36 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
 
 def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None, bias=None,
                    rescales=None, *, precision="int8", act_unsigned=False, residual=None, wcodes="int4"):
-    """The non-stacked branches of the JAX ``svdq_gemm_w4a4``.
+    """The non-stacked branches of the JAX ``svdq_gemm_w4a4``, in its order
+    (gemm.py:1975-2117).
 
     int8: qact (M, K) int8, ascales (1, M) per token or (G, M) grouped,
-    qweight (K, N) int8, wscales (1, N). w4a8: qweight is packed int4
-    (K/2, N) with ``rescales`` (K/64, N), or e2m1 codes (``wcodes="e2m1"``,
-    nvfp4-a8) with ``rescales`` (K/16, N); it is dequantized to int8 first.
-    Grouped scales (G > 1, from the chain producer) go to the grouped
-    kernel, per-token scales to the standalone int8 GEMM. int4 / nvfp4
-    (``act_unsigned``: unsigned int4 activations): :func:`gemm_w4a4`.
-    ``residual = (x, gate[, extra[, extra_la, extra_pu]])`` adds the
-    block's gated residual (:func:`res_apply`): in the grouped kernel's
-    epilogue, else after the GEMM."""
+    qweight (K, N) int8, wscales (1, N); grouped scales (G > 1, from the
+    chain producer) go to the grouped kernel, per-token scales to the
+    standalone int8 GEMM. w4a8: qweight is packed int4 (K/2, N) with
+    ``rescales`` (K/64, N), or e2m1 codes (``wcodes="e2m1"``, nvfp4-a8) with
+    ``rescales`` (K/16, N). Grouped scales take the packed consumer
+    (:func:`gemm_w4a8_grouped`; e2m1 raises, as in JAX); per-token scales
+    the packed GEMM (:func:`gemm_w4a8`) when :func:`w4a8_use_xla` is off and
+    the codes are int4, else the dequant route (:func:`dequant_w4a8`, then
+    the int8 product). int4 / nvfp4 (``act_unsigned``: unsigned int4
+    activations): :func:`gemm_w4a4`. ``residual = (x, gate[, extra[,
+    extra_la, extra_pu]])`` adds the block's gated residual
+    (:func:`res_apply`): in the int8 grouped kernel's epilogue, else after
+    the GEMM."""
     if is_4bit(precision):
         out = gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, precision=precision,
                         act_unsigned=act_unsigned)
         return out if residual is None else res_apply(out, *residual)
     if precision == "w4a8":
+        grouped = ascales.ndim == 2 and ascales.shape[0] > 1
+        if grouped or not (w4a8_use_xla() or wcodes == "e2m1"):
+            if wcodes == "e2m1":
+                raise ValueError("e2m1-coded w4a8 (nvfp4-a8) has no packed chain kernel; the MLP chain "
+                                 "dequantizes its weights first (gelu_mlp)")
+            out = (gemm_w4a8_grouped if grouped else gemm_w4a8)(qact, ascales, qweight, rescales, wscales,
+                                                                 lora_act, proj_up, bias)
+            return out if residual is None else res_apply(out, *residual)
         qweight = dequant_w4a8(qweight, rescales, wcodes)
     elif precision != "int8":
         raise NotImplementedError(f"precision {precision!r} is not ported")

@@ -17,6 +17,10 @@ attention at ratio R (``set_attention_impl("blocksparse")``, FLUX's
 split by caller: the tool wraps the activation quantize and the MLP's GELU
 in ``record_function`` ranges (in this process only) and sums the device
 kernels each range launched.
+The w4a8 route follows the JAX package's switches as the environment sets
+them (``NUNCHAKU_TPU_W4A8_XLA``, ``NUNCHAKU_TPU_W4A8_FUSED``; both, as
+``XLA=0 FUSED=1``, give the packed-int4 route: the packed GEMM
+``gemm_w4a8_kernel`` and the producer's W4 form, a group of their own).
 ``--model qwenimage``: the full Qwen-Image model (60 joint blocks; int4
 unless ``--precision`` says otherwise), one forward at B 1 from a prompt of
 97 valid tokens padded to 211 with its mask (the flash kernel's mask form).
@@ -45,10 +49,12 @@ import torch
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
                 "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_online_kernel",
-                "gemm_w4a4_kernel", "gemv_awq_kernel", "gemv_awq_finish")
-# the block-sparse forms, template instantiations of the flash kernels (IDX = true)
-BS_KERNELS = {r"flash_fixed_kernel<\s*false,\s*true\s*>": "bs_fixed (flash_fixed_kernel, IDX)",
-              r"flash_online_kernel<\s*128,\s*false,\s*true\s*>": "bs_online (flash_online_kernel, IDX)"}
+                "gemm_w4a4_kernel", "gemv_awq_kernel", "gemv_awq_finish", "gemm_w4a8_kernel")
+# template forms with a group of their own: the block-sparse forms of the flash kernels (IDX = true) and the
+# chain producer on packed int4 weights
+FORM_KERNELS = {r"flash_fixed_kernel<\s*false,\s*true\s*>": "bs_fixed (flash_fixed_kernel, IDX)",
+                r"flash_online_kernel<\s*128,\s*false,\s*true\s*>": "bs_online (flash_online_kernel, IDX)",
+                r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 
 
@@ -78,7 +84,7 @@ def glue_by_range(prof) -> dict[str, float]:
 
 
 def group_of(name: str) -> str:
-    for pattern, group in BS_KERNELS.items():
+    for pattern, group in FORM_KERNELS.items():
         if re.search(pattern, name):
             return "port kernel " + group
     for k in PORT_KERNELS:
@@ -264,6 +270,11 @@ def main(argv=None) -> int:
         for block in blocks:
             block.attn.fixed_softmax = False
         what += ", fixed_softmax False"
+    if args.precision in ("w4a8", "nvfp4-a8"):
+        from nunchaku_tpu_torch.ops.gemm import w4a8_fused, w4a8_use_xla
+
+        what += (f", w4a8 route NUNCHAKU_TPU_W4A8_XLA={'1' if w4a8_use_xla() else '0'} "
+                 f"NUNCHAKU_TPU_W4A8_FUSED={'1' if w4a8_fused() else '0'}")
     extra = None
     if args.precision in ("int4", "nvfp4"):
         from nunchaku_tpu_torch.models import attention, linear

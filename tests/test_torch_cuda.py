@@ -20,7 +20,8 @@ from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, Qwe
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.attention import block_sparse_attention, flash_attention, flash_attention_online
-from nunchaku_tpu_torch.ops.gemm import dequant_w4a8, gemm_w4a4, gemm_w8a8_grouped, svdq_gemm_w8a8_gelu_quant
+from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a4, gemm_w4a8, gemm_w4a8_grouped, gemm_w8a8_grouped,
+                                         svdq_gemm_w4a4, svdq_gemm_w4a8_gelu_quant, svdq_gemm_w8a8_gelu_quant)
 from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
 
 pytestmark = pytest.mark.cuda
@@ -451,3 +452,88 @@ def test_w4a8_cache_dequant_on_card(dev):
         assert launch_counts()["dequant_w4a8_e2m1" if precision == "nvfp4-a8" else "dequant_w4a8"] == 12
         got = dialed.transformer_blocks[0].ff.fc1
         assert got.precision == "int8" and torch.equal(got.qweight, want)
+
+
+# the packed-int4 w4a8 route (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1)
+
+
+@pytest.mark.parametrize("m,k,n,r,groups", [
+    (4608, 3072, 9216, 32, 1),   # FLUX single-block qkv
+    (4608, 3072, 3072, 32, 1),   # out projection
+    (512, 3072, 9216, 32, 1),    # the dual block's text stream
+    (4096, 3072, 9216, 128, 1),  # Qwen-Image rank 128
+    (200, 512, 256, 16, 1),      # M padded to the 128-row tile
+    (4608, 12288, 3072, 32, 8),  # the chain's fc2 consumer
+    (4608, 12288, 3072, 128, 8),
+    (256, 3072, 256, 32, 2),
+])
+def test_gemm_w4a8(dev, m, k, n, r, groups):
+    case = checks.w4a8_case(m, k, n, r, device=dev) if groups == 1 else checks.w4a8_grouped_case(
+        m, k, n, groups, r, device=dev)
+    _, ok, detail = checks.check_w4a8(*case)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("r", [32, 128])
+@pytest.mark.parametrize("m,k,n,unsigned", [(4608, 3072, 12288, False), (256, 512, 3072, True)])
+def test_w4a8_gelu_quant(dev, r, m, k, n, unsigned):
+    _, ok, detail = checks.check_w4a8_gelu_quant(*checks.w4a8_gelu_quant_case(m, k, n, r, device=dev),
+                                                 act_unsigned_next=unsigned)
+    assert ok, detail
+
+
+def test_w4a8_packed_counts_and_refusals(dev, monkeypatch):
+    """One launch count per mode; e2m1 (nvfp4-a8) rescales refused by every
+    packed wrapper, grouped e2m1 scales by the dispatch (as in JAX), and a
+    rank-1 e2m1 call under W4A8_XLA=0 kept on the dequant route."""
+    reset_launch_counts()
+    args = checks.w4a8_case(256, 512, 256, device=dev)
+    gemm_w4a8(*args)
+    gemm_w4a8_grouped(*checks.w4a8_grouped_case(256, 1024, 256, 2, device=dev))
+    svdq_gemm_w4a8_gelu_quant(*checks.w4a8_gelu_quant_case(256, 512, 1536, device=dev))
+    c = launch_counts()
+    assert (c["gemm_w4a8"], c["gemm_w4a8_grouped"], c["gemm_w4a8_gelu_quant"]) == (1, 1, 1)
+    assert c["dequant_w4a8"] == c["gemm_w8a8_grouped"] == c["gemm_w8a8_gelu_quant"] == 0
+    qa, asc, _, _, ws, la, pu, bias = args
+    qw, rs16 = checks.dequant_case(512, 256, codes="e2m1", device=dev)
+    with pytest.raises(ValueError):
+        gemm_w4a8(qa, asc, qw, rs16, ws, la, pu, bias)
+    with pytest.raises(ValueError):
+        svdq_gemm_w4a4(qa, asc.expand(2, -1), qw, ws, la, pu, bias, rs16, precision="w4a8", wcodes="e2m1")
+    with pytest.raises(ValueError):  # rank above the kernels' 128
+        gemm_w4a8(*checks.w4a8_case(128, 512, 256, 160, device=dev))
+    monkeypatch.setenv("NUNCHAKU_TPU_W4A8_XLA", "0")
+    reset_launch_counts()
+    svdq_gemm_w4a4(qa, asc, qw, ws, la, pu, bias, rs16, precision="w4a8", wcodes="e2m1")
+    c = launch_counts()
+    assert c["dequant_w4a8_e2m1"] == 1 and c["gemm_w4a8"] == 0
+
+
+@pytest.mark.parametrize("turbo", [False, True])
+def test_packed_small_model_matches_cpu(dev, monkeypatch, turbo):
+    """A 1 + 1-block w4a8 model (6 heads: two requantize groups) on the
+    packed route on the card against the plain twins on the CPU: within
+    2e-2 of the reference's max |value|, every w4a8 GEMM a packed kernel
+    (6 standalone linears, 3 chains), none the dequant or the LN producer."""
+    monkeypatch.setenv("NUNCHAKU_TPU_W4A8_XLA", "0")
+    monkeypatch.setenv("NUNCHAKU_TPU_W4A8_FUSED", "1")
+    cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
+                     joint_attention_dim=512, pooled_projection_dim=256, precision="w4a8")
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=7, device="cpu")
+    if turbo:
+        cpu_model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    args = (torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen).to(torch.bfloat16),
+            torch.tensor([0.6]), make_img_ids(16, 16), torch.zeros((128, 3), dtype=torch.int32),
+            torch.tensor([3.5]))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args).float()
+        out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+    c = {k: v for k, v in launch_counts().items() if v}
+    expect = {"gemm_w4a8": 6, "gemm_w4a8_gelu_quant": 3, "gemm_w4a8_grouped": 3, "flash_fixed": 2}
+    assert c == (expect | {"qkv_rope_producer": 3} if turbo else expect), c
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
