@@ -28,7 +28,10 @@ Phases, each fatal on failure:
                   qkv and out-projection shapes, gemm_w4a8_gelu_quant at fc1,
                   gemm_w4a8_grouped at fc2, each also at rank 128, with
                   torch._int_mm of the product on the dequantized weight as
-                  yardstick;
+                  yardstick; the online flash kernel at head dim 64
+                  (flash_online_d64) on SDXL's 1024px shapes: self-attention
+                  at H 10, S 4096 (the row) and H 20, S 1024, and both levels'
+                  cross-attention against 77 text keys, SDPA as yardstick;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -54,7 +57,10 @@ Phases, each fatal on failure:
                   synthesized checkpoints loaded on the card and on the CPU (a
                   1 + 1-block FLUX nvfp4 file at w4a8, i.e. nvfp4-a8, and a 2-block
                   Qwen-Image int4 rank-128 file at w4a8): every buffer equal bit for
-                  bit, 2-step latents within 2e-2;
+                  bit, 2-step latents within 2e-2. Then the small SDXL UNet (11
+                  blocks, head dim 64) card against CPU: int4 one forward and 2
+                  unguided steps (1e-1), int8 one forward (3e-2) and 2 CFG steps
+                  (7e-2), launches exact;
   5. slice     -- T5-XXL (AWQ W4A16, 24 layers) and CLIP-L from random weights;
                   full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
@@ -118,6 +124,16 @@ Phases, each fatal on failure:
                   w4a8, one B 1 step to latents each (the W4A4 GEMM, the chain
                   kernels at rank 128), and the w4a8 step once more on the
                   packed route (the packed kernels at rank 128), counts exact.
+ 10. sdxl     -- full-width, full-depth SDXL int4 (SDXLConfig(): 70 transformer
+                  blocks, head dim 64) from random weights with the SDXL VAE
+                  (latent 4, scaling 0.13025, tiled decode) through SDXLPipeline:
+                  request A, 1024x1024, CFG 5.0 with negative embeddings,
+                  min(4, --steps) of the default 30 steps, to images; request B,
+                  the SDXL-Turbo preset (512x512, 4 steps, guidance 0), to
+                  images; 2 timed requests each after an untimed one. Counts
+                  exact per UNet forward (flash_online_d64 140, gemm_w4a4_int4
+                  420; two forwards a CFG step; 9 flash_online per 1024px
+                  decode, 1 at 512px).
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -155,6 +171,12 @@ HR_SIZE, HR_S, HR_SPARSITY, HR_TILES, RAGGED_S = 2048, 16384 + 512, 0.5, 25, 921
 T5_XXL = dict(vocab=32128, d_model=4096, d_ff=10240, d_kv=64, heads=64, layers=24, quantized=True)
 CLIP_L = dict(vocab=49408, d=768, heads=12, layers=12, max_pos=77)
 T5_EOS, CLIP_EOS = 1, 2
+# SDXL (SDXLConfig(): channels 320 / 640 / 1280, transformer layers 0 / 2 / 10, i.e. 70 blocks, head dim 64)
+# at 1024px: level 1 attends over 64x64 = 4096 tokens at 10 heads (10 blocks), level 2 over 32x32 = 1024 at
+# 20 heads (60 blocks), each block's cross-attention against 77 text tokens; the turbo preset at 512px
+SDXL_D, SDXL_CTX, SDXL_TURBO = 64, 77, 512
+SDXL_LEVELS = ((640, 10, 10), (1280, 20, 60))  # (width, heads, blocks) of the two attention levels
+SDXL_VAE_TILES = {1024: 9, 512: 1}  # flash_online launches of a tiled decode at each size
 PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
            "a bowl of ramen on a wooden table, studio light")
 
@@ -561,7 +583,45 @@ def kernel_phase(dev):
            ms, plain, bnd, lib)
     torch.cuda.empty_cache()
     bs_kernel_rows(dev, record)
+    sdxl_kernel_rows(dev, record)
     return rows, failed
+
+
+def online_bound(b, h, sq, skv, d):
+    # q and out (B, H, Sq, D), k and v (B, H, Skv, D) bf16; 4 * Sq * Skv * D flop per head
+    return bound(2 * 2 * b * h * sq * d + 2 * 2 * b * h * skv * d, bf16_ops=4 * b * h * sq * skv * d)
+
+
+def sdxl_kernel_rows(dev, record):
+    """13. The online flash kernel at head dim 64 on SDXL's 1024px shapes:
+    the row is level 1's self-attention (B 1, H 10, S 4096); level 2's (H
+    20, S 1024) and both levels' cross-attention (Skv 77: three kv tiles,
+    the last with 13 valid columns) are checked and timed too, each against
+    the plain twin on the card, with SDPA as yardstick."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import flash_attention_online, flash_attention_online_plain
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res, oks, errs = {}, [], []
+    for (width, h, _), s in zip(SDXL_LEVELS, (64 * 64, 32 * 32)):
+        for skv in (s, SDXL_CTX):
+            q, k, v = checks.flash_online_case(1, h, s, skv, SDXL_D, device=dev)
+            err, ok, detail = checks.check_flash_online(q, k, v)
+            ms = cuda_ms(lambda: flash_attention_online(q, k, v, out_bshd=True), 50)
+            plain = cuda_ms(lambda: flash_attention_online_plain(q, k, v, out_bshd=True), 3)
+            lib = cuda_ms(lambda: sdpa(q, k, v, scale=1 / math.sqrt(SDXL_D)), 50)
+            bnd = online_bound(1, h, s, skv, SDXL_D)
+            res[(h, s, skv)] = (err, ok, detail, ms, plain, bnd, lib)
+            oks.append(ok)
+            errs.append(err)
+            log(f"[kernel] flash_online_d64 @ B=1 H={h} Sq={s} Skv={skv} D={SDXL_D} ({'self' if skv == s else 'cross'}, "
+                f"width {width}): {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, SDPA "
+                f"{lib:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+            del q, k, v
+    _, _, detail, ms, plain, bnd, lib = res[(SDXL_LEVELS[0][1], 4096, 4096)]
+    record("flash_online_d64", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:607",
+           f"B=1 H=10 S=4096 D={SDXL_D} (SDXL level 1 self-attention)", all(oks), max(errs),
+           detail + "; level 2 and both cross shapes logged above", ms, plain, bnd, lib)
 
 
 def packed_kernel_rows(dev, record, failed):
@@ -760,7 +820,65 @@ def reference_phase(dev):
     ok4 = reference_4bit(dev, pe, pooled, lat, kw)
     all_ok = reference_packed(dev, cfg, pe, pooled, lat, kw) and all_ok
     return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
-            and reference_text_encoders(dev) and reference_checkpoint(dev))
+            and reference_text_encoders(dev) and reference_checkpoint(dev) and reference_sdxl(dev))
+
+
+SDXL_SMALL = dict(block_out_channels=(128, 256, 512), layers_per_block=1, transformer_layers=(0, 1, 2),
+                  cross_attention_dim=256, projection_class_embeddings_input_dim=256 + 6 * 32,
+                  addition_time_embed_dim=32)  # tests/test_sdxl.py's TINY: 11 blocks at widths 256 / 512
+
+
+def reference_sdxl(dev):
+    """The small SDXL UNet of the CPU tests (11 transformer blocks, head dim
+    64), card against CPU with the same weights and inputs, at the bounds
+    the CPU tests hold the port to against JAX (twice the spread of the JAX
+    package's own two GEMM routes): int4, one forward (1e-1) and 2 steps of
+    SDXLPipeline at 256x256 without guidance (1e-1); int8, one forward
+    (3e-2) and 2 steps with CFG 5.0 (7e-2: the guidance multiplies the
+    forward's differences; at int4 it multiplies the code flips past any
+    useful bound). Every attention on the D-64 kernel (22 a forward), every
+    int4 SVDQ linear on the W4A4 kernel (66 a forward)."""
+    from nunchaku_tpu_torch import SDXLConfig, SDXLPipeline, SDXLUNet2DConditionModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_sdxl import sdxl_sigmas
+
+    gen = torch.Generator().manual_seed(13)
+    pe, ne = (torch.randn((1, 77, 256), generator=gen).to(torch.bfloat16) for _ in range(2))
+    pool, npool = (torch.randn((1, 256), generator=gen).to(torch.bfloat16) for _ in range(2))
+    lat = torch.randn((1, 4, 32, 32), generator=gen) * float((sdxl_sigmas(2)[0][0] ** 2 + 1.0) ** 0.5)
+    kw = dict(height=256, width=256, num_inference_steps=2, guidance_scale=5.0)
+    all_ok = True
+    for precision, tol_fwd, cfg_on, tol in (("int4", 1e-1, False, 1e-1), ("int8", 3e-2, True, 7e-2)):
+        cpu_model = SDXLUNet2DConditionModel.random_init(SDXLConfig(**SDXL_SMALL, precision=precision), seed=14,
+                                                          device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        args = (torch.randn((1, 4, 32, 32), generator=gen).to(torch.bfloat16), torch.tensor([500.0]), pe, pool,
+                torch.full((1, 6), 512.0))
+        with torch.no_grad():
+            ref1 = cpu_model(*args).float()
+            reset_launch_counts()
+            out1 = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+            c1 = launch_counts()
+        neg = (ne, npool) if cfg_on else (None, None)
+        ref = SDXLPipeline(cpu_model)(pe, pool, *neg, latents=lat, **kw).latents
+        reset_launch_counts()
+        out = SDXLPipeline(gpu_model)(pe.to(dev), pool.to(dev), *[None if t is None else t.to(dev) for t in neg],
+                                      latents=lat.to(dev), **kw).latents.cpu()
+        c2 = launch_counts()
+        rel1 = ((out1 - ref1).abs().max() / ref1.abs().max()).item()
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        gemm, fwd = (66 if precision == "int4" else 0), (4 if cfg_on else 2)
+        counts_ok = (c1["flash_online_d64"], c1["gemm_w4a4_int4"], c2["flash_online_d64"], c2["gemm_w4a4_int4"]) == (
+            22, gemm, fwd * 22, fwd * gemm)
+        ok = (bool(torch.isfinite(out).all()) and bool(torch.isfinite(out1).all()) and rel1 <= tol_fwd and rel <= tol
+              and counts_ok)
+        log(f"[reference] SDXL small UNet (11 blocks, widths 256 / 512) {precision}: one forward card vs CPU rel "
+            f"max error {rel1:.3e} (tolerance {tol_fwd:.0e}); 2 steps at 256x256 {'with CFG 5.0' if cfg_on else 'unguided'}"
+            f" latents {rel:.3e} (tolerance {tol:.0e}); launches a forward flash_online_d64 {c1['flash_online_d64']} "
+            f"(22), gemm_w4a4_int4 {c1['gemm_w4a4_int4']} ({gemm}), the pipeline's {c2['flash_online_d64']} / "
+            f"{c2['gemm_w4a4_int4']} ({fwd} forwards): {'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+    return all_ok
 
 
 def reference_blocksparse(dev):
@@ -1805,6 +1923,108 @@ def reference_checkpoint(dev):
     return all_ok
 
 
+def sdxl_per_forward(unet) -> dict:
+    """Launches per UNet forward: two D-64 attentions and six SVDQ linears
+    (qkv, out; to_q, out; the GEGLU's two) per transformer block, the
+    linears on the W4A4 kernel at int4."""
+    from nunchaku_tpu_torch.models.unet_sdxl import SDXLTransformerBlock
+
+    blocks = sum(isinstance(m, SDXLTransformerBlock) for m in unet.modules())
+    return {"flash_online_d64": 2 * blocks} | ({"gemm_w4a4_int4": 6 * blocks} if unet.cfg.precision == "int4" else {})
+
+
+def sdxl_bounds(size=1024) -> dict:
+    """Least time per SDXL UNet forward at ``size`` px for each kernel it
+    runs: every block's self- and cross-attention (77 text keys) and its six
+    W4A4 GEMMs at their launched shapes (K padded to 256: level 1's 640 ->
+    768), per level."""
+    out = {"flash_online_d64": 0.0, "gemm_w4a4_int4": 0.0}
+    side = size // 16  # level 1's token grid (VAE stride 8, one 2x downsample)
+    for lvl, (width, heads, blocks) in enumerate(SDXL_LEVELS):
+        m = (side >> lvl) ** 2
+        kp = width + (-width) % 256
+        out["flash_online_d64"] += blocks * sum(online_bound(1, heads, m, skv, SDXL_D)[0] for skv in (m, SDXL_CTX))
+        shapes = ((kp, 3 * width), (kp, width), (kp, width), (kp, width), (kp, 8 * width), (4 * width, width))
+        out["gemm_w4a4_int4"] += blocks * sum(w4a4_bound(m, k, n, 64)[0] for k, n in shapes)
+    return out
+
+
+def sdxl_phase(dev, steps: int):
+    """[sdxl] Full-width, full-depth SDXL (SDXLConfig(): int4, 70 transformer
+    blocks) from random weights with the SDXL VAE (latent 4, scaling
+    0.13025, shift 0, tiled decode) through SDXLPipeline: request A at
+    1024x1024, CFG 5.0 with negative embeddings, min(4, steps) of the
+    default 30 steps (a step-count cut), to an image; request B, the
+    SDXL-Turbo preset of examples/sdxl.py (512x512, 4 steps, guidance 0), to
+    an image. Embeddings (1, 77, 2048) and pooled (1, 1280) random from
+    seeds. Each request runs once untimed first (first-use work), then twice
+    timed; launches exact per forward (two forwards a CFG step), plus the
+    decode's flash_online. -> (ok, counts, per-forward counts by request)."""
+    from nunchaku_tpu_torch import AutoencoderKL, SDXLConfig, SDXLPipeline, SDXLUNet2DConditionModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    cfg = SDXLConfig()
+    t0 = time.perf_counter()
+    unet = SDXLUNet2DConditionModel.random_init(cfg, seed=0, device=dev)
+    vae = AutoencoderKL.random_init(seed=1, latent_channels=4, scaling_factor=0.13025, shift_factor=0.0, device=dev)
+    vae.enable_tiling()
+    torch.cuda.synchronize()
+    per = sdxl_per_forward(unet)
+    log(f"[sdxl] SDXL {cfg.precision}: channels {cfg.block_out_channels}, transformer layers "
+        f"{cfg.transformer_layers} ({per['flash_online_d64'] // 2} blocks), head dim {cfg.head_dim}, cross "
+        f"{cfg.cross_attention_dim}, rank {cfg.rank}; UNet weights {_gib(unet):.2f} GiB, VAE {_gib(vae):.2f} GiB, "
+        f"random init {time.perf_counter() - t0:.1f} s")
+    pipe = SDXLPipeline(unet, vae=vae)
+
+    def embeds(seed, negative):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        kw = dict(prompt_embeds=rnd(1, SDXL_CTX, cfg.cross_attention_dim), pooled_prompt_embeds=rnd(1, 1280))
+        if negative:
+            kw |= dict(negative_prompt_embeds=rnd(1, SDXL_CTX, cfg.cross_attention_dim),
+                       negative_pooled_prompt_embeds=rnd(1, 1280))
+        return kw
+
+    ok, total, paths = True, {}, {}
+    for label, size, n, guidance in (("A: 1024px, CFG 5.0", 1024, min(4, steps), 5.0),
+                                     ("B: SDXL-Turbo preset, 512px, guidance 0", SDXL_TURBO, min(4, steps), 0.0)):
+        cfg_on = guidance > 1.0
+        call = dict(height=size, width=size, guidance_scale=guidance)
+        with torch.no_grad():
+            pipe(**embeds(99, cfg_on), num_inference_steps=1, **call)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        req_s = []
+        for seed in range(2):
+            prompt = embeds(seed, cfg_on)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe(**prompt, num_inference_steps=n, seed=seed, **call)
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - t0)
+            lat, img = out.latents, out.images
+            good = (tuple(lat.shape) == (1, 4, size // 8, size // 8) and bool(torch.isfinite(lat).all())
+                    and tuple(img.shape) == (1, size, size, 3) and img.dtype == torch.float32
+                    and bool(torch.isfinite(img).all()) and img.min().item() >= 0.0 and img.max().item() <= 1.0)
+            ok = ok and good
+            log(f"[sdxl] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / n:.4f} s/step, "
+                f"{n * (2 if cfg_on else 1)} UNet forwards), latents {tuple(lat.shape)} |lat| mean "
+                f"{lat.abs().mean().item():.4f}, images {tuple(img.shape)} min {img.min().item():.4f} max "
+                f"{img.max().item():.4f} mean {img.mean().item():.4f}: finite and in [0, 1] {good}")
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[sdxl] {label}: 2 requests x {n} steps; s/request {[round(x, 3) for x in req_s]}, s/step (last) "
+            f"{req_s[-1] / n:.4f}; peak allocated {peak:.2f} GiB")
+        paths[f"sdxl {size}px"] = per
+        ok = check_counts(f"sdxl {label}", counts, per, 2 * n * (2 if cfg_on else 1),
+                          {"flash_online": 2 * SDXL_VAE_TILES[size]}, tag="sdxl") and ok
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    del pipe, unet, vae
+    torch.cuda.empty_cache()
+    return ok, total, paths
+
+
 def qwen_bounds(cfg, b=1) -> dict:
     """Least time per Qwen-Image 1024px forward at batch ``b`` for each
     kernel it runs (S_txt 211, padded to the 256-row quantum in the GEMMs)."""
@@ -1886,7 +2106,9 @@ def main(argv=None) -> int:
     qwen_ok, qcounts, qpaths, qcfg = qwen_phase(dev, args.steps)
     ckpt_ok, ccounts, cpaths = checkpoint_phase(dev, args.steps)
     ckptq_ok, cqcounts, cqpaths = checkpoint_qwen_phase(dev)
-    counts = {k: counts[k] + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0) for k in counts}
+    sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
+    counts = {k: counts[k] + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0) + scounts.get(k, 0)
+              for k in counts}
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
@@ -1905,12 +2127,16 @@ def main(argv=None) -> int:
     for name, b in highres_bounds().items():
         per = {p: f[name] for p, f in hpaths.items() if f.get(name)}
         log(f"[bound] {name}: launches per 2048px forward {per}, least time {b:.3f} ms per forward")
-    ran =[name for name, c in counts.items() if c > 0]
+    for size in (1024, SDXL_TURBO):
+        for name, b in sdxl_bounds(size).items():
+            log(f"[bound] {name}: launches per SDXL {size}px UNet forward {spaths[f'sdxl {size}px'][name]}, least "
+                f"time {b:.3f} ms per forward")
+    ran = [name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
     for name, per in (cpaths | cqpaths).items():
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and hr_ok and ckpt_ok and ckptq_ok
+    ok = ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -1918,7 +2144,7 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"slice {verdict(slice_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
-        f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}")
+        f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

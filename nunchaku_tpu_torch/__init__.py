@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of nunchaku_tpu for NVIDIA Hopper (H100).
 
 The port runs FLUX.1 and Qwen-Image, from nunchaku checkpoints or random
-weights, to an image: 4-bit SVDQuant weights (int4 or nvfp4 products, or
+weights, and SDXL's int4 UNet from random or converted weights, to an image: 4-bit SVDQuant weights (int4 or nvfp4 products, or
 packed codes dequantized to per-channel int8 for int8 x int8 products), the
 text encoders, the first-block step caches, a tiled VAE decode, and the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels for
@@ -11,7 +11,8 @@ on the CPU every kernel wrapper runs its plain PyTorch twin.
 
 Public surface, under the JAX package's top-level names: the models
 (``FluxTransformer2DModel``, ``QwenImageTransformer2DModel``,
-``T5EncoderModel``, ``CLIPTextModel``, ``AutoencoderKL``), their checkpoint
+``SDXLUNet2DConditionModel`` with ``SDXLConfig``, ``T5EncoderModel``,
+``CLIPTextModel``, ``AutoencoderKL``), their checkpoint
 loaders (``load_flux_transformer``, ``load_qwenimage_transformer``,
 ``load_t5_encoder``, ``load_clip_text``, ``load_autoencoder``; each takes
 ``device=``, the card by default), the pipelines and the precision dials
@@ -29,5 +30,7 @@ from .models.text_encoders.clip import CLIPTextModel, load_clip_text
 from .models.text_encoders.t5 import T5EncoderModel, load_t5_encoder
 from .models.transformer_flux import FluxConfig, FluxTransformer2DModel
 from .models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+from .models.unet_sdxl import SDXLConfig, SDXLUNet2DConditionModel
 from .pipeline.pipeline_flux import FluxPipeline
 from .pipeline.pipeline_qwenimage import QwenImagePipeline
+from .pipeline.pipeline_sdxl import SDXLPipeline

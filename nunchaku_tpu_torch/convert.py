@@ -1,4 +1,4 @@
-"""Carry FLUX, Qwen-Image and VAE weights from the JAX package into the port.
+"""Carry FLUX, Qwen-Image, SDXL and VAE weights from the JAX package into the port.
 
 ``flux_from_jax_params`` (``qwenimage_from_jax_params`` alike) takes the
 dotted names of the JAX ``Module.named_parameters()``
@@ -7,7 +7,9 @@ leaves carry a leading layer axis -- and builds the port's per-layer
 modules from them. Static attributes (precision, the
 int4 fc2 layers' unsigned activations, head dim) come from the config, and
 every linear's shape is checked against the config's dims.
-``vae_from_jax_params`` does the same for the VAE decoder, and
+``sdxl_from_jax_params`` does the same for the SDXL UNet (its NHWC
+convolution weights transposed to OIHW, its odd-width SVDQ linears kept
+padded), ``vae_from_jax_params`` for the VAE decoder, and
 ``t5_from_jax_params`` / ``clip_from_jax_params`` for the text encoders.
 """
 
@@ -16,10 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .models import unet_sdxl as U
 from .models.attention import FeedForward, FluxAttention
 from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, ResnetBlock, Upsample
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
-from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear
+from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, padded_dims
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
 from .models.text_encoders.clip import CLIPBlock, CLIPTextModel
 from .models.text_encoders.t5 import T5FF, T5Attention, T5Block, T5EncoderModel
@@ -73,9 +76,15 @@ class _Params:
 
 
 def _check(prefix, lin, k, n):
-    if (lin.in_features, lin.out_features) != (k, n):
+    """The config's logical (K, N) against a linear's buffers: an SVDQ
+    linear's are padded to K % 256 and N % 128 (odd widths, JAX
+    linear.py:148-196) and take (K, N) as their logical dims."""
+    want = padded_dims(k, n) if isinstance(lin, SVDQW4A4Linear) else (k, n)
+    if (lin.in_features, lin.out_features) != want:
         raise ValueError(f"{prefix}: ({lin.in_features}, {lin.out_features}) does not match "
-                         f"the config's ({k}, {n})")
+                         f"the config's ({k}, {n}) (buffers {want})")
+    if isinstance(lin, SVDQW4A4Linear):
+        lin.logical_in, lin.logical_out = k, n
     return lin
 
 
@@ -166,6 +175,84 @@ def qwenimage_from_jax_params(params: dict, cfg: QwenImageConfig, device="cuda")
         cfg, P.linear("img_in", (cfg.in_channels, cfg.dim)), P.linear("txt_in", (cfg.joint_attention_dim, cfg.dim)),
         P.mlp_embedder("time_embed"), blocks, AdaLayerNormContinuous(P.linear("norm_out.linear")),
         P.linear("proj_out", (cfg.dim, cfg.proj_out_channels)), P.opt("txt_norm"))
+    P.done()
+    return model
+
+
+def sdxl_from_jax_params(params: dict, cfg: U.SDXLConfig, device="cuda") -> U.SDXLUNet2DConditionModel:
+    """The port's SDXL UNet from the JAX ``SDXLUNet2DConditionModel``'s
+    parameters: the same names, convolution weights (kh, kw, in, out) ->
+    (out, in, kh, kw), every linear and convolution checked against the
+    config's widths (the SVDQ linears by their logical dims)."""
+    P = _Params(params, device)
+    ch, temb = cfg.block_out_channels, cfg.temb_dim
+
+    def conv(prefix, cin, cout, k=3, stride=1):
+        w = P.get(prefix + ".weight")
+        if tuple(w.shape) != (k, k, cin, cout):
+            raise ValueError(f"{prefix}.weight: {tuple(w.shape)} does not match the config's {(k, k, cin, cout)}")
+        return Conv2d(w.permute(3, 2, 0, 1).contiguous(), P.opt(prefix + ".bias"), stride, k // 2)
+
+    def norm(cls, prefix):
+        return cls(P.get(prefix + ".gamma"), P.get(prefix + ".beta"))
+
+    def svdq(prefix, k, n):
+        return _check(prefix, SVDQW4A4Linear(
+            P.get(prefix + ".qweight"), P.get(prefix + ".wscales"), P.get(prefix + ".smooth"),
+            P.get(prefix + ".proj_down"), P.get(prefix + ".proj_up"), P.opt(prefix + ".bias"),
+            P.opt(prefix + ".rescales"), precision=cfg.precision), k, n)
+
+    def block(prefix, dim):
+        a1, a2 = prefix + ".attn1", prefix + ".attn2"
+        attn1 = U.SDXLAttention(to_qkv=svdq(a1 + ".to_qkv", dim, 3 * dim), to_out=svdq(a1 + ".to_out", dim, dim),
+                                head_dim=cfg.head_dim)
+        cross = (cfg.cross_attention_dim, dim)
+        attn2 = U.SDXLAttention(to_q=svdq(a2 + ".to_q", dim, dim), to_k=P.linear(a2 + ".to_k", cross),
+                                to_v=P.linear(a2 + ".to_v", cross), to_out=svdq(a2 + ".to_out", dim, dim),
+                                head_dim=cfg.head_dim)
+        ff = U.SDXLFeedForward(svdq(prefix + ".ff.proj", dim, 8 * dim), svdq(prefix + ".ff.out", 4 * dim, dim))
+        return U.SDXLTransformerBlock(norm(U.LayerNorm, prefix + ".norm1"), attn1, norm(U.LayerNorm, prefix + ".norm2"),
+                                      attn2, norm(U.LayerNorm, prefix + ".norm3"), ff)
+
+    def spatial(prefix, dim, depth):
+        return U.SpatialTransformer(norm(U.GroupNorm, prefix + ".norm"), P.linear(prefix + ".proj_in", (dim, dim)),
+                                    [block(f"{prefix}.blocks.{j}", dim) for j in range(depth)],
+                                    P.linear(prefix + ".proj_out", (dim, dim)))
+
+    def resnet(prefix, cin, cout):
+        sc = conv(prefix + ".conv_shortcut", cin, cout, k=1) if cin != cout else None
+        return U.ResnetBlock2D(norm(U.GroupNorm, prefix + ".norm1"), conv(prefix + ".conv1", cin, cout),
+                               P.linear(prefix + ".time_emb_proj", (temb, cout)), norm(U.GroupNorm, prefix + ".norm2"),
+                               conv(prefix + ".conv2", cout, cout), sc)
+
+    down_resnets, down_attns, downsamplers = [], [], []
+    cin = ch[0]
+    for lvl, cout in enumerate(ch):
+        down_resnets.append([resnet(f"down_resnets.{lvl}.{i}", cin if i == 0 else cout, cout)
+                             for i in range(cfg.layers_per_block)])
+        tl = cfg.transformer_layers[lvl]
+        down_attns.append([spatial(f"down_attns.{lvl}.{i}", cout, tl) if tl else None
+                           for i in range(cfg.layers_per_block)])
+        downsamplers.append(U.Downsample(conv(f"downsamplers.{lvl}.conv", cout, cout, stride=2))
+                            if lvl < len(ch) - 1 else None)
+        cin = cout
+    mid_resnets = [resnet(f"mid_resnets.{i}", ch[-1], ch[-1]) for i in range(2)]
+    mid_attn = spatial("mid_attn", ch[-1], cfg.transformer_layers[-1])  # built even at depth 0, as in JAX
+    up_resnets, up_attns, upsamplers = [], [], []
+    rev = list(reversed(ch))
+    for lvl, cout in enumerate(rev):
+        prev, skips = rev[max(lvl - 1, 0)], cfg.up_skips(lvl)
+        tl = cfg.transformer_layers[len(ch) - 1 - lvl]
+        up_resnets.append([resnet(f"up_resnets.{lvl}.{i}", (prev if i == 0 else cout) + skips[i], cout)
+                           for i in range(cfg.layers_per_block + 1)])
+        up_attns.append([spatial(f"up_attns.{lvl}.{i}", cout, tl) if tl else None
+                         for i in range(cfg.layers_per_block + 1)])
+        upsamplers.append(U.Upsample(conv(f"upsamplers.{lvl}.conv", cout, cout)) if lvl < len(ch) - 1 else None)
+    model = U.SDXLUNet2DConditionModel(
+        cfg, conv("conv_in", cfg.in_channels, ch[0]), P.linear("time_lin1", (ch[0], temb)),
+        P.linear("time_lin2", (temb, temb)), P.linear("add_lin1", (cfg.projection_class_embeddings_input_dim, temb)),
+        P.linear("add_lin2", (temb, temb)), down_resnets, down_attns, downsamplers, mid_resnets, mid_attn,
+        up_resnets, up_attns, upsamplers, norm(U.GroupNorm, "norm_out"), conv("conv_out", ch[0], cfg.out_channels))
     P.done()
     return model
 

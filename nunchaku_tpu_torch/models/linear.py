@@ -15,6 +15,7 @@ import math
 import torch
 from torch import nn
 
+from ..core.packing import PACK_BLOCK, pack_int4
 from ..ops.gemm import WCODES, svdq_gemm_w4a4, w4a8_group, w4a8_use_xla
 from ..ops.gemv import AWQ_XLA_MIN_M, awq_w4a16_linear, awq_w4a16_linear_plain
 from ..ops.quantize import ln_mod_quant_int8, quantize_w4a4_act_fuse_lora
@@ -26,6 +27,12 @@ PAD_TOKENS = 256  # token padding quantum of the quantized linears (JAX linear.p
 def pad_rows(x: torch.Tensor, multiple: int) -> torch.Tensor:
     pad = (-x.shape[0]) % multiple
     return x if pad == 0 else nn.functional.pad(x, (0, 0, 0, pad))
+
+
+def padded_dims(k: int, n: int) -> tuple[int, int]:
+    """An SVDQ linear's buffer dims for logical (K, N): K up to a multiple
+    of 256, N of 128 (the kernels' pack block and tile)."""
+    return k + (-k) % PACK_BLOCK, n + (-n) % 128
 
 
 def _randn(shape, gen, device, scale=1.0):
@@ -70,10 +77,18 @@ class SVDQW4A4Linear(nn.Module):
     the signed int8 quantization at int8 / w4a8. ``wcodes="e2m1"`` (w4a8
     only) is the nvfp4-a8 serving mode: an nvfp4 checkpoint's e2m1 codes
     through the int8 products. Always returns bf16.
+
+    Odd widths (JAX linear.py:148-196, 336-350): the kernels take K % 256 ==
+    0 and N % 128 == 0, so a layer of ``logical_in`` x ``logical_out`` (SDXL's
+    640, SANA's 2240) keeps its buffers zero-padded to those multiples, the
+    padded K rows holding zero codes and zero ``proj_down`` rows; ``forward``
+    pads the input columns and cuts the output back to ``logical_out``.
+    ``in_features`` / ``out_features`` are the buffers' (padded) dims.
     """
 
     def __init__(self, qweight, wscales, smooth, proj_down, proj_up, bias=None, rescales=None, *,
-                 precision: str = "w4a8", act_unsigned: bool = False, wcodes: str = "int4"):
+                 precision: str = "w4a8", act_unsigned: bool = False, wcodes: str = "int4",
+                 logical_in: int | None = None, logical_out: int | None = None):
         super().__init__()
         if precision not in ("int8", "w4a8", "int4", "nvfp4"):
             raise NotImplementedError(f"SVDQW4A4Linear precision {precision!r} is not ported")
@@ -95,6 +110,12 @@ class SVDQW4A4Linear(nn.Module):
         self.wcodes = wcodes
         self.in_features = qweight.shape[0] * (1 if precision == "int8" else 2)
         self.out_features = qweight.shape[1]
+        self.logical_in = self.in_features if logical_in is None else logical_in
+        self.logical_out = self.out_features if logical_out is None else logical_out
+        if (padded_dims(self.logical_in, self.logical_out) != (self.in_features, self.out_features)
+                and (self.logical_in, self.logical_out) != (self.in_features, self.out_features)):
+            raise ValueError(f"logical ({self.logical_in}, {self.logical_out}) do not pad to the buffers' "
+                             f"({self.in_features}, {self.out_features})")
 
     @property
     def ln_producer(self) -> bool:
@@ -110,11 +131,13 @@ class SVDQW4A4Linear(nn.Module):
                     device="cuda"):
         """The distributions of the JAX ``random_init`` (linear.py:134-197).
         ``precision="nvfp4-a8"``: a w4a8 linear with e2m1 codes and group-16
-        rescales (JAX :171-182). FLUX's dims need none of the JAX package's
-        odd-dim K/N padding."""
+        rescales (JAX :171-182). Odd dims pad K to 256 and N to 128, the
+        padded K rows with zero codes (random codes in [-8, 8) on the
+        logical rows, as JAX draws them then) and zero ``proj_down`` rows."""
         std = 1.0 / math.sqrt(in_features)
-        if in_features % 256 or out_features % 128:
-            raise ValueError("the port takes kernel-aligned dims (K % 256, N % 128)")
+        k_log, n_log = in_features, out_features
+        in_features, out_features = padded_dims(k_log, n_log)
+        pad_k = in_features - k_log
         if is_4bit(precision):
             g = group_size(precision)
             ws = (_randn((in_features // g, out_features), gen, device).abs() * std / 7).to(torch.bfloat16)
@@ -124,8 +147,11 @@ class SVDQW4A4Linear(nn.Module):
         if precision == "nvfp4-a8":
             precision, wcodes = "w4a8", "e2m1"
         if precision == "int8":
-            qw = torch.randint(-128, 128, (in_features, out_features), dtype=torch.int8,
-                               generator=gen, device=device)
+            qw = torch.randint(-128, 128, (k_log, out_features), dtype=torch.int8, generator=gen, device=device)
+            qw = nn.functional.pad(qw, (0, 0, 0, pad_k))
+        elif precision in ("w4a8", "int4", "nvfp4") and pad_k:
+            codes = torch.randint(-8, 8, (k_log, out_features), dtype=torch.int8, generator=gen, device=device)
+            qw = pack_int4(nn.functional.pad(codes, (0, 0, 0, pad_k)), 0)
         elif precision in ("w4a8", "int4", "nvfp4"):
             qw = torch.randint(-128, 128, (in_features // 2, out_features), dtype=torch.int8,
                                generator=gen, device=device)
@@ -136,11 +162,16 @@ class SVDQW4A4Linear(nn.Module):
             rescales = (torch.rand((in_features // w4a8_group(wcodes), out_features), generator=gen,
                                    device=device) * (127.0 / cmax - 1.0) + 1.0).to(torch.bfloat16)
         smooth = torch.ones((in_features,), dtype=torch.bfloat16, device=device)
-        pd = _randn((in_features, rank), gen, device, 0.02).to(torch.bfloat16)
+        pd = nn.functional.pad(_randn((k_log, rank), gen, device, 0.02).to(torch.bfloat16), (0, 0, 0, pad_k))
         pu = _randn((rank, out_features), gen, device, 0.02).to(torch.bfloat16)
         b = _randn((out_features,), gen, device, 0.02).to(torch.bfloat16)
         return cls(qw, ws, smooth, pd, pu, b, rescales, precision=precision, act_unsigned=act_unsigned,
-                   wcodes=wcodes)
+                   wcodes=wcodes, logical_in=k_log, logical_out=n_log)
+
+    def _padded(self, x2d: torch.Tensor) -> torch.Tensor:
+        """(M, logical_in) -> (M, in_features), zero columns appended."""
+        pad = self.in_features - x2d.shape[-1]
+        return nn.functional.pad(x2d, (0, pad)) if pad > 0 else x2d
 
     def quantize(self, x2d: torch.Tensor):
         """(M, K) -> (qact, ascales, lora_act), M padded to 256 (to 8 when
@@ -162,8 +193,8 @@ class SVDQW4A4Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         m = math.prod(lead)
-        out = self.forward_quant(*self.quantize(x.reshape(m, x.shape[-1])))
-        return out[:m].reshape(*lead, out.shape[-1])
+        out = self.forward_quant(*self.quantize(self._padded(x.reshape(m, x.shape[-1]))))
+        return out[:m, :self.logical_out].reshape(*lead, self.logical_out)
 
     def forward_parts(self, x: torch.Tensor):
         """Like :meth:`forward` without the low-rank epilogue: returns
@@ -171,9 +202,10 @@ class SVDQW4A4Linear(nn.Module):
         term downstream (the chain consumer's residual epilogue)."""
         lead = x.shape[:-1]
         m = math.prod(lead)
-        q, a, la = self.quantize(x.reshape(m, x.shape[-1]))
+        q, a, la = self.quantize(self._padded(x.reshape(m, x.shape[-1])))
         out = self.forward_quant(q, a, la, skip_lora=True)
-        return out[:m].reshape(*lead, out.shape[-1]), la[:m].reshape(*lead, la.shape[-1])
+        return (out[:m, :self.logical_out].reshape(*lead, self.logical_out),
+                la[:m].reshape(*lead, la.shape[-1]))
 
     def forward_modulated(self, x: torch.Tensor, scale: torch.Tensor, shift: torch.Tensor, *,
                           skip_lora=False):
@@ -184,6 +216,9 @@ class SVDQW4A4Linear(nn.Module):
         JAX method's multi-pass fallback for an S without a tile divisor has
         no counterpart here). ``skip_lora`` returns ``(out_without_lora,
         lora_act (B, S, R))``."""
+        if self.logical_in != self.in_features:
+            raise NotImplementedError("an odd-width linear takes LN + modulate + forward (JAX's multi-pass "
+                                      "fallback), not the producer")
         if not self.ln_producer:
             raise NotImplementedError("the LN + modulate + quantize producer feeds int8 linears and w4a8 ones on "
                                       f"the dequant route; {self.precision!r} here takes LN + modulate + forward")

@@ -1,11 +1,13 @@
 """Activation quantization with the fused low-rank down-projection.
 
 * :func:`quantize_w4a4_act_fuse_lora` -- ``nunchaku_tpu/ops/quantize.py``
-  ``quantize_w4a4_act_fuse_lora`` (:40-131) without its GLU fusion, which JAX
-  leaves to XLA; here it is plain PyTorch: per-token int8 (int8 / w4a8),
-  per-(token, 64-group) int4 with bf16 scales (signed, or unsigned after the
-  post-GELU shift), per-(token, 16-group) nvfp4 with e4m3 scales and e2m1
-  codes, round to nearest even; 4-bit codes are packed two to a byte.
+  ``quantize_w4a4_act_fuse_lora`` (:40-131), which JAX leaves to XLA; here it
+  is plain PyTorch: the optional GLU product (:56-66, :func:`glu_product`),
+  the activation columns zero-padded to the weights' padded K (:68-74), then
+  per-token int8 (int8 / w4a8), per-(token, 64-group) int4 with bf16 scales
+  (signed, or unsigned after the post-GELU shift), per-(token, 16-group)
+  nvfp4 with e4m3 scales and e2m1 codes, round to nearest even; 4-bit codes
+  are packed two to a byte.
 * :func:`ln_mod_quant_int8` -- kernel ``csrc/ln_mod_quant.cu`` (JAX
   ``_ln_mod_quant_kernel`` :149, ``ln_mod_quant_int8`` :179): LayerNorm,
   AdaLN modulation and the same quantization in one pass over the bf16
@@ -32,6 +34,7 @@ from .reference import (
     RCP_E2M1_MAX,
     bf16_matmul,
     e2m1_value_to_code,
+    gelu_jax,
     group_size,
     is_4bit,
 )
@@ -54,10 +57,28 @@ def rsmooth_of(smooth: torch.Tensor) -> torch.Tensor:
     return torch.where(sm == 0, torch.ones_like(sm), 1.0 / safe)
 
 
+def glu_product(x: torch.Tensor, glu_act: str = "silu") -> torch.Tensor:
+    """(M, 2K) laid out [value | gate] -> ``value * act(gate)`` in f32,
+    rounded to x's dtype (JAX :56-66): ``act`` is silu (SANA, Z-Image) or
+    the tanh GELU of ``jax.nn.gelu(approximate=True)`` (SDXL's GEGLU)."""
+    if glu_act not in ("silu", "gelu"):
+        raise ValueError(f"glu_act {glu_act!r}: silu or gelu")
+    k2 = x.shape[-1] // 2
+    gate = x[..., k2:].float()
+    act = torch.nn.functional.silu(gate) if glu_act == "silu" else gelu_jax(gate)
+    return (x[..., :k2].float() * act).to(x.dtype)
+
+
 def quantize_w4a4_act_fuse_lora(x: torch.Tensor, proj_down: torch.Tensor,
                                 smooth: torch.Tensor | None = None, *,
-                                precision: str = "int8", act_unsigned: bool = False):
+                                precision: str = "int8", act_unsigned: bool = False,
+                                fuse_glu: bool = False, glu_act: str = "silu"):
     """(M, K) activations -> (qact, ascales, lora_act (M, R) f32).
+
+    ``fuse_glu``: x is (M, 2K) [value | gate] and the quantized activation
+    is :func:`glu_product`. Activations narrower than ``proj_down``'s rows
+    (an odd-width layer's padded K) are zero-padded; the padded weight rows
+    hold zero codes, so the padded columns add nothing.
 
     int8 / w4a8: qact (M, K) int8, ascales (1, M) f32 per token. int4 /
     nvfp4: qact (M, K/2) int8 packed along K, ascales (K/G, M) bf16 (G = 64
@@ -67,6 +88,10 @@ def quantize_w4a4_act_fuse_lora(x: torch.Tensor, proj_down: torch.Tensor,
     ``/ E2M1_MAX``), so codes and scales match it bit for bit."""
     if precision not in ("int8", "w4a8", "int4", "nvfp4"):
         raise NotImplementedError(f"activation quantization for {precision!r} is not ported")
+    if fuse_glu:
+        x = glu_product(x, glu_act)
+    if x.shape[-1] < proj_down.shape[0]:
+        x = torch.nn.functional.pad(x, (0, proj_down.shape[0] - x.shape[-1]))
     m, k = x.shape
     lora_act = bf16_matmul(x, proj_down)
     xs = x.float()

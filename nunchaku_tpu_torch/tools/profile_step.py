@@ -1,10 +1,11 @@
-"""Where one FLUX.1-dev or Qwen-Image denoise step, or one VAE decode,
-spends its time on the card.
+"""Where one FLUX.1-dev, Qwen-Image or SDXL denoise step, or one VAE
+decode, spends its time on the card.
 
     python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|nvfp4-a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --precision int4 --size 2048 --sparsity 0.5 [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--rank R] \
         [--online-softmax] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --model sdxl [--size 1024|512] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
 Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
@@ -27,6 +28,11 @@ unless ``--precision`` says otherwise), one forward at B 1 from a prompt of
 ``--online-softmax``: every block's attention with ``fixed_softmax =
 False`` (the online kernel's forms). ``--rank``: the low-rank width (32,
 or 128 as nunchaku's rank-128 Qwen-Image checkpoints have it).
+``--model sdxl``: the full SDXL UNet (``SDXLConfig()``: int4, 70
+transformer blocks, head dim 64), one forward at B 1 (one of a CFG step's
+two) at 1024x1024 (``--size``) from random embeddings (77 x 2048, pooled
+1280); its convolutions are a group of their own, and so is the online
+flash kernel's D-64 form (``flash_online_d64``).
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -54,7 +60,8 @@ PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "ge
 # chain producer on packed int4 weights
 FORM_KERNELS = {r"flash_fixed_kernel<\s*false,\s*true\s*>": "bs_fixed (flash_fixed_kernel, IDX)",
                 r"flash_online_kernel<\s*128,\s*false,\s*true\s*>": "bs_online (flash_online_kernel, IDX)",
-                r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)"}
+                r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)",
+                r"flash_online_kernel<\s*64,": "flash_online_d64 (flash_online_kernel, D 64)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 
 
@@ -91,6 +98,10 @@ def group_of(name: str) -> str:
         if k in name:
             return "port kernel " + k
     low = name.lower()
+    if "nchwtonhwc" in low or "nhwctonchw" in low:
+        return "convolution layout conversions (cuDNN NCHW <-> NHWC)"
+    if any(k in low for k in ("fprop", "conv", "cudnn")):
+        return "convolutions (cuDNN)"
     if "gemm_s8" in low or "igemm" in low or "int8" in low or "imma" in low:
         return "torch int8 GEMM (_int_mm)"
     if "gemm" in low or "sgemm" in low or "cutlass" in low or "xmma" in low:
@@ -182,17 +193,19 @@ def _report(header, what, wall_plain, wall, prof, grouping, out, extra=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev or Qwen-Image forward or one VAE decode")
+    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev, Qwen-Image or SDXL forward or one VAE decode")
     ap.add_argument("--out", help="file for the full key_averages table")
-    ap.add_argument("--model", choices=("flux", "qwenimage"), default="flux",
-                    help="the transformer: FLUX.1-dev (w4a8 by default) or Qwen-Image (int4 by default)")
+    ap.add_argument("--model", choices=("flux", "qwenimage", "sdxl"), default="flux",
+                    help="the denoiser: FLUX.1-dev (w4a8 by default), Qwen-Image (int4 by default) or the "
+                         "SDXL UNet (int4)")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
     ap.add_argument("--precision", choices=("w4a8", "nvfp4-a8", "int4", "nvfp4"),
                     help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs; nvfp4-a8: "
                          "w4a8 with e2m1 codes); default w4a8 for FLUX, int4 for Qwen-Image")
     ap.add_argument("--rank", type=int, default=32, help="the low-rank width of every SVDQuant linear")
-    ap.add_argument("--size", type=int, default=1024, help="FLUX: image side in pixels (2048: 16384 image tokens)")
+    ap.add_argument("--size", type=int, default=1024,
+                    help="FLUX and SDXL: image side in pixels (FLUX 2048: 16384 image tokens)")
     ap.add_argument("--sparsity", type=float, default=0.0,
                     help="FLUX: block-sparse attention at this ratio (0: dense flash)")
     ap.add_argument("--online-softmax", action="store_true",
@@ -202,10 +215,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.model == "qwenimage" and (args.turbo or args.size != 1024 or args.sparsity):
         ap.error("--turbo, --size and --sparsity are FLUX options")
+    if args.model == "sdxl" and (args.turbo or args.sparsity or args.online_softmax or args.precision
+                                 not in (None, "int4")):
+        ap.error("SDXL runs int4 with the online softmax (--size only)")
     if args.turbo and args.sparsity:
         ap.error("block-sparse attention runs with the unfused prologue only (no --turbo)")
     if args.precision is None:
-        args.precision = "int4" if args.model == "qwenimage" else "w4a8"
+        args.precision = "w4a8" if args.model == "flux" else "int4"
     if not torch.cuda.is_available():
         print("profile_step: needs a CUDA device", file=sys.stderr)
         return 1
@@ -230,6 +246,31 @@ def main(argv=None) -> int:
         return 0
 
     from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
+    if args.model == "sdxl":
+        from nunchaku_tpu_torch.models import linear, unet_sdxl
+
+        cfg = unet_sdxl.SDXLConfig()
+        model = unet_sdxl.SDXLUNet2DConditionModel.random_init(cfg, seed=0, device=dev)
+        side = args.size // 8
+        inputs = (torch.randn((1, 4, side, side), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.full((1,), 500.0, device=dev),
+                  torch.randn((1, 77, cfg.cross_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn((1, 1280), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.tensor([[args.size, args.size, 0, 0, args.size, args.size]], dtype=torch.float32, device=dev))
+        # the SVDQ linears' quantize and the GEGLU-fused one of each feed-forward
+        linear.quantize_w4a4_act_fuse_lora = _ranged(linear.quantize_w4a4_act_fuse_lora, QUANT_RANGE)
+        unet_sdxl.quantize_w4a4_act_fuse_lora = _ranged(unet_sdxl.quantize_w4a4_act_fuse_lora, QUANT_RANGE)
+
+        def extra(prof):
+            return ["torch glue by caller (device ms, inside the groups above):"] + [
+                f"  {ms:9.2f} ms  {name}" for name, ms in sorted(glue_by_range(prof).items())]
+        with torch.no_grad():
+            wall_plain, wall, prof = _trace(lambda: model(*inputs))
+        header = (f"card: {smi}; torch {torch.__version__}; SDXL UNet int4 (70 transformer blocks, head dim 64) at "
+                  f"{args.size}px ({side}x{side} latents), B 1, 77 text tokens")
+        _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
+        return 0
 
     if args.model == "qwenimage":
         from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel

@@ -116,7 +116,11 @@ def test_flash(dev, b, h, sq, skv):
 
 @pytest.mark.parametrize("b,h,sq,skv,d", [(1, 1, 4096, 4096, 512), (1, 1, 16384, 16384, 512),
                                           (1, 1, 300, 300, 512), (2, 2, 77, 333, 512),
-                                          (1, 2, 200, 130, 128), (1, 1, 65, 97, 256)])
+                                          (1, 2, 200, 130, 128), (1, 1, 65, 97, 256),
+                                          # SDXL at 1024px: level 1 self / cross, level 2 self / cross
+                                          (1, 10, 4096, 4096, 64), (1, 10, 4096, 77, 64),
+                                          (1, 20, 1024, 1024, 64), (1, 20, 1024, 77, 64),
+                                          (2, 3, 300, 77, 64), (1, 2, 65, 33, 64)])
 def test_flash_online(dev, b, h, sq, skv, d):
     _, ok, detail = checks.check_flash_online(*checks.flash_online_case(b, h, sq, skv, d, device=dev))
     assert ok, detail
@@ -131,6 +135,48 @@ def test_flash_online_counts_and_refusals(dev):
         with pytest.raises(ValueError):
             flash_attention_online(bad, bad.to(torch.bfloat16), bad.to(torch.bfloat16))
     assert launch_counts()["flash_online"] == 1
+
+
+def test_flash_online_d64_counts_and_refusals(dev):
+    """Head dim 64 counts as ``flash_online_d64``; its (B, S, H*D) form
+    equals the (B, H, S, D) one; the mask form is not built at 64."""
+    reset_launch_counts()
+    q, k, v = checks.flash_online_case(1, 4, 256, 77, 64, device=dev)
+    out = flash_attention_online(q, k, v)
+    bshd = flash_attention_online(q, k, v, out_bshd=True)
+    assert torch.equal(bshd, out.transpose(1, 2).reshape(1, 256, 4 * 64))
+    assert launch_counts()["flash_online_d64"] == 2 and launch_counts()["flash_online"] == 0
+    with pytest.raises(ValueError):
+        flash_attention_online(q, k, v, kv_mask=torch.ones((1, 77), dtype=torch.bool, device=dev))
+    assert launch_counts()["flash_online_d64"] == 2 and launch_counts()["flash_online_masked"] == 0
+
+
+@pytest.mark.parametrize("precision,tol", [("int4", 1e-1), ("int8", 3e-2)])
+def test_sdxl_small_unet_matches_cpu(dev, precision, tol):
+    """The TINY SDXL UNet of the CPU tests (11 transformer blocks at widths
+    256 / 512, head dim 64) on the card against the plain twins on the CPU,
+    within the bounds the CPU tests hold it to against JAX (twice the
+    spread of the JAX package's own two GEMM routes: a 4-bit code flips
+    where an input sits a bf16 step apart); every attention took the D-64
+    kernel and, at int4, every SVDQ linear the W4A4 kernel."""
+    from nunchaku_tpu_torch import SDXLConfig, SDXLUNet2DConditionModel
+
+    cfg = SDXLConfig(block_out_channels=(128, 256, 512), layers_per_block=1, transformer_layers=(0, 1, 2),
+                     cross_attention_dim=256, projection_class_embeddings_input_dim=256 + 6 * 32,
+                     addition_time_embed_dim=32, precision=precision)
+    cpu_model = SDXLUNet2DConditionModel.random_init(cfg, seed=9, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(10)
+    args = (torch.randn((1, 4, 32, 32), generator=gen).to(torch.bfloat16), torch.tensor([500.0]),
+            torch.randn((1, 77, 256), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen).to(torch.bfloat16), torch.full((1, 6), 512.0))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args).float()
+        out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+    counts = launch_counts()
+    assert counts["flash_online_d64"] == 22 and counts["gemm_w4a4_int4"] == (66 if precision == "int4" else 0)
+    assert bool(torch.isfinite(out).all()) and ((out - ref).abs().max() / ref.abs().max()).item() <= tol
 
 
 @pytest.mark.parametrize("fixed", [True, False])
