@@ -270,8 +270,9 @@ def packed_route():
                 os.environ[k] = v
 
 
-def w4a4_bound(m, k, n, g, r=RANK):
-    return bound(w4a4_bytes(m, k, n, g, r), bf16_ops=2 * m * n * (k + r))
+def w4a4_bound(m, k, n, g, r=RANK, k_ops=None):
+    # k_ops: an odd-width layer's logical K, whose products alone count; the bytes are the padded buffers'
+    return bound(w4a4_bytes(m, k, n, g, r), bf16_ops=2 * m * n * ((k if k_ops is None else k_ops) + r))
 
 
 def bs_bound(idx, sq, skv, bq, bkv):
@@ -583,7 +584,7 @@ def kernel_phase(dev):
            ms, plain, bnd, lib)
     torch.cuda.empty_cache()
     bs_kernel_rows(dev, record)
-    sdxl_kernel_rows(dev, record)
+    sdxl_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -592,14 +593,19 @@ def online_bound(b, h, sq, skv, d):
     return bound(2 * 2 * b * h * sq * d + 2 * 2 * b * h * skv * d, bf16_ops=4 * b * h * sq * skv * d)
 
 
-def sdxl_kernel_rows(dev, record):
+def sdxl_kernel_rows(dev, record, failed):
     """13. The online flash kernel at head dim 64 on SDXL's 1024px shapes:
     the row is level 1's self-attention (B 1, H 10, S 4096); level 2's (H
     20, S 1024) and both levels' cross-attention (Skv 77: three kv tiles,
     the last with 13 valid columns) are checked and timed too, each against
-    the plain twin on the card, with SDPA as yardstick."""
+    the plain twin on the card, with SDPA as yardstick. Then the W4A4 GEMM
+    at SDXL's shapes: level 1's qkv (M 4096, K 640 padded to 768, the
+    padded K holding zero codes on both sides and zero activation scales,
+    as the quantize and the padded linear leave them; N 1920) and level
+    2's ff.out (M 1024, K 5120, N 1280), logged beside torch.matmul."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.attention import flash_attention_online, flash_attention_online_plain
+    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4, gemm_w4a4_plain, w4a4_values
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res, oks, errs = {}, [], []
@@ -622,6 +628,28 @@ def sdxl_kernel_rows(dev, record):
     record("flash_online_d64", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:607",
            f"B=1 H=10 S=4096 D={SDXL_D} (SDXL level 1 self-attention)", all(oks), max(errs),
            detail + "; level 2 and both cross shapes logged above", ms, plain, bnd, lib)
+
+    (w1, _, _), (w2, _, _) = SDXL_LEVELS
+    for label, m, k_log, n in (("level 1 qkv", 64 * 64, w1, 3 * w1), ("level 2 ff.out", 32 * 32, 4 * w2, w2)):
+        k = k_log + (-k_log) % 256
+        args, kw = checks.w4a4_case(m, k, n, "int4", device=dev)
+        qa, asc, qw, wsc = args[:4]
+        qa[:, k_log // 2:] = 0
+        qw[k_log // 2:] = 0
+        asc[k_log // 64:] = 0
+        _, ok, detail = checks.check_w4a4(args, kw)
+        ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        a16 = (w4a4_values(qa, -1, precision="int4") * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
+        w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
+        lib = cuda_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log]), 20)
+        bnd = w4a4_bound(m, k, n, 64, k_ops=k_log)
+        log(f"[kernel] gemm_w4a4_int4 @ M={m} K={k_log}{f' (padded {k})' if k != k_log else ''} N={n} R={RANK} "
+            f"(SDXL {label}): {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+        if not ok:
+            failed.append(f"gemm_w4a4_int4@SDXL {label}")
+        del args, qa, asc, qw, wsc, a16, w16
 
 
 def packed_kernel_rows(dev, record, failed):
@@ -1936,16 +1964,16 @@ def sdxl_per_forward(unet) -> dict:
 def sdxl_bounds(size=1024) -> dict:
     """Least time per SDXL UNet forward at ``size`` px for each kernel it
     runs: every block's self- and cross-attention (77 text keys) and its six
-    W4A4 GEMMs at their launched shapes (K padded to 256: level 1's 640 ->
-    768), per level."""
+    W4A4 GEMMs, per level: the products at the logical K, the bytes of the
+    launched buffers (K padded to 256: level 1's 640 -> 768)."""
     out = {"flash_online_d64": 0.0, "gemm_w4a4_int4": 0.0}
     side = size // 16  # level 1's token grid (VAE stride 8, one 2x downsample)
     for lvl, (width, heads, blocks) in enumerate(SDXL_LEVELS):
         m = (side >> lvl) ** 2
-        kp = width + (-width) % 256
         out["flash_online_d64"] += blocks * sum(online_bound(1, heads, m, skv, SDXL_D)[0] for skv in (m, SDXL_CTX))
-        shapes = ((kp, 3 * width), (kp, width), (kp, width), (kp, width), (kp, 8 * width), (4 * width, width))
-        out["gemm_w4a4_int4"] += blocks * sum(w4a4_bound(m, k, n, 64)[0] for k, n in shapes)
+        shapes = ((width, 3 * width), (width, width), (width, width), (width, width), (width, 8 * width),
+                  (4 * width, width))
+        out["gemm_w4a4_int4"] += blocks * sum(w4a4_bound(m, k + (-k) % 256, n, 64, k_ops=k)[0] for k, n in shapes)
     return out
 
 

@@ -70,16 +70,6 @@ namespace {
 
 constexpr int BQ = 64, BKV = 32, WARPS = 8, THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;
-// The library always trades logits between the warps of a pair. With
-// NT_ONLINE_NO_EXCHANGE defined (nunchaku_tpu_torch/tools/probe_flash_exchange.py
-// compiles this file apart so, to time the exchange) each warp instead takes
-// its rows' q . k over the whole head dim itself: twice the products, no
-// shared-memory round trip, no pair barrier.
-#ifdef NT_ONLINE_NO_EXCHANGE
-constexpr bool EXCHANGE = false;
-#else
-constexpr bool EXCHANGE = true;
-#endif
 
 template <int D>
 struct OnlineSmem {
@@ -123,7 +113,6 @@ __global__ void __launch_bounds__(THREADS, 1)
                         bf16* __restrict__ out, int H, int Sq, int Skv, float scale_log2,
                         int bshd, Sparse sp) {
   constexpr int DH = D / 2, NT = BKV / 8;
-  constexpr int DQK = EXCHANGE ? DH : D;  // head-dim columns of this warp's q . k
   using Smem = OnlineSmem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
@@ -131,7 +120,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int rg = warp & 3, c0 = (warp >> 2) * DH;  // row group, first head-dim column
-  const int cq = EXCHANGE ? c0 : 0;                 // first head-dim column of its q . k
   const int g = lane >> 2, t4 = lane & 3;           // mma fragment row group / column pair
   const int mi = lane >> 3, mr = lane & 7;          // ldmatrix: which 8x8 matrix, which of its rows
   const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
@@ -179,16 +167,16 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
+    for (int kk = 0; kk < DH / 16; ++kk) {
       // q A fragment: matrix mi covers rows +8*(mi&1), columns +8*(mi>>1)
       uint32_t a[4];
-      ldsm_x4(&sm.q[rg * 16 + (mi & 1) * 8 + mr][cq + kk * 16 + (mi >> 1) * 8], a[0], a[1], a[2],
+      ldsm_x4(&sm.q[rg * 16 + (mi & 1) * 8 + mr][c0 + kk * 16 + (mi >> 1) * 8], a[0], a[1], a[2],
               a[3]);
 #pragma unroll
       for (int j2 = 0; j2 < BKV / 16; ++j2) {
         // matrix mi: kv rows +8*(mi>>1) (next n8 tile), d columns +8*(mi&1) (b1 half)
         uint32_t b0, b1, b2, b3;
-        ldsm_x4(&sm.k[st][j2 * 16 + (mi >> 1) * 8 + mr][cq + kk * 16 + (mi & 1) * 8], b0, b1, b2,
+        ldsm_x4(&sm.k[st][j2 * 16 + (mi >> 1) * 8 + mr][c0 + kk * 16 + (mi & 1) * 8], b0, b1, b2,
                 b3);
         mma_bf16(s[2 * j2], a, b0, b1);
         mma_bf16(s[2 * j2 + 1], a, b2, b3);
@@ -196,21 +184,18 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
 
     // the partner warp holds the same fragment positions for the other half
-    if (EXCHANGE) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) mine[(j * 4 + e) * 32 + lane] = s[j][e];
-      pair_sync(1 + rg);
-    }
+      for (int e = 0; e < 4; ++e) mine[(j * 4 + e) * 32 + lane] = s[j][e];
+    pair_sync(1 + rg);
     float mx0 = NEG_INF, mx1 = NEG_INF;
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
-        const float qk = EXCHANGE ? __fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]) : s[j][e];
-        float x = __fmul_rn(qk, scale_log2);
+        float x = __fmul_rn(__fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]), scale_log2);
         if (MASK) x = __fadd_rn(x, mk[j][e & 1]);
         s[j][e] = static_cast<unsigned>(col) < static_cast<unsigned>(Skv) ? x : NEG_INF;
         if (e < 2) mx0 = fmaxf(mx0, s[j][e]); else mx1 = fmaxf(mx1, s[j][e]);

@@ -168,14 +168,10 @@ class SVDQW4A4Linear(nn.Module):
         return cls(qw, ws, smooth, pd, pu, b, rescales, precision=precision, act_unsigned=act_unsigned,
                    wcodes=wcodes, logical_in=k_log, logical_out=n_log)
 
-    def _padded(self, x2d: torch.Tensor) -> torch.Tensor:
-        """(M, logical_in) -> (M, in_features), zero columns appended."""
-        pad = self.in_features - x2d.shape[-1]
-        return nn.functional.pad(x2d, (0, pad)) if pad > 0 else x2d
-
     def quantize(self, x2d: torch.Tensor):
         """(M, K) -> (qact, ascales, lora_act), M padded to 256 (to 8 when
-        M <= 8): ascales (1, M') per token (int8, w4a8) or (K/G, M') per group."""
+        M <= 8), K (``logical_in``) to ``in_features`` by the quantize:
+        ascales (1, M') per token (int8, w4a8) or (K/G, M') per group."""
         x2d = pad_rows(x2d, 8 if x2d.shape[0] <= 8 else PAD_TOKENS)
         return quantize_w4a4_act_fuse_lora(x2d, self.proj_down, self.smooth, precision=self.precision,
                                            act_unsigned=self.act_unsigned)
@@ -193,7 +189,7 @@ class SVDQW4A4Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
         m = math.prod(lead)
-        out = self.forward_quant(*self.quantize(self._padded(x.reshape(m, x.shape[-1]))))
+        out = self.forward_quant(*self.quantize(x.reshape(m, x.shape[-1])))
         return out[:m, :self.logical_out].reshape(*lead, self.logical_out)
 
     def forward_parts(self, x: torch.Tensor):
@@ -202,7 +198,7 @@ class SVDQW4A4Linear(nn.Module):
         term downstream (the chain consumer's residual epilogue)."""
         lead = x.shape[:-1]
         m = math.prod(lead)
-        q, a, la = self.quantize(self._padded(x.reshape(m, x.shape[-1])))
+        q, a, la = self.quantize(x.reshape(m, x.shape[-1]))
         out = self.forward_quant(q, a, la, skip_lora=True)
         return (out[:m, :self.logical_out].reshape(*lead, self.logical_out),
                 la[:m].reshape(*lead, la.shape[-1]))

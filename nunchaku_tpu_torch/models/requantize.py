@@ -53,7 +53,7 @@ def requantize_svdq(lin: SVDQW4A4Linear, out_precision: str) -> SVDQW4A4Linear:
         raise ValueError(f"cannot requantize from {lin.precision}")
     ws = lin.wscales.float()  # (K/G, N)
     common = dict(smooth=lin.smooth, proj_down=lin.proj_down, proj_up=lin.proj_up, bias=lin.bias,
-                  act_unsigned=lin.act_unsigned)
+                  act_unsigned=lin.act_unsigned, logical_in=lin.logical_in, logical_out=lin.logical_out)
     qweight = lin.qweight.contiguous()  # packed (K/2, N) row-major, as w4a8 keeps it
     if out_precision == "w4a8":
         cmax = 6.0 if lin.precision == "nvfp4" else 7.0
@@ -113,6 +113,7 @@ def w4a8_cache_dequant(model: nn.Module, budget_gib: float, *, inplace: bool = F
         child = getattr(mod, name)
         w8 = dequant_w4a8(child.qweight, child.rescales, child.wcodes)
         setattr(mod, name, SVDQW4A4Linear(w8, child.wscales, child.smooth, child.proj_down, child.proj_up,
-                                          child.bias, precision="int8", act_unsigned=child.act_unsigned))
+                                          child.bias, precision="int8", act_unsigned=child.act_unsigned,
+                                          logical_in=child.logical_in, logical_out=child.logical_out))
         del child, w8
     return new

@@ -10,10 +10,14 @@ full runs the same int8 codes through the same int8 route, so its forward
 output equals the undialed one's bit for bit.
 """
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
 import torch_checkpoints as ckpt
+from nunchaku_tpu.models import linear as jlin
 from nunchaku_tpu.models import requantize as jreq
 from nunchaku_tpu.models.transformers.loader import load_flux_transformer as jax_load_flux
 from nunchaku_tpu.models.transformers.loader_qwenimage import load_qwenimage_transformer as jax_load_qwen
@@ -89,3 +93,40 @@ def test_w4a8_cache_dequant_budget_takes_the_largest_first(flux_files):
     assert all(m.fc1.precision == m.fc2.precision == "int8" for m in mlps)
     assert singles.mlp_fc1.precision == singles.mlp_fc2.precision == "int8"
     assert dialed.transformer_blocks[0].attn.to_qkv.precision == "w4a8"
+
+
+@pytest.mark.parametrize("out", ["int8", "w4a8"])
+def test_requantize_odd_width_linear_keeps_logical_dims(out):
+    """An odd-width int4 linear (K 640 padded to 768, N 200 to 256, as
+    SDXL's and SANA's widths pad): ``requantize_svdq`` keeps ``logical_in``
+    / ``logical_out`` as the JAX function does, its buffers equal JAX's bit
+    for bit, and the forward on (1, 300, 640) returns the logical 200
+    columns within one bf16 step of JAX's (2^-7 relative, near-zero sums
+    1e-4 of max |ref|: the same codes, f32 sums in another order).
+    ``w4a8_cache_dequant`` keeps the logical dims too, and its int8 copy
+    gives the w4a8 linear's output bit for bit."""
+    k, n = 640, 200
+    jl = jlin.SVDQW4A4Linear.random_init(jax.random.PRNGKey(81), k, n, rank=32, precision="int4")
+    t = lambda a: to_torch(np.asarray(a), "cpu")
+    tl = SVDQW4A4Linear(t(jl.qweight), t(jl.wscales), t(jl.smooth), t(jl.proj_down), t(jl.proj_up), t(jl.bias),
+                        precision="int4", logical_in=k, logical_out=n)
+    jq, tq = jreq.requantize_svdq(jl, out), treq.requantize_svdq(tl, out)
+    assert (tq.logical_in, tq.logical_out, tq.in_features, tq.out_features) == (
+        jq.logical_in, jq.logical_out, jq.in_features, jq.out_features) == (k, n, 768, 256)
+    for name in ("qweight", "wscales", "rescales"):
+        a, b = getattr(tq, name), getattr(jq, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            np.testing.assert_array_equal(a.float().numpy(), np.asarray(b, np.float32), err_msg=name)
+    x = np.asarray(jnp.asarray(np.random.default_rng(82).standard_normal((1, 300, k)), jnp.bfloat16))
+    ref = np.asarray(jq(jnp.asarray(x)), np.float32)
+    with torch.no_grad():
+        got = tq(t(x))
+    assert got.shape == (1, 300, n) and ref.shape == (1, 300, n)
+    got = got.float().numpy()
+    assert np.all(np.abs(got - ref) <= 2.0 ** -7 * np.abs(ref) + 1e-4 * np.abs(ref).max())
+    if out == "w4a8":
+        dialed = treq.w4a8_cache_dequant(torch.nn.Sequential(tq), 1.0)[0]
+        assert dialed.precision == "int8" and (dialed.logical_in, dialed.logical_out) == (k, n)
+        with torch.no_grad():
+            assert torch.equal(dialed(t(x)), tq(t(x)))
