@@ -31,7 +31,11 @@ Phases, each fatal on failure:
                   yardstick; the online flash kernel at head dim 64
                   (flash_online_d64) on SDXL's 1024px shapes: self-attention
                   at H 10, S 4096 (the row) and H 20, S 1024, and both levels'
-                  cross-attention against 77 text keys, SDPA as yardstick;
+                  cross-attention against 77 text keys, SDPA as yardstick; the
+                  online flash kernel at head dim 112 (flash_online_d112) on
+                  SANA's cross-attention (B 2, H 20, Sq 1024, Skv 300; B 3
+                  logged) and the W4A4 GEMM at SANA's padded qkv and point
+                  shapes;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -60,7 +64,10 @@ Phases, each fatal on failure:
                   bit, 2-step latents within 2e-2. Then the small SDXL UNet (11
                   blocks, head dim 64) card against CPU: int4 one forward and 2
                   unguided steps (1e-1), int8 one forward (3e-2) and 2 CFG steps
-                  (7e-2), launches exact;
+                  (7e-2), launches exact. Last, the small SANA (2 blocks, dim
+                  224, cross head dim 112, PAG on block 1) card against CPU:
+                  int4 forward with and without PAG (4e-2), int8 2-step CFG
+                  pipeline (4.5e-2), launches exact;
   5. slice     -- T5-XXL (AWQ W4A16, 24 layers) and CLIP-L from random weights;
                   full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
@@ -134,6 +141,19 @@ Phases, each fatal on failure:
                   exact per UNet forward (flash_online_d64 140, gemm_w4a4_int4
                   420; two forwards a CFG step; 9 flash_online per 1024px
                   decode, 1 at 512px).
+ 11. sana     -- full-width, full-depth SANA 1.6B int4 (SanaConfig(): 20
+                  blocks, dim 2240, PAG projections on block 8) from random
+                  weights, Gemma-2-2B at full size from random weights behind
+                  a stand-in tokenizer (vocab 256000), and the DC-AE f32c32
+                  from synthesize_dcae_state_dict(DCAEConfig()), through
+                  SanaPipeline from prompts at 1024x1024: request A, CFG 4.5
+                  (B 2), min(4, --steps) of the default 20 steps; B, PAG 2.0 +
+                  CFG 4.5 (B 3), 2 steps; C, cache="fb" at guidance 1, min(8,
+                  --steps) steps (hits read from the counts); D, a synthesized
+                  svdq-int4_r32-sana1.6b file through load_sana_transformer,
+                  one step; each to images, after an untimed run. Counts exact
+                  per forward (flash_online_d112 20, gemm_w4a4_int4 120, plus 2
+                  per PAG layer under PAG; a cache hit 1 and 6).
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -177,6 +197,11 @@ T5_EOS, CLIP_EOS = 1, 2
 SDXL_D, SDXL_CTX, SDXL_TURBO = 64, 77, 512
 SDXL_LEVELS = ((640, 10, 10), (1280, 20, 60))  # (width, heads, blocks) of the two attention levels
 SDXL_VAE_TILES = {1024: 9, 512: 1}  # flash_online launches of a tiled decode at each size
+# SANA 1.6B (SanaConfig(): dim 2240, 20 blocks, cross-attention 20 heads of 112) at 1024px: 32x32 = 1024 image
+# tokens (DC-AE f32), prompts padded to 300 Gemma-2 tokens; CFG doubles the batch, CFG + PAG triples it
+SANA_D, SANA_S, SANA_TXT, SANA_HEADS, SANA_DIM, SANA_HID = 112, 1024, 300, 20, 2240, 5600
+SANA_PAG_LAYERS = (8,)
+GEMMA_VOCAB, GEMMA_EOS = 256000, 1
 PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
            "a bowl of ramen on a wooden table, studio light")
 
@@ -585,6 +610,7 @@ def kernel_phase(dev):
     torch.cuda.empty_cache()
     bs_kernel_rows(dev, record)
     sdxl_kernel_rows(dev, record, failed)
+    sana_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -848,7 +874,8 @@ def reference_phase(dev):
     ok4 = reference_4bit(dev, pe, pooled, lat, kw)
     all_ok = reference_packed(dev, cfg, pe, pooled, lat, kw) and all_ok
     return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
-            and reference_text_encoders(dev) and reference_checkpoint(dev) and reference_sdxl(dev))
+            and reference_text_encoders(dev) and reference_checkpoint(dev) and reference_sdxl(dev)
+            and reference_sana(dev))
 
 
 SDXL_SMALL = dict(block_out_channels=(128, 256, 512), layers_per_block=1, transformer_layers=(0, 1, 2),
@@ -1951,6 +1978,64 @@ def reference_checkpoint(dev):
     return all_ok
 
 
+def sana_kernel_rows(dev, record, failed):
+    """14. The online flash kernel at head dim 112 (flash_online_d112) on
+    SANA 1.6B's cross-attention at 1024px under CFG: B 2, H 20, Sq 1024
+    image tokens against Skv 300 text tokens (the row; ten kv tiles, the
+    last with 12 valid columns); the PAG batch (B 3) checked and timed too;
+    the plain twin on the card, SDPA as yardstick. Then the W4A4 GEMM at
+    SANA's padded shapes: qkv (M 2048, K 2240 padded to 2304, N 6720 padded
+    to 6784) and the point linear (M 2048, K 5600 padded to 5632, N 2240
+    padded to 2304), the padded K holding zero codes and zero activation
+    scales, as the quantize and the padded linear leave them; logged beside
+    torch.matmul on the logical block."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import flash_attention_online, flash_attention_online_plain
+    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4, gemm_w4a4_plain, w4a4_values
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    res = {}
+    for b in (2, 3):
+        q, k, v = checks.flash_online_case(b, SANA_HEADS, SANA_S, SANA_TXT, SANA_D, device=dev)
+        err, ok, detail = checks.check_flash_online(q, k, v)
+        ms = cuda_ms(lambda: flash_attention_online(q, k, v, out_bshd=True), 50)
+        plain = cuda_ms(lambda: flash_attention_online_plain(q, k, v, out_bshd=True), 3)
+        lib = cuda_ms(lambda: sdpa(q, k, v, scale=1 / math.sqrt(SANA_D)), 50)
+        bnd = online_bound(b, SANA_HEADS, SANA_S, SANA_TXT, SANA_D)
+        res[b] = (err, ok, detail, ms, plain, bnd, lib)
+        log(f"[kernel] flash_online_d112 @ B={b} H={SANA_HEADS} Sq={SANA_S} Skv={SANA_TXT} D={SANA_D} (SANA cross, "
+            f"{'CFG' if b == 2 else 'CFG + PAG'}): {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain "
+            f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+        del q, k, v
+    err, ok, detail, ms, plain, bnd, lib = res[2]
+    record("flash_online_d112", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:607",
+           f"B=2 H={SANA_HEADS} Sq={SANA_S} Skv={SANA_TXT} D={SANA_D} (SANA cross-attention, CFG)",
+           ok and res[3][1], max(err, res[3][0]), detail + "; B 3 (PAG) logged above", ms, plain, bnd, lib)
+
+    m = 2 * SANA_S
+    for label, k_log, n_log in (("qkv", SANA_DIM, 3 * SANA_DIM), ("point", SANA_HID, SANA_DIM)):
+        k, n = k_log + (-k_log) % 256, n_log + (-n_log) % 128
+        args, kw = checks.w4a4_case(m, k, n, "int4", device=dev)
+        qa, asc, qw, wsc = args[:4]
+        qa[:, k_log // 2:] = 0
+        qw[k_log // 2:] = 0
+        asc[k_log // 64:] = 0
+        _, ok, detail = checks.check_w4a4(args, kw)
+        ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        a16 = (w4a4_values(qa, -1, precision="int4") * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
+        w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
+        lib = cuda_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log, :n_log]), 20)
+        bnd = w4a4_bound(m, k, n_log, 64, k_ops=k_log)
+        log(f"[kernel] gemm_w4a4_int4 @ M={m} K={k_log} (padded {k}) N={n_log} (padded {n}) R={RANK} (SANA {label}): "
+            f"{'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+        if not ok:
+            failed.append(f"gemm_w4a4_int4@SANA {label}")
+        del args, qa, asc, qw, wsc, a16, w16
+    torch.cuda.empty_cache()
+
+
 def sdxl_per_forward(unet) -> dict:
     """Launches per UNet forward: two D-64 attentions and six SVDQ linears
     (qkv, out; to_q, out; the GEGLU's two) per transformer block, the
@@ -2053,6 +2138,193 @@ def sdxl_phase(dev, steps: int):
     return ok, total, paths
 
 
+SANA_SMALL = dict(num_layers=2, num_attention_heads=7, num_cross_attention_heads=2, caption_channels=96,
+                  pag_layers=(1,))  # tests/test_torch_sana.py's TINY: dim 224, cross head dim 112, odd widths
+
+
+def reference_sana(dev):
+    """The small SANA of the CPU tests (2 blocks, dim 224, 2 cross heads of
+    112, every quantized width odd, PAG on block 1), card against CPU with
+    the same weights and inputs, at the bounds the CPU tests hold the port
+    to against JAX (twice the spread of the JAX package's own two GEMM
+    routes): int4, one forward at B 2 without and with PAG on batch row 1
+    (4e-2); int8, 2 steps of SanaPipeline with CFG 4.5 (4.5e-2). Every
+    cross-attention on the D-112 kernel (2 a forward), every int4 SVDQ
+    linear on the W4A4 kernel (12 a forward, 14 under PAG)."""
+    from nunchaku_tpu_torch import SanaConfig, SanaPipeline, SanaTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    gen = torch.Generator().manual_seed(15)
+    x = torch.randn((2, 256, 32), generator=gen).to(torch.bfloat16)
+    c = torch.randn((2, 40, 96), generator=gen).to(torch.bfloat16)
+    t = torch.tensor([0.7, 0.3])
+    rows = torch.tensor([False, True])
+    all_ok = True
+    cpu_model = SanaTransformer2DModel.random_init(SanaConfig(**SANA_SMALL), seed=16, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    for pag in (False, True):
+        kw = dict(pag=True, pag_layers=(1,), pag_rows=rows) if pag else {}
+        with torch.no_grad():
+            ref = cpu_model(x, c, t, **kw).float()
+            reset_launch_counts()
+            out = gpu_model(x.to(dev), c.to(dev), t.to(dev), **{k: (v.to(dev) if k == "pag_rows" else v)
+                                                               for k, v in kw.items()}).float().cpu()
+            cnt = launch_counts()
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        want = (2, 14 if pag else 12)
+        ok = (bool(torch.isfinite(out).all()) and rel <= 4e-2
+              and (cnt["flash_online_d112"], cnt["gemm_w4a4_int4"]) == want)
+        log(f"[reference] SANA small (2 blocks, dim 224, cross head dim 112) int4 forward B 2{' with PAG on row 1' if pag else ''}: "
+            f"card vs CPU rel max error {rel:.3e} (tolerance 4e-2); launches flash_online_d112 "
+            f"{cnt['flash_online_d112']}, gemm_w4a4_int4 {cnt['gemm_w4a4_int4']} (expected {want}): "
+            f"{'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+    cpu8 = SanaTransformer2DModel.random_init(SanaConfig(**SANA_SMALL, precision="int8"), seed=17, device="cpu")
+    gpu8 = copy.deepcopy(cpu8).to(dev)
+    pe = torch.randn((1, 40, 96), generator=gen).to(torch.bfloat16)
+    lat = torch.randn((1, 256, 32), generator=gen)
+    kw = dict(height=512, width=512, num_inference_steps=2, guidance_scale=4.5)
+    ref = SanaPipeline(cpu8)(prompt_embeds=pe, latents=lat, **kw).latents
+    reset_launch_counts()
+    out = SanaPipeline(gpu8)(prompt_embeds=pe.to(dev), latents=lat.to(dev), **kw).latents.cpu()
+    cnt = launch_counts()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    ok = bool(torch.isfinite(out).all()) and rel <= 4.5e-2 and cnt["flash_online_d112"] == 4
+    log(f"[reference] SANA small int8, 2 steps of SanaPipeline at 512x512 with CFG 4.5 (B 2): card vs CPU latents rel "
+        f"max error {rel:.3e} (tolerance 4.5e-2); flash_online_d112 {cnt['flash_online_d112']} (expected 4): "
+        f"{'PASS' if ok else 'FAIL'}")
+    return all_ok and ok
+
+
+def sana_per_forward(model, pag: bool = False) -> dict:
+    """Launches per SANA forward: the D-112 flash once a block (the
+    cross-attention), six SVDQ linears a block on the W4A4 kernel at int4
+    (qkv, out; q, out; inverted, point), two more on each PAG layer under
+    PAG (the perturbed branch's pag_to_v and out_proj)."""
+    L = model.cfg.num_layers
+    extra = 2 * len(model.cfg.pag_layers or ()) if pag else 0
+    return {"flash_online_d112": L, "gemm_w4a4_int4": 6 * L + extra}
+
+
+def sana_bounds(b=2, pag_layers=0) -> dict:
+    """Least time per SANA 1.6B 1024px forward at batch ``b`` for each kernel
+    it runs: every block's cross-attention (300 text keys) and its six W4A4
+    GEMMs (M = b * 1024), the products at the logical widths, the bytes of
+    the padded buffers (K 2240 -> 2304, 5600 -> 5632)."""
+    m, d, h = b * SANA_S, SANA_DIM, SANA_HID
+    shapes = ((d, 3 * d), (d, d), (d, d), (d, d), (d, 2 * h), (h, d))
+    gemm = sum(w4a4_bound(m, k + (-k) % 256, n, 64, k_ops=k)[0] for k, n in shapes)
+    return {"flash_online_d112": 20 * online_bound(b, SANA_HEADS, SANA_S, SANA_TXT, SANA_D)[0],
+            "gemm_w4a4_int4": 20 * gemm + 2 * pag_layers * w4a4_bound(m, d + (-d) % 256, d, 64, k_ops=d)[0]}
+
+
+def sana_phase(dev, steps: int):
+    """[sana] SANA 1.6B (SanaConfig(): int4, 20 blocks, dim 2240, cross
+    head dim 112, PAG projections on block 8) from random weights made from
+    seeds, with Gemma-2-2B at full size (26 layers, d 2304, vocab 256000)
+    from random weights and the stand-in tokenizer, and the DC-AE f32c32
+    from synthesize_dcae_state_dict(DCAEConfig()), through SanaPipeline from
+    prompts at 1024x1024: request A, CFG 4.5 (B 2), min(4, steps) of the
+    default 20 steps (a step-count cut), to an image; B, PAG 2.0 with CFG
+    4.5 (B 3), 2 steps; C, cache="fb" at guidance 1, min(8, steps) steps
+    (hits from the counts: a hit runs block 0 only); D, a synthesized
+    svdq-int4_r32-sana1.6b file (nunchaku's v1 schema, the odd widths
+    padded) through load_sana_transformer, one step. Each request runs once
+    untimed first; then 2 timed requests (D: 1); launches exact per forward
+    (no port kernel in Gemma-2 or the DC-AE). -> (ok, counts, per-forward
+    counts by request)."""
+    import tempfile
+
+    from nunchaku_tpu_torch import (DCAE, DCAEConfig, Gemma2Encoder, SanaConfig, SanaPipeline, SanaTransformer2DModel,
+                                    load_sana_transformer)
+    from nunchaku_tpu_torch.models.text_encoders.gemma2 import GEMMA2_2B
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    t0 = time.perf_counter()
+    cfg = SanaConfig(pag_layers=SANA_PAG_LAYERS)
+    model = SanaTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    gemma = Gemma2Encoder.random_init(**GEMMA2_2B, seed=1, device=dev)
+    t1 = time.perf_counter()
+    vae = DCAE.random_init(DCAEConfig(), seed=2, device=dev)
+    torch.cuda.synchronize()
+    log(f"[sana] SANA 1.6B {cfg.precision}: {cfg.num_layers} blocks, dim {cfg.dim}, cross {cfg.num_cross_attention_heads} "
+        f"heads of {cfg.dim // cfg.num_cross_attention_heads}, FF {cfg.ff_hidden}, rank {cfg.rank}, PAG layers "
+        f"{cfg.pag_layers}; weights {_gib(model):.2f} GiB, Gemma-2-2B {_gib(gemma):.2f} GiB, DC-AE {_gib(vae):.2f} GiB; "
+        f"random init {t1 - t0:.1f} s (transformer + Gemma-2), {time.perf_counter() - t1:.1f} s (DC-AE, numpy state dict)")
+    tok = stand_in_tokenizer(GEMMA_VOCAB, GEMMA_EOS)
+    ok, total, paths = True, {}, {}
+
+    def run(label, pipe, n, requests, per, **call):
+        """One untimed request, then ``requests`` timed ones; -> counts."""
+        nonlocal ok
+        size = 1024
+        with torch.no_grad():
+            pipe(prompt=PROMPTS[-1], num_inference_steps=1, seed=99, **call)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        req_s = []
+        for seed in range(requests):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe(prompt=PROMPTS[seed % len(PROMPTS)], num_inference_steps=n, seed=seed, **call)
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - t0)
+            lat, img = out.latents, out.images
+            good = (tuple(lat.shape) == (1, 32, size // 32, size // 32) and bool(torch.isfinite(lat).all())
+                    and tuple(img.shape) == (1, size, size, 3) and img.dtype == torch.float32
+                    and bool(torch.isfinite(img).all()) and img.min().item() >= 0.0 and img.max().item() <= 1.0)
+            ok = ok and good
+            log(f"[sana] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / n:.4f} s/step), latents "
+                f"{tuple(lat.shape)} |lat| mean {lat.abs().mean().item():.4f}, images {tuple(img.shape)} min "
+                f"{img.min().item():.4f} max {img.max().item():.4f} mean {img.mean().item():.4f}: finite and in "
+                f"[0, 1] {good}")
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[sana] {label}: {requests} request(s) x {n} steps; s/request {[round(x, 3) for x in req_s]}, s/step "
+            f"(last) {req_s[-1] / n:.4f}; peak allocated {peak:.2f} GiB")
+        paths[f"sana {label.split(':')[0]}"] = per
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return counts
+
+    pipe = SanaPipeline(model, vae=vae, text_encoder=gemma, tokenizer=tok)
+    na, nc = min(4, steps), min(8, steps)
+    per = sana_per_forward(model)
+    counts = run("A: 1024px, CFG 4.5 (B 2)", pipe, na, 2, per, guidance_scale=4.5)
+    ok = check_counts("sana A", counts, per, 2 * na, tag="sana") and ok
+    per_pag = sana_per_forward(model, pag=True)
+    counts = run("B: PAG 2.0 + CFG 4.5 (B 3)", pipe, 2, 2, per_pag, guidance_scale=4.5, pag_scale=2.0)
+    ok = check_counts("sana B", counts, per_pag, 2 * 2, tag="sana") and ok
+    counts = run('C: cache="fb", guidance 1', pipe, nc, 2, per, guidance_scale=1.0, cache="fb")
+    fwd, L = 2 * nc, cfg.num_layers
+    hits = (L * fwd - counts["flash_online_d112"]) // (L - 1)
+    want = {k: per[k] * (fwd - hits) for k in per}
+    want["flash_online_d112"] += hits
+    want["gemm_w4a4_int4"] += 6 * hits
+    c_ok = all(counts[k] == want.get(k, 0) for k in counts) and 0 <= hits < fwd
+    log(f"[sana] C: cache hits {hits} of {fwd} steps (a hit runs block 0 only: 1 flash_online_d112, 6 "
+        f"gemm_w4a4_int4); launches {counts}; expected {want}: {'PASS' if c_ok else 'FAIL'}")
+    ok = ok and c_ok
+    del pipe, model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="nunchaku_sana_") as tmp:
+        path = f"{tmp}/svdq-int4_r32-sana1.6b.safetensors"
+        _write(synth, path, lambda: synth.sana_state(seed=3, device=dev), "SANA 1.6B int4 rank 32 (v1 schema)",
+               tag="sana")
+        loaded, _ = _load("SANA 1.6B int4 from the file", lambda: load_sana_transformer(path, device=dev), tag="sana")
+        per = sana_per_forward(loaded)
+        counts = run("D: synthesized svdq-int4_r32-sana1.6b file, CFG 4.5", SanaPipeline(
+            loaded, vae=vae, text_encoder=gemma, tokenizer=tok), 1, 1, per, guidance_scale=4.5)
+        ok = check_counts("sana D", counts, per, 1, tag="sana") and ok
+        del loaded
+    del vae, gemma
+    torch.cuda.empty_cache()
+    return ok, total, paths
+
+
 def qwen_bounds(cfg, b=1) -> dict:
     """Least time per Qwen-Image 1024px forward at batch ``b`` for each
     kernel it runs (S_txt 211, padded to the 256-row quantum in the GEMMs)."""
@@ -2135,8 +2407,9 @@ def main(argv=None) -> int:
     ckpt_ok, ccounts, cpaths = checkpoint_phase(dev, args.steps)
     ckptq_ok, cqcounts, cqpaths = checkpoint_qwen_phase(dev)
     sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
+    sana_ok, sacounts, sapaths = sana_phase(dev, args.steps)
     counts = {k: counts[k] + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0) + scounts.get(k, 0)
-              for k in counts}
+              + sacounts.get(k, 0) for k in counts}
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
@@ -2159,12 +2432,17 @@ def main(argv=None) -> int:
         for name, b in sdxl_bounds(size).items():
             log(f"[bound] {name}: launches per SDXL {size}px UNet forward {spaths[f'sdxl {size}px'][name]}, least "
                 f"time {b:.3f} ms per forward")
+    for label, b, pag in (("CFG (B 2)", 2, 0), ("CFG + PAG (B 3)", 3, len(SANA_PAG_LAYERS))):
+        for name, bnd in sana_bounds(b, pag).items():
+            per = {p: f[name] for p, f in sapaths.items() if f.get(name)}
+            log(f"[bound] {name}: launches per SANA 1.6B 1024px forward {per}, least time {bnd:.3f} ms per "
+                f"{label} forward")
     ran = [name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
     for name, per in (cpaths | cqpaths).items():
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok
+    ok = ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -2172,7 +2450,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"slice {verdict(slice_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
-        f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}")
+        f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
+        f"sana {verdict(sana_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

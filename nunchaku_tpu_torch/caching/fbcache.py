@@ -1,10 +1,11 @@
 """First-block cache (FB cache) and double FB cache for the FLUX transformer,
-and the first-N-blocks cache of Qwen-Image.
+the first-N-blocks cache of Qwen-Image and SANA's first-block cache.
 
 Counterpart of ``nunchaku_tpu/caching/fbcache.py`` (``FBCacheState``,
 ``init_fb_state``, ``_similar``, ``make_hit_schedule``, ``_apply_force``,
 ``fb_cached_forward``; ``QwenFBCacheState``, ``init_qwen_fb_state``,
-``qwenimage_fb_cached_forward``). Each FLUX step runs dual block 0; when its residual is
+``qwenimage_fb_cached_forward``; ``SanaFBCacheState``, ``init_sana_fb_state``,
+``sana_fb_cached_forward``). Each FLUX step runs dual block 0; when its residual is
 close (mean relative L1 below the threshold) to the one stored at the last
 miss, the cached residual of the remaining dual blocks (and, single-level,
 of all single blocks) is added instead of running them. Double FB takes a
@@ -19,7 +20,8 @@ program with ``lax.cond``:
   ``.item()`` synchronisation; a forced decision (``force`` 0 or 1, from
   :func:`make_hit_schedule`) is known on the host and needs none.
 * A miss continues from the indicator's outputs (``run_dual(start=1)``,
-  ``run_singles(start=1)``, Qwen's ``run_blocks(start=fn_blocks)``) instead
+  ``run_singles(start=1)``, Qwen's ``run_blocks(start=fn_blocks)``, SANA's
+  ``run_blocks(start=1)``) instead
   of rerunning the indicator blocks, which the JAX package does to keep XLA
   from copying a slice of its stacked weights. The values are the same; a
   FLUX miss runs one dual and one single block fewer, a Qwen miss
@@ -196,3 +198,40 @@ def qwenimage_fb_cached_forward(model, state: QwenFBCacheState, hidden_states, e
         prev_first_residual=state.prev_first_residual if hit else first_res,
         cached_rest_residual=rest, valid=True, hits=state.hits + int(hit))
     return model.head(img_f, temb), new_state
+
+
+@dataclass
+class SanaFBCacheState:
+    prev_first_residual: torch.Tensor  # (B, S_img, D) bf16, block 0's at the last miss
+    cached_rest_residual: torch.Tensor  # (B, S_img, D) bf16, blocks 1..L-1's
+    valid: bool = False
+    hits: int = 0
+
+
+def init_sana_fb_state(batch, s_img, dim, device="cuda") -> SanaFBCacheState:
+    def z():
+        return torch.zeros((batch, s_img, dim), dtype=torch.bfloat16, device=device)
+
+    return SanaFBCacheState(z(), z())
+
+
+def sana_fb_cached_forward(model, state: SanaFBCacheState, hidden_states, encoder_hidden_states, timestep,
+                           cond_mask=None, pag: bool = False, *, residual_diff_threshold: float = 0.12):
+    """One cached SANA step -> (velocity, new state) (JAX :355-419): block 0
+    runs; when its residual is close to the one stored at the last miss, the
+    cached residual of blocks 1..L-1 is added instead of running them."""
+    x0, cond, temb, temb6, side = model.embed(hidden_states, encoder_hidden_states, timestep)
+    x1 = model.run_blocks(x0, cond, temb6, side, cond_mask, pag, start=0, stop=1)
+    first_res = (x1 - x0).to(torch.bfloat16)
+    hit = state.valid and _similar(first_res, state.prev_first_residual, residual_diff_threshold)
+    if hit:
+        rest = state.cached_rest_residual
+        x = x1 + rest.float()
+    else:
+        x = model.run_blocks(x1, cond, temb6, side, cond_mask, pag, start=1)
+        rest = (x - x1).to(torch.bfloat16)
+    new_state = SanaFBCacheState(
+        # store-on-miss: hits keep comparing against the last miss's residual
+        prev_first_residual=state.prev_first_residual if hit else first_res,
+        cached_rest_residual=rest, valid=True, hits=state.hits + int(hit))
+    return model.head(x, temb), new_state

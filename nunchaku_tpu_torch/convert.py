@@ -10,7 +10,10 @@ every linear's shape is checked against the config's dims.
 ``sdxl_from_jax_params`` does the same for the SDXL UNet (its NHWC
 convolution weights transposed to OIHW, its odd-width SVDQ linears kept
 padded), ``vae_from_jax_params`` for the VAE decoder, and
-``t5_from_jax_params`` / ``clip_from_jax_params`` for the text encoders.
+``t5_from_jax_params`` / ``clip_from_jax_params`` / ``gemma2_from_jax_params``
+for the text encoders. ``sana_from_jax_params`` takes the SANA transformer's
+stacked blocks apart into per-layer modules, its odd-width SVDQ linears kept
+padded with the config's logical dims.
 """
 
 from __future__ import annotations
@@ -24,7 +27,10 @@ from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, Resne
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
 from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, padded_dims
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
+from .models import transformer_sana as S
+from .models.loader_sana import CaptionProjection
 from .models.text_encoders.clip import CLIPBlock, CLIPTextModel
+from .models.text_encoders.gemma2 import Gemma2Encoder, Gemma2Layer
 from .models.text_encoders.t5 import T5FF, T5Attention, T5Block, T5EncoderModel
 from .models.transformer_flux import (
     FluxConfig,
@@ -351,5 +357,66 @@ def clip_from_jax_params(params: dict, *, heads: int, eos_token_id: int = 2, dev
                                 heads=heads))
     model = CLIPTextModel(P.get("token_embedding"), P.get("position_embedding"), blocks, P.get("final_ln_w"),
                           P.get("final_ln_b"), eos_token_id=eos_token_id)
+    P.done()
+    return model
+
+
+def sana_from_jax_params(params: dict, cfg: S.SanaConfig, device="cuda") -> S.SanaTransformer2DModel:
+    """The port's SANA transformer from the JAX ``SanaTransformer2DModel``'s
+    parameters: the stacked ``blocks.*`` leaves (leading layer axis) become
+    ``blocks.{i}.*``; every linear is checked against the config's widths
+    (the SVDQ linears by their logical dims); a loaded model's
+    ``CaptionProjection`` (``caption_proj.fc1`` / ``fc2``) is kept."""
+    P = _Params(params, device)
+    dim, hid = cfg.dim, cfg.ff_hidden
+
+    def svdq(prefix, layer, k, n):
+        return _check(prefix, SVDQW4A4Linear(
+            P.get(prefix + ".qweight", layer), P.get(prefix + ".wscales", layer), P.get(prefix + ".smooth", layer),
+            P.get(prefix + ".proj_down", layer), P.get(prefix + ".proj_up", layer), P.opt(prefix + ".bias", layer),
+            P.opt(prefix + ".rescales", layer), precision=cfg.precision), k, n)
+
+    blocks = []
+    for i in range(cfg.num_layers):
+        a, c, f = "blocks.attn", "blocks.cross_attn", "blocks.ff"
+        pag = svdq(a + ".pag_to_v", i, dim, dim) if a + ".pag_to_v.qweight" in params else None
+        attn = S.SanaLinearAttention(svdq(a + ".qkv_proj", i, dim, 3 * dim), svdq(a + ".out_proj", i, dim, dim), pag)
+        kv = Linear(P.get(c + ".kv_linear.weight", i), P.opt(c + ".kv_linear.bias", i))
+        if tuple(kv.weight.shape) != (dim, 2 * dim):
+            raise ValueError(f"{c}.kv_linear: weight {tuple(kv.weight.shape)} does not match the config's "
+                             f"{(dim, 2 * dim)}")
+        cross = S.SanaCrossAttention(svdq(c + ".q_linear", i, dim, dim), kv, svdq(c + ".out_proj", i, dim, dim),
+                                     heads=cfg.num_cross_attention_heads, head_dim=dim // cfg.num_cross_attention_heads)
+        ff = S.SanaGLUMBConv(svdq(f + ".inverted", i, dim, 2 * hid), P.get(f + ".depth_w", i), P.get(f + ".depth_b", i),
+                             svdq(f + ".point", i, hid, dim))
+        blocks.append(S.SanaTransformerBlock(P.get("blocks.scale_shift_table", i), attn, cross, ff))
+    if "caption_proj.fc1.weight" in params:
+        caption = CaptionProjection(P.linear("caption_proj.fc1", (cfg.caption_channels, dim)),
+                                    P.linear("caption_proj.fc2", (dim, dim)))
+    else:
+        caption = P.linear("caption_proj", (cfg.caption_channels, dim))
+    model = S.SanaTransformer2DModel(
+        cfg, P.linear("patch_embed", (cfg.in_channels, dim)), caption, P.mlp_embedder("time_embed"),
+        P.linear("time_proj_linear", (dim, 6 * dim)), blocks, P.get("scale_shift_table_out"),
+        P.linear("proj_out", (dim, cfg.out_channels)))
+    P.done()
+    return model
+
+
+def gemma2_from_jax_params(params: dict, *, heads: int, kv_heads: int, head_dim: int, device="cuda") -> Gemma2Encoder:
+    """The port's Gemma-2 encoder from the JAX ``Gemma2Encoder.named_parameters()``
+    (``layers.{i}.*``, ``embed``, ``final_norm``), with the soft-cap 50 and
+    the query scale head_dim^-0.5 of the JAX ``random_init`` (and of
+    gemma-2-2b)."""
+    P = _Params(params, device)
+    layers = 1 + max(int(n.split(".")[1]) for n in params if n.startswith("layers."))
+    lys = []
+    for i in range(layers):
+        p = f"layers.{i}."
+        lys.append(Gemma2Layer(
+            P.get(p + "in_norm"), *[P.linear(p + n) for n in "qkvo"], P.get(p + "post_attn_norm"),
+            P.get(p + "pre_ff_norm"), *[P.linear(p + n) for n in ("gate", "up", "down")], P.get(p + "post_ff_norm"),
+            heads=heads, kv_heads=kv_heads, head_dim=head_dim, softcap=50.0, query_scale=head_dim ** -0.5))
+    model = Gemma2Encoder(P.get("embed"), lys, P.get("final_norm"))
     P.done()
     return model

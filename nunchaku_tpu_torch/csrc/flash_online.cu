@@ -1,6 +1,6 @@
 // Online-softmax flash attention, non-causal, one head dim D per instantiation
 // (512: the VAE decoder's single-head mid-block attention; 64: SDXL's
-// self- and cross-attention; 128 and 256 too).
+// self- and cross-attention; 112: SANA's cross-attention; 128 and 256 too).
 //
 // Replaces nunchaku_tpu/ops/attention.py _flash_kernel (:607, launched by
 // flash_attention :672 with fixed_softmax=False), with and without its kv
@@ -42,6 +42,19 @@
 // holding 13 valid columns and 19 masked to -1e30 (never a row's max: the
 // first tile is all valid).
 //
+// At D = 112 (SANA's cross-attention: 20 heads over 1024 image tokens
+// against 300 text keys) an even split gives 56 columns a half, not a whole
+// number of k16 steps, so the halves are uneven: warp half 0 takes columns
+// 0-63 (four k16 steps, eight n8 output tiles), half 1 columns 64-111
+// (three k16 steps, six n8 tiles). The loops run to the larger half and stop
+// at the warp's own (the bound is uniform across a warp); the exchange is
+// unchanged, and both warps of a pair still hold bit-identical logits
+// because float addition commutes. A static_assert keeps any head dim whose
+// halves are not whole k16 steps from compiling. LD = 120 is an odd number
+// of 16-byte chunks; shared memory is 61 KB (q 15, k/v stages 30, exchange
+// 16), over 48 KB, so the launch raises the block's limit as at D = 512.
+// Skv = 300 is ten tiles, the last holding 12 valid columns.
+//
 // The mask form (MASK = true, built at D = 128: Qwen-Image's attention
 // under fixed_softmax = False) adds a (B, S_kv) f32 log2-domain bias, 0 or
 // -1e30 for a bool mask, to the scaled logits, each thread loading the 8
@@ -70,6 +83,13 @@ namespace {
 
 constexpr int BQ = 64, BKV = 32, WARPS = 8, THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;
+
+// The head-dim columns of warp half 0 (half 1 takes the rest): D / 2, or 64
+// where D / 2 is not a whole number of k16 steps (D = 112: 64 + 48).
+template <int D>
+__host__ __device__ constexpr int half0() {
+  return (D / 2) % 16 == 0 ? D / 2 : 64;
+}
 
 template <int D>
 struct OnlineSmem {
@@ -112,14 +132,16 @@ __global__ void __launch_bounds__(THREADS, 1)
                         const bf16* __restrict__ v, const float* __restrict__ mask,
                         bf16* __restrict__ out, int H, int Sq, int Skv, float scale_log2,
                         int bshd, Sparse sp) {
-  constexpr int DH = D / 2, NT = BKV / 8;
+  constexpr int H0 = half0<D>(), H1 = D - H0, DH = H0 > H1 ? H0 : H1, NT = BKV / 8;
+  static_assert(H0 % 16 == 0 && H1 % 16 == 0, "each warp half must be a whole number of k16 steps");
   using Smem = OnlineSmem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp & 3, c0 = (warp >> 2) * DH;  // row group, first head-dim column
+  const int rg = warp & 3, c0 = (warp >> 2) * H0;  // row group, first head-dim column
+  const int ks = (warp >> 2 ? H1 : H0) / 16;        // this half's k16 steps (n16 pairs of p . v)
   const int g = lane >> 2, t4 = lane & 3;           // mma fragment row group / column pair
   const int mi = lane >> 3, mr = lane & 7;          // ldmatrix: which 8x8 matrix, which of its rows
   const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
@@ -168,6 +190,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
+      if (kk >= ks) continue;  // uniform across the warp
       // q A fragment: matrix mi covers rows +8*(mi&1), columns +8*(mi>>1)
       uint32_t a[4];
       ldsm_x4(&sm.q[rg * 16 + (mi & 1) * 8 + mr][c0 + kk * 16 + (mi >> 1) * 8], a[0], a[1], a[2],
@@ -233,6 +256,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                               pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
 #pragma unroll
       for (int n2 = 0; n2 < DH / 16; ++n2) {
+        if (n2 >= ks) continue;
         // transposed: matrix mi covers kv rows +8*(mi&1) (b1 half), d columns +8*(mi>>1) (next n8 tile)
         uint32_t b0, b1, b2, b3;
         ldsm_x4_t(&sm.v[st][c * 16 + (mi & 1) * 8 + mr][c0 + n2 * 16 + (mi >> 1) * 8], b0, b1, b2,
@@ -257,6 +281,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   bf16* dst1 = dst0 + 8 * ld;
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
+    if (n >= 2 * ks) continue;
     const int d = n * 8 + t4 * 2;
     if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(dst0 + d) =
@@ -290,7 +315,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
 
 // q (B, H, Sq, D), k/v (B, H, Skv, D) bf16, mask null or (B, Skv) f32
 // log2-domain bias (D = 128 only) -> out (B, H, Sq, D) bf16, or (B, Sq, H*D)
-// when bshd != 0; D in {64, 128, 256, 512}; scale_log2 = softmax scale * log2(e), as f32.
+// when bshd != 0; D in {64, 112, 128, 256, 512}; scale_log2 = softmax scale * log2(e), as f32.
 extern "C" int nt_flash_online(const void* q, const void* k, const void* v, const void* mask, void* out,
                                int B, int H, int Sq, int Skv, int D, int bshd, float scale_log2,
                                void* stream) {
@@ -302,6 +327,7 @@ extern "C" int nt_flash_online(const void* q, const void* k, const void* v, cons
   }
   switch (D) {
     case 64: return launch<64, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
+    case 112: return launch<112, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
     case 128: return launch<128, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
     case 256: return launch<256, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
     case 512: return launch<512, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);

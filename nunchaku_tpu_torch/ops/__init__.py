@@ -5,12 +5,13 @@ for every call that launches its CUDA kernel (never for the plain PyTorch
 twin), so a run can show which kernels the main path went through. The
 W4A4 GEMM counts each of its modes apart, the dequant its e2m1 form, the
 flash kernels their kv-mask and block-sparse forms, the online flash kernel
-its head-dim-64 form, and the packed w4a8 GEMM its rank-1 and grouped modes.
+its head-dim-64 and head-dim-112 forms, and the packed w4a8 GEMM its rank-1
+and grouped modes.
 """
 
 from __future__ import annotations
 
-from .attention import (BS_COUNTS, MASKED_COUNTS, ONLINE_D64, flash_attention, flash_attention_online,
+from .attention import (BS_COUNTS, MASKED_COUNTS, ONLINE_DIM_COUNTS, flash_attention, flash_attention_online,
                         qkv_rope_producer)
 from .gemm import (DEQUANT_E2M1, W4A4_COUNTS, dequant_w4a8, gemm_w4a8, gemm_w4a8_grouped, gemm_w8a8_grouped,
                    gemm_w8a8_grouped_res, svdq_gemm_w4a8_gelu_quant, svdq_gemm_w8a8_gelu_quant)
@@ -34,7 +35,8 @@ KERNEL_WRAPPERS = {
     "gemm_w4a8": gemm_w4a8,
     "gemm_w4a8_grouped": gemm_w4a8_grouped,
     "gemm_w4a8_gelu_quant": svdq_gemm_w4a8_gelu_quant,
-    "flash_online_d64": ONLINE_D64,
+    "flash_online_d64": ONLINE_DIM_COUNTS[64],
+    "flash_online_d112": ONLINE_DIM_COUNTS[112],
 }
 
 

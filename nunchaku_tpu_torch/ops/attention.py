@@ -16,7 +16,8 @@
   counterpart of ``flash_attention`` with ``fixed_softmax=False``
   (``_flash_kernel`` :607): the running-max softmax the VAE's single-head
   mid-block attention takes (D = 512, (B, H, S, D) out), SDXL's self- and
-  cross-attention (D = 64, scale 1/sqrt(64), (B, S, H*D) out), and the
+  cross-attention (D = 64, scale 1/sqrt(64), (B, S, H*D) out), SANA's
+  cross-attention (D = 112, scale 1/sqrt(112), (B, S, H*D) out), and the
   FLUX / Qwen-Image attention under ``fixed_softmax = False`` (D = 128,
   (B, S, H*D) out, with or without ``kv_mask``).
 
@@ -32,9 +33,10 @@
 attend) or an f32 additive log2-domain bias. The mask forms of both kernels
 count their launches apart (``flash_fixed_masked``, ``flash_online_masked``
 in :data:`MASKED_COUNTS`), and so do the block-sparse forms (``bs_fixed``,
-``bs_online`` in :data:`BS_COUNTS`) and the online kernel at head dim 64
-(``flash_online_d64``, :data:`ONLINE_D64`), so the UNet's launches stay
-apart from the VAE's D-512 ones.
+``bs_online`` in :data:`BS_COUNTS`) and the online kernel at head dims 64
+and 112 (``flash_online_d64`` and ``flash_online_d112`` in
+:data:`ONLINE_DIM_COUNTS`), so SDXL's and SANA's launches stay apart from
+the VAE's D-512 ones.
 """
 
 from __future__ import annotations
@@ -53,11 +55,12 @@ FIXED_CAP = 116.0
 KERNEL_HEAD_DIM = 128
 RMS_EPS = 1e-6
 NEG_INF = -1e30
-ONLINE_HEAD_DIMS = (64, 128, 256, 512)  # the online kernel's instantiations
+ONLINE_HEAD_DIMS = (64, 112, 128, 256, 512)  # the online kernel's instantiations
 ONLINE_BKV = 32  # the online kernel's kv tile: its rescale steps
 MASKED_COUNTS = {"flash_fixed_masked": SimpleNamespace(launches=0),
                  "flash_online_masked": SimpleNamespace(launches=0)}
-ONLINE_D64 = SimpleNamespace(launches=0)  # the online kernel at head dim 64 (SDXL): count flash_online_d64
+# the online kernel at head dim 64 (SDXL) and 112 (SANA), each counted apart
+ONLINE_DIM_COUNTS = {64: SimpleNamespace(launches=0), 112: SimpleNamespace(launches=0)}
 BS_COUNTS = {"bs_fixed": SimpleNamespace(launches=0), "bs_online": SimpleNamespace(launches=0)}
 POOL_SIZE = 128  # the JAX select_blocks' default window (the reference's mask granularity)
 BS_TILE = 128  # bq and bkv of the block-sparse kernels are multiples of this
@@ -251,8 +254,8 @@ def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=No
 
 def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
     """Non-causal attention with a running-max softmax over (B, H, S, D)
-    bf16 q, k, v, optional (B, Skv) ``kv_mask`` (head dims 64, 128, 256 and
-    512 on the card, the mask form at 128 only)
+    bf16 q, k, v, optional (B, Skv) ``kv_mask`` (head dims 64, 112, 128, 256
+    and 512 on the card, the mask form at 128 only)
     -> (B, H, Sq, D) bf16, or (B, Sq, H*D) with ``out_bshd``; ``scale``
     defaults to 1/sqrt(D), and ``scale=1.0`` means q already carries
     scale * log2(e)."""
@@ -278,7 +281,7 @@ def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
     if bias is not None:
         MASKED_COUNTS["flash_online_masked"].launches += 1
     else:
-        (ONLINE_D64 if d == 64 else flash_attention_online).launches += 1
+        ONLINE_DIM_COUNTS.get(d, flash_attention_online).launches += 1
     return out
 
 

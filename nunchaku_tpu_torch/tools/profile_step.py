@@ -1,4 +1,4 @@
-"""Where one FLUX.1-dev, Qwen-Image or SDXL denoise step, or one VAE
+"""Where one FLUX.1-dev, Qwen-Image, SDXL or SANA denoise step, or one VAE
 decode, spends its time on the card.
 
     python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|nvfp4-a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
@@ -6,6 +6,7 @@ decode, spends its time on the card.
     python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--rank R] \
         [--online-softmax] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model sdxl [--size 1024|512] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --model sana [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
 Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
@@ -33,6 +34,11 @@ transformer blocks, head dim 64), one forward at B 1 (one of a CFG step's
 two) at 1024x1024 (``--size``) from random embeddings (77 x 2048, pooled
 1280); its convolutions are a group of their own, and so is the online
 flash kernel's D-64 form (``flash_online_d64``).
+``--model sana``: the full SANA 1.6B transformer (``SanaConfig()``: int4,
+20 blocks, dim 2240), one CFG forward at B 2 at 1024x1024 (32x32 latent
+tokens) against 300 random text embeddings; its D-112 online flash
+(``flash_online_d112``) is a group of its own, its depthwise convolutions
+fall in the convolutions group.
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -61,7 +67,8 @@ PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "ge
 FORM_KERNELS = {r"flash_fixed_kernel<\s*false,\s*true\s*>": "bs_fixed (flash_fixed_kernel, IDX)",
                 r"flash_online_kernel<\s*128,\s*false,\s*true\s*>": "bs_online (flash_online_kernel, IDX)",
                 r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)",
-                r"flash_online_kernel<\s*64,": "flash_online_d64 (flash_online_kernel, D 64)"}
+                r"flash_online_kernel<\s*64,": "flash_online_d64 (flash_online_kernel, D 64)",
+                r"flash_online_kernel<\s*112,": "flash_online_d112 (flash_online_kernel, D 112)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 
 
@@ -193,11 +200,12 @@ def _report(header, what, wall_plain, wall, prof, grouping, out, extra=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev, Qwen-Image or SDXL forward or one VAE decode")
+    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev, Qwen-Image, SDXL or SANA forward or one VAE "
+                                             "decode")
     ap.add_argument("--out", help="file for the full key_averages table")
-    ap.add_argument("--model", choices=("flux", "qwenimage", "sdxl"), default="flux",
-                    help="the denoiser: FLUX.1-dev (w4a8 by default), Qwen-Image (int4 by default) or the "
-                         "SDXL UNet (int4)")
+    ap.add_argument("--model", choices=("flux", "qwenimage", "sdxl", "sana"), default="flux",
+                    help="the denoiser: FLUX.1-dev (w4a8 by default), Qwen-Image (int4 by default), the "
+                         "SDXL UNet (int4) or SANA 1.6B (int4)")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
     ap.add_argument("--precision", choices=("w4a8", "nvfp4-a8", "int4", "nvfp4"),
@@ -218,6 +226,9 @@ def main(argv=None) -> int:
     if args.model == "sdxl" and (args.turbo or args.sparsity or args.online_softmax or args.precision
                                  not in (None, "int4")):
         ap.error("SDXL runs int4 with the online softmax (--size only)")
+    if args.model == "sana" and (args.turbo or args.sparsity or args.online_softmax or args.size != 1024
+                                 or args.precision not in (None, "int4")):
+        ap.error("SANA runs int4 at 1024px (no options)")
     if args.turbo and args.sparsity:
         ap.error("block-sparse attention runs with the unfused prologue only (no --turbo)")
     if args.precision is None:
@@ -269,6 +280,28 @@ def main(argv=None) -> int:
             wall_plain, wall, prof = _trace(lambda: model(*inputs))
         header = (f"card: {smi}; torch {torch.__version__}; SDXL UNet int4 (70 transformer blocks, head dim 64) at "
                   f"{args.size}px ({side}x{side} latents), B 1, 77 text tokens")
+        _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
+        return 0
+
+    if args.model == "sana":
+        from nunchaku_tpu_torch.models import linear, transformer_sana
+
+        cfg = transformer_sana.SanaConfig()
+        model = transformer_sana.SanaTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        inputs = (torch.randn((2, 1024, cfg.in_channels), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn((2, 300, cfg.caption_channels), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.full((2,), 0.5, device=dev))
+        linear.quantize_w4a4_act_fuse_lora = _ranged(linear.quantize_w4a4_act_fuse_lora, QUANT_RANGE)
+        transformer_sana.quantize_w4a4_act_fuse_lora = _ranged(transformer_sana.quantize_w4a4_act_fuse_lora,
+                                                               QUANT_RANGE)
+
+        def extra(prof):
+            return ["torch glue by caller (device ms, inside the groups above):"] + [
+                f"  {ms:9.2f} ms  {name}" for name, ms in sorted(glue_by_range(prof).items())]
+        with torch.no_grad():
+            wall_plain, wall, prof = _trace(lambda: model(*inputs))
+        header = (f"card: {smi}; torch {torch.__version__}; SANA 1.6B int4 (20 blocks, dim 2240) at 1024px "
+                  f"(32x32 latent tokens), B 2 (one CFG step), 300 text tokens")
         _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
         return 0
 

@@ -10,6 +10,12 @@ files of the published layouts filled with random values:
 * :func:`qwen_state` -- a Qwen-Image transformer in the v2 schema
   (``svdq-int4_r128-qwen-image``): plain ``proj_down`` / ``proj_up``,
   ``smooth_factor``, the rank in ``quantization_config``;
+* :func:`sana_state` -- a SANA transformer in the v1 schema
+  (``svdq-int4_r32-sana1.6b``): SANA 1.6B's odd widths stored as nunchaku
+  stores them, N padded to 128 and K to 128 (2240 -> 2304, 5600 -> 5632,
+  6720 -> 6784, 11200 -> 11264), the random codes of the padded rows and
+  columns meeting zero activations or cut off by the logical width;
+  ``pag_layers`` carry ``attn.pag_to_v``;
 * :func:`t5_state` (TinyChat W4 linears), :func:`clip_state` and
   :func:`vae_state` (bf16 HF / diffusers files).
 
@@ -154,6 +160,47 @@ def qwen_state(*, layers=60, heads=24, head_dim=128, joint=3584, rank=128, preci
     weight = {"dtype": "fp4_e2m1_all", "group_size": 16} if precision == "nvfp4" else {"dtype": "int4",
                                                                                         "group_size": 64}
     return t, _meta(config, {"method": "svdquant", "weight": weight, "rank": rank})
+
+
+def sana_state(*, layers=20, heads=70, cross_heads=20, caption=2304, expand_ratio=2.5, rank=32, pag_layers=(),
+               seed=0, device="cuda"):
+    """-> (tensors, metadata) of an int4 SANA v1-schema checkpoint (SANA 1.6B's shapes by default)."""
+    d, t = _Draw(seed, device), {}
+    dim = heads * 32
+    hid = int(dim * expand_ratio)
+    pad = lambda x: x + (-x) % 128
+
+    def svdq(key, k, n, bias=True):
+        _svdq(t, d, key, pad(k), pad(n), rank, "int4")
+        if not bias:
+            del t[f"{key}.bias"]
+
+    for i in range(layers):
+        p = f"transformer_blocks.{i}"
+        svdq(f"{p}.attn.qkv_proj", dim, 3 * dim, bias=False)
+        svdq(f"{p}.attn.out_proj", dim, dim, bias=False)
+        if i in pag_layers:
+            svdq(f"{p}.attn.pag_to_v", dim, dim, bias=False)
+        svdq(f"{p}.cross_attn.q_linear", dim, dim)
+        _linear(t, d, f"{p}.cross_attn.kv_linear", dim, 2 * dim)
+        svdq(f"{p}.cross_attn.out_proj", dim, dim)
+        svdq(f"{p}.ff.inverted_conv", dim, 2 * hid)
+        t[f"{p}.ff.depth_conv.weight"] = d.normal((2 * hid, 1, 3, 3), 1.0 / 3.0)
+        t[f"{p}.ff.depth_conv.bias"] = d.normal((2 * hid,), 0.02)
+        svdq(f"{p}.ff.point_conv", hid, dim, bias=False)
+        t[f"{p}.scale_shift_table"] = d.normal((6, dim), 0.02, torch.float32)
+    t["patch_embed.proj.weight"] = d.normal((dim, 32, 1, 1), 1.0 / math.sqrt(32))
+    t["patch_embed.proj.bias"] = d.normal((dim,), 0.02)
+    te = "adaln_single.emb.timestep_embedder"
+    for name, k, n in (("caption_projection.linear_1", caption, dim), ("caption_projection.linear_2", dim, dim),
+                       (f"{te}.linear_1", 256, dim), (f"{te}.linear_2", dim, dim), ("adaln_single.linear", dim, 6 * dim),
+                       ("proj_out", dim, 32)):
+        _linear(t, d, name, k, n)
+    t["scale_shift_table"] = d.normal((2, dim), 0.02, torch.float32)
+    config = dict(num_layers=layers, num_attention_heads=heads, attention_head_dim=32,
+                  num_cross_attention_heads=cross_heads, cross_attention_head_dim=dim // cross_heads,
+                  caption_channels=caption, in_channels=32, out_channels=32, expand_ratio=expand_ratio)
+    return t, _meta(config, {"method": "svdquant", "weight": {"dtype": "int4", "group_size": 64}, "rank": rank})
 
 
 def t5_state(*, vocab=32128, d_model=4096, d_ff=10240, d_kv=64, heads=64, layers=24, group=128, seed=0,

@@ -120,7 +120,10 @@ def test_flash(dev, b, h, sq, skv):
                                           # SDXL at 1024px: level 1 self / cross, level 2 self / cross
                                           (1, 10, 4096, 4096, 64), (1, 10, 4096, 77, 64),
                                           (1, 20, 1024, 1024, 64), (1, 20, 1024, 77, 64),
-                                          (2, 3, 300, 77, 64), (1, 2, 65, 33, 64)])
+                                          (2, 3, 300, 77, 64), (1, 2, 65, 33, 64),
+                                          # SANA at 1024px: cross-attention under CFG (B 2) and PAG (B 3)
+                                          (2, 20, 1024, 300, 112), (3, 20, 1024, 300, 112),
+                                          (1, 2, 100, 33, 112), (1, 1, 64, 32, 112)])
 def test_flash_online(dev, b, h, sq, skv, d):
     _, ok, detail = checks.check_flash_online(*checks.flash_online_case(b, h, sq, skv, d, device=dev))
     assert ok, detail
@@ -149,6 +152,22 @@ def test_flash_online_d64_counts_and_refusals(dev):
     with pytest.raises(ValueError):
         flash_attention_online(q, k, v, kv_mask=torch.ones((1, 77), dtype=torch.bool, device=dev))
     assert launch_counts()["flash_online_d64"] == 2 and launch_counts()["flash_online_masked"] == 0
+
+
+def test_flash_online_d112_counts_and_refusals(dev):
+    """Head dim 112 (its warp halves 64 + 48) counts as ``flash_online_d112``;
+    its (B, S, H*D) form equals the (B, H, S, D) one; the mask form is not
+    built at 112."""
+    reset_launch_counts()
+    q, k, v = checks.flash_online_case(2, 3, 130, 300, 112, device=dev)
+    out = flash_attention_online(q, k, v)
+    bshd = flash_attention_online(q, k, v, out_bshd=True)
+    assert torch.equal(bshd, out.transpose(1, 2).reshape(2, 130, 3 * 112))
+    c = launch_counts()
+    assert c["flash_online_d112"] == 2 and c["flash_online"] == c["flash_online_d64"] == 0
+    with pytest.raises(ValueError):
+        flash_attention_online(q, k, v, kv_mask=torch.ones((2, 300), dtype=torch.bool, device=dev))
+    assert launch_counts()["flash_online_d112"] == 2 and launch_counts()["flash_online_masked"] == 0
 
 
 @pytest.mark.parametrize("precision,tol", [("int4", 1e-1), ("int8", 3e-2)])

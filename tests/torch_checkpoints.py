@@ -5,8 +5,9 @@ Values are drawn with numpy from a seed and packed with the JAX package's
 ``nunchaku_format`` packers, then written with its safetensors writer, so
 the port's decoders are checked against files they had no part in making.
 FLUX in the v1 schema (MMA-packed low-rank factors), Qwen-Image in the v2
-schema (plain ``proj_down`` / ``proj_up``, ``smooth_factor``), a TinyChat
-W4 T5, and HF CLIP / diffusers VAE state dicts.
+schema (plain ``proj_down`` / ``proj_up``, ``smooth_factor``), SANA in the v1
+schema (odd widths zero-padded, as nunchaku stores them), a TinyChat W4 T5,
+and HF CLIP / diffusers VAE state dicts.
 
 e2m1 codes are drawn in [-7, 7], the codes a quantizer emits: the JAX
 loader's table decode turns the stray code -8 into NaN at int8, the port
@@ -259,6 +260,77 @@ def vae_state(seed=0):
     norm("decoder.conv_norm_out", boc[0])
     conv("decoder.conv_out", boc[0], 3)
     return t
+
+
+SANA = dict(dim=512, hidden=1280, layers=2, heads=16, cross_heads=4, caption=1152, rank=16)
+SANA_ODD = dict(dim=224, hidden=560, layers=2, heads=7, cross_heads=2, caption=96, rank=16)  # head dim 112
+
+
+def _pad_to(x, m):
+    return x + (-x) % m
+
+
+def _sana_svdq(t, rng, key, k, n, rank, bias=True):
+    """A v1 GEMM_W4A4 module of logical (K, N), stored at K padded to 256
+    and N to 128 (nunchaku pads to 128; at SANA 1.6B's widths the two
+    agree): zero codes, low-rank factors and bias outside the logical
+    block."""
+    kp, np_ = _pad_to(k, 256), _pad_to(n, 128)
+    vals = np.zeros((np_, kp), np.int8)
+    vals[:n, :k] = rng.integers(-8, 8, (n, k))
+    ws = (rng.random((kp // 64, np_)) * 0.01 + 0.001).astype(np.float32)
+    smooth = np.ones(kp, np.float32)
+    smooth[:k] = rng.random(k) + 0.5
+    ld, lu = np.zeros((rank, kp), np.float32), np.zeros((np_, rank), np.float32)
+    ld[:, :k] = rng.standard_normal((rank, k)) * 0.02
+    lu[:n] = rng.standard_normal((n, rank)) * 0.02
+    t[f"{key}.qweight"] = NF.pack_weight_int4(vals)
+    t[f"{key}.wscales"] = NF.pack_scale_ref(ws).astype(BF16)
+    t[f"{key}.smooth"] = smooth.astype(BF16)
+    t[f"{key}.lora_down"] = NF.pack_lowrank_weight_ref(ld, down=True).astype(BF16)
+    t[f"{key}.lora_up"] = NF.pack_lowrank_weight_ref(lu, down=False).astype(BF16)
+    if bias:
+        b = np.zeros(np_, np.float32)
+        b[:n] = rng.standard_normal(n) * 0.01
+        t[f"{key}.bias"] = b.astype(BF16)
+
+
+def sana_checkpoint(path, dims=None, pag_layers=(1,), seed=0):
+    """A SANA checkpoint in the v1 schema (the layout of the JAX package's
+    ``tests/test_sana.py``): ``SANA`` (whole widths, as that test) by
+    default, ``SANA_ODD`` for odd widths; int4, PAG on ``pag_layers``."""
+    d = dict(SANA if dims is None else dims)
+    dim, hid, rank = d["dim"], d["hidden"], d["rank"]
+    rng = np.random.default_rng(seed)
+    t = {}
+    for i in range(d["layers"]):
+        p = f"transformer_blocks.{i}"
+        _sana_svdq(t, rng, f"{p}.attn.qkv_proj", dim, 3 * dim, rank, bias=False)
+        _sana_svdq(t, rng, f"{p}.attn.out_proj", dim, dim, rank, bias=False)
+        if i in pag_layers:
+            _sana_svdq(t, rng, f"{p}.attn.pag_to_v", dim, dim, rank, bias=False)
+        _sana_svdq(t, rng, f"{p}.cross_attn.q_linear", dim, dim, rank)
+        _linear(t, rng, f"{p}.cross_attn.kv_linear", dim, 2 * dim)
+        _sana_svdq(t, rng, f"{p}.cross_attn.out_proj", dim, dim, rank)
+        _sana_svdq(t, rng, f"{p}.ff.inverted_conv", dim, 2 * hid, rank)
+        t[f"{p}.ff.depth_conv.weight"] = (rng.standard_normal((2 * hid, 1, 3, 3)) * 0.3).astype(BF16)
+        t[f"{p}.ff.depth_conv.bias"] = (rng.standard_normal(2 * hid) * 0.01).astype(BF16)
+        _sana_svdq(t, rng, f"{p}.ff.point_conv", hid, dim, rank, bias=False)
+        t[f"{p}.scale_shift_table"] = (rng.standard_normal((6, dim)) * 0.1).astype(np.float32)
+    t["patch_embed.proj.weight"] = (rng.standard_normal((dim, 32, 1, 1)) / np.sqrt(32)).astype(BF16)
+    t["patch_embed.proj.bias"] = (rng.standard_normal(dim) * 0.01).astype(BF16)
+    te = "adaln_single.emb.timestep_embedder"
+    for name, k, n in (("caption_projection.linear_1", d["caption"], dim), ("caption_projection.linear_2", dim, dim),
+                       (f"{te}.linear_1", 256, dim), (f"{te}.linear_2", dim, dim), ("adaln_single.linear", dim, 6 * dim),
+                       ("proj_out", dim, 32)):
+        _linear(t, rng, name, k, n)
+    t["scale_shift_table"] = (rng.standard_normal((2, dim)) * 0.1).astype(np.float32)
+    config = dict(num_layers=d["layers"], num_attention_heads=d["heads"], attention_head_dim=32,
+                  num_cross_attention_heads=d["cross_heads"], cross_attention_head_dim=dim // d["cross_heads"],
+                  caption_channels=d["caption"], in_channels=32, out_channels=32, expand_ratio=hid / dim)
+    meta = _meta(config, "int4", rank)
+    save_safetensors(path, t, meta)
+    return path
 
 
 # ---------------------------------------------------------------------------
