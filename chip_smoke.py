@@ -2241,7 +2241,7 @@ def sana_phase(dev, steps: int):
     from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
     from nunchaku_tpu_torch.tools import synth_checkpoint as synth
 
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     cfg = SanaConfig(pag_layers=SANA_PAG_LAYERS)
     model = SanaTransformer2DModel.random_init(cfg, seed=0, device=dev)
     gemma = Gemma2Encoder.random_init(**GEMMA2_2B, seed=1, device=dev)
@@ -2322,6 +2322,7 @@ def sana_phase(dev, steps: int):
         del loaded
     del vae, gemma
     torch.cuda.empty_cache()
+    log(f"[sana] phase {time.perf_counter() - t_phase:.1f} s (models, four requests with their untimed runs, the file)")
     return ok, total, paths
 
 
