@@ -35,7 +35,11 @@ Phases, each fatal on failure:
                   online flash kernel at head dim 112 (flash_online_d112) on
                   SANA's cross-attention (B 2, H 20, Sq 1024, Skv 300; B 3
                   logged) and the W4A4 GEMM at SANA's padded qkv and point
-                  shapes;
+                  shapes; the stacked (layer-index) modes at Z-Image's qkv
+                  (M 4608, K 3840, N 11520): the W4A4 GEMM at int4 and nvfp4,
+                  the dequant and the packed w4a8 GEMM (R 32; R 128 logged),
+                  each bit for bit the non-stacked kernel on every layer of a
+                  3-layer stack and timed beside it;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -67,7 +71,11 @@ Phases, each fatal on failure:
                   (7e-2), launches exact. Last, the small SANA (2 blocks, dim
                   224, cross head dim 112, PAG on block 1) card against CPU:
                   int4 forward with and without PAG (4e-2), int8 2-step CFG
-                  pipeline (4.5e-2), launches exact;
+                  pipeline (4.5e-2), launches exact. Last, the small Z-Image
+                  (dim 512, 4 blocks, its adaLN damped) card against CPU: int4,
+                  int4 fused, nvfp4, w4a8 and w4a8 packed forwards within the
+                  CPU tests' bounds, launches exact, and a 2-step int8 CFG
+                  pipeline;
   5. slice     -- T5-XXL (AWQ W4A16, 24 layers) and CLIP-L from random weights;
                   full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
@@ -154,6 +162,21 @@ Phases, each fatal on failure:
                   one step; each to images, after an untimed run. Counts exact
                   per forward (flash_online_d112 20, gemm_w4a4_int4 120, plus 2
                   per PAG layer under PAG; a cache hit 1 and 6).
+ 12. zimage   -- Z-Image-Turbo's transformer at full width and depth (dim
+                  3840, 30 + 2 + 2 blocks, 30 heads of 128, caption 2560) through
+                  ZImagePipeline at 1024x1024 from prompt embeddings, its three
+                  stacks held as (L, ...) tensors and every 4-bit linear reading
+                  its layer by a device-resident index (the stacked modes):
+                  request A, int4 r32 from random weights, the Turbo preset
+                  (min(8, --steps) steps, guidance 0) to images through the tiled
+                  FLUX VAE; B, after enable_fused_qkv_prep(), CFG 4.0 with
+                  negative embeddings, 2 steps to latents; C, a synthesized
+                  int4 r128 v2 file at int4, w4a8 and w4a8 under
+                  NUNCHAKU_TPU_W4A8_XLA=0, 1 step each; D, a synthesized nvfp4
+                  r32 file at nvfp4 and at w4a8 (which loads int8), 1 step each.
+                  Counts exact per forward (136 stacked launches of the active
+                  mode, 34 flash_fixed, 34 producers under B; 9 flash_online per
+                  tiled decode).
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -202,6 +225,17 @@ SDXL_VAE_TILES = {1024: 9, 512: 1}  # flash_online launches of a tiled decode at
 SANA_D, SANA_S, SANA_TXT, SANA_HEADS, SANA_DIM, SANA_HID = 112, 1024, 300, 20, 2240, 5600
 SANA_PAG_LAYERS = (8,)
 GEMMA_VOCAB, GEMMA_EOS = 256000, 1
+# Z-Image-Turbo (the public Tongyi-MAI/Z-Image-Turbo transformer/config.json): dim 3840, 30 layers, 2 + 2 refiner
+# layers, 30 heads of 128, caption features 2560 (the Qwen3-4B hidden size), axes (32, 48, 48), FFN 10240; at
+# 1024px 4096 image tokens and prompts of 512 caption tokens (the joint stream 4608); the Turbo preset 8 steps,
+# guidance 0, shift 3.0. 30 + 2 + 2 = 34 blocks of four 4-bit linears each
+ZIMAGE = dict(dim=3840, num_layers=30, num_refiner_layers=2, num_attention_heads=30, in_channels=16, patch_size=2,
+              cap_feat_dim=2560, axes_dims_rope=(32, 48, 48), norm_eps=1e-5)
+ZI_DIM, ZI_CAP, ZI_HEADS = ZIMAGE["dim"], ZIMAGE["cap_feat_dim"], ZIMAGE["num_attention_heads"]
+ZI_FFN, ZI_TXT, ZI_BLOCKS = 10240, 512, 34  # ZImageConfig.inner_ffn at dim 3840; caption tokens; 30 + 2 + 2
+# the stacked mode each Z-Image precision's linears launch (int8: the layer's own weights, torch._int_mm)
+ZI_MODES = {"int4": "gemm_w4a4_int4_stacked", "nvfp4": "gemm_w4a4_nvfp4_stacked", "w4a8": "dequant_w4a8_stacked",
+            "w4a8 packed": "gemm_w4a8_stacked", "int8": None}
 PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
            "a bowl of ramen on a wooden table, studio light")
 
@@ -611,6 +645,7 @@ def kernel_phase(dev):
     bs_kernel_rows(dev, record)
     sdxl_kernel_rows(dev, record, failed)
     sana_kernel_rows(dev, record, failed)
+    zimage_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -875,7 +910,7 @@ def reference_phase(dev):
     all_ok = reference_packed(dev, cfg, pe, pooled, lat, kw) and all_ok
     return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
             and reference_text_encoders(dev) and reference_checkpoint(dev) and reference_sdxl(dev)
-            and reference_sana(dev))
+            and reference_sana(dev) and reference_zimage(dev))
 
 
 SDXL_SMALL = dict(block_out_channels=(128, 256, 512), layers_per_block=1, transformer_layers=(0, 1, 2),
@@ -2036,6 +2071,111 @@ def sana_kernel_rows(dev, record, failed):
     torch.cuda.empty_cache()
 
 
+def zimage_kernel_rows(dev, record, failed):
+    """15. The stacked (layer-index) modes on Z-Image-Turbo's main-layer qkv
+    (M 4608 joint tokens, K 3840, N 11520): the W4A4 GEMM at int4 and
+    nvfp4, the dequant of that weight, the packed w4a8 GEMM (rank 1, R 32;
+    R 128 logged, the rank of request C's file). Each reads the last layer
+    of a 3-layer stack by a device-resident index; checked bit for bit
+    against the non-stacked kernel on every layer and against the plain twin
+    on the row's tolerance; timed beside the non-stacked kernel on the same
+    weight (logged), the plain twin and the non-stacked row's yardstick."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, dequant_w4a8_plain, gemm_w4a4, gemm_w4a4_plain, gemm_w4a8,
+                                             gemm_w4a8_plain, w4a4_values)
+    from nunchaku_tpu_torch.ops.reference import int8_matmul
+
+    m, k, n = ZI_TXT + S_IMG, ZI_DIM, 3 * ZI_DIM
+    shape = f"M={m} K={k} N={n}"
+    for name, precision in (("gemm_w4a4_int4_stacked", "int4"), ("gemm_w4a4_nvfp4_stacked", "nvfp4")):
+        args, kw = checks.w4a4_case(m, k, n, precision, device=dev)
+        err, ok, detail = checks.check_w4a4_stacked(args, kw)
+        g = 16 if precision == "nvfp4" else 64
+        qa, asc, qw, wsc = args[:4]
+        stack, ids = checks.stack_case(qw)
+        ms = cuda_ms(lambda: gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=ids[-1]), 20)
+        flat = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        a16 = (w4a4_values(qa, -1, precision=precision)
+               * asc.float().repeat_interleave(g, dim=0).t()).to(torch.bfloat16)
+        w16 = (w4a4_values(qw, 0, precision=precision) * wsc.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+        log(f"[kernel] {name} @ {shape}: stacked {ms:.4f} ms, non-stacked on the same weight {flat:.4f} ms")
+        record(name, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
+               f"{shape} R={RANK} {precision}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
+               cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3), w4a4_bound(m, k, n, g),
+               cuda_ms(lambda: torch.matmul(a16, w16), 20))
+        del args, qa, asc, qw, wsc, stack, a16, w16
+    qw, rs = checks.dequant_case(k, n, device=dev)
+    err, ok, detail = checks.check_dequant_stacked(qw, rs)
+    stack, ids = checks.stack_case(qw)
+    ms = cuda_ms(lambda: dequant_w4a8(stack, rs, layer_idx=ids[-1]), 50)
+    log(f"[kernel] dequant_w4a8_stacked @ K={k} N={n}: stacked {ms:.4f} ms, non-stacked "
+        f"{cuda_ms(lambda: dequant_w4a8(qw, rs), 50):.4f} ms")
+    record("dequant_w4a8_stacked", "nunchaku_tpu_torch/csrc/dequant_w4a8.cu", "nunchaku_tpu/ops/gemm.py:1074",
+           f"K={k} N={n}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
+           cuda_ms(lambda: dequant_w4a8_plain(qw, rs), 5), bound(deq_bytes(k, n)), None)
+    del qw, rs, stack
+    for r in (128, RANK):
+        case = checks.w4a8_case(m, k, n, r, device=dev)
+        err, ok, detail = checks.check_w4a8_stacked(*case)
+        qa, asc, qw, rs = case[:4]
+        stack, ids = checks.stack_case(qw)
+        ms = cuda_ms(lambda: gemm_w4a8(qa, asc, stack, *case[3:], layer_idx=ids[-1]), 20)
+        flat = cuda_ms(lambda: gemm_w4a8(*case), 20)
+        bnd = bound(w4a8_bytes(m, k, n, r), 2 * m * n * k, 2 * m * n * r)
+        if r != RANK:
+            log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: {'PASS' if ok else 'FAIL'} {detail}; stacked {ms:.4f} ms "
+                f"(non-stacked {flat:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+            if not ok:
+                failed.append(f"gemm_w4a8_stacked@R{r}")
+        else:
+            w8 = dequant_w4a8(qw, rs)
+            log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: stacked {ms:.4f} ms, non-stacked {flat:.4f} ms")
+            record("gemm_w4a8_stacked", "nunchaku_tpu_torch/csrc/gemm_w4a8.cu", "nunchaku_tpu/ops/gemm.py:281",
+                   f"{shape} R={r}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
+                   cuda_ms(lambda: gemm_w4a8_plain(*case), 3), bnd, cuda_ms(lambda: int8_matmul(qa, w8), 20))
+            del w8
+        del case, qa, asc, qw, rs, stack
+    torch.cuda.empty_cache()
+
+
+def zimage_per_forward(mode: str | None, fused: bool = False, blocks: int = ZI_BLOCKS) -> dict:
+    """Launches per Z-Image forward: four 4-bit linears a block in the
+    stacked ``mode`` (none at int8), one fixed-shift flash a block, and one
+    qkv/RoPE producer a block after the fused prep."""
+    per = {"flash_fixed": blocks}
+    if mode:
+        per[mode] = 4 * blocks
+    if fused:
+        per["qkv_rope_producer"] = blocks
+    return per
+
+
+def zimage_bounds() -> dict:
+    """Least time per Z-Image-Turbo 1024px forward (B 1) for each kernel its
+    paths run (the 4-bit GEMMs at rank 32, the packed w4a8 GEMM at request
+    C's rank 128): the noise refiner over 4096 image tokens, the
+    context refiner over 512 caption tokens and the 30 main layers over the
+    4608 joint ones; each block's four linears (qkv, out, w13, w2) and its
+    attention over its stream (30 heads of 128); the producer's low-rank
+    term is empty (the projections add their own)."""
+    d, f = ZI_DIM, ZI_FFN
+    streams = ((S_IMG, 2), (ZI_TXT, 2), (ZI_TXT + S_IMG, 30))  # (tokens, blocks)
+    shapes = ((d, 3 * d), (d, d), (d, 2 * f), (f, d))
+
+    def per_block(fn):
+        return sum(blocks * fn(s) for s, blocks in streams)
+
+    return {
+        "gemm_w4a4_int4_stacked": per_block(lambda s: sum(w4a4_bound(s, k, n, 64)[0] for k, n in shapes)),
+        "gemm_w4a4_nvfp4_stacked": per_block(lambda s: sum(w4a4_bound(s, k, n, 16)[0] for k, n in shapes)),
+        "dequant_w4a8_stacked": ZI_BLOCKS * sum(bound(deq_bytes(k, n))[0] for k, n in shapes),
+        "gemm_w4a8_stacked": per_block(lambda s: sum(bound(w4a8_bytes(s, k, n, 128), 2 * s * n * k, 2 * s * n * 128)[0]
+                                                     for k, n in shapes)),
+        "flash_fixed": per_block(lambda s: bound(4 * s * ZI_HEADS * HD * 2, bf16_ops=4 * s * s * HD * ZI_HEADS)[0]),
+        "qkv_rope_producer": per_block(lambda s: bound(2 * s * 3 * d + 8 * s * HD + 4 * HD + 2 * s * 3 * d)[0]),
+    }
+
+
 def sdxl_per_forward(unet) -> dict:
     """Launches per UNet forward: two D-64 attentions and six SVDQ linears
     (qkv, out; to_q, out; the GEGLU's two) per transformer block, the
@@ -2326,6 +2466,199 @@ def sana_phase(dev, steps: int):
     return ok, total, paths
 
 
+ZIMAGE_SMALL = dict(dim=512, num_layers=2, num_refiner_layers=1, num_attention_heads=4, cap_feat_dim=512,
+                    ffn_inner=1024)  # tests/test_torch_zimage.py's tiny config: 4 blocks
+# the CPU tests' bounds against JAX (twice the JAX package's own route spread): the forward by precision, the int8
+# 2-step CFG pipeline
+ZIMAGE_SMALL_TOL = {"int4": 3.7e-2, "nvfp4": 2.6e-2, "w4a8": 7.8e-3, "int8": 6.4e-3}
+ZIMAGE_SMALL_PIPE_TOL = 3.2e-2
+
+
+def reference_zimage(dev):
+    """The small Z-Image of the CPU tests (dim 512, 4 heads of 128, 2 layers,
+    1 + 1 refiners; its adaLN damped, checks.damp_zimage_modulation) card
+    against CPU with the same weights and inputs, at the bounds the CPU
+    tests hold the port to against JAX: one forward at int4, int4 after the
+    fused prep, nvfp4, w4a8 on the dequant route and on the packed route
+    (NUNCHAKU_TPU_W4A8_XLA=0), each with its launches exact (four stacked
+    launches a block of the active mode, one flash_fixed a block, one
+    producer a block when fused); then 2 steps of ZImagePipeline at int8
+    with CFG 4.0."""
+    from nunchaku_tpu_torch import ZImageConfig, ZImagePipeline, ZImageTransformer2DModel
+    from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
+    gen = torch.Generator().manual_seed(23)
+    x = torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16)
+    c = torch.randn((1, 64, 512), generator=gen).to(torch.bfloat16)
+    t = torch.tensor([0.5])
+    ii, ti = make_img_ids(16, 16), torch.zeros((64, 3), dtype=torch.int32)
+    blocks = ZIMAGE_SMALL["num_layers"] + 2 * ZIMAGE_SMALL["num_refiner_layers"]
+    all_ok = True
+    for precision, variant in (("int4", "plain"), ("int4", "fused"), ("nvfp4", "plain"), ("w4a8", "plain"),
+                               ("w4a8", "packed")):
+        cpu_model = ZImageTransformer2DModel.random_init(ZImageConfig(**ZIMAGE_SMALL, precision=precision), seed=24,
+                                                         device="cpu")
+        checks.damp_zimage_modulation(cpu_model)
+        if variant == "fused":
+            cpu_model.enable_fused_qkv_prep()
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        with contextlib.ExitStack() as stack:
+            if variant == "packed":
+                stack.enter_context(packed_route())
+            with torch.no_grad():
+                ref = cpu_model(x, c, t, ii, ti).float()
+                reset_launch_counts()
+                out = gpu_model(x.to(dev), c.to(dev), t.to(dev), ii, ti).float().cpu()
+            cnt = {k: v for k, v in launch_counts().items() if v}
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        mode = ZI_MODES["w4a8 packed" if variant == "packed" else precision]
+        want = zimage_per_forward(mode, variant == "fused", blocks)
+        ok = bool(torch.isfinite(out).all()) and rel <= ZIMAGE_SMALL_TOL[precision] and cnt == want
+        log(f"[reference] Z-Image small (dim 512, {blocks} blocks, stacked) {precision} {variant} forward: card vs "
+            f"CPU rel max error {rel:.3e} (tolerance {ZIMAGE_SMALL_TOL[precision]:g}); launches {cnt} (expected "
+            f"{want}): {'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+    cpu8 = ZImageTransformer2DModel.random_init(ZImageConfig(**ZIMAGE_SMALL, precision="int8"), seed=25, device="cpu")
+    checks.damp_zimage_modulation(cpu8)
+    gpu8 = copy.deepcopy(cpu8).to(dev)
+    pe, ne = (torch.randn((1, 64, 512), generator=gen).to(torch.bfloat16) for _ in range(2))
+    lat = torch.randn((1, 256, 64), generator=gen)
+    kw = dict(height=256, width=256, num_inference_steps=2, guidance_scale=4.0)
+    ref = ZImagePipeline(cpu8)(pe, negative_prompt_embeds=ne, latents=lat, **kw).latents.float()
+    reset_launch_counts()
+    out = ZImagePipeline(gpu8)(pe.to(dev), negative_prompt_embeds=ne.to(dev), latents=lat.to(dev),
+                               **kw).latents.float().cpu()
+    cnt = launch_counts()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    ok = bool(torch.isfinite(out).all()) and rel <= ZIMAGE_SMALL_PIPE_TOL and cnt["flash_fixed"] == 4 * blocks
+    log(f"[reference] Z-Image small int8, 2 steps of ZImagePipeline with CFG 4.0 (two forwards a step): card vs CPU "
+        f"latents rel max error {rel:.3e} (tolerance {ZIMAGE_SMALL_PIPE_TOL:g}); flash_fixed {cnt['flash_fixed']} "
+        f"(expected {4 * blocks}): {'PASS' if ok else 'FAIL'}")
+    return all_ok and ok
+
+
+def zimage_phase(dev, steps: int):
+    """[zimage] Z-Image-Turbo's transformer at full width and depth (ZIMAGE:
+    34 blocks, dim 3840) through ZImagePipeline at 1024x1024 from prompt
+    embeddings (1, 512, 2560), every 4-bit linear reading its layer out of
+    its stack by a device-resident index: request A, int4 rank 32 from random
+    weights made from seeds, the Turbo preset (min(8, steps) steps, guidance
+    0, shift 3.0) to images through the tiled FLUX VAE, 2 timed requests;
+    B, the same model after enable_fused_qkv_prep(), CFG 4.0 with negative
+    embeddings (two forwards a step), 2 steps to latents, 2 requests; C, a
+    synthesized svdq-int4_r128-z-image-turbo file (v2 schema) loaded at
+    int4, at w4a8 (the stacked dequant) and the w4a8 load again under
+    NUNCHAKU_TPU_W4A8_XLA=0 (the packed GEMM's stacked mode), one 1-step
+    request each; D, a synthesized svdq-fp4_r32 file at nvfp4 and at w4a8
+    (which loads int8: no stacked kernel), one 1-step request each. Every
+    request runs once untimed first; files live in a temporary directory,
+    deleted after; launches exact per forward. -> (ok, counts, per-forward
+    counts by request)."""
+    import tempfile
+
+    from nunchaku_tpu_torch import (AutoencoderKL, ZImageConfig, ZImagePipeline, ZImageTransformer2DModel,
+                                    load_zimage_transformer)
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    t_phase = t0 = time.perf_counter()
+    cfg = ZImageConfig(**ZIMAGE, precision="int4", rank=RANK)
+    model = ZImageTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    vae = AutoencoderKL.random_init(seed=4, device=dev)
+    vae.enable_tiling()
+    torch.cuda.synchronize()
+    log(f"[zimage] Z-Image-Turbo {cfg.precision} r{cfg.rank}: {cfg.num_layers} + {cfg.num_refiner_layers} + "
+        f"{cfg.num_refiner_layers} blocks, dim {cfg.dim}, {cfg.num_attention_heads} heads of {cfg.head_dim}, FFN "
+        f"{cfg.inner_ffn}, caption {cfg.cap_feat_dim}, t_dim {cfg.t_dim}; weights {_gib(model):.2f} GiB; random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    pe = [torch.randn((1, ZI_TXT, ZI_CAP), generator=gen, device=dev).to(torch.bfloat16) for _ in range(3)]
+    neg = (torch.randn((1, ZI_TXT, ZI_CAP), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    ok, total, paths = True, {}, {}
+
+    def run(label, pipe, n, requests, per, forwards_per_step=1, key=None, **call):
+        """One untimed 1-step request, then ``requests`` timed ones with the
+        counts reset just before them; checks outputs and launches. ``key``:
+        the path's name in the per-forward table (default: the label's
+        letter)."""
+        nonlocal ok
+        with torch.no_grad():
+            pipe(pe[-1], num_inference_steps=1, seed=99, **call)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        req_s = []
+        for seed in range(requests):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe(pe[seed % 2], num_inference_steps=n, seed=seed, **call)
+            torch.cuda.synchronize()
+            req_s.append(time.perf_counter() - t0)
+            lat = out.latents
+            good = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat.float()).all())
+            what = f"latents {tuple(lat.shape)} |lat| mean {lat.float().abs().mean().item():.4f}"
+            if pipe.vae is not None:
+                img = out.images
+                good = good and (tuple(img.shape) == (1, 1024, 1024, 3) and img.dtype == torch.float32
+                                 and bool(torch.isfinite(img).all()) and img.min().item() >= 0.0
+                                 and img.max().item() <= 1.0)
+                what += (f", images {tuple(img.shape)} min {img.min().item():.4f} max {img.max().item():.4f} mean "
+                         f"{img.mean().item():.4f}")
+            ok = ok and good
+            log(f"[zimage] {label} request seed={seed}: {req_s[-1]:.3f} s ({req_s[-1] / n:.4f} s/step), {what}: "
+                f"finite{' and in [0, 1]' if pipe.vae is not None else ''} {good}")
+        counts = launch_counts()
+        log(f"[zimage] {label}: {requests} request(s) x {n} steps; s/request {[round(x, 3) for x in req_s]}, s/step "
+            f"(last) {req_s[-1] / n:.4f}; peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        extra = {"flash_online": VAE_TILES * requests} if pipe.vae is not None else None
+        key = key or f"zimage {label.split(':')[0]}"
+        ok = check_counts(key, counts, per, forwards_per_step * n * requests, extra, tag="zimage") and ok
+        paths[key] = per
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    na = min(8, steps)
+    run("A: 1024px Turbo preset (guidance 0), int4 r32, tiled FLUX VAE", ZImagePipeline(model, vae=vae), na, 2,
+        zimage_per_forward(ZI_MODES["int4"]), guidance_scale=0.0)
+    model.enable_fused_qkv_prep()
+    run("B: fused qkv prep, CFG 4.0 with negative embeddings (2 forwards a step), to latents", ZImagePipeline(model),
+        2, 2, zimage_per_forward(ZI_MODES["int4"], fused=True), 2, guidance_scale=4.0, negative_prompt_embeds=neg)
+    del model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="nunchaku_zimage_") as tmp:
+        for label, file_precision, rank, loads in (
+                ("C", "int4", 128, (("int4", "int4", False), ("w4a8", "w4a8", False), ("w4a8", "w4a8 packed", True))),
+                ("D", "nvfp4", RANK, (("nvfp4", "nvfp4", False), ("w4a8", "int8", False)))):
+            name = f"svdq-{'fp4' if file_precision == 'nvfp4' else 'int4'}_r{rank}-z-image-turbo"
+            path = f"{tmp}/{name}.safetensors"
+            _write(synth, path, lambda: synth.zimage_state(rank=rank, precision=file_precision, seed=5, device=dev),
+                   f"{name} (v2 schema)", tag="zimage")
+            loaded = None
+            for precision, served, packed in loads:
+                if loaded is None or not packed:
+                    del loaded
+                    torch.cuda.empty_cache()
+                    loaded, _ = _load(f"{name} at precision={precision!r}",
+                                      lambda: load_zimage_transformer(path, precision=precision, device=dev),
+                                      tag="zimage")
+                    if loaded.cfg.precision != served.split()[0]:
+                        ok = False
+                        log(f"[zimage] {name} at {precision!r} loaded as {loaded.cfg.precision}, expected "
+                            f"{served}: FAIL")
+                with packed_route() if packed else contextlib.nullcontext():
+                    run(f"{label}: {name} served at {served}, 1 step", ZImagePipeline(loaded), 1, 1,
+                        zimage_per_forward(ZI_MODES[served]), key=f"zimage {label} {served}")
+            del loaded
+            torch.cuda.empty_cache()
+    del vae
+    torch.cuda.empty_cache()
+    log(f"[zimage] phase {time.perf_counter() - t_phase:.1f} s (model, requests A-D with their untimed runs, the "
+        f"files)")
+    return ok, total, paths
+
+
 def qwen_bounds(cfg, b=1) -> dict:
     """Least time per Qwen-Image 1024px forward at batch ``b`` for each
     kernel it runs (S_txt 211, padded to the 256-row quantum in the GEMMs)."""
@@ -2409,8 +2742,9 @@ def main(argv=None) -> int:
     ckptq_ok, cqcounts, cqpaths = checkpoint_qwen_phase(dev)
     sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
     sana_ok, sacounts, sapaths = sana_phase(dev, args.steps)
+    zi_ok, zicounts, zipaths = zimage_phase(dev, args.steps)
     counts = {k: counts[k] + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0) + scounts.get(k, 0)
-              + sacounts.get(k, 0) for k in counts}
+              + sacounts.get(k, 0) + zicounts.get(k, 0) for k in counts}
     for name, row in rows.items():
         row["launches"] = counts[name]
     for name, b in per_forward_bounds(cfg).items():
@@ -2438,12 +2772,15 @@ def main(argv=None) -> int:
             per = {p: f[name] for p, f in sapaths.items() if f.get(name)}
             log(f"[bound] {name}: launches per SANA 1.6B 1024px forward {per}, least time {bnd:.3f} ms per "
                 f"{label} forward")
+    for name, b in zimage_bounds().items():
+        per = {p: f[name] for p, f in zipaths.items() if f.get(name)}
+        log(f"[bound] {name}: launches per Z-Image-Turbo 1024px forward {per}, least time {b:.3f} ms per forward")
     ran = [name for name, c in counts.items() if c > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}")
     for name, per in (cpaths | cqpaths).items():
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok
+    ok = ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -2452,7 +2789,7 @@ def main(argv=None) -> int:
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"slice {verdict(slice_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
-        f"sana {verdict(sana_ok)}")
+        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of nunchaku_tpu for NVIDIA Hopper (H100).
 
-The port runs FLUX.1, Qwen-Image and SANA, from nunchaku checkpoints or
-random weights, and SDXL's int4 UNet from random or converted weights, to an image: 4-bit SVDQuant weights (int4 or nvfp4 products, or
+The port runs FLUX.1, Qwen-Image, SANA and Z-Image, from nunchaku checkpoints
+or random weights, and SDXL's int4 UNet from random or converted weights, to an image: 4-bit SVDQuant weights (int4 or nvfp4 products, or
 packed codes dequantized to per-channel int8 for int8 x int8 products), the
 text encoders, the first-block step caches, a tiled VAE decode, and the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels for
@@ -12,12 +12,12 @@ on the CPU every kernel wrapper runs its plain PyTorch twin.
 Public surface, under the JAX package's top-level names: the models
 (``FluxTransformer2DModel``, ``QwenImageTransformer2DModel``,
 ``SDXLUNet2DConditionModel`` with ``SDXLConfig``, ``SanaTransformer2DModel``
-with ``SanaConfig``, ``T5EncoderModel``, ``CLIPTextModel``, ``Gemma2Encoder``,
+with ``SanaConfig``, ``ZImageTransformer2DModel`` with ``ZImageConfig``, ``T5EncoderModel``, ``CLIPTextModel``, ``Gemma2Encoder``,
 ``AutoencoderKL``, ``DCAE`` with ``DCAEConfig``), their checkpoint loaders
 (``load_flux_transformer``, ``load_qwenimage_transformer``,
-``load_sana_transformer``, ``load_t5_encoder``, ``load_clip_text``,
+``load_sana_transformer``, ``load_zimage_transformer``, ``load_t5_encoder``, ``load_clip_text``,
 ``load_gemma2_encoder``, ``load_autoencoder``, ``load_dc_ae``; each takes
-``device=``, the card by default), the pipelines and the precision dials
+``device=``, the card by default), the pipelines (with ``zimage_sigmas``) and the precision dials
 ``requantize_model`` / ``w4a8_cache_dequant``.
 """
 
@@ -29,6 +29,7 @@ from .models.linear import AWQW4A16Linear, SVDQW4A4Linear
 from .models.loader import load_flux_transformer
 from .models.loader_qwenimage import load_qwenimage_transformer
 from .models.loader_sana import load_sana_transformer
+from .models.loader_zimage import load_zimage_transformer
 from .models.requantize import requantize_model, w4a8_cache_dequant
 from .models.text_encoders.clip import CLIPTextModel, load_clip_text
 from .models.text_encoders.gemma2 import Gemma2Encoder, load_gemma2_encoder
@@ -36,8 +37,10 @@ from .models.text_encoders.t5 import T5EncoderModel, load_t5_encoder
 from .models.transformer_flux import FluxConfig, FluxTransformer2DModel
 from .models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
 from .models.transformer_sana import SanaConfig, SanaTransformer2DModel
+from .models.transformer_zimage import ZImageConfig, ZImageTransformer2DModel
 from .models.unet_sdxl import SDXLConfig, SDXLUNet2DConditionModel
 from .pipeline.pipeline_flux import FluxPipeline
 from .pipeline.pipeline_qwenimage import QwenImagePipeline
 from .pipeline.pipeline_sana import SanaPipeline
 from .pipeline.pipeline_sdxl import SDXLPipeline
+from .pipeline.pipeline_zimage import ZImagePipeline, zimage_sigmas

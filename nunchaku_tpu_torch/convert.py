@@ -13,7 +13,10 @@ padded), ``vae_from_jax_params`` for the VAE decoder, and
 ``t5_from_jax_params`` / ``clip_from_jax_params`` / ``gemma2_from_jax_params``
 for the text encoders. ``sana_from_jax_params`` takes the SANA transformer's
 stacked blocks apart into per-layer modules, its odd-width SVDQ linears kept
-padded with the config's logical dims.
+padded with the config's logical dims. ``zimage_from_jax_params`` keeps the
+Z-Image stacks stacked (the port's Z-Image has the JAX layout): each layer
+is built and checked, then the layers are stacked again, each 4-bit weight
+K-contiguous within its layer as the W4A4 kernel reads it.
 """
 
 from __future__ import annotations
@@ -25,9 +28,10 @@ from .models import unet_sdxl as U
 from .models.attention import FeedForward, FluxAttention
 from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, ResnetBlock, Upsample
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
-from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, padded_dims
+from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, padded_dims, stack_modules
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
 from .models import transformer_sana as S
+from .models import transformer_zimage as Z
 from .models.loader_sana import CaptionProjection
 from .models.text_encoders.clip import CLIPBlock, CLIPTextModel
 from .models.text_encoders.gemma2 import Gemma2Encoder, Gemma2Layer
@@ -399,6 +403,51 @@ def sana_from_jax_params(params: dict, cfg: S.SanaConfig, device="cuda") -> S.Sa
         cfg, P.linear("patch_embed", (cfg.in_channels, dim)), caption, P.mlp_embedder("time_embed"),
         P.linear("time_proj_linear", (dim, 6 * dim)), blocks, P.get("scale_shift_table_out"),
         P.linear("proj_out", (dim, cfg.out_channels)))
+    P.done()
+    return model
+
+
+def zimage_from_jax_params(params: dict, cfg: Z.ZImageConfig, device="cuda") -> Z.ZImageTransformer2DModel:
+    """The port's Z-Image transformer from the JAX model's parameters (the
+    stacks' leaves carry a leading layer axis). Quantized linears are held
+    to the config's dims; 16-bit refiner linears (``skip_refiners``) are
+    taken where a stack has ``weight`` for ``qweight``; the timestep and
+    modulation linears keep the shapes they have (a loaded file's
+    ``t_embedder`` is 1024 wide at any dim, ``random_init``'s ``t_dim``)."""
+    P = _Params(params, device)
+    dim, inner = cfg.dim, cfg.inner_ffn
+
+    def lin(prefix, layer, k, n):
+        if prefix + ".qweight" not in params:
+            out = Linear(P.get(prefix + ".weight", layer), P.opt(prefix + ".bias", layer))
+            if tuple(out.weight.shape) != (k, n):
+                raise ValueError(f"{prefix}: weight {tuple(out.weight.shape)} does not match the config's {(k, n)}")
+            return out
+        return _check(prefix, SVDQW4A4Linear(
+            P.get(prefix + ".qweight", layer), P.get(prefix + ".wscales", layer), P.get(prefix + ".smooth", layer),
+            P.get(prefix + ".proj_down", layer), P.get(prefix + ".proj_up", layer), P.opt(prefix + ".bias", layer),
+            P.opt(prefix + ".rescales", layer), precision=cfg.precision), k, n)
+
+    def block(t, i, modulated):
+        attn = Z.ZImageAttention(lin(t + ".attention.to_qkv", i, dim, 3 * dim), P.get(t + ".attention.norm_q", i),
+                                 P.get(t + ".attention.norm_k", i), lin(t + ".attention.to_out", i, dim, dim),
+                                 heads=cfg.num_attention_heads, head_dim=cfg.head_dim)
+        ff = Z.ZImageFeedForward(lin(t + ".feed_forward.w13", i, dim, 2 * inner),
+                                 lin(t + ".feed_forward.w2", i, inner, dim))
+        adaln = Linear(P.get(t + ".adaln.weight", i), P.opt(t + ".adaln.bias", i)) if modulated else None
+        return Z.ZImageTransformerBlock(attn, ff, *(P.get(f"{t}.{n}", i) for n in (
+            "attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2")), adaln, eps=cfg.norm_eps)
+
+    def stack(t, n, modulated):
+        return stack_modules([block(t, i, modulated) for i in range(n)])
+
+    patch_dim = cfg.in_channels * cfg.patch_size ** 2
+    model = Z.ZImageTransformer2DModel(
+        cfg, P.linear("x_embedder", (patch_dim, dim)), P.linear("t_embedder1"), P.linear("t_embedder2"),
+        P.get("cap_norm"), P.linear("cap_embedder", (cfg.cap_feat_dim, dim)),
+        stack("noise_refiner", cfg.num_refiner_layers, True), stack("context_refiner", cfg.num_refiner_layers, False),
+        stack("layers", cfg.num_layers, True), P.get("norm_out"), P.linear("proj_out", (dim, patch_dim)),
+        P.linear("adaln_out"))
     P.done()
     return model
 

@@ -27,6 +27,22 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }
 
+// The stacked-weight (layer-index) modes of the 4-bit GEMMs and the dequant:
+// the kernel-side counterpart of the Pallas kernels' scalar prefetch of the
+// scan's layer index. ``idx`` is a 0-d int32 tensor on the card (the index
+// never passes through the host, so a block loop can be captured in a CUDA
+// graph); each block reads it once at entry and moves the weight pointer to
+// layer idx of the (L, K/2, N) stack: idx * (K/2) * N bytes, whichever of
+// (K/2, N) and (N, K/2) the layer is stored as. An index outside [0, L) is
+// clamped to the nearest layer, so the kernel never reads outside the stack
+// (the plain PyTorch twins raise on it).
+__device__ __forceinline__ const int8_t* stacked_layer(const int8_t* w, const int* idx, int L, size_t layer_bytes) {
+  if (idx == nullptr) return w;
+  int l = __ldg(idx);
+  l = l < 0 ? 0 : (l >= L ? L - 1 : l);
+  return w + static_cast<size_t>(l) * layer_bytes;
+}
+
 // tanh-approx GELU in the operation order of the JAX epilogue
 // (ops/gemm.py _tanh_gelu): 0.5*x*(1+tanh(c*(x+0.044715*x*x*x))).
 // The _rn intrinsics keep nvcc from contracting into FMAs, so the float

@@ -2,8 +2,12 @@
 // written K-contiguous as an (N, K) array (the caller views it as (K, N)).
 //
 // Replaces nunchaku_tpu/ops/gemm.py _dequant_w4a8_kernel (:1074, launched by
-// dequant_w4a8_pallas :1104) in both of its code forms. Packed row 128*b + j
-// holds logical rows 256*b + j (low nibble) and 256*b + 128 + j (high
+// dequant_w4a8_pallas :1104) in both of its code forms, non-stacked and in
+// its stacked (layer-index) mode (stacked_w, :1077-1080, reached through
+// _w4a8_dequant :1962-1973 by the scans' attach_stacked_weights): there the
+// codes are layer idx of an (L, K/2, N) stack, idx a device-resident int32
+// read once at entry (common.cuh stacked_layer), the rest the same code.
+// Packed row 128*b + j holds logical rows 256*b + j (low nibble) and 256*b + 128 + j (high
 // nibble); each nibble is sign-extended and, in the e2m1 form (nvfp4-a8:
 // an nvfp4 checkpoint served through the int8 products), decoded to its fp4
 // value {0, +-.5, +-1, +-1.5, +-2, +-3, +-4, +-6} (the stray code -8 to -8,
@@ -36,13 +40,14 @@ constexpr int THREADS = 256;
 template <bool E2M1, int G>
 __global__ void __launch_bounds__(THREADS)
     dequant_w4a8_kernel(const int8_t* __restrict__ qw, const bf16* __restrict__ rs,
-                        int8_t* __restrict__ out, int K, int N) {
+                        int8_t* __restrict__ out, int K, int N, const int* __restrict__ lidx, int L) {
   __shared__ __align__(16) int8_t tile[TN][TK + 16];
   const int n0 = blockIdx.x * TN, b = blockIdx.y;
   const int j = threadIdx.x >> 1;    // packed row within the pack block
   const int c0 = (threadIdx.x & 1) * 32;  // which 32 of the tile's 64 columns
   const int p = b * (TK / 2) + j;
   const int row_lo = b * TK + j, row_hi = row_lo + TK / 2;
+  qw = stacked_layer(qw, lidx, L, static_cast<size_t>(K / 2) * N);
 
   uint4 packed[2];
   bf16 rlo[32], rhi[32];
@@ -74,14 +79,15 @@ __global__ void __launch_bounds__(THREADS)
 
 // qweight (K/2, N) int8, rescales (K/G, N) bf16 -> out (N, K) int8 holding
 // the (K, N) weight K-contiguous. e2m1 == 0: int4 codes, G = 64; e2m1 == 1:
-// e2m1 codes, G = 16. Needs K % 256 == 0, N % 64 == 0 (checked by the
-// Python wrapper).
+// e2m1 codes, G = 16. layer_idx: null, or a device int32 naming the layer
+// of a stack of L (K/2, N) code arrays that starts at qweight. Needs
+// K % 256 == 0, N % 64 == 0 (checked by the Python wrapper).
 extern "C" int nt_dequant_w4a8(const void* qweight, const void* rescales, void* out, int K, int N, int e2m1,
-                               void* stream) {
+                               const void* layer_idx, int L, void* stream) {
   dim3 grid(N / TN, K / TK);
   auto kernel = e2m1 ? dequant_w4a8_kernel<true, 16> : dequant_w4a8_kernel<false, 64>;
   kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(qweight), static_cast<const bf16*>(rescales),
-      static_cast<int8_t*>(out), K, N);
+      static_cast<int8_t*>(out), K, N, static_cast<const int*>(layer_idx), L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -2,7 +2,13 @@
 // 4-bit weights with per-group scales, plus the rank-r branch and the bias.
 //
 // Replaces nunchaku_tpu/ops/gemm.py _gemm_w4a4_kernel (:125, launched by
-// _svdq_gemm_w4a4 :1906 for precision int4 / nvfp4, non-stacked):
+// _svdq_gemm_w4a4 :1906 for precision int4 / nvfp4), in both of its forms:
+// non-stacked, and the stacked (layer-index) mode its scans reach through
+// attach_stacked_weights (stacked_w, :130-135: qw_ref[0] of the layer the
+// scalar prefetch names). In the stacked mode the weight is layer idx of an
+// (L, K/2, N) stack, idx a device-resident int32 read once at entry
+// (common.cuh stacked_layer); the rest of the kernel is the same code, so a
+// stacked launch is bit-identical to the plain launch on that layer:
 //   out = bf16( sum_k bf16(a_k * sa[g(k), m]) * bf16(w_k * sw[g(k), n])
 //               + bf16(lora_act) @ proj_up + bias )
 // with f32 accumulation. a_k, w_k are 4-bit codes: int4 nibbles (weights
@@ -127,7 +133,8 @@ __global__ void __launch_bounds__(THREADS)
     gemm_w4a4_kernel(const int8_t* __restrict__ qa, const bf16* __restrict__ as,
                      const int8_t* __restrict__ wt, const bf16* __restrict__ ws,
                      const float* __restrict__ la, const bf16* __restrict__ pu,
-                     const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K, int R) {
+                     const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K, int R,
+                     const int* __restrict__ lidx, int L) {
   constexpr int WMODE = AMODE == E2M1 ? E2M1 : INT4_S;  // weights are always signed
   constexpr int G = AMODE == E2M1 ? 16 : 64;
   constexpr int GPB = 256 / G;
@@ -138,6 +145,7 @@ __global__ void __launch_bounds__(THREADS)
   const int wm = warp / 4, wn = warp % 4;
   const int g = lane >> 2, t = lane & 3;
   const int K2 = K / 2, nb = K / 256;
+  wt = stacked_layer(wt, lidx, L, static_cast<size_t>(N) * K2);
   if (threadIdx.x < 16) sm.e2m1[threadIdx.x] = kE2M1[threadIdx.x];
 
   float acc[MT][NT][4];
@@ -267,7 +275,8 @@ __global__ void __launch_bounds__(THREADS)
 
 template <int AMODE, bool LORA, bool BIAS>
 cudaError_t launch(const void* qa, const void* as, const void* wt, const void* ws, const void* la,
-                   const void* pu, const void* bias, void* out, int M, int N, int K, int R, cudaStream_t s) {
+                   const void* pu, const void* bias, void* out, int M, int N, int K, int R, const int* lidx, int L,
+                   cudaStream_t s) {
   static bool configured = false;
   const int smem = static_cast<int>(sizeof(Smem));
   auto kernel = gemm_w4a4_kernel<AMODE, LORA, BIAS>;
@@ -280,18 +289,21 @@ cudaError_t launch(const void* qa, const void* as, const void* wt, const void* w
   kernel<<<grid, THREADS, smem, s>>>(static_cast<const int8_t*>(qa), static_cast<const bf16*>(as),
                                       static_cast<const int8_t*>(wt), static_cast<const bf16*>(ws),
                                       static_cast<const float*>(la), static_cast<const bf16*>(pu),
-                                      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, R);
+                                      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, R, lidx, L);
   return cudaGetLastError();
 }
 
 template <int AMODE>
 cudaError_t dispatch(const void* qa, const void* as, const void* wt, const void* ws, const void* la,
-                     const void* pu, const void* bias, void* out, int M, int N, int K, int R, cudaStream_t s) {
+                     const void* pu, const void* bias, void* out, int M, int N, int K, int R, const int* lidx, int L,
+                     cudaStream_t s) {
   const bool lora = la != nullptr && R > 0;
-  if (lora && bias != nullptr) return launch<AMODE, true, true>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, s);
-  if (lora) return launch<AMODE, true, false>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, s);
-  if (bias != nullptr) return launch<AMODE, false, true>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, s);
-  return launch<AMODE, false, false>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, s);
+  if (lora && bias != nullptr)
+    return launch<AMODE, true, true>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, lidx, L, s);
+  if (lora) return launch<AMODE, true, false>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, lidx, L, s);
+  if (bias != nullptr)
+    return launch<AMODE, false, true>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, lidx, L, s);
+  return launch<AMODE, false, false>(qa, as, wt, ws, la, pu, bias, out, M, N, K, R, lidx, L, s);
 }
 
 }  // namespace
@@ -300,13 +312,18 @@ cudaError_t dispatch(const void* qa, const void* as, const void* wt, const void*
 // (K/2, N) weight K-contiguous), wscales (K/G, N) bf16, lora_act (M, R) f32
 // | null, proj_up (R, N) bf16 | null, bias (N,) bf16 | null -> out (M, N)
 // bf16. mode: 0 int4 with signed activations, 1 int4 with unsigned
-// activations, 2 nvfp4 (e2m1 codes). Needs K % 256 == 0, N % 128 == 0,
+// activations, 2 nvfp4 (e2m1 codes). layer_idx: null, or a device int32
+// naming the layer of a stack of L such weights that starts at wt (each
+// (N, K/2), N * K/2 bytes apart). Needs K % 256 == 0, N % 128 == 0,
 // M % 8 == 0 (checked by the Python wrapper).
 extern "C" int nt_gemm_w4a4(const void* qact, const void* ascales, const void* wt, const void* wscales,
                             const void* lora_act, const void* proj_up, const void* bias, void* out, int M,
-                            int N, int K, int R, int mode, void* stream) {
+                            int N, int K, int R, int mode, const void* layer_idx, int L, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto fn) { return fn(qact, ascales, wt, wscales, lora_act, proj_up, bias, out, M, N, K, R, s); };
+  const int* lidx = static_cast<const int*>(layer_idx);
+  auto run = [&](auto fn) {
+    return fn(qact, ascales, wt, wscales, lora_act, proj_up, bias, out, M, N, K, R, lidx, L, s);
+  };
   cudaError_t e = cudaErrorInvalidValue;
   if (mode == INT4_S) e = run(dispatch<INT4_S>);
   if (mode == INT4_U) e = run(dispatch<INT4_U>);

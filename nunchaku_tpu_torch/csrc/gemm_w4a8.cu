@@ -2,7 +2,11 @@
 // are decoded to int8 inside the main loop, never written to HBM.
 //
 // Replaces nunchaku_tpu/ops/gemm.py _gemm_w4a8h_kernel (:281, launched by
-// _gemm_w4a8_hoisted :1691) in both of its modes and _gemm_w4a8_kernel
+// _gemm_w4a8_hoisted :1691) in both of its modes, non-stacked and stacked
+// (its layer-index form, :1714-1726: the packed codes are layer idx of an
+// (L, K/2, N) stack, idx a device-resident int32 read once at entry,
+// common.cuh stacked_layer; the scans reach it in rank-1 mode under
+// NUNCHAKU_TPU_W4A8_XLA=0), and _gemm_w4a8_kernel
 // (:167, the per-M-tile kernel of explicit-tile calls, :2180-2199), which
 // computes the rank-1 mode with another dequant schedule only
 // (tests/test_ops.py:430-459 pins the two bit-identical):
@@ -54,13 +58,15 @@ __host__ __device__ inline size_t smem_bytes(int R) {
 __global__ void __launch_bounds__(THREADS)
     gemm_w4a8_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as, WeightW4 w,
                      const float* __restrict__ ws, const float* __restrict__ la, const bf16* __restrict__ pu,
-                     const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K, int G, int R) {
+                     const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K, int G, int R,
+                     const int* __restrict__ lidx, int L) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   auto* st = reinterpret_cast<PackedStage*>(smem_raw);
   const LoraTile lora = lora_tile(smem_raw, R);
   int* scratch = reinterpret_cast<int*>(smem_raw + scratch_at(R));
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int gk = K / G;
+  w.qw = stacked_layer(w.qw, lidx, L, static_cast<size_t>(K / 2) * N);
   float facc[FM][FN][8];
 #pragma unroll
   for (int fm = 0; fm < FM; ++fm)
@@ -112,10 +118,13 @@ __global__ void __launch_bounds__(THREADS)
 // layout), rescales (K/64, N) bf16, wscales (N,) f32,
 // lora_act (M, R) f32 | null, proj_up (R, N) bf16 | null, bias (N,) bf16 | null
 // -> out (M, N) bf16. Needs M % 128 == 0, N % 128 == 0, K % 256 == 0,
-// (K / G) % 64 == 0, R <= MAX_R (128).
+// (K / G) % 64 == 0, R <= MAX_R (128). layer_idx: null, or a device int32
+// naming the layer of a stack of L (K/2, N) code arrays that starts at
+// qweight.
 extern "C" int nt_gemm_w4a8(const void* qact, const void* ascales, const void* qweight, const void* rescales,
                             const void* wscales, const void* lora_act, const void* proj_up, const void* bias,
-                            void* out, int M, int N, int K, int G, int R, void* stream) {
+                            void* out, int M, int N, int K, int G, int R, const void* layer_idx, int L,
+                            void* stream) {
   static bool configured = false;
   if (R > MAX_R) return static_cast<int>(cudaErrorInvalidValue);
   if (!configured) {  // room for the largest rank once; each launch asks for its own size
@@ -129,6 +138,7 @@ extern "C" int nt_gemm_w4a8(const void* qact, const void* ascales, const void* q
       static_cast<const int8_t*>(qact), static_cast<const float*>(ascales),
       WeightW4{static_cast<const int8_t*>(qweight), static_cast<const bf16*>(rescales), N},
       static_cast<const float*>(wscales), static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, G, R);
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, G, R,
+      static_cast<const int*>(layer_idx), L);
   return static_cast<int>(cudaGetLastError());
 }

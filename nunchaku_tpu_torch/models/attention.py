@@ -58,6 +58,25 @@ def qkv_norm_rope(qkv, head_dim, norm_q, norm_k, rot, prescale):
     return q, k, v
 
 
+def prep_halfsplit(qkv, cos, sin, norm_q, norm_k, heads, head_dim, q_scale):
+    """(B, S, 3*H*D) -> q, k, v (B, H, S, D): q/k RMSNorm (eps 1e-6), the
+    half-split RoPE of an ``ops.attention.rope_table_halfsplit`` table and
+    ``q_scale`` folded into q, as torch ops (JAX ``_prep_halfsplit``,
+    attention.py:81, the head dims the producer kernel does not take)."""
+    b, s, _ = qkv.shape
+    half = head_dim // 2
+    q, k, v = (t.reshape(b, s, heads, head_dim).transpose(1, 2) for t in qkv.chunk(3, dim=-1))
+    c1, s1, c2, s2 = cos[..., :half], sin[..., :half], cos[..., half:], sin[..., half:]
+
+    def norm_rope(t, w, scale):
+        tf = t.float()
+        tf = tf * torch.rsqrt((tf * tf).mean(dim=-1, keepdim=True) + 1e-6) * w.float()
+        a1, a2 = tf[..., :half], tf[..., half:]
+        return torch.cat([(a1 * c1 + a2 * s1) * scale, (a2 * c2 + a1 * s2) * scale], dim=-1).to(qkv.dtype)
+
+    return norm_rope(q, norm_q, q_scale), norm_rope(k, norm_k, 1.0), v
+
+
 def _halfsplit_head_perm(head_dim: int) -> np.ndarray:
     """Channel order that moves the interleaved rope pairs (2i, 2i+1) to
     the half-split pairs (i, i + D/2): new[i] = old[2i], new[i + D/2] =

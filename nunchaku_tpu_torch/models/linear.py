@@ -6,10 +6,19 @@ Counterparts of ``nunchaku_tpu/models/linear.py`` ``Linear`` (:61),
 ``SVDQW4A4Linear`` (:87) and ``AWQW4A16Linear`` (:564, without its LoRA
 branch). Weights keep the JAX package's layouts: (K, N) K-major, packed
 4-bit as (K/2, N) in the block-split-half layout.
+
+Stacked layers (the JAX scans): :func:`stack_modules` and
+:func:`slice_module` (JAX ``transformer_flux.py:96-103``) turn identical
+modules into one whose buffers carry a leading layer axis, and take a
+layer's views back out of it; :func:`attach_stacked_weights` (JAX
+``linear.py:650``) points each 4-bit linear of a layer's view at the whole
+``(L, ...)`` qweight stack and a device-resident layer index, which its
+GEMM kernel reads (``ops/gemm.py`` stacked modes).
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -176,15 +185,23 @@ class SVDQW4A4Linear(nn.Module):
         return quantize_w4a4_act_fuse_lora(x2d, self.proj_down, self.smooth, precision=self.precision,
                                            act_unsigned=self.act_unsigned)
 
-    def forward_quant(self, qact, ascales, lora_act, *, skip_lora=False, residual=None):
-        """The GEMM on quantized activations. ``skip_lora`` leaves out the
+    def forward_quant(self, qact, ascales, lora_act, *, qweight=None, layer_idx=None, skip_lora=False,
+                      residual=None):
+        """The GEMM on quantized activations. ``qweight`` / ``layer_idx``:
+        an (L, K/2, N) stack and the 0-d int32 index of this layer in it,
+        read by the kernel (defaults: those :func:`attach_stacked_weights`
+        set, else this layer's own ``qweight``). ``skip_lora`` leaves out the
         low-rank epilogue (the caller adds ``lora_act @ proj_up`` itself);
         ``residual`` is :func:`~nunchaku_tpu_torch.ops.gemm.res_apply`'s
         operands."""
-        return svdq_gemm_w4a4(qact, ascales, self.qweight, self.wscales, None if skip_lora else lora_act,
-                              None if skip_lora else self.proj_up, self.bias, self.rescales,
-                              precision=self.precision, act_unsigned=self.act_unsigned, residual=residual,
-                              wcodes=self.wcodes)
+        if qweight is None and layer_idx is None:
+            qweight = getattr(self, "_stacked_qweight", None)
+            if qweight is not None:
+                layer_idx = self._layer_idx
+        return svdq_gemm_w4a4(qact, ascales, self.qweight if qweight is None else qweight, self.wscales,
+                              None if skip_lora else lora_act, None if skip_lora else self.proj_up, self.bias,
+                              self.rescales, precision=self.precision, act_unsigned=self.act_unsigned,
+                              residual=residual, wcodes=self.wcodes, layer_idx=layer_idx)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -222,6 +239,56 @@ class SVDQW4A4Linear(nn.Module):
         q, asc, la = ln_mod_quant_int8(x.to(torch.bfloat16), scale, shift, self.smooth, self.proj_down)
         out = self.forward_quant(q, asc, la, skip_lora=skip_lora).reshape(b, s, -1)
         return (out, la.reshape(b, s, -1)) if skip_lora else out
+
+
+STACKED_PRECISIONS = ("w4a8", "int4", "nvfp4")  # the 4-bit linears whose kernels read a stacked qweight
+
+
+def stack_modules(mods: list[nn.Module]) -> nn.Module:
+    """Identical modules -> one of their structure whose buffers are the
+    layers' buffers stacked along a new leading axis (JAX ``stack_modules``).
+    A layer's weight stored K-contiguous (the int4 / nvfp4 qweight) stays so
+    in the stack: each layer of it is K-contiguous, layers back to back."""
+    first = mods[0]
+    out = copy.copy(first)
+    out._parameters = {}
+    out._buffers = {}
+    for name, t in first._buffers.items():
+        if t is None:
+            out._buffers[name] = None
+        elif t.dim() == 2 and not t.is_contiguous() and t.t().is_contiguous():
+            out._buffers[name] = torch.stack([m._buffers[name].t() for m in mods]).transpose(1, 2)
+        else:
+            out._buffers[name] = torch.stack([m._buffers[name] for m in mods])
+    out._modules = {name: None if m is None else stack_modules([x._modules[name] for x in mods])
+                    for name, m in first._modules.items()}
+    return out
+
+
+def slice_module(stacked: nn.Module, i: int) -> nn.Module:
+    """Layer ``i`` of a stacked module, its buffers views into the stack's
+    (JAX ``slice_module``): no copy, so the views see any in-place change of
+    the stack."""
+    out = copy.copy(stacked)
+    out._parameters = {}
+    out._buffers = {name: None if t is None else t[i] for name, t in stacked._buffers.items()}
+    out._modules = {name: None if m is None else slice_module(m, i) for name, m in stacked._modules.items()}
+    return out
+
+
+def attach_stacked_weights(block: nn.Module, stacked: nn.Module, layer_idx: torch.Tensor) -> nn.Module:
+    """Point every 4-bit linear of the layer view ``block`` at the whole
+    (L, ...) qweight stack of ``stacked`` and the 0-d int32 ``layer_idx``
+    (on the stack's device), so its GEMM reads the layer by index on the
+    card (JAX ``attach_stacked_weights``, linear.py:650-669; its scalar
+    prefetch). int8 linears are left alone: their products take the layer's
+    own weight, as JAX's XLA dots take the sliced one."""
+    stk = dict(stacked.named_modules())
+    for name, mod in block.named_modules():
+        if isinstance(mod, SVDQW4A4Linear) and mod.precision in STACKED_PRECISIONS:
+            mod._stacked_qweight = stk[name].qweight
+            mod._layer_idx = layer_idx
+    return block
 
 
 class AWQW4A16Linear(nn.Module):

@@ -13,8 +13,8 @@ point linear's activation quantize), ``SanaTransformerBlock`` (:273) and
 ``run_blocks`` and ``head``.
 
 The port loops over per-layer modules where JAX scans a stacked block with
-``attach_stacked_weights`` (:391); the stacked mode of ``_gemm_w4a4_kernel``
-that the scan reaches stays to be ported (ROADMAP Queue 2). A PAG layer
+``attach_stacked_weights`` (:391), so its GEMMs take each layer's own
+weights (the stacked W4A4 mode runs on Z-Image's stacks). A PAG layer
 computes both branches over the whole batch and selects rows with
 ``torch.where``, as JAX does; a layer outside ``pag_layers`` runs no
 perturbed branch (JAX's scan computes one for every layer and selects none

@@ -349,6 +349,84 @@ def check_dequant(qw, rs, codes="int4"):
     return float(err), err == 0, f"max code diff {err} (tolerance: exact)"
 
 
+STACK_LAYERS = 3  # layers of the stacks the stacked-mode checks build
+
+
+def stack_case(weight: torch.Tensor, layers: int = STACK_LAYERS, *, seed=7):
+    """An (L, K/2, N) stack of random packed codes (every byte) whose every
+    layer has ``weight``'s shape and layout (a K-contiguous weight gives a
+    stack of K-contiguous layers, back to back), with ``weight`` itself as
+    its last layer; -> (stack, one 0-d int32 index tensor per layer, on the
+    weight's device)."""
+    half, n = weight.shape
+    g = _gen(seed, weight.device)
+    if weight.is_contiguous():
+        stack = torch.randint(-128, 128, (layers, half, n), dtype=torch.int8, device=weight.device, generator=g)
+    else:
+        stack = torch.randint(-128, 128, (layers, n, half), dtype=torch.int8, device=weight.device,
+                              generator=g).transpose(1, 2)
+    stack[-1].copy_(weight)
+    ids = torch.arange(layers, dtype=torch.int32, device=weight.device)
+    return stack, [ids[i] for i in range(layers)]
+
+
+def _stacked_report(stacked_same, err, ok, detail):
+    same = all(stacked_same)
+    return err, ok and same, f"{detail}; stacked == non-stacked kernel on each of {len(stacked_same)} layers: {same}"
+
+
+def check_w4a4_stacked(args, kw):
+    """The W4A4 kernel's stacked mode on a :func:`stack_case` stack of the
+    case's weight: on every layer bit for bit the non-stacked kernel on
+    that layer (the same code, only the weight pointer moved), and on the
+    case's weight (the last layer) :func:`check_w4a4`'s tolerance against
+    the plain twin."""
+    qa, asc, qw, wsc = args[:4]
+    stack, ids = stack_case(qw)
+    same = [torch.equal(gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=i),
+                        gemm_w4a4(qa, asc, stack[l], wsc, *args[4:], **kw)) for l, i in enumerate(ids)]
+    out = gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=ids[-1])
+    ref = gemm_w4a4_plain(*args, **kw)
+    err, rel = _rel(out, ref)
+    o, r = out.float(), ref.float()
+    beyond = ((o - r).abs() > 2.0 ** -7 * r.abs() + 1e-4 * r.abs().max()).sum().item()
+    ok = beyond == 0 and out.shape == ref.shape and bool(torch.isfinite(o).all())
+    return _stacked_report(same, err, ok,
+                           f"max abs {err:.3e}, rel {rel:.2e}; {beyond} elements beyond one bf16 step (tol 0)")
+
+
+def check_dequant_stacked(qw, rs):
+    """The dequant's stacked mode: exact codes on the case's weight (the
+    last layer of a :func:`stack_case` stack), and on every layer the
+    non-stacked kernel's codes bit for bit."""
+    stack, ids = stack_case(qw)
+    same = [torch.equal(dequant_w4a8(stack, rs, layer_idx=i), dequant_w4a8(stack[l], rs)) for l, i in enumerate(ids)]
+    out = dequant_w4a8(stack, rs, layer_idx=ids[-1])
+    err = (out.int() - dequant_w4a8_plain(qw, rs).int()).abs().max().item()
+    return _stacked_report(same, float(err), err == 0, f"max code diff {err} (tolerance: exact)")
+
+
+def check_w4a8_stacked(qa, ascales, qw, rs, wscales, la, pu, bias):
+    """The packed GEMM's stacked rank-1 mode: on every layer of a
+    :func:`stack_case` stack bit for bit the non-stacked kernel on that
+    layer, and on the case's weight (the last layer) within one bf16 step of
+    the plain twin (bit for bit without the low-rank term)."""
+    stack, ids = stack_case(qw)
+    rest = (rs, wscales, la, pu, bias)
+    same = [torch.equal(gemm_w4a8(qa, ascales, stack, *rest, layer_idx=i), gemm_w4a8(qa, ascales, stack[l], *rest))
+            for l, i in enumerate(ids)]
+    out = gemm_w4a8(qa, ascales, stack, *rest, layer_idx=ids[-1])
+    ref = gemm_w4a8_plain(qa, ascales, qw, *rest)
+    err, rel = _rel(out, ref)
+    o, r = out.float(), ref.float()
+    beyond = ((o - r).abs() > 2.0 ** -7 * r.abs() + 1e-4 * r.abs().max()).sum().item()
+    exact = torch.equal(gemm_w4a8(qa, ascales, stack, rs, wscales, None, None, bias, layer_idx=ids[-1]),
+                        gemm_w4a8_plain(qa, ascales, qw, rs, wscales, None, None, bias))
+    ok = beyond == 0 and exact and out.shape == ref.shape and bool(torch.isfinite(o).all())
+    return _stacked_report(same, err, ok, f"max abs {err:.3e}, rel {rel:.2e}; {beyond} elements beyond "
+                           f"one bf16 step (tol 0); no low-rank == twin: {exact}")
+
+
 def check_gelu_quant(qa, ascales, w, wscales, la, pu, bias, rsm, pd, act_unsigned_next=False):
     """Codes: at most one code apart, on at most 0.1% of elements; scales:
     relative error <= 1e-5; lora_next: max error <= 1e-2 of its max |value|."""
@@ -505,6 +583,20 @@ def damp_modulation(model) -> None:
     for mod in _awq_linears(model):
         mod.wscales.copy_((mod.wscales.float() * MOD_DAMP).to(torch.bfloat16))
         mod.wzeros.copy_((mod.wzeros.float() * MOD_DAMP).to(torch.bfloat16))
+
+
+ZIMAGE_ADALN_DAMP = 0.25  # adaLN damping of small Z-Image models compared across devices
+
+
+def damp_zimage_modulation(model, scale: float = ZIMAGE_ADALN_DAMP) -> None:
+    """Scale the adaLN modulation weights of a Z-Image model's modulated
+    stacks (and its final layer's) in place: the random gates at
+    ``random_init``'s scale multiply one 4-bit code flip into the next block
+    (the JAX package's own two int4 routes end 0.127 apart on the tiny model
+    of tests/test_torch_zimage.py, 3e-2 at a quarter of the scale, the
+    setting those tests hold the port to)."""
+    for lin in (model.noise_refiner.adaln, model.layers.adaln, model.adaln_out):
+        lin.weight.copy_((lin.weight.float() * scale).to(lin.weight.dtype))
 
 
 def _awq_linears(model):

@@ -22,9 +22,8 @@ int8 once per layer, then int8 x int8 products):
   JAX leaves to XLA (``_gemm_w8a8_xla`` :1221): ``torch._int_mm`` plus
   PyTorch epilogue ops;
 * :func:`gemm_w4a4` -- kernel ``csrc/gemm_w4a4.cu`` (JAX ``_gemm_w4a4_kernel``
-  :125, non-stacked), the W4A4 product of the int4 / nvfp4 modes: 4-bit
-  codes on both sides, decoded and scaled to bf16 per group, f32
-  accumulation.
+  :125), the W4A4 product of the int4 / nvfp4 modes: 4-bit codes on both
+  sides, decoded and scaled to bf16 per group, f32 accumulation.
 
 The JAX package's two w4a8 route switches, read at each call
 (:func:`w4a8_use_xla`, :func:`w4a8_fused`), move w4a8 off the dequant route
@@ -38,6 +37,18 @@ int8 GEMM and never write an int8 weight to HBM:
 * :func:`svdq_gemm_w4a8_gelu_quant` -- the W4 form of
   ``csrc/gemm_w8a8_gelu_quant.cu`` (JAX ``_gemm_w4a8_gelu_quant_kernel``
   :721), the chain's fc1 producer under ``NUNCHAKU_TPU_W4A8_FUSED=1``.
+
+Stacked weights (JAX ``layer_idx=``, the scans' ``attach_stacked_weights``):
+:func:`svdq_gemm_w4a4`, :func:`gemm_w4a4`, :func:`dequant_w4a8` and
+:func:`gemm_w4a8` take ``layer_idx``, a 0-d int32 tensor on the weights'
+device, with ``qweight`` the whole ``(L, K/2, N)`` stack. The kernels read
+the index on the card (the counterpart of the Pallas scalar prefetch) and
+move their weight pointer to its layer: the same code as the non-stacked
+launch on ``qweight[layer_idx]``, bit for bit; the index never passes through
+the host. An index outside ``[0, L)`` raises in the plain twins and is
+clamped to the nearest layer in the kernels, which read nothing outside the
+stack. Each stacked mode counts its launches apart (:data:`STACKED_COUNTS`).
+int8 weights have no stacked form: the caller slices the layer, as JAX does.
 
 Each kernel has a plain PyTorch twin (``*_plain``) with the same numerics.
 A wrapper takes the twin only for tensors on the CPU; for CUDA tensors it
@@ -81,6 +92,33 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+STACKED_COUNTS = {name: SimpleNamespace(launches=0) for name in (
+    "gemm_w4a4_int4_stacked", "gemm_w4a4_nvfp4_stacked", "dequant_w4a8_stacked", "gemm_w4a8_stacked")}
+
+
+def layer_of(stack: torch.Tensor, layer_idx: torch.Tensor) -> torch.Tensor:
+    """Layer ``layer_idx`` of an (L, ...) stack, for the plain twins (the
+    index is read on the host there); an index outside [0, L) raises."""
+    i = int(layer_idx)
+    if not 0 <= i < stack.shape[0]:
+        raise IndexError(f"layer index {i} is outside the stack of {stack.shape[0]} layers")
+    return stack[i]
+
+
+def _stacked(qweight: torch.Tensor, layer_idx: torch.Tensor | None):
+    """-> (one layer of the weight, for the shape checks; the index's
+    pointer or None; L) for a kernel launch. A stack must hold its layers
+    back to back, each in the layout of a non-stacked weight."""
+    if layer_idx is None:
+        return qweight, None, 0
+    _build.require(qweight.dim() == 3, f"a stacked weight is (L, K/2, N), got {tuple(qweight.shape)}")
+    _build.require(layer_idx.dim() == 0 and layer_idx.dtype == torch.int32 and layer_idx.device == qweight.device,
+                   "layer_idx: a 0-d int32 tensor on the weights' device")
+    layer = qweight[0]
+    _build.require(qweight.stride(0) == layer.numel(), "the stack's layers must lie back to back")
+    return layer, layer_idx.data_ptr(), qweight.shape[0]
+
+
 def chain_tile_n(n: int) -> int:
     """Columns per requantize scale of the chain producer: the JAX producer's
     ``bn = _pick_dim(N, (1536, 1024, 512, 256, 128))`` (``gemm.py:1334``). The
@@ -121,26 +159,37 @@ def dequant_w4a8_plain(qweight: torch.Tensor, rescales: torch.Tensor, codes: str
     return torch.round(w).clamp(-127, 127).to(torch.int8).reshape(k, n)
 
 
-def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor, codes: str = "int4") -> torch.Tensor:
+def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor, codes: str = "int4",
+                 layer_idx: torch.Tensor | None = None) -> torch.Tensor:
     """The (K, N) int8 codes of :func:`dequant_w4a8_plain`. On the card the
     kernel writes them K-contiguous: the result is a (K, N) view with
     strides (1, K), the layout int8 tensor-core products read directly. The
-    e2m1 form counts its launches in :data:`DEQUANT_E2M1`."""
+    e2m1 form counts its launches in :data:`DEQUANT_E2M1`. ``layer_idx``:
+    qweight is an (L, K/2, N) stack and its layer ``layer_idx`` is
+    dequantized (count ``dequant_w4a8_stacked``; int4 codes only, the stacks
+    the port builds)."""
     g = w4a8_group(codes)
+    if layer_idx is not None and codes != "int4":
+        raise NotImplementedError("the stacked dequant takes int4 codes (no stack of the port holds e2m1 codes)")
     if not qweight.is_cuda:
-        return dequant_w4a8_plain(qweight, rescales, codes)
-    half, n = qweight.shape
+        return dequant_w4a8_plain(qweight if layer_idx is None else layer_of(qweight, layer_idx), rescales, codes)
+    layer, idx_ptr, n_layers = _stacked(qweight, layer_idx)
+    half, n = layer.shape
     k = half * 2
-    _build.require(qweight.dtype == torch.int8 and qweight.is_contiguous(), "qweight: contiguous int8")
+    _build.require(qweight.dtype == torch.int8 and layer.is_contiguous(), "qweight: contiguous int8")
     _build.require(rescales.dtype == torch.bfloat16 and rescales.is_contiguous(), "rescales: contiguous bf16")
-    _build.require(k % PACK_BLOCK == 0 and n % 64 == 0, f"dequant kernel needs K % 256 == 0, N % 64 == 0 (K={k}, N={n})")
+    _build.require(k % PACK_BLOCK == 0 and n % 64 == 0,
+                   f"dequant kernel needs K % 256 == 0, N % 64 == 0 (K={k}, N={n})")
     _build.require(tuple(rescales.shape) == (k // g, n),
                    f"{codes} rescales must be (K/{g}, N) = {(k // g, n)}, got {tuple(rescales.shape)}")
     out_t = torch.empty((n, k), dtype=torch.int8, device=qweight.device)
     lib = _build.library()
     _build.check(lib.nt_dequant_w4a8(qweight.data_ptr(), rescales.data_ptr(), out_t.data_ptr(), k, n,
-                                     int(codes == "e2m1"), _stream(qweight)), "dequant_w4a8")
-    (DEQUANT_E2M1 if codes == "e2m1" else dequant_w4a8).launches += 1
+                                     int(codes == "e2m1"), idx_ptr, n_layers, _stream(qweight)), "dequant_w4a8")
+    if layer_idx is not None:
+        STACKED_COUNTS["dequant_w4a8_stacked"].launches += 1
+    else:
+        (DEQUANT_E2M1 if codes == "e2m1" else dequant_w4a8).launches += 1
     return out_t.t()
 
 
@@ -433,9 +482,10 @@ def gemm_w4a8_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up
                                    proj_up, bias)
 
 
-def _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias):
+def _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, layer_idx=None):
     m, k = qact.shape
-    n = qweight.shape[1]
+    _, idx_ptr, n_layers = _stacked(qweight, layer_idx)
+    n = qweight.shape[-1]
     ga = ascales.shape[0]
     r = 0 if lora_act is None else lora_act.shape[1]
     _build.require(qact.dtype == torch.int8 and n % KERNEL_TILE_N == 0 and k % ga == 0
@@ -453,22 +503,26 @@ def _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, b
     lib = _build.library()
     _build.check(lib.nt_gemm_w4a8(qa.data_ptr(), a_s.data_ptr(), qweight.data_ptr(), rescales.data_ptr(),
                                   w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m + pad, n, k, ga,
-                                  r, _stream(qact)), "gemm_w4a8")
+                                  r, idx_ptr, n_layers, _stream(qact)), "gemm_w4a8")
     return out[:m]
 
 
-def gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None):
+def gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None, layer_idx=None):
     """The packed GEMM in rank-1 mode (JAX ``_gemm_w4a8h_kernel``, and
     ``_gemm_w4a8_kernel`` of explicit tiles): qact (M, K) int8, ascales
     (1, M) f32, qweight (K/2, N) packed int4 codes, rescales (K/64, N) bf16,
     wscales (1, N) f32; lora_act (M, R), proj_up (R, N), bias (N,) or None
-    -> (M, N) bf16 (:func:`gemm_w4a8_plain`)."""
+    -> (M, N) bf16 (:func:`gemm_w4a8_plain`). ``layer_idx``: qweight is an
+    (L, K/2, N) stack, the product takes its layer ``layer_idx`` (count
+    ``gemm_w4a8_stacked``; the other operands are that layer's)."""
     _build.require(ascales.ndim == 2 and ascales.shape[0] == 1, "rank-1 ascales must be (1, M)")
-    _require_packed(qweight, rescales, qact.shape[1])
     if not qact.is_cuda:
-        return gemm_w4a8_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
-    out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
-    gemm_w4a8.launches += 1
+        layer = qweight if layer_idx is None else layer_of(qweight, layer_idx)
+        _require_packed(layer, rescales, qact.shape[1])
+        return gemm_w4a8_plain(qact, ascales, layer, rescales, wscales, lora_act, proj_up, bias)
+    _require_packed(_stacked(qweight, layer_idx)[0], rescales, qact.shape[1])
+    out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, layer_idx)
+    (gemm_w4a8 if layer_idx is None else STACKED_COUNTS["gemm_w4a8_stacked"]).launches += 1
     return out
 
 
@@ -554,7 +608,8 @@ def gemm_w4a4_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *,
     return out.to(torch.bfloat16)
 
 
-def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, precision, act_unsigned=False):
+def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, precision, act_unsigned=False,
+              layer_idx=None):
     """The W4A4 product of :func:`gemm_w4a4_plain` -> (M, N) bf16.
 
     qact (M, K/2) int8 packed along K; ascales (K/G, M) bf16; qweight the
@@ -562,18 +617,25 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
     ``SVDQW4A4Linear`` keeps it; another layout raises); wscales (K/G, N) bf16;
     lora_act (M, R) f32, proj_up (R, N), bias (N,) or None. G = 64 (int4)
     or 16 (nvfp4); ``act_unsigned`` only with int4. Each mode keeps its own
-    launch count (:data:`W4A4_COUNTS`)."""
+    launch count (:data:`W4A4_COUNTS`). ``layer_idx``: qweight is an (L, K/2,
+    N) stack whose layers are each stored K-contiguous, and the product
+    takes its layer ``layer_idx`` (counts ``gemm_w4a4_int4_stacked`` /
+    ``gemm_w4a4_nvfp4_stacked``; signed activations only, as no stacked
+    path of the port has unsigned ones)."""
     if (precision, bool(act_unsigned)) not in W4A4_MODES:
         raise ValueError(f"no W4A4 mode for precision {precision!r} with act_unsigned={act_unsigned}")
+    if layer_idx is not None and act_unsigned:
+        raise NotImplementedError("the stacked W4A4 mode takes signed activations")
     if not qact.is_cuda:
-        return gemm_w4a4_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
-                               precision=precision, act_unsigned=act_unsigned)
+        return gemm_w4a4_plain(qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx),
+                               wscales, lora_act, proj_up, bias, precision=precision, act_unsigned=act_unsigned)
     mode, count = W4A4_MODES[(precision, bool(act_unsigned))]
+    layer, idx_ptr, n_layers = _stacked(qweight, layer_idx)
     m, half = qact.shape
-    k, n = 2 * half, qweight.shape[1]
+    k, n = 2 * half, layer.shape[1]
     g = group_size(precision)
     _build.require(qact.dtype == torch.int8 and qact.is_contiguous(), "qact: contiguous int8")
-    _build.require(qweight.dtype == torch.int8 and qweight.shape[0] == half and qweight.t().is_contiguous(),
+    _build.require(qweight.dtype == torch.int8 and layer.shape[0] == half and layer.t().is_contiguous(),
                    "qweight: (K/2, N) int8 stored K-contiguous")
     _build.require(k % PACK_BLOCK == 0 and n % W4A4_TILE_N == 0 and m % 8 == 0,
                    f"W4A4 kernel needs K % 256, N % 128, M % 8 == 0 (M={m}, K={k}, N={n})")
@@ -587,9 +649,9 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
     out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
     lib = _build.library()
     _build.check(lib.nt_gemm_w4a4(qact.data_ptr(), ascales.data_ptr(), qweight.data_ptr(), wscales.data_ptr(),
-                                  _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m, n, k, r, mode,
-                                  _stream(qact)), "gemm_w4a4")
-    W4A4_COUNTS[count].launches += 1
+                                  _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m, n, k, r, mode, idx_ptr,
+                                  n_layers, _stream(qact)), "gemm_w4a4")
+    (W4A4_COUNTS[count] if layer_idx is None else STACKED_COUNTS[count + "_stacked"]).launches += 1
     return out
 
 
@@ -599,8 +661,9 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
 
 
 def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None, bias=None,
-                   rescales=None, *, precision="int8", act_unsigned=False, residual=None, wcodes="int4"):
-    """The non-stacked branches of the JAX ``svdq_gemm_w4a4``, in its order
+                   rescales=None, *, precision="int8", act_unsigned=False, residual=None, wcodes="int4",
+                   layer_idx=None):
+    """The branches of the JAX ``svdq_gemm_w4a4``, in its order
     (gemm.py:1975-2117).
 
     int8: qact (M, K) int8, ascales (1, M) per token or (G, M) grouped,
@@ -616,21 +679,35 @@ def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None,
     activations): :func:`gemm_w4a4`. ``residual = (x, gate[, extra[,
     extra_la, extra_pu]])`` adds the block's gated residual
     (:func:`res_apply`): in the int8 grouped kernel's epilogue, else after
-    the GEMM."""
+    the GEMM.
+
+    ``layer_idx`` (a 0-d int32 tensor on the card, or on the CPU for the
+    twins): ``qweight`` is the (L, K/2, N) stack of a 4-bit scan and the
+    layer ``layer_idx`` is read by the kernel (the JAX scans'
+    ``attach_stacked_weights``): int4 / nvfp4 take the W4A4 kernel's stacked
+    mode, w4a8 the stacked dequant or, on the packed route, the packed
+    GEMM's stacked rank-1 mode. int8 weights and the packed chain's grouped
+    consumer have no stacked form here (JAX slices the int8 layer in XLA)."""
+    if layer_idx is not None and not (is_4bit(precision) or precision == "w4a8"):
+        raise ValueError(f"{precision!r} weights have no stacked form: pass the layer's own qweight")
     if is_4bit(precision):
         out = gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, precision=precision,
-                        act_unsigned=act_unsigned)
+                        act_unsigned=act_unsigned, layer_idx=layer_idx)
         return out if residual is None else res_apply(out, *residual)
     if precision == "w4a8":
         grouped = ascales.ndim == 2 and ascales.shape[0] > 1
+        if grouped and layer_idx is not None:
+            raise NotImplementedError("the packed chain's grouped consumer has no stacked mode in the port")
         if grouped or not (w4a8_use_xla() or wcodes == "e2m1"):
             if wcodes == "e2m1":
                 raise ValueError("e2m1-coded w4a8 (nvfp4-a8) has no packed chain kernel; the MLP chain "
                                  "dequantizes its weights first (gelu_mlp)")
-            out = (gemm_w4a8_grouped if grouped else gemm_w4a8)(qact, ascales, qweight, rescales, wscales,
-                                                                 lora_act, proj_up, bias)
+            if grouped:
+                out = gemm_w4a8_grouped(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
+            else:
+                out = gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, layer_idx)
             return out if residual is None else res_apply(out, *residual)
-        qweight = dequant_w4a8(qweight, rescales, wcodes)
+        qweight = dequant_w4a8(qweight, rescales, wcodes, layer_idx)
     elif precision != "int8":
         raise NotImplementedError(f"precision {precision!r} is not ported")
     if ascales.ndim == 2 and ascales.shape[0] > 1:

@@ -79,11 +79,11 @@ def gelu_jax(x: torch.Tensor) -> torch.Tensor:
     return x * (0.5 * (1.0 + torch.tanh(z)))
 
 
-def rmsnorm(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """RMSNorm in f32 with eps 1e-6."""
+def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32 (eps 1e-6 unless given)."""
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
-    return xf * torch.rsqrt(var + 1e-6) * weight.float()
+    return xf * torch.rsqrt(var + eps) * weight.float()
 
 
 def layer_norm(x: torch.Tensor) -> torch.Tensor:

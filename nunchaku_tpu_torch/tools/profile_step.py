@@ -1,5 +1,5 @@
-"""Where one FLUX.1-dev, Qwen-Image, SDXL or SANA denoise step, or one VAE
-decode, spends its time on the card.
+"""Where one FLUX.1-dev, Qwen-Image, SDXL, SANA or Z-Image denoise step, or
+one VAE decode, spends its time on the card.
 
     python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|nvfp4-a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --precision int4 --size 2048 --sparsity 0.5 [--out TABLE.txt]
@@ -7,6 +7,7 @@ decode, spends its time on the card.
         [--online-softmax] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model sdxl [--size 1024|512] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model sana [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --model zimage [--precision P] [--rank R] [--turbo] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --decode [--whole] [--out TABLE.txt]
 
 Default: builds the full-width, full-depth model (w4a8, or ``--precision``)
@@ -39,6 +40,12 @@ flash kernel's D-64 form (``flash_online_d64``).
 tokens) against 300 random text embeddings; its D-112 online flash
 (``flash_online_d112``) is a group of its own, its depthwise convolutions
 fall in the convolutions group.
+``--model zimage``: the full Z-Image-Turbo transformer (dim 3840, 30 + 2 +
+2 blocks; int4 unless ``--precision`` says otherwise, w4a8 following the
+route switches), one forward at B 1 at 1024x1024 (4096 image tokens)
+against 512 caption tokens, its linears reading their stacks by layer index
+(the stacked modes, each a group of its own); ``--turbo``: after
+``enable_fused_qkv_prep()`` (the qkv/RoPE producer).
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -200,12 +207,12 @@ def _report(header, what, wall_plain, wall, prof, grouping, out, extra=None):
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev, Qwen-Image, SDXL or SANA forward or one VAE "
-                                             "decode")
+    ap = argparse.ArgumentParser(description="profile one FLUX.1-dev, Qwen-Image, SDXL, SANA or Z-Image forward or "
+                                             "one VAE decode")
     ap.add_argument("--out", help="file for the full key_averages table")
-    ap.add_argument("--model", choices=("flux", "qwenimage", "sdxl", "sana"), default="flux",
+    ap.add_argument("--model", choices=("flux", "qwenimage", "sdxl", "sana", "zimage"), default="flux",
                     help="the denoiser: FLUX.1-dev (w4a8 by default), Qwen-Image (int4 by default), the "
-                         "SDXL UNet (int4) or SANA 1.6B (int4)")
+                         "SDXL UNet (int4), SANA 1.6B (int4) or Z-Image-Turbo (int4 by default)")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
     ap.add_argument("--precision", choices=("w4a8", "nvfp4-a8", "int4", "nvfp4"),
@@ -229,6 +236,9 @@ def main(argv=None) -> int:
     if args.model == "sana" and (args.turbo or args.sparsity or args.online_softmax or args.size != 1024
                                  or args.precision not in (None, "int4")):
         ap.error("SANA runs int4 at 1024px (no options)")
+    if args.model == "zimage" and (args.sparsity or args.online_softmax or args.size != 1024
+                                   or args.precision == "nvfp4-a8"):
+        ap.error("Z-Image runs at 1024px with the fixed softmax (--precision int4 | nvfp4 | w4a8, --rank, --turbo)")
     if args.turbo and args.sparsity:
         ap.error("block-sparse attention runs with the unfused prologue only (no --turbo)")
     if args.precision is None:
@@ -302,6 +312,42 @@ def main(argv=None) -> int:
             wall_plain, wall, prof = _trace(lambda: model(*inputs))
         header = (f"card: {smi}; torch {torch.__version__}; SANA 1.6B int4 (20 blocks, dim 2240) at 1024px "
                   f"(32x32 latent tokens), B 2 (one CFG step), 300 text tokens")
+        _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
+        return 0
+
+    if args.model == "zimage":
+        from nunchaku_tpu_torch.models import linear, transformer_zimage
+        from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+        cfg = transformer_zimage.ZImageConfig(dim=3840, num_layers=30, num_refiner_layers=2, num_attention_heads=30,
+                                              cap_feat_dim=2560, precision=args.precision, rank=args.rank)
+        model = transformer_zimage.ZImageTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        if args.turbo:
+            model.enable_fused_qkv_prep()
+        inputs = (torch.randn((1, 4096, 64), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn((1, 512, cfg.cap_feat_dim), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.full((1,), 0.5, device=dev), make_img_ids(64, 64, dev),
+                  torch.zeros((512, 3), dtype=torch.int32, device=dev))
+        linear.quantize_w4a4_act_fuse_lora = _ranged(linear.quantize_w4a4_act_fuse_lora, QUANT_RANGE)
+        transformer_zimage.quantize_w4a4_act_fuse_lora = _ranged(transformer_zimage.quantize_w4a4_act_fuse_lora,
+                                                                 QUANT_RANGE)
+
+        def extra(prof):
+            with torch.no_grad():
+                reset_launch_counts()
+                model(*inputs)
+            ran = {k: v for k, v in launch_counts().items() if v}
+            return ([f"launches per forward: {ran}", "torch glue by caller (device ms, inside the groups above):"]
+                    + [f"  {ms:9.2f} ms  {name}" for name, ms in sorted(glue_by_range(prof).items())])
+        with torch.no_grad():
+            wall_plain, wall, prof = _trace(lambda: model(*inputs))
+        what = f"Z-Image-Turbo {args.precision} rank {args.rank} (30 + 2 + 2 blocks, dim 3840, stacked)"
+        if args.precision == "w4a8":
+            from nunchaku_tpu_torch.ops.gemm import w4a8_use_xla
+
+            what += f", w4a8 route NUNCHAKU_TPU_W4A8_XLA={'1' if w4a8_use_xla() else '0'}"
+        header = (f"card: {smi}; torch {torch.__version__}; {what}{', fused qkv prep' if args.turbo else ''} at 1024px "
+                  f"(4096 image tokens), B 1, 512 caption tokens")
         _report(header, "forward", wall_plain, wall, prof, group_of, args.out, extra)
         return 0
 

@@ -16,6 +16,10 @@ files of the published layouts filled with random values:
   6720 -> 6784, 11200 -> 11264), the random codes of the padded rows and
   columns meeting zero activations or cut off by the logical width;
   ``pag_layers`` carry ``attn.pag_to_v``;
+* :func:`zimage_state` -- a Z-Image transformer in the v2 schema
+  (``svdq-int4_r32/r128/r256-z-image-turbo``, ``svdq-fp4_r32/r128-z-image-turbo``;
+  Z-Image-Turbo's dims by default), int4 or nvfp4 at any rank,
+  ``skip_refiners`` for 16-bit refiner linears;
 * :func:`t5_state` (TinyChat W4 linears), :func:`clip_state` and
   :func:`vae_state` (bf16 HF / diffusers files).
 
@@ -201,6 +205,54 @@ def sana_state(*, layers=20, heads=70, cross_heads=20, caption=2304, expand_rati
                   num_cross_attention_heads=cross_heads, cross_attention_head_dim=dim // cross_heads,
                   caption_channels=caption, in_channels=32, out_channels=32, expand_ratio=expand_ratio)
     return t, _meta(config, {"method": "svdquant", "weight": {"dtype": "int4", "group_size": 64}, "rank": rank})
+
+
+def zimage_state(*, dim=3840, layers=30, refiners=2, heads=30, cap=2560, ffn_inner=10240, t_dim=None, rank=32,
+                 precision="int4", skip_refiners=False, seed=0, device="cuda"):
+    """-> (tensors, metadata) of a Z-Image v2-schema checkpoint: Z-Image-Turbo's
+    transformer dims by default (dim 3840, 30 layers, 2 + 2 refiner layers,
+    30 heads of 128, caption features 2560, FFN 10240, axes (32, 48, 48), 16
+    latent channels, patch 2). The timestep embedder and adaLN linears are
+    ``t_dim`` wide (default min(dim, 1024), the JAX ``random_init``'s; the
+    loader takes their shapes from the file). The nvfp4 per-channel
+    ``wcscales`` are left out (the loaders take them when present)."""
+    d, t = _Draw(seed, device), {}
+    td = min(dim, 1024) if t_dim is None else t_dim
+    hd = dim // heads
+
+    def block(p, modulated, quantized):
+        for name, k, n in (("attention.to_qkv", dim, 3 * dim), ("attention.to_out.0", dim, dim),
+                           ("feed_forward.net.0.proj", dim, 2 * ffn_inner), ("feed_forward.net.2", ffn_inner, dim)):
+            if quantized:
+                _svdq(t, d, f"{p}.{name}", k, n, rank, precision, v2=True)
+            else:
+                _linear(t, d, f"{p}.{name}", k, n)
+        for nm in ("norm_q", "norm_k"):
+            _ones(t, d, f"{p}.attention.{nm}.weight", hd)
+        for nm in ("attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2"):
+            _ones(t, d, f"{p}.{nm}.weight", dim)
+        if modulated:
+            _linear(t, d, f"{p}.adaLN_modulation.1", td, 4 * dim)
+
+    for i in range(layers):
+        block(f"layers.{i}", True, True)
+    for i in range(refiners):
+        block(f"noise_refiner.{i}", True, not skip_refiners)
+        block(f"context_refiner.{i}", False, not skip_refiners)
+    for name, k, n in (("x_embedder", 64, dim), ("t_embedder.mlp.0", 256, td), ("t_embedder.mlp.2", td, td),
+                       ("cap_embedder.1", cap, dim), ("final_layer.linear", dim, 64),
+                       ("final_layer.adaLN_modulation.1", td, dim)):
+        _linear(t, d, name, k, n)
+    _ones(t, d, "cap_embedder.0.weight", cap)
+    _ones(t, d, "norm_out.weight", dim)
+    config = dict(dim=dim, num_layers=layers, num_refiner_layers=refiners, num_attention_heads=heads, in_channels=16,
+                  patch_size=2, cap_feat_dim=cap, axes_dims_rope=[32, 48, 48], norm_eps=1e-5, ffn_inner=ffn_inner)
+    weight = {"dtype": "fp4_e2m1_all", "group_size": 16} if precision == "nvfp4" else {"dtype": "int4",
+                                                                                        "group_size": 64}
+    qcfg = {"method": "svdquant", "weight": weight, "rank": rank}
+    if skip_refiners:
+        qcfg["skip_refiners"] = True
+    return t, _meta(config, qcfg)
 
 
 def t5_state(*, vocab=32128, d_model=4096, d_ff=10240, d_kv=64, heads=64, layers=24, group=128, seed=0,

@@ -602,3 +602,116 @@ def test_packed_small_model_matches_cpu(dev, monkeypatch, turbo):
     expect = {"gemm_w4a8": 6, "gemm_w4a8_gelu_quant": 3, "gemm_w4a8_grouped": 3, "flash_fixed": 2}
     assert c == (expect | {"qkv_rope_producer": 3} if turbo else expect), c
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+
+
+# the stacked (layer-index) modes and Z-Image
+
+
+@pytest.mark.parametrize("m,k,n,precision", [
+    (4608, 3840, 11520, "int4"),   # Z-Image's qkv over the joint stream
+    (4608, 10240, 3840, "int4"),   # w2
+    (4096, 3840, 20480, "nvfp4"),  # the noise refiner's w13
+    (512, 3840, 3840, "nvfp4"),    # the context refiner's out projection
+    (136, 512, 384, "int4"),
+])
+def test_gemm_w4a4_stacked(dev, m, k, n, precision):
+    _, ok, detail = checks.check_w4a4_stacked(*checks.w4a4_case(m, k, n, precision, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("k,n", [(3840, 11520), (10240, 3840), (256, 128)])
+def test_dequant_w4a8_stacked(dev, k, n):
+    _, ok, detail = checks.check_dequant_stacked(*checks.dequant_case(k, n, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,r", [(4608, 3840, 11520, 32), (512, 10240, 3840, 128), (200, 512, 256, 16)])
+def test_gemm_w4a8_stacked(dev, m, k, n, r):
+    _, ok, detail = checks.check_w4a8_stacked(*checks.w4a8_case(m, k, n, r, device=dev))
+    assert ok, detail
+
+
+def test_stacked_counts_clamp_and_refusals(dev):
+    """Each stacked mode counts apart from its non-stacked form; an index
+    past either end reads the nearest layer (the kernels clamp, reading
+    nothing outside the stack); an index on the host, of another type or a
+    stack whose layers are not back to back is refused."""
+    reset_launch_counts()
+    args, kw = checks.w4a4_case(128, 256, 128, "int4", device=dev)
+    qa, asc, qw, wsc = args[:4]
+    stack, ids = checks.stack_case(qw)
+    out = gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=ids[1])
+    args4, kw4 = checks.w4a4_case(128, 256, 128, "nvfp4", device=dev)
+    stack4, ids4 = checks.stack_case(args4[2])
+    gemm_w4a4(*args4[:2], stack4, *args4[3:], **kw4, layer_idx=ids4[0])
+    qw8, rs = checks.dequant_case(256, 128, device=dev)
+    stack8, ids8 = checks.stack_case(qw8)
+    dequant_w4a8(stack8, rs, layer_idx=ids8[2])
+    a8 = checks.w4a8_case(128, 256, 128, device=dev)
+    gemm_w4a8(*a8[:2], stack8, *a8[3:], layer_idx=ids8[0])
+    c = launch_counts()
+    assert (c["gemm_w4a4_int4_stacked"], c["gemm_w4a4_nvfp4_stacked"], c["dequant_w4a8_stacked"],
+            c["gemm_w4a8_stacked"]) == (1, 1, 1, 1)
+    assert c["gemm_w4a4_int4"] == c["gemm_w4a4_nvfp4"] == c["dequant_w4a8"] == c["gemm_w4a8"] == 0
+    assert torch.equal(out, gemm_w4a4(qa, asc, stack[1], wsc, *args[4:], **kw))
+    for bad, layer in ((3, 2), (-5, 0), (1 << 30, 2)):
+        idx = torch.tensor(bad, dtype=torch.int32, device=dev)
+        assert torch.equal(gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=idx),
+                           gemm_w4a4(qa, asc, stack[layer], wsc, *args[4:], **kw))
+        assert torch.equal(dequant_w4a8(stack8, rs, layer_idx=idx), dequant_w4a8(stack8[layer], rs))
+    with pytest.raises(ValueError):  # the index on the host
+        gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=torch.tensor(1, dtype=torch.int32))
+    with pytest.raises(ValueError):  # int64
+        dequant_w4a8(stack8, rs, layer_idx=torch.tensor(1, device=dev))
+    with pytest.raises(ValueError):  # every other layer: not back to back
+        dequant_w4a8(torch.cat([stack8, stack8])[::2], rs, layer_idx=ids8[0])
+    with pytest.raises(ValueError):  # int8 weights have no stacked form
+        svdq_gemm_w4a4(a8[0], a8[1], stack8, a8[4], precision="int8", layer_idx=ids8[0])
+    torch.cuda.synchronize()
+
+
+ZIMAGE_SMALL = dict(dim=512, num_layers=2, num_refiner_layers=1, num_attention_heads=4, cap_feat_dim=512,
+                    ffn_inner=1024)  # tests/test_torch_zimage.py's tiny config
+ZIMAGE_TOL = {"int4": 3.7e-2, "int8": 6.4e-3, "w4a8": 7.8e-3, "nvfp4": 2.6e-2}  # its model bounds
+
+
+@pytest.mark.parametrize("precision,variant", [("int4", "plain"), ("int4", "fused"), ("nvfp4", "plain"),
+                                               ("w4a8", "plain"), ("w4a8", "packed"), ("int8", "fused")])
+def test_zimage_small_model_matches_cpu(dev, monkeypatch, precision, variant):
+    """The small Z-Image (its adaLN damped, checks.damp_zimage_modulation) on
+    the card against the plain twins on the CPU within the CPU tests' model
+    bound of its precision; launches exact per forward: four stacked GEMMs
+    (or dequants) a block of the active mode, one flash_fixed a block, one
+    producer a block after the fused prep, no non-stacked 4-bit launch."""
+    from nunchaku_tpu_torch import ZImageConfig, ZImageTransformer2DModel
+
+    if variant == "packed":
+        monkeypatch.setenv("NUNCHAKU_TPU_W4A8_XLA", "0")
+    cfg = ZImageConfig(**ZIMAGE_SMALL, precision=precision)
+    cpu_model = ZImageTransformer2DModel.random_init(cfg, seed=21, device="cpu")
+    checks.damp_zimage_modulation(cpu_model)
+    if variant == "fused":
+        cpu_model.enable_fused_qkv_prep()
+    model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(22)
+    x = torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16)
+    c = torch.randn((1, 64, 512), generator=gen).to(torch.bfloat16)
+    t = torch.tensor([0.5])
+    ii, ti = make_img_ids(16, 16), torch.zeros((64, 3), dtype=torch.int32)
+    with torch.no_grad():
+        ref = cpu_model(x, c, t, ii, ti).float()
+        reset_launch_counts()
+        out = model(x.to(dev), c.to(dev), t.to(dev), ii, ti).float().cpu()
+    counts = launch_counts()
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    assert bool(torch.isfinite(out).all()) and rel <= ZIMAGE_TOL[precision], rel
+    blocks = 4
+    mode = {"int4": "gemm_w4a4_int4_stacked", "nvfp4": "gemm_w4a4_nvfp4_stacked",
+            "w4a8": "gemm_w4a8_stacked" if variant == "packed" else "dequant_w4a8_stacked", "int8": None}[precision]
+    want = {"flash_fixed": blocks}
+    if variant == "fused":
+        want["qkv_rope_producer"] = blocks
+    if mode:
+        want[mode] = 4 * blocks
+    assert {k: v for k, v in counts.items() if v} == want, counts
+

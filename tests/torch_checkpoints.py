@@ -6,7 +6,8 @@ Values are drawn with numpy from a seed and packed with the JAX package's
 the port's decoders are checked against files they had no part in making.
 FLUX in the v1 schema (MMA-packed low-rank factors), Qwen-Image in the v2
 schema (plain ``proj_down`` / ``proj_up``, ``smooth_factor``), SANA in the v1
-schema (odd widths zero-padded, as nunchaku stores them), a TinyChat W4 T5,
+schema (odd widths zero-padded, as nunchaku stores them), Z-Image in the v2
+schema (int4 or nvfp4, optionally with 16-bit refiners), a TinyChat W4 T5,
 and HF CLIP / diffusers VAE state dicts.
 
 e2m1 codes are drawn in [-7, 7], the codes a quantizer emits: the JAX
@@ -329,6 +330,58 @@ def sana_checkpoint(path, dims=None, pag_layers=(1,), seed=0):
                   num_cross_attention_heads=d["cross_heads"], cross_attention_head_dim=dim // d["cross_heads"],
                   caption_channels=d["caption"], in_channels=32, out_channels=32, expand_ratio=hid / dim)
     meta = _meta(config, "int4", rank)
+    save_safetensors(path, t, meta)
+    return path
+
+
+ZIMAGE = dict(dim=256, heads=2, layers=2, refiners=1, cap=256, ffn=512, t_dim=1024, rank=16)
+
+
+def zimage_checkpoint(path, precision="int4", skip_refiners=False, seed=0):
+    """A Z-Image checkpoint in the v2 schema (the layout of the JAX package's
+    ``tests/test_zimage.py`` at ``ZIMAGE``'s dims: 2 heads of 128, the
+    timestep embedder and the adaLN linears 1024 wide whatever the dim, as
+    that file has them); int4 or nvfp4, the refiners' linears 16-bit under
+    ``skip_refiners``. The adaLN weights are drawn at a quarter of the plain
+    weights' scale (small modulation, as above)."""
+    d = ZIMAGE
+    dim, ffn, rank, td = d["dim"], d["ffn"], d["rank"], d["t_dim"]
+    rng = np.random.default_rng(seed)
+    t = {}
+
+    def block(p, modulated, quantized):
+        for name, k, n in (("attention.to_qkv", dim, 3 * dim), ("attention.to_out.0", dim, dim),
+                           ("feed_forward.net.0.proj", dim, 2 * ffn), ("feed_forward.net.2", ffn, dim)):
+            if quantized:
+                _svdq(t, rng, f"{p}.{name}", k, n, rank, precision, v2=True)
+            else:
+                _linear(t, rng, f"{p}.{name}", k, n)
+        for nm in ("norm_q", "norm_k"):
+            _norm(t, rng, f"{p}.attention.{nm}.weight", HEAD_DIM)
+        for nm in ("attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2"):
+            _norm(t, rng, f"{p}.{nm}.weight", dim)
+        if modulated:
+            t[f"{p}.adaLN_modulation.1.weight"] = (rng.standard_normal((4 * dim, td)) * 0.25 / np.sqrt(td)).astype(BF16)
+            t[f"{p}.adaLN_modulation.1.bias"] = (rng.standard_normal(4 * dim) * 0.02).astype(BF16)
+
+    for i in range(d["layers"]):
+        block(f"layers.{i}", True, True)
+    for i in range(d["refiners"]):
+        block(f"noise_refiner.{i}", True, not skip_refiners)
+        block(f"context_refiner.{i}", False, not skip_refiners)
+    for name, k, n in (("x_embedder", 64, dim), ("t_embedder.mlp.0", 256, td), ("t_embedder.mlp.2", td, td),
+                       ("cap_embedder.1", d["cap"], dim), ("final_layer.linear", dim, 64)):
+        _linear(t, rng, name, k, n)
+    t["final_layer.adaLN_modulation.1.weight"] = (rng.standard_normal((dim, td)) * 0.25 / np.sqrt(td)).astype(BF16)
+    t["final_layer.adaLN_modulation.1.bias"] = (rng.standard_normal(dim) * 0.02).astype(BF16)
+    _norm(t, rng, "cap_embedder.0.weight", d["cap"])
+    _norm(t, rng, "norm_out.weight", dim)
+    config = dict(dim=dim, num_layers=d["layers"], num_refiner_layers=d["refiners"], num_attention_heads=d["heads"],
+                  in_channels=16, patch_size=2, cap_feat_dim=d["cap"], axes_dims_rope=[32, 48, 48], ffn_inner=ffn)
+    meta = _meta(config, precision, rank)
+    if skip_refiners:
+        qcfg = json.loads(meta["quantization_config"])
+        meta["quantization_config"] = json.dumps({**qcfg, "skip_refiners": True})
     save_safetensors(path, t, meta)
     return path
 
