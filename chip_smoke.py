@@ -39,7 +39,11 @@ Phases, each fatal on failure:
                   (M 4608, K 3840, N 11520): the W4A4 GEMM at int4 and nvfp4,
                   the dequant and the packed w4a8 GEMM (R 32; R 128 logged),
                   each bit for bit the non-stacked kernel on every layer of a
-                  3-layer stack and timed beside it;
+                  3-layer stack and timed beside it; the chain modes FLUX.1-dev's
+                  stacks reach (the int8 producer stacked, its per-token mode,
+                  the consumer grouped, grouped with the residual, rank-1 and
+                  rank-1 with the residual, the packed producer and grouped
+                  consumer, all stacked) at FLUX's fc1 / fc2, the same way;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -103,6 +107,15 @@ Phases, each fatal on failure:
                   the misses' full forwards, the hits' dual and single block 0;
                   9 flash_online per tiled decode), the outputs must be finite
                   (images in [0, 1]); each path reports its peak memory.
+  5b. flux-int8 -- the small 2 + 3-block int8 model on its stacks, card vs CPU
+                  with the grouped and the per-token chain (2e-2, launches exact);
+                  then FLUX.1-dev int8 at full width and depth on stacks
+                  (bench.py --dense's configuration): one forward per chain
+                  (grouped; NUNCHAKU_TPU_CHAIN_PTOKEN=1) in the default and the
+                  turbo configuration, and one turbo request of min(4, --steps)
+                  steps with the T5-XXL encode, cache="double_fb" at 0.5 and the
+                  tiled VAE to an image; launch counts exact (76 stacked chain
+                  producers and 76 consumers a forward).
   6. highres  -- FLUX.1-dev int4 (default configuration) under
                   set_attention_impl("blocksparse", sparsity_ratio=0.5) at
                   2048x2048 from prompts: a stand-in tokenizer, T5-XXL + CLIP-L
@@ -177,6 +190,10 @@ Phases, each fatal on failure:
                   Counts exact per forward (136 stacked launches of the active
                   mode, 34 flash_fixed, 34 producers under B; 9 flash_online per
                   tiled decode).
+FLUX and Qwen-Image hold their blocks as stacks, so their 4-bit GEMMs and
+dequants count under the stacked modes' names (mode + "_stacked"); a kernel
+row counts every launch of its mode, a *_stacked row the stacked ones alone
+(row_launches).
 The last lines are the kernels' JSON record, nvidia-smi's name and power limit,
 and {"ok": true, "device": {...}}. Without a CUDA device it exits 1 and prints
 no result. Imports neither JAX nor the JAX package.
@@ -238,6 +255,14 @@ ZI_MODES = {"int4": "gemm_w4a4_int4_stacked", "nvfp4": "gemm_w4a4_nvfp4_stacked"
             "w4a8 packed": "gemm_w4a8_stacked", "int8": None}
 PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
            "a bowl of ramen on a wooden table, studio light")
+
+
+def row_launches(name: str, counts: dict) -> int:
+    """A kernel row's launches: every launch of its mode, whether on a
+    layer's own weight or on a stack (``name + "_stacked"``: the same
+    kernel, its weight pointer moved); a ``*_stacked`` row counts the
+    stacked launches alone."""
+    return counts[name] + counts.get(name + "_stacked", 0)
 
 
 def log(msg: str) -> None:
@@ -313,12 +338,11 @@ def gelu_quant_out_bytes(m, n, r=RANK):
 
 
 @contextlib.contextmanager
-def packed_route():
-    """The JAX package's w4a8 route switches set to the packed-int4 route
-    (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1) inside, as they
+def switches(**values):
+    """The JAX package's route switches set to ``values`` inside, as they
     were after."""
-    old = {k: os.environ.get(k) for k in ("NUNCHAKU_TPU_W4A8_XLA", "NUNCHAKU_TPU_W4A8_FUSED")}
-    os.environ.update(NUNCHAKU_TPU_W4A8_XLA="0", NUNCHAKU_TPU_W4A8_FUSED="1")
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
     try:
         yield
     finally:
@@ -327,6 +351,17 @@ def packed_route():
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def packed_route():
+    """The w4a8 route switches set to the packed-int4 route
+    (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1)."""
+    return switches(NUNCHAKU_TPU_W4A8_XLA="0", NUNCHAKU_TPU_W4A8_FUSED="1")
+
+
+def chain_ptoken(on: bool):
+    """The int8 chain's per-token switch (NUNCHAKU_TPU_CHAIN_PTOKEN) set."""
+    return switches(NUNCHAKU_TPU_CHAIN_PTOKEN="1" if on else "0")
 
 
 def w4a4_bound(m, k, n, g, r=RANK, k_ops=None):
@@ -646,6 +681,7 @@ def kernel_phase(dev):
     sdxl_kernel_rows(dev, record, failed)
     sana_kernel_rows(dev, record, failed)
     zimage_kernel_rows(dev, record, failed)
+    flux_int8_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -821,9 +857,9 @@ def per_forward_bounds(cfg) -> dict:
     def deq(k, n, g=64):
         return bound(deq_bytes(k, n, g))[0]
 
-    def chain(m, res=0):
-        """res: 0 none, 1 (x, gate), 2 (x, gate, extra, extra_la, extra_pu)."""
-        nj = HID // 1536
+    def chain(m, res=0, nj=HID // 1536):
+        """res: 0 none, 1 (x, gate), 2 (x, gate, extra, extra_la, extra_pu);
+        nj: scale groups (1: the per-token chain)."""
         prod = bound(gemm_bytes(m, DIM, HID, RANK, m * HID + 4 * nj * m + 4 * m * RANK),
                      2 * m * HID * DIM, 4 * m * HID * RANK)[0]
         extra = 0 if res == 0 else res_bytes(m, DIM, 1, RANK if res == 2 else 0)
@@ -853,12 +889,14 @@ def per_forward_bounds(cfg) -> dict:
     dual = [chain(S_IMG), chain(S_TXT)]
     single = chain(T)
     return {
-        "gemm_w4a8": L * (standalone(S_IMG) + standalone(S_TXT)) + Ls * standalone(T),
-        "gemm_w4a8_gelu_quant": L * (w4prod(S_IMG) + w4prod(S_TXT)) + Ls * w4prod(T),
-        "gemm_w4a8_grouped": L * (w4a8(S_IMG, HID, DIM, 8) + w4a8(S_TXT, HID, DIM, 8)) + Ls * w4a8(T, HID, DIM, 8),
-        "dequant_w4a8": L * 2 * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM))
+        "gemm_w4a8_stacked": L * (standalone(S_IMG) + standalone(S_TXT)) + Ls * standalone(T),
+        "gemm_w4a8_gelu_quant_stacked": L * (w4prod(S_IMG) + w4prod(S_TXT)) + Ls * w4prod(T),
+        "gemm_w4a8_grouped_stacked": (L * (w4a8(S_IMG, HID, DIM, 8) + w4a8(S_TXT, HID, DIM, 8))
+                                      + Ls * w4a8(T, HID, DIM, 8)),
+        "dequant_w4a8_stacked": L * 2 * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM))
         + Ls * (deq(DIM, 3 * DIM) + deq(DIM, DIM) + deq(DIM, HID) + deq(HID, DIM)),
-        "dequant_w4a8_e2m1": L * 2 * (deq(DIM, 3 * DIM, 16) + deq(DIM, DIM, 16) + deq(DIM, HID, 16) + deq(HID, DIM, 16))
+        "dequant_w4a8_e2m1_stacked": L * 2 * (deq(DIM, 3 * DIM, 16) + deq(DIM, DIM, 16) + deq(DIM, HID, 16)
+                                              + deq(HID, DIM, 16))
         + Ls * (deq(DIM, 3 * DIM, 16) + deq(DIM, DIM, 16) + deq(DIM, HID, 16) + deq(HID, DIM, 16)),
         "gemm_w8a8_gelu_quant": L * (dual[0][0] + dual[1][0]) + Ls * single[0],
         "gemm_w8a8_grouped": L * (dual[0][1] + dual[1][1]) + Ls * single[1],
@@ -866,13 +904,23 @@ def per_forward_bounds(cfg) -> dict:
         "ln_mod_quant_int8": L * 2 * (lnq(S_IMG) + lnq(S_TXT)) + Ls * 2 * lnq(T),
         "qkv_rope_producer": L * (rope(S_IMG) + rope(S_TXT)) + Ls * rope(T),
         "gemm_w8a8_grouped_res": L * (chain(S_IMG, 1)[1] + chain(S_TXT, 1)[1]) + Ls * chain(T, 2)[1],
+        # the int8 model's stacked chain modes (the same work on the layer of a stack)
+        "gemm_w8a8_gelu_quant_stacked": L * (dual[0][0] + dual[1][0]) + Ls * single[0],
+        "gemm_w8a8_grouped_stacked": L * (dual[0][1] + dual[1][1]) + Ls * single[1],
+        "gemm_w8a8_grouped_res_stacked": L * (chain(S_IMG, 1)[1] + chain(S_TXT, 1)[1]) + Ls * chain(T, 2)[1],
+        "gemm_w8a8_gelu_quant_ptoken_stacked": (L * (chain(S_IMG, nj=1)[0] + chain(S_TXT, nj=1)[0])
+                                                + Ls * chain(T, nj=1)[0]),
+        "gemm_w8a8_rank1_stacked": L * (chain(S_IMG, nj=1)[1] + chain(S_TXT, nj=1)[1]) + Ls * chain(T, nj=1)[1],
+        "gemm_w8a8_rank1_res_stacked": (L * (chain(S_IMG, 1, 1)[1] + chain(S_TXT, 1, 1)[1])
+                                        + Ls * chain(T, 2, 1)[1]),
         # the 4-bit paths: qkv, out projection, fc1 (signed) and fc2 (unsigned at int4) of each
         # stream of a dual block and of a single block
-        "gemm_w4a4_int4": sum(L * w4a4_signed(m, 64) for m in (S_IMG, S_TXT)) + Ls * w4a4_signed(T, 64),
-        "gemm_w4a4_int4_unsigned": (sum(L * w4a4_bound(m, HID, DIM, 64)[0] for m in (S_IMG, S_TXT))
-                                    + Ls * w4a4_bound(T, HID, DIM, 64)[0]),
-        "gemm_w4a4_nvfp4": (sum(L * (w4a4_signed(m, 16) + w4a4_bound(m, HID, DIM, 16)[0]) for m in (S_IMG, S_TXT))
-                            + Ls * (w4a4_signed(T, 16) + w4a4_bound(T, HID, DIM, 16)[0])),
+        "gemm_w4a4_int4_stacked": sum(L * w4a4_signed(m, 64) for m in (S_IMG, S_TXT)) + Ls * w4a4_signed(T, 64),
+        "gemm_w4a4_int4_unsigned_stacked": (sum(L * w4a4_bound(m, HID, DIM, 64)[0] for m in (S_IMG, S_TXT))
+                                            + Ls * w4a4_bound(T, HID, DIM, 64)[0]),
+        "gemm_w4a4_nvfp4_stacked": (sum(L * (w4a4_signed(m, 16) + w4a4_bound(m, HID, DIM, 16)[0])
+                                        for m in (S_IMG, S_TXT))
+                                    + Ls * (w4a4_signed(T, 16) + w4a4_bound(T, HID, DIM, 16)[0])),
         "gemv_awq": 2 * L * gemv_bound(1, DIM, 6 * DIM)[0] + Ls * gemv_bound(1, DIM, 3 * DIM)[0],
     }
 
@@ -1103,8 +1151,7 @@ def reference_qwen(dev):
         cpu_model = QwenImageTransformer2DModel.random_init(cfg, seed=12, device="cpu")
         if precision == "int4":
             checks.damp_modulation(cpu_model)
-        for block in cpu_model.blocks:
-            block.attn.fixed_softmax = not online
+        cpu_model.set_on_stacks("attn", fixed_softmax=not online)
         gpu_model = copy.deepcopy(cpu_model).to(dev)
         ref = QwenImagePipeline(cpu_model)(pe, neg, mask, neg_mask, latents=lat, **kw).latents.float()
         reset_launch_counts()
@@ -1133,8 +1180,8 @@ def packed_per_forward(L, Ls, turbo) -> dict:
     each stream, qkv and out of a single block) a rank-1 packed GEMM, every
     MLP one packed chain; the fused prologue's producer in turbo, no LN
     producer (the JAX gate), no dequant."""
-    per = {"gemm_w4a8": 4 * L + 2 * Ls, "gemm_w4a8_gelu_quant": 2 * L + Ls, "gemm_w4a8_grouped": 2 * L + Ls,
-           "flash_fixed": L + Ls}
+    per = {"gemm_w4a8_stacked": 4 * L + 2 * Ls, "gemm_w4a8_gelu_quant_stacked": 2 * L + Ls,
+           "gemm_w4a8_grouped_stacked": 2 * L + Ls, "flash_fixed": L + Ls}
     return per | {"qkv_rope_producer": 2 * L + Ls} if turbo else per
 
 
@@ -1206,8 +1253,8 @@ def reference_4bit(dev, pe, pooled, lat, kw):
         c = launch_counts()
         gemms = {k: v for k, v in c.items() if k.startswith("gemm_w4a4") and v}
         forwards = kw["num_inference_steps"]
-        expect = ({"gemm_w4a4_int4": 9 * forwards, "gemm_w4a4_int4_unsigned": 3 * forwards}
-                  if precision == "int4" else {"gemm_w4a4_nvfp4": 12 * forwards})
+        expect = ({"gemm_w4a4_int4_stacked": 9 * forwards, "gemm_w4a4_int4_unsigned_stacked": 3 * forwards}
+                  if precision == "int4" else {"gemm_w4a4_nvfp4_stacked": 12 * forwards})
         rel = ((out - ref).abs().max() / ref.abs().max()).item()
         ok = (out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2 and gemms == expect
               and c["gemv_awq"] == 3 * forwards)
@@ -1407,12 +1454,12 @@ def slice_phase(dev, steps: int, requests: int, t5):
     pipe = FluxPipeline(model, vae=None)
     L, Ls = cfg.num_layers, cfg.num_single_layers
     # turbo launches of one dual and one single block
-    dual = {"dequant_w4a8": 8, "ln_mod_quant_int8": 4, "qkv_rope_producer": 2, "gemm_w8a8_gelu_quant": 2,
+    dual = {"dequant_w4a8_stacked": 8, "ln_mod_quant_int8": 4, "qkv_rope_producer": 2, "gemm_w8a8_gelu_quant": 2,
             "gemm_w8a8_grouped_res": 2, "flash_fixed": 1}
-    single = {"dequant_w4a8": 4, "ln_mod_quant_int8": 2, "qkv_rope_producer": 1, "gemm_w8a8_gelu_quant": 1,
+    single = {"dequant_w4a8_stacked": 4, "ln_mod_quant_int8": 2, "qkv_rope_producer": 1, "gemm_w8a8_gelu_quant": 1,
               "gemm_w8a8_grouped_res": 1, "flash_fixed": 1}
     paths = {
-        "default": {"dequant_w4a8": 8 * L + 4 * Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
+        "default": {"dequant_w4a8_stacked": 8 * L + 4 * Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
                     "gemm_w8a8_grouped": 2 * L + Ls, "flash_fixed": L + Ls},
         "turbo": {k: L * dual[k] + Ls * single[k] for k in dual},
     }
@@ -1534,8 +1581,8 @@ def slice_4bit(dev, steps: int, vae, paths):
         nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
         log(f"[slice] FLUX.1-dev {precision}: {L} dual + {Ls} single blocks, dim {cfg.dim}; weights "
             f"{nbytes / 2**30:.2f} GiB, random init {time.perf_counter() - t0:.1f} s")
-        gemm = ({"gemm_w4a4_int4": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned": 2 * L + Ls} if precision == "int4"
-                else {"gemm_w4a4_nvfp4": 8 * L + 4 * Ls})
+        gemm = ({"gemm_w4a4_int4_stacked": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned_stacked": 2 * L + Ls}
+                if precision == "int4" else {"gemm_w4a4_nvfp4_stacked": 8 * L + 4 * Ls})
         paths[precision] = gemm | {"gemv_awq": 2 * L + Ls, "flash_fixed": L + Ls}
         label = f"{precision} (f32 stream{', tiled VAE' if with_vae else ''})"
         finite, _, counts, _, _, _ = serve(FluxPipeline(model, vae=vae if with_vae else None), dev, nsteps,
@@ -1580,6 +1627,147 @@ def text_encoders(dev):
     return t5, clip
 
 
+def int8_per_forward(L, Ls, turbo, ptoken) -> dict:
+    """Launches per forward of a FLUX int8 model of L dual and Ls single
+    blocks on its stacks: one stacked producer and one stacked consumer per
+    MLP chain (2 a dual block, 1 a single), of the chain's mode (per-token:
+    the rank-1 consumer); in turbo the consumer's residual epilogue, the LN
+    producer before each linear that takes it (the two qkv projections and
+    the two MLPs of a dual block, the qkv and the MLP of a single) and the
+    qkv/RoPE producer. The standalone int8 linears take torch._int_mm (no
+    count), as JAX's take XLA's dot."""
+    chains = 2 * L + Ls
+    producer = "gemm_w8a8_gelu_quant_ptoken_stacked" if ptoken else "gemm_w8a8_gelu_quant_stacked"
+    consumer = ("gemm_w8a8_rank1" if ptoken else "gemm_w8a8_grouped") + ("_res" if turbo else "") + "_stacked"
+    per = {producer: chains, consumer: chains, "flash_fixed": L + Ls}
+    if turbo:
+        per |= {"ln_mod_quant_int8": 4 * L + 2 * Ls, "qkv_rope_producer": 2 * L + Ls}
+    return per
+
+
+INT8_SMALL = dict(num_layers=2, num_single_layers=3, num_attention_heads=6, joint_attention_dim=512,
+                  pooled_projection_dim=256)  # tests/test_torch_stacked_flux.py's depths (dim 768: two scale groups)
+
+
+def reference_int8(dev):
+    """The small int8 model of the CPU tests (2 + 3 blocks on stacks, dim 768)
+    in the turbo configuration, one forward with the grouped chain and one
+    with the per-token chain, card against the plain twins on the CPU:
+    within 2e-2 of the reference's max |value| (the CPU tests' bound),
+    launches exact."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
+    cfg = FluxConfig(precision="int8", **INT8_SMALL)
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=13, device="cpu")
+    cpu_model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(14)
+    args = (torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen).to(torch.bfloat16),
+            torch.tensor([0.6]), make_img_ids(16, 16), torch.zeros((128, 3), dtype=torch.int32), torch.tensor([3.5]))
+    all_ok = True
+    for ptoken in (False, True):
+        with chain_ptoken(ptoken), torch.no_grad():
+            ref = cpu_model(*args).float()
+            reset_launch_counts()
+            out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        want = int8_per_forward(cfg.num_layers, cfg.num_single_layers, True, ptoken)
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        ok = out.shape == ref.shape and bool(torch.isfinite(out).all()) and rel <= 2e-2 and counts == want
+        log(f"[flux-int8] reference: 2+3-block int8 FLUX on stacks (dim 768), turbo, "
+            f"{'per-token' if ptoken else 'grouped'} chain: card vs CPU plain rel max error {rel:.3e} (tolerance "
+            f"2e-2); launches {counts} (expected {want}): {'PASS' if ok else 'FAIL'}")
+        all_ok = all_ok and ok
+    return all_ok
+
+
+def flux_int8_phase(dev, steps: int, t5):
+    """[flux-int8] FLUX.1-dev at int8 at full width and depth on its stacks,
+    bench.py --dense's configuration (bench.py:76-83, 322-333: turbo, 1024px,
+    512 text tokens, B 1): the small model card vs CPU first; then one
+    transformer forward each in the default configuration (grouped, then
+    per-token chain), one timed forward each in the turbo configuration, and
+    one turbo request of min(4, steps) steps with the prompt's T5-XXL encode,
+    cache="double_fb" at hit ratio 0.5 and the tiled VAE to a 1024x1024
+    image. Each forward runs untimed once first; launch counts exact. ->
+    (ok, counts summed over the timed runs, per-forward counts)."""
+    from nunchaku_tpu_torch.caching.fbcache import make_hit_schedule
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline, make_img_ids
+
+    ok = reference_int8(dev)
+    cfg = FluxConfig(precision="int8")
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(b.numel() * b.element_size() for b in model.buffers())
+    log(f"[flux-int8] FLUX.1-dev int8: {L} dual + {Ls} single blocks on stacks, dim {cfg.dim}; weights "
+        f"{nbytes / 2**30:.2f} GiB, random init {time.perf_counter() - t0:.1f} s (built into the stacks block by "
+        f"block: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+    paths = {}
+    for turbo in (False, True):
+        for ptoken in (False, True):
+            paths[f"int8 {'turbo' if turbo else 'default'}{' ptoken' if ptoken else ''}"] = int8_per_forward(
+                L, Ls, turbo, ptoken)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    inputs = (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
+              torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+              torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+              torch.tensor([1.0], device=dev), make_img_ids(math.isqrt(S_IMG), math.isqrt(S_IMG), dev),
+              torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+    total, step_s = {}, {}
+    for turbo in (False, True):
+        if turbo:
+            model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        for ptoken in (False, True):
+            key = f"int8 {'turbo' if turbo else 'default'}{' ptoken' if ptoken else ''}"
+            with chain_ptoken(ptoken), torch.no_grad():
+                model(*inputs)  # first use, untimed
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                out = model(*inputs)
+                torch.cuda.synchronize()
+                step_s[key] = time.perf_counter() - t0
+            counts = launch_counts()
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            finite = tuple(out.shape) == (1, S_IMG, 64) and bool(torch.isfinite(out.float()).all())
+            log(f"[flux-int8] {key}: one 1024px transformer forward {step_s[key]:.4f} s, output {tuple(out.shape)} "
+                f"finite={finite}; peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            ok = check_counts(key, counts, paths[key], 1, tag="flux-int8") and finite and ok
+    log(f"[flux-int8] turbo forward: grouped chain {step_s['int8 turbo']:.4f} s, per-token chain "
+        f"{step_s['int8 turbo ptoken']:.4f} s (per-token / grouped {step_s['int8 turbo ptoken'] / step_s['int8 turbo']:.3f}); "
+        f"default: {step_s['int8 default']:.4f} / {step_s['int8 default ptoken']:.4f} s")
+    vae = AutoencoderKL.random_init(seed=3, device=dev)
+    vae.enable_tiling()
+    n = min(4, steps)
+    hits = int(make_hit_schedule(n, 0.5).sum())
+    finite, _, counts, _, req_hits, _ = serve(
+        FluxPipeline(model, vae=vae), dev, n, 1, "int8 turbo image request (T5-XXL encode, double_fb 0.5, tiled VAE)",
+        t5_request(cfg, dev, t5), cache="double_fb", cache_hit_ratio=0.5, tag="flux-int8")
+    # a hit runs dual block 0 and single block 0; a miss the full forward
+    hit_runs = {k: v * hits for k, v in int8_per_forward(1, 1, True, False).items()}
+    ok = finite and req_hits == [hits] and check_counts(
+        "int8 image", counts, paths["int8 turbo"], n - hits, {k: hit_runs.get(k, 0) + (VAE_TILES if k == "flash_online"
+                                                                                     else 0)
+                                                              for k in set(hit_runs) | {"flash_online"}},
+        tag="flux-int8") and ok
+    log(f"[flux-int8] image request cache hits {req_hits} (expected {hits} of {n} steps)")
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    del model, vae
+    torch.cuda.empty_cache()
+    return ok, total, paths
+
+
 def highres_phase(dev, steps: int, t5, clip):
     """FLUX.1-dev int4 at full width and depth (default configuration) under
     set_attention_impl("blocksparse", sparsity_ratio=0.5) at 2048x2048 from
@@ -1606,7 +1794,8 @@ def highres_phase(dev, steps: int, t5, clip):
         f"attention at {HR_SPARSITY}")
     encoders = dict(text_encoder=clip, text_encoder_2=t5, tokenizer=stand_in_tokenizer(CLIP_L["vocab"], CLIP_EOS),
                     tokenizer_2=stand_in_tokenizer(T5_XXL["vocab"], T5_EOS))
-    gemms = {"gemm_w4a4_int4": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned": 2 * L + Ls, "gemv_awq": 2 * L + Ls}
+    gemms = {"gemm_w4a4_int4_stacked": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned_stacked": 2 * L + Ls,
+             "gemv_awq": 2 * L + Ls}
     paths = {"highres": gemms | {"bs_fixed": L + Ls}, "highres online": gemms | {"bs_online": L + Ls},
              "highres dense": gemms | {"flash_fixed": L + Ls}}
     model.set_attention_impl("blocksparse", sparsity_ratio=HR_SPARSITY)
@@ -1621,8 +1810,7 @@ def highres_phase(dev, steps: int, t5, clip):
     for label, impl, fixed in (("highres", "blocksparse", True), ("highres online", "blocksparse", False),
                                ("highres dense", "flashattn2", True)):
         model.set_attention_impl(impl, sparsity_ratio=HR_SPARSITY if impl == "blocksparse" else 0.0)
-        for block in [*model.transformer_blocks, *model.single_transformer_blocks]:
-            block.attn.fixed_softmax = fixed
+        model.set_on_stacks("attn", fixed_softmax=fixed)
         finite, req_s, counts, *_ = serve(pipe, dev, 1, 1, f"{label}: 1 step to latents", prompt_request,
                                           size=HR_SIZE, tag="highres")
         ok = finite and check_counts(label, counts, paths[label], 1) and ok
@@ -1658,7 +1846,7 @@ def qwen_phase(dev, steps: int):
     log(f"[qwen] Qwen-Image {cfg.precision}: {L} joint blocks, dim {cfg.dim}, {cfg.num_attention_heads} heads, joint "
         f"dim {cfg.joint_attention_dim}, rank {cfg.rank}; weights {nbytes / 2**30:.2f} GiB, random init (with the "
         f"VAE) {time.perf_counter() - t0:.1f} s")
-    block = {"gemm_w4a4_int4": 6, "gemm_w4a4_int4_unsigned": 2, "gemv_awq": 2, "flash_fixed_masked": 1}
+    block = {"gemm_w4a4_int4_stacked": 6, "gemm_w4a4_int4_unsigned_stacked": 2, "gemv_awq": 2, "flash_fixed_masked": 1}
     paths = {"qwen": {k: L * v for k, v in block.items()}}
     paths["qwen online"] = {**{k: L * v for k, v in block.items() if k != "flash_fixed_masked"},
                             "flash_online_masked": L}
@@ -1712,15 +1900,13 @@ def qwen_phase(dev, steps: int):
                             true_cfg_scale=4.0)
     ok = check_counts("qwen A", counts, paths["qwen"], 2 * n, {"flash_online": VAE_TILES}) and ok
     # D: the online softmax's mask form, to latents
-    for blk in model.blocks:
-        blk.attn.fixed_softmax = False
+    model.set_on_stacks("attn", fixed_softmax=False)
     pipe = QwenImagePipeline(model)
     n = min(2, steps)
     okd, counts, _ = request("request D (fixed_softmax False, B 1, mask)", pipe, QWEN_VALID[1:], n, 2,
                              true_cfg_scale=1.0)
     ok = check_counts("qwen D", counts, paths["qwen online"], n) and okd and ok
-    for blk in model.blocks:
-        blk.attn.fixed_softmax = True
+    model.set_on_stacks("attn", fixed_softmax=True)
     # B: the fused qkv prologue, lightning-4step at B 1
     model.enable_fused_qkv_prep()
     okb, counts, _ = request("request B (fused prologue, lightning-4step, B 1, mask)", pipe, QWEN_VALID[1:], 4,
@@ -1772,22 +1958,30 @@ def _load(label, fn, tag="checkpoint"):
 
 def _svdq_counts(model) -> dict:
     """Kernel launches per forward of a default-configuration (f32 stream)
-    model, from its linears: a w4a8 linear's dequant (by code form), one
-    chain producer and consumer per MLP pair whose linears take int8
-    activations and share a precision."""
+    model on its stacks, from its stacked linears (one launch a layer): a
+    w4a8 linear's stacked dequant (by code form), one chain producer and
+    consumer per layer of an MLP pair whose linears take int8 activations
+    and share a precision: stacked on int8 stacks, on the dequantized layer
+    at w4a8."""
     from nunchaku_tpu_torch.models.attention import FeedForward, can_chain
     from nunchaku_tpu_torch.models.linear import SVDQW4A4Linear
 
     c = {}
+
+    def add(key, n):
+        c[key] = c.get(key, 0) + n
+
     for m in model.modules():
         if isinstance(m, SVDQW4A4Linear) and m.precision == "w4a8":
-            key = "dequant_w4a8_e2m1" if m.wcodes == "e2m1" else "dequant_w4a8"
-            c[key] = c.get(key, 0) + 1
+            add("dequant_w4a8_e2m1_stacked" if m.wcodes == "e2m1" else "dequant_w4a8_stacked", m.qweight.shape[0])
     pairs = [(m.fc1, m.fc2) for m in model.modules() if isinstance(m, FeedForward)]
-    pairs += [(b.mlp_fc1, b.mlp_fc2) for b in getattr(model, "single_transformer_blocks", [])]
-    chained = sum(can_chain(a, b) for a, b in pairs)
-    if chained:
-        c["gemm_w8a8_gelu_quant"] = c["gemm_w8a8_grouped"] = chained
+    single = getattr(model, "single_transformer_blocks", None)
+    pairs += [] if single is None else [(single.mlp_fc1, single.mlp_fc2)]
+    for a, b in pairs:
+        if can_chain(a, b):
+            suffix = "_stacked" if a.precision == "int8" else ""
+            add("gemm_w8a8_gelu_quant" + suffix, a.qweight.shape[0])
+            add("gemm_w8a8_grouped" + suffix, a.qweight.shape[0])
     return c
 
 
@@ -1861,19 +2055,20 @@ def checkpoint_phase(dev, steps: int):
 
         nv, _ = _load("FLUX.1-dev at its own precision (nvfp4)", lambda: load_flux_transformer(files["flux-nvfp4-r32"],
                                                                                              device=dev))
-        paths["checkpoint nvfp4"] = {"gemm_w4a4_nvfp4": 8 * L + 4 * Ls, "gemv_awq": 2 * L + Ls, "flash_fixed": L + Ls}
+        paths["checkpoint nvfp4"] = {"gemm_w4a4_nvfp4_stacked": 8 * L + 4 * Ls, "gemv_awq": 2 * L + Ls,
+                                     "flash_fixed": L + Ls}
         step_nv = one_step(nv, "nvfp4", "checkpoint nvfp4")
         del nv
         torch.cuda.empty_cache()
 
-        fc1 = model.transformer_blocks[0].ff.fc1
+        fc1 = model.layer_views()["transformer_blocks"][0].ff.fc1
         want = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)  # the step's codes (outside any counted run)
         before = _gib(model)
         t0 = time.perf_counter()
         w4a8_cache_dequant(model, 4.0, inplace=True)
         torch.cuda.synchronize()
         dial_s = time.perf_counter() - t0
-        got = model.transformer_blocks[0].ff.fc1
+        got = model.layer_views()["transformer_blocks"][0].ff.fc1
         codes_ok = got.precision == "int8" and torch.equal(got.qweight, want)
         paths["checkpoint dialed"] = _svdq_counts(model) | {"flash_fixed": L + Ls}
         step_dial = one_step(model, "nvfp4-a8 after w4a8_cache_dequant(4.0)", "checkpoint dialed")
@@ -1882,9 +2077,10 @@ def checkpoint_phase(dev, steps: int):
         rel = ((out - ref).abs().max() / ref.abs().max()).item()
         good = codes_ok and rel <= 2e-2 and bool(torch.isfinite(out).all())
         ok = ok and good
-        left = paths["checkpoint dialed"].get("dequant_w4a8_e2m1", 0)
+        left = paths["checkpoint dialed"].get("dequant_w4a8_e2m1_stacked", 0)
         log(f"[checkpoint] w4a8_cache_dequant(4.0) in {dial_s:.2f} s: weights {before:.2f} -> {_gib(model):.2f} GiB, "
-            f"{paths['checkpoint nvfp4-a8']['dequant_w4a8_e2m1'] - left} linears to int8 ({left} left at w4a8); "
+            f"{paths['checkpoint nvfp4-a8']['dequant_w4a8_e2m1_stacked'] - left} layer linears to int8 ({left} left "
+            f"at w4a8); "
             f"block 0 fc1 codes equal to the dequant kernel's: {codes_ok}; forward on fixed inputs against the "
             f"undialed model's: rel max error {rel:.3e} (tolerance 2e-2): {'PASS' if good else 'FAIL'}")
         log(f"[checkpoint] one 1024px step (both encoders + 1 forward, no decode): nvfp4-a8 {step_a8:.4f} s, nvfp4 "
@@ -1921,14 +2117,16 @@ def checkpoint_qwen_phase(dev):
                                                                                                 device=dev),
                              tag="checkpoint-qwen")
             L = model.cfg.num_layers
-            paths[f"qwen r128 {label}"] = ({"gemm_w4a4_int4": 6 * L, "gemm_w4a4_int4_unsigned": 2 * L, "gemv_awq": 2 * L}
+            paths[f"qwen r128 {label}"] = ({"gemm_w4a4_int4_stacked": 6 * L,
+                                            "gemm_w4a4_int4_unsigned_stacked": 2 * L, "gemv_awq": 2 * L}
                                            if precision is None else _svdq_counts(model)) | {"flash_fixed_masked": L}
             pipe = QwenImagePipeline(model)
             kw = dict(height=1024, width=1024, num_inference_steps=1, true_cfg_scale=1.0)
             runs = [(label, contextlib.nullcontext)]
             if precision == "w4a8":  # and once on the packed route: 4 packed GEMMs and 2 chains per block
-                paths["qwen r128 w4a8 packed"] = {"gemm_w4a8": 4 * L, "gemm_w4a8_gelu_quant": 2 * L,
-                                                  "gemm_w4a8_grouped": 2 * L, "flash_fixed_masked": L}
+                paths["qwen r128 w4a8 packed"] = {"gemm_w4a8_stacked": 4 * L,
+                                                  "gemm_w4a8_gelu_quant_stacked": 2 * L,
+                                                  "gemm_w4a8_grouped_stacked": 2 * L, "flash_fixed_masked": L}
                 runs.append(("w4a8 packed", packed_route))
             for name, route in runs:
                 with route(), torch.no_grad():
@@ -1991,13 +2189,13 @@ def reference_checkpoint(dev):
                 ("FLUX nvfp4 file at w4a8 (nvfp4-a8)", load_flux_transformer, fpath,
                  lambda m, d: FluxPipeline(m)(prompt_embeds=pe.to(d), pooled_prompt_embeds=pooled.to(d),
                                               latents=lat.to(d), height=256, width=256, num_inference_steps=2),
-                 ("dequant_w4a8_e2m1", 2 * 12)),  # steps x linears
+                 ("dequant_w4a8_e2m1_stacked", 2 * 12)),  # steps x linears
                 ("Qwen-Image int4 rank-128 file at w4a8", load_qwenimage_transformer, qpath,
                  lambda m, d: QwenImagePipeline(m)(qpe.to(d), qneg.to(d), qmask.to(d),
                                                    torch.ones((2, 6), dtype=torch.bool, device=d), height=128,
                                                    width=128, num_inference_steps=2, true_cfg_scale=4.0,
                                                    latents=qlat.to(d)),
-                 ("dequant_w4a8", 2 * 2 * 2 * 8))):  # steps x CFG branches x blocks x linears
+                 ("dequant_w4a8_stacked", 2 * 2 * 2 * 8))):  # steps x CFG branches x blocks x linears
             cpu_model, gpu_model = load(path, "w4a8", device="cpu"), load(path, "w4a8", device=dev)
             exact = same(gpu_model, cpu_model)
             ref = call(cpu_model, "cpu").latents.float()
@@ -2135,6 +2333,70 @@ def zimage_kernel_rows(dev, record, failed):
                    cuda_ms(lambda: gemm_w4a8_plain(*case), 3), bnd, cuda_ms(lambda: int8_matmul(qa, w8), 20))
             del w8
         del case, qa, asc, qw, rs, stack
+    torch.cuda.empty_cache()
+
+
+# the stacked chain modes' rows, each with the line of its TPU kernel's mode
+INT8_ROWS = {"gemm_w8a8_gelu_quant_stacked": 460, "gemm_w8a8_gelu_quant_ptoken_stacked": 534,
+             "gemm_w8a8_grouped_stacked": 344, "gemm_w8a8_grouped_res_stacked": 395, "gemm_w8a8_rank1_stacked": 386,
+             "gemm_w8a8_rank1_res_stacked": 386, "gemm_w4a8_gelu_quant_stacked": 721,
+             "gemm_w4a8_grouped_stacked": 281}
+
+
+def flux_int8_kernel_rows(dev, record, failed):
+    """16. The chain modes FLUX.1-dev's stacks reach (the int8 chain, grouped
+    and per-token, and the packed chain), at FLUX's fc1 (producers: M 4608,
+    K 3072, N 12288) and fc2 (consumers: M 4608, K 12288 in 8 scale groups,
+    or 1 for the rank-1 modes, N 3072), R 32. Each reads the last layer of a
+    3-layer stack by a device-resident index; checked bit for bit against
+    the non-stacked kernel on every layer and, through it, against the plain
+    twin on the mode's tolerance (checks.chain_stacked_case); timed beside
+    the non-stacked kernel (logged), the plain twin and torch._int_mm of the
+    product alone."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a8_plain, gemm_w8a8_grouped_plain,
+                                             svdq_gemm_w4a8_gelu_quant_plain, svdq_gemm_w8a8_gelu_quant_plain)
+    from nunchaku_tpu_torch.ops.reference import int8_matmul
+
+    m = S_IMG + S_TXT
+    for mode, line in INT8_ROWS.items():
+        producer = "gelu_quant" in mode
+        k, n = (DIM, HID) if producer else (HID, DIM)
+        run, w, check, args = checks.chain_stacked_case(mode, m, k, n, RANK, device=dev)
+        err, ok, detail = checks.check_stacked(run, w, check)
+        stack, ids = checks.stack_case(w)
+        ms = cuda_ms(lambda: run(stack, ids[-1]), 20)
+        flat = cuda_ms(lambda: run(w, None), 20)
+        w4 = mode.startswith("gemm_w4a8")
+        groups = 1 if "rank1" in mode else k // 1536
+        if producer:
+            nj = 1 if "ptoken" in mode else n // 1536
+            out_b = m * n + 4 * nj * m + 4 * m * RANK
+            if w4:
+                bnd = bound(w4a8_bytes(m, k, n, out_bytes=out_b + 4 * n + 2 * n * RANK), 2 * m * n * k,
+                            4 * m * n * RANK)
+                plain = cuda_ms(lambda: svdq_gemm_w4a8_gelu_quant_plain(*args), 3)
+            else:
+                bnd = bound(gemm_bytes(m, k, n, RANK, out_b) + 4 * n + 2 * n * RANK, 2 * m * n * k, 4 * m * n * RANK)
+                plain = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args, ptoken="ptoken" in mode), 3)
+        elif w4:
+            bnd = bound(w4a8_bytes(m, k, n, RANK, groups), 2 * m * n * k, 2 * m * n * RANK)
+            plain = cuda_ms(lambda: gemm_w4a8_plain(*args), 3)
+        else:
+            res = "_res" in mode
+            bnd = bound(gemm_bytes(m, k, n, RANK, 2 * m * n) + 4 * groups * m + (res_bytes(m, n, 1, RANK) if res else 0),
+                        2 * m * n * k, (4 if res else 2) * m * n * RANK)
+            plain = cuda_ms(lambda: gemm_w8a8_grouped_plain(*args), 3)
+        qa = args[0]
+        w8 = dequant_w4a8(w, args[3]) if w4 else w
+        lib = cuda_ms(lambda: int8_matmul(qa, w8), 20)
+        shape = (f"M={m} K={k} N={n} R={RANK}" + (f" G={groups}" if not producer else "")
+                 + (" +x,gate,extra,extra_lora" if "_res" in mode else "") + ", stacked: layer 3 of 3")
+        log(f"[kernel] {mode} @ {shape}: stacked {ms:.4f} ms, non-stacked on the same weight {flat:.4f} ms")
+        src = "gemm_w8a8_gelu_quant.cu" if producer else ("gemm_w4a8.cu" if w4 else "gemm_w8a8_grouped.cu")
+        record(mode, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/gemm.py:{line}", shape, ok, err, detail,
+               ms, plain, bnd, lib)
+        del run, w, check, args, stack, qa, w8
     torch.cuda.empty_cache()
 
 
@@ -2666,8 +2928,8 @@ def qwen_bounds(cfg, b=1) -> dict:
     s = QWEN_S_TXT + S_IMG
     ms = [b * S_IMG, b * 256]
     return {
-        "gemm_w4a4_int4": L * sum(w4a4_bound(m, D, n, 64)[0] for m in ms for n in (3 * D, D, 4 * D)),
-        "gemm_w4a4_int4_unsigned": L * sum(w4a4_bound(m, 4 * D, D, 64)[0] for m in ms),
+        "gemm_w4a4_int4_stacked": L * sum(w4a4_bound(m, D, n, 64)[0] for m in ms for n in (3 * D, D, 4 * D)),
+        "gemm_w4a4_int4_unsigned_stacked": L * sum(w4a4_bound(m, 4 * D, D, 64)[0] for m in ms),
         "gemv_awq": 2 * L * gemv_bound(b, D, 6 * D)[0],
         "flash_fixed_masked": L * bound(4 * b * s * HEADS * HD * 2 + 4 * b * s,
                                         bf16_ops=4 * b * HEADS * s * s * HD)[0],
@@ -2689,8 +2951,8 @@ def highres_bounds() -> dict:
     kk_cols = max(1, int(11 * (1 - HR_SPARSITY))) * 1536
     att = bound(4 * HR_S * HEADS * HD * 2, bf16_ops=4 * HR_S * kk_cols * HD * HEADS)[0]
     return {
-        "gemm_w4a4_int4": L * (signed(img) + signed(txt)) + Ls * signed(HR_S),
-        "gemm_w4a4_int4_unsigned": L * sum(w4a4_bound(m, HID, DIM, 64)[0] for m in (img, txt))
+        "gemm_w4a4_int4_stacked": L * (signed(img) + signed(txt)) + Ls * signed(HR_S),
+        "gemm_w4a4_int4_unsigned_stacked": L * sum(w4a4_bound(m, HID, DIM, 64)[0] for m in (img, txt))
         + Ls * w4a4_bound(HR_S, HID, DIM, 64)[0],
         "gemv_awq": 2 * L * gemv_bound(1, DIM, 6 * DIM)[0] + Ls * gemv_bound(1, DIM, 3 * DIM)[0],
         "bs_fixed": (L + Ls) * att,
@@ -2734,6 +2996,7 @@ def main(argv=None) -> int:
     reset_launch_counts()
     t5, clip = text_encoders(dev)
     slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, t5=t5)
+    i8_ok, icounts, ipaths = flux_int8_phase(dev, args.steps, t5)
     hr_ok, hcounts, hpaths = highres_phase(dev, args.steps, t5, clip)
     del t5, clip
     torch.cuda.empty_cache()
@@ -2743,12 +3006,12 @@ def main(argv=None) -> int:
     sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
     sana_ok, sacounts, sapaths = sana_phase(dev, args.steps)
     zi_ok, zicounts, zipaths = zimage_phase(dev, args.steps)
-    counts = {k: counts[k] + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0) + scounts.get(k, 0)
-              + sacounts.get(k, 0) + zicounts.get(k, 0) for k in counts}
+    counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
+              + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) for k in counts}
     for name, row in rows.items():
-        row["launches"] = counts[name]
+        row["launches"] = row_launches(name, counts)
     for name, b in per_forward_bounds(cfg).items():
-        per = {p: f[name] for p, f in (paths | cpaths).items() if f.get(name)}
+        per = {p: f[name] for p, f in (paths | ipaths | cpaths).items() if f.get(name)}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
             f"of the path(s) it runs in")
     for name, b in qwen_bounds(qcfg).items():
@@ -2775,19 +3038,20 @@ def main(argv=None) -> int:
     for name, b in zimage_bounds().items():
         per = {p: f[name] for p, f in zipaths.items() if f.get(name)}
         log(f"[bound] {name}: launches per Z-Image-Turbo 1024px forward {per}, least time {b:.3f} ms per forward")
-    ran = [name for name, c in counts.items() if c > 0]
-    log(f"[kernels] ran on the main paths: {', '.join(ran)}")
+    ran = [name for name, row in rows.items() if row["launches"] > 0]
+    log(f"[kernels] ran on the main paths: {', '.join(ran)}; not: "
+        f"{', '.join(name for name in rows if name not in ran) or 'none'}")
     for name, per in (cpaths | cqpaths).items():
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok
+    ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
-        f"slice {verdict(slice_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
+        f"slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
         f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}")
     if not ok:

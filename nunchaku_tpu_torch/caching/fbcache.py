@@ -25,7 +25,10 @@ program with ``lax.cond``:
   of rerunning the indicator blocks, which the JAX package does to keep XLA
   from copying a slice of its stacked weights. The values are the same; a
   FLUX miss runs one dual and one single block fewer, a Qwen miss
-  ``fn_blocks`` blocks fewer.
+  ``fn_blocks`` blocks fewer. The blocks are stacks in both packages: the
+  port's kernels read layer i by its absolute index into the whole stack,
+  where JAX scans a slice of it and counts from 0; the layer read is the
+  same.
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 ``flux_from_jax_params`` (``qwenimage_from_jax_params`` alike) takes the
 dotted names of the JAX ``Module.named_parameters()``
 (``nunchaku_tpu/core/module.py``) mapped to numpy arrays -- the blocks'
-leaves carry a leading layer axis -- and builds the port's per-layer
-modules from them. Static attributes (precision, the
+leaves carry a leading layer axis -- and keeps the blocks stacked: each
+layer is read from the JAX stacks, built and checked, and copied into the
+port's stack (``linear.build_stacked``). Static attributes (precision, the
 int4 fc2 layers' unsigned activations, head dim) come from the config, and
 every linear's shape is checked against the config's dims.
 ``sdxl_from_jax_params`` does the same for the SDXL UNet (its NHWC
@@ -28,7 +29,7 @@ from .models import unet_sdxl as U
 from .models.attention import FeedForward, FluxAttention
 from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, ResnetBlock, Upsample
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
-from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, padded_dims, stack_modules
+from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, build_stacked, padded_dims
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
 from .models import transformer_sana as S
 from .models import transformer_zimage as Z
@@ -162,8 +163,8 @@ class _BlockReader:
 def flux_from_jax_params(params: dict, cfg: FluxConfig, device="cuda") -> FluxTransformer2DModel:
     P = _Params(params, device)
     R = _BlockReader(P, cfg)
-    dual = [R.dual("transformer_blocks", i) for i in range(cfg.num_layers)]
-    single = [R.single("single_transformer_blocks", i) for i in range(cfg.num_single_layers)]
+    dual = build_stacked(lambda i: R.dual("transformer_blocks", i), cfg.num_layers)
+    single = build_stacked(lambda i: R.single("single_transformer_blocks", i), cfg.num_single_layers)
     te = "time_text_embed"
     guidance = P.mlp_embedder(te + ".guidance_embedder") if cfg.guidance_embeds else None
     model = FluxTransformer2DModel(
@@ -180,7 +181,7 @@ def qwenimage_from_jax_params(params: dict, cfg: QwenImageConfig, device="cuda")
     stacked ``blocks`` are FLUX dual blocks; ``txt_norm`` when it has one)."""
     P = _Params(params, device)
     R = _BlockReader(P, cfg.as_flux())
-    blocks = [R.dual("blocks", i) for i in range(cfg.num_layers)]
+    blocks = build_stacked(lambda i: R.dual("blocks", i), cfg.num_layers)
     model = QwenImageTransformer2DModel(
         cfg, P.linear("img_in", (cfg.in_channels, cfg.dim)), P.linear("txt_in", (cfg.joint_attention_dim, cfg.dim)),
         P.mlp_embedder("time_embed"), blocks, AdaLayerNormContinuous(P.linear("norm_out.linear")),
@@ -439,7 +440,7 @@ def zimage_from_jax_params(params: dict, cfg: Z.ZImageConfig, device="cuda") -> 
             "attention_norm1", "attention_norm2", "ffn_norm1", "ffn_norm2")), adaln, eps=cfg.norm_eps)
 
     def stack(t, n, modulated):
-        return stack_modules([block(t, i, modulated) for i in range(n)])
+        return build_stacked(lambda i: block(t, i, modulated), n)
 
     patch_dim = cfg.in_channels * cfg.patch_size ** 2
     model = Z.ZImageTransformer2DModel(

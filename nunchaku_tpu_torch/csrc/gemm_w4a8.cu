@@ -6,7 +6,8 @@
 // (its layer-index form, :1714-1726: the packed codes are layer idx of an
 // (L, K/2, N) stack, idx a device-resident int32 read once at entry,
 // common.cuh stacked_layer; the scans reach it in rank-1 mode under
-// NUNCHAKU_TPU_W4A8_XLA=0), and _gemm_w4a8_kernel
+// NUNCHAKU_TPU_W4A8_XLA=0 and in grouped mode, the MLP chain's consumer, under
+// NUNCHAKU_TPU_W4A8_FUSED=1), and _gemm_w4a8_kernel
 // (:167, the per-M-tile kernel of explicit-tile calls, :2180-2199), which
 // computes the rank-1 mode with another dequant schedule only
 // (tests/test_ops.py:430-459 pins the two bit-identical):

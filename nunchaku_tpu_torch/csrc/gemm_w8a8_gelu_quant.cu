@@ -1,5 +1,6 @@
 // fc1 GEMM with the GELU -> requantize epilogue (the fused MLP chain's
-// producer), on an int8 weight or, in its W4 form, on packed int4 weights.
+// producer), on an int8 weight or, in its W4 form, on packed int4 weights;
+// each form non-stacked or stacked, each with grouped or per-token scales.
 //
 // Replaces nunchaku_tpu/ops/gemm.py _gemm_w8a8_gelu_quant_kernel (:460,
 // launched by svdq_gemm_w8a8_gelu_quant :1264) and, in the W4 form (the
@@ -15,6 +16,29 @@
 //   g = tanh-GELU(out);  lora_next = bf16(g) @ proj_down_next
 //   h = (g [+ 0.171875]) * rsmooth_next;  one int8 scale per (token, bn-column
 //   tile): scale = max|h| * f32(1/127), q = clip(round_half_even(h * rcp(scale)), +-127)
+//
+// Stacked modes (stacked_w, :478, :497 and :750): the weight is layer idx of
+// an (L, K, N) int8 or (L, K/2, N) packed stack, idx a device-resident int32
+// that every block of kernel A reads once at entry (common.cuh
+// stacked_layer, through the weight form's select_layer); the rest is the
+// non-stacked code, so a stacked launch is bit-identical to the non-stacked
+// one on that layer.
+//
+// Per-token mode: replaces _gemm_w8a8_gelu_quant_ptoken_kernel (:534, its
+// epilogue _gelu_quant_ptoken :607, under NUNCHAKU_TPU_CHAIN_PTOKEN=1): one
+// scale per token over all N columns, qscales (1, M), which the rank-1 mode
+// of the consumer (gemm_w8a8_grouped.cu at G = 1) takes. The TPU kernel
+// keeps a (bm, N) f32 row stripe in VMEM and quantizes it at the last N tile
+// (512 x 12288 x 4 B = 25 MB at FLUX fc1); a Hopper block has 227 KB of
+// shared memory, less than 16 such rows. So the per-token mode is these two
+// kernels with one scale group of bn = N: kernel A's f32 g and its per-tile
+// row maxima and low-rank partials go through HBM as in the grouped mode,
+// and kernel B takes the max over every tile of the row, quantizes with
+// rcp(max / 127) and sums the partials in ascending tile order (JAX: the
+// partials of each bn = 1536 tile summed in order, lp_acc_ref +=, :583). The
+// workspace costs about 2 x M x N x 4 B of traffic: 0.45 GB at FLUX fc1 (M
+// 4608, N 12288), ~0.14 ms at 3.35 TB/s. A cluster / DSMEM row exchange that
+// keeps g on chip is later work.
 //
 // Bound on the H100: operations. At FLUX.1-dev shapes (M up to 4608, K 3072,
 // N 12288) the int8 product is 2*M*N*K operations on 2*M*K + K*N input bytes
@@ -85,7 +109,7 @@ __global__ void __launch_bounds__(THREADS)
                      const bf16* __restrict__ bias, const float* __restrict__ rsm,
                      const bf16* __restrict__ pd, float* __restrict__ g,
                      float* __restrict__ amax_part, float* __restrict__ lora_part, int M, int N,
-                     int K, int R, int R2, float shift) {
+                     int K, int R, int R2, float shift, const int* __restrict__ lidx, int n_layers) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Layout L = layout<W>(R, R2);
   const int R2p = round16(R2), LDP = R2p + 8;
@@ -97,6 +121,7 @@ __global__ void __launch_bounds__(THREADS)
   float* amax = reinterpret_cast<float*>(smem_raw + L.amax);  // [BM][WN_WARPS]
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  w.select_layer(lidx, n_layers, K, N);
   AccFrag acc[FM][FN];
   zero(acc);
   mainloop(st, acc, qa, w, m0, n0, 0, K, K);
@@ -222,7 +247,7 @@ template <class W>
 int launch(const void* qact, const void* ascales, W w, const void* wscales, const void* lora_act,
            const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down, void* gbuf,
            void* amax_part, void* lora_part, void* qout, void* qscales, void* lora_next, int M, int N, int K,
-           int R, int R2, int bn, float shift, void* stream) {
+           int R, int R2, int bn, float shift, const void* layer_idx, int n_layers, void* stream) {
   static bool configured = false;  // one flag per weight form
   if (R > MAX_R || R2 > MAX_R || R2 < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(layout<W>(R, R2).total);
@@ -239,7 +264,7 @@ int launch(const void* qact, const void* ascales, W w, const void* wscales, cons
       static_cast<const float*>(wscales), static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
       static_cast<const bf16*>(bias), static_cast<const float*>(rsmooth), static_cast<const bf16*>(proj_down),
       static_cast<float*>(gbuf), static_cast<float*>(amax_part), static_cast<float*>(lora_part), M, N, K, R, R2,
-      shift);
+      shift, static_cast<const int*>(layer_idx), n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   requant_kernel<<<M, RQ_THREADS, 0, s>>>(
@@ -260,31 +285,35 @@ int launch(const void* qact, const void* ascales, W w, const void* wscales, cons
 // rounded up to 16
 // -> qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R2) f32.
 // Needs M % 128 == 0, N % 128 == 0, K % 64 == 0, bn % 128 == 0, N / bn <= 256,
-// R, R2 <= MAX_R (128).
+// R, R2 <= MAX_R (128). bn = N is the per-token mode (qscales (1, M)).
+// layer_idx: null, or a device int32 naming the layer of a stack of L
+// weights, each stored (N, K), that starts at wt.
 extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, const void* wt,
                                        const void* wscales, const void* lora_act,
                                        const void* proj_up, const void* bias, const void* rsmooth,
                                        const void* proj_down, void* gbuf, void* amax_part,
                                        void* lora_part, void* qout, void* qscales, void* lora_next,
                                        int M, int N, int K, int R, int R2, int bn, float shift,
-                                       void* stream) {
+                                       const void* layer_idx, int L, void* stream) {
   return launch(qact, ascales, WeightI8{static_cast<const int8_t*>(wt)}, wscales, lora_act, proj_up, bias,
                 rsmooth, proj_down, gbuf, amax_part, lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn,
-                shift, stream);
+                shift, layer_idx, L, stream);
 }
 
 // The W4 form: qweight (K/2, N) int8 packed int4 codes (N-contiguous, the
 // block-split-half layout) with rescales (K/64, N) bf16 in place of wt;
-// every other operand as above. Needs K % 256 == 0 besides.
+// every other operand as above. Needs K % 256 == 0 besides. layer_idx: null,
+// or a device int32 naming the layer of a stack of L (K/2, N) code arrays
+// that starts at qweight (the rescales are that layer's).
 extern "C" int nt_gemm_w4a8_gelu_quant(const void* qact, const void* ascales, const void* qweight,
                                        const void* rescales, const void* wscales, const void* lora_act,
                                        const void* proj_up, const void* bias, const void* rsmooth,
                                        const void* proj_down, void* gbuf, void* amax_part,
                                        void* lora_part, void* qout, void* qscales, void* lora_next,
                                        int M, int N, int K, int R, int R2, int bn, float shift,
-                                       void* stream) {
+                                       const void* layer_idx, int L, void* stream) {
   return launch(qact, ascales,
                 WeightW4{static_cast<const int8_t*>(qweight), static_cast<const bf16*>(rescales), N}, wscales,
                 lora_act, proj_up, bias, rsmooth, proj_down, gbuf, amax_part, lora_part, qout, qscales,
-                lora_next, M, N, K, R, R2, bn, shift, stream);
+                lora_next, M, N, K, R, R2, bn, shift, layer_idx, L, stream);
 }

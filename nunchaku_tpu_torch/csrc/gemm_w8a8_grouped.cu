@@ -13,6 +13,22 @@
 // K group), so each group's exact int32 partial is scaled before it joins
 // the f32 sum -- the same order as the JAX kernel, one group per K step.
 //
+// Rank-1 mode (the JAX kernel with grouped_as off, :386: out = acc * as *
+// ws): ascales (1, M), G = 1, the per-token chain's consumer
+// (NUNCHAKU_TPU_CHAIN_PTOKEN=1) and, with the residual operands, its
+// gated-residual form. The kernel keeps one exact int32 sum over all of K
+// and scales it once, f32(i32) * as * ws; the JAX kernel sums the f32 of
+// each bk-step int32 partial, so at K 12288 the two can differ by f32
+// rounding of the sum (below one bf16 step of the output).
+//
+// Stacked modes (stacked_w, :347, :366): the weight is layer idx of an
+// (L, K, N) int8 stack, each layer stored (N, K), idx a device-resident
+// int32 read once at entry by every block (common.cuh stacked_layer); the
+// rest is the non-stacked code, bit for bit. Grouped, rank-1, and each with
+// the residual epilogue. The stacked form is a template parameter: a
+// runtime null check on the index cost the residual mode 5 registers and
+// 2.6% of its time at FLUX's fc2 (H100).
+//
 // Bound on the H100: operations (2*M*N*K int8 ops; at FLUX.1-dev shapes
 // K = 12288, N = 3072, M up to 4608, well above the int8 ridge). The
 // residual operands add 2-3 bf16 (M, N) reads, well under 1% of the bound.
@@ -71,13 +87,13 @@ __device__ __forceinline__ void load8(float (&d)[8], const bf16* p) {
 
 __device__ __forceinline__ float round_bf16(float v) { return bf2f(__float2bfloat16(v)); }
 
-template <bool RES>
+template <bool RES, bool STACKED>
 __global__ void __launch_bounds__(THREADS)
     gemm_grouped_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as,
                         const int8_t* __restrict__ wt, const float* __restrict__ ws,
                         const float* __restrict__ la, const bf16* __restrict__ pu,
                         const bf16* __restrict__ bias, bf16* __restrict__ out, int M, int N, int K,
-                        int G, int R, Res res) {
+                        int G, int R, Res res, const int* __restrict__ lidx, int n_layers) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Layout L = layout(R, res.R2);
   Stage* st = reinterpret_cast<Stage*>(smem_raw);
@@ -85,6 +101,7 @@ __global__ void __launch_bounds__(THREADS)
   int* scratch = reinterpret_cast<int*>(smem_raw + L.scratch);
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int gk = K / G;
+  if (STACKED) wt = stacked_layer(wt, lidx, n_layers, static_cast<size_t>(K) * N);
   float facc[FM][FN][8];
 #pragma unroll
   for (int fm = 0; fm < FM; ++fm)
@@ -155,12 +172,14 @@ __global__ void __launch_bounds__(THREADS)
 // rows per batch, extra (M, N) bf16 | null, extra_la (M, R2) f32 | null,
 // extra_pu (R2, N) bf16 | null
 // -> out (M, N) bf16. Needs M % 128 == 0, N % 128 == 0, (K / G) % 64 == 0, R, R2 <= MAX_R (128).
+// G = 1 is the rank-1 mode. layer_idx: null, or a device int32 naming the
+// layer of a stack of L weights, each stored (N, K), that starts at wt.
 extern "C" int nt_gemm_w8a8_grouped(const void* qact, const void* ascales, const void* wt,
                                     const void* wscales, const void* lora_act, const void* proj_up,
                                     const void* bias, const void* x, const void* gate,
                                     const void* extra, const void* extra_la, const void* extra_pu,
                                     void* out, int M, int N, int K, int G, int R, int S, int R2,
-                                    void* stream) {
+                                    const void* layer_idx, int L, void* stream) {
   dim3 grid(N / BN, M / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Res res{static_cast<const bf16*>(x), static_cast<const float*>(gate), static_cast<const bf16*>(extra),
@@ -170,17 +189,21 @@ extern "C" int nt_gemm_w8a8_grouped(const void* qact, const void* ascales, const
   if (R > MAX_R || res.R2 > MAX_R) return static_cast<int>(cudaErrorInvalidValue);
   if (!configured) {  // room for the largest ranks once; each launch asks for its own size
     const int most = static_cast<int>(layout(MAX_R, MAX_R).total);
-    for (auto k : {gemm_grouped_kernel<true>, gemm_grouped_kernel<false>}) {
+    for (auto k : {gemm_grouped_kernel<true, false>, gemm_grouped_kernel<false, false>,
+                   gemm_grouped_kernel<true, true>, gemm_grouped_kernel<false, true>}) {
       cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     configured = true;
   }
-  auto kernel = x != nullptr ? gemm_grouped_kernel<true> : gemm_grouped_kernel<false>;
+  const bool stacked = layer_idx != nullptr;
+  auto kernel = x != nullptr ? (stacked ? gemm_grouped_kernel<true, true> : gemm_grouped_kernel<true, false>)
+                             : (stacked ? gemm_grouped_kernel<false, true> : gemm_grouped_kernel<false, false>);
   kernel<<<grid, THREADS, static_cast<int>(layout(R, res.R2).total), s>>>(
       static_cast<const int8_t*>(qact), static_cast<const float*>(ascales),
       static_cast<const int8_t*>(wt), static_cast<const float*>(wscales),
       static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, G, R, res);
+      static_cast<const bf16*>(bias), static_cast<bf16*>(out), M, N, K, G, R, res,
+      static_cast<const int*>(layer_idx), L);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,10 @@
 // the int8 (N, K) tile straight into the stage; WeightW4 copies the packed
 // int4 (K/2, N) tile and its rescale row as they lie in memory and decodes
 // them in shared memory into the same K-contiguous int8 layout before the
-// tile's products, so no int8 copy of the weight ever reaches HBM.
+// tile's products, so no int8 copy of the weight ever reaches HBM. Each
+// weight form's select_layer moves its pointer to one layer of a stack (the
+// stacked modes, common.cuh stacked_layer): K*N bytes a layer for int8,
+// K*N/2 for packed int4.
 #pragma once
 
 #include <mma.h>
@@ -92,6 +95,10 @@ struct WeightI8 {
     }
   }
   __device__ __forceinline__ void decode(Stage&, int) const {}
+  // layer idx of an (L, K, N) stack whose layers are each stored (N, K)
+  __device__ __forceinline__ void select_layer(const int* idx, int L, int K, int N) {
+    wt = stacked_layer(wt, idx, L, static_cast<size_t>(K) * N);
+  }
 };
 
 // A stage of the packed-int4 weight: the raw tile and its rescale row beside
@@ -145,6 +152,10 @@ struct WeightW4 {
       }
       *reinterpret_cast<uint4*>(&st.b[kc][n][0]) = make_uint4(v[0], v[1], v[2], v[3]);
     }
+  }
+  // layer idx of an (L, K/2, N) stack of packed codes (the rescales are the layer's own)
+  __device__ __forceinline__ void select_layer(const int* idx, int L, int K, int N) {
+    qw = stacked_layer(qw, idx, L, static_cast<size_t>(K / 2) * N);
   }
 };
 

@@ -39,8 +39,8 @@ from ..ops.attention import (
     flash_attention_online,
     qkv_rope_producer,
 )
-from ..ops.gemm import (dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant, w4a8_fused,
-                        w4a8_use_xla)
+from ..ops.gemm import (chain_ptoken, dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant,
+                        w4a8_fused, w4a8_use_xla)
 from ..ops.quantize import ln_mod_quant_int8, rsmooth_of
 from ..ops.reference import gelu_jax, layer_norm, rmsnorm
 from .embeddings import apply_rope
@@ -96,23 +96,23 @@ def _halfsplit_qkv_perm(heads: int, head_dim: int, n: int) -> np.ndarray:
 
 
 def _permute_out_channels(lin: SVDQW4A4Linear, perm: np.ndarray) -> None:
-    """Reorder a quantized linear's output channels in place: every N-axis
-    buffer moves together. A K-contiguous weight stays K-contiguous."""
+    """Reorder a quantized linear's output channels in place (``copy_``):
+    every N-axis buffer moves together and keeps its storage and layout, so
+    a stacked linear's layer views see the new order."""
     idx = torch.as_tensor(perm, device=lin.qweight.device)
     for name in ("qweight", "wscales", "proj_up", "bias", "rescales"):
         t = getattr(lin, name)
-        if t is None:
-            continue
-        k_contiguous = name == "qweight" and t.t().is_contiguous()
-        t = t.index_select(-1, idx)
-        setattr(lin, name, t.t().contiguous().t() if k_contiguous else t)
+        if t is not None:
+            t.copy_(t.index_select(-1, idx))
 
 
 def permute_qk_halfsplit(attn: "FluxAttention") -> None:
     """Put the q/k output channels of the QKV projections and the q/k
-    RMSNorm weights in half-split rope order, and switch the module to the
-    fused prologue. The attention's result is unchanged: q and k move
-    together, v and the output projections stay."""
+    RMSNorm weights in half-split rope order, in place, and switch the
+    module to the fused prologue. The attention's result is unchanged: q and
+    k move together, v and the output projections stay. ``attn`` may be a
+    stacked module (every layer moves) or a layer's view (its layer of the
+    stack moves)."""
     if attn.prep_fused:
         raise ValueError("the attention weights are already in half-split order")
     if attn.head_dim != KERNEL_HEAD_DIM:
@@ -120,13 +120,13 @@ def permute_qk_halfsplit(attn: "FluxAttention") -> None:
     heads = attn.to_qkv.out_features // 3 // attn.head_dim
     perm = _halfsplit_qkv_perm(heads, attn.head_dim, attn.to_qkv.out_features)
     hperm = torch.as_tensor(_halfsplit_head_perm(attn.head_dim), device=attn.norm_q.device)
+    norms = [attn.norm_q, attn.norm_k]
     _permute_out_channels(attn.to_qkv, perm)
-    attn.norm_q = attn.norm_q.index_select(-1, hperm)
-    attn.norm_k = attn.norm_k.index_select(-1, hperm)
     if attn.add_qkv_proj is not None:
         _permute_out_channels(attn.add_qkv_proj, perm)
-        attn.norm_added_q = attn.norm_added_q.index_select(-1, hperm)
-        attn.norm_added_k = attn.norm_added_k.index_select(-1, hperm)
+        norms += [attn.norm_added_q, attn.norm_added_k]
+    for t in norms:
+        t.copy_(t.index_select(-1, hperm))
     attn.prep_fused = True
 
 
@@ -274,7 +274,7 @@ def can_chain(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear) -> bool:
 
 
 def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None,
-             residual=None) -> torch.Tensor:
+             residual=None, stacked=None) -> torch.Tensor:
     """fc1 -> GELU -> fc2.
 
     int8 / w4a8 (:func:`can_chain`): fc1's GEMM emits fc2's int8
@@ -293,7 +293,19 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
     producer makes fc1's activations). ``residual = (x_stream, gate[, extra[,
     extra_lora_act, extra_proj_up]])`` (all (B, S, ·), gate (B, N)) returns
     ``x_stream + gate * (mlp_out [+ extra + extra_lora])``, on the chain
-    fused into the grouped consumer's epilogue."""
+    fused into the grouped consumer's epilogue.
+
+    ``stacked = (fc1_qweight_stack, fc2_qweight_stack, layer_idx)`` (JAX
+    :602-606): fc1 and fc2 are a layer's views and the chain kernels read
+    that layer of the whole stacks by its 0-d int32 index on the card: the
+    int8 chain's stacked producer and consumer, the stacked dequant of both
+    stacks on the w4a8 dequant route (the int8 chain then runs on the
+    dequantized layer, as JAX :712-735), the packed pair's stacked modes
+    under :func:`w4a8_fused`. With ``NUNCHAKU_TPU_CHAIN_PTOKEN=1``
+    (:func:`~nunchaku_tpu_torch.ops.gemm.chain_ptoken`, read at each call;
+    int8 only) the producer emits one scale per token and fc2 is a rank-1
+    int8 product: the consumer kernel's stacked rank-1 mode, or, without
+    ``stacked``, ``torch._int_mm`` (JAX's XLA dot)."""
     if not can_chain(fc1, fc2):
         if mod is not None:
             x = (layer_norm(x) * (1.0 + mod[0].float()[:, None]) + mod[1].float()[:, None]).to(torch.bfloat16)
@@ -310,15 +322,20 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
             la = nn.functional.pad(la, (0, 0, 0, pad))
     else:
         qact, asc, la = fc1.quantize(x.reshape(m, x.shape[-1]))
-    w1, w2, precision = fc1.qweight, fc2.qweight, "int8"
+    w1, w2, idx = (fc1.qweight, fc2.qweight, None) if stacked is None else stacked
+    precision, ptoken = "int8", False
     if fc1.precision == "w4a8" and w4a8_fused() and fc1.wcodes != "e2m1":
         precision = "w4a8"  # the packed chain: both kernels decode the int4 weights themselves
     elif fc1.precision == "w4a8":
-        w1 = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)
-        w2 = dequant_w4a8(fc2.qweight, fc2.rescales, fc2.wcodes)
+        w1 = dequant_w4a8(w1, fc1.rescales, fc1.wcodes, idx)
+        w2 = dequant_w4a8(w2, fc2.rescales, fc2.wcodes, idx)
+        idx = None  # the int8 chain runs on the dequantized layer
+    else:
+        ptoken = chain_ptoken()
     qout, qs, la2 = svdq_gemm_w8a8_gelu_quant(
         qact, asc, w1, fc1.wscales, la, fc1.proj_up, fc1.bias, rsmooth_of(fc2.smooth),
-        fc2.proj_down, act_unsigned_next=fc2.act_unsigned, rescales=fc1.rescales, precision=precision)
+        fc2.proj_down, act_unsigned_next=fc2.act_unsigned, rescales=fc1.rescales, precision=precision,
+        layer_idx=idx, ptoken=ptoken)
     res = None
     if residual is not None and qout.shape[0] == m:
         xr, gate, extra, ela, epu = tuple(residual) + (None,) * (5 - len(residual))
@@ -328,7 +345,7 @@ def gelu_mlp(fc1: SVDQW4A4Linear, fc2: SVDQW4A4Linear, x: torch.Tensor, mod=None
 
         res = (flat(xr), gate, flat(extra), flat(ela), epu)
     out = svdq_gemm_w4a4(qout, qs, w2, fc2.wscales, la2, fc2.proj_up, fc2.bias, fc2.rescales,
-                         precision=precision, residual=res)
+                         precision=precision, residual=res, layer_idx=idx)
     out = out[:m].reshape(*lead, out.shape[-1])
     if residual is not None and res is None:  # padded rows: the add follows the slice
         out = res_apply(out, *residual)
@@ -353,5 +370,5 @@ class FeedForward(nn.Module):
                                        act_unsigned=precision == "int4", device=device),
         )
 
-    def forward(self, x, mod=None, residual=None):
-        return gelu_mlp(self.fc1, self.fc2, x, mod=mod, residual=residual)
+    def forward(self, x, mod=None, residual=None, stacked=None):
+        return gelu_mlp(self.fc1, self.fc2, x, mod=mod, residual=residual, stacked=stacked)

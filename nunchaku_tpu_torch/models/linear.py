@@ -10,10 +10,12 @@ branch). Weights keep the JAX package's layouts: (K, N) K-major, packed
 Stacked layers (the JAX scans): :func:`stack_modules` and
 :func:`slice_module` (JAX ``transformer_flux.py:96-103``) turn identical
 modules into one whose buffers carry a leading layer axis, and take a
-layer's views back out of it; :func:`attach_stacked_weights` (JAX
-``linear.py:650``) points each 4-bit linear of a layer's view at the whole
-``(L, ...)`` qweight stack and a device-resident layer index, which its
-GEMM kernel reads (``ops/gemm.py`` stacked modes).
+layer's views back out of it (:func:`build_stacked` stacks layers as they
+are made); :func:`attach_stacked_weights` (JAX ``linear.py:650``) points
+each 4-bit linear of a layer's view at the whole ``(L, ...)`` qweight stack
+and a device-resident layer index, which its GEMM kernel reads
+(``ops/gemm.py`` stacked modes); :class:`StackedLayers` keeps a model's
+per-layer views and indices.
 """
 
 from __future__ import annotations
@@ -241,7 +243,12 @@ class SVDQW4A4Linear(nn.Module):
         return (out, la.reshape(b, s, -1)) if skip_lora else out
 
 
-STACKED_PRECISIONS = ("w4a8", "int4", "nvfp4")  # the 4-bit linears whose kernels read a stacked qweight
+# The linears attach_stacked_weights points at their qweight stack: the 4-bit
+# ones, whose every GEMM is a kernel (JAX linear.py:650-669). int8 linears are
+# left out: JAX runs their standalone GEMMs as XLA dots, which slice the layer
+# themselves, and the port's torch._int_mm takes the layer's view; the int8
+# MLP chain pair's stacks reach the chain kernels through gelu_mlp(stacked=).
+STACKED_PRECISIONS = ("w4a8", "int4", "nvfp4")
 
 
 def stack_modules(mods: list[nn.Module]) -> nn.Module:
@@ -262,6 +269,52 @@ def stack_modules(mods: list[nn.Module]) -> nn.Module:
             out._buffers[name] = torch.stack([m._buffers[name] for m in mods])
     out._modules = {name: None if m is None else stack_modules([x._modules[name] for x in mods])
                     for name, m in first._modules.items()}
+    return out
+
+
+def _empty_stack(t: torch.Tensor, n: int) -> torch.Tensor:
+    """An (n, ...) buffer for n layers like ``t``, in :func:`stack_modules`'
+    layout (a K-contiguous 2-D layer stays K-contiguous)."""
+    if t.dim() == 2 and not t.is_contiguous() and t.t().is_contiguous():
+        return torch.empty((n, t.shape[1], t.shape[0]), dtype=t.dtype, device=t.device).transpose(1, 2)
+    return torch.empty((n, *t.shape), dtype=t.dtype, device=t.device)
+
+
+def _stack_like(first: nn.Module, n: int) -> nn.Module:
+    out = copy.copy(first)
+    out._parameters = {}
+    out._buffers = {name: None if t is None else _empty_stack(t, n) for name, t in first._buffers.items()}
+    out._modules = {name: None if m is None else _stack_like(m, n) for name, m in first._modules.items()}
+    return out
+
+
+def _copy_layer(stacked: nn.Module, layer: nn.Module, i: int) -> None:
+    for name, t in layer._buffers.items():
+        dst = stacked._buffers[name]
+        if (t is None) != (dst is None):
+            raise ValueError(f"layer {i}: buffer {name!r} is {'missing' if t is None else 'unexpected'}")
+        if t is not None:
+            dst[i].copy_(t)
+    for name, m in layer._modules.items():
+        if m is not None:
+            _copy_layer(stacked._modules[name], m, i)
+
+
+@torch.no_grad()
+def build_stacked(make, n: int) -> nn.Module:
+    """``stack_modules([make(0), ..., make(n - 1)])`` without holding the n
+    layers at once: layer 0 lays out the stack, and each layer is copied in
+    as it is made and then freed, so a full-size model never holds its
+    weights twice. ``make(i)`` builds layer i (in order: a random generator
+    draws the layers as a list would)."""
+    if n < 1:
+        raise ValueError("a stack holds at least one layer")
+    first = make(0)
+    out = _stack_like(first, n)
+    _copy_layer(out, first, 0)
+    del first
+    for i in range(1, n):
+        _copy_layer(out, make(i), i)
     return out
 
 
@@ -289,6 +342,57 @@ def attach_stacked_weights(block: nn.Module, stacked: nn.Module, layer_idx: torc
             mod._stacked_qweight = stk[name].qweight
             mod._layer_idx = layer_idx
     return block
+
+
+class StackedLayers:
+    """A model whose blocks are stacked modules: the attributes named in
+    ``STACKS`` (the JAX scans' layout). :meth:`layer_views` gives each
+    stack's per-layer view modules (:func:`slice_module`), every 4-bit
+    linear attached to its stack (:func:`attach_stacked_weights`), and
+    :meth:`layer_ids` their 0-d int32 indices on the stack's device, one
+    tensor per layer, so a forward makes no host sync per layer. Both are
+    built on first use and again once a stack's storage moved (``.to()``, a
+    copy, a replaced linear: the key is every buffer's data pointer) or a
+    setting of the stacks' modules changed through :meth:`set_on_stacks` or
+    a model setter built on it (the attention settings, the fused qkv prep),
+    which drops them. The views are no submodules: ``.to()`` and
+    ``buffers()`` see the stacks alone."""
+
+    STACKS: tuple[str, ...] = ()
+    _views = None
+
+    def _stack_key(self):
+        return tuple(tuple(t.data_ptr() for t in getattr(self, name).buffers()) for name in self.STACKS)
+
+    def _layers(self):
+        key = self._stack_key()
+        if self._views is None or self._views[0] != key:
+            views, ids = {}, {}
+            for name in self.STACKS:
+                stacked = getattr(self, name)
+                first = next(stacked.buffers())
+                idx = torch.arange(first.shape[0], dtype=torch.int32, device=first.device)
+                ids[name] = [idx[i] for i in range(first.shape[0])]
+                views[name] = [attach_stacked_weights(slice_module(stacked, i), stacked, ids[name][i])
+                               for i in range(first.shape[0])]
+            self._views = (key, views, ids)
+        return self._views[1], self._views[2]
+
+    def set_on_stacks(self, module: str, **settings) -> None:
+        """Set plain attributes of submodule ``module`` of every stack (say
+        ``set_on_stacks("attn", fixed_softmax=False)``); the layer views,
+        which hold copies of them, are rebuilt at their next use."""
+        for name in self.STACKS:
+            target = getattr(self, name).get_submodule(module)
+            for key, value in settings.items():
+                setattr(target, key, value)
+        self._views = None
+
+    def layer_views(self) -> dict[str, list[nn.Module]]:
+        return self._layers()[0]
+
+    def layer_ids(self) -> dict[str, list[torch.Tensor]]:
+        return self._layers()[1]
 
 
 class AWQW4A16Linear(nn.Module):

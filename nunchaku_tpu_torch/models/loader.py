@@ -20,9 +20,10 @@ by its reciprocal), round half to even. One deviation: the JAX loader's
 table decode turns the stray e2m1 code -8 into NaN at int8; the port decodes
 it to -8, as the dequant kernel and the JAX package's other decoders do.
 
-The port builds per-layer modules (no ``stack_modules``). Tensors are
-decoded on ``device`` (the card unless the caller asks for the CPU); the
-file is read through mmap.
+The blocks are stacked, as the JAX loader stacks them: each block is
+decoded and copied into its stack in turn (``linear.build_stacked``), so the
+model is never held twice. Tensors are decoded on ``device`` (the card
+unless the caller asks for the CPU); the file is read through mmap.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from ..utils import nunchaku_format as NF
 from ..utils.safetensors import SafeTensors
 from .attention import FeedForward, FluxAttention
 from .embeddings import CombinedTimestepEmbeddings, MLPEmbedder
-from .linear import AWQW4A16Linear, Linear, SVDQW4A4Linear
+from .linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, build_stacked
 from .normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
 from .transformer_flux import FluxConfig, FluxSingleTransformerBlock, FluxTransformer2DModel, FluxTransformerBlock
 
@@ -233,8 +234,7 @@ def load_flux_transformer(path, precision: str | None = None, device="cuda") -> 
     def awq(b, name, parts):
         return _decode_awq(b.sub(name), parts=parts, out_precision=out_precision)
 
-    dual = []
-    for i in range(cfg.num_layers):
+    def dual(i):
         p = f"transformer_blocks.{i}"
         b = root.sub(p)
         attn = FluxAttention(
@@ -242,20 +242,23 @@ def load_flux_transformer(path, precision: str | None = None, device="cuda") -> 
             to_out=svdq(f"{p}.out_proj"), add_qkv_proj=svdq(f"{p}.qkv_proj_context"),
             norm_added_q=b.bf16("norm_added_q.weight"), norm_added_k=b.bf16("norm_added_k.weight"),
             to_add_out=svdq(f"{p}.out_proj_context"), head_dim=cfg.attention_head_dim)
-        dual.append(FluxTransformerBlock(
+        return FluxTransformerBlock(
             AdaLayerNormZero(awq(b, "norm1.linear", 6), scale_shift=0.0),
             AdaLayerNormZero(awq(b, "norm1_context.linear", 6), scale_shift=0.0),
-            attn, ff(p, "mlp_fc1", "mlp_fc2"), ff(p, "mlp_context_fc1", "mlp_context_fc2")))
+            attn, ff(p, "mlp_fc1", "mlp_fc2"), ff(p, "mlp_context_fc1", "mlp_context_fc2"))
 
-    single = []
-    for i in range(cfg.num_single_layers):
+    def single(i):
         p = f"single_transformer_blocks.{i}"
         b = root.sub(p)
         attn = FluxAttention(svdq(f"{p}.qkv_proj"), b.bf16("norm_q.weight"), b.bf16("norm_k.weight"),
                              head_dim=cfg.attention_head_dim)
-        single.append(FluxSingleTransformerBlock(
+        return FluxSingleTransformerBlock(
             AdaLayerNormZeroSingle(awq(b, "norm.linear", 3), scale_shift=0.0), attn,
-            svdq(f"{p}.mlp_fc1"), svdq(f"{p}.mlp_fc2", unsigned), svdq(f"{p}.out_proj")))
+            svdq(f"{p}.mlp_fc1"), svdq(f"{p}.mlp_fc2", unsigned), svdq(f"{p}.out_proj"))
+
+    # each block is decoded and copied into its stack in turn
+    dual_stack = build_stacked(dual, cfg.num_layers)
+    single_stack = build_stacked(single, cfg.num_single_layers)
 
     te = "time_text_embed"
 
@@ -266,5 +269,5 @@ def load_flux_transformer(path, precision: str | None = None, device="cuda") -> 
     return FluxTransformer2DModel(
         cfg, _decode_linear(root, "x_embedder"), _decode_linear(root, "context_embedder"),
         CombinedTimestepEmbeddings(mlp_embedder("timestep_embedder"), mlp_embedder("text_embedder"), guidance),
-        dual, single, AdaLayerNormContinuous(_decode_linear(root, "norm_out.linear")),
+        dual_stack, single_stack, AdaLayerNormContinuous(_decode_linear(root, "norm_out.linear")),
         _decode_linear(root, "proj_out"))

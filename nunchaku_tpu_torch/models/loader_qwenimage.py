@@ -18,7 +18,8 @@ NunchakuQwenImageTransformerBlock, :64-95 NunchakuQwenAttention):
 
 The rank comes from ``quantization_config`` (nunchaku publishes rank-32 and
 rank-128 checkpoints); ``precision="w4a8"`` from an nvfp4 checkpoint loads
-int8, as in the JAX loader. The Qwen block is the FLUX dual-stream block.
+int8, as in the JAX loader. The Qwen block is the FLUX dual-stream block;
+the blocks load into one stack, as in the JAX loader.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 from ..utils.safetensors import SafeTensors
 from .attention import FeedForward, FluxAttention
 from .embeddings import MLPEmbedder
-from .linear import SVDQW4A4Linear
+from .linear import SVDQW4A4Linear, build_stacked
 from .loader import (_check_precision, _decode_awq, _decode_linear, _Reader, checkpoint_precision, make_svdq,
                      svdq_weight_scales)
 from .normalization import AdaLayerNormContinuous, AdaLayerNormZero
@@ -81,8 +82,7 @@ def load_qwenimage_transformer(path, precision: str | None = None, device="cuda"
     kw = dict(precision=ckpt_precision, out_precision=out_precision)
     unsigned = ckpt_precision == "int4"  # fc2 bias carries the post-GELU shift's compensation
 
-    blocks = []
-    for i in range(cfg.num_layers):
+    def block(i):
         b = root.sub(f"transformer_blocks.{i}")
 
         def svdq(name, act_unsigned=False):
@@ -95,12 +95,14 @@ def load_qwenimage_transformer(path, precision: str | None = None, device="cuda"
             to_out=svdq("attn.to_out.0"), add_qkv_proj=svdq("attn.add_qkv_proj"),
             norm_added_q=b.bf16("attn.norm_added_q.weight"), norm_added_k=b.bf16("attn.norm_added_k.weight"),
             to_add_out=svdq("attn.to_add_out"), head_dim=cfg.attention_head_dim)
-        blocks.append(FluxTransformerBlock(
+        return FluxTransformerBlock(
             AdaLayerNormZero(_decode_awq(b.sub("img_mod.1"), parts=6, out_precision=out_precision), scale_shift=1.0),
             AdaLayerNormZero(_decode_awq(b.sub("txt_mod.1"), parts=6, out_precision=out_precision), scale_shift=1.0),
             attn,
             FeedForward(svdq("img_mlp.net.0.proj"), svdq("img_mlp.net.2", unsigned)),
-            FeedForward(svdq("txt_mlp.net.0.proj"), svdq("txt_mlp.net.2", unsigned))))
+            FeedForward(svdq("txt_mlp.net.0.proj"), svdq("txt_mlp.net.2", unsigned)))
+
+    blocks = build_stacked(block, cfg.num_layers)  # each block decoded and copied into the stack in turn
 
     te = "time_text_embed.timestep_embedder"
     return QwenImageTransformer2DModel(

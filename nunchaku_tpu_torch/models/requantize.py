@@ -4,8 +4,10 @@ Counterpart of ``nunchaku_tpu/models/requantize.py``: ``requantize_svdq``
 (:49), ``requantize_model`` (:210) and ``w4a8_cache_dequant`` (:127). The int8
 and w4a8 serving modes re-round a 4-bit model's residual weights as the
 loader does from checkpoint tensors; this applies the same conversion to a
-built model. The JAX per-layer loop over stacks becomes a loop over the
-port's per-layer modules.
+built model. A stacked linear (a (L, ...) qweight, the blocks of FLUX,
+Qwen-Image and Z-Image) converts layer by layer, as the JAX loop over a
+stack does, each layer copied into the new stack as it converts
+(``linear.build_stacked``).
 
 Rounding follows each JAX function's own form, so codes match bit for bit:
 ``_requant_int8_layer`` runs under ``jax.jit``, where XLA compiles
@@ -25,7 +27,14 @@ from torch import nn
 from ..core.packing import unpack_int4
 from ..ops.gemm import dequant_w4a8
 from ..ops.reference import RCP127, decode_e2m1
-from .linear import SVDQW4A4Linear
+from .linear import SVDQW4A4Linear, build_stacked, slice_module
+
+
+def _per_layer(lin: SVDQW4A4Linear, fn) -> SVDQW4A4Linear:
+    """``fn`` of a linear, layer by layer when it is stacked."""
+    if lin.qweight.dim() == 2:
+        return fn(lin)
+    return build_stacked(lambda i: fn(slice_module(lin, i)), lin.qweight.shape[0])
 
 
 def _requant_int8_layer(qw: torch.Tensor, ws: torch.Tensor, *, nvfp4: bool):
@@ -46,11 +55,14 @@ def requantize_svdq(lin: SVDQW4A4Linear, out_precision: str) -> SVDQW4A4Linear:
 
     int8 dequantizes the group-scaled residual and re-rounds it to
     per-channel int8; w4a8 keeps the packed codes (an nvfp4 source its e2m1
-    codes: nvfp4-a8) with a per-channel int8 scale and per-group rescales."""
+    codes: nvfp4-a8) with a per-channel int8 scale and per-group rescales.
+    A stacked linear converts layer by layer."""
     if lin.precision == out_precision:
         return lin
     if lin.precision not in ("int4", "nvfp4"):
         raise ValueError(f"cannot requantize from {lin.precision}")
+    if lin.qweight.dim() == 3:
+        return _per_layer(lin, lambda layer: requantize_svdq(layer, out_precision))
     ws = lin.wscales.float()  # (K/G, N)
     common = dict(smooth=lin.smooth, proj_down=lin.proj_down, proj_up=lin.proj_up, bias=lin.bias,
                   act_unsigned=lin.act_unsigned, logical_in=lin.logical_in, logical_out=lin.logical_out)
@@ -88,6 +100,13 @@ def requantize_model(model: nn.Module, out_precision: str, *, inplace: bool = Fa
     return new
 
 
+def _int8_copy(lin: SVDQW4A4Linear) -> SVDQW4A4Linear:
+    """A w4a8 linear's int8 twin: the dequant's codes, the same scales."""
+    w8 = dequant_w4a8(lin.qweight, lin.rescales, lin.wcodes)
+    return SVDQW4A4Linear(w8, lin.wscales, lin.smooth, lin.proj_down, lin.proj_up, lin.bias, precision="int8",
+                          act_unsigned=lin.act_unsigned, logical_in=lin.logical_in, logical_out=lin.logical_out)
+
+
 @torch.no_grad()
 def w4a8_cache_dequant(model: nn.Module, budget_gib: float, *, inplace: bool = False) -> nn.Module:
     """Memory / speed dial of the w4a8 serving mode: spend up to
@@ -98,8 +117,9 @@ def w4a8_cache_dequant(model: nn.Module, budget_gib: float, *, inplace: bool = F
     bytes). The int8 codes are exactly those the step's dequant produces
     (:func:`~nunchaku_tpu_torch.ops.gemm.dequant_w4a8`, the kernel on the
     card, int4 or e2m1 codes), so every converted linear's weights are
-    code-exact; its output is the int8 route's. Returns a deep copy unless
-    ``inplace``."""
+    code-exact; its output is the int8 route's. A stacked linear is one
+    candidate of its whole stack's bytes, as in JAX, and dequantizes layer
+    by layer. Returns a deep copy unless ``inplace``."""
     new = model if inplace else copy.deepcopy(model)
     cands = [(child.qweight.numel() * 2, mod, name) for mod, name, child in _svdq_children(new)
              if child.precision == "w4a8"]
@@ -111,9 +131,6 @@ def w4a8_cache_dequant(model: nn.Module, budget_gib: float, *, inplace: bool = F
             continue
         spent += net
         child = getattr(mod, name)
-        w8 = dequant_w4a8(child.qweight, child.rescales, child.wcodes)
-        setattr(mod, name, SVDQW4A4Linear(w8, child.wscales, child.smooth, child.proj_down, child.proj_up,
-                                          child.bias, precision="int8", act_unsigned=child.act_unsigned,
-                                          logical_in=child.logical_in, logical_out=child.logical_out))
-        del child, w8
+        setattr(mod, name, _per_layer(child, _int8_copy))
+        del child
     return new

@@ -22,8 +22,16 @@ two configurations:
   Other blocks on a bf16 stream (int4, nvfp4, w4a8 on the packed route)
   take the unfused branches, as in the JAX package.
 
-The JAX ``lax.scan`` over stacked blocks becomes a Python loop over
-per-layer modules, each holding its own tensors.
+The blocks are stacked, as the JAX scans hold them (:297-298):
+``transformer_blocks`` and ``single_transformer_blocks`` are one module each
+whose buffers carry a leading layer axis (``linear.stack_modules``), and
+``run_dual`` / ``run_singles`` loop over the layers' view modules
+(``linear.StackedLayers``): each 4-bit linear reads its layer of the qweight
+stack by a device-resident index, and the int8 / w4a8 MLP chain pair gets
+both stacks and the index (``gelu_mlp(stacked=...)``, JAX :484-511,
+:532-555), so the chain kernels run their stacked modes. The index is
+absolute: ``run_dual(start=1)`` passes layer i's index into the whole stack
+where JAX slices the stack and counts from 0; the layer read is the same.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ from torch import nn
 from ..ops.attention import rope_table_halfsplit
 from .attention import FeedForward, FluxAttention, gelu_mlp, permute_qk_halfsplit
 from .embeddings import CombinedTimestepEmbeddings, rope_table
-from .linear import Linear, SVDQW4A4Linear
+from .linear import Linear, StackedLayers, SVDQW4A4Linear, build_stacked
 from .normalization import (
     AdaLayerNormContinuous,
     AdaLayerNormZero,
@@ -89,9 +97,12 @@ class FluxTransformerBlock(nn.Module):
             FeedForward.random_init(gen, dim, rank=cfg.rank, precision=cfg.precision, device=device),
         )
 
-    def forward(self, img, txt, temb, rot, kv_mask=None):
+    def forward(self, img, txt, temb, rot, kv_mask=None, ff_stacked=None):
         """``kv_mask``: optional (B, S_txt + S_img) bool validity of the joint
-        attention's keys (Qwen-Image's padded prompts)."""
+        attention's keys (Qwen-Image's padded prompts). ``ff_stacked``: the
+        ``(ff, ff_context)`` pair of ``gelu_mlp`` stacked tuples (JAX
+        ``ff_stacked``), or None."""
+        ffs, ffcs = (None, None) if ff_stacked is None else ff_stacked
         sdt = img.dtype
         fused_ln = sdt == torch.bfloat16 and self.attn.to_qkv.ln_producer
         if fused_ln:
@@ -108,18 +119,18 @@ class FluxTransformerBlock(nn.Module):
 
         img = (img + gate_msa[:, None] * attn_img.float()).to(sdt)
         if fused_ln:  # the gated residual add rides the MLP consumer's epilogue
-            img = self.ff(img, mod=(scale_mlp, shift_mlp), residual=(img, gate_mlp))
+            img = self.ff(img, mod=(scale_mlp, shift_mlp), residual=(img, gate_mlp), stacked=ffs)
         else:
             h = layer_norm(img) * (1.0 + scale_mlp[:, None]) + shift_mlp[:, None]
-            ff_out = self.ff(h.to(attn_img.dtype))
+            ff_out = self.ff(h.to(attn_img.dtype), stacked=ffs)
             img = (img + gate_mlp[:, None] * ff_out.float()).to(sdt)
 
         txt = (txt + c_gate_msa[:, None] * attn_txt.float()).to(sdt)
         if fused_ln:
-            txt = self.ff_context(txt, mod=(c_scale_mlp, c_shift_mlp), residual=(txt, c_gate_mlp))
+            txt = self.ff_context(txt, mod=(c_scale_mlp, c_shift_mlp), residual=(txt, c_gate_mlp), stacked=ffcs)
         else:
             h = layer_norm(txt) * (1.0 + c_scale_mlp[:, None]) + c_shift_mlp[:, None]
-            ffc_out = self.ff_context(h.to(attn_txt.dtype))
+            ffc_out = self.ff_context(h.to(attn_txt.dtype), stacked=ffcs)
             txt = (txt + c_gate_mlp[:, None] * ffc_out.float()).to(sdt)
         return img, txt
 
@@ -153,7 +164,8 @@ class FluxSingleTransformerBlock(nn.Module):
             lin(dim, 4 * dim), lin(4 * dim, dim, act_unsigned=cfg.precision == "int4"), lin(dim, dim),
         )
 
-    def forward(self, x, temb, rot):
+    def forward(self, x, temb, rot, mlp_stacked=None):
+        """``mlp_stacked``: the MLP pair's ``gelu_mlp`` stacked tuple, or None."""
         fused_ln = x.dtype == torch.bfloat16 and self.attn.to_qkv.ln_producer and self.mlp_fc1.ln_producer
         if fused_ln:
             # x + gate * (attn_out + mlp) in the MLP consumer's epilogue:
@@ -163,17 +175,45 @@ class FluxSingleTransformerBlock(nn.Module):
             attn = self.attn(x, None, rot, mods=((scale, shift), None))
             attn_main, attn_la = self.attn_out.forward_parts(attn)
             return gelu_mlp(self.mlp_fc1, self.mlp_fc2, x, mod=(scale, shift),
-                            residual=(x, gate, attn_main, attn_la, self.attn_out.proj_up))
+                            residual=(x, gate, attn_main, attn_la, self.attn_out.proj_up), stacked=mlp_stacked)
         norm_x, gate = self.norm(x, temb)
         attn = self.attn(norm_x, None, rot)
-        mlp = gelu_mlp(self.mlp_fc1, self.mlp_fc2, norm_x)
+        mlp = gelu_mlp(self.mlp_fc1, self.mlp_fc2, norm_x, stacked=mlp_stacked)
         out = self.attn_out(attn).float() + mlp.float()
         return (x + gate[:, None] * out).to(x.dtype)
 
 
-class FluxTransformer2DModel(nn.Module):
+def chain_stacks(stacked: nn.Module, pairs) -> tuple | None:
+    """The (fc1, fc2) qweight stacks of each MLP pair of a stacked block
+    (``pairs``: attribute paths), when its MLP may take the chain kernels'
+    stacked modes (int8, w4a8; JAX ``stk``, :473-476), else None."""
+    if getattr(stacked.get_submodule(pairs[0][0]), "precision", None) not in ("int8", "w4a8"):
+        return None
+    return tuple((stacked.get_submodule(a).qweight, stacked.get_submodule(b).qweight) for a, b in pairs)
+
+
+DUAL_CHAINS = (("ff.fc1", "ff.fc2"), ("ff_context.fc1", "ff_context.fc2"))
+SINGLE_CHAINS = (("mlp_fc1", "mlp_fc2"),)
+
+
+def run_dual_stack(model: StackedLayers, name: str, img, txt, temb, rot, start=0, stop=None, kv_mask=None):
+    """Dual blocks [start, stop) of the stack ``name``: each layer's view,
+    its MLP chain pairs given the stacks and the layer's index."""
+    views, ids = (d[name] for d in model._layers())
+    chains = chain_stacks(getattr(model, name), DUAL_CHAINS)
+    for i in range(len(views))[start:stop]:
+        ffs = None if chains is None else tuple((*c, ids[i]) for c in chains)
+        img, txt = views[i](img, txt, temb, rot, kv_mask=kv_mask, ff_stacked=ffs)
+    return img, txt
+
+
+class FluxTransformer2DModel(StackedLayers, nn.Module):
     """Full FLUX transformer (diffusers forward contract); f32 residual
-    stream unless :meth:`set_stream_dtype` says otherwise."""
+    stream unless :meth:`set_stream_dtype` says otherwise.
+    ``transformer_blocks`` / ``single_transformer_blocks``: stacked blocks
+    (``linear.stack_modules`` / ``build_stacked``)."""
+
+    STACKS = ("transformer_blocks", "single_transformer_blocks")
 
     def __init__(self, cfg: FluxConfig, x_embedder: Linear, context_embedder: Linear,
                  time_text_embed: CombinedTimestepEmbeddings, transformer_blocks,
@@ -183,8 +223,8 @@ class FluxTransformer2DModel(nn.Module):
         self.x_embedder = x_embedder
         self.context_embedder = context_embedder
         self.time_text_embed = time_text_embed
-        self.transformer_blocks = nn.ModuleList(transformer_blocks)
-        self.single_transformer_blocks = nn.ModuleList(single_transformer_blocks)
+        self.transformer_blocks = transformer_blocks
+        self.single_transformer_blocks = single_transformer_blocks
         self.norm_out = norm_out
         self.proj_out = proj_out
         self.stream_dtype = torch.float32
@@ -192,7 +232,8 @@ class FluxTransformer2DModel(nn.Module):
     @classmethod
     def random_init(cls, cfg: FluxConfig, seed: int = 0, device="cuda"):
         """Random weights with the distributions of the JAX ``random_init``
-        (not its bits), made on ``device`` from ``seed``."""
+        (not its bits), made on ``device`` from ``seed``; each block is drawn
+        and copied into its stack in turn (``build_stacked``)."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         dim = cfg.dim
@@ -202,9 +243,9 @@ class FluxTransformer2DModel(nn.Module):
             Linear.random_init(gen, cfg.joint_attention_dim, dim, device=device),
             CombinedTimestepEmbeddings.random_init(gen, dim, cfg.pooled_projection_dim,
                                                    cfg.guidance_embeds, device),
-            [FluxTransformerBlock.random_init(gen, cfg, device) for _ in range(cfg.num_layers)],
-            [FluxSingleTransformerBlock.random_init(gen, cfg, device)
-             for _ in range(cfg.num_single_layers)],
+            build_stacked(lambda i: FluxTransformerBlock.random_init(gen, cfg, device), cfg.num_layers),
+            build_stacked(lambda i: FluxSingleTransformerBlock.random_init(gen, cfg, device),
+                          cfg.num_single_layers),
             AdaLayerNormContinuous.random_init(gen, dim, device),
             Linear.random_init(gen, dim, cfg.out_channels, device=device),
         )
@@ -231,8 +272,7 @@ class FluxTransformer2DModel(nn.Module):
             ratio = float(sparsity_ratio)
         else:
             raise ValueError(f"unknown attention impl: {impl!r}")
-        for block in [*self.transformer_blocks, *self.single_transformer_blocks]:
-            block.attn.sparsity_ratio = ratio
+        self.set_on_stacks("attn", sparsity_ratio=ratio)
         return self
 
     def enable_fused_qkv_prep(self) -> "FluxTransformer2DModel":
@@ -240,9 +280,11 @@ class FluxTransformer2DModel(nn.Module):
         weights into half-split rope order and run the attention prologue
         as the qkv/RoPE producer kernel (:func:`permute_qk_halfsplit`).
         The model's outputs are unchanged up to rounding. Once per model:
-        a second call raises."""
-        for block in [*self.transformer_blocks, *self.single_transformer_blocks]:
-            permute_qk_halfsplit(block.attn)
+        a second call raises. The stacks are permuted in place; the layer
+        views are rebuilt at the next forward."""
+        for name in self.STACKS:
+            permute_qk_halfsplit(getattr(self, name).attn)
+        self._views = None  # the views copied the attention's prep_fused
         return self
 
     @property
@@ -250,8 +292,7 @@ class FluxTransformer2DModel(nn.Module):
         """Whether the blocks take the half-split (cos, sin) rope table: the
         attention modules' own layout, so a block left in the other layout
         raises instead of rotating the wrong channel pairs."""
-        return any(block.attn.prep_fused
-                   for block in [*self.transformer_blocks, *self.single_transformer_blocks])
+        return any(getattr(self, name).attn.prep_fused for name in self.STACKS)
 
     def embed(self, hidden_states, encoder_hidden_states, pooled_projections, timestep, img_ids,
               txt_ids, guidance=None):
@@ -267,13 +308,15 @@ class FluxTransformer2DModel(nn.Module):
         return img, txt, temb, rot
 
     def run_dual(self, img, txt, temb, rot, start=0, stop=None):
-        for block in self.transformer_blocks[start:stop]:
-            img, txt = block(img, txt, temb, rot)
-        return img, txt
+        """Dual blocks [start, stop) (JAX :451-511)."""
+        return run_dual_stack(self, "transformer_blocks", img, txt, temb, rot, start, stop)
 
     def run_singles(self, x, temb, rot, start=0, stop=None):
-        for block in self.single_transformer_blocks[start:stop]:
-            x = block(x, temb, rot)
+        """Single blocks [start, stop) over the [txt; img] stream (JAX :513-555)."""
+        views, ids = (d["single_transformer_blocks"] for d in self._layers())
+        chains = chain_stacks(self.single_transformer_blocks, SINGLE_CHAINS)
+        for i in range(len(views))[start:stop]:
+            x = views[i](x, temb, rot, mlp_stacked=None if chains is None else (*chains[0], ids[i]))
         return x
 
     def head(self, img, temb):

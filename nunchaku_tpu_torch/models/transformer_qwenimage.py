@@ -10,8 +10,12 @@ text states. Padded prompts pass ``encoder_hidden_states_mask``; every
 query then ignores the padded text keys (the flash kernels' kv-mask forms).
 The residual stream is f32, as in the JAX model.
 
-The JAX ``lax.scan`` over stacked blocks becomes a Python loop over
-per-layer modules (``run_blocks``).
+``blocks`` is one stacked ``FluxTransformerBlock`` (buffers with a leading
+layer axis), as the JAX ``run_blocks`` scan holds it (:175-228), and
+``run_blocks`` loops over its layer views (``linear.StackedLayers``): the
+4-bit linears read their layer of the stacks by a device-resident index,
+the MLP chain pairs at int8 / w4a8 get both stacks and the index, and the
+kv mask is the same for every layer.
 """
 
 from __future__ import annotations
@@ -25,9 +29,9 @@ from ..ops.attention import rope_table_halfsplit
 from ..ops.reference import rmsnorm
 from .attention import permute_qk_halfsplit
 from .embeddings import MLPEmbedder, rope_table, timestep_embedding
-from .linear import Linear
+from .linear import Linear, StackedLayers, build_stacked
 from .normalization import AdaLayerNormContinuous
-from .transformer_flux import FluxConfig, FluxTransformerBlock
+from .transformer_flux import FluxConfig, FluxTransformerBlock, run_dual_stack
 
 
 @dataclass(frozen=True)
@@ -62,7 +66,11 @@ class QwenImageConfig:
             precision=self.precision)
 
 
-class QwenImageTransformer2DModel(nn.Module):
+class QwenImageTransformer2DModel(StackedLayers, nn.Module):
+    """``blocks``: the stacked joint blocks."""
+
+    STACKS = ("blocks",)
+
     def __init__(self, cfg: QwenImageConfig, img_in: Linear, txt_in: Linear, time_embed: MLPEmbedder, blocks,
                  norm_out: AdaLayerNormContinuous, proj_out: Linear, txt_norm: torch.Tensor | None = None):
         super().__init__()
@@ -70,7 +78,7 @@ class QwenImageTransformer2DModel(nn.Module):
         self.img_in = img_in
         self.txt_in = txt_in
         self.time_embed = time_embed
-        self.blocks = nn.ModuleList(blocks)
+        self.blocks = blocks
         self.norm_out = norm_out
         self.proj_out = proj_out
         # RMSNorm weight on the raw text states before txt_in, when the checkpoint has one
@@ -88,21 +96,22 @@ class QwenImageTransformer2DModel(nn.Module):
             Linear.random_init(gen, cfg.in_channels, cfg.dim, device=device),
             Linear.random_init(gen, cfg.joint_attention_dim, cfg.dim, device=device),
             MLPEmbedder.random_init(gen, 256, cfg.dim, device),
-            [FluxTransformerBlock.random_init(gen, fcfg, device) for _ in range(cfg.num_layers)],
+            build_stacked(lambda i: FluxTransformerBlock.random_init(gen, fcfg, device), cfg.num_layers),
             AdaLayerNormContinuous.random_init(gen, cfg.dim, device),
             Linear.random_init(gen, cfg.dim, cfg.proj_out_channels, device=device),
         )
 
     def enable_fused_qkv_prep(self) -> "QwenImageTransformer2DModel":
         """Half-split q/k weights and the qkv/RoPE producer kernel in every
-        block (:func:`permute_qk_halfsplit`); once per model."""
-        for block in self.blocks:
-            permute_qk_halfsplit(block.attn)
+        block (:func:`permute_qk_halfsplit`, in place on the stack); once per
+        model."""
+        permute_qk_halfsplit(self.blocks.attn)
+        self._views = None  # the views copied the attention's prep_fused
         return self
 
     @property
     def rope_halfsplit(self) -> bool:
-        return any(block.attn.prep_fused for block in self.blocks)
+        return self.blocks.attn.prep_fused
 
     def embed(self, hidden_states, encoder_hidden_states, timestep, img_ids, txt_ids=None):
         """-> (img f32, txt f32, temb bf16, rot): rot is the (S_txt + S_img,
@@ -135,9 +144,7 @@ class QwenImageTransformer2DModel(nn.Module):
 
     def run_blocks(self, img, txt, temb, rot, start=0, stop=None, kv_mask=None):
         """Joint blocks [start, stop)."""
-        for block in self.blocks[start:stop]:
-            img, txt = block(img, txt, temb, rot, kv_mask=kv_mask)
-        return img, txt
+        return run_dual_stack(self, "blocks", img, txt, temb, rot, start, stop, kv_mask)
 
     def forward(self, hidden_states, encoder_hidden_states, timestep, img_ids, txt_ids=None,
                 encoder_hidden_states_mask=None):

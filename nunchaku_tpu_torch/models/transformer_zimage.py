@@ -45,8 +45,7 @@ from ..ops.quantize import glu_product, quantize_w4a4_act_fuse_lora
 from ..ops.reference import rmsnorm
 from .attention import (_halfsplit_head_perm, _halfsplit_qkv_perm, prep_halfsplit, qkv_norm_rope)
 from .embeddings import rope_table, timestep_embedding
-from .linear import (PAD_TOKENS, STACKED_PRECISIONS, Linear, SVDQW4A4Linear, attach_stacked_weights, pad_rows,
-                     slice_module, stack_modules)
+from .linear import PAD_TOKENS, Linear, StackedLayers, SVDQW4A4Linear, build_stacked, pad_rows
 
 BF16 = torch.bfloat16
 STACKS = ("noise_refiner", "context_refiner", "layers")
@@ -191,10 +190,12 @@ class ZImageTransformerBlock(nn.Module):
         return x + self._rms(f, self.ffn_norm2).float()
 
 
-class ZImageTransformer2DModel(nn.Module):
+class ZImageTransformer2DModel(StackedLayers, nn.Module):
     """x / caption embedders, the noise refiner (modulated, image tokens),
     the context refiner (unmodulated, caption tokens), the main layers over
     the joint [caption; image] stream, and the modulated final layer."""
+
+    STACKS = STACKS
 
     def __init__(self, cfg, x_embedder, t_embedder1, t_embedder2, cap_norm, cap_embedder, noise_refiner,
                  context_refiner, layers, norm_out, proj_out, adaln_out):
@@ -212,7 +213,6 @@ class ZImageTransformer2DModel(nn.Module):
         self.proj_out = proj_out
         self.adaln_out = adaln_out  # Linear(t_dim, dim): the final scale
         self._rope_halfsplit = False
-        self._views = None
 
     @classmethod
     def random_init(cls, cfg: ZImageConfig, seed: int = 0, device="cuda"):
@@ -223,7 +223,7 @@ class ZImageTransformer2DModel(nn.Module):
         dim, patch_dim = cfg.dim, cfg.in_channels * cfg.patch_size ** 2
 
         def stack(n, modulation):
-            return stack_modules([ZImageTransformerBlock.random_init(gen, cfg, modulation, device) for _ in range(n)])
+            return build_stacked(lambda i: ZImageTransformerBlock.random_init(gen, cfg, modulation, device), n)
 
         noise_ref = stack(cfg.num_refiner_layers, True)
         ctx_ref = stack(cfg.num_refiner_layers, False)
@@ -236,34 +236,13 @@ class ZImageTransformer2DModel(nn.Module):
 
     # -- stacked layers -----------------------------------------------------
 
-    def _stack_key(self):
-        return tuple(next(getattr(self, n).buffers()).data_ptr() for n in STACKS)
-
-    def layer_views(self) -> dict[str, list[ZImageTransformerBlock]]:
-        """Per-layer view modules of each stack, 4-bit linears attached to
-        their stacks: built on first use and again once the stacks' storage
-        changed (``.to()`` to another device, a copy of the model) or their
-        channels changed order (:meth:`enable_fused_qkv_prep`)."""
-        if self._views is None or self._views[0] != self._stack_key():
-            views = {}
-            for name in STACKS:
-                stacked = getattr(self, name)
-                n = stacked.attention_norm1.shape[0]
-                blocks = [slice_module(stacked, i) for i in range(n)]
-                if getattr(stacked.attention.to_qkv, "precision", None) in STACKED_PRECISIONS:
-                    ids = torch.arange(n, dtype=torch.int32, device=stacked.attention_norm1.device)
-                    blocks = [attach_stacked_weights(b, stacked, ids[i]) for i, b in enumerate(blocks)]
-                views[name] = blocks
-            self._views = (self._stack_key(), views)
-        return self._views[1]
-
     @torch.no_grad()
     def enable_fused_qkv_prep(self, producer: bool = True):
         """The fused attention prologue (JAX :297-320): the q and k output
         channels of every to_qkv stack and the norm_q / norm_k stacks move to
         half-split RoPE order in place, and the forward converts its rope
-        tables to half-split (cos, sin) pairs once. The layer views are
-        rebuilt after the permutation."""
+        tables to half-split (cos, sin) pairs once. The layer views share
+        the stacks' storage, so they see the new order."""
         if not producer:
             raise ValueError("Z-Image has no XLA half-split path; producer must be True")
         if self._rope_halfsplit:
@@ -284,7 +263,6 @@ class ZImageTransformer2DModel(nn.Module):
             for buf in (attn.norm_q, attn.norm_k):
                 buf.copy_(buf.index_select(-1, hperm))
         self._rope_halfsplit = True
-        self._views = None
         return self
 
     def _scan(self, name, x, temb, rot):

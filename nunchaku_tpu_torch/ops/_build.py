@@ -34,10 +34,10 @@ _F = ctypes.c_float
 # C signatures: every pointer and the stream are void*, sizes int.
 SIGNATURES = {
     "nt_dequant_w4a8": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
-    "nt_gemm_w8a8_gelu_quant": [_P] * 15 + [_I] * 6 + [_F, _P],
-    "nt_gemm_w4a8_gelu_quant": [_P] * 16 + [_I] * 6 + [_F, _P],
+    "nt_gemm_w8a8_gelu_quant": [_P] * 15 + [_I] * 6 + [_F, _P, _I, _P],
+    "nt_gemm_w4a8_gelu_quant": [_P] * 16 + [_I] * 6 + [_F, _P, _I, _P],
     "nt_gemm_w4a8": [_P] * 9 + [_I] * 5 + [_P, _I, _P],
-    "nt_gemm_w8a8_grouped": [_P] * 13 + [_I] * 7 + [_P],
+    "nt_gemm_w8a8_grouped": [_P] * 13 + [_I] * 7 + [_P, _I, _P],
     "nt_flash_fixed": [_P] * 5 + [_I] * 4 + [_P],
     "nt_flash_online": [_P] * 5 + [_I] * 6 + [_F, _P],
     "nt_ln_mod_quant": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 4 + [_P],

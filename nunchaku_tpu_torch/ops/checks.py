@@ -31,6 +31,7 @@ from .attention import (
     select_blocks,
 )
 from .gemm import (
+    chain_h_plain,
     chain_tile_n,
     dequant_w4a8,
     dequant_w4a8_plain,
@@ -42,12 +43,14 @@ from .gemm import (
     gemm_w8a8_grouped,
     gemm_w8a8_grouped_plain,
     gemm_w8a8_grouped_res,
+    gemm_w8a8_rank1,
     svdq_gemm_w4a8_gelu_quant,
     svdq_gemm_w4a8_gelu_quant_plain,
     svdq_gemm_w8a8_gelu_quant,
     svdq_gemm_w8a8_gelu_quant_plain,
     w4a8_group,
 )
+from .quantize import rcp
 from .gemv import awq_w4a16_linear, awq_w4a16_linear_plain
 from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
 from .reference import group_size
@@ -353,11 +356,11 @@ STACK_LAYERS = 3  # layers of the stacks the stacked-mode checks build
 
 
 def stack_case(weight: torch.Tensor, layers: int = STACK_LAYERS, *, seed=7):
-    """An (L, K/2, N) stack of random packed codes (every byte) whose every
-    layer has ``weight``'s shape and layout (a K-contiguous weight gives a
-    stack of K-contiguous layers, back to back), with ``weight`` itself as
-    its last layer; -> (stack, one 0-d int32 index tensor per layer, on the
-    weight's device)."""
+    """An (L, ...) stack of random bytes (packed (K/2, N) codes or (K, N)
+    int8 weights) whose every layer has ``weight``'s shape and layout (a
+    K-contiguous weight gives a stack of K-contiguous layers, back to back),
+    with ``weight`` itself as its last layer; -> (stack, one 0-d int32 index
+    tensor per layer, on the weight's device)."""
     half, n = weight.shape
     g = _gen(seed, weight.device)
     if weight.is_contiguous():
@@ -559,6 +562,107 @@ def check_qkv_rope(streams, cos, sin):
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} over q, k, v (tol 1e-2)"
 
 
+def check_ptoken(qa, ascales, w, wscales, la, pu, bias, rsm, pd, act_unsigned_next=False):
+    """The per-token producer (qscales (1, M)) against its plain twin:
+    scales within 1e-6 relative; codes equal but for flips at a rounding
+    boundary: every differing code one apart, where the twin's h * rcp(scale)
+    lies within 1e-3 of a .5 boundary (the kernel's f32 epilogue, its tanhf
+    and its low-rank sum order against the twin's torch ops move h by a few
+    ulp, so only a code at a tie can flip), counted in the detail, on at
+    most 0.1% of codes; lora_next within 1e-2 of its max |value|."""
+    kw = dict(act_unsigned_next=act_unsigned_next, ptoken=True)
+    q, s, l = svdq_gemm_w8a8_gelu_quant(qa, ascales, w, wscales, la, pu, bias, rsm, pd, **kw)
+    qr, sr, lr = svdq_gemm_w8a8_gelu_quant_plain(qa, ascales, w, wscales, la, pu, bias, rsm, pd, **kw)
+    h, _ = chain_h_plain(qa, ascales, w, wscales, la, pu, bias, rsm, pd, act_unsigned_next)
+    t = h * rcp(sr).reshape(-1, 1)
+    at_tie = ((t - t.floor()) - 0.5).abs() <= 1e-3
+    diff = (q.int() - qr.int()).abs()
+    flips = int((diff > 0).sum().item())
+    off_tie = int(((diff > 0) & ~at_tie).sum().item())
+    s_rel = ((s - sr).abs() / sr.abs().clamp_min(1e-30)).max().item()
+    _, l_rel = _rel(l, lr)
+    ok = (diff.max().item() <= 1 and off_tie == 0 and flips <= 1e-3 * q.numel() and s_rel <= 1e-6
+          and l_rel <= 1e-2 and q.shape == qr.shape and s.shape == sr.shape == (1, qa.shape[0]))
+    detail = (f"{flips} of {q.numel()} codes flipped (one apart, {off_tie} off a .5 tie; tol 0 off a tie, "
+              f"<=1e-3 in all); scale rel {s_rel:.2e} (tol 1e-6); lora_next rel {l_rel:.2e} (tol 1e-2)")
+    return float(diff.max().item()), ok, detail
+
+
+def check_rank1(qa, ascales, w, wscales, la, pu, bias, residual=None):
+    """The consumer's rank-1 mode (ascales (1, M)) against its plain twin:
+    every element within one bf16 step (|err| <= 2^-7 |ref| + 1e-4 max
+    |ref|): both scale the same exact int32 sum, only the low-rank term's f32
+    sum runs in another order; with the residual epilogue 1e-2 of max |ref|
+    (the GEMM output is rounded to bf16 before the gated add)."""
+    out = gemm_w8a8_rank1(qa, ascales, w, wscales, la, pu, bias, residual)
+    ref = gemm_w8a8_grouped_plain(qa, ascales, w, wscales, la, pu, bias, residual)
+    err, rel = _rel(out, ref)
+    o, r = out.float(), ref.float()
+    beyond = ((o - r).abs() > 2.0 ** -7 * r.abs() + 1e-4 * r.abs().max()).sum().item()
+    ok = (rel <= 1e-2 if residual is not None else beyond == 0) and out.shape == ref.shape
+    return err, ok and bool(torch.isfinite(o).all()), (
+        f"max abs {err:.3e}, rel {rel:.2e}; {beyond} elements beyond one bf16 step "
+        f"(tol {'rel 1e-2' if residual is not None else '0'})")
+
+
+def check_stacked(run, weight, check):
+    """A stacked mode: ``run(stack, idx)`` on every layer of a
+    :func:`stack_case` stack of ``weight`` bit for bit ``run(stack[l], None)``,
+    the non-stacked kernel on that layer (the same code, only the weight
+    pointer moved); and ``check()``, the non-stacked kernel against its twin
+    on the case's weight (the stack's last layer)."""
+    stack, ids = stack_case(weight)
+    same = []
+    for l, i in enumerate(ids):
+        a, b = run(stack, i), run(stack[l], None)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        same.append(all(torch.equal(x, y) for x, y in zip(a, b)))
+    return _stacked_report(same, *check())
+
+
+# the stacked chain modes (their ops.gemm.COUNTS names) that FLUX / Qwen-Image's stacks reach
+STACKED_CHAIN_MODES = ("gemm_w8a8_gelu_quant_stacked", "gemm_w8a8_gelu_quant_ptoken_stacked",
+                       "gemm_w8a8_grouped_stacked", "gemm_w8a8_grouped_res_stacked", "gemm_w8a8_rank1_stacked",
+                       "gemm_w8a8_rank1_res_stacked", "gemm_w4a8_gelu_quant_stacked", "gemm_w4a8_grouped_stacked")
+
+
+def chain_stacked_case(mode, m, k, n, r=32, *, seed=0, device="cuda"):
+    """-> (run(weight, layer_idx), the case's weight, check(), the case's
+    operands) of the stacked chain mode ``mode`` (one of
+    :data:`STACKED_CHAIN_MODES`) at (M, K, N): the producers' operands of
+    :func:`gelu_quant_case` / :func:`w4a8_gelu_quant_case`, the consumers'
+    of :func:`grouped_case` / :func:`grouped_res_case` /
+    :func:`w4a8_grouped_case` with the producer's K / bn scale groups (one
+    for the rank-1 modes). ``check()`` holds the non-stacked kernel to its
+    twin; :func:`check_stacked` adds the layer-by-layer equality."""
+    producer = "gelu_quant" in mode
+    ptoken = "ptoken" in mode
+    groups = 1 if "rank1" in mode else k // chain_tile_n(k)
+    if mode == "gemm_w4a8_gelu_quant_stacked":
+        args = w4a8_gelu_quant_case(m, k, n, r, seed=seed, device=device)
+        qa, asc, qw, rs, *rest = args
+        return (lambda w, i: svdq_gemm_w4a8_gelu_quant(qa, asc, w, rs, *rest, layer_idx=i), qw,
+                lambda: check_w4a8_gelu_quant(*args), args)
+    if mode == "gemm_w4a8_grouped_stacked":
+        args = w4a8_grouped_case(m, k, n, groups, r, seed=seed, device=device)
+        qa, asc, qw, *rest = args
+        return (lambda w, i: gemm_w4a8_grouped(qa, asc, w, *rest, layer_idx=i), qw, lambda: check_w4a8(*args), args)
+    if producer:
+        args = gelu_quant_case(m, k, n, r, seed=seed, device=device)
+        qa, asc, w8, *rest = args
+        check = (lambda: check_ptoken(*args)) if ptoken else (lambda: check_gelu_quant(*args))
+        return (lambda w, i: svdq_gemm_w8a8_gelu_quant(qa, asc, w, *rest, layer_idx=i, ptoken=ptoken), w8, check,
+                args)
+    res = "_res" in mode
+    args = (grouped_res_case(m, k, n, groups, r, seed=seed, device=device) if res
+            else grouped_case(m, k, n, groups, r, seed=seed, device=device) + (None,))
+    qa, asc, w8, *rest = args
+    if "rank1" in mode:
+        return lambda w, i: gemm_w8a8_rank1(qa, asc, w, *rest, layer_idx=i), w8, lambda: check_rank1(*args), args
+    check = (lambda: check_grouped_res(*args)) if res else (lambda: check_grouped(*args[:-1]))
+    return lambda w, i: gemm_w8a8_grouped(qa, asc, w, *rest, layer_idx=i), w8, check, args
+
+
 def check_grouped_res(qa, ascales, w, wscales, la, pu, bias, residual):
     """bf16 output: max error <= 1e-2 of the plain output's max |value|."""
     out = gemm_w8a8_grouped_res(qa, ascales, w, wscales, la, pu, bias, residual)
@@ -600,9 +704,20 @@ def damp_zimage_modulation(model, scale: float = ZIMAGE_ADALN_DAMP) -> None:
 
 
 def _awq_linears(model):
+    """The AWQ linears of ``model``, a stacked one as one module."""
     from ..models.linear import AWQW4A16Linear
 
     return [m for m in model.modules() if isinstance(m, AWQW4A16Linear)]
+
+
+def _awq_layers(model):
+    """The AWQ linears of ``model`` one layer at a time: a stacked one
+    through the model's layer views."""
+    layers = [m for m in _awq_linears(model) if m.qweight.dim() == 2]
+    views = getattr(model, "layer_views", None)
+    if views is not None:
+        layers += [m for vs in views().values() for v in vs for m in _awq_linears(v)]
+    return layers
 
 
 def check_modulation(cpu_model, model, *, seed=0):
@@ -611,7 +726,7 @@ def check_modulation(cpu_model, model, *, seed=0):
     every output element within one bf16 rounding step (|err| <= 2^-7
     |ref| + 1e-4 max |ref|). Damping scales both sides alike, so this check
     keeps its power on a damped model."""
-    pairs = list(zip(_awq_linears(cpu_model), _awq_linears(model)))
+    pairs = list(zip(_awq_layers(cpu_model), _awq_layers(model)))
     worst, beyond = 0.0, 0
     with torch.no_grad():
         for ref_lin, lin in pairs:
@@ -634,7 +749,7 @@ def _swap_planes(m):
 # linears: what a kernel that misread its operands would compute.
 MOD_MUTATIONS = {
     "nibble planes swapped": _swap_planes,
-    "scale groups shifted by one": lambda m: setattr(m, "wscales", torch.roll(m.wscales, 1, 0)),
+    "scale groups shifted by one": lambda m: setattr(m, "wscales", torch.roll(m.wscales, 1, -2)),
     "zeros left out": lambda m: setattr(m, "wzeros", torch.zeros_like(m.wzeros)),
     "bias left out": lambda m: setattr(m, "bias", None),
 }

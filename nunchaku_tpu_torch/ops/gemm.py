@@ -16,11 +16,17 @@ int8 once per layer, then int8 x int8 products):
 * :func:`gemm_w8a8_grouped` -- kernel ``csrc/gemm_w8a8_grouped.cu`` (JAX
   ``_gemm_w8a8_kernel`` :344 in grouped-scale mode), the fc2 consumer; with
   ``residual=`` it takes the block's gated residual add into its epilogue
-  (the kernel's ``n_res`` mode, counted as :func:`gemm_w8a8_grouped_res`),
+  (the kernel's ``n_res`` mode, counted as ``gemm_w8a8_grouped_res``),
   and :func:`res_apply` is the same add for routes that do not fuse it;
+* :func:`gemm_w8a8_rank1` -- the same kernel in rank-1 mode (JAX
+  ``_gemm_w8a8_kernel`` with per-token scales, :386), the stacked consumer
+  of the per-token chain (``NUNCHAKU_TPU_CHAIN_PTOKEN=1``,
+  :func:`chain_ptoken`, whose producer is the per-token mode of
+  :func:`svdq_gemm_w8a8_gelu_quant`, JAX
+  ``_gemm_w8a8_gelu_quant_ptoken_kernel`` :534);
 * :func:`gemm_w8a8` -- the standalone int8 GEMM with rank-1 scales, which
-  JAX leaves to XLA (``_gemm_w8a8_xla`` :1221): ``torch._int_mm`` plus
-  PyTorch epilogue ops;
+  JAX leaves to XLA (``_gemm_w8a8_xla`` :1221, ``_int8_use_xla`` :858-870,
+  for every non-stacked one): ``torch._int_mm`` plus PyTorch epilogue ops;
 * :func:`gemm_w4a4` -- kernel ``csrc/gemm_w4a4.cu`` (JAX ``_gemm_w4a4_kernel``
   :125), the W4A4 product of the int4 / nvfp4 modes: 4-bit codes on both
   sides, decoded and scaled to bf16 per group, f32 accumulation.
@@ -38,21 +44,27 @@ int8 GEMM and never write an int8 weight to HBM:
   ``csrc/gemm_w8a8_gelu_quant.cu`` (JAX ``_gemm_w4a8_gelu_quant_kernel``
   :721), the chain's fc1 producer under ``NUNCHAKU_TPU_W4A8_FUSED=1``.
 
-Stacked weights (JAX ``layer_idx=``, the scans' ``attach_stacked_weights``):
-:func:`svdq_gemm_w4a4`, :func:`gemm_w4a4`, :func:`dequant_w4a8` and
-:func:`gemm_w4a8` take ``layer_idx``, a 0-d int32 tensor on the weights'
-device, with ``qweight`` the whole ``(L, K/2, N)`` stack. The kernels read
-the index on the card (the counterpart of the Pallas scalar prefetch) and
-move their weight pointer to its layer: the same code as the non-stacked
-launch on ``qweight[layer_idx]``, bit for bit; the index never passes through
-the host. An index outside ``[0, L)`` raises in the plain twins and is
-clamped to the nearest layer in the kernels, which read nothing outside the
-stack. Each stacked mode counts its launches apart (:data:`STACKED_COUNTS`).
-int8 weights have no stacked form: the caller slices the layer, as JAX does.
+Stacked weights (JAX ``layer_idx=``, the scans): every kernel wrapper here
+but the standalone :func:`gemm_w8a8` takes ``layer_idx``, a 0-d int32 tensor
+on the weights' device, with ``qweight`` the whole stack: (L, K/2, N) packed
+4-bit, or (L, K, N) int8 with each layer stored K-contiguous. The kernels
+read the index on the card (the counterpart of the Pallas scalar prefetch)
+and move their weight pointer to its layer: the same code as the
+non-stacked launch on ``qweight[layer_idx]``, bit for bit; the index never
+passes through the host. An index outside ``[0, L)`` raises in the plain
+twins and is clamped to the nearest layer in the kernels, which read nothing
+outside the stack. Each stacked mode counts its launches apart
+(:data:`COUNTS`, under the mode's name + ``_stacked``). The 4-bit linears get their stacks from
+``attach_stacked_weights`` (JAX ``linear.py:650``); the int8 and w4a8 MLP
+chain pair's stacks come through ``gelu_mlp(stacked=...)`` (JAX
+``attention.py:602-606``), so the int8 chain kernels read the layer of an
+int8 stack. Only the standalone int8 linears take their layer's own (K, N)
+view: JAX leaves them to XLA's dot, which slices the layer itself.
 
 Each kernel has a plain PyTorch twin (``*_plain``) with the same numerics.
 A wrapper takes the twin only for tensors on the CPU; for CUDA tensors it
-launches the kernel (or raises) and adds one to its ``launches`` count.
+launches the kernel (or raises) and adds one to its mode's count in
+:data:`COUNTS`.
 """
 
 from __future__ import annotations
@@ -92,8 +104,17 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-STACKED_COUNTS = {name: SimpleNamespace(launches=0) for name in (
-    "gemm_w4a4_int4_stacked", "gemm_w4a4_nvfp4_stacked", "dequant_w4a8_stacked", "gemm_w4a8_stacked")}
+# the kernel modes of this module; each counts its launches apart, and its stacked (layer-index) launches
+# under its name + "_stacked"
+MODES = ("dequant_w4a8", "gemm_w8a8_gelu_quant", "gemm_w8a8_grouped", "gemm_w8a8_grouped_res", "gemm_w4a4_int4",
+         "gemm_w4a4_int4_unsigned", "gemm_w4a4_nvfp4", "dequant_w4a8_e2m1", "gemm_w4a8", "gemm_w4a8_grouped",
+         "gemm_w4a8_gelu_quant", "gemm_w8a8_gelu_quant_ptoken", "gemm_w8a8_rank1", "gemm_w8a8_rank1_res")
+COUNTS = {name: SimpleNamespace(launches=0) for mode in MODES for name in (mode, mode + "_stacked")}
+
+
+def _count(mode: str, layer_idx) -> None:
+    """One launch of ``mode``, or of its stacked form when ``layer_idx`` is given."""
+    COUNTS[mode if layer_idx is None else mode + "_stacked"].launches += 1
 
 
 def layer_of(stack: torch.Tensor, layer_idx: torch.Tensor) -> torch.Tensor:
@@ -111,12 +132,35 @@ def _stacked(qweight: torch.Tensor, layer_idx: torch.Tensor | None):
     back to back, each in the layout of a non-stacked weight."""
     if layer_idx is None:
         return qweight, None, 0
-    _build.require(qweight.dim() == 3, f"a stacked weight is (L, K/2, N), got {tuple(qweight.shape)}")
+    _build.require(qweight.dim() == 3, f"a stacked weight is (L, ..., N), got {tuple(qweight.shape)}")
     _build.require(layer_idx.dim() == 0 and layer_idx.dtype == torch.int32 and layer_idx.device == qweight.device,
                    "layer_idx: a 0-d int32 tensor on the weights' device")
     layer = qweight[0]
     _build.require(qweight.stride(0) == layer.numel(), "the stack's layers must lie back to back")
     return layer, layer_idx.data_ptr(), qweight.shape[0]
+
+
+def _int8_weight(qweight: torch.Tensor, layer_idx: torch.Tensor | None):
+    """-> (the (K, N) int8 weight's K-contiguous storage, or the stack's, for
+    the kernel; one layer, for the shape checks; the index's pointer; L). A
+    non-stacked weight in another layout is copied once; a stack must keep
+    each layer K-contiguous, as ``stack_modules`` stores it."""
+    layer, idx_ptr, n_layers = _stacked(qweight, layer_idx)
+    _build.require(qweight.dtype == torch.int8, "int8 operands expected")
+    if layer_idx is None:
+        return qweight.t().contiguous(), layer, None, 0  # (N, K): free for a K-contiguous weight
+    _build.require(layer.t().is_contiguous(), "a stacked int8 weight keeps each layer K-contiguous")
+    return qweight, layer, idx_ptr, n_layers
+
+
+def chain_ptoken() -> bool:
+    """``NUNCHAKU_TPU_CHAIN_PTOKEN`` (JAX ``_chain_ptoken``, gemm.py:903), read
+    at each call. Off (the default: unset or "0"), the int8 chain producer
+    emits one scale per (token, bn-column group); on, one scale per token
+    (the per-token mode of :func:`svdq_gemm_w8a8_gelu_quant`), and the
+    consumer is a rank-1 int8 product: the kernel's rank-1 mode on a stack
+    (:func:`gemm_w8a8_rank1`), ``torch._int_mm`` otherwise."""
+    return os.environ.get("NUNCHAKU_TPU_CHAIN_PTOKEN", "0") != "0"
 
 
 def chain_tile_n(n: int) -> int:
@@ -164,13 +208,10 @@ def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor, codes: str = "in
     """The (K, N) int8 codes of :func:`dequant_w4a8_plain`. On the card the
     kernel writes them K-contiguous: the result is a (K, N) view with
     strides (1, K), the layout int8 tensor-core products read directly. The
-    e2m1 form counts its launches in :data:`DEQUANT_E2M1`. ``layer_idx``:
+    e2m1 form counts its launches as ``dequant_w4a8_e2m1``. ``layer_idx``:
     qweight is an (L, K/2, N) stack and its layer ``layer_idx`` is
-    dequantized (count ``dequant_w4a8_stacked``; int4 codes only, the stacks
-    the port builds)."""
+    dequantized (counts ``dequant_w4a8_stacked``, ``dequant_w4a8_e2m1_stacked``)."""
     g = w4a8_group(codes)
-    if layer_idx is not None and codes != "int4":
-        raise NotImplementedError("the stacked dequant takes int4 codes (no stack of the port holds e2m1 codes)")
     if not qweight.is_cuda:
         return dequant_w4a8_plain(qweight if layer_idx is None else layer_of(qweight, layer_idx), rescales, codes)
     layer, idx_ptr, n_layers = _stacked(qweight, layer_idx)
@@ -186,15 +227,10 @@ def dequant_w4a8(qweight: torch.Tensor, rescales: torch.Tensor, codes: str = "in
     lib = _build.library()
     _build.check(lib.nt_dequant_w4a8(qweight.data_ptr(), rescales.data_ptr(), out_t.data_ptr(), k, n,
                                      int(codes == "e2m1"), idx_ptr, n_layers, _stream(qweight)), "dequant_w4a8")
-    if layer_idx is not None:
-        STACKED_COUNTS["dequant_w4a8_stacked"].launches += 1
-    else:
-        (DEQUANT_E2M1 if codes == "e2m1" else dequant_w4a8).launches += 1
+    _count("dequant_w4a8_e2m1" if codes == "e2m1" else "dequant_w4a8", layer_idx)
     return out_t.t()
 
 
-DEQUANT_E2M1 = SimpleNamespace(launches=0)  # launches of the e2m1 form
-dequant_w4a8.launches = 0
 
 
 def w4a8_use_xla() -> bool:
@@ -240,11 +276,11 @@ def gemm_w8a8(qact, ascales, qweight, wscales, lora_act, proj_up, bias):
 # ---------------------------------------------------------------------------
 
 
-def svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
-                                    rsmooth_next, proj_down_next, *, act_unsigned_next=False):
-    m = qact.shape[0]
-    n = qweight.shape[1]
-    bn = chain_tile_n(n)
+def chain_h_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, rsmooth_next, proj_down_next,
+                  act_unsigned_next=False):
+    """The producer's epilogue up to the requantize: (h (M, N) f32, the values
+    it quantizes, lora_next (M, R) f32)."""
+    m, n = qact.shape[0], qweight.shape[1]
     d = int8_matmul(qact, qweight)
     out = d.float() * ascales.reshape(m, 1).float() * wscales.reshape(1, n).float()
     if lora_act is not None:
@@ -255,7 +291,19 @@ def svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, qweight, wscales, lora_act, p
     lora_next = bf16_matmul(g, proj_down_next)  # raw (unshifted, unsmoothed) g
     if act_unsigned_next:
         g = g + GELU_SHIFT
-    h = (g * rsmooth_next.reshape(1, n).float()).reshape(m, n // bn, bn)
+    return g * rsmooth_next.reshape(1, n).float(), lora_next
+
+
+def svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
+                                    rsmooth_next, proj_down_next, *, act_unsigned_next=False, ptoken=False):
+    """The producer's numerics; ``ptoken``: one scale group of all N columns
+    (qscales (1, M), JAX ``_gemm_w8a8_gelu_quant_ptoken_kernel``)."""
+    m = qact.shape[0]
+    n = qweight.shape[1]
+    bn = n if ptoken else chain_tile_n(n)
+    h, lora_next = chain_h_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, rsmooth_next,
+                                 proj_down_next, act_unsigned_next)
+    h = h.reshape(m, n // bn, bn)
     scale = h.abs().amax(dim=-1) * RCP127  # (M, N/bn)
     q = torch.round(h * rcp(scale)[..., None]).clamp(-127, 127).to(torch.int8)
     return q.reshape(m, n), scale.t().contiguous(), lora_next
@@ -263,7 +311,7 @@ def svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, qweight, wscales, lora_act, p
 
 def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
                               rsmooth_next, proj_down_next, *, act_unsigned_next=False, rescales=None,
-                              precision="int8"):
+                              precision="int8", layer_idx=None, ptoken=False):
     """int8 GEMM + fused GELU -> requantize: returns the NEXT layer's
     (qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R) f32).
 
@@ -272,29 +320,43 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
     ``act_unsigned_next`` adds the post-GELU shift of an unsigned next layer.
     ``precision="w4a8"``: ``qweight`` is packed int4 (K/2, N) with
     ``rescales`` (K/64, N), run by :func:`svdq_gemm_w4a8_gelu_quant` (JAX
-    :1303-1330)."""
+    :1303-1330). ``layer_idx``: qweight is the (L, K, N) int8 (or (L, K/2, N)
+    packed) stack and the kernel reads layer ``layer_idx`` (count
+    ``gemm_w8a8_gelu_quant_stacked``). ``ptoken`` (int8 only, as in JAX,
+    where w4a8 returns before the switch is read): one scale per token,
+    qscales (1, M) (JAX ``_gelu_quant_ptoken`` :607; counts
+    ``gemm_w8a8_gelu_quant_ptoken`` and ``..._ptoken_stacked``)."""
     if precision == "w4a8":
         return svdq_gemm_w4a8_gelu_quant(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
-                                         rsmooth_next, proj_down_next, act_unsigned_next=act_unsigned_next)
+                                         rsmooth_next, proj_down_next, act_unsigned_next=act_unsigned_next,
+                                         layer_idx=layer_idx)
     if precision != "int8":
         raise ValueError(f"the chain producer takes int8 or w4a8 weights, got precision {precision!r}")
     if not qact.is_cuda:
         return svdq_gemm_w8a8_gelu_quant_plain(
-            qact, ascales, qweight, wscales, lora_act, proj_up, bias, rsmooth_next,
-            proj_down_next, act_unsigned_next=act_unsigned_next)
+            qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx), wscales, lora_act,
+            proj_up, bias, rsmooth_next, proj_down_next, act_unsigned_next=act_unsigned_next, ptoken=ptoken)
     out = _gelu_quant_launch(qact, ascales, qweight, None, wscales, lora_act, proj_up, bias, rsmooth_next,
-                             proj_down_next, act_unsigned_next)
-    svdq_gemm_w8a8_gelu_quant.launches += 1
+                             proj_down_next, act_unsigned_next, layer_idx, ptoken)
+    _count("gemm_w8a8_gelu_quant_ptoken" if ptoken else "gemm_w8a8_gelu_quant", layer_idx)
     return out
 
 
 def _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, rsmooth_next,
-                       proj_down_next, act_unsigned_next):
+                       proj_down_next, act_unsigned_next, layer_idx=None, ptoken=False):
     """Launch the producer's int8 form (``rescales`` None: qweight (K, N)
-    int8) or its W4 form (qweight packed int4 (K/2, N), rescales (K/64, N))."""
+    int8) or its W4 form (qweight packed int4 (K/2, N), rescales (K/64, N)),
+    on layer ``layer_idx`` of a stack when it is given; ``ptoken``: one scale
+    group of all N columns."""
     m, k = qact.shape
-    n = qweight.shape[1]
-    bn = chain_tile_n(n)
+    if rescales is None:
+        wt, layer, idx_ptr, n_layers = _int8_weight(qweight, layer_idx)
+        weight = (wt,)
+    else:
+        layer, idx_ptr, n_layers = _stacked(qweight, layer_idx)
+        weight = (qweight, rescales)
+    n = layer.shape[1]
+    bn = n if ptoken else chain_tile_n(n)
     r = 0 if lora_act is None else lora_act.shape[1]
     r2 = proj_down_next.shape[1]
     _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % KERNEL_TILE_K == 0,
@@ -304,11 +366,6 @@ def _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj
     dev = qact.device
     qa = qact.contiguous()
     a_s = ascales.reshape(m).float().contiguous()
-    if rescales is None:
-        _build.require(qweight.dtype == torch.int8, "int8 operands expected")
-        weight = (qweight.t().contiguous(),)  # (N, K): free for the dequant kernel's K-contiguous output
-    else:
-        weight = (qweight, rescales)
     w_s = wscales.reshape(n).float().contiguous()
     la = None if lora_act is None else lora_act.float().contiguous()
     pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
@@ -330,11 +387,10 @@ def _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj
         qa.data_ptr(), a_s.data_ptr(), *(t.data_ptr() for t in weight), w_s.data_ptr(), _ptr(la), _ptr(pu),
         _ptr(b), rsm.data_ptr(), pd.data_ptr(), gbuf.data_ptr(), amax_part.data_ptr(), lora_part.data_ptr(),
         qout.data_ptr(), qscales.data_ptr(), lora_next.data_ptr(), m, n, k, r, r2, bn,
-        GELU_SHIFT if act_unsigned_next else 0.0, _stream(qact)), entry.__name__)
+        GELU_SHIFT if act_unsigned_next else 0.0, idx_ptr, n_layers, _stream(qact)), entry.__name__)
     return qout, qscales, lora_next
 
 
-svdq_gemm_w8a8_gelu_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -377,9 +433,13 @@ def gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, 
     return out if residual is None else res_apply(out, *residual)
 
 
-def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual):
+def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual, layer_idx=None):
+    """Launch the consumer kernel: grouped (G > 1) or rank-1 (G = 1) scales,
+    with or without the residual epilogue, on layer ``layer_idx`` of an
+    (L, K, N) stack when it is given."""
     m, k = qact.shape
-    n = qweight.shape[1]
+    wt, layer, idx_ptr, n_layers = _int8_weight(qweight, layer_idx)
+    n = layer.shape[1]
     ga = ascales.shape[0]
     r = 0 if lora_act is None else lora_act.shape[1]
     _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % ga == 0
@@ -388,12 +448,11 @@ def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, re
     _build.require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}")
     qa = qact.contiguous()
     a_s = ascales.float().contiguous()
-    wt = qweight.t().contiguous()  # (N, K): free for the dequant kernel's K-contiguous output
     w_s = wscales.reshape(n).float().contiguous()
     la = None if lora_act is None else lora_act.float().contiguous()
     pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
-    _build.require(qa.dtype == torch.int8 and wt.dtype == torch.int8, "int8 operands expected")
+    _build.require(qa.dtype == torch.int8, "int8 operands expected")
     x = gate = extra = ela = epu = None
     rows, r2 = m, 0
     if residual is not None:
@@ -415,39 +474,66 @@ def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, re
     _build.check(lib.nt_gemm_w8a8_grouped(
         qa.data_ptr(), a_s.data_ptr(), wt.data_ptr(), w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b),
         _ptr(x), _ptr(gate), _ptr(extra), _ptr(ela), _ptr(epu), out.data_ptr(), m, n, k, ga, r, rows, r2,
-        _stream(qact)), "gemm_w8a8_grouped")
+        idx_ptr, n_layers, _stream(qact)), "gemm_w8a8_grouped")
     return out
 
 
-def gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual=None):
+def gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual=None, layer_idx=None):
     """int8 GEMM over grouped activation scales ``ascales (G, M)``: each
     K/G-wide group's int32 partial is scaled by its scale before the f32
     sum; then ``* wscale + bf16(lora_act) @ proj_up + bias`` -> bf16.
 
     ``residual = (x, gate[, extra[, extra_la, extra_pu]])`` returns
     :func:`res_apply` of that output instead, computed in the kernel's
-    epilogue (:func:`gemm_w8a8_grouped_res` on the card)."""
+    epilogue (:func:`gemm_w8a8_grouped_res` on the card). ``layer_idx``:
+    qweight is an (L, K, N) stack, each layer K-contiguous, and the kernel
+    reads layer ``layer_idx`` (counts ``gemm_w8a8_grouped_stacked``,
+    ``gemm_w8a8_grouped_res_stacked``)."""
     if residual is not None:
-        return gemm_w8a8_grouped_res(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
+        return gemm_w8a8_grouped_res(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual,
+                                     layer_idx)
     if not qact.is_cuda:
-        return gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
-    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, None)
-    gemm_w8a8_grouped.launches += 1
+        return gemm_w8a8_grouped_plain(qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx),
+                                       wscales, lora_act, proj_up, bias)
+    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, None, layer_idx)
+    _count("gemm_w8a8_grouped", layer_idx)
     return out
 
 
-def gemm_w8a8_grouped_res(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual):
+def gemm_w8a8_grouped_res(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual, layer_idx=None):
     """The grouped consumer in its gated-residual mode (its own launch
     count, so a run shows which mode it went through)."""
     if not qact.is_cuda:
-        return gemm_w8a8_grouped_plain(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
-    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
-    gemm_w8a8_grouped_res.launches += 1
+        return gemm_w8a8_grouped_plain(qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx),
+                                       wscales, lora_act, proj_up, bias, residual)
+    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual, layer_idx)
+    _count("gemm_w8a8_grouped_res", layer_idx)
     return out
 
 
-gemm_w8a8_grouped.launches = 0
-gemm_w8a8_grouped_res.launches = 0
+def gemm_w8a8_rank1(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual=None, layer_idx=None):
+    """The consumer kernel in rank-1 mode (JAX ``_gemm_w8a8_kernel`` with
+    per-token scales, :386): ``bf16(f32(i32(qact @ w)) * ascale[m] * wscale[n]
+    + bf16(lora_act) @ proj_up + bias)``, ascales (1, M), the epilogue all
+    f32 (not :func:`gemm_w8a8`'s, which rounds its main term to bf16 before
+    the low-rank add, as JAX's XLA route does); with ``residual``, the
+    gated-residual epilogue of :func:`gemm_w8a8_grouped`. The stacked int8
+    product of the per-token chain (``layer_idx``: qweight an (L, K, N)
+    stack; counts ``gemm_w8a8_rank1_stacked``, ``..._res_stacked``); JAX
+    sends every non-stacked per-token int8 product to XLA, so the model
+    takes this mode stacked only (non-stacked counts ``gemm_w8a8_rank1``,
+    ``gemm_w8a8_rank1_res``). The kernel sums the exact int32 product over
+    all of K before the one f32 conversion; the JAX kernel converts each
+    bk-step partial, so the two can differ by f32 rounding of the sum."""
+    _build.require(ascales.ndim == 2 and ascales.shape[0] == 1, "rank-1 ascales must be (1, M)")
+    if not qact.is_cuda:
+        return gemm_w8a8_grouped_plain(qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx),
+                                       wscales, lora_act, proj_up, bias, residual)
+    out = _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual, layer_idx)
+    _count("gemm_w8a8_rank1" if residual is None else "gemm_w8a8_rank1_res", layer_idx)
+    return out
+
+
 
 
 # ---------------------------------------------------------------------------
@@ -522,26 +608,29 @@ def gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=
         return gemm_w4a8_plain(qact, ascales, layer, rescales, wscales, lora_act, proj_up, bias)
     _require_packed(_stacked(qweight, layer_idx)[0], rescales, qact.shape[1])
     out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, layer_idx)
-    (gemm_w4a8 if layer_idx is None else STACKED_COUNTS["gemm_w4a8_stacked"]).launches += 1
+    _count("gemm_w4a8", layer_idx)
     return out
 
 
-def gemm_w4a8_grouped(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None):
+def gemm_w4a8_grouped(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None,
+                      layer_idx=None):
     """The packed GEMM in grouped-scale mode, the packed chain's consumer:
     ascales (G, M), G > 1, from :func:`svdq_gemm_w4a8_gelu_quant`; other
     operands as :func:`gemm_w4a8`. No residual epilogue: the caller applies
-    :func:`res_apply` (JAX ``res_fused = is_int8 and have_res``, :2249)."""
+    :func:`res_apply` (JAX ``res_fused = is_int8 and have_res``, :2249).
+    ``layer_idx``: qweight is an (L, K/2, N) stack (count
+    ``gemm_w4a8_grouped_stacked``)."""
     _build.require(ascales.ndim == 2 and ascales.shape[0] > 1, "grouped ascales must be (G, M) with G > 1")
-    _require_packed(qweight, rescales, qact.shape[1])
     if not qact.is_cuda:
-        return gemm_w4a8_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
-    out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
-    gemm_w4a8_grouped.launches += 1
+        layer = qweight if layer_idx is None else layer_of(qweight, layer_idx)
+        _require_packed(layer, rescales, qact.shape[1])
+        return gemm_w4a8_plain(qact, ascales, layer, rescales, wscales, lora_act, proj_up, bias)
+    _require_packed(_stacked(qweight, layer_idx)[0], rescales, qact.shape[1])
+    out = _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, layer_idx)
+    _count("gemm_w4a8_grouped", layer_idx)
     return out
 
 
-gemm_w4a8.launches = 0
-gemm_w4a8_grouped.launches = 0
 
 
 def svdq_gemm_w4a8_gelu_quant_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
@@ -555,22 +644,25 @@ def svdq_gemm_w4a8_gelu_quant_plain(qact, ascales, qweight, rescales, wscales, l
 
 
 def svdq_gemm_w4a8_gelu_quant(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
-                              rsmooth_next, proj_down_next, *, act_unsigned_next=False):
+                              rsmooth_next, proj_down_next, *, act_unsigned_next=False, layer_idx=None):
     """The chain producer on packed int4 weights (the W4 form of
     ``csrc/gemm_w8a8_gelu_quant.cu``): :func:`svdq_gemm_w8a8_gelu_quant`'s
-    outputs with qweight (K/2, N) packed int4 codes and rescales (K/64, N)."""
-    _require_packed(qweight, rescales, qact.shape[1])
+    outputs with qweight (K/2, N) packed int4 codes and rescales (K/64, N).
+    ``layer_idx``: qweight is an (L, K/2, N) stack, the rescales the layer's
+    (count ``gemm_w4a8_gelu_quant_stacked``)."""
     if not qact.is_cuda:
-        return svdq_gemm_w4a8_gelu_quant_plain(qact, ascales, qweight, rescales, wscales, lora_act, proj_up,
+        layer = qweight if layer_idx is None else layer_of(qweight, layer_idx)
+        _require_packed(layer, rescales, qact.shape[1])
+        return svdq_gemm_w4a8_gelu_quant_plain(qact, ascales, layer, rescales, wscales, lora_act, proj_up,
                                                bias, rsmooth_next, proj_down_next,
                                                act_unsigned_next=act_unsigned_next)
+    _require_packed(_stacked(qweight, layer_idx)[0], rescales, qact.shape[1])
     out = _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, rsmooth_next,
-                             proj_down_next, act_unsigned_next)
-    svdq_gemm_w4a8_gelu_quant.launches += 1
+                             proj_down_next, act_unsigned_next, layer_idx)
+    _count("gemm_w4a8_gelu_quant", layer_idx)
     return out
 
 
-svdq_gemm_w4a8_gelu_quant.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -581,7 +673,6 @@ W4A4_TILE_N = 128  # csrc/gemm_w4a4.cu block tile
 # (precision, act_unsigned) -> the kernel's mode and the name of its launch count
 W4A4_MODES = {("int4", False): (0, "gemm_w4a4_int4"), ("int4", True): (1, "gemm_w4a4_int4_unsigned"),
               ("nvfp4", False): (2, "gemm_w4a4_nvfp4")}
-W4A4_COUNTS = {name: SimpleNamespace(launches=0) for _, name in W4A4_MODES.values()}
 
 
 def w4a4_values(packed: torch.Tensor, dim: int, *, precision: str, unsigned: bool = False) -> torch.Tensor:
@@ -617,15 +708,12 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
     ``SVDQW4A4Linear`` keeps it; another layout raises); wscales (K/G, N) bf16;
     lora_act (M, R) f32, proj_up (R, N), bias (N,) or None. G = 64 (int4)
     or 16 (nvfp4); ``act_unsigned`` only with int4. Each mode keeps its own
-    launch count (:data:`W4A4_COUNTS`). ``layer_idx``: qweight is an (L, K/2,
+    launch count (:data:`W4A4_MODES`). ``layer_idx``: qweight is an (L, K/2,
     N) stack whose layers are each stored K-contiguous, and the product
     takes its layer ``layer_idx`` (counts ``gemm_w4a4_int4_stacked`` /
-    ``gemm_w4a4_nvfp4_stacked``; signed activations only, as no stacked
-    path of the port has unsigned ones)."""
+    ``gemm_w4a4_nvfp4_stacked``, ``gemm_w4a4_int4_unsigned_stacked``)."""
     if (precision, bool(act_unsigned)) not in W4A4_MODES:
         raise ValueError(f"no W4A4 mode for precision {precision!r} with act_unsigned={act_unsigned}")
-    if layer_idx is not None and act_unsigned:
-        raise NotImplementedError("the stacked W4A4 mode takes signed activations")
     if not qact.is_cuda:
         return gemm_w4a4_plain(qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx),
                                wscales, lora_act, proj_up, bias, precision=precision, act_unsigned=act_unsigned)
@@ -651,7 +739,7 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
     _build.check(lib.nt_gemm_w4a4(qact.data_ptr(), ascales.data_ptr(), qweight.data_ptr(), wscales.data_ptr(),
                                   _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m, n, k, r, mode, idx_ptr,
                                   n_layers, _stream(qact)), "gemm_w4a4")
-    (W4A4_COUNTS[count] if layer_idx is None else STACKED_COUNTS[count + "_stacked"]).launches += 1
+    _count(count, layer_idx)
     return out
 
 
@@ -682,35 +770,38 @@ def svdq_gemm_w4a4(qact, ascales, qweight, wscales, lora_act=None, proj_up=None,
     the GEMM.
 
     ``layer_idx`` (a 0-d int32 tensor on the card, or on the CPU for the
-    twins): ``qweight`` is the (L, K/2, N) stack of a 4-bit scan and the
-    layer ``layer_idx`` is read by the kernel (the JAX scans'
-    ``attach_stacked_weights``): int4 / nvfp4 take the W4A4 kernel's stacked
-    mode, w4a8 the stacked dequant or, on the packed route, the packed
-    GEMM's stacked rank-1 mode. int8 weights and the packed chain's grouped
-    consumer have no stacked form here (JAX slices the int8 layer in XLA)."""
-    if layer_idx is not None and not (is_4bit(precision) or precision == "w4a8"):
-        raise ValueError(f"{precision!r} weights have no stacked form: pass the layer's own qweight")
+    twins): ``qweight`` is the whole stack of a scan and the layer
+    ``layer_idx`` is read by the kernel (JAX :1975-2060): int4 / nvfp4 take
+    the W4A4 kernel's stacked mode; w4a8 the stacked dequant or, on the
+    packed route, the packed GEMM's stacked rank-1 or grouped mode; int8
+    (an (L, K, N) stack, the MLP chain's fc2) the consumer kernel's stacked
+    grouped mode or, with per-token scales, its stacked rank-1 mode
+    (:func:`gemm_w8a8_rank1`): a stacked int8 product never takes
+    ``torch._int_mm``, as a stacked one never takes XLA's dot in JAX
+    (:1989-1996, :2050-2056)."""
     if is_4bit(precision):
         out = gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, precision=precision,
                         act_unsigned=act_unsigned, layer_idx=layer_idx)
         return out if residual is None else res_apply(out, *residual)
     if precision == "w4a8":
         grouped = ascales.ndim == 2 and ascales.shape[0] > 1
-        if grouped and layer_idx is not None:
-            raise NotImplementedError("the packed chain's grouped consumer has no stacked mode in the port")
         if grouped or not (w4a8_use_xla() or wcodes == "e2m1"):
             if wcodes == "e2m1":
                 raise ValueError("e2m1-coded w4a8 (nvfp4-a8) has no packed chain kernel; the MLP chain "
                                  "dequantizes its weights first (gelu_mlp)")
             if grouped:
-                out = gemm_w4a8_grouped(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias)
+                out = gemm_w4a8_grouped(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
+                                        layer_idx)
             else:
                 out = gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, layer_idx)
             return out if residual is None else res_apply(out, *residual)
         qweight = dequant_w4a8(qweight, rescales, wcodes, layer_idx)
+        layer_idx = None  # the dequantized layer is one (K, N) weight
     elif precision != "int8":
         raise NotImplementedError(f"precision {precision!r} is not ported")
     if ascales.ndim == 2 and ascales.shape[0] > 1:
-        return gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual)
+        return gemm_w8a8_grouped(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual, layer_idx)
+    if layer_idx is not None:
+        return gemm_w8a8_rank1(qact, ascales, qweight, wscales, lora_act, proj_up, bias, residual, layer_idx)
     out = gemm_w8a8(qact, ascales, qweight, wscales, lora_act, proj_up, bias)
     return out if residual is None else res_apply(out, *residual)

@@ -1,7 +1,7 @@
 """Where one FLUX.1-dev, Qwen-Image, SDXL, SANA or Z-Image denoise step, or
 one VAE decode, spends its time on the card.
 
-    python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|nvfp4-a8|int4|nvfp4] [--turbo] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step [--precision w4a8|nvfp4-a8|int8|int4|nvfp4] [--turbo] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --precision int4 --size 2048 --sparsity 0.5 [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--rank R] \
         [--online-softmax] [--out TABLE.txt]
@@ -24,6 +24,13 @@ The w4a8 route follows the JAX package's switches as the environment sets
 them (``NUNCHAKU_TPU_W4A8_XLA``, ``NUNCHAKU_TPU_W4A8_FUSED``; both, as
 ``XLA=0 FUSED=1``, give the packed-int4 route: the packed GEMM
 ``gemm_w4a8_kernel`` and the producer's W4 form, a group of their own).
+``--precision int8``: FLUX.1-dev at int8 (with ``--turbo``, ``bench.py
+--dense``'s configuration), its MLP chains on the int8 stacks; the chain
+follows ``NUNCHAKU_TPU_CHAIN_PTOKEN`` (``=1``: the per-token producer and
+the rank-1 consumer, the chain kernels' other modes, in the same groups).
+Every FLUX
+forward prints its launch counts per forward (the stacked modes by their
+``*_stacked`` names).
 ``--model qwenimage``: the full Qwen-Image model (60 joint blocks; int4
 unless ``--precision`` says otherwise), one forward at B 1 from a prompt of
 97 valid tokens padded to 211 with its mask (the flash kernel's mask form).
@@ -215,9 +222,9 @@ def main(argv=None) -> int:
                          "SDXL UNet (int4), SANA 1.6B (int4) or Z-Image-Turbo (int4 by default)")
     ap.add_argument("--turbo", action="store_true",
                     help="bf16 residual stream + fused qkv prologue (the configuration bench.py serves)")
-    ap.add_argument("--precision", choices=("w4a8", "nvfp4-a8", "int4", "nvfp4"),
+    ap.add_argument("--precision", choices=("w4a8", "nvfp4-a8", "int8", "int4", "nvfp4"),
                     help="the model's SVDQuant precision (int4 / nvfp4: AWQ modulation, W4A4 GEMMs; nvfp4-a8: "
-                         "w4a8 with e2m1 codes); default w4a8 for FLUX, int4 for Qwen-Image")
+                         "w4a8 with e2m1 codes; int8: FLUX only); default w4a8 for FLUX, int4 for Qwen-Image")
     ap.add_argument("--rank", type=int, default=32, help="the low-rank width of every SVDQuant linear")
     ap.add_argument("--size", type=int, default=1024,
                     help="FLUX and SDXL: image side in pixels (FLUX 2048: 16384 image tokens)")
@@ -241,6 +248,8 @@ def main(argv=None) -> int:
         ap.error("Z-Image runs at 1024px with the fixed softmax (--precision int4 | nvfp4 | w4a8, --rank, --turbo)")
     if args.turbo and args.sparsity:
         ap.error("block-sparse attention runs with the unfused prologue only (no --turbo)")
+    if args.precision == "int8" and args.model != "flux":
+        ap.error("--precision int8 is a FLUX option")
     if args.precision is None:
         args.precision = "w4a8" if args.model == "flux" else "int4"
     if not torch.cuda.is_available():
@@ -385,26 +394,35 @@ def main(argv=None) -> int:
                 f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}, "
                 f"{f'block-sparse attention at {args.sparsity}' if args.sparsity else 'dense attention'}")
     if args.online_softmax:
-        blocks = model.blocks if args.model == "qwenimage" else [*model.transformer_blocks,
-                                                                 *model.single_transformer_blocks]
-        for block in blocks:
-            block.attn.fixed_softmax = False
+        model.set_on_stacks("attn", fixed_softmax=False)
         what += ", fixed_softmax False"
+    if args.precision == "int8":
+        from nunchaku_tpu_torch.ops.gemm import chain_ptoken
+
+        what += f", chain NUNCHAKU_TPU_CHAIN_PTOKEN={'1 (per-token)' if chain_ptoken() else '0 (grouped)'}"
     if args.precision in ("w4a8", "nvfp4-a8"):
         from nunchaku_tpu_torch.ops.gemm import w4a8_fused, w4a8_use_xla
 
         what += (f", w4a8 route NUNCHAKU_TPU_W4A8_XLA={'1' if w4a8_use_xla() else '0'} "
                  f"NUNCHAKU_TPU_W4A8_FUSED={'1' if w4a8_fused() else '0'}")
-    extra = None
-    if args.precision in ("int4", "nvfp4"):
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    glue = args.precision in ("int4", "nvfp4")
+    if glue:
         from nunchaku_tpu_torch.models import attention, linear
 
         linear.quantize_w4a4_act_fuse_lora = _ranged(linear.quantize_w4a4_act_fuse_lora, QUANT_RANGE)
         attention.gelu_jax = _ranged(attention.gelu_jax, GELU_RANGE)
 
-        def extra(prof):
-            return ["torch glue by caller (device ms, inside the groups above):"] + [
+    def extra(prof):
+        with torch.no_grad():
+            reset_launch_counts()
+            model(*inputs, **kw)
+        lines = [f"launches per forward: { {k: v for k, v in launch_counts().items() if v} }"]
+        if glue:
+            lines += ["torch glue by caller (device ms, inside the groups above):"] + [
                 f"  {ms:9.2f} ms  {name}" for name, ms in sorted(glue_by_range(prof).items())]
+        return lines
     with torch.no_grad():
         wall_plain, wall, prof = _trace(lambda: model(*inputs, **kw))
     header = f"card: {smi}; torch {torch.__version__}; {what}"

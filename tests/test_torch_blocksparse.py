@@ -207,4 +207,4 @@ def test_fused_prologue_and_unknown_impls_raise():
             with pytest.raises(ValueError, match="sparsity_ratio"):
                 model.set_attention_impl("blocksparse", sparsity_ratio=ratio)
     tm.set_attention_impl("nunchaku-fp16")
-    assert all(b.attn.sparsity_ratio == 0.0 for b in [*tm.transformer_blocks, *tm.single_transformer_blocks])
+    assert all(b.attn.sparsity_ratio == 0.0 for views in tm.layer_views().values() for b in views)

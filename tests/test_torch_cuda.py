@@ -21,7 +21,8 @@ from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.attention import block_sparse_attention, flash_attention, flash_attention_online
 from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a4, gemm_w4a8, gemm_w4a8_grouped, gemm_w8a8_grouped,
-                                         svdq_gemm_w4a4, svdq_gemm_w4a8_gelu_quant, svdq_gemm_w8a8_gelu_quant)
+                                         gemm_w8a8_rank1, svdq_gemm_w4a4, svdq_gemm_w4a8_gelu_quant,
+                                         svdq_gemm_w8a8_gelu_quant)
 from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
 
 pytestmark = pytest.mark.cuda
@@ -398,7 +399,7 @@ def test_4bit_small_model_matches_cpu(dev, precision, turbo):
         ref = cpu_model(*args).float()
         out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
     counts = launch_counts()
-    gemms = sum(counts[k] for k in ("gemm_w4a4_int4", "gemm_w4a4_int4_unsigned", "gemm_w4a4_nvfp4"))
+    gemms = sum(counts[k + "_stacked"] for k in ("gemm_w4a4_int4", "gemm_w4a4_int4_unsigned", "gemm_w4a4_nvfp4"))
     assert gemms == 12 and counts["gemv_awq"] == 3 and counts["flash_fixed"] == 2
     assert counts["qkv_rope_producer"] == (3 if turbo else 0) and counts["ln_mod_quant_int8"] == 0
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
@@ -450,8 +451,7 @@ def test_qwen_small_model_matches_cpu(dev, precision, variant):
         checks.damp_modulation(cpu_model)
     if variant == "fused":
         cpu_model.enable_fused_qkv_prep()
-    for block in cpu_model.blocks:
-        block.attn.fixed_softmax = variant != "online"
+    cpu_model.set_on_stacks("attn", fixed_softmax=variant != "online")
     gpu_model = copy.deepcopy(cpu_model).to(dev)
     gen = torch.Generator().manual_seed(10)
     mask = torch.arange(24)[None, :] < torch.tensor([[24], [9]])
@@ -510,12 +510,12 @@ def test_w4a8_cache_dequant_on_card(dev):
         cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=2, joint_attention_dim=256,
                          pooled_projection_dim=128, precision=precision)
         model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
-        fc1 = model.transformer_blocks[0].ff.fc1
+        fc1 = model.layer_views()["transformer_blocks"][0].ff.fc1
         want = dequant_w4a8(fc1.qweight, fc1.rescales, fc1.wcodes)
         reset_launch_counts()
-        dialed = w4a8_cache_dequant(model, 1.0)
+        dialed = w4a8_cache_dequant(model, 1.0)  # the stacks of one layer each, layer by layer
         assert launch_counts()["dequant_w4a8_e2m1" if precision == "nvfp4-a8" else "dequant_w4a8"] == 12
-        got = dialed.transformer_blocks[0].ff.fc1
+        got = dialed.layer_views()["transformer_blocks"][0].ff.fc1
         assert got.precision == "int8" and torch.equal(got.qweight, want)
 
 
@@ -579,7 +579,8 @@ def test_packed_small_model_matches_cpu(dev, monkeypatch, turbo):
     """A 1 + 1-block w4a8 model (6 heads: two requantize groups) on the
     packed route on the card against the plain twins on the CPU: within
     2e-2 of the reference's max |value|, every w4a8 GEMM a packed kernel
-    (6 standalone linears, 3 chains), none the dequant or the LN producer."""
+    in its stacked mode (6 standalone linears, 3 chains), none the dequant
+    or the LN producer."""
     monkeypatch.setenv("NUNCHAKU_TPU_W4A8_XLA", "0")
     monkeypatch.setenv("NUNCHAKU_TPU_W4A8_FUSED", "1")
     cfg = FluxConfig(num_layers=1, num_single_layers=1, num_attention_heads=6,
@@ -599,7 +600,8 @@ def test_packed_small_model_matches_cpu(dev, monkeypatch, turbo):
         ref = cpu_model(*args).float()
         out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
     c = {k: v for k, v in launch_counts().items() if v}
-    expect = {"gemm_w4a8": 6, "gemm_w4a8_gelu_quant": 3, "gemm_w4a8_grouped": 3, "flash_fixed": 2}
+    expect = {"gemm_w4a8_stacked": 6, "gemm_w4a8_gelu_quant_stacked": 3, "gemm_w4a8_grouped_stacked": 3,
+              "flash_fixed": 2}
     assert c == (expect | {"qkv_rope_producer": 3} if turbo else expect), c
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
 
@@ -665,8 +667,9 @@ def test_stacked_counts_clamp_and_refusals(dev):
         dequant_w4a8(stack8, rs, layer_idx=torch.tensor(1, device=dev))
     with pytest.raises(ValueError):  # every other layer: not back to back
         dequant_w4a8(torch.cat([stack8, stack8])[::2], rs, layer_idx=ids8[0])
-    with pytest.raises(ValueError):  # int8 weights have no stacked form
-        svdq_gemm_w4a4(a8[0], a8[1], stack8, a8[4], precision="int8", layer_idx=ids8[0])
+    with pytest.raises(ValueError):  # an int8 stack keeps each layer K-contiguous, as stack_modules stores it
+        svdq_gemm_w4a4(a8[0], a8[1], torch.cat([stack8, stack8], dim=1), a8[4], precision="int8",
+                       layer_idx=ids8[0])
     torch.cuda.synchronize()
 
 
@@ -715,3 +718,102 @@ def test_zimage_small_model_matches_cpu(dev, monkeypatch, precision, variant):
         want[mode] = 4 * blocks
     assert {k: v for k, v in counts.items() if v} == want, counts
 
+
+
+# the int8 chain on stacks and the per-token chain (FLUX.1-dev int8, bench.py --dense)
+
+
+@pytest.mark.parametrize("m,k,n,unsigned", [(4608, 3072, 12288, False), (256, 256, 3072, True), (128, 512, 1536, False)])
+def test_ptoken_producer(dev, m, k, n, unsigned):
+    _, ok, detail = checks.check_ptoken(*checks.gelu_quant_case(m, k, n, device=dev), act_unsigned_next=unsigned)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,res", [(4608, 12288, 3072, False), (4608, 12288, 3072, True), (256, 3072, 256, True),
+                                       (128, 512, 384, False)])
+def test_rank1_consumer(dev, m, k, n, res):
+    """The consumer's rank-1 mode, launchable non-stacked for this test (the
+    model takes it stacked only)."""
+    reset_launch_counts()
+    args = checks.grouped_res_case(m, k, n, 1, device=dev) if res else checks.grouped_case(m, k, n, 1, device=dev)
+    _, ok, detail = checks.check_rank1(*args)
+    assert ok, detail
+    assert launch_counts()["gemm_w8a8_rank1_res" if res else "gemm_w8a8_rank1"] == 1
+
+
+@pytest.mark.parametrize("mode", checks.STACKED_CHAIN_MODES)
+@pytest.mark.parametrize("shape", ["flux", "small"])
+def test_chain_stacked_modes(dev, mode, shape):
+    """Each stacked chain mode bit for bit its non-stacked kernel on every
+    layer of a 3-layer stack, and that kernel within its tolerance of the
+    twin: at FLUX.1-dev's fc1 (producers: M 4608, K 3072, N 12288) and fc2
+    (consumers: K 12288, N 3072) and at a small shape."""
+    producer = "gelu_quant" in mode
+    m, k, n = ((4608, 3072, 12288) if producer else (4608, 12288, 3072)) if shape == "flux" else (
+        (256, 512, 3072) if producer else (256, 3072, 512))
+    run, w, check, _ = checks.chain_stacked_case(mode, m, k, n, device=dev)
+    _, ok, detail = checks.check_stacked(run, w, check)
+    assert ok, detail
+
+
+def test_chain_stacked_counts_and_clamp(dev):
+    """The int8 chain's stacked modes count apart from their non-stacked
+    forms; an index past either end reads the nearest layer."""
+    reset_launch_counts()
+    qa, asc, w, ws, la, pu, b, rsm, pd = checks.gelu_quant_case(128, 256, 1536, device=dev)
+    stack, ids = checks.stack_case(w)
+    svdq_gemm_w8a8_gelu_quant(qa, asc, stack, ws, la, pu, b, rsm, pd, layer_idx=ids[0])
+    svdq_gemm_w8a8_gelu_quant(qa, asc, stack, ws, la, pu, b, rsm, pd, layer_idx=ids[1], ptoken=True)
+    g = checks.grouped_case(128, 3072, 256, 2, device=dev)
+    gstack, gids = checks.stack_case(g[2])
+    gemm_w8a8_grouped(g[0], g[1], gstack, *g[3:], layer_idx=gids[2])
+    gemm_w8a8_rank1(g[0], g[1][:1], gstack, *g[3:], layer_idx=gids[2])
+    c = launch_counts()
+    assert (c["gemm_w8a8_gelu_quant_stacked"], c["gemm_w8a8_gelu_quant_ptoken_stacked"],
+            c["gemm_w8a8_grouped_stacked"], c["gemm_w8a8_rank1_stacked"]) == (1, 1, 1, 1)
+    assert c["gemm_w8a8_gelu_quant"] == c["gemm_w8a8_grouped"] == c["gemm_w8a8_rank1"] == 0
+    for bad, layer in ((3, 2), (-5, 0), (1 << 30, 2)):
+        idx = torch.tensor(bad, dtype=torch.int32, device=dev)
+        out = svdq_gemm_w8a8_gelu_quant(qa, asc, stack, ws, la, pu, b, rsm, pd, layer_idx=idx, ptoken=True)
+        ref = svdq_gemm_w8a8_gelu_quant(qa, asc, stack[layer], ws, la, pu, b, rsm, pd, ptoken=True)
+        assert all(torch.equal(x, y) for x, y in zip(out, ref))
+        assert torch.equal(gemm_w8a8_rank1(g[0], g[1][:1], gstack, *g[3:], layer_idx=idx),
+                           gemm_w8a8_rank1(g[0], g[1][:1], gstack[layer], *g[3:]))
+        assert torch.equal(gemm_w8a8_grouped(g[0], g[1], gstack, *g[3:], layer_idx=idx),
+                           gemm_w8a8_grouped(g[0], g[1], gstack[layer], *g[3:]))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("turbo", [False, True])
+@pytest.mark.parametrize("ptoken", ["0", "1"], ids=["grouped", "ptoken"])
+def test_int8_stacked_model_matches_cpu(dev, monkeypatch, ptoken, turbo):
+    """A 2 + 3-block int8 model (6 heads: two requantize groups) on its
+    stacks, card against the plain twins on the CPU within 2e-2 of the
+    reference's max |value|; launches exact: 7 MLP chains a forward, each a
+    stacked producer and a stacked consumer of the chain's mode (turbo: the
+    residual epilogue), the standalone int8 linears on torch._int_mm."""
+    monkeypatch.setenv("NUNCHAKU_TPU_CHAIN_PTOKEN", ptoken)
+    cfg = FluxConfig(num_layers=2, num_single_layers=3, num_attention_heads=6,
+                     joint_attention_dim=512, pooled_projection_dim=256, precision="int8")
+    cpu_model = FluxTransformer2DModel.random_init(cfg, seed=13, device="cpu")
+    if turbo:
+        cpu_model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    gen = torch.Generator().manual_seed(14)
+    args = (torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen).to(torch.bfloat16),
+            torch.tensor([0.6]), make_img_ids(16, 16), torch.zeros((128, 3), dtype=torch.int32),
+            torch.tensor([3.5]))
+    reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*args).float()
+        out = gpu_model(*[a.to(dev) for a in args]).float().cpu()
+    c = {k: v for k, v in launch_counts().items() if v}
+    producer = "gemm_w8a8_gelu_quant_ptoken_stacked" if ptoken == "1" else "gemm_w8a8_gelu_quant_stacked"
+    consumer = "gemm_w8a8_rank1" if ptoken == "1" else "gemm_w8a8_grouped"
+    expect = {producer: 7, consumer + ("_res" if turbo else "") + "_stacked": 7, "flash_fixed": 5}
+    if turbo:
+        expect |= {"ln_mod_quant_int8": 2 * 4 + 3 * 2, "qkv_rope_producer": 2 * 2 + 3}
+    assert c == expect, c
+    assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2

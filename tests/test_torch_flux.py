@@ -101,29 +101,23 @@ def test_pipeline_noise_comes_from_the_seed(models):
 
 def test_converter_takes_every_parameter(models):
     jm, params, tm, _ = models["w4a8"]
-    blk = tm.transformer_blocks[0]
+    views = tm.layer_views()
+    blk = views["transformer_blocks"][0]
     np.testing.assert_array_equal(blk.ff.fc1.qweight.numpy(), params["transformer_blocks.ff.fc1.qweight"][0])
     assert blk.ff.fc1.precision == "w4a8" and blk.norm1.linear.precision == "int8"
-    assert tm.single_transformer_blocks[0].mlp_fc2.in_features == 4 * jm.cfg.dim
+    assert views["single_transformer_blocks"][0].mlp_fc2.in_features == 4 * jm.cfg.dim
     with pytest.raises(KeyError):
         flux_from_jax_params({**params, "extra.weight": np.zeros(1)}, FluxConfig(precision="w4a8", **TINY),
                              device="cpu")
 
 
 def test_random_init_mirrors_the_jax_parameter_tree(models):
-    """Same parameter names, per-layer shapes and dtypes as the JAX model."""
+    """Same parameter names, shapes and dtypes as the JAX model: the blocks
+    are stacked, their buffers (L, ...) as the JAX leaves."""
     _, params, _, _ = models["w4a8"]
     tm = FluxTransformer2DModel.random_init(FluxConfig(precision="w4a8", **TINY), seed=0, device="cpu")
-    ours = {}
-    for name, buf in tm.named_buffers():
-        parts = name.split(".")
-        if parts[0] in ("transformer_blocks", "single_transformer_blocks"):
-            name = ".".join([parts[0]] + parts[2:])
-        ours[name] = (tuple(buf.shape), str(buf.dtype).replace("torch.", ""))
-    theirs = {}
-    for name, a in params.items():
-        shape = a.shape[1:] if name.split(".")[0] in ("transformer_blocks", "single_transformer_blocks") else a.shape
-        theirs[name] = (tuple(shape), str(a.dtype))
+    ours = {name: (tuple(buf.shape), str(buf.dtype).replace("torch.", "")) for name, buf in tm.named_buffers()}
+    theirs = {name: (tuple(a.shape), str(a.dtype)) for name, a in params.items()}
     assert ours == theirs
 
 

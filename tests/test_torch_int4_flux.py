@@ -141,13 +141,13 @@ def test_bf16_stream_fallback_matches_jax(models):
 
 def test_converter_takes_every_parameter(models):
     jm, params, tm = models["int4"]
-    blk = tm.transformer_blocks[0]
+    blk = tm.layer_views()["transformer_blocks"][0]
     np.testing.assert_array_equal(blk.ff.fc1.qweight.numpy(), params["transformer_blocks.ff.fc1.qweight"][0])
     assert blk.ff.fc1.precision == "int4" and not blk.ff.fc1.act_unsigned and blk.ff.fc2.act_unsigned
     assert isinstance(blk.norm1.linear, AWQW4A16Linear)
-    single = tm.single_transformer_blocks[0]
+    single = tm.layer_views()["single_transformer_blocks"][0]
     assert single.mlp_fc2.act_unsigned and not single.attn_out.act_unsigned
-    assert not models["nvfp4"][2].single_transformer_blocks[0].mlp_fc2.act_unsigned
+    assert not models["nvfp4"][2].layer_views()["single_transformer_blocks"][0].mlp_fc2.act_unsigned
     with pytest.raises(KeyError):
         flux_from_jax_params({**params, "extra.weight": np.zeros(1)}, FluxConfig(precision="int4", **TINY),
                              device="cpu")
@@ -155,19 +155,12 @@ def test_converter_takes_every_parameter(models):
 
 @pytest.mark.parametrize("precision", PRECISIONS)
 def test_random_init_mirrors_the_jax_parameter_tree(models, precision):
-    """Same parameter names, per-layer shapes and dtypes as the JAX model."""
+    """Same parameter names, shapes and dtypes as the JAX model: the blocks
+    are stacked, their buffers (L, ...) as the JAX leaves."""
     _, params, _ = models[precision]
     tm = FluxTransformer2DModel.random_init(FluxConfig(precision=precision, **TINY), seed=0, device="cpu")
-    ours = {}
-    for name, buf in tm.named_buffers():
-        parts = name.split(".")
-        if parts[0] in ("transformer_blocks", "single_transformer_blocks"):
-            name = ".".join([parts[0]] + parts[2:])
-        ours[name] = (tuple(buf.shape), str(buf.dtype).replace("torch.", ""))
-    theirs = {}
-    for name, a in params.items():
-        shape = a.shape[1:] if name.split(".")[0] in ("transformer_blocks", "single_transformer_blocks") else a.shape
-        theirs[name] = (tuple(shape), str(a.dtype))
+    ours = {name: (tuple(buf.shape), str(buf.dtype).replace("torch.", "")) for name, buf in tm.named_buffers()}
+    theirs = {name: (tuple(a.shape), str(a.dtype)) for name, a in params.items()}
     assert ours == theirs
 
 

@@ -67,12 +67,13 @@ def test_flux_loader_matches_jax(flux_files, source, precision):
     jm = jax_load_flux(path, precision=precision)
     tm = load_flux_transformer(path, precision, device="cpu")
     ckpt.assert_same_as_jax(tm, jm)
-    fc1 = tm.transformer_blocks[0].ff.fc1
+    views = tm.layer_views()
+    fc1 = views["transformer_blocks"][0].ff.fc1
     want = {None: (source, "int4"), "int8": ("int8", "int4"),
             "w4a8": ("w4a8", "e2m1" if source == "nvfp4" else "int4")}[precision]
     assert (fc1.precision, fc1.wcodes) == want
-    assert tm.single_transformer_blocks[0].mlp_fc2.act_unsigned == (source == "int4")
-    assert tm.transformer_blocks[0].norm1.scale_shift == 0.0
+    assert views["single_transformer_blocks"][0].mlp_fc2.act_unsigned == (source == "int4")
+    assert views["transformer_blocks"][0].norm1.scale_shift == 0.0
     assert _forward_pair(jm, tm, ckpt.flux_inputs()) <= 2e-2
 
 
@@ -106,8 +107,9 @@ def test_qwen_loader_matches_jax(qwen_files, rank, precision):
     path = qwen_files[rank]
     jm = jax_load_qwen(path, precision=precision)
     tm = load_qwenimage_transformer(path, precision, device="cpu")
-    assert tm.cfg.rank == rank == tm.blocks[0].ff.fc1.proj_down.shape[1]
-    assert tm.blocks[0].norm1.scale_shift == 1.0 and tm.blocks[1].ff.fc2.act_unsigned
+    blocks = tm.layer_views()["blocks"]
+    assert tm.cfg.rank == rank == blocks[0].ff.fc1.proj_down.shape[1]
+    assert blocks[0].norm1.scale_shift == 1.0 and blocks[1].ff.fc2.act_unsigned
     ckpt.assert_same_as_jax(tm, jm)
     assert _forward_pair(jm, tm, _qwen_inputs()) <= 2e-2
 
@@ -116,7 +118,7 @@ def test_qwen_w4a8_from_nvfp4_loads_int8(tmp_path):
     """An nvfp4 Qwen-Image file asked for at w4a8 loads int8, as in JAX."""
     path = ckpt.qwen_checkpoint(tmp_path / "qwen-fp4.safetensors", precision="nvfp4", rank=32)
     tm = load_qwenimage_transformer(path, "w4a8", device="cpu")
-    assert tm.cfg.precision == "int8" and tm.blocks[0].attn.to_qkv.precision == "int8"
+    assert tm.cfg.precision == "int8" and tm.layer_views()["blocks"][0].attn.to_qkv.precision == "int8"
     ckpt.assert_same_as_jax(tm, jax_load_qwen(path, precision="w4a8"))
 
 

@@ -136,9 +136,10 @@ def test_encoder_hidden_states_mask_matches_unpadded(precision):
 def test_converter_takes_every_parameter():
     _, tm, params = qwen_pair("int4", txt_norm=True)
     cfg = QwenImageConfig(precision="int4", **TINY)
-    assert tm.txt_norm is not None and len(tm.blocks) == 2 and tm.proj_out.weight.shape == (256, 64)
-    np.testing.assert_array_equal(tm.blocks[1].ff.fc1.qweight.numpy(), params["blocks.ff.fc1.qweight"][1])
-    assert tm.blocks[0].ff.fc2.act_unsigned and not tm.blocks[0].ff.fc1.act_unsigned
+    blocks = tm.layer_views()["blocks"]
+    assert tm.txt_norm is not None and len(blocks) == 2 and tm.proj_out.weight.shape == (256, 64)
+    np.testing.assert_array_equal(blocks[1].ff.fc1.qweight.numpy(), params["blocks.ff.fc1.qweight"][1])
+    assert blocks[0].ff.fc2.act_unsigned and not blocks[0].ff.fc1.act_unsigned
     with pytest.raises(KeyError):
         qwenimage_from_jax_params({**params, "extra.weight": np.zeros(1)}, cfg, device="cpu")
     bad = dict(params, **{"proj_out.weight": params["proj_out.weight"][:, :32]})
@@ -148,18 +149,13 @@ def test_converter_takes_every_parameter():
 
 @pytest.mark.parametrize("precision", ["w4a8", "int4"])
 def test_random_init_mirrors_the_jax_parameter_tree(precision):
-    """Same parameter names, per-layer shapes and dtypes as the JAX model."""
+    """Same parameter names, shapes and dtypes as the JAX model: the blocks
+    are one stack, its buffers (L, ...) as the JAX leaves."""
     _, _, params = qwen_pair(precision)
     tm = QwenImageTransformer2DModel.random_init(QwenImageConfig(precision=precision, **TINY), seed=0,
                                                  device="cpu")
-    ours = {}
-    for name, buf in tm.named_buffers():
-        parts = name.split(".")
-        if parts[0] == "blocks":
-            name = ".".join([parts[0]] + parts[2:])
-        ours[name] = (tuple(buf.shape), str(buf.dtype).replace("torch.", ""))
-    theirs = {name: (tuple(a.shape[1:] if name.startswith("blocks.") else a.shape), str(a.dtype))
-              for name, a in params.items()}
+    ours = {name: (tuple(buf.shape), str(buf.dtype).replace("torch.", "")) for name, buf in tm.named_buffers()}
+    theirs = {name: (tuple(a.shape), str(a.dtype)) for name, a in params.items()}
     assert ours == theirs
 
 

@@ -44,7 +44,7 @@ def test_dequant_e2m1_codes_exact(k, n):
     out = tgemm.dequant_w4a8(_t(qw), _t(rs), "e2m1").numpy()
     assert out.dtype == np.int8 and out.shape == (k, n)
     np.testing.assert_array_equal(out, ref)
-    assert tgemm.DEQUANT_E2M1.launches == 0  # the CPU takes the twin
+    assert tgemm.COUNTS["dequant_w4a8_e2m1"].launches == 0  # the CPU takes the twin
 
 
 def test_dequant_rejects_unknown_codes():

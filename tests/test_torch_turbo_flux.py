@@ -90,12 +90,12 @@ def test_turbo_is_the_default_model_up_to_rounding():
     args = [to_torch(a, "cpu") for a in _inputs()]
     with torch.no_grad():
         ref = tm(*args).float()
-        qw = tm.transformer_blocks[0].attn.to_qkv.qweight.clone()
+        qw = tm.layer_views()["transformer_blocks"][0].attn.to_qkv.qweight.clone()
         tm.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
         out = tm(*args).float()
     with pytest.raises(ValueError):
         tm.enable_fused_qkv_prep()
-    assert not torch.equal(qw, tm.transformer_blocks[0].attn.to_qkv.qweight)
+    assert not torch.equal(qw, tm.layer_views()["transformer_blocks"][0].attn.to_qkv.qweight)
     assert (torch.linalg.norm(out - ref) / torch.linalg.norm(ref)).item() < 2e-2
 
 

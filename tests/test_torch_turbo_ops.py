@@ -327,10 +327,10 @@ def test_rope_layout_mismatch_raises():
                          joint_attention_dim=256, pooled_projection_dim=256, precision="w4a8"), seed=0,
         device="cpu")
     assert not tm.rope_halfsplit
-    tatt.permute_qk_halfsplit(tm.transformer_blocks[0].attn)
+    tatt.permute_qk_halfsplit(tm.transformer_blocks.attn)  # the dual stack only
     assert tm.rope_halfsplit
     with pytest.raises(ValueError, match="fused prologue"):
-        tm.single_transformer_blocks[0].attn(x, None, pair)
+        tm.layer_views()["single_transformer_blocks"][0].attn(x, None, pair)
 
 
 @pytest.mark.parametrize("precision,dim,s,full", [("w4a8", 768, 256, False), ("w4a8", 768, 256, True),

@@ -291,9 +291,11 @@ def test_stacked_w4a8_matches_jax(monkeypatch, route, lora):
 
 
 def test_stacked_refusals():
-    """An index outside [0, L) raises in every stacked twin; int8 weights,
-    unsigned activations and e2m1 codes have no stacked form; the counts of
-    the stacked modes move only on the card."""
+    """An index outside [0, L) raises in every stacked twin; the stacked
+    forms the FLUX and Qwen-Image stacks reach (int8 per-token scales, the
+    W4A4 GEMM's unsigned activations, e2m1 codes) take the layer as the
+    non-stacked twin does; the counts of the stacked modes move only on the
+    card."""
     qa, asc, stack, ws, la, pu, bias = (_t(a) for a in _w4a4_stack_case("int4", m=64, k=256, n=128))
     for bad in (LAYERS, -1):
         idx = torch.tensor(bad, dtype=torch.int32)
@@ -302,16 +304,18 @@ def test_stacked_refusals():
         with pytest.raises(IndexError):
             tgemm.dequant_w4a8(stack, torch.ones((4, 128), dtype=torch.bfloat16), layer_idx=idx)
     one = torch.tensor(1, dtype=torch.int32)
-    with pytest.raises(ValueError):
-        tgemm.svdq_gemm_w4a4(torch.zeros((64, 256), dtype=torch.int8), torch.ones((1, 64)), stack, torch.ones((1, 128)),
-                             precision="int8", layer_idx=one)
-    with pytest.raises(NotImplementedError):
-        tgemm.gemm_w4a4(qa, asc, stack, ws, la, pu, bias, precision="int4", act_unsigned=True, layer_idx=one)
-    with pytest.raises(NotImplementedError):
-        tgemm.dequant_w4a8(stack, torch.ones((16, 128), dtype=torch.bfloat16), "e2m1", layer_idx=one)
-    before = {k: c.launches for k, c in tgemm.STACKED_COUNTS.items()}
+    qa8, w8 = torch.ones((64, 128), dtype=torch.int8), stack.to(torch.int8)  # an (L, 128, 128) int8 stack
+    assert torch.equal(tgemm.svdq_gemm_w4a4(qa8, torch.ones((1, 64)), w8, torch.ones((1, 128)), precision="int8",
+                                            layer_idx=one),
+                       tgemm.gemm_w8a8_rank1(qa8, torch.ones((1, 64)), w8[1], torch.ones((1, 128)), None, None, None))
+    assert torch.equal(tgemm.gemm_w4a4(qa, asc, stack, ws, la, pu, bias, precision="int4", act_unsigned=True,
+                                       layer_idx=one),
+                       tgemm.gemm_w4a4(qa, asc, stack[1], ws, la, pu, bias, precision="int4", act_unsigned=True))
+    rs16 = torch.ones((16, 128), dtype=torch.bfloat16)
+    assert torch.equal(tgemm.dequant_w4a8(stack, rs16, "e2m1", layer_idx=one), tgemm.dequant_w4a8(stack[1], rs16, "e2m1"))
+    before = {k: c.launches for k, c in tgemm.COUNTS.items()}
     tgemm.gemm_w4a4(qa, asc, stack, ws, la, pu, bias, precision="int4", layer_idx=one)
-    assert {k: c.launches for k, c in tgemm.STACKED_COUNTS.items()} == before
+    assert {k: c.launches for k, c in tgemm.COUNTS.items()} == before
 
 
 # ---------------------------------------------------------------------------
