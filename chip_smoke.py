@@ -44,6 +44,12 @@ Phases, each fatal on failure:
                   the consumer grouped, grouped with the residual, rank-1 and
                   rank-1 with the residual, the packed producer and grouped
                   consumer, all stacked) at FLUX's fc1 / fc2, the same way;
+                  the fixed-shift kernel's denominator form at FLUX's 2048px S
+                  16896 (o within 1e-2, l within 1e-5 relative, o bit for bit
+                  the one-tile kernel's), its two-tile and int8 forms at S 4608,
+                  and the ring's combine of the denominator kernel over 4 kv
+                  shards in one process against the dense kernel (5e-3
+                  absolute);
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -190,6 +196,19 @@ Phases, each fatal on failure:
                   Counts exact per forward (136 stacked launches of the active
                   mode, 34 flash_fixed, 34 producers under B; 9 flash_online per
                   tiled decode).
+ 13. sp       -- an NCCL process group of one rank (the machine has one card):
+                  FLUX.1-dev w4a8 (default configuration) at 2048x2048 through
+                  parallelize_sequence against the plain forward of the same
+                  model (bit for bit), a 2-step request through the SP forward
+                  to latents; Qwen-Image int4 and Z-Image-Turbo int4 at 1024px,
+                  global txt_ids, SP forward against plain (bit for bit). Every
+                  SP forward's attention is the ring's one step, the
+                  denominator kernel: flash_fixed_denom 57 / 60 / 34 a forward.
+ 14. flux-attn -- FLUX.1-dev int8 on stacks, bf16 stream, unfused prologue:
+                  one 1024px forward each with the default attention,
+                  attn_kv_unroll = 2 (flash_fixed_unroll2 57) and attn_int8
+                  (flash_fixed_i8 57), their distance from the default forward
+                  within ATTN_TOL.
 FLUX and Qwen-Image hold their blocks as stacks, so their 4-bit GEMMs and
 dequants count under the stacked modes' names (mode + "_stacked"); a kernel
 row counts every launch of its mode, a *_stacked row the stacked ones alone
@@ -253,6 +272,16 @@ ZI_FFN, ZI_TXT, ZI_BLOCKS = 10240, 512, 34  # ZImageConfig.inner_ffn at dim 3840
 # the stacked mode each Z-Image precision's linears launch (int8: the layer's own weights, torch._int_mm)
 ZI_MODES = {"int4": "gemm_w4a4_int4_stacked", "nvfp4": "gemm_w4a4_nvfp4_stacked", "w4a8": "dequant_w4a8_stacked",
             "w4a8 packed": "gemm_w4a8_stacked", "int8": None}
+# sequence parallelism (examples/flux_multichip_sp.py): FLUX.1-dev w4a8 at 2048x2048 (16384 image + 512 text tokens,
+# the default configuration) through parallelize_sequence on one rank of an NCCL group, Qwen-Image and Z-Image int4
+# at 1024px through theirs; the in-process shard check splits the 2048px kv sequence into 4 shards of 4224
+SP_SIZE, SP_S, SP_SHARDS, SP_STEPS = 2048, 16384 + 512, 4, 2
+# FLUX.1-dev's two attention alternatives (tools/ablate_kv_unroll.py): int8 on stacks, bf16 stream, unfused prologue
+ATTN_FORMS = {"default": ({}, "flash_fixed"), "kv_unroll2": ({"attn_kv_unroll": 2}, "flash_fixed_unroll2"),
+              "int8": ({"attn_int8": True}, "flash_fixed_i8")}
+# rel max distance from the default forward: twice the spread measured on the H100 (1.45e-2 and 1.80e-2: other sums
+# and int8 logits move bf16 attention outputs by a step, and 57 blocks of int8 codes amplify the flips)
+ATTN_TOL = {"kv_unroll2": 3e-2, "int8": 4e-2}
 PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
            "a bowl of ramen on a wooden table, studio light")
 
@@ -682,6 +711,7 @@ def kernel_phase(dev):
     sana_kernel_rows(dev, record, failed)
     zimage_kernel_rows(dev, record, failed)
     flux_int8_kernel_rows(dev, record, failed)
+    fixed_form_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -2400,6 +2430,247 @@ def flux_int8_kernel_rows(dev, record, failed):
     torch.cuda.empty_cache()
 
 
+def fixed_form_kernel_rows(dev, record, failed):
+    """18. The fixed-shift kernel's denominator form at FLUX's 2048px joint
+    sequence (B 1, H 24, S 16896: the ring's one step at one rank), its
+    two-tile and int8 forms at 1024px (S 4608), each against its plain twin
+    on the card (the denominator's twin four heads at a time), SDPA as
+    yardstick. Then the ring's arithmetic in one process: the denominator
+    kernel on 4 contiguous kv shards of S 16896, combined by parallel.sp's
+    combine, against the dense kernel (checks.check_ring_shards)."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import (flash_attention_denom, flash_attention_denom_plain,
+                                                  flash_attention_i8, flash_attention_i8_plain, flash_attention_unroll2,
+                                                  flash_attention_unroll2_plain)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    src = "nunchaku_tpu_torch/csrc/flash_fixed.cu"
+    s = SP_S
+    q, k, v = checks.flash_case(1, HEADS, s, s, HD, device=dev)
+    err, ok, detail = checks.check_flash_denom(q, k, v)
+    record("flash_fixed_denom", src, "nunchaku_tpu/ops/attention.py:461", f"B=1 H={HEADS} S={s} D={HD}", ok, err,
+           detail, cuda_ms(lambda: flash_attention_denom(q, k, v, scale=1.0), 5),
+           cuda_ms(lambda: checks.by_heads(lambda *a: flash_attention_denom_plain(*a, scale=1.0), q, k, v), 1,
+                   warmup=1),
+           bound(4 * s * HEADS * HD * 2 + 4 * HEADS * s, bf16_ops=4 * s * s * HD * HEADS),
+           cuda_ms(lambda: sdpa(q, k, v, scale=math.log(2.0)), 5))
+    del q, k, v
+    torch.cuda.empty_cache()
+    err, ok, detail = checks.check_ring_shards(*checks.ring_case(1, HEADS, s, device=dev), SP_SHARDS)
+    log(f"[kernel] flash_fixed_denom, the ring's combine in one process @ B=1 H={HEADS} S={s} in {SP_SHARDS} kv "
+        f"shards of {s // SP_SHARDS}: {'PASS' if ok else 'FAIL'} {detail}")
+    if not ok:
+        failed.append("flash_fixed_denom ring shards")
+
+    s = S_IMG + S_TXT
+    q, k, v = checks.flash_case(1, HEADS, s, s, HD, device=dev)
+    err, ok, detail = checks.check_flash_unroll2(q, k, v)
+    lib = cuda_ms(lambda: sdpa(q, k, v, scale=math.log(2.0)), 20)
+    record("flash_fixed_unroll2", src, "nunchaku_tpu/ops/attention.py:508", f"B=1 H={HEADS} S={s} D={HD}", ok, err,
+           detail, cuda_ms(lambda: flash_attention_unroll2(q, k, v, scale=1.0, out_bshd=True), 20),
+           cuda_ms(lambda: flash_attention_unroll2_plain(q, k, v, 1.0, out_bshd=True), 3),
+           bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS), lib)
+    i8 = checks.flash_i8_case(1, HEADS, s, s, HD, device=dev)  # flash_case's q, k (seed 0) quantized
+    err, ok, detail = checks.check_flash_i8(*i8)
+    record("flash_fixed_i8", "nunchaku_tpu_torch/csrc/flash_fixed_i8.cu", "nunchaku_tpu/ops/attention.py:563",
+           f"B=1 H={HEADS} S={s} D={HD}, int8 q, k", ok, err, detail,
+           cuda_ms(lambda: flash_attention_i8(*i8, out_bshd=True), 20),
+           cuda_ms(lambda: flash_attention_i8_plain(*i8, out_bshd=True), 3),
+           bound(s * HEADS * HD * (1 + 1 + 2 + 2) + 8 * s * HEADS, int8_ops=2 * s * s * HD * HEADS,
+                 bf16_ops=2 * s * s * HD * HEADS), lib)
+    del q, k, v, i8
+    torch.cuda.empty_cache()
+
+
+def sp_phase(dev, steps: int):
+    """[sp] Sequence parallelism on one rank of an NCCL process group
+    (init_method file://, world size 1: the script needs one card;
+    the ring over more ranks runs in the CPU tests over gloo): FLUX.1-dev
+    w4a8 at full width and depth (default configuration) at 2048x2048
+    (examples/flux_multichip_sp.py), the parallelize_sequence forward
+    against the plain forward of the same model on the same inputs, then a
+    2-step request to latents through the SP forward (flux_sigmas and
+    euler_step, as the example), timed; Qwen-Image int4 and Z-Image int4 at
+    full size, 1024px, B 1, global txt_ids: one SP forward each against the
+    plain forward. Every SP forward's attention is the ring's one step, the
+    denominator kernel: flash_fixed_denom 57 / 60 / 34 a forward, no
+    flash_fixed. The group is destroyed at the end. -> (ok, counts of the SP
+    runs, per-forward counts)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from nunchaku_tpu_torch import QwenImageConfig, QwenImageTransformer2DModel, ZImageConfig, ZImageTransformer2DModel
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.parallel import (parallelize_sequence, parallelize_sequence_qwenimage,
+                                             parallelize_sequence_zimage)
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+    from nunchaku_tpu_torch.pipeline.scheduler import euler_step, flux_sigmas
+
+    tmp = tempfile.mkdtemp(prefix="sp_group_")
+    torch.cuda.set_device(0)
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{os.path.join(tmp, 'group')}", world_size=1, rank=0)
+    log(f"[sp] NCCL process group: world size {dist.get_world_size()}, rank {dist.get_rank()}, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    ok, total, paths = True, {}, {}
+
+    def compare(label, model, parallelize, args, per):
+        """The plain forward, then the SP forward of the same model: bit for
+        bit at one rank (as measured on the H100: the ring's one step is the
+        dense loop, and (o * l) / l in f32 rounds back to the bf16 o); counts
+        of the SP forward exact."""
+        nonlocal ok, total
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = model(*args).float()
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t
+            model, forward = parallelize(model)
+            reset_launch_counts()
+            t = time.perf_counter()
+            out = forward(model, *args).float()
+            torch.cuda.synchronize()
+            sp_s = time.perf_counter() - t
+        counts = launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        paths[label] = per
+        rel = ((out - ref).abs().max() / ref.abs().max()).item()
+        good = bool(torch.isfinite(out).all()) and torch.equal(out, ref)
+        log(f"[sp] {label}: plain forward {plain_s:.4f} s, SP forward (1 rank) {sp_s:.4f} s; output "
+            f"{tuple(out.shape)}; SP vs plain rel max error {rel:.3e} (bit for bit): {'PASS' if good else 'FAIL'}")
+        ok = check_counts(label, counts, per, 1, tag="sp") and good and ok
+        return model, forward
+
+    try:
+        cfg = FluxConfig(precision="w4a8")
+        L, Ls = cfg.num_layers, cfg.num_single_layers
+        model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        side = SP_SIZE // 16
+        s_img = side * side
+        args = (torch.randn((1, s_img, 64), generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+                torch.tensor([1.0], device=dev), make_img_ids(side, side, dev),
+                torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+        per = {"dequant_w4a8_stacked": 4 * (2 * L + Ls), "gemm_w8a8_gelu_quant": 2 * L + Ls,
+               "gemm_w8a8_grouped": 2 * L + Ls, "flash_fixed_denom": L + Ls}
+        torch.cuda.reset_peak_memory_stats()
+        model, forward = compare(f"FLUX.1-dev w4a8 {SP_SIZE}px", model, parallelize_sequence, args, per)
+        n = min(SP_STEPS, steps)
+        sigmas = flux_sigmas(n, s_img)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            lat = torch.randn((1, s_img, 64), generator=gen, device=dev)
+            for i in range(n):
+                vel = forward(model, lat.to(torch.bfloat16), *args[1:3], torch.full((1,), float(sigmas[i]), device=dev),
+                              *args[4:])
+                lat = euler_step(lat, vel.float(), sigmas[i], sigmas[i + 1])
+        torch.cuda.synchronize()
+        req_s = time.perf_counter() - t
+        counts = launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        finite = tuple(lat.shape) == (1, s_img, 64) and bool(torch.isfinite(lat).all())
+        log(f"[sp] FLUX.1-dev w4a8 {SP_SIZE}px request through the SP forward, {n} steps to latents: {req_s:.3f} s "
+            f"({req_s / n:.4f} s/step); latents {tuple(lat.shape)} finite={finite}, |lat| mean "
+            f"{lat.abs().mean().item():.4f}; peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        ok = check_counts(f"{SP_SIZE}px request", counts, per, n, tag="sp") and finite and ok
+        del model, forward, args, lat
+        torch.cuda.empty_cache()
+
+        qcfg = QwenImageConfig()
+        model = QwenImageTransformer2DModel.random_init(qcfg, seed=0, device=dev)
+        side = 64
+        args = (torch.randn((1, side * side, 64), generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn((1, QWEN_S_TXT, qcfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+                torch.tensor([0.7], device=dev), make_img_ids(side, side, dev),
+                torch.arange(QWEN_S_TXT, dtype=torch.int32, device=dev)[:, None].repeat(1, 3))
+        Lq = qcfg.num_layers
+        compare("Qwen-Image int4 1024px", model, parallelize_sequence_qwenimage, args,
+                {"gemm_w4a4_int4_stacked": 6 * Lq, "gemm_w4a4_int4_unsigned_stacked": 2 * Lq, "gemv_awq": 2 * Lq,
+                 "flash_fixed_denom": Lq})
+        del model, args
+        torch.cuda.empty_cache()
+
+        zcfg = ZImageConfig(**ZIMAGE, precision="int4", rank=RANK)
+        model = ZImageTransformer2DModel.random_init(zcfg, seed=0, device=dev)
+        ti = torch.zeros((ZI_TXT, 3), dtype=torch.int32, device=dev)
+        ti[:, 0] = torch.arange(ZI_TXT, device=dev)
+        side = 64
+        args = (torch.randn((1, side * side, 64), generator=gen, device=dev).to(torch.bfloat16),
+                torch.randn((1, ZI_TXT, ZI_CAP), generator=gen, device=dev).to(torch.bfloat16),
+                torch.tensor([0.3], device=dev), make_img_ids(side, side, dev), ti)
+        compare("Z-Image-Turbo int4 1024px", model, parallelize_sequence_zimage, args,
+                zimage_per_forward(ZI_MODES["int4"]) | {"flash_fixed": 0, "flash_fixed_denom": ZI_BLOCKS})
+        del model, args
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok, total, paths
+
+
+def flux_attn_phase(dev):
+    """[flux-attn] FLUX.1-dev at int8 on its stacks, bf16 stream with the
+    unfused prologue (tools/ablate_kv_unroll.py's setup: no
+    enable_fused_qkv_prep), one 1024px forward each with the default
+    attention, attn_kv_unroll = 2 and attn_int8 = True, set through
+    set_on_stacks; each after an untimed one, counts exact (57 launches of
+    the form's kernel), the output's relative max distance from the default
+    forward's within ATTN_TOL. -> (ok, counts of the timed forwards,
+    per-forward counts)."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
+    cfg = FluxConfig(precision="int8")
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev).set_stream_dtype(torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+            torch.tensor([1.0], device=dev), make_img_ids(math.isqrt(S_IMG), math.isqrt(S_IMG), dev),
+            torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+    base = {k: v for k, v in int8_per_forward(L, Ls, True, False).items() if k not in ("qkv_rope_producer", "flash_fixed")}
+    ok, total, paths, outs, step_s = True, {}, {}, {}, {}
+    for name, (setting, kernel) in ATTN_FORMS.items():
+        model.set_on_stacks("attn", **{"attn_kv_unroll": 1, "attn_int8": False, **setting})
+        with torch.no_grad():
+            model(*args)  # first use, untimed
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            outs[name] = model(*args).float()
+            torch.cuda.synchronize()
+            step_s[name] = time.perf_counter() - t
+        counts = launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        paths[f"int8 bf16 stream, {name} attention"] = per = base | {kernel: L + Ls}
+        finite = tuple(outs[name].shape) == (1, S_IMG, 64) and bool(torch.isfinite(outs[name]).all())
+        good = finite
+        what = ""
+        if name != "default":
+            ref = outs["default"]
+            rel = ((outs[name] - ref).abs().max() / ref.abs().max()).item()
+            good = good and rel <= ATTN_TOL[name]
+            what = f"; rel max distance from the default forward {rel:.3e} (tolerance {ATTN_TOL[name]:g})"
+        log(f"[flux-attn] {name} ({setting or 'attn_kv_unroll 1, attn_int8 False'}): one 1024px forward "
+            f"{step_s[name]:.4f} s, output finite={finite}{what}: {'PASS' if good else 'FAIL'}")
+        ok = check_counts(name, counts, per, 1, tag="flux-attn") and good and ok
+    model.set_on_stacks("attn", attn_kv_unroll=1, attn_int8=False)
+    log(f"[flux-attn] forward seconds: default {step_s['default']:.4f}, kv_unroll2 {step_s['kv_unroll2']:.4f}, "
+        f"int8 {step_s['int8']:.4f}")
+    del model, outs
+    torch.cuda.empty_cache()
+    return ok, total, paths
+
+
 def zimage_per_forward(mode: str | None, fused: bool = False, blocks: int = ZI_BLOCKS) -> dict:
     """Launches per Z-Image forward: four 4-bit linears a block in the
     stacked ``mode`` (none at int8), one fixed-shift flash a block, and one
@@ -3006,8 +3277,11 @@ def main(argv=None) -> int:
     sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
     sana_ok, sacounts, sapaths = sana_phase(dev, args.steps)
     zi_ok, zicounts, zipaths = zimage_phase(dev, args.steps)
+    sp_ok, spcounts, sppaths = sp_phase(dev, args.steps)
+    fa_ok, facounts, fapaths = flux_attn_phase(dev)
     counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
-              + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) for k in counts}
+              + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) + spcounts.get(k, 0) + facounts.get(k, 0)
+              for k in counts}
     for name, row in rows.items():
         row["launches"] = row_launches(name, counts)
     for name, b in per_forward_bounds(cfg).items():
@@ -3038,13 +3312,16 @@ def main(argv=None) -> int:
     for name, b in zimage_bounds().items():
         per = {p: f[name] for p, f in zipaths.items() if f.get(name)}
         log(f"[bound] {name}: launches per Z-Image-Turbo 1024px forward {per}, least time {b:.3f} ms per forward")
+    for name in ("flash_fixed_denom", "flash_fixed_unroll2", "flash_fixed_i8"):
+        per = {p: f[name] for p, f in (sppaths | fapaths).items() if f.get(name)}
+        log(f"[bound] {name}: launches per forward {per}")
     ran = [name for name, row in rows.items() if row["launches"] > 0]
     log(f"[kernels] ran on the main paths: {', '.join(ran)}; not: "
         f"{', '.join(name for name in rows if name not in ran) or 'none'}")
     for name, per in (cpaths | cqpaths).items():
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok
+    ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -3053,7 +3330,7 @@ def main(argv=None) -> int:
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
-        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}")
+        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, sp {verdict(sp_ok)}, flux-attn {verdict(fa_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -35,3 +35,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half: the lower column
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// c += a (16x32, row) * b (32x8, col); s8 in, s32 accumulate. The fragments
+// hold four int8 a register: a0 / a1 rows g / g + 8 at k 4*t4 .. +3, a2 / a3
+// the same at k + 16; b0 / b1 column g at k 4*t4 .. +3 and k + 16; c as in
+// mma_bf16. ldmatrix's b16 8x8 matrices are 8 rows of 16 int8 each, so the
+// bf16 kernels' ldsm_x4 addressing, in bytes, loads them.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}

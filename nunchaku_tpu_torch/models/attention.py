@@ -12,7 +12,11 @@ prompts): fixed-shift, or online on the unfused branch when
 ``fixed_softmax`` is False (JAX ``_attend`` :371), or, with no kv mask and
 ``sparsity_ratio > 0`` (``set_attention_impl("blocksparse")``), block-sparse
 attention in the same softmax form (the fused prologue then stays off, as in
-JAX :424-431); and ``FeedForward`` /
+JAX :424-431); under sequence parallelism (``sp_axis``, set by
+``parallel.sp.parallelize_sequence*``) the ring attention over the process
+group (the fused prologue stays off too); without a kv mask, ``attn_int8``
+takes the int8 q . k form and ``attn_kv_unroll = 2`` the two-tile form of
+the fixed-shift kernel (:395-404); and ``FeedForward`` /
 ``gelu_mlp`` (:527-768): on the int8 / w4a8 chain route fc1's GEMM emits
 fc2's int8 activations through the GELU -> requantize epilogue and fc2
 consumes their grouped scales (w4a8: on dequantized weights, or on the
@@ -36,8 +40,10 @@ from ..ops.attention import (
     LOG2E,
     block_sparse_attention,
     flash_attention,
+    flash_attention_i8,
     flash_attention_online,
     qkv_rope_producer,
+    quantize_qk,
 )
 from ..ops.gemm import (chain_ptoken, dequant_w4a8, res_apply, svdq_gemm_w4a4, svdq_gemm_w8a8_gelu_quant,
                         w4a8_fused, w4a8_use_xla)
@@ -155,6 +161,13 @@ class FluxAttention(nn.Module):
         # > 0: block-sparse attention when there is no kv mask (set by
         # FluxTransformer2DModel.set_attention_impl)
         self.sparsity_ratio = 0.0
+        # the process group of the ring attention (parallel.sp); None: no
+        # sequence parallelism
+        self.sp_axis = None
+        # int8 q . k with per-token scales (flash_attention_i8) when there is no kv mask
+        self.attn_int8 = False
+        # 2: the fixed-shift kernel's two-tile form when there is no kv mask
+        self.attn_kv_unroll = 1
 
     @classmethod
     def random_init(cls, gen, dim, heads, head_dim, joint=True, rank=32, precision="w4a8",
@@ -186,9 +199,10 @@ class FluxAttention(nn.Module):
         epilogue and the producer adds it. A rope table in the other layout
         than the weights' raises. ``kv_mask``: (B, S_txt + S_img) validity of
         the joint keys (bool, True = attend), passed to flash. Block-sparse
-        attention (``sparsity_ratio > 0``) runs on the unfused branch only:
-        after :func:`permute_qk_halfsplit` it raises, as in JAX."""
-        if self.prep_fused and self.sparsity_ratio == 0.0:
+        attention (``sparsity_ratio > 0``) and sequence parallelism
+        (``sp_axis``) run on the unfused branch only: after
+        :func:`permute_qk_halfsplit` they raise, as in JAX."""
+        if self.prep_fused and self.sparsity_ratio == 0.0 and self.sp_axis is None:
             if not isinstance(rot, tuple):
                 raise ValueError("the q/k weights are in half-split order (permute_qk_halfsplit): "
                                  "rot must be the (cos, sin) pair of rope_table_halfsplit")
@@ -201,7 +215,8 @@ class FluxAttention(nn.Module):
                                        None if mods is None else mods[1], kv_mask)
         if isinstance(rot, tuple):
             raise ValueError("the half-split (cos, sin) rope table needs the fused prologue "
-                             "(permute_qk_halfsplit), which runs with dense attention only")
+                             "(permute_qk_halfsplit), which runs with dense attention only and "
+                             "without sequence parallelism")
         qkv = self.to_qkv(hidden) if mods is None else self.to_qkv.forward_modulated(hidden, *mods[0])
         prescale = LOG2E / math.sqrt(self.head_dim)
         if encoder_hidden is None:
@@ -222,14 +237,29 @@ class FluxAttention(nn.Module):
         return self.to_out(img_o), self.to_add_out(txt_o)
 
     def _attend(self, q, k, v, kv_mask):
-        """Prescaled q -> (B, S, H*D): block-sparse attention when there is
-        no kv mask and ``sparsity_ratio > 0``, else flash; the fixed-shift
-        form, or the online one when ``fixed_softmax`` is False."""
+        """Prescaled q -> (B, S, H*D), in JAX's order (:370-404): the ring
+        attention over ``sp_axis`` under sequence parallelism (no kv mask:
+        it raises); block-sparse attention when there is no kv mask and
+        ``sparsity_ratio > 0``; the int8 form under ``attn_int8`` and no kv
+        mask; else flash, the fixed-shift form (two-tile at
+        ``attn_kv_unroll = 2`` without a kv mask) or the online one when
+        ``fixed_softmax`` is False."""
+        if self.sp_axis is not None:
+            from ..parallel.sp import ring_attention
+
+            if kv_mask is not None:  # the JAX ring drops a mask silently; the port refuses it
+                raise ValueError("sequence parallelism takes no kv mask: the ring attention has no masked form")
+            o = ring_attention(q, k, v, self.sp_axis, scale=1.0)
+            b, h, s, d = o.shape
+            return o.transpose(1, 2).reshape(b, s, h * d)
         if kv_mask is None and self.sparsity_ratio > 0.0:
             return block_sparse_attention(q, k, v, sparsity_ratio=self.sparsity_ratio, scale=1.0, out_bshd=True,
                                           fixed_softmax=self.fixed_softmax)
+        if kv_mask is None and self.attn_int8:
+            q8, qs, k8, ks = quantize_qk(q, k)
+            return flash_attention_i8(q8, qs, k8, ks, v, out_bshd=True)
         if self.fixed_softmax:
-            return flash_attention(q, k, v, kv_mask)
+            return flash_attention(q, k, v, kv_mask, kv_unroll=self.attn_kv_unroll)
         return flash_attention_online(q, k, v, scale=1.0, kv_mask=kv_mask, out_bshd=True)
 
     def _forward_fused(self, qkv, encoder_hidden, rot, lora_img, mods_txt, kv_mask):

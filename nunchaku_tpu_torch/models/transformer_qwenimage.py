@@ -117,7 +117,8 @@ class QwenImageTransformer2DModel(StackedLayers, nn.Module):
         """-> (img f32, txt f32, temb bf16, rot): rot is the (S_txt + S_img,
         D/2, 2) table, or its half-split (cos, sin) pair after
         :meth:`enable_fused_qkv_prep`. ``txt_ids`` default: the token index
-        on every rope axis."""
+        on every rope axis, of the tokens given (under sequence parallelism
+        a rank's shard: the caller passes the global ids)."""
         img = self.img_in(hidden_states).float()
         if self.txt_norm is not None:
             encoder_hidden_states = rmsnorm(encoder_hidden_states, self.txt_norm).to(encoder_hidden_states.dtype)

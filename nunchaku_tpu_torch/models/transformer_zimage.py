@@ -22,6 +22,9 @@ Pallas kernels do by scalar prefetch. int8 stacks (an nvfp4 file loaded at
 w4a8 becomes int8, as in JAX) and unquantized refiners take the layer's own
 weights.
 
+Under sequence parallelism (``parallel.sp.parallelize_sequence_zimage``) each
+stage's attention is the ring over its local tokens.
+
 Attention prologues: the interleaved-pair q/k RMSNorm + RoPE as torch ops by
 default, or after :meth:`ZImageTransformer2DModel.enable_fused_qkv_prep`
 (which permutes the to_qkv, norm_q and norm_k stacks in place) the half-split
@@ -97,6 +100,8 @@ class ZImageAttention(nn.Module):
         self.to_out = to_out
         self.heads = heads
         self.head_dim = head_dim
+        # the process group of the ring attention (parallel.sp); None: no sequence parallelism
+        self.sp_axis = None
 
     @classmethod
     def random_init(cls, gen, cfg: ZImageConfig, device="cuda"):
@@ -107,7 +112,9 @@ class ZImageAttention(nn.Module):
 
     def forward(self, x, rot):
         """x (B, S, dim) bf16; ``rot`` the interleaved (S, D/2, 2) table, or
-        the half-split (cos, sin) pair after the fused prep -> (B, S, dim)."""
+        the half-split (cos, sin) pair after the fused prep -> (B, S, dim).
+        Under sequence parallelism (``sp_axis``) the ring attention over the
+        group follows either prologue (JAX :129-135)."""
         qkv = self.to_qkv(x)
         heads = qkv.shape[-1] // 3 // self.head_dim
         prescale = LOG2E / math.sqrt(self.head_dim)
@@ -119,6 +126,11 @@ class ZImageAttention(nn.Module):
                 q, k, v = prep_halfsplit(qkv, cos, sin, self.norm_q, self.norm_k, heads, self.head_dim, prescale)
         else:
             q, k, v = qkv_norm_rope(qkv, self.head_dim, self.norm_q, self.norm_k, rot, prescale)
+        if self.sp_axis is not None:
+            from ..parallel.sp import ring_attention
+
+            b, _, s, _ = q.shape
+            return self.to_out(ring_attention(q, k, v, self.sp_axis, scale=1.0).transpose(1, 2).reshape(b, s, -1))
         return self.to_out(flash_attention(q, k, v))
 
 

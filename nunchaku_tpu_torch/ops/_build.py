@@ -46,6 +46,9 @@ SIGNATURES = {
     "nt_gemv_awq": [_P] * 7 + [_I] * 3 + [_P],
     "nt_bs_fixed": [_P] * 5 + [_I] * 9 + [_F, _P],
     "nt_bs_online": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "nt_flash_fixed_denom": [_P] * 5 + [_I] * 4 + [_F, _P],
+    "nt_flash_fixed_unroll2": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "nt_flash_fixed_i8": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -29,6 +29,21 @@
   by mean-pooled score. The selection is torch ops, as it is XLA ops in JAX,
   and its ids stay on the card.
 
+* :func:`flash_attention_denom` -- the ``DENOM`` mode of ``csrc/flash_fixed.cu``,
+  counterpart of ``flash_attention(..., fixed_softmax=True,
+  return_denom=True)`` (``_flash_kernel_fixed_denom`` :461): o in (B, H, S,
+  D) and the f32 row sums l = sum p, the step of the ring attention
+  (``parallel/sp.py``). Count ``flash_fixed_denom``.
+* :func:`flash_attention_unroll2` -- the two-tile mode (``U = 2``) of
+  ``csrc/flash_fixed.cu``, counterpart of ``flash_attention(...,
+  fixed_softmax=True, kv_unroll=2)`` (``_flash_kernel_fixed2`` :508), which
+  :func:`flash_attention` takes for ``kv_unroll=2`` without a kv mask. Count
+  ``flash_fixed_unroll2``.
+* :func:`quantize_qk` (torch ops, XLA ops in JAX :974) and
+  :func:`flash_attention_i8` -- kernel ``csrc/flash_fixed_i8.cu``, counterpart of
+  ``flash_attention_i8`` (:994, ``_flash_kernel_fixed_i8`` :563): int8 q . k
+  with per-token scales, bf16 p . v. Count ``flash_fixed_i8``.
+
 ``kv_mask`` is the JAX ``flash_attention``'s: (B, S_kv), bool (True =
 attend) or an f32 additive log2-domain bias. The mask forms of both kernels
 count their launches apart (``flash_fixed_masked``, ``flash_online_masked``
@@ -47,7 +62,8 @@ from types import SimpleNamespace
 import torch
 
 from . import _build
-from .reference import bf16_matmul
+from .quantize import rcp
+from .reference import RCP127, bf16_matmul
 
 LOG2E = math.log2(math.e)
 FIXED_SHIFT = 16.0
@@ -62,6 +78,10 @@ MASKED_COUNTS = {"flash_fixed_masked": SimpleNamespace(launches=0),
 # the online kernel at head dim 64 (SDXL) and 112 (SANA), each counted apart
 ONLINE_DIM_COUNTS = {64: SimpleNamespace(launches=0), 112: SimpleNamespace(launches=0)}
 BS_COUNTS = {"bs_fixed": SimpleNamespace(launches=0), "bs_online": SimpleNamespace(launches=0)}
+# the fixed-shift kernel's denominator and two-tile forms, and its int8 counterpart
+FIXED_FORM_COUNTS = {name: SimpleNamespace(launches=0)
+                     for name in ("flash_fixed_denom", "flash_fixed_unroll2", "flash_fixed_i8")}
+UNROLL_TILE = 64  # the kv tile of the fixed-shift kernels: a two-tile step covers 128 columns
 POOL_SIZE = 128  # the JAX select_blocks' default window (the reference's mask granularity)
 BS_TILE = 128  # bq and bkv of the block-sparse kernels are multiples of this
 
@@ -188,21 +208,36 @@ def flash_attention_plain(q, k, v, kv_mask=None):
     return o.to(q.dtype).transpose(1, 2).reshape(b, sq, h * d)
 
 
-def flash_attention(q, k, v, kv_mask=None):
+def _fixed_operands(q, k, v):
+    """The fixed-shift kernels' checks of bf16 q (B, H, Sq, D), k, v (B, H,
+    Skv, D) at head dim 128 -> contiguous q, k, v."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    _build.require(d == KERNEL_HEAD_DIM, f"flash kernel is built for head_dim {KERNEL_HEAD_DIM}, got {d}")
+    _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "flash kernel takes bf16 q, k, v")
+    _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d), "k and v must be (B, H, Skv, D) like q")
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def _heads_out(o, out_bshd):
+    """(B, H, S, D) -> (B, S, H*D) when ``out_bshd``."""
+    b, h, s, d = o.shape
+    return o.transpose(1, 2).reshape(b, s, h * d) if out_bshd else o
+
+
+def flash_attention(q, k, v, kv_mask=None, kv_unroll=1):
     """q (B, H, Sq, D) prescaled by softmax-scale * log2(e), k/v
-    (B, H, Skv, D) bf16, optional (B, Skv) ``kv_mask`` -> (B, Sq, H*D)."""
+    (B, H, Skv, D) bf16, optional (B, Skv) ``kv_mask`` -> (B, Sq, H*D).
+    ``kv_unroll=2`` without a kv mask takes the two-tile form
+    (:func:`flash_attention_unroll2`); with a mask, or any other value, the
+    one-tile kernel runs, as JAX's gate rules have it (:713-722)."""
+    if kv_unroll == 2 and kv_mask is None:
+        return flash_attention_unroll2(q, k, v, scale=1.0, out_bshd=True)
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, kv_mask)
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"flash kernel is built for head_dim {KERNEL_HEAD_DIM}, got {d}")
-    for t in (q, k, v):
-        if t.dtype != torch.bfloat16:
-            raise ValueError("flash kernel takes bf16 q, k, v")
-    if tuple(k.shape) != (b, h, skv, d) or tuple(v.shape) != (b, h, skv, d):
-        raise ValueError("k and v must be (B, H, Skv, D) like q")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    qc, kc, vc = _fixed_operands(q, k, v)
     bias = None if kv_mask is None else kv_bias(kv_mask.to(q.device), b, skv)
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
@@ -223,6 +258,129 @@ def _logit_scale(scale, d) -> float:
     if scale is None:
         scale = 1.0 / math.sqrt(d)
     return float(torch.tensor(1.0 if scale == 1.0 else scale * LOG2E, dtype=torch.float32))
+
+
+def _fixed_p(s, c):
+    """Logits ``s`` (f32 q . k) times ``c`` -> the fixed-shift p in f32."""
+    if c != 1.0:
+        s = s * c
+    return torch.exp2(torch.clamp(s, max=FIXED_CAP) - FIXED_SHIFT)
+
+
+def flash_attention_denom_plain(q, k, v, scale=None):
+    c = _logit_scale(scale, q.shape[-1])
+    p = _fixed_p(q.float() @ k.float().transpose(-1, -2), c)
+    l = p.sum(dim=-1)
+    o = (p.to(torch.bfloat16).float() @ v.float()) / l[..., None]
+    return o.to(q.dtype), l
+
+
+def flash_attention_denom(q, k, v, *, scale=None, kv_mask=None, out_bshd=False):
+    """Fixed-shift flash that also returns its softmax denominator: bf16 q
+    (B, H, Sq, D), k, v (B, H, Skv, D) -> (o (B, H, Sq, D) bf16, l (B, H, Sq)
+    f32), o = sum_k p v / l with l = sum_k p, p = 2^(min(s, 116) - 16).
+    ``scale`` None means 1/sqrt(D), 1.0 that q already carries scale *
+    log2(e). Partial results over disjoint kv shards combine exactly
+    (``parallel.sp.combine_shard``). No kv mask and no (B, S, H*D) output:
+    both raise, as the JAX package's assert (:715-719)."""
+    _build.require(kv_mask is None and not out_bshd,
+                   "the denominator form takes no kv mask and writes (B, H, S, D) (return_denom)")
+    if not q.is_cuda:
+        return flash_attention_denom_plain(q, k, v, scale)
+    b, h, sq, d = q.shape
+    qc, kc, vc = _fixed_operands(q, k, v)
+    out = torch.empty((b, h, sq, d), dtype=torch.bfloat16, device=q.device)
+    lsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    _build.check(lib.nt_flash_fixed_denom(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(),
+                                          lsum.data_ptr(), b, h, sq, k.shape[2], _logit_scale(scale, d),
+                                          torch.cuda.current_stream(q.device).cuda_stream), "flash_fixed_denom")
+    FIXED_FORM_COUNTS["flash_fixed_denom"].launches += 1
+    return out, lsum
+
+
+def flash_attention_unroll2_plain(q, k, v, scale=None, out_bshd=False, tile=UNROLL_TILE):
+    """The two-tile kernel's steps in torch ops: per step of two ``tile``
+    column tiles (cut at Skv: a cut column's p is exactly 0 in the kernel),
+    ``l += sum p1 + sum p2`` and ``acc += bf16(p1) @ v1 + bf16(p2) @ v2``."""
+    c = _logit_scale(scale, q.shape[-1])
+    qf = q.float()
+    l = torch.zeros(q.shape[:-1] + (1,), dtype=torch.float32, device=q.device)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for j in range(0, k.shape[2], 2 * tile):
+        ps, pv = [], []
+        for j0 in (j, j + tile):
+            p = _fixed_p(qf @ k[:, :, j0:j0 + tile].float().transpose(-1, -2), c)
+            ps.append(p.sum(dim=-1, keepdim=True))
+            pv.append(p.to(torch.bfloat16).float() @ v[:, :, j0:j0 + tile].float())
+        l = l + (ps[0] + ps[1])
+        acc = acc + (pv[0] + pv[1])
+    return _heads_out((acc / l).to(q.dtype), out_bshd)
+
+
+def flash_attention_unroll2(q, k, v, *, scale=None, out_bshd=False):
+    """Fixed-shift flash over two kv tiles a main-loop step (both tiles'
+    q . k before the first tile's exp2 pass): bf16 q (B, H, Sq, D), k, v
+    (B, H, Skv, D) -> (B, H, Sq, D), or (B, Sq, H*D) with ``out_bshd``;
+    ``scale`` as :func:`flash_attention_denom`'s."""
+    if not q.is_cuda:
+        return flash_attention_unroll2_plain(q, k, v, scale, out_bshd)
+    b, h, sq, d = q.shape
+    qc, kc, vc = _fixed_operands(q, k, v)
+    out = torch.empty((b, sq, h * d) if out_bshd else (b, h, sq, d), dtype=torch.bfloat16, device=q.device)
+    lib = _build.library()
+    _build.check(lib.nt_flash_fixed_unroll2(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(), out.data_ptr(), b, h, sq,
+                                            k.shape[2], int(out_bshd), _logit_scale(scale, d),
+                                            torch.cuda.current_stream(q.device).cuda_stream), "flash_fixed_unroll2")
+    FIXED_FORM_COUNTS["flash_fixed_unroll2"].launches += 1
+    return out
+
+
+def quantize_qk(q, k):
+    """Per-(batch, head, token) int8 codes of q and k (JAX ``quantize_qk``
+    :974): ``scale = max |t| * f32(1/127)`` (XLA's form of ``/ 127.0``),
+    ``t8 = clip(round(t * rcp(scale)), -127, 127)`` -> (q8, qs, k8, ks), the
+    scales (B, H, S) f32."""
+    def one(t):
+        tf = t.float()
+        scale = tf.abs().amax(dim=-1) * RCP127
+        return torch.clamp(torch.round(tf * rcp(scale)[..., None]), -127, 127).to(torch.int8), scale
+
+    q8, qs = one(q)
+    k8, ks = one(k)
+    return q8, qs, k8, ks
+
+
+def flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd=False):
+    s = q8.float() @ k8.float().transpose(-1, -2)  # integers below 2^24: exact in f32
+    p = _fixed_p((s * qs[..., None].float()) * ks[..., None, :].float(), 1.0)
+    l = p.sum(dim=-1, keepdim=True)
+    o = (p.to(torch.bfloat16).float() @ v.float()) / l
+    return _heads_out(o.to(v.dtype), out_bshd)
+
+
+def flash_attention_i8(q8, qs, k8, ks, v, *, out_bshd=False):
+    """Fixed-shift flash with int8 q . k: q8 (B, H, Sq, D) int8 with scales
+    qs (B, H, Sq), k8 / ks likewise over Skv, v (B, H, Skv, D) bf16 ->
+    (B, H, Sq, D) bf16, or (B, Sq, H*D) with ``out_bshd``. Logits ``(f32(q8
+    . k8) * qs_i) * ks_j`` (q prescaled before :func:`quantize_qk`)."""
+    if not q8.is_cuda:
+        return flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd)
+    b, h, sq, d = q8.shape
+    skv = k8.shape[2]
+    _build.require(d == KERNEL_HEAD_DIM, f"int8 flash kernel is built for head_dim {KERNEL_HEAD_DIM}, got {d}")
+    _build.require(q8.dtype == k8.dtype == torch.int8 and v.dtype == torch.bfloat16, "int8 q8, k8; bf16 v")
+    _build.require(tuple(k8.shape) == tuple(v.shape) == (b, h, skv, d), "k8 and v must be (B, H, Skv, D) like q8")
+    _build.require(tuple(qs.shape) == (b, h, sq) and tuple(ks.shape) == (b, h, skv), "qs (B, H, Sq), ks (B, H, Skv)")
+    qc, kc, vc = q8.contiguous(), k8.contiguous(), v.contiguous()
+    qsc, ksc = qs.float().contiguous(), ks.float().contiguous()
+    out = torch.empty((b, sq, h * d) if out_bshd else (b, h, sq, d), dtype=torch.bfloat16, device=v.device)
+    lib = _build.library()
+    _build.check(lib.nt_flash_fixed_i8(qc.data_ptr(), qsc.data_ptr(), kc.data_ptr(), ksc.data_ptr(), vc.data_ptr(),
+                                       out.data_ptr(), b, h, sq, skv, int(out_bshd),
+                                       torch.cuda.current_stream(v.device).cuda_stream), "flash_fixed_i8")
+    FIXED_FORM_COUNTS["flash_fixed_i8"].launches += 1
+    return out
 
 
 def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=None, out_bshd=False):

@@ -23,11 +23,18 @@ from .attention import (
     block_sparse_fixed_plain,
     block_sparse_online_plain,
     flash_attention,
+    flash_attention_denom,
+    flash_attention_denom_plain,
+    flash_attention_i8,
+    flash_attention_i8_plain,
     flash_attention_online,
     flash_attention_online_plain,
     flash_attention_plain,
+    flash_attention_unroll2,
+    flash_attention_unroll2_plain,
     qkv_rope_producer,
     qkv_rope_producer_plain,
+    quantize_qk,
     select_blocks,
 )
 from .gemm import (
@@ -505,6 +512,94 @@ def check_flash(q, k, v):
     """bf16 output: max error <= 1e-2 of the plain output's max |value|."""
     out = flash_attention(q, k, v)
     ref = flash_attention_plain(q, k, v)
+    err, rel = _rel(out, ref)
+    ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"
+
+
+def by_heads(fn, q, k, v, heads=4):
+    """``fn(q, k, v)`` -> a tuple of (B, H, ...) outputs, run over groups of
+    ``heads`` heads and concatenated along dim 1: a plain twin's (Sq, Skv)
+    f32 scores at FLUX's 2048px S (1.1 GiB a head) held a few heads at a
+    time."""
+    parts = [fn(q[:, i:i + heads], k[:, i:i + heads], v[:, i:i + heads]) for i in range(0, q.shape[1], heads)]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
+def check_flash_denom(q, k, v):
+    """Prescaled q (scale 1): o (B, H, S, D) bf16 within 1e-2 of the plain
+    twin's max |value|, l within 1e-5 relative (f32 sums in another order);
+    and o bit for bit the one-tile kernel's output (the same loop, the logits
+    times exactly 1)."""
+    o, l = flash_attention_denom(q, k, v, scale=1.0)
+    ref_o, ref_l = by_heads(lambda *a: flash_attention_denom_plain(*a, scale=1.0), q, k, v)
+    err, rel = _rel(o, ref_o)
+    l_rel = ((l - ref_l).abs().max() / ref_l.abs().max()).item()
+    b, h, sq, d = q.shape
+    same = torch.equal(o.transpose(1, 2).reshape(b, sq, h * d), flash_attention(q, k, v))
+    ok = (rel <= 1e-2 and l_rel <= 1e-5 and same and o.shape == ref_o.shape and l.shape == ref_l.shape
+          and bool(torch.isfinite(o.float()).all()))
+    return err, ok, (f"o max abs {err:.3e}, rel {rel:.2e} (tol 1e-2); l rel {l_rel:.2e} (tol 1e-5); "
+                     f"o == flash_fixed's: {same}")
+
+
+def ring_shards(q, k, v, n):
+    """The ring attention's arithmetic in one process: the denominator
+    kernel on each of ``n`` contiguous kv shards, combined by
+    ``parallel.sp.combine_shard`` / ``combine_result`` (q prescaled)."""
+    from ..parallel.sp import combine_result, combine_shard
+
+    acc = den = None
+    for ks, vs in zip(k.chunk(n, dim=2), v.chunk(n, dim=2)):
+        acc, den = combine_shard(acc, den, *flash_attention_denom(q, ks.contiguous(), vs.contiguous(), scale=1.0))
+    return combine_result(acc, den, q.dtype)
+
+
+def ring_case(b, h, s, d=128, *, seed=0, device="cuda"):
+    """flash_case's q, k, v with v at an eighth of its scale, so |o| < 0.5:
+    JAX's absolute bound presumes outputs below 1 (its test's are ~0.01).
+    Each shard's o_i is rounded to bf16 before the combine, and the result
+    again: a bf16 step is 2^-9 below 0.5 but 2^-6 at flash_case's |o| of up
+    to ~4, where the peaky logits make o nearly one row of v."""
+    q, k, v = flash_case(b, h, s, s, d, seed=seed, device=device)
+    return q, k, (v.float() * 0.125).to(torch.bfloat16)
+
+
+def check_ring_shards(q, k, v, n):
+    """:func:`ring_shards` against the dense one-tile kernel: within 5e-3
+    absolute (JAX's bound, tests/test_parallel.py) and 1e-2 of its max
+    |value| (the flash checks' bound)."""
+    b, h, sq, d = q.shape
+    out = ring_shards(q, k, v, n).transpose(1, 2).reshape(b, sq, h * d)
+    err, rel = _rel(out, flash_attention(q, k, v))
+    ok = err <= 5e-3 and rel <= 1e-2 and bool(torch.isfinite(out.float()).all())
+    return err, ok, (f"{n} kv shards combined vs dense: max abs {err:.3e} (tol 5e-3), rel {rel:.2e} "
+                     f"(tol 1e-2)")
+
+
+def check_flash_unroll2(q, k, v):
+    """Prescaled q, (B, S, H*D) out, as FLUX calls it: max error <= 1e-2 of
+    the plain twin's max |value|."""
+    out = flash_attention_unroll2(q, k, v, scale=1.0, out_bshd=True)
+    ref = flash_attention_unroll2_plain(q, k, v, 1.0, out_bshd=True)
+    err, rel = _rel(out, ref)
+    ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"
+
+
+def flash_i8_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
+    """flash_case's prescaled q, k, v through quantize_qk -> (q8, qs, k8,
+    ks, v)."""
+    q, k, v = flash_case(b, h, sq, skv, d, seed=seed, device=device)
+    q8, qs, k8, ks = quantize_qk(q, k)
+    return q8, qs, k8, ks, v
+
+
+def check_flash_i8(q8, qs, k8, ks, v):
+    """(B, S, H*D) out, as FLUX calls it: max error <= 1e-2 of the plain
+    twin's max |value| (the twin's int8 products are exact in f32)."""
+    out = flash_attention_i8(q8, qs, k8, ks, v, out_bshd=True)
+    ref = flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd=True)
     err, rel = _rel(out, ref)
     ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"

@@ -19,7 +19,8 @@ from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransform
 from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
 from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
-from nunchaku_tpu_torch.ops.attention import block_sparse_attention, flash_attention, flash_attention_online
+from nunchaku_tpu_torch.ops.attention import (block_sparse_attention, flash_attention, flash_attention_denom,
+                                              flash_attention_denom_plain, flash_attention_online, quantize_qk)
 from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a4, gemm_w4a8, gemm_w4a8_grouped, gemm_w8a8_grouped,
                                          gemm_w8a8_rank1, svdq_gemm_w4a4, svdq_gemm_w4a8_gelu_quant,
                                          svdq_gemm_w8a8_gelu_quant)
@@ -112,6 +113,72 @@ def test_grouped(dev, m, k, n, groups):
 @pytest.mark.parametrize("b,h,sq,skv", [(1, 24, 4608, 4608), (2, 2, 200, 333), (1, 3, 77, 65)])
 def test_flash(dev, b, h, sq, skv):
     _, ok, detail = checks.check_flash(*checks.flash_case(b, h, sq, skv, device=dev))
+    assert ok, detail
+
+
+FIXED_FORM_SHAPES = [(1, 24, 4608, 4608), (2, 2, 200, 333), (1, 3, 77, 65), (1, 2, 100, 129)]
+
+
+@pytest.mark.parametrize("b,h,sq,skv", FIXED_FORM_SHAPES + [(1, 24, 16896, 16896)])
+def test_flash_denom(dev, b, h, sq, skv):
+    """The denominator form at FLUX's 1024px and 2048px joint sequences and
+    ragged ones: o within 1e-2, l within 1e-5 relative of the plain twin, o
+    bit for bit the one-tile kernel's; one flash_fixed_denom launch."""
+    q, k, v = checks.flash_case(b, h, sq, skv, device=dev)
+    reset_launch_counts()
+    o, _ = flash_attention_denom(q, k, v, scale=1.0)
+    assert launch_counts()["flash_fixed_denom"] == 1 and launch_counts()["flash_fixed"] == 0
+    _, ok, detail = checks.check_flash_denom(q, k, v)
+    assert ok, detail
+
+
+def test_flash_denom_scaled(dev):
+    """``scale`` None (1/sqrt(D) on an unscaled q) against the twin; the
+    kv mask and the (B, S, H*D) output refused."""
+    q, k, v = checks.flash_online_case(2, 2, 200, 333, 128, device=dev)
+    o, l = flash_attention_denom(q, k, v)
+    ro, rl = flash_attention_denom_plain(q, k, v)
+    assert (o.float() - ro.float()).abs().max() <= 1e-2 * ro.float().abs().max()
+    assert ((l - rl).abs().max() / rl.abs().max()).item() <= 1e-5
+    with pytest.raises(ValueError):
+        flash_attention_denom(q, k, v, kv_mask=torch.ones((2, 333), dtype=torch.bool, device=dev))
+    with pytest.raises(ValueError):
+        flash_attention_denom(q, k, v, out_bshd=True)
+
+
+@pytest.mark.parametrize("b,h,sq,skv", FIXED_FORM_SHAPES)
+def test_flash_unroll2(dev, b, h, sq, skv):
+    """The two-tile form (Skv 65, 129, 333: the last step's second tile cut
+    or empty); ``flash_attention(kv_unroll=2)`` takes it without a mask and
+    the masked one-tile kernel with one."""
+    q, k, v = checks.flash_case(b, h, sq, skv, device=dev)
+    _, ok, detail = checks.check_flash_unroll2(q, k, v)
+    assert ok, detail
+    reset_launch_counts()
+    flash_attention(q, k, v, kv_unroll=2)
+    flash_attention(q, k, v, torch.ones((b, skv), dtype=torch.bool, device=dev), kv_unroll=2)
+    c = launch_counts()
+    assert c["flash_fixed_unroll2"] == 1 and c["flash_fixed_masked"] == 1 and c["flash_fixed"] == 0
+
+
+@pytest.mark.parametrize("b,h,sq,skv", FIXED_FORM_SHAPES)
+def test_flash_i8(dev, b, h, sq, skv):
+    _, ok, detail = checks.check_flash_i8(*checks.flash_i8_case(b, h, sq, skv, device=dev))
+    assert ok, detail
+
+
+def test_quantize_qk_card_equals_cpu(dev):
+    """quantize_qk's codes and scales on the card bit for bit the CPU's."""
+    q, k, _ = checks.flash_case(1, 4, 300, 300, device=dev)
+    for a, b in zip(quantize_qk(q, k), quantize_qk(q.cpu(), k.cpu())):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("b,h,s,n", [(1, 24, 16896, 4), (1, 2, 1000, 4), (2, 2, 384, 3)])
+def test_ring_shards(dev, b, h, s, n):
+    """The ring's arithmetic in one process (the denominator kernel on n kv
+    shards, parallel.sp's combine) against the dense kernel."""
+    _, ok, detail = checks.check_ring_shards(*checks.ring_case(b, h, s, device=dev), n)
     assert ok, detail
 
 
