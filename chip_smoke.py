@@ -49,7 +49,19 @@ Phases, each fatal on failure:
                   the one-tile kernel's), its two-tile and int8 forms at S 4608,
                   and the ring's combine of the denominator kernel over 4 kv
                   shards in one process against the dense kernel (5e-3
-                  absolute);
+                  absolute); the four op-level kernels no model path calls:
+                  the dual LN producer at FLUX's single block (S 4608, K 3072,
+                  R 32 + 32), each head bit for bit a row-6 launch, beside the
+                  two row-6 launches' time, F.layer_norm as yardstick;
+                  qkv_prepare (S 4608, H 24) bit for bit the qkv producer
+                  without low-rank operands, beside its time; token-major
+                  flash (B 1, S 4608, H 24, D 128) within 1e-2 of its twin at
+                  the kernel's tile and bit for bit the online kernel on the
+                  transposed tensors, beside that kernel plus the transposed
+                  copies, SDPA on the transposed views as yardstick; the
+                  pipelined chain producer at fc1 (R 32; R 128 logged) bit for
+                  bit the ordinary producer kernel, beside its time,
+                  torch._int_mm as yardstick;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -209,6 +221,14 @@ Phases, each fatal on failure:
                   attn_kv_unroll = 2 (flash_fixed_unroll2 57) and attn_int8
                   (flash_fixed_i8 57), their distance from the default forward
                   within ATTN_TOL.
+ 15. last-ops -- the path to the four op-level kernels, their public entry
+                  points (ln_mod_quant_int8_dual, svdq_gemm_w8a8_gelu_quant(...,
+                  pipelined=True), qkv_prepare, flash_attention_bshd) chained as
+                  a FLUX.1-dev single block's pieces meet, at full width (S
+                  4608, dim 3072, 24 heads, fc1 12288, random int8 linears):
+                  one launch of each, both ends within 2e-2 of the twins' chain.
+                  Every earlier phase's count check reads 0 launches of these
+                  four kernels (no model path changed).
 FLUX and Qwen-Image hold their blocks as stacks, so their 4-bit GEMMs and
 dequants count under the stacked modes' names (mode + "_stacked"); a kernel
 row counts every launch of its mode, a *_stacked row the stacked ones alone
@@ -712,6 +732,7 @@ def kernel_phase(dev):
     zimage_kernel_rows(dev, record, failed)
     flux_int8_kernel_rows(dev, record, failed)
     fixed_form_kernel_rows(dev, record, failed)
+    last_op_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -2482,6 +2503,101 @@ def fixed_form_kernel_rows(dev, record, failed):
     torch.cuda.empty_cache()
 
 
+def dual_bytes(m, k, r1, r2):
+    # x bf16 once, mod scale + shift f32, two smooths and proj_downs -> two (q int8, ascale, lora_act)
+    return 2 * m * k + 8 * k + 4 * k + 2 * k * (r1 + r2) + 2 * (m * k + 4 * m) + 4 * m * (r1 + r2)
+
+
+def last_op_kernel_rows(dev, record, failed):
+    """21-24. The four op-level entry points no model path calls (nor does
+    JAX's): the dual LN producer at FLUX.1-dev's single block (B 1, S 4608,
+    K 3072, the qkv and fc1 heads at R 32), each head bit for bit a row-6
+    launch, beside the two row-6 launches' summed time; qkv_prepare at S
+    4608, H 24, bit for bit row 7 without low-rank operands, beside row 7's
+    time; token-major flash at B 1, S 4608, H 24, D 128, bit for bit row 5's
+    kernel on the transposed tensors, beside that kernel plus the two
+    transposes' copies, SDPA on the transposed views as yardstick; the
+    pipelined chain producer at fc1 (M 4608, K 3072, N 12288, R 32; R 128
+    logged), bit for bit row 2's kernel, beside row 2's time, torch._int_mm
+    of the product as yardstick."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import (ONLINE_BKV, flash_attention_bshd, flash_attention_bshd_plain,
+                                                  flash_attention_online, qkv_prepare, qkv_prepare_plain,
+                                                  qkv_rope_producer)
+    from nunchaku_tpu_torch.ops.gemm import svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain
+    from nunchaku_tpu_torch.ops.quantize import (ln_mod_quant_int8, ln_mod_quant_int8_dual,
+                                                 ln_mod_quant_int8_dual_plain)
+    from nunchaku_tpu_torch.ops.reference import int8_matmul
+
+    s = m = S_IMG + S_TXT
+    args = checks.ln_dual_case(1, m, DIM, RANK, RANK, device=dev)
+    err, ok, detail = checks.check_ln_dual(*args)
+    x, sc, sh, sma, pda, smb, pdb = args
+    ms = cuda_ms(lambda: ln_mod_quant_int8_dual(*args), 50)
+    two = cuda_ms(lambda: (ln_mod_quant_int8(x, sc, sh, sma, pda), ln_mod_quant_int8(x, sc, sh, smb, pdb)), 50)
+    log(f"[kernel] ln_mod_quant_dual: {ms:.4f} ms against two row-6 launches {two:.4f} ms")
+    record("ln_mod_quant_dual", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu", "nunchaku_tpu/ops/quantize.py:265",
+           f"B=1 S={m} K={DIM} R={RANK}+{RANK}", ok, err, detail, ms,
+           cuda_ms(lambda: ln_mod_quant_int8_dual_plain(*args), 5),
+           bound(dual_bytes(m, DIM, RANK, RANK), bf16_ops=2 * m * DIM * 2 * RANK),
+           cuda_ms(lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6), 50))
+    del args, x, sc, sh, sma, pda, smb, pdb
+
+    streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, 0, device=dev)
+    qkv, nq, nk = streams[0][:3]
+    q_scale = 1.4426950408889634 / math.sqrt(HD)
+    err, ok, detail = checks.check_qkv_prepare(qkv, cos, sin, nq, nk, HEADS, q_scale)
+    ms = cuda_ms(lambda: qkv_prepare(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD, q_scale=q_scale), 50)
+    row7 = cuda_ms(lambda: qkv_rope_producer(qkv, cos, sin, nq, nk, q_scale=q_scale), 50)
+    log(f"[kernel] qkv_prepare: {ms:.4f} ms against row 7's kernel without low-rank operands {row7:.4f} ms")
+    record("qkv_prepare", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu", "nunchaku_tpu/ops/attention.py:51",
+           f"B=1 S={s} H={HEADS} D={HD}", ok, err, detail, ms,
+           cuda_ms(lambda: qkv_prepare_plain(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD, q_scale=q_scale), 5),
+           bound(rope_bytes(s, r=0)), None)
+    del streams, cos, sin, qkv, nq, nk
+
+    q, k, v = checks.flash_bshd_case(1, HEADS, s, s, HD, device=dev)
+    err, ok, detail = checks.check_flash_bshd(q, k, v)
+    ms = cuda_ms(lambda: flash_attention_bshd(q, k, v), 20)
+    relayout = cuda_ms(lambda: flash_attention_online(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+                                                      out_bshd=True), 20)
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    log(f"[kernel] flash_online_bshd: {ms:.4f} ms against row 5's kernel plus the transposed copies of q, k, v "
+        f"{relayout:.4f} ms")
+    record("flash_online_bshd", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:927",
+           f"B=1 S={s} H={HEADS} D={HD}, token-major", ok, err, detail, ms,
+           cuda_ms(lambda: flash_attention_bshd_plain(q, k, v, bkv=ONLINE_BKV), 1, warmup=1),
+           bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS),
+           cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*views), 20))
+    del q, k, v, views
+    torch.cuda.empty_cache()
+
+    n = HID
+    for r in (RANK, 128):
+        args = checks.gelu_quant_case(m, DIM, n, r, device=dev)
+        err, ok, detail = checks.check_gelu_quant_pipe(*args)
+        ms = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args, pipelined=True), 20)
+        row2 = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args), 20)
+        bnd = bound(gemm_bytes(m, DIM, n, r, m * n + 4 * (n // 1536) * m + 4 * m * r) + 4 * n + 2 * n * r,
+                    2 * m * n * DIM, 4 * m * n * r)
+        shape = f"M={m} K={DIM} N={n} R={r}"
+        log(f"[kernel] gemm_w8a8_gelu_quant_pipe @ {shape}: {ms:.4f} ms against row 2's kernel {row2:.4f} ms")
+        if r == RANK:
+            qa, w = args[0], args[2]
+            record("gemm_w8a8_gelu_quant_pipe", "nunchaku_tpu_torch/csrc/gemm_w8a8_gelu_quant_pipe.cu",
+                   "nunchaku_tpu/ops/gemm.py:790", shape + ", pipelined=True", ok, err, detail, ms,
+                   cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3), bnd,
+                   cuda_ms(lambda: int8_matmul(qa, w), 20))
+            del qa, w
+        else:
+            log(f"[kernel] gemm_w8a8_gelu_quant_pipe @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; bound "
+                f"{bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound")
+            if not ok:
+                failed.append("gemm_w8a8_gelu_quant_pipe@R128")
+        del args
+    torch.cuda.empty_cache()
+
+
 def sp_phase(dev, steps: int):
     """[sp] Sequence parallelism on one rank of an NCCL process group
     (init_method file://, world size 1: the script needs one card;
@@ -2669,6 +2785,94 @@ def flux_attn_phase(dev):
     del model, outs
     torch.cuda.empty_cache()
     return ok, total, paths
+
+
+def int8_linear(k, n, r, seed, dev):
+    """A random int8 SVDQ linear (K, N) of rank r as the chain and the
+    standalone int8 GEMM take it: the (K, N) weight K-contiguous, (1, N)
+    scales that bring int8 products of O(1) activations to O(1), bf16 smooth,
+    low-rank factors and bias."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return dict(qweight=torch.randint(-127, 128, (n, k), dtype=torch.int8, device=dev, generator=g).t(),
+                wscales=(torch.rand((1, n), device=dev, generator=g) + 0.5) / (73.0 * math.sqrt(k)),
+                smooth=(torch.rand((k,), device=dev, generator=g) * 1.5 + 0.5).to(torch.bfloat16),
+                proj_down=(torch.randn((k, r), device=dev, generator=g) * 0.02).to(torch.bfloat16),
+                proj_up=(torch.randn((r, n), device=dev, generator=g) * 0.02).to(torch.bfloat16),
+                bias=(torch.randn((n,), device=dev, generator=g) * 0.02).to(torch.bfloat16))
+
+
+def last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk, plain=False):
+    """The four entry points chained as a FLUX.1-dev single block's pieces
+    meet (tests/test_torch_last_ops.py's chain at full width): the dual
+    producer gives the qkv and fc1 activations; fc1 through the pipelined
+    chain producer into the grouped int8 consumer (fc2); the qkv product
+    through qkv_prepare, token-major, into flash_attention_bshd. ``plain``:
+    the four twins instead. -> (mlp (M, DIM), attention (1, S, H, D))."""
+    from nunchaku_tpu_torch.ops import attention, gemm, quantize
+
+    to_qkv, fc1, fc2 = lin
+    b, s, _ = x.shape
+    dual = quantize.ln_mod_quant_int8_dual_plain if plain else quantize.ln_mod_quant_int8_dual
+    (qa, sa, laa), (qb, sb, lab) = dual(x, sc, sh, to_qkv["smooth"], to_qkv["proj_down"], fc1["smooth"],
+                                        fc1["proj_down"])
+    rsm = 1.0 / fc2["smooth"].float()
+    chain = (gemm.svdq_gemm_w8a8_gelu_quant_plain if plain
+             else lambda *a: gemm.svdq_gemm_w8a8_gelu_quant(*a, pipelined=True))
+    qout, qs, la2 = chain(qb, sb, fc1["qweight"], fc1["wscales"], lab, fc1["proj_up"], fc1["bias"], rsm,
+                          fc2["proj_down"])
+    mlp = gemm.svdq_gemm_w4a4(qout, qs, fc2["qweight"], fc2["wscales"], la2, fc2["proj_up"], fc2["bias"],
+                              precision="int8")
+    qkv = gemm.svdq_gemm_w4a4(qa, sa, to_qkv["qweight"], to_qkv["wscales"], laa, to_qkv["proj_up"], to_qkv["bias"],
+                              precision="int8").reshape(b, s, -1)
+    prep = attention.qkv_prepare_plain if plain else attention.qkv_prepare
+    q, k, v = (t.transpose(1, 2).contiguous() for t in prep(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD))
+    if plain:
+        return mlp, attention.flash_attention_bshd_plain(q, k, v, bkv=attention.ONLINE_BKV)
+    return mlp, attention.flash_attention_bshd(q, k, v)
+
+
+def last_ops_phase(dev):
+    """[last-ops] The path that reaches the four op-level kernels no model
+    path calls (nor does the JAX package's): their public entry points,
+    chained at FLUX.1-dev's single block at full width (B 1, S 4608, dim
+    3072, 24 heads of 128, fc1 12288, R 32, random int8 linears), counts set
+    to 0 just before and read just after: one launch each of
+    ln_mod_quant_dual, gemm_w8a8_gelu_quant_pipe, qkv_prepare and
+    flash_online_bshd, besides the grouped consumer's (the standalone qkv
+    product is torch._int_mm). Both ends finite, of their shapes, and within
+    2e-2 relative of the same chain through the plain twins on the card.
+    -> (ok, counts)."""
+    from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
+
+    s = S_IMG + S_TXT
+    lin = (int8_linear(DIM, 3 * DIM, RANK, 1, dev), int8_linear(DIM, HID, RANK, 2, dev),
+           int8_linear(HID, DIM, RANK, 3, dev))
+    x, sc, sh, *_ = checks.ln_mod_quant_case(1, s, DIM, RANK, device=dev)
+    streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, 0, device=dev)
+    nq, nk = streams[0][1:3]
+    del streams
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t = time.perf_counter()
+        mlp, att = last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk)
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t
+        counts = launch_counts()
+        mlp_p, att_p = last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk, plain=True)
+    want = {"ln_mod_quant_dual": 1, "gemm_w8a8_gelu_quant_pipe": 1, "gemm_w8a8_grouped": 1, "qkv_prepare": 1,
+            "flash_online_bshd": 1}
+    ok = check_counts("entry-point chain", counts, want, 1, tag="last-ops")
+    for name, out, ref, shape in (("mlp", mlp, mlp_p, (s, DIM)), ("attention", att, att_p, (1, s, HEADS, HD))):
+        rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        good = tuple(out.shape) == shape and bool(torch.isfinite(out.float()).all()) and rel <= 2e-2
+        log(f"[last-ops] {name} {tuple(out.shape)}: rel max distance from the twins' chain {rel:.3e} (tolerance "
+            f"2e-2), finite: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    log(f"[last-ops] the chain at S {s}: {took:.4f} s (first use)")
+    del lin, x, sc, sh, cos, sin, mlp, att, mlp_p, att_p
+    torch.cuda.empty_cache()
+    return ok, counts
 
 
 def zimage_per_forward(mode: str | None, fused: bool = False, blocks: int = ZI_BLOCKS) -> dict:
@@ -3279,9 +3483,10 @@ def main(argv=None) -> int:
     zi_ok, zicounts, zipaths = zimage_phase(dev, args.steps)
     sp_ok, spcounts, sppaths = sp_phase(dev, args.steps)
     fa_ok, facounts, fapaths = flux_attn_phase(dev)
+    lo_ok, locounts = last_ops_phase(dev)
     counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
               + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) + spcounts.get(k, 0) + facounts.get(k, 0)
-              for k in counts}
+              + locounts[k] for k in counts}
     for name, row in rows.items():
         row["launches"] = row_launches(name, counts)
     for name, b in per_forward_bounds(cfg).items():
@@ -3321,7 +3526,7 @@ def main(argv=None) -> int:
     for name, per in (cpaths | cqpaths).items():
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
-    ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok
+    ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok and lo_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -3330,7 +3535,8 @@ def main(argv=None) -> int:
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
-        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, sp {verdict(sp_ok)}, flux-attn {verdict(fa_ok)}")
+        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, sp {verdict(sp_ok)}, flux-attn {verdict(fa_ok)}, "
+        f"last-ops {verdict(lo_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -76,6 +76,15 @@
 // first tile of a row always holds valid columns (a block starts below Skv),
 // so the running max starts from a real logit; the tail block's tiles past
 // Skv are not visited.
+//
+// The token-major form (TOK = true, built at D = 128) replaces
+// _flash_kernel_bshd (:927, launched by flash_attention_bshd :848): q, k, v
+// and the output are (B, S, H, D), and the block reads its head's rows with
+// a row stride of H * D (the cp.async copies take 16-byte pieces of each
+// 256-byte head row wherever it lies), so neither side needs a transposed
+// copy in device memory. The loop is the dense one above: a 32-column kv
+// tile per rescale where the TPU kernel takes 1536, and the JAX kernel's
+// logit factor scale * log2(e) is the wrapper's scale_log2.
 #include "mma.cuh"
 #include "sparse_walk.cuh"
 
@@ -100,16 +109,17 @@ struct OnlineSmem {
   float xs[WARPS][BKV / 2][32];  // partial logits: [warp][fragment value][lane]
 };
 
-// rows [row0, row0 + rows) of a (nrows, D) matrix into a tile; rows past
-// the end are zero-filled without being read
+// rows [row0, row0 + rows) of a (nrows, D) matrix whose rows lie ld
+// elements apart into a tile; rows past the end are zero-filled without
+// being read
 template <int D>
 __device__ __forceinline__ void load_rows(bf16 (*dst)[D + 8], const bf16* src, int row0, int rows,
-                                          int nrows) {
+                                          int nrows, size_t ld) {
   for (int c = threadIdx.x; c < rows * (D / 8); c += THREADS) {
     const int r = c / (D / 8), cc = c % (D / 8);
     const int row = row0 + r;
     const bool ok = static_cast<unsigned>(row) < static_cast<unsigned>(nrows);
-    cp_async16(&dst[r][cc * 8], src + static_cast<size_t>(ok ? row : 0) * D + cc * 8, ok);
+    cp_async16(&dst[r][cc * 8], src + static_cast<size_t>(ok ? row : 0) * ld + cc * 8, ok);
   }
 }
 
@@ -126,7 +136,7 @@ __device__ __forceinline__ float bf16_exp2(float x) {  // bf16(exp2(bf16(x)))
   return bf2f(__float2bfloat16_rn(exp2f(bf2f(__float2bfloat16_rn(x)))));
 }
 
-template <int D, bool MASK, bool IDX>
+template <int D, bool MASK, bool IDX, bool TOK>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const float* __restrict__ mask,
@@ -144,15 +154,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int ks = (warp >> 2 ? H1 : H0) / 16;        // this half's k16 steps (n16 pairs of p . v)
   const int g = lane >> 2, t4 = lane & 3;           // mma fragment row group / column pair
   const int mi = lane >> 3, mr = lane & 7;          // ldmatrix: which 8x8 matrix, which of its rows
-  const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
-  const bf16* kp = k + static_cast<size_t>(bh) * Skv * D;
-  const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
+  // (B, H, S, D): a head's rows D apart from (b, h, 0); token-major (B, S, H, D): H * D apart from (b, 0, h)
+  const size_t ld_in = TOK ? static_cast<size_t>(H) * D : D;
+  const bf16* qp = q + (TOK ? (static_cast<size_t>(b) * Sq * H + h) * D : static_cast<size_t>(bh) * Sq * D);
+  const bf16* kp = k + (TOK ? (static_cast<size_t>(b) * Skv * H + h) * D : static_cast<size_t>(bh) * Skv * D);
+  const bf16* vp = v + (TOK ? (static_cast<size_t>(b) * Skv * H + h) * D : static_cast<size_t>(bh) * Skv * D);
   const float* mp = MASK ? mask + static_cast<size_t>(b) * Skv : nullptr;
   const KvWalk<IDX, BKV> walk(sp, bh, q0, Skv);
 
-  load_rows<D>(sm.q, qp, q0, BQ, Sq);
-  load_rows<D>(sm.k[0], kp, walk.start(0), BKV, Skv);
-  load_rows<D>(sm.v[0], vp, walk.start(0), BKV, Skv);
+  load_rows<D>(sm.q, qp, q0, BQ, Sq, ld_in);
+  load_rows<D>(sm.k[0], kp, walk.start(0), BKV, Skv, ld_in);
+  load_rows<D>(sm.v[0], vp, walk.start(0), BKV, Skv, ld_in);
   cp_async_commit();
 
   float o[DH / 8][4];
@@ -167,8 +179,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int t = 0; t < nt; ++t) {
     const int st = t & 1;
     if (t + 1 < nt) {
-      load_rows<D>(sm.k[st ^ 1], kp, walk.start(t + 1), BKV, Skv);
-      load_rows<D>(sm.v[st ^ 1], vp, walk.start(t + 1), BKV, Skv);
+      load_rows<D>(sm.k[st ^ 1], kp, walk.start(t + 1), BKV, Skv, ld_in);
+      load_rows<D>(sm.v[st ^ 1], vp, walk.start(t + 1), BKV, Skv, ld_in);
     }
     cp_async_commit();
     cp_async_wait<1>();
@@ -292,20 +304,20 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, bool MASK, bool IDX>
+template <int D, bool MASK, bool IDX, bool TOK = false>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
            int Sq, int Skv, float scale_log2, int bshd, const Sparse& sp, cudaStream_t stream) {
   static_assert(sizeof(OnlineSmem<D>) <= 232448, "shared memory over the H100's 227 KB");
   static bool configured = false;
   const int smem = static_cast<int>(sizeof(OnlineSmem<D>));
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D, MASK, IDX>,
+    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D, MASK, IDX, TOK>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_online_kernel<D, MASK, IDX><<<grid, THREADS, smem, stream>>>(
+  flash_online_kernel<D, MASK, IDX, TOK><<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv, scale_log2, bshd, sp);
   return static_cast<int>(cudaGetLastError());
@@ -345,4 +357,13 @@ extern "C" int nt_bs_online(const void* q, const void* k, const void* v, const v
   const Sparse sp{static_cast<const int*>(idx), nq, kk, bq, bkv, scale_log2};
   return launch<128, false, true>(q, k, v, nullptr, out, B, H, Sq, Skv, scale_log2, bshd, sp,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// Token-major, D = 128: q (B, Sq, H, 128), k/v (B, Skv, H, 128) bf16 -> out
+// (B, Sq, H, 128) bf16; scale_log2 = softmax scale * log2(e), as f32.
+extern "C" int nt_flash_online_bshd(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq,
+                                    int Skv, float scale_log2, void* stream) {
+  const Sparse dense{nullptr, 0, 0, 0, 0, 1.f};
+  return launch<128, false, false, true>(q, k, v, nullptr, out, B, H, Sq, Skv, scale_log2, 1, dense,
+                                         static_cast<cudaStream_t>(stream));
 }

@@ -159,13 +159,19 @@ struct WeightW4 {
   }
 };
 
+// The main loop's barrier: the whole block, or (the pipelined producer) a
+// named barrier over the THREADS threads that run the main loop.
+struct BlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
 // acc += qa[m0:m0+BM, kb:ke] @ w[kb:ke, n0:n0+BN]; (ke - kb) % BK == 0.
 // st2 is the two-stage ring of the weight's stage type. Returns with every
-// copy landed and the block synchronised, so the caller may reuse the
-// ring's memory right away.
-template <class W>
+// copy landed and the main loop's threads synchronised (by sync), so the
+// caller may reuse the ring's memory right away.
+template <class W, class Sync = BlockSync>
 __device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)[FM][FN], const int8_t* qa,
-                                         const W& w, int m0, int n0, int kb, int ke, int K) {
+                                         const W& w, int m0, int n0, int kb, int ke, int K, Sync sync = Sync()) {
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
   const int tiles = (ke - kb) / BK;
@@ -175,10 +181,10 @@ __device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)
     if (t + 1 < tiles) w.load(st2[(t + 1) & 1], qa, m0, n0, kb + (t + 1) * BK, K);
     cp_async_commit();
     cp_async_wait<1>();
-    __syncthreads();
+    sync();
     if constexpr (W::kDecode) {  // the raw tile -> st.b, seen by every warp before the products
       w.decode(st2[t & 1], kb + t * BK);
-      __syncthreads();
+      sync();
     }
     const Stage& st = st2[t & 1];
 #pragma unroll
@@ -194,10 +200,10 @@ __device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)
 #pragma unroll
         for (int fn = 0; fn < FN; ++fn) wmma::mma_sync(acc[fm][fn], a[fm], b[fn], acc[fm][fn]);
     }
-    __syncthreads();
+    sync();
   }
   cp_async_wait<0>();
-  __syncthreads();
+  sync();
 }
 
 __device__ __forceinline__ void zero(AccFrag (&acc)[FM][FN]) {

@@ -21,6 +21,18 @@
 // warp one eighth of K, proj_down's fragments read from L2) and sum their
 // partials in warp order. The JAX kernel's per-block f32 LN temporaries
 // never leave registers here.
+//
+// Dual mode (DUAL = true): replaces _ln_mod_quant2_kernel (:265, launched by
+// ln_mod_quant_int8_dual :292), FLUX's single block, where one modulated
+// norm feeds both the qkv and the fc1 projection, each with its own smooth
+// factor and proj_down. One read of x and one LayerNorm (the modulation is
+// required, as in JAX); then each head's epilogue is the single mode's: h =
+// y * rsmooth, its absmax, scale and codes, and bf16(y) @ proj_down on the
+// shared y tile. y stays in registers and each head's h is recomputed from
+// it with the same multiply, so every output of a head is bit for bit a
+// single-mode launch with that head's operands. Bound: bytes, one K-wide
+// bf16 read against two int8 writes (4 bytes per element), where two
+// single launches read x twice (6).
 #include <mma.h>
 
 #include "common.cuh"
@@ -50,24 +62,86 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// NV: 16-byte vectors (8 bf16) per lane, K = 256 * NV.
-template <int NV>
+// One head's epilogue operands and outputs (the dual mode's second head).
+struct Head {
+  const bf16* smooth;  // (K,) | null
+  const bf16* pd;      // (K, R) bf16
+  int8_t* q;           // (M, K)
+  float* asc;          // (M,)
+  float* la;           // (M, R)
+  int R;
+};
+
+__device__ __forceinline__ float rsmooth(const bf16* smooth, int k) {
+  const float s = smooth == nullptr ? 1.f : bf2f(smooth[k]);
+  return s == 0.f ? 1.f : __fdiv_rn(1.f, s);
+}
+
+// codes of one 8-element vector: clip(round_half_even(y * r * rc), +-127)
+__device__ __forceinline__ uint2 quant8(const float (&y)[8], const float (&r)[8], float rc) {
+  uint2 packed;
+  signed char* pq = reinterpret_cast<signed char*>(&packed);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    pq[i] = static_cast<signed char>(fminf(fmaxf(rintf(__fmul_rn(__fmul_rn(y[i], r[i]), rc)), -127.f), 127.f));
+  return packed;
+}
+
+// The lora partial of this warp's K slice, ytile[16, kslice] @ pd[kslice, R],
+// into two 16-column accumulators.
+template <int K>
+__device__ __forceinline__ void lora_partial(wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[2],
+                                             const bf16* ytile, const bf16* pd, int R, int warp) {
+  constexpr int KW = K / WARPS, LDY = K + 8;
+  wmma::fill_fragment(acc[0], 0.f);
+  wmma::fill_fragment(acc[1], 0.f);
+  for (int kk = warp * KW; kk < (warp + 1) * KW; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+    wmma::load_matrix_sync(a, ytile + kk, LDY);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      if (j * 16 < R) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
+        wmma::load_matrix_sync(bfr, pd + static_cast<size_t>(kk) * R + j * 16, R);
+        wmma::mma_sync(acc[j], a, bfr, acc[j]);
+      }
+    }
+  }
+}
+
+// Sum the warps' partials (part: [WARPS][ROWS][32]) in warp order into la.
+__device__ __forceinline__ void lora_store(const float* part, float* la, int row0, int M, int R) {
+  for (int t = threadIdx.x; t < ROWS * R; t += THREADS) {
+    const int r = t / R, c = t % R;
+    if (row0 + r >= M) continue;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, part[(w * ROWS + r) * 32 + c]);
+    la[static_cast<size_t>(row0 + r) * R + c] = s;
+  }
+}
+
+// NV: 16-byte vectors (8 bf16) per lane, K = 256 * NV. DUAL: a second head
+// (hb) beside the first, the modulation required.
+template <int NV, bool DUAL>
 __global__ void __launch_bounds__(THREADS)
     ln_mod_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ sc,
                         const float* __restrict__ sh, int ld, const bf16* __restrict__ smooth,
                         const bf16* __restrict__ pd, int8_t* __restrict__ q, float* __restrict__ asc,
-                        float* __restrict__ la, int M, int S, int R) {
+                        float* __restrict__ la, int M, int S, int R, Head hb) {
   constexpr int K = 256 * NV, LDY = K + 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ytile = reinterpret_cast<bf16*>(smem_raw);                                    // [ROWS][LDY]
   float* rsm = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * ROWS * LDY);         // [K]
+  float* rsm_b = rsm + K;                            // [K], the second head's (DUAL)
   float* part = reinterpret_cast<float*>(smem_raw);  // [WARPS][ROWS][32], after the product
+  float* part_b = part + WARPS * ROWS * 32;          // the second head's (DUAL)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * ROWS;
 
   for (int k = threadIdx.x; k < K; k += THREADS) {
-    const float s = smooth == nullptr ? 1.f : bf2f(smooth[k]);
-    rsm[k] = s == 0.f ? 1.f : __fdiv_rn(1.f, s);
+    rsm[k] = rsmooth(smooth, k);
+    if constexpr (DUAL) rsm_b[k] = rsmooth(hb.smooth, k);
   }
   __syncthreads();
 
@@ -101,6 +175,47 @@ __global__ void __launch_bounds__(THREADS)
       }
     const float rstd = __frsqrt_rn(__fadd_rn(__fdiv_rn(warp_sum(s2), static_cast<float>(K)), EPS));
     const int b = row / S;
+    if constexpr (DUAL) {
+      float amax = 0.f, amax_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int k0 = (lane + 32 * j) * 8;
+        float a[8], c[8], r[8], rb[8];
+        load8(a, sc + static_cast<size_t>(b) * ld + k0);
+        load8(c, sh + static_cast<size_t>(b) * ld + k0);
+        load8(r, rsm + k0);
+        load8(rb, rsm_b + k0);
+        uint4 packed;
+        bf16* pb = reinterpret_cast<bf16*>(&packed);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float y = __fmaf_rn(__fmul_rn(v[j][i], rstd), __fadd_rn(1.f, a[i]), c[i]);
+          pb[i] = __float2bfloat16(y);
+          v[j][i] = y;  // y itself: each head's h is y * rsmooth, recomputed below
+          amax = fmaxf(amax, fabsf(__fmul_rn(y, r[i])));
+          amax_b = fmaxf(amax_b, fabsf(__fmul_rn(y, rb[i])));
+        }
+        *reinterpret_cast<uint4*>(yrow + k0) = packed;
+      }
+      const float scale = __fmul_rn(warp_max(amax), 1.0f / 127.0f);
+      const float scale_b = __fmul_rn(warp_max(amax_b), 1.0f / 127.0f);
+      const float rc = scale == 0.f ? 0.f : __fdiv_rn(1.f, scale);
+      const float rc_b = scale_b == 0.f ? 0.f : __fdiv_rn(1.f, scale_b);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const int k0 = (lane + 32 * j) * 8;
+        float r[8];
+        load8(r, rsm + k0);
+        *reinterpret_cast<uint2*>(q + static_cast<size_t>(row) * K + k0) = quant8(v[j], r, rc);
+        load8(r, rsm_b + k0);
+        *reinterpret_cast<uint2*>(hb.q + static_cast<size_t>(row) * K + k0) = quant8(v[j], r, rc_b);
+      }
+      if (lane == 0) {
+        asc[row] = scale;
+        hb.asc[row] = scale_b;
+      }
+      continue;
+    }
     float amax = 0.f;
 #pragma unroll
     for (int j = 0; j < NV; ++j) {
@@ -139,57 +254,43 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
 
   // lora partial of this warp's K slice: ytile[16, kslice] @ pd[kslice, R]
-  constexpr int KW = K / WARPS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  for (int kk = warp * KW; kk < (warp + 1) * KW; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-    wmma::load_matrix_sync(a, ytile + kk, LDY);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      if (j * 16 < R) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, pd + static_cast<size_t>(kk) * R + j * 16, R);
-        wmma::mma_sync(acc[j], a, bfr, acc[j]);
-      }
-    }
-  }
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2], acc_b[2];
+  lora_partial<K>(acc, ytile, pd, R, warp);
+  if constexpr (DUAL) lora_partial<K>(acc_b, ytile, hb.pd, hb.R, warp);
   __syncthreads();  // the y tile is read; its memory now takes the partials
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < 2; ++j) {
     if (j * 16 < R) wmma::store_matrix_sync(part + warp * ROWS * 32 + j * 16, acc[j], 32, wmma::mem_row_major);
-  __syncthreads();
-  for (int t = threadIdx.x; t < ROWS * R; t += THREADS) {
-    const int r = t / R, c = t % R;
-    if (row0 + r >= M) continue;
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, part[(w * ROWS + r) * 32 + c]);
-    la[static_cast<size_t>(row0 + r) * R + c] = s;
+    if (DUAL && j * 16 < hb.R)
+      wmma::store_matrix_sync(part_b + warp * ROWS * 32 + j * 16, acc_b[j], 32, wmma::mem_row_major);
   }
+  __syncthreads();
+  lora_store(part, la, row0, M, R);
+  if constexpr (DUAL) lora_store(part_b, hb.la, row0, M, hb.R);
 }
 
-template <int NV>
+template <int NV, bool DUAL>
 int launch(const void* x, const void* sc, const void* sh, int ld, const void* smooth, const void* pd,
-           void* q, void* asc, void* la, int M, int S, int R, cudaStream_t stream) {
-  constexpr int K = 256 * NV;
-  const size_t tile = sizeof(bf16) * ROWS * (K + 8) + sizeof(float) * K;
-  const size_t part = sizeof(float) * WARPS * ROWS * 32;
+           void* q, void* asc, void* la, int M, int S, int R, const Head& hb, cudaStream_t stream) {
+  constexpr int K = 256 * NV, HEADS = DUAL ? 2 : 1;
+  const size_t tile = sizeof(bf16) * ROWS * (K + 8) + sizeof(float) * K * HEADS;
+  const size_t part = sizeof(float) * WARPS * ROWS * 32 * HEADS;
   const int smem = static_cast<int>(tile > part ? tile : part);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(ln_mod_quant_kernel<NV>,
+    cudaError_t e = cudaFuncSetAttribute(ln_mod_quant_kernel<NV, DUAL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  ln_mod_quant_kernel<NV><<<(M + ROWS - 1) / ROWS, THREADS, smem, stream>>>(
+  ln_mod_quant_kernel<NV, DUAL><<<(M + ROWS - 1) / ROWS, THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(sc), static_cast<const float*>(sh), ld,
       static_cast<const bf16*>(smooth), static_cast<const bf16*>(pd), static_cast<int8_t*>(q),
-      static_cast<float*>(asc), static_cast<float*>(la), M, S, R);
+      static_cast<float*>(asc), static_cast<float*>(la), M, S, R, hb);
   return static_cast<int>(cudaGetLastError());
 }
+
+bool rank_ok(int R) { return R == 16 || R == 32; }
 
 }  // namespace
 
@@ -202,14 +303,41 @@ extern "C" int nt_ln_mod_quant(const void* x, const void* mod_scale, const void*
                                const void* smooth, const void* proj_down, void* q, void* ascales,
                                void* lora_act, int M, int S, int K, int R, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K % 256 != 0 || (R != 16 && R != 32)) return static_cast<int>(cudaErrorInvalidValue);
+  if (K % 256 != 0 || !rank_ok(R)) return static_cast<int>(cudaErrorInvalidValue);
+  const Head none{};
   switch (K / 256) {
 #define NT_LNQ_CASE(nv) \
   case nv:              \
-    return launch<nv>(x, mod_scale, mod_shift, ld, smooth, proj_down, q, ascales, lora_act, M, S, R, s);
+    return launch<nv, false>(x, mod_scale, mod_shift, ld, smooth, proj_down, q, ascales, lora_act, M, S, R, none, s);
     NT_LNQ_CASE(1) NT_LNQ_CASE(2) NT_LNQ_CASE(3) NT_LNQ_CASE(4) NT_LNQ_CASE(5) NT_LNQ_CASE(6)
     NT_LNQ_CASE(7) NT_LNQ_CASE(8) NT_LNQ_CASE(9) NT_LNQ_CASE(10) NT_LNQ_CASE(11) NT_LNQ_CASE(12)
 #undef NT_LNQ_CASE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dual mode: x and the modulation as above (both required), then two
+// heads, each smooth (K,) bf16 | null and proj_down (K, R) bf16 -> q (M, K)
+// int8, ascales (M,) f32, lora_act (M, R) f32. Needs K % 256 == 0, K <= 3072,
+// each R in {16, 32}.
+extern "C" int nt_ln_mod_quant_dual(const void* x, const void* mod_scale, const void* mod_shift, int ld,
+                                    const void* smooth_a, const void* proj_down_a, void* q_a, void* ascales_a,
+                                    void* lora_a, const void* smooth_b, const void* proj_down_b, void* q_b,
+                                    void* ascales_b, void* lora_b, int M, int S, int K, int Ra, int Rb,
+                                    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K % 256 != 0 || !rank_ok(Ra) || !rank_ok(Rb) || mod_scale == nullptr || mod_shift == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Head hb{static_cast<const bf16*>(smooth_b), static_cast<const bf16*>(proj_down_b),
+                static_cast<int8_t*>(q_b), static_cast<float*>(ascales_b), static_cast<float*>(lora_b), Rb};
+  switch (K / 256) {
+#define NT_LNQ2_CASE(nv) \
+  case nv:               \
+    return launch<nv, true>(x, mod_scale, mod_shift, ld, smooth_a, proj_down_a, q_a, ascales_a, lora_a, M, S, Ra, hb, s);
+    NT_LNQ2_CASE(1) NT_LNQ2_CASE(2) NT_LNQ2_CASE(3) NT_LNQ2_CASE(4) NT_LNQ2_CASE(5) NT_LNQ2_CASE(6)
+    NT_LNQ2_CASE(7) NT_LNQ2_CASE(8) NT_LNQ2_CASE(9) NT_LNQ2_CASE(10) NT_LNQ2_CASE(11) NT_LNQ2_CASE(12)
+#undef NT_LNQ2_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -20,6 +20,13 @@
 // time: each lane holds 4 of the 128 channels (8-byte loads and stores, a
 // token's head row is one 256-byte segment), the RMS sum is a warp
 // shuffle, and roll(a, 64) is a shuffle with lane ^ 16.
+//
+// Prepare mode (PREP = true): replaces _qkv_prepare_kernel (:51, launched
+// by qkv_prepare :87), the producer without the low-rank term: R = 0 at
+// compile time, no shared memory, q, k, v written whole (S_out = S, row
+// offset 0), and the RMSNorm's eps an argument. Its arithmetic is the
+// producer's with R = 0 step for step, so the two give the same outputs
+// bit for bit; JAX pads S to 128 rows, this kernel masks the ragged tile.
 #include <mma.h>
 
 #include "common.cuh"
@@ -53,14 +60,17 @@ __device__ __forceinline__ void store4(bf16* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+template <bool PREP>
 __global__ void __launch_bounds__(THREADS)
     qkv_rope_kernel(const bf16* __restrict__ qkv, const float* __restrict__ cosr,
                     const float* __restrict__ sinr, const bf16* __restrict__ nq,
                     const bf16* __restrict__ nk, const float* __restrict__ la,
                     const bf16* __restrict__ pu, bf16* __restrict__ qo, bf16* __restrict__ ko,
-                    bf16* __restrict__ vo, int S, int H, int S_out, int off, int R, float q_scale) {
+                    bf16* __restrict__ vo, int S, int H, int S_out, int off, int R_arg, float q_scale,
+                    float eps) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int R = PREP ? 0 : R_arg;
   const int s0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int HD = H * D;
@@ -122,7 +132,7 @@ __global__ void __launch_bounds__(THREADS)
         for (int i = 0; i < 4; ++i) ss = __fadd_rn(ss, __fmul_rn(a[i], a[i]));
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) ss = __fadd_rn(ss, __shfl_xor_sync(0xffffffffu, ss, o));
-        const float rs = __frsqrt_rn(__fadd_rn(__fmul_rn(ss, 1.0f / D), EPS));
+        const float rs = __frsqrt_rn(__fadd_rn(__fmul_rn(ss, 1.0f / D), eps));
 #pragma unroll
         for (int i = 0; i < 4; ++i) a[i] = __fmul_rn(__fmul_rn(a[i], rs), wv[i]);
         const float4 cv = *reinterpret_cast<const float4*>(cosr + static_cast<size_t>(s) * D + c0);
@@ -158,16 +168,29 @@ extern "C" int nt_qkv_rope_producer(const void* qkv, const void* cos, const void
   const int smem = R > 0 ? static_cast<int>(sizeof(Smem)) : 0;
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(qkv_rope_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    cudaError_t e = cudaFuncSetAttribute(qkv_rope_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(sizeof(Smem)));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((S + TS - 1) / TS, H, B);
-  qkv_rope_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  qkv_rope_kernel<false><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(qkv), static_cast<const float*>(cos), static_cast<const float*>(sin),
       static_cast<const bf16*>(norm_q), static_cast<const bf16*>(norm_k), static_cast<const float*>(lora_act),
       static_cast<const bf16*>(proj_up), static_cast<bf16*>(q), static_cast<bf16*>(k), static_cast<bf16*>(v), S,
-      H, S_out, off, R, q_scale);
+      H, S_out, off, R, q_scale, EPS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The prepare mode: qkv (B, S, 3*H*128) bf16, cos / sin (S, 128) f32,
+// norm_q / norm_k (128,) bf16 -> q, k, v, each (B, H, S, 128) bf16.
+extern "C" int nt_qkv_prepare(const void* qkv, const void* cos, const void* sin, const void* norm_q,
+                              const void* norm_k, void* q, void* k, void* v, int B, int S, int H, float q_scale,
+                              float eps, void* stream) {
+  dim3 grid((S + TS - 1) / TS, H, B);
+  qkv_rope_kernel<true><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(qkv), static_cast<const float*>(cos), static_cast<const float*>(sin),
+      static_cast<const bf16*>(norm_q), static_cast<const bf16*>(norm_k), nullptr, nullptr, static_cast<bf16*>(q),
+      static_cast<bf16*>(k), static_cast<bf16*>(v), S, H, S, 0, 0, q_scale, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,12 +36,16 @@ SIGNATURES = {
     "nt_dequant_w4a8": [_P, _P, _P, _I, _I, _I, _P, _I, _P],
     "nt_gemm_w8a8_gelu_quant": [_P] * 15 + [_I] * 6 + [_F, _P, _I, _P],
     "nt_gemm_w4a8_gelu_quant": [_P] * 16 + [_I] * 6 + [_F, _P, _I, _P],
+    "nt_gemm_w8a8_gelu_quant_pipe": [_P] * 15 + [_I] * 6 + [_F, _P],
     "nt_gemm_w4a8": [_P] * 9 + [_I] * 5 + [_P, _I, _P],
     "nt_gemm_w8a8_grouped": [_P] * 13 + [_I] * 7 + [_P, _I, _P],
     "nt_flash_fixed": [_P] * 5 + [_I] * 4 + [_P],
     "nt_flash_online": [_P] * 5 + [_I] * 6 + [_F, _P],
+    "nt_flash_online_bshd": [_P] * 4 + [_I] * 4 + [_F, _P],
     "nt_ln_mod_quant": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 4 + [_P],
+    "nt_ln_mod_quant_dual": [_P] * 3 + [_I] + [_P] * 10 + [_I] * 5 + [_P],
     "nt_qkv_rope_producer": [_P] * 10 + [_I] * 6 + [_F, _P],
+    "nt_qkv_prepare": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
     "nt_gemm_w4a4": [_P] * 8 + [_I] * 5 + [_P, _I, _P],
     "nt_gemv_awq": [_P] * 7 + [_I] * 3 + [_P],
     "nt_bs_fixed": [_P] * 5 + [_I] * 9 + [_F, _P],

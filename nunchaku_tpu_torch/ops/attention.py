@@ -12,6 +12,10 @@
   :158): the fused attention prologue of the bf16-stream configuration
   (split, head transpose, optional low-rank add, q/k RMSNorm, half-split
   RoPE, q prescale), writing q, k, v in flash's (B, H, S, D) layout.
+* :func:`qkv_prepare` -- the prepare mode of the same kernel, counterpart of
+  ``qkv_prepare`` (:87, ``_qkv_prepare_kernel`` :51): the producer without
+  the low-rank term, whole outputs, ``eps`` an argument. Count
+  ``qkv_prepare``; no model path calls it, as in JAX.
 * :func:`flash_attention_online` -- kernel ``csrc/flash_online.cu``,
   counterpart of ``flash_attention`` with ``fixed_softmax=False``
   (``_flash_kernel`` :607): the running-max softmax the VAE's single-head
@@ -43,6 +47,11 @@
   :func:`flash_attention_i8` -- kernel ``csrc/flash_fixed_i8.cu``, counterpart of
   ``flash_attention_i8`` (:994, ``_flash_kernel_fixed_i8`` :563): int8 q . k
   with per-token scales, bf16 p . v. Count ``flash_fixed_i8``.
+* :func:`flash_attention_bshd` -- the token-major mode of ``csrc/flash_online.cu``,
+  counterpart of ``flash_attention_bshd`` (:848, ``_flash_kernel_bshd``
+  :927): q, k, v and the output (B, S, H, D), each head read and written
+  with a row stride of H*D, no transposed copy on either side. Count
+  ``flash_online_bshd``; no model path calls it, as in JAX.
 
 ``kv_mask`` is the JAX ``flash_attention``'s: (B, S_kv), bool (True =
 attend) or an f32 additive log2-domain bias. The mask forms of both kernels
@@ -120,7 +129,7 @@ def _producer_outputs(qkv, heads, d, out, s_offset):
 
 
 def qkv_rope_producer_plain(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_act=None, proj_up=None,
-                            out=None, s_offset=0):
+                            out=None, s_offset=0, eps=RMS_EPS):
     b, s, n3 = qkv.shape
     d = norm_q.shape[0]
     heads = n3 // 3 // d
@@ -133,7 +142,7 @@ def qkv_rope_producer_plain(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_
 
     def prep(a, w, scale):
         ms = (a * a).mean(dim=-1, keepdim=True)
-        a = a * torch.rsqrt((ms + RMS_EPS).double()).float() * w.float()
+        a = a * torch.rsqrt((ms + eps).double()).float() * w.float()
         o = a * c + torch.roll(a, d // 2, dims=-1) * sn
         return o * scale if scale != 1.0 else o
 
@@ -195,6 +204,49 @@ def qkv_rope_producer(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_act=No
 
 
 qkv_rope_producer.launches = 0
+
+
+def _prepare_heads(qkv, heads, head_dim):
+    if qkv.shape[-1] != 3 * heads * head_dim:
+        raise ValueError(f"qkv last dim {qkv.shape[-1]} != 3*{heads}*{head_dim}")
+
+
+def qkv_prepare_plain(qkv, cos, sin, norm_q, norm_k, *, heads, head_dim, q_scale=1.0, eps=RMS_EPS):
+    """:func:`qkv_rope_producer_plain` without the low-rank term, at ``eps``."""
+    _prepare_heads(qkv, heads, head_dim)
+    return qkv_rope_producer_plain(qkv, cos, sin, norm_q, norm_k, q_scale=q_scale, eps=eps)
+
+
+def qkv_prepare(qkv, cos, sin, norm_q, norm_k, *, heads, head_dim, q_scale=1.0, eps=RMS_EPS):
+    """(B, S, 3*H*D) fused-QKV GEMM output -> q, k, v, each (B, H, S, D)
+    bf16 at any S: per (token, head) q and k ``a * rsqrt(mean(a^2) + eps) *
+    norm_w``, the half-split rope ``a * cos + roll(a, D/2) * sin`` (cos / sin
+    (S, D) f32 from :func:`rope_table_halfsplit`), q times ``q_scale``; v
+    split only. On the card head dim 128."""
+    if not qkv.is_cuda:
+        return qkv_prepare_plain(qkv, cos, sin, norm_q, norm_k, heads=heads, head_dim=head_dim, q_scale=q_scale,
+                                 eps=eps)
+    _prepare_heads(qkv, heads, head_dim)
+    b, s, _ = qkv.shape
+    d = head_dim
+    _build.require(d == KERNEL_HEAD_DIM and tuple(norm_q.shape) == tuple(norm_k.shape) == (d,),
+                   f"qkv prepare kernel is built for head_dim {KERNEL_HEAD_DIM} (got {d}), norm weights (D,)")
+    _build.require(qkv.dtype == torch.bfloat16 and qkv.is_contiguous(), "qkv: contiguous bf16")
+    _build.require(cos.dtype == sin.dtype == torch.float32 and cos.is_contiguous() and sin.is_contiguous()
+                   and tuple(cos.shape) == tuple(sin.shape) == (s, d), "cos/sin: contiguous (S, D) f32")
+    _build.require(norm_q.dtype == norm_k.dtype == torch.bfloat16, "norm weights: bf16")
+    out = tuple(torch.empty((b, heads, s, d), dtype=torch.bfloat16, device=qkv.device) for _ in range(3))
+    nq, nk = norm_q.contiguous(), norm_k.contiguous()
+    lib = _build.library()
+    _build.check(lib.nt_qkv_prepare(
+        qkv.data_ptr(), cos.data_ptr(), sin.data_ptr(), nq.data_ptr(), nk.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), out[2].data_ptr(), b, s, heads, float(q_scale), float(eps),
+        torch.cuda.current_stream(qkv.device).cuda_stream), "qkv_prepare")
+    qkv_prepare.launches += 1
+    return out
+
+
+qkv_prepare.launches = 0
 
 
 def flash_attention_plain(q, k, v, kv_mask=None):
@@ -383,15 +435,13 @@ def flash_attention_i8(q8, qs, k8, ks, v, *, out_bshd=False):
     return out
 
 
-def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=None, out_bshd=False):
-    """The kernel's recurrence in torch ops, over kv chunks of ``bkv``
-    columns (the kernel's tile by default, so the rescales fall where the
-    kernel's do). The last chunk is cut at Skv instead of masked: a masked
-    tail column's p is exactly 0 and never the row max, so the two agree."""
+def _online_plain(q, k, v, c, bkv, bias=None):
+    """The online recurrence over (B, H, S, D) q, k, v with logit factor
+    ``c`` and kv chunks of ``bkv`` columns -> (B, H, Sq, D) bf16. The last
+    chunk is cut at Skv instead of masked: a masked tail column's p is
+    exactly 0 and never the row max, so the two agree."""
     b, h, sq, d = q.shape
     skv = k.shape[2]
-    c = _logit_scale(scale, d)
-    bias = None if kv_mask is None else kv_bias(kv_mask, b, skv)[:, None, None, :]
     qf = q.float()
     m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
@@ -406,8 +456,16 @@ def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=No
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + p @ v[:, :, j:j + bkv].float()
         m = m_new
-    out = (acc / l).to(torch.bfloat16)
-    return out.transpose(1, 2).reshape(b, sq, h * d) if out_bshd else out
+    return (acc / l).to(torch.bfloat16)
+
+
+def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=None, out_bshd=False):
+    """The kernel's recurrence in torch ops, over kv chunks of ``bkv``
+    columns (the kernel's tile by default, so the rescales fall where the
+    kernel's do)."""
+    b = q.shape[0]
+    bias = None if kv_mask is None else kv_bias(kv_mask, b, k.shape[2])[:, None, None, :]
+    return _heads_out(_online_plain(q, k, v, _logit_scale(scale, q.shape[-1]), bkv, bias), out_bshd)
 
 
 def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
@@ -444,6 +502,55 @@ def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
 
 
 flash_attention_online.launches = 0
+
+
+def _bshd_scale(scale, d) -> float:
+    """The token-major kernel's logit factor, JAX's ``scale * LOG2E`` (scale
+    None means 1/sqrt(D); no prescaled convention), rounded to f32."""
+    return float(torch.tensor((1.0 / math.sqrt(d) if scale is None else scale) * LOG2E, dtype=torch.float32))
+
+
+def bshd_tile(skv: int) -> int:
+    """JAX's kv tile of ``flash_attention_bshd``: ``min(1536, round_up(Skv, 128))``."""
+    return min(1536, _round_up(skv, 128))
+
+
+def flash_attention_bshd_plain(q, k, v, *, scale=None, bkv=None):
+    """The online recurrence over (B, S, H, D) tensors, rescaling once per
+    ``bkv`` kv columns: JAX's tile (:func:`bshd_tile`) by default, the
+    kernel's :data:`ONLINE_BKV` to compare with the kernel."""
+    bkv = bshd_tile(k.shape[1]) if bkv is None else bkv
+    o = _online_plain(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), _bshd_scale(scale, q.shape[-1]),
+                      bkv)
+    return o.transpose(1, 2)
+
+
+def flash_attention_bshd(q, k, v, *, scale=None):
+    """Dense non-causal attention over token-major tensors: q (B, Sq, H, D),
+    k, v (B, Skv, H, D) bf16 -> (B, Sq, H, D) bf16, as they come from the
+    fused QKV GEMM by a reshape. Logits ``f32(q . k) * (scale * log2(e))``
+    (``scale`` None: 1/sqrt(D)), ``p = exp2(bf16(s - m))`` in bf16, ``o =
+    acc / l``; ragged and unequal Sq, Skv. On the card the kernel reads each
+    head with a row stride of H*D (head dim 128)."""
+    if not q.is_cuda:
+        return flash_attention_bshd_plain(q, k, v, scale=scale)
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    _build.require(d == KERNEL_HEAD_DIM, f"token-major flash kernel is built for head_dim {KERNEL_HEAD_DIM}, got {d}")
+    _build.require(all(t.dtype == torch.bfloat16 and t.is_contiguous() for t in (q, k, v)),
+                   "token-major flash kernel takes contiguous bf16 q, k, v")
+    _build.require(tuple(k.shape) == tuple(v.shape) == (b, skv, h, d) and skv > 0,
+                   "k and v must be (B, Skv, H, D) like q, Skv > 0")
+    out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
+    lib = _build.library()
+    _build.check(lib.nt_flash_online_bshd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, skv,
+                                          _bshd_scale(scale, d), torch.cuda.current_stream(q.device).cuda_stream),
+                 "flash_online_bshd")
+    flash_attention_bshd.launches += 1
+    return out
+
+
+flash_attention_bshd.launches = 0
 
 
 def _round_up(x: int, m: int) -> int:

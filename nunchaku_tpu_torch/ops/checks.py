@@ -19,10 +19,13 @@ import torch
 from .attention import (
     BS_TILE,
     LOG2E,
+    ONLINE_BKV,
     block_sparse_attention,
     block_sparse_fixed_plain,
     block_sparse_online_plain,
     flash_attention,
+    flash_attention_bshd,
+    flash_attention_bshd_plain,
     flash_attention_denom,
     flash_attention_denom_plain,
     flash_attention_i8,
@@ -32,6 +35,8 @@ from .attention import (
     flash_attention_plain,
     flash_attention_unroll2,
     flash_attention_unroll2_plain,
+    qkv_prepare,
+    qkv_prepare_plain,
     qkv_rope_producer,
     qkv_rope_producer_plain,
     quantize_qk,
@@ -59,7 +64,7 @@ from .gemm import (
 )
 from .quantize import rcp
 from .gemv import awq_w4a16_linear, awq_w4a16_linear_plain
-from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
+from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_dual, ln_mod_quant_int8_dual_plain, ln_mod_quant_int8_plain
 from .reference import group_size
 
 
@@ -855,3 +860,100 @@ def mutate_modulation(model, name: str) -> None:
     of ``model`` in place."""
     for mod in _awq_linears(model):
         MOD_MUTATIONS[name](mod)
+
+
+# ---------------------------------------------------------------------------
+# the four op-level entry points no model path calls (the JAX package keeps
+# them off its models too): the dual LN producer, qkv_prepare, token-major
+# flash, the pipelined chain producer
+# ---------------------------------------------------------------------------
+
+
+def ln_dual_case(b, s, k, r1=32, r2=32, *, seed=0, device="cuda"):
+    """ln_mod_quant_case's stream and modulation with two heads: (x, mod
+    scale, mod shift, smooth_a, proj_down_a (K, r1), smooth_b, proj_down_b
+    (K, r2)), the second head's from its own seed."""
+    x, sc, sh, sma, pda = ln_mod_quant_case(b, s, k, r1, seed=seed, device=device)
+    _, _, _, smb, pdb = ln_mod_quant_case(1, 1, k, r2, seed=seed + 1, device=device)
+    return x, sc, sh, sma, pda, smb, pdb
+
+
+def _codes_report(q, qr):
+    diff = (q.int() - qr.int()).abs()
+    return diff.max().item(), (diff > 0).float().mean().item()
+
+
+def check_ln_dual(x, sc, sh, sma, pda, smb, pdb):
+    """Each head against the twin with row 6's bounds (codes at most one
+    apart on at most 0.1%, scales relative error <= 1e-5, lora_act <= 1e-2
+    of its max |value|), and bit for bit a single-mode launch of the kernel
+    (ln_mod_quant_int8) with that head's smooth and proj_down."""
+    out = ln_mod_quant_int8_dual(x, sc, sh, sma, pda, smb, pdb)
+    ref = ln_mod_quant_int8_dual_plain(x, sc, sh, sma, pda, smb, pdb)
+    singles = [ln_mod_quant_int8(x, sc, sh, sm, pd) for sm, pd in ((sma, pda), (smb, pdb))]
+    code_max, frac, s_rel, l_rel, same = 0.0, 0.0, 0.0, 0.0, True
+    for (q, s, la), (qr, sr, lr), single in zip(out, ref, singles):
+        cm, fr = _codes_report(q, qr)
+        code_max, frac = max(code_max, cm), max(frac, fr)
+        s_rel = max(s_rel, ((s - sr).abs() / sr.abs().clamp_min(1e-30)).max().item())
+        l_rel = max(l_rel, _rel(la, lr)[1])
+        same = same and all(torch.equal(a, b) for a, b in zip((q, s, la), single))
+    ok = code_max <= 1 and frac <= 1e-3 and s_rel <= 1e-5 and l_rel <= 1e-2 and same
+    return float(code_max), ok, (f"max code diff {code_max} on {frac:.2e} of codes (tol 1 on <=1e-3); scale rel "
+                                 f"{s_rel:.2e} (tol 1e-5); lora_act rel {l_rel:.2e} (tol 1e-2); each head == a "
+                                 f"single-mode launch: {same}")
+
+
+def check_qkv_prepare(qkv, cos, sin, nq, nk, heads, q_scale=LOG2E / math.sqrt(128)):
+    """q, k, v (bf16): max error <= 1e-2 of the twin's max |value|, and bit
+    for bit the producer kernel (qkv_rope_producer) without low-rank operands."""
+    kw = dict(heads=heads, head_dim=nq.shape[0], q_scale=q_scale)
+    out = qkv_prepare(qkv, cos, sin, nq, nk, **kw)
+    ref = qkv_prepare_plain(qkv, cos, sin, nq, nk, **kw)
+    prod = qkv_rope_producer(qkv, cos, sin, nq, nk, q_scale=q_scale)
+    errs = [_rel(o, r) for o, r in zip(out, ref)]
+    err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+    same = all(torch.equal(o, p) for o, p in zip(out, prod))
+    ok = rel <= 1e-2 and same and all(bool(torch.isfinite(o.float()).all()) for o in out)
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} over q, k, v (tol 1e-2); == the producer kernel: {same}"
+
+
+def flash_bshd_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
+    """flash_online_case's q, k, v (logits of std ~4 at scale 1/sqrt(D)) in
+    the token-major layout (B, S, H, D)."""
+    return tuple(t.transpose(1, 2).contiguous() for t in flash_online_case(b, h, sq, skv, d, seed=seed,
+                                                                           device=device))
+
+
+def check_flash_bshd(q, k, v):
+    """(B, S, H, D) bf16 output: max error <= 1e-2 of the twin's max |value|,
+    the twin at the kernel's 32-column kv tile (row 5's bound); and bit for
+    bit the online kernel on the transposed tensors, (B, S, H*D) out."""
+    out = flash_attention_bshd(q, k, v)
+    ref = flash_attention_bshd_plain(q, k, v, bkv=ONLINE_BKV)
+    err, rel = _rel(out, ref)
+    b, sq, h, d = q.shape
+    dense = flash_attention_online(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), out_bshd=True)
+    same = torch.equal(out.reshape(b, sq, h * d), dense)
+    ok = rel <= 1e-2 and same and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
+    return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2); == the online kernel on (B, H, S, D): {same}"
+
+
+def check_gelu_quant_pipe(qa, ascales, w, wscales, la, pu, bias, rsm, pd, act_unsigned_next=False):
+    """The pipelined producer (pipelined=True; K must be its own K tile):
+    qout, qscales and lora_next bit for bit the ordinary producer kernel's
+    (row 2), and through it against the twin on row 2's bounds
+    (:func:`check_gelu_quant`)."""
+    kw = dict(act_unsigned_next=act_unsigned_next)
+    args = (qa, ascales, w, wscales, la, pu, bias, rsm, pd)
+    pipe = svdq_gemm_w8a8_gelu_quant(*args, pipelined=True, **kw)
+    plain_kernel = svdq_gemm_w8a8_gelu_quant(*args, **kw)
+    same = [torch.equal(a, b) for a, b in zip(pipe, plain_kernel)]
+    ref = svdq_gemm_w8a8_gelu_quant_plain(*args, **kw)
+    code_max, frac = _codes_report(pipe[0], ref[0])
+    s_rel = ((pipe[1] - ref[1]).abs() / ref[1].abs().clamp_min(1e-30)).max().item()
+    _, l_rel = _rel(pipe[2], ref[2])
+    ok = all(same) and code_max <= 1 and frac <= 1e-3 and s_rel <= 1e-5 and l_rel <= 1e-2
+    return float(code_max), ok, (f"== the ordinary producer kernel (qout, qscales, lora_next): {same}; vs twin: "
+                                 f"max code diff {code_max} on {frac:.2e} (tol 1 on <=1e-3), scale rel {s_rel:.2e} "
+                                 f"(tol 1e-5), lora_next rel {l_rel:.2e} (tol 1e-2)")

@@ -12,7 +12,11 @@ int8 once per layer, then int8 x int8 products):
 * :func:`svdq_gemm_w8a8_gelu_quant` -- kernel ``csrc/gemm_w8a8_gelu_quant.cu``
   (JAX ``_gemm_w8a8_gelu_quant_kernel`` :460), the fc1 GEMM whose epilogue
   emits fc2's int8 activations (low-rank widths up to 128, here and in the
-  consumer);
+  consumer); with ``pipelined=True`` (JAX's rule, :func:`chain_route`) the
+  kernel ``csrc/gemm_w8a8_gelu_quant_pipe.cu`` (JAX
+  ``_gemm_w8a8_gelu_quant_pipe_kernel`` :790), the same outputs bit for bit,
+  one tile's product overlapping the previous tile's epilogue (count
+  ``gemm_w8a8_gelu_quant_pipe``; no model path takes it, as in JAX);
 * :func:`gemm_w8a8_grouped` -- kernel ``csrc/gemm_w8a8_grouped.cu`` (JAX
   ``_gemm_w8a8_kernel`` :344 in grouped-scale mode), the fc2 consumer; with
   ``residual=`` it takes the block's gated residual add into its epilogue
@@ -110,6 +114,7 @@ MODES = ("dequant_w4a8", "gemm_w8a8_gelu_quant", "gemm_w8a8_grouped", "gemm_w8a8
          "gemm_w4a4_int4_unsigned", "gemm_w4a4_nvfp4", "dequant_w4a8_e2m1", "gemm_w4a8", "gemm_w4a8_grouped",
          "gemm_w4a8_gelu_quant", "gemm_w8a8_gelu_quant_ptoken", "gemm_w8a8_rank1", "gemm_w8a8_rank1_res")
 COUNTS = {name: SimpleNamespace(launches=0) for mode in MODES for name in (mode, mode + "_stacked")}
+COUNTS["gemm_w8a8_gelu_quant_pipe"] = SimpleNamespace(launches=0)  # no stacked form: JAX pipelines unstacked only
 
 
 def _count(mode: str, layer_idx) -> None:
@@ -161,6 +166,28 @@ def chain_ptoken() -> bool:
     consumer is a rank-1 int8 product: the kernel's rank-1 mode on a stack
     (:func:`gemm_w8a8_rank1`), ``torch._int_mm`` otherwise."""
     return os.environ.get("NUNCHAKU_TPU_CHAIN_PTOKEN", "0") != "0"
+
+
+def int8_tile_k(k: int) -> int:
+    """The JAX int8 producer's K tile: ``bk = _pick_dim(K, (3072, 1536, 768,
+    512, 1024, 256))`` (``gemm.py:1345-1352``), K itself when none divides."""
+    return next((p for p in (3072, 1536, 768, 512, 1024, 256) if k % p == 0), k)
+
+
+def chain_route(k: int, *, precision: str = "int8", ptoken: bool = False, pipelined: bool | None = None,
+                layer_idx=None) -> str:
+    """Which producer :func:`svdq_gemm_w8a8_gelu_quant` runs, JAX's order
+    (``gemm.py:1344-1378``): "w4a8" for ``precision="w4a8"`` first, then
+    "ptoken" for ``ptoken``, then "pipe" when ``pipelined`` (None means
+    False) and K is one whole K tile (:func:`int8_tile_k`) on an unstacked
+    weight, else "grouped" (the ordinary producer)."""
+    if precision == "w4a8":
+        return "w4a8"
+    if ptoken:
+        return "ptoken"
+    if pipelined and k == int8_tile_k(k) and layer_idx is None:
+        return "pipe"
+    return "grouped"
 
 
 def chain_tile_n(n: int) -> int:
@@ -311,22 +338,29 @@ def svdq_gemm_w8a8_gelu_quant_plain(qact, ascales, qweight, wscales, lora_act, p
 
 def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up, bias,
                               rsmooth_next, proj_down_next, *, act_unsigned_next=False, rescales=None,
-                              precision="int8", layer_idx=None, ptoken=False):
+                              precision="int8", layer_idx=None, ptoken=False, pipelined=None):
     """int8 GEMM + fused GELU -> requantize: returns the NEXT layer's
     (qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R) f32).
 
     ``qweight`` is int8 (K, N); ``rsmooth_next`` (N,) is 1/next.smooth and
     ``proj_down_next`` (N, R) the next layer's low-rank down-projection;
     ``act_unsigned_next`` adds the post-GELU shift of an unsigned next layer.
+    The route follows JAX's order (:func:`chain_route`):
     ``precision="w4a8"``: ``qweight`` is packed int4 (K/2, N) with
     ``rescales`` (K/64, N), run by :func:`svdq_gemm_w4a8_gelu_quant` (JAX
-    :1303-1330). ``layer_idx``: qweight is the (L, K, N) int8 (or (L, K/2, N)
-    packed) stack and the kernel reads layer ``layer_idx`` (count
-    ``gemm_w8a8_gelu_quant_stacked``). ``ptoken`` (int8 only, as in JAX,
-    where w4a8 returns before the switch is read): one scale per token,
-    qscales (1, M) (JAX ``_gelu_quant_ptoken`` :607; counts
-    ``gemm_w8a8_gelu_quant_ptoken`` and ``..._ptoken_stacked``)."""
-    if precision == "w4a8":
+    :1303-1330). ``ptoken`` (int8 only, as in JAX, where w4a8 returns
+    before the switch is read): one scale per token, qscales (1, M) (JAX
+    ``_gelu_quant_ptoken`` :607; counts ``gemm_w8a8_gelu_quant_ptoken`` and
+    ``..._ptoken_stacked``). ``pipelined`` (None means False, JAX's default):
+    when K is one whole K tile of JAX's pick and ``layer_idx`` is None, the
+    software-pipelined kernel (JAX ``_gelu_quant_pipelined`` :1602; count
+    ``gemm_w8a8_gelu_quant_pipe``), the same outputs bit for bit; otherwise
+    the ordinary producer, as JAX falls through. ``layer_idx``: qweight is
+    the (L, K, N) int8 (or (L, K/2, N) packed) stack and the kernel reads
+    layer ``layer_idx`` (count ``gemm_w8a8_gelu_quant_stacked``)."""
+    route = chain_route(qact.shape[-1], precision=precision, ptoken=ptoken, pipelined=pipelined,
+                        layer_idx=layer_idx)
+    if route == "w4a8":
         return svdq_gemm_w4a8_gelu_quant(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias,
                                          rsmooth_next, proj_down_next, act_unsigned_next=act_unsigned_next,
                                          layer_idx=layer_idx)
@@ -336,10 +370,54 @@ def svdq_gemm_w8a8_gelu_quant(qact, ascales, qweight, wscales, lora_act, proj_up
         return svdq_gemm_w8a8_gelu_quant_plain(
             qact, ascales, qweight if layer_idx is None else layer_of(qweight, layer_idx), wscales, lora_act,
             proj_up, bias, rsmooth_next, proj_down_next, act_unsigned_next=act_unsigned_next, ptoken=ptoken)
+    if route == "pipe":
+        out = _gelu_quant_pipe_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, rsmooth_next,
+                                      proj_down_next, act_unsigned_next)
+        _count("gemm_w8a8_gelu_quant_pipe", None)
+        return out
     out = _gelu_quant_launch(qact, ascales, qweight, None, wscales, lora_act, proj_up, bias, rsmooth_next,
                              proj_down_next, act_unsigned_next, layer_idx, ptoken)
     _count("gemm_w8a8_gelu_quant_ptoken" if ptoken else "gemm_w8a8_gelu_quant", layer_idx)
     return out
+
+
+def _gelu_quant_pipe_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, rsmooth_next,
+                            proj_down_next, act_unsigned_next):
+    """Launch the pipelined producer on an unstacked (K, N) int8 weight."""
+    m, k = qact.shape
+    wt, _, _, _ = _int8_weight(qweight, None)
+    n = qweight.shape[1]
+    bn = chain_tile_n(n)
+    r = 0 if lora_act is None else lora_act.shape[1]
+    r2 = proj_down_next.shape[1]
+    _build.require(m % KERNEL_TILE_M == 0 and bn % KERNEL_TILE_N == 0 and bn <= 1536 and k % KERNEL_TILE_K == 0,
+                   f"pipelined gelu-quant kernel needs M % 128, bn % 128, K % 64 == 0, bn <= 1536 "
+                   f"(M={m}, bn={bn}, K={k})")
+    _build.require(r <= KERNEL_MAX_RANK and 1 <= r2 <= KERNEL_MAX_RANK,
+                   f"ranks {r} / {r2}: the chain kernels take 1 <= R2, R <= {KERNEL_MAX_RANK}")
+    _build.require(qact.dtype == torch.int8, "int8 activations expected")
+    dev = qact.device
+    qa = qact.contiguous()
+    a_s = ascales.reshape(m).float().contiguous()
+    w_s = wscales.reshape(n).float().contiguous()
+    la = None if lora_act is None else lora_act.float().contiguous()
+    pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
+    b = None if bias is None else bias.to(torch.bfloat16).contiguous()
+    rsm = rsmooth_next.reshape(n).float().contiguous()
+    pd = proj_down_next.to(torch.bfloat16).contiguous()
+    gbuf = torch.empty((m, n), dtype=torch.float32, device=dev)  # workspace: g until its group is quantized
+    lora_part = torch.empty((n // KERNEL_TILE_N, m, -(-r2 // 16) * 16), dtype=torch.float32, device=dev)
+    done = torch.zeros((m // KERNEL_TILE_M,), dtype=torch.int32, device=dev)  # finished groups per row block
+    qout = torch.empty((m, n), dtype=torch.int8, device=dev)
+    qscales = torch.empty((n // bn, m), dtype=torch.float32, device=dev)
+    lora_next = torch.empty((m, r2), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    _build.check(lib.nt_gemm_w8a8_gelu_quant_pipe(
+        qa.data_ptr(), a_s.data_ptr(), wt.data_ptr(), w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b), rsm.data_ptr(),
+        pd.data_ptr(), gbuf.data_ptr(), lora_part.data_ptr(), done.data_ptr(), qout.data_ptr(), qscales.data_ptr(),
+        lora_next.data_ptr(), m, n, k, r, r2, bn, GELU_SHIFT if act_unsigned_next else 0.0, _stream(qact)),
+        "gemm_w8a8_gelu_quant_pipe")
+    return qout, qscales, lora_next
 
 
 def _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, rsmooth_next,

@@ -12,6 +12,11 @@
   ``_ln_mod_quant_kernel`` :149, ``ln_mod_quant_int8`` :179): LayerNorm,
   AdaLN modulation and the same quantization in one pass over the bf16
   residual stream.
+* :func:`ln_mod_quant_int8_dual` -- the dual mode of the same kernel (JAX
+  ``_ln_mod_quant2_kernel`` :265, ``ln_mod_quant_int8_dual`` :292): one read
+  and one LayerNorm for two quantized activations (FLUX's single block: qkv
+  and fc1), each head's outputs those of :func:`ln_mod_quant_int8` with its
+  own smooth and ``proj_down``. No model path calls it, as in JAX.
 
 The low-rank activation ``lora_act = bf16(x) @ proj_down`` uses the raw
 (or modulated) activation; the quantized codes use ``x / smooth`` (through
@@ -151,6 +156,47 @@ def ln_mod_quant_int8_plain(x, mod_scale, mod_shift, smooth, proj_down):
     return q, scale.reshape(1, b * s), lora_act
 
 
+def _ln_operands(x, mod_scale, mod_shift):
+    """The kernel's checks of the stream and the modulation -> (x
+    contiguous, mod scale, mod shift (f32 rows sharing one stride, or None),
+    that stride)."""
+    b, s, k = x.shape
+    _build.require(x.dtype == torch.bfloat16, "x: bf16 residual stream expected")
+    _build.require(k % 256 == 0 and k <= KERNEL_LN_MAX_K,
+                   f"ln_mod_quant kernel needs K % 256 == 0 and K <= {KERNEL_LN_MAX_K} (K={k})")
+    sc = sh = None
+    ld = 0
+    if mod_scale is not None:
+        sc, sh = mod_scale.float(), mod_shift.float()
+        if not (sc.stride() == sh.stride() and sc.stride(1) == 1):
+            sc, sh = sc.contiguous(), sh.contiguous()
+        ld = sc.stride(0)  # AdaLN chunks are (B, K) views of one (B, n*K) vector
+        _build.require(tuple(sc.shape) == (b, k), f"mod vectors must be (B, K), got {tuple(sc.shape)}")
+    return x.contiguous(), sc, sh, ld
+
+
+def _ln_head(x, smooth, proj_down):
+    """One head's operands and outputs for the kernel -> (smooth, proj_down
+    padded to the kernel's rank step, q, ascales, lora_act, R, padded R)."""
+    m, k = x.shape[0] * x.shape[1], x.shape[2]
+    r = proj_down.shape[1]
+    _build.require(r <= 32, f"rank {r} > 32")
+    _build.require(smooth is None or smooth.dtype == torch.bfloat16, "smooth: bf16 expected")
+    sm = None if smooth is None else smooth.contiguous()
+    rp = -(-r // 16) * 16  # the kernel's WMMA tile takes R in steps of 16
+    pd = proj_down.to(torch.bfloat16)
+    if rp != r:
+        pd = torch.nn.functional.pad(pd, (0, rp - r))
+    qact = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    ascales = torch.empty((1, m), dtype=torch.float32, device=x.device)
+    lora_act = torch.empty((m, rp), dtype=torch.float32, device=x.device)
+    return sm, pd.contiguous(), qact, ascales, lora_act, r, rp
+
+
+def _ln_result(q, asc, la, r, rp):
+    return q, asc, la if rp == r else la[:, :r]
+
+
 def ln_mod_quant_int8(x, mod_scale, mod_shift, smooth, proj_down):
     """``y = LN(x) * (1 + mod_scale) + mod_shift`` (f32, eps 1e-6), then the
     per-token int8 quantization of ``y / smooth`` with the low-rank
@@ -163,39 +209,50 @@ def ln_mod_quant_int8(x, mod_scale, mod_shift, smooth, proj_down):
     if not x.is_cuda:
         return ln_mod_quant_int8_plain(x, mod_scale, mod_shift, smooth, proj_down)
     b, s, k = x.shape
-    m = b * s
-    r = proj_down.shape[1]
-    _build.require(x.dtype == torch.bfloat16, "x: bf16 residual stream expected")
-    _build.require(k % 256 == 0 and k <= KERNEL_LN_MAX_K,
-                   f"ln_mod_quant kernel needs K % 256 == 0 and K <= {KERNEL_LN_MAX_K} (K={k})")
-    _build.require(r <= 32, f"rank {r} > 32")
-    xc = x.contiguous()
-    sc = sh = None
-    ld = 0
-    if mod_scale is not None:
-        sc, sh = mod_scale.float(), mod_shift.float()
-        if not (sc.stride() == sh.stride() and sc.stride(1) == 1):
-            sc, sh = sc.contiguous(), sh.contiguous()
-        ld = sc.stride(0)  # AdaLN chunks are (B, K) views of one (B, n*K) vector
-        _build.require(tuple(sc.shape) == (b, k), f"mod vectors must be (B, K), got {tuple(sc.shape)}")
-    _build.require(smooth is None or smooth.dtype == torch.bfloat16, "smooth: bf16 expected")
-    sm = None if smooth is None else smooth.contiguous()
-    rp = -(-r // 16) * 16  # the kernel's WMMA tile takes R in steps of 16
-    pd = proj_down.to(torch.bfloat16)
-    if rp != r:
-        pd = torch.nn.functional.pad(pd, (0, rp - r))
-    pd = pd.contiguous()
-    qact = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    ascales = torch.empty((1, m), dtype=torch.float32, device=x.device)
-    lora_act = torch.empty((m, rp), dtype=torch.float32, device=x.device)
+    xc, sc, sh, ld = _ln_operands(x, mod_scale, mod_shift)
+    sm, pd, qact, ascales, lora_act, r, rp = _ln_head(x, smooth, proj_down)
     lib = _build.library()
     _build.check(lib.nt_ln_mod_quant(
         xc.data_ptr(), None if sc is None else sc.data_ptr(), None if sh is None else sh.data_ptr(), ld,
         None if sm is None else sm.data_ptr(), pd.data_ptr(), qact.data_ptr(), ascales.data_ptr(),
-        lora_act.data_ptr(), m, s, k, rp, torch.cuda.current_stream(x.device).cuda_stream), "ln_mod_quant")
+        lora_act.data_ptr(), b * s, s, k, rp, torch.cuda.current_stream(x.device).cuda_stream), "ln_mod_quant")
     ln_mod_quant_int8.launches += 1
-    return qact, ascales, lora_act if rp == r else lora_act[:, :r]
+    return _ln_result(qact, ascales, lora_act, r, rp)
 
 
 ln_mod_quant_int8.launches = 0
 
+
+def ln_mod_quant_int8_dual_plain(x, mod_scale, mod_shift, smooth_a, proj_down_a, smooth_b, proj_down_b):
+    """Two :func:`ln_mod_quant_int8_plain` calls on the same stream and
+    modulation: the same LayerNorm, so the same y."""
+    return (ln_mod_quant_int8_plain(x, mod_scale, mod_shift, smooth_a, proj_down_a),
+            ln_mod_quant_int8_plain(x, mod_scale, mod_shift, smooth_b, proj_down_b))
+
+
+def ln_mod_quant_int8_dual(x, mod_scale, mod_shift, smooth_a, proj_down_a, smooth_b, proj_down_b):
+    """Shared-AdaLN dual producer: one read of x (B, S, K) bf16 and one
+    ``y = LN(x) * (1 + mod_scale) + mod_shift`` (f32, eps 1e-6; mod_scale /
+    mod_shift (B, K) are required, as in JAX), then for each head (smooth
+    (K,) or None, proj_down (K, R), R <= 32) the epilogue of
+    :func:`ln_mod_quant_int8`. Returns ((qa (M, K) int8, sa (1, M) f32, la
+    (M, R1) f32), (qb, sb, lb)) with M = B*S. Count ``ln_mod_quant_dual``."""
+    if mod_scale is None or mod_shift is None:
+        raise ValueError("ln_mod_quant_int8_dual needs mod_scale and mod_shift (JAX has no form without them)")
+    if not x.is_cuda:
+        return ln_mod_quant_int8_dual_plain(x, mod_scale, mod_shift, smooth_a, proj_down_a, smooth_b, proj_down_b)
+    b, s, k = x.shape
+    xc, sc, sh, ld = _ln_operands(x, mod_scale, mod_shift)
+    sa, pda, qa, asa, laa, ra, rpa = _ln_head(x, smooth_a, proj_down_a)
+    sb, pdb, qb, asb, lab, rb, rpb = _ln_head(x, smooth_b, proj_down_b)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _build.library()
+    _build.check(lib.nt_ln_mod_quant_dual(
+        xc.data_ptr(), sc.data_ptr(), sh.data_ptr(), ld, ptr(sa), pda.data_ptr(), qa.data_ptr(), asa.data_ptr(),
+        laa.data_ptr(), ptr(sb), pdb.data_ptr(), qb.data_ptr(), asb.data_ptr(), lab.data_ptr(), b * s, s, k, rpa,
+        rpb, torch.cuda.current_stream(x.device).cuda_stream), "ln_mod_quant_dual")
+    ln_mod_quant_int8_dual.launches += 1
+    return _ln_result(qa, asa, laa, ra, rpa), _ln_result(qb, asb, lab, rb, rpb)
+
+
+ln_mod_quant_int8_dual.launches = 0

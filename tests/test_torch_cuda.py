@@ -884,3 +884,84 @@ def test_int8_stacked_model_matches_cpu(dev, monkeypatch, ptoken, turbo):
         expect |= {"ln_mod_quant_int8": 2 * 4 + 3 * 2, "qkv_rope_producer": 2 * 2 + 3}
     assert c == expect, c
     assert ((out - ref).abs().max() / ref.abs().max()).item() <= 2e-2
+
+
+# the four op-level entry points no model path calls: the dual LN producer, qkv_prepare, token-major flash,
+# the pipelined chain producer
+
+
+@pytest.mark.parametrize("b,s,k,r1,r2", [(1, 4608, 3072, 32, 32), (2, 300, 512, 16, 32), (1, 77, 256, 32, 16)])
+def test_ln_mod_quant_dual(dev, b, s, k, r1, r2):
+    """Each head within row 6's bounds of the twin and bit for bit a
+    single-mode launch with its operands (ragged M: the last 16-row tile)."""
+    _, ok, detail = checks.check_ln_dual(*checks.ln_dual_case(b, s, k, r1, r2, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("s,heads", [(4608, 24), (200, 2), (64, 3)])
+def test_qkv_prepare(dev, s, heads):
+    streams, cos, sin = checks.qkv_rope_case(1, (s,), heads, 128, 0, device=dev)
+    qkv, nq, nk = streams[0][:3]
+    _, ok, detail = checks.check_qkv_prepare(qkv, cos, sin, nq, nk, heads)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("b,h,sq,skv", [(1, 24, 4608, 4608), (1, 2, 300, 333), (2, 3, 1700, 1700), (1, 2, 77, 40)])
+def test_flash_bshd(dev, b, h, sq, skv):
+    _, ok, detail = checks.check_flash_bshd(*checks.flash_bshd_case(b, h, sq, skv, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,r,unsigned", [(4608, 3072, 12288, 32, False), (4608, 3072, 12288, 128, False),
+                                              (256, 512, 1024, 32, True), (256, 512, 3072, 48, False),
+                                              (128, 256, 256, 16, True)])
+def test_gelu_quant_pipe(dev, m, k, n, r, unsigned):
+    """The pipelined producer bit for bit the ordinary producer kernel, and
+    within row 2's bounds of the twin (one group of 1536 / 1024 / 256
+    columns, or several)."""
+    _, ok, detail = checks.check_gelu_quant_pipe(*checks.gelu_quant_case(m, k, n, r, device=dev),
+                                                 act_unsigned_next=unsigned)
+    assert ok, detail
+
+
+def test_last_ops_counts_and_refusals(dev):
+    """Each entry point counts its own launches; the pipelined branch follows
+    JAX's rule (K not one K tile, or a stacked weight: the ordinary
+    producer); shapes a kernel does not take raise."""
+    from nunchaku_tpu_torch.ops.attention import flash_attention_bshd, qkv_prepare
+    from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8_dual
+
+    reset_launch_counts()
+    ln_mod_quant_int8_dual(*checks.ln_dual_case(1, 64, 256, device=dev))
+    streams, cos, sin = checks.qkv_rope_case(1, (64,), 2, 128, 0, device=dev)
+    qkv, nq, nk = streams[0][:3]
+    qkv_prepare(qkv, cos, sin, nq, nk, heads=2, head_dim=128)
+    flash_attention_bshd(*checks.flash_bshd_case(1, 2, 64, 64, device=dev))
+    args = checks.gelu_quant_case(128, 256, 256, device=dev)
+    svdq_gemm_w8a8_gelu_quant(*args, pipelined=True)
+    c = launch_counts()
+    assert (c["ln_mod_quant_dual"], c["qkv_prepare"], c["flash_online_bshd"], c["gemm_w8a8_gelu_quant_pipe"]) == (
+        1, 1, 1, 1), c
+    assert c["ln_mod_quant_int8"] == c["qkv_rope_producer"] == c["flash_online"] == c["gemm_w8a8_gelu_quant"] == 0
+    svdq_gemm_w8a8_gelu_quant(*checks.gelu_quant_case(128, 1024, 256, device=dev), pipelined=True)  # K tile 512
+    qa, asc, w, *rest = args
+    stack, ids = checks.stack_case(w)
+    svdq_gemm_w8a8_gelu_quant(qa, asc, stack, *rest, pipelined=True, layer_idx=ids[-1])
+    c = launch_counts()
+    assert c["gemm_w8a8_gelu_quant_pipe"] == 1 and c["gemm_w8a8_gelu_quant"] == 1
+    assert c["gemm_w8a8_gelu_quant_stacked"] == 1
+    x, sc, sh, sma, pda, smb, pdb = checks.ln_dual_case(1, 64, 256, device=dev)
+    with pytest.raises(ValueError):  # no modulation: JAX has no such form
+        ln_mod_quant_int8_dual(x, None, None, sma, pda, smb, pdb)
+    with pytest.raises(ValueError):  # rank 48 > 32
+        ln_mod_quant_int8_dual(x, sc, sh, sma, pda, smb, torch.cat([pdb, pdb[:, :16]], dim=1))
+    streams, cos, sin = checks.qkv_rope_case(1, (64,), 2, 64, 0, device=dev)
+    with pytest.raises(ValueError):  # head dim 64
+        qkv_prepare(streams[0][0], cos, sin, streams[0][1], streams[0][2], heads=2, head_dim=64)
+    with pytest.raises(ValueError):  # head dim 64
+        flash_attention_bshd(*checks.flash_bshd_case(1, 2, 64, 64, d=64, device=dev))
+    with pytest.raises(ValueError):  # M not a multiple of the 128-row tile
+        svdq_gemm_w8a8_gelu_quant(*checks.gelu_quant_case(100, 256, 256, device=dev), pipelined=True)
+    c = launch_counts()
+    assert (c["ln_mod_quant_dual"], c["qkv_prepare"], c["flash_online_bshd"], c["gemm_w8a8_gelu_quant_pipe"]) == (
+        1, 1, 1, 1), c
