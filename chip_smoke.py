@@ -61,7 +61,16 @@ Phases, each fatal on failure:
                   copies, SDPA on the transposed views as yardstick; the
                   pipelined chain producer at fc1 (R 32; R 128 logged) bit for
                   bit the ordinary producer kernel, beside its time,
-                  torch._int_mm as yardstick;
+                  torch._int_mm as yardstick; the two GEMM probe kernels of
+                  the ported tools at bench_gemm_variants' shape (M 4608, K
+                  3072, N 12288): the int8 one with int32 or f32 accumulation
+                  and the cast, and f32 with the rank-1 epilogue, bit for bit
+                  at every built tile (128x128x64 the row; the chain GEMMs'
+                  WMMA main loop among the tiles), torch._int_mm as yardstick;
+                  the bf16-operand one in its six operand forms within one
+                  bf16 step up to the f32 sums' order (a limit the same
+                  product summed in bf16 must exceed), torch.matmul of the
+                  decoded operands as yardstick;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -229,6 +238,12 @@ Phases, each fatal on failure:
                   one launch of each, both ends within 2e-2 of the twins' chain.
                   Every earlier phase's count check reads 0 launches of these
                   four kernels (no model path changed).
+ 16. gemm-probes -- the path to the two GEMM probe kernels: the four ported
+                  TPU probe tools (nunchaku_tpu_torch/tools: bench_gemm_variants,
+                  probe_int8_mxu, probe_m512, tune_gemm_impl) once each at their
+                  JAX scripts' sizes and iteration counts, every line logged;
+                  every built instantiation launches, no other kernel but V3's
+                  W4A4 GEMM; every model phase reads 0 probe launches.
 FLUX and Qwen-Image hold their blocks as stacks, so their 4-bit GEMMs and
 dequants count under the stacked modes' names (mode + "_stacked"); a kernel
 row counts every launch of its mode, a *_stacked row the stacked ones alone
@@ -247,15 +262,14 @@ import json
 import math
 import os
 import shutil
-import subprocess
 import sys
 import time
 
 import torch
 
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
-PEAK_INT8 = 1979e12  # dense int8 tensor-core ops/s
-PEAK_BF16 = 989e12  # dense bf16 tensor-core FLOP/s
+# the card's peak rates, the least time they allow, the CUDA-event timer and the nvidia-smi line, shared with the
+# port's probe tools
+from nunchaku_tpu_torch.tools.probe_common import bound, nvidia_smi, time_ms
 
 # FLUX.1-dev at 1024x1024: 4096 image tokens, 512 text tokens
 S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
@@ -309,38 +323,15 @@ PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle lean
 def row_launches(name: str, counts: dict) -> int:
     """A kernel row's launches: every launch of its mode, whether on a
     layer's own weight or on a stack (``name + "_stacked"``: the same
-    kernel, its weight pointer moved); a ``*_stacked`` row counts the
-    stacked launches alone."""
-    return counts[name] + counts.get(name + "_stacked", 0)
+    kernel, its weight pointer moved), or at any of its tiles (``name +
+    "@" + tile``: the int8 GEMM probe's instantiations); a ``*_stacked`` row
+    counts the stacked launches alone."""
+    return (counts.get(name, 0) + counts.get(name + "_stacked", 0)
+            + sum(v for k, v in counts.items() if k.startswith(name + "@")))
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound(nbytes: float, int8_ops: float = 0.0, bf16_ops: float = 0.0) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = int8_ops / PEAK_INT8 + bf16_ops / PEAK_BF16
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def deq_bytes(k, n, g=64):
@@ -487,7 +478,7 @@ def kernel_phase(dev):
     err, ok, detail = checks.check_dequant(qw, rs)
     record("dequant_w4a8", "nunchaku_tpu_torch/csrc/dequant_w4a8.cu", "nunchaku_tpu/ops/gemm.py:1074",
            f"K={k} N={n}", ok, err, detail,
-           cuda_ms(lambda: dequant_w4a8(qw, rs), 50), cuda_ms(lambda: dequant_w4a8_plain(qw, rs), 5),
+           time_ms(lambda: dequant_w4a8(qw, rs), 50), time_ms(lambda: dequant_w4a8_plain(qw, rs), 5),
            bound(deq_bytes(k, n)), None)
     del qw, rs
 
@@ -496,8 +487,8 @@ def kernel_phase(dev):
     res = {}
     for k2, n2 in ((DIM, HID), (HID, DIM)):
         qw, rs = checks.dequant_case(k2, n2, codes="e2m1", device=dev)
-        res[k2] = (checks.check_dequant(qw, rs, "e2m1"), cuda_ms(lambda: dequant_w4a8(qw, rs, "e2m1"), 50),
-                   cuda_ms(lambda: dequant_w4a8_plain(qw, rs, "e2m1"), 5), bound(deq_bytes(k2, n2, 16)))
+        res[k2] = (checks.check_dequant(qw, rs, "e2m1"), time_ms(lambda: dequant_w4a8(qw, rs, "e2m1"), 50),
+                   time_ms(lambda: dequant_w4a8_plain(qw, rs, "e2m1"), 5), bound(deq_bytes(k2, n2, 16)))
         del qw, rs
     (err2, ok2, detail2), ms2, plain2, bnd2 = res[HID]
     log(f"[kernel] dequant_w4a8_e2m1 @ K={HID} N={DIM}: {'PASS' if ok2 else 'FAIL'} {detail2}; {ms2:.4f} ms "
@@ -515,11 +506,11 @@ def kernel_phase(dev):
     nj = n // 1536
     record("gemm_w8a8_gelu_quant", "nunchaku_tpu_torch/csrc/gemm_w8a8_gelu_quant.cu",
            "nunchaku_tpu/ops/gemm.py:460", f"M={m} K={k} N={n} R={RANK}", ok, err, detail,
-           cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args), 20),
-           cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3),
+           time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args), 20),
+           time_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3),
            bound(gemm_bytes(m, k, n, RANK, m * n + 4 * nj * m + 4 * m * RANK) + 4 * n + 2 * n * RANK,
                  2 * m * n * k, 4 * m * n * RANK),
-           cuda_ms(lambda: int8_matmul(qa, w), 20))
+           time_ms(lambda: int8_matmul(qa, w), 20))
     del args, qa, w
 
     # 3. grouped consumer: single-block fc2 (M 4608, K 12288 in 8 groups, N 3072)
@@ -529,9 +520,9 @@ def kernel_phase(dev):
     qa, w = args[0], args[2]
     record("gemm_w8a8_grouped", "nunchaku_tpu_torch/csrc/gemm_w8a8_grouped.cu",
            "nunchaku_tpu/ops/gemm.py:344", f"M={m} K={k} N={n} G={g} R={RANK}", ok, err, detail,
-           cuda_ms(lambda: gemm_w8a8_grouped(*args), 20), cuda_ms(lambda: gemm_w8a8_grouped_plain(*args), 3),
+           time_ms(lambda: gemm_w8a8_grouped(*args), 20), time_ms(lambda: gemm_w8a8_grouped_plain(*args), 3),
            bound(gemm_bytes(m, k, n, RANK, 2 * m * n) + 4 * g * m, 2 * m * n * k, 2 * m * n * RANK),
-           cuda_ms(lambda: int8_matmul(qa, w), 20))
+           time_ms(lambda: int8_matmul(qa, w), 20))
     del args, qa, w
 
     # 4. fixed-shift flash: the joint sequence, 24 heads of 128
@@ -541,10 +532,10 @@ def kernel_phase(dev):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     record("flash_fixed", "nunchaku_tpu_torch/csrc/flash_fixed.cu", "nunchaku_tpu/ops/attention.py:403",
            f"B=1 H={HEADS} S={s} D={HD}", ok, err, detail,
-           cuda_ms(lambda: flash_attention(q, kk, v), 20),
-           cuda_ms(lambda: flash_attention_plain(q, kk, v), 3),
+           time_ms(lambda: flash_attention(q, kk, v), 20),
+           time_ms(lambda: flash_attention_plain(q, kk, v), 3),
            bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS),
-           cuda_ms(lambda: sdpa(q, kk, v, scale=math.log(2.0)), 20))
+           time_ms(lambda: sdpa(q, kk, v, scale=math.log(2.0)), 20))
     del q, kk, v
 
     # 5. LN + modulate + quantize producer: a single block's (M 4608, K 3072, R 32)
@@ -554,9 +545,9 @@ def kernel_phase(dev):
     x = args[0]
     record("ln_mod_quant_int8", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu", "nunchaku_tpu/ops/quantize.py:149",
            f"M={m} K={k} R={RANK}", ok, err, detail,
-           cuda_ms(lambda: ln_mod_quant_int8(*args), 50), cuda_ms(lambda: ln_mod_quant_int8_plain(*args), 5),
+           time_ms(lambda: ln_mod_quant_int8(*args), 50), time_ms(lambda: ln_mod_quant_int8_plain(*args), 5),
            bound(ln_bytes(m, k, RANK), bf16_ops=2 * m * k * RANK),
-           cuda_ms(lambda: torch.nn.functional.layer_norm(x, (k,), eps=1e-6), 50))
+           time_ms(lambda: torch.nn.functional.layer_norm(x, (k,), eps=1e-6), 50))
     del args, x
 
     # 6. qkv / RoPE producer with the low-rank term: the single block's call
@@ -564,7 +555,7 @@ def kernel_phase(dev):
     # (4096 img rows at 512, then 512 txt rows at 0) are checked and timed too
     streams, cos, sin = checks.qkv_rope_case(1, (S_TXT, S_IMG), HEADS, HD, RANK, device=dev)
     err2, ok2, detail2 = checks.check_qkv_rope(streams, cos, sin)
-    dual_ms = cuda_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 20)
+    dual_ms = time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 20)
     log(f"[kernel] qkv_rope_producer, dual block (S_txt {S_TXT} + S_img {S_IMG} into one buffer): "
         f"{'PASS' if ok2 else 'FAIL'} {detail2}; {dual_ms:.4f} ms for both calls, bound "
         f"{bound(rope_bytes(S_IMG) + rope_bytes(S_TXT))[0]:.4f} ms")
@@ -577,10 +568,10 @@ def kernel_phase(dev):
     record("qkv_rope_producer", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
            "nunchaku_tpu/ops/attention.py:158", f"B=1 S={s} H={HEADS} D={HD} R={RANK}", ok and ok2,
            max(err, err2), detail + f"; dual block: {detail2}",
-           cuda_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50),
-           cuda_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5),
+           time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50),
+           time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5),
            bound(rope_bytes(s), bf16_ops=2 * s * 3 * HEADS * HD * RANK),
-           cuda_ms(lambda: torch.matmul(la16, pu), 50))
+           time_ms(lambda: torch.matmul(la16, pu), 50))
     del streams, cos, sin, qkv, la, pu, la16
 
     # 3'. grouped consumer, gated-residual mode with extra and extra low-rank:
@@ -592,11 +583,11 @@ def kernel_phase(dev):
     record("gemm_w8a8_grouped_res", "nunchaku_tpu_torch/csrc/gemm_w8a8_grouped.cu",
            "nunchaku_tpu/ops/gemm.py:395", f"M={m} K={k} N={n} G={g} R={RANK} +x,gate,extra,extra_lora",
            ok, err, detail,
-           cuda_ms(lambda: gemm_w8a8_grouped_res(*args), 20),
-           cuda_ms(lambda: gemm_w8a8_grouped_plain(*args), 3),
+           time_ms(lambda: gemm_w8a8_grouped_res(*args), 20),
+           time_ms(lambda: gemm_w8a8_grouped_plain(*args), 3),
            bound(gemm_bytes(m, k, n, RANK, 2 * m * n) + 4 * g * m + res_bytes(m, n, 1, RANK),
                  2 * m * n * k, 4 * m * n * RANK),
-           cuda_ms(lambda: int8_matmul(qa, w), 20))
+           time_ms(lambda: int8_matmul(qa, w), 20))
     del args, qa, w
 
     # 2', 3' at rank 128 (nunchaku's rank-128 checkpoints): the same FLUX fc1 / fc2 shapes, logged beside the
@@ -610,8 +601,8 @@ def kernel_phase(dev):
              gemm_w8a8_grouped_plain)):
         args = case(m, k, n, 128, device=dev)
         _, ok2, detail = check(*args)
-        ms = cuda_ms(lambda: fn(*args), 20)
-        plain = cuda_ms(lambda: plain_fn(*args), 3)
+        ms = time_ms(lambda: fn(*args), 20)
+        plain = time_ms(lambda: plain_fn(*args), 3)
         if name == "gemm_w8a8_gelu_quant":
             bnd = bound(gemm_bytes(m, k, n, 128, m * n + 4 * (n // 1536) * m + 4 * m * 128) + 4 * n + 2 * n * 128,
                         2 * m * n * k, 4 * m * n * 128)
@@ -635,19 +626,19 @@ def kernel_phase(dev):
         err2, ok2, detail2 = checks.check_flash_online(*args)
         extra = ""
         if s2 == VAE_WHOLE_S:
-            extra = (f"; {cuda_ms(lambda: flash_attention_online(*args), 5):.4f} ms (plain "
-                     f"{cuda_ms(lambda: flash_attention_online_plain(*args), 1, warmup=1):.4f} ms, SDPA "
-                     f"{cuda_ms(lambda: sdpa(*args, scale=1 / math.sqrt(VAE_D)), 5):.4f} ms, bound "
+            extra = (f"; {time_ms(lambda: flash_attention_online(*args), 5):.4f} ms (plain "
+                     f"{time_ms(lambda: flash_attention_online_plain(*args), 1, warmup=1):.4f} ms, SDPA "
+                     f"{time_ms(lambda: sdpa(*args, scale=1 / math.sqrt(VAE_D)), 5):.4f} ms, bound "
                      f"{bound(4 * s2 * VAE_D * 2, bf16_ops=4 * s2 * s2 * VAE_D)[0]:.4f} ms)")
         log(f"[kernel] flash_online @ B=1 H=1 S={s2} D={VAE_D}: {'PASS' if ok2 else 'FAIL'} {detail2}{extra}")
         ok, err = ok and ok2, max(err, err2)
         del args
     record("flash_online", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:607",
            f"B=1 H=1 S={s} D={VAE_D}", ok, err, detail,
-           cuda_ms(lambda: flash_attention_online(q, kk, v), 50),
-           cuda_ms(lambda: flash_attention_online_plain(q, kk, v), 3),
+           time_ms(lambda: flash_attention_online(q, kk, v), 50),
+           time_ms(lambda: flash_attention_online_plain(q, kk, v), 3),
            bound(4 * s * VAE_D * 2, bf16_ops=4 * s * s * VAE_D),
-           cuda_ms(lambda: sdpa(q, kk, v, scale=1 / math.sqrt(VAE_D)), 50))
+           time_ms(lambda: sdpa(q, kk, v, scale=1 / math.sqrt(VAE_D)), 50))
     del q, kk, v
 
     # 11. the kv-mask forms of both flash kernels: Qwen-Image's joint
@@ -657,14 +648,14 @@ def kernel_phase(dev):
     b, s = 2, QWEN_S_TXT + S_IMG
     q, kk, v, mask = checks.flash_masked_case(b, HEADS, QWEN_S_TXT, S_IMG, QWEN_VALID, device=dev)
     nat = (kv_bias(mask, b, s) * math.log(2.0)).to(torch.bfloat16)[:, None, None, :]  # the mask in nats
-    lib_ms = cuda_ms(lambda: sdpa(q, kk, v, attn_mask=nat, scale=math.log(2.0)), 20)
+    lib_ms = time_ms(lambda: sdpa(q, kk, v, attn_mask=nat, scale=math.log(2.0)), 20)
     for name, online, src, line in (("flash_fixed_masked", False, "flash_fixed.cu", 403),
                                     ("flash_online_masked", True, "flash_online.cu", 607)):
         err, ok, detail = checks.check_flash_masked(q, kk, v, mask, online)
         record(name, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/attention.py:{line}",
                f"B={b} H={HEADS} S={s} (S_txt {QWEN_S_TXT}, valid {QWEN_VALID}) D={HD} mask", ok, err, detail,
-               cuda_ms(lambda: checks.run_flash_masked(q, kk, v, mask, online), 20),
-               cuda_ms(lambda: checks.run_flash_masked(q, kk, v, mask, online, plain=True), 3),
+               time_ms(lambda: checks.run_flash_masked(q, kk, v, mask, online), 20),
+               time_ms(lambda: checks.run_flash_masked(q, kk, v, mask, online, plain=True), 3),
                bound(4 * b * s * HEADS * HD * 2 + 4 * b * s, bf16_ops=4 * b * HEADS * s * s * HD), lib_ms)
     del q, kk, v, mask, nat
     torch.cuda.empty_cache()
@@ -685,20 +676,20 @@ def kernel_phase(dev):
         w16 = (w4a4_values(qw, 0, precision=precision) * wsc.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
         record(name, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
                f"M={m} K={k} N={n} R={RANK} {precision}{' unsigned' if unsigned else ''}", ok, err, detail,
-               cuda_ms(lambda: gemm_w4a4(*args, **kw), 20), cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3),
-               w4a4_bound(m, k, n, g), cuda_ms(lambda: torch.matmul(a16, w16), 20))
+               time_ms(lambda: gemm_w4a4(*args, **kw), 20), time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3),
+               w4a4_bound(m, k, n, g), time_ms(lambda: torch.matmul(a16, w16), 20))
         del args, qa, asc, qw, wsc, a16, w16
     # the int4 modes at rank 128 on Qwen-Image's shapes (4096 image rows; qkv, fc2 with unsigned activations)
     for (m, k, n), unsigned in (((S_IMG, DIM, 3 * DIM), False), ((S_IMG, HID, DIM), True)):
         args, kw = checks.w4a4_case(m, k, n, "int4", unsigned, r=128, device=dev)
         _, ok2, detail = checks.check_w4a4(args, kw)
-        ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
-        plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        ms = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        plain = time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
         qa, asc, qw, wsc = args[:4]
         a16 = (w4a4_values(qa, -1, precision="int4", unsigned=unsigned)
                * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
         w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
-        lib = cuda_ms(lambda: torch.matmul(a16, w16), 20)
+        lib = time_ms(lambda: torch.matmul(a16, w16), 20)
         bnd = w4a4_bound(m, k, n, 64, r=128)
         name = "gemm_w4a4_int4" + ("_unsigned" if unsigned else "")
         log(f"[kernel] {name} @ M={m} K={k} N={n} R=128 (Qwen-Image r128): {'PASS' if ok2 else 'FAIL'} {detail}; "
@@ -714,9 +705,9 @@ def kernel_phase(dev):
     for n in (6 * DIM, 3 * DIM):
         args = checks.awq_case(1, DIM, n, device=dev)
         w16 = awq_dequant(*args[1:4])
-        timed[n] = (checks.check_awq(*args), cuda_ms(lambda: awq_w4a16_linear(*args), 200),
-                    cuda_ms(lambda: awq_w4a16_linear_plain(*args), 20), gemv_bound(1, DIM, n),
-                    cuda_ms(lambda: torch.matmul(args[0], w16), 200))
+        timed[n] = (checks.check_awq(*args), time_ms(lambda: awq_w4a16_linear(*args), 200),
+                    time_ms(lambda: awq_w4a16_linear_plain(*args), 20), gemv_bound(1, DIM, n),
+                    time_ms(lambda: torch.matmul(args[0], w16), 200))
         del args, w16
     (err2, ok2, detail2), ms2, plain2, bnd2, lib2 = timed[3 * DIM]
     log(f"[kernel] gemv_awq @ M=1 K={DIM} N={3 * DIM}: {'PASS' if ok2 else 'FAIL'} {detail2}; {ms2:.4f} ms "
@@ -733,6 +724,7 @@ def kernel_phase(dev):
     flux_int8_kernel_rows(dev, record, failed)
     fixed_form_kernel_rows(dev, record, failed)
     last_op_kernel_rows(dev, record, failed)
+    probe_kernel_rows(dev, record, failed)
     return rows, failed
 
 
@@ -761,9 +753,9 @@ def sdxl_kernel_rows(dev, record, failed):
         for skv in (s, SDXL_CTX):
             q, k, v = checks.flash_online_case(1, h, s, skv, SDXL_D, device=dev)
             err, ok, detail = checks.check_flash_online(q, k, v)
-            ms = cuda_ms(lambda: flash_attention_online(q, k, v, out_bshd=True), 50)
-            plain = cuda_ms(lambda: flash_attention_online_plain(q, k, v, out_bshd=True), 3)
-            lib = cuda_ms(lambda: sdpa(q, k, v, scale=1 / math.sqrt(SDXL_D)), 50)
+            ms = time_ms(lambda: flash_attention_online(q, k, v, out_bshd=True), 50)
+            plain = time_ms(lambda: flash_attention_online_plain(q, k, v, out_bshd=True), 3)
+            lib = time_ms(lambda: sdpa(q, k, v, scale=1 / math.sqrt(SDXL_D)), 50)
             bnd = online_bound(1, h, s, skv, SDXL_D)
             res[(h, s, skv)] = (err, ok, detail, ms, plain, bnd, lib)
             oks.append(ok)
@@ -786,11 +778,11 @@ def sdxl_kernel_rows(dev, record, failed):
         qw[k_log // 2:] = 0
         asc[k_log // 64:] = 0
         _, ok, detail = checks.check_w4a4(args, kw)
-        ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
-        plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        ms = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        plain = time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
         a16 = (w4a4_values(qa, -1, precision="int4") * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
         w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
-        lib = cuda_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log]), 20)
+        lib = time_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log]), 20)
         bnd = w4a4_bound(m, k, n, 64, k_ops=k_log)
         log(f"[kernel] gemm_w4a4_int4 @ M={m} K={k_log}{f' (padded {k})' if k != k_log else ''} N={n} R={RANK} "
             f"(SDXL {label}): {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound "
@@ -814,10 +806,10 @@ def packed_kernel_rows(dev, record, failed):
     m = S_IMG + S_TXT
     args = checks.w4a8_case(m, DIM, DIM, RANK, seed=1, device=dev)
     _, ok2, detail2 = checks.check_w4a8(*args)
-    ms2 = cuda_ms(lambda: gemm_w4a8(*args), 20)
+    ms2 = time_ms(lambda: gemm_w4a8(*args), 20)
     bnd2 = bound(w4a8_bytes(m, DIM, DIM), 2 * m * DIM * DIM, 2 * m * DIM * RANK)
     log(f"[kernel] gemm_w4a8 @ M={m} K={DIM} N={DIM} R={RANK} (out projection): {'PASS' if ok2 else 'FAIL'} "
-        f"{detail2}; {ms2:.4f} ms (plain {cuda_ms(lambda: gemm_w4a8_plain(*args), 3):.4f} ms, bound "
+        f"{detail2}; {ms2:.4f} ms (plain {time_ms(lambda: gemm_w4a8_plain(*args), 3):.4f} ms, bound "
         f"{bnd2[0]:.4f} ms by {bnd2[1]}, {100 * bnd2[0] / ms2:.1f}% of bound)")
     if not ok2:
         failed.append("gemm_w4a8@out_projection")
@@ -835,8 +827,8 @@ def packed_kernel_rows(dev, record, failed):
             args = case(r)
             check = checks.check_w4a8_gelu_quant if name == "gemm_w4a8_gelu_quant" else checks.check_w4a8
             err, ok, detail = check(*args)
-            ms = cuda_ms(lambda: fn(*args), 20)
-            plain = cuda_ms(lambda: plain_fn(*args), 3)
+            ms = time_ms(lambda: fn(*args), 20)
+            plain = time_ms(lambda: plain_fn(*args), 3)
             if name == "gemm_w4a8_gelu_quant":
                 bnd = bound(w4a8_bytes(m, k, n, r, out_bytes=gelu_quant_out_bytes(m, n, r)), 2 * m * n * k,
                             4 * m * n * r)
@@ -846,7 +838,7 @@ def packed_kernel_rows(dev, record, failed):
             if r == RANK:
                 qa, w8 = args[0], dequant_w4a8(args[2], args[3])
                 record(name, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/gemm.py:{line}", shape, ok, err,
-                       detail, ms, plain, bnd, cuda_ms(lambda: int8_matmul(qa, w8), 20))
+                       detail, ms, plain, bnd, time_ms(lambda: int8_matmul(qa, w8), 20))
                 del qa, w8
             else:
                 log(f"[kernel] {name} @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain "
@@ -872,11 +864,11 @@ def bs_kernel_rows(dev, record):
     q, k, v, idx, bq, bkv = checks.block_sparse_case(1, HEADS, s, HR_SPARSITY, device=dev)
     nk, kk = -(-s // bkv), idx.shape[-1]
     mask = block_sparse_mask(idx, s, s, bq=bq, bkv=bkv)  # 6.9 GB of bool
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=math.log(2.0)), 3, warmup=1)
+    lib_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask, scale=math.log(2.0)), 3, warmup=1)
     del mask
     torch.cuda.empty_cache()
-    dense_ms = {True: cuda_ms(lambda: flash_attention(q, k, v), 10),
-                False: cuda_ms(lambda: flash_attention_online(q, k, v, scale=1.0, out_bshd=True), 5)}
+    dense_ms = {True: time_ms(lambda: flash_attention(q, k, v), 10),
+                False: time_ms(lambda: flash_attention_online(q, k, v, scale=1.0, out_bshd=True), 5)}
     dense_bound = bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS)[0]
     rq, rk, rv, ridx, rbq, rbkv = checks.block_sparse_case(1, HEADS, RAGGED_S, HR_SPARSITY, seed=1, device=dev)
     tail = -(-RAGGED_S // rbkv) - 1
@@ -888,13 +880,13 @@ def bs_kernel_rows(dev, record):
             f"block {tail} ({RAGGED_S - tail * rbkv} columns) selected by {tail_rows} query blocks, (B, H, S, D) out: "
             f"{'PASS' if ok2 else 'FAIL'} {detail2}")
         err, ok, detail = checks.check_block_sparse(q, k, v, idx, bq, bkv, fixed)
-        ms = cuda_ms(lambda: checks.run_block_sparse(q, k, v, idx, bq, bkv, fixed), 10)
+        ms = time_ms(lambda: checks.run_block_sparse(q, k, v, idx, bq, bkv, fixed), 10)
         log(f"[kernel] {name}: the dense {'flash_fixed' if fixed else 'flash_online'} kernel at the same S "
             f"{dense_ms[fixed]:.4f} ms (bound {dense_bound:.4f} ms); block-sparse / dense {ms / dense_ms[fixed]:.3f}")
         record(name, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/attention.py:{line}",
                f"B=1 H={HEADS} S={s} D={HD}, kk {kk} of {nk} kv blocks of {bkv} per query block of {bq}",
                ok and ok2, max(err, err2), detail + f"; 1536px: {detail2}", ms,
-               cuda_ms(lambda: checks.run_block_sparse(q, k, v, idx, bq, bkv, fixed, plain=True), 1, warmup=1),
+               time_ms(lambda: checks.run_block_sparse(q, k, v, idx, bq, bkv, fixed, plain=True), 1, warmup=1),
                bs_bound(idx, s, s, bq, bkv), lib_ms)
     del q, k, v, idx, rq, rk, rv, ridx
     torch.cuda.empty_cache()
@@ -2282,9 +2274,9 @@ def sana_kernel_rows(dev, record, failed):
     for b in (2, 3):
         q, k, v = checks.flash_online_case(b, SANA_HEADS, SANA_S, SANA_TXT, SANA_D, device=dev)
         err, ok, detail = checks.check_flash_online(q, k, v)
-        ms = cuda_ms(lambda: flash_attention_online(q, k, v, out_bshd=True), 50)
-        plain = cuda_ms(lambda: flash_attention_online_plain(q, k, v, out_bshd=True), 3)
-        lib = cuda_ms(lambda: sdpa(q, k, v, scale=1 / math.sqrt(SANA_D)), 50)
+        ms = time_ms(lambda: flash_attention_online(q, k, v, out_bshd=True), 50)
+        plain = time_ms(lambda: flash_attention_online_plain(q, k, v, out_bshd=True), 3)
+        lib = time_ms(lambda: sdpa(q, k, v, scale=1 / math.sqrt(SANA_D)), 50)
         bnd = online_bound(b, SANA_HEADS, SANA_S, SANA_TXT, SANA_D)
         res[b] = (err, ok, detail, ms, plain, bnd, lib)
         log(f"[kernel] flash_online_d112 @ B={b} H={SANA_HEADS} Sq={SANA_S} Skv={SANA_TXT} D={SANA_D} (SANA cross, "
@@ -2305,11 +2297,11 @@ def sana_kernel_rows(dev, record, failed):
         qw[k_log // 2:] = 0
         asc[k_log // 64:] = 0
         _, ok, detail = checks.check_w4a4(args, kw)
-        ms = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
-        plain = cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
+        ms = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        plain = time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
         a16 = (w4a4_values(qa, -1, precision="int4") * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
         w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
-        lib = cuda_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log, :n_log]), 20)
+        lib = time_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log, :n_log]), 20)
         bnd = w4a4_bound(m, k, n_log, 64, k_ops=k_log)
         log(f"[kernel] gemm_w4a4_int4 @ M={m} K={k_log} (padded {k}) N={n_log} (padded {n}) R={RANK} (SANA {label}): "
             f"{'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound "
@@ -2342,34 +2334,34 @@ def zimage_kernel_rows(dev, record, failed):
         g = 16 if precision == "nvfp4" else 64
         qa, asc, qw, wsc = args[:4]
         stack, ids = checks.stack_case(qw)
-        ms = cuda_ms(lambda: gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=ids[-1]), 20)
-        flat = cuda_ms(lambda: gemm_w4a4(*args, **kw), 20)
+        ms = time_ms(lambda: gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=ids[-1]), 20)
+        flat = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
         a16 = (w4a4_values(qa, -1, precision=precision)
                * asc.float().repeat_interleave(g, dim=0).t()).to(torch.bfloat16)
         w16 = (w4a4_values(qw, 0, precision=precision) * wsc.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
         log(f"[kernel] {name} @ {shape}: stacked {ms:.4f} ms, non-stacked on the same weight {flat:.4f} ms")
         record(name, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
                f"{shape} R={RANK} {precision}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
-               cuda_ms(lambda: gemm_w4a4_plain(*args, **kw), 3), w4a4_bound(m, k, n, g),
-               cuda_ms(lambda: torch.matmul(a16, w16), 20))
+               time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3), w4a4_bound(m, k, n, g),
+               time_ms(lambda: torch.matmul(a16, w16), 20))
         del args, qa, asc, qw, wsc, stack, a16, w16
     qw, rs = checks.dequant_case(k, n, device=dev)
     err, ok, detail = checks.check_dequant_stacked(qw, rs)
     stack, ids = checks.stack_case(qw)
-    ms = cuda_ms(lambda: dequant_w4a8(stack, rs, layer_idx=ids[-1]), 50)
+    ms = time_ms(lambda: dequant_w4a8(stack, rs, layer_idx=ids[-1]), 50)
     log(f"[kernel] dequant_w4a8_stacked @ K={k} N={n}: stacked {ms:.4f} ms, non-stacked "
-        f"{cuda_ms(lambda: dequant_w4a8(qw, rs), 50):.4f} ms")
+        f"{time_ms(lambda: dequant_w4a8(qw, rs), 50):.4f} ms")
     record("dequant_w4a8_stacked", "nunchaku_tpu_torch/csrc/dequant_w4a8.cu", "nunchaku_tpu/ops/gemm.py:1074",
            f"K={k} N={n}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
-           cuda_ms(lambda: dequant_w4a8_plain(qw, rs), 5), bound(deq_bytes(k, n)), None)
+           time_ms(lambda: dequant_w4a8_plain(qw, rs), 5), bound(deq_bytes(k, n)), None)
     del qw, rs, stack
     for r in (128, RANK):
         case = checks.w4a8_case(m, k, n, r, device=dev)
         err, ok, detail = checks.check_w4a8_stacked(*case)
         qa, asc, qw, rs = case[:4]
         stack, ids = checks.stack_case(qw)
-        ms = cuda_ms(lambda: gemm_w4a8(qa, asc, stack, *case[3:], layer_idx=ids[-1]), 20)
-        flat = cuda_ms(lambda: gemm_w4a8(*case), 20)
+        ms = time_ms(lambda: gemm_w4a8(qa, asc, stack, *case[3:], layer_idx=ids[-1]), 20)
+        flat = time_ms(lambda: gemm_w4a8(*case), 20)
         bnd = bound(w4a8_bytes(m, k, n, r), 2 * m * n * k, 2 * m * n * r)
         if r != RANK:
             log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: {'PASS' if ok else 'FAIL'} {detail}; stacked {ms:.4f} ms "
@@ -2381,7 +2373,7 @@ def zimage_kernel_rows(dev, record, failed):
             log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: stacked {ms:.4f} ms, non-stacked {flat:.4f} ms")
             record("gemm_w4a8_stacked", "nunchaku_tpu_torch/csrc/gemm_w4a8.cu", "nunchaku_tpu/ops/gemm.py:281",
                    f"{shape} R={r}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
-                   cuda_ms(lambda: gemm_w4a8_plain(*case), 3), bnd, cuda_ms(lambda: int8_matmul(qa, w8), 20))
+                   time_ms(lambda: gemm_w4a8_plain(*case), 3), bnd, time_ms(lambda: int8_matmul(qa, w8), 20))
             del w8
         del case, qa, asc, qw, rs, stack
     torch.cuda.empty_cache()
@@ -2416,8 +2408,8 @@ def flux_int8_kernel_rows(dev, record, failed):
         run, w, check, args = checks.chain_stacked_case(mode, m, k, n, RANK, device=dev)
         err, ok, detail = checks.check_stacked(run, w, check)
         stack, ids = checks.stack_case(w)
-        ms = cuda_ms(lambda: run(stack, ids[-1]), 20)
-        flat = cuda_ms(lambda: run(w, None), 20)
+        ms = time_ms(lambda: run(stack, ids[-1]), 20)
+        flat = time_ms(lambda: run(w, None), 20)
         w4 = mode.startswith("gemm_w4a8")
         groups = 1 if "rank1" in mode else k // 1536
         if producer:
@@ -2426,21 +2418,21 @@ def flux_int8_kernel_rows(dev, record, failed):
             if w4:
                 bnd = bound(w4a8_bytes(m, k, n, out_bytes=out_b + 4 * n + 2 * n * RANK), 2 * m * n * k,
                             4 * m * n * RANK)
-                plain = cuda_ms(lambda: svdq_gemm_w4a8_gelu_quant_plain(*args), 3)
+                plain = time_ms(lambda: svdq_gemm_w4a8_gelu_quant_plain(*args), 3)
             else:
                 bnd = bound(gemm_bytes(m, k, n, RANK, out_b) + 4 * n + 2 * n * RANK, 2 * m * n * k, 4 * m * n * RANK)
-                plain = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args, ptoken="ptoken" in mode), 3)
+                plain = time_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args, ptoken="ptoken" in mode), 3)
         elif w4:
             bnd = bound(w4a8_bytes(m, k, n, RANK, groups), 2 * m * n * k, 2 * m * n * RANK)
-            plain = cuda_ms(lambda: gemm_w4a8_plain(*args), 3)
+            plain = time_ms(lambda: gemm_w4a8_plain(*args), 3)
         else:
             res = "_res" in mode
             bnd = bound(gemm_bytes(m, k, n, RANK, 2 * m * n) + 4 * groups * m + (res_bytes(m, n, 1, RANK) if res else 0),
                         2 * m * n * k, (4 if res else 2) * m * n * RANK)
-            plain = cuda_ms(lambda: gemm_w8a8_grouped_plain(*args), 3)
+            plain = time_ms(lambda: gemm_w8a8_grouped_plain(*args), 3)
         qa = args[0]
         w8 = dequant_w4a8(w, args[3]) if w4 else w
-        lib = cuda_ms(lambda: int8_matmul(qa, w8), 20)
+        lib = time_ms(lambda: int8_matmul(qa, w8), 20)
         shape = (f"M={m} K={k} N={n} R={RANK}" + (f" G={groups}" if not producer else "")
                  + (" +x,gate,extra,extra_lora" if "_res" in mode else "") + ", stacked: layer 3 of 3")
         log(f"[kernel] {mode} @ {shape}: stacked {ms:.4f} ms, non-stacked on the same weight {flat:.4f} ms")
@@ -2470,11 +2462,11 @@ def fixed_form_kernel_rows(dev, record, failed):
     q, k, v = checks.flash_case(1, HEADS, s, s, HD, device=dev)
     err, ok, detail = checks.check_flash_denom(q, k, v)
     record("flash_fixed_denom", src, "nunchaku_tpu/ops/attention.py:461", f"B=1 H={HEADS} S={s} D={HD}", ok, err,
-           detail, cuda_ms(lambda: flash_attention_denom(q, k, v, scale=1.0), 5),
-           cuda_ms(lambda: checks.by_heads(lambda *a: flash_attention_denom_plain(*a, scale=1.0), q, k, v), 1,
+           detail, time_ms(lambda: flash_attention_denom(q, k, v, scale=1.0), 5),
+           time_ms(lambda: checks.by_heads(lambda *a: flash_attention_denom_plain(*a, scale=1.0), q, k, v), 1,
                    warmup=1),
            bound(4 * s * HEADS * HD * 2 + 4 * HEADS * s, bf16_ops=4 * s * s * HD * HEADS),
-           cuda_ms(lambda: sdpa(q, k, v, scale=math.log(2.0)), 5))
+           time_ms(lambda: sdpa(q, k, v, scale=math.log(2.0)), 5))
     del q, k, v
     torch.cuda.empty_cache()
     err, ok, detail = checks.check_ring_shards(*checks.ring_case(1, HEADS, s, device=dev), SP_SHARDS)
@@ -2486,17 +2478,17 @@ def fixed_form_kernel_rows(dev, record, failed):
     s = S_IMG + S_TXT
     q, k, v = checks.flash_case(1, HEADS, s, s, HD, device=dev)
     err, ok, detail = checks.check_flash_unroll2(q, k, v)
-    lib = cuda_ms(lambda: sdpa(q, k, v, scale=math.log(2.0)), 20)
+    lib = time_ms(lambda: sdpa(q, k, v, scale=math.log(2.0)), 20)
     record("flash_fixed_unroll2", src, "nunchaku_tpu/ops/attention.py:508", f"B=1 H={HEADS} S={s} D={HD}", ok, err,
-           detail, cuda_ms(lambda: flash_attention_unroll2(q, k, v, scale=1.0, out_bshd=True), 20),
-           cuda_ms(lambda: flash_attention_unroll2_plain(q, k, v, 1.0, out_bshd=True), 3),
+           detail, time_ms(lambda: flash_attention_unroll2(q, k, v, scale=1.0, out_bshd=True), 20),
+           time_ms(lambda: flash_attention_unroll2_plain(q, k, v, 1.0, out_bshd=True), 3),
            bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS), lib)
     i8 = checks.flash_i8_case(1, HEADS, s, s, HD, device=dev)  # flash_case's q, k (seed 0) quantized
     err, ok, detail = checks.check_flash_i8(*i8)
     record("flash_fixed_i8", "nunchaku_tpu_torch/csrc/flash_fixed_i8.cu", "nunchaku_tpu/ops/attention.py:563",
            f"B=1 H={HEADS} S={s} D={HD}, int8 q, k", ok, err, detail,
-           cuda_ms(lambda: flash_attention_i8(*i8, out_bshd=True), 20),
-           cuda_ms(lambda: flash_attention_i8_plain(*i8, out_bshd=True), 3),
+           time_ms(lambda: flash_attention_i8(*i8, out_bshd=True), 20),
+           time_ms(lambda: flash_attention_i8_plain(*i8, out_bshd=True), 3),
            bound(s * HEADS * HD * (1 + 1 + 2 + 2) + 8 * s * HEADS, int8_ops=2 * s * s * HD * HEADS,
                  bf16_ops=2 * s * s * HD * HEADS), lib)
     del q, k, v, i8
@@ -2533,42 +2525,42 @@ def last_op_kernel_rows(dev, record, failed):
     args = checks.ln_dual_case(1, m, DIM, RANK, RANK, device=dev)
     err, ok, detail = checks.check_ln_dual(*args)
     x, sc, sh, sma, pda, smb, pdb = args
-    ms = cuda_ms(lambda: ln_mod_quant_int8_dual(*args), 50)
-    two = cuda_ms(lambda: (ln_mod_quant_int8(x, sc, sh, sma, pda), ln_mod_quant_int8(x, sc, sh, smb, pdb)), 50)
+    ms = time_ms(lambda: ln_mod_quant_int8_dual(*args), 50)
+    two = time_ms(lambda: (ln_mod_quant_int8(x, sc, sh, sma, pda), ln_mod_quant_int8(x, sc, sh, smb, pdb)), 50)
     log(f"[kernel] ln_mod_quant_dual: {ms:.4f} ms against two row-6 launches {two:.4f} ms")
     record("ln_mod_quant_dual", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu", "nunchaku_tpu/ops/quantize.py:265",
            f"B=1 S={m} K={DIM} R={RANK}+{RANK}", ok, err, detail, ms,
-           cuda_ms(lambda: ln_mod_quant_int8_dual_plain(*args), 5),
+           time_ms(lambda: ln_mod_quant_int8_dual_plain(*args), 5),
            bound(dual_bytes(m, DIM, RANK, RANK), bf16_ops=2 * m * DIM * 2 * RANK),
-           cuda_ms(lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6), 50))
+           time_ms(lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6), 50))
     del args, x, sc, sh, sma, pda, smb, pdb
 
     streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, 0, device=dev)
     qkv, nq, nk = streams[0][:3]
     q_scale = 1.4426950408889634 / math.sqrt(HD)
     err, ok, detail = checks.check_qkv_prepare(qkv, cos, sin, nq, nk, HEADS, q_scale)
-    ms = cuda_ms(lambda: qkv_prepare(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD, q_scale=q_scale), 50)
-    row7 = cuda_ms(lambda: qkv_rope_producer(qkv, cos, sin, nq, nk, q_scale=q_scale), 50)
+    ms = time_ms(lambda: qkv_prepare(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD, q_scale=q_scale), 50)
+    row7 = time_ms(lambda: qkv_rope_producer(qkv, cos, sin, nq, nk, q_scale=q_scale), 50)
     log(f"[kernel] qkv_prepare: {ms:.4f} ms against row 7's kernel without low-rank operands {row7:.4f} ms")
     record("qkv_prepare", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu", "nunchaku_tpu/ops/attention.py:51",
            f"B=1 S={s} H={HEADS} D={HD}", ok, err, detail, ms,
-           cuda_ms(lambda: qkv_prepare_plain(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD, q_scale=q_scale), 5),
+           time_ms(lambda: qkv_prepare_plain(qkv, cos, sin, nq, nk, heads=HEADS, head_dim=HD, q_scale=q_scale), 5),
            bound(rope_bytes(s, r=0)), None)
     del streams, cos, sin, qkv, nq, nk
 
     q, k, v = checks.flash_bshd_case(1, HEADS, s, s, HD, device=dev)
     err, ok, detail = checks.check_flash_bshd(q, k, v)
-    ms = cuda_ms(lambda: flash_attention_bshd(q, k, v), 20)
-    relayout = cuda_ms(lambda: flash_attention_online(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+    ms = time_ms(lambda: flash_attention_bshd(q, k, v), 20)
+    relayout = time_ms(lambda: flash_attention_online(*(t.transpose(1, 2).contiguous() for t in (q, k, v)),
                                                       out_bshd=True), 20)
     views = [t.transpose(1, 2) for t in (q, k, v)]
     log(f"[kernel] flash_online_bshd: {ms:.4f} ms against row 5's kernel plus the transposed copies of q, k, v "
         f"{relayout:.4f} ms")
     record("flash_online_bshd", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:927",
            f"B=1 S={s} H={HEADS} D={HD}, token-major", ok, err, detail, ms,
-           cuda_ms(lambda: flash_attention_bshd_plain(q, k, v, bkv=ONLINE_BKV), 1, warmup=1),
+           time_ms(lambda: flash_attention_bshd_plain(q, k, v, bkv=ONLINE_BKV), 1, warmup=1),
            bound(4 * s * HEADS * HD * 2, bf16_ops=4 * s * s * HD * HEADS),
-           cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*views), 20))
+           time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*views), 20))
     del q, k, v, views
     torch.cuda.empty_cache()
 
@@ -2576,8 +2568,8 @@ def last_op_kernel_rows(dev, record, failed):
     for r in (RANK, 128):
         args = checks.gelu_quant_case(m, DIM, n, r, device=dev)
         err, ok, detail = checks.check_gelu_quant_pipe(*args)
-        ms = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args, pipelined=True), 20)
-        row2 = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args), 20)
+        ms = time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args, pipelined=True), 20)
+        row2 = time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args), 20)
         bnd = bound(gemm_bytes(m, DIM, n, r, m * n + 4 * (n // 1536) * m + 4 * m * r) + 4 * n + 2 * n * r,
                     2 * m * n * DIM, 4 * m * n * r)
         shape = f"M={m} K={DIM} N={n} R={r}"
@@ -2586,8 +2578,8 @@ def last_op_kernel_rows(dev, record, failed):
             qa, w = args[0], args[2]
             record("gemm_w8a8_gelu_quant_pipe", "nunchaku_tpu_torch/csrc/gemm_w8a8_gelu_quant_pipe.cu",
                    "nunchaku_tpu/ops/gemm.py:790", shape + ", pipelined=True", ok, err, detail, ms,
-                   cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3), bnd,
-                   cuda_ms(lambda: int8_matmul(qa, w), 20))
+                   time_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3), bnd,
+                   time_ms(lambda: int8_matmul(qa, w), 20))
             del qa, w
         else:
             log(f"[kernel] gemm_w8a8_gelu_quant_pipe @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; bound "
@@ -2873,6 +2865,125 @@ def last_ops_phase(dev):
     del lin, x, sc, sh, cos, sin, mlp, att, mlp_p, att_p
     torch.cuda.empty_cache()
     return ok, counts
+
+
+# the GEMM probes' rows: (mode, tools file:line of the TPU kernel body it replaces)
+PROBE_I8_ROWS = (("i32", False, "tools/probe_int8_mxu.py:48"), ("f32", False, "tools/bench_gemm_variants.py:107"),
+                 ("f32", True, "tools/bench_gemm_variants.py:159"))
+PROBE_BF16_ROWS = {("bf16", "bf16", False): "tools/bench_gemm_variants.py:55",
+                   ("i8", "i8", False): "tools/probe_m512.py:47",
+                   ("p4", "p4", False): "tools/bench_gemm_variants.py:70",
+                   ("i8", "i8", True): "tools/bench_gemm_variants.py:81",
+                   ("p4", "i8", True): "tools/bench_gemm_variants.py:96",
+                   ("p4", "p4", True): "tools/bench_gemm_variants.py:118"}
+PROBE_M, PROBE_K, PROBE_N = 4608, 3072, 12288  # bench_gemm_variants.py's shape (row 22a)
+# the bf16-operand forms' order factor is also read at probe_m512's shape and a K 12288 tune shape, two seeds
+PROBE_ORDER_CASES = (((PROBE_M, PROBE_K, PROBE_N), 1), ((512, 3072, 9216), 0), ((512, 3072, 9216), 1),
+                     ((5120, 12288, 3072), 0), ((5120, 12288, 3072), 1))
+
+
+def probe_bytes(form_a, form_w, m, k, n, scaled=False):
+    # a and w in their stored forms (bf16 2 bytes, int8 1, packed int4 half), group scales -> bf16 (M, N)
+    size = {"bf16": 2.0, "i8": 1.0, "p4": 0.5}
+    return size[form_a] * m * k + size[form_w] * k * n + (2 * (k // 64) * (m + n) if scaled else 0) + 2 * m * n
+
+
+def probe_kernel_rows(dev, record, failed):
+    """22a-22e. The two GEMM probe kernels of the ported tools at row 22a's
+    shape (bench_gemm_variants.py: M 4608, K 3072, N 12288), one row per
+    mode, each against its plain version: gemm_probe_i8 with int32 or f32
+    accumulation and the cast epilogue, and f32 with the rank-1 epilogue, at
+    128x128x64 (bit for bit; the mode's other tiles, and the chain GEMMs'
+    own WMMA main loop, checked and logged), torch._int_mm of the product as
+    yardstick; gemm_probe_bf16 in its six operand forms (within one bf16 step
+    up to the f32 sums' order, checks.check_probe_bf16; the detail gives the
+    order factor and that of the product summed in bf16; the factor also
+    logged at PROBE_ORDER_CASES), torch.matmul of the decoded bf16 operands
+    as yardstick (for bf16 x bf16 the same function)."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.gemm_probe import (I8_BUILT, decode_operand, gemm_probe_bf16, gemm_probe_bf16_plain,
+                                                   gemm_probe_i8, gemm_probe_i8_plain, i8_mode)
+    from nunchaku_tpu_torch.ops.reference import int8_matmul
+
+    m, k, n = PROBE_M, PROBE_K, PROBE_N
+    a, w, sa, sw = checks.probe_i8_case(m, k, n, device=dev)
+    lib = time_ms(lambda: int8_matmul(a, w), 20)
+    for acc, rank1, replaces in PROBE_I8_ROWS:
+        sc = (sa, sw) if rank1 else ()
+        bnd = bound(m * k + k * n + 2 * m * n + (4 * (m + n) if rank1 else 0), int8_ops=2 * m * n * k)
+        for tile in I8_BUILT[(acc, rank1)]:
+            err, ok, detail = checks.check_probe_i8(a, w, *sc, acc=acc, tile=tile)
+            ms = time_ms(lambda: gemm_probe_i8(a, w, *sc, acc=acc, tile=tile), 20)
+            name = i8_mode(acc, rank1)
+            if tile == "128x128x64":
+                record(name, "nunchaku_tpu_torch/csrc/gemm_probe_i8.cu", replaces,
+                       f"M={m} K={k} N={n} tile {tile}", ok, err, detail, ms,
+                       time_ms(lambda: gemm_probe_i8_plain(a, w, *sc, acc=acc), 3), bnd, lib)
+            else:
+                log(f"[kernel] {name}@{tile} @ M={m} K={k} N={n}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms "
+                    f"(bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+                if not ok:
+                    failed.append(f"{name}@{tile}")
+    del a, w, sa, sw
+    for (af, wf, scaled), replaces in PROBE_BF16_ROWS.items():
+        args = checks.probe_bf16_case(m, k, n, af, wf, scaled, device=dev)
+        kw = dict(a_form=af, w_form=wf)
+        err, ok, detail = checks.check_probe_bf16(*args, **kw)
+        dec = (decode_operand(args[0], af, args[2], dim=1), decode_operand(args[1], wf, args[3], dim=0))
+        record(f"gemm_probe_bf16_{af}_{wf}{'_scaled' if scaled else ''}", "nunchaku_tpu_torch/csrc/gemm_probe_bf16.cu",
+               replaces, f"M={m} K={k} N={n} a {af}, w {wf}{', group-64 scales' if scaled else ''}", ok, err, detail,
+               time_ms(lambda: gemm_probe_bf16(*args, **kw), 20),
+               time_ms(lambda: gemm_probe_bf16_plain(*args, **kw), 3),
+               bound(probe_bytes(af, wf, m, k, n, scaled), bf16_ops=2 * m * n * k),
+               time_ms(lambda: torch.matmul(*dec), 20))
+        del args, dec
+    for (m2, k2, n2), seed in PROBE_ORDER_CASES:
+        for af, wf, scaled in PROBE_BF16_ROWS:
+            name = f"gemm_probe_bf16_{af}_{wf}{'_scaled' if scaled else ''}"
+            args = checks.probe_bf16_case(m2, k2, n2, af, wf, scaled, seed=seed, device=dev)
+            _, ok, detail = checks.check_probe_bf16(*args, a_form=af, w_form=wf)
+            log(f"[kernel] {name} @ M={m2} K={k2} N={n2} seed {seed}: {'PASS' if ok else 'FAIL'} {detail}")
+            if not ok:
+                failed.append(f"{name} M={m2} seed {seed}")
+            del args
+    torch.cuda.empty_cache()
+
+
+def gemm_probes_phase(dev):
+    """[gemm-probes] The path to the two GEMM probe kernels: the four ported
+    tools' entry points (nunchaku_tpu_torch/tools: bench_gemm_variants,
+    probe_int8_mxu, probe_m512, tune_gemm_impl), each once at its JAX
+    script's sizes and iteration counts, every line logged; counts set to 0
+    just before and read just after. Every built instantiation of both
+    kernels launches, no other kernel but V3's W4A4 GEMM (31 launches of
+    gemm_w4a4_int4); every line has a finite time but probe_int8_mxu's D,
+    which says why it is not expressible on this card. -> (ok, counts)."""
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.ops.gemm_probe import COUNTS
+    from nunchaku_tpu_torch.tools import bench_gemm_variants, probe_int8_mxu, probe_m512, tune_gemm_impl
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = []
+    for mod in (bench_gemm_variants, probe_int8_mxu, probe_m512, tune_gemm_impl):
+        tool = mod.__name__.rsplit(".", 1)[1]
+        t = time.perf_counter()
+        rows += mod.run(dev, log=lambda line, tool=tool: log(f"[gemm-probes] {tool}: {line}"))
+        log(f"[gemm-probes] {tool}: {time.perf_counter() - t:.1f} s")
+    counts = launch_counts()
+    took = time.perf_counter() - t0
+    idle = [name for name in COUNTS if counts[name] == 0]
+    others = {k: v for k, v in counts.items() if v and k not in COUNTS}
+    timed = all(r["ms"] is not None and math.isfinite(r["ms"]) and r["ms"] > 0 for r in rows if not r["note"])
+    notes = [r["name"] for r in rows if r["note"]]
+    ok = not idle and others == {"gemm_w4a4_int4": 31} and timed and notes == ["D. int8 full-K (bk=3072)"]
+    log(f"[gemm-probes] {len(rows)} lines in {took:.1f} s; probe launches "
+        f"{ {k: counts[k] for k in COUNTS} }; other kernels {others} (expected {{'gemm_w4a4_int4': 31}}); not "
+        f"launched: {idle or 'none'}; every line timed: {timed}; not expressible: {notes}: {'PASS' if ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return ok, counts
+
 
 
 def zimage_per_forward(mode: str | None, fused: bool = False, blocks: int = ZI_BLOCKS) -> dict:
@@ -3484,9 +3595,10 @@ def main(argv=None) -> int:
     sp_ok, spcounts, sppaths = sp_phase(dev, args.steps)
     fa_ok, facounts, fapaths = flux_attn_phase(dev)
     lo_ok, locounts = last_ops_phase(dev)
+    gp_ok, gpcounts = gemm_probes_phase(dev)
     counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
               + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) + spcounts.get(k, 0) + facounts.get(k, 0)
-              + locounts[k] for k in counts}
+              + locounts[k] + gpcounts[k] for k in counts}
     for name, row in rows.items():
         row["launches"] = row_launches(name, counts)
     for name, b in per_forward_bounds(cfg).items():
@@ -3527,6 +3639,7 @@ def main(argv=None) -> int:
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
     ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok and lo_ok
+    ok = ok and gp_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -3536,7 +3649,7 @@ def main(argv=None) -> int:
         f"slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
         f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, sp {verdict(sp_ok)}, flux-attn {verdict(fa_ok)}, "
-        f"last-ops {verdict(lo_ok)}")
+        f"last-ops {verdict(lo_ok)}, gemm-probes {verdict(gp_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -8,7 +8,9 @@ fixed-shift kernel also its denominator, two-tile and int8 forms), the online
 flash kernel its head-dim-64 and head-dim-112 and token-major forms, the LN
 producer its dual mode, the qkv producer its prepare mode; every GEMM and dequant
 mode counts in ``ops.gemm.COUNTS``, through one rule: a launch on layer
-``layer_idx`` of a stack counts under the mode's name + ``_stacked``.
+``layer_idx`` of a stack counts under the mode's name + ``_stacked``. The two
+GEMM probe kernels no model path launches count per instantiation in
+``ops.gemm_probe.COUNTS`` (``<mode>@<tile>`` for the int8 one's tiles).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from .attention import (BS_COUNTS, FIXED_FORM_COUNTS, MASKED_COUNTS, ONLINE_DIM_COUNTS, flash_attention,
                         flash_attention_bshd, flash_attention_online, qkv_prepare, qkv_rope_producer)
 from .gemm import COUNTS as GEMM_COUNTS
+from .gemm_probe import COUNTS as PROBE_COUNTS
 from .gemv import awq_w4a16_linear
 from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_dual
 
@@ -36,6 +39,7 @@ KERNEL_WRAPPERS = {
     "flash_online_bshd": flash_attention_bshd,
     **GEMM_COUNTS,  # every GEMM / dequant mode (ops.gemm.MODES) and its stacked form, mode + "_stacked";
     # gemm_w8a8_gelu_quant_pipe (pipelined=True), which has none
+    **PROBE_COUNTS,  # the GEMM probes of nunchaku_tpu_torch/tools (no model path)
 }
 
 

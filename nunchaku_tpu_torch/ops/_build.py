@@ -53,6 +53,8 @@ SIGNATURES = {
     "nt_flash_fixed_denom": [_P] * 5 + [_I] * 4 + [_F, _P],
     "nt_flash_fixed_unroll2": [_P] * 4 + [_I] * 5 + [_F, _P],
     "nt_flash_fixed_i8": [_P] * 6 + [_I] * 5 + [_P],
+    "nt_gemm_probe_i8": [_P] * 5 + [_I] * 6 + [_P],
+    "nt_gemm_probe_bf16": [_P] * 5 + [_I] * 6 + [_P],
 }
 
 _lib: ctypes.CDLL | None = None

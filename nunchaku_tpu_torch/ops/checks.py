@@ -62,6 +62,8 @@ from .gemm import (
     svdq_gemm_w8a8_gelu_quant_plain,
     w4a8_group,
 )
+from .gemm_probe import (I8_TILES, decode_operand, gemm_probe_bf16, gemm_probe_bf16_plain, gemm_probe_i8,
+                         gemm_probe_i8_plain)
 from .quantize import rcp
 from .gemv import awq_w4a16_linear, awq_w4a16_linear_plain
 from .quantize import ln_mod_quant_int8, ln_mod_quant_int8_dual, ln_mod_quant_int8_dual_plain, ln_mod_quant_int8_plain
@@ -957,3 +959,97 @@ def check_gelu_quant_pipe(qa, ascales, w, wscales, la, pu, bias, rsm, pd, act_un
     return float(code_max), ok, (f"== the ordinary producer kernel (qout, qscales, lora_next): {same}; vs twin: "
                                  f"max code diff {code_max} on {frac:.2e} (tol 1 on <=1e-3), scale rel {s_rel:.2e} "
                                  f"(tol 1e-5), lora_next rel {l_rel:.2e} (tol 1e-2)")
+
+
+# ---------------------------------------------------------------------------
+# the GEMM probes (ops/gemm_probe.py; the ported tools, no model path)
+# ---------------------------------------------------------------------------
+
+
+def probe_i8_case(m, k, n, *, seed=0, device="cuda"):
+    """int8 a (M, K) and w (K, N) over [-127, 127) (the probe scripts'
+    draws), w K-contiguous as the tools hold it; rank-1 scales (M,) and (N,)
+    f32 in [0, 1) (bench_gemm_variants' at / wt)."""
+    g = _gen(seed, device)
+    a = torch.randint(-127, 127, (m, k), dtype=torch.int8, device=device, generator=g)
+    w = torch.randint(-127, 127, (n, k), dtype=torch.int8, device=device, generator=g).t()
+    return a, w, torch.rand((m,), device=device, generator=g), torch.rand((n,), device=device, generator=g)
+
+
+def check_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="128x128x64"):
+    """The int8 probe kernel bit for bit its plain version at the tile's K
+    depth (exact int32 products; the same f32 operations in the same order)."""
+    out = gemm_probe_i8(a, w, a_scale, w_scale, acc=acc, tile=tile)
+    ref = gemm_probe_i8_plain(a, w, a_scale, w_scale, acc=acc, bk=I8_TILES[tile][3])
+    err = (out.float() - ref.float()).abs().max().item()
+    same = torch.equal(out, ref)
+    ok = same and bool(torch.isfinite(out.float()).all())
+    return err, ok, f"bit for bit the plain version: {same} (max abs {err:.3e})"
+
+
+def probe_bf16_case(m, k, n, a_form, w_form, scaled, *, seed=0, device="cuda"):
+    """Operands in their stored forms (bench_gemm_variants' draws): bf16
+    normal, int8 codes in [-7, 7], packed int4 bytes over [-127, 127]; with
+    ``scaled``, group-64 scales (K/64, M) and (K/64, N) bf16 in [0, 1)."""
+    g = _gen(seed, device)
+
+    def operand(form, shape, packed_dim):
+        if form == "bf16":
+            return torch.randn(shape, device=device, generator=g).to(torch.bfloat16)
+        if form == "i8":
+            return torch.randint(-7, 8, shape, dtype=torch.int8, device=device, generator=g)
+        shape = tuple(s // 2 if i == packed_dim else s for i, s in enumerate(shape))
+        return torch.randint(-127, 128, shape, dtype=torch.int8, device=device, generator=g)
+
+    a, w = operand(a_form, (m, k), 1), operand(w_form, (k, n), 0)
+    if not scaled:
+        return a, w, None, None
+    return (a, w, torch.rand((k // 64, m), device=device, generator=g).to(torch.bfloat16),
+            torch.rand((k // 64, n), device=device, generator=g).to(torch.bfloat16))
+
+
+# the limit on bf16_order_factor: about twice the largest read on the H100 (0.070 over the six forms at three probe
+# shapes and two seeds, chip_smoke.py's probe rows; 0.003 on the CPU against the JAX bodies, the CPU tests); a
+# product summed in bf16 reads 300 and more
+BF16_ORDER_C = 0.15
+
+
+def bf16_order_factor(out, ref, a_dec, w_dec) -> float:
+    """The least c with |out - ref| <= step + c sqrt(K) 2^-24 sum_k |a_k w_k|
+    at every element, where step is one bf16 step at the larger of |out|
+    and |ref|: how far apart the f32 sums' two orders put the outputs, in
+    units of the size of the rounding of a sum of K terms (sqrt(K) roundings
+    of 2^-24 of sum_k |a_k w_k| at most). The term keeps a sum that cancels
+    to near 0 from being held to a step of its tiny value."""
+    o, r = out.float(), ref.float()
+    mag = torch.maximum(o.abs(), r.abs()).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    unit = math.sqrt(a_dec.shape[1]) * 2.0 ** -24 * (a_dec.float().abs() @ w_dec.float().abs())
+    return ((o - r).abs() - step).clamp_min(0).div(unit.clamp_min(1e-30)).max().item()
+
+
+def bf16_accumulated(a_dec, w_dec, bk=64):
+    """The control a limit on the order must reject: the decoded product
+    with its accumulator held in bf16, one f32 K-tile partial added at a
+    time (what a kernel that sums in bf16 computes)."""
+    acc = torch.zeros((a_dec.shape[0], w_dec.shape[1]), dtype=torch.bfloat16, device=a_dec.device)
+    for k0 in range(0, a_dec.shape[1], bk):
+        acc = (acc.float() + a_dec[:, k0:k0 + bk].float() @ w_dec[k0:k0 + bk].float()).to(torch.bfloat16)
+    return acc
+
+
+def check_probe_bf16(a, w, a_scale=None, w_scale=None, *, a_form="bf16", w_form="bf16"):
+    """The bf16-operand probe kernel against its plain version: within one
+    bf16 step elementwise up to the f32 sums' order, c <= BF16_ORDER_C
+    (:func:`bf16_order_factor`); the same limit rejects the plain product
+    summed in bf16 (:func:`bf16_accumulated`), or the check fails."""
+    kw = dict(a_form=a_form, w_form=w_form)
+    out = gemm_probe_bf16(a, w, a_scale, w_scale, **kw)
+    ref = gemm_probe_bf16_plain(a, w, a_scale, w_scale, **kw)
+    a_dec, w_dec = decode_operand(a, a_form, a_scale, dim=1), decode_operand(w, w_form, w_scale, dim=0)
+    c = bf16_order_factor(out, ref, a_dec, w_dec)
+    control = bf16_order_factor(bf16_accumulated(a_dec, w_dec), ref, a_dec, w_dec)
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = c <= BF16_ORDER_C < control and bool(torch.isfinite(out.float()).all())
+    return err, ok, (f"max abs {err:.3e}; order factor c {c:.4g} (tol {BF16_ORDER_C}; summed in bf16 the plain "
+                     f"product reads {control:.4g})")

@@ -15,27 +15,15 @@ with the card's name and power limit first. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import subprocess
 import sys
 
 import torch
 
 from ..ops import checks
 from ..ops.gemm import chain_tile_n, svdq_gemm_w8a8_gelu_quant
+from .probe_common import nvidia_smi, time_ms
 
 K, N = 3072, 12288  # FLUX.1-dev fc1
-
-
-def cuda_ms(fn, iters: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def main(argv=None) -> int:
@@ -47,15 +35,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("probe_chain_waves: no CUDA device", file=sys.stderr)
         return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(nvidia_smi(), flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     for m in args.m:
         case = checks.gelu_quant_case(m, K, N, args.rank, device="cuda")
         blocks = N // chain_tile_n(N) * (m // 128)
-        pipe = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*case, pipelined=True), args.iters)
-        plain = cuda_ms(lambda: svdq_gemm_w8a8_gelu_quant(*case), args.iters)
+        pipe = time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*case, pipelined=True), args.iters, warmup=1)
+        plain = time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*case), args.iters, warmup=1)
         print(f"M={m} K={K} N={N} R={args.rank}: {blocks} blocks ({blocks / sms:.2f} waves of {sms}), pipelined "
               f"{pipe:.4f} ms, ordinary {plain:.4f} ms, ratio {pipe / plain:.3f}", flush=True)
         del case

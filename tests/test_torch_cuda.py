@@ -17,7 +17,7 @@ import torch
 
 from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
 from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
-from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
+from nunchaku_tpu_torch.ops import checks, gemm_probe, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.attention import (block_sparse_attention, flash_attention, flash_attention_denom,
                                               flash_attention_denom_plain, flash_attention_online, quantize_qk)
@@ -965,3 +965,54 @@ def test_last_ops_counts_and_refusals(dev):
     c = launch_counts()
     assert (c["ln_mod_quant_dual"], c["qkv_prepare"], c["flash_online_bshd"], c["gemm_w8a8_gelu_quant_pipe"]) == (
         1, 1, 1, 1), c
+
+
+# ---------------------------------------------------------------------------
+# the GEMM probe kernels (the ported tools; no model path)
+# ---------------------------------------------------------------------------
+
+# bench_gemm_variants' shape, probe_m512's, a tune_gemm_impl shape
+PROBE_SHAPES = [(4608, 3072, 12288), (512, 3072, 9216), (5120, 12288, 3072)]
+PROBE_I8 = [(acc, rank1, tile) for (acc, rank1), tiles in gemm_probe.I8_BUILT.items() for tile in tiles]
+
+
+@pytest.mark.parametrize("m,k,n", PROBE_SHAPES)
+@pytest.mark.parametrize("acc,rank1,tile", PROBE_I8)
+def test_probe_i8_bit_for_bit(dev, m, k, n, acc, rank1, tile):
+    """Every built instantiation of the int8 probe, bit for bit its plain
+    version, one launch on its own count."""
+    a, w, sa, sw = checks.probe_i8_case(m, k, n, device=dev)
+    reset_launch_counts()
+    _, ok, detail = checks.check_probe_i8(a, w, *((sa, sw) if rank1 else ()), acc=acc, tile=tile)
+    assert ok, detail
+    c = launch_counts()
+    assert c[f"{gemm_probe.i8_mode(acc, rank1)}@{tile}"] == 1 and sum(c.values()) == 1, c
+
+
+@pytest.mark.parametrize("m,k,n", PROBE_SHAPES[:2])
+@pytest.mark.parametrize("a_form,w_form,scaled", gemm_probe.BF16_FORMS)
+def test_probe_bf16_forms(dev, m, k, n, a_form, w_form, scaled):
+    """Every built operand form of the bf16-operand probe within one bf16
+    step of its plain version up to the f32 sums' order."""
+    args = checks.probe_bf16_case(m, k, n, a_form, w_form, scaled, device=dev)
+    reset_launch_counts()
+    _, ok, detail = checks.check_probe_bf16(*args, a_form=a_form, w_form=w_form)
+    assert ok, detail
+    assert launch_counts()[gemm_probe.bf16_mode(a_form, w_form, scaled)] == 1
+
+
+def test_probe_layouts_and_refusals(dev):
+    """W as (K, N) contiguous or as the transposed view of an (N, K) tensor:
+    the same int8 product; refused shapes and forms raise before launching."""
+    a, w, sa, sw = checks.probe_i8_case(256, 512, 256, device=dev)
+    assert torch.equal(gemm_probe.gemm_probe_i8(a, w), gemm_probe.gemm_probe_i8(a, w.contiguous()))
+    assert torch.equal(gemm_probe.gemm_probe_i8(a, w, sa, sw, acc="f32"),
+                       gemm_probe.gemm_probe_i8(a, w.contiguous(), sa, sw, acc="f32"))
+    reset_launch_counts()
+    with pytest.raises(ValueError):
+        gemm_probe.gemm_probe_i8(a[:192], w, tile="256x128x64")
+    with pytest.raises(ValueError):
+        gemm_probe.gemm_probe_i8(a, w, sa, sw, acc="i32")
+    with pytest.raises(ValueError):
+        gemm_probe.gemm_probe_bf16(a, w, a_form="i8", w_form="i8")  # w K-contiguous
+    assert not any(launch_counts().values())
