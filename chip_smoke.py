@@ -6,6 +6,9 @@
 Phases, each fatal on failure:
   1. device    -- the card's name, count, and nvidia-smi's name and power limit;
   2. build     -- nvcc builds every kernel in nunchaku_tpu_torch/csrc for sm_90a;
+                  each kernel on the attention core (flash_sm90.cuh) must show
+                  wgmma (HGMMA) and TMA-load (UTMALDG) instructions in
+                  cuobjdump -sass;
   3. kernels   -- each kernel against its plain PyTorch twin at FLUX.1-dev
                   main-path shapes, its time (CUDA events over warm launches),
                   the plain twin's time, a one-call PyTorch yardstick where one
@@ -143,6 +146,12 @@ Phases, each fatal on failure:
                   steps with the T5-XXL encode, cache="double_fb" at 0.5 and the
                   tiled VAE to an image; launch counts exact (76 stacked chain
                   producers and 76 consumers a forward).
+  5c. rank128  -- FLUX.1-dev at full width with rank-128 low-rank branches in
+                  the turbo configuration, depth cut to 2 dual + 4 single
+                  blocks: one int8 and one w4a8 (dequant route) 1024px forward;
+                  the LN and qkv/RoPE producers at R 128; output finite, launch
+                  counts exact (the rows ln_mod_quant_int8_r128 and
+                  qkv_rope_producer_r128 count these launches);
   6. highres  -- FLUX.1-dev int4 (default configuration) under
                   set_attention_impl("blocksparse", sparsity_ratio=0.5) at
                   2048x2048 from prompts: a stand-in tokenizer, T5-XXL + CLIP-L
@@ -316,6 +325,20 @@ ATTN_FORMS = {"default": ({}, "flash_fixed"), "kv_unroll2": ({"attn_kv_unroll": 
 # rel max distance from the default forward: twice the spread measured on the H100 (1.45e-2 and 1.80e-2: other sums
 # and int8 logits move bf16 attention outputs by a step, and 57 blocks of int8 codes amplify the flips)
 ATTN_TOL = {"kv_unroll2": 3e-2, "int8": 4e-2}
+# the kernels on the Hopper attention core (csrc/flash_sm90.cuh): row -> (policy, head dim, form) of its
+# instantiation flash_sm90_kernel<policy, D, form> (policy 0 fixed shift, 1 online; forms PLAIN 0, MASK 1, IDX 2,
+# DENOM 3, U2 4, TOK 5); the online D 128 plain form (FLUX under fixed_softmax = False) counts as flash_online
+CORE_ROWS = {"flash_fixed": (0, 128, 0), "flash_fixed_masked": (0, 128, 1), "bs_fixed": (0, 128, 2),
+             "flash_fixed_denom": (0, 128, 3), "flash_fixed_unroll2": (0, 128, 4), "flash_online_d64": (1, 64, 0),
+             "flash_online_d112": (1, 112, 0), "flash_online (D 128)": (1, 128, 0), "flash_online_masked": (1, 128, 1),
+             "bs_online": (1, 128, 2), "flash_online_bshd": (1, 128, 5)}
+# [rank128]: FLUX.1-dev at full width with rank-128 low-rank branches, depth cut to 2 dual + 4 single blocks
+R128_LAYERS = (2, 4)
+# turbo launches of one FLUX w4a8 dual and one single block (the dequant route)
+W4A8_TURBO_DUAL = {"dequant_w4a8_stacked": 8, "ln_mod_quant_int8": 4, "qkv_rope_producer": 2,
+                   "gemm_w8a8_gelu_quant": 2, "gemm_w8a8_grouped_res": 2, "flash_fixed": 1}
+W4A8_TURBO_SINGLE = {"dequant_w4a8_stacked": 4, "ln_mod_quant_int8": 2, "qkv_rope_producer": 1,
+                     "gemm_w8a8_gelu_quant": 1, "gemm_w8a8_grouped_res": 1, "flash_fixed": 1}
 PROMPTS = ("an aerial photograph of a coastal city at dawn", "a red bicycle leaning on a brick wall in the rain",
            "a bowl of ramen on a wooden table, studio light")
 
@@ -573,6 +596,7 @@ def kernel_phase(dev):
            bound(rope_bytes(s), bf16_ops=2 * s * 3 * HEADS * HD * RANK),
            time_ms(lambda: torch.matmul(la16, pu), 50))
     del streams, cos, sin, qkv, la, pu, la16
+    producer_rank_rows(dev, record, failed)
 
     # 3'. grouped consumer, gated-residual mode with extra and extra low-rank:
     # single-block fc2 (M 4608, K 12288 in 8 groups, N 3072)
@@ -726,6 +750,138 @@ def kernel_phase(dev):
     last_op_kernel_rows(dev, record, failed)
     probe_kernel_rows(dev, record, failed)
     return rows, failed
+
+
+def producer_rank_rows(dev, record, failed):
+    """6r, 7r. The LN producer and the qkv/RoPE producer at rank 128
+    (nunchaku's rank-128 checkpoints) at FLUX.1-dev's shapes (M 4608, K
+    3072; S 4608, H 24, D 128): each within its rank-32 row's bounds of the
+    twin and bit for bit its rank-32 launch on the shared columns
+    (checks.check_ln_rank, check_qkv_rank), F.layer_norm / the low-rank
+    matmul as yardstick; R 48 checked and logged; the dual producer at R
+    128 + 128 (each head bit for bit a single-mode launch) logged beside two
+    rank-128 row-6 launches."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import qkv_rope_producer, qkv_rope_producer_plain
+    from nunchaku_tpu_torch.ops.quantize import (ln_mod_quant_int8, ln_mod_quant_int8_dual,
+                                                 ln_mod_quant_int8_dual_plain, ln_mod_quant_int8_plain)
+
+    m = s = S_IMG + S_TXT
+    for r in (48, 128):
+        args = checks.ln_mod_quant_case(1, m, DIM, r, device=dev)
+        err, ok, detail = checks.check_ln_rank(*args)
+        ms = time_ms(lambda: ln_mod_quant_int8(*args), 50)
+        bnd = bound(ln_bytes(m, DIM, r), bf16_ops=2 * m * DIM * r)
+        if r == 128:
+            x = args[0]
+            record("ln_mod_quant_int8_r128", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu",
+                   "nunchaku_tpu/ops/quantize.py:149", f"M={m} K={DIM} R={r}", ok, err, detail, ms,
+                   time_ms(lambda: ln_mod_quant_int8_plain(*args), 5), bnd,
+                   time_ms(lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6), 50))
+        else:
+            log(f"[kernel] ln_mod_quant_int8 @ M={m} K={DIM} R={r}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms "
+                f"(bound {bnd[0]:.4f} ms by {bnd[1]})")
+            if not ok:
+                failed.append(f"ln_mod_quant_int8@R{r}")
+        del args
+
+    args = checks.ln_dual_case(1, m, DIM, 128, 128, device=dev)
+    err, ok, detail = checks.check_ln_dual(*args)
+    x, sc, sh, sma, pda, smb, pdb = args
+    ms = time_ms(lambda: ln_mod_quant_int8_dual(*args), 50)
+    two = time_ms(lambda: (ln_mod_quant_int8(x, sc, sh, sma, pda), ln_mod_quant_int8(x, sc, sh, smb, pdb)), 50)
+    plain = time_ms(lambda: ln_mod_quant_int8_dual_plain(*args), 5)
+    bnd = bound(dual_bytes(m, DIM, 128, 128), bf16_ops=2 * m * DIM * 256)
+    log(f"[kernel] ln_mod_quant_dual @ B=1 S={m} K={DIM} R=128+128: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms "
+        f"against two rank-128 row-6 launches {two:.4f} ms (plain {plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})")
+    if not ok:
+        failed.append("ln_mod_quant_dual@R128")
+    del args, x, sc, sh, sma, pda, smb, pdb
+
+    for r in (48, 128):
+        streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, r, device=dev)
+        err, ok, detail = checks.check_qkv_rank(streams, cos, sin)
+        ms = time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50)
+        bnd = bound(rope_bytes(s, r), bf16_ops=2 * s * 3 * HEADS * HD * r)
+        if r == 128:
+            la16, pu = streams[0][3].to(torch.bfloat16), streams[0][4]
+            record("qkv_rope_producer_r128", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
+                   "nunchaku_tpu/ops/attention.py:158", f"B=1 S={s} H={HEADS} D={HD} R={r}", ok, err, detail, ms,
+                   time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5), bnd,
+                   time_ms(lambda: torch.matmul(la16, pu), 50))
+            del la16, pu
+        else:
+            log(f"[kernel] qkv_rope_producer @ B=1 S={s} H={HEADS} D={HD} R={r}: {'PASS' if ok else 'FAIL'} {detail}; "
+                f"{ms:.4f} ms (bound {bnd[0]:.4f} ms by {bnd[1]})")
+            if not ok:
+                failed.append(f"qkv_rope_producer@R{r}")
+        del streams, cos, sin
+
+
+def rank128_phase(dev):
+    """[rank128] FLUX.1-dev at full width (dim 3072, 24 heads) with rank-128
+    low-rank branches (nunchaku's rank-128 checkpoints) in the turbo
+    configuration, depth cut to R128_LAYERS (the producers' work per block
+    does not depend on the depth): one 1024px forward at int8 (the chain
+    kernels) and one at w4a8 (the dequant route), each untimed once first;
+    the LN producer and the qkv/RoPE producer run at R 128. Output finite,
+    launch counts exact. -> (ok, counts of the timed forwards, per-forward
+    counts)."""
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
+    L, Ls = R128_LAYERS
+    ok, total, paths = True, {}, {}
+    for precision in ("int8", "w4a8"):
+        cfg = FluxConfig(precision=precision, rank=128, num_layers=L, num_single_layers=Ls)
+        model = FluxTransformer2DModel.random_init(cfg, seed=16, device=dev)
+        model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        key = f"{precision} r128 turbo"
+        paths[key] = (int8_per_forward(L, Ls, True, False) if precision == "int8" else
+                      {k: L * W4A8_TURBO_DUAL[k] + Ls * W4A8_TURBO_SINGLE[k] for k in W4A8_TURBO_DUAL})
+        gen = torch.Generator(device=dev).manual_seed(17)
+        inputs = (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+                  torch.tensor([1.0], device=dev), make_img_ids(math.isqrt(S_IMG), math.isqrt(S_IMG), dev),
+                  torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+        with torch.no_grad():
+            model(*inputs)  # first use, untimed
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = model(*inputs)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        counts = launch_counts()
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        finite = tuple(out.shape) == (1, S_IMG, 64) and bool(torch.isfinite(out.float()).all())
+        log(f"[rank128] FLUX.1-dev {precision} rank 128, turbo, {L} dual + {Ls} single blocks at dim {cfg.dim}: one "
+            f"1024px forward {dt:.4f} s, output {tuple(out.shape)} finite={finite}")
+        ok = check_counts(key, counts, paths[key], 1, tag="rank128") and finite and ok
+        del model, out
+        torch.cuda.empty_cache()
+    return ok, total, paths
+
+
+def core_sass(path) -> bool:
+    """Each kernel on the attention core in the built library: its wgmma
+    (HGMMA) and TMA-load (UTMALDG) instruction counts in cuobjdump -sass;
+    False if one is missing or either count is 0."""
+    from nunchaku_tpu_torch.ops import _build
+
+    sass = _build.sass_counts(path)
+    ok = True
+    for row, (policy, d, form) in CORE_ROWS.items():
+        found = [c for name, c in sass.items()
+                 if f"flash_sm90_kernel<{policy}, {d}, {form}>" in name.replace("(int)", "")]
+        good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] {row}: flash_sm90_kernel<{policy}, {d}, {form}> "
+            f"{'HGMMA %d, UTMALDG %d' % (found[0]['HGMMA'], found[0]['UTMALDG']) if found else 'not in the library'}: "
+            f"{'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    return ok
 
 
 def online_bound(b, h, sq, skv, d):
@@ -1496,11 +1652,7 @@ def slice_phase(dev, steps: int, requests: int, t5):
         f"random init {time.perf_counter() - t0:.1f} s")
     pipe = FluxPipeline(model, vae=None)
     L, Ls = cfg.num_layers, cfg.num_single_layers
-    # turbo launches of one dual and one single block
-    dual = {"dequant_w4a8_stacked": 8, "ln_mod_quant_int8": 4, "qkv_rope_producer": 2, "gemm_w8a8_gelu_quant": 2,
-            "gemm_w8a8_grouped_res": 2, "flash_fixed": 1}
-    single = {"dequant_w4a8_stacked": 4, "ln_mod_quant_int8": 2, "qkv_rope_producer": 1, "gemm_w8a8_gelu_quant": 1,
-              "gemm_w8a8_grouped_res": 1, "flash_fixed": 1}
+    dual, single = W4A8_TURBO_DUAL, W4A8_TURBO_SINGLE
     paths = {
         "default": {"dequant_w4a8_stacked": 8 * L + 4 * Ls, "gemm_w8a8_gelu_quant": 2 * L + Ls,
                     "gemm_w8a8_grouped": 2 * L + Ls, "flash_fixed": L + Ls},
@@ -3576,6 +3728,7 @@ def main(argv=None) -> int:
         f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s)")
     for ln in info:
         log(f"[build]   {ln}")
+    sass_ok = core_sass(path)
 
     rows, failed = kernel_phase(dev)
     ref_ok = reference_phase(dev)
@@ -3583,6 +3736,7 @@ def main(argv=None) -> int:
     t5, clip = text_encoders(dev)
     slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, t5=t5)
     i8_ok, icounts, ipaths = flux_int8_phase(dev, args.steps, t5)
+    r128_ok, rcounts, rpaths = rank128_phase(dev)
     hr_ok, hcounts, hpaths = highres_phase(dev, args.steps, t5, clip)
     del t5, clip
     torch.cuda.empty_cache()
@@ -3601,6 +3755,11 @@ def main(argv=None) -> int:
               + locounts[k] + gpcounts[k] for k in counts}
     for name, row in rows.items():
         row["launches"] = row_launches(name, counts)
+    # the rank-128 rows count the [rank128] forwards' launches, the other rows those of the rank-32 paths
+    for name in ("ln_mod_quant_int8", "qkv_rope_producer"):
+        rows[f"{name}_r128"]["launches"] = rcounts[name]
+    for name, per in rpaths.items():
+        log(f"[bound] {name}: launches per forward of {R128_LAYERS[0]} dual + {R128_LAYERS[1]} single blocks {per}")
     for name, b in per_forward_bounds(cfg).items():
         per = {p: f[name] for p, f in (paths | ipaths | cpaths).items() if f.get(name)}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
@@ -3639,14 +3798,15 @@ def main(argv=None) -> int:
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
     ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok and lo_ok
-    ok = ok and gp_ok
+    ok = ok and gp_ok and sass_ok and r128_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
 
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
-        f"slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
+        f"core sass {verdict(sass_ok)}, slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, "
+        f"rank128 {verdict(r128_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
         f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, sp {verdict(sp_ok)}, flux-attn {verdict(fa_ok)}, "
         f"last-ops {verdict(lo_ok)}, gemm-probes {verdict(gp_ok)}")

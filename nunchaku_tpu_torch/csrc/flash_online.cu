@@ -1,107 +1,89 @@
-// Online-softmax flash attention, non-causal, one head dim D per instantiation
-// (512: the VAE decoder's single-head mid-block attention; 64: SDXL's
-// self- and cross-attention; 112: SANA's cross-attention; 128 and 256 too).
+// Online-softmax flash attention, non-causal, one head dim D per instantiation:
+// 64 (SDXL's self- and cross-attention), 112 (SANA's cross-attention) and 128
+// (FLUX / Qwen-Image under fixed_softmax = False, with its mask, block-sparse
+// and token-major forms) on the Hopper attention core (flash_sm90.cuh, policy
+// ONLINE); 256 and 512 (the VAE decoder's single-head mid-block attention) on
+// the head-dim split kernel below.
 //
 // Replaces nunchaku_tpu/ops/attention.py _flash_kernel (:607, launched by
 // flash_attention :672 with fixed_softmax=False), with and without its kv
 // mask (:610-613, :634-635), writing (B, H, Sq, D) or, as out_bshd=True,
-// (B, Sq, H*D). Per 32-column kv tile, for each query row:
+// (B, Sq, H*D). Per kv tile of BKV columns (128 on the core, 32 on the split
+// kernel; JAX's tile is up to 1536), for each query row:
 //   s = f32(q . k) * (scale * log2 e) [+ mask[b, col]];   kv columns >= Skv -> -1e30
 //   m_new = max(m, rowmax(s));  p = bf16(exp2(bf16(s - m_new)))
 //   alpha = exp2(m - m_new);  l = l * alpha + sum(f32(p))
 //   acc = acc * alpha + p @ v (f32);  at the end out = bf16(acc / l), (B, H, Sq, D).
-// The exp2 of p is exp2f of the bf16-rounded argument, rounded to bf16 (not
-// the ex2.approx.ftz.bf16x2 instruction); the _rn intrinsics keep nvcc from
+// On the core p is ex2.approx.ftz.bf16x2 of the bf16-rounded argument, two
+// at a time, and alpha ex2.approx.ftz; the split kernel takes exp2f of the
+// bf16-rounded argument, rounded to bf16. The _rn intrinsics keep nvcc from
 // contracting the scale, the subtraction and the l update into FMAs, so the
-// steps round as the plain twin's torch ops do.
+// steps round as the plain twin's torch ops do. The twin rescales at the
+// same tile (ops/attention.py online_tile).
 //
-// Bound on the H100: operations (4*Sq*Skv*D bf16 FLOP per head; at the VAE's
-// S = 4096, D = 512 that is 34 GFLOP against 8 MB of q, k, v and out).
-// Design: mma.sync m16n8k16 in the FlashAttention-2 register layout of
-// flash_fixed.cu, with the head dim split between warps, because a 16 x 512
+// Bound on the H100: operations (4*Sq*Skv*D bf16 FLOP per head), and at D 64
+// the exponentials too (SDXL's self-attention at S 4096, 10 heads: 1.7e8 of
+// them, ~0.045 ms at ~16 ex2 a clock an SM, as long as its products). On the
+// core a consumer's exp2 pass of one tile runs while the tensor cores do the
+// previous tile's p . v, and the two consumer warpgroups of a block interleave
+// too. The core's D 64 takes four k / v stages; D 112 runs as D 128 with the
+// last 16 columns zero (TMA fills them), seven k16 steps of q . k and 112
+// output columns stored. SDXL's cross-attention Skv = 77 is one tile, its
+// columns 77-127 masked; SANA's 300 three, the last holding 44.
+//
+// The mask form (MASK, D 128: Qwen-Image's attention under fixed_softmax =
+// False) adds a (B, S_kv) f32 log2-domain bias, 0 or -1e30 for a bool mask,
+// to the scaled logits. A masked column's -1e30 only becomes a row's running
+// max while every column seen so far was masked (a prompt whose first tile is
+// all padding); the first unmasked tile then rescales l and acc by
+// exp2(-1e30 - m) = 0, and from there on a masked column's p is exp2(-1e30) =
+// 0. Every row of the joint sequence has valid keys (image keys are never
+// masked), so the result is that of the unmasked keys alone.
+//
+// The block-sparse form (IDX, D 128) replaces _bs_kernel (:1153, launched by
+// block_sparse_attention :1241 with fixed_softmax=False): each query row
+// attends only to the kv blocks that select_blocks picked for its query
+// block, read from a (B*H, Sq/bq, kk) int32 id tensor on the card
+// (sparse_walk.cuh); the producer loads, and the consumers walk, the selected
+// blocks' 128-column tiles in ascending order, one rescale a tile. The first
+// tile of a row always holds valid columns (a block starts below Skv), so the
+// running max starts from a real logit; the tail block's tiles past Skv are
+// not visited. With every block selected the output is the dense form's bit
+// for bit.
+//
+// The token-major form (TOK, D 128) replaces _flash_kernel_bshd (:927,
+// launched by flash_attention_bshd :848): q, k, v and the output are (B, S,
+// H, D); the tensor maps view them as (D, H, S, B), so a box of 128 token rows
+// of one head is read at a row stride of H * D and neither side needs a
+// transposed copy in device memory. The JAX kernel's logit factor scale *
+// log2(e) is the wrapper's scale_log2; the loop is the dense one, so the
+// output equals the dense form's on the transposed tensors bit for bit.
+//
+// The split kernel (D 256 and 512): mma.sync m16n8k16 in the FlashAttention-2
+// register layout, with the head dim split between warps, because a 16 x 512
 // f32 accumulator (256 registers a thread) does not fit. A block owns 64
 // query rows of one (batch, head) and runs 8 warps: warp w takes row group
-// w % 4 (16 rows) and head-dim half w / 4 (D/2 columns). For each kv tile a
-// warp computes the partial logits q[:, half] . k[:, half]^T, trades them
-// with its partner warp (w ^ 4) through shared memory, and adds the other
+// w % 4 (16 rows) and head-dim half w / 4 (D/2 columns). For each 32-column kv
+// tile a warp computes the partial logits q[:, half] . k[:, half]^T, trades
+// them with its partner warp (w ^ 4) through shared memory, and adds the other
 // half; float addition commutes, so both warps of a pair hold bit-identical
 // logits, row max, p and alpha. Each then rescales and accumulates its own
 // D/2 output columns (16 x 256 f32 = 128 registers a thread at D = 512). q
 // stays in shared memory and is re-read by ldmatrix for each tile; k and v
 // stream through a two-stage cp.async ring. At D = 512 that is 65 KB of q,
-// 130 KB of k/v stages and 16 KB of logit exchange: one block per SM, and
-// Sq / 64 blocks per (batch, head) (64 at S = 4096: half the SMs idle).
-//
-// At D = 64 (SDXL's UNet: 10 heads over 4096 tokens, 20 over 1024, and
-// cross-attention against 77 text keys) each half is DH = 32 columns, two
-// k16 steps, and the row stride LD = 72 is still an odd number of 16-byte
-// chunks; shared memory is 44 KB. There the exchange is pure overhead: a
-// 16 x 64 accumulator fits one warp's registers, and each tile's logits go
-// through shared memory and a pair barrier only because the kernel is
-// written for D = 512. Cross-attention's Skv = 77 is three tiles, the last
-// holding 13 valid columns and 19 masked to -1e30 (never a row's max: the
-// first tile is all valid).
-//
-// At D = 112 (SANA's cross-attention: 20 heads over 1024 image tokens
-// against 300 text keys) an even split gives 56 columns a half, not a whole
-// number of k16 steps, so the halves are uneven: warp half 0 takes columns
-// 0-63 (four k16 steps, eight n8 output tiles), half 1 columns 64-111
-// (three k16 steps, six n8 tiles). The loops run to the larger half and stop
-// at the warp's own (the bound is uniform across a warp); the exchange is
-// unchanged, and both warps of a pair still hold bit-identical logits
-// because float addition commutes. A static_assert keeps any head dim whose
-// halves are not whole k16 steps from compiling. LD = 120 is an odd number
-// of 16-byte chunks; shared memory is 61 KB (q 15, k/v stages 30, exchange
-// 16), over 48 KB, so the launch raises the block's limit as at D = 512.
-// Skv = 300 is ten tiles, the last holding 12 valid columns.
-//
-// The mask form (MASK = true, built at D = 128: Qwen-Image's attention
-// under fixed_softmax = False) adds a (B, S_kv) f32 log2-domain bias, 0 or
-// -1e30 for a bool mask, to the scaled logits, each thread loading the 8
-// values of its columns of a kv tile before the tile's q . k product, so
-// their latency hides behind it. A masked column's -1e30 only becomes
-// a row's running max while every column seen so far was masked (a prompt
-// whose first tile is all padding); the first unmasked tile then rescales
-// l and acc by exp2(-1e30 - m) = 0, and from there on a masked column's p
-// is exp2(-1e30) = 0. Every row of the joint sequence has valid keys (image
-// keys are never masked), so the result is that of the unmasked keys alone.
-//
-// The block-sparse form (IDX = true, built at D = 128) replaces _bs_kernel
-// (:1153, launched by block_sparse_attention :1241 with fixed_softmax=False):
-// each query row attends only to the kv blocks that select_blocks picked for
-// its query block, read from a (B*H, Sq/bq, kk) int32 id tensor on the card
-// (sparse_walk.cuh); the block walks the selected blocks' 32-column tiles in
-// ascending order and rescales once per tile, where the TPU kernel rescales
-// once per 1536-column block (the plain twin takes this kernel's tiles). The
-// first tile of a row always holds valid columns (a block starts below Skv),
-// so the running max starts from a real logit; the tail block's tiles past
-// Skv are not visited.
-//
-// The token-major form (TOK = true, built at D = 128) replaces
-// _flash_kernel_bshd (:927, launched by flash_attention_bshd :848): q, k, v
-// and the output are (B, S, H, D), and the block reads its head's rows with
-// a row stride of H * D (the cp.async copies take 16-byte pieces of each
-// 256-byte head row wherever it lies), so neither side needs a transposed
-// copy in device memory. The loop is the dense one above: a 32-column kv
-// tile per rescale where the TPU kernel takes 1536, and the JAX kernel's
-// logit factor scale * log2(e) is the wrapper's scale_log2.
-#include "mma.cuh"
-#include "sparse_walk.cuh"
+// 130 KB of k/v stages and 16 KB of logit exchange: one block per SM.
+#include "flash_sm90.cuh"
 
 namespace {
+
+using sm90::bf16_exp2;
+using sm90::quad_max;
 
 constexpr int BQ = 64, BKV = 32, WARPS = 8, THREADS = WARPS * 32;
 constexpr float NEG_INF = -1e30f;
 
-// The head-dim columns of warp half 0 (half 1 takes the rest): D / 2, or 64
-// where D / 2 is not a whole number of k16 steps (D = 112: 64 + 48).
 template <int D>
-__host__ __device__ constexpr int half0() {
-  return (D / 2) % 16 == 0 ? D / 2 : 64;
-}
-
-template <int D>
-struct OnlineSmem {
+struct SplitSmem {
   static constexpr int LD = D + 8;  // bf16 row stride: an odd number of 16-byte chunks
   bf16 q[BQ][LD];
   bf16 k[2][BKV][LD];
@@ -109,17 +91,15 @@ struct OnlineSmem {
   float xs[WARPS][BKV / 2][32];  // partial logits: [warp][fragment value][lane]
 };
 
-// rows [row0, row0 + rows) of a (nrows, D) matrix whose rows lie ld
-// elements apart into a tile; rows past the end are zero-filled without
-// being read
+// rows [row0, row0 + rows) of a (nrows, D) matrix into a tile; rows past the
+// end are zero-filled without being read
 template <int D>
-__device__ __forceinline__ void load_rows(bf16 (*dst)[D + 8], const bf16* src, int row0, int rows,
-                                          int nrows, size_t ld) {
+__device__ __forceinline__ void load_rows(bf16 (*dst)[D + 8], const bf16* src, int row0, int rows, int nrows) {
   for (int c = threadIdx.x; c < rows * (D / 8); c += THREADS) {
     const int r = c / (D / 8), cc = c % (D / 8);
     const int row = row0 + r;
     const bool ok = static_cast<unsigned>(row) < static_cast<unsigned>(nrows);
-    cp_async16(&dst[r][cc * 8], src + static_cast<size_t>(ok ? row : 0) * ld + cc * 8, ok);
+    cp_async16(&dst[r][cc * 8], src + static_cast<size_t>(ok ? row : 0) * D + cc * 8, ok);
   }
 }
 
@@ -127,44 +107,28 @@ __device__ __forceinline__ void pair_sync(int id) {  // the two warps of one row
   asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
 }
 
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float bf16_exp2(float x) {  // bf16(exp2(bf16(x)))
-  return bf2f(__float2bfloat16_rn(exp2f(bf2f(__float2bfloat16_rn(x)))));
-}
-
-template <int D, bool MASK, bool IDX, bool TOK>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    flash_online_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const float* __restrict__ mask,
-                        bf16* __restrict__ out, int H, int Sq, int Skv, float scale_log2,
-                        int bshd, Sparse sp) {
-  constexpr int H0 = half0<D>(), H1 = D - H0, DH = H0 > H1 ? H0 : H1, NT = BKV / 8;
-  static_assert(H0 % 16 == 0 && H1 % 16 == 0, "each warp half must be a whole number of k16 steps");
-  using Smem = OnlineSmem<D>;
+    flash_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                       bf16* __restrict__ out, int H, int Sq, int Skv, float scale_log2, int bshd) {
+  constexpr int DH = D / 2, NT = BKV / 8;
+  static_assert(DH % 16 == 0, "each warp half must be a whole number of k16 steps");
+  using Smem = SplitSmem<D>;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int rg = warp & 3, c0 = (warp >> 2) * H0;  // row group, first head-dim column
-  const int ks = (warp >> 2 ? H1 : H0) / 16;        // this half's k16 steps (n16 pairs of p . v)
-  const int g = lane >> 2, t4 = lane & 3;           // mma fragment row group / column pair
-  const int mi = lane >> 3, mr = lane & 7;          // ldmatrix: which 8x8 matrix, which of its rows
-  // (B, H, S, D): a head's rows D apart from (b, h, 0); token-major (B, S, H, D): H * D apart from (b, 0, h)
-  const size_t ld_in = TOK ? static_cast<size_t>(H) * D : D;
-  const bf16* qp = q + (TOK ? (static_cast<size_t>(b) * Sq * H + h) * D : static_cast<size_t>(bh) * Sq * D);
-  const bf16* kp = k + (TOK ? (static_cast<size_t>(b) * Skv * H + h) * D : static_cast<size_t>(bh) * Skv * D);
-  const bf16* vp = v + (TOK ? (static_cast<size_t>(b) * Skv * H + h) * D : static_cast<size_t>(bh) * Skv * D);
-  const float* mp = MASK ? mask + static_cast<size_t>(b) * Skv : nullptr;
-  const KvWalk<IDX, BKV> walk(sp, bh, q0, Skv);
+  const int rg = warp & 3, c0 = (warp >> 2) * DH;  // row group, first head-dim column
+  const int g = lane >> 2, t4 = lane & 3;          // mma fragment row group / column pair
+  const int mi = lane >> 3, mr = lane & 7;         // ldmatrix: which 8x8 matrix, which of its rows
+  const bf16* qp = q + static_cast<size_t>(bh) * Sq * D;
+  const bf16* kp = k + static_cast<size_t>(bh) * Skv * D;
+  const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
 
-  load_rows<D>(sm.q, qp, q0, BQ, Sq, ld_in);
-  load_rows<D>(sm.k[0], kp, walk.start(0), BKV, Skv, ld_in);
-  load_rows<D>(sm.v[0], vp, walk.start(0), BKV, Skv, ld_in);
+  load_rows<D>(sm.q, qp, q0, BQ, Sq);
+  load_rows<D>(sm.k[0], kp, 0, BKV, Skv);
+  load_rows<D>(sm.v[0], vp, 0, BKV, Skv);
   cp_async_commit();
 
   float o[DH / 8][4];
@@ -175,44 +139,31 @@ __global__ void __launch_bounds__(THREADS, 1)
   float* mine = &sm.xs[warp][0][0];
   const float* theirs = &sm.xs[warp ^ 4][0][0];
 
-  const int nt = walk.nt;
+  const int nt = (Skv + BKV - 1) / BKV;
   for (int t = 0; t < nt; ++t) {
     const int st = t & 1;
     if (t + 1 < nt) {
-      load_rows<D>(sm.k[st ^ 1], kp, walk.start(t + 1), BKV, Skv, ld_in);
-      load_rows<D>(sm.v[st ^ 1], vp, walk.start(t + 1), BKV, Skv, ld_in);
+      load_rows<D>(sm.k[st ^ 1], kp, (t + 1) * BKV, BKV, Skv);
+      load_rows<D>(sm.v[st ^ 1], vp, (t + 1) * BKV, BKV, Skv);
     }
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    const int kv0 = walk.start(t);
+    const int kv0 = t * BKV;
 
-    float mk[NT][2] = {};  // the bias of this thread's columns (0 past Skv: masked below)
-    if (MASK) {
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = kv0 + j * 8 + t4 * 2 + c;
-          if (col < Skv) mk[j][c] = __ldg(mp + col);
-        }
-    }
     float s[NT][4];  // kv tile j, (row g | g+8) x (column pair t4)
 #pragma unroll
     for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
-      if (kk >= ks) continue;  // uniform across the warp
       // q A fragment: matrix mi covers rows +8*(mi&1), columns +8*(mi>>1)
       uint32_t a[4];
-      ldsm_x4(&sm.q[rg * 16 + (mi & 1) * 8 + mr][c0 + kk * 16 + (mi >> 1) * 8], a[0], a[1], a[2],
-              a[3]);
+      ldsm_x4(&sm.q[rg * 16 + (mi & 1) * 8 + mr][c0 + kk * 16 + (mi >> 1) * 8], a[0], a[1], a[2], a[3]);
 #pragma unroll
       for (int j2 = 0; j2 < BKV / 16; ++j2) {
         // matrix mi: kv rows +8*(mi>>1) (next n8 tile), d columns +8*(mi&1) (b1 half)
         uint32_t b0, b1, b2, b3;
-        ldsm_x4(&sm.k[st][j2 * 16 + (mi >> 1) * 8 + mr][c0 + kk * 16 + (mi & 1) * 8], b0, b1, b2,
-                b3);
+        ldsm_x4(&sm.k[st][j2 * 16 + (mi >> 1) * 8 + mr][c0 + kk * 16 + (mi & 1) * 8], b0, b1, b2, b3);
         mma_bf16(s[2 * j2], a, b0, b1);
         mma_bf16(s[2 * j2 + 1], a, b2, b3);
       }
@@ -230,9 +181,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int col = kv0 + j * 8 + t4 * 2 + (e & 1);
-        float x = __fmul_rn(__fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]), scale_log2);
-        if (MASK) x = __fadd_rn(x, mk[j][e & 1]);
-        s[j][e] = static_cast<unsigned>(col) < static_cast<unsigned>(Skv) ? x : NEG_INF;
+        const float x = __fmul_rn(__fadd_rn(s[j][e], theirs[(j * 4 + e) * 32 + lane]), scale_log2);
+        s[j][e] = col < Skv ? x : NEG_INF;
         if (e < 2) mx0 = fmaxf(mx0, s[j][e]); else mx1 = fmaxf(mx1, s[j][e]);
       }
     }
@@ -268,11 +218,9 @@ __global__ void __launch_bounds__(THREADS, 1)
                               pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
 #pragma unroll
       for (int n2 = 0; n2 < DH / 16; ++n2) {
-        if (n2 >= ks) continue;
         // transposed: matrix mi covers kv rows +8*(mi&1) (b1 half), d columns +8*(mi>>1) (next n8 tile)
         uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(&sm.v[st][c * 16 + (mi & 1) * 8 + mr][c0 + n2 * 16 + (mi >> 1) * 8], b0, b1, b2,
-                  b3);
+        ldsm_x4_t(&sm.v[st][c * 16 + (mi & 1) * 8 + mr][c0 + n2 * 16 + (mi >> 1) * 8], b0, b1, b2, b3);
         mma_bf16(o[2 * n2], pa, b0, b1);
         mma_bf16(o[2 * n2 + 1], pa, b2, b3);
       }
@@ -293,7 +241,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   bf16* dst1 = dst0 + 8 * ld;
 #pragma unroll
   for (int n = 0; n < DH / 8; ++n) {
-    if (n >= 2 * ks) continue;
     const int d = n * 8 + t4 * 2;
     if (row0 < Sq)
       *reinterpret_cast<__nv_bfloat162*>(dst0 + d) =
@@ -304,45 +251,51 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
-template <int D, bool MASK, bool IDX, bool TOK = false>
-int launch(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H,
-           int Sq, int Skv, float scale_log2, int bshd, const Sparse& sp, cudaStream_t stream) {
-  static_assert(sizeof(OnlineSmem<D>) <= 232448, "shared memory over the H100's 227 KB");
+template <int D>
+int launch_split(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq, int Skv,
+                 float scale_log2, int bshd, cudaStream_t stream) {
+  static_assert(sizeof(SplitSmem<D>) <= 232448, "shared memory over the H100's 227 KB");
   static bool configured = false;
-  const int smem = static_cast<int>(sizeof(OnlineSmem<D>));
+  const int smem = static_cast<int>(sizeof(SplitSmem<D>));
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_online_kernel<D, MASK, IDX, TOK>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t e = cudaFuncSetAttribute(flash_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_online_kernel<D, MASK, IDX, TOK><<<grid, THREADS, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(mask), static_cast<bf16*>(out), H, Sq, Skv, scale_log2, bshd, sp);
+  flash_split_kernel<D><<<grid, THREADS, smem, stream>>>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                                          static_cast<const bf16*>(v), static_cast<bf16*>(out), H,
+                                                          Sq, Skv, scale_log2, bshd);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int FORM>
+int launch_core(const void* q, const void* k, const void* v, const void* mask, void* out, int B, int H, int Sq,
+                int Skv, int bshd, const Sparse& sp, cudaStream_t stream) {
+  return sm90::launch<sm90::ONLINE, D, FORM>(q, k, v, mask, out, nullptr, B, H, Sq, Skv, bshd, sp, stream);
 }
 
 }  // namespace
 
-// q (B, H, Sq, D), k/v (B, H, Skv, D) bf16, mask null or (B, Skv) f32
-// log2-domain bias (D = 128 only) -> out (B, H, Sq, D) bf16, or (B, Sq, H*D)
+// q (B, H, Sq, D), k/v (B, H, Skv, D) bf16, mask null or a (B, Skv) f32
+// log2-domain bias whose rows are padded with -1e30 to a multiple of 128 (D =
+// 128 only) -> out (B, H, Sq, D) bf16, or (B, Sq, H*D)
 // when bshd != 0; D in {64, 112, 128, 256, 512}; scale_log2 = softmax scale * log2(e), as f32.
 extern "C" int nt_flash_online(const void* q, const void* k, const void* v, const void* mask, void* out,
                                int B, int H, int Sq, int Skv, int D, int bshd, float scale_log2,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Sparse dense{nullptr, 0, 0, 0, 0, 1.f};
+  const Sparse dense{nullptr, 0, 0, 0, 0, scale_log2};
   if (mask) {
     if (D != 128) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<128, true, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
+    return launch_core<128, sm90::MASK>(q, k, v, mask, out, B, H, Sq, Skv, bshd, dense, s);
   }
   switch (D) {
-    case 64: return launch<64, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
-    case 112: return launch<112, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
-    case 128: return launch<128, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
-    case 256: return launch<256, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
-    case 512: return launch<512, false, false>(q, k, v, mask, out, B, H, Sq, Skv, scale_log2, bshd, dense, s);
+    case 64: return launch_core<64, sm90::PLAIN>(q, k, v, nullptr, out, B, H, Sq, Skv, bshd, dense, s);
+    case 112: return launch_core<112, sm90::PLAIN>(q, k, v, nullptr, out, B, H, Sq, Skv, bshd, dense, s);
+    case 128: return launch_core<128, sm90::PLAIN>(q, k, v, nullptr, out, B, H, Sq, Skv, bshd, dense, s);
+    case 256: return launch_split<256>(q, k, v, out, B, H, Sq, Skv, scale_log2, bshd, s);
+    case 512: return launch_split<512>(q, k, v, out, B, H, Sq, Skv, scale_log2, bshd, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -353,17 +306,17 @@ extern "C" int nt_flash_online(const void* q, const void* k, const void* v, cons
 extern "C" int nt_bs_online(const void* q, const void* k, const void* v, const void* idx, void* out, int B,
                             int H, int Sq, int Skv, int nq, int kk, int bq, int bkv, int bshd,
                             float scale_log2, void* stream) {
-  if (bq % BQ || bkv % BKV || kk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (bq % sm90::BQ || bkv % sm90::BKV || kk < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Sparse sp{static_cast<const int*>(idx), nq, kk, bq, bkv, scale_log2};
-  return launch<128, false, true>(q, k, v, nullptr, out, B, H, Sq, Skv, scale_log2, bshd, sp,
-                                  static_cast<cudaStream_t>(stream));
+  return launch_core<128, sm90::IDX>(q, k, v, nullptr, out, B, H, Sq, Skv, bshd, sp,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // Token-major, D = 128: q (B, Sq, H, 128), k/v (B, Skv, H, 128) bf16 -> out
 // (B, Sq, H, 128) bf16; scale_log2 = softmax scale * log2(e), as f32.
 extern "C" int nt_flash_online_bshd(const void* q, const void* k, const void* v, void* out, int B, int H, int Sq,
                                     int Skv, float scale_log2, void* stream) {
-  const Sparse dense{nullptr, 0, 0, 0, 0, 1.f};
-  return launch<128, false, false, true>(q, k, v, nullptr, out, B, H, Sq, Skv, scale_log2, 1, dense,
-                                         static_cast<cudaStream_t>(stream));
+  const Sparse dense{nullptr, 0, 0, 0, 0, scale_log2};
+  return launch_core<128, sm90::TOK>(q, k, v, nullptr, out, B, H, Sq, Skv, 1, dense,
+                                     static_cast<cudaStream_t>(stream));
 }

@@ -20,7 +20,13 @@
 // eight warps multiply it by proj_down on the tensor cores (WMMA bf16, each
 // warp one eighth of K, proj_down's fragments read from L2) and sum their
 // partials in warp order. The JAX kernel's per-block f32 LN temporaries
-// never leave registers here.
+// never leave registers here. The rank R is any multiple of 16 up to 128
+// (the wrapper pads proj_down's columns): a warp holds R / 16 WMMA
+// accumulators, two at R <= 32 (the instantiation these kernels had when
+// they took only R 16 / 32, unchanged), eight above, and the warps'
+// partials, [WARPS][ROWS][R] floats (64 KB a head at R 128), take the
+// dynamic shared memory the y tile leaves behind. Each lora_act element is
+// the same sum in the same order at any R.
 //
 // Dual mode (DUAL = true): replaces _ln_mod_quant2_kernel (:265, launched by
 // ln_mod_quant_int8_dual :292), FLUX's single block, where one modulated
@@ -88,18 +94,18 @@ __device__ __forceinline__ uint2 quant8(const float (&y)[8], const float (&r)[8]
 }
 
 // The lora partial of this warp's K slice, ytile[16, kslice] @ pd[kslice, R],
-// into two 16-column accumulators.
-template <int K>
-__device__ __forceinline__ void lora_partial(wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[2],
+// into R / 16 of NJ 16-column accumulators (R a multiple of 16, R <= 16 NJ).
+template <int K, int NJ>
+__device__ __forceinline__ void lora_partial(wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[NJ],
                                              const bf16* ytile, const bf16* pd, int R, int warp) {
   constexpr int KW = K / WARPS, LDY = K + 8;
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.f);
   for (int kk = warp * KW; kk < (warp + 1) * KW; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
     wmma::load_matrix_sync(a, ytile + kk, LDY);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       if (j * 16 < R) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
         wmma::load_matrix_sync(bfr, pd + static_cast<size_t>(kk) * R + j * 16, R);
@@ -109,21 +115,31 @@ __device__ __forceinline__ void lora_partial(wmma::fragment<wmma::accumulator, 1
   }
 }
 
-// Sum the warps' partials (part: [WARPS][ROWS][32]) in warp order into la.
+// This warp's partials into part ([WARPS][ROWS][R], row stride R).
+template <int NJ>
+__device__ __forceinline__ void lora_stash(float* part, wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[NJ],
+                                           int R, int warp) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (j * 16 < R) wmma::store_matrix_sync(part + warp * ROWS * R + j * 16, acc[j], R, wmma::mem_row_major);
+}
+
+// Sum the warps' partials (part: [WARPS][ROWS][R]) in warp order into la.
 __device__ __forceinline__ void lora_store(const float* part, float* la, int row0, int M, int R) {
   for (int t = threadIdx.x; t < ROWS * R; t += THREADS) {
     const int r = t / R, c = t % R;
     if (row0 + r >= M) continue;
     float s = 0.f;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, part[(w * ROWS + r) * 32 + c]);
+    for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, part[(w * ROWS + r) * R + c]);
     la[static_cast<size_t>(row0 + r) * R + c] = s;
   }
 }
 
 // NV: 16-byte vectors (8 bf16) per lane, K = 256 * NV. DUAL: a second head
-// (hb) beside the first, the modulation required.
-template <int NV, bool DUAL>
+// (hb) beside the first, the modulation required. NJ: 16-column lora
+// accumulators a warp holds for each head (2: R <= 32; 8: R <= 128).
+template <int NV, bool DUAL, int NJ>
 __global__ void __launch_bounds__(THREADS)
     ln_mod_quant_kernel(const bf16* __restrict__ x, const float* __restrict__ sc,
                         const float* __restrict__ sh, int ld, const bf16* __restrict__ smooth,
@@ -134,8 +150,8 @@ __global__ void __launch_bounds__(THREADS)
   bf16* ytile = reinterpret_cast<bf16*>(smem_raw);                                    // [ROWS][LDY]
   float* rsm = reinterpret_cast<float*>(smem_raw + sizeof(bf16) * ROWS * LDY);         // [K]
   float* rsm_b = rsm + K;                            // [K], the second head's (DUAL)
-  float* part = reinterpret_cast<float*>(smem_raw);  // [WARPS][ROWS][32], after the product
-  float* part_b = part + WARPS * ROWS * 32;          // the second head's (DUAL)
+  float* part = reinterpret_cast<float*>(smem_raw);  // [WARPS][ROWS][R], after the product
+  float* part_b = part + WARPS * ROWS * R;           // the second head's [WARPS][ROWS][hb.R] (DUAL)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int row0 = blockIdx.x * ROWS;
 
@@ -254,43 +270,57 @@ __global__ void __launch_bounds__(THREADS)
   __syncthreads();
 
   // lora partial of this warp's K slice: ytile[16, kslice] @ pd[kslice, R]
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2], acc_b[2];
-  lora_partial<K>(acc, ytile, pd, R, warp);
-  if constexpr (DUAL) lora_partial<K>(acc_b, ytile, hb.pd, hb.R, warp);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ], acc_b[DUAL ? NJ : 1];
+  lora_partial<K, NJ>(acc, ytile, pd, R, warp);
+  if constexpr (DUAL) lora_partial<K, NJ>(acc_b, ytile, hb.pd, hb.R, warp);
   __syncthreads();  // the y tile is read; its memory now takes the partials
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (j * 16 < R) wmma::store_matrix_sync(part + warp * ROWS * 32 + j * 16, acc[j], 32, wmma::mem_row_major);
-    if (DUAL && j * 16 < hb.R)
-      wmma::store_matrix_sync(part_b + warp * ROWS * 32 + j * 16, acc_b[j], 32, wmma::mem_row_major);
-  }
+  lora_stash<NJ>(part, acc, R, warp);
+  if constexpr (DUAL) lora_stash<NJ>(part_b, acc_b, hb.R, warp);
   __syncthreads();
   lora_store(part, la, row0, M, R);
   if constexpr (DUAL) lora_store(part_b, hb.la, row0, M, hb.R);
 }
 
+// Dynamic shared memory: the y tile and the smooth factors, or the lora
+// partials of rank(s) R (hb.R), whichever is larger.
 template <int NV, bool DUAL>
-int launch(const void* x, const void* sc, const void* sh, int ld, const void* smooth, const void* pd,
-           void* q, void* asc, void* la, int M, int S, int R, const Head& hb, cudaStream_t stream) {
+constexpr size_t smem_bytes(int R, int Rb) {
   constexpr int K = 256 * NV, HEADS = DUAL ? 2 : 1;
   const size_t tile = sizeof(bf16) * ROWS * (K + 8) + sizeof(float) * K * HEADS;
-  const size_t part = sizeof(float) * WARPS * ROWS * 32 * HEADS;
-  const int smem = static_cast<int>(tile > part ? tile : part);
+  const size_t part = sizeof(float) * WARPS * ROWS * (R + (DUAL ? Rb : 0));
+  return tile > part ? tile : part;
+}
+
+template <int NV, bool DUAL, int NJ>
+int launch(const void* x, const void* sc, const void* sh, int ld, const void* smooth, const void* pd,
+           void* q, void* asc, void* la, int M, int S, int R, const Head& hb, cudaStream_t stream) {
   static bool configured = false;
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(ln_mod_quant_kernel<NV, DUAL>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (!configured) {  // the limit for the largest ranks this instantiation takes
+    cudaError_t e = cudaFuncSetAttribute(ln_mod_quant_kernel<NV, DUAL, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem_bytes<NV, DUAL>(16 * NJ, 16 * NJ)));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
-  ln_mod_quant_kernel<NV, DUAL><<<(M + ROWS - 1) / ROWS, THREADS, smem, stream>>>(
+  const int smem = static_cast<int>(smem_bytes<NV, DUAL>(R, hb.R));
+  ln_mod_quant_kernel<NV, DUAL, NJ><<<(M + ROWS - 1) / ROWS, THREADS, smem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(sc), static_cast<const float*>(sh), ld,
       static_cast<const bf16*>(smooth), static_cast<const bf16*>(pd), static_cast<int8_t*>(q),
       static_cast<float*>(asc), static_cast<float*>(la), M, S, R, hb);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool rank_ok(int R) { return R == 16 || R == 32; }
+// The rank step and limit of the low-rank product: R a multiple of 16, at most 128.
+constexpr int MAX_R = 128;
+bool rank_ok(int R) { return R >= 16 && R <= MAX_R && R % 16 == 0; }
+
+// R <= 32 keeps two accumulators a warp (the kernel as it was built for R 16 / 32), larger ranks eight.
+template <int NV, bool DUAL>
+int dispatch(const void* x, const void* sc, const void* sh, int ld, const void* smooth, const void* pd, void* q,
+             void* asc, void* la, int M, int S, int R, const Head& hb, cudaStream_t stream) {
+  return (R > 32 || hb.R > 32)
+             ? launch<NV, DUAL, 8>(x, sc, sh, ld, smooth, pd, q, asc, la, M, S, R, hb, stream)
+             : launch<NV, DUAL, 2>(x, sc, sh, ld, smooth, pd, q, asc, la, M, S, R, hb, stream);
+}
 
 }  // namespace
 
@@ -298,7 +328,7 @@ bool rank_ok(int R) { return R == 16 || R == 32; }
 // rows of ld floats, row b = batch b, or both null (LayerNorm only),
 // smooth (K,) bf16 | null, proj_down (K, R) bf16
 // -> q (M, K) int8, ascales (M,) f32, lora_act (M, R) f32.
-// Needs K % 256 == 0, K <= 3072, R in {16, 32}.
+// Needs K % 256 == 0, K <= 3072, R a multiple of 16 up to 128.
 extern "C" int nt_ln_mod_quant(const void* x, const void* mod_scale, const void* mod_shift, int ld,
                                const void* smooth, const void* proj_down, void* q, void* ascales,
                                void* lora_act, int M, int S, int K, int R, void* stream) {
@@ -308,7 +338,7 @@ extern "C" int nt_ln_mod_quant(const void* x, const void* mod_scale, const void*
   switch (K / 256) {
 #define NT_LNQ_CASE(nv) \
   case nv:              \
-    return launch<nv, false>(x, mod_scale, mod_shift, ld, smooth, proj_down, q, ascales, lora_act, M, S, R, none, s);
+    return dispatch<nv, false>(x, mod_scale, mod_shift, ld, smooth, proj_down, q, ascales, lora_act, M, S, R, none, s);
     NT_LNQ_CASE(1) NT_LNQ_CASE(2) NT_LNQ_CASE(3) NT_LNQ_CASE(4) NT_LNQ_CASE(5) NT_LNQ_CASE(6)
     NT_LNQ_CASE(7) NT_LNQ_CASE(8) NT_LNQ_CASE(9) NT_LNQ_CASE(10) NT_LNQ_CASE(11) NT_LNQ_CASE(12)
 #undef NT_LNQ_CASE
@@ -320,7 +350,7 @@ extern "C" int nt_ln_mod_quant(const void* x, const void* mod_scale, const void*
 // The dual mode: x and the modulation as above (both required), then two
 // heads, each smooth (K,) bf16 | null and proj_down (K, R) bf16 -> q (M, K)
 // int8, ascales (M,) f32, lora_act (M, R) f32. Needs K % 256 == 0, K <= 3072,
-// each R in {16, 32}.
+// each R a multiple of 16 up to 128.
 extern "C" int nt_ln_mod_quant_dual(const void* x, const void* mod_scale, const void* mod_shift, int ld,
                                     const void* smooth_a, const void* proj_down_a, void* q_a, void* ascales_a,
                                     void* lora_a, const void* smooth_b, const void* proj_down_b, void* q_b,
@@ -334,7 +364,7 @@ extern "C" int nt_ln_mod_quant_dual(const void* x, const void* mod_scale, const 
   switch (K / 256) {
 #define NT_LNQ2_CASE(nv) \
   case nv:               \
-    return launch<nv, true>(x, mod_scale, mod_shift, ld, smooth_a, proj_down_a, q_a, ascales_a, lora_a, M, S, Ra, hb, s);
+    return dispatch<nv, true>(x, mod_scale, mod_shift, ld, smooth_a, proj_down_a, q_a, ascales_a, lora_a, M, S, Ra, hb, s);
     NT_LNQ2_CASE(1) NT_LNQ2_CASE(2) NT_LNQ2_CASE(3) NT_LNQ2_CASE(4) NT_LNQ2_CASE(5) NT_LNQ2_CASE(6)
     NT_LNQ2_CASE(7) NT_LNQ2_CASE(8) NT_LNQ2_CASE(9) NT_LNQ2_CASE(10) NT_LNQ2_CASE(11) NT_LNQ2_CASE(12)
 #undef NT_LNQ2_CASE

@@ -14,9 +14,13 @@
 // write q, k, v once; about 15 operations per element). Design: a block
 // takes 64 tokens of one head (grid: token tiles x heads x batch). With the
 // low-rank term, the block stages bf16(lora_act) of its tokens and the
-// head's three proj_up slices in shared memory and forms the (64 x 32) @
-// (32 x 128) products on the tensor cores (WMMA bf16, f32 accumulate) into
-// a shared f32 tile, section by section. A warp then takes one token at a
+// head's three proj_up slices in shared memory and forms the (64 x R) @
+// (R x 128) products on the tensor cores (WMMA bf16, f32 accumulate) into
+// a shared f32 tile, section by section. R is any multiple of 16 up to 128
+// (the wrapper pads it); the tiles are dynamic shared memory sized by the
+// call's R: at R 128 la 17 KB, proj_up 104 KB and the f32 tile 33 KB, about
+// 152 KB (65 KB at R 32, as when the tile was static). The products sum
+// over R in 16-deep steps in order, so R 32 gives the bits it always gave. A warp then takes one token at a
 // time: each lane holds 4 of the 128 channels (8-byte loads and stores, a
 // token's head row is one 256-byte segment), the RMS sum is a warp
 // shuffle, and roll(a, 64) is a shuffle with lane ^ 16.
@@ -35,15 +39,17 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int D = 128, TS = 64, THREADS = 256, WARPS = THREADS / 32, MAX_R = 32;
-constexpr int LDA = MAX_R + 8, LDP = D + 8, LDL = D + 4;
+constexpr int D = 128, TS = 64, THREADS = 256, WARPS = THREADS / 32, MAX_R = 128;
+constexpr int LDP = D + 8, LDL = D + 4;
 constexpr float EPS = 1e-6f;
 
-struct Smem {
-  bf16 la[TS][LDA];      // bf16(lora_act) of the block's tokens
-  bf16 pu[3][MAX_R][LDP];  // proj_up columns of this head's q, k, v slices
-  float lr[TS][LDL];     // low-rank term of the current section
-};
+// Dynamic shared memory at rank R (a multiple of 16): la [TS][R + 8] bf16(lora_act)
+// of the block's tokens, pu [3][R][LDP] proj_up columns of this head's q, k, v
+// slices, lr [TS][LDL] f32 low-rank term of the current section. Every piece
+// starts on a 32-byte boundary, as WMMA's loads and stores need.
+__host__ __device__ constexpr size_t la_bytes(int R) { return sizeof(bf16) * TS * (R + 8); }
+__host__ __device__ constexpr size_t pu_bytes(int R) { return sizeof(bf16) * 3 * R * LDP; }
+constexpr size_t smem_bytes(int R) { return R > 0 ? la_bytes(R) + pu_bytes(R) + sizeof(float) * TS * LDL : 0; }
 
 __device__ __forceinline__ void load4(float (&d)[4], const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
@@ -69,22 +75,28 @@ __global__ void __launch_bounds__(THREADS)
                     bf16* __restrict__ vo, int S, int H, int S_out, int off, int R_arg, float q_scale,
                     float eps) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int R = PREP ? 0 : R_arg;
+  const int R = PREP ? 0 : R_arg, LDA = R + 8;
+  bf16* sla = reinterpret_cast<bf16*>(smem_raw);                    // [TS][LDA]
+  bf16* spu = reinterpret_cast<bf16*>(smem_raw + la_bytes(R));      // [3][R][LDP]
+  float* slr = reinterpret_cast<float*>(smem_raw + la_bytes(R) + pu_bytes(R));  // [TS][LDL]
   const int s0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int HD = H * D;
   const size_t row_base = static_cast<size_t>(b) * S;  // token row of (b, s0) is row_base + s0
 
-  if (R > 0) {
-    for (int i = threadIdx.x; i < TS * MAX_R; i += THREADS) {
-      const int t = i / MAX_R, r = i % MAX_R;
-      const float v = (s0 + t < S && r < R) ? la[(row_base + s0 + t) * R + r] : 0.f;
-      sm.la[t][r] = __float2bfloat16(v);
-    }
-    for (int i = threadIdx.x; i < 3 * MAX_R * D; i += THREADS) {
-      const int sec = i / (MAX_R * D), r = (i / D) % MAX_R, c = i % D;
-      sm.pu[sec][r][c] = r < R ? pu[static_cast<size_t>(r) * 3 * HD + sec * HD + h * D + c] : __float2bfloat16(0.f);
+  if constexpr (!PREP) {  // PREP: R = 0 at compile time, nothing staged
+    if (R > 0) {
+      for (int i = threadIdx.x; i < TS * R; i += THREADS) {
+        const int t = i / R, r = i % R;
+        const float v = s0 + t < S ? la[(row_base + s0 + t) * R + r] : 0.f;
+        sla[t * LDA + r] = __float2bfloat16(v);
+      }
+      // 16-byte pieces: a proj_up row of the head is 16 of them (LDP keeps each 16-byte aligned)
+      for (int i = threadIdx.x; i < 3 * R * (D / 8); i += THREADS) {
+        const int row = i / (D / 8), c = (i % (D / 8)) * 8, sec = row / R, r = row % R;
+        *reinterpret_cast<uint4*>(spu + row * LDP + c) =
+            *reinterpret_cast<const uint4*>(pu + static_cast<size_t>(r) * 3 * HD + sec * HD + h * D + c);
+      }
     }
   }
 
@@ -93,25 +105,25 @@ __global__ void __launch_bounds__(THREADS)
   for (int sec = 0; sec < 3; ++sec) {
     if (R > 0) {
       __syncthreads();  // staging done / the previous section's lr tile is consumed
-      // (64 x 128) = la (64 x 32) @ pu (32 x 128): warp w takes row tile w / 2, column tiles 4 (w % 2) .. +4
+      // (64 x 128) = la (64 x R) @ pu (R x 128): warp w takes row tile w / 2, column tiles 4 (w % 2) .. +4
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
 #pragma unroll
       for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
       const int fr = warp / 2, fc = (warp % 2) * 4;
 #pragma unroll
-      for (int kk = 0; kk < MAX_R; kk += 16) {
+      for (int kk = 0; kk < R; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, &sm.la[fr * 16][kk], LDA);
+        wmma::load_matrix_sync(a, sla + fr * 16 * LDA + kk, LDA);
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, &sm.pu[sec][kk][(fc + j) * 16], LDP);
+          wmma::load_matrix_sync(bf, spu + (sec * R + kk) * LDP + (fc + j) * 16, LDP);
           wmma::mma_sync(acc[j], a, bf, acc[j]);
         }
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        wmma::store_matrix_sync(&sm.lr[fr * 16][(fc + j) * 16], acc[j], LDL, wmma::mem_row_major);
+        wmma::store_matrix_sync(slr + fr * 16 * LDL + (fc + j) * 16, acc[j], LDL, wmma::mem_row_major);
       __syncthreads();
     }
     const bf16* w = sec == 0 ? nq : nk;
@@ -124,7 +136,7 @@ __global__ void __launch_bounds__(THREADS)
       load4(a, qkv + (row_base + s) * 3 * HD + sec * HD + h * D + c0);
       if (R > 0) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = __fadd_rn(a[i], sm.lr[t][c0 + i]);
+        for (int i = 0; i < 4; ++i) a[i] = __fadd_rn(a[i], slr[t * LDL + c0 + i]);
       }
       if (sec < 2) {
         float ss = 0.f;
@@ -158,18 +170,18 @@ __global__ void __launch_bounds__(THREADS)
 // qkv (B, S, 3*H*128) bf16, cos / sin (S, 128) f32, norm_q / norm_k (128,)
 // bf16, lora_act (B*S, R) f32 | null, proj_up (R, 3*H*128) bf16 | null
 // -> rows [off, off + S) of q, k, v, each (B, H, S_out, 128) bf16.
-// Needs R in {0, 16, 32}.
+// Needs R a multiple of 16 up to 128 (0: no low-rank term).
 extern "C" int nt_qkv_rope_producer(const void* qkv, const void* cos, const void* sin, const void* norm_q,
                                     const void* norm_k, const void* lora_act, const void* proj_up, void* q,
                                     void* k, void* v, int B, int S, int H, int S_out, int off, int R,
                                     float q_scale, void* stream) {
   if (R % 16 != 0 || R > MAX_R || (R > 0 && (lora_act == nullptr || proj_up == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = R > 0 ? static_cast<int>(sizeof(Smem)) : 0;
+  const int smem = static_cast<int>(smem_bytes(R));
   static bool configured = false;
-  if (!configured) {
+  if (!configured) {  // the limit for the largest rank
     cudaError_t e = cudaFuncSetAttribute(qkv_rope_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(sizeof(Smem)));
+                                         static_cast<int>(smem_bytes(MAX_R)));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }

@@ -17,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -125,6 +126,27 @@ def build(log=None) -> Path:
     shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
+
+
+def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG")) -> dict[str, dict[str, int]]:
+    """Per kernel of the built library (demangled name), how many of its
+    SASS instructions (``cuobjdump -sass``) carry each opcode: HGMMA is a
+    wgmma, UTMALDG a TMA tensor load."""
+    tools = Path(_nvcc()).parent
+    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(path)], capture_output=True, text=True,
+                          check=True).stdout
+    per, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            per[fn] = dict.fromkeys(opcodes, 0)
+        elif fn is not None:
+            for op in opcodes:
+                per[fn][op] += op in line
+    names = subprocess.run([str(tools / "cu++filt")], input="\n".join(per), capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    return dict(zip(names, per.values()))
 
 
 def library() -> ctypes.CDLL:

@@ -71,7 +71,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build
-from .quantize import rcp
+from .quantize import KERNEL_MAX_RANK, rcp
 from .reference import RCP127, bf16_matmul
 
 LOG2E = math.log2(math.e)
@@ -81,7 +81,8 @@ KERNEL_HEAD_DIM = 128
 RMS_EPS = 1e-6
 NEG_INF = -1e30
 ONLINE_HEAD_DIMS = (64, 112, 128, 256, 512)  # the online kernel's instantiations
-ONLINE_BKV = 32  # the online kernel's kv tile: its rescale steps
+ONLINE_BKV = 128  # the kv tile of the Hopper attention core (head dims 64-128): the online rescale steps
+SPLIT_BKV = 32  # the kv tile of the head-dim split kernel (head dims 256 and 512)
 MASKED_COUNTS = {"flash_fixed_masked": SimpleNamespace(launches=0),
                  "flash_online_masked": SimpleNamespace(launches=0)}
 # the online kernel at head dim 64 (SDXL) and 112 (SANA), each counted apart
@@ -106,6 +107,13 @@ def kv_bias(kv_mask: torch.Tensor, b: int, skv: int) -> torch.Tensor:
     _build.require(tuple(bias.shape) == (b, skv), f"kv_mask must be (B, S_kv) = ({b}, {skv}), "
                                                   f"got {tuple(bias.shape)}")
     return bias.contiguous()
+
+
+def _tiled_bias(bias: torch.Tensor) -> torch.Tensor:
+    """(B, S_kv) f32 bias -> rows padded with -1e30 to a whole number of the
+    attention core's kv tiles: the kernels copy a tile's bias beside its k."""
+    pad = -bias.shape[1] % ONLINE_BKV
+    return torch.nn.functional.pad(bias, (0, pad), value=NEG_INF).contiguous() if pad else bias
 
 
 def rope_table_halfsplit(rot: torch.Tensor):
@@ -190,8 +198,9 @@ def qkv_rope_producer(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_act=No
         if rp != r:
             la = torch.nn.functional.pad(la, (0, rp - r))
             pu = torch.nn.functional.pad(pu, (0, 0, 0, rp - r))
-        la, pu, r = la.contiguous(), pu.contiguous(), rp
-        _build.require(r <= 32 and tuple(pu.shape) == (r, n3), "lora: rank <= 32 and proj_up (R, 3HD)")
+        la, pu, r = la.contiguous(), _aligned16(pu), rp
+        _build.require(r <= KERNEL_MAX_RANK and tuple(pu.shape) == (r, n3),
+                       f"lora: rank <= {KERNEL_MAX_RANK} (the qkv producer kernel's limit) and proj_up (R, 3HD)")
     nq, nk = norm_q.contiguous(), norm_k.contiguous()
     lib = _build.library()
     _build.check(lib.nt_qkv_rope_producer(
@@ -267,8 +276,9 @@ def _fixed_operands(q, k, v):
     skv = k.shape[2]
     _build.require(d == KERNEL_HEAD_DIM, f"flash kernel is built for head_dim {KERNEL_HEAD_DIM}, got {d}")
     _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "flash kernel takes bf16 q, k, v")
-    _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d), "k and v must be (B, H, Skv, D) like q")
-    return q.contiguous(), k.contiguous(), v.contiguous()
+    _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d) and skv > 0,
+                   "k and v must be (B, H, Skv, D) like q, Skv > 0")
+    return _aligned16(q), _aligned16(k), _aligned16(v)
 
 
 def _heads_out(o, out_bshd):
@@ -290,7 +300,7 @@ def flash_attention(q, k, v, kv_mask=None, kv_unroll=1):
     b, h, sq, d = q.shape
     skv = k.shape[2]
     qc, kc, vc = _fixed_operands(q, k, v)
-    bias = None if kv_mask is None else kv_bias(kv_mask.to(q.device), b, skv)
+    bias = None if kv_mask is None else _tiled_bias(kv_bias(kv_mask.to(q.device), b, skv))
     out = torch.empty((b, sq, h * d), dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
     _build.check(lib.nt_flash_fixed(qc.data_ptr(), kc.data_ptr(), vc.data_ptr(),
@@ -435,6 +445,20 @@ def flash_attention_i8(q8, qs, k8, ks, v, *, out_bshd=False):
     return out
 
 
+def online_tile(d: int) -> int:
+    """The online kernel's kv tile at head dim ``d``: the columns between
+    two rescales (the core's 128 up to D 128, the split kernel's 32 above)."""
+    return ONLINE_BKV if d <= KERNEL_HEAD_DIM else SPLIT_BKV
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor whose data starts on a 16-byte boundary, as the
+    attention core's tensor maps and the qkv producer's 16-byte copies need
+    (a copy only for a view that does not)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _online_plain(q, k, v, c, bkv, bias=None):
     """The online recurrence over (B, H, S, D) q, k, v with logit factor
     ``c`` and kv chunks of ``bkv`` columns -> (B, H, Sq, D) bf16. The last
@@ -459,11 +483,12 @@ def _online_plain(q, k, v, c, bkv, bias=None):
     return (acc / l).to(torch.bfloat16)
 
 
-def flash_attention_online_plain(q, k, v, scale=None, bkv=ONLINE_BKV, kv_mask=None, out_bshd=False):
+def flash_attention_online_plain(q, k, v, scale=None, bkv=None, kv_mask=None, out_bshd=False):
     """The kernel's recurrence in torch ops, over kv chunks of ``bkv``
-    columns (the kernel's tile by default, so the rescales fall where the
-    kernel's do)."""
+    columns (the kernel's tile at this head dim by default,
+    :func:`online_tile`, so the rescales fall where the kernel's do)."""
     b = q.shape[0]
+    bkv = online_tile(q.shape[-1]) if bkv is None else bkv
     bias = None if kv_mask is None else kv_bias(kv_mask, b, k.shape[2])[:, None, None, :]
     return _heads_out(_online_plain(q, k, v, _logit_scale(scale, q.shape[-1]), bkv, bias), out_bshd)
 
@@ -485,8 +510,8 @@ def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):
     _build.require(all(t.dtype == torch.bfloat16 for t in (q, k, v)), "online flash kernel takes bf16 q, k, v")
     _build.require(tuple(k.shape) == tuple(v.shape) == (b, h, skv, d) and skv > 0,
                    "k and v must be (B, H, Skv, D) like q, Skv > 0")
-    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
-    bias = None if kv_mask is None else kv_bias(kv_mask.to(q.device), b, skv)
+    qc, kc, vc = (_aligned16(t) for t in (q, k, v))
+    bias = None if kv_mask is None else _tiled_bias(kv_bias(kv_mask.to(q.device), b, skv))
     shape = (b, sq, h * d) if out_bshd else (b, h, sq, d)
     out = torch.empty(shape, dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
@@ -541,6 +566,7 @@ def flash_attention_bshd(q, k, v, *, scale=None):
                    "token-major flash kernel takes contiguous bf16 q, k, v")
     _build.require(tuple(k.shape) == tuple(v.shape) == (b, skv, h, d) and skv > 0,
                    "k and v must be (B, Skv, H, D) like q, Skv > 0")
+    q, k, v = (_aligned16(t) for t in (q, k, v))
     out = torch.empty((b, sq, h, d), dtype=torch.bfloat16, device=q.device)
     lib = _build.library()
     _build.check(lib.nt_flash_online_bshd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h, sq, skv,
@@ -659,7 +685,7 @@ def block_sparse_fixed_plain(q, k, v, block_idx, *, scale=None, bq, bkv, out_bsh
 def block_sparse_online_plain(q, k, v, block_idx, *, scale=None, bq, bkv, out_bshd=False, tile=ONLINE_BKV):
     """The online kernel's recurrence in torch ops over the selected blocks
     in ascending order, rescaling once per ``tile`` columns (the kernel's
-    32 by default; the TPU kernel rescales once per block). A tile past Skv
+    128 by default; the TPU kernel rescales once per block). A tile past Skv
     is all -1e30: it leaves m, l and acc exactly as they were, as the kernel
     that skips it does."""
     c = _logit_scale(scale, q.shape[-1])
@@ -711,7 +737,7 @@ def block_sparse_attention(q, k, v, *, sparsity_ratio: float, scale=None, block_
     _build.require(block_idx.dtype == torch.int32 and block_idx.device == q.device and block_idx.dim() == 4
                    and tuple(block_idx.shape[:3]) == (b, h, nq) and block_idx.shape[3] >= 1,
                    f"block_idx must be int32 (B, H, nq={nq}, kk) on q's device")
-    qc, kc, vc, idx = q.contiguous(), k.contiguous(), v.contiguous(), block_idx.contiguous()
+    qc, kc, vc, idx = _aligned16(q), _aligned16(k), _aligned16(v), block_idx.contiguous()
     out = torch.empty((b, sq, h * d) if out_bshd else (b, h, sq, d), dtype=torch.bfloat16, device=q.device)
     name = "bs_fixed" if fixed_softmax else "bs_online"
     lib = _build.library()

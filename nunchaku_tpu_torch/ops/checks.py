@@ -220,7 +220,7 @@ def run_block_sparse(q, k, v, block_idx, bq, bkv, fixed, out_bshd=True, plain=Fa
 
 def check_block_sparse(q, k, v, block_idx, bq, bkv, fixed, out_bshd=True):
     """bf16 output: max error <= 1e-2 of the plain twin's max |value|
-    (the online twin takes the kernel's 32-column rescale steps). Also
+    (the online twin takes the kernel's 128-column rescale steps). Also
     exact: with every kv block selected the kernel walks the dense kernel's
     tiles in the dense kernel's order, so its output equals the dense flash
     kernel's (same softmax form) bit for bit."""
@@ -614,7 +614,8 @@ def check_flash_i8(q8, qs, k8, ks, v):
 
 def check_flash_online(q, k, v):
     """bf16 output, softmax scale 1/sqrt(D): max error <= 1e-2 of the plain
-    output's max |value| (the twin runs the kernel's 32-column kv steps)."""
+    output's max |value| (the twin runs the kernel's kv steps: 128 columns
+    up to head dim 128, 32 above)."""
     out = flash_attention_online(q, k, v)
     ref = flash_attention_online_plain(q, k, v)
     err, rel = _rel(out, ref)
@@ -929,7 +930,7 @@ def flash_bshd_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
 
 def check_flash_bshd(q, k, v):
     """(B, S, H, D) bf16 output: max error <= 1e-2 of the twin's max |value|,
-    the twin at the kernel's 32-column kv tile (row 5's bound); and bit for
+    the twin at the kernel's 128-column kv tile (row 5's bound); and bit for
     bit the online kernel on the transposed tensors, (B, S, H*D) out."""
     out = flash_attention_bshd(q, k, v)
     ref = flash_attention_bshd_plain(q, k, v, bkv=ONLINE_BKV)
@@ -1053,3 +1054,38 @@ def check_probe_bf16(a, w, a_scale=None, w_scale=None, *, a_form="bf16", w_form=
     ok = c <= BF16_ORDER_C < control and bool(torch.isfinite(out.float()).all())
     return err, ok, (f"max abs {err:.3e}; order factor c {c:.4g} (tol {BF16_ORDER_C}; summed in bf16 the plain "
                      f"product reads {control:.4g})")
+
+# ---------------------------------------------------------------------------
+# the producers at ranks above 32
+# ---------------------------------------------------------------------------
+
+
+def check_ln_rank(x, sc, sh, smooth, pd, r_small=32):
+    """The LN producer at rank R = ``pd``'s width: within row 6's bounds of
+    the twin (:func:`check_ln_mod_quant`), and bit for bit a launch with
+    ``pd``'s first ``r_small`` columns in the codes, the scales and those
+    lora_act columns (each lora_act element is the same sum in the same
+    order at any rank)."""
+    err, ok, detail = check_ln_mod_quant(x, sc, sh, smooth, pd)
+    q, s, la = ln_mod_quant_int8(x, sc, sh, smooth, pd)
+    q2, s2, la2 = ln_mod_quant_int8(x, sc, sh, smooth, pd[:, :r_small].contiguous())
+    same = torch.equal(q, q2) and torch.equal(s, s2) and torch.equal(la[:, :r_small], la2)
+    return err, ok and same, f"{detail}; == the rank-{r_small} launch on its columns: {same}"
+
+
+def check_qkv_rank(streams, cos, sin, r_small=32):
+    """The qkv producer at the streams' rank R: within row 7's bound of the
+    twin (:func:`check_qkv_rope`), and the low-rank operands cut to their
+    first ``r_small`` columns / rows give, zero-padded back to R, the
+    outputs of the rank-``r_small`` launch bit for bit (the padded steps add
+    exact zeros)."""
+    err, ok, detail = check_qkv_rope(streams, cos, sin)
+    pad = torch.nn.functional.pad
+    cut = [(qkv, nq, nk, la[..., :r_small].contiguous(), pu[:r_small].contiguous(), off)
+           for qkv, nq, nk, la, pu, off in streams]
+    r = streams[0][3].shape[-1]
+    padded = [(qkv, nq, nk, pad(la, (0, r - r_small)), pad(pu, (0, 0, 0, r - r_small)), off)
+              for qkv, nq, nk, la, pu, off in cut]
+    same = all(torch.equal(a, b) for a, b in zip(run_qkv_rope(qkv_rope_producer, cut, cos, sin),
+                                                 run_qkv_rope(qkv_rope_producer, padded, cos, sin)))
+    return err, ok and same, f"{detail}; rank {r_small} zero-padded to {r} == rank {r_small}: {same}"

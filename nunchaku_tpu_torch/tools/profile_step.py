@@ -74,15 +74,30 @@ import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
-                "flash_fixed_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_online_kernel",
+                "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_split_kernel",
                 "gemm_w4a4_kernel", "gemv_awq_kernel", "gemv_awq_finish", "gemm_w4a8_kernel")
-# template forms with a group of their own: the block-sparse forms of the flash kernels (IDX = true) and the
-# chain producer on packed int4 weights
-FORM_KERNELS = {r"flash_fixed_kernel<\s*false,\s*true\s*>": "bs_fixed (flash_fixed_kernel, IDX)",
-                r"flash_online_kernel<\s*128,\s*false,\s*true\s*>": "bs_online (flash_online_kernel, IDX)",
-                r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)",
-                r"flash_online_kernel<\s*64,": "flash_online_d64 (flash_online_kernel, D 64)",
-                r"flash_online_kernel<\s*112,": "flash_online_d112 (flash_online_kernel, D 112)"}
+
+
+def _core(policy: int, d: int, form: int) -> str:
+    """The pattern of one instantiation flash_sm90_kernel<policy, D, form> of the attention core."""
+    arg = r"\s*(?:\(int\))?"
+    return rf"flash_sm90_kernel<{arg}{policy},{arg}{d},{arg}{form}\s*>"
+
+
+# kernels with a group of their own: each form of the attention core (csrc/flash_sm90.cuh) under the launch
+# count's name, and the chain producer on packed int4 weights
+FORM_KERNELS = {_core(0, 128, 0): "flash_fixed (flash_sm90_kernel)",
+                _core(0, 128, 1): "flash_fixed_masked (flash_sm90_kernel, MASK)",
+                _core(0, 128, 2): "bs_fixed (flash_sm90_kernel, IDX)",
+                _core(0, 128, 3): "flash_fixed_denom (flash_sm90_kernel, DENOM)",
+                _core(0, 128, 4): "flash_fixed_unroll2 (flash_sm90_kernel, U2)",
+                _core(1, 64, 0): "flash_online_d64 (flash_sm90_kernel, D 64)",
+                _core(1, 112, 0): "flash_online_d112 (flash_sm90_kernel, D 112)",
+                _core(1, 128, 0): "flash_online (flash_sm90_kernel, D 128)",
+                _core(1, 128, 1): "flash_online_masked (flash_sm90_kernel, MASK)",
+                _core(1, 128, 2): "bs_online (flash_sm90_kernel, IDX)",
+                _core(1, 128, 5): "flash_online_bshd (flash_sm90_kernel, TOK)",
+                r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 
 
@@ -132,8 +147,8 @@ def group_of(name: str) -> str:
 
 def decode_group_of(name: str) -> str:
     low = name.lower()
-    if "flash_online_kernel" in low:
-        return "port kernel flash_online_kernel (mid-block attention)"
+    if "flash_split_kernel" in low:
+        return "port kernel flash_split_kernel (mid-block attention)"
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return "convolution layout conversions (cuDNN NCHW <-> NHWC)"
     if any(s in low for s in ("conv", "fprop", "implicit", "xmma", "cudnn", "cutlass", "gemm")):

@@ -20,11 +20,13 @@ from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, Qwe
 from nunchaku_tpu_torch.ops import checks, gemm_probe, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.attention import (block_sparse_attention, flash_attention, flash_attention_denom,
-                                              flash_attention_denom_plain, flash_attention_online, quantize_qk)
+                                              flash_attention_denom_plain, flash_attention_online, qkv_rope_producer,
+                                              quantize_qk)
 from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a4, gemm_w4a8, gemm_w4a8_grouped, gemm_w8a8_grouped,
                                          gemm_w8a8_rank1, svdq_gemm_w4a4, svdq_gemm_w4a8_gelu_quant,
                                          svdq_gemm_w8a8_gelu_quant)
 from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
+from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -334,6 +336,72 @@ def test_ln_mod_quant(dev, b, s, k, mod):
                                             (2, (77, 130), 3, 16), (1, (200,), 2, 0)])
 def test_qkv_rope_producer(dev, b, seqs, heads, r):
     _, ok, detail = checks.check_qkv_rope(*checks.qkv_rope_case(b, seqs, heads, r=r, device=dev))
+    assert ok, detail
+
+
+# the producers above rank 32 (nunchaku's rank-128 checkpoints)
+
+
+@pytest.mark.parametrize("r", [48, 128])
+@pytest.mark.parametrize("b,s,k", [(1, 4608, 3072), (2, 300, 768)])
+def test_ln_mod_quant_ranks(dev, b, s, k, r):
+    """Row 6 at R 48 / 128: within its bounds of the twin, and the codes,
+    scales and first 32 lora_act columns bit for bit a rank-32 launch."""
+    _, ok, detail = checks.check_ln_rank(*checks.ln_mod_quant_case(b, s, k, r, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("b,s,k,r1,r2", [(1, 4608, 3072, 128, 128), (2, 300, 512, 48, 128), (1, 77, 256, 128, 16)])
+def test_ln_mod_quant_dual_ranks(dev, b, s, k, r1, r2):
+    """Row 15 at R 48 / 128: each head within row 6's bounds of the twin and
+    bit for bit a single-mode launch with its operands."""
+    _, ok, detail = checks.check_ln_dual(*checks.ln_dual_case(b, s, k, r1, r2, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("r", [48, 128])
+@pytest.mark.parametrize("b,seqs,heads", [(1, (512, 4096), 24), (2, (77, 130), 3)])
+def test_qkv_rope_producer_ranks(dev, b, seqs, heads, r):
+    """Row 7 at R 48 / 128 (shared-buffer calls, ragged token tiles): within
+    its bound of the twin, and rank 32 zero-padded to R bit for bit rank 32."""
+    _, ok, detail = checks.check_qkv_rank(*checks.qkv_rope_case(b, seqs, heads, r=r, device=dev))
+    assert ok, detail
+
+
+def test_producer_rank_refusals(dev):
+    """R 144 raises in both producers, naming the limit; R 128 runs."""
+    x, sc, sh, smooth, pd = checks.ln_mod_quant_case(1, 64, 256, 144, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        ln_mod_quant_int8(x, sc, sh, smooth, pd)
+    ln_mod_quant_int8(x, sc, sh, smooth, pd[:, :128])
+    streams, cos, sin = checks.qkv_rope_case(1, (64,), 2, r=144, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin)
+
+
+# the Hopper attention core (flash_sm90.cuh): every form at ragged shapes against its twin:
+# Skv 77, 300 and 4307 (one, three and 34 kv tiles, each with a ragged last one), Sq off the
+# 128-row tile, B 2
+CORE_FORMS = ["fixed", "denom", "unroll2", "fixed_masked", "online_masked", "online_d64", "online_d112",
+              "online_d128", "bshd"]
+CORE_RAGGED = [(2, 3, 200, 77), (2, 2, 300, 300), (1, 2, 4307, 4307), (2, 2, 130, 4307)]
+
+
+@pytest.mark.parametrize("b,h,sq,skv", CORE_RAGGED)
+@pytest.mark.parametrize("form", CORE_FORMS)
+def test_core_forms_ragged(dev, form, b, h, sq, skv):
+    if form.endswith("masked"):  # a joint [txt; img] sequence, Sq = Skv = S
+        s_txt = min(77, skv // 2)
+        case = checks.flash_masked_case(b, h, s_txt, skv - s_txt, (s_txt // 2, s_txt)[:b], device=dev)
+        _, ok, detail = checks.check_flash_masked(*case, online=form == "online_masked")
+    elif form.startswith("online_d"):
+        _, ok, detail = checks.check_flash_online(*checks.flash_online_case(b, h, sq, skv, int(form[8:]), device=dev))
+    elif form == "bshd":
+        _, ok, detail = checks.check_flash_bshd(*checks.flash_bshd_case(b, h, sq, skv, device=dev))
+    else:
+        check = {"fixed": checks.check_flash, "denom": checks.check_flash_denom,
+                 "unroll2": checks.check_flash_unroll2}[form]
+        _, ok, detail = check(*checks.flash_case(b, h, sq, skv, device=dev))
     assert ok, detail
 
 
@@ -953,8 +1021,8 @@ def test_last_ops_counts_and_refusals(dev):
     x, sc, sh, sma, pda, smb, pdb = checks.ln_dual_case(1, 64, 256, device=dev)
     with pytest.raises(ValueError):  # no modulation: JAX has no such form
         ln_mod_quant_int8_dual(x, None, None, sma, pda, smb, pdb)
-    with pytest.raises(ValueError):  # rank 48 > 32
-        ln_mod_quant_int8_dual(x, sc, sh, sma, pda, smb, torch.cat([pdb, pdb[:, :16]], dim=1))
+    with pytest.raises(ValueError):  # rank 144 > 128
+        ln_mod_quant_int8_dual(x, sc, sh, sma, pda, smb, torch.cat([pdb] * 4 + [pdb[:, :16]], dim=1))
     streams, cos, sin = checks.qkv_rope_case(1, (64,), 2, 64, 0, device=dev)
     with pytest.raises(ValueError):  # head dim 64
         qkv_prepare(streams[0][0], cos, sin, streams[0][1], streams[0][2], heads=2, head_dim=64)

@@ -197,7 +197,7 @@ def test_flash_bshd_tiles():
 
 @pytest.mark.parametrize("scale", [None, 0.05])
 def test_flash_bshd_twin_at_kernel_tile_is_online_twin(scale):
-    """At the kernel's 32-column tile the twin is the online kernel's twin
+    """At the kernel's 128-column tile the twin is the online kernel's twin
     on the transposed tensors, bit for bit (scale None: 1/sqrt(D) in both)."""
     rng = np.random.default_rng(190)
     q, k, v = map(_t, _bshd_inputs(rng, 160, 200))

@@ -157,7 +157,7 @@ FLASH_CASES = {"cross": (2, 2, 256, 300), "ragged": (1, 3, 100, 77)}  # B, H, Sq
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_online_d112_matches_jax(case):
     """The D-112 online flash (scale 1/sqrt(112); the wrapper's CPU path,
-    the kernel's 32-column kv tiles, the ragged tail of Skv 300 and 77 cut
+    the kernel's 128-column kv tiles, the ragged tail of Skv 300 and 77 cut
     off) against JAX ``flash_attention`` (interpret mode): max error <=
     1e-2 of max |ref| (XLA's CPU exp2 of a bf16 argument rounds to another
     neighbour than exp2f on most p: about one bf16 step nearly everywhere).

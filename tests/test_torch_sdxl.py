@@ -16,7 +16,7 @@ tolerance.
 Why the whole-model tolerances are what they are: a 4-bit activation code
 is a seventh of its group's range, so an input one bf16 step apart (an f32
 sum in another order in a GroupNorm or a convolution, the flash twin's
-32-column rescales against JAX's one block) flips codes, and each flip
+128-column rescales against JAX's one block) flips codes, and each flip
 moves a layer's output by a code step. The JAX package's own two int4 GEMM
 routes (``NUNCHAKU_TPU_INT4_XLA=1``, which changes only the summation
 order) end 5.2e-2 apart (max error over max |value|) on the TINY UNet, the
@@ -191,7 +191,7 @@ def jax_flash_out():
 @pytest.mark.parametrize("case", list(FLASH_CASES))
 def test_flash_online_d64_matches_jax(jax_flash_out, case):
     """The D-64 online flash (scale 1/sqrt(64); the wrapper's CPU path, the
-    kernel's 32-column kv tiles, the ragged tail of Skv 77 cut off) against
+    kernel's 128-column kv tiles, the ragged tail of Skv 77 cut off) against
     JAX ``flash_attention`` (interpret mode, one kv block): max error <=
     1e-2 of max |ref|. XLA's CPU exp2 of a bf16 argument rounds to another
     neighbour than exp2f on most p, so the outputs differ by about one bf16

@@ -225,3 +225,22 @@ def test_loader_and_requantize_into_stacks(monkeypatch, tmp_path, precision):
     ckpt.assert_same_as_jax(tm, jax_load_flux(path, precision=precision))
     if precision is None:
         ckpt.assert_same_as_jax(treq.requantize_model(tm, "int8"), jreq.requantize_model(jax_load_flux(path), "int8"))
+
+
+@pytest.mark.parametrize("precision", ["int8", "w4a8"])
+def test_rank128_turbo_matches_jax_scan(monkeypatch, precision):
+    """FLUX at rank 128 (nunchaku's rank-128 checkpoints) in the turbo
+    configuration on stacks: the LN producer, the qkv/RoPE producer (both
+    with a 128-wide low-rank term) and, at int8, the chain kernels; w4a8 on
+    the dequant route (the route that keeps the LN producer). The output
+    within 2e-2 of the JAX scan's, the rank-32 turbo test's bound."""
+    monkeypatch.setenv("NUNCHAKU_TPU_W4A8_XLA", "1")
+    monkeypatch.setenv("NUNCHAKU_TPU_W4A8_FUSED", "0")
+    jm = JaxFlux.random_init(jax.random.PRNGKey(21), JaxFluxConfig(precision=precision, rank=128, **STACKED))
+    tm = flux_from_jax_params({k: np.asarray(v) for k, v in jm.named_parameters()},
+                              FluxConfig(precision=precision, rank=128, **STACKED), device="cpu")
+    jm.set_stream_dtype(jnp.bfloat16).enable_fused_qkv_prep()
+    tm.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    assert tm.transformer_blocks.attn.to_qkv.proj_down.shape[-1] == 128
+    out, ref = _forward(jm, tm)
+    assert _rel(out, ref) <= 2e-2

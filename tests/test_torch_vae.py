@@ -30,7 +30,7 @@ from nunchaku_tpu.ops.attention import flash_attention as jax_flash
 from nunchaku_tpu_torch.convert import to_torch, vae_from_jax_params
 from nunchaku_tpu_torch.models import autoencoder as tvae
 from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
-from nunchaku_tpu_torch.ops.attention import ONLINE_BKV, flash_attention_online, flash_attention_online_plain
+from nunchaku_tpu_torch.ops.attention import ONLINE_BKV, SPLIT_BKV, flash_attention_online, flash_attention_online_plain
 
 TINY = dict(block_out_channels=(32, 32, 32, 32), layers_per_block=1)
 # mid block 128 wide (the flash branch at 32x32), an up block with a shortcut
@@ -108,7 +108,7 @@ def flash_cases():
     return cases
 
 
-@pytest.mark.parametrize("bkv", [ONLINE_BKV, 128])
+@pytest.mark.parametrize("bkv", [SPLIT_BKV, ONLINE_BKV])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_online_plain_matches_pallas(flash_cases, case, bkv):
     (q, k, v), ref = flash_cases[case]
