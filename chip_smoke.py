@@ -270,6 +270,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import sys
 import time
@@ -327,11 +328,20 @@ ATTN_FORMS = {"default": ({}, "flash_fixed"), "kv_unroll2": ({"attn_kv_unroll": 
 ATTN_TOL = {"kv_unroll2": 3e-2, "int8": 4e-2}
 # the kernels on the Hopper attention core (csrc/flash_sm90.cuh): row -> (policy, head dim, form) of its
 # instantiation flash_sm90_kernel<policy, D, form> (policy 0 fixed shift, 1 online; forms PLAIN 0, MASK 1, IDX 2,
-# DENOM 3, U2 4, TOK 5); the online D 128 plain form (FLUX under fixed_softmax = False) counts as flash_online
+# DENOM 3, U2 4, TOK 5, I8 6); the online D 128 plain form (FLUX under fixed_softmax = False) counts as flash_online
 CORE_ROWS = {"flash_fixed": (0, 128, 0), "flash_fixed_masked": (0, 128, 1), "bs_fixed": (0, 128, 2),
-             "flash_fixed_denom": (0, 128, 3), "flash_fixed_unroll2": (0, 128, 4), "flash_online_d64": (1, 64, 0),
-             "flash_online_d112": (1, 112, 0), "flash_online (D 128)": (1, 128, 0), "flash_online_masked": (1, 128, 1),
-             "bs_online": (1, 128, 2), "flash_online_bshd": (1, 128, 5)}
+             "flash_fixed_denom": (0, 128, 3), "flash_fixed_unroll2": (0, 128, 4), "flash_fixed_i8": (0, 128, 6),
+             "flash_online_d64": (1, 64, 0), "flash_online_d112": (1, 112, 0), "flash_online (D 128)": (1, 128, 0),
+             "flash_online_masked": (1, 128, 1), "bs_online": (1, 128, 2), "flash_online_bshd": (1, 128, 5)}
+# the bf16 GEMM probe's instantiations of the GEMM main loop (csrc/gemm_sm90.cuh): its source in the demangled
+# name (template arguments without casts, bools as 0 / 1) -> the row; Decoded<a form, w form, scaled> with forms
+# 1 int8, 2 packed int4
+PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_probe_bf16_i8_i8",
+              "Decoded<2, 2, 0>": "gemm_probe_bf16_p4_p4", "Decoded<1, 1, 1>": "gemm_probe_bf16_i8_i8_scaled",
+              "Decoded<2, 1, 1>": "gemm_probe_bf16_p4_i8_scaled", "Decoded<2, 2, 1>": "gemm_probe_bf16_p4_p4_scaled"}
+# sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
+# C7515: wgmma serialized)
+PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu")
 # [rank128]: FLUX.1-dev at full width with rank-128 low-rank branches, depth cut to 2 dual + 4 single blocks
 R128_LAYERS = (2, 4)
 # turbo launches of one FLUX w4a8 dual and one single block (the dequant route)
@@ -866,20 +876,54 @@ def rank128_phase(dev):
 
 
 def core_sass(path) -> bool:
-    """Each kernel on the attention core in the built library: its wgmma
-    (HGMMA) and TMA-load (UTMALDG) instruction counts in cuobjdump -sass;
-    False if one is missing or either count is 0."""
+    """Each kernel on the attention core and each instantiation of the GEMM
+    main loop in the built library: its wgmma (HGMMA bf16, IGMMA int8) and
+    TMA-load (UTMALDG) instruction counts in cuobjdump -sass; False if one is
+    missing or a count it needs is 0 (the int8 attention form needs IGMMA for
+    q . k and HGMMA for p . v; the coded GEMM forms copy by TMA, decode, and
+    run HGMMA)."""
     from nunchaku_tpu_torch.ops import _build
 
-    sass = _build.sass_counts(path)
+    # demangled template arguments as plain numbers: "(int)1" -> "1", "(bool)0" / "false" -> "0"
+    sass = {re.sub(r"\((?:int|bool)\)", "", name).replace("false", "0").replace("true", "1"): c
+            for name, c in _build.sass_counts(path).items()}
     ok = True
+
+    def show(c):
+        return ", ".join(f"{op} {n}" for op, n in c.items())
+
     for row, (policy, d, form) in CORE_ROWS.items():
         found = [c for name, c in sass.items()
-                 if f"flash_sm90_kernel<{policy}, {d}, {form}>" in name.replace("(int)", "")]
-        good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+                 if f"flash_sm90_kernel<{policy}, {d}, {form}>" in name]
+        good = (len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+                and (form != 6 or found[0]["IGMMA"] > 0))
         log(f"[build] {row}: flash_sm90_kernel<{policy}, {d}, {form}> "
-            f"{'HGMMA %d, UTMALDG %d' % (found[0]['HGMMA'], found[0]['UTMALDG']) if found else 'not in the library'}: "
-            f"{'PASS' if good else 'FAIL'}")
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for key, row in PROBE_SASS.items():
+        found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name]
+        good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] {row}: gemm_sm90_kernel<Bf16, BN, 4, {key}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    return ok
+
+
+def ptxas_clean(lines) -> bool:
+    """The -Xptxas -v output of each source in PTXAS_CLEAN (the build log's
+    "[nvcc <source>]" blocks): no spill stores or loads and no "Potential
+    Performance Loss" (C7512 / C7515: ptxas serializing wgmma)."""
+    ok = True
+    for text in lines:
+        head = text.splitlines()[0]
+        src = head[len("[nvcc "):-1] if head.startswith("[nvcc ") else ""
+        if src not in PTXAS_CLEAN:
+            continue
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
+        loss = re.findall(r"\((C75\d\d)\) Potential Performance Loss", text)
+        good = bool(spills) and not any(spills) and not loss
+        log(f"[build] {src}: {len(spills) // 2} kernel(s), spill bytes {sum(spills)}, wgmma serialized "
+            f"{', '.join(sorted(set(loss))) or 'never'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     return ok
 
@@ -3728,7 +3772,7 @@ def main(argv=None) -> int:
         f"{_build.build_seconds if _build.build_seconds is not None else 0.0:.2f} s)")
     for ln in info:
         log(f"[build]   {ln}")
-    sass_ok = core_sass(path)
+    sass_ok = core_sass(path) and ptxas_clean(lines)
 
     rows, failed = kernel_phase(dev)
     ref_ok = reference_phase(dev)

@@ -1,4 +1,5 @@
-// Fixed-shift flash attention with int8 q . k, non-causal, head_dim 128.
+// Fixed-shift flash attention with int8 q . k, non-causal, head_dim 128: the
+// int8 form (I8) of the Hopper attention core (flash_sm90.cuh, policy FIXED).
 //
 // Replaces nunchaku_tpu/ops/attention.py _flash_kernel_fixed_i8 (:563, launched
 // by flash_attention_i8 :994; FLUX's attention under attn_int8, q and k
@@ -7,198 +8,29 @@
 //   p = exp2(min(s, 116) - 16);  l = sum of the f32 p;  o = (bf16(p) @ v) / l
 // q carries softmax-scale * log2(e) from before its quantization. p . v stays
 // bf16: p is unbounded under the fixed shift, so int8 p would need a running
-// max again.
+// max again. The exponential is ex2.approx.ftz, as in every fixed form.
 //
 // Bound on the H100: operations. Half the work (q . k, 2*S_q*S_kv*D per head)
 // at the int8 rate, half (p . v) at the bf16 rate; the bytes (int8 q and k,
 // bf16 v and output, the scales) are ~S/2 below the work at FLUX's S = 4608.
-// Design: flash_fixed.cu's FlashAttention-2 register layout with the q . k
-// product on mma.sync m16n8k32 s8 (int32 accumulate, exact: |q8 . k8| <=
-// 128 * 127^2 < 2^24 also converts to f32 exactly). A block owns 128 query
-// rows of one (batch, head), each of its 8 warps 16 of them as int8 A
-// fragments (half the registers of the bf16 kernel's q). int8 k and bf16 v
-// stream in 64-row tiles through a two-stage cp.async ring (144-byte k rows and
-// 272-byte v rows: ldmatrix's eight row addresses fall in distinct banks);
-// each tile's 64 column scales are read once from memory into shared memory
-// beside it, each thread's two row scales once into registers. The int32
-// logits convert and scale in place in the accumulators, which the exp2 pass
-// turns into p; packed to bf16 pairs they are the A fragments of p @ v, as in
-// the bf16 kernel (the s32 m16n8k32 and f32 m16n8k16 accumulators share their
-// layout).
-#include "mma.cuh"
+// Design: the core's block of 128 query rows (a TMA producer warpgroup, two
+// wgmma consumer warpgroups of 64 rows), with q and k as one 128-byte panel
+// of int8 each: q . k is four wgmma m64n128k32 s8 steps with s32
+// accumulators (exact: |q8 . k8| <= 128 * 127^2 < 2^24 also converts to f32
+// exactly), p . v the bf16 RS chain of the other forms. A k + v stage is 48
+// KB, so the ring holds four. Each tile's 128 column scales arrive by a bulk
+// copy beside its k (the wrapper pads ks with zeros to whole tiles, as JAX
+// pads it to whole kv blocks); each thread's two row scales are read once
+// into registers.
+#include "flash_sm90.cuh"
 
-namespace {
-
-constexpr int D = 128, BQ = 128, BKV = 64, WARPS = 8, THREADS = WARPS * 32;
-constexpr int LDQ = D + 16;  // int8 row stride of the q / k tiles (144 bytes)
-constexpr int LDV = D + 8;   // bf16 row stride of the v tile (272 bytes)
-constexpr float SHIFT = 16.f, CAP = 116.f, NEG_INF = -1e30f;
-
-struct Stage {
-  int8_t k[BKV][LDQ];
-  bf16 v[BKV][LDV];
-  float ks[BKV];
-};
-struct Smem {
-  Stage st[2];
-  int8_t q[BQ][LDQ];
-};
-
-// the tile's k and v rows by cp.async, its column scales (0 past Skv) by plain loads
-__device__ __forceinline__ void load_kv(Stage& st, const int8_t* kp, const bf16* vp, const float* ksp, int kv0,
-                                        int Skv) {
-  for (int c = threadIdx.x; c < BKV * (D / 16); c += THREADS) {
-    const int r = c / (D / 16), cc = c % (D / 16);
-    const int row = kv0 + r;
-    const bool ok = row < Skv;
-    cp_async16(&st.k[r][cc * 16], kp + static_cast<size_t>(ok ? row : 0) * D + cc * 16, ok);
-  }
-  for (int c = threadIdx.x; c < BKV * (D / 8); c += THREADS) {
-    const int r = c / (D / 8), cc = c % (D / 8);
-    const int row = kv0 + r;
-    const bool ok = row < Skv;
-    cp_async16(&st.v[r][cc * 8], vp + static_cast<size_t>(ok ? row : 0) * D + cc * 8, ok);
-  }
-  if (threadIdx.x < BKV) st.ks[threadIdx.x] = kv0 + threadIdx.x < Skv ? __ldg(ksp + kv0 + threadIdx.x) : 0.f;
-}
-
-__global__ void __launch_bounds__(THREADS, 1)
-    flash_fixed_i8_kernel(const int8_t* __restrict__ q, const float* __restrict__ qs, const int8_t* __restrict__ k,
-                          const float* __restrict__ ks, const bf16* __restrict__ v, bf16* __restrict__ out, int H,
-                          int Sq, int Skv, int bshd) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;  // mma fragment row group / column pair
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: which 8x8 matrix, which of its rows
-  const int8_t* qp = q + static_cast<size_t>(bh) * Sq * D;
-  const int8_t* kp = k + static_cast<size_t>(bh) * Skv * D;
-  const bf16* vp = v + static_cast<size_t>(bh) * Skv * D;
-  const float* ksp = ks + static_cast<size_t>(bh) * Skv;
-  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
-  const float qs0 = row0 < Sq ? __ldg(qs + static_cast<size_t>(bh) * Sq + row0) : 0.f;
-  const float qs1 = row1 < Sq ? __ldg(qs + static_cast<size_t>(bh) * Sq + row1) : 0.f;
-
-  for (int c = threadIdx.x; c < BQ * (D / 16); c += THREADS) {
-    const int r = c / (D / 16), cc = c % (D / 16);
-    const int row = q0 + r;
-    const bool ok = row < Sq;
-    cp_async16(&sm.q[r][cc * 16], qp + static_cast<size_t>(ok ? row : 0) * D + cc * 16, ok);
-  }
-  cp_async_commit();
-  load_kv(sm.st[0], kp, vp, ksp, 0, Skv);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-
-  // q A fragments, k chunks of 32: matrix mi covers rows +8*(mi&1), bytes +16*(mi>>1)
-  uint32_t qf[D / 32][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 32; ++kk)
-    ldsm_x4(&sm.q[warp * 16 + (mi & 1) * 8 + mr][kk * 32 + (mi >> 1) * 16], qf[kk][0], qf[kk][1], qf[kk][2],
-            qf[kk][3]);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float l0 = 0.f, l1 = 0.f;  // f32 row sums of p for rows g and g + 8
-
-  const int nt = (Skv + BKV - 1) / BKV;
-  for (int t = 0; t < nt; ++t) {
-    if (t + 1 < nt) load_kv(sm.st[(t + 1) & 1], kp, vp, ksp, (t + 1) * BKV, Skv);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const Stage& st = sm.st[t & 1];
-    const int kv0 = t * BKV;
-
-    int si[BKV / 8][4];  // int32 logits: kv n8 tile j, (row g | g+8) x (column pair t4)
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) si[j][0] = si[j][1] = si[j][2] = si[j][3] = 0;
-#pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) {
-#pragma unroll
-      for (int j2 = 0; j2 < BKV / 16; ++j2) {
-        // matrix mi: kv rows +8*(mi>>1) (next n8 tile), bytes +16*(mi&1) (b1 half)
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4(&st.k[j2 * 16 + (mi >> 1) * 8 + mr][kk * 32 + (mi & 1) * 16], b0, b1, b2, b3);
-        mma_s8(si[2 * j2], qf[kk], b0, b1);
-        mma_s8(si[2 * j2 + 1], qf[kk], b2, b3);
-      }
-    }
-
-    float s[BKV / 8][4];  // p
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + t4 * 2 + (e & 1);
-        const float x = kv0 + c < Skv ? __fmul_rn(__fmul_rn(__int2float_rn(si[j][e]), e < 2 ? qs0 : qs1), st.ks[c])
-                                      : NEG_INF;
-        const float p = exp2f(fminf(x, CAP) - SHIFT);
-        s[j][e] = p;
-        if (e < 2) l0 += p; else l1 += p;
-      }
-    }
-
-#pragma unroll
-    for (int c = 0; c < BKV / 16; ++c) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * c][0], s[2 * c][1]), pack_bf16(s[2 * c][2], s[2 * c][3]),
-                              pack_bf16(s[2 * c + 1][0], s[2 * c + 1][1]),
-                              pack_bf16(s[2 * c + 1][2], s[2 * c + 1][3])};
-#pragma unroll
-      for (int n2 = 0; n2 < D / 16; ++n2) {
-        // transposed: matrix mi covers kv rows +8*(mi&1) (b1 half), d columns +8*(mi>>1) (next n8 tile)
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_t(&st.v[c * 16 + (mi & 1) * 8 + mr][n2 * 16 + (mi >> 1) * 8], b0, b1, b2, b3);
-        mma_bf16(o[2 * n2], pa, b0, b1);
-        mma_bf16(o[2 * n2 + 1], pa, b2, b3);
-      }
-    }
-    __syncthreads();  // stage t&1 is refilled by the next iteration's copy
-  }
-  cp_async_wait<0>();
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // (B, Sq, H*D): row stride H*D from (b, 0, h); (B, H, Sq, D): stride D from (b, h, 0)
-  const size_t ld = bshd ? static_cast<size_t>(H) * D : D;
-  bf16* base = out + (bshd ? (static_cast<size_t>(b) * Sq * H + h) * D : static_cast<size_t>(bh) * Sq * D);
-  bf16* dst0 = base + row0 * ld;
-  bf16* dst1 = dst0 + 8 * ld;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + t4 * 2;
-    if (row0 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dst0 + d) =
-          __floats2bfloat162_rn(__fdiv_rn(o[n][0], l0), __fdiv_rn(o[n][1], l0));
-    if (row1 < Sq)
-      *reinterpret_cast<__nv_bfloat162*>(dst1 + d) =
-          __floats2bfloat162_rn(__fdiv_rn(o[n][2], l1), __fdiv_rn(o[n][3], l1));
-  }
-}
-
-}  // namespace
-
-// q8 (B, H, Sq, 128) int8 and qs (B, H, Sq) f32, k8 (B, H, Skv, 128) int8 and ks
-// (B, H, Skv) f32, v (B, H, Skv, 128) bf16 -> out (B, Sq, H*128) bf16 when bshd,
-// else (B, H, Sq, 128).
+// q8 (B, H, Sq, 128) int8 and qs (B, H, Sq) f32, k8 (B, H, Skv, 128) int8 and
+// ks (B, H, ks_ld) f32 (each row padded with zeros to ks_ld = Skv rounded up
+// to 128), v (B, H, Skv, 128) bf16 -> out (B, Sq, H*128) bf16 when bshd, else
+// (B, H, Sq, 128).
 extern "C" int nt_flash_fixed_i8(const void* q8, const void* qs, const void* k8, const void* ks, const void* v,
                                  void* out, int B, int H, int Sq, int Skv, int bshd, void* stream) {
-  static bool configured = false;
-  const int smem = static_cast<int>(sizeof(Smem));
-  if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(flash_fixed_i8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  flash_fixed_i8_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(q8), static_cast<const float*>(qs), static_cast<const int8_t*>(k8),
-      static_cast<const float*>(ks), static_cast<const bf16*>(v), static_cast<bf16*>(out), H, Sq, Skv, bshd);
-  return static_cast<int>(cudaGetLastError());
+  const Sparse dense{nullptr, 0, 0, 0, 0, 1.f};
+  return sm90::launch<sm90::FIXED, 128, sm90::I8>(q8, k8, v, ks, out, nullptr, B, H, Sq, Skv, bshd, dense,
+                                                  static_cast<cudaStream_t>(stream), static_cast<const float*>(qs));
 }

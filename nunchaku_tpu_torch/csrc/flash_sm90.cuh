@@ -2,8 +2,9 @@
 // sm_90a main loop (TMA copies, wgmma products, a warp-specialised block),
 // templated on the softmax policy (FIXED: the fixed shift, no running max;
 // ONLINE: the running max with a rescale per kv tile), the head dim (64, 112
-// or 128) and the form (PLAIN, MASK, IDX, DENOM, U2, TOK). Each entry point of
-// the two files is one instantiation; the forms' notes are in those files.
+// or 128) and the form (PLAIN, MASK, IDX, DENOM, U2, TOK, I8). Each entry
+// point of flash_fixed.cu, flash_online.cu and flash_fixed_i8.cu is one
+// instantiation; the forms' notes are in those files.
 //
 // Bound on the H100: operations (4 * Sq * Skv * D bf16 flop a head; at FLUX's
 // S 4608 the work per byte is ~S/2, far above the bf16 ridge), and at D 64 the
@@ -44,137 +45,55 @@
 //     A fragment of p . v as it stands; the fixed shift's f32 p is packed after.
 //   - Ragged edges: only a tile that reaches past Skv masks its columns past
 //     Skv to -1e30, on a tile-level branch; rows past Sq are not stored.
-//   - A barrier wait that spins for seconds (a lost arrival) traps instead of
-//     hanging the card.
+//   - The int8 form (I8) takes int8 q and k: an int8 row of D 128 is one
+//     128-byte panel, so q and k are one panel each (v stays two), a k + v
+//     stage is 48 KB and the ring holds four. S = q . k^T is wgmma
+//     m64n128k32 .s32.s8.s8 (both operands K-major, as 8-bit types must be;
+//     four k32 steps); its s32 accumulators have the f32 layout, so the fixed
+//     policy runs on them as they are, each logit formed as (f32(s) *
+//     qs[row]) * ks[col]: a thread's two row scales in registers, a tile's 128
+//     column scales copied beside its k (where MASK keeps its bias). The
+//     int32 -> f32 conversion is exact integer bit arithmetic on the
+//     full-rate pipes (I2F would share the quarter-rate pipe with the
+//     exponentials).
+//   - Barrier waits that spin for seconds (a lost arrival) trap (sm90.cuh).
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime (no -lcuda)
+#include <type_traits>
 
-#include "mma.cuh"
+#include "sm90.cuh"
 #include "sparse_walk.cuh"
 
 namespace {
 namespace sm90 {
 
-constexpr int BQ = 128, BKV = 128, WG = 128, THREADS = 3 * WG;
+constexpr int BQ = 128, BKV = 128, THREADS = 3 * WG;
 constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;  // 128 * 24 + 256 * 240 <= 65,536
 constexpr float NEG_INF = -1e30f, SHIFT = 16.f, CAP = 116.f;
 
 enum Policy { FIXED = 0, ONLINE = 1 };
 // The forms, one at a time: the kv-mask bias, the block-sparse walk, the row
 // sums written beside o, the two-tile form's entry point (the dense loop with
-// the logit factor), the token-major layout.
-enum Form { PLAIN = 0, MASK = 1, IDX = 2, DENOM = 3, U2 = 4, TOK = 5 };
+// the logit factor), the token-major layout, int8 q and k with their scales.
+enum Form { PLAIN = 0, MASK = 1, IDX = 2, DENOM = 3, U2 = 4, TOK = 5, I8 = 6 };
 
-template <int D>
+template <int D, int FORM>
 struct Layout {
-  static constexpr int P = (D + 63) / 64;     // 64-column panels (128-byte rows)
-  static constexpr int ST = D <= 64 ? 4 : 2;  // k / v stages
-  static constexpr int KS = (D + 15) / 16;    // k16 steps of q . k
+  static constexpr bool INT8 = FORM == I8;
+  static_assert(!INT8 || D == 128, "the int8 form is built for head dim 128");
+  static constexpr int P = (D + 63) / 64;             // 64-column bf16 panels (128-byte rows) of v
+  static constexpr int PQK = INT8 ? 1 : P;            // panels of q and k: an int8 row of 128 is one
+  static constexpr int ST = D <= 64 || INT8 ? 4 : 2;  // k / v stages
+  static constexpr int KS = INT8 ? D / 32 : (D + 15) / 16;  // k32 (int8) or k16 steps of q . k, 32 bytes each
   static constexpr int Q_PANEL = BQ * 128, KV_PANEL = BKV * 128;
-  static constexpr int KV = P * KV_PANEL;  // bytes of one k (or v) tile
-  static constexpr int OFF_K = P * Q_PANEL, OFF_V = OFF_K + ST * KV, OFF_MASK = OFF_V + ST * KV;
-  static constexpr int MASK_TILE = BKV * 4;  // a kv tile's f32 bias (MASK)
+  static constexpr int K_TILE = PQK * KV_PANEL, V_TILE = P * KV_PANEL;  // bytes of one k / v tile
+  static constexpr int OFF_K = PQK * Q_PANEL, OFF_V = OFF_K + ST * K_TILE, OFF_MASK = OFF_V + ST * V_TILE;
+  static constexpr int MASK_TILE = BKV * 4;  // a kv tile's f32 bias (MASK) or column scales (I8)
   static constexpr int OFF_BAR = OFF_MASK + ST * MASK_TILE;
   // q full, then k full, v full and empty per stage; + 1024 to align the base
   static constexpr int BYTES = OFF_BAR + 8 * (1 + 3 * ST) + 1024;
   static_assert(BYTES <= 232448, "shared memory over the H100's 227 KB");
 };
-
-// ---------------------------------------------------------------------------
-// barriers, copies, products
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// Wait until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const unsigned addr = smem_u32(bar);
-  for (unsigned n = 0;; ++n) {
-    unsigned done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n > (1u << 24)) __trap();
-  }
-}
-
-// One box of a 4-D tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], "
-      "[%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// `bytes` (a multiple of 16) from global to shared memory, completing on bar.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
-  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes), "r"(smem_u32(bar))
-               : "memory");
-}
-
-// wgmma descriptor of a tile of 128-byte rows in the 128-byte swizzle: start
-// address, 1024 bytes (eight rows) between 8-row groups, swizzle mode 1. The
-// leading offset is unused by these shapes (a K-major operand; an MN-major one
-// 64 columns wide).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the compiler from moving reads or writes of registers an asynchronous
-// product owns across the fence or wait next to it.
-template <int N>
-__device__ __forceinline__ void reg_fence(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-// Named barriers of the two consumer warpgroups (ids 1 and 2, 256 threads):
-// a warpgroup waits for its turn before it issues products and hands the
-// turn to the other after.
-__device__ __forceinline__ void named_sync(int id) { asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory"); }
-__device__ __forceinline__ void named_arrive(int id) { asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory"); }
-
-template <int R>
-__device__ __forceinline__ void reg_dealloc() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
-}
-template <int R>
-__device__ __forceinline__ void reg_alloc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
-}
 
 // d (64 x 128 f32, accumulator layout) (+)= A (64 x 16, K-major in shared memory) . B (128 x 16, K-major)^T;
 // scale_d 0 overwrites d.
@@ -195,6 +114,28 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint6
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 128 s32, the f32 accumulator layout) (+)= A (64 x 32 s8, K-major in shared memory) . B (128 x 32
+// s8, K-major)^T; scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n128(int (&d)[64], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -246,13 +187,18 @@ __device__ __forceinline__ uint32_t ex2_bf16x2(float lo, float hi) {
 __device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
 __device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
-// A logit before the softmax: the factor (every form but the fixed plain and
-// masked ones), the kv-mask bias of tile column c (tb: the tile's bias in
-// shared memory), the -1e30 of a column past Skv.
-template <int POLICY, int FORM, bool RAGGED>
-__device__ __forceinline__ float logit(float s, int kv0, int c, int Skv, const float* tb, float scale) {
+// A logit before the softmax: the factor (every form but the fixed plain,
+// masked and int8 ones), the kv-mask bias of tile column c (tb: the tile's
+// bias in shared memory), the int8 form's (f32(s) * qs[row]) * ks[c] (scale:
+// the row's qs; tb: the tile's ks), the -1e30 of a column past Skv.
+template <int POLICY, int FORM, bool RAGGED, typename T>
+__device__ __forceinline__ float logit(T s, int kv0, int c, int Skv, const float* tb, float scale) {
   constexpr bool SCALED = POLICY == ONLINE || FORM == IDX || FORM == DENOM || FORM == U2;
-  float x = SCALED ? __fmul_rn(s, scale) : s;
+  float x;
+  if constexpr (FORM == I8)
+    x = __fmul_rn(__fmul_rn(small_int_to_float(s), scale), tb[c]);  // exact: |q8 . k8| <= 128 * 127^2 < 2^22
+  else
+    x = SCALED ? __fmul_rn(s, scale) : s;
   if (FORM == MASK) x = __fadd_rn(x, tb[c]);
   return RAGGED && kv0 + c >= Skv ? NEG_INF : x;
 }
@@ -261,17 +207,19 @@ __device__ __forceinline__ float logit(float s, int kv0, int c, int Skv, const f
 // (s[4j + 2h], s[4j + 2h + 1]) is pa[j / 2][2 (j % 2) + h].
 
 // p = 2^(min(x, 116) - 16) in f32, packed to bf16 for p . v; the f32 p summed
-// into the thread's row shares, each 64-column half apart, then added.
-template <int FORM, bool RAGGED>
-__device__ __forceinline__ void fixed_tile(const float (&s)[64], uint32_t (&pa)[BKV / 16][4], float& l0, float& l1,
-                                           int kv0, int Skv, int t4, const float* tb, float scale) {
+// into the thread's row shares, each 64-column half apart, then added. The
+// factor of row g is scale0, of row g + 8 scale1 (the same but for I8's qs).
+template <int FORM, bool RAGGED, typename T>
+__device__ __forceinline__ void fixed_tile(const T (&s)[64], uint32_t (&pa)[BKV / 16][4], float& l0, float& l1,
+                                           int kv0, int Skv, int t4, const float* tb, float scale0, float scale1) {
   float h0[2] = {0.f, 0.f}, h1[2] = {0.f, 0.f};  // the sums of each 64-column half
 #pragma unroll
   for (int j = 0; j < BKV / 8; ++j) {
     float p[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const float x = logit<FIXED, FORM, RAGGED>(s[4 * j + e], kv0, 8 * j + 2 * t4 + (e & 1), Skv, tb, scale);
+      const float x = logit<FIXED, FORM, RAGGED>(s[4 * j + e], kv0, 8 * j + 2 * t4 + (e & 1), Skv, tb,
+                                                 e < 2 ? scale0 : scale1);
       p[e] = ex2(fminf(x, CAP) - SHIFT);
       if (e < 2) h0[j / 8] += p[e]; else h1[j / 8] += p[e];
     }
@@ -328,14 +276,18 @@ __device__ __forceinline__ void online_tile(float (&s)[64], uint32_t (&pa)[BKV /
 
 // out: (B, Sq, H*D) when bshd (TOK: (B, Sq, H, D), the same rows), else (B, H,
 // Sq, D); lsum (DENOM): (B, H, Sq); mask (MASK): (B, mask_ld) f32 log2-domain
-// bias, each row padded with -1e30 to mask_ld = Skv rounded up to BKV.
+// bias, each row padded with -1e30 to mask_ld = Skv rounded up to BKV; I8:
+// mask the column scales ks (B*H, mask_ld), each row padded with 0, rs the
+// row scales qs (B*H, Sq).
 template <int POLICY, int D, int FORM>
 __global__ void __launch_bounds__(THREADS, 1)
     flash_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-                      const __grid_constant__ CUtensorMap tv, const float* __restrict__ mask, bf16* __restrict__ out,
-                      float* __restrict__ lsum, int H, int Sq, int Skv, int bshd, Sparse sp) {
-  using L = Layout<D>;
-  constexpr int ST = L::ST, P = L::P;
+                      const __grid_constant__ CUtensorMap tv, const float* __restrict__ mask,
+                      const float* __restrict__ rs, bf16* __restrict__ out, float* __restrict__ lsum, int H, int Sq,
+                      int Skv, int bshd, Sparse sp) {
+  using L = Layout<D, FORM>;
+  constexpr int ST = L::ST, P = L::P, PQK = L::PQK;
+  constexpr bool TILE_VEC = FORM == MASK || FORM == I8;  // 128 f32 a kv tile copied beside its k
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* sm =
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
@@ -356,7 +308,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       mbar_init(vfull + s, 1);
       mbar_init(empty + s, 8);  // the consumers' eight warps
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -367,10 +319,10 @@ __global__ void __launch_bounds__(THREADS, 1)
     // ---- producer: one thread issues every copy ----
     reg_dealloc<PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      // (D, S, H, B) coordinates, or (D, H, S, B) token-major
-      auto load = [&](unsigned char* dst, const CUtensorMap* map, uint64_t* full, int row) {
+      // (D, S, H, B) coordinates, or (D, H, S, B) token-major; `panels` 128-byte column panels
+      auto load = [&](unsigned char* dst, const CUtensorMap* map, uint64_t* full, int row, auto panels) {
 #pragma unroll
-        for (int p = 0; p < P; ++p) {
+        for (int p = 0; p < decltype(panels)::value; ++p) {
           if (FORM == TOK)
             tma_load(dst + p * BKV * 128, map, full, 64 * p, h, row, b);
           else
@@ -378,9 +330,9 @@ __global__ void __launch_bounds__(THREADS, 1)
         }
       };
       const int mask_ld = (Skv + BKV - 1) / BKV * BKV;
-      mbar_expect_tx(bar, P * L::Q_PANEL);
+      mbar_expect_tx(bar, PQK * L::Q_PANEL);
 #pragma unroll
-      for (int p = 0; p < P; ++p) {
+      for (int p = 0; p < PQK; ++p) {
         if (FORM == TOK)
           tma_load(sm + p * L::Q_PANEL, &tq, bar, 64 * p, h, q0, b);
         else
@@ -390,13 +342,13 @@ __global__ void __launch_bounds__(THREADS, 1)
         const int s = t % ST;
         mbar_wait(empty + s, ((t / ST) & 1) ^ 1);
         const int kv0 = walk.start(t);
-        mbar_expect_tx(kfull + s, L::KV + (FORM == MASK ? L::MASK_TILE : 0));
-        load(sm + L::OFF_K + s * L::KV, &tk, kfull + s, kv0);
-        if (FORM == MASK)  // rows of the bias are padded to whole tiles
-          bulk_load(sm + L::OFF_MASK + s * L::MASK_TILE, mask + static_cast<size_t>(b) * mask_ld + kv0, L::MASK_TILE,
-                    kfull + s);
-        mbar_expect_tx(vfull + s, L::KV);
-        load(sm + L::OFF_V + s * L::KV, &tv, vfull + s, kv0);
+        mbar_expect_tx(kfull + s, L::K_TILE + (TILE_VEC ? L::MASK_TILE : 0));
+        load(sm + L::OFF_K + s * L::K_TILE, &tk, kfull + s, kv0, std::integral_constant<int, PQK>());
+        if (TILE_VEC)  // rows of the bias (per batch) or of ks (per batch and head) are padded to whole tiles
+          bulk_load(sm + L::OFF_MASK + s * L::MASK_TILE,
+                    mask + static_cast<size_t>(FORM == I8 ? bh : b) * mask_ld + kv0, L::MASK_TILE, kfull + s);
+        mbar_expect_tx(vfull + s, L::V_TILE);
+        load(sm + L::OFF_V + s * L::V_TILE, &tv, vfull + s, kv0, std::integral_constant<int, P>());
       }
     }
   } else {
@@ -405,9 +357,15 @@ __global__ void __launch_bounds__(THREADS, 1)
     const int ct = threadIdx.x - WG, cw = ct / WG, warp = (ct % WG) / 32, lane = ct % 32;
     const int t4 = lane & 3;
     const unsigned char* qs = sm + cw * 64 * 128;  // this warpgroup's rows of each q panel
-    const float scale = sp.scale_log2;
+    // the logit factor of rows g and g + 8: I8's row scales qs, else one scale for every row
+    float scale0 = sp.scale_log2, scale1 = sp.scale_log2;
+    if (FORM == I8) {
+      const int r = q0 + cw * 64 + warp * 16 + (lane >> 2);
+      scale0 = r < Sq ? __ldg(rs + static_cast<size_t>(bh) * Sq + r) : 0.f;
+      scale1 = r + 8 < Sq ? __ldg(rs + static_cast<size_t>(bh) * Sq + r + 8) : 0.f;
+    }
 
-    float s[64];         // logits, then p
+    std::conditional_t<FORM == I8, int, float> s[64];  // logits (I8: int32), then p
     float o[P][32];      // output columns 64p + 8j + 2 t4 + (e & 1) of rows g, g + 8
     uint32_t pa[BKV / 16][4];  // p in bf16: the A fragments of p . v
 #pragma unroll
@@ -417,14 +375,14 @@ __global__ void __launch_bounds__(THREADS, 1)
     float l0 = 0.f, l1 = 0.f, m0 = NEG_INF, m1 = NEG_INF, al0 = 1.f, al1 = 1.f;
 
     auto issue_s = [&](int st) {
-      const unsigned char* kt = sm + L::OFF_K + st * L::KV;
+      const unsigned char* kt = sm + L::OFF_K + st * L::K_TILE;
 #pragma unroll
       for (int kk = 0; kk < L::KS; ++kk)
         wgmma_ss_n128(s, sw128_desc(qs + (kk / 4) * L::Q_PANEL + (kk % 4) * 32),
                       sw128_desc(kt + (kk / 4) * L::KV_PANEL + (kk % 4) * 32), kk > 0);
     };
     auto issue_pv = [&](int st) {
-      const unsigned char* vt = sm + L::OFF_V + st * L::KV;
+      const unsigned char* vt = sm + L::OFF_V + st * L::V_TILE;
 #pragma unroll
       for (int c = 0; c < BKV / 16; ++c)
 #pragma unroll
@@ -433,12 +391,12 @@ __global__ void __launch_bounds__(THREADS, 1)
     auto softmax = [&](int t, int st) {
       const int kv0 = walk.start(t);
       const float* tb = reinterpret_cast<const float*>(sm + L::OFF_MASK + st * L::MASK_TILE);
-      if (kv0 + BKV > Skv) {
-        if (POLICY == FIXED) fixed_tile<FORM, true>(s, pa, l0, l1, kv0, Skv, t4, tb, scale);
-        else online_tile<FORM, true>(s, pa, m0, m1, l0, l1, al0, al1, kv0, Skv, t4, tb, scale);
+      if constexpr (POLICY == FIXED) {
+        if (kv0 + BKV > Skv) fixed_tile<FORM, true>(s, pa, l0, l1, kv0, Skv, t4, tb, scale0, scale1);
+        else fixed_tile<FORM, false>(s, pa, l0, l1, kv0, Skv, t4, tb, scale0, scale1);
       } else {
-        if (POLICY == FIXED) fixed_tile<FORM, false>(s, pa, l0, l1, kv0, Skv, t4, tb, scale);
-        else online_tile<FORM, false>(s, pa, m0, m1, l0, l1, al0, al1, kv0, Skv, t4, tb, scale);
+        if (kv0 + BKV > Skv) online_tile<FORM, true>(s, pa, m0, m1, l0, l1, al0, al1, kv0, Skv, t4, tb, scale0);
+        else online_tile<FORM, false>(s, pa, m0, m1, l0, l1, al0, al1, kv0, Skv, t4, tb, scale0);
       }
     };
 
@@ -517,54 +475,38 @@ __global__ void __launch_bounds__(THREADS, 1)
 // host side
 // ---------------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver the runtime has loaded.
-inline EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// The tensor map of one operand, boxes of 64 columns by `rows` token rows:
-// a (B, H, S, D) tensor as the 4-D (D, S, H, B), a token-major (B, S, H, D)
-// one as (D, H, S, B); every stride rising, in bytes.
-inline bool head_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, bool tok, int rows) {
+// The tensor map of one operand of `elem`-byte elements (2: bf16, 1: int8),
+// boxes of 128 bytes (64 bf16 or 128 int8 columns) by `rows` token rows: a
+// (B, H, S, D) tensor as the 4-D (D, S, H, B), a token-major (B, S, H, D) one
+// as (D, H, S, B); every stride rising, in bytes.
+inline bool head_map(CUtensorMap* map, const void* base, int D, int S, int H, int B, bool tok, int rows,
+                     int elem = 2) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint64_t d = D, s = S, h = H, nb = B;
+  const cuuint64_t d = D, s = S, h = H, nb = B, e = elem;
   const cuuint64_t dims_bhsd[4] = {d, s, h, nb}, dims_tok[4] = {d, h, s, nb};
-  const cuuint64_t st_bhsd[3] = {2 * d, 2 * d * s, 2 * d * s * h}, st_tok[3] = {2 * d, 2 * d * h, 2 * d * h * s};
-  const cuuint32_t box_bhsd[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
-  const cuuint32_t box_tok[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t st_bhsd[3] = {e * d, e * d * s, e * d * s * h}, st_tok[3] = {e * d, e * d * h, e * d * h * s};
+  const cuuint32_t cols = 128 / elem;
+  const cuuint32_t box_bhsd[4] = {cols, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box_tok[4] = {cols, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), tok ? dims_tok : dims_bhsd,
+  return encode(map, elem == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), tok ? dims_tok : dims_bhsd,
                 tok ? st_tok : st_bhsd, tok ? box_tok : box_bhsd, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// q (Sq rows), k and v (Skv rows) bf16, 16-byte aligned; one block per 128
-// query rows of each (batch, head).
+// q (Sq rows), k and v (Skv rows) bf16 (I8: q and k int8, rs its qs), 16-byte
+// aligned; one block per 128 query rows of each (batch, head).
 template <int POLICY, int D, int FORM>
 int launch(const void* q, const void* k, const void* v, const void* mask, void* out, float* lsum, int B, int H,
-           int Sq, int Skv, int bshd, const Sparse& sp, cudaStream_t stream) {
-  using L = Layout<D>;
+           int Sq, int Skv, int bshd, const Sparse& sp, cudaStream_t stream, const float* rs = nullptr) {
+  using L = Layout<D, FORM>;
   CUtensorMap tq, tk, tv;
   const bool tok = FORM == TOK;
-  if (!head_map(&tq, q, D, Sq, H, B, tok, BQ) || !head_map(&tk, k, D, Skv, H, B, tok, BKV) ||
+  const int qk = FORM == I8 ? 1 : 2;
+  if (!head_map(&tq, q, D, Sq, H, B, tok, BQ, qk) || !head_map(&tk, k, D, Skv, H, B, tok, BKV, qk) ||
       !head_map(&tv, v, D, Skv, H, B, tok, BKV))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
@@ -576,7 +518,7 @@ int launch(const void* q, const void* k, const void* v, const void* mask, void* 
   }
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   flash_sm90_kernel<POLICY, D, FORM><<<grid, THREADS, L::BYTES, stream>>>(
-      tq, tk, tv, static_cast<const float*>(mask), static_cast<bf16*>(out), lsum, H, Sq, Skv, bshd, sp);
+      tq, tk, tv, static_cast<const float*>(mask), rs, static_cast<bf16*>(out), lsum, H, Sq, Skv, bshd, sp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -128,25 +128,47 @@ def build(log=None) -> Path:
     return out
 
 
-def sass_counts(path: Path, opcodes=("HGMMA", "UTMALDG")) -> dict[str, dict[str, int]]:
-    """Per kernel of the built library (demangled name), how many of its
-    SASS instructions (``cuobjdump -sass``) carry each opcode: HGMMA is a
-    wgmma, UTMALDG a TMA tensor load."""
+def _per_kernel(path: Path, flag: str, start: str, count) -> dict[str, dict[str, int]]:
+    """``cuobjdump <flag>`` of the built library, one dict per kernel
+    (demangled name): ``start`` matches the line that opens a kernel's
+    section, ``count(line, counts)`` adds each later line to its dict."""
     tools = Path(_nvcc()).parent
-    sass = subprocess.run([str(tools / "cuobjdump"), "-sass", str(path)], capture_output=True, text=True,
+    text = subprocess.run([str(tools / "cuobjdump"), flag, str(path)], capture_output=True, text=True,
                           check=True).stdout
     per, fn = {}, None
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
+    for line in text.splitlines():
+        m = re.search(start, line)
         if m:
             fn = m.group(1)
-            per[fn] = dict.fromkeys(opcodes, 0)
+            per[fn] = {}
         elif fn is not None:
-            for op in opcodes:
-                per[fn][op] += op in line
+            count(line, per[fn])
     names = subprocess.run([str(tools / "cu++filt")], input="\n".join(per), capture_output=True, text=True,
                            check=True).stdout.splitlines()
     return dict(zip(names, per.values()))
+
+
+def sass_counts(path: Path, opcodes=("HGMMA", "IGMMA", "UTMALDG")) -> dict[str, dict[str, int]]:
+    """Per kernel of the built library (demangled name), how many of its
+    SASS instructions (``cuobjdump -sass``) carry each opcode: HGMMA is a
+    bf16 wgmma, IGMMA an int8 one, UTMALDG a TMA tensor load."""
+    def count(line, c):
+        for op in opcodes:
+            c[op] = c.get(op, 0) + (op in line)
+    return {k: {op: c.get(op, 0) for op in opcodes} for k, c in
+            _per_kernel(path, "-sass", r"Function : (\S+)", count).items()}
+
+
+def resource_usage(path: Path) -> dict[str, dict[str, int]]:
+    """Per kernel of the built library (demangled name), ``cuobjdump
+    -res-usage``'s REG (registers a thread), STACK and LOCAL (bytes a
+    thread: nonzero when ptxas spilled)."""
+    def count(line, c):
+        for key in ("REG", "STACK", "LOCAL"):
+            m = re.search(rf"\b{key}:(\d+)", line)
+            if m:
+                c[key] = int(m.group(1))
+    return _per_kernel(path, "-res-usage", r"Function (\S+):", count)
 
 
 def library() -> ctypes.CDLL:

@@ -44,9 +44,10 @@
   :func:`flash_attention` takes for ``kv_unroll=2`` without a kv mask. Count
   ``flash_fixed_unroll2``.
 * :func:`quantize_qk` (torch ops, XLA ops in JAX :974) and
-  :func:`flash_attention_i8` -- kernel ``csrc/flash_fixed_i8.cu``, counterpart of
-  ``flash_attention_i8`` (:994, ``_flash_kernel_fixed_i8`` :563): int8 q . k
-  with per-token scales, bf16 p . v. Count ``flash_fixed_i8``.
+  :func:`flash_attention_i8` -- kernel ``csrc/flash_fixed_i8.cu`` (the int8
+  form of the attention core), counterpart of ``flash_attention_i8`` (:994,
+  ``_flash_kernel_fixed_i8`` :563): int8 q . k with per-token scales, bf16
+  p . v. Count ``flash_fixed_i8``.
 * :func:`flash_attention_bshd` -- the token-major mode of ``csrc/flash_online.cu``,
   counterpart of ``flash_attention_bshd`` (:848, ``_flash_kernel_bshd``
   :927): q, k, v and the output (B, S, H, D), each head read and written
@@ -413,8 +414,21 @@ def quantize_qk(q, k):
     return q8, qs, k8, ks
 
 
+def tiled_scales(ks: torch.Tensor) -> torch.Tensor:
+    """(B, H, Skv) column scales -> f32, each row padded with zeros to a
+    whole number of the attention core's kv tiles: the int8 kernel copies a
+    tile's 128 scales beside its k (JAX pads ks with zeros to whole kv
+    blocks too)."""
+    pad = -ks.shape[-1] % ONLINE_BKV
+    ks = ks.float()
+    return torch.nn.functional.pad(ks, (0, pad)) if pad else ks
+
+
 def flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd=False):
+    """``ks`` may carry padding past Skv (:func:`tiled_scales`): only its
+    first Skv columns are read, as in the kernel."""
     s = q8.float() @ k8.float().transpose(-1, -2)  # integers below 2^24: exact in f32
+    ks = ks[..., :k8.shape[2]]
     p = _fixed_p((s * qs[..., None].float()) * ks[..., None, :].float(), 1.0)
     l = p.sum(dim=-1, keepdim=True)
     o = (p.to(torch.bfloat16).float() @ v.float()) / l
@@ -434,8 +448,8 @@ def flash_attention_i8(q8, qs, k8, ks, v, *, out_bshd=False):
     _build.require(q8.dtype == k8.dtype == torch.int8 and v.dtype == torch.bfloat16, "int8 q8, k8; bf16 v")
     _build.require(tuple(k8.shape) == tuple(v.shape) == (b, h, skv, d), "k8 and v must be (B, H, Skv, D) like q8")
     _build.require(tuple(qs.shape) == (b, h, sq) and tuple(ks.shape) == (b, h, skv), "qs (B, H, Sq), ks (B, H, Skv)")
-    qc, kc, vc = q8.contiguous(), k8.contiguous(), v.contiguous()
-    qsc, ksc = qs.float().contiguous(), ks.float().contiguous()
+    qc, kc, vc = _aligned16(q8), _aligned16(k8), _aligned16(v)
+    qsc, ksc = qs.float().contiguous(), tiled_scales(ks).contiguous()
     out = torch.empty((b, sq, h * d) if out_bshd else (b, h, sq, d), dtype=torch.bfloat16, device=v.device)
     lib = _build.library()
     _build.check(lib.nt_flash_fixed_i8(qc.data_ptr(), qsc.data_ptr(), kc.data_ptr(), ksc.data_ptr(), vc.data_ptr(),

@@ -602,11 +602,12 @@ def flash_i8_case(b, h, sq, skv, d=128, *, seed=0, device="cuda"):
     return q8, qs, k8, ks, v
 
 
-def check_flash_i8(q8, qs, k8, ks, v):
-    """(B, S, H*D) out, as FLUX calls it: max error <= 1e-2 of the plain
-    twin's max |value| (the twin's int8 products are exact in f32)."""
-    out = flash_attention_i8(q8, qs, k8, ks, v, out_bshd=True)
-    ref = flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd=True)
+def check_flash_i8(q8, qs, k8, ks, v, out_bshd=True):
+    """(B, S, H*D) out as FLUX calls it, or (B, H, S, D): max error <= 1e-2
+    of the plain twin's max |value| (the twin's int8 products are exact in
+    f32)."""
+    out = flash_attention_i8(q8, qs, k8, ks, v, out_bshd=out_bshd)
+    ref = flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd=out_bshd)
     err, rel = _rel(out, ref)
     ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"

@@ -15,7 +15,8 @@ them, in JAX or here):
   ``mk_kernel`` (:48) on int8 operands (either ``acc``);
   ``tools/probe_m512.py`` ``kern_i8`` (:30, i32) and
   ``tools/tune_gemm_impl.py`` ``kern`` (:70, i32).
-* :func:`gemm_probe_bf16` -- kernel ``csrc/gemm_probe_bf16.cu``, bf16
+* :func:`gemm_probe_bf16` -- kernel ``csrc/gemm_probe_bf16.cu`` (on the
+  wgmma + TMA GEMM main loop of ``csrc/gemm_sm90.cuh``), bf16
   operands, f32 accumulation, bf16 out, each operand given as bf16, as int8
   codes cast to bf16, or as packed int4 codes (``"p4"``, the block-split-half
   layout of ``core/packing.py``); with group-64 scales, each decoded operand
@@ -37,7 +38,7 @@ instantiated at the card tiles of :data:`I8_TILES`, all with 8 warps:
 2 x 4 warps of 64 x 32, two stages); ``"chain"`` is that file's own main loop
 (WMMA) with the cast epilogue, int32 only. Each tile is built for the modes
 the ported tools launch (:data:`I8_BUILT`). The bf16-operand kernel has one
-tile, 128 x 128 x 64.
+tile, 128 x 128 x 64 (two consumer warpgroups of 64 rows, wgmma m64n128k16).
 """
 
 from __future__ import annotations
@@ -210,11 +211,13 @@ def gemm_probe_bf16(a, w, a_scale=None, w_scale=None, *, a_form="bf16", w_form="
     (:func:`gemm_probe_bf16_plain`). Forms: ``"bf16"``, ``"i8"`` (int8 codes
     cast to bf16), ``"p4"`` (packed int4 along K: a (M, K/2), w (K/2, N)).
     ``a_scale`` (K/64, M) / ``w_scale`` (K/64, N) bf16 scale each decoded
-    operand. w stays N-contiguous (the kernel reads it with ldmatrix.trans).
-    The combinations built are :data:`BF16_FORMS`."""
+    operand. w stays N-contiguous (the kernel reads it MN-major). The
+    combinations built are :data:`BF16_FORMS`."""
     m, k, n, scaled = _require_bf16(a, w, a_scale, w_scale, a_form, w_form)
     if not a.is_cuda:
         return gemm_probe_bf16_plain(a, w, a_scale, w_scale, a_form=a_form, w_form=w_form)
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (a, w, a_scale, w_scale) if t is not None),
+                   "the bf16-operand kernel's TMA and bulk copies need 16-byte aligned operands and scales")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     _build.check(_build.library().nt_gemm_probe_bf16(a.data_ptr(), w.data_ptr(), _ptr(a_scale), _ptr(w_scale),
                                                       out.data_ptr(), m, n, k, FORM_IDS[a_form], FORM_IDS[w_form],

@@ -5,6 +5,7 @@ one VAE decode, spends its time on the card.
     python -m nunchaku_tpu_torch.tools.profile_step --precision int4 --size 2048 --sparsity 0.5 [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model qwenimage [--precision P] [--rank R] \
         [--online-softmax] [--out TABLE.txt]
+    python -m nunchaku_tpu_torch.tools.profile_step --precision int8 --attn-int8 [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model sdxl [--size 1024|512] [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model sana [--out TABLE.txt]
     python -m nunchaku_tpu_torch.tools.profile_step --model zimage [--precision P] [--rank R] [--turbo] [--out TABLE.txt]
@@ -53,6 +54,11 @@ route switches), one forward at B 1 at 1024x1024 (4096 image tokens)
 against 512 caption tokens, its linears reading their stacks by layer index
 (the stacked modes, each a group of its own); ``--turbo``: after
 ``enable_fused_qkv_prep()`` (the qkv/RoPE producer).
+``--attn-int8``: FLUX with ``attn_int8 = True`` on every block (set
+through ``set_on_stacks``; ``quantize_qk`` and the int8 form of the
+attention core, ``flash_fixed_i8``), in the bf16-stream configuration with
+the unfused prologue that the switch needs (``chip_smoke.py``'s
+``[flux-attn]`` setup).
 ``--decode``: the same for one decode of 128x128 latents (a 1024x1024
 image) by the full FLUX VAE decoder from random weights, in 64-latent tiles
 (``--whole``: in one piece). Prints the wall time, the device's busy time
@@ -91,6 +97,7 @@ FORM_KERNELS = {_core(0, 128, 0): "flash_fixed (flash_sm90_kernel)",
                 _core(0, 128, 2): "bs_fixed (flash_sm90_kernel, IDX)",
                 _core(0, 128, 3): "flash_fixed_denom (flash_sm90_kernel, DENOM)",
                 _core(0, 128, 4): "flash_fixed_unroll2 (flash_sm90_kernel, U2)",
+                _core(0, 128, 6): "flash_fixed_i8 (flash_sm90_kernel, I8)",
                 _core(1, 64, 0): "flash_online_d64 (flash_sm90_kernel, D 64)",
                 _core(1, 112, 0): "flash_online_d112 (flash_sm90_kernel, D 112)",
                 _core(1, 128, 0): "flash_online (flash_sm90_kernel, D 128)",
@@ -247,6 +254,8 @@ def main(argv=None) -> int:
                     help="FLUX: block-sparse attention at this ratio (0: dense flash)")
     ap.add_argument("--online-softmax", action="store_true",
                     help="every block's attention with fixed_softmax = False (the online kernel)")
+    ap.add_argument("--attn-int8", action="store_true",
+                    help="FLUX: attn_int8 on every block (int8 q . k), bf16 stream, unfused prologue")
     ap.add_argument("--decode", action="store_true", help="profile one 1024px VAE decode instead of a forward")
     ap.add_argument("--whole", action="store_true", help="with --decode: one piece instead of 64-latent tiles")
     args = ap.parse_args(argv)
@@ -263,6 +272,8 @@ def main(argv=None) -> int:
         ap.error("Z-Image runs at 1024px with the fixed softmax (--precision int4 | nvfp4 | w4a8, --rank, --turbo)")
     if args.turbo and args.sparsity:
         ap.error("block-sparse attention runs with the unfused prologue only (no --turbo)")
+    if args.attn_int8 and (args.model != "flux" or args.turbo or args.sparsity or args.online_softmax):
+        ap.error("--attn-int8 is a FLUX option with the unfused prologue and dense fixed-shift attention")
     if args.precision == "int8" and args.model != "flux":
         ap.error("--precision int8 is a FLUX option")
     if args.precision is None:
@@ -396,6 +407,8 @@ def main(argv=None) -> int:
             model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
         if args.sparsity:
             model.set_attention_impl("blocksparse", sparsity_ratio=args.sparsity)
+        if args.attn_int8:
+            model.set_stream_dtype(torch.bfloat16).set_on_stacks("attn", attn_int8=True)
         side = args.size // 16  # latent tokens per side (VAE stride 8, 2x2 patches)
         inputs = (
             torch.randn((1, side * side, 64), generator=gen, device=dev).to(torch.bfloat16),
@@ -405,9 +418,11 @@ def main(argv=None) -> int:
             torch.zeros((512, 3), dtype=torch.int32, device=dev), torch.full((1,), 3.5, device=dev),
         )
         kw = {}
-        what = (f"FLUX.1-dev {args.precision} at {args.size}px ({side * side} image + 512 text tokens), "
-                f"{'turbo (bf16 stream, fused qkv prologue)' if args.turbo else 'default (f32 stream)'}, "
-                f"{f'block-sparse attention at {args.sparsity}' if args.sparsity else 'dense attention'}")
+        config = ("turbo (bf16 stream, fused qkv prologue)" if args.turbo else
+                  "bf16 stream, unfused prologue" if args.attn_int8 else "default (f32 stream)")
+        what = (f"FLUX.1-dev {args.precision} at {args.size}px ({side * side} image + 512 text tokens), {config}, "
+                f"{f'block-sparse attention at {args.sparsity}' if args.sparsity else 'dense attention'}"
+                f"{', attn_int8 (int8 q . k)' if args.attn_int8 else ''}")
     if args.online_softmax:
         model.set_on_stacks("attn", fixed_softmax=False)
         what += ", fixed_softmax False"

@@ -1,13 +1,15 @@
-"""Times of the attention core's forms and of the two producers at their
-main-path shapes, each checked against its plain twin first: a quick A/B of
-``csrc/flash_sm90.cuh`` (run it in two trees, in turns) without the whole
-``chip_smoke.py``.
+"""Times of the attention core's forms, of the two producers and of the bf16
+GEMM probe's six operand forms (the GEMM main loop) at their main-path
+shapes, each checked against its plain twin first: a quick A/B of
+``csrc/flash_sm90.cuh`` and ``csrc/gemm_sm90.cuh`` (run it in two trees, in
+turns) without the whole ``chip_smoke.py``.
 
-    python -m nunchaku_tpu_torch.tools.time_attention
+    python -m nunchaku_tpu_torch.tools.time_attention [ROW ...]
 
 One line per row of PERF.md section 6: ``<row> <ms> <check>``, the time a
 call (CUDA events) and the check's verdict and detail; a shape the tree's
-kernels refuse prints the refusal. Needs a CUDA device.
+kernels refuse prints the refusal. A ROW argument selects that row, or every
+``ROW:<form>`` row (``22a`` selects the six probe forms). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import argparse
 import torch
 
 from ..ops import attention as A
-from ..ops import checks
+from ..ops import checks, gemm_probe
 from .probe_common import nvidia_smi, time_ms
 
 
@@ -32,6 +34,8 @@ def rows():
     yield ("4", lambda: fixed(1, 24, 4608, 4608), checks.check_flash, lambda q, k, v: A.flash_attention(q, k, v), 20)
     yield ("19u", lambda: fixed(1, 24, 4608, 4608), checks.check_flash_unroll2,
            lambda q, k, v: A.flash_attention_unroll2(q, k, v, scale=1.0, out_bshd=True), 20)
+    yield ("20", lambda: checks.flash_i8_case(1, 24, 4608, 4608, device="cuda"), checks.check_flash_i8,
+           lambda *i8: A.flash_attention_i8(*i8, out_bshd=True), 20)
     yield ("21", lambda: checks.flash_bshd_case(1, 24, 4608, 4608, device="cuda"), checks.check_flash_bshd,
            lambda q, k, v: A.flash_attention_bshd(q, k, v), 20)
     yield ("5d", lambda: online(1, 10, 4096, 4096, 64), checks.check_flash_online,
@@ -52,6 +56,12 @@ def rows():
         yield (f"7 R{r}", lambda r=r: checks.qkv_rope_case(1, (4608,), 24, 128, r, device="cuda"),
                checks.check_qkv_rope,
                lambda st, cos, sin: checks.run_qkv_rope(A.qkv_rope_producer, st, cos, sin), 50)
+    for a_form, w_form, scaled in gemm_probe.BF16_FORMS:  # bench_gemm_variants' shape
+        kw = dict(a_form=a_form, w_form=w_form)
+        yield (f"22a:{a_form}_{w_form}{'_scaled' if scaled else ''}",
+               lambda f=(a_form, w_form, scaled): checks.probe_bf16_case(4608, 3072, 12288, *f, device="cuda"),
+               lambda *ops, kw=kw: checks.check_probe_bf16(*ops, **kw),
+               lambda *ops, kw=kw: gemm_probe.gemm_probe_bf16(*ops, **kw), 20)
 
 
 def main(argv=None) -> int:
@@ -64,7 +74,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(nvidia_smi())
     for row, case, check, call, iters in rows():
-        if args.rows and row not in args.rows:
+        if args.rows and not any(row == r or row.startswith(r + ":") for r in args.rows):
             continue
         operands = case()
         try:

@@ -119,6 +119,9 @@ def test_flash(dev, b, h, sq, skv):
 
 
 FIXED_FORM_SHAPES = [(1, 24, 4608, 4608), (2, 2, 200, 333), (1, 3, 77, 65), (1, 2, 100, 129)]
+# the Hopper attention core's ragged shapes: Skv 77, 300 and 4307 (one, three and 34 kv tiles, each with a ragged
+# last one), Sq off the 128-row tile, B 2
+CORE_RAGGED = [(2, 3, 200, 77), (2, 2, 300, 300), (1, 2, 4307, 4307), (2, 2, 130, 4307)]
 
 
 @pytest.mark.parametrize("b,h,sq,skv", FIXED_FORM_SHAPES + [(1, 24, 16896, 16896)])
@@ -163,10 +166,35 @@ def test_flash_unroll2(dev, b, h, sq, skv):
     assert c["flash_fixed_unroll2"] == 1 and c["flash_fixed_masked"] == 1 and c["flash_fixed"] == 0
 
 
-@pytest.mark.parametrize("b,h,sq,skv", FIXED_FORM_SHAPES)
-def test_flash_i8(dev, b, h, sq, skv):
-    _, ok, detail = checks.check_flash_i8(*checks.flash_i8_case(b, h, sq, skv, device=dev))
+@pytest.mark.parametrize("out_bshd", [True, False], ids=["bshd", "bhsd"])
+@pytest.mark.parametrize("b,h,sq,skv", FIXED_FORM_SHAPES + CORE_RAGGED)
+def test_flash_i8(dev, b, h, sq, skv, out_bshd):
+    """The int8 form of the attention core against its twin, FLUX's shape
+    and the core's ragged ones, in both output layouts; one launch."""
+    case = checks.flash_i8_case(b, h, sq, skv, device=dev)
+    reset_launch_counts()
+    _, ok, detail = checks.check_flash_i8(*case, out_bshd=out_bshd)
     assert ok, detail
+    assert launch_counts()["flash_fixed_i8"] == 1
+
+
+def test_sm90_sass_and_spills(dev):
+    """In the built library: the int8 attention form holds IGMMA (q . k),
+    HGMMA (p . v) and UTMALDG; each of the bf16 GEMM probe's instantiations
+    of the GEMM main loop (gemm_sm90.cuh) holds HGMMA and UTMALDG; none of
+    them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
+    from nunchaku_tpu_torch.ops import _build
+
+    path = _build.build()
+    sass, res = _build.sass_counts(path), _build.resource_usage(path)
+    i8 = [n for n in sass if "flash_sm90_kernel<0, 128, 6>" in n.replace("(int)", "")]
+    gemm = [n for n in sass if "gemm_sm90_kernel<" in n]
+    assert len(i8) == 1 and len(gemm) == len(gemm_probe.BF16_FORMS), (i8, gemm)
+    assert all(sass[i8[0]][op] > 0 for op in ("IGMMA", "HGMMA", "UTMALDG")), sass[i8[0]]
+    for name in gemm:
+        assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
+    for name in i8 + gemm:
+        assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
 
 
 def test_quantize_qk_card_equals_cpu(dev):
@@ -379,12 +407,10 @@ def test_producer_rank_refusals(dev):
         checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin)
 
 
-# the Hopper attention core (flash_sm90.cuh): every form at ragged shapes against its twin:
-# Skv 77, 300 and 4307 (one, three and 34 kv tiles, each with a ragged last one), Sq off the
-# 128-row tile, B 2
+# the Hopper attention core (flash_sm90.cuh): every form at CORE_RAGGED's shapes against its twin (the int8
+# form in test_flash_i8)
 CORE_FORMS = ["fixed", "denom", "unroll2", "fixed_masked", "online_masked", "online_d64", "online_d112",
               "online_d128", "bshd"]
-CORE_RAGGED = [(2, 3, 200, 77), (2, 2, 300, 300), (1, 2, 4307, 4307), (2, 2, 130, 4307)]
 
 
 @pytest.mark.parametrize("b,h,sq,skv", CORE_RAGGED)
@@ -1057,7 +1083,8 @@ def test_probe_i8_bit_for_bit(dev, m, k, n, acc, rank1, tile):
     assert c[f"{gemm_probe.i8_mode(acc, rank1)}@{tile}"] == 1 and sum(c.values()) == 1, c
 
 
-@pytest.mark.parametrize("m,k,n", PROBE_SHAPES[:2])
+# bench_gemm_variants' and probe_m512's shapes, and N 384: the bf16 form's 256-column block tiles past N
+@pytest.mark.parametrize("m,k,n", PROBE_SHAPES[:2] + [(256, 512, 384)])
 @pytest.mark.parametrize("a_form,w_form,scaled", gemm_probe.BF16_FORMS)
 def test_probe_bf16_forms(dev, m, k, n, a_form, w_form, scaled):
     """Every built operand form of the bf16-operand probe within one bf16

@@ -112,17 +112,41 @@ def test_quantize_qk_bit_exact():
         assert o.dtype == to_torch(r, "cpu").dtype and np.array_equal(o.numpy(), r)
 
 
-@pytest.mark.parametrize("out_bshd", [False, True], ids=["bhsd", "bshd"])
-def test_flash_i8_matches_jax(out_bshd):
-    """At tests/test_ops.py's shape (1, 2, 384, 128): q prescaled before its
-    quantization; the same codes and scales into both."""
-    q, k, v = _qkv(6, 1, 2, 384)
+def _i8_operands(seed, skv):
+    """(1, 2, 384, 128) q prescaled before its quantization, k and v over
+    ``skv`` tokens -> JAX's quantize_qk codes and scales, and v."""
+    q, k, v = _qkv(seed, 1, 2, 384, skv=skv)
     qp = (q.astype(jnp.float32) * (math.log2(math.e) / math.sqrt(D))).astype(jnp.bfloat16)
-    q8, qs, k8, ks = jatt.quantize_qk(qp, k)
+    return (*jatt.quantize_qk(qp, k), v)
+
+
+@pytest.mark.parametrize("out_bshd,skv", [(False, 384), (True, 384), (False, 77), (True, 77), (False, 300),
+                                          (True, 300)],
+                         ids=["bhsd", "bshd", "bhsd-skv77", "bshd-skv77", "bhsd-skv300", "bshd-skv300"])
+def test_flash_i8_matches_jax(out_bshd, skv):
+    """At tests/test_ops.py's shape (1, 2, 384, 128), and at ragged kv
+    lengths (77: one kv block, 300: three, the last partly valid; JAX
+    interpret at bkv 128 pads k, v and ks): the same codes and scales into
+    both."""
+    q8, qs, k8, ks, v = _i8_operands(6, skv)
     ref = jatt.flash_attention_i8(q8, qs, k8, ks, v, bq=128, bkv=128, out_bshd=out_bshd)
     out = tatt.flash_attention_i8(*(_t(a) for a in (q8, qs, k8, ks, v)), out_bshd=out_bshd)
     assert out.shape == tuple(ref.shape) and out.dtype == torch.bfloat16
     assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("skv", [77, 300, 384])
+def test_flash_i8_padded_scales_bit_exact(skv):
+    """The wrapper's ks, zero-padded to whole kv tiles for the kernel
+    (``tiled_scales``), through the plain twin gives the unpadded result bit
+    for bit: the padding is never read."""
+    q8, qs, k8, ks, v = (_t(a) for a in _i8_operands(7, skv))
+    padded = tatt.tiled_scales(ks)
+    assert padded.shape[-1] == -(-skv // 128) * 128 and not padded[..., skv:].any()
+    assert torch.equal(padded[..., :skv], ks)
+    for out_bshd in (False, True):
+        assert torch.equal(tatt.flash_attention_i8_plain(q8, qs, k8, padded, v, out_bshd),
+                           tatt.flash_attention_i8_plain(q8, qs, k8, ks, v, out_bshd))
 
 
 def _small_inputs():

@@ -328,7 +328,7 @@ def test_bf16_refusals(case):
         "packed_k": lambda: gemm_probe_bf16(torch.zeros((M, 64), dtype=torch.int8),
                                             torch.zeros((64, N), dtype=torch.int8), a_form="p4", w_form="p4"),
         "ragged_m": lambda: gemm_probe_bf16(torch.zeros((M - 64, K), dtype=torch.bfloat16), bf[1]),
-        "w_layout": lambda: gemm_probe_bf16(bf[0], bf[1].t().contiguous().t()),  # K-contiguous: ldmatrix.trans reads N
+        "w_layout": lambda: gemm_probe_bf16(bf[0], bf[1].t().contiguous().t()),  # K-contiguous: the kernel reads W N-contiguous
         "scale_shape": lambda: gemm_probe_bf16(torch.zeros((M, K), dtype=torch.int8),
                                                torch.zeros((K, N), dtype=torch.int8),
                                                torch.ones((K // 64, M), dtype=torch.bfloat16),
