@@ -280,6 +280,8 @@ import torch
 # the card's peak rates, the least time they allow, the CUDA-event timer and the nvidia-smi line, shared with the
 # port's probe tools
 from nunchaku_tpu_torch.tools.probe_common import bound, nvidia_smi, time_ms
+# the GEMV's bound and the device time a call from a CUDA graph, shared with the timing tool
+from nunchaku_tpu_torch.tools.time_attention import GEMV_WEIGHTS, gemv_bound, graph_ms
 
 # FLUX.1-dev at 1024x1024: 4096 image tokens, 512 text tokens
 S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
@@ -341,7 +343,10 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
               "Decoded<2, 1, 1>": "gemm_probe_bf16_p4_i8_scaled", "Decoded<2, 2, 1>": "gemm_probe_bf16_p4_p4_scaled"}
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
-PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu")
+PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu")
+# the wide online kernel (csrc/flash_online.cu, head dims 256 and 512: the VAE's mid-block attention): its
+# instantiations flash_wide_kernel<D>, wgmma + TMA like the core
+WIDE_DIMS = (256, 512)
 # [rank128]: FLUX.1-dev at full width with rank-128 low-rank branches, depth cut to 2 dual + 4 single blocks
 R128_LAYERS = (2, 4)
 # turbo launches of one FLUX w4a8 dual and one single block (the dequant route)
@@ -471,11 +476,6 @@ def stand_in_tokenizer(vocab: int, eos: int):
             ids[i, :len(toks)] = torch.tensor(toks, dtype=torch.int32)
         return ids
     return tokenize
-
-
-def gemv_bound(m, k, n):
-    # x bf16, packed weight, scales and zeros, bias -> f32 out
-    return bound(2 * m * k + k // 2 * n + 4 * (k // 64) * n + 2 * n + 4 * m * n, bf16_ops=2 * m * k * n)
 
 
 def kernel_phase(dev):
@@ -667,6 +667,15 @@ def kernel_phase(dev):
         log(f"[kernel] flash_online @ B=1 H=1 S={s2} D={VAE_D}: {'PASS' if ok2 else 'FAIL'} {detail2}{extra}")
         ok, err = ok and ok2, max(err, err2)
         del args
+    # the wide kernel's D 256 instantiation (no model path at this head dim): checked and timed at a tile's S
+    args = checks.flash_online_case(1, 1, s, s, 256, seed=2, device=dev)
+    err2, ok2, detail2 = checks.check_flash_online(*args)
+    log(f"[kernel] flash_online @ B=1 H=1 S={s} D=256: {'PASS' if ok2 else 'FAIL'} {detail2}; "
+        f"{time_ms(lambda: flash_attention_online(*args), 50):.4f} ms (SDPA "
+        f"{time_ms(lambda: sdpa(*args, scale=1 / 16), 50):.4f} ms, bound "
+        f"{bound(4 * s * 256 * 2, bf16_ops=4 * s * s * 256)[0]:.4f} ms)")
+    ok, err = ok and ok2, max(err, err2)
+    del args
     record("flash_online", "nunchaku_tpu_torch/csrc/flash_online.cu", "nunchaku_tpu/ops/attention.py:607",
            f"B=1 H=1 S={s} D={VAE_D}", ok, err, detail,
            time_ms(lambda: flash_attention_online(q, kk, v), 50),
@@ -746,6 +755,15 @@ def kernel_phase(dev):
     (err2, ok2, detail2), ms2, plain2, bnd2, lib2 = timed[3 * DIM]
     log(f"[kernel] gemv_awq @ M=1 K={DIM} N={3 * DIM}: {'PASS' if ok2 else 'FAIL'} {detail2}; {ms2:.4f} ms "
         f"(plain {plain2:.4f} ms, library {lib2:.4f} ms, bound {bnd2[0]:.4f} ms by {bnd2[1]})")
+    # the device time a call, without the host's pace: a CUDA graph of 100 calls over four weights (each read
+    # from device memory, not L2), at both N and at M 2 (Qwen-Image's CFG batch)
+    for m, n in ((1, 6 * DIM), (1, 3 * DIM), (2, 6 * DIM)):
+        cases = [checks.awq_case(m, DIM, n, seed=i, device=dev) for i in range(GEMV_WEIGHTS)]
+        dev_ms = graph_ms([lambda c=cases[i % GEMV_WEIGHTS]: awq_w4a16_linear(*c) for i in range(100)])
+        bnd_m = gemv_bound(m, DIM, n)[0]
+        log(f"[kernel] gemv_awq @ M={m} K={DIM} N={n}: device {dev_ms:.4f} ms a call (graph of 100 calls), "
+            f"{100 * bnd_m / dev_ms:.1f}% of its {bnd_m:.4f} ms bound")
+        del cases
     (err, ok, detail), ms, plain, bnd, lib = timed[6 * DIM]
     record("gemv_awq", "nunchaku_tpu_torch/csrc/gemv_awq.cu", "nunchaku_tpu/ops/gemv.py:25",
            f"M=1 K={DIM} N={6 * DIM}", ok and ok2, max(err, err2), detail + f"; N {3 * DIM}: {detail2}",
@@ -898,6 +916,12 @@ def core_sass(path) -> bool:
         good = (len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
                 and (form != 6 or found[0]["IGMMA"] > 0))
         log(f"[build] {row}: flash_sm90_kernel<{policy}, {d}, {form}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for d in WIDE_DIMS:
+        found = [c for name, c in sass.items() if f"flash_wide_kernel<{d}>" in name]
+        good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] flash_online (D {d}): flash_wide_kernel<{d}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     for key, row in PROBE_SASS.items():

@@ -166,10 +166,6 @@ __device__ __forceinline__ float quad_max(float x) {
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
 }
 
-__device__ __forceinline__ float bf16_exp2(float x) {  // bf16(exp2(bf16(x))), the split kernel's
-  return bf2f(__float2bfloat16_rn(exp2f(bf2f(__float2bfloat16_rn(x)))));
-}
-
 __device__ __forceinline__ float ex2(float x) {  // 2^x, subnormal results flushed to 0
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));

@@ -83,7 +83,10 @@ RMS_EPS = 1e-6
 NEG_INF = -1e30
 ONLINE_HEAD_DIMS = (64, 112, 128, 256, 512)  # the online kernel's instantiations
 ONLINE_BKV = 128  # the kv tile of the Hopper attention core (head dims 64-128): the online rescale steps
-SPLIT_BKV = 32  # the kv tile of the head-dim split kernel (head dims 256 and 512)
+WIDE_BKV = 64  # the kv tile of the wide kernel (head dims 256 and 512)
+WIDE_BQ = 64  # its query rows a block
+WIDE_SPLIT_SMS = 132  # the H100's SMs: the wide kernel splits the kv range while its query blocks fill half of them
+WIDE_MAX_SPLITS = 4
 MASKED_COUNTS = {"flash_fixed_masked": SimpleNamespace(launches=0),
                  "flash_online_masked": SimpleNamespace(launches=0)}
 # the online kernel at head dim 64 (SDXL) and 112 (SANA), each counted apart
@@ -461,8 +464,24 @@ def flash_attention_i8(q8, qs, k8, ks, v, *, out_bshd=False):
 
 def online_tile(d: int) -> int:
     """The online kernel's kv tile at head dim ``d``: the columns between
-    two rescales (the core's 128 up to D 128, the split kernel's 32 above)."""
-    return ONLINE_BKV if d <= KERNEL_HEAD_DIM else SPLIT_BKV
+    two rescales (the core's 128 up to D 128, the wide kernel's 64 above)."""
+    return ONLINE_BKV if d <= KERNEL_HEAD_DIM else WIDE_BKV
+
+
+def online_splits(b: int, h: int, sq: int, skv: int, d: int) -> int:
+    """The kv ranges the online kernel splits one query block's work into at
+    head dim ``d`` (``csrc/flash_online.cu`` ``wide_splits``): 1 on the core
+    (D <= 128); above, 2 or 4 while the B * H * ceil(Sq / 64) query blocks,
+    so multiplied, fit at most once on the card's 132 SMs (and each range
+    keeps at least one 64-column tile)."""
+    if d <= KERNEL_HEAD_DIM:
+        return 1
+    blocks = b * h * -(-sq // WIDE_BQ)
+    nt = -(-skv // WIDE_BKV)
+    ns = 1
+    while ns < WIDE_MAX_SPLITS and blocks * ns * 2 <= WIDE_SPLIT_SMS and nt >= ns * 2:
+        ns *= 2
+    return ns
 
 
 def _aligned16(t: torch.Tensor) -> torch.Tensor:
@@ -473,38 +492,69 @@ def _aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _online_plain(q, k, v, c, bkv, bias=None):
-    """The online recurrence over (B, H, S, D) q, k, v with logit factor
-    ``c`` and kv chunks of ``bkv`` columns -> (B, H, Sq, D) bf16. The last
-    chunk is cut at Skv instead of masked: a masked tail column's p is
-    exactly 0 and never the row max, so the two agree."""
-    b, h, sq, d = q.shape
-    skv = k.shape[2]
-    qf = q.float()
-    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=q.device)
-    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    for j in range(0, skv, bkv):
-        s = (qf @ k[:, :, j:j + bkv].float().transpose(-1, -2)) * c
+def _online_run(qf, k, v, c, bkv, bias, j0, j1):
+    """The online recurrence over kv columns [j0, j1) in chunks of ``bkv``
+    from column j0 -> the running (m, l, acc) in f32."""
+    b, h, sq, d = qf.shape
+    m = torch.full((b, h, sq, 1), NEG_INF, dtype=torch.float32, device=qf.device)
+    l = torch.zeros((b, h, sq, 1), dtype=torch.float32, device=qf.device)
+    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=qf.device)
+    for j in range(j0, j1, bkv):
+        e = min(j + bkv, j1)
+        s = (qf @ k[:, :, j:e].float().transpose(-1, -2)) * c
         if bias is not None:
-            s = s + bias[..., j:j + bkv]
+            s = s + bias[..., j:e]
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
         p = torch.exp2((s - m_new).to(torch.bfloat16).float()).to(torch.bfloat16).float()
         alpha = torch.exp2(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + p @ v[:, :, j:j + bkv].float()
+        acc = acc * alpha + p @ v[:, :, j:e].float()
         m = m_new
+    return m, l, acc
+
+
+def _online_plain(q, k, v, c, bkv, bias=None, splits=1):
+    """The online recurrence over (B, H, S, D) q, k, v with logit factor
+    ``c`` and kv chunks of ``bkv`` columns -> (B, H, Sq, D) bf16. The last
+    chunk is cut at Skv instead of masked: a masked tail column's p is
+    exactly 0 and never the row max, so the two agree. With ``splits`` > 1
+    the ceil(Skv / bkv) chunks are cut into that many contiguous ranges (range
+    r: chunks [r n / splits, (r + 1) n / splits)), each run from a fresh (m,
+    l, acc), then merged as the wide kernel merges them: M = max m_r, a_r =
+    2^(m_r - M), out = bf16(sum_r acc_r a_r / sum_r l_r a_r), sums in range
+    order."""
+    qf = q.float()
+    skv = k.shape[2]
+    if splits == 1:
+        _, l, acc = _online_run(qf, k, v, c, bkv, bias, 0, skv)
+        return (acc / l).to(torch.bfloat16)
+    nt = -(-skv // bkv)
+    parts = [_online_run(qf, k, v, c, bkv, bias, r * nt // splits * bkv, min((r + 1) * nt // splits * bkv, skv))
+             for r in range(splits)]
+    big_m = parts[0][0]
+    for m_r, _, _ in parts[1:]:
+        big_m = torch.maximum(big_m, m_r)
+    l = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for m_r, l_r, acc_r in parts:
+        a = torch.exp2(m_r - big_m)
+        l = l + l_r * a
+        acc = acc + acc_r * a
     return (acc / l).to(torch.bfloat16)
 
 
-def flash_attention_online_plain(q, k, v, scale=None, bkv=None, kv_mask=None, out_bshd=False):
+def flash_attention_online_plain(q, k, v, scale=None, bkv=None, kv_mask=None, out_bshd=False, splits=None):
     """The kernel's recurrence in torch ops, over kv chunks of ``bkv``
     columns (the kernel's tile at this head dim by default,
-    :func:`online_tile`, so the rescales fall where the kernel's do)."""
-    b = q.shape[0]
-    bkv = online_tile(q.shape[-1]) if bkv is None else bkv
+    :func:`online_tile`, so the rescales fall where the kernel's do), in
+    ``splits`` merged kv ranges (the kernel's, :func:`online_splits`, by
+    default; with ``bkv`` given, one unless ``splits`` is given too)."""
+    b, h, sq, d = q.shape
+    if splits is None:
+        splits = online_splits(b, h, sq, k.shape[2], d) if bkv is None else 1
+    bkv = online_tile(d) if bkv is None else bkv
     bias = None if kv_mask is None else kv_bias(kv_mask, b, k.shape[2])[:, None, None, :]
-    return _heads_out(_online_plain(q, k, v, _logit_scale(scale, q.shape[-1]), bkv, bias), out_bshd)
+    return _heads_out(_online_plain(q, k, v, _logit_scale(scale, d), bkv, bias, splits), out_bshd)
 
 
 def flash_attention_online(q, k, v, scale=None, kv_mask=None, out_bshd=False):

@@ -613,12 +613,13 @@ def check_flash_i8(q8, qs, k8, ks, v, out_bshd=True):
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"
 
 
-def check_flash_online(q, k, v):
-    """bf16 output, softmax scale 1/sqrt(D): max error <= 1e-2 of the plain
-    output's max |value| (the twin runs the kernel's kv steps: 128 columns
-    up to head dim 128, 32 above)."""
-    out = flash_attention_online(q, k, v)
-    ref = flash_attention_online_plain(q, k, v)
+def check_flash_online(q, k, v, out_bshd=False):
+    """bf16 output, (B, H, Sq, D) or (B, Sq, H*D), softmax scale 1/sqrt(D):
+    max error <= 1e-2 of the plain output's max |value| (the twin runs the
+    kernel's kv steps: 128 columns up to head dim 128, 64 above, and above
+    it the kernel's kv splits, merged in the same order)."""
+    out = flash_attention_online(q, k, v, out_bshd=out_bshd)
+    ref = flash_attention_online_plain(q, k, v, out_bshd=out_bshd)
     err, rel = _rel(out, ref)
     ok = rel <= 1e-2 and out.shape == ref.shape and bool(torch.isfinite(out.float()).all())
     return err, ok, f"max abs {err:.3e}, rel {rel:.2e} (tol 1e-2)"

@@ -26,8 +26,7 @@ from .reference import GROUP_INT4, bf16_matmul
 
 AWQ_XLA_MIN_M = 16  # M at and above which the dequantize-then-multiply route runs (JAX gemv.py:168)
 KERNEL_MAX_M = 8  # rows per kernel launch
-KERNEL_COLS = 256  # columns per block of csrc/gemv_awq.cu
-KERNEL_K_BLOCK = 512  # k per block (the kernel's K split)
+KERNEL_COLS = 256  # the wrapper's N multiple (csrc/gemv_awq.cu's strips are 128 columns)
 
 
 def awq_dequant(qweight: torch.Tensor, wscales: torch.Tensor, wzeros: torch.Tensor) -> torch.Tensor:
@@ -52,7 +51,9 @@ def awq_w4a16_linear_plain(x, qweight, wscales, wzeros, bias=None):
 def awq_w4a16_linear(x, qweight, wscales, wzeros, bias=None):
     """:func:`awq_w4a16_linear_plain` for small M: x (M, K) bf16, qweight
     (K/2, N) int8, wscales / wzeros (K/64, N) bf16, bias (N,) or None ->
-    (M, N) f32. On the card each launch takes up to 8 rows of x."""
+    (M, N) f32. On the card each launch takes up to 8 rows of x and writes
+    them straight into ``out`` (no scratch; the kernel's one launch sums
+    its K splits in a fixed order, so results repeat bit for bit)."""
     if not x.is_cuda:
         return awq_w4a16_linear_plain(x, qweight, wscales, wzeros, bias)
     m, k = x.shape
@@ -68,14 +69,11 @@ def awq_w4a16_linear(x, qweight, wscales, wzeros, bias=None):
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     lib = _build.library()
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
-    splits = -(-k // KERNEL_K_BLOCK)
     for r0 in range(0, m, KERNEL_MAX_M):
         xr = x[r0:r0 + KERNEL_MAX_M].contiguous()
-        rows = xr.shape[0]
-        part = torch.empty((splits, rows, n), dtype=torch.float32, device=x.device)
         _build.check(lib.nt_gemv_awq(xr.data_ptr(), qweight.data_ptr(), wscales.data_ptr(), wzeros.data_ptr(),
-                                     None if b is None else b.data_ptr(), part.data_ptr(), out[r0:].data_ptr(),
-                                     rows, n, k, torch.cuda.current_stream(x.device).cuda_stream), "gemv_awq")
+                                     None if b is None else b.data_ptr(), out[r0:].data_ptr(), xr.shape[0], n, k,
+                                     torch.cuda.current_stream(x.device).cuda_stream), "gemv_awq")
         awq_w4a16_linear.launches += 1
     return out
 

@@ -80,8 +80,8 @@ import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
-                "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_split_kernel",
-                "gemm_w4a4_kernel", "gemv_awq_kernel", "gemv_awq_finish", "gemm_w4a8_kernel")
+                "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_wide_kernel",
+                "gemm_w4a4_kernel", "gemv_awq_kernel", "gemm_w4a8_kernel")
 
 
 def _core(policy: int, d: int, form: int) -> str:
@@ -154,8 +154,8 @@ def group_of(name: str) -> str:
 
 def decode_group_of(name: str) -> str:
     low = name.lower()
-    if "flash_split_kernel" in low:
-        return "port kernel flash_split_kernel (mid-block attention)"
+    if "flash_wide_kernel" in low:
+        return "port kernel flash_wide_kernel (mid-block attention)"
     if "nchwtonhwc" in low or "nhwctonchw" in low:
         return "convolution layout conversions (cuDNN NCHW <-> NHWC)"
     if any(s in low for s in ("conv", "fprop", "implicit", "xmma", "cudnn", "cutlass", "gemm")):

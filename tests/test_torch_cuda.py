@@ -227,6 +227,70 @@ def test_flash_online(dev, b, h, sq, skv, d):
     assert ok, detail
 
 
+@pytest.mark.parametrize("out_bshd", [False, True], ids=["bhsd", "bshd"])
+@pytest.mark.parametrize("s", [64, 100, 1000, 4096, 16384])
+@pytest.mark.parametrize("d", [256, 512])
+def test_flash_online_wide(dev, d, s, out_bshd):
+    """The wide kernel (D 256 / 512) at one head, square S, both layouts."""
+    _, ok, detail = checks.check_flash_online(*checks.flash_online_case(1, 1, s, s, d, device=dev), out_bshd=out_bshd)
+    assert ok, detail
+
+
+# (B, H, Sq, Skv, D, kv splits): one kv tile; an odd tile count cut 1 + 2; four ranges over 5 tiles; the query
+# blocks too many to split; 65 / 66 / 67 query blocks at a tile's S (2, 2, 1 splits); B and H > 1 split
+WIDE_SPLITS = [(1, 1, 64, 64, 512, 1), (1, 1, 64, 130, 512, 2), (1, 1, 200, 300, 256, 4), (2, 3, 1000, 77, 512, 1),
+               (1, 1, 4160, 4096, 512, 2), (1, 1, 4224, 4096, 256, 2), (1, 1, 4288, 4096, 512, 1),
+               (2, 2, 300, 1000, 512, 4)]
+
+
+@pytest.mark.parametrize("b,h,sq,skv,d,splits", WIDE_SPLITS)
+def test_flash_online_wide_splits(dev, b, h, sq, skv, d, splits):
+    """The kv-split edges of the wide kernel: the twin merges the same
+    ranges, so each shape checks the cluster merge at that split count."""
+    from nunchaku_tpu_torch.ops.attention import online_splits
+
+    assert online_splits(b, h, sq, skv, d) == splits
+    for out_bshd in (False, True):
+        _, ok, detail = checks.check_flash_online(*checks.flash_online_case(b, h, sq, skv, d, device=dev),
+                                                  out_bshd=out_bshd)
+        assert ok, detail
+
+
+def test_flash_online_wide_sass(dev):
+    """The wide kernel's instantiations hold HGMMA and UTMALDG and do not
+    spill."""
+    from nunchaku_tpu_torch.ops import _build
+
+    path = _build.build()
+    sass, res = _build.sass_counts(path), _build.resource_usage(path)
+    wide = [n for n in sass if "flash_wide_kernel<" in n]
+    assert len(wide) == 2, wide
+    for name in wide:
+        assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
+        assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
+
+
+def test_wide_flash_and_gemv_one_kernel_a_call(dev):
+    """One device kernel a call of each (the wide kernel's kv merge and the
+    GEMV's K reduction inside it: no second kernel), as the profiler lists
+    them in one session, and one count each."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v = checks.flash_online_case(1, 1, 4096, 4096, 512, device=dev)
+    args = checks.awq_case(2, 3072, 18432, device=dev)
+    flash_attention_online(q, k, v)
+    awq_w4a16_linear(*args)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        flash_attention_online(q, k, v)
+        awq_w4a16_linear(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2 and "flash_wide_kernel" in kernels[0] and "gemv_awq_kernel" in kernels[1], kernels
+    assert launch_counts()["flash_online"] == 1 and launch_counts()["gemv_awq"] == 1
+
+
 def test_flash_online_counts_and_refusals(dev):
     reset_launch_counts()
     q, k, v = checks.flash_online_case(1, 1, 100, 100, 512, device=dev)
@@ -507,6 +571,28 @@ def test_gemm_w4a4_without_lora_or_bias(dev, precision):
 def test_awq_gemv(dev, m, k, n):
     _, ok, detail = checks.check_awq(*checks.awq_case(m, k, n, device=dev))
     assert ok, detail
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8, 12])
+@pytest.mark.parametrize("k,n", [(3072, 18432), (3072, 9216), (256, 256)])
+def test_awq_gemv_rows(dev, m, k, n):
+    """Every row count of one launch (and 12: 8 + 4) at FLUX's modulation
+    shapes and at the wrapper's smallest K and N."""
+    _, ok, detail = checks.check_awq(*checks.awq_case(m, k, n, seed=m, device=dev))
+    assert ok, detail
+
+
+def test_awq_gemv_deterministic(dev):
+    """Calls repeat bit for bit (the K splits summed in a fixed order, no
+    atomics), one count a call of up to 8 rows; x must be bf16."""
+    args = checks.awq_case(2, 3072, 18432, device=dev)
+    first = awq_w4a16_linear(*args)
+    reset_launch_counts()
+    for _ in range(4):
+        assert torch.equal(awq_w4a16_linear(*args), first)
+    assert launch_counts()["gemv_awq"] == 4
+    with pytest.raises(ValueError):  # x not bf16
+        awq_w4a16_linear(args[0].float(), *args[1:])
 
 
 def test_4bit_counts_and_refusals(dev):

@@ -211,7 +211,7 @@ def _awq_case(m, k=512, n=768, seed=44):
     return jl, x
 
 
-@pytest.mark.parametrize("m", [1, 5])
+@pytest.mark.parametrize("m", [1, 2, 5, 8, 12])
 def test_awq_gemv_plain_matches_jax_kernel(m):
     """The GEMV twin against JAX ``awq_w4a16_linear`` (interpret mode):
     w = bf16(q s - z) may round one step apart where XLA fuses the multiply

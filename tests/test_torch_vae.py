@@ -6,7 +6,11 @@ Tolerances:
 - ``flash_attention_online_plain`` against the JAX ``flash_attention``
   (``_flash_kernel`` in interpret mode, ``bq = bkv = 128``): max error
   <= 1e-2 of the reference's max |value| (bf16 p and output; the rescales
-  fall at other kv columns when the twin steps by 32).
+  fall at other kv columns when the twin steps by 32 or 64, and a split
+  twin's p is rounded against its range's own running max).
+- The split twin against the unsplit one at the same tile: max error <=
+  1e-2 of the unsplit output's max |value| (the same bound: only where the
+  rescales and the bf16 roundings of p fall differs).
 - Modules (``group_norm``, ``Conv2d``, ``ResnetBlock``, ``Upsample``,
   ``AttnBlock`` in both branches): max error <= 2e-2 of the reference's max
   |value| (bf16 activations; the convolution's bias is added after a bf16
@@ -30,7 +34,8 @@ from nunchaku_tpu.ops.attention import flash_attention as jax_flash
 from nunchaku_tpu_torch.convert import to_torch, vae_from_jax_params
 from nunchaku_tpu_torch.models import autoencoder as tvae
 from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
-from nunchaku_tpu_torch.ops.attention import ONLINE_BKV, SPLIT_BKV, flash_attention_online, flash_attention_online_plain
+from nunchaku_tpu_torch.ops.attention import (ONLINE_BKV, WIDE_BKV, flash_attention_online, flash_attention_online_plain,
+                                              online_splits, online_tile)
 
 TINY = dict(block_out_channels=(32, 32, 32, 32), layers_per_block=1)
 # mid block 128 wide (the flash branch at 32x32), an up block with a shortcut
@@ -108,13 +113,67 @@ def flash_cases():
     return cases
 
 
-@pytest.mark.parametrize("bkv", [SPLIT_BKV, ONLINE_BKV])
+@pytest.mark.parametrize("bkv", [32, WIDE_BKV, ONLINE_BKV])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_online_plain_matches_pallas(flash_cases, case, bkv):
     (q, k, v), ref = flash_cases[case]
     out = flash_attention_online_plain(*(to_torch(a, "cpu") for a in (q, k, v)), bkv=bkv)
     assert out.shape == case and out.dtype == torch.bfloat16
     assert _rel(out, ref) <= 1e-2
+
+
+# (B, H, Sq, Skv, D) at the wide kernel's head dims: ragged S, Sq != Skv, and the kv splits it takes there
+WIDE_CASES = [((1, 1, 100, 100, 512), 2), ((1, 1, 300, 300, 256), 4), ((1, 2, 100, 300, 512), 4),
+              ((1, 1, 300, 100, 256), 2), ((2, 1, 65, 130, 512), 2), ((1, 1, 64, 64, 256), 1)]
+
+
+@pytest.fixture(scope="module")
+def wide_cases():
+    rng = np.random.default_rng(5)
+    cases = {}
+    for (b, h, sq, skv, d), _ in WIDE_CASES:
+        q = _bf(rng.standard_normal((b, h, sq, d)) * 2.0)
+        k = _bf(rng.standard_normal((b, h, skv, d)) * 2.0)
+        v = _bf(rng.standard_normal((b, h, skv, d)))
+        ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=1.0 / math.sqrt(d), bq=128, bkv=128)
+        cases[(b, h, sq, skv, d)] = ((q, k, v), np.asarray(ref, np.float32))
+    return cases
+
+
+@pytest.mark.parametrize("case,splits", WIDE_CASES)
+def test_wide_twin_matches_pallas(wide_cases, case, splits):
+    """The D 256 / 512 twin as the card check runs it (64-column rescales,
+    the kernel's kv splits merged in range order) against _flash_kernel."""
+    (q, k, v), ref = wide_cases[case]
+    b, h, sq, skv, d = case
+    assert online_tile(d) == WIDE_BKV and online_splits(b, h, sq, skv, d) == splits
+    out = flash_attention_online(*(to_torch(a, "cpu") for a in (q, k, v)))
+    assert tuple(out.shape) == (b, h, sq, d) and out.dtype == torch.bfloat16
+    assert _rel(out, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("splits", [2, 3, 4])
+def test_wide_merged_twin_matches_unsplit(wide_cases, splits):
+    """Merging kv ranges is the same function: the split twin against the
+    unsplit one at the same 64-column tile (Sq != Skv, ragged)."""
+    (q, k, v), _ = wide_cases[(1, 2, 100, 300, 512)]
+    args = [to_torch(a, "cpu") for a in (q, k, v)]
+    whole = flash_attention_online_plain(*args, bkv=WIDE_BKV)
+    split = flash_attention_online_plain(*args, bkv=WIDE_BKV, splits=splits)
+    assert _rel(split, whole.float().numpy()) <= 1e-2
+
+
+def test_online_splits_rule():
+    """The kv splits of the wide kernel's rule (mirrored in
+    csrc/flash_online.cu wide_splits) at the VAE's shapes and the edges:
+    the core's head dims never split; a 4096-token tile (64 query blocks)
+    splits in two, a whole 1024px image (256) not at all."""
+    assert online_splits(1, 1, 4096, 4096, 512) == 2 and online_splits(1, 1, 4096, 4096, 256) == 2
+    assert online_splits(1, 1, 16384, 16384, 512) == 1
+    assert online_splits(1, 1, 1000, 1000, 512) == 4
+    assert online_splits(1, 1, 4224, 4096, 512) == 2 and online_splits(1, 1, 4288, 4096, 512) == 1
+    assert online_splits(1, 1, 64, 64, 512) == 1 and online_splits(1, 1, 64, 65, 512) == 2
+    assert online_splits(1, 1, 4096, 4096, 128) == 1 and online_splits(1, 1, 100, 100, 64) == 1
 
 
 def test_flash_online_on_cpu_runs_the_twin(flash_cases):
