@@ -6,8 +6,10 @@
 Phases, each fatal on failure:
   1. device    -- the card's name, count, and nvidia-smi's name and power limit;
   2. build     -- nvcc builds every kernel in nunchaku_tpu_torch/csrc for sm_90a;
-                  each kernel on the attention core (flash_sm90.cuh) must show
-                  wgmma (HGMMA) and TMA-load (UTMALDG) instructions in
+                  each kernel on the attention core (flash_sm90.cuh) and each
+                  instantiation of the GEMM main loop (gemm_sm90.cuh: the bf16
+                  probe's, the int8 chain kernels' s8 ones) must show wgmma
+                  (HGMMA / IGMMA) and TMA-load (UTMALDG) instructions in
                   cuobjdump -sass;
   3. kernels   -- each kernel against its plain PyTorch twin at FLUX.1-dev
                   main-path shapes, its time (CUDA events over warm launches),
@@ -343,7 +345,12 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
               "Decoded<2, 1, 1>": "gemm_probe_bf16_p4_i8_scaled", "Decoded<2, 2, 1>": "gemm_probe_bf16_p4_p4_scaled"}
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
-PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu")
+PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
+               "gemm_w8a8_grouped.cu")
+# the int8 chain kernels' s8 instantiations of the GEMM main loop: the epilogue in the demangled name (bools as
+# 0 / 1) -> the rows that run it
+CHAIN_SASS = {"GeluEpi": "gemm_w8a8_gelu_quant (rows 2, 2s, 13)", "GroupedEpi<0>": "gemm_w8a8_grouped (rows 3, 3s, 3p)",
+              "GroupedEpi<1>": "gemm_w8a8_grouped_res (rows 3', 3's, 3p residual)"}
 # the wide online kernel (csrc/flash_online.cu, head dims 256 and 512: the VAE's mid-block attention): its
 # instantiations flash_wide_kernel<D>, wgmma + TMA like the core
 WIDE_DIMS = (256, 512)
@@ -899,7 +906,7 @@ def core_sass(path) -> bool:
     TMA-load (UTMALDG) instruction counts in cuobjdump -sass; False if one is
     missing or a count it needs is 0 (the int8 attention form needs IGMMA for
     q . k and HGMMA for p . v; the coded GEMM forms copy by TMA, decode, and
-    run HGMMA)."""
+    run HGMMA; the int8 chain kernels' s8 instantiations run IGMMA)."""
     from nunchaku_tpu_torch.ops import _build
 
     # demangled template arguments as plain numbers: "(int)1" -> "1", "(bool)0" / "false" -> "0"
@@ -928,6 +935,12 @@ def core_sass(path) -> bool:
         found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name]
         good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
         log(f"[build] {row}: gemm_sm90_kernel<Bf16, BN, 4, {key}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for key, row in CHAIN_SASS.items():
+        found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name]
+        good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] {row}: gemm_sm90_kernel<S8, 128, 4, TmaS8<128>, {key}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     return ok

@@ -27,6 +27,12 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ float bf2f(bf16 x) { return __bfloat162float(x); }
 
+// eight f32 of a read-only operand (32-byte aligned)
+__device__ __forceinline__ void ldg8f(float (&d)[8], const float* p) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p)), b = __ldg(reinterpret_cast<const float4*>(p + 4));
+  d[0] = a.x, d[1] = a.y, d[2] = a.z, d[3] = a.w, d[4] = b.x, d[5] = b.y, d[6] = b.z, d[7] = b.w;
+}
+
 // The stacked-weight (layer-index) modes of the 4-bit GEMMs and the dequant:
 // the kernel-side counterpart of the Pallas kernels' scalar prefetch of the
 // scan's layer index. ``idx`` is a 0-d int32 tensor on the card (the index

@@ -50,6 +50,8 @@ struct TmaBf16 {
   };
   static constexpr int STAGE = Tiles<BN>::BYTES, EXTRA = 0;
   static constexpr bool DECODES = false;
+  __device__ static int groups(const Params&) { return 1; }
+  __device__ static int group_tiles(const Params&, int K) { return K / BK; }
   __device__ static void load(const Params& p, unsigned char* st, uint64_t* full, int m0, int n0, int t) {
     mbar_expect_tx(full, STAGE);
     tma_load_2d(st, &p.a, full, t * BK, m0);
@@ -101,6 +103,8 @@ struct Decoded {
   static constexpr int STAGE = (RAW_A + RAW_W + SCALES + 1023) / 1024 * 1024;
   static constexpr int EXTRA = DEC_BUFFERS * Tiles<BN_CODED>::BYTES;
   static constexpr bool DECODES = true;
+  __device__ static int groups(const Params&) { return 1; }
+  __device__ static int group_tiles(const Params&, int K) { return K / BK; }
 
   __device__ static void load(const Params& p, unsigned char* st, uint64_t* full, int m0, int n0, int t) {
     const int k0 = t * BK, p0 = k0 / 256 * 128 + k0 % 128;  // the packed column / row of a p4 K tile
@@ -157,7 +161,7 @@ int bf16_form(const void* a, const void* w, bf16* out, int M, int N, int K, cuda
   typename TmaBf16<BN_BF16>::Params p;
   if (!matrix_map(&p.a, a, 2, M, K, K, BM, 64, true) || !matrix_map(&p.w, w, 2, K, N, N, BK, 64, true))
     return static_cast<int>(cudaErrorInvalidValue);
-  return gemm90::launch<Bf16, BN_BF16, ST, TmaBf16<BN_BF16>>(p, out, M, N, K, stream);
+  return gemm90::launch<Bf16, BN_BF16, ST, TmaBf16<BN_BF16>, StoreBf16>(p, {out}, M, N, K, stream);
 }
 
 template <int AF, int WF, bool SCALED>
@@ -173,7 +177,7 @@ int coded_form(const void* a, const void* w, const bf16* as, const bf16* ws, bf1
   p.ws = ws;
   p.M = M;
   p.N = N;
-  return gemm90::launch<Bf16, BN_CODED, ST, S>(p, out, M, N, K, stream);
+  return gemm90::launch<Bf16, BN_CODED, ST, S, StoreBf16>(p, {out}, M, N, K, stream);
 }
 
 }  // namespace

@@ -45,16 +45,26 @@
 // -- far above the int8 ridge of ~590 ops/byte (the W4 form reads K*N/2
 // weight bytes, and its decode, about ten CUDA-core instructions per weight
 // per M tile, is work beside the products). Design: two kernels.
-// Kernel A is the tensor-core int8 GEMM (int8_gemm.cuh: WMMA s8 fragments,
-// cp.async double buffering). Its epilogue applies the scales, the rank-r
-// up-projection, the bias and the GELU; writes g as f32; reduces max|h| over
-// each row of its 128-column tile; and multiplies its bf16(g) tile by the
-// matching 128 rows of proj_down_next on the tensor cores (WMMA bf16),
-// writing one rank-r partial per (128-column tile, row). Kernel B streams g
-// once more: per row it takes the max over the tiles of each bn-wide group,
-// quantizes, and sums the low-rank partials in tile order. The scale needs
-// a max over bn = 1536 columns, more than one GEMM tile holds, hence the
-// f32 round trip of g; keeping g on chip is left to a later version.
+// Kernel A is the tensor-core int8 GEMM. The int8 form runs on the wgmma +
+// TMA main loop of gemm_sm90.cuh at its s8 instantiation (block tile 128 x
+// 128, K tiles of 128 bytes in a 4-stage TMA ring, wgmma m64n128k32 s8; a K
+// that 128 does not divide ends on a tile TMA fills with zeros past K); the
+// W4 form keeps the WMMA loop of int8_gemm.cuh (cp.async double buffering,
+// its decode in shared memory). Both epilogues apply the scales, the rank-r
+// up-projection, the bias and the GELU in the same operations and order;
+// write g as f32; reduce max|h| over each row of the 128-column tile; and
+// multiply the bf16(g) tile by the matching 128 rows of proj_down_next on the
+// tensor cores (WMMA bf16, 16 rows a warp, the same code in both), writing
+// one rank-r partial per (128-column tile, row). So both forms give the same
+// outputs bit for bit. The s8 form stages its s32 accumulators through shared
+// memory to a thread per 4 x 16 block, whose rank-r sums run over the ranks
+// once for its 64 values (int8_gemm.cuh lora_sums_4x16): a thread per 8
+// columns, as the WMMA form has it, left the s8 epilogue bound by
+// shared-memory loads. Kernel B streams g once more: per row it takes the
+// max over the tiles of each bn-wide group, quantizes, and sums the low-rank
+// partials in tile order. The scale needs a max over bn = 1536 columns, more
+// than one GEMM tile holds, hence the f32 round trip of g; keeping g on chip
+// is left to a later version.
 //
 // Rank. The low-rank widths R (this layer) and R2 (the next) run up to 128
 // (nunchaku's rank-128 checkpoints). The epilogue's shared memory is laid
@@ -64,6 +74,7 @@
 // slices of two WMMA accumulators, so registers do not grow with the rank;
 // the partial buffer is sized by R2 (tiles x M x R2p), and kernel B sums the
 // tiles in tile order, as the JAX producer does.
+#include "gemm_sm90.cuh"
 #include "int8_gemm.cuh"
 
 namespace {
@@ -243,6 +254,17 @@ __global__ void __launch_bounds__(RQ_THREADS)
   }
 }
 
+// Kernel B on kernel A's workspace.
+int requant(const void* gbuf, const void* rsmooth, const void* amax_part, const void* lora_part, void* qout,
+            void* qscales, void* lora_next, int M, int N, int R2, int bn, float shift, cudaStream_t s) {
+  requant_kernel<<<M, RQ_THREADS, 0, s>>>(
+      static_cast<const float*>(gbuf), static_cast<const float*>(rsmooth),
+      static_cast<const float*>(amax_part), static_cast<const float*>(lora_part),
+      static_cast<int8_t*>(qout), static_cast<float*>(qscales), static_cast<float*>(lora_next), M,
+      N, R2, bn, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <class W>
 int launch(const void* qact, const void* ascales, W w, const void* wscales, const void* lora_act,
            const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down, void* gbuf,
@@ -267,13 +289,188 @@ int launch(const void* qact, const void* ascales, W w, const void* wscales, cons
       shift, static_cast<const int*>(layer_idx), n_layers);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  requant_kernel<<<M, RQ_THREADS, 0, s>>>(
-      static_cast<const float*>(gbuf), static_cast<const float*>(rsmooth),
-      static_cast<const float*>(amax_part), static_cast<const float*>(lora_part),
-      static_cast<int8_t*>(qout), static_cast<float*>(qscales), static_cast<float*>(lora_next), M,
-      N, R2, bn, shift);
-  return static_cast<int>(cudaGetLastError());
+  return requant(gbuf, rsmooth, amax_part, lora_part, qout, qscales, lora_next, M, N, R2, bn, shift, s);
 }
+
+// Kernel A of the int8 form on the s8 main loop of gemm_sm90.cuh.
+namespace s8 {
+
+constexpr int BM = gemm90::BM, BN = 128, ST = 4;
+constexpr int LDA = BN + 8;  // int row stride of the staged accumulator tile (conflict-free 8-byte stores)
+using Src = gemm90::TmaS8<BN>;
+
+struct GeluEpi {
+  struct Params {
+    const float* as;
+    const float* ws;
+    const float* la;
+    const bf16* pu;
+    const bf16* bias;
+    const float* rsm;
+    const bf16* pd;
+    float* g;
+    float* amax_part;
+    float* lora_part;
+    int R, R2;
+    float shift;
+  };
+  static constexpr bool FOLDS = false;
+  template <int N>
+  struct State {};
+  // [0, acc) the staged accumulators [BM][LDA] int; the low-rank tiles (lora_rows_bytes(R)); the g tile
+  // [BM][LDG] bf16; the proj_down tile [BN][R2p + 8] bf16
+  __host__ __device__ static size_t acc_bytes() { return i8gemm::align128(static_cast<size_t>(BM) * LDA * 4); }
+  __host__ __device__ static size_t g_bytes() { return i8gemm::align128(static_cast<size_t>(BM) * LDG * 2); }
+  __host__ __device__ static int smem(const Params& e) {
+    return static_cast<int>(acc_bytes() + i8gemm::lora_rows_bytes(e.R) + g_bytes() +
+                            i8gemm::align128(static_cast<size_t>(BN) * (round16(e.R2) + 8) * 2));
+  }
+  __device__ static void begin_group(const Params&, State<BN>&, int, int, int) {}
+  __device__ static void finish(const Params& e, State<BN>&, const int (&acc)[BN / 2], unsigned char* sm, int m0,
+                                int n0, int row0, int ct, int M, int N) {
+    const int R = e.R, R2 = e.R2, R2p = round16(R2), LDP = R2p + 8;
+    int* at = reinterpret_cast<int*>(sm);
+    const i8gemm::LoraRows lora = i8gemm::lora_rows(sm + acc_bytes(), R);
+    bf16* gt = reinterpret_cast<bf16*>(sm + acc_bytes() + i8gemm::lora_rows_bytes(R));  // [BM][LDG]: bf16(g)
+    bf16* pdt = reinterpret_cast<bf16*>(sm + acc_bytes() + i8gemm::lora_rows_bytes(R) + g_bytes());  // [BN][LDP]
+    {  // the accumulators into the tile: rows row0 and row0 + 8, columns 8j + 2 t4 (+1)
+      const int r = row0 - m0, c = 2 * (ct & 3);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        *reinterpret_cast<int2*>(at + r * LDA + 8 * j + c) = make_int2(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<int2*>(at + (r + 8) * LDA + 8 * j + c) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+    // proj_down_next rows n0.. zero-padded to R2p: 16-byte copies (a row's R2 bf16 when R2 % 8 == 0)
+    if (R2 % 8 == 0) {
+      for (int i = ct; i < BN * (R2p / 8); i += 2 * sm90::WG) {
+        const int c = i / (R2p / 8), q = i % (R2p / 8);
+        cp_async16(pdt + c * LDP + 8 * q, e.pd + static_cast<size_t>(n0 + c) * R2 + 8 * q, 8 * q < R2);
+      }
+    } else {
+      for (int i = ct; i < BN * R2p; i += 2 * sm90::WG) {
+        const int c = i / R2p, r = i % R2p;
+        pdt[c * LDP + r] = r < R2 ? e.pd[static_cast<size_t>(n0 + c) * R2 + r] : __float2bfloat16(0.f);
+      }
+    }
+    // bf16(lora_act[m0:, :R]) and proj_up[:R, n0:]
+    if (R > 0) i8gemm::stage_lora_rows(lora, e.la, e.pu, m0, n0, N, ct, 2 * sm90::WG);
+    cp_async_commit();
+    cp_async_wait<0>();
+    sm90::named_sync(gemm90::EPI_BAR);
+    const int tile = n0 / BN;
+    // a thread per 4 x 16 block: rows r0 .. r0 + 3, the 8 columns c0 + 64h of each half h of the tile; a
+    // warp's eight c0 span each half
+    const int r0 = (ct >> 5) * 16 + ((ct >> 3) & 3) * 4, c0 = (ct & 7) * 8;
+    float s[64];  // the rank-R sums, s[8 (2q + h) + k]
+    if (R > 0) i8gemm::lora_sums_4x16(lora, s, r0, c0);
+    float a[4], hm[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      a[q] = __ldg(e.as + m0 + r0 + q);
+      hm[q] = 0.f;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int nl = c0 + 64 * h, n = n0 + nl;
+      float w[8], rs[8], b[8];
+      ldg8f(w, e.ws + n);
+      ldg8f(rs, e.rsm + n);
+      if (e.bias != nullptr) {
+        const uint4 raw = __ldg(reinterpret_cast<const uint4*>(e.bias + n));
+#pragma unroll
+        for (int k = 0; k < 8; ++k) b[k] = bf2f(reinterpret_cast<const bf16*>(&raw)[k]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int ml = r0 + q, m = m0 + ml;
+        const int4 v0 = *reinterpret_cast<const int4*>(at + ml * LDA + nl);
+        const int4 v1 = *reinterpret_cast<const int4*>(at + ml * LDA + nl + 4);
+        const int v[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+        float out[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) out[k] = __fmul_rn(__fmul_rn(static_cast<float>(v[k]), a[q]), w[k]);
+        if (R > 0) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) out[k] = __fadd_rn(out[k], s[8 * (2 * q + h) + k]);
+        }
+        if (e.bias != nullptr) {
+#pragma unroll
+          for (int k = 0; k < 8; ++k) out[k] = __fadd_rn(out[k], b[k]);
+        }
+        float gv[8];
+        uint4 gb;
+        bf16* gbp = reinterpret_cast<bf16*>(&gb);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          gv[k] = tanh_gelu(out[k]);
+          hm[q] = fmaxf(hm[q], fabsf(__fmul_rn(__fadd_rn(gv[k], e.shift), rs[k])));
+          gbp[k] = __float2bfloat16(gv[k]);
+        }
+        float4* dst = reinterpret_cast<float4*>(e.g + static_cast<size_t>(m) * N + n);
+        dst[0] = make_float4(gv[0], gv[1], gv[2], gv[3]);
+        dst[1] = make_float4(gv[4], gv[5], gv[6], gv[7]);
+        *reinterpret_cast<uint4*>(&gt[ml * LDG + nl]) = gb;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // max|h| over the row's 128 columns: the eight column blocks of its lanes
+#pragma unroll
+      for (int d = 1; d < 8; d <<= 1) hm[q] = fmaxf(hm[q], __shfl_xor_sync(0xffffffffu, hm[q], d));
+      if ((ct & 7) == 0) e.amax_part[static_cast<size_t>(tile) * M + m0 + r0 + q] = hm[q];
+    }
+    sm90::named_sync(gemm90::EPI_BAR);  // the g tile is complete
+
+    // low-rank partial of this tile: bf16(g)[16 rows of this warp, 128] @ pd[128, R2p], 32 columns (two
+    // accumulators) at a time
+    namespace wmma = nvcuda::wmma;
+    const int warp = ct / 32;
+    float* dst = e.lora_part + (static_cast<size_t>(tile) * M + m0 + warp * 16) * R2p;
+    for (int j0 = 0; j0 < R2p; j0 += 32) {
+      const int nf = R2p - j0 >= 32 ? 2 : 1;
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[2];
+      wmma::fill_fragment(lp[0], 0.f);
+      wmma::fill_fragment(lp[1], 0.f);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
+        wmma::load_matrix_sync(ga, &gt[(warp * 16) * LDG + kk * 16], LDG);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (j < nf) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
+            wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 + j * 16], LDP);
+            wmma::mma_sync(lp[j], ga, pb, lp[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (j < nf) wmma::store_matrix_sync(dst + j0 + j * 16, lp[j], R2p, wmma::mem_row_major);
+    }
+  }
+};
+
+int launch(const void* qact, const void* ascales, const void* wt, const void* wscales, const void* lora_act,
+           const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down, void* gbuf,
+           void* amax_part, void* lora_part, void* qout, void* qscales, void* lora_next, int M, int N, int K,
+           int R, int R2, int bn, float shift, const void* layer_idx, int L, void* stream) {
+  if (R > i8gemm::MAX_R || R2 > i8gemm::MAX_R || R2 < 1 || K % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Src::Params p;
+  if (!Src::maps(p, qact, wt, M, N, K, 1, static_cast<const int*>(layer_idx), L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GeluEpi::Params e{static_cast<const float*>(ascales), static_cast<const float*>(wscales),
+                          static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
+                          static_cast<const bf16*>(bias), static_cast<const float*>(rsmooth),
+                          static_cast<const bf16*>(proj_down), static_cast<float*>(gbuf),
+                          static_cast<float*>(amax_part), static_cast<float*>(lora_part), R, R2, shift};
+  const int err = gemm90::launch<gemm90::S8, BN, ST, Src, GeluEpi>(p, e, M, N, K, s);
+  if (err != 0) return err;
+  return requant(gbuf, rsmooth, amax_part, lora_part, qout, qscales, lora_next, M, N, R2, bn, shift, s);
+}
+
+}  // namespace s8
 
 }  // namespace
 
@@ -295,9 +492,8 @@ extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, co
                                        void* lora_part, void* qout, void* qscales, void* lora_next,
                                        int M, int N, int K, int R, int R2, int bn, float shift,
                                        const void* layer_idx, int L, void* stream) {
-  return launch(qact, ascales, WeightI8{static_cast<const int8_t*>(wt)}, wscales, lora_act, proj_up, bias,
-                rsmooth, proj_down, gbuf, amax_part, lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn,
-                shift, layer_idx, L, stream);
+  return s8::launch(qact, ascales, wt, wscales, lora_act, proj_up, bias, rsmooth, proj_down, gbuf, amax_part,
+                    lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn, shift, layer_idx, L, stream);
 }
 
 // The W4 form: qweight (K/2, N) int8 packed int4 codes (N-contiguous, the

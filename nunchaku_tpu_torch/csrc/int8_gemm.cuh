@@ -1,6 +1,12 @@
-// int8 x int8 -> int32 tensor-core main loop shared by the chain GEMMs
-// (gemm_w8a8_gelu_quant.cu, gemm_w8a8_grouped.cu) and the packed-int4 w4a8
-// GEMM (gemm_w4a8.cu).
+// int8 x int8 -> int32 tensor-core main loop (WMMA) of the packed-int4
+// forms: the W4 form of the chain producer (gemm_w8a8_gelu_quant.cu) and the
+// packed w4a8 GEMM (gemm_w4a8.cu); also of the pipelined producer
+// (gemm_w8a8_gelu_quant_pipe.cu) and the int8 GEMM probe's "chain" tile
+// (gemm_probe_i8.cu). The int8 chain kernels' int8 forms run on the s8
+// instantiation of gemm_sm90.cuh and take only the low-rank helpers at the
+// end of this file (LoraRows, stage_lora_rows, lora_sums_4x16: the products
+// of add_lora_bias in its order), so both forms' epilogues stay the same
+// arithmetic.
 //
 // Block tile 128 x 128 x 64, eight warps as 2 (M) x 4 (N), warp tile
 // 64 x 32 = 4 x 2 WMMA 16x16x16 s8 fragments. Both operands are
@@ -270,6 +276,107 @@ __device__ __forceinline__ void add_lora_bias(const LoraTile& lt, float (&out)[8
   if (bias != nullptr) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) out[i] = __fadd_rn(out[i], bf2f(bias[n + i]));
+  }
+}
+
+// The s8 epilogues' low-rank tiles (gemm_w8a8_gelu_quant.cu, gemm_w8a8_grouped.cu): bf16(lora_act[m0:, :R])
+// row-major, rows ld = R rounded up to 8, plus 8, apart (16-byte aligned rows: eight ranks a load), and
+// proj_up[:R, n0:] [R][BN]; lora_rows_bytes(R) bytes from `base`.
+struct LoraRows {
+  bf16* la;
+  bf16* pu;
+  int R, ld;
+};
+
+__host__ __device__ constexpr int lora_rows_ld(int R) { return (R + 7) / 8 * 8 + 8; }
+
+__host__ __device__ constexpr size_t lora_rows_bytes(int R) {
+  return R == 0 ? 0
+                : align128(static_cast<size_t>(BM) * lora_rows_ld(R) * sizeof(bf16)) +
+                      align128(static_cast<size_t>(R) * BN * sizeof(bf16));
+}
+
+__device__ __forceinline__ LoraRows lora_rows(unsigned char* base, int R) {
+  return LoraRows{reinterpret_cast<bf16*>(base),
+                  reinterpret_cast<bf16*>(base + align128(static_cast<size_t>(BM) * lora_rows_ld(R) * sizeof(bf16))),
+                  R, lora_rows_ld(R)};
+}
+
+// The tiles of lr by `threads` threads (index ct), the loads in flight together: proj_up's rows by 16-byte
+// cp.async copies, lora_act's rows by batches of float4 loads (scalar when R % 4 != 0). The caller waits for
+// the copies (cp_async_wait<0>) and synchronises its threads before reading them.
+__device__ __forceinline__ void stage_lora_rows(const LoraRows& lr, const float* __restrict__ la,
+                                                const bf16* __restrict__ pu, int m0, int n0, int N, int ct,
+                                                int threads) {
+  const int R = lr.R;
+  for (int i = ct; i < R * (BN / 8); i += threads) {
+    const int j = i / (BN / 8), c = i % (BN / 8);
+    cp_async16(lr.pu + j * BN + 8 * c, pu + static_cast<size_t>(j) * N + n0 + 8 * c, true);
+  }
+  cp_async_commit();
+  if (R % 4 == 0) {  // item i: row i / (R / 4), ranks 4 (i % (R / 4)) .. + 3
+    constexpr int BATCH = 4;
+    const int q = R / 4;
+    for (int i0 = ct; i0 < BM * q; i0 += BATCH * threads) {
+      float4 v[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * threads;
+        if (i < BM * q) v[u] = __ldg(reinterpret_cast<const float4*>(la + static_cast<size_t>(m0) * R) + i);
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int i = i0 + u * threads;
+        if (i < BM * q) {
+          __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(lr.la + (i / q) * lr.ld + 4 * (i % q));
+          d[0] = __floats2bfloat162_rn(v[u].x, v[u].y);
+          d[1] = __floats2bfloat162_rn(v[u].z, v[u].w);
+        }
+      }
+    }
+  } else {
+    for (int i = ct; i < BM * R; i += threads)
+      lr.la[(i / R) * lr.ld + i % R] = __float2bfloat16(__ldg(la + static_cast<size_t>(m0) * R + i));
+  }
+}
+
+// The rank-R sums of add_lora_bias for a thread's 4 x 16 block of the tile (the s8 epilogues' thread tile:
+// rows r0 .. r0 + 3, columns c0 .. c0 + 7 and c0 + 64 .. c0 + 71): s[8 (2q + h) + i] = sum over j in order of
+// fmaf(bf16(la[r0 + q, j]), pu[j, c0 + 64h + i]), the same products and order as add_lora_bias. Eight ranks of
+// a row are one 16-byte load; eight threads with c0 = 0, 8, .., 56 read 128 contiguous bytes of a proj_up row.
+__device__ __forceinline__ void lora_sums_4x16(const LoraRows& lr, float (&s)[64], int r0, int c0) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  auto rank = [&](int j, const float (&a)[4]) {
+    const bf16* prow = lr.pu + static_cast<size_t>(j) * BN + c0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(prow + 64 * h);
+      const bf16* p = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s[8 * (2 * q + h) + i] = fmaf(a[q], bf2f(p[i]), s[8 * (2 * q + h) + i]);
+    }
+  };
+  int j0 = 0;
+  for (; j0 + 8 <= lr.R; j0 += 8) {
+    uint4 la8[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) la8[q] = *reinterpret_cast<const uint4*>(lr.la + (r0 + q) * lr.ld + j0);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      float a[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[q] = bf2f(reinterpret_cast<const bf16*>(&la8[q])[u]);
+      rank(j0 + u, a);
+    }
+  }
+  for (int j = j0; j < lr.R; ++j) {
+    float a[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) a[q] = bf2f(lr.la[(r0 + q) * lr.ld + j]);
+    rank(j, a);
   }
 }
 

@@ -8,6 +8,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime (no -lcuda)
+#include <string.h>
 
 #include "mma.cuh"
 
@@ -220,6 +221,47 @@ inline bool matrix_map(CUtensorMap* map, const void* base, int elem, int rows, i
                 const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 swizzled ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a 4-D uint8 array (dims[0] the contiguous one; strides in bytes of dims 1-3, multiples of
+// 16) in boxes of box[0..3] with the 128-byte swizzle (box[0] = 128); a box reaching past a dimension reads
+// zeros there. Encoded maps are kept by everything the encoder reads (the same inputs always give the same
+// map), so a launch on the pointers of an earlier one encodes nothing.
+inline bool byte_map_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                        const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  struct Entry {
+    const void* base;
+    cuuint64_t dims[4], strides[3];
+    cuuint32_t box[4];
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 64;
+  static Entry cache[SLOTS];
+  static int used = 0, next = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& c = cache[i];
+    if (c.base == base && memcmp(c.dims, dims, sizeof dims) == 0 && memcmp(c.strides, strides, sizeof strides) == 0 &&
+        memcmp(c.box, box, sizeof box) == 0) {
+      *map = c.map;
+      return true;
+    }
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  Entry& c = cache[next];
+  c.base = base;
+  memcpy(c.dims, dims, sizeof dims);
+  memcpy(c.strides, strides, sizeof strides);
+  memcpy(c.box, box, sizeof box);
+  c.map = *map;
+  next = (next + 1) % SLOTS;
+  used = used < SLOTS ? used + 1 : SLOTS;
+  return true;
 }
 
 // Launch kernel on a grid whose x dimension is cut into clusters of `cluster_x` blocks (x a multiple of it).

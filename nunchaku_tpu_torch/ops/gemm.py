@@ -94,9 +94,9 @@ from .reference import (
     is_4bit,
 )
 
-KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/int8_gemm.cuh)
+KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/gemm_sm90.cuh s8; the packed forms' csrc/int8_gemm.cuh)
 KERNEL_TILE_N = 128
-KERNEL_TILE_K = 64
+KERNEL_TILE_K = 64  # K (and K / G) granularity: the s8 loop ends a K of 64 (mod 128) on a zero-filled half tile
 KERNEL_MAX_RANK = 128  # the chain kernels' largest low-rank width (nunchaku's rank-128 checkpoints)
 
 

@@ -34,9 +34,10 @@ instantiation it launched (:data:`COUNTS`: ``gemm_probe_i8_<acc>_<epilogue>@<til
 Tiles. The TPU scripts' tile tuples (512 x 1024 x 512 and the like, sized
 for the TPU's 16 MB VMEM) mean nothing on this card. The int8 kernel is
 instantiated at the card tiles of :data:`I8_TILES`, all with 8 warps:
-128 x 128 x 64 is the chain GEMMs' tile and warp layout (``csrc/int8_gemm.cuh``:
+128 x 128 x 64 is the packed chain GEMMs' tile and warp layout (``csrc/int8_gemm.cuh``:
 2 x 4 warps of 64 x 32, two stages); ``"chain"`` is that file's own main loop
-(WMMA) with the cast epilogue, int32 only. Each tile is built for the modes
+(WMMA, the packed forms' loop; the int8 chain kernels run on ``csrc/gemm_sm90.cuh``'s
+s8 loop) with the cast epilogue, int32 only. Each tile is built for the modes
 the ported tools launch (:data:`I8_BUILT`). The bf16-operand kernel has one
 tile, 128 x 128 x 64 (two consumer warpgroups of 64 rows, wgmma m64n128k16).
 """

@@ -79,8 +79,7 @@ from pathlib import Path
 import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
-PORT_KERNELS = ("dequant_w4a8_kernel", "gemm_gelu_kernel", "requant_kernel", "gemm_grouped_kernel",
-                "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_wide_kernel",
+PORT_KERNELS = ("dequant_w4a8_kernel", "requant_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_wide_kernel",
                 "gemm_w4a4_kernel", "gemv_awq_kernel", "gemm_w4a8_kernel")
 
 
@@ -91,7 +90,8 @@ def _core(policy: int, d: int, form: int) -> str:
 
 
 # kernels with a group of their own: each form of the attention core (csrc/flash_sm90.cuh) under the launch
-# count's name, and the chain producer on packed int4 weights
+# count's name, the int8 chain kernels on the s8 GEMM main loop (csrc/gemm_sm90.cuh; their requantize kernel is
+# requant_kernel) and the chain producer on packed int4 weights
 FORM_KERNELS = {_core(0, 128, 0): "flash_fixed (flash_sm90_kernel)",
                 _core(0, 128, 1): "flash_fixed_masked (flash_sm90_kernel, MASK)",
                 _core(0, 128, 2): "bs_fixed (flash_sm90_kernel, IDX)",
@@ -104,6 +104,8 @@ FORM_KERNELS = {_core(0, 128, 0): "flash_fixed (flash_sm90_kernel)",
                 _core(1, 128, 1): "flash_online_masked (flash_sm90_kernel, MASK)",
                 _core(1, 128, 2): "bs_online (flash_sm90_kernel, IDX)",
                 _core(1, 128, 5): "flash_online_bshd (flash_sm90_kernel, TOK)",
+                r"gemm_sm90_kernel<.*GeluEpi": "gemm_w8a8_gelu_quant (gemm_sm90_kernel, s8)",
+                r"gemm_sm90_kernel<.*GroupedEpi": "gemm_w8a8_grouped[_res] (gemm_sm90_kernel, s8)",
                 r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 

@@ -181,20 +181,72 @@ def test_flash_i8(dev, b, h, sq, skv, out_bshd):
 def test_sm90_sass_and_spills(dev):
     """In the built library: the int8 attention form holds IGMMA (q . k),
     HGMMA (p . v) and UTMALDG; each of the bf16 GEMM probe's instantiations
-    of the GEMM main loop (gemm_sm90.cuh) holds HGMMA and UTMALDG; none of
-    them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
+    of the GEMM main loop (gemm_sm90.cuh) holds HGMMA and UTMALDG; its s8
+    instantiations, the int8 chain producer's and the grouped consumer's
+    (with and without the residual epilogue), hold IGMMA and UTMALDG; none
+    of them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
     from nunchaku_tpu_torch.ops import _build
 
     path = _build.build()
     sass, res = _build.sass_counts(path), _build.resource_usage(path)
     i8 = [n for n in sass if "flash_sm90_kernel<0, 128, 6>" in n.replace("(int)", "")]
-    gemm = [n for n in sass if "gemm_sm90_kernel<" in n]
+    gemm = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::Bf16" in n]
+    chain = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::S8" in n]
     assert len(i8) == 1 and len(gemm) == len(gemm_probe.BF16_FORMS), (i8, gemm)
+    assert len(chain) == 3 and sum("GeluEpi" in n for n in chain) == 1, chain
+    assert sum("GroupedEpi<" in n for n in chain) == 2, chain
     assert all(sass[i8[0]][op] > 0 for op in ("IGMMA", "HGMMA", "UTMALDG")), sass[i8[0]]
     for name in gemm:
         assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
-    for name in i8 + gemm:
+    for name in chain:
+        assert sass[name]["IGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
+    for name in i8 + gemm + chain:
         assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
+
+
+# K = 64 (mod 128): the s8 main loop's K tiles are 128 bytes, so the last one (of K, or of each K / G group)
+# reads zeros past its end
+K_TAIL_PRODUCER = [(256, 192, 1536, 32), (128, 3136, 3072, 128), (128, 64, 256, 16)]
+K_TAIL_CONSUMER = [(256, 192, 256, 1), (128, 3136, 384, 1), (256, 384, 256, 2), (128, 1344, 256, 7),
+                   (256, 1536, 384, 8), (128, 128, 128, 2)]
+
+
+@pytest.mark.parametrize("m,k,n,r", K_TAIL_PRODUCER)
+def test_gelu_quant_k_tail(dev, m, k, n, r):
+    """The producer (grouped and per-token scales) at a K the s8 loop ends
+    on a half tile."""
+    args = checks.gelu_quant_case(m, k, n, r, device=dev)
+    _, ok, detail = checks.check_gelu_quant(*args)
+    assert ok, detail
+    _, ok, detail = checks.check_ptoken(*args)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,groups", K_TAIL_CONSUMER)
+def test_grouped_k_tail(dev, m, k, n, groups):
+    """The consumer, grouped (K / G = 64 mod 128: every group ends on a
+    half tile) or rank-1 (G = 1), with and without the residual epilogue."""
+    if groups == 1:
+        _, ok, detail = checks.check_rank1(*checks.grouped_case(m, k, n, 1, device=dev))
+        assert ok, detail
+        _, ok, detail = checks.check_rank1(*checks.grouped_res_case(m, k, n, 1, device=dev))
+        assert ok, detail
+        return
+    _, ok, detail = checks.check_grouped(*checks.grouped_case(m, k, n, groups, device=dev))
+    assert ok, detail
+    _, ok, detail = checks.check_grouped_res(*checks.grouped_res_case(m, k, n, groups, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("mode", checks.STACKED_CHAIN_MODES[:6])
+def test_chain_stacked_k_tail(dev, mode):
+    """The int8 chain's stacked modes at K = 64 (mod 128) (the consumers' K
+    groups too): every layer bit for bit its non-stacked kernel."""
+    producer = "gelu_quant" in mode
+    m, k, n = (128, 320, 1536) if producer else (128, 1344, 384)
+    run, w, check, _ = checks.chain_stacked_case(mode, m, k, n, device=dev)
+    _, ok, detail = checks.check_stacked(run, w, check)
+    assert ok, detail
 
 
 def test_quantize_qk_card_equals_cpu(dev):
