@@ -8,16 +8,19 @@ Phases, each fatal on failure:
   2. build     -- nvcc builds every kernel in nunchaku_tpu_torch/csrc for sm_90a;
                   each kernel on the attention core (flash_sm90.cuh) and each
                   instantiation of the GEMM main loop (gemm_sm90.cuh: the bf16
-                  probe's, the int8 chain kernels' s8 ones) must show wgmma
-                  (HGMMA / IGMMA) and TMA-load (UTMALDG) instructions in
-                  cuobjdump -sass;
+                  probe's, the int8 chain kernels' s8 ones) and each of the
+                  W4A4 GEMM's nine instantiations must show wgmma (HGMMA /
+                  IGMMA) and TMA-load (UTMALDG) instructions in cuobjdump
+                  -sass, and the sources in PTXAS_CLEAN build without spills
+                  or serialized wgmma;
   3. kernels   -- each kernel against its plain PyTorch twin at FLUX.1-dev
                   main-path shapes, its time (CUDA events over warm launches),
                   the plain twin's time, a one-call PyTorch yardstick where one
                   exists, and the least time the card could take (H100 SXM data
                   sheet: 3.35 TB/s, 1979 TOP/s int8, 989 TFLOP/s bf16); the W4A4
                   GEMM once per mode (int4, int4 with unsigned activations,
-                  nvfp4), the AWQ GEMV at both modulation widths; the kv-mask
+                  nvfp4; beside torch.matmul also k_bf, the bf16 GEMM probe,
+                  on the decoded operands), the AWQ GEMV at both modulation widths; the kv-mask
                   forms of both flash kernels at Qwen-Image's 1024px shapes (B 2,
                   24 heads, 211 text + 4096 image tokens, batch row 1 keeping 97
                   text keys), with SDPA under the same additive mask as yardstick;
@@ -284,6 +287,8 @@ import torch
 from nunchaku_tpu_torch.tools.probe_common import bound, nvidia_smi, time_ms
 # the GEMV's bound and the device time a call from a CUDA graph, shared with the timing tool
 from nunchaku_tpu_torch.tools.time_attention import GEMV_WEIGHTS, gemv_bound, graph_ms
+# the W4A4 GEMM's bound and its k_bf yardstick (the bf16 probe on the decoded operands), shared with its timing tool
+from nunchaku_tpu_torch.tools.time_w4a4 import decoded, k_bf_ms, w4a4_bound
 
 # FLUX.1-dev at 1024x1024: 4096 image tokens, 512 text tokens
 S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
@@ -346,7 +351,10 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
 PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
-               "gemm_w8a8_grouped.cu")
+               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu")
+# the W4A4 GEMM's instantiations gemm_w4a4_kernel<mode, k steps of the rank-r term>: modes 0 int4, 1 int4 with
+# unsigned activations, 2 nvfp4; 0 (no low rank), 2 (R <= 32), 8 (R <= 128) steps
+W4A4_SASS = [(mode, steps) for mode in (0, 1, 2) for steps in (0, 2, 8)]
 # the int8 chain kernels' s8 instantiations of the GEMM main loop: the epilogue in the demangled name (bools as
 # 0 / 1) -> the rows that run it
 CHAIN_SASS = {"GeluEpi": "gemm_w8a8_gelu_quant (rows 2, 2s, 13)", "GroupedEpi<0>": "gemm_w8a8_grouped (rows 3, 3s, 3p)",
@@ -405,11 +413,6 @@ def res_bytes(m, n, batch, r2):
     return 2 * m * n + 4 * batch * n + (2 * m * n + 4 * m * r2 + 2 * r2 * n if r2 else 0)
 
 
-def w4a4_bytes(m, k, n, g, r=RANK):
-    # qact, ascales, weight, wscales (packed 4-bit, bf16 group scales), lora_act, proj_up, bias -> bf16 out
-    return m * k // 2 + 2 * (k // g) * m + k // 2 * n + 2 * (k // g) * n + 4 * m * r + 2 * r * n + 2 * n + 2 * m * n
-
-
 def w4a8_bytes(m, k, n, r=RANK, groups=1, out_bytes=None):
     # qact, ascales (groups, M), packed int4 weight, bf16 rescales of 64-row groups, wscales, lora_act,
     # proj_up, bias -> output(s) (bf16 (M, N) unless given)
@@ -447,11 +450,6 @@ def packed_route():
 def chain_ptoken(on: bool):
     """The int8 chain's per-token switch (NUNCHAKU_TPU_CHAIN_PTOKEN) set."""
     return switches(NUNCHAKU_TPU_CHAIN_PTOKEN="1" if on else "0")
-
-
-def w4a4_bound(m, k, n, g, r=RANK, k_ops=None):
-    # k_ops: an odd-width layer's logical K, whose products alone count; the bytes are the padded buffers'
-    return bound(w4a4_bytes(m, k, n, g, r), bf16_ops=2 * m * n * ((k if k_ops is None else k_ops) + r))
 
 
 def bs_bound(idx, sq, skv, bq, bkv):
@@ -492,7 +490,7 @@ def kernel_phase(dev):
         qkv_rope_producer, qkv_rope_producer_plain)
     from nunchaku_tpu_torch.ops.gemm import (
         dequant_w4a8, dequant_w4a8_plain, gemm_w4a4, gemm_w4a4_plain, gemm_w8a8_grouped, gemm_w8a8_grouped_plain,
-        gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain, w4a4_values)
+        gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant, svdq_gemm_w8a8_gelu_quant_plain)
     from nunchaku_tpu_torch.ops.gemv import awq_dequant, awq_w4a16_linear, awq_w4a16_linear_plain
     from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
     from nunchaku_tpu_torch.ops.reference import int8_matmul
@@ -500,17 +498,21 @@ def kernel_phase(dev):
     rows = {}
     failed = []
 
-    def record(name, source, replaces, shape, ok, err, detail, ms, plain_ms, bnd, lib_ms):
+    def record(name, source, replaces, shape, ok, err, detail, ms, plain_ms, bnd, lib_ms, k_bf=None):
+        # k_bf: the W4A4 rows' second yardstick, the bf16 GEMM probe on the decoded operands (key k_bf_ms)
         bound_ms, bound_by = bnd
         log(f"[kernel] {name} @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound {bound_ms:.4f} ms by {bound_by}, "
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f"{'' if k_bf is None else f', k_bf {k_bf:.4f} ms'}, bound {bound_ms:.4f} ms by {bound_by}, "
             f"{100 * bound_ms / ms:.1f}% of bound)")
         if not ok:
             failed.append(name)
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
                           max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                           bound_by=bound_by, library_ms=lib_ms, shape=shape)
+        if k_bf is not None:
+            rows[name]["k_bf_ms"] = k_bf
 
     # 1. dequant: the fc1 weight (K 3072 -> N 12288)
     k, n = DIM, HID
@@ -720,34 +722,28 @@ def kernel_phase(dev):
         args, kw = checks.w4a4_case(m, k, n, precision, unsigned, device=dev)
         err, ok, detail = checks.check_w4a4(args, kw)
         g = 16 if precision == "nvfp4" else 64
-        qa, asc, qw, wsc = args[:4]
-        a16 = (w4a4_values(qa, -1, precision=precision, unsigned=unsigned)
-               * asc.float().repeat_interleave(g, dim=0).t()).to(torch.bfloat16)
-        w16 = (w4a4_values(qw, 0, precision=precision) * wsc.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+        a16, w16 = decoded(args, kw)
         record(name, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
                f"M={m} K={k} N={n} R={RANK} {precision}{' unsigned' if unsigned else ''}", ok, err, detail,
                time_ms(lambda: gemm_w4a4(*args, **kw), 20), time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3),
-               w4a4_bound(m, k, n, g), time_ms(lambda: torch.matmul(a16, w16), 20))
-        del args, qa, asc, qw, wsc, a16, w16
+               w4a4_bound(m, k, n, g), time_ms(lambda: torch.matmul(a16, w16), 20), k_bf_ms(a16, w16))
+        del args, a16, w16
     # the int4 modes at rank 128 on Qwen-Image's shapes (4096 image rows; qkv, fc2 with unsigned activations)
     for (m, k, n), unsigned in (((S_IMG, DIM, 3 * DIM), False), ((S_IMG, HID, DIM), True)):
         args, kw = checks.w4a4_case(m, k, n, "int4", unsigned, r=128, device=dev)
         _, ok2, detail = checks.check_w4a4(args, kw)
         ms = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
         plain = time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
-        qa, asc, qw, wsc = args[:4]
-        a16 = (w4a4_values(qa, -1, precision="int4", unsigned=unsigned)
-               * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
-        w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
+        a16, w16 = decoded(args, kw)
         lib = time_ms(lambda: torch.matmul(a16, w16), 20)
         bnd = w4a4_bound(m, k, n, 64, r=128)
         name = "gemm_w4a4_int4" + ("_unsigned" if unsigned else "")
         log(f"[kernel] {name} @ M={m} K={k} N={n} R=128 (Qwen-Image r128): {'PASS' if ok2 else 'FAIL'} {detail}; "
-            f"{ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, "
-            f"{100 * bnd[0] / ms:.1f}% of bound)")
+            f"{ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, k_bf {k_bf_ms(a16, w16):.4f} ms, bound "
+            f"{bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
         if not ok2:
             failed.append(f"{name}@R128")
-        del args, qa, asc, qw, wsc, a16, w16
+        del args, a16, w16
 
     # 10. AWQ GEMV: the dual block's AdaLN modulation (M 1, K 3072, N 18432),
     # also checked and timed at the single block's N 9216
@@ -906,7 +902,8 @@ def core_sass(path) -> bool:
     TMA-load (UTMALDG) instruction counts in cuobjdump -sass; False if one is
     missing or a count it needs is 0 (the int8 attention form needs IGMMA for
     q . k and HGMMA for p . v; the coded GEMM forms copy by TMA, decode, and
-    run HGMMA; the int8 chain kernels' s8 instantiations run IGMMA)."""
+    run HGMMA; the int8 chain kernels' s8 instantiations run IGMMA; each W4A4
+    instantiation copies by TMA and runs register-A HGMMA)."""
     from nunchaku_tpu_torch.ops import _build
 
     # demangled template arguments as plain numbers: "(int)1" -> "1", "(bool)0" / "false" -> "0"
@@ -941,6 +938,12 @@ def core_sass(path) -> bool:
         found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name]
         good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
         log(f"[build] {row}: gemm_sm90_kernel<S8, 128, 4, TmaS8<128>, {key}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for mode, steps in W4A4_SASS:  # register-A wgmma (HGMMA) on TMA-fed stages
+        found = [c for name, c in sass.items() if f"gemm_w4a4_kernel<{mode}, {steps}>" in name]
+        good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] gemm_w4a4 (mode {mode}, {steps} low-rank k steps): gemm_w4a4_kernel<{mode}, {steps}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     return ok
@@ -982,7 +985,7 @@ def sdxl_kernel_rows(dev, record, failed):
     2's ff.out (M 1024, K 5120, N 1280), logged beside torch.matmul."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.attention import flash_attention_online, flash_attention_online_plain
-    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4, gemm_w4a4_plain, w4a4_values
+    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4, gemm_w4a4_plain
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res, oks, errs = {}, [], []
@@ -1017,13 +1020,14 @@ def sdxl_kernel_rows(dev, record, failed):
         _, ok, detail = checks.check_w4a4(args, kw)
         ms = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
         plain = time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
-        a16 = (w4a4_values(qa, -1, precision="int4") * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
-        w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
+        a16, w16 = decoded(args, kw)
         lib = time_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log]), 20)
+        kbf = k_bf_ms(a16, w16)  # on the padded operands, as the kernel runs
         bnd = w4a4_bound(m, k, n, 64, k_ops=k_log)
         log(f"[kernel] gemm_w4a4_int4 @ M={m} K={k_log}{f' (padded {k})' if k != k_log else ''} N={n} R={RANK} "
-            f"(SDXL {label}): {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+            f"(SDXL {label}): {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, "
+            f"k_bf {'n/a' if kbf is None else f'{kbf:.4f} ms'}, bound {bnd[0]:.4f} ms by {bnd[1]}, "
+            f"{100 * bnd[0] / ms:.1f}% of bound)")
         if not ok:
             failed.append(f"gemm_w4a4_int4@SDXL {label}")
         del args, qa, asc, qw, wsc, a16, w16
@@ -2500,7 +2504,7 @@ def sana_kernel_rows(dev, record, failed):
     torch.matmul on the logical block."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.attention import flash_attention_online, flash_attention_online_plain
-    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4, gemm_w4a4_plain, w4a4_values
+    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4, gemm_w4a4_plain
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     res = {}
@@ -2532,13 +2536,14 @@ def sana_kernel_rows(dev, record, failed):
         _, ok, detail = checks.check_w4a4(args, kw)
         ms = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
         plain = time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3)
-        a16 = (w4a4_values(qa, -1, precision="int4") * asc.float().repeat_interleave(64, dim=0).t()).to(torch.bfloat16)
-        w16 = (w4a4_values(qw, 0, precision="int4") * wsc.float().repeat_interleave(64, dim=0)).to(torch.bfloat16)
+        a16, w16 = decoded(args, kw)
         lib = time_ms(lambda: torch.matmul(a16[:, :k_log], w16[:k_log, :n_log]), 20)
+        kbf = k_bf_ms(a16, w16)  # on the padded operands, as the kernel runs
         bnd = w4a4_bound(m, k, n_log, 64, k_ops=k_log)
         log(f"[kernel] gemm_w4a4_int4 @ M={m} K={k_log} (padded {k}) N={n_log} (padded {n}) R={RANK} (SANA {label}): "
-            f"{'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, bound "
-            f"{bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+            f"{'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain {plain:.4f} ms, library {lib:.4f} ms, k_bf "
+            f"{'n/a' if kbf is None else f'{kbf:.4f} ms'}, bound {bnd[0]:.4f} ms by {bnd[1]}, "
+            f"{100 * bnd[0] / ms:.1f}% of bound)")
         if not ok:
             failed.append(f"gemm_w4a4_int4@SANA {label}")
         del args, qa, asc, qw, wsc, a16, w16
@@ -2556,7 +2561,7 @@ def zimage_kernel_rows(dev, record, failed):
     weight (logged), the plain twin and the non-stacked row's yardstick."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, dequant_w4a8_plain, gemm_w4a4, gemm_w4a4_plain, gemm_w4a8,
-                                             gemm_w4a8_plain, w4a4_values)
+                                             gemm_w4a8_plain)
     from nunchaku_tpu_torch.ops.reference import int8_matmul
 
     m, k, n = ZI_TXT + S_IMG, ZI_DIM, 3 * ZI_DIM
@@ -2569,14 +2574,12 @@ def zimage_kernel_rows(dev, record, failed):
         stack, ids = checks.stack_case(qw)
         ms = time_ms(lambda: gemm_w4a4(qa, asc, stack, wsc, *args[4:], **kw, layer_idx=ids[-1]), 20)
         flat = time_ms(lambda: gemm_w4a4(*args, **kw), 20)
-        a16 = (w4a4_values(qa, -1, precision=precision)
-               * asc.float().repeat_interleave(g, dim=0).t()).to(torch.bfloat16)
-        w16 = (w4a4_values(qw, 0, precision=precision) * wsc.float().repeat_interleave(g, dim=0)).to(torch.bfloat16)
+        a16, w16 = decoded(args, kw)
         log(f"[kernel] {name} @ {shape}: stacked {ms:.4f} ms, non-stacked on the same weight {flat:.4f} ms")
         record(name, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
                f"{shape} R={RANK} {precision}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
                time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3), w4a4_bound(m, k, n, g),
-               time_ms(lambda: torch.matmul(a16, w16), 20))
+               time_ms(lambda: torch.matmul(a16, w16), 20), k_bf_ms(a16, w16))
         del args, qa, asc, qw, wsc, stack, a16, w16
     qw, rs = checks.dequant_case(k, n, device=dev)
     err, ok, detail = checks.check_dequant_stacked(qw, rs)

@@ -253,6 +253,15 @@ __host__ __device__ inline int bar_offset(const typename Epi::Params& e) {
   return ring > epi ? ring : epi;
 }
 
+// This block's output tile (m0, n0) in the banded raster over mt row tiles of BM and nt column tiles of bn (one
+// block index over mt x nt tiles; a band's last row tile may be a partial one).
+__device__ __forceinline__ void band_tile(int mt, int nt, int bn, int& m0, int& n0) {
+  const int band = blockIdx.x / (GROUP_M * nt), first = band * GROUP_M, rows = min(GROUP_M, mt - first);
+  const int in_band = blockIdx.x - band * GROUP_M * nt;
+  m0 = (first + in_band % rows) * BM;
+  n0 = in_band / rows * bn;
+}
+
 template <class Op, int BN, int ST, class Src, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
     gemm_sm90_kernel(const __grid_constant__ typename Src::Params p, const __grid_constant__ typename Epi::Params e,
@@ -264,10 +273,8 @@ __global__ void __launch_bounds__(THREADS, 1)
       reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + bar_offset<ST, Src, Epi>(e));
   uint64_t* empty = full + ST;
-  // this block's tile in the banded raster (one block index over M / BM x ceil(N / BN) tiles)
-  const int nn = (N + BN - 1) / BN, band = blockIdx.x / (GROUP_M * nn);
-  const int first = band * GROUP_M, rows = min(GROUP_M, M / BM - first), in_band = blockIdx.x - band * GROUP_M * nn;
-  const int m0 = (first + in_band % rows) * BM, n0 = in_band / rows * BN;
+  int m0, n0;  // this block's tile in the banded raster over M / BM x ceil(N / BN) tiles
+  band_tile(M / BM, (N + BN - 1) / BN, BN, m0, n0);
   const int groups = Src::groups(p), tpg = Src::group_tiles(p, K);
 
   if (threadIdx.x == 0) {

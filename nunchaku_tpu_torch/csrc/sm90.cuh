@@ -63,6 +63,15 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// One box of a 3-D tensor map into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box of a 2-D tensor map (c0 the contiguous coordinate) into shared memory, completing on bar.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1) {
   asm volatile(
@@ -223,45 +232,58 @@ inline bool matrix_map(CUtensorMap* map, const void* base, int elem, int rows, i
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The tensor map of a 4-D uint8 array (dims[0] the contiguous one; strides in bytes of dims 1-3, multiples of
-// 16) in boxes of box[0..3] with the 128-byte swizzle (box[0] = 128); a box reaching past a dimension reads
-// zeros there. Encoded maps are kept by everything the encoder reads (the same inputs always give the same
-// map), so a launch on the pointers of an earlier one encodes nothing.
-inline bool byte_map_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
-                        const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
-  struct Entry {
+// The tensor map of an array of `rank` (<= 5) dimensions of `type` (dims[0] the contiguous one; strides in bytes
+// of dims 1 .. rank - 1, multiples of 16) in boxes of box[0 .. rank - 1]; a box reaching past a dimension reads
+// zeros there. Encoded maps are kept by everything the encoder reads (the same inputs always give the same map),
+// so a launch on the pointers and shapes of an earlier one encodes nothing.
+inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  struct Key {
     const void* base;
-    cuuint64_t dims[4], strides[3];
-    cuuint32_t box[4];
+    cuuint64_t dims[5], strides[4];
+    cuuint32_t box[5];
+    int type, rank, swizzle;
+  };
+  struct Entry {
+    Key key;
     CUtensorMap map;
   };
-  constexpr int SLOTS = 64;
+  constexpr int SLOTS = 256;
   static Entry cache[SLOTS];
   static int used = 0, next = 0;
+  Key key;
+  memset(&key, 0, sizeof key);  // padding and unused dimensions compare equal
+  key.base = base;
+  memcpy(key.dims, dims, rank * sizeof(cuuint64_t));
+  memcpy(key.strides, strides, (rank - 1) * sizeof(cuuint64_t));
+  memcpy(key.box, box, rank * sizeof(cuuint32_t));
+  key.type = static_cast<int>(type);
+  key.rank = rank;
+  key.swizzle = static_cast<int>(swizzle);
   for (int i = 0; i < used; ++i) {
-    const Entry& c = cache[i];
-    if (c.base == base && memcmp(c.dims, dims, sizeof dims) == 0 && memcmp(c.strides, strides, sizeof strides) == 0 &&
-        memcmp(c.box, box, sizeof box) == 0) {
-      *map = c.map;
+    if (memcmp(&cache[i].key, &key, sizeof key) == 0) {
+      *map = cache[i].map;
       return true;
     }
   }
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  if (encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  Entry& c = cache[next];
-  c.base = base;
-  memcpy(c.dims, dims, sizeof dims);
-  memcpy(c.strides, strides, sizeof strides);
-  memcpy(c.box, box, sizeof box);
-  c.map = *map;
+  cache[next].key = key;
+  cache[next].map = *map;
   next = (next + 1) % SLOTS;
   used = used < SLOTS ? used + 1 : SLOTS;
   return true;
+}
+
+// The tensor map of a 4-D uint8 array (dims[0] the contiguous one; strides in bytes of dims 1-3, multiples of
+// 16) in boxes of box[0..3] with the 128-byte swizzle (box[0] = 128), kept as tensor_map keeps it.
+inline bool byte_map_4d(CUtensorMap* map, const void* base, const cuuint64_t (&dims)[4],
+                        const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  return tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 4, base, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Launch kernel on a grid whose x dimension is cut into clusters of `cluster_x` blocks (x a multiple of it).

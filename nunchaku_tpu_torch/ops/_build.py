@@ -48,6 +48,7 @@ SIGNATURES = {
     "nt_qkv_rope_producer": [_P] * 10 + [_I] * 6 + [_F, _P],
     "nt_qkv_prepare": [_P] * 8 + [_I] * 3 + [_F, _F, _P],
     "nt_gemm_w4a4": [_P] * 8 + [_I] * 5 + [_P, _I, _P],
+    "nt_w4a4_decode": [_P] * 9 + [_I] * 7 + [_P],
     "nt_gemv_awq": [_P] * 6 + [_I] * 3 + [_P],
     "nt_bs_fixed": [_P] * 5 + [_I] * 9 + [_F, _P],
     "nt_bs_online": [_P] * 5 + [_I] * 9 + [_F, _P],

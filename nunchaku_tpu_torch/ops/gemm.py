@@ -753,6 +753,12 @@ W4A4_MODES = {("int4", False): (0, "gemm_w4a4_int4"), ("int4", True): (1, "gemm_
               ("nvfp4", False): (2, "gemm_w4a4_nvfp4")}
 
 
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its storage offset leaves it off a 16-byte
+    boundary (a TMA copy's source must start on one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def w4a4_values(packed: torch.Tensor, dim: int, *, precision: str, unsigned: bool = False) -> torch.Tensor:
     """Packed 4-bit codes -> their f32 values in logical order along ``dim``:
     int4 nibbles (sign-extended unless ``unsigned``) or e2m1 codes."""
@@ -810,8 +816,11 @@ def gemm_w4a4(qact, ascales, qweight, wscales, lora_act, proj_up, bias, *, preci
                        f"{name}: contiguous bf16 (K/{g}, {cols}), got {s.dtype} {tuple(s.shape)}")
     r = 0 if lora_act is None else lora_act.shape[1]
     la = None if lora_act is None else lora_act.float().contiguous()
-    pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
+    pu = None if proj_up is None else _aligned16(proj_up.to(torch.bfloat16).contiguous())
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
+    ascales, wscales = _aligned16(ascales), _aligned16(wscales)
+    _build.require(qact.data_ptr() % 16 == 0 and qweight.data_ptr() % 16 == 0,
+                   "the W4A4 kernel's TMA copies need 16-byte aligned qact and qweight")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
     lib = _build.library()
     _build.check(lib.nt_gemm_w4a4(qact.data_ptr(), ascales.data_ptr(), qweight.data_ptr(), wscales.data_ptr(),

@@ -181,26 +181,32 @@ def test_flash_i8(dev, b, h, sq, skv, out_bshd):
 def test_sm90_sass_and_spills(dev):
     """In the built library: the int8 attention form holds IGMMA (q . k),
     HGMMA (p . v) and UTMALDG; each of the bf16 GEMM probe's instantiations
-    of the GEMM main loop (gemm_sm90.cuh) holds HGMMA and UTMALDG; its s8
-    instantiations, the int8 chain producer's and the grouped consumer's
-    (with and without the residual epilogue), hold IGMMA and UTMALDG; none
-    of them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
+    of the GEMM main loop (gemm_sm90.cuh: its sources TmaBf16 and Decoded)
+    holds HGMMA and UTMALDG; its s8 instantiations, the int8 chain
+    producer's and the grouped consumer's (with and without the residual
+    epilogue), hold IGMMA and UTMALDG; each instantiation of the W4A4 GEMM
+    (gemm_w4a4.cu: three modes, each without a rank-r term, at R <= 32 and
+    at R <= 128) holds HGMMA (its register-A products) and UTMALDG; none of
+    them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
     from nunchaku_tpu_torch.ops import _build
 
     path = _build.build()
     sass, res = _build.sass_counts(path), _build.resource_usage(path)
     i8 = [n for n in sass if "flash_sm90_kernel<0, 128, 6>" in n.replace("(int)", "")]
-    gemm = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::Bf16" in n]
+    gemm = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::Bf16" in n
+            and ("::TmaBf16<" in n or "::Decoded<" in n)]
     chain = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::S8" in n]
+    w4a4 = [n for n in sass if "gemm_w4a4_kernel<" in n]
     assert len(i8) == 1 and len(gemm) == len(gemm_probe.BF16_FORMS), (i8, gemm)
     assert len(chain) == 3 and sum("GeluEpi" in n for n in chain) == 1, chain
     assert sum("GroupedEpi<" in n for n in chain) == 2, chain
+    assert len(w4a4) == 9, w4a4
     assert all(sass[i8[0]][op] > 0 for op in ("IGMMA", "HGMMA", "UTMALDG")), sass[i8[0]]
-    for name in gemm:
+    for name in gemm + w4a4:
         assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
     for name in chain:
         assert sass[name]["IGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
-    for name in i8 + gemm + chain:
+    for name in i8 + gemm + chain + w4a4:
         assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
 
 
@@ -610,6 +616,70 @@ def test_gemm_w4a4(dev, m, k, n, precision, unsigned):
     assert ok, detail
 
 
+# the register-A wgmma kernel's edges: one pack block (K 256: two K tiles, no loop), partial last row tiles (TMA
+# reads zeros past M, the store masks them), both rank classes (R <= 32: two k steps; above: eight for each
+# chunk of 128 ranks, R 200 and 256 two chunks, as upstream's rank-256 Z-Image checkpoint needs)
+@pytest.mark.parametrize("m,k,n,precision,unsigned,r", [
+    (128, 256, 128, "int4", False, 32),
+    (256, 256, 384, "int4", True, 16),
+    (8, 256, 256, "nvfp4", False, 32),
+    (4104, 3072, 3072, "int4", False, 32),   # a partial last row tile of 8 rows
+    (328, 768, 256, "int4", True, 128),
+    (72, 512, 128, "nvfp4", False, 64),
+    (4096, 3072, 9216, "nvfp4", False, 128),
+    (520, 256, 1280, "nvfp4", False, 128),
+    (4096, 3840, 3840, "int4", False, 256),
+    (4104, 3072, 3072, "int4", True, 256),
+    (520, 256, 1280, "nvfp4", False, 256),
+    (328, 768, 256, "int4", False, 200),
+])
+def test_gemm_w4a4_edges(dev, m, k, n, precision, unsigned, r):
+    _, ok, detail = checks.check_w4a4(*checks.w4a4_case(m, k, n, precision, unsigned, r, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("precision,unsigned", [("int4", False), ("int4", True), ("nvfp4", False)])
+def test_gemm_w4a4_every_code(dev, precision, unsigned):
+    """Every byte value (so every pair of nibbles, nvfp4's stray code 0x8
+    among them) at every position of a pack block on both operands, at unit
+    scales (so each product is exact and the output is the sum itself)."""
+    args, kw = checks.w4a4_case(256, 512, 256, precision, unsigned, device=dev)
+    codes = torch.arange(256, dtype=torch.int32, device=dev).to(torch.uint8).view(torch.int8)
+    qa = torch.stack([torch.roll(codes, 7 * i) for i in range(256)])  # (M 256, K/2 256): each row every byte
+    qw = torch.stack([torch.roll(codes.flip(0), 3 * i) for i in range(256)]).t()  # (K/2, N), K-contiguous
+    ones_a, ones_w = torch.ones_like(args[1]), torch.ones_like(args[3])
+    _, ok, detail = checks.check_w4a4((qa, ones_a, qw, ones_w, None, None, None), kw)
+    assert ok, detail
+    _, ok, detail = checks.check_w4a4((qa, args[1], qw, args[3]) + args[4:], kw)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,precision,unsigned,r,extra", [
+    (4608, 3072, 12288, "int4", False, 32, True),
+    (200, 256, 384, "int4", True, 256, True),
+    (136, 512, 256, "nvfp4", False, 128, True),
+    (128, 256, 128, "nvfp4", False, 16, False),
+])
+def test_w4a4_decode_yardstick(dev, m, k, n, precision, unsigned, r, extra):
+    """The W4A4 GEMM's decode yardstick (``nt_w4a4_decode``, timed by
+    ``tools/time_w4a4.py``) writes bit for bit its twin's bf16 operands, and
+    their product on the bf16 GEMM probe passes the W4A4 check's bound."""
+    from nunchaku_tpu_torch.ops.gemm import gemm_w4a4_plain
+    from nunchaku_tpu_torch.tools.time_w4a4 import w4a4_decode_bf16
+
+    args, kw = checks.w4a4_case(m, k, n, precision, unsigned, r, device=dev)
+    if not extra:
+        args = args[:4] + (None, None, None)
+    a16, w16 = w4a4_decode_bf16(*args, **kw)
+    cpu = tuple(None if a is None else a.cpu() for a in args)
+    a_ref, w_ref = w4a4_decode_bf16(*cpu, **kw)
+    assert torch.equal(a16.cpu(), a_ref) and torch.equal(w16.cpu(), w_ref)
+    if n % 256 == 0 and m % 128 == 0:
+        out = gemm_probe.gemm_probe_bf16(a16, w16)[:m].float()
+        ref = gemm_w4a4_plain(*args, **kw).float()
+        assert ((out - ref).abs() <= 2.0 ** -7 * ref.abs() + 1e-4 * ref.abs().max()).all()
+
+
 @pytest.mark.parametrize("precision", ["int4", "nvfp4"])
 def test_gemm_w4a4_without_lora_or_bias(dev, precision):
     args, kw = checks.w4a4_case(256, 512, 256, precision, r=16, device=dev)
@@ -916,6 +986,16 @@ def test_packed_small_model_matches_cpu(dev, monkeypatch, turbo):
     (136, 512, 384, "int4"),
 ])
 def test_gemm_w4a4_stacked(dev, m, k, n, precision):
+    _, ok, detail = checks.check_w4a4_stacked(*checks.w4a4_case(m, k, n, precision, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("m,k,n,precision", [
+    (4104, 3072, 3072, "int4"),  # a partial last row tile of 8 rows
+    (200, 256, 256, "nvfp4"),    # one pack block, a partial tile
+    (8, 512, 128, "int4"),
+])
+def test_gemm_w4a4_stacked_edges(dev, m, k, n, precision):
     _, ok, detail = checks.check_w4a4_stacked(*checks.w4a4_case(m, k, n, precision, device=dev))
     assert ok, detail
 

@@ -186,6 +186,51 @@ def test_gemm_w4a4_plain_matches_jax(precision, unsigned, lora_bias):
     assert _within_bf16_step(out, ref)
 
 
+# the register-A wgmma kernel's edges (csrc/gemm_w4a4.cu): one pack block (K 256: two K tiles), the largest rank
+# (R 128: eight low-rank k steps; R 256: two chunks of them), row counts that leave a partial last tile of 128 rows
+@pytest.mark.parametrize("m,k,n,r", [(128, 256, 128, 32), (256, 512, 256, 128), (136, 512, 256, 32),
+                                     (200, 256, 384, 128), (136, 256, 256, 256)])
+@pytest.mark.parametrize("precision,unsigned", [("int4", False), ("int4", True), ("nvfp4", False)])
+def test_gemm_w4a4_plain_matches_jax_at_kernel_edges(precision, unsigned, m, k, n, r):
+    """As :func:`test_gemm_w4a4_plain_matches_jax`, at shapes the JAX kernel
+    takes on the card kernel's edges."""
+    qa, asc, la, qw, ws, pu, bias = _gemm_case(precision, unsigned, m=m, k=k, n=n, r=r)
+    ref = jgemm.svdq_gemm_w4a4(jnp.asarray(qa), jnp.asarray(asc), jnp.asarray(qw), jnp.asarray(ws), jnp.asarray(la),
+                               jnp.asarray(pu), jnp.asarray(bias), precision=precision, act_unsigned=unsigned)
+    out = tgemm.gemm_w4a4_plain(_t(qa), _t(asc), _t(qw), _t(ws), _t(la), _t(pu), _t(bias), precision=precision,
+                                act_unsigned=unsigned)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == tuple(ref.shape) == (m, n)
+    assert _within_bf16_step(out, ref)
+
+
+@pytest.mark.parametrize("m,r,lora_bias", [(200, 32, True), (128, 64, False), (136, 256, True)])
+@pytest.mark.parametrize("precision,unsigned", [("int4", False), ("int4", True), ("nvfp4", False)])
+def test_w4a4_decode_bf16_plain_matches_jax(precision, unsigned, m, r, lora_bias):
+    """The decode yardstick of the W4A4 GEMM (``tools/time_w4a4.py``, the
+    twin of ``nt_w4a4_decode``): its bf16 operands, with the rank-r term and
+    the bias appended along K, multiply with f32 sums to within one bf16
+    step of the JAX kernel's output; rows past M and the padding along K
+    are zeros."""
+    from nunchaku_tpu_torch.tools.time_w4a4 import w4a4_decode_bf16
+
+    k, n = 256, 384
+    qa, asc, la, qw, ws, pu, bias = _gemm_case(precision, unsigned, m=m, k=k, n=n, r=r)
+    if not lora_bias:
+        la = pu = bias = None
+    ref = jgemm.svdq_gemm_w4a4(jnp.asarray(qa), jnp.asarray(asc), jnp.asarray(qw), jnp.asarray(ws),
+                               None if la is None else jnp.asarray(la), None if pu is None else jnp.asarray(pu),
+                               None if bias is None else jnp.asarray(bias), precision=precision,
+                               act_unsigned=unsigned)
+    opt = lambda a: None if a is None else _t(a)  # noqa: E731
+    a16, w16 = w4a4_decode_bf16(_t(qa), _t(asc), _t(qw), _t(ws), opt(la), opt(pu), opt(bias), precision=precision,
+                                act_unsigned=unsigned)
+    ext = r + 1 if lora_bias else 0
+    assert a16.shape == (-(-m // 128) * 128, k + -(-ext // 64) * 64) and w16.shape == (a16.shape[1], n)
+    assert not a16[m:].any() and not a16[:, k + ext:].any() and not w16[k + ext:].any()
+    out = (a16.float() @ w16.float())[:m].to(torch.bfloat16)
+    assert _within_bf16_step(out, ref)
+
+
 def test_gemm_w4a4_dispatch_and_refusals():
     qa, asc, la, qw, ws, pu, bias = _gemm_case("int4", True, m=128, k=256, n=128)
     args = [_t(a) for a in (qa, asc, qw, ws, la, pu, bias)]
