@@ -34,9 +34,13 @@ Phases, each fatal on failure:
                   Qwen-Image's shapes, logged beside the rank-32 rows; the
                   packed-int4 w4a8 route's kernels: gemm_w4a8 (rank-1) at the
                   qkv and out-projection shapes, gemm_w4a8_gelu_quant at fc1,
-                  gemm_w4a8_grouped at fc2, each also at rank 128, with
+                  gemm_w4a8_grouped at fc2, each also at rank 128 and 256, with
                   torch._int_mm of the product on the dequantized weight as
-                  yardstick; the online flash kernel at head dim 64
+                  yardstick; every kernel that runs its rank term in chunks of
+                  128 at rank 256 (rows *_r256: the LN producer single and dual,
+                  the qkv/RoPE producer, the int8 chain producer and consumer and
+                  the pipelined producer, the packed GEMM at Z-Image's qkv and
+                  the packed chain, each against its twin); the online flash kernel at head dim 64
                   (flash_online_d64) on SDXL's 1024px shapes: self-attention
                   at H 10, S 4096 (the row) and H 20, S 1024, and both levels'
                   cross-attention against 77 text keys, SDPA as yardstick; the
@@ -45,7 +49,7 @@ Phases, each fatal on failure:
                   logged) and the W4A4 GEMM at SANA's padded qkv and point
                   shapes; the stacked (layer-index) modes at Z-Image's qkv
                   (M 4608, K 3840, N 11520): the W4A4 GEMM at int4 and nvfp4,
-                  the dequant and the packed w4a8 GEMM (R 32; R 128 logged),
+                  the dequant and the packed w4a8 GEMM (R 32 and 256; R 128 logged),
                   each bit for bit the non-stacked kernel on every layer of a
                   3-layer stack and timed beside it; the chain modes FLUX.1-dev's
                   stacks reach (the int8 producer stacked, its per-token mode,
@@ -67,7 +71,7 @@ Phases, each fatal on failure:
                   the kernel's tile and bit for bit the online kernel on the
                   transposed tensors, beside that kernel plus the transposed
                   copies, SDPA on the transposed views as yardstick; the
-                  pipelined chain producer at fc1 (R 32; R 128 logged) bit for
+                  pipelined chain producer at fc1 (R 32 and 256; R 128 logged) bit for
                   bit the ordinary producer kernel, beside its time,
                   torch._int_mm as yardstick; the two GEMM probe kernels of
                   the ported tools at bench_gemm_variants' shape (M 4608, K
@@ -157,6 +161,11 @@ Phases, each fatal on failure:
                   the LN and qkv/RoPE producers at R 128; output finite, launch
                   counts exact (the rows ln_mod_quant_int8_r128 and
                   qkv_rope_producer_r128 count these launches);
+  5d. rank256  -- the same at rank 256: int8 (the chain kernels, the LN and
+                  qkv/RoPE producers at R 256) and w4a8 on the packed route
+                  (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1: the packed
+                  GEMM and chain at R 256); the *_r256 rows count these
+                  launches, the last-ops chain's at R 256 and zimage-r256's;
   6. highres  -- FLUX.1-dev int4 (default configuration) under
                   set_attention_impl("blocksparse", sparsity_ratio=0.5) at
                   2048x2048 from prompts: a stand-in tokenizer, T5-XXL + CLIP-L
@@ -231,6 +240,11 @@ Phases, each fatal on failure:
                   Counts exact per forward (136 stacked launches of the active
                   mode, 34 flash_fixed, 34 producers under B; 9 flash_online per
                   tiled decode).
+ 12b. zimage-r256 -- upstream's svdq-int4_r256-z-image-turbo layout at full
+                  width and depth, synthesized, loaded at w4a8 and served on
+                  the packed route (the configuration the port refused before
+                  its kernels took ranks above 128): one 1-step request to
+                  latents, 136 gemm_w4a8_stacked launches at R 256.
  13. sp       -- an NCCL process group of one rank (the machine has one card):
                   FLUX.1-dev w4a8 (default configuration) at 2048x2048 through
                   parallelize_sequence against the plain forward of the same
@@ -249,7 +263,8 @@ Phases, each fatal on failure:
                   pipelined=True), qkv_prepare, flash_attention_bshd) chained as
                   a FLUX.1-dev single block's pieces meet, at full width (S
                   4608, dim 3072, 24 heads, fc1 12288, random int8 linears):
-                  one launch of each, both ends within 2e-2 of the twins' chain.
+                  one launch of each, both ends within 2e-2 of the twins' chain,
+                  at R 32 and again at R 256 (counted apart: the *_r256 rows).
                   Every earlier phase's count check reads 0 launches of these
                   four kernels (no model path changed).
  16. gemm-probes -- the path to the two GEMM probe kernels: the four ported
@@ -351,7 +366,7 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
 PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
-               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu")
+               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu")
 # the W4A4 GEMM's instantiations gemm_w4a4_kernel<mode, k steps of the rank-r term>: modes 0 int4, 1 int4 with
 # unsigned activations, 2 nvfp4; 0 (no low rank), 2 (R <= 32), 8 (R <= 128) steps
 W4A4_SASS = [(mode, steps) for mode in (0, 1, 2) for steps in (0, 2, 8)]
@@ -359,11 +374,16 @@ W4A4_SASS = [(mode, steps) for mode in (0, 1, 2) for steps in (0, 2, 8)]
 # 0 / 1) -> the rows that run it
 CHAIN_SASS = {"GeluEpi": "gemm_w8a8_gelu_quant (rows 2, 2s, 13)", "GroupedEpi<0>": "gemm_w8a8_grouped (rows 3, 3s, 3p)",
               "GroupedEpi<1>": "gemm_w8a8_grouped_res (rows 3', 3's, 3p residual)"}
+# the packed-int4 w4a8 kernels: gemm_sm90.cuh's warpgroup-0 decoding form gemm_w4_kernel<Epi> (W4Src), the same
+# epilogues: the epilogue in the demangled name -> the rows that run it
+W4_SASS = {"GeluEpi": "gemm_w4a8_gelu_quant (rows 12, 12s)", "GroupedEpi<0>": "gemm_w4a8 (rows 10, 11, 11s, 11g, 11gs)"}
 # the wide online kernel (csrc/flash_online.cu, head dims 256 and 512: the VAE's mid-block attention): its
 # instantiations flash_wide_kernel<D>, wgmma + TMA like the core
 WIDE_DIMS = (256, 512)
-# [rank128]: FLUX.1-dev at full width with rank-128 low-rank branches, depth cut to 2 dual + 4 single blocks
+# [rank128] / [rank256]: FLUX.1-dev at full width with rank-128 / rank-256 low-rank branches, depth cut to 2 dual +
+# 4 single blocks (the kernels take ranks above 128 in chunks of 128: upstream's svdq-int4_r256-z-image-turbo)
 R128_LAYERS = (2, 4)
+RANK_HI = 256
 # turbo launches of one FLUX w4a8 dual and one single block (the dequant route)
 W4A8_TURBO_DUAL = {"dequant_w4a8_stacked": 8, "ln_mod_quant_int8": 4, "qkv_rope_producer": 2,
                    "gemm_w8a8_gelu_quant": 2, "gemm_w8a8_grouped_res": 2, "flash_fixed": 1}
@@ -777,6 +797,7 @@ def kernel_phase(dev):
     sana_kernel_rows(dev, record, failed)
     zimage_kernel_rows(dev, record, failed)
     flux_int8_kernel_rows(dev, record, failed)
+    flux_int8_kernel_rows(dev, record, failed, RANK_HI, R256_CHAIN_MODES, f"_r{RANK_HI}")
     fixed_form_kernel_rows(dev, record, failed)
     last_op_kernel_rows(dev, record, failed)
     probe_kernel_rows(dev, record, failed)
@@ -785,27 +806,30 @@ def kernel_phase(dev):
 
 def producer_rank_rows(dev, record, failed):
     """6r, 7r. The LN producer and the qkv/RoPE producer at rank 128
-    (nunchaku's rank-128 checkpoints) at FLUX.1-dev's shapes (M 4608, K
-    3072; S 4608, H 24, D 128): each within its rank-32 row's bounds of the
-    twin and bit for bit its rank-32 launch on the shared columns
-    (checks.check_ln_rank, check_qkv_rank), F.layer_norm / the low-rank
-    matmul as yardstick; R 48 checked and logged; the dual producer at R
-    128 + 128 (each head bit for bit a single-mode launch) logged beside two
-    rank-128 row-6 launches."""
+    (nunchaku's rank-128 checkpoints) and 256 (upstream's r256 Z-Image
+    checkpoint; the kernels run ranks above 128 in chunks of 128) at
+    FLUX.1-dev's shapes (M 4608, K 3072; S 4608, H 24, D 128): each within
+    its rank-32 row's bounds of the twin and bit for bit its rank-32 launch
+    on the shared columns (checks.check_ln_rank, check_qkv_rank; the qkv
+    producer's rank 128 zero-padded to 256 bit for bit rank 128 too),
+    F.layer_norm / the low-rank matmul as yardstick; R 48 checked and
+    logged; the dual producer at R 128 + 128 (each head bit for bit a
+    single-mode launch) logged beside two rank-128 row-6 launches, and at
+    256 + 256 a row of its own."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.attention import qkv_rope_producer, qkv_rope_producer_plain
     from nunchaku_tpu_torch.ops.quantize import (ln_mod_quant_int8, ln_mod_quant_int8_dual,
                                                  ln_mod_quant_int8_dual_plain, ln_mod_quant_int8_plain)
 
     m = s = S_IMG + S_TXT
-    for r in (48, 128):
+    for r in (48, 128, RANK_HI):
         args = checks.ln_mod_quant_case(1, m, DIM, r, device=dev)
         err, ok, detail = checks.check_ln_rank(*args)
         ms = time_ms(lambda: ln_mod_quant_int8(*args), 50)
         bnd = bound(ln_bytes(m, DIM, r), bf16_ops=2 * m * DIM * r)
-        if r == 128:
+        if r >= 128:
             x = args[0]
-            record("ln_mod_quant_int8_r128", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu",
+            record(f"ln_mod_quant_int8_r{r}", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu",
                    "nunchaku_tpu/ops/quantize.py:149", f"M={m} K={DIM} R={r}", ok, err, detail, ms,
                    time_ms(lambda: ln_mod_quant_int8_plain(*args), 5), bnd,
                    time_ms(lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6), 50))
@@ -816,27 +840,36 @@ def producer_rank_rows(dev, record, failed):
                 failed.append(f"ln_mod_quant_int8@R{r}")
         del args
 
-    args = checks.ln_dual_case(1, m, DIM, 128, 128, device=dev)
-    err, ok, detail = checks.check_ln_dual(*args)
-    x, sc, sh, sma, pda, smb, pdb = args
-    ms = time_ms(lambda: ln_mod_quant_int8_dual(*args), 50)
-    two = time_ms(lambda: (ln_mod_quant_int8(x, sc, sh, sma, pda), ln_mod_quant_int8(x, sc, sh, smb, pdb)), 50)
-    plain = time_ms(lambda: ln_mod_quant_int8_dual_plain(*args), 5)
-    bnd = bound(dual_bytes(m, DIM, 128, 128), bf16_ops=2 * m * DIM * 256)
-    log(f"[kernel] ln_mod_quant_dual @ B=1 S={m} K={DIM} R=128+128: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms "
-        f"against two rank-128 row-6 launches {two:.4f} ms (plain {plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})")
-    if not ok:
-        failed.append("ln_mod_quant_dual@R128")
-    del args, x, sc, sh, sma, pda, smb, pdb
+    for r in (128, RANK_HI):
+        args = checks.ln_dual_case(1, m, DIM, r, r, device=dev)
+        err, ok, detail = checks.check_ln_dual(*args)
+        x, sc, sh, sma, pda, smb, pdb = args
+        ms = time_ms(lambda: ln_mod_quant_int8_dual(*args), 50)
+        two = time_ms(lambda: (ln_mod_quant_int8(x, sc, sh, sma, pda), ln_mod_quant_int8(x, sc, sh, smb, pdb)), 50)
+        plain = time_ms(lambda: ln_mod_quant_int8_dual_plain(*args), 5)
+        bnd = bound(dual_bytes(m, DIM, r, r), bf16_ops=2 * m * DIM * 2 * r)
+        log(f"[kernel] ln_mod_quant_dual @ B=1 S={m} K={DIM} R={r}+{r}: {'PASS' if ok else 'FAIL'} {detail}; "
+            f"{ms:.4f} ms against two rank-{r} row-6 launches {two:.4f} ms (plain {plain:.4f} ms, bound {bnd[0]:.4f} "
+            f"ms by {bnd[1]})")
+        if r == RANK_HI:
+            record(f"ln_mod_quant_dual_r{r}", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu",
+                   "nunchaku_tpu/ops/quantize.py:265", f"B=1 S={m} K={DIM} R={r}+{r}", ok, err, detail, ms, plain,
+                   bnd, time_ms(lambda: torch.nn.functional.layer_norm(x, (DIM,), eps=1e-6), 50))
+        elif not ok:
+            failed.append(f"ln_mod_quant_dual@R{r}")
+        del args, x, sc, sh, sma, pda, smb, pdb
 
-    for r in (48, 128):
+    for r in (48, 128, RANK_HI):
         streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, r, device=dev)
         err, ok, detail = checks.check_qkv_rank(streams, cos, sin)
+        if r > 128:
+            _, ok128, detail128 = checks.check_qkv_rank(streams, cos, sin, r_small=128)
+            ok, detail = ok and ok128, f"{detail}; {detail128.split('; ')[-1]}"
         ms = time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50)
         bnd = bound(rope_bytes(s, r), bf16_ops=2 * s * 3 * HEADS * HD * r)
-        if r == 128:
+        if r >= 128:
             la16, pu = streams[0][3].to(torch.bfloat16), streams[0][4]
-            record("qkv_rope_producer_r128", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
+            record(f"qkv_rope_producer_r{r}", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
                    "nunchaku_tpu/ops/attention.py:158", f"B=1 S={s} H={HEADS} D={HD} R={r}", ok, err, detail, ms,
                    time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5), bnd,
                    time_ms(lambda: torch.matmul(la16, pu), 50))
@@ -849,35 +882,43 @@ def producer_rank_rows(dev, record, failed):
         del streams, cos, sin
 
 
-def rank128_phase(dev):
-    """[rank128] FLUX.1-dev at full width (dim 3072, 24 heads) with rank-128
-    low-rank branches (nunchaku's rank-128 checkpoints) in the turbo
-    configuration, depth cut to R128_LAYERS (the producers' work per block
-    does not depend on the depth): one 1024px forward at int8 (the chain
-    kernels) and one at w4a8 (the dequant route), each untimed once first;
-    the LN producer and the qkv/RoPE producer run at R 128. Output finite,
-    launch counts exact. -> (ok, counts of the timed forwards, per-forward
-    counts)."""
+def rank_phase(dev, rank=128):
+    """[rank128] / [rank256] FLUX.1-dev at full width (dim 3072, 24 heads)
+    with rank-``rank`` low-rank branches in the turbo configuration, depth
+    cut to R128_LAYERS (the kernels' work per block does not depend on the
+    depth): one 1024px forward at int8 (the chain kernels on stacks) and one
+    at w4a8, each untimed once first; the LN producer and the qkv/RoPE
+    producer run at the rank. At rank 128 w4a8 takes the dequant route; at
+    256 the packed route (NUNCHAKU_TPU_W4A8_XLA=0, NUNCHAKU_TPU_W4A8_FUSED=1:
+    the packed GEMM and chain at rank 256, refused before the kernels ran
+    ranks above 128 in chunks). Output finite, launch counts exact. -> (ok,
+    counts of the timed forwards, per-forward counts)."""
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
     from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 
     L, Ls = R128_LAYERS
+    tag = f"rank{rank}"
     ok, total, paths = True, {}, {}
     for precision in ("int8", "w4a8"):
-        cfg = FluxConfig(precision=precision, rank=128, num_layers=L, num_single_layers=Ls)
+        packed = precision == "w4a8" and rank > 128
+        cfg = FluxConfig(precision=precision, rank=rank, num_layers=L, num_single_layers=Ls)
         model = FluxTransformer2DModel.random_init(cfg, seed=16, device=dev)
         model.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
-        key = f"{precision} r128 turbo"
-        paths[key] = (int8_per_forward(L, Ls, True, False) if precision == "int8" else
-                      {k: L * W4A8_TURBO_DUAL[k] + Ls * W4A8_TURBO_SINGLE[k] for k in W4A8_TURBO_DUAL})
+        key = f"{precision}{' packed' if packed else ''} r{rank} turbo"
+        if precision == "int8":
+            paths[key] = int8_per_forward(L, Ls, True, False)
+        elif packed:
+            paths[key] = packed_per_forward(L, Ls, True)
+        else:
+            paths[key] = {k: L * W4A8_TURBO_DUAL[k] + Ls * W4A8_TURBO_SINGLE[k] for k in W4A8_TURBO_DUAL}
         gen = torch.Generator(device=dev).manual_seed(17)
         inputs = (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
                   torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
                   torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
                   torch.tensor([1.0], device=dev), make_img_ids(math.isqrt(S_IMG), math.isqrt(S_IMG), dev),
                   torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
-        with torch.no_grad():
+        with torch.no_grad(), packed_route() if packed else contextlib.nullcontext():
             model(*inputs)  # first use, untimed
             torch.cuda.synchronize()
             reset_launch_counts()
@@ -888,12 +929,70 @@ def rank128_phase(dev):
         counts = launch_counts()
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
         finite = tuple(out.shape) == (1, S_IMG, 64) and bool(torch.isfinite(out.float()).all())
-        log(f"[rank128] FLUX.1-dev {precision} rank 128, turbo, {L} dual + {Ls} single blocks at dim {cfg.dim}: one "
-            f"1024px forward {dt:.4f} s, output {tuple(out.shape)} finite={finite}")
-        ok = check_counts(key, counts, paths[key], 1, tag="rank128") and finite and ok
+        log(f"[{tag}] FLUX.1-dev {precision}{' (packed route)' if packed else ''} rank {rank}, turbo, {L} dual + "
+            f"{Ls} single blocks at dim {cfg.dim}: one 1024px forward {dt:.4f} s, output {tuple(out.shape)} "
+            f"finite={finite}")
+        ok = check_counts(key, counts, paths[key], 1, tag=tag) and finite and ok
         del model, out
         torch.cuda.empty_cache()
     return ok, total, paths
+
+
+def zimage_r256_phase(dev):
+    """[zimage-r256] The configuration the port refused before its kernels
+    ran ranks above 128: upstream's svdq-int4_r256-z-image-turbo layout
+    (synth_checkpoint.zimage_state at Z-Image-Turbo's full width and depth,
+    34 blocks, dim 3840, rank 256, v2 schema), loaded at w4a8 and served on
+    the packed route (NUNCHAKU_TPU_W4A8_XLA=0: every 4-bit linear the packed
+    GEMM's stacked rank-1 mode at R 256) through ZImagePipeline at 1024x1024
+    from prompt embeddings, one untimed 1-step request, then one timed, to
+    latents. Latents finite, launch counts exact. The file lives in a
+    temporary directory, deleted after. -> (ok, counts, per-forward
+    counts)."""
+    import tempfile
+
+    from nunchaku_tpu_torch import ZImagePipeline, load_zimage_transformer
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    t_phase = time.perf_counter()
+    name = f"svdq-int4_r{RANK_HI}-z-image-turbo"
+    key = "zimage r256 w4a8 packed"
+    per = zimage_per_forward(ZI_MODES["w4a8 packed"])
+    gen = torch.Generator(device=dev).manual_seed(8)
+    pe = torch.randn((1, ZI_TXT, ZI_CAP), generator=gen, device=dev).to(torch.bfloat16)
+    with tempfile.TemporaryDirectory(prefix="nunchaku_zimage_r256_") as tmp:
+        path = f"{tmp}/{name}.safetensors"
+        _write(synth, path, lambda: synth.zimage_state(rank=RANK_HI, precision="int4", seed=6, device=dev),
+               f"{name} (v2 schema)", tag="zimage-r256")
+        model, _ = _load(f"{name} at precision='w4a8'", lambda: load_zimage_transformer(path, precision="w4a8",
+                                                                                        device=dev),
+                         tag="zimage-r256")
+        ok = model.cfg.precision == "w4a8" and model.cfg.rank == RANK_HI
+        log(f"[zimage-r256] loaded as {model.cfg.precision} rank {model.cfg.rank}, {model.cfg.num_layers} + "
+            f"{model.cfg.num_refiner_layers} + {model.cfg.num_refiner_layers} blocks, dim {model.cfg.dim}: "
+            f"{'PASS' if ok else 'FAIL'}")
+        pipe = ZImagePipeline(model)
+        with packed_route(), torch.no_grad():
+            pipe(pe, num_inference_steps=1, seed=99, guidance_scale=0.0)  # first use, untimed
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            out = pipe(pe, num_inference_steps=1, seed=0, guidance_scale=0.0)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        counts = launch_counts()
+    lat = out.latents.float()
+    good = tuple(lat.shape) == (1, S_IMG, 64) and bool(torch.isfinite(lat).all())
+    log(f"[zimage-r256] {name} served at w4a8 on the packed route, 1 step to latents: {sec:.4f} s, latents "
+        f"{tuple(lat.shape)} |lat| mean {lat.abs().mean().item():.4f}, finite {good}; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ok = check_counts(key, counts, per, 1, tag="zimage-r256") and good and ok
+    del pipe, model, out, lat
+    torch.cuda.empty_cache()
+    log(f"[zimage-r256] phase {time.perf_counter() - t_phase:.1f} s (the file, its load, 2 requests)")
+    return ok, counts, {key: per}
 
 
 def core_sass(path) -> bool:
@@ -902,8 +1001,9 @@ def core_sass(path) -> bool:
     TMA-load (UTMALDG) instruction counts in cuobjdump -sass; False if one is
     missing or a count it needs is 0 (the int8 attention form needs IGMMA for
     q . k and HGMMA for p . v; the coded GEMM forms copy by TMA, decode, and
-    run HGMMA; the int8 chain kernels' s8 instantiations run IGMMA; each W4A4
-    instantiation copies by TMA and runs register-A HGMMA)."""
+    run HGMMA; the int8 chain kernels' s8 instantiations and the packed w4a8
+    kernels' (gemm_w4_kernel) run IGMMA; each W4A4 instantiation copies by
+    TMA and runs register-A HGMMA)."""
     from nunchaku_tpu_torch.ops import _build
 
     # demangled template arguments as plain numbers: "(int)1" -> "1", "(bool)0" / "false" -> "0"
@@ -938,6 +1038,12 @@ def core_sass(path) -> bool:
         found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name]
         good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
         log(f"[build] {row}: gemm_sm90_kernel<S8, 128, 4, TmaS8<128>, {key}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for key, row in W4_SASS.items():  # s8 wgmma (IGMMA) on TMA-fed stages, W decoded by warpgroup 0
+        found = [c for name, c in sass.items() if "gemm_w4_kernel<" in name and f"::{key}" in name]
+        good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] {row}: gemm_w4_kernel<{key}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     for mode, steps in W4A4_SASS:  # register-A wgmma (HGMMA) on TMA-fed stages
@@ -1037,8 +1143,8 @@ def packed_kernel_rows(dev, record, failed):
     """10-12. The packed-int4 w4a8 route's kernels: the rank-1 GEMM at the
     single block's qkv (M 4608, K 3072, N 9216; the out projection's N 3072
     checked and timed too), the W4 producer at fc1 and the grouped consumer
-    at fc2 (8 groups), each again at rank 128. Yardstick: torch._int_mm of
-    the product alone on the dequant kernel's weight."""
+    at fc2 (8 groups), each again at rank 128 and 256 (logged). Yardstick:
+    torch._int_mm of the product alone on the dequant kernel's weight."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a8, gemm_w4a8_grouped, gemm_w4a8_plain,
                                              svdq_gemm_w4a8_gelu_quant, svdq_gemm_w4a8_gelu_quant_plain)
@@ -1064,7 +1170,7 @@ def packed_kernel_rows(dev, record, failed):
              "gemm_w8a8_gelu_quant.cu", 721, svdq_gemm_w4a8_gelu_quant, svdq_gemm_w4a8_gelu_quant_plain,
              (DIM, HID, 1))):
         k, n, g = yard
-        for r in (RANK, 128):
+        for r in (RANK, 128, RANK_HI):
             args = case(r)
             check = checks.check_w4a8_gelu_quant if name == "gemm_w4a8_gelu_quant" else checks.check_w4a8
             err, ok, detail = check(*args)
@@ -1085,7 +1191,7 @@ def packed_kernel_rows(dev, record, failed):
                 log(f"[kernel] {name} @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms (plain "
                     f"{plain:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
                 if not ok:
-                    failed.append(f"{name}@R128")
+                    failed.append(f"{name}@R{r}")
             del args
     torch.cuda.empty_cache()
 
@@ -2553,15 +2659,16 @@ def sana_kernel_rows(dev, record, failed):
 def zimage_kernel_rows(dev, record, failed):
     """15. The stacked (layer-index) modes on Z-Image-Turbo's main-layer qkv
     (M 4608 joint tokens, K 3840, N 11520): the W4A4 GEMM at int4 and
-    nvfp4, the dequant of that weight, the packed w4a8 GEMM (rank 1, R 32;
-    R 128 logged, the rank of request C's file). Each reads the last layer
+    nvfp4, the dequant of that weight, the packed w4a8 GEMM (rank 1, R 32
+    and 256, each a row, beside the dequant route at the shape; R 128
+    logged, the rank of request C's file). Each reads the last layer
     of a 3-layer stack by a device-resident index; checked bit for bit
     against the non-stacked kernel on every layer and against the plain twin
     on the row's tolerance; timed beside the non-stacked kernel on the same
     weight (logged), the plain twin and the non-stacked row's yardstick."""
     from nunchaku_tpu_torch.ops import checks
     from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, dequant_w4a8_plain, gemm_w4a4, gemm_w4a4_plain, gemm_w4a8,
-                                             gemm_w4a8_plain)
+                                             gemm_w4a8_plain, gemm_w8a8)
     from nunchaku_tpu_torch.ops.reference import int8_matmul
 
     m, k, n = ZI_TXT + S_IMG, ZI_DIM, 3 * ZI_DIM
@@ -2591,7 +2698,7 @@ def zimage_kernel_rows(dev, record, failed):
            f"K={k} N={n}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
            time_ms(lambda: dequant_w4a8_plain(qw, rs), 5), bound(deq_bytes(k, n)), None)
     del qw, rs, stack
-    for r in (128, RANK):
+    for r in (128, RANK_HI, RANK):
         case = checks.w4a8_case(m, k, n, r, device=dev)
         err, ok, detail = checks.check_w4a8_stacked(*case)
         qa, asc, qw, rs = case[:4]
@@ -2599,16 +2706,18 @@ def zimage_kernel_rows(dev, record, failed):
         ms = time_ms(lambda: gemm_w4a8(qa, asc, stack, *case[3:], layer_idx=ids[-1]), 20)
         flat = time_ms(lambda: gemm_w4a8(*case), 20)
         bnd = bound(w4a8_bytes(m, k, n, r), 2 * m * n * k, 2 * m * n * r)
-        if r != RANK:
+        if r == 128:
             log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: {'PASS' if ok else 'FAIL'} {detail}; stacked {ms:.4f} ms "
                 f"(non-stacked {flat:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
             if not ok:
                 failed.append(f"gemm_w4a8_stacked@R{r}")
-        else:
+        else:  # R 32, and R 256 (upstream's r256 Z-Image checkpoint on the packed route)
             w8 = dequant_w4a8(qw, rs)
-            log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: stacked {ms:.4f} ms, non-stacked {flat:.4f} ms")
-            record("gemm_w4a8_stacked", "nunchaku_tpu_torch/csrc/gemm_w4a8.cu", "nunchaku_tpu/ops/gemm.py:281",
-                   f"{shape} R={r}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
+            log(f"[kernel] gemm_w4a8_stacked @ {shape} R={r}: stacked {ms:.4f} ms, non-stacked {flat:.4f} ms; the "
+                f"dequant route at this shape (dequant_w4a8 stacked + gemm_w8a8) "
+                f"{time_ms(lambda: gemm_w8a8(qa, asc, dequant_w4a8(stack, rs, layer_idx=ids[-1]), *case[4:]), 20):.4f} ms")
+            record("gemm_w4a8_stacked" + ("" if r == RANK else f"_r{r}"), "nunchaku_tpu_torch/csrc/gemm_w4a8.cu",
+                   "nunchaku_tpu/ops/gemm.py:281", f"{shape} R={r}, layer 3 of 3 (Z-Image qkv)", ok, err, detail, ms,
                    time_ms(lambda: gemm_w4a8_plain(*case), 3), bnd, time_ms(lambda: int8_matmul(qa, w8), 20))
             del w8
         del case, qa, asc, qw, rs, stack
@@ -2616,17 +2725,21 @@ def zimage_kernel_rows(dev, record, failed):
 
 
 # the stacked chain modes' rows, each with the line of its TPU kernel's mode
+# the chain modes [rank256] reaches, each a row at rank 256 too (the chain kernels and the packed chain's two)
+R256_CHAIN_MODES = ("gemm_w8a8_gelu_quant_stacked", "gemm_w8a8_grouped_res_stacked", "gemm_w4a8_gelu_quant_stacked",
+                    "gemm_w4a8_grouped_stacked")
 INT8_ROWS = {"gemm_w8a8_gelu_quant_stacked": 460, "gemm_w8a8_gelu_quant_ptoken_stacked": 534,
              "gemm_w8a8_grouped_stacked": 344, "gemm_w8a8_grouped_res_stacked": 395, "gemm_w8a8_rank1_stacked": 386,
              "gemm_w8a8_rank1_res_stacked": 386, "gemm_w4a8_gelu_quant_stacked": 721,
              "gemm_w4a8_grouped_stacked": 281}
 
 
-def flux_int8_kernel_rows(dev, record, failed):
+def flux_int8_kernel_rows(dev, record, failed, r=RANK, modes=None, suffix=""):
     """16. The chain modes FLUX.1-dev's stacks reach (the int8 chain, grouped
     and per-token, and the packed chain), at FLUX's fc1 (producers: M 4608,
     K 3072, N 12288) and fc2 (consumers: M 4608, K 12288 in 8 scale groups,
-    or 1 for the rank-1 modes, N 3072), R 32. Each reads the last layer of a
+    or 1 for the rank-1 modes, N 3072), R 32 (``modes`` of INT8_ROWS at rank
+    ``r``: the rows named mode + ``suffix``). Each reads the last layer of a
     3-layer stack by a device-resident index; checked bit for bit against
     the non-stacked kernel on every layer and, through it, against the plain
     twin on the mode's tolerance (checks.chain_stacked_case); timed beside
@@ -2638,10 +2751,11 @@ def flux_int8_kernel_rows(dev, record, failed):
     from nunchaku_tpu_torch.ops.reference import int8_matmul
 
     m = S_IMG + S_TXT
-    for mode, line in INT8_ROWS.items():
+    for mode in modes or INT8_ROWS:
+        line = INT8_ROWS[mode]
         producer = "gelu_quant" in mode
         k, n = (DIM, HID) if producer else (HID, DIM)
-        run, w, check, args = checks.chain_stacked_case(mode, m, k, n, RANK, device=dev)
+        run, w, check, args = checks.chain_stacked_case(mode, m, k, n, r, device=dev)
         err, ok, detail = checks.check_stacked(run, w, check)
         stack, ids = checks.stack_case(w)
         ms = time_ms(lambda: run(stack, ids[-1]), 20)
@@ -2650,30 +2764,30 @@ def flux_int8_kernel_rows(dev, record, failed):
         groups = 1 if "rank1" in mode else k // 1536
         if producer:
             nj = 1 if "ptoken" in mode else n // 1536
-            out_b = m * n + 4 * nj * m + 4 * m * RANK
+            out_b = m * n + 4 * nj * m + 4 * m * r
             if w4:
-                bnd = bound(w4a8_bytes(m, k, n, out_bytes=out_b + 4 * n + 2 * n * RANK), 2 * m * n * k,
-                            4 * m * n * RANK)
+                bnd = bound(w4a8_bytes(m, k, n, r, out_bytes=out_b + 4 * n + 2 * n * r), 2 * m * n * k,
+                            4 * m * n * r)
                 plain = time_ms(lambda: svdq_gemm_w4a8_gelu_quant_plain(*args), 3)
             else:
-                bnd = bound(gemm_bytes(m, k, n, RANK, out_b) + 4 * n + 2 * n * RANK, 2 * m * n * k, 4 * m * n * RANK)
+                bnd = bound(gemm_bytes(m, k, n, r, out_b) + 4 * n + 2 * n * r, 2 * m * n * k, 4 * m * n * r)
                 plain = time_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args, ptoken="ptoken" in mode), 3)
         elif w4:
-            bnd = bound(w4a8_bytes(m, k, n, RANK, groups), 2 * m * n * k, 2 * m * n * RANK)
+            bnd = bound(w4a8_bytes(m, k, n, r, groups), 2 * m * n * k, 2 * m * n * r)
             plain = time_ms(lambda: gemm_w4a8_plain(*args), 3)
         else:
             res = "_res" in mode
-            bnd = bound(gemm_bytes(m, k, n, RANK, 2 * m * n) + 4 * groups * m + (res_bytes(m, n, 1, RANK) if res else 0),
-                        2 * m * n * k, (4 if res else 2) * m * n * RANK)
+            bnd = bound(gemm_bytes(m, k, n, r, 2 * m * n) + 4 * groups * m + (res_bytes(m, n, 1, r) if res else 0),
+                        2 * m * n * k, (4 if res else 2) * m * n * r)
             plain = time_ms(lambda: gemm_w8a8_grouped_plain(*args), 3)
         qa = args[0]
         w8 = dequant_w4a8(w, args[3]) if w4 else w
         lib = time_ms(lambda: int8_matmul(qa, w8), 20)
-        shape = (f"M={m} K={k} N={n} R={RANK}" + (f" G={groups}" if not producer else "")
+        shape = (f"M={m} K={k} N={n} R={r}" + (f" G={groups}" if not producer else "")
                  + (" +x,gate,extra,extra_lora" if "_res" in mode else "") + ", stacked: layer 3 of 3")
         log(f"[kernel] {mode} @ {shape}: stacked {ms:.4f} ms, non-stacked on the same weight {flat:.4f} ms")
         src = "gemm_w8a8_gelu_quant.cu" if producer else ("gemm_w4a8.cu" if w4 else "gemm_w8a8_grouped.cu")
-        record(mode, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/gemm.py:{line}", shape, ok, err, detail,
+        record(mode + suffix, f"nunchaku_tpu_torch/csrc/{src}", f"nunchaku_tpu/ops/gemm.py:{line}", shape, ok, err, detail,
                ms, plain, bnd, lib)
         del run, w, check, args, stack, qa, w8
     torch.cuda.empty_cache()
@@ -2801,7 +2915,7 @@ def last_op_kernel_rows(dev, record, failed):
     torch.cuda.empty_cache()
 
     n = HID
-    for r in (RANK, 128):
+    for r in (RANK, 128, RANK_HI):
         args = checks.gelu_quant_case(m, DIM, n, r, device=dev)
         err, ok, detail = checks.check_gelu_quant_pipe(*args)
         ms = time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args, pipelined=True), 20)
@@ -2810,9 +2924,10 @@ def last_op_kernel_rows(dev, record, failed):
                     2 * m * n * DIM, 4 * m * n * r)
         shape = f"M={m} K={DIM} N={n} R={r}"
         log(f"[kernel] gemm_w8a8_gelu_quant_pipe @ {shape}: {ms:.4f} ms against row 2's kernel {row2:.4f} ms")
-        if r == RANK:
+        if r != 128:
             qa, w = args[0], args[2]
-            record("gemm_w8a8_gelu_quant_pipe", "nunchaku_tpu_torch/csrc/gemm_w8a8_gelu_quant_pipe.cu",
+            record("gemm_w8a8_gelu_quant_pipe" + ("" if r == RANK else f"_r{r}"),
+                   "nunchaku_tpu_torch/csrc/gemm_w8a8_gelu_quant_pipe.cu",
                    "nunchaku_tpu/ops/gemm.py:790", shape + ", pipelined=True", ok, err, detail, ms,
                    time_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3), bnd,
                    time_ms(lambda: int8_matmul(qa, w), 20))
@@ -3063,44 +3178,47 @@ def last_ops_phase(dev):
     """[last-ops] The path that reaches the four op-level kernels no model
     path calls (nor does the JAX package's): their public entry points,
     chained at FLUX.1-dev's single block at full width (B 1, S 4608, dim
-    3072, 24 heads of 128, fc1 12288, R 32, random int8 linears), counts set
-    to 0 just before and read just after: one launch each of
+    3072, 24 heads of 128, fc1 12288, random int8 linears), at R 32 and
+    again at R 256 (the kernels' ranks above 128, in chunks), counts set to
+    0 just before each chain and read just after: one launch each of
     ln_mod_quant_dual, gemm_w8a8_gelu_quant_pipe, qkv_prepare and
     flash_online_bshd, besides the grouped consumer's (the standalone qkv
     product is torch._int_mm). Both ends finite, of their shapes, and within
     2e-2 relative of the same chain through the plain twins on the card.
-    -> (ok, counts)."""
+    -> (ok, counts at R 32, counts at R 256)."""
     from nunchaku_tpu_torch.ops import checks, launch_counts, reset_launch_counts
 
     s = S_IMG + S_TXT
-    lin = (int8_linear(DIM, 3 * DIM, RANK, 1, dev), int8_linear(DIM, HID, RANK, 2, dev),
-           int8_linear(HID, DIM, RANK, 3, dev))
-    x, sc, sh, *_ = checks.ln_mod_quant_case(1, s, DIM, RANK, device=dev)
     streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, 0, device=dev)
     nq, nk = streams[0][1:3]
     del streams
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t = time.perf_counter()
-        mlp, att = last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk)
-        torch.cuda.synchronize()
-        took = time.perf_counter() - t
-        counts = launch_counts()
-        mlp_p, att_p = last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk, plain=True)
-    want = {"ln_mod_quant_dual": 1, "gemm_w8a8_gelu_quant_pipe": 1, "gemm_w8a8_grouped": 1, "qkv_prepare": 1,
-            "flash_online_bshd": 1}
-    ok = check_counts("entry-point chain", counts, want, 1, tag="last-ops")
-    for name, out, ref, shape in (("mlp", mlp, mlp_p, (s, DIM)), ("attention", att, att_p, (1, s, HEADS, HD))):
-        rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
-        good = tuple(out.shape) == shape and bool(torch.isfinite(out.float()).all()) and rel <= 2e-2
-        log(f"[last-ops] {name} {tuple(out.shape)}: rel max distance from the twins' chain {rel:.3e} (tolerance "
-            f"2e-2), finite: {'PASS' if good else 'FAIL'}")
-        ok = ok and good
-    log(f"[last-ops] the chain at S {s}: {took:.4f} s (first use)")
-    del lin, x, sc, sh, cos, sin, mlp, att, mlp_p, att_p
-    torch.cuda.empty_cache()
-    return ok, counts
+    ok, by_rank = True, {}
+    for r in (RANK, RANK_HI):
+        lin = (int8_linear(DIM, 3 * DIM, r, 1, dev), int8_linear(DIM, HID, r, 2, dev),
+               int8_linear(HID, DIM, r, 3, dev))
+        x, sc, sh, *_ = checks.ln_mod_quant_case(1, s, DIM, r, device=dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t = time.perf_counter()
+            mlp, att = last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk)
+            torch.cuda.synchronize()
+            took = time.perf_counter() - t
+            by_rank[r] = launch_counts()
+            mlp_p, att_p = last_ops_chain(lin, x, sc, sh, cos, sin, nq, nk, plain=True)
+        want = {"ln_mod_quant_dual": 1, "gemm_w8a8_gelu_quant_pipe": 1, "gemm_w8a8_grouped": 1, "qkv_prepare": 1,
+                "flash_online_bshd": 1}
+        ok = check_counts(f"entry-point chain R {r}", by_rank[r], want, 1, tag="last-ops") and ok
+        for name, out, ref, shape in (("mlp", mlp, mlp_p, (s, DIM)), ("attention", att, att_p, (1, s, HEADS, HD))):
+            rel = ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+            good = tuple(out.shape) == shape and bool(torch.isfinite(out.float()).all()) and rel <= 2e-2
+            log(f"[last-ops] R {r} {name} {tuple(out.shape)}: rel max distance from the twins' chain {rel:.3e} "
+                f"(tolerance 2e-2), finite: {'PASS' if good else 'FAIL'}")
+            ok = ok and good
+        log(f"[last-ops] the chain at S {s}, R {r}: {took:.4f} s (first use)")
+        del lin, x, sc, sh, mlp, att, mlp_p, att_p
+        torch.cuda.empty_cache()
+    return ok, by_rank[RANK], by_rank[RANK_HI]
 
 
 # the GEMM probes' rows: (mode, tools file:line of the TPU kernel body it replaces)
@@ -3820,7 +3938,8 @@ def main(argv=None) -> int:
     t5, clip = text_encoders(dev)
     slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, t5=t5)
     i8_ok, icounts, ipaths = flux_int8_phase(dev, args.steps, t5)
-    r128_ok, rcounts, rpaths = rank128_phase(dev)
+    r128_ok, rcounts, rpaths = rank_phase(dev, 128)
+    r256_ok, r2counts, r2paths = rank_phase(dev, RANK_HI)
     hr_ok, hcounts, hpaths = highres_phase(dev, args.steps, t5, clip)
     del t5, clip
     torch.cuda.empty_cache()
@@ -3830,9 +3949,10 @@ def main(argv=None) -> int:
     sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
     sana_ok, sacounts, sapaths = sana_phase(dev, args.steps)
     zi_ok, zicounts, zipaths = zimage_phase(dev, args.steps)
+    zr_ok, zrcounts, zrpaths = zimage_r256_phase(dev)
     sp_ok, spcounts, sppaths = sp_phase(dev, args.steps)
     fa_ok, facounts, fapaths = flux_attn_phase(dev)
-    lo_ok, locounts = last_ops_phase(dev)
+    lo_ok, locounts, lo2counts = last_ops_phase(dev)
     gp_ok, gpcounts = gemm_probes_phase(dev)
     counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
               + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) + spcounts.get(k, 0) + facounts.get(k, 0)
@@ -3842,8 +3962,16 @@ def main(argv=None) -> int:
     # the rank-128 rows count the [rank128] forwards' launches, the other rows those of the rank-32 paths
     for name in ("ln_mod_quant_int8", "qkv_rope_producer"):
         rows[f"{name}_r128"]["launches"] = rcounts[name]
-    for name, per in rpaths.items():
+    # the rank-256 rows count the launches of the paths that run their kernels at rank 256: [rank256], the last
+    # ops' rank-256 chain and [zimage-r256] (upstream's r256 Z-Image file on the packed route)
+    hi = f"_r{RANK_HI}"
+    for name in [n for n in rows if n.endswith(hi)]:
+        base = name[:-len(hi)]
+        rows[name]["launches"] = r2counts.get(base, 0) + lo2counts.get(base, 0) + zrcounts.get(base, 0)
+    for name, per in (rpaths | r2paths).items():
         log(f"[bound] {name}: launches per forward of {R128_LAYERS[0]} dual + {R128_LAYERS[1]} single blocks {per}")
+    for name, per in zrpaths.items():
+        log(f"[bound] {name}: launches per Z-Image-Turbo 1024px forward {per}")
     for name, b in per_forward_bounds(cfg).items():
         per = {p: f[name] for p, f in (paths | ipaths | cpaths).items() if f.get(name)}
         log(f"[bound] {name}: launches per 1024px forward {per}, least time {b:.3f} ms per forward "
@@ -3882,7 +4010,7 @@ def main(argv=None) -> int:
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
     ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok and lo_ok
-    ok = ok and gp_ok and sass_ok and r128_ok
+    ok = ok and gp_ok and sass_ok and r128_ok and r256_ok and zr_ok
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -3890,9 +4018,10 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"core sass {verdict(sass_ok)}, slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, "
-        f"rank128 {verdict(r128_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
+        f"rank128 {verdict(r128_ok)}, rank256 {verdict(r256_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
-        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, sp {verdict(sp_ok)}, flux-attn {verdict(fa_ok)}, "
+        f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, zimage-r256 {verdict(zr_ok)}, sp {verdict(sp_ok)}, "
+        f"flux-attn {verdict(fa_ok)}, "
         f"last-ops {verdict(lo_ok)}, gemm-probes {verdict(gp_ok)}")
     if not ok:
         return 1

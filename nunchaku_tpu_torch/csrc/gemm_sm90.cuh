@@ -52,6 +52,12 @@
 //     read from device memory about once (in row-major block order every
 //     row of blocks would read all of W again).
 // The shared-memory tiles are 1024-byte aligned, as the swizzle needs.
+//
+// The warpgroup-0 decoding form (gemm_w4_kernel, the packed-int4 w4a8 GEMMs:
+// gemm_w4a8.cu and the W4 form of gemm_w8a8_gelu_quant.cu) is the s8 loop
+// with the same consumers and epilogues, fed by W4Src: packed int4 codes
+// decoded to int8 on warpgroup 0's four warps, which also copy (its first
+// thread), ahead of the products. See W4Src below.
 #pragma once
 
 #include "sm90.cuh"
@@ -386,6 +392,341 @@ int launch(const typename Src::Params& p, const typename Epi::Params& e, int M, 
   }
   const int grid = (N + BN - 1) / BN * (M / BM);
   gemm_sm90_kernel<Op, BN, ST, Src, Epi><<<grid, THREADS, bytes, stream>>>(p, e, M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The warpgroup-0 decoding form: packed int4 weights decoded to int8 tiles by warpgroup 0
+// ---------------------------------------------------------------------------
+//
+// W4Src feeds gemm_w4_kernel's s8 products from the packed w4a8 weight: codes (K/2, N) int8, N-contiguous, in
+// the block-split-half layout (packed row 128 b + j holds k = 256 b + j in its low nibble and 256 b + 128 + j in
+// its high one), with bf16 rescales (K/64, N); code c of row k, column n is the int8
+// clip(round_half_even(f32(c) * f32(rescale[k / 64, n])), +-127), w4_decode.cuh rescale_code<false>'s value.
+//   - A (M, K) int8 reaches a 5-stage ring by TMA as TmaS8's A does (4-D view: K groups of group_k, a group's
+//     last tile zero past its end, rows past M zero).
+//   - W reaches a 3-stage ring of raw boxes by TMA, a box per 256 k: the 128 packed rows of pack block b (BN
+//     columns, both nibble planes) and their 4 rescale rows; the stack's layer is the box's third coordinate,
+//     read on the card. A byte is read from device memory once a row tile (the WMMA loop read it twice).
+//   - Warpgroup 0's four warps decode: warp w takes quarter w of each box (plane w / 2, packed rows 64 (w % 2)
+//     .. + 63, i.e. the 64 consecutive k of rescale row 4 b + w) into its place in a W tile: K-major int8, BN
+//     rows of 128 bytes, 128-byte swizzled, the tile TmaS8's W is, in four rotating buffers, so decoding runs
+//     up to three K tiles ahead of the products. K tiles follow the consumers' walk: tile t covers k 128 i of K
+//     group g (t = g tpg + i), its two 64-k halves come from one box (or, when group_k % 128 == 64, from two,
+//     and a group's last tile has one half: A is zero past the group, so its other half is left as it is).
+//   - A lane decodes four columns: per column one 16-entry int8 table of its rescale group (the 16 values a
+//     code can take, 16 multiplies for 64 codes), looked up by byte permutes; two rows of codes are one
+//     selector byte (A / B below), four rows one 16-bit selector, so a column's 4 k are one 32-bit word. A lane
+//     starts its 16-row steps at (lane / 2) % 4: the 16-byte stores of eight lanes then hit eight different
+//     chunks of the swizzle (no bank conflict); its 32-bit loads of a packed row read 128 contiguous bytes.
+//   - A lane loads all of its 64 words of a quarter first, then decodes and stores (the compiler cannot move a
+//     load above a store to shared memory it does not know is elsewhere: loads interleaved with the stores
+//     measured 1.26x slower).
+//   - The decoders move through the boxes together (a barrier of warpgroup 0 a box): at a box's start every
+//     quarter of the previous box is decoded, so its first thread refills that stage. The A tiles are copied
+//     by the first consumer thread, ST_A - 1 tiles ahead, as soon as both consumers are past a stage's tile:
+//     copied by the decoders' thread at box starts they made the decoders wait on the consumers, measured
+//     1.25x slower; copied by each consumer warpgroup for its own 64 rows, 2-4% slower than one copy.
+// Registers: the decoders keep the launch's 168 (no setmaxnreg): PRODUCER_REGS' 24 serve a copy-only producer,
+// and 128 x 168 + 256 x 168 = 64,512 of the 65,536 is the most the decoders can have beside consumers at
+// ptxas's 168, which is what the s8 consumers are built for.
+struct W4Src {
+  static constexpr int BN = 128, ST_A = 5, ST_W = 3, DEC = 4;
+  static constexpr int CODES = 128 * BN;                     // a box's packed rows
+  static constexpr int RAW = CODES + 4 * BN * 2;             // + its 4 rescale rows (bf16): 17,408 bytes
+  static constexpr int W_TILE = BN * 128;                    // a decoded K tile
+  static constexpr int OFF_RAW = ST_A * A_TILE, OFF_DEC = OFF_RAW + ST_W * RAW, RING = OFF_DEC + DEC * W_TILE;
+  static constexpr int BARS = 2 * ST_A + ST_W + 2 * DEC;     // afull, aempty, rfull, wfull, wempty
+  static constexpr int DEC_BAR = 4;                          // warpgroup 0's named barrier
+  static_assert(RAW % 1024 == 0 && OFF_DEC % 1024 == 0, "tiles 1024-byte aligned");
+  struct Params {
+    CUtensorMap a, w, rs;
+    const int* layer_idx;  // null: not a stack
+    int L, G, group_k;
+  };
+  // The tensor maps of qact (M, K) int8 in K groups of K / G, the packed codes (K/2, N) (L of them back to back
+  // when a stack) and the rescales (K/64, N) bf16; false if the encoder refuses one.
+  static bool maps(Params& p, const void* a, const void* qw, const void* rs, int M, int N, int K, int G,
+                   const int* layer_idx, int L) {
+    const cuuint64_t gk = static_cast<cuuint64_t>(K / G), k = static_cast<cuuint64_t>(K), n = N;
+    const cuuint64_t a_dims[4] = {gk, static_cast<cuuint64_t>(G), static_cast<cuuint64_t>(M), 1};
+    const cuuint64_t a_strides[3] = {gk, k, k * M};
+    const cuuint32_t a_box[4] = {S8::BK, 1, BM, 1};
+    p.layer_idx = layer_idx;
+    p.L = layer_idx != nullptr ? L : 1;
+    p.G = G;
+    p.group_k = K / G;
+    const cuuint64_t w_dims[3] = {n, k / 2, static_cast<cuuint64_t>(p.L)}, w_str[2] = {n, k / 2 * n};
+    const cuuint32_t w_box[3] = {BN, 128, 1};
+    const cuuint64_t rs_dims[2] = {n, k / 64}, rs_str[1] = {2 * n};
+    const cuuint32_t rs_box[2] = {BN, 4};
+    return byte_map_4d(&p.a, a, a_dims, a_strides, a_box) &&
+           tensor_map(&p.w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, qw, w_dims, w_str, w_box, CU_TENSOR_MAP_SWIZZLE_NONE) &&
+           tensor_map(&p.rs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rs, rs_dims, rs_str, rs_box,
+                      CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  // K tile and half of logical k (a multiple of 64) in the consumers' walk; width: the tile's k (128, or 64 for
+  // a group's last tile when group_k % 128 == 64)
+  __device__ static void locate(const Params& p, int tpg, int k, int& t, int& slot, int& width) {
+    const int g = k / p.group_k, in = k - g * p.group_k;
+    t = g * tpg + (in >> 7);
+    slot = (in >> 6) & 1;
+    width = min(128, p.group_k - (in & ~127));
+  }
+};
+
+// (a & b) | c in one LOP3 (the compiler splits it when b and c are both immediates; also gemm_w4a4.cu's)
+__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+
+// (a & c) | (b & ~c) and a & b in one LOP3 each, opaque to the compiler (which otherwise splits the first into
+// two LOP3s with immediates and moves the second past the permutes that use it, once a column)
+__device__ __forceinline__ uint32_t w4_select(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t d;
+  asm("lop3.b32 %0, %1, %2, %3, 0xE4;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
+}
+__device__ __forceinline__ uint32_t w4_and(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("and.b32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// bytes 0 of a, b, c, d as one word
+__device__ __forceinline__ uint32_t w4_bytes(uint32_t a, uint32_t b, uint32_t c, uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// The 16 int8 values of the codes under rescale r: t[0..1] codes 0 .. 7, t[2..3] codes -8 .. -1 (byte i of the
+// pair: code i, or i - 8). Each value is round_half_even(clip(c r, +-127)) (the same as clipping after the
+// rounding, 127 being an integer): x + 1.5 * 2^23 in one f32 rounding leaves the integer in the low bits, two's
+// complement in the low byte; codes c and -c take +-x of one product (rounding is symmetric).
+__device__ __forceinline__ void w4_table(float r, uint32_t (&t)[4]) {
+  constexpr float MAGIC = 12582912.f;
+  const float a = fabsf(r), sg = r < 0.f ? -1.f : 1.f;
+  uint32_t pos[8], neg[8];  // codes 1 .. 8 and -1 .. -8
+#pragma unroll
+  for (int c = 1; c <= 8; ++c) {
+    const float x = fminf(__fmul_rn(static_cast<float>(c), a), 127.f);
+    pos[c - 1] = __float_as_uint(__fmaf_rn(sg, x, MAGIC));
+    neg[c - 1] = __float_as_uint(__fmaf_rn(-sg, x, MAGIC));
+  }
+  t[0] = w4_bytes(0u, pos[0], pos[1], pos[2]);
+  t[1] = w4_bytes(pos[3], pos[4], pos[5], pos[6]);
+  t[2] = w4_bytes(neg[7], neg[6], neg[5], neg[4]);
+  t[3] = w4_bytes(neg[3], neg[2], neg[1], neg[0]);
+}
+
+// Quarter w of a raw box (PLANE = w / 2: the low or high nibbles of packed rows 64 (w % 2) .. + 63, rescale row
+// w) decoded by one warp into k bytes [64 slot, 64 slot + 64) of a W tile. Lane l takes columns 4 l .. 4 l + 3.
+// Four packed rows W0..W3 (a 32-bit load each: the lane's four columns) make two selector words, A from rows 0
+// and 1 (byte j: the two codes of column j) and B from rows 2 and 3; for column j, permutes of A and B give the
+// four codes' low three bits (which byte of a table pair) and their sign bits (which pair), and three more
+// permutes the four int8 values, k in order in one word.
+template <int PLANE>
+__device__ __forceinline__ void w4_decode_quarter(const unsigned char* raw, int w, unsigned char* wt, int slot,
+                                                  int lane) {
+  // every load first (independent of the stores that follow, which the compiler cannot see): the lane's 32-bit
+  // word of the 64 packed rows, in the order of its steps
+  const unsigned char* rows = raw + (64 * (w & 1)) * W4Src::BN + 4 * lane;
+  uint32_t wd[64];
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int c = (s + (lane >> 1)) & 3;  // step s's 16 k: rows 16 c .. 16 c + 15 of the quarter
+#pragma unroll
+    for (int i = 0; i < 16; ++i) wd[16 * s + i] = *reinterpret_cast<const uint32_t*>(rows + (16 * c + i) * W4Src::BN);
+  }
+  const uint2 rsv = *reinterpret_cast<const uint2*>(raw + W4Src::CODES + w * (W4Src::BN * 2) + 8 * lane);
+  uint32_t t[4][4];
+  w4_table(__uint_as_float(rsv.x << 16), t[0]);
+  w4_table(__uint_as_float(rsv.x & 0xFFFF0000u), t[1]);
+  w4_table(__uint_as_float(rsv.y << 16), t[2]);
+  w4_table(__uint_as_float(rsv.y & 0xFFFF0000u), t[3]);
+  const uint32_t M44 = 0x44444444u, LO = 0x10101010u, HI = 0x32323232u, M0F = 0x0F0F0F0Fu, M77 = 0x77777777u;
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const int c = (s + (lane >> 1)) & 3;
+    uint32_t o[4][4];  // [column][4 k]
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const uint32_t w0 = wd[16 * s + 4 * q], w1 = wd[16 * s + 4 * q + 1];
+      const uint32_t w2 = wd[16 * s + 4 * q + 2], w3 = wd[16 * s + 4 * q + 3];
+      // byte j of A: row 0's code of column j in the low nibble, row 1's in the high one; B: rows 2 and 3
+      const uint32_t A = PLANE ? w4_select(w0 >> 4, w1, M0F) : w4_select(w0, w1 << 4, M0F);
+      const uint32_t B = PLANE ? w4_select(w2 >> 4, w3, M0F) : w4_select(w2, w3 << 4, M0F);
+      const uint32_t magA = w4_and(A, M77), magB = w4_and(B, M77);  // each code's index in its table pair
+      // each code's pair, as the selector of the final permute: nibble i = i + 4 (sign of code i)
+      const uint32_t hA = and_or(A >> 1, M44, LO), hB = and_or(B >> 1, M44, HI);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t sel = static_cast<uint32_t>(j | ((j + 4) << 4));  // byte j of A, then byte j of B
+        const uint32_t mag = __byte_perm(magA, magB, sel);
+        const uint32_t lo = __byte_perm(t[j][0], t[j][1], mag), hi = __byte_perm(t[j][2], t[j][3], mag);
+        o[j][q] = __byte_perm(lo, hi, __byte_perm(hA, hB, sel));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = 4 * lane + j;
+      *reinterpret_cast<uint4*>(wt + n * 128 + (((4 * slot + c) ^ (n & 7)) << 4)) =
+          make_uint4(o[j][0], o[j][1], o[j][2], o[j][3]);
+    }
+  }
+}
+
+// Bytes from the base of the ring (and of the epilogue's shared memory) to the barriers.
+template <class Epi>
+__host__ __device__ inline int w4_bar_offset(const typename Epi::Params& e) {
+  const int epi = (Epi::smem(e) + 7) / 8 * 8;
+  return W4Src::RING > epi ? W4Src::RING : epi;
+}
+
+template <class Epi>
+int w4_smem_bytes(const typename Epi::Params& e) {
+  return w4_bar_offset<Epi>(e) + 8 * W4Src::BARS + 1024;
+}
+
+// The s8 GEMM of the packed weight: gemm_sm90_kernel's consumers and epilogue (BN 128) on W4Src's tiles.
+template <class Epi>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_w4_kernel(const __grid_constant__ W4Src::Params p, const __grid_constant__ typename Epi::Params e, int M,
+                   int N, int K) {
+  using S = W4Src;
+  constexpr int BN = S::BN;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // aligned by an offset into the shared array, so every pointer derived from it stays a shared-memory one
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* afull = reinterpret_cast<uint64_t*>(sm + w4_bar_offset<Epi>(e));
+  uint64_t* aempty = afull + S::ST_A;
+  uint64_t* rfull = aempty + S::ST_A;
+  uint64_t* wfull = rfull + S::ST_W;
+  uint64_t* wempty = wfull + S::DEC;
+  unsigned char* dec = sm + S::OFF_DEC;
+  int m0, n0;
+  band_tile((M + BM - 1) / BM, N / BN, BN, m0, n0);
+  const int groups = p.G, tpg = (p.group_k + S8::BK - 1) / S8::BK, T = groups * tpg;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S::ST_A; ++s) {
+      mbar_init(afull + s, 1);
+      mbar_init(aempty + s, 8);  // the consumers' eight warps
+    }
+#pragma unroll
+    for (int s = 0; s < S::ST_W; ++s) mbar_init(rfull + s, 1);
+#pragma unroll
+    for (int b = 0; b < S::DEC; ++b) {
+      mbar_init(wfull + b, 2);  // a tile's two halves (a one-half tile arrives twice at once)
+      mbar_init(wempty + b, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- warpgroup 0: the decoders; its first thread issues the boxes' copies ----
+    const int nb = K / 256;
+    int layer = 0;
+    auto load_box = [&](int b) {
+      unsigned char* raw = sm + S::OFF_RAW + (b % S::ST_W) * S::RAW;
+      mbar_expect_tx(rfull + b % S::ST_W, S::RAW);
+      tma_load_3d(raw, &p.w, rfull + b % S::ST_W, n0, 128 * b, layer);
+      tma_load_2d(raw + S::CODES, &p.rs, rfull + b % S::ST_W, n0, 4 * b);
+    };
+    if (threadIdx.x == 0) {
+      if (p.layer_idx != nullptr) {
+        layer = __ldg(p.layer_idx);
+        layer = layer < 0 ? 0 : (layer >= p.L ? p.L - 1 : layer);
+      }
+      for (int b = 0; b < S::ST_W && b < nb; ++b) load_box(b);
+    }
+    for (int b = 0; b < nb; ++b) {
+      if (b > 0) wg_sync(S::DEC_BAR);  // every quarter of box b - 1 is decoded: its stage is free
+      if (threadIdx.x == 0 && b > 0 && b + S::ST_W - 1 < nb) load_box(b + S::ST_W - 1);
+      __syncwarp();
+      int t, slot, width;
+      S::locate(p, tpg, 256 * b + 64 * warp, t, slot, width);
+      mbar_wait(rfull + b % S::ST_W, (b / S::ST_W) & 1);
+      mbar_wait(wempty + t % S::DEC, ((t / S::DEC) & 1) ^ 1);  // tile t - DEC's products are done
+      const unsigned char* raw = sm + S::OFF_RAW + (b % S::ST_W) * S::RAW;
+      if (warp < 2)
+        w4_decode_quarter<0>(raw, warp, dec + (t % S::DEC) * S::W_TILE, slot, lane);
+      else
+        w4_decode_quarter<1>(raw, warp, dec + (t % S::DEC) * S::W_TILE, slot, lane);
+      fence_proxy_async();  // the tile's stores, visible to wgmma's reads
+      __syncwarp();
+      if (lane == 0) mbar_arrive_cnt(wfull + t % S::DEC, width == 128 ? 1 : 2);
+    }
+    return;
+  }
+
+  // ---- consumers: 64 rows a warpgroup (gemm_sm90_kernel's); the first thread issues the A tiles ----
+  const int ct = threadIdx.x - WG, cw = ct / WG, cwarp = (ct % WG) / 32;
+  auto load_a = [&](int a) {
+    const int s = a % S::ST_A, g = a / tpg;
+    mbar_expect_tx(afull + s, A_TILE);
+    tma_load(sm + s * A_TILE, &p.a, afull + s, (a - g * tpg) * S8::BK, g, m0, 0);
+  };
+  if (ct == 0) {
+    for (int a = 0; a < S::ST_A && a < T; ++a) load_a(a);
+  }
+  const int row0 = m0 + cw * 64 + cwarp * 16 + (lane >> 2);
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  typename Epi::template State<BN> st;
+  int t = 0;
+  for (int g = 0; g < groups; ++g) {
+    Epi::begin_group(e, st, g, row0, M);
+    for (int i = 0; i < tpg; ++i, ++t) {
+      const int s = t % S::ST_A, b = t % S::DEC;
+      mbar_wait(afull + s, (t / S::ST_A) & 1);
+      mbar_wait(wfull + b, (t / S::DEC) & 1);
+      const unsigned char* a = sm + s * A_TILE + cw * 64 * 128;
+      const unsigned char* w = dec + b * S::W_TILE;
+      reg_fence(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < S8::BK / S8::K_STEP; ++kk)
+        S8::mma<BN>(acc, sw128_desc(a + kk * 32), S8::w_desc(w, kk), Epi::FOLDS ? (i > 0 || kk > 0) : 1);
+      wg_commit();
+      wg_wait<1>();  // tile t - 1's products are done: its A stage and W tile go back
+      if (t > 0) {
+        if (lane == 0) {
+          mbar_arrive(aempty + (t - 1) % S::ST_A);
+          mbar_arrive(wempty + (t - 1) % S::DEC);
+        }
+        if (ct == 0 && t - 1 + S::ST_A < T) {  // once both warpgroups are past tile t - 1, its stage's next tile
+          mbar_wait(aempty + (t - 1) % S::ST_A, ((t - 1) / S::ST_A) & 1);
+          load_a(t - 1 + S::ST_A);
+        }
+      }
+    }
+    wg_wait<0>();
+    reg_fence(acc);
+    if constexpr (Epi::FOLDS) Epi::fold(e, st, acc, g, row0);
+  }
+  named_sync(EPI_BAR);  // both consumers' products are done: the ring is free for the epilogue
+  Epi::finish(e, st, acc, sm, m0, n0, row0, ct, M, N);
+}
+
+template <class Epi>
+int launch_w4(const W4Src::Params& p, const typename Epi::Params& e, int M, int N, int K, cudaStream_t stream) {
+  const int bytes = w4_smem_bytes<Epi>(e);
+  if (bytes > MAX_SMEM || K % 256 != 0 || N % W4Src::BN != 0) return static_cast<int>(cudaErrorInvalidValue);
+  static bool configured = false;
+  if (!configured) {  // the most any launch may ask; each asks for its own
+    cudaError_t err =
+        cudaFuncSetAttribute(gemm_w4_kernel<Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, MAX_SMEM);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const int grid = (N / W4Src::BN) * ((M + BM - 1) / BM);
+  gemm_w4_kernel<Epi><<<grid, THREADS, bytes, stream>>>(p, e, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

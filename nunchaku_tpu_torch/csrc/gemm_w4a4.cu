@@ -152,15 +152,10 @@ __device__ __forceinline__ uint32_t bcast(bf16 s) {
   return u | (u << 16);
 }
 
-// (a & b) ^ c and (a & b) | c in one LOP3 each (the compiler splits them when b and c are both immediates)
+// (a & b) ^ c in one LOP3 (the compiler splits it when b and c are both immediates; and_or: gemm_sm90.cuh)
 __device__ __forceinline__ uint32_t and_xor(uint32_t a, uint32_t b, uint32_t c) {
   uint32_t d;
   asm("lop3.b32 %0, %1, %2, %3, 0x6A;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-__device__ __forceinline__ uint32_t and_or(uint32_t a, uint32_t b, uint32_t c) {
-  uint32_t d;
-  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
   return d;
 }
 

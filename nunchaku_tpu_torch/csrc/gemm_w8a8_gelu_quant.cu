@@ -4,7 +4,7 @@
 //
 // Replaces nunchaku_tpu/ops/gemm.py _gemm_w8a8_gelu_quant_kernel (:460,
 // launched by svdq_gemm_w8a8_gelu_quant :1264) and, in the W4 form (the
-// WeightW4 operand of int8_gemm.cuh), _gemm_w4a8_gelu_quant_kernel (:721,
+// W4Src source of gemm_sm90.cuh), _gemm_w4a8_gelu_quant_kernel (:721,
 // launched by _gelu_quant_w4a8 :1471 under NUNCHAKU_TPU_W4A8_FUSED=1): the
 // packed (K/2, N) codes and their (K/64, N) rescales are decoded to int8 in
 // shared memory per k tile, the same values the dequant kernel writes, so
@@ -19,8 +19,8 @@
 //
 // Stacked modes (stacked_w, :478, :497 and :750): the weight is layer idx of
 // an (L, K, N) int8 or (L, K/2, N) packed stack, idx a device-resident int32
-// that every block of kernel A reads once at entry (common.cuh
-// stacked_layer, through the weight form's select_layer); the rest is the
+// that the copying thread of kernel A reads on the card, clamped to [0, L),
+// as a TMA coordinate (one tensor map over the whole stack); the rest is the
 // non-stacked code, so a stacked launch is bit-identical to the non-stacked
 // one on that layer.
 //
@@ -43,34 +43,40 @@
 // Bound on the H100: operations. At FLUX.1-dev shapes (M up to 4608, K 3072,
 // N 12288) the int8 product is 2*M*N*K operations on 2*M*K + K*N input bytes
 // -- far above the int8 ridge of ~590 ops/byte (the W4 form reads K*N/2
-// weight bytes, and its decode, about ten CUDA-core instructions per weight
-// per M tile, is work beside the products). Design: two kernels.
-// Kernel A is the tensor-core int8 GEMM. The int8 form runs on the wgmma +
-// TMA main loop of gemm_sm90.cuh at its s8 instantiation (block tile 128 x
-// 128, K tiles of 128 bytes in a 4-stage TMA ring, wgmma m64n128k32 s8; a K
-// that 128 does not divide ends on a tile TMA fills with zeros past K); the
-// W4 form keeps the WMMA loop of int8_gemm.cuh (cp.async double buffering,
-// its decode in shared memory). Both epilogues apply the scales, the rank-r
-// up-projection, the bias and the GELU in the same operations and order;
-// write g as f32; reduce max|h| over each row of the 128-column tile; and
-// multiply the bf16(g) tile by the matching 128 rows of proj_down_next on the
-// tensor cores (WMMA bf16, 16 rows a warp, the same code in both), writing
-// one rank-r partial per (128-column tile, row). So both forms give the same
-// outputs bit for bit. The s8 form stages its s32 accumulators through shared
-// memory to a thread per 4 x 16 block, whose rank-r sums run over the ranks
-// once for its 64 values (int8_gemm.cuh lora_sums_4x16): a thread per 8
-// columns, as the WMMA form has it, left the s8 epilogue bound by
-// shared-memory loads. Kernel B streams g once more: per row it takes the
+// weight bytes, and its decode, a few CUDA-core instructions per weight per
+// M tile, is work beside the products). Design: two kernels.
+// Kernel A is the tensor-core int8 GEMM on the wgmma + TMA main loop of
+// gemm_sm90.cuh at its s8 instantiation (block tile 128 x 128, K tiles of 128
+// bytes, wgmma m64n128k32 s8 into s32 accumulators; a K that 128 does not
+// divide ends on a tile TMA fills with zeros past K). The int8 form reads W
+// by TMA (TmaS8, a 4-stage ring); the W4 form runs the warpgroup-0 decoding
+// form (gemm_w4_kernel, W4Src): warpgroup 0 decodes each 256-k pack block of
+// the packed weight into two int8 tiles, up to three ahead of the products.
+// One epilogue (GeluEpi) serves both: the scales, the rank-r up-projection,
+// the bias and the GELU in the WMMA kernels' operations and order; g written
+// as f32; max|h| over each row of the 128-column tile; and the bf16(g) tile
+// times the matching 128 rows of proj_down_next on the tensor cores (WMMA
+// bf16, 16 rows a warp), one rank-r partial per (128-column tile, row). So
+// both forms give the same outputs bit for bit. The accumulators go through
+// shared memory to a thread per 4 x 16 block, whose rank-r sums run over the
+// ranks once for its 64 values (int8_gemm.cuh lora_sums_4x16): a thread per
+// 8 columns left the epilogue bound by shared-memory loads. int8_gemm.cuh's
+// WMMA main loop serves only the pipelined producer
+// (gemm_w8a8_gelu_quant_pipe.cu) and the int8 probe's chain tile.
+// Kernel B streams g once more: per row it takes the
 // max over the tiles of each bn-wide group, quantizes, and sums the low-rank
 // partials in tile order. The scale needs a max over bn = 1536 columns, more
 // than one GEMM tile holds, hence the f32 round trip of g; keeping g on chip
 // is left to a later version.
 //
-// Rank. The low-rank widths R (this layer) and R2 (the next) run up to 128
-// (nunchaku's rank-128 checkpoints). The epilogue's shared memory is laid
-// out at run time for the call's R and R2 (lora_bytes, the g tile, the
-// proj_down tile of R2 rounded up to 16 columns): 70 KiB at rank 32, as
-// before, 142 KiB at rank 128. The low-rank partial runs over R2 in 32-column
+// Rank. The low-rank widths R (this layer) and R2 (the next) take any width.
+// The epilogue's shared memory is laid out at run time for one chunk of each:
+// the low-rank tiles of up to 128 ranks of R, the g tile, the proj_down tile
+// of up to 128 of R2's columns rounded up to 16 (132 KiB at rank 32, 202 KiB
+// at rank 128 and above). A wider rank runs its chunks one after another
+// through the same tiles: R's sums continue over the ranks in order, R2's
+// partial columns are each their own sum, so a rank up to 128 gives the
+// outputs it gave before. The low-rank partial runs over R2 in 32-column
 // slices of two WMMA accumulators, so registers do not grow with the rank;
 // the partial buffer is sized by R2 (tiles x M x R2p), and kernel B sums the
 // tiles in tile order, as the JAX producer does.
@@ -82,133 +88,8 @@ namespace {
 using namespace i8gemm;
 
 constexpr int LDG = BN + 8;     // bf16 row stride of the g tile (272 bytes)
-constexpr int WN_WARPS = BN / WN;
 
 __host__ __device__ constexpr int round16(int r) { return (r + 15) / 16 * 16; }
-
-// Dynamic shared memory, laid out at run time:
-//   [0, union)  the main loop's two stages (of the weight's stage type),
-//               reused by the epilogue as
-//               lora tile (lora_bytes(R)) | g tile [BM][LDG] | pd tile [BN][R2p + 8]
-//   then        scratch[THREADS / 32][256] int, amax[BM][WN_WARPS] f32
-struct Layout {
-  size_t lora, g, pd, scratch, amax, total;
-};
-
-template <class W>
-__host__ __device__ inline Layout layout(int R, int R2) {
-  Layout l{};
-  const size_t g_bytes = align128(static_cast<size_t>(BM) * LDG * sizeof(bf16));
-  const size_t pd_bytes = align128(static_cast<size_t>(BN) * (round16(R2) + 8) * sizeof(bf16));
-  l.lora = 0;
-  l.g = lora_bytes(R);
-  l.pd = l.g + g_bytes;
-  size_t uni = l.pd + pd_bytes;
-  const size_t stages = align128(2 * sizeof(typename W::StageT));
-  if (uni < stages) uni = stages;
-  l.scratch = uni;
-  l.amax = l.scratch + align128(static_cast<size_t>(THREADS / 32) * 256 * sizeof(int));
-  l.total = l.amax + align128(static_cast<size_t>(BM) * WN_WARPS * sizeof(float));
-  return l;
-}
-
-template <class W>
-__global__ void __launch_bounds__(THREADS)
-    gemm_gelu_kernel(const int8_t* __restrict__ qa, const float* __restrict__ as, W w,
-                     const float* __restrict__ ws,
-                     const float* __restrict__ la, const bf16* __restrict__ pu,
-                     const bf16* __restrict__ bias, const float* __restrict__ rsm,
-                     const bf16* __restrict__ pd, float* __restrict__ g,
-                     float* __restrict__ amax_part, float* __restrict__ lora_part, int M, int N,
-                     int K, int R, int R2, float shift, const int* __restrict__ lidx, int n_layers) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout L = layout<W>(R, R2);
-  const int R2p = round16(R2), LDP = R2p + 8;
-  auto* st = reinterpret_cast<typename W::StageT*>(smem_raw);
-  const LoraTile lora = lora_tile(smem_raw + L.lora, R);
-  bf16* gt = reinterpret_cast<bf16*>(smem_raw + L.g);    // [BM][LDG]: bf16(g) of this tile
-  bf16* pdt = reinterpret_cast<bf16*>(smem_raw + L.pd);  // [BN][LDP]: proj_down_next rows n0.., zero-padded to R2p
-  int* scratch = reinterpret_cast<int*>(smem_raw + L.scratch);
-  float* amax = reinterpret_cast<float*>(smem_raw + L.amax);  // [BM][WN_WARPS]
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  w.select_layer(lidx, n_layers, K, N);
-  AccFrag acc[FM][FN];
-  zero(acc);
-  mainloop(st, acc, qa, w, m0, n0, 0, K, K);
-
-  for (int i = threadIdx.x; i < BN * R2p; i += THREADS) {
-    const int c = i / R2p, r = i % R2p;
-    pdt[c * LDP + r] = r < R2 ? pd[static_cast<size_t>(n0 + c) * R2 + r] : __float2bfloat16(0.f);
-  }
-  if (R > 0) stage_lora(lora, la, pu, m0, n0, N, R);
-
-  float rmax[FM];
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm) rmax[fm] = 0.f;
-  for_each_fragment(scratch + warp * 256, acc, [&](int fm, int, int ml, int nl, const int (&v)[8]) {
-    const int m = m0 + ml, n = n0 + nl;
-    const float a = as[m];
-    float out[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) out[i] = __fmul_rn(__fmul_rn(static_cast<float>(v[i]), a), ws[n + i]);
-    add_lora_bias(lora, out, ml, nl, n, R, bias);
-    float gv[8], hm = 0.f;
-    uint4 gb;
-    bf16* gbp = reinterpret_cast<bf16*>(&gb);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      gv[i] = tanh_gelu(out[i]);
-      hm = fmaxf(hm, fabsf(__fmul_rn(__fadd_rn(gv[i], shift), rsm[n + i])));
-      gbp[i] = __float2bfloat16(gv[i]);
-    }
-    float4* dst = reinterpret_cast<float4*>(g + static_cast<size_t>(m) * N + n);
-    dst[0] = make_float4(gv[0], gv[1], gv[2], gv[3]);
-    dst[1] = make_float4(gv[4], gv[5], gv[6], gv[7]);
-    *reinterpret_cast<uint4*>(&gt[ml * LDG + nl]) = gb;
-    hm = fmaxf(hm, __shfl_xor_sync(0xffffffffu, hm, 1));  // both halves of the fragment row
-    rmax[fm] = fmaxf(rmax[fm], hm);
-  });
-  const int wm = warp / 4, wn = warp % 4;
-  if ((lane & 1) == 0) {
-#pragma unroll
-    for (int fm = 0; fm < FM; ++fm) amax[(wm * WM + fm * 16 + (lane >> 1)) * WN_WARPS + wn] = rmax[fm];
-  }
-  __syncthreads();  // the g tile, the row maxima and the proj_down tile are complete
-  const int tile = n0 / BN;
-  if (threadIdx.x < BM) {
-    float mx = amax[threadIdx.x * WN_WARPS];
-#pragma unroll
-    for (int i = 1; i < WN_WARPS; ++i) mx = fmaxf(mx, amax[threadIdx.x * WN_WARPS + i]);
-    amax_part[static_cast<size_t>(tile) * M + m0 + threadIdx.x] = mx;
-  }
-
-  // low-rank partial of this tile: bf16(g)[16 rows of this warp, 128] @
-  // pd[128, R2p], 32 columns (two accumulators) at a time
-  float* dst = lora_part + (static_cast<size_t>(tile) * M + m0 + warp * 16) * R2p;
-  for (int j0 = 0; j0 < R2p; j0 += 32) {
-    const int nf = R2p - j0 >= 32 ? 2 : 1;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[2];
-    wmma::fill_fragment(lp[0], 0.f);
-    wmma::fill_fragment(lp[1], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
-      wmma::load_matrix_sync(ga, &gt[(warp * 16) * LDG + kk * 16], LDG);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        if (j < nf) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
-          wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 + j * 16], LDP);
-          wmma::mma_sync(lp[j], ga, pb, lp[j]);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      if (j < nf) wmma::store_matrix_sync(dst + j0 + j * 16, lp[j], R2p, wmma::mem_row_major);
-  }
-}
 
 constexpr int RQ_THREADS = 256;
 constexpr int MAX_GROUPS = 256;
@@ -265,34 +146,7 @@ int requant(const void* gbuf, const void* rsmooth, const void* amax_part, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class W>
-int launch(const void* qact, const void* ascales, W w, const void* wscales, const void* lora_act,
-           const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down, void* gbuf,
-           void* amax_part, void* lora_part, void* qout, void* qscales, void* lora_next, int M, int N, int K,
-           int R, int R2, int bn, float shift, const void* layer_idx, int n_layers, void* stream) {
-  static bool configured = false;  // one flag per weight form
-  if (R > MAX_R || R2 > MAX_R || R2 < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = static_cast<int>(layout<W>(R, R2).total);
-  if (!configured) {  // room for the largest rank once; each launch asks for its own size
-    cudaError_t e = cudaFuncSetAttribute(gemm_gelu_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(layout<W>(MAX_R, MAX_R).total));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = true;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid(N / BN, M / BM);
-  gemm_gelu_kernel<W><<<grid, THREADS, smem, s>>>(
-      static_cast<const int8_t*>(qact), static_cast<const float*>(ascales), w,
-      static_cast<const float*>(wscales), static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
-      static_cast<const bf16*>(bias), static_cast<const float*>(rsmooth), static_cast<const bf16*>(proj_down),
-      static_cast<float*>(gbuf), static_cast<float*>(amax_part), static_cast<float*>(lora_part), M, N, K, R, R2,
-      shift, static_cast<const int*>(layer_idx), n_layers);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return requant(gbuf, rsmooth, amax_part, lora_part, qout, qscales, lora_next, M, N, R2, bn, shift, s);
-}
-
-// Kernel A of the int8 form on the s8 main loop of gemm_sm90.cuh.
+// Kernel A on the s8 main loop of gemm_sm90.cuh: the int8 form (TmaS8) and the W4 form (W4Src).
 namespace s8 {
 
 constexpr int BM = gemm90::BM, BN = 128, ST = 4;
@@ -317,22 +171,42 @@ struct GeluEpi {
   static constexpr bool FOLDS = false;
   template <int N>
   struct State {};
-  // [0, acc) the staged accumulators [BM][LDA] int; the low-rank tiles (lora_rows_bytes(R)); the g tile
-  // [BM][LDG] bf16; the proj_down tile [BN][R2p + 8] bf16
+  // [0, acc) the staged accumulators [BM][LDA] int; the low-rank tiles of one chunk of R
+  // (lora_rows_bytes); the g tile [BM][LDG] bf16; the proj_down tile of one chunk of R2p columns [BN][PC + 8]
+  // bf16 (PC = min(R2p, 128))
   __host__ __device__ static size_t acc_bytes() { return i8gemm::align128(static_cast<size_t>(BM) * LDA * 4); }
   __host__ __device__ static size_t g_bytes() { return i8gemm::align128(static_cast<size_t>(BM) * LDG * 2); }
+  __host__ __device__ static int pd_cols(int R2) { return i8gemm::lora_chunk(round16(R2)); }
   __host__ __device__ static int smem(const Params& e) {
-    return static_cast<int>(acc_bytes() + i8gemm::lora_rows_bytes(e.R) + g_bytes() +
-                            i8gemm::align128(static_cast<size_t>(BN) * (round16(e.R2) + 8) * 2));
+    return static_cast<int>(acc_bytes() + i8gemm::lora_rows_bytes(i8gemm::lora_chunk(e.R)) + g_bytes() +
+                            i8gemm::align128(static_cast<size_t>(BN) * (pd_cols(e.R2) + 8) * 2));
+  }
+  // columns [p0, p0 + pc) of proj_down_next rows n0.. (zeros past R2) into the tile: 16-byte copies when a row's
+  // R2 bf16 are 16-byte aligned
+  __device__ static void stage_pd(const Params& e, bf16* pdt, int LDP, int p0, int pc, int n0, int ct) {
+    const int R2 = e.R2;
+    if (R2 % 8 == 0) {
+      for (int i = ct; i < BN * (pc / 8); i += 2 * sm90::WG) {
+        const int c = i / (pc / 8), q = i % (pc / 8);
+        cp_async16(pdt + c * LDP + 8 * q, e.pd + static_cast<size_t>(n0 + c) * R2 + p0 + 8 * q, p0 + 8 * q < R2);
+      }
+    } else {
+      for (int i = ct; i < BN * pc; i += 2 * sm90::WG) {
+        const int c = i / pc, r = i % pc;
+        pdt[c * LDP + r] = p0 + r < R2 ? e.pd[static_cast<size_t>(n0 + c) * R2 + p0 + r] : __float2bfloat16(0.f);
+      }
+    }
   }
   __device__ static void begin_group(const Params&, State<BN>&, int, int, int) {}
   __device__ static void finish(const Params& e, State<BN>&, const int (&acc)[BN / 2], unsigned char* sm, int m0,
                                 int n0, int row0, int ct, int M, int N) {
-    const int R = e.R, R2 = e.R2, R2p = round16(R2), LDP = R2p + 8;
+    const int R = e.R, R2 = e.R2, R2p = round16(R2), PC = pd_cols(R2), LDP = PC + 8, RC = i8gemm::lora_chunk(R);
     int* at = reinterpret_cast<int*>(sm);
-    const i8gemm::LoraRows lora = i8gemm::lora_rows(sm + acc_bytes(), R);
-    bf16* gt = reinterpret_cast<bf16*>(sm + acc_bytes() + i8gemm::lora_rows_bytes(R));  // [BM][LDG]: bf16(g)
-    bf16* pdt = reinterpret_cast<bf16*>(sm + acc_bytes() + i8gemm::lora_rows_bytes(R) + g_bytes());  // [BN][LDP]
+    unsigned char* lbase = sm + acc_bytes();
+    const i8gemm::LoraRows lora = i8gemm::lora_rows(lbase, RC);
+    bf16* gt = reinterpret_cast<bf16*>(lbase + i8gemm::lora_rows_bytes(RC));  // [BM][LDG]: bf16(g)
+    bf16* pdt = reinterpret_cast<bf16*>(lbase + i8gemm::lora_rows_bytes(RC) + g_bytes());  // [BN][LDP]
+    auto sync = [] { sm90::named_sync(gemm90::EPI_BAR); };
     {  // the accumulators into the tile: rows row0 and row0 + 8, columns 8j + 2 t4 (+1)
       const int r = row0 - m0, c = 2 * (ct & 3);
 #pragma unroll
@@ -341,29 +215,19 @@ struct GeluEpi {
         *reinterpret_cast<int2*>(at + (r + 8) * LDA + 8 * j + c) = make_int2(acc[4 * j + 2], acc[4 * j + 3]);
       }
     }
-    // proj_down_next rows n0.. zero-padded to R2p: 16-byte copies (a row's R2 bf16 when R2 % 8 == 0)
-    if (R2 % 8 == 0) {
-      for (int i = ct; i < BN * (R2p / 8); i += 2 * sm90::WG) {
-        const int c = i / (R2p / 8), q = i % (R2p / 8);
-        cp_async16(pdt + c * LDP + 8 * q, e.pd + static_cast<size_t>(n0 + c) * R2 + 8 * q, 8 * q < R2);
-      }
-    } else {
-      for (int i = ct; i < BN * R2p; i += 2 * sm90::WG) {
-        const int c = i / R2p, r = i % R2p;
-        pdt[c * LDP + r] = r < R2 ? e.pd[static_cast<size_t>(n0 + c) * R2 + r] : __float2bfloat16(0.f);
-      }
-    }
-    // bf16(lora_act[m0:, :R]) and proj_up[:R, n0:]
-    if (R > 0) i8gemm::stage_lora_rows(lora, e.la, e.pu, m0, n0, N, ct, 2 * sm90::WG);
+    // proj_down_next rows n0.., its first PC columns, zero-padded to R2p
+    stage_pd(e, pdt, LDP, 0, PC, n0, ct);
+    // bf16(lora_act[m0:, :RC]) and proj_up[:RC, n0:]
+    if (R > 0) i8gemm::stage_lora_rows(lora, e.la, R, e.pu, m0, n0, N, M, ct, 2 * sm90::WG);
     cp_async_commit();
     cp_async_wait<0>();
-    sm90::named_sync(gemm90::EPI_BAR);
+    sync();
     const int tile = n0 / BN;
     // a thread per 4 x 16 block: rows r0 .. r0 + 3, the 8 columns c0 + 64h of each half h of the tile; a
     // warp's eight c0 span each half
     const int r0 = (ct >> 5) * 16 + ((ct >> 3) & 3) * 4, c0 = (ct & 7) * 8;
     float s[64];  // the rank-R sums, s[8 (2q + h) + k]
-    if (R > 0) i8gemm::lora_sums_4x16(lora, s, r0, c0);
+    if (R > 0) i8gemm::lora_sums_all(lora, e.la, e.pu, R, m0, n0, N, M, ct, 2 * sm90::WG, s, r0, c0, lbase, sync);
     float a[4], hm[4];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
@@ -422,11 +286,19 @@ struct GeluEpi {
     sm90::named_sync(gemm90::EPI_BAR);  // the g tile is complete
 
     // low-rank partial of this tile: bf16(g)[16 rows of this warp, 128] @ pd[128, R2p], 32 columns (two
-    // accumulators) at a time
+    // accumulators) at a time, the proj_down tile's PC columns at a time (each partial column its own sum)
     namespace wmma = nvcuda::wmma;
     const int warp = ct / 32;
     float* dst = e.lora_part + (static_cast<size_t>(tile) * M + m0 + warp * 16) * R2p;
-    for (int j0 = 0; j0 < R2p; j0 += 32) {
+    for (int p0 = 0, j0 = 0; j0 < R2p; j0 += 32) {
+      if (j0 == p0 + PC) {  // the next columns of proj_down through the same tile
+        p0 = j0;
+        sync();  // every warp has read the previous columns
+        stage_pd(e, pdt, LDP, p0, i8gemm::lora_chunk(R2p - p0), n0, ct);
+        cp_async_commit();
+        cp_async_wait<0>();
+        sync();
+      }
       const int nf = R2p - j0 >= 32 ? 2 : 1;
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[2];
       wmma::fill_fragment(lp[0], 0.f);
@@ -439,7 +311,7 @@ struct GeluEpi {
         for (int j = 0; j < 2; ++j) {
           if (j < nf) {
             wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
-            wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 + j * 16], LDP);
+            wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 - p0 + j * 16], LDP);
             wmma::mma_sync(lp[j], ga, pb, lp[j]);
           }
         }
@@ -451,21 +323,31 @@ struct GeluEpi {
   }
 };
 
-int launch(const void* qact, const void* ascales, const void* wt, const void* wscales, const void* lora_act,
-           const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down, void* gbuf,
-           void* amax_part, void* lora_part, void* qout, void* qscales, void* lora_next, int M, int N, int K,
-           int R, int R2, int bn, float shift, const void* layer_idx, int L, void* stream) {
-  if (R > i8gemm::MAX_R || R2 > i8gemm::MAX_R || R2 < 1 || K % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+// Kernel A (the int8 form on TmaS8, or with packed codes and rescales the W4 form on W4Src), then kernel B.
+int launch(const void* qact, const void* ascales, const void* wt, const void* rescales, const void* wscales,
+           const void* lora_act, const void* proj_up, const void* bias, const void* rsmooth, const void* proj_down,
+           void* gbuf, void* amax_part, void* lora_part, void* qout, void* qscales, void* lora_next, int M, int N,
+           int K, int R, int R2, int bn, float shift, const void* layer_idx, int L, void* stream) {
+  if (R < 0 || R2 < 1 || K % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Src::Params p;
-  if (!Src::maps(p, qact, wt, M, N, K, 1, static_cast<const int*>(layer_idx), L))
-    return static_cast<int>(cudaErrorInvalidValue);
   const GeluEpi::Params e{static_cast<const float*>(ascales), static_cast<const float*>(wscales),
                           static_cast<const float*>(lora_act), static_cast<const bf16*>(proj_up),
                           static_cast<const bf16*>(bias), static_cast<const float*>(rsmooth),
                           static_cast<const bf16*>(proj_down), static_cast<float*>(gbuf),
-                          static_cast<float*>(amax_part), static_cast<float*>(lora_part), R, R2, shift};
-  const int err = gemm90::launch<gemm90::S8, BN, ST, Src, GeluEpi>(p, e, M, N, K, s);
+                          static_cast<float*>(amax_part), static_cast<float*>(lora_part),
+                          lora_act == nullptr ? 0 : R, R2, shift};
+  int err;
+  if (rescales == nullptr) {
+    Src::Params p;
+    if (!Src::maps(p, qact, wt, M, N, K, 1, static_cast<const int*>(layer_idx), L))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = gemm90::launch<gemm90::S8, BN, ST, Src, GeluEpi>(p, e, M, N, K, s);
+  } else {
+    gemm90::W4Src::Params p;
+    if (!gemm90::W4Src::maps(p, qact, wt, rescales, M, N, K, 1, static_cast<const int*>(layer_idx), L))
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = gemm90::launch_w4<GeluEpi>(p, e, M, N, K, s);
+  }
   if (err != 0) return err;
   return requant(gbuf, rsmooth, amax_part, lora_part, qout, qscales, lora_next, M, N, R2, bn, shift, s);
 }
@@ -482,7 +364,7 @@ int launch(const void* qact, const void* ascales, const void* wt, const void* ws
 // rounded up to 16
 // -> qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R2) f32.
 // Needs M % 128 == 0, N % 128 == 0, K % 64 == 0, bn % 128 == 0, N / bn <= 256,
-// R, R2 <= MAX_R (128). bn = N is the per-token mode (qscales (1, M)).
+// R2 >= 1 (any R, R2). bn = N is the per-token mode (qscales (1, M)).
 // layer_idx: null, or a device int32 naming the layer of a stack of L
 // weights, each stored (N, K), that starts at wt.
 extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, const void* wt,
@@ -492,8 +374,8 @@ extern "C" int nt_gemm_w8a8_gelu_quant(const void* qact, const void* ascales, co
                                        void* lora_part, void* qout, void* qscales, void* lora_next,
                                        int M, int N, int K, int R, int R2, int bn, float shift,
                                        const void* layer_idx, int L, void* stream) {
-  return s8::launch(qact, ascales, wt, wscales, lora_act, proj_up, bias, rsmooth, proj_down, gbuf, amax_part,
-                    lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn, shift, layer_idx, L, stream);
+  return s8::launch(qact, ascales, wt, nullptr, wscales, lora_act, proj_up, bias, rsmooth, proj_down, gbuf,
+                    amax_part, lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn, shift, layer_idx, L, stream);
 }
 
 // The W4 form: qweight (K/2, N) int8 packed int4 codes (N-contiguous, the
@@ -508,8 +390,7 @@ extern "C" int nt_gemm_w4a8_gelu_quant(const void* qact, const void* ascales, co
                                        void* lora_part, void* qout, void* qscales, void* lora_next,
                                        int M, int N, int K, int R, int R2, int bn, float shift,
                                        const void* layer_idx, int L, void* stream) {
-  return launch(qact, ascales,
-                WeightW4{static_cast<const int8_t*>(qweight), static_cast<const bf16*>(rescales), N}, wscales,
-                lora_act, proj_up, bias, rsmooth, proj_down, gbuf, amax_part, lora_part, qout, qscales,
-                lora_next, M, N, K, R, R2, bn, shift, layer_idx, L, stream);
+  if (rescales == nullptr || K % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return s8::launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, bias, rsmooth, proj_down, gbuf,
+                    amax_part, lora_part, qout, qscales, lora_next, M, N, K, R, R2, bn, shift, layer_idx, L, stream);
 }

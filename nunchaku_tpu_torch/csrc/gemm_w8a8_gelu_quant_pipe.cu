@@ -45,7 +45,10 @@
 // block) sums them over all N / 128 tiles in ascending order, row 2's order.
 // The shared memory holds the main loop's ring, the handed-over tile, the
 // bf16(g) tile, the proj_down tile and bf16(lora_act) of the block's rows
-// side by side: 151 KB at R = R2 = 32, 199 KB at 128, one block a SM. The
+// side by side: 151 KB at R = R2 = 32, 199 KB at 128 and above (a wider rank
+// runs in chunks of 128 through the same tiles: the lora_act rows of each
+// chunk restaged by the warp that reads them, proj_down's columns by the
+// epilogue warps), one block a SM. The
 // grid is then N / bn x M / 128 equal blocks: at FLUX fc1 288 of them, 2.18
 // waves of 132 run as 3, which costs more than the overlap gains there; at
 // whole waves (M 4224, 8448) the kernel is within 10% of row 2 (PERF.md). A
@@ -97,13 +100,16 @@ struct PipeLayout {
   size_t acc, g, pd, la, rmax, flag, total;
 };
 
+// the proj_down tile's columns and the lora_act tile's ranks: one chunk of at most RANK_CHUNK
+__host__ __device__ constexpr int pd_cols(int R2) { return lora_chunk(round16(R2)); }
+
 __host__ __device__ inline PipeLayout pipe_layout(int R, int R2) {
   PipeLayout l{};
   l.acc = align128(2 * sizeof(Stage));
   l.g = l.acc + align128(static_cast<size_t>(BM) * LDACC * sizeof(int));
   l.pd = l.g + align128(static_cast<size_t>(BM) * LDG * sizeof(bf16));
-  l.la = l.pd + align128(static_cast<size_t>(BN) * (round16(R2) + 8) * sizeof(bf16));
-  l.rmax = l.la + align128(static_cast<size_t>(R) * BM * sizeof(bf16));
+  l.la = l.pd + align128(static_cast<size_t>(BN) * (pd_cols(R2) + 8) * sizeof(bf16));
+  l.rmax = l.la + align128(static_cast<size_t>(lora_chunk(R)) * BM * sizeof(bf16));
   l.flag = l.rmax + align128(BM * sizeof(float));
   l.total = l.flag + 128;
   return l;
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1)
                           int R2, int bn, float shift) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const PipeLayout L = pipe_layout(R, R2);
-  const int R2p = round16(R2), LDP = R2p + 8;
+  const int R2p = round16(R2), PC = pd_cols(R2), LDP = PC + 8;
   int* acc_s = reinterpret_cast<int*>(smem_raw + L.acc);
   const int m0 = blockIdx.y * BM, group = blockIdx.x, n_first = group * bn, tiles = bn / BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -157,19 +163,21 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1)
   // the epilogue warps: warp ew owns rows ew * 32 .. + 31 of the block, lane the 4 columns lane * 4 of a tile
   bf16* gt = reinterpret_cast<bf16*>(smem_raw + L.g);    // [BM][LDG]: bf16(g) of the tile
   bf16* pdt = reinterpret_cast<bf16*>(smem_raw + L.pd);  // [BN][LDP]: proj_down_next rows of the tile
-  bf16* la_s = reinterpret_cast<bf16*>(smem_raw + L.la);  // [R][BM]: bf16(lora_act) of the block's rows
+  bf16* la_s = reinterpret_cast<bf16*>(smem_raw + L.la);  // [RC][BM]: bf16(lora_act) of the block's rows
   float* rmax = reinterpret_cast<float*>(smem_raw + L.rmax);
   int* last = reinterpret_cast<int*>(smem_raw + L.flag);
   const int ew = warp - MMA_THREADS / 32, et = threadIdx.x - MMA_THREADS;
   const int row_first = ew * EPI_ROWS, c0 = lane * 4;
   rmax[row_first + lane] = 0.f;
-  for (int i = et; i < R * BM; i += EPI_THREADS)  // the same rows for every tile: staged once
-    la_s[i] = __float2bfloat16(la[static_cast<size_t>(m0 + i % BM) * R + i / BM]);
+  if (R <= RANK_CHUNK) {
+    for (int i = et; i < R * BM; i += EPI_THREADS)  // the same rows for every tile: staged once
+      la_s[i] = __float2bfloat16(la[static_cast<size_t>(m0 + i % BM) * R + i / BM]);
+  }
   bar_sync(BAR_EPI, EPI_THREADS);
   for (int t = 0; t < tiles; ++t) {
     const int n0 = n_first + t * BN, n = n0 + c0;
-    for (int i = et; i < BN * R2p; i += EPI_THREADS) {
-      const int c = i / R2p, r = i % R2p;
+    for (int i = et; i < BN * PC; i += EPI_THREADS) {  // the first PC columns
+      const int c = i / PC, r = i % PC;
       pdt[c * LDP + r] = r < R2 ? pd[static_cast<size_t>(n0 + c) * R2 + r] : __float2bfloat16(0.f);
     }
     float wsv[4], rsv[4], bv[4] = {0.f, 0.f, 0.f, 0.f};
@@ -182,18 +190,30 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1)
     bar_sync(BAR_FULL, PIPE_THREADS);  // tile t's accumulators are in acc_s
     for (int r0 = 0; r0 < EPI_ROWS; r0 += ROW_CHUNK) {
       // bf16(lora_act[m]) . proj_up[:, n..n+3] for ROW_CHUNK rows: row 2's chain of FMAs over j in order,
-      // each proj_up load and each 16-byte row of lora_act shared by 32 FMAs
+      // each proj_up load and each 16-byte row of lora_act shared by 32 FMAs. Above RANK_CHUNK ranks the
+      // chunks run one after another, the warp restaging its ROW_CHUNK rows of each through the same tile.
       float lo[ROW_CHUNK][4] = {};
+      for (int j0 = 0; j0 < R; j0 += RANK_CHUNK) {
+        const int rc = lora_chunk(R - j0);
+        if (R > RANK_CHUNK) {
+          __syncwarp();  // the previous chunk is read
+          for (int i = lane; i < rc * ROW_CHUNK; i += 32) {
+            const int j = i / ROW_CHUNK, ml = row_first + r0 + i % ROW_CHUNK;
+            la_s[j * BM + ml] = __float2bfloat16(la[static_cast<size_t>(m0 + ml) * R + j0 + j]);
+          }
+          __syncwarp();
+        }
 #pragma unroll 4
-      for (int j = 0; j < R; ++j) {
-        const uint4 araw = *reinterpret_cast<const uint4*>(la_s + j * BM + row_first + r0);
-        const uint2 praw = __ldg(reinterpret_cast<const uint2*>(pu + static_cast<size_t>(j) * N + n));
-        const bf16* av = reinterpret_cast<const bf16*>(&araw);
-        const bf16* pv = reinterpret_cast<const bf16*>(&praw);
+        for (int j = 0; j < rc; ++j) {
+          const uint4 araw = *reinterpret_cast<const uint4*>(la_s + j * BM + row_first + r0);
+          const uint2 praw = __ldg(reinterpret_cast<const uint2*>(pu + static_cast<size_t>(j0 + j) * N + n));
+          const bf16* av = reinterpret_cast<const bf16*>(&araw);
+          const bf16* pv = reinterpret_cast<const bf16*>(&praw);
 #pragma unroll
-        for (int rr = 0; rr < ROW_CHUNK; ++rr)
+          for (int rr = 0; rr < ROW_CHUNK; ++rr)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) lo[rr][i] = fmaf(bf2f(av[rr]), bf2f(pv[i]), lo[rr][i]);
+            for (int i = 0; i < 4; ++i) lo[rr][i] = fmaf(bf2f(av[rr]), bf2f(pv[i]), lo[rr][i]);
+        }
       }
 #pragma unroll
       for (int rr = 0; rr < ROW_CHUNK; ++rr) {
@@ -227,32 +247,43 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1)
     bar_sync(BAR_EPI, EPI_THREADS);                          // the g and proj_down tiles are complete
 
     // the tile's low-rank partial, row 2's product: per 16-row slab bf16(g)[16, 128] @ pd[128, R2p], 32
-    // columns (two accumulators) at a time; this warp's two slabs
+    // columns (two accumulators) at a time; this warp's two slabs; the proj_down tile's PC columns at a time
     float* part = lora_part + (static_cast<size_t>(n0 / BN) * M + m0) * R2p;
-    for (int slab = 2 * ew; slab < 2 * ew + 2; ++slab) {
-      for (int j0 = 0; j0 < R2p; j0 += 32) {
-        const int nf = R2p - j0 >= 32 ? 2 : 1;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[2];
-        wmma::fill_fragment(lp[0], 0.f);
-        wmma::fill_fragment(lp[1], 0.f);
+    for (int p0 = 0; p0 < R2p; p0 += PC) {
+      const int pc = lora_chunk(R2p - p0);
+      if (p0 > 0) {  // the next columns of proj_down through the same tile
+        bar_sync(BAR_EPI, EPI_THREADS);  // every warp has read the previous columns
+        for (int i = et; i < BN * pc; i += EPI_THREADS) {
+          const int c = i / pc, r = i % pc;
+          pdt[c * LDP + r] = p0 + r < R2 ? pd[static_cast<size_t>(n0 + c) * R2 + p0 + r] : __float2bfloat16(0.f);
+        }
+        bar_sync(BAR_EPI, EPI_THREADS);
+      }
+      for (int slab = 2 * ew; slab < 2 * ew + 2; ++slab) {
+        for (int j0 = 0; j0 < pc; j0 += 32) {
+          const int nf = pc - j0 >= 32 ? 2 : 1;
+          wmma::fragment<wmma::accumulator, 16, 16, 16, float> lp[2];
+          wmma::fill_fragment(lp[0], 0.f);
+          wmma::fill_fragment(lp[1], 0.f);
 #pragma unroll
-        for (int kk = 0; kk < BN / 16; ++kk) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
-          wmma::load_matrix_sync(ga, &gt[(slab * 16) * LDG + kk * 16], LDG);
+          for (int kk = 0; kk < BN / 16; ++kk) {
+            wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ga;
+            wmma::load_matrix_sync(ga, &gt[(slab * 16) * LDG + kk * 16], LDG);
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            if (j < nf) {
-              wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
-              wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 + j * 16], LDP);
-              wmma::mma_sync(lp[j], ga, pb, lp[j]);
+            for (int j = 0; j < 2; ++j) {
+              if (j < nf) {
+                wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> pb;
+                wmma::load_matrix_sync(pb, &pdt[(kk * 16) * LDP + j0 + j * 16], LDP);
+                wmma::mma_sync(lp[j], ga, pb, lp[j]);
+              }
             }
           }
-        }
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          if (j < nf)
-            wmma::store_matrix_sync(part + static_cast<size_t>(slab * 16) * R2p + j0 + j * 16, lp[j], R2p,
-                                    wmma::mem_row_major);
+          for (int j = 0; j < 2; ++j)
+            if (j < nf)
+              wmma::store_matrix_sync(part + static_cast<size_t>(slab * 16) * R2p + p0 + j0 + j * 16, lp[j], R2p,
+                                      wmma::mem_row_major);
+        }
       }
     }
     bar_sync(BAR_EPI, EPI_THREADS);  // the g and proj_down tiles may be overwritten
@@ -313,20 +344,20 @@ __global__ void __launch_bounds__(PIPE_THREADS, 1)
 // (N, R2) bf16; workspaces gbuf (M, N) f32, lora_part (N/128, M, R2p) f32 with
 // R2p = R2 rounded up to 16, done (M/128,) int32 zeroed
 // -> qout (M, N) int8, qscales (N/bn, M) f32, lora_next (M, R2) f32.
-// Needs M % 128 == 0, bn % 128 == 0, bn <= 1536, N % bn == 0, K % 64 == 0, R, R2 <= 128.
+// Needs M % 128 == 0, bn % 128 == 0, bn <= 1536, N % bn == 0, K % 64 == 0, R2 >= 1 (any R, R2).
 extern "C" int nt_gemm_w8a8_gelu_quant_pipe(const void* qact, const void* ascales, const void* wt,
                                             const void* wscales, const void* lora_act, const void* proj_up,
                                             const void* bias, const void* rsmooth, const void* proj_down,
                                             void* gbuf, void* lora_part, void* done, void* qout, void* qscales,
                                             void* lora_next, int M, int N, int K, int R, int R2, int bn,
                                             float shift, void* stream) {
-  if (M % BM || bn % BN || bn < BN || bn > MAX_TILES * BN || N % bn || K % BK || R > MAX_R || R2 > MAX_R || R2 < 1 ||
+  if (M % BM || bn % BN || bn < BN || bn > MAX_TILES * BN || N % bn || K % BK || R < 0 || R2 < 1 ||
       (R > 0 && (lora_act == nullptr || proj_up == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
-  if (!configured) {  // room for the largest rank once; each launch asks for its own size
+  if (!configured) {  // room for the widest chunks once; each launch asks for its own size
     cudaError_t e = cudaFuncSetAttribute(gemm_gelu_pipe_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(pipe_layout(MAX_R, MAX_R).total));
+                                         static_cast<int>(pipe_layout(RANK_CHUNK, RANK_CHUNK).total));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }

@@ -20,13 +20,15 @@
 // eight warps multiply it by proj_down on the tensor cores (WMMA bf16, each
 // warp one eighth of K, proj_down's fragments read from L2) and sum their
 // partials in warp order. The JAX kernel's per-block f32 LN temporaries
-// never leave registers here. The rank R is any multiple of 16 up to 128
-// (the wrapper pads proj_down's columns): a warp holds R / 16 WMMA
-// accumulators, two at R <= 32 (the instantiation these kernels had when
-// they took only R 16 / 32, unchanged), eight above, and the warps'
-// partials, [WARPS][ROWS][R] floats (64 KB a head at R 128), take the
-// dynamic shared memory the y tile leaves behind. Each lora_act element is
-// the same sum in the same order at any R.
+// never leave registers here. The rank R is any multiple of 16 (the wrapper
+// pads proj_down's columns): a warp holds R / 16 WMMA accumulators, two at
+// R <= 32 (the instantiation these kernels had when they took only R 16 /
+// 32, unchanged), eight above, and the warps' partials, [WARPS][ROWS][R]
+// floats (64 KB a head at R 128), take the dynamic shared memory the y tile
+// leaves behind. Above 128 the product runs in chunks of 128 columns, one
+// head after the other, the partials of a chunk placed after the y tile
+// (which every chunk reads again). Each lora_act element is the same sum in
+// the same order at any R.
 //
 // Dual mode (DUAL = true): replaces _ln_mod_quant2_kernel (:265, launched by
 // ln_mod_quant_int8_dual :292), FLUX's single block, where one modulated
@@ -48,7 +50,14 @@ namespace {
 using namespace nvcuda;
 
 constexpr int ROWS = 16, THREADS = 256, WARPS = THREADS / 32;
+constexpr int RANK_CHUNK = 128;  // columns of the low-rank product a pass above rank 128
 constexpr float EPS = 1e-6f;
+
+// bytes of the y tile and the smooth factors
+template <int NV, bool DUAL>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return sizeof(bf16) * ROWS * (256 * NV + 8) + sizeof(float) * 256 * NV * (DUAL ? 2 : 1);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -93,11 +102,12 @@ __device__ __forceinline__ uint2 quant8(const float (&y)[8], const float (&r)[8]
   return packed;
 }
 
-// The lora partial of this warp's K slice, ytile[16, kslice] @ pd[kslice, R],
-// into R / 16 of NJ 16-column accumulators (R a multiple of 16, R <= 16 NJ).
+// The lora partial of this warp's K slice, ytile[16, kslice] @ pd[kslice, :R],
+// into R / 16 of NJ 16-column accumulators (R a multiple of 16, R <= 16 NJ;
+// pd's rows ldp apart).
 template <int K, int NJ>
 __device__ __forceinline__ void lora_partial(wmma::fragment<wmma::accumulator, 16, 16, 16, float> (&acc)[NJ],
-                                             const bf16* ytile, const bf16* pd, int R, int warp) {
+                                             const bf16* ytile, const bf16* pd, int ldp, int R, int warp) {
   constexpr int KW = K / WARPS, LDY = K + 8;
 #pragma unroll
   for (int j = 0; j < NJ; ++j) wmma::fill_fragment(acc[j], 0.f);
@@ -108,7 +118,7 @@ __device__ __forceinline__ void lora_partial(wmma::fragment<wmma::accumulator, 1
     for (int j = 0; j < NJ; ++j) {
       if (j * 16 < R) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr;
-        wmma::load_matrix_sync(bfr, pd + static_cast<size_t>(kk) * R + j * 16, R);
+        wmma::load_matrix_sync(bfr, pd + static_cast<size_t>(kk) * ldp + j * 16, ldp);
         wmma::mma_sync(acc[j], a, bfr, acc[j]);
       }
     }
@@ -124,15 +134,15 @@ __device__ __forceinline__ void lora_stash(float* part, wmma::fragment<wmma::acc
     if (j * 16 < R) wmma::store_matrix_sync(part + warp * ROWS * R + j * 16, acc[j], R, wmma::mem_row_major);
 }
 
-// Sum the warps' partials (part: [WARPS][ROWS][R]) in warp order into la.
-__device__ __forceinline__ void lora_store(const float* part, float* la, int row0, int M, int R) {
+// Sum the warps' partials (part: [WARPS][ROWS][R]) in warp order into la (rows ld apart).
+__device__ __forceinline__ void lora_store(const float* part, float* la, int ld, int row0, int M, int R) {
   for (int t = threadIdx.x; t < ROWS * R; t += THREADS) {
     const int r = t / R, c = t % R;
     if (row0 + r >= M) continue;
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) s = __fadd_rn(s, part[(w * ROWS + r) * R + c]);
-    la[static_cast<size_t>(row0 + r) * R + c] = s;
+    la[static_cast<size_t>(row0 + r) * ld + c] = s;
   }
 }
 
@@ -271,22 +281,41 @@ __global__ void __launch_bounds__(THREADS)
 
   // lora partial of this warp's K slice: ytile[16, kslice] @ pd[kslice, R]
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NJ], acc_b[DUAL ? NJ : 1];
-  lora_partial<K, NJ>(acc, ytile, pd, R, warp);
-  if constexpr (DUAL) lora_partial<K, NJ>(acc_b, ytile, hb.pd, hb.R, warp);
-  __syncthreads();  // the y tile is read; its memory now takes the partials
-  lora_stash<NJ>(part, acc, R, warp);
-  if constexpr (DUAL) lora_stash<NJ>(part_b, acc_b, hb.R, warp);
-  __syncthreads();
-  lora_store(part, la, row0, M, R);
-  if constexpr (DUAL) lora_store(part_b, hb.la, row0, M, hb.R);
+  if (R <= 16 * NJ && (!DUAL || hb.R <= 16 * NJ)) {
+    lora_partial<K, NJ>(acc, ytile, pd, R, R, warp);
+    if constexpr (DUAL) lora_partial<K, NJ>(acc_b, ytile, hb.pd, hb.R, hb.R, warp);
+    __syncthreads();  // the y tile is read; its memory now takes the partials
+    lora_stash<NJ>(part, acc, R, warp);
+    if constexpr (DUAL) lora_stash<NJ>(part_b, acc_b, hb.R, warp);
+    __syncthreads();
+    lora_store(part, la, R, row0, M, R);
+    if constexpr (DUAL) lora_store(part_b, hb.la, hb.R, row0, M, hb.R);
+    return;
+  }
+  // a rank above 16 NJ = 128: chunks of 128 columns of each head in turn, the partials after the y tile
+  float* cpart = reinterpret_cast<float*>(smem_raw + tile_bytes<NV, DUAL>());
+  for (int head = 0; head < (DUAL ? 2 : 1); ++head) {
+    const bf16* hpd = head == 0 ? pd : hb.pd;
+    float* hla = head == 0 ? la : hb.la;
+    const int hr = head == 0 ? R : hb.R;
+    for (int c0 = 0; c0 < hr; c0 += 16 * NJ) {
+      const int rc = min(16 * NJ, hr - c0);
+      lora_partial<K, NJ>(acc, ytile, hpd + c0, hr, rc, warp);
+      lora_stash<NJ>(cpart, acc, rc, warp);
+      __syncthreads();
+      lora_store(cpart, hla + c0, hr, row0, M, rc);
+      __syncthreads();  // the partials are read
+    }
+  }
 }
 
 // Dynamic shared memory: the y tile and the smooth factors, or the lora
-// partials of rank(s) R (hb.R), whichever is larger.
+// partials of rank(s) R (hb.R), whichever is larger; with a rank above 128,
+// the y tile and the partials of one 128-column chunk after it.
 template <int NV, bool DUAL>
 constexpr size_t smem_bytes(int R, int Rb) {
-  constexpr int K = 256 * NV, HEADS = DUAL ? 2 : 1;
-  const size_t tile = sizeof(bf16) * ROWS * (K + 8) + sizeof(float) * K * HEADS;
+  const size_t tile = tile_bytes<NV, DUAL>();
+  if (R > RANK_CHUNK || (DUAL && Rb > RANK_CHUNK)) return tile + sizeof(float) * WARPS * ROWS * RANK_CHUNK;
   const size_t part = sizeof(float) * WARPS * ROWS * (R + (DUAL ? Rb : 0));
   return tile > part ? tile : part;
 }
@@ -295,9 +324,12 @@ template <int NV, bool DUAL, int NJ>
 int launch(const void* x, const void* sc, const void* sh, int ld, const void* smooth, const void* pd,
            void* q, void* asc, void* la, int M, int S, int R, const Head& hb, cudaStream_t stream) {
   static bool configured = false;
-  if (!configured) {  // the limit for the largest ranks this instantiation takes
+  if (!configured) {  // the limit for the largest ranks this instantiation takes (chunked above 128)
+    size_t most = smem_bytes<NV, DUAL>(16 * NJ, 16 * NJ);
+    if (NJ * 16 == RANK_CHUNK && smem_bytes<NV, DUAL>(RANK_CHUNK + 16, 0) > most)
+      most = smem_bytes<NV, DUAL>(RANK_CHUNK + 16, 0);
     cudaError_t e = cudaFuncSetAttribute(ln_mod_quant_kernel<NV, DUAL, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes<NV, DUAL>(16 * NJ, 16 * NJ)));
+                                         static_cast<int>(most));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }
@@ -309,11 +341,11 @@ int launch(const void* x, const void* sc, const void* sh, int ld, const void* sm
   return static_cast<int>(cudaGetLastError());
 }
 
-// The rank step and limit of the low-rank product: R a multiple of 16, at most 128.
-constexpr int MAX_R = 128;
-bool rank_ok(int R) { return R >= 16 && R <= MAX_R && R % 16 == 0; }
+// The rank step of the low-rank product: R a multiple of 16.
+bool rank_ok(int R) { return R >= 16 && R % 16 == 0; }
 
-// R <= 32 keeps two accumulators a warp (the kernel as it was built for R 16 / 32), larger ranks eight.
+// R <= 32 keeps two accumulators a warp (the kernel as it was built for R 16 / 32), larger ranks eight (chunks
+// of 128 columns above 128).
 template <int NV, bool DUAL>
 int dispatch(const void* x, const void* sc, const void* sh, int ld, const void* smooth, const void* pd, void* q,
              void* asc, void* la, int M, int S, int R, const Head& hb, cudaStream_t stream) {
@@ -328,7 +360,7 @@ int dispatch(const void* x, const void* sc, const void* sh, int ld, const void* 
 // rows of ld floats, row b = batch b, or both null (LayerNorm only),
 // smooth (K,) bf16 | null, proj_down (K, R) bf16
 // -> q (M, K) int8, ascales (M,) f32, lora_act (M, R) f32.
-// Needs K % 256 == 0, K <= 3072, R a multiple of 16 up to 128.
+// Needs K % 256 == 0, K <= 3072, R a multiple of 16.
 extern "C" int nt_ln_mod_quant(const void* x, const void* mod_scale, const void* mod_shift, int ld,
                                const void* smooth, const void* proj_down, void* q, void* ascales,
                                void* lora_act, int M, int S, int K, int R, void* stream) {
@@ -350,7 +382,7 @@ extern "C" int nt_ln_mod_quant(const void* x, const void* mod_scale, const void*
 // The dual mode: x and the modulation as above (both required), then two
 // heads, each smooth (K,) bf16 | null and proj_down (K, R) bf16 -> q (M, K)
 // int8, ascales (M,) f32, lora_act (M, R) f32. Needs K % 256 == 0, K <= 3072,
-// each R a multiple of 16 up to 128.
+// each R a multiple of 16.
 extern "C" int nt_ln_mod_quant_dual(const void* x, const void* mod_scale, const void* mod_shift, int ld,
                                     const void* smooth_a, const void* proj_down_a, void* q_a, void* ascales_a,
                                     void* lora_a, const void* smooth_b, const void* proj_down_b, void* q_b,

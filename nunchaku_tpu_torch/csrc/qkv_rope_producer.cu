@@ -16,11 +16,14 @@
 // low-rank term, the block stages bf16(lora_act) of its tokens and the
 // head's three proj_up slices in shared memory and forms the (64 x R) @
 // (R x 128) products on the tensor cores (WMMA bf16, f32 accumulate) into
-// a shared f32 tile, section by section. R is any multiple of 16 up to 128
-// (the wrapper pads it); the tiles are dynamic shared memory sized by the
-// call's R: at R 128 la 17 KB, proj_up 104 KB and the f32 tile 33 KB, about
-// 152 KB (65 KB at R 32, as when the tile was static). The products sum
-// over R in 16-deep steps in order, so R 32 gives the bits it always gave. A warp then takes one token at a
+// a shared f32 tile, section by section. R is any multiple of 16 (the
+// wrapper pads it); the tiles are dynamic shared memory sized by the call's
+// R up to 128: at R 128 la 17 KB, proj_up 104 KB and the f32 tile 33 KB,
+// about 152 KB (65 KB at R 32, as when the tile was static). Above 128 the
+// ranks run in chunks of 128 through the same tiles, each section restaging
+// la and its own proj_up rows per chunk. The products sum over R in 16-deep
+// steps in order (the accumulators carried across chunks), so R 32 gives the
+// bits it always gave. A warp then takes one token at a
 // time: each lane holds 4 of the 128 channels (8-byte loads and stores, a
 // token's head row is one 256-byte segment), the RMS sum is a warp
 // shuffle, and roll(a, 64) is a shuffle with lane ^ 16.
@@ -39,17 +42,20 @@ namespace {
 
 using namespace nvcuda;
 
-constexpr int D = 128, TS = 64, THREADS = 256, WARPS = THREADS / 32, MAX_R = 128;
+constexpr int D = 128, TS = 64, THREADS = 256, WARPS = THREADS / 32, RANK_CHUNK = 128;
 constexpr int LDP = D + 8, LDL = D + 4;
 constexpr float EPS = 1e-6f;
 
-// Dynamic shared memory at rank R (a multiple of 16): la [TS][R + 8] bf16(lora_act)
-// of the block's tokens, pu [3][R][LDP] proj_up columns of this head's q, k, v
-// slices, lr [TS][LDL] f32 low-rank term of the current section. Every piece
-// starts on a 32-byte boundary, as WMMA's loads and stores need.
+// Dynamic shared memory at rank R (a multiple of 16), for RC = min(R, 128) staged ranks: la [TS][RC + 8]
+// bf16(lora_act) of the block's tokens, pu [3][RC][LDP] proj_up columns of this head's q, k, v slices, lr
+// [TS][LDL] f32 low-rank term of the current section. Every piece starts on a 32-byte boundary, as WMMA's
+// loads and stores need.
+__host__ __device__ constexpr int staged(int R) { return R < RANK_CHUNK ? R : RANK_CHUNK; }
 __host__ __device__ constexpr size_t la_bytes(int R) { return sizeof(bf16) * TS * (R + 8); }
 __host__ __device__ constexpr size_t pu_bytes(int R) { return sizeof(bf16) * 3 * R * LDP; }
-constexpr size_t smem_bytes(int R) { return R > 0 ? la_bytes(R) + pu_bytes(R) + sizeof(float) * TS * LDL : 0; }
+constexpr size_t smem_bytes(int R) {
+  return R > 0 ? la_bytes(staged(R)) + pu_bytes(staged(R)) + sizeof(float) * TS * LDL : 0;
+}
 
 __device__ __forceinline__ void load4(float (&d)[4], const bf16* p) {
   const uint2 raw = *reinterpret_cast<const uint2*>(p);
@@ -75,17 +81,17 @@ __global__ void __launch_bounds__(THREADS)
                     bf16* __restrict__ vo, int S, int H, int S_out, int off, int R_arg, float q_scale,
                     float eps) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int R = PREP ? 0 : R_arg, LDA = R + 8;
+  const int R = PREP ? 0 : R_arg, RC = staged(R), LDA = RC + 8;
   bf16* sla = reinterpret_cast<bf16*>(smem_raw);                    // [TS][LDA]
-  bf16* spu = reinterpret_cast<bf16*>(smem_raw + la_bytes(R));      // [3][R][LDP]
-  float* slr = reinterpret_cast<float*>(smem_raw + la_bytes(R) + pu_bytes(R));  // [TS][LDL]
+  bf16* spu = reinterpret_cast<bf16*>(smem_raw + la_bytes(RC));     // [3][RC][LDP]
+  float* slr = reinterpret_cast<float*>(smem_raw + la_bytes(RC) + pu_bytes(RC));  // [TS][LDL]
   const int s0 = blockIdx.x * TS, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int HD = H * D;
   const size_t row_base = static_cast<size_t>(b) * S;  // token row of (b, s0) is row_base + s0
 
   if constexpr (!PREP) {  // PREP: R = 0 at compile time, nothing staged
-    if (R > 0) {
+    if (R > 0 && R <= RANK_CHUNK) {  // every rank at once, for all three sections
       for (int i = threadIdx.x; i < TS * R; i += THREADS) {
         const int t = i / R, r = i % R;
         const float v = s0 + t < S ? la[(row_base + s0 + t) * R + r] : 0.f;
@@ -110,15 +116,32 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
       const int fr = warp / 2, fc = (warp % 2) * 4;
+      for (int j0 = 0; j0 < R; j0 += RANK_CHUNK) {
+        const int rc = staged(R - j0);
+        if (R > RANK_CHUNK) {  // ranks j0 .. j0 + rc of la and of this section's proj_up rows
+          if (j0 > 0) __syncthreads();  // every warp has read the previous chunk
+          for (int i = threadIdx.x; i < TS * rc; i += THREADS) {
+            const int t = i / rc, r = i % rc;
+            const float v = s0 + t < S ? la[(row_base + s0 + t) * R + j0 + r] : 0.f;
+            sla[t * LDA + r] = __float2bfloat16(v);
+          }
+          for (int i = threadIdx.x; i < rc * (D / 8); i += THREADS) {
+            const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+            *reinterpret_cast<uint4*>(spu + (sec * RC + r) * LDP + c) =
+                *reinterpret_cast<const uint4*>(pu + static_cast<size_t>(j0 + r) * 3 * HD + sec * HD + h * D + c);
+          }
+          __syncthreads();
+        }
 #pragma unroll
-      for (int kk = 0; kk < R; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sla + fr * 16 * LDA + kk, LDA);
+        for (int kk = 0; kk < rc; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+          wmma::load_matrix_sync(a, sla + fr * 16 * LDA + kk, LDA);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, spu + (sec * R + kk) * LDP + (fc + j) * 16, LDP);
-          wmma::mma_sync(acc[j], a, bf, acc[j]);
+          for (int j = 0; j < 4; ++j) {
+            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
+            wmma::load_matrix_sync(bf, spu + (sec * RC + kk) * LDP + (fc + j) * 16, LDP);
+            wmma::mma_sync(acc[j], a, bf, acc[j]);
+          }
         }
       }
 #pragma unroll
@@ -170,18 +193,18 @@ __global__ void __launch_bounds__(THREADS)
 // qkv (B, S, 3*H*128) bf16, cos / sin (S, 128) f32, norm_q / norm_k (128,)
 // bf16, lora_act (B*S, R) f32 | null, proj_up (R, 3*H*128) bf16 | null
 // -> rows [off, off + S) of q, k, v, each (B, H, S_out, 128) bf16.
-// Needs R a multiple of 16 up to 128 (0: no low-rank term).
+// Needs R a multiple of 16 (0: no low-rank term).
 extern "C" int nt_qkv_rope_producer(const void* qkv, const void* cos, const void* sin, const void* norm_q,
                                     const void* norm_k, const void* lora_act, const void* proj_up, void* q,
                                     void* k, void* v, int B, int S, int H, int S_out, int off, int R,
                                     float q_scale, void* stream) {
-  if (R % 16 != 0 || R > MAX_R || (R > 0 && (lora_act == nullptr || proj_up == nullptr)))
+  if (R % 16 != 0 || R < 0 || (R > 0 && (lora_act == nullptr || proj_up == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(smem_bytes(R));
   static bool configured = false;
-  if (!configured) {  // the limit for the largest rank
+  if (!configured) {  // the limit for the largest staged rank
     cudaError_t e = cudaFuncSetAttribute(qkv_rope_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem_bytes(MAX_R)));
+                                         static_cast<int>(smem_bytes(RANK_CHUNK)));
     if (e != cudaSuccess) return static_cast<int>(e);
     configured = true;
   }

@@ -34,6 +34,11 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+// `count` arrivals at once.
+__device__ __forceinline__ void mbar_arrive_cnt(uint64_t* bar, int count) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
 // Wait until the phase of the given parity has completed.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const unsigned addr = smem_u32(bar);

@@ -1,8 +1,10 @@
-// 4-bit weight code decode shared by the w4a8 dequant kernel
-// (dequant_w4a8.cu) and the GEMMs that decode packed int4 weights inside
-// their main loop (int8_gemm.cuh's WeightW4: gemm_w4a8.cu and the W4 form
-// of gemm_w8a8_gelu_quant.cu), so every route turns a code into the same
-// int8 value: clip(round_half_even(f32(value) * f32(rescale)), -127, 127).
+// 4-bit weight code decode of the w4a8 dequant kernel (dequant_w4a8.cu):
+// every route turns a code into the same int8 value,
+// clip(round_half_even(f32(value) * f32(rescale)), -127, 127). The GEMMs
+// that decode packed int4 weights inside their main loop (gemm_w4a8.cu and
+// the W4 form of gemm_w8a8_gelu_quant.cu, through gemm_sm90.cuh's W4Src)
+// look the values up in 16-entry tables that w4_table fills with the same
+// values (rescale_code<false> of each code).
 #pragma once
 
 #include "common.cuh"

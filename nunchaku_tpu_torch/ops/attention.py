@@ -72,7 +72,7 @@ from types import SimpleNamespace
 import torch
 
 from . import _build
-from .quantize import KERNEL_MAX_RANK, rcp
+from .quantize import rcp
 from .reference import RCP127, bf16_matmul
 
 LOG2E = math.log2(math.e)
@@ -203,8 +203,7 @@ def qkv_rope_producer(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_act=No
             la = torch.nn.functional.pad(la, (0, rp - r))
             pu = torch.nn.functional.pad(pu, (0, 0, 0, rp - r))
         la, pu, r = la.contiguous(), _aligned16(pu), rp
-        _build.require(r <= KERNEL_MAX_RANK and tuple(pu.shape) == (r, n3),
-                       f"lora: rank <= {KERNEL_MAX_RANK} (the qkv producer kernel's limit) and proj_up (R, 3HD)")
+        _build.require(tuple(pu.shape) == (r, n3), "lora: proj_up must be (R, 3HD)")
     nq, nk = norm_q.contiguous(), norm_k.contiguous()
     lib = _build.library()
     _build.check(lib.nt_qkv_rope_producer(

@@ -1091,3 +1091,72 @@ def check_qkv_rank(streams, cos, sin, r_small=32):
     same = all(torch.equal(a, b) for a, b in zip(run_qkv_rope(qkv_rope_producer, cut, cos, sin),
                                                  run_qkv_rope(qkv_rope_producer, padded, cos, sin)))
     return err, ok and same, f"{detail}; rank {r_small} zero-padded to {r} == rank {r_small}: {same}"
+
+
+# ---------------------------------------------------------------------------
+# ranks above 128: every low-rank kernel runs its ranks in chunks of 128
+# ---------------------------------------------------------------------------
+
+# the kernels whose rank term runs in chunks of 128 ranks (check_chunk_boundary's kinds)
+CHUNK_KINDS = ("gelu_quant", "gelu_quant_pipe", "w4a8_gelu_quant", "grouped", "grouped_res", "w4a8",
+               "w4a8_grouped", "ln", "ln_dual")
+
+
+def _rank_pad(t: torch.Tensor, r: int, dim: int) -> torch.Tensor:
+    """``t`` zero-padded along ``dim`` (-1 columns, 0 rows) to ``r``."""
+    pad = r - t.shape[dim]
+    return torch.nn.functional.pad(t, (0, pad) if dim == -1 else (0, 0, 0, pad)).contiguous()
+
+
+def chunk_case(kind, m, k, n, r=128, *, groups=2, seed=0, device="cuda"):
+    """-> run(r_pad): the launch of ``kind`` (one of :data:`CHUNK_KINDS`) at
+    (M, K, N) and rank ``r`` with its low-rank operands zero-padded to
+    ``r_pad`` ranks (r_pad = r: the operands as drawn), returning its
+    outputs as a tuple. The producers pad lora_act, proj_up and
+    proj_down_next; the consumers lora_act, proj_up and the residual's
+    extra_la / extra_pu; the LN producers proj_down (K = ``k``, M = ``m``
+    tokens)."""
+    if kind in ("ln", "ln_dual"):
+        if kind == "ln":
+            x, sc, sh, sm, pd = ln_mod_quant_case(1, m, k, r, seed=seed, device=device)
+            return lambda rp: ln_mod_quant_int8(x, sc, sh, sm, _rank_pad(pd, rp, -1))
+        x, sc, sh, sma, pda, smb, pdb = ln_dual_case(1, m, k, r, r, seed=seed, device=device)
+        return lambda rp: sum(ln_mod_quant_int8_dual(x, sc, sh, sma, _rank_pad(pda, rp, -1), smb,
+                                                     _rank_pad(pdb, rp, -1)), ())
+    if "gelu_quant" in kind:
+        if kind == "w4a8_gelu_quant":
+            qa, asc, qw, rs, ws, la, pu, bias, rsm, pd = w4a8_gelu_quant_case(m, k, n, r, seed=seed, device=device)
+            fn = lambda *a: svdq_gemm_w4a8_gelu_quant(qa, asc, qw, rs, ws, *a)
+        else:
+            qa, asc, w, ws, la, pu, bias, rsm, pd = gelu_quant_case(m, k, n, r, seed=seed, device=device)
+            fn = lambda *a: svdq_gemm_w8a8_gelu_quant(qa, asc, w, ws, *a, pipelined=kind == "gelu_quant_pipe")
+        return lambda rp: fn(_rank_pad(la, rp, -1), _rank_pad(pu, rp, 0), bias, rsm, _rank_pad(pd, rp, -1))
+    if kind in ("w4a8", "w4a8_grouped"):
+        case = w4a8_case(m, k, n, r, seed=seed, device=device) if kind == "w4a8" else w4a8_grouped_case(
+            m, k, n, groups, r, seed=seed, device=device)
+        qa, asc, qw, rs, ws, la, pu, bias = case
+        fn = gemm_w4a8 if kind == "w4a8" else gemm_w4a8_grouped
+        return lambda rp: (fn(qa, asc, qw, rs, ws, _rank_pad(la, rp, -1), _rank_pad(pu, rp, 0), bias),)
+    if kind == "grouped_res":
+        qa, asc, w, ws, la, pu, bias, (x, gate, ex, ela, epu) = grouped_res_case(m, k, n, groups, r, seed=seed,
+                                                                                 device=device)
+        return lambda rp: (gemm_w8a8_grouped(qa, asc, w, ws, _rank_pad(la, rp, -1), _rank_pad(pu, rp, 0), bias,
+                                             (x, gate, ex, _rank_pad(ela, rp, -1), _rank_pad(epu, rp, 0))),)
+    qa, asc, w, ws, la, pu, bias = grouped_case(m, k, n, groups, r, seed=seed, device=device)
+    return lambda rp: (gemm_w8a8_grouped(qa, asc, w, ws, _rank_pad(la, rp, -1), _rank_pad(pu, rp, 0), bias),)
+
+
+def check_chunk_boundary(run, r=128, r_pad=256):
+    """A kernel at rank ``r`` (128: exactly one chunk) against the same
+    launch with its low-rank operands zero-padded to ``r_pad`` (a second
+    chunk of zeros): every output bit for bit, the low-rank outputs
+    (lora_next, lora_act) on their first ``r`` columns and zeros past them
+    (the second chunk adds exact zeros to each sum, in the same order)."""
+    base, padded = run(r), run(r_pad)
+    same = True
+    for a, b in zip(base, padded):
+        if b.ndim == 2 and a.shape != b.shape:  # a low-rank output, r_pad columns
+            same = same and torch.equal(b[:, :r], a) and not b[:, r:].any()
+        else:
+            same = same and torch.equal(a, b)
+    return 0.0, bool(same), f"rank {r} zero-padded to {r_pad} == rank {r} (every output bit for bit): {same}"

@@ -11,8 +11,9 @@ int8 once per layer, then int8 x int8 products):
   launches count apart, as ``dequant_w4a8_e2m1``);
 * :func:`svdq_gemm_w8a8_gelu_quant` -- kernel ``csrc/gemm_w8a8_gelu_quant.cu``
   (JAX ``_gemm_w8a8_gelu_quant_kernel`` :460), the fc1 GEMM whose epilogue
-  emits fc2's int8 activations (low-rank widths up to 128, here and in the
-  consumer); with ``pipelined=True`` (JAX's rule, :func:`chain_route`) the
+  emits fc2's int8 activations (any low-rank width, here and in the
+  consumer: the kernels run ranks above 128 in chunks of 128); with
+  ``pipelined=True`` (JAX's rule, :func:`chain_route`) the
   kernel ``csrc/gemm_w8a8_gelu_quant_pipe.cu`` (JAX
   ``_gemm_w8a8_gelu_quant_pipe_kernel`` :790), the same outputs bit for bit,
   one tile's product overlapping the previous tile's epilogue (count
@@ -94,10 +95,9 @@ from .reference import (
     is_4bit,
 )
 
-KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/gemm_sm90.cuh s8; the packed forms' csrc/int8_gemm.cuh)
+KERNEL_TILE_M = 128  # the chain GEMM kernels' block tile (csrc/gemm_sm90.cuh s8, the packed forms' too)
 KERNEL_TILE_N = 128
 KERNEL_TILE_K = 64  # K (and K / G) granularity: the s8 loop ends a K of 64 (mod 128) on a zero-filled half tile
-KERNEL_MAX_RANK = 128  # the chain kernels' largest low-rank width (nunchaku's rank-128 checkpoints)
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -393,8 +393,7 @@ def _gelu_quant_pipe_launch(qact, ascales, qweight, wscales, lora_act, proj_up, 
     _build.require(m % KERNEL_TILE_M == 0 and bn % KERNEL_TILE_N == 0 and bn <= 1536 and k % KERNEL_TILE_K == 0,
                    f"pipelined gelu-quant kernel needs M % 128, bn % 128, K % 64 == 0, bn <= 1536 "
                    f"(M={m}, bn={bn}, K={k})")
-    _build.require(r <= KERNEL_MAX_RANK and 1 <= r2 <= KERNEL_MAX_RANK,
-                   f"ranks {r} / {r2}: the chain kernels take 1 <= R2, R <= {KERNEL_MAX_RANK}")
+    _build.require(r2 >= 1, "proj_down_next needs at least one column")
     _build.require(qact.dtype == torch.int8, "int8 activations expected")
     dev = qact.device
     qa = qact.contiguous()
@@ -439,8 +438,7 @@ def _gelu_quant_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj
     r2 = proj_down_next.shape[1]
     _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % KERNEL_TILE_K == 0,
              f"gelu-quant kernel needs M % 128, N % 128, K % 64 == 0 (M={m}, N={n}, K={k})")
-    _build.require(r <= KERNEL_MAX_RANK and 1 <= r2 <= KERNEL_MAX_RANK,
-                   f"ranks {r} / {r2}: the chain kernels take 1 <= R2, R <= {KERNEL_MAX_RANK}")
+    _build.require(r2 >= 1, "proj_down_next needs at least one column")
     dev = qact.device
     qa = qact.contiguous()
     a_s = ascales.reshape(m).float().contiguous()
@@ -523,7 +521,6 @@ def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, re
     _build.require(m % KERNEL_TILE_M == 0 and n % KERNEL_TILE_N == 0 and k % ga == 0
                    and (k // ga) % KERNEL_TILE_K == 0,
                    f"grouped kernel needs M % 128, N % 128, (K/G) % 64 == 0 (M={m}, N={n}, K={k}, G={ga})")
-    _build.require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}")
     qa = qact.contiguous()
     a_s = ascales.float().contiguous()
     w_s = wscales.reshape(n).float().contiguous()
@@ -544,7 +541,6 @@ def _grouped_launch(qact, ascales, qweight, wscales, lora_act, proj_up, bias, re
         if ela is not None:
             _build.require(extra is not None, "extra_la needs extra")
             r2 = ela.shape[-1]
-            _build.require(r2 <= KERNEL_MAX_RANK, f"rank {r2} > {KERNEL_MAX_RANK}")
             ela = ela.reshape(m, r2).float().contiguous()
             epu = epu.to(torch.bfloat16).contiguous()
     out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
@@ -655,20 +651,21 @@ def _w4a8_launch(qact, ascales, qweight, rescales, wscales, lora_act, proj_up, b
     _build.require(qact.dtype == torch.int8 and n % KERNEL_TILE_N == 0 and k % ga == 0
                    and (k // ga) % KERNEL_TILE_K == 0,
                    f"packed GEMM needs int8 qact, N % 128, (K/G) % 64 == 0 (N={n}, K={k}, G={ga})")
-    _build.require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}")
-    pad = (-m) % KERNEL_TILE_M  # the kernel takes 128-row tiles; padded rows are sliced off
-    qa = torch.nn.functional.pad(qact, (0, 0, 0, pad)).contiguous()
-    a_s = torch.nn.functional.pad(ascales.float(), (0, pad)).contiguous()
-    la = None if lora_act is None else torch.nn.functional.pad(lora_act.float(), (0, 0, 0, pad)).contiguous()
+    # any M: the kernel's TMA copies read zeros past the last row, and it writes no row at or past M
+    qa = _aligned16(qact.contiguous())
+    a_s = ascales.float().contiguous()
+    la = None if lora_act is None else lora_act.float().contiguous()
     pu = None if proj_up is None else proj_up.to(torch.bfloat16).contiguous()
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     w_s = wscales.reshape(n).float().contiguous()
-    out = torch.empty((m + pad, n), dtype=torch.bfloat16, device=qact.device)
+    _build.require(qweight.data_ptr() % 16 == 0 and rescales.data_ptr() % 16 == 0,
+                   "the packed GEMM's TMA copies need 16-byte aligned qweight and rescales")
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=qact.device)
     lib = _build.library()
     _build.check(lib.nt_gemm_w4a8(qa.data_ptr(), a_s.data_ptr(), qweight.data_ptr(), rescales.data_ptr(),
-                                  w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m + pad, n, k, ga,
+                                  w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b), out.data_ptr(), m, n, k, ga,
                                   r, idx_ptr, n_layers, _stream(qact)), "gemm_w4a8")
-    return out[:m]
+    return out
 
 
 def gemm_w4a8(qact, ascales, qweight, rescales, wscales, lora_act=None, proj_up=None, bias=None, layer_idx=None):

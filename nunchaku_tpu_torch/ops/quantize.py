@@ -47,7 +47,6 @@ from .reference import (
 LN_EPS = 1e-6
 E4M3_NAN_ABOVE = 464.0  # f32 values above this round past e4m3fn's largest finite value, 448
 KERNEL_LN_MAX_K = 3072  # the kernel holds a row in registers: K / 256 <= 12 vectors a lane
-KERNEL_MAX_RANK = 128  # the LN and qkv producers' largest low-rank width, as the chain kernels' (rank-128 checkpoints)
 
 
 def rcp(x: torch.Tensor) -> torch.Tensor:
@@ -181,7 +180,6 @@ def _ln_head(x, smooth, proj_down):
     padded to the kernel's rank step, q, ascales, lora_act, R, padded R)."""
     m, k = x.shape[0] * x.shape[1], x.shape[2]
     r = proj_down.shape[1]
-    _build.require(r <= KERNEL_MAX_RANK, f"rank {r} > {KERNEL_MAX_RANK}, the LN producer kernel's limit")
     _build.require(smooth is None or smooth.dtype == torch.bfloat16, "smooth: bf16 expected")
     sm = None if smooth is None else smooth.contiguous()
     rp = -(-r // 16) * 16  # the kernel's WMMA tile takes R in steps of 16
@@ -235,7 +233,7 @@ def ln_mod_quant_int8_dual(x, mod_scale, mod_shift, smooth_a, proj_down_a, smoot
     """Shared-AdaLN dual producer: one read of x (B, S, K) bf16 and one
     ``y = LN(x) * (1 + mod_scale) + mod_shift`` (f32, eps 1e-6; mod_scale /
     mod_shift (B, K) are required, as in JAX), then for each head (smooth
-    (K,) or None, proj_down (K, R), R <= 128) the epilogue of
+    (K,) or None, proj_down (K, R), any R) the epilogue of
     :func:`ln_mod_quant_int8`. Returns ((qa (M, K) int8, sa (1, M) f32, la
     (M, R1) f32), (qb, sb, lb)) with M = B*S. Count ``ln_mod_quant_dual``."""
     if mod_scale is None or mod_shift is None:

@@ -23,8 +23,8 @@ in ``record_function`` ranges (in this process only) and sums the device
 kernels each range launched.
 The w4a8 route follows the JAX package's switches as the environment sets
 them (``NUNCHAKU_TPU_W4A8_XLA``, ``NUNCHAKU_TPU_W4A8_FUSED``; both, as
-``XLA=0 FUSED=1``, give the packed-int4 route: the packed GEMM
-``gemm_w4a8_kernel`` and the producer's W4 form, a group of their own).
+``XLA=0 FUSED=1``, give the packed-int4 route: the packed GEMM and the
+producer's W4 form, the two ``gemm_w4_kernel`` instantiations, a group each).
 ``--precision int8``: FLUX.1-dev at int8 (with ``--turbo``, ``bench.py
 --dense``'s configuration), its MLP chains on the int8 stacks; the chain
 follows ``NUNCHAKU_TPU_CHAIN_PTOKEN`` (``=1``: the per-token producer and
@@ -80,7 +80,7 @@ import torch
 
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PORT_KERNELS = ("dequant_w4a8_kernel", "requant_kernel", "ln_mod_quant_kernel", "qkv_rope_kernel", "flash_wide_kernel",
-                "gemm_w4a4_kernel", "gemv_awq_kernel", "gemm_w4a8_kernel")
+                "gemm_w4a4_kernel", "gemv_awq_kernel")
 
 
 def _core(policy: int, d: int, form: int) -> str:
@@ -91,7 +91,7 @@ def _core(policy: int, d: int, form: int) -> str:
 
 # kernels with a group of their own: each form of the attention core (csrc/flash_sm90.cuh) under the launch
 # count's name, the int8 chain kernels on the s8 GEMM main loop (csrc/gemm_sm90.cuh; their requantize kernel is
-# requant_kernel) and the chain producer on packed int4 weights
+# requant_kernel) and the packed w4a8 kernels on its warpgroup-0 decoding form
 FORM_KERNELS = {_core(0, 128, 0): "flash_fixed (flash_sm90_kernel)",
                 _core(0, 128, 1): "flash_fixed_masked (flash_sm90_kernel, MASK)",
                 _core(0, 128, 2): "bs_fixed (flash_sm90_kernel, IDX)",
@@ -106,7 +106,8 @@ FORM_KERNELS = {_core(0, 128, 0): "flash_fixed (flash_sm90_kernel)",
                 _core(1, 128, 5): "flash_online_bshd (flash_sm90_kernel, TOK)",
                 r"gemm_sm90_kernel<.*GeluEpi": "gemm_w8a8_gelu_quant (gemm_sm90_kernel, s8)",
                 r"gemm_sm90_kernel<.*GroupedEpi": "gemm_w8a8_grouped[_res] (gemm_sm90_kernel, s8)",
-                r"gemm_gelu_kernel<[^>]*WeightW4": "gemm_w4a8_gelu_quant (gemm_gelu_kernel, W4 form)"}
+                r"gemm_w4_kernel<.*GeluEpi": "gemm_w4a8_gelu_quant (gemm_w4_kernel, W4 form)",
+                r"gemm_w4_kernel<.*GroupedEpi": "gemm_w4a8[_grouped] (gemm_w4_kernel)"}
 QUANT_RANGE, GELU_RANGE = "quantize chain (torch ops)", "GELU (torch ops)"
 
 

@@ -20,13 +20,11 @@ from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, Qwe
 from nunchaku_tpu_torch.ops import checks, gemm_probe, launch_counts, reset_launch_counts
 from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
 from nunchaku_tpu_torch.ops.attention import (block_sparse_attention, flash_attention, flash_attention_denom,
-                                              flash_attention_denom_plain, flash_attention_online, qkv_rope_producer,
-                                              quantize_qk)
+                                              flash_attention_denom_plain, flash_attention_online, quantize_qk)
 from nunchaku_tpu_torch.ops.gemm import (dequant_w4a8, gemm_w4a4, gemm_w4a8, gemm_w4a8_grouped, gemm_w8a8_grouped,
                                          gemm_w8a8_rank1, svdq_gemm_w4a4, svdq_gemm_w4a8_gelu_quant,
                                          svdq_gemm_w8a8_gelu_quant)
 from nunchaku_tpu_torch.ops.gemv import awq_w4a16_linear
-from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -81,10 +79,33 @@ def test_grouped_ranks(dev, r, m, k, n, groups):
     assert ok, detail
 
 
-def test_chain_rank_refusal(dev):
-    args = list(checks.gelu_quant_case(256, 256, 256, 160, device=dev))
-    with pytest.raises(ValueError):
-        svdq_gemm_w8a8_gelu_quant(*args)
+@pytest.mark.parametrize("r", [160, 256])
+def test_chain_rank_refusal(dev, r):
+    """Ranks above 128, which the chain kernels refused before they ran the
+    rank term in chunks of 128: the producer (grouped and per-token scales)
+    and the consumer (grouped, rank-1, with the residual's extra rank at R
+    too) within their bounds of the twins."""
+    args = checks.gelu_quant_case(512, 3072, 3072, r, device=dev)
+    _, ok, detail = checks.check_gelu_quant(*args)
+    assert ok, detail
+    _, ok, detail = checks.check_ptoken(*args)
+    assert ok, detail
+    _, ok, detail = checks.check_grouped(*checks.grouped_case(512, 3072, 3072, 2, r, device=dev))
+    assert ok, detail
+    _, ok, detail = checks.check_grouped_res(*checks.grouped_res_case(512, 3072, 3072, 2, r, device=dev))
+    assert ok, detail
+    _, ok, detail = checks.check_rank1(*checks.grouped_res_case(512, 3072, 3072, 1, r, device=dev))
+    assert ok, detail
+
+
+@pytest.mark.parametrize("kind", checks.CHUNK_KINDS)
+def test_rank_chunk_boundary(dev, kind):
+    """Every kernel that runs its rank term in chunks of 128: rank 128 (one
+    chunk) bit for bit the same launch with the low-rank operands
+    zero-padded to 256 (a second chunk of zeros)."""
+    m, k, n = (4608, 3072, 3072) if kind.startswith("ln") else (512, 3072, 3072)
+    _, ok, detail = checks.check_chunk_boundary(checks.chunk_case(kind, m, k, n, device=dev))
+    assert ok, detail
 
 
 @pytest.mark.parametrize("m,k,n,unsigned", [(4096, 3072, 9216, False), (4096, 12288, 3072, True), (256, 3072, 12288, False)])
@@ -184,7 +205,9 @@ def test_sm90_sass_and_spills(dev):
     of the GEMM main loop (gemm_sm90.cuh: its sources TmaBf16 and Decoded)
     holds HGMMA and UTMALDG; its s8 instantiations, the int8 chain
     producer's and the grouped consumer's (with and without the residual
-    epilogue), hold IGMMA and UTMALDG; each instantiation of the W4A4 GEMM
+    epilogue), and the two of its warpgroup-0 decoding form (gemm_w4_kernel:
+    the packed GEMM and the W4 producer), hold IGMMA and UTMALDG; each
+    instantiation of the W4A4 GEMM
     (gemm_w4a4.cu: three modes, each without a rank-r term, at R <= 32 and
     at R <= 128) holds HGMMA (its register-A products) and UTMALDG; none of
     them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
@@ -197,16 +220,18 @@ def test_sm90_sass_and_spills(dev):
             and ("::TmaBf16<" in n or "::Decoded<" in n)]
     chain = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::S8" in n]
     w4a4 = [n for n in sass if "gemm_w4a4_kernel<" in n]
+    packed = [n for n in sass if "gemm_w4_kernel<" in n]
     assert len(i8) == 1 and len(gemm) == len(gemm_probe.BF16_FORMS), (i8, gemm)
     assert len(chain) == 3 and sum("GeluEpi" in n for n in chain) == 1, chain
     assert sum("GroupedEpi<" in n for n in chain) == 2, chain
+    assert len(packed) == 2 and sum("GeluEpi" in n for n in packed) == 1, packed
     assert len(w4a4) == 9, w4a4
     assert all(sass[i8[0]][op] > 0 for op in ("IGMMA", "HGMMA", "UTMALDG")), sass[i8[0]]
     for name in gemm + w4a4:
         assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
-    for name in chain:
+    for name in chain + packed:
         assert sass[name]["IGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
-    for name in i8 + gemm + chain + w4a4:
+    for name in i8 + gemm + chain + w4a4 + packed:
         assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
 
 
@@ -518,15 +543,22 @@ def test_qkv_rope_producer_ranks(dev, b, seqs, heads, r):
     assert ok, detail
 
 
-def test_producer_rank_refusals(dev):
-    """R 144 raises in both producers, naming the limit; R 128 runs."""
-    x, sc, sh, smooth, pd = checks.ln_mod_quant_case(1, 64, 256, 144, device=dev)
-    with pytest.raises(ValueError, match="128"):
-        ln_mod_quant_int8(x, sc, sh, smooth, pd)
-    ln_mod_quant_int8(x, sc, sh, smooth, pd[:, :128])
-    streams, cos, sin = checks.qkv_rope_case(1, (64,), 2, r=144, device=dev)
-    with pytest.raises(ValueError, match="128"):
-        checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin)
+@pytest.mark.parametrize("r", [144, 160, 256])
+def test_producer_rank_refusals(dev, r):
+    """Ranks above 128, which both producers refused before they ran the
+    rank term in chunks of 128: the LN producer (single, and dual with heads
+    of R and 48) and the qkv/RoPE producer within their bounds of the twins,
+    bit for bit the rank-32 launch on its columns, and the qkv producer's
+    rank 128 zero-padded to R bit for bit rank 128."""
+    _, ok, detail = checks.check_ln_rank(*checks.ln_mod_quant_case(1, 4608, 3072, r, device=dev))
+    assert ok, detail
+    _, ok, detail = checks.check_ln_dual(*checks.ln_dual_case(2, 300, 768, r, 48, device=dev))
+    assert ok, detail
+    case = checks.qkv_rope_case(1, (512, 4096), 24, r=r, device=dev)
+    _, ok, detail = checks.check_qkv_rank(*case)
+    assert ok, detail
+    _, ok, detail = checks.check_qkv_rank(*case, r_small=128)
+    assert ok, detail
 
 
 # the Hopper attention core (flash_sm90.cuh): every form at CORE_RAGGED's shapes against its twin (the int8
@@ -916,6 +948,47 @@ def test_w4a8_gelu_quant(dev, r, m, k, n, unsigned):
     assert ok, detail
 
 
+# the packed kernels on the s8 loop (W decoded on warpgroup 0): ranks above 128, M past a 128-row tile, K groups
+# of 64 (mod 128) (a group's last K tile one half: 192 = 128 + 64, and 64 alone)
+@pytest.mark.parametrize("m,k,n,r,groups", [
+    (4608, 3072, 9216, 256, 1),   # FLUX qkv at rank 256
+    (4608, 3840, 11520, 256, 1),  # Z-Image-Turbo r256's qkv
+    (200, 512, 256, 160, 1),      # M off the tile, R 160
+    (4608, 12288, 3072, 256, 8),  # the chain's fc2 consumer
+    (256, 1536, 384, 160, 8),     # K / G = 192
+    (320, 1536, 256, 32, 24),     # K / G = 64, M off the tile
+    (136, 768, 128, 16, 4),       # K / G = 192, M eight rows past a tile
+])
+def test_gemm_w4a8_ranks(dev, m, k, n, r, groups):
+    """The packed GEMM in both modes against its twin and bit for bit the
+    int8 grouped kernel on the dequantized weight (check_w4a8)."""
+    case = checks.w4a8_case(m, k, n, r, device=dev) if groups == 1 else checks.w4a8_grouped_case(
+        m, k, n, groups, r, device=dev)
+    _, ok, detail = checks.check_w4a8(*case)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("r", [160, 256])
+@pytest.mark.parametrize("m,k,n,unsigned", [(4608, 3072, 12288, False), (256, 512, 3072, True)])
+def test_w4a8_gelu_quant_ranks(dev, r, m, k, n, unsigned):
+    """The W4 producer above rank 128, bit for bit the int8 producer on the
+    dequantized weight (check_w4a8_gelu_quant)."""
+    _, ok, detail = checks.check_w4a8_gelu_quant(*checks.w4a8_gelu_quant_case(m, k, n, r, device=dev),
+                                                 act_unsigned_next=unsigned)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("mode", ["gemm_w4a8_gelu_quant_stacked", "gemm_w4a8_grouped_stacked"])
+@pytest.mark.parametrize("r", [32, 256])
+def test_w4a8_chain_stacked(dev, mode, r):
+    """The packed chain's stacked modes: every layer bit for bit the
+    non-stacked kernel on that layer, and the kernel against its twin."""
+    m, k, n = (512, 3072, 12288) if "gelu" in mode else (512, 12288, 3072)
+    run, w, check, _ = checks.chain_stacked_case(mode, m, k, n, r, device=dev)
+    _, ok, detail = checks.check_stacked(run, w, check)
+    assert ok, detail
+
+
 def test_w4a8_packed_counts_and_refusals(dev, monkeypatch):
     """One launch count per mode; e2m1 (nvfp4-a8) rescales refused by every
     packed wrapper, grouped e2m1 scales by the dispatch (as in JAX), and a
@@ -934,8 +1007,6 @@ def test_w4a8_packed_counts_and_refusals(dev, monkeypatch):
         gemm_w4a8(qa, asc, qw, rs16, ws, la, pu, bias)
     with pytest.raises(ValueError):
         svdq_gemm_w4a4(qa, asc.expand(2, -1), qw, ws, la, pu, bias, rs16, precision="w4a8", wcodes="e2m1")
-    with pytest.raises(ValueError):  # rank above the kernels' 128
-        gemm_w4a8(*checks.w4a8_case(128, 512, 256, 160, device=dev))
     monkeypatch.setenv("NUNCHAKU_TPU_W4A8_XLA", "0")
     reset_launch_counts()
     svdq_gemm_w4a4(qa, asc, qw, ws, la, pu, bias, rs16, precision="w4a8", wcodes="e2m1")
@@ -1006,7 +1077,8 @@ def test_dequant_w4a8_stacked(dev, k, n):
     assert ok, detail
 
 
-@pytest.mark.parametrize("m,k,n,r", [(4608, 3840, 11520, 32), (512, 10240, 3840, 128), (200, 512, 256, 16)])
+@pytest.mark.parametrize("m,k,n,r", [(4608, 3840, 11520, 32), (512, 10240, 3840, 128), (200, 512, 256, 16),
+                                     (4608, 3840, 11520, 256), (200, 512, 256, 160)])
 def test_gemm_w4a8_stacked(dev, m, k, n, r):
     _, ok, detail = checks.check_w4a8_stacked(*checks.w4a8_case(m, k, n, r, device=dev))
     assert ok, detail
@@ -1265,8 +1337,11 @@ def test_last_ops_counts_and_refusals(dev):
     x, sc, sh, sma, pda, smb, pdb = checks.ln_dual_case(1, 64, 256, device=dev)
     with pytest.raises(ValueError):  # no modulation: JAX has no such form
         ln_mod_quant_int8_dual(x, None, None, sma, pda, smb, pdb)
-    with pytest.raises(ValueError):  # rank 144 > 128
-        ln_mod_quant_int8_dual(x, sc, sh, sma, pda, smb, torch.cat([pdb] * 4 + [pdb[:, :16]], dim=1))
+    # rank 144 (refused before the kernel ran ranks above 128 in chunks): each head bit for bit its single launch
+    pdb144 = torch.cat([pdb] * 4 + [pdb[:, :16]], dim=1)
+    dual = ln_mod_quant_int8_dual(x, sc, sh, sma, pda, smb, pdb144)
+    single = ln_mod_quant_int8_dual(x, sc, sh, smb, pdb144, sma, pda)  # the heads in the other order
+    assert all(torch.equal(a, b) for a, b in zip(dual[0] + dual[1], single[1] + single[0]))
     streams, cos, sin = checks.qkv_rope_case(1, (64,), 2, 64, 0, device=dev)
     with pytest.raises(ValueError):  # head dim 64
         qkv_prepare(streams[0][0], cos, sin, streams[0][1], streams[0][2], heads=2, head_dim=64)
@@ -1276,7 +1351,7 @@ def test_last_ops_counts_and_refusals(dev):
         svdq_gemm_w8a8_gelu_quant(*checks.gelu_quant_case(100, 256, 256, device=dev), pipelined=True)
     c = launch_counts()
     assert (c["ln_mod_quant_dual"], c["qkv_prepare"], c["flash_online_bshd"], c["gemm_w8a8_gelu_quant_pipe"]) == (
-        1, 1, 1, 1), c
+        3, 1, 1, 1), c
 
 
 # ---------------------------------------------------------------------------
