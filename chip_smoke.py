@@ -8,8 +8,9 @@ Phases, each fatal on failure:
   2. build     -- nvcc builds every kernel in nunchaku_tpu_torch/csrc for sm_90a;
                   each kernel on the attention core (flash_sm90.cuh) and each
                   instantiation of the GEMM main loop (gemm_sm90.cuh: the bf16
-                  probe's, the int8 chain kernels' s8 ones) and each of the
-                  W4A4 GEMM's nine instantiations must show wgmma (HGMMA /
+                  probe's, the int8 chain kernels' s8 ones), each of the
+                  W4A4 GEMM's nine instantiations and each of the LN
+                  producer's eight must show wgmma (HGMMA /
                   IGMMA) and TMA-load (UTMALDG) instructions in cuobjdump
                   -sass, and the sources in PTXAS_CLEAN build without spills
                   or serialized wgmma;
@@ -366,7 +367,10 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
 PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
-               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu")
+               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu", "ln_mod_quant.cu")
+# the LN producer's instantiations ln_mod_quant_kernel<vectors a lane (12: K 3072; 0: any K), dual, width>: register-A
+# wgmma on TMA-fed stages (rows 6, 15)
+LN_SASS = [(nv, dual, w) for nv in (0, 12) for dual in (0, 1) for w in (32, 64)]
 # the W4A4 GEMM's instantiations gemm_w4a4_kernel<mode, k steps of the rank-r term>: modes 0 int4, 1 int4 with
 # unsigned activations, 2 nvfp4; 0 (no low rank), 2 (R <= 32), 8 (R <= 128) steps
 W4A4_SASS = [(mode, steps) for mode in (0, 1, 2) for steps in (0, 2, 8)]
@@ -600,17 +604,26 @@ def kernel_phase(dev):
            time_ms(lambda: sdpa(q, kk, v, scale=math.log(2.0)), 20))
     del q, kk, v
 
-    # 5. LN + modulate + quantize producer: a single block's (M 4608, K 3072, R 32)
-    m, k = S_IMG + S_TXT, DIM
-    args = checks.ln_mod_quant_case(1, m, k, RANK, device=dev)
-    err, ok, detail = checks.check_ln_mod_quant(*args)
-    x = args[0]
-    record("ln_mod_quant_int8", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu", "nunchaku_tpu/ops/quantize.py:149",
-           f"M={m} K={k} R={RANK}", ok, err, detail,
-           time_ms(lambda: ln_mod_quant_int8(*args), 50), time_ms(lambda: ln_mod_quant_int8_plain(*args), 5),
-           bound(ln_bytes(m, k, RANK), bf16_ops=2 * m * k * RANK),
-           time_ms(lambda: torch.nn.functional.layer_norm(x, (k,), eps=1e-6), 50))
-    del args, x
+    # 5. LN + modulate + quantize producer: a single block's (M 4608, K 3072, R 32) is the row; the dual
+    # block's image (M 4096) and text (M 512) streams are checked and timed too
+    k = DIM
+    for m in (S_TXT, S_IMG, S_IMG + S_TXT):
+        args = checks.ln_mod_quant_case(1, m, k, RANK, device=dev)
+        err, ok, detail = checks.check_ln_mod_quant(*args)
+        x = args[0]
+        ms = time_ms(lambda: ln_mod_quant_int8(*args), 50)
+        bnd = bound(ln_bytes(m, k, RANK), bf16_ops=2 * m * k * RANK)
+        if m == S_IMG + S_TXT:
+            record("ln_mod_quant_int8", "nunchaku_tpu_torch/csrc/ln_mod_quant.cu", "nunchaku_tpu/ops/quantize.py:149",
+                   f"M={m} K={k} R={RANK}", ok, err, detail, ms, time_ms(lambda: ln_mod_quant_int8_plain(*args), 5),
+                   bnd, time_ms(lambda: torch.nn.functional.layer_norm(x, (k,), eps=1e-6), 50))
+        else:
+            log(f"[kernel] ln_mod_quant_int8 @ M={m} K={k} R={RANK}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms "
+                f"(F.layer_norm {time_ms(lambda: torch.nn.functional.layer_norm(x, (k,), eps=1e-6), 50):.4f} ms, "
+                f"bound {bnd[0]:.4f} ms by {bnd[1]})")
+            if not ok:
+                failed.append(f"ln_mod_quant_int8@M{m}")
+        del args, x
 
     # 6. qkv / RoPE producer with the low-rank term: the single block's call
     # (S 4608) is the timed row; the dual block's two shared-buffer calls
@@ -1002,8 +1015,9 @@ def core_sass(path) -> bool:
     missing or a count it needs is 0 (the int8 attention form needs IGMMA for
     q . k and HGMMA for p . v; the coded GEMM forms copy by TMA, decode, and
     run HGMMA; the int8 chain kernels' s8 instantiations and the packed w4a8
-    kernels' (gemm_w4_kernel) run IGMMA; each W4A4 instantiation copies by
-    TMA and runs register-A HGMMA)."""
+    kernels' (gemm_w4_kernel) run IGMMA; each W4A4 instantiation and each
+    of the LN producer's (ln_mod_quant_kernel) copies by TMA and runs
+    register-A HGMMA)."""
     from nunchaku_tpu_torch.ops import _build
 
     # demangled template arguments as plain numbers: "(int)1" -> "1", "(bool)0" / "false" -> "0"
@@ -1051,6 +1065,12 @@ def core_sass(path) -> bool:
         good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
         log(f"[build] gemm_w4a4 (mode {mode}, {steps} low-rank k steps): gemm_w4a4_kernel<{mode}, {steps}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for nv, dual, w in LN_SASS:  # the LN producer's low-rank product: register-A wgmma (HGMMA) on TMA-fed stages
+        found = [c for name, c in sass.items() if f"ln_mod_quant_kernel<{nv}, {dual}, {w}>" in name]
+        good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
+        log(f"[build] ln_mod_quant{'_dual' if dual else ''} (rows {15 if dual else 6}): ln_mod_quant_kernel<{nv}, "
+            f"{dual}, {w}> {show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     return ok
 

@@ -182,7 +182,7 @@ def _ln_head(x, smooth, proj_down):
     r = proj_down.shape[1]
     _build.require(smooth is None or smooth.dtype == torch.bfloat16, "smooth: bf16 expected")
     sm = None if smooth is None else smooth.contiguous()
-    rp = -(-r // 16) * 16  # the kernel's WMMA tile takes R in steps of 16
+    rp = -(-r // 16) * 16  # the kernel takes R in steps of 16 (its wgmma widths pad the rest with zeros)
     pd = proj_down.to(torch.bfloat16)
     if rp != r:
         pd = torch.nn.functional.pad(pd, (0, rp - r))

@@ -526,6 +526,50 @@ def test_ln_mod_quant_ranks(dev, b, s, k, r):
     assert ok, detail
 
 
+@pytest.mark.parametrize("b,s,k,r,mod,smooth", [
+    (2, 77, 3072, 32, True, True), (2, 300, 3072, 32, True, True),  # several batch rows: a tile each row's own
+    (1, 512, 3072, 32, True, True), (1, 4096, 3072, 32, True, True),  # FLUX's text and image streams
+    (1, 700, 256, 32, True, True), (1, 700, 1280, 32, True, True),  # K / 256 of 1 and 5
+    (1, 4608, 3072, 32, False, True), (1, 4608, 3072, 32, True, False),  # LayerNorm only; no smooth
+    (1, 4608, 3072, 16, True, True), (1, 4608, 3072, 144, True, True)])  # the rank step; two rounds
+def test_ln_mod_quant_edges(dev, b, s, k, r, mod, smooth):
+    """The redesigned row 6 at its edges: tile rows by M (8 to 64 rows of
+    one batch row), the row vectors a lane (K 256: one 128-k chunk a K
+    half), the two modes of the modulation and the smooth factor, and the
+    product's widths (W 32 at R 16, three rounds of 64 at R 144): within
+    row 6's bounds of the twin, and from R 32 up bit for bit the rank-32
+    launch on its columns."""
+    x, sc, sh, sm, pd = checks.ln_mod_quant_case(b, s, k, r, mod=mod, device=dev)
+    sm = sm if smooth else None
+    check = checks.check_ln_mod_quant if r < 32 else checks.check_ln_rank
+    _, ok, detail = check(x, sc, sh, sm, pd)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("b,s,k", [(1, 4608, 3072), (2, 300, 1280)])
+def test_ln_mod_quant_dual_edges(dev, b, s, k):
+    """The dual mode at heads of R 48 + 128 (one width for both heads'
+    rounds): each head within row 6's bounds and bit for bit its single
+    launch."""
+    _, ok, detail = checks.check_ln_dual(*checks.ln_dual_case(b, s, k, 48, 128, device=dev))
+    assert ok, detail
+
+
+def test_ln_mod_quant_sass(dev):
+    """Each instantiation of the LN producer (K 3072 and any K, single and
+    dual, widths 32 and 64) holds register-A wgmma (HGMMA) and TMA loads
+    (UTMALDG) and does not spill."""
+    from nunchaku_tpu_torch.ops import _build
+
+    path = _build.build()
+    sass, res = _build.sass_counts(path), _build.resource_usage(path)
+    ln = [n for n in sass if "ln_mod_quant_kernel<" in n]
+    assert len(ln) == 8, ln
+    for name in ln:
+        assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
+        assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
+
+
 @pytest.mark.parametrize("b,s,k,r1,r2", [(1, 4608, 3072, 128, 128), (2, 300, 512, 48, 128), (1, 77, 256, 128, 16)])
 def test_ln_mod_quant_dual_ranks(dev, b, s, k, r1, r2):
     """Row 15 at R 48 / 128: each head within row 6's bounds of the twin and
