@@ -196,13 +196,13 @@ def qkv_rope_producer(qkv, cos, sin, norm_q, norm_k, *, q_scale=1.0, lora_act=No
     r, la, pu = 0, None, None
     if lora_act is not None:
         r = lora_act.shape[-1]
-        rp = -(-r // 16) * 16  # the kernel's WMMA tile takes R in steps of 16
+        rp = -(-r // 16) * 16  # the kernel's wgmma k step is 16 ranks
         la = lora_act.float().reshape(b * s, r)
         pu = proj_up.to(torch.bfloat16)
         if rp != r:
             la = torch.nn.functional.pad(la, (0, rp - r))
             pu = torch.nn.functional.pad(pu, (0, 0, 0, rp - r))
-        la, pu, r = la.contiguous(), _aligned16(pu), rp
+        la, pu, r = _aligned16(la), _aligned16(pu), rp
         _build.require(tuple(pu.shape) == (r, n3), "lora: proj_up must be (R, 3HD)")
     nq, nk = norm_q.contiguous(), norm_k.contiguous()
     lib = _build.library()

@@ -209,8 +209,11 @@ def test_sm90_sass_and_spills(dev):
     the packed GEMM and the W4 producer), hold IGMMA and UTMALDG; each
     instantiation of the W4A4 GEMM
     (gemm_w4a4.cu: three modes, each without a rank-r term, at R <= 32 and
-    at R <= 128) holds HGMMA (its register-A products) and UTMALDG; none of
-    them spills (cuobjdump -res-usage: STACK and LOCAL 0)."""
+    at R <= 128) holds HGMMA (its register-A products) and UTMALDG; each
+    instantiation of the qkv / RoPE producer (qkv_rope_producer.cu: 0 low-rank
+    k steps, also the prepare form; 2; 8) holds UTMALDG, the two with a
+    low-rank term HGMMA; none of them spills (cuobjdump -res-usage: STACK and
+    LOCAL 0)."""
     from nunchaku_tpu_torch.ops import _build
 
     path = _build.build()
@@ -226,12 +229,17 @@ def test_sm90_sass_and_spills(dev):
     assert sum("GroupedEpi<" in n for n in chain) == 2, chain
     assert len(packed) == 2 and sum("GeluEpi" in n for n in packed) == 1, packed
     assert len(w4a4) == 9, w4a4
+    qkv = {s: [n for n in sass if f"qkv_rope_kernel<{s}>" in n.replace("(int)", "")] for s in (0, 2, 8)}
+    assert all(len(found) == 1 for found in qkv.values()), qkv
+    qkv = {s: found[0] for s, found in qkv.items()}
     assert all(sass[i8[0]][op] > 0 for op in ("IGMMA", "HGMMA", "UTMALDG")), sass[i8[0]]
     for name in gemm + w4a4:
         assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
     for name in chain + packed:
         assert sass[name]["IGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
-    for name in i8 + gemm + chain + w4a4 + packed:
+    for steps, name in qkv.items():  # the qkv / RoPE producer: TMA-fed x tiles, the low-rank product on wgmma
+        assert sass[name]["UTMALDG"] > 0 and (steps == 0 or sass[name]["HGMMA"] > 0), (name, sass[name])
+    for name in i8 + gemm + chain + w4a4 + packed + list(qkv.values()):
         assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
 
 
@@ -584,6 +592,38 @@ def test_qkv_rope_producer_ranks(dev, b, seqs, heads, r):
     """Row 7 at R 48 / 128 (shared-buffer calls, ragged token tiles): within
     its bound of the twin, and rank 32 zero-padded to R bit for bit rank 32."""
     _, ok, detail = checks.check_qkv_rank(*checks.qkv_rope_case(b, seqs, heads, r=r, device=dev))
+    assert ok, detail
+
+
+# the redesigned row 7 at its edges: (B, streams into one buffer, H, R)
+QKV_EDGES = [(1, (4096,), 30, 0), (1, (4096,), 30, 32),  # Z-Image's heads, without and with the low-rank term
+             (2, (77, 130), 3, 0), (2, (77, 130), 3, 16),  # two batch rows, ragged tiles, one shared buffer
+             (1, (1,), 2, 32), (1, (65,), 2, 32), (1, (1,), 2, 0), (1, (65,), 2, 0),  # one token; a tile and one
+             (1, (512, 4096), 24, 16), (2, (77, 130), 3, 144), (1, (300,), 4, 256)]  # the rank step; two chunks
+
+
+@pytest.mark.parametrize("b,seqs,heads,r", QKV_EDGES)
+def test_qkv_rope_producer_edges(dev, b, seqs, heads, r):
+    """Row 7 at the edges of its token tiles, units and ranks: within its
+    bound of the twin, and from R 32 up rank 32 (above 128 also rank 128)
+    zero-padded to R bit for bit the unpadded launch."""
+    case = checks.qkv_rope_case(b, seqs, heads, r=r, device=dev)
+    check = checks.check_qkv_rope if r < 32 else checks.check_qkv_rank
+    _, ok, detail = check(*case)
+    assert ok, detail
+    if r > 128:
+        _, ok, detail = checks.check_qkv_rank(*case, r_small=128)
+        assert ok, detail
+
+
+def test_qkv_rope_producer_txt_without_lora(dev):
+    """The dual block when the text stream has no low-rank term
+    (models/attention.py, mods_txt None): the image stream's rows at R 32,
+    then the text stream's at R 0, into one buffer set."""
+    streams, cos, sin = checks.qkv_rope_case(1, (512, 4096), 24, r=32, device=dev)
+    qkv, nq, nk, _, _, off = streams[1]
+    streams[1] = (qkv, nq, nk, None, None, off)
+    _, ok, detail = checks.check_qkv_rope(streams, cos, sin)
     assert ok, detail
 
 
@@ -1331,6 +1371,16 @@ def test_qkv_prepare(dev, s, heads):
     streams, cos, sin = checks.qkv_rope_case(1, (s,), heads, 128, 0, device=dev)
     qkv, nq, nk = streams[0][:3]
     _, ok, detail = checks.check_qkv_prepare(qkv, cos, sin, nq, nk, heads)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("b,s", [(1, 77), (2, 130), (1, 1)])
+def test_qkv_prepare_edges(dev, b, s):
+    """The prepare form at H 3, ragged S and two batch rows: within its bound
+    of the twin and bit for bit the producer without low-rank operands."""
+    streams, cos, sin = checks.qkv_rope_case(b, (s,), 3, 128, 0, device=dev)
+    qkv, nq, nk = streams[0][:3]
+    _, ok, detail = checks.check_qkv_prepare(qkv, cos, sin, nq, nk, 3)
     assert ok, detail
 
 
