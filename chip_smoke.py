@@ -367,10 +367,16 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
 PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
-               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu", "ln_mod_quant.cu")
+               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu", "ln_mod_quant.cu", "qkv_rope_producer.cu")
 # the LN producer's instantiations ln_mod_quant_kernel<vectors a lane (12: K 3072; 0: any K), dual, width>: register-A
 # wgmma on TMA-fed stages (rows 6, 15)
 LN_SASS = [(nv, dual, w) for nv in (0, 12) for dual in (0, 1) for w in (32, 64)]
+# the qkv / RoPE producer's instantiations qkv_rope_kernel<k steps of the low-rank product>: 0 (R 0 and the prepare
+# form, rows 7 at R 0 and 18: TMA-fed x tiles), 2 (R <= 32) and 8 (chunks of 128 ranks): wgmma on TMA-fed stages
+QKV_SASS = (0, 2, 8)
+# the qkv producer's dual-block calls (the image stream's 4096 rows, then the text stream's 512) as the earlier
+# WMMA kernel ran them: ms a call back to back (tools/time_qkv.py rows 7:img, 7:txt; H100 80GB HBM3, 700 W)
+ROW7_DUAL_BEFORE = (0.1404, 0.0396)
 # the W4A4 GEMM's instantiations gemm_w4a4_kernel<mode, k steps of the rank-r term>: modes 0 int4, 1 int4 with
 # unsigned activations, 2 nvfp4; 0 (no low rank), 2 (R <= 32), 8 (R <= 128) steps
 W4A4_SASS = [(mode, steps) for mode in (0, 1, 2) for steps in (0, 2, 8)]
@@ -522,14 +528,17 @@ def kernel_phase(dev):
     rows = {}
     failed = []
 
-    def record(name, source, replaces, shape, ok, err, detail, ms, plain_ms, bnd, lib_ms, k_bf=None):
-        # k_bf: the W4A4 rows' second yardstick, the bf16 GEMM probe on the decoded operands (key k_bf_ms)
+    def record(name, source, replaces, shape, ok, err, detail, ms, plain_ms, bnd, lib_ms, k_bf=None, lowrank=None):
+        # k_bf: the W4A4 rows' second yardstick, the bf16 GEMM probe on the decoded operands (key k_bf_ms);
+        # lowrank: the qkv producer rows' yardstick for the low-rank product alone, torch.matmul(bf16(lora_act),
+        # proj_up) (key lowrank_matmul_ms; not the same function, so library_ms stays null)
         bound_ms, bound_by = bnd
         log(f"[kernel] {name} @ {shape}: {'PASS' if ok else 'FAIL'} {detail}; "
             f"{ms:.4f} ms (plain {plain_ms:.4f} ms, library "
             f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-            f"{'' if k_bf is None else f', k_bf {k_bf:.4f} ms'}, bound {bound_ms:.4f} ms by {bound_by}, "
-            f"{100 * bound_ms / ms:.1f}% of bound)")
+            f"{'' if k_bf is None else f', k_bf {k_bf:.4f} ms'}"
+            f"{'' if lowrank is None else f', the low-rank product alone (torch.matmul) {lowrank:.4f} ms'}, "
+            f"bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / ms:.1f}% of bound)")
         if not ok:
             failed.append(name)
         rows[name] = dict(name=name, route="cuda", source=source, replaces=replaces, launches=0,
@@ -537,6 +546,8 @@ def kernel_phase(dev):
                           bound_by=bound_by, library_ms=lib_ms, shape=shape)
         if k_bf is not None:
             rows[name]["k_bf_ms"] = k_bf
+        if lowrank is not None:
+            rows[name]["lowrank_matmul_ms"] = lowrank
 
     # 1. dequant: the fc1 weight (K 3072 -> N 12288)
     k, n = DIM, HID
@@ -627,13 +638,22 @@ def kernel_phase(dev):
 
     # 6. qkv / RoPE producer with the low-rank term: the single block's call
     # (S 4608) is the timed row; the dual block's two shared-buffer calls
-    # (4096 img rows at 512, then 512 txt rows at 0) are checked and timed too
+    # (4096 img rows at 512, then 512 txt rows at 0) are checked and each timed
+    # beside the earlier kernel's time
     streams, cos, sin = checks.qkv_rope_case(1, (S_TXT, S_IMG), HEADS, HD, RANK, device=dev)
     err2, ok2, detail2 = checks.check_qkv_rope(streams, cos, sin)
-    dual_ms = time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 20)
-    log(f"[kernel] qkv_rope_producer, dual block (S_txt {S_TXT} + S_img {S_IMG} into one buffer): "
-        f"{'PASS' if ok2 else 'FAIL'} {detail2}; {dual_ms:.4f} ms for both calls, bound "
-        f"{bound(rope_bytes(S_IMG) + rope_bytes(S_TXT))[0]:.4f} ms")
+    out = tuple(torch.empty((1, HEADS, S_TXT + S_IMG, HD), dtype=torch.bfloat16, device=dev) for _ in range(3))
+    each = []
+    for qkv, nq, nk, la, pu, off in streams:
+        s = qkv.shape[1]
+        c, sn = cos[off:off + s], sin[off:off + s]
+        each.append(time_ms(lambda: qkv_rope_producer(qkv, c, sn, nq, nk, lora_act=la, proj_up=pu, out=out,
+                                                      s_offset=off), 50))
+    log(f"[kernel] qkv_rope_producer, dual block (S_img {S_IMG} at row {S_TXT}, then S_txt {S_TXT} at row 0, one "
+        f"buffer): {'PASS' if ok2 else 'FAIL'} {detail2}; image call {each[0]:.4f} ms (earlier kernel "
+        f"{ROW7_DUAL_BEFORE[0]:.4f}), text call {each[1]:.4f} ms (earlier {ROW7_DUAL_BEFORE[1]:.4f}), bounds "
+        f"{bound(rope_bytes(S_IMG))[0]:.4f} / {bound(rope_bytes(S_TXT))[0]:.4f} ms")
+    del out
     del streams, cos, sin
     s = S_IMG + S_TXT
     streams, cos, sin = checks.qkv_rope_case(1, (s,), HEADS, HD, RANK, device=dev)
@@ -645,8 +665,8 @@ def kernel_phase(dev):
            max(err, err2), detail + f"; dual block: {detail2}",
            time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50),
            time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5),
-           bound(rope_bytes(s), bf16_ops=2 * s * 3 * HEADS * HD * RANK),
-           time_ms(lambda: torch.matmul(la16, pu), 50))
+           bound(rope_bytes(s), bf16_ops=2 * s * 3 * HEADS * HD * RANK), None,
+           lowrank=time_ms(lambda: torch.matmul(la16, pu), 50))
     del streams, cos, sin, qkv, la, pu, la16
     producer_rank_rows(dev, record, failed)
 
@@ -884,8 +904,8 @@ def producer_rank_rows(dev, record, failed):
             la16, pu = streams[0][3].to(torch.bfloat16), streams[0][4]
             record(f"qkv_rope_producer_r{r}", "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
                    "nunchaku_tpu/ops/attention.py:158", f"B=1 S={s} H={HEADS} D={HD} R={r}", ok, err, detail, ms,
-                   time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5), bnd,
-                   time_ms(lambda: torch.matmul(la16, pu), 50))
+                   time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5), bnd, None,
+                   lowrank=time_ms(lambda: torch.matmul(la16, pu), 50))
             del la16, pu
         else:
             log(f"[kernel] qkv_rope_producer @ B=1 S={s} H={HEADS} D={HD} R={r}: {'PASS' if ok else 'FAIL'} {detail}; "
@@ -1017,7 +1037,8 @@ def core_sass(path) -> bool:
     run HGMMA; the int8 chain kernels' s8 instantiations and the packed w4a8
     kernels' (gemm_w4_kernel) run IGMMA; each W4A4 instantiation and each
     of the LN producer's (ln_mod_quant_kernel) copies by TMA and runs
-    register-A HGMMA)."""
+    register-A HGMMA; each of the qkv producer's (qkv_rope_kernel) copies
+    by TMA, and runs HGMMA where it has a low-rank term)."""
     from nunchaku_tpu_torch.ops import _build
 
     # demangled template arguments as plain numbers: "(int)1" -> "1", "(bool)0" / "false" -> "0"
@@ -1064,6 +1085,12 @@ def core_sass(path) -> bool:
         found = [c for name, c in sass.items() if f"gemm_w4a4_kernel<{mode}, {steps}>" in name]
         good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0
         log(f"[build] gemm_w4a4 (mode {mode}, {steps} low-rank k steps): gemm_w4a4_kernel<{mode}, {steps}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    for steps in QKV_SASS:  # the qkv producer: TMA-fed x tiles; with a low-rank term, wgmma (HGMMA)
+        found = [c for name, c in sass.items() if f"qkv_rope_kernel<{steps}>" in name]
+        good = len(found) == 1 and found[0]["UTMALDG"] > 0 and (steps == 0 or found[0]["HGMMA"] > 0)
+        log(f"[build] qkv_rope_producer (rows 7, 18): qkv_rope_kernel<{steps}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     for nv, dual, w in LN_SASS:  # the LN producer's low-rank product: register-A wgmma (HGMMA) on TMA-fed stages

@@ -26,10 +26,14 @@
 //     128-byte swizzle; rows past S read as zeros) into a ring of x slots and,
 //     with a low-rank term, the unit's proj_up panel (R x 128 bf16, MN-major,
 //     two 64-column boxes of up to 128 ranks) into a ring of its own, as far
-//     ahead as the slots allow. Each ring is cut in two halves, one a
-//     consumer warpgroup, so a slot's barrier phases are waited for by one
-//     warpgroup in order (a slot shared by both would let one warpgroup take
-//     the other's earlier phase of the same parity for its own);
+//     ahead as the slots allow. An x slot is held through the epilogue, so
+//     the x ring takes what the staged operands leave, up to 8 slots (8 at R
+//     0 and R 32, 4 above); a proj_up slot is held only for the product, so
+//     one a warpgroup lets the next unit's chunk load under this unit's
+//     epilogue. Each ring is cut in two halves, one a consumer warpgroup, so
+//     a slot's barrier phases are waited for by one warpgroup in order (a
+//     slot shared by both would let one warpgroup take the other's earlier
+//     phase of the same parity for its own);
 //   - warpgroups 1 and 2 take the units in turn: the low-rank product is
 //     wgmma m64n128k16 (A: the staged bf16(lora_act), B: the proj_up panel),
 //     in k steps of 16 ranks in order from rank 0 in one accumulator chain (R
@@ -63,7 +67,7 @@ constexpr int LA_PANEL = TS * 128;                      // 64 ranks of the tile'
 constexpr int LA_RESIDENT = 256;                        // ranks kept for the whole tile
 constexpr int CS_BYTES = 2 * TS * D * 4;                // the tile's cos and sin (f32)
 constexpr int NW_BYTES = 2 * D * 4;                     // norm_q, norm_k (f32)
-constexpr int MAX_STAGES = 8;
+constexpr int MAX_STAGES = 8;  // x slots (10 at R 0 measured no faster)
 constexpr int MAX_SMEM = 232448;  // the H100's 227 KB a block
 constexpr int CONSUMER_BAR = 1;   // named barrier of both consumer warpgroups; 2 + h: warpgroup h's own
 
@@ -374,10 +378,8 @@ int launch(const Params& p, int smem, cudaStream_t stream) {
 
 bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
-// The rings, each warpgroup its own half (an x slot of 16 KB a unit; with a low-rank term a proj_up slot a rank
-// chunk: as deep as the x ring at R <= 32, one a warpgroup above, where a slot is held only for the product) in
-// what the staged operands leave; the tensor maps; the launch at the product's k steps (0; 2: R <= 32; 8: chunks
-// of 128 ranks).
+// The rings (each warpgroup its half: x slots in what the staged operands leave, one proj_up slot), the tensor
+// maps, and the launch at the product's k steps (0; 2: R <= 32; 8: chunks of 128 ranks).
 int run(Params& p, int B, const void* qkv, const void* pu, cudaStream_t stream) {
   if (B == 0 || p.S == 0 || p.H == 0) return 0;
   if (!aligned16(qkv) || (p.R > 0 && (!aligned16(pu) || !aligned16(p.la))))
@@ -389,14 +391,9 @@ int run(Params& p, int B, const void* qkv, const void* pu, cudaStream_t stream) 
   p.la_res = p.nch * cw <= LA_RESIDENT;
   p.la_panels = steps == 0 ? 0 : (p.la_res ? (p.nch * cw + 63) / 64 : 4);
   const int fixed = 1024 + p.la_panels * LA_PANEL + CS_BYTES + NW_BYTES;
-  if (steps == 2) {
-    p.sx = p.sp = (MAX_SMEM - fixed) / (2 * (X_BYTES + pbytes + 32)) * 2;
-  } else {
-    p.sp = steps ? 2 : 0;
-    p.sx = (MAX_SMEM - fixed - p.sp * (pbytes + 16)) / (2 * (X_BYTES + 16)) * 2;
-  }
+  p.sp = steps ? 2 : 0;
+  p.sx = (MAX_SMEM - fixed - p.sp * (pbytes + 16)) / (2 * (X_BYTES + 16)) * 2;
   p.sx = p.sx < MAX_STAGES ? p.sx : MAX_STAGES;
-  p.sp = p.sp < MAX_STAGES ? p.sp : MAX_STAGES;
   const int smem = fixed + p.sx * X_BYTES + p.sp * pbytes + 16 * (p.sx + p.sp);
   const auto B16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const cuuint64_t n3 = 3 * static_cast<cuuint64_t>(p.H) * D;
