@@ -654,17 +654,6 @@ __global__ void __launch_bounds__(THREADS, 1) ln_mod_quant_kernel(const __grid_c
   });
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-                                                   cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 template <int NV, bool DUAL, int W>
 int launch(const Params& p, int grid, int smem, cudaStream_t stream) {
   static bool configured = false;
@@ -721,8 +710,6 @@ int run(Params& p, const void* pd0, const void* pd1, cudaStream_t stream) {
 
 // The rank step of the low-rank product: R a multiple of 16.
 bool rank_ok(int R) { return R >= 16 && R % 16 == 0; }
-
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 }  // namespace
 

@@ -351,17 +351,6 @@ __global__ void __launch_bounds__(THREADS, 1) qkv_rope_kernel(const __grid_const
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-                                                   cudaSuccess)
-      n = 132;
-  }
-  return n;
-}
-
 template <int STEPS>
 int launch(const Params& p, int smem, cudaStream_t stream) {
   static bool configured = false;
@@ -375,8 +364,6 @@ int launch(const Params& p, int smem, cudaStream_t stream) {
   qkv_rope_kernel<STEPS><<<grid, THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
-
-bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
 
 // The rings (each warpgroup its half: x slots in what the staged operands leave, one proj_up slot), the tensor
 // maps, and the launch at the product's k steps (0; 2: R <= 32; 8: chunks of 128 ranks).

@@ -199,6 +199,20 @@ __device__ __forceinline__ void reg_alloc() {
 // host side
 // ---------------------------------------------------------------------------
 
+// The card's SM count (132 on an H100 SXM if the runtime cannot say), read once.
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+                                                   cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+inline bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
                                 const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
                                 CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
@@ -240,7 +254,8 @@ inline bool matrix_map(CUtensorMap* map, const void* base, int elem, int rows, i
 // The tensor map of an array of `rank` (<= 5) dimensions of `type` (dims[0] the contiguous one; strides in bytes
 // of dims 1 .. rank - 1, multiples of 16) in boxes of box[0 .. rank - 1]; a box reaching past a dimension reads
 // zeros there. Encoded maps are kept by everything the encoder reads (the same inputs always give the same map),
-// so a launch on the pointers and shapes of an earlier one encodes nothing.
+// so a launch on the pointers and shapes of an earlier one encodes nothing; they sit in 256 sets of 4 picked by a
+// hash of those inputs, so a lookup costs the same however many maps are kept.
 inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, const void* base, const cuuint64_t* dims,
                        const cuuint64_t* strides, const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
   struct Key {
@@ -253,9 +268,10 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
     Key key;
     CUtensorMap map;
   };
-  constexpr int SLOTS = 256;
-  static Entry cache[SLOTS];
-  static int used = 0, next = 0;
+  static_assert(sizeof(Key) % 8 == 0, "the hash reads the key in 8-byte words");
+  constexpr int SETS = 256, WAYS = 4;
+  static Entry cache[SETS][WAYS];
+  static int used[SETS], next[SETS];
   Key key;
   memset(&key, 0, sizeof key);  // padding and unused dimensions compare equal
   key.base = base;
@@ -265,9 +281,19 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
   key.type = static_cast<int>(type);
   key.rank = rank;
   key.swizzle = static_cast<int>(swizzle);
-  for (int i = 0; i < used; ++i) {
-    if (memcmp(&cache[i].key, &key, sizeof key) == 0) {
-      *map = cache[i].map;
+  uint64_t h = 0;  // the key's words, each mixed in by the MurmurHash3 finalizer
+  for (size_t i = 0; i < sizeof key; i += 8) {
+    uint64_t w;
+    memcpy(&w, reinterpret_cast<const unsigned char*>(&key) + i, 8);
+    h ^= w;
+    h = (h ^ (h >> 33)) * 0xff51afd7ed558ccdull;
+    h = (h ^ (h >> 33)) * 0xc4ceb9fe1a85ec53ull;
+    h ^= h >> 33;
+  }
+  const int set = static_cast<int>(h % SETS);
+  for (int i = 0; i < used[set]; ++i) {
+    if (memcmp(&cache[set][i].key, &key, sizeof key) == 0) {
+      *map = cache[set][i].map;
       return true;
     }
   }
@@ -277,10 +303,10 @@ inline bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int rank, con
   if (encode(map, type, rank, const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return false;
-  cache[next].key = key;
-  cache[next].map = *map;
-  next = (next + 1) % SLOTS;
-  used = used < SLOTS ? used + 1 : SLOTS;
+  cache[set][next[set]].key = key;
+  cache[set][next[set]].map = *map;
+  next[set] = (next[set] + 1) % WAYS;
+  used[set] = used[set] < WAYS ? used[set] + 1 : WAYS;
   return true;
 }
 

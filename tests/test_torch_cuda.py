@@ -599,7 +599,8 @@ def test_qkv_rope_producer_ranks(dev, b, seqs, heads, r):
 QKV_EDGES = [(1, (4096,), 30, 0), (1, (4096,), 30, 32),  # Z-Image's heads, without and with the low-rank term
              (2, (77, 130), 3, 0), (2, (77, 130), 3, 16),  # two batch rows, ragged tiles, one shared buffer
              (1, (1,), 2, 32), (1, (65,), 2, 32), (1, (1,), 2, 0), (1, (65,), 2, 0),  # one token; a tile and one
-             (1, (512, 4096), 24, 16), (2, (77, 130), 3, 144), (1, (300,), 4, 256)]  # the rank step; two chunks
+             (1, (512, 4096), 24, 16), (2, (77, 130), 3, 144), (1, (300,), 4, 256),  # the rank step; two chunks
+             (2, (77, 130), 3, 384)]  # three chunks, above the ranks a tile keeps: each warpgroup stages its own
 
 
 @pytest.mark.parametrize("b,seqs,heads,r", QKV_EDGES)
