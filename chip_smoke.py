@@ -12,8 +12,9 @@ Phases, each fatal on failure:
                   W4A4 GEMM's nine instantiations and each of the LN
                   producer's eight must show wgmma (HGMMA /
                   IGMMA) and TMA-load (UTMALDG) instructions in cuobjdump
-                  -sass, and the sources in PTXAS_CLEAN build without spills
-                  or serialized wgmma;
+                  -sass, the dequant's two TMA loads and stores (UTMALDG,
+                  UTMASTG) and no type conversion (I2F, F2I), and the sources
+                  in PTXAS_CLEAN build without spills or serialized wgmma;
   3. kernels   -- each kernel against its plain PyTorch twin at FLUX.1-dev
                   main-path shapes, its time (CUDA events over warm launches),
                   the plain twin's time, a one-call PyTorch yardstick where one
@@ -367,7 +368,11 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
 # sources whose every kernel must build without spills and without a ptxas "Potential Performance Loss" (C7512,
 # C7515: wgmma serialized)
 PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
-               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu", "ln_mod_quant.cu", "qkv_rope_producer.cu")
+               "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu", "ln_mod_quant.cu", "qkv_rope_producer.cu",
+               "dequant_w4a8.cu", "gemm_w8a8_gelu_quant_pipe.cu")
+# the dequant's instantiations dequant_w4a8_kernel<e2m1> (rows 1, 1s, 1e): TMA loads and stores, and no type
+# conversion (I2F, F2I) anywhere in them
+DEQ_SASS = {0: "dequant_w4a8 (rows 1, 1s)", 1: "dequant_w4a8_e2m1 (row 1e)"}
 # the LN producer's instantiations ln_mod_quant_kernel<vectors a lane (12: K 3072; 0: any K), dual, width>: register-A
 # wgmma on TMA-fed stages (rows 6, 15)
 LN_SASS = [(nv, dual, w) for nv in (0, 12) for dual in (0, 1) for w in (32, 64)]
@@ -1093,6 +1098,20 @@ def core_sass(path) -> bool:
         log(f"[build] qkv_rope_producer (rows 7, 18): qkv_rope_kernel<{steps}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
+    conv = {re.sub(r"\((?:int|bool)\)", "", name).replace("false", "0").replace("true", "1"): c
+            for name, c in _build.sass_counts(path, ("I2F", "F2I", "UTMALDG", "UTMASTG")).items()}
+    for e2m1, row in DEQ_SASS.items():  # the dequant: TMA both ways, no conversion instruction
+        found = [c for name, c in conv.items() if f"dequant_w4a8_kernel<{e2m1}>" in name]
+        good = (len(found) == 1 and found[0]["UTMALDG"] > 0 and found[0]["UTMASTG"] > 0
+                and found[0]["I2F"] == 0 and found[0]["F2I"] == 0)
+        log(f"[build] {row}: dequant_w4a8_kernel<{e2m1}> "
+            f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    found = [c for name, c in sass.items() if "gemm_gelu_pipe_kernel" in name]  # row 14: the s8 loop's products
+    good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
+    log(f"[build] gemm_w8a8_gelu_quant_pipe (row 14): gemm_gelu_pipe_kernel "
+        f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
+    ok = ok and good
     for nv, dual, w in LN_SASS:  # the LN producer's low-rank product: register-A wgmma (HGMMA) on TMA-fed stages
         found = [c for name, c in sass.items() if f"ln_mod_quant_kernel<{nv}, {dual}, {w}>" in name]
         good = len(found) == 1 and found[0]["HGMMA"] > 0 and found[0]["UTMALDG"] > 0

@@ -2,7 +2,7 @@
 // accumulation, bf16 out, each operand stored as bf16, as int8 codes (cast
 // to bf16, exact) or as packed int4 codes (core/packing.py's block-split-half
 // layout: packed column / row 128 b + j holds logical 256 b + j in its low
-// nibble and 256 b + 128 + j in its high one, w4_decode.cuh nibble()). With
+// nibble and 256 b + 128 + j in its high one, each sign-extended). With
 // SCALED, each decoded operand is multiplied by its group-64 scale and
 // rounded to bf16, as the TPU bodies' code.astype(bf16) * scale: one rounding
 // of an exact f32 product. No model path launches it; the ported GEMM probe

@@ -402,7 +402,7 @@ int launch(const typename Src::Params& p, const typename Epi::Params& e, int M, 
 // W4Src feeds gemm_w4_kernel's s8 products from the packed w4a8 weight: codes (K/2, N) int8, N-contiguous, in
 // the block-split-half layout (packed row 128 b + j holds k = 256 b + j in its low nibble and 256 b + 128 + j in
 // its high one), with bf16 rescales (K/64, N); code c of row k, column n is the int8
-// clip(round_half_even(f32(c) * f32(rescale[k / 64, n])), +-127), w4_decode.cuh rescale_code<false>'s value.
+// clip(round_half_even(f32(c) * f32(rescale[k / 64, n])), +-127), the value the dequant kernel writes.
 //   - A (M, K) int8 reaches a 5-stage ring by TMA as TmaS8's A does (4-D view: K groups of group_k, a group's
 //     last tile zero past its end, rows past M zero).
 //   - W reaches a 3-stage ring of raw boxes by TMA, a box per 256 k: the 128 packed rows of pack block b (BN

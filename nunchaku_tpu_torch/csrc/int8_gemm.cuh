@@ -1,8 +1,8 @@
-// int8 x int8 -> int32 tensor-core main loop (WMMA) of the pipelined
-// producer (gemm_w8a8_gelu_quant_pipe.cu) and the int8 GEMM probe's "chain"
-// tile (gemm_probe_i8.cu): nothing else runs it. The int8 chain kernels and
-// the packed-int4 w4a8 kernels run on the s8 instantiations of gemm_sm90.cuh
-// and take only the low-rank helpers at the end of this file (LoraRows,
+// int8 x int8 -> int32 tensor-core main loop (WMMA) of the int8 GEMM probe's
+// "chain" tile (gemm_probe_i8.cu): nothing else runs it. The int8 chain
+// kernels, the pipelined producer and the packed-int4 w4a8 kernels run on
+// gemm_sm90.cuh's s8 loop; the chain kernels and the packed ones take only
+// the low-rank helpers at the end of this file (LoraRows,
 // stage_lora_rows, lora_sums_4x16: the rank-R sums of the WMMA kernels'
 // epilogue in its order), so their epilogues stay the same arithmetic.
 //
@@ -60,19 +60,13 @@ struct WeightI8 {
   }
 };
 
-// The main loop's barrier: the whole block, or (the pipelined producer) a
-// named barrier over the THREADS threads that run the main loop.
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-
 // acc += qa[m0:m0+BM, kb:ke] @ w[kb:ke, n0:n0+BN]; (ke - kb) % BK == 0.
 // st2 is the two-stage ring of the weight's stage type. Returns with every
-// copy landed and the main loop's threads synchronised (by sync), so the
-// caller may reuse the ring's memory right away.
-template <class W, class Sync = BlockSync>
+// copy landed and the block synchronised, so the caller may reuse the ring's
+// memory right away.
+template <class W>
 __device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)[FM][FN], const int8_t* qa,
-                                         const W& w, int m0, int n0, int kb, int ke, int K, Sync sync = Sync()) {
+                                         const W& w, int m0, int n0, int kb, int ke, int K) {
   const int warp = threadIdx.x / 32;
   const int wm = warp / 4, wn = warp % 4;
   const int tiles = (ke - kb) / BK;
@@ -82,7 +76,7 @@ __device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)
     if (t + 1 < tiles) w.load(st2[(t + 1) & 1], qa, m0, n0, kb + (t + 1) * BK, K);
     cp_async_commit();
     cp_async_wait<1>();
-    sync();
+    __syncthreads();
     const Stage& st = st2[t & 1];
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
@@ -97,10 +91,10 @@ __device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)
 #pragma unroll
         for (int fn = 0; fn < FN; ++fn) wmma::mma_sync(acc[fm][fn], a[fm], b[fn], acc[fm][fn]);
     }
-    sync();
+    __syncthreads();
   }
   cp_async_wait<0>();
-  sync();
+  __syncthreads();
 }
 
 __device__ __forceinline__ void zero(AccFrag (&acc)[FM][FN]) {

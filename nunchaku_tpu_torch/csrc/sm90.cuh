@@ -94,6 +94,27 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
                : "memory");
 }
 
+// One box of a 2-D tensor map (c0 the contiguous coordinate) from shared memory to global memory, in the issuing
+// thread's open bulk group; rows and columns past the map's dimensions are not written.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_u32(src)), "r"(c0), "r"(c1)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Until at most N of the issuing thread's bulk groups are still reading their shared memory (READ), or still
+// writing at all.
+template <int N, bool READ>
+__device__ __forceinline__ void bulk_wait() {
+  if (READ)
+    asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // An int32 of magnitude below 2^22 as an f32, exactly, on the full-rate
 // pipes (IADD, FADD) instead of the quarter-rate I2F: its bits added to those
 // of 1.5 * 2^23, minus 1.5 * 2^23.

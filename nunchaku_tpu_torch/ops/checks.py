@@ -412,14 +412,15 @@ def check_w4a4_stacked(args, kw):
                            f"max abs {err:.3e}, rel {rel:.2e}; {beyond} elements beyond one bf16 step (tol 0)")
 
 
-def check_dequant_stacked(qw, rs):
+def check_dequant_stacked(qw, rs, codes="int4", layers=STACK_LAYERS):
     """The dequant's stacked mode: exact codes on the case's weight (the
-    last layer of a :func:`stack_case` stack), and on every layer the
-    non-stacked kernel's codes bit for bit."""
-    stack, ids = stack_case(qw)
-    same = [torch.equal(dequant_w4a8(stack, rs, layer_idx=i), dequant_w4a8(stack[l], rs)) for l, i in enumerate(ids)]
-    out = dequant_w4a8(stack, rs, layer_idx=ids[-1])
-    err = (out.int() - dequant_w4a8_plain(qw, rs).int()).abs().max().item()
+    last layer of a :func:`stack_case` stack of ``layers``), and on every
+    layer the non-stacked kernel's codes bit for bit."""
+    stack, ids = stack_case(qw, layers)
+    same = [torch.equal(dequant_w4a8(stack, rs, codes, layer_idx=i), dequant_w4a8(stack[l], rs, codes))
+            for l, i in enumerate(ids)]
+    out = dequant_w4a8(stack, rs, codes, layer_idx=ids[-1])
+    err = (out.int() - dequant_w4a8_plain(qw, rs, codes).int()).abs().max().item()
     return _stacked_report(same, float(err), err == 0, f"max code diff {err} (tolerance: exact)")
 
 

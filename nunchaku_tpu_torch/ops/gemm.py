@@ -404,16 +404,16 @@ def _gelu_quant_pipe_launch(qact, ascales, qweight, wscales, lora_act, proj_up, 
     b = None if bias is None else bias.to(torch.bfloat16).contiguous()
     rsm = rsmooth_next.reshape(n).float().contiguous()
     pd = proj_down_next.to(torch.bfloat16).contiguous()
-    gbuf = torch.empty((m, n), dtype=torch.float32, device=dev)  # workspace: g until its group is quantized
+    gbuf = torch.empty((m, n), dtype=torch.float32, device=dev)  # scratch: g between the two kernels
+    amax_part = torch.empty((n // KERNEL_TILE_N, m), dtype=torch.float32, device=dev)
     lora_part = torch.empty((n // KERNEL_TILE_N, m, -(-r2 // 16) * 16), dtype=torch.float32, device=dev)
-    done = torch.zeros((m // KERNEL_TILE_M,), dtype=torch.int32, device=dev)  # finished groups per row block
     qout = torch.empty((m, n), dtype=torch.int8, device=dev)
     qscales = torch.empty((n // bn, m), dtype=torch.float32, device=dev)
     lora_next = torch.empty((m, r2), dtype=torch.float32, device=dev)
     lib = _build.library()
     _build.check(lib.nt_gemm_w8a8_gelu_quant_pipe(
         qa.data_ptr(), a_s.data_ptr(), wt.data_ptr(), w_s.data_ptr(), _ptr(la), _ptr(pu), _ptr(b), rsm.data_ptr(),
-        pd.data_ptr(), gbuf.data_ptr(), lora_part.data_ptr(), done.data_ptr(), qout.data_ptr(), qscales.data_ptr(),
+        pd.data_ptr(), gbuf.data_ptr(), amax_part.data_ptr(), lora_part.data_ptr(), qout.data_ptr(), qscales.data_ptr(),
         lora_next.data_ptr(), m, n, k, r, r2, bn, GELU_SHIFT if act_unsigned_next else 0.0, _stream(qact)),
         "gemm_w8a8_gelu_quant_pipe")
     return qout, qscales, lora_next

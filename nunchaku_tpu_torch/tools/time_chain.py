@@ -3,8 +3,11 @@ shapes: the GELU -> requantize producer (``csrc/gemm_w8a8_gelu_quant.cu``,
 PERF.md rows 2, 2s, 13) at fc1 (K 3072, N 12288) and the grouped consumer
 (``csrc/gemm_w8a8_grouped.cu``, rows 3, 3s, 3', 3's, 3p) at fc2 (K 12288 in
 8 groups, N 3072), at the joint sequence (M 4608) and the text stream (M
-512), ranks 32 and 128, each beside ``torch._int_mm`` of its product and
-its bound. A quick A/B of the two kernels without the whole
+512), ranks 32, 128 and 256, each beside ``torch._int_mm`` of its product and
+its bound; and the pipelined producer
+(``csrc/gemm_w8a8_gelu_quant_pipe.cu``, row 14: ``pipelined=True``) at row
+2's shapes and ranks (``14``, ``14:r128``, ``14:r256``), whose digests equal
+row 2's when the two give the same outputs bit for bit. A quick A/B of the two kernels without the whole
 ``chip_smoke.py``: run it in two trees, in turns, and compare the digests.
 
     python -m nunchaku_tpu_torch.tools.time_chain [ROW ...]
@@ -34,6 +37,7 @@ from .probe_common import bound, nvidia_smi, time_ms
 DIM, HID, S_IMG, S_TXT = 3072, 12288, 4096, 512  # FLUX.1-dev: fc1 (DIM -> HID), fc2 (HID -> DIM)
 GROUPS = HID // 1536  # the producer's scale groups: the consumer's K groups
 ITERS = 20  # timed calls a row
+PIPE_RANKS = {"14": 32, "14:r128": 128, "14:r256": 256}  # the pipelined producer's rows, at row 2's shapes
 
 
 def digest(out) -> str:
@@ -81,10 +85,10 @@ def kernel_split(call, calls: int = 5) -> str:
 
 def rows():
     """(row, make) with make() -> (call, the product's operands (qact, weight), bound)."""
-    def producer(m, r, stacked=False, ptoken=False):
+    def producer(m, r, stacked=False, ptoken=False, pipelined=None):
         def make():
             qa, asc, w, *rest = checks.gelu_quant_case(m, DIM, HID, r, device="cuda")
-            kw = dict(ptoken=ptoken)
+            kw = dict(ptoken=ptoken, pipelined=pipelined)
             if stacked:
                 stack, ids = checks.stack_case(w)
                 kw["layer_idx"] = ids[-1]
@@ -114,6 +118,7 @@ def rows():
     m = S_IMG + S_TXT
     yield "2", producer(m, 32)
     yield "2:r128", producer(m, 128)
+    yield "2:r256", producer(m, 256)
     yield "2:m512", producer(S_TXT, 32)
     yield "2s", producer(m, 32, stacked=True)
     yield "13", producer(m, 32, stacked=True, ptoken=True)
@@ -127,6 +132,8 @@ def rows():
     yield "3's", consumer(m, 32, res=True, stacked=True)
     yield "3p", consumer(m, 32, stacked=True, rank1=True)
     yield "3p:res", consumer(m, 32, res=True, stacked=True, rank1=True)
+    for row, r in PIPE_RANKS.items():
+        yield row, producer(m, r, pipelined=True)
 
 
 def main(argv=None) -> int:

@@ -54,6 +54,91 @@ def test_dequant_w4a8_e2m1_exact(dev, k, n):
     assert c["dequant_w4a8_e2m1"] == 1 and c["dequant_w4a8"] == 0
 
 
+# the dequant's edges: one unit (K 256) of half a column tile (N 64), N that its 128-column units do not divide
+# (N % 128 == 64), SANA's padded fc widths (K 2304, N 6784); both code forms (FLUX's shapes: the tests above)
+DEQUANT_EDGES = [(256, 64), (768, 192), (2304, 6784), (512, 4160)]
+
+
+@pytest.mark.parametrize("codes", ["int4", "e2m1"])
+@pytest.mark.parametrize("k,n", DEQUANT_EDGES)
+def test_dequant_w4a8_edges(dev, k, n, codes):
+    qw, rs = checks.dequant_case(k, n, codes=codes, device=dev)
+    _, ok, detail = checks.check_dequant(qw, rs, codes)
+    assert ok, detail
+    out = dequant_w4a8(qw, rs, codes)
+    assert out.shape == (k, n) and out.stride() == (1, k) and out.dtype == torch.int8
+
+
+@pytest.mark.parametrize("codes", ["int4", "e2m1"])
+def test_dequant_w4a8_rescale_range(dev, codes):
+    """Exact over rescales of either sign from 2^-20 to 2^12 and zeros: products far past +-127 clip, ties
+    round to even, and codes c and -c take the same magnitude."""
+    k, n = 1024, 384
+    g = torch.Generator(device=dev).manual_seed(5)
+    qw = torch.randint(-128, 128, (k // 2, n), dtype=torch.int8, device=dev, generator=g)
+    shape = (k // (64 if codes == "int4" else 16), n)
+    mag = torch.exp2(torch.rand(shape, device=dev, generator=g) * 32.0 - 20.0)
+    sign = torch.where(torch.rand(shape, device=dev, generator=g) < 0.5, -1.0, 1.0)
+    rs = (mag * sign).to(torch.bfloat16)
+    rs[:, ::17] = 0.0
+    rs[0, :64] = torch.tensor([0.5, 1.5, 2.5, 0.25, 0.75, 1.25] * 10 + [15.875, 16.0, 127.0 / 8, 254.0],
+                              device=dev).to(torch.bfloat16)
+    _, ok, detail = checks.check_dequant(qw, rs, codes)
+    assert ok, detail
+
+
+@pytest.mark.parametrize("codes", ["int4", "e2m1"])
+@pytest.mark.parametrize("layers", [1, 3])
+@pytest.mark.parametrize("k,n", [(3840, 11520), (256, 64), (768, 192)])
+def test_dequant_w4a8_stacked_edges(dev, k, n, codes, layers):
+    """Stacks of one and three layers, the index read on the card: every layer the non-stacked kernel's
+    codes, the last one the plain version's."""
+    reset_launch_counts()
+    _, ok, detail = checks.check_dequant_stacked(*checks.dequant_case(k, n, codes=codes, device=dev), codes, layers)
+    assert ok, detail
+    c = launch_counts()
+    name = "dequant_w4a8_e2m1" if codes == "e2m1" else "dequant_w4a8"
+    assert c[name + "_stacked"] == layers + 1 and c[name] == layers, c
+
+
+def _ptxas_alone(src, tmp_path):
+    """nvcc's -Xptxas -v output for one source of csrc built alone; fails on a build error."""
+    import subprocess
+
+    from nunchaku_tpu_torch.ops import _build
+
+    out = subprocess.run([_build._nvcc(), *_build.FLAGS, "-c", str(_build.CSRC / src), "-o", str(tmp_path / "k.o")],
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stdout + out.stderr
+    return out.stdout + out.stderr
+
+
+def _spills_and_losses(text):
+    import re
+
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill (?:stores|loads)", text)]
+    return spills, re.findall(r"\((C75\d\d)\) Potential Performance Loss", text)
+
+
+def test_dequant_sass(dev, tmp_path):
+    """The dequant's two kernels (int4 and e2m1 codes): no spill, no type conversion anywhere in them (I2F,
+    F2I: the tables round by an f32 addition, units are split without an integer division), and TMA both
+    ways (UTMALDG, UTMASTG)."""
+    from nunchaku_tpu_torch.ops import _build
+
+    spills, losses = _spills_and_losses(_ptxas_alone("dequant_w4a8.cu", tmp_path))
+    assert spills and not any(spills) and not losses, (spills, losses)
+    path = _build.build()
+    sass = _build.sass_counts(path, opcodes=("I2F", "F2I", "UTMALDG", "UTMASTG"))
+    res = _build.resource_usage(path)
+    deq = [n for n in sass if "dequant_w4a8_kernel<" in n]
+    assert len(deq) == 2, deq
+    for name in deq:
+        c = sass[name]
+        assert c["I2F"] == 0 and c["F2I"] == 0 and c["UTMALDG"] > 0 and c["UTMASTG"] > 0, (name, c)
+        assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
+
+
 def test_dequant_w4a8_e2m1_refusals(dev):
     qw, rs = checks.dequant_case(512, 128, codes="e2m1", device=dev)
     with pytest.raises(ValueError):
@@ -1401,6 +1486,44 @@ def test_gelu_quant_pipe(dev, m, k, n, r, unsigned):
     _, ok, detail = checks.check_gelu_quant_pipe(*checks.gelu_quant_case(m, k, n, r, device=dev),
                                                  act_unsigned_next=unsigned)
     assert ok, detail
+
+
+# the pipelined producer's edges (M, K, N, R = R2, unsigned next): bn 128 without low rank, bn 256 at R 48, bn
+# 1024 at R 160, bn 1536 at R 256, bn 512 on a K of 64 (mod 128); K is one K tile each time
+PIPE_EDGES = [(256, 256, 128, 0, False), (256, 512, 256, 48, True), (128, 768, 1024, 160, False),
+              (256, 1536, 3072, 256, True), (128, 192, 512, 32, False)]
+
+
+@pytest.mark.parametrize("m,k,n,r,unsigned", PIPE_EDGES)
+def test_gelu_quant_pipe_edges(dev, m, k, n, r, unsigned):
+    """Bit for bit the ordinary producer kernel (qout, qscales, lora_next) and launched as the pipelined
+    kernel (its count, not the ordinary producer's)."""
+    from nunchaku_tpu_torch.ops.gemm import chain_route
+
+    assert chain_route(k, pipelined=True) == "pipe"
+    case = checks.gelu_quant_case(m, k, n, max(r, 1), device=dev)
+    if r == 0:
+        case = case[:4] + (None, None) + case[6:]
+    reset_launch_counts()
+    _, ok, detail = checks.check_gelu_quant_pipe(*case, act_unsigned_next=unsigned)
+    assert ok, detail
+    c = launch_counts()
+    assert c["gemm_w8a8_gelu_quant_pipe"] == 1 and c["gemm_w8a8_gelu_quant"] == 1, c
+
+
+def test_gelu_quant_pipe_sass(dev, tmp_path):
+    """gemm_w8a8_gelu_quant_pipe.cu built alone: no spill and no serialized wgmma (C7512 / C7515); its kernel
+    runs IGMMA on TMA-fed stages and keeps no local memory."""
+    from nunchaku_tpu_torch.ops import _build
+
+    spills, losses = _spills_and_losses(_ptxas_alone("gemm_w8a8_gelu_quant_pipe.cu", tmp_path))
+    assert spills and not any(spills) and not losses, (spills, losses)
+    path = _build.build()
+    sass, res = _build.sass_counts(path), _build.resource_usage(path)
+    pipe = [n for n in sass if "gemm_gelu_pipe_kernel" in n]
+    assert len(pipe) == 1, pipe
+    assert sass[pipe[0]]["IGMMA"] > 0 and sass[pipe[0]]["UTMALDG"] > 0, sass[pipe[0]]
+    assert res[pipe[0]]["STACK"] == 0 and res[pipe[0]]["LOCAL"] == 0, res[pipe[0]]
 
 
 def test_last_ops_counts_and_refusals(dev):
