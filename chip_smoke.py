@@ -8,7 +8,8 @@ Phases, each fatal on failure:
   2. build     -- nvcc builds every kernel in nunchaku_tpu_torch/csrc for sm_90a;
                   each kernel on the attention core (flash_sm90.cuh) and each
                   instantiation of the GEMM main loop (gemm_sm90.cuh: the bf16
-                  probe's, the int8 chain kernels' s8 ones), each of the
+                  probe's, the int8 chain kernels' and the int8 probe's s8 ones,
+                  the int8 probe's persistent form), each of the
                   W4A4 GEMM's nine instantiations and each of the LN
                   producer's eight must show wgmma (HGMMA /
                   IGMMA) and TMA-load (UTMALDG) instructions in cuobjdump
@@ -79,8 +80,10 @@ Phases, each fatal on failure:
                   the ported tools at bench_gemm_variants' shape (M 4608, K
                   3072, N 12288): the int8 one with int32 or f32 accumulation
                   and the cast, and f32 with the rank-1 epilogue, bit for bit
-                  at every built tile (128x128x64 the row; the chain GEMMs'
-                  WMMA main loop among the tiles), torch._int_mm as yardstick;
+                  at every built tile (the chain kernels' own s8 instantiation,
+                  tile "chain", the row; the other tiles logged with their
+                  share of the bound and their ratio to torch._int_mm),
+                  torch._int_mm as yardstick;
                   the bf16-operand one in its six operand forms within one
                   bf16 step up to the f32 sums' order (a limit the same
                   product summed in bf16 must exceed), torch.matmul of the
@@ -369,7 +372,7 @@ PROBE_SASS = {"TmaBf16": "gemm_probe_bf16_bf16_bf16", "Decoded<1, 1, 0>": "gemm_
 # C7515: wgmma serialized)
 PTXAS_CLEAN = ("flash_fixed_i8.cu", "gemm_probe_bf16.cu", "flash_online.cu", "gemv_awq.cu", "gemm_w8a8_gelu_quant.cu",
                "gemm_w8a8_grouped.cu", "gemm_w4a4.cu", "gemm_w4a8.cu", "ln_mod_quant.cu", "qkv_rope_producer.cu",
-               "dequant_w4a8.cu", "gemm_w8a8_gelu_quant_pipe.cu")
+               "dequant_w4a8.cu", "gemm_w8a8_gelu_quant_pipe.cu", "gemm_probe_i8.cu")
 # the dequant's instantiations dequant_w4a8_kernel<e2m1> (rows 1, 1s, 1e): TMA loads and stores, and no type
 # conversion (I2F, F2I) anywhere in them
 DEQ_SASS = {0: "dequant_w4a8 (rows 1, 1s)", 1: "dequant_w4a8_e2m1 (row 1e)"}
@@ -1075,11 +1078,29 @@ def core_sass(path) -> bool:
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
     for key, row in CHAIN_SASS.items():
-        found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name]
+        found = [c for name, c in sass.items() if "gemm_sm90_kernel<" in name and f"::{key}" in name
+                 and "ProbeEpi<" not in name]
         good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
         log(f"[build] {row}: gemm_sm90_kernel<S8, 128, 4, TmaS8<128>, {key}> "
             f"{show(found[0]) if found else 'not in the library'}: {'PASS' if good else 'FAIL'}")
         ok = ok and good
+    # the int8 probe (gemm_probe_i8.cu): its s8 instantiations gemm_sm90_kernel<S8, BN, ST, TmaS8<BN>,
+    # ProbeEpi<f32, rank1>> and its persistent form probe_i8_persistent_kernel<BN, ST, ProbeEpi<..>>, one a built
+    # (acc, epilogue, tile)
+    from nunchaku_tpu_torch.ops.gemm_probe import I8_BUILT
+
+    built = sum(len(tiles) for tiles in I8_BUILT.values())
+    probe = {name: c for name, c in sass.items() if "ProbeEpi<" in name
+             and ("gemm_sm90_kernel<" in name or "probe_i8_persistent_kernel<" in name)}
+    for name, c in probe.items():
+        good = c["IGMMA"] > 0 and c["UTMALDG"] > 0
+        short = name.replace("(anonymous namespace)::", "").replace("gemm90::", "").split("(")[0]
+        log(f"[build] gemm_probe_i8: {short} {show(c)}: {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+    good = len(probe) == built
+    log(f"[build] gemm_probe_i8: {len(probe)} s8 instantiations in the library, {built} built modes and tiles: "
+        f"{'PASS' if good else 'FAIL'}")
+    ok = ok and good
     for key, row in W4_SASS.items():  # s8 wgmma (IGMMA) on TMA-fed stages, W decoded by warpgroup 0
         found = [c for name, c in sass.items() if "gemm_w4_kernel<" in name and f"::{key}" in name]
         good = len(found) == 1 and found[0]["IGMMA"] > 0 and found[0]["UTMALDG"] > 0
@@ -3313,8 +3334,9 @@ def probe_kernel_rows(dev, record, failed):
     shape (bench_gemm_variants.py: M 4608, K 3072, N 12288), one row per
     mode, each against its plain version: gemm_probe_i8 with int32 or f32
     accumulation and the cast epilogue, and f32 with the rank-1 epilogue, at
-    128x128x64 (bit for bit; the mode's other tiles, and the chain GEMMs'
-    own WMMA main loop, checked and logged), torch._int_mm of the product as
+    tile "chain" (the int8 chain kernels' own s8 instantiation; bit for bit;
+    the mode's other tiles checked and logged with their share of the bound
+    and their ratio to the yardstick), torch._int_mm of the product as
     yardstick; gemm_probe_bf16 in its six operand forms (within one bf16 step
     up to the f32 sums' order, checks.check_probe_bf16; the detail gives the
     order factor and that of the product summed in bf16; the factor also
@@ -3335,13 +3357,14 @@ def probe_kernel_rows(dev, record, failed):
             err, ok, detail = checks.check_probe_i8(a, w, *sc, acc=acc, tile=tile)
             ms = time_ms(lambda: gemm_probe_i8(a, w, *sc, acc=acc, tile=tile), 20)
             name = i8_mode(acc, rank1)
-            if tile == "128x128x64":
+            if tile == "chain":
                 record(name, "nunchaku_tpu_torch/csrc/gemm_probe_i8.cu", replaces,
                        f"M={m} K={k} N={n} tile {tile}", ok, err, detail, ms,
                        time_ms(lambda: gemm_probe_i8_plain(a, w, *sc, acc=acc), 3), bnd, lib)
             else:
                 log(f"[kernel] {name}@{tile} @ M={m} K={k} N={n}: {'PASS' if ok else 'FAIL'} {detail}; {ms:.4f} ms "
-                    f"(bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound)")
+                    f"(bound {bnd[0]:.4f} ms by {bnd[1]}, {100 * bnd[0] / ms:.1f}% of bound; torch._int_mm "
+                    f"{lib:.4f} ms, {ms / lib:.3f}x it)")
                 if not ok:
                     failed.append(f"{name}@{tile}")
     del a, w, sa, sw

@@ -1,252 +1,246 @@
-// int8 GEMM probe: int8 A (M, K) row-major times int8 W (K, N), int32
+// int8 GEMM probe: int8 A (M, K) row-major times int8 W (K, N), s32
 // accumulators in registers, bf16 out. No model path launches it; the ported
-// GEMM probe tools (nunchaku_tpu_torch/tools/) measure the card's int8
-// product with it, apart from any epilogue of the chain kernels.
+// GEMM probe tools (nunchaku_tpu_torch/tools/) measure with it the s8 main loop
+// the int8 chain kernels run (gemm_sm90.cuh), apart from their epilogues.
 //
 // Replaces the int8 bodies of the TPU probe scripts' Pallas kernels:
 // tools/bench_gemm_variants.py k_i8dot (:107, launched by grid_call :27),
 // k_v7 (:159) and v7_with (:178, pallas_call :188); tools/probe_int8_mxu.py
 // mk_kernel (:48, pallas_mm :73) on int8 operands; tools/probe_m512.py
 // kern_i8 (:30, pallas_mm :68); tools/tune_gemm_impl.py kern (:70, pallas_mm
-// :92). Template parameters:
-//   ACC   F32ACC = false: one int32 sum over all of K; true: each K tile's
-//         int32 partial converted to f32 (rn) and added in f32, in K order
-//         (k_i8dot, k_v7, probe_int8_mxu line B);
-//   EPI   RANK1 = false: bf16(f32(acc)); true: bf16((acc * a_scale[m]) *
-//         w_scale[n]) in f32, in that order (k_v7). int32 -> bf16 goes
-//         through f32 (__int2float_rn, then __float2bfloat16_rn), as XLA's
-//         astype does;
-//   tile  (BM, BN, BK, warps along M, stages), 8 warps in every tile.
+// :92). Modes:
+//   F32   false: one s32 sum over all of K; true: each 128-deep K tile's s32
+//         partial converted to f32 and added in f32, in K order (k_i8dot,
+//         k_v7, probe_int8_mxu line B);
+//   RANK1 false: bf16(f32(acc)); true: bf16((acc * a_scale[m]) * w_scale[n])
+//         in f32, in that order (k_v7). int32 -> bf16 goes through f32
+//         (__int2float_rn, then __float2bfloat16_rn), as XLA's astype does.
 // The weight is read K-contiguous, W stored as its (N, K) transpose: the
-// tensor cores' int8 layout (mma.sync s8 takes B "col", and ldmatrix .trans
-// does not transpose 8-bit data), the layout of int8_gemm.cuh.
+// layout 8-bit wgmma reads (K-major B) and the int8 chain kernels' weights.
 //
 // Bound on the H100: operations (2*M*N*K int8 ops at 1979 TOP/s; at M 4608,
 // K 3072, N 12288 0.176 ms against 0.05 ms of bytes; at the M 512 text-stream
-// shapes near the ridge). Design: a STAGES-deep cp.async ring of A and W
-// tiles in shared memory, rows BK + 16 bytes apart (ldmatrix's eight row
-// addresses fall in distinct banks); each warp owns a WTM x WTN sub-tile as
-// m16n8k32 s8 mma.sync fragments (mma.cuh), loaded by ldmatrix as in
-// flash_fixed_i8.cu, so the accumulators' register layout is known and the
-// epilogue writes bf16 pairs from registers. In the f32 mode a warp first
-// loads the whole K tile's fragments, then runs each output fragment's
-// chain over the tile into a 4-register int32 partial and adds it to the f32
-// accumulator: one int32 partial live at a time, so the 64 x 64 warp tiles
-// fit 255 registers with both sums.
+// shapes near the ridge).
 //
-// The 128 x 128 x 64 tile keeps the chain kernels' geometry (2 x 4 warps of
-// 64 x 32, two stages). The "chain" tile is int8_gemm.cuh's own main loop
-// (WMMA, i8gemm::mainloop) with this kernel's epilogue, int32 only: that
-// loop takes all of K in one call and its WMMA fragments' register layout
-// is opaque, so a per-K-tile f32 conversion would need a hook inside the
-// file every chain kernel compiles; its int32 cast form alone shows the chain
-// kernels' main-loop rate without their epilogues. Built: the modes the
-// ported tools launch (nt_gemm_probe_i8 below).
-#include "int8_gemm.cuh"
-#include "mma.cuh"
+// Design: the instantiations gemm90::gemm_sm90_kernel<S8, BN, ST, TmaS8<BN>,
+// ProbeEpi> of the loop rows 2 and 3 run (one TMA producer warpgroup, two
+// consumer warpgroups of 64 rows on wgmma m64nBNk32 s8, a ring of ST K tiles
+// of 128 bytes, banded block order), with the epilogue below; and one
+// persistent form of it (probe_i8_persistent_kernel): one block an SM walks
+// the banded tiles blockIdx.x, + gridDim.x, ..., its producer running on into
+// the next tile's K tiles while the consumers write a tile's outputs.
+//   - F32 false: FOLDS false, one K group; the epilogue converts the s32 sums
+//     in their wgmma layout and stores bf16 pairs from registers.
+//   - F32 true: FOLDS true with every K tile its own group (TmaS8::maps with
+//     G = K / 128): each tile's products start from zero and, once done
+//     (wgmma.wait_group 0), fold into f32 registers (__int2float_rn, exact:
+//     a tile's partial is at most 2^21 in magnitude; then __fadd_rn). The
+//     other route, two s32 accumulator sets so that tile t - 1 folds under
+//     tile t's products, needs 3 x 64 registers beside the addresses, over
+//     the 168 ptxas gives a 384-thread kernel's consumers (C7512): not built.
+//     The fold's instructions cost more than the wait (PERF.md row 22a): the
+//     running sum is zeroed where it is made, not by a select at each K
+//     group, and I2F (two instructions a value) beat the full-rate 2^23-bias
+//     conversion (three).
+// Tiles: BM 128 and BK 128 always; BN 128 at ST 3, 4 (the chain pair's own
+// instantiation: tile "chain") and 6; BN 256 at ST 3 and 4 (i32 only: 128 s32
+// and 128 f32 registers do not fit); the persistent form at BN 128 and 256,
+// ST 4. Built: the modes the ported tools launch (nt_gemm_probe_i8 below).
+#include "gemm_sm90.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+using namespace sm90;
+using gemm90::A_TILE;
+using gemm90::BM;
+using gemm90::S8;
+using gemm90::TmaS8;
 
-template <int BM_, int BN_, int BK_, int WARPS_M_, int STAGES_>
-struct Tile {
-  static constexpr int BM = BM_, BN = BN_, BK = BK_, WARPS_M = WARPS_M_, STAGES = STAGES_;
-  static constexpr int WARPS_N = THREADS / 32 / WARPS_M;
-  static constexpr int WTM = BM / WARPS_M, WTN = BN / WARPS_N;  // a warp's sub-tile
-  static constexpr int MT = WTM / 16, NT = WTN / 8;             // its m16 / n8 mma tiles
-  static constexpr int KS = BK / 32;                            // k32 steps of a K tile
-  static constexpr int LD = BK + 16;                            // shared row stride, bytes
-  static constexpr int STAGE_BYTES = (BM + BN) * LD;
-  static constexpr int SMEM = STAGES * STAGE_BYTES;
-  static_assert(NT % 2 == 0 && WTM % 16 == 0 && BK % 32 == 0 && STAGES >= 2, "tile shape");
+// bf16(v) of the thread's outputs (rows row0 and row0 + 8, columns n0 + 8 j + 2 t4 (+1)) into out (M, N), v =
+// f32(acc) (F32 false) or the f32 sum of the K tiles' partials (true), times a_scale[m] then w_scale[n] if RANK1.
+template <bool F32, bool RANK1>
+struct ProbeEpi {
+  struct Params {
+    bf16* out;
+    const float* as;  // (M,) and (N,), RANK1 only
+    const float* ws;
+  };
+  static constexpr bool FOLDS = F32;
+  template <int BN>
+  struct State {
+    // the f32 running sum, in the accumulators' layout, zero where the state is made (before the K loop: a
+    // reset at the first K group, as begin_group(g == 0), costs a select a value at every group)
+    float f[F32 ? BN / 2 : 1] = {};
+  };
+  __host__ __device__ static int smem(const Params&) { return 0; }
+  template <int BN>
+  __device__ static void begin_group(const Params&, State<BN>&, int, int, int) {}
+  template <int BN>
+  __device__ static void fold(const Params&, State<BN>& st, const int (&acc)[BN / 2], int, int) {
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) st.f[i] = __fadd_rn(st.f[i], __int2float_rn(acc[i]));
+  }
+  template <int BN>
+  __device__ static void finish(const Params& e, State<BN>& st, const int (&acc)[BN / 2], unsigned char*, int,
+                                int n0, int row0, int ct, int, int N) {
+    const int c = n0 + 2 * (ct & 3);
+    float a0 = 1.f, a1 = 1.f;
+    if constexpr (RANK1) {
+      a0 = __ldg(e.as + row0);
+      a1 = __ldg(e.as + row0 + 8);
+    }
+    bf16* dst0 = e.out + static_cast<size_t>(row0) * N + c;
+    bf16* dst1 = dst0 + static_cast<size_t>(8) * N;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if constexpr (F32)
+          v[q] = st.f[4 * j + q];
+        else
+          v[q] = __int2float_rn(acc[4 * j + q]);
+      }
+      if constexpr (RANK1) {
+        const float2 w = __ldg(reinterpret_cast<const float2*>(e.ws + c + 8 * j));
+        v[0] = __fmul_rn(__fmul_rn(v[0], a0), w.x);
+        v[1] = __fmul_rn(__fmul_rn(v[1], a0), w.y);
+        v[2] = __fmul_rn(__fmul_rn(v[2], a1), w.x);
+        v[3] = __fmul_rn(__fmul_rn(v[3], a1), w.y);
+      }
+      *reinterpret_cast<__nv_bfloat162*>(dst0 + 8 * j) = __floats2bfloat162_rn(v[0], v[1]);
+      *reinterpret_cast<__nv_bfloat162*>(dst1 + 8 * j) = __floats2bfloat162_rn(v[2], v[3]);
+    }
+  }
 };
 
-typedef Tile<128, 128, 64, 2, 2> T128x128x64;   // the chain kernels' geometry
-typedef Tile<128, 128, 128, 2, 3> T128x128x128;
-typedef Tile<128, 256, 64, 2, 3> T128x256x64;   // 64 x 64 warp tiles
-typedef Tile<256, 128, 64, 4, 3> T256x128x64;
+// The persistent form: gemm_sm90_kernel's producer and consumers over the banded tiles blockIdx.x + i gridDim.x.
+// The ring's K tiles run on from one output tile to the next (K tile c of the block in stage c % ST), so the
+// producer loads the next tile's first ST K tiles while the consumers write this one's outputs; each K tile's stage
+// is released once its products are done (the last of each K group after its wait_group 0). The epilogue writes
+// from registers only (ProbeEpi: no shared memory), so it needs no barrier with the other consumer warpgroup.
+template <int BN, int ST, class Epi>
+__global__ void __launch_bounds__(gemm90::THREADS, 1)
+    probe_i8_persistent_kernel(const __grid_constant__ typename TmaS8<BN>::Params p,
+                               const __grid_constant__ typename Epi::Params e, int M, int N, int K) {
+  using Src = TmaS8<BN>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // aligned by an offset into the shared array, so every pointer derived from it stays a shared-memory one
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + gemm90::bar_offset<ST, Src, Epi>(e));
+  uint64_t* empty = full + ST;
+  const int mt = M / BM, nt = N / BN, tiles = mt * nt;
+  const int groups = Src::groups(p), tpg = Src::group_tiles(p, K);
 
-// A rows m0.. and W (as (N, K)) rows n0.. of K tile k0 into one stage: a[BM][LD] then b[BN][LD]
-template <class T>
-__device__ __forceinline__ void load_stage(int8_t* st, const int8_t* a, const int8_t* wt, int m0, int n0, int k0,
-                                           int K) {
-  constexpr int CH = T::BK / 16;
-  for (int c = threadIdx.x; c < T::BM * CH; c += THREADS) {
-    const int r = c / CH, cc = c % CH;
-    cp_async16(st + r * T::LD + cc * 16, a + static_cast<size_t>(m0 + r) * K + k0 + cc * 16, true);
-  }
-  int8_t* sb = st + T::BM * T::LD;
-  for (int c = threadIdx.x; c < T::BN * CH; c += THREADS) {
-    const int r = c / CH, cc = c % CH;
-    cp_async16(sb + r * T::LD + cc * 16, wt + static_cast<size_t>(n0 + r) * K + k0 + cc * 16, true);
-  }
-}
-
-template <class T, bool F32ACC, bool RANK1>
-__global__ void __launch_bounds__(THREADS)
-    gemm_probe_i8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ wt, const float* __restrict__ as,
-                         const float* __restrict__ ws, bf16* __restrict__ out, int N, int K) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  int8_t* smem = reinterpret_cast<int8_t*>(smem_raw);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t4 = lane & 3;   // mma fragment row group / column pair
-  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: which 8x8 matrix, which of its rows
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
-  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  const int nk = K / T::BK;
-
-  int acc[T::MT][T::NT][4];                                     // i32: the sum over K
-  float facc[F32ACC ? T::MT : 1][F32ACC ? T::NT : 1][4];        // f32: the sum of the K tiles' partials
+  if (threadIdx.x == 0) {
 #pragma unroll
-  for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        acc[i][j][e] = 0;
-        if constexpr (F32ACC) facc[i][j][e] = 0.f;
-      }
-
-#pragma unroll
-  for (int s = 0; s < T::STAGES - 1; ++s) {
-    if (s < nk) load_stage<T>(smem + s * T::STAGE_BYTES, a, wt, m0, n0, s * T::BK, K);
-    cp_async_commit();
-  }
-  for (int t = 0; t < nk; ++t) {
-    cp_async_wait<T::STAGES - 2>();
-    __syncthreads();  // tile t landed; every warp is done with the stage refilled next
-    const int tn = t + T::STAGES - 1;
-    if (tn < nk) load_stage<T>(smem + (tn % T::STAGES) * T::STAGE_BYTES, a, wt, m0, n0, tn * T::BK, K);
-    cp_async_commit();
-    const int8_t* sa = smem + (t % T::STAGES) * T::STAGE_BYTES + (wm * T::WTM) * T::LD;
-    const int8_t* sb = smem + (t % T::STAGES) * T::STAGE_BYTES + (T::BM + wn * T::WTN) * T::LD;
-    if constexpr (!F32ACC) {
-#pragma unroll
-      for (int ks = 0; ks < T::KS; ++ks) {
-        uint32_t af[T::MT][4];
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i)  // matrix mi: rows +8*(mi&1), bytes +16*(mi>>1)
-          ldsm_x4(sa + (i * 16 + (mi & 1) * 8 + mr) * T::LD + ks * 32 + (mi >> 1) * 16, af[i][0], af[i][1],
-                  af[i][2], af[i][3]);
-#pragma unroll
-        for (int j2 = 0; j2 < T::NT / 2; ++j2) {
-          // matrix mi: W rows (n) +8*(mi>>1) (next n8 tile), bytes +16*(mi&1) (b1 half)
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4(sb + (j2 * 16 + (mi >> 1) * 8 + mr) * T::LD + ks * 32 + (mi & 1) * 16, b0, b1, b2, b3);
-#pragma unroll
-          for (int i = 0; i < T::MT; ++i) {
-            mma_s8(acc[i][2 * j2], af[i], b0, b1);
-            mma_s8(acc[i][2 * j2 + 1], af[i], b2, b3);
-          }
-        }
-      }
-    } else {
-      uint32_t af[T::KS][T::MT][4], bfr[T::KS][T::NT][2];
-#pragma unroll
-      for (int ks = 0; ks < T::KS; ++ks) {
-#pragma unroll
-        for (int i = 0; i < T::MT; ++i)
-          ldsm_x4(sa + (i * 16 + (mi & 1) * 8 + mr) * T::LD + ks * 32 + (mi >> 1) * 16, af[ks][i][0],
-                  af[ks][i][1], af[ks][i][2], af[ks][i][3]);
-#pragma unroll
-        for (int j2 = 0; j2 < T::NT / 2; ++j2)
-          ldsm_x4(sb + (j2 * 16 + (mi >> 1) * 8 + mr) * T::LD + ks * 32 + (mi & 1) * 16, bfr[ks][2 * j2][0],
-                  bfr[ks][2 * j2][1], bfr[ks][2 * j2 + 1][0], bfr[ks][2 * j2 + 1][1]);
-      }
-#pragma unroll
-      for (int i = 0; i < T::MT; ++i)
-#pragma unroll
-        for (int j = 0; j < T::NT; ++j) {
-          int p[4] = {0, 0, 0, 0};  // this K tile's exact int32 partial
-#pragma unroll
-          for (int ks = 0; ks < T::KS; ++ks) mma_s8(p, af[ks][i], bfr[ks][j][0], bfr[ks][j][1]);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) facc[i][j][e] = __fadd_rn(facc[i][j][e], __int2float_rn(p[e]));
-        }
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 8);  // the consumers' eight warps
     }
+    mbar_init_fence();
   }
-  cp_async_wait<0>();
+  __syncthreads();
 
-  // fragment (i, j): rows g / g + 8 of m16 tile i, columns 2 t4, 2 t4 + 1 of n8 tile j
-#pragma unroll
-  for (int i = 0; i < T::MT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = m0 + wm * T::WTM + i * 16 + g + 8 * h;
-      const float sa_m = RANK1 ? __ldg(as + m) : 1.f;
-      bf16* dst = out + static_cast<size_t>(m) * N + n0 + wn * T::WTN + 2 * t4;
-#pragma unroll
-      for (int j = 0; j < T::NT; ++j) {
-        float v0, v1;
-        if constexpr (F32ACC) {
-          v0 = facc[i][j][2 * h];
-          v1 = facc[i][j][2 * h + 1];
-        } else {
-          v0 = __int2float_rn(acc[i][j][2 * h]);
-          v1 = __int2float_rn(acc[i][j][2 * h + 1]);
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / WG, 0);
+  if (role == 0) {
+    // ---- producer ----
+    reg_dealloc<gemm90::PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int c = 0;
+      for (int v = blockIdx.x; v < tiles; v += gridDim.x) {
+        int m0, n0;
+        gemm90::band_tile(v, mt, nt, BN, m0, n0);
+        for (int t = 0; t < groups * tpg; ++t, ++c) {
+          const int s = c % ST;
+          mbar_wait(empty + s, ((c / ST) & 1) ^ 1);
+          Src::load(p, sm + s * Src::STAGE, full + s, m0, n0, t);
         }
-        if constexpr (RANK1) {
-          const int n = n0 + wn * T::WTN + j * 8 + 2 * t4;
-          v0 = __fmul_rn(__fmul_rn(v0, sa_m), __ldg(ws + n));
-          v1 = __fmul_rn(__fmul_rn(v1, sa_m), __ldg(ws + n + 1));
-        }
-        *reinterpret_cast<__nv_bfloat162*>(dst + j * 8) = __floats2bfloat162_rn(v0, v1);
       }
     }
+    return;
+  }
+  // ---- consumers: 64 rows a warpgroup ----
+  reg_alloc<gemm90::CONSUMER_REGS>();
+  const int ct = threadIdx.x - WG, cw = ct / WG, warp = (ct % WG) / 32, lane = ct % 32;
+  int acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+  int c = 0;
+  for (int v = blockIdx.x; v < tiles; v += gridDim.x) {
+    int m0, n0;
+    gemm90::band_tile(v, mt, nt, BN, m0, n0);
+    const int row0 = m0 + cw * 64 + warp * 16 + (lane >> 2);
+    typename Epi::template State<BN> st;
+    for (int g = 0; g < groups; ++g) {
+      Epi::begin_group(e, st, g, row0, M);
+      for (int i = 0; i < tpg; ++i, ++c) {
+        const int s = c % ST;
+        mbar_wait(full + s, (c / ST) & 1);
+        const unsigned char* a = sm + s * Src::STAGE + cw * 64 * 128;
+        const unsigned char* w = sm + s * Src::STAGE + A_TILE;
+        reg_fence(acc);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < S8::BK / S8::K_STEP; ++kk)  // a K group's first k step overwrites (one group: the tile)
+          S8::mma<BN>(acc, sw128_desc(a + kk * 32), S8::w_desc(w, kk), i > 0 || kk > 0);
+        wg_commit();
+        wg_wait<1>();  // K tile c - 1's products are done
+        if (i > 0 && lane == 0) mbar_arrive(empty + (c - 1) % ST);
+      }
+      wg_wait<0>();
+      reg_fence(acc);
+      if (lane == 0) mbar_arrive(empty + (c - 1) % ST);
+      if constexpr (Epi::FOLDS) Epi::fold(e, st, acc, g, row0);
+    }
+    Epi::finish(e, st, acc, sm, m0, n0, row0, ct, M, N);
   }
 }
 
-// int8_gemm.cuh's main loop (the chain kernels' 128 x 128 x 64 WMMA loop, two
-// stages) over all of K, int32, with the cast epilogue.
-__host__ __device__ constexpr int chain_smem() {
-  return static_cast<int>(i8gemm::align128(2 * sizeof(i8gemm::Stage)) + (i8gemm::THREADS / 32) * 256 * sizeof(int));
-}
-
-__global__ void __launch_bounds__(i8gemm::THREADS)
-    gemm_probe_i8_chain_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ wt, bf16* __restrict__ out,
-                               int N, int K) {
-  using namespace i8gemm;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  auto* st = reinterpret_cast<Stage*>(smem_raw);
-  int* scratch = reinterpret_cast<int*>(smem_raw + align128(2 * sizeof(Stage)));
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  AccFrag acc[FM][FN];
-  zero(acc);
-  mainloop(st, acc, a, WeightI8{wt}, m0, n0, 0, K, K);
-  for_each_fragment(scratch + (threadIdx.x / 32) * 256, acc, [&](int, int, int ml, int nl, const int (&v)[8]) {
-    uint4 packed;
-    bf16* pb = reinterpret_cast<bf16*>(&packed);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) pb[i] = __float2bfloat16_rn(__int2float_rn(v[i]));
-    *reinterpret_cast<uint4*>(out + static_cast<size_t>(m0 + ml) * N + n0 + nl) = packed;
-  });
-}
-
-template <class T, bool F32ACC, bool RANK1>
-int launch(const int8_t* a, const int8_t* wt, const float* as, const float* ws, bf16* out, int M, int N, int K,
-           cudaStream_t stream) {
+template <int BN, int ST, class Epi>
+int launch_persistent(const typename TmaS8<BN>::Params& p, const typename Epi::Params& e, int M, int N, int K,
+                      cudaStream_t stream) {
+  const int bytes = gemm90::smem_bytes<ST, TmaS8<BN>, Epi>(e);
+  if (bytes > gemm90::MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;
   if (!configured) {
-    cudaError_t e = cudaFuncSetAttribute(gemm_probe_i8_kernel<T, F32ACC, RANK1>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaError_t err = cudaFuncSetAttribute(probe_i8_persistent_kernel<BN, ST, Epi>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  dim3 grid(N / T::BN, M / T::BM);
-  gemm_probe_i8_kernel<T, F32ACC, RANK1><<<grid, THREADS, T::SMEM, stream>>>(a, wt, as, ws, out, N, K);
+  const int tiles = M / BM * (N / BN), grid = tiles < sm_count() ? tiles : sm_count();
+  probe_i8_persistent_kernel<BN, ST, Epi><<<grid, gemm90::THREADS, bytes, stream>>>(p, e, M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the modes built at each tile: those the ported tools launch (ACC f32 with the cast
-// epilogue at 128 x 128 x 64 only: bench_gemm_variants k_i8dot, probe_int8_mxu line B)
-template <class T, bool F32_CAST>
-int launch_mode(int f32acc, int rank1, const int8_t* a, const int8_t* wt, const float* as, const float* ws,
-                bf16* out, int M, int N, int K, cudaStream_t stream) {
-  if (f32acc && rank1) return launch<T, true, true>(a, wt, as, ws, out, M, N, K, stream);
-  if (!f32acc && !rank1) return launch<T, false, false>(a, wt, as, ws, out, M, N, K, stream);
+template <int BN, int ST, bool PERSISTENT, bool F32, bool RANK1>
+int launch(const void* a, const void* wt, const float* as, const float* ws, bf16* out, int M, int N, int K,
+           cudaStream_t stream) {
+  using Epi = ProbeEpi<F32, RANK1>;
+  if (M <= 0 || N <= 0 || K <= 0 || M % BM || N % BN || K % (F32 ? S8::BK : 64) ||
+      (RANK1 && (as == nullptr || ws == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  typename TmaS8<BN>::Params p;
+  if (!TmaS8<BN>::maps(p, a, wt, M, N, K, F32 ? K / S8::BK : 1, nullptr, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const typename Epi::Params e{out, as, ws};
+  if constexpr (PERSISTENT)
+    return launch_persistent<BN, ST, Epi>(p, e, M, N, K, stream);
+  else
+    return gemm90::launch<S8, BN, ST, TmaS8<BN>, Epi>(p, e, M, N, K, stream);
+}
+
+// the modes built at a tile: i32 cast always, f32 cast and f32 rank-1 where the ported tools launch them
+template <int BN, int ST, bool PERSISTENT, bool F32_CAST, bool F32_RANK1>
+int launch_mode(int f32acc, int rank1, const void* a, const void* wt, const float* as, const float* ws, bf16* out,
+                int M, int N, int K, cudaStream_t stream) {
+  if (!f32acc && !rank1) return launch<BN, ST, PERSISTENT, false, false>(a, wt, as, ws, out, M, N, K, stream);
   if constexpr (F32_CAST) {
-    if (f32acc) return launch<T, true, false>(a, wt, as, ws, out, M, N, K, stream);
+    if (f32acc && !rank1) return launch<BN, ST, PERSISTENT, true, false>(a, wt, as, ws, out, M, N, K, stream);
+  }
+  if constexpr (F32_RANK1) {
+    if (f32acc && rank1) return launch<BN, ST, PERSISTENT, true, true>(a, wt, as, ws, out, M, N, K, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -254,29 +248,25 @@ int launch_mode(int f32acc, int rank1, const int8_t* a, const int8_t* wt, const 
 }  // namespace
 
 // a (M, K) int8 row-major, wt (N, K) int8 (the (K, N) weight, K-contiguous),
-// as (M,) and ws (N,) f32 (rank1 only, else null) -> out (M, N) bf16.
-// tile: 0 128x128x64, 1 128x128x128, 2 128x256x64, 3 256x128x64, 4 the chain
-// main loop (128x128x64). Built (f32acc, rank1): (0, 0) and (1, 1) at tiles
-// 0-3, (1, 0) at tile 0, (0, 0) at tile 4. M, N, K multiples of the tile.
+// as (M,) and ws (N,) f32 (rank1 only, else null) -> out (M, N) bf16; every
+// pointer 16-byte aligned. tile (BN, ring stages): 0 "chain" (128, 4), 1
+// (128, 3), 2 (128, 6), 3 (256, 3), 4 (256, 4), 5 persistent (128, 4), 6
+// persistent (256, 4). Built (f32acc, rank1): (0, 0) at every tile; (1, 1) at
+// tiles 0, 1, 2, 5; (1, 0) at tile 0. M % 128 == 0, N % BN == 0, K % 64 == 0 (K % 128 == 0 with f32acc).
 extern "C" int nt_gemm_probe_i8(const void* a, const void* wt, const void* as, const void* ws, void* out, int M,
                                 int N, int K, int tile, int f32acc, int rank1, void* stream) {
-  const auto* pa = static_cast<const int8_t*>(a);
-  const auto* pw = static_cast<const int8_t*>(wt);
   const auto* pas = static_cast<const float*>(as);
   const auto* pws = static_cast<const float*>(ws);
   auto* po = static_cast<bf16*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 0: return launch_mode<T128x128x64, true>(f32acc, rank1, pa, pw, pas, pws, po, M, N, K, s);
-    case 1: return launch_mode<T128x128x128, false>(f32acc, rank1, pa, pw, pas, pws, po, M, N, K, s);
-    case 2: return launch_mode<T128x256x64, false>(f32acc, rank1, pa, pw, pas, pws, po, M, N, K, s);
-    case 3: return launch_mode<T256x128x64, false>(f32acc, rank1, pa, pw, pas, pws, po, M, N, K, s);
-    case 4: {
-      if (f32acc || rank1) return static_cast<int>(cudaErrorInvalidValue);
-      dim3 grid(N / i8gemm::BN, M / i8gemm::BM);
-      gemm_probe_i8_chain_kernel<<<grid, i8gemm::THREADS, chain_smem(), s>>>(pa, pw, po, N, K);
-      return static_cast<int>(cudaGetLastError());
-    }
+    case 0: return launch_mode<128, 4, false, true, true>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
+    case 1: return launch_mode<128, 3, false, false, true>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
+    case 2: return launch_mode<128, 6, false, false, true>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
+    case 3: return launch_mode<256, 3, false, false, false>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
+    case 4: return launch_mode<256, 4, false, false, false>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
+    case 5: return launch_mode<128, 4, true, false, true>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
+    case 6: return launch_mode<256, 4, true, false, false>(f32acc, rank1, a, wt, pas, pws, po, M, N, K, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

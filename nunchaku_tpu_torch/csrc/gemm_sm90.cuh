@@ -23,7 +23,7 @@
 //     epilogue folds them into registers of its own (the grouped consumer's
 //     f32 running sum); then, after the last tile, it writes the output
 //     (gemm_w8a8_gelu_quant.cu, gemm_w8a8_grouped.cu; the bf16 store below
-//     for the probe).
+//     for the bf16 probe, gemm_probe_i8.cu's ProbeEpi for the int8 one).
 //
 // Design (one block a BM x BN output tile, 384 threads):
 //   - warpgroup 0 is the producer: registers lowered by setmaxnreg, one
@@ -184,6 +184,41 @@ __device__ __forceinline__ void S8::mma<128>(int (&d)[64], uint64_t da, uint64_t
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// d (64 x 256 s32, the f32 accumulator layout) (+)= A (64 x 32 s8, K-major) . B (256 x 32 s8, K-major)^T, both
+// in shared memory; scale_d 0 overwrites d
+template <>
+__device__ __forceinline__ void S8::mma<256>(int (&d)[128], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // Src (the source of a K tile) provides:
 //   Params                         kernel parameters (tensor maps, pointers), passed __grid_constant__
 //   STAGE, EXTRA                   bytes of a ring stage and of its own shared memory after the ring
@@ -259,13 +294,18 @@ __host__ __device__ inline int bar_offset(const typename Epi::Params& e) {
   return ring > epi ? ring : epi;
 }
 
-// This block's output tile (m0, n0) in the banded raster over mt row tiles of BM and nt column tiles of bn (one
-// block index over mt x nt tiles; a band's last row tile may be a partial one).
-__device__ __forceinline__ void band_tile(int mt, int nt, int bn, int& m0, int& n0) {
-  const int band = blockIdx.x / (GROUP_M * nt), first = band * GROUP_M, rows = min(GROUP_M, mt - first);
-  const int in_band = blockIdx.x - band * GROUP_M * nt;
+// Output tile v's (m0, n0) in the banded raster over mt row tiles of BM and nt column tiles of bn (one index over
+// mt x nt tiles; a band's last row tile may be a partial one).
+__device__ __forceinline__ void band_tile(int v, int mt, int nt, int bn, int& m0, int& n0) {
+  const int band = v / (GROUP_M * nt), first = band * GROUP_M, rows = min(GROUP_M, mt - first);
+  const int in_band = v - band * GROUP_M * nt;
   m0 = (first + in_band % rows) * BM;
   n0 = in_band / rows * bn;
+}
+
+// This block's output tile: tile blockIdx.x of the banded raster.
+__device__ __forceinline__ void band_tile(int mt, int nt, int bn, int& m0, int& n0) {
+  band_tile(static_cast<int>(blockIdx.x), mt, nt, bn, m0, n0);
 }
 
 template <class Op, int BN, int ST, class Src, class Epi>
@@ -344,7 +384,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   Epi::finish(e, st, acc, sm, m0, n0, row0, ct, M, N);
 }
 
-// The bf16 store: the accumulators rounded to bf16 -> out (M, N), ld N (the probe's epilogue).
+// The bf16 store: the accumulators rounded to bf16 -> out (M, N), ld N (the bf16 probe's epilogue).
 struct StoreBf16 {
   struct Params {
     bf16* out;

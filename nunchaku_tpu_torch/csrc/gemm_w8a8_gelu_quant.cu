@@ -80,6 +80,8 @@
 // slices of two WMMA accumulators, so registers do not grow with the rank;
 // the partial buffer is sized by R2 (tiles x M x R2p), and kernel B sums the
 // tiles in tile order, as the JAX producer does.
+#include <mma.h>  // nvcuda::wmma: the rank-R2 partial bf16(g) @ proj_down
+
 #include "gelu_requant.cuh"
 #include "gemm_sm90.cuh"
 #include "int8_gemm.cuh"

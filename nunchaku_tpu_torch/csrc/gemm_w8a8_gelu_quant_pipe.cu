@@ -56,6 +56,8 @@
 // Measured (PERF.md row 14): no faster than row 2's serial epilogue. Alone,
 // the epilogue team takes longer a tile than the products (it is half the
 // block's threads at 128 registers), and the two teams share the SM.
+#include <mma.h>  // nvcuda::wmma: the rank-R2 partial bf16(g) @ proj_down
+
 #include "gelu_requant.cuh"
 #include "gemm_sm90.cuh"
 #include "int8_gemm.cuh"

@@ -1,132 +1,18 @@
-// int8 x int8 -> int32 tensor-core main loop (WMMA) of the int8 GEMM probe's
-// "chain" tile (gemm_probe_i8.cu): nothing else runs it. The int8 chain
-// kernels, the pipelined producer and the packed-int4 w4a8 kernels run on
-// gemm_sm90.cuh's s8 loop; the chain kernels and the packed ones take only
-// the low-rank helpers at the end of this file (LoraRows,
-// stage_lora_rows, lora_sums_4x16: the rank-R sums of the WMMA kernels'
-// epilogue in its order), so their epilogues stay the same arithmetic.
-//
-// Block tile 128 x 128 x 64, eight warps as 2 (M) x 4 (N), warp tile
-// 64 x 32 = 4 x 2 WMMA 16x16x16 s8 fragments. Both operands are
-// K-contiguous (the tensor cores' native int8 "TN" layout): activations
-// (M, K) row-major, the weight as its (N, K) transpose -- the (K, N) weight
-// the dequant kernel writes K-contiguous. They stream through a two-stage
-// cp.async ring in shared memory, each stage holding 16-byte k chunks
-// ([chunk][row][16]) so that every 16x16 WMMA fragment is one contiguous,
-// 32-byte-aligned 256-byte block (WMMA needs 256-bit-aligned fragment
-// pointers, which a plain 64-byte-wide row tile cannot give at odd 16-byte
-// offsets).
+// The low-rank tiles of the int8 chain kernels' epilogues (gemm_w8a8_gelu_quant.cu, grouped_epi.cuh,
+// gemm_w8a8_gelu_quant_pipe.cu): bf16(lora_act) and proj_up of one chunk of at most RANK_CHUNK ranks staged in
+// shared memory (LoraRows, lora_rows, stage_lora_rows), and the rank-R sums of a thread's 4 x 16 block of a 128 x
+// 128 output tile in the order of the WMMA kernels those epilogues replaced (lora_sums_4x16, lora_sums_all), so
+// their outputs stay that arithmetic bit for bit. The kernels' products run on gemm_sm90.cuh's s8 loop.
 #pragma once
-
-#include <mma.h>
 
 #include "common.cuh"
 
 namespace i8gemm {
 
-using namespace nvcuda;
-
-constexpr int BM = 128, BN = 128, BK = 64, THREADS = 256;
-constexpr int WM = 64, WN = 32;
-constexpr int FM = WM / 16, FN = WN / 16;
-constexpr int KC = BK / 16;
-constexpr int RANK_CHUNK = 128;  // low-rank widths are staged and summed in chunks of this many ranks
-
-struct Stage {
-  int8_t a[KC][BM][16];  // a[kc][m] = qact[m0 + m, k0 + 16 kc : +16]
-  int8_t b[KC][BN][16];  // b[kc][n] = w[k0 + 16 kc : +16, n0 + n]
-};
+constexpr int BM = 128, BN = 128;  // the output tile the low-rank sums cover
+constexpr int RANK_CHUNK = 128;    // low-rank widths are staged and summed in chunks of this many ranks
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
-
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, int> AccFrag;
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> AFrag;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> BFrag;
-
-// The int8 weight (K, N), read from its (N, K) K-contiguous storage wt.
-// load() fills a whole stage, activations first.
-struct WeightI8 {
-  using StageT = Stage;
-  const int8_t* wt;
-  __device__ __forceinline__ void load(Stage& st, const int8_t* qa, int m0, int n0, int k0, int K) const {
-    for (int c = threadIdx.x; c < BM * KC; c += THREADS) {
-      int r = c / KC, kc = c % KC;
-      cp_async16(&st.a[kc][r][0], qa + static_cast<size_t>(m0 + r) * K + k0 + kc * 16, true);
-    }
-    for (int c = threadIdx.x; c < BN * KC; c += THREADS) {
-      int r = c / KC, kc = c % KC;
-      cp_async16(&st.b[kc][r][0], wt + static_cast<size_t>(n0 + r) * K + k0 + kc * 16, true);
-    }
-  }
-};
-
-// acc += qa[m0:m0+BM, kb:ke] @ w[kb:ke, n0:n0+BN]; (ke - kb) % BK == 0.
-// st2 is the two-stage ring of the weight's stage type. Returns with every
-// copy landed and the block synchronised, so the caller may reuse the ring's
-// memory right away.
-template <class W>
-__device__ __forceinline__ void mainloop(typename W::StageT* st2, AccFrag (&acc)[FM][FN], const int8_t* qa,
-                                         const W& w, int m0, int n0, int kb, int ke, int K) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int tiles = (ke - kb) / BK;
-  w.load(st2[0], qa, m0, n0, kb, K);
-  cp_async_commit();
-  for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) w.load(st2[(t + 1) & 1], qa, m0, n0, kb + (t + 1) * BK, K);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const Stage& st = st2[t & 1];
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      AFrag a[FM];
-      BFrag b[FN];
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm) wmma::load_matrix_sync(a[fm], &st.a[kc][wm * WM + fm * 16][0], 16);
-#pragma unroll
-      for (int fn = 0; fn < FN; ++fn) wmma::load_matrix_sync(b[fn], &st.b[kc][wn * WN + fn * 16][0], 16);
-#pragma unroll
-      for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-        for (int fn = 0; fn < FN; ++fn) wmma::mma_sync(acc[fm][fn], a[fm], b[fn], acc[fm][fn]);
-    }
-    __syncthreads();
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-__device__ __forceinline__ void zero(AccFrag (&acc)[FM][FN]) {
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm)
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) wmma::fill_fragment(acc[fm][fn], 0);
-}
-
-// Hands each lane 8 consecutive accumulator values of one fragment row:
-// f(fm, fn, ml, nl, v) with (ml, nl) the tile-local row and first column.
-// scr is this warp's 16x16 int scratch in shared memory. Lanes 2r and 2r+1
-// hold row r of a fragment (columns 0-7 and 8-15).
-template <class F>
-__device__ __forceinline__ void for_each_fragment(int* scr, AccFrag (&acc)[FM][FN], F f) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
-#pragma unroll
-  for (int fm = 0; fm < FM; ++fm) {
-#pragma unroll
-    for (int fn = 0; fn < FN; ++fn) {
-      wmma::store_matrix_sync(scr, acc[fm][fn], 16, wmma::mem_row_major);
-      __syncwarp();
-      int v[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = scr[r * 16 + c0 + i];
-      __syncwarp();
-      f(fm, fn, wm * WM + fm * 16 + r, wn * WN + fn * 16 + c0, v);
-    }
-  }
-}
 
 // The s8 epilogues' low-rank tiles (gemm_w8a8_gelu_quant.cu, grouped_epi.cuh): one chunk of at most
 // RANK_CHUNK ranks, bf16(lora_act[m0:, j0:j0 + R]) row-major, rows ld = R rounded up to 8, plus 8, apart

@@ -980,7 +980,7 @@ def probe_i8_case(m, k, n, *, seed=0, device="cuda"):
     return a, w, torch.rand((m,), device=device, generator=g), torch.rand((n,), device=device, generator=g)
 
 
-def check_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="128x128x64"):
+def check_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="chain"):
     """The int8 probe kernel bit for bit its plain version at the tile's K
     depth (exact int32 products; the same f32 operations in the same order)."""
     out = gemm_probe_i8(a, w, a_scale, w_scale, acc=acc, tile=tile)

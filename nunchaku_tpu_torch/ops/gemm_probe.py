@@ -33,13 +33,16 @@ instantiation it launched (:data:`COUNTS`: ``gemm_probe_i8_<acc>_<epilogue>@<til
 
 Tiles. The TPU scripts' tile tuples (512 x 1024 x 512 and the like, sized
 for the TPU's 16 MB VMEM) mean nothing on this card. The int8 kernel is
-instantiated at the card tiles of :data:`I8_TILES`, all with 8 warps:
-128 x 128 x 64 is the packed chain GEMMs' tile and warp layout (``csrc/int8_gemm.cuh``:
-2 x 4 warps of 64 x 32, two stages); ``"chain"`` is that file's own main loop
-(WMMA, the packed forms' loop; the int8 chain kernels run on ``csrc/gemm_sm90.cuh``'s
-s8 loop) with the cast epilogue, int32 only. Each tile is built for the modes
-the ported tools launch (:data:`I8_BUILT`). The bf16-operand kernel has one
-tile, 128 x 128 x 64 (two consumer warpgroups of 64 rows, wgmma m64n128k16).
+``csrc/gemm_sm90.cuh``'s s8 main loop (a TMA producer warpgroup, two wgmma
+consumer warpgroups of 64 rows, a ring of K tiles of 128 bytes), the loop
+the int8 chain kernels run, instantiated at the card tiles of
+:data:`I8_TILES`: BM 128 and BK 128 always, BN 128 or 256, the ring's
+stages after ``s``; ``"chain"`` (BN 128, 4 stages) is exactly the chain
+kernels' instantiation with the probe's epilogue, and ``p`` marks the
+persistent form (one block an SM walking the tiles). Each tile is built for
+the modes the ported tools launch (:data:`I8_BUILT`). The bf16-operand
+kernel has one tile, 128 x 128 x 64 (two consumer warpgroups of 64 rows,
+wgmma m64n128k16).
 """
 
 from __future__ import annotations
@@ -53,13 +56,16 @@ from . import _build
 from .gemm import _ptr, _stream
 from .reference import GROUP_INT4, int8_matmul
 
-# name -> (id in nt_gemm_probe_i8, BM, BN, BK)
-I8_TILES = {"128x128x64": (0, 128, 128, 64), "128x128x128": (1, 128, 128, 128), "128x256x64": (2, 128, 256, 64),
-            "256x128x64": (3, 256, 128, 64), "chain": (4, 128, 128, 64)}
+# name -> (id in nt_gemm_probe_i8, BM, BN, BK); the ring's stages after "s", "p" the persistent form
+I8_TILES = {"chain": (0, 128, 128, 128), "128x128x128s3": (1, 128, 128, 128), "128x128x128s6": (2, 128, 128, 128),
+            "128x256x128s3": (3, 128, 256, 128), "128x256x128s4": (4, 128, 256, 128),
+            "128x128x128s4p": (5, 128, 128, 128), "128x256x128s4p": (6, 128, 256, 128)}
 I8_ACCS = ("i32", "f32")
-# (acc, rank-1 epilogue) -> the tiles it is built at: the modes the ported tools launch
-I8_BUILT = {("i32", False): tuple(I8_TILES), ("f32", False): ("128x128x64",),
-            ("f32", True): ("128x128x64", "128x128x128", "128x256x64", "256x128x64")}
+# (acc, rank-1 epilogue) -> the tiles it is built at: the modes the ported tools launch (no f32 mode at BN 256:
+# 128 s32 and 128 f32 registers a thread do not fit)
+I8_BUILT = {("i32", False): tuple(I8_TILES), ("f32", False): ("chain",),
+            ("f32", True): ("chain", "128x128x128s3", "128x128x128s6", "128x128x128s4p")}
+I8_K_ALIGN = {"i32": 64, "f32": 128}  # K multiple: TMA zero-fills an i32 sum's last half K tile
 BF16_TILE = (128, 128, 64)
 FORM_IDS = {"bf16": 0, "i8": 1, "p4": 2}
 # (a form, w form, scaled): the operand forms the bf16-operand kernel is built for
@@ -85,7 +91,7 @@ COUNTS.update({bf16_mode(*f): SimpleNamespace(launches=0) for f in BF16_FORMS})
 # ---------------------------------------------------------------------------
 
 
-def gemm_probe_i8_plain(a, w, a_scale=None, w_scale=None, *, acc="i32", bk=64):
+def gemm_probe_i8_plain(a, w, a_scale=None, w_scale=None, *, acc="i32", bk=128):
     """The int8 kernel's numerics step by step: the exact int32 product
     (``int8_matmul``), or with ``acc="f32"`` each ``bk``-deep K tile's int32
     partial converted to f32 and added in order; then f32 (rounded from
@@ -117,8 +123,9 @@ def _require_i8(a, w, a_scale, w_scale, acc, tile):
     _build.require(w.device == a.device, "a and w on one device")
     (m, k), n = a.shape, w.shape[1]
     _, bm, bn, bk = I8_TILES[tile]
-    _build.require(m % bm == 0 and n % bn == 0 and k % bk == 0,
-                   f"tile {tile} needs M % {bm}, N % {bn}, K % {bk} == 0 (M={m}, K={k}, N={n})")
+    _build.require(m > 0 and k > 0 and n > 0 and m % bm == 0 and n % bn == 0 and k % I8_K_ALIGN[acc] == 0,
+                   f"tile {tile} with acc {acc!r} needs M % {bm}, N % {bn}, K % {I8_K_ALIGN[acc]} == 0, none 0 "
+                   f"(M={m}, K={k}, N={n})")
     if a_scale is not None:
         for name, s, size in (("a_scale", a_scale, m), ("w_scale", w_scale, n)):
             _build.require(s.dtype == torch.float32 and s.numel() == size and s.device == a.device
@@ -127,7 +134,7 @@ def _require_i8(a, w, a_scale, w_scale, acc, tile):
     return m, k, n, bk
 
 
-def gemm_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="128x128x64"):
+def gemm_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="chain"):
     """int8 a (M, K) x int8 w (K, N) -> (M, N) bf16 (:func:`gemm_probe_i8_plain`).
 
     ``w`` is in the JAX orientation; the kernel reads it K-contiguous (the
@@ -135,8 +142,9 @@ def gemm_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="128x128x
     tensor passes as it is and anything else is copied to that layout.
     ``a_scale`` (M,) / ``w_scale`` (N,) f32: the rank-1 epilogue. ``acc``:
     ``"i32"`` or ``"f32"`` (each K tile's int32 partial added in f32).
-    ``tile``: one of :data:`I8_TILES`; M, N and K must be multiples of it.
-    The (acc, epilogue, tile) combinations built are :data:`I8_BUILT`."""
+    ``tile``: one of :data:`I8_TILES`; M and N must be multiples of its BM
+    and BN, K of 64 (``"i32"``) or 128 (``"f32"``). The (acc, epilogue,
+    tile) combinations built are :data:`I8_BUILT`."""
     m, k, n, bk = _require_i8(a, w, a_scale, w_scale, acc, tile)
     if not a.is_cuda:
         return gemm_probe_i8_plain(a, w, a_scale, w_scale, acc=acc, bk=bk)
@@ -144,6 +152,8 @@ def gemm_probe_i8(a, w, a_scale=None, w_scale=None, *, acc="i32", tile="128x128x
     rank1 = a_scale is not None
     a_s = None if a_scale is None else a_scale.reshape(-1)
     w_s = None if w_scale is None else w_scale.reshape(-1)
+    _build.require(all(t.data_ptr() % 16 == 0 for t in (a, wt, a_s, w_s) if t is not None),
+                   "the int8 probe's TMA copies and scale loads need 16-byte aligned operands and scales")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     _build.check(_build.library().nt_gemm_probe_i8(a.data_ptr(), wt.data_ptr(), _ptr(a_s), _ptr(w_s),
                                                     out.data_ptr(), m, n, k, I8_TILES[tile][0], int(acc == "f32"),

@@ -56,8 +56,9 @@ def tile_fits(tile: str, m: int, k: int, n: int) -> bool:
 
 
 def tile_label(tile: str, sep: str) -> str:
-    """``"128x256x64"`` -> ``"128<sep>256<sep>64"`` (the JAX lines' tile
-    spelling); the chain main loop stays ``"chain"``."""
+    """``"128x256x128s4"`` -> ``"128<sep>256<sep>128s4"`` (the JAX lines'
+    tile spelling, the ring's stages after ``s``); the chain kernels' own
+    instantiation stays ``"chain"``."""
     return tile if tile == "chain" else sep.join(tile.split("x"))
 
 

@@ -18,11 +18,14 @@ Line -> the port (``pallas_mm`` / ``mk_kernel`` :48, :73 -> the probe kernels):
 * E. XLA's int8 ``dot_general``: ``torch._int_mm``, cast to bf16;
 * E2. XLA's bf16 dot: ``torch.matmul``;
 * F. the int32 product at each card tile the kernel is built for
-  (``"chain"``: the chain GEMMs' own WMMA main loop). The JAX script's TPU
-  tiles (sized for 16 MB of VMEM) do not carry over.
+  (``"chain"``: the int8 chain kernels' own instantiation of the s8 wgmma
+  loop, 128 x 128 x 128 at 4 stages). The JAX script's TPU tiles (sized for
+  16 MB of VMEM) do not carry over.
 
-A, B and C run at the kernels' 128 x 128 x 64 tile. E and E2 are the
-library's products, the yardsticks of the lines above them.
+A runs at the bf16-operand kernel's 128 x 128 x 64 tile, B and C at the
+int8 kernel's ``"chain"`` tile (the line names keep the JAX script's
+spelling). E and E2 are the library's products, the yardsticks of the lines
+above them.
 """
 
 from __future__ import annotations

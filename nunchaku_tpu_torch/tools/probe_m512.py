@@ -16,12 +16,14 @@ Case -> the port:
 * ``xla-bf16``: XLA's bf16 dot of the cast operands -> ``torch.matmul``;
 * ``pl-i8-<tile>`` (``kern_i8`` :30, int32 accumulator, bf16 out):
   ``gemm_probe_i8`` at each card tile the kernel is built for (``chain``:
-  the chain GEMMs' own WMMA main loop); the JAX script's TPU tiles (sized
-  for 16 MB of VMEM) do not carry over, so the names carry the card's;
+  the int8 chain kernels' own instantiation of the s8 wgmma loop); the JAX
+  script's TPU tiles (sized for 16 MB of VMEM) do not carry over, so the
+  names carry the card's;
 * ``pl-cvt-128.128.64`` (``kern_cvt`` :47, int8 cast to bf16 inside, f32
   sums): ``gemm_probe_bf16`` on int8 codes;
 * ``pl-i8-f32acc-128.128.64``: the JAX line of this name runs ``kern_i8``
-  with an int32 accumulator (``probe_m512.py:130``), and so does the port.
+  with an int32 accumulator (``probe_m512.py:130``), and so does the port
+  (at the ``chain`` tile).
 
 The int8 stack is held K-contiguous for the int8 products (the kernel's and
 ``torch._int_mm``'s layout) and N-contiguous, as drawn, for the

@@ -16,9 +16,9 @@ Candidate -> the port:
 * ``xla``: XLA's int8 ``dot_general`` -> ``torch._int_mm``, cast to bf16;
 * ``pl <bm>/<bn>/<bk>`` (``kern`` :70, int32 accumulator, bf16 out):
   ``gemm_probe_i8`` at each card tile the kernel is built for that divides
-  the shape (``pl chain``: the chain GEMMs' own WMMA main loop at 128 x 128
-  x 64). The JAX script's TPU tiles and its VMEM fit (``fits_vmem``) do not
-  carry over.
+  the shape (``pl chain``: the int8 chain kernels' own instantiation of the
+  s8 wgmma loop, 128 x 128 x 128 at 4 stages). The JAX script's TPU tiles
+  and its VMEM fit (``fits_vmem``) do not carry over.
 
 The weight is held K-contiguous (the kernel's and ``torch._int_mm``'s
 layout), built once per shape before timing.

@@ -290,8 +290,10 @@ def test_sm90_sass_and_spills(dev):
     of the GEMM main loop (gemm_sm90.cuh: its sources TmaBf16 and Decoded)
     holds HGMMA and UTMALDG; its s8 instantiations, the int8 chain
     producer's and the grouped consumer's (with and without the residual
-    epilogue), and the two of its warpgroup-0 decoding form (gemm_w4_kernel:
-    the packed GEMM and the W4 producer), hold IGMMA and UTMALDG; each
+    epilogue), the int8 GEMM probe's (ProbeEpi, one per built mode and tile;
+    its persistent form probe_i8_persistent_kernel too), and the two of its
+    warpgroup-0 decoding form (gemm_w4_kernel: the packed GEMM and the W4
+    producer), hold IGMMA and UTMALDG; each
     instantiation of the W4A4 GEMM
     (gemm_w4a4.cu: three modes, each without a rank-r term, at R <= 32 and
     at R <= 128) holds HGMMA (its register-A products) and UTMALDG; each
@@ -306,13 +308,16 @@ def test_sm90_sass_and_spills(dev):
     i8 = [n for n in sass if "flash_sm90_kernel<0, 128, 6>" in n.replace("(int)", "")]
     gemm = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::Bf16" in n
             and ("::TmaBf16<" in n or "::Decoded<" in n)]
-    chain = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::S8" in n]
+    s8 = [n for n in sass if "gemm_sm90_kernel<" in n and "gemm90::S8" in n]
+    chain = [n for n in s8 if "ProbeEpi<" not in n]
+    probe = [n for n in s8 if "ProbeEpi<" in n] + [n for n in sass if "probe_i8_persistent_kernel<" in n]
     w4a4 = [n for n in sass if "gemm_w4a4_kernel<" in n]
     packed = [n for n in sass if "gemm_w4_kernel<" in n]
     assert len(i8) == 1 and len(gemm) == len(gemm_probe.BF16_FORMS), (i8, gemm)
     assert len(chain) == 3 and sum("GeluEpi" in n for n in chain) == 1, chain
     assert sum("GroupedEpi<" in n for n in chain) == 2, chain
     assert len(packed) == 2 and sum("GeluEpi" in n for n in packed) == 1, packed
+    assert len(probe) == sum(len(tiles) for tiles in gemm_probe.I8_BUILT.values()), probe
     assert len(w4a4) == 9, w4a4
     qkv = {s: [n for n in sass if f"qkv_rope_kernel<{s}>" in n.replace("(int)", "")] for s in (0, 2, 8)}
     assert all(len(found) == 1 for found in qkv.values()), qkv
@@ -320,11 +325,11 @@ def test_sm90_sass_and_spills(dev):
     assert all(sass[i8[0]][op] > 0 for op in ("IGMMA", "HGMMA", "UTMALDG")), sass[i8[0]]
     for name in gemm + w4a4:
         assert sass[name]["HGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
-    for name in chain + packed:
+    for name in chain + packed + probe:
         assert sass[name]["IGMMA"] > 0 and sass[name]["UTMALDG"] > 0, (name, sass[name])
     for steps, name in qkv.items():  # the qkv / RoPE producer: TMA-fed x tiles, the low-rank product on wgmma
         assert sass[name]["UTMALDG"] > 0 and (steps == 0 or sass[name]["HGMMA"] > 0), (name, sass[name])
-    for name in i8 + gemm + chain + w4a4 + packed + list(qkv.values()):
+    for name in i8 + gemm + chain + probe + w4a4 + packed + list(qkv.values()):
         assert res[name]["STACK"] == 0 and res[name]["LOCAL"] == 0, (name, res[name])
 
 
@@ -1616,7 +1621,9 @@ def test_probe_layouts_and_refusals(dev):
                        gemm_probe.gemm_probe_i8(a, w.contiguous(), sa, sw, acc="f32"))
     reset_launch_counts()
     with pytest.raises(ValueError):
-        gemm_probe.gemm_probe_i8(a[:192], w, tile="256x128x64")
+        gemm_probe.gemm_probe_i8(a[:192], w, tile="128x128x128s4p")
+    with pytest.raises(ValueError):
+        gemm_probe.gemm_probe_i8(a[:, :448].contiguous(), w[:448], acc="f32")  # the f32 mode sums whole 128-deep K tiles
     with pytest.raises(ValueError):
         gemm_probe.gemm_probe_i8(a, w, sa, sw, acc="i32")
     with pytest.raises(ValueError):

@@ -147,7 +147,7 @@ def test_k_v7_bit_for_bit(tile):
     _bits_equal(gemm_probe_i8(_t(x["qa8"]), _kt(x["qw8"]), _t(x["at"]), _t(x["wt"]), acc="f32", tile=tile), ref)
 
 
-@pytest.mark.parametrize("jax_tile,tile", [((128, 128, 256), "128x128x64"), ((256, 256, 128), "256x128x64")])
+@pytest.mark.parametrize("jax_tile,tile", [((128, 128, 256), "chain"), ((256, 256, 128), "128x128x128s6")])
 def test_v7_with_bit_for_bit(jax_tile, tile):
     """Two of v7_with's tiles: each the port's rank-1 f32 mode bit for bit."""
     s, x = _script("bench_gemm_variants"), _bench_inputs()
@@ -196,8 +196,19 @@ def test_int32_to_bf16_rounds_through_f32():
         v = min(127, left)
         a[0, j], w[j, 0] = v, 1
         left, j = left - v, j + 1
-    out = gemm_probe_i8(a, w, tile="128x128x64")
+    out = gemm_probe_i8(a, w, tile="chain")
     assert float(out[0, 0]) == 2.0 ** 24
+
+
+def test_i32_takes_half_k_tiles():
+    """The int32 mode takes K % 128 == 64 (its last K tile half zeros on the
+    card): the exact product, cast through f32, at K 320."""
+    rng = np.random.default_rng(7)
+    a = torch.from_numpy(rng.integers(-127, 127, (128, 320)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 127, (320, 256)).astype(np.int8))
+    exact = (a.long() @ w.long()).float().to(torch.bfloat16)
+    for tile in I8_BUILT[("i32", False)]:
+        assert torch.equal(gemm_probe_i8(a, w, tile=tile), exact), tile
 
 
 # ---------------------------------------------------------------------------
@@ -301,15 +312,16 @@ def _i8(m=M, k=K, n=N):
     return torch.zeros((m, k), dtype=torch.int8), torch.zeros((k, n), dtype=torch.int8)
 
 
-@pytest.mark.parametrize("case", ["ragged_m", "ragged_n", "ragged_k", "unbuilt_mode", "unknown_tile", "one_scale",
-                                  "dtype", "bad_scale"])
+@pytest.mark.parametrize("case", ["ragged_m", "ragged_n", "ragged_k", "ragged_k_f32", "unbuilt_mode", "unknown_tile",
+                                  "one_scale", "dtype", "bad_scale"])
 def test_i8_refusals(case):
     a, w = _i8()
     sc = torch.ones(M), torch.ones(N)
     calls = {
-        "ragged_m": lambda: gemm_probe_i8(*_i8(m=192), tile="256x128x64"),
-        "ragged_n": lambda: gemm_probe_i8(*_i8(n=128), tile="128x256x64"),
-        "ragged_k": lambda: gemm_probe_i8(*_i8(k=192), tile="128x128x128"),
+        "ragged_m": lambda: gemm_probe_i8(*_i8(m=192), tile="128x128x128s4p"),
+        "ragged_n": lambda: gemm_probe_i8(*_i8(n=128), tile="128x256x128s4"),
+        "ragged_k": lambda: gemm_probe_i8(*_i8(k=160), tile="chain"),  # the int32 mode takes K % 64
+        "ragged_k_f32": lambda: gemm_probe_i8(*_i8(k=192), acc="f32"),  # the f32 mode sums whole 128-deep K tiles
         "unbuilt_mode": lambda: gemm_probe_i8(a, w, *sc, acc="i32"),  # i32 with the rank-1 epilogue
         "unknown_tile": lambda: gemm_probe_i8(a, w, tile="512x1024x512"),
         "one_scale": lambda: gemm_probe_i8(a, w, sc[0], None, acc="f32"),
