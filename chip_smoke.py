@@ -87,7 +87,11 @@ Phases, each fatal on failure:
                   the bf16-operand one in its six operand forms within one
                   bf16 step up to the f32 sums' order (a limit the same
                   product summed in bf16 must exceed), torch.matmul of the
-                  decoded operands as yardstick;
+                  decoded operands as yardstick; last, the kernels of the
+                  image-conditioned paths at the shapes those give them
+                  (FLUX.1-Kontext at 1024px: S 512 + 4096 + 4096, and the
+                  1008px reference's 512 + 4096 + 3969), each against its
+                  twin with its row's tolerance (logged, no new row);
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -123,7 +127,13 @@ Phases, each fatal on failure:
                   (dim 512, 4 blocks, its adaLN damped) card against CPU: int4,
                   int4 fused, nvfp4, w4a8 and w4a8 packed forwards within the
                   CPU tests' bounds, launches exact, and a 2-step int8 CFG
-                  pipeline;
+                  pipeline. Last, the image-conditioned requests on small
+                  models card against CPU (reference_conditioning): a small
+                  VAE's encode at 512px (flash_online in its mid block; max
+                  2e-2 / mean 5e-3 of max |ref|), Kontext with a 240px
+                  reference on the small turbo model with double_fb, Fill at
+                  in_channels 384 (mask channels equal), Qwen-Image Edit-2509
+                  with two references at B 2 (2e-2);
   5. slice     -- T5-XXL (AWQ W4A16, 24 layers) and CLIP-L from random weights;
                   full-width, full-depth FLUX.1-dev w4a8 (19 dual + 38 single
                   blocks, random weights from a seed) through FluxPipeline at
@@ -151,6 +161,22 @@ Phases, each fatal on failure:
                   the misses' full forwards, the hits' dual and single block 0;
                   9 flash_online per tiled decode), the outputs must be finite
                   (images in [0, 1]); each path reports its peak memory.
+  5a. kontext  -- image-conditioned FLUX on the slice's models: one 1024px
+                  encode timed alone (one flash_online); on the w4a8 turbo
+                  model the FLUX.1-Kontext request as bench.py serves its image
+                  path (T5-XXL encode, double_fb 0.5, tiled decode) with a
+                  1024px reference encoded inside the request, guidance 2.5,
+                  min(4, --steps) steps, then a 1008px reference (3969
+                  tokens) 1 step to latents; on the int4 model Kontext with
+                  TeaCache ("flux-kontext", 0.6), min(8, --steps) steps to an
+                  image (hits printed; a hit launches block 0's norm1 alone),
+                  and the 1008px reference; then FLUX.1-Fill from a
+                  synthesized Fill-layout file (int4, in_channels 384,
+                  prepare_fill inside the request, min(2, --steps) steps to an
+                  image) and Canny / Depth (in_channels 128 on the Fill blocks,
+                  prepare_control inside, min(2, --steps) steps to latents).
+                  Launch counts exact per forward, plus one flash_online per
+                  encode.
   5b. flux-int8 -- the small 2 + 3-block int8 model on its stacks, card vs CPU
                   with the grouped and the per-token chain (2e-2, launches exact);
                   then FLUX.1-dev int8 at full width and depth on stacks
@@ -191,6 +217,13 @@ Phases, each fatal on failure:
                   at B 1, min(8, --steps) steps. Each request first runs untimed
                   once; its launch counts must be exact per forward (a cache hit
                   runs blocks 0-7 only).
+  7a. qwen-edit -- between requests D and B, on the same model: Qwen-Image-Edit
+                  with true CFG 4.0 over a padded prompt (150 of 211 tokens) at
+                  B 1, a 1024px reference (frame 1) encoded inside, min(2,
+                  --steps) steps to an image; Edit-2509's two 512px references
+                  (frames 1, 2), 1 step; cache="fb" with the 1024px reference,
+                  min(4, --steps) steps; each after an untimed 1-step run,
+                  launch counts exact.
   8. checkpoint -- synthesized full-size files in a temporary directory
                   (removed at the end): FLUX.1-dev nvfp4 rank 32 (nunchaku's v1
                   schema, 19 + 38 blocks), T5-XXL TinyChat W4, CLIP-L and the FLUX
@@ -314,6 +347,8 @@ from nunchaku_tpu_torch.tools.time_w4a4 import decoded, k_bf_ms, w4a4_bound
 S_IMG, S_TXT, DIM, HEADS, HD, HID, RANK = 4096, 512, 3072, 24, 128, 12288, 32
 # its VAE's mid-block attention: one head of 512 over a 64x64-latent tile or the whole 128x128 latent
 VAE_D, VAE_TILE_S, VAE_WHOLE_S, VAE_TILES = 512, 64 * 64, 128 * 128, 9
+# FLUX.1-Kontext at 1024x1024: a 1024px reference adds 4096 tokens (rope frame 1); a 1008px one 63 x 63 = 3969
+KONTEXT_REF, KONTEXT_S_COND, ODD_REF, ODD_S_COND = 1024, 4096, 1008, 63 * 63
 # Qwen-Image at 1024x1024: prompts padded to 211 tokens (211 and 97 valid), negatives of 12
 QWEN_S_TXT, QWEN_VALID, QWEN_NEG = 211, (211, 97), 12
 # FLUX.1-dev at 2048x2048 (examples/flux_highres_sparse.py): 16384 image + 512 text tokens, block-sparse
@@ -842,6 +877,7 @@ def kernel_phase(dev):
     fixed_form_kernel_rows(dev, record, failed)
     last_op_kernel_rows(dev, record, failed)
     probe_kernel_rows(dev, record, failed)
+    conditioning_kernel_checks(dev, failed)
     return rows, failed
 
 
@@ -1435,7 +1471,7 @@ def reference_phase(dev):
     all_ok = reference_packed(dev, cfg, pe, pooled, lat, kw) and all_ok
     return (all_ok and image_ok and ok4 and reference_qwen(dev) and reference_blocksparse(dev)
             and reference_text_encoders(dev) and reference_checkpoint(dev) and reference_sdxl(dev)
-            and reference_sana(dev) and reference_zimage(dev))
+            and reference_sana(dev) and reference_zimage(dev) and reference_conditioning(dev))
 
 
 SDXL_SMALL = dict(block_out_channels=(128, 256, 512), layers_per_block=1, transformer_layers=(0, 1, 2),
@@ -1914,7 +1950,10 @@ def decode_alone(vae, lat, dev):
     return ok
 
 
-def slice_phase(dev, steps: int, requests: int, t5):
+def slice_phase(dev, steps: int, requests: int, t5, res: dict):
+    """The main path (module docstring, phase 5) and, on its models, the
+    [kontext] requests (``res["kontext"]``: their verdict and launch
+    counts, apart from the slice's); -> (ok, counts, per-forward counts, cfg)."""
     from nunchaku_tpu_torch.caching.fbcache import make_hit_schedule
     from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
@@ -1966,10 +2005,12 @@ def slice_phase(dev, steps: int, requests: int, t5):
         hit_runs | {"flash_online": VAE_TILES * requests})
     log(f"[slice] image path cache hits per request {req_hits} (expected {hits} of {steps} steps)")
     ok = decode_alone(vae, lat, dev) and ok
+    kontext_turbo(dev, steps, model, vae, t5, cfg, paths, res)
     del pipe, model
     torch.cuda.empty_cache()
     okp, counts_p = packed_phase(dev, steps, vae, paths)
-    ok4, counts4 = slice_4bit(dev, steps, vae, paths)
+    ok4, counts4 = slice_4bit(dev, steps, vae, paths, res)
+    fill_control(dev, steps, vae, paths, res)
     counts = {k: counts_f32[k] + counts_turbo[k] + counts_img[k] + counts_p[k] + counts4[k] for k in counts_f32}
     return ok and okp and ok4, counts, paths, cfg
 
@@ -2036,10 +2077,11 @@ def packed_phase(dev, steps: int, vae, paths):
     return ok, counts
 
 
-def slice_4bit(dev, steps: int, vae, paths):
+def slice_4bit(dev, steps: int, vae, paths, res):
     """The int4 model (default configuration, AWQ modulation) through the
     tiled VAE, then the nvfp4 model to latents, at full width and depth;
-    ``paths`` gains their per-forward launch counts."""
+    ``paths`` gains their per-forward launch counts. The int4 model also
+    serves the [kontext] TeaCache requests (``kontext_int4``)."""
     from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
     from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
 
@@ -2064,6 +2106,8 @@ def slice_4bit(dev, steps: int, vae, paths):
         counts_ok = check_counts(precision, counts, paths[precision], nsteps * requests, extra)
         ok = ok and finite and counts_ok
         total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        if precision == "int4":
+            kontext_int4(dev, steps, model, vae, cfg, paths, res)
         del model
         torch.cuda.empty_cache()
     return ok, total
@@ -2298,11 +2342,57 @@ def highres_phase(dev, steps: int, t5, clip):
     return ok, total, paths
 
 
-def qwen_phase(dev, steps: int):
+def qwen_edit(dev, steps, cfg, request, pipe, paths, block):
+    """[qwen-edit] Qwen-Image-Edit on the [qwen] model (int4, 60 blocks, the
+    default prologue) through ``pipe`` (the tiled FLUX VAE as encoder and
+    decoder), true CFG 4.0 over a padded prompt (150 valid tokens of 211) at
+    B 1: one 1024px reference (4096 tokens, rope frame 1), min(2, steps)
+    steps to an image; Edit-2509's two 512px references (1024 tokens each,
+    frames 1 and 2), 1 step to an image; cache="fb" (fn_blocks 8, threshold
+    0.12) with the 1024px reference, min(4, steps) steps. Each after an
+    untimed 1-step run; -> (ok, launch counts summed)."""
+    L = cfg.num_layers
+    total, ok = {}, True
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    ref = reference_image(KONTEXT_REF, 50, dev)
+    n = min(2, steps)
+    good, counts, _ = request(f"edit: one {KONTEXT_REF}px reference (S_img {S_IMG} + S_cond {KONTEXT_S_COND}), true "
+                              f"CFG 4.0, tiled VAE", pipe, (150,), n, 5, warm=1, tag="qwen-edit", image=ref,
+                              true_cfg_scale=4.0)
+    ok = check_counts("qwen edit", counts, paths["qwen"], 2 * n, {"flash_online": 1 + VAE_TILES},
+                      tag="qwen-edit") and good and ok
+    add(counts)
+    refs = [reference_image(512, 51 + i, dev) for i in range(2)]
+    good, counts, _ = request("Edit-2509: two 512px references (S_cond 1024 + 1024, frames 1, 2), true CFG 4.0, "
+                              "tiled VAE", pipe, (150,), 1, 6, warm=1, tag="qwen-edit", image=refs,
+                              true_cfg_scale=4.0)
+    ok = check_counts("qwen edit-2509", counts, paths["qwen"], 2, {"flash_online": 2 + VAE_TILES},
+                      tag="qwen-edit") and good and ok
+    add(counts)
+    n, fn = min(4, steps), 8
+    good, counts, out = request(f"edit + cache fb (fn_blocks {fn}, threshold 0.12), one {KONTEXT_REF}px reference, "
+                                f"true CFG 4.0, tiled VAE", pipe, (150,), n, 7, warm=1, tag="qwen-edit", image=ref,
+                                true_cfg_scale=4.0, cache="fb", fn_blocks=fn)
+    forwards, hits = 2 * n, out.cache_hits
+    blocks_run = fn * forwards + (L - fn) * (forwards - hits)
+    log(f"[qwen-edit] edit + cache fb: {hits} hits of {forwards - 2} possible; {blocks_run} block runs")
+    ok = check_counts("qwen edit fb", counts, block, blocks_run, {"flash_online": 1 + VAE_TILES},
+                      tag="qwen-edit") and good and ok
+    add(counts)
+    return ok, total
+
+
+def qwen_phase(dev, steps: int, res: dict):
     """Full-width, full-depth Qwen-Image int4 at 1024x1024 through
     QwenImagePipeline: requests A, D, B and C (module docstring), each after
-    one untimed run of itself, with exact launch counts per forward; ->
-    (ok, launch counts summed over the requests, per-forward counts, cfg)."""
+    one untimed run of itself, with exact launch counts per forward; between
+    D and B the [qwen-edit] requests (``res["qwen-edit"]``: their verdict and
+    launch counts); -> (ok, launch counts summed over the requests A-D,
+    per-forward counts, cfg)."""
     from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
     from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
     from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -2335,10 +2425,12 @@ def qwen_phase(dev, steps: int):
 
     total = {}  # launch counts summed over the timed requests
 
-    def request(label, pipe, valid, nsteps, seed, **kw):
-        """One untimed run, then the timed one -> (ok, counts, output)."""
+    def request(label, pipe, valid, nsteps, seed, warm=None, tag="qwen", **kw):
+        """One untimed run (of ``warm`` steps, default ``nsteps``), then the
+        timed one -> (ok, counts, output); the counts of the [qwen] requests
+        go into their total."""
         args = prompts(len(valid), valid, seed)
-        pipe(*args, height=1024, width=1024, num_inference_steps=nsteps, seed=0, **kw)
+        pipe(*args, height=1024, width=1024, num_inference_steps=warm or nsteps, seed=0, **kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -2347,8 +2439,9 @@ def qwen_phase(dev, steps: int):
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         counts = launch_counts()
-        for k, v in counts.items():
-            total[k] = total.get(k, 0) + v
+        if tag == "qwen":
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
         b = len(valid)
         lat = out.latents.float()
         ok = tuple(lat.shape) == (b, S_IMG, 4 * cfg.out_channels) and bool(torch.isfinite(lat).all())
@@ -2362,7 +2455,7 @@ def qwen_phase(dev, steps: int):
                      f"max {img.max().item():.4f}, mean {img.mean().item():.4f})")
         if out.cache_hits is not None:
             what += f"; cache_hits {out.cache_hits}"
-        log(f"[qwen] {label}: {sec:.3f} s/request, {sec / nsteps:.4f} s/step ({nsteps} steps, B {b}); peak allocated "
+        log(f"[{tag}] {label}: {sec:.3f} s/request, {sec / nsteps:.4f} s/step ({nsteps} steps, B {b}); peak allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {what}")
         return ok, counts, out
 
@@ -2380,6 +2473,7 @@ def qwen_phase(dev, steps: int):
                              true_cfg_scale=1.0)
     ok = check_counts("qwen D", counts, paths["qwen online"], n) and okd and ok
     model.set_on_stacks("attn", fixed_softmax=True)
+    res["qwen-edit"] = qwen_edit(dev, steps, cfg, request, QwenImagePipeline(model, vae=vae), paths, block)
     # B: the fused qkv prologue, lightning-4step at B 1
     model.enable_fused_qkv_prep()
     okb, counts, _ = request("request B (fused prologue, lightning-4step, B 1, mask)", pipe, QWEN_VALID[1:], 4,
@@ -3950,6 +4044,345 @@ def zimage_phase(dev, steps: int):
     return ok, total, paths
 
 
+# ---------------------------------------------------------------------------
+# image-conditioned requests: [kontext] (FLUX.1 Kontext / TeaCache / Fill / Canny-Depth) and [qwen-edit]
+# ---------------------------------------------------------------------------
+
+
+def reference_image(size, seed, dev, b=1):
+    """(b, size, size, 3) in [0, 1], drawn on the card from ``seed``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.rand((b, size, size, 3), generator=gen, device=dev)
+
+
+def cond_merge(res, key, ok, counts):
+    """Add one request's verdict and launch counts to the phase record ``res[key]``."""
+    old_ok, old = res.get(key, (True, {}))
+    res[key] = (old_ok and ok, {k: old.get(k, 0) + counts.get(k, 0) for k in set(old) | set(counts)})
+
+
+def kontext_request(enc, ref, make):
+    """A request whose Kontext tokens are prepared inside it (``enc``: a
+    pipeline holding the VAE), for a pipeline without a VAE (to latents)."""
+    def args():
+        tok, ids = enc.prepare_kontext(ref)
+        return dict(make(), cond_tokens=tok, cond_ids=ids)
+    return args
+
+
+def encode_alone(vae, dev, res):
+    """[kontext] One 1024px encode timed alone (after one untimed): s, peak,
+    the mid block's flash_online launch."""
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    img = reference_image(KONTEXT_REF, 40, dev)
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        z = vae.encode(img)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    counts = launch_counts()
+    n = counts["flash_online"]
+    good = (tuple(z.shape) == (1, 16, KONTEXT_REF // 8, KONTEXT_REF // 8) and z.dtype == torch.bfloat16
+            and bool(torch.isfinite(z.float()).all()) and n == 1 and sum(counts.values()) == 1)
+    log(f"[kontext] encode alone of a {KONTEXT_REF}px image (the FLUX VAE's encoder, mid block over "
+        f"{(KONTEXT_REF // 8) ** 2} tokens of {VAE_D}): {sec:.4f} s, latents {tuple(z.shape)} |z| mean "
+        f"{z.float().abs().mean().item():.4f}, flash_online launches {n} (expected 1, no other kernel), peak "
+        f"allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (transformer resident): "
+        f"{'PASS' if good else 'FAIL'}")
+    cond_merge(res, "kontext", good, counts)
+
+
+def kontext_turbo(dev, steps, model, vae, t5, cfg, paths, res):
+    """[kontext] on the slice's w4a8 turbo model: the encode alone; the
+    Kontext request as bench.py serves its image path (T5-XXL encode inside,
+    double_fb at 0.5, tiled decode) with a 1024px reference encoded inside
+    the request, guidance 2.5, min(4, steps) steps; a 1008px reference (3969
+    tokens, no multiple of the tiles) 1 step to latents."""
+    from nunchaku_tpu_torch.caching.fbcache import make_hit_schedule
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    encode_alone(vae, dev, res)
+    dual, single = W4A8_TURBO_DUAL, W4A8_TURBO_SINGLE
+    n = min(4, steps)
+    hits = int(make_hit_schedule(n, 0.5).sum())
+    ref = reference_image(KONTEXT_REF, 41, dev)
+    finite, _, counts, peak, req_hits, _ = serve(
+        FluxPipeline(model, vae=vae), dev, n, 1,
+        f"Kontext w4a8 turbo ({KONTEXT_REF}px reference encoded inside, S_img {S_IMG} + S_cond {KONTEXT_S_COND}, "
+        f"T5-XXL encode, guidance 2.5, double_fb 0.5, tiled VAE)", t5_request(cfg, dev, t5), tag="kontext",
+        image=ref, guidance_scale=2.5, cache="double_fb", cache_hit_ratio=0.5)
+    hit_runs = {k: (dual[k] + single[k]) * hits for k in dual}
+    ok = finite and req_hits == [hits] and check_counts(
+        "kontext turbo", counts, paths["turbo"], n - hits, hit_runs | {"flash_online": 1 + VAE_TILES}, tag="kontext")
+    cond_merge(res, "kontext", ok, counts)
+    enc = FluxPipeline(None, vae=vae)
+    odd = reference_image(ODD_REF, 42, dev)
+    embeds = embeds_request(cfg, dev)
+    finite, _, counts, *_ = serve(
+        FluxPipeline(model), dev, 1, 1, f"Kontext w4a8 turbo, {ODD_REF}px reference (S_cond {ODD_S_COND}), to latents",
+        lambda seed: kontext_request(enc, odd, embeds(seed)), tag="kontext", guidance_scale=2.5)
+    # an MLP whose rows the chain pads to 128 takes the plain consumer and adds its gated residual after the
+    # slice (models/attention.py gelu_mlp, as JAX): the dual image stream (4096 + 3969 rows) and the single
+    # stream (512 + 8065), not the dual text stream (512)
+    L, Ls = cfg.num_layers, cfg.num_single_layers
+    fused = (L * sum(rows % 128 == 0 for rows in (S_IMG + ODD_S_COND, S_TXT))
+             + Ls * ((S_TXT + S_IMG + ODD_S_COND) % 128 == 0))
+    odd_path = dict(paths["turbo"], gemm_w8a8_grouped_res=fused, gemm_w8a8_grouped=2 * L + Ls - fused)
+    log(f"[kontext] odd reference: {2 * L + Ls - fused} of {2 * L + Ls} MLP consumers on padded rows (plain "
+        f"consumer, residual add after the slice)")
+    ok = finite and check_counts("kontext turbo odd reference", counts, odd_path, 1, {"flash_online": 1},
+                                 tag="kontext")
+    cond_merge(res, "kontext", ok, counts)
+
+
+def kontext_int4(dev, steps, model, vae, cfg, paths, res):
+    """[kontext] on the slice's int4 model (default configuration):
+    FLUX.1-Kontext with TeaCache (the "flux-kontext" coefficients, threshold
+    0.6), a 1024px reference encoded inside, min(8, steps) steps to an image
+    (a hit runs block 0's norm1 alone: one gemv_awq); a 1008px reference 1
+    step to latents."""
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+
+    n = min(8, steps)
+    ref = reference_image(KONTEXT_REF, 43, dev)
+    embeds = embeds_request(cfg, dev)
+    finite, _, counts, _, req_hits, _ = serve(
+        FluxPipeline(model, vae=vae), dev, n, 1,
+        f"Kontext int4 + TeaCache (flux-kontext, 0.6; {KONTEXT_REF}px reference encoded inside, tiled VAE)", embeds,
+        tag="kontext", image=ref, guidance_scale=2.5, cache="teacache", teacache_model_name="flux-kontext")
+    hits = req_hits[0] if req_hits else -1
+    log(f"[kontext] TeaCache hits {hits} of {n} steps (the first and last always compute)")
+    ok = finite and 0 <= hits <= n - 2 and check_counts(
+        "kontext teacache", counts, paths["int4"], n - hits, {"gemv_awq": n, "flash_online": 1 + VAE_TILES},
+        tag="kontext")
+    cond_merge(res, "kontext", ok, counts)
+    enc = FluxPipeline(None, vae=vae)
+    odd = reference_image(ODD_REF, 44, dev)
+    finite, _, counts, *_ = serve(
+        FluxPipeline(model), dev, 1, 1, f"Kontext int4, {ODD_REF}px reference (S_cond {ODD_S_COND}), to latents",
+        lambda seed: kontext_request(enc, odd, embeds(seed)), tag="kontext", guidance_scale=2.5)
+    ok = finite and check_counts("kontext int4 odd reference", counts, paths["int4"], 1, {"flash_online": 1},
+                                 tag="kontext")
+    cond_merge(res, "kontext", ok, counts)
+
+
+def fill_control(dev, steps, vae, paths, res):
+    """[kontext] FLUX.1-Fill from a synthesized Fill-layout file
+    (``flux_state(in_channels=384)``, int4 rank 32, written to a temporary
+    directory and removed): ``prepare_fill`` of a 1024px image and mask
+    inside the request, guidance 30, min(2, steps) steps to an image; then
+    FLUX.1 Canny / Depth (``in_channels`` 128): the Fill model's blocks under
+    a random 128-channel ``x_embedder``, ``prepare_control`` of a 1024px
+    control image inside the request, min(2, steps) steps to latents."""
+    import dataclasses
+    import tempfile
+
+    from nunchaku_tpu_torch import load_flux_transformer
+    from nunchaku_tpu_torch.models.linear import Linear
+    from nunchaku_tpu_torch.models.transformer_flux import FluxTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+    from nunchaku_tpu_torch.tools import synth_checkpoint as synth
+
+    with tempfile.TemporaryDirectory(prefix="nunchaku_fill_") as tmp:
+        path = f"{tmp}/svdq-int4_r32-flux.1-fill-dev.safetensors"
+        _write(synth, path, lambda: synth.flux_state(precision="int4", in_channels=384, seed=45, device=dev),
+               "FLUX.1-Fill int4 rank 32 (v1 schema, in_channels 384)", tag="kontext")
+        model, _ = _load("FLUX.1-Fill at int4", lambda: load_flux_transformer(path, device=dev), tag="kontext")
+    cfg = model.cfg
+    n = min(2, steps)
+    img = reference_image(1024, 46, dev)
+    rows = torch.arange(1024, device=dev)
+    mask = ((rows[:, None] >= 256) & (rows[:, None] < 768) & (rows[None, :] >= 384) & (rows[None, :] < 896))
+    mask = mask[None].float()  # (1, H, W), 1 = inpaint: a 512 x 512 window
+    pipe = FluxPipeline(model, vae=vae)
+    embeds = embeds_request(cfg, dev)
+
+    def fill_request(seed):
+        make = embeds(seed)
+        return lambda: dict(make(), control_latents=pipe.prepare_fill(img, mask))
+
+    good_cfg = cfg.in_channels == 384 and tuple(model.x_embedder.weight.shape) == (384, cfg.dim)
+    finite, _, counts, *_ = serve(pipe, dev, n, 1, "Fill int4 (in_channels 384, prepare_fill inside, guidance 30, "
+                                  "tiled VAE)", fill_request, tag="kontext", guidance_scale=30.0)
+    ok = good_cfg and finite and check_counts("fill", counts, paths["int4"], n, {"flash_online": 1 + VAE_TILES},
+                                              tag="kontext")
+    cond_merge(res, "kontext", ok, counts)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    canny = FluxTransformer2DModel(dataclasses.replace(cfg, in_channels=128),
+                                   Linear.random_init(gen, 128, cfg.dim, device=dev), model.context_embedder,
+                                   model.time_text_embed, model.transformer_blocks, model.single_transformer_blocks,
+                                   model.norm_out, model.proj_out)
+    ctrl = reference_image(1024, 48, dev)
+    enc = FluxPipeline(None, vae=vae)
+
+    def control_request(seed):
+        make = embeds(seed)
+        return lambda: dict(make(), control_latents=enc.prepare_control(ctrl))
+
+    finite, _, counts, *_ = serve(FluxPipeline(canny), dev, n, 1, "Canny / Depth int4 (in_channels 128, "
+                                  "prepare_control inside, guidance 30), to latents", control_request, tag="kontext",
+                                  guidance_scale=30.0)
+    ok = finite and check_counts("canny / depth", counts, paths["int4"], n, {"flash_online": 1}, tag="kontext")
+    cond_merge(res, "kontext", ok, counts)
+    del pipe, model, canny
+    torch.cuda.empty_cache()
+
+
+def conditioning_kernel_checks(dev, failed):
+    """The kernels of the image-conditioned paths at the shapes those paths
+    give them, each against its plain twin (the rows' own checks and
+    tolerances): Kontext at 1024px with a 1024px reference (512 + 4096 +
+    4096 tokens; the linears pad rows to 256, so the 1008px reference's 8577
+    tokens reach the GEMMs as 8704) and with the 1008px one (attention and
+    the producers see 8577), the encoder's mid block (row 5 at S 16384)."""
+    from nunchaku_tpu_torch.ops import checks
+
+    s_full, s_odd = S_TXT + S_IMG + KONTEXT_S_COND, S_TXT + S_IMG + ODD_S_COND
+    cases = []
+    for s in (s_full, s_odd):
+        cases.append((f"flash_fixed @ B=1 H={HEADS} S={s} D={HD}",
+                      lambda s=s: checks.check_flash(*checks.flash_case(1, HEADS, s, s, HD, seed=3, device=dev))))
+        cases.append((f"qkv_rope_producer @ B=1 S={s} H={HEADS} R={RANK}",
+                      lambda s=s: checks.check_qkv_rope(*checks.qkv_rope_case(1, (s,), HEADS, HD, RANK, seed=3,
+                                                                               device=dev))))
+        cases.append((f"ln_mod_quant_int8 @ M={s} K={DIM} R={RANK}",
+                      lambda s=s: checks.check_ln_mod_quant(*checks.ln_mod_quant_case(1, s, DIM, RANK, seed=3,
+                                                                                       device=dev))))
+    cases.append((f"ln_mod_quant_int8 @ M={S_IMG + KONTEXT_S_COND} K={DIM} R={RANK} (dual image stream)",
+                  lambda: checks.check_ln_mod_quant(*checks.ln_mod_quant_case(1, S_IMG + KONTEXT_S_COND, DIM, RANK,
+                                                                             seed=4, device=dev))))
+    cases.append((f"gemm_w8a8_gelu_quant @ M={s_full} K={DIM} N={HID} R={RANK}",
+                  lambda: checks.check_gelu_quant(*checks.gelu_quant_case(s_full, DIM, HID, RANK, seed=3, device=dev))))
+    cases.append((f"gemm_w8a8_grouped_res @ M={s_full} K={HID} N={DIM} R={RANK}",
+                  lambda: checks.check_grouped_res(*checks.grouped_res_case(s_full, HID, DIM, HID // 1536, RANK,
+                                                                            seed=3, device=dev))))
+    cases.append((f"gemm_w4a4_int4 @ M={s_full} K={DIM} N={3 * DIM} R={RANK}",
+                  lambda: checks.check_w4a4(*checks.w4a4_case(s_full, DIM, 3 * DIM, "int4", seed=3, device=dev))))
+    for label, run in cases:
+        err, ok, detail = run()
+        log(f"[kernel] conditioning path {label}: {'PASS' if ok else 'FAIL'} {detail}")
+        if not ok:
+            failed.append(f"conditioning {label.split(' @')[0]}")
+        torch.cuda.empty_cache()
+
+
+def reference_conditioning(dev):
+    """Image-conditioned requests on small models, card against CPU (same
+    weights, images and noise): a small VAE (blocks 32, 32, 32, 512, resnet
+    branches damped as tests/test_torch_vae.py does) encoding a 512px image
+    (its 512-wide mid block takes flash_online at 4096 tokens: the encoder's
+    bound, max 2e-2 and mean 5e-3 of max |ref|); the small FLUX turbo w4a8
+    model with a 240px Kontext reference (225 tokens: S 128 + 256 + 225, no
+    multiple of the tiles) and the double FB cache, 2 steps to images; the
+    small model at in_channels 384 with prepare_fill (mask channels equal,
+    image channels within the encoder's bound), 2 steps; the small
+    Qwen-Image w4a8 model with two references (Edit-2509: 128px and 64 x
+    96px, frames 1 and 2), true CFG 4.0 over padded prompts at B 2, 2 steps.
+    Latents within 2e-2 of max |ref|, images within 2e-2."""
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+    from nunchaku_tpu_torch.pipeline.pipeline_qwenimage import QwenImagePipeline
+
+    def rel(out, ref):
+        return ((out.float().cpu() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    def close(out, ref):
+        err, scale = (out.float().cpu() - ref.float()).abs(), ref.float().abs().max()
+        return (err.max() / scale).item(), (err.mean() / scale).item()
+
+    cpu_vae = AutoencoderKL.random_init(seed=7, block_out_channels=(32, 32, 32, 512), layers_per_block=1,
+                                        device="cpu")
+    for name, buf in cpu_vae.named_buffers():
+        if name.endswith("conv2.weight"):
+            buf.mul_(0.25)
+    gpu_vae = copy.deepcopy(cpu_vae).to(dev)
+    gen = torch.Generator().manual_seed(8)
+    img = torch.rand((1, 512, 512, 3), generator=gen)
+    ref = cpu_vae.encode(img)
+    reset_launch_counts()
+    out = gpu_vae.encode(img.to(dev))
+    n = launch_counts()["flash_online"]
+    mx, mean = close(out, ref)
+    all_ok = mx <= 2e-2 and mean <= 5e-3 and n == 1 and tuple(out.shape) == (1, 16, 64, 64)
+    log(f"[reference] VAE encoder (32, 32, 32, 512) at 512px: card vs CPU latents max error {mx:.3e}, mean "
+        f"{mean:.3e} of max |ref| (tol 2e-2, 5e-3); flash_online launches {n} (expected 1): "
+        f"{'PASS' if all_ok else 'FAIL'}")
+
+    base = dict(num_layers=1, num_single_layers=1, num_attention_heads=6, joint_attention_dim=512,
+                pooled_projection_dim=256, precision="w4a8")
+    pe = torch.randn((1, 128, 512), generator=gen).to(torch.bfloat16)
+    pooled = torch.randn((1, 256), generator=gen).to(torch.bfloat16)
+    lat = torch.randn((1, 256, 64), generator=gen).to(torch.bfloat16)
+
+    def both(cpu_pipe, gpu_pipe, **kw):
+        ref = cpu_pipe(prompt_embeds=pe, pooled_prompt_embeds=pooled, latents=lat, height=256, width=256,
+                       num_inference_steps=2, **kw)
+        kw = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+        out = gpu_pipe(prompt_embeds=pe.to(dev), pooled_prompt_embeds=pooled.to(dev), latents=lat.to(dev),
+                       height=256, width=256, num_inference_steps=2, **kw)
+        return out, ref
+
+    cpu_model = FluxTransformer2DModel.random_init(FluxConfig(**base), seed=9, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to(dev)
+    for mdl in (cpu_model, gpu_model):
+        mdl.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+    kontext = torch.rand((1, 240, 240, 3), generator=gen)
+    out, ref = both(FluxPipeline(cpu_model, vae=cpu_vae), FluxPipeline(gpu_model, vae=gpu_vae), image=kontext,
+                    cache="double_fb", cache_hit_ratio=0.5)
+    r, img_err = rel(out.latents, ref.latents), (out.images.cpu() - ref.images).abs().max().item()
+    ok = out.cache_hits == ref.cache_hits == 1 and r <= 2e-2 and img_err <= 2e-2 and bool(
+        torch.isfinite(out.images).all())
+    log(f"[reference] Kontext, turbo + double_fb, a 240px reference (S 128 + 256 + 225): card vs CPU latents rel "
+        f"max error {r:.3e} (tol 2e-2), images max abs error {img_err:.3e} (tol 2e-2), hits {out.cache_hits} / "
+        f"{ref.cache_hits}: {'PASS' if ok else 'FAIL'}")
+    all_ok = all_ok and ok
+
+    cpu_fill = FluxTransformer2DModel.random_init(FluxConfig(**base, in_channels=384), seed=10, device="cpu")
+    gpu_fill = copy.deepcopy(cpu_fill).to(dev)
+    img = torch.rand((1, 256, 256, 3), generator=gen)
+    mask = (torch.rand((1, 256, 256), generator=gen) < 0.3).float()
+    cond_ref = FluxPipeline(None, vae=cpu_vae).prepare_fill(img, mask)
+    cond = FluxPipeline(None, vae=gpu_vae).prepare_fill(img.to(dev), mask.to(dev))
+    mask_same = torch.equal(cond[..., 64:].cpu(), cond_ref[..., 64:])
+    mx, mean = close(cond[..., :64], cond_ref[..., :64])
+    out, ref = both(FluxPipeline(cpu_fill), FluxPipeline(gpu_fill), control_latents=cond_ref)
+    r = rel(out.latents, ref.latents)
+    ok = mask_same and mx <= 2e-2 and mean <= 5e-3 and r <= 2e-2
+    log(f"[reference] Fill (in_channels 384): prepare_fill card vs CPU mask channels equal={mask_same}, image "
+        f"channels max {mx:.3e} / mean {mean:.3e} of max |ref| (tol 2e-2 / 5e-3); 2 steps latents rel max error "
+        f"{r:.3e} (tol 2e-2): {'PASS' if ok else 'FAIL'}")
+    all_ok = all_ok and ok
+
+    gen = torch.Generator().manual_seed(11)
+    pe = torch.randn((2, 24, 320), generator=gen).to(torch.bfloat16)
+    neg = torch.randn((2, 6, 320), generator=gen).to(torch.bfloat16)
+    qlat = torch.randn((2, 64, 64), generator=gen).to(torch.bfloat16)
+    pmask = torch.arange(24)[None, :] < torch.tensor([[24], [9]])
+    nmask = torch.ones((2, 6), dtype=torch.bool)
+    refs = [torch.rand((1, 128, 128, 3), generator=gen), torch.rand((1, 64, 96, 3), generator=gen)]
+    cpu_q = QwenImageTransformer2DModel.random_init(QwenImageConfig(num_layers=2, num_attention_heads=2,
+                                                                    joint_attention_dim=320, precision="w4a8"),
+                                                    seed=12, device="cpu")
+    gpu_q = copy.deepcopy(cpu_q).to(dev)
+    kw = dict(height=128, width=128, num_inference_steps=2, true_cfg_scale=4.0)
+    ref = QwenImagePipeline(cpu_q, vae=cpu_vae)(pe, neg, pmask, nmask, latents=qlat, image=refs, **kw)
+    out = QwenImagePipeline(gpu_q, vae=gpu_vae)(pe.to(dev), neg.to(dev), pmask.to(dev), nmask.to(dev),
+                                                latents=qlat.to(dev), image=[r_.to(dev) for r_ in refs], **kw)
+    r = max(rel(out.latents[i], ref.latents[i]) for i in range(2))
+    ok = r <= 2e-2 and bool(torch.isfinite(out.latents.float()).all())
+    log(f"[reference] Qwen-Image edit (Edit-2509: 128px + 64 x 96px references, frames 1 and 2), true CFG 4.0, "
+        f"padded prompts at B 2: card vs CPU latents rel max error {r:.3e} per batch row (tol 2e-2): "
+        f"{'PASS' if ok else 'FAIL'}")
+    return all_ok and ok
+
+
 def qwen_bounds(cfg, b=1) -> dict:
     """Least time per Qwen-Image 1024px forward at batch ``b`` for each
     kernel it runs (S_txt 211, padded to the 256-row quantum in the GEMMs)."""
@@ -4025,14 +4458,17 @@ def main(argv=None) -> int:
     ref_ok = reference_phase(dev)
     reset_launch_counts()
     t5, clip = text_encoders(dev)
-    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, t5=t5)
+    cond = {}  # the [kontext] and [qwen-edit] phases: verdict and launch counts each
+    slice_ok, counts, paths, cfg = slice_phase(dev, args.steps, requests=2, t5=t5, res=cond)
     i8_ok, icounts, ipaths = flux_int8_phase(dev, args.steps, t5)
     r128_ok, rcounts, rpaths = rank_phase(dev, 128)
     r256_ok, r2counts, r2paths = rank_phase(dev, RANK_HI)
     hr_ok, hcounts, hpaths = highres_phase(dev, args.steps, t5, clip)
     del t5, clip
     torch.cuda.empty_cache()
-    qwen_ok, qcounts, qpaths, qcfg = qwen_phase(dev, args.steps)
+    qwen_ok, qcounts, qpaths, qcfg = qwen_phase(dev, args.steps, cond)
+    kontext_ok, kcounts = cond["kontext"]
+    qedit_ok, qecounts = cond["qwen-edit"]
     ckpt_ok, ccounts, cpaths = checkpoint_phase(dev, args.steps)
     ckptq_ok, cqcounts, cqpaths = checkpoint_qwen_phase(dev)
     sdxl_ok, scounts, spaths = sdxl_phase(dev, args.steps)
@@ -4045,7 +4481,7 @@ def main(argv=None) -> int:
     gp_ok, gpcounts = gemm_probes_phase(dev)
     counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
               + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) + spcounts.get(k, 0) + facounts.get(k, 0)
-              + locounts[k] + gpcounts[k] for k in counts}
+              + locounts[k] + gpcounts[k] + kcounts.get(k, 0) + qecounts.get(k, 0) for k in counts}
     for name, row in rows.items():
         row["launches"] = row_launches(name, counts)
     # the rank-128 rows count the [rank128] forwards' launches, the other rows those of the rank-32 paths
@@ -4099,7 +4535,10 @@ def main(argv=None) -> int:
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
     ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok and lo_ok
-    ok = ok and gp_ok and sass_ok and r128_ok and r256_ok and zr_ok
+    ok = ok and gp_ok and sass_ok and r128_ok and r256_ok and zr_ok and kontext_ok and qedit_ok
+    per = {k: v for k, v in kcounts.items() if v}
+    log(f"[kontext] launches over the phase's requests {per}; [qwen-edit] "
+        f"{ {k: v for k, v in qecounts.items() if v} }")
 
     def verdict(good):
         return "PASS" if good else "FAIL"
@@ -4107,7 +4546,8 @@ def main(argv=None) -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s; kernel checks "
         f"{'PASS' if not failed else 'FAIL ' + ','.join(failed)}, reference {verdict(ref_ok)}, "
         f"core sass {verdict(sass_ok)}, slice {verdict(slice_ok)}, flux-int8 {verdict(i8_ok)}, "
-        f"rank128 {verdict(r128_ok)}, rank256 {verdict(r256_ok)}, highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, "
+        f"kontext {verdict(kontext_ok)}, rank128 {verdict(r128_ok)}, rank256 {verdict(r256_ok)}, "
+        f"highres {verdict(hr_ok)}, qwen {verdict(qwen_ok)}, qwen-edit {verdict(qedit_ok)}, "
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
         f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, zimage-r256 {verdict(zr_ok)}, sp {verdict(sp_ok)}, "
         f"flux-attn {verdict(fa_ok)}, "

@@ -3,7 +3,9 @@
 The port runs FLUX.1, Qwen-Image, SANA and Z-Image, from nunchaku checkpoints
 or random weights, and SDXL's int4 UNet from random or converted weights, to an image: 4-bit SVDQuant weights (int4 or nvfp4 products, or
 packed codes dequantized to per-channel int8 for int8 x int8 products), the
-text encoders, the first-block step caches, a tiled VAE decode, and the JAX
+text encoders, the first-block step caches and TeaCache, image-conditioned
+requests (FLUX.1 Kontext / Fill / Canny-Depth, Qwen-Image edit) through the
+VAE encoder, a tiled VAE decode, and the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``). It imports neither JAX nor ``nunchaku_tpu``.
 Entry points place their tensors on the card unless asked for the CPU;
@@ -17,7 +19,8 @@ with ``SanaConfig``, ``ZImageTransformer2DModel`` with ``ZImageConfig``, ``T5Enc
 (``load_flux_transformer``, ``load_qwenimage_transformer``,
 ``load_sana_transformer``, ``load_zimage_transformer``, ``load_t5_encoder``, ``load_clip_text``,
 ``load_gemma2_encoder``, ``load_autoencoder``, ``load_dc_ae``; each takes
-``device=``, the card by default), the pipelines (with ``zimage_sigmas``) and the precision dials
+``device=``, the card by default), the pipelines (with ``zimage_sigmas`` and FLUX's
+``apply_cache_on_pipe``) and the precision dials
 ``requantize_model`` / ``w4a8_cache_dequant``.
 """
 
@@ -39,7 +42,7 @@ from .models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2
 from .models.transformer_sana import SanaConfig, SanaTransformer2DModel
 from .models.transformer_zimage import ZImageConfig, ZImageTransformer2DModel
 from .models.unet_sdxl import SDXLConfig, SDXLUNet2DConditionModel
-from .pipeline.pipeline_flux import FluxPipeline
+from .pipeline.pipeline_flux import FluxPipeline, apply_cache_on_pipe
 from .pipeline.pipeline_qwenimage import QwenImagePipeline
 from .pipeline.pipeline_sana import SanaPipeline
 from .pipeline.pipeline_sdxl import SDXLPipeline

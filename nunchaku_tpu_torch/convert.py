@@ -27,7 +27,7 @@ import torch
 
 from .models import unet_sdxl as U
 from .models.attention import FeedForward, FluxAttention
-from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, ResnetBlock, Upsample
+from .models.autoencoder import AttnBlock, AutoencoderKL, Conv2d, Decoder, Downsample, Encoder, ResnetBlock, Upsample
 from .models.embeddings import CombinedTimestepEmbeddings, MLPEmbedder
 from .models.linear import AWQW4A16Linear, Linear, SVDQW4A4Linear, build_stacked, padded_dims
 from .models.normalization import AdaLayerNormContinuous, AdaLayerNormZero, AdaLayerNormZeroSingle
@@ -271,10 +271,10 @@ def sdxl_from_jax_params(params: dict, cfg: U.SDXLConfig, device="cuda") -> U.SD
 def vae_from_jax_params(params: dict, *, latent_channels=16, block_out_channels=(128, 256, 512, 512),
                         layers_per_block=2, scaling_factor=0.3611, shift_factor=0.1159,
                         device="cuda") -> AutoencoderKL:
-    """The port's decoder from the JAX ``AutoencoderKL.named_parameters()``,
-    every shape checked against the given structure. The JAX encoder's
-    ``encoder.*`` leaves are skipped (the port has no encoder yet); any
-    other name the decoder does not take raises."""
+    """The port's VAE from the JAX ``AutoencoderKL.named_parameters()``,
+    every shape checked against the given structure: the decoder, and the
+    encoder where ``encoder.*`` leaves are present (else ``encoder=None``).
+    Any name the structure does not take raises."""
     used = set()
 
     def get(name, shape):
@@ -284,9 +284,9 @@ def vae_from_jax_params(params: dict, *, latent_channels=16, block_out_channels=
             raise ValueError(f"{name}: shape {tuple(a.shape)} does not match the structure's {tuple(shape)}")
         return to_torch(a, device)
 
-    def conv(prefix, cin, cout, k=3):
-        return Conv2d(get(prefix + ".weight", (cout, cin, k, k)), get(prefix + ".bias", (cout,)), 1,
-                      1 if k == 3 else 0)
+    def conv(prefix, cin, cout, k=3, stride=1, padding=None):
+        return Conv2d(get(prefix + ".weight", (cout, cin, k, k)), get(prefix + ".bias", (cout,)), stride,
+                      (1 if k == 3 else 0) if padding is None else padding)
 
     def vec(name, c):
         return get(name, (c,))
@@ -297,8 +297,13 @@ def vae_from_jax_params(params: dict, *, latent_channels=16, block_out_channels=
                            conv(prefix + ".conv1", cin, cout), vec(prefix + ".norm2_w", cout),
                            vec(prefix + ".norm2_b", cout), conv(prefix + ".conv2", cout, cout), sc)
 
+    def attn(a, c):
+        return AttnBlock(vec(a + ".norm_w", c), vec(a + ".norm_b", c),
+                         *[conv(f"{a}.{n}", c, c, k=1) for n in ("q", "k", "v", "out")])
+
     d = "decoder"
     ch = block_out_channels[-1]
+    c0 = block_out_channels[0]
     rev = list(reversed(block_out_channels))
     up_blocks, upsamplers, prev = [], [], ch
     for i, c in enumerate(rev):
@@ -309,18 +314,31 @@ def vae_from_jax_params(params: dict, *, latent_channels=16, block_out_channels=
         up_blocks.append(blocks)
         if i < len(rev) - 1:
             upsamplers.append(Upsample(conv(f"{d}.upsamplers.{i}.conv", c, c)))
-    a = d + ".mid_attn"
     decoder = Decoder(
-        conv(d + ".conv_in", latent_channels, ch), resnet(d + ".mid_r1", ch, ch),
-        AttnBlock(vec(a + ".norm_w", ch), vec(a + ".norm_b", ch),
-                  *[conv(f"{a}.{n}", ch, ch, k=1) for n in ("q", "k", "v", "out")]),
+        conv(d + ".conv_in", latent_channels, ch), resnet(d + ".mid_r1", ch, ch), attn(d + ".mid_attn", ch),
         resnet(d + ".mid_r2", ch, ch), up_blocks, upsamplers,
-        vec(d + ".norm_out_w", block_out_channels[0]), vec(d + ".norm_out_b", block_out_channels[0]),
-        conv(d + ".conv_out", block_out_channels[0], 3))
-    unused = sorted(n for n in set(params) - used if not n.startswith("encoder."))
+        vec(d + ".norm_out_w", c0), vec(d + ".norm_out_b", c0), conv(d + ".conv_out", c0, 3))
+
+    encoder = None
+    if "encoder.conv_in.weight" in params:
+        e = "encoder"
+        down_blocks, downsamplers, prev = [], [], c0
+        for i, c in enumerate(block_out_channels):
+            blocks = []
+            for j in range(layers_per_block):
+                blocks.append(resnet(f"{e}.down_blocks.{i}.{j}", prev, c))
+                prev = c
+            down_blocks.append(blocks)
+            if i < len(block_out_channels) - 1:
+                downsamplers.append(Downsample(conv(f"{e}.downsamplers.{i}.conv", c, c, stride=2, padding=0)))
+        encoder = Encoder(
+            conv(e + ".conv_in", 3, c0), down_blocks, downsamplers, resnet(e + ".mid_r1", ch, ch),
+            attn(e + ".mid_attn", ch), resnet(e + ".mid_r2", ch, ch), vec(e + ".norm_out_w", ch),
+            vec(e + ".norm_out_b", ch), conv(e + ".conv_out", ch, 2 * latent_channels))
+    unused = sorted(set(params) - used)
     if unused:
         raise KeyError(f"parameters the port does not take: {unused[:8]}")
-    return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder)
+    return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder, encoder=encoder)
 
 
 def t5_from_jax_params(params: dict, *, heads: int, d_kv: int, device="cuda") -> T5EncoderModel:

@@ -1,14 +1,13 @@
-"""AutoencoderKL decoder (the FLUX / SDXL VAE).
+"""AutoencoderKL (the FLUX / SDXL VAE): decoder and encoder.
 
 Counterpart of ``nunchaku_tpu/models/autoencoder.py``: ``Conv2d`` and
 ``_conv``, ``group_norm``, ``ResnetBlock``, ``AttnBlock``, ``Upsample``,
-``Decoder``, ``AutoencoderKL`` (``random_init`` with the decoder only,
-``enable_tiling`` / ``disable_tiling``, ``decode`` whole or in blended tiles),
+``Downsample``, ``Decoder``, ``Encoder``, ``AutoencoderKL`` (``random_init``
+with both halves, ``enable_tiling`` / ``disable_tiling``, ``decode`` whole or
+in blended tiles, ``encode`` to the posterior's mode or a sample),
 ``_tile_blend_mask`` and the diffusers state-dict loader ``load_autoencoder``
-(decoder keys). The encoder side (``Encoder``, ``Downsample``, ``encode``)
-waits for a later slice (ROADMAP Queue 1, item 2): until then ``encode``
-raises and the loader leaves ``encoder.*`` keys unread. Layout NCHW, weights
-(out, in, kh, kw) bf16 and norms bf16, as in the JAX package.
+(decoder keys, and encoder keys where the file has them). Layout NCHW,
+weights (out, in, kh, kw) bf16 and norms bf16, as in the JAX package.
 
 Rounding. The JAX package leaves the convolutions to XLA: bf16 operands,
 f32 accumulation, f32 bias, one rounding to bf16. Here they are
@@ -20,7 +19,9 @@ ulp of the JAX result per convolution (exact for zero biases, as
 ``random_init`` makes them). GroupNorm runs in f32 (the
 statistics' sums in another order); the single-head mid-block attention
 takes the online flash kernel where the JAX package takes its Pallas
-kernel (``c % 128 == 0`` and ``h * w >= 1024``), else an f32 einsum softmax.
+kernel (``c % 128 == 0`` and ``h * w >= 1024``), else an f32 einsum softmax:
+in the decoder and in the encoder, whose 1024px mid block attends over
+16384 tokens of 512 channels.
 """
 
 from __future__ import annotations
@@ -163,6 +164,22 @@ class Upsample(nn.Module):
         return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
 
+class Downsample(nn.Module):
+    """Pad H at the bottom and W at the right by one, then a stride-2,
+    padding-0 convolution (diffusers' asymmetric downsampler)."""
+
+    def __init__(self, conv):
+        super().__init__()
+        self.conv = conv
+
+    @classmethod
+    def random_init(cls, gen, c, device="cuda"):
+        return cls(Conv2d.random_init(gen, c, c, stride=2, padding=0, device=device))
+
+    def forward(self, x):
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
+
+
 class Decoder(nn.Module):
     """conv_in, mid (resnet, attention, resnet), up blocks of resnets with an
     upsampler after each but the last, GroupNorm + SiLU, conv_out.
@@ -212,6 +229,56 @@ class Decoder(nn.Module):
         return self.conv_out(_silu_norm(h, self.norm_out_w, self.norm_out_b))
 
 
+class Encoder(nn.Module):
+    """conv_in, down blocks of resnets with a downsampler after each but the
+    last, mid (resnet, attention, resnet), GroupNorm + SiLU, conv_out to the
+    posterior's 2 x latent moments. ``downsamplers[i]`` belongs to down
+    block ``i``."""
+
+    def __init__(self, conv_in, down_blocks, downsamplers, mid_r1, mid_attn, mid_r2, norm_out_w, norm_out_b,
+                 conv_out):
+        super().__init__()
+        self.conv_in = conv_in
+        self.down_blocks = nn.ModuleList(nn.ModuleList(blocks) for blocks in down_blocks)
+        self.downsamplers = nn.ModuleList(downsamplers)
+        self.mid_r1 = mid_r1
+        self.mid_attn = mid_attn
+        self.mid_r2 = mid_r2
+        self.register_buffer("norm_out_w", norm_out_w)
+        self.register_buffer("norm_out_b", norm_out_b)
+        self.conv_out = conv_out
+
+    @classmethod
+    def random_init(cls, gen, latent_channels, block_out_channels, layers_per_block, device="cuda"):
+        """conv_out has 2 x ``latent_channels`` outputs (the JAX
+        ``random_init`` makes 2 x 16 whatever the latent width)."""
+        down_blocks, downsamplers = [], []
+        prev = block_out_channels[0]
+        conv_in = Conv2d.random_init(gen, 3, prev, device=device)
+        for i, c in enumerate(block_out_channels):
+            blocks = []
+            for _ in range(layers_per_block):
+                blocks.append(ResnetBlock.random_init(gen, prev, c, device))
+                prev = c
+            down_blocks.append(blocks)
+            if i < len(block_out_channels) - 1:
+                downsamplers.append(Downsample.random_init(gen, c, device))
+        ch = block_out_channels[-1]
+        return cls(conv_in, down_blocks, downsamplers, ResnetBlock.random_init(gen, ch, ch, device),
+                   AttnBlock.random_init(gen, ch, device), ResnetBlock.random_init(gen, ch, ch, device),
+                   *_norm_params(ch, device), Conv2d.random_init(gen, ch, 2 * latent_channels, device=device))
+
+    def forward(self, x):
+        h = self.conv_in(x)
+        for i, blocks in enumerate(self.down_blocks):
+            for blk in blocks:
+                h = blk(h)
+            if i < len(self.downsamplers):
+                h = self.downsamplers[i](h)
+        h = self.mid_r2(self.mid_attn(self.mid_r1(h)))
+        return self.conv_out(_silu_norm(h, self.norm_out_w, self.norm_out_b))
+
+
 def _tile_blend_mask(size: int, blend: int, *, top, bottom, left, right, device="cpu"):
     """(1, size, size, 1) linear cross-fade weights for one decoded tile:
     1/(blend+1) .. blend/(blend+1) over the overlap on each interior edge;
@@ -232,25 +299,30 @@ def _tile_blend_mask(size: int, blend: int, *, top, bottom, left, right, device=
 
 
 class AutoencoderKL(nn.Module):
-    """The KL autoencoder's decoder, with diffusers-style spatial tiling."""
+    """The KL autoencoder: the decoder, with diffusers-style spatial tiling,
+    and the encoder (None for a decoder-only file)."""
 
-    def __init__(self, *, scaling_factor, shift_factor, decoder):
+    def __init__(self, *, scaling_factor, shift_factor, decoder, encoder=None):
         super().__init__()
         self.scaling_factor = scaling_factor
         self.shift_factor = shift_factor
         self.decoder = decoder
+        self.encoder = encoder
         self.tile_latent_size = None  # None: whole-image decode
         self.tile_overlap = 0.25
 
     @classmethod
     def random_init(cls, seed=0, latent_channels=16, block_out_channels=(128, 256, 512, 512), layers_per_block=2,
                     scaling_factor=0.3611, shift_factor=0.1159, device="cuda"):
-        """Random decoder weights with the distributions of the JAX
-        ``random_init`` (not its bits), made on ``device`` from ``seed``."""
+        """Random decoder and encoder weights with the distributions of the
+        JAX ``random_init`` (not its bits), made on ``device`` from ``seed``;
+        the decoder is drawn first, so its weights do not depend on the
+        encoder's."""
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return cls(scaling_factor=scaling_factor, shift_factor=shift_factor,
-                   decoder=Decoder.random_init(gen, latent_channels, block_out_channels, layers_per_block, device))
+        decoder = Decoder.random_init(gen, latent_channels, block_out_channels, layers_per_block, device)
+        encoder = Encoder.random_init(gen, latent_channels, block_out_channels, layers_per_block, device)
+        return cls(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder, encoder=encoder)
 
     def enable_tiling(self, tile_latent_size: int = 64, overlap: float = 0.25):
         """Decode in overlapping latent tiles (diffusers enable_vae_tiling):
@@ -261,8 +333,27 @@ class AutoencoderKL(nn.Module):
     def disable_tiling(self):
         self.tile_latent_size = None
 
-    def encode(self, x):
-        raise NotImplementedError("the port has no VAE encoder yet (ROADMAP Queue 1, item 2: image-to-image)")
+    def _factors(self):
+        # the factors round to bf16 first, as JAX's weakly typed scalars do
+        return (torch.tensor(self.scaling_factor, dtype=torch.bfloat16),
+                torch.tensor(self.shift_factor, dtype=torch.bfloat16))
+
+    @torch.no_grad()
+    def encode(self, images: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        """(B, H, W, 3) in [0, 1] -> scaled latents (B, C_lat, H/8, W/8) bf16:
+        the posterior's mode, or with ``generator`` a sample
+        ``mean + exp(logvar / 2) * N(0, 1)`` (the JAX ``key`` draws other
+        noise, so only the mode is comparable across the packages)."""
+        if self.encoder is None:
+            raise ValueError("this VAE has no encoder (a decoder-only state dict): it cannot encode images")
+        x = (images * 2.0 - 1.0).permute(0, 3, 1, 2).to(torch.bfloat16)
+        mean, logvar = self.encoder(x).chunk(2, dim=1)
+        z = mean
+        if generator is not None:
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device).to(mean.dtype)
+            z = mean + torch.exp(0.5 * logvar.clamp(-30, 20)) * noise
+        sf, sh = self._factors()
+        return (z - sh) * sf
 
     @torch.no_grad()
     def decode(self, z: torch.Tensor) -> torch.Tensor:
@@ -299,9 +390,7 @@ class AutoencoderKL(nn.Module):
         return out / wsum.clamp_min(1e-8)
 
     def _decode_impl(self, z):
-        # the factors round to bf16 first, as JAX's weakly typed scalars do
-        sf = torch.tensor(self.scaling_factor, dtype=torch.bfloat16)
-        sh = torch.tensor(self.shift_factor, dtype=torch.bfloat16)
+        sf, sh = self._factors()
         img = self.decoder(z.to(torch.bfloat16) / sf + sh)
         return torch.clamp(img.float().permute(0, 2, 3, 1) / 2 + 0.5, 0.0, 1.0)
 
@@ -315,11 +404,12 @@ class AutoencoderKL(nn.Module):
 def load_autoencoder(path_or_tensors, *, scaling_factor=0.3611, shift_factor=0.1159,
                      block_out_channels=(128, 256, 512, 512), layers_per_block=2, latent_channels=16,
                      device="cuda") -> AutoencoderKL:
-    """The decoder of a diffusers ``AutoencoderKL`` safetensors file (or a
-    dict of tensors), bf16 (JAX ``load_autoencoder``, autoencoder.py:412).
-    Every decoder tensor's shape is checked against the given structure; a
-    file without decoder keys is refused. ``encoder.*`` keys are not read
-    (the port has no encoder yet)."""
+    """A diffusers ``AutoencoderKL`` safetensors file (or a dict of tensors),
+    bf16 (JAX ``load_autoencoder``, autoencoder.py:412). Every decoder
+    tensor's shape, and every encoder tensor's where the file has
+    ``encoder.*`` keys, is checked against the given structure; a file
+    without decoder keys is refused, a decoder-only file loads with
+    ``encoder=None`` (``encode`` then raises)."""
     if isinstance(path_or_tensors, dict):
         sd = path_or_tensors
     else:
@@ -335,14 +425,15 @@ def load_autoencoder(path_or_tensors, *, scaling_factor=0.3611, shift_factor=0.1
             raise ValueError(f"{name}: shape {tuple(t.shape)} does not match the structure's {tuple(shape)}")
         return t.to(device).float().to(torch.bfloat16)
 
-    def conv(prefix, cin, cout, k=3):
+    def conv(prefix, cin, cout, k=3, stride=1, padding=None):
         w = sd[f"{prefix}.weight"]
         if w.ndim == 2:  # diffusers Attention keeps its projections as Linear layers
             w = w[:, :, None, None]
         if tuple(w.shape) != (cout, cin, k, k):
             raise ValueError(f"{prefix}.weight: shape {tuple(w.shape)} does not match the structure's "
                              f"{(cout, cin, k, k)}")
-        return Conv2d(w.to(device).float().to(torch.bfloat16), get(f"{prefix}.bias", (cout,)), 1, 1 if k == 3 else 0)
+        return Conv2d(w.to(device).float().to(torch.bfloat16), get(f"{prefix}.bias", (cout,)), stride,
+                      (1 if k == 3 else 0) if padding is None else padding)
 
     def resnet(prefix, cin, cout):
         sc = conv(f"{prefix}.conv_shortcut", cin, cout, k=1) if cin != cout else None
@@ -371,4 +462,22 @@ def load_autoencoder(path_or_tensors, *, scaling_factor=0.3611, shift_factor=0.1
                       attn(f"{d}.mid_block.attentions.0", ch), resnet(f"{d}.mid_block.resnets.1", ch, ch),
                       up_blocks, upsamplers, get(f"{d}.conv_norm_out.weight", (c0,)),
                       get(f"{d}.conv_norm_out.bias", (c0,)), conv(f"{d}.conv_out", c0, 3))
-    return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder)
+
+    encoder = None
+    if "encoder.conv_in.weight" in sd:
+        e = "encoder"
+        down_blocks, downsamplers, prev = [], [], c0
+        for i, c in enumerate(block_out_channels):
+            blocks = []
+            for j in range(layers_per_block):
+                blocks.append(resnet(f"{e}.down_blocks.{i}.resnets.{j}", prev, c))
+                prev = c
+            down_blocks.append(blocks)
+            if i < len(block_out_channels) - 1:
+                downsamplers.append(Downsample(conv(f"{e}.down_blocks.{i}.downsamplers.0.conv", c, c, stride=2,
+                                                    padding=0)))
+        encoder = Encoder(conv(f"{e}.conv_in", 3, c0), down_blocks, downsamplers,
+                          resnet(f"{e}.mid_block.resnets.0", ch, ch), attn(f"{e}.mid_block.attentions.0", ch),
+                          resnet(f"{e}.mid_block.resnets.1", ch, ch), get(f"{e}.conv_norm_out.weight", (ch,)),
+                          get(f"{e}.conv_norm_out.bias", (ch,)), conv(f"{e}.conv_out", ch, 2 * latent_channels))
+    return AutoencoderKL(scaling_factor=scaling_factor, shift_factor=shift_factor, decoder=decoder, encoder=encoder)

@@ -4,7 +4,8 @@ The repository holds no real checkpoint, so the loaders are driven with
 files of the published layouts filled with random values:
 
 * :func:`flux_state` -- a FLUX.1 transformer in nunchaku's v1 single-file
-  schema (``svdq-int4_r32-flux.1-dev``, ``svdq-fp4_r32-flux.1-dev``): MMA-
+  schema (``svdq-int4_r32-flux.1-dev``, ``svdq-fp4_r32-flux.1-dev``; the
+  Fill and Canny / Depth variants by ``in_channels``): MMA-
   packed ``qweight``, group scales (nvfp4: e4m3 micro-scales, ``wtscale``),
   MMA-packed ``lora_down`` / ``lora_up``, AWQ GEMV modulation linears;
 * :func:`qwen_state` -- a Qwen-Image transformer in the v2 schema
@@ -21,7 +22,8 @@ files of the published layouts filled with random values:
   Z-Image-Turbo's dims by default), int4 or nvfp4 at any rank,
   ``skip_refiners`` for 16-bit refiner linears;
 * :func:`t5_state` (TinyChat W4 linears), :func:`clip_state` and
-  :func:`vae_state` (bf16 HF / diffusers files).
+  :func:`vae_state` (bf16 HF / diffusers files; the VAE's decoder, and its
+  encoder on request).
 
 Every packed byte is a valid weight code (any nibble is an int4 or e2m1
 code) and the packed layouts only permute values drawn independently, so
@@ -100,8 +102,11 @@ def _ones(t, d: _Draw, key, n):
 
 
 def flux_state(*, layers=19, single=38, heads=24, head_dim=128, joint=4096, pooled=768, rank=32,
-               precision="nvfp4", seed=0, device="cuda"):
-    """-> (tensors, metadata) of a FLUX.1 v1-schema checkpoint."""
+               precision="nvfp4", in_channels=64, seed=0, device="cuda"):
+    """-> (tensors, metadata) of a FLUX.1 v1-schema checkpoint;
+    ``in_channels`` 64 (FLUX.1-dev, Kontext), 128 (Canny / Depth: control
+    latents on the channel axis) or 384 (Fill: masked image + mask), the
+    width of ``x_embedder`` and the config's ``in_channels``."""
     d, t = _Draw(seed, device), {}
     dim = heads * head_dim
     for i in range(layers):
@@ -123,7 +128,7 @@ def flux_state(*, layers=19, single=38, heads=24, head_dim=128, joint=4096, pool
         for nm in ("norm_q", "norm_k"):
             _ones(t, d, f"{p}.{nm}.weight", head_dim)
     te = "time_text_embed"
-    for name, k, n in (("x_embedder", 64, dim), ("context_embedder", joint, dim),
+    for name, k, n in (("x_embedder", in_channels, dim), ("context_embedder", joint, dim),
                        (f"{te}.timestep_embedder.linear_1", 256, dim), (f"{te}.timestep_embedder.linear_2", dim, dim),
                        (f"{te}.text_embedder.linear_1", pooled, dim), (f"{te}.text_embedder.linear_2", dim, dim),
                        (f"{te}.guidance_embedder.linear_1", 256, dim), (f"{te}.guidance_embedder.linear_2", dim, dim),
@@ -131,7 +136,7 @@ def flux_state(*, layers=19, single=38, heads=24, head_dim=128, joint=4096, pool
         _linear(t, d, name, k, n)
     config = dict(num_layers=layers, num_single_layers=single, attention_head_dim=head_dim,
                   num_attention_heads=heads, joint_attention_dim=joint, pooled_projection_dim=pooled,
-                  in_channels=64, guidance_embeds=True, axes_dims_rope=[16, 56, 56])
+                  in_channels=in_channels, guidance_embeds=True, axes_dims_rope=[16, 56, 56])
     weight = {"dtype": "fp4_e2m1_all", "group_size": 16} if precision == "nvfp4" else {"dtype": "int4",
                                                                                         "group_size": 64}
     return t, _meta(config, {"method": "svdquant", "weight": weight, "rank": rank})
@@ -306,11 +311,13 @@ def clip_state(*, vocab=49408, d=768, layers=12, max_pos=77, seed=0, device="cud
     return t, _meta(None, None)
 
 
-def vae_state(*, latent_channels=16, block_out_channels=(128, 256, 512, 512), layers_per_block=2, seed=0,
-              device="cuda"):
-    """-> (tensors, metadata) of a diffusers AutoencoderKL's decoder, bf16
-    (norms ones and zeros, convolutions ``N / sqrt(fan_in)`` with zero
-    biases, as the JAX ``random_init`` draws them)."""
+def vae_state(*, latent_channels=16, block_out_channels=(128, 256, 512, 512), layers_per_block=2, encoder=False,
+              seed=0, device="cuda"):
+    """-> (tensors, metadata) of a diffusers AutoencoderKL's decoder, and
+    with ``encoder`` its encoder too (``encoder.*`` keys: down blocks with
+    downsamplers, mid block, ``conv_out`` to 2 x ``latent_channels``
+    moments), bf16 (norms ones and zeros, convolutions ``N / sqrt(fan_in)``
+    with zero biases, as the JAX ``random_init`` draws them)."""
     dr, t = _Draw(seed, device), {}
 
     def conv(key, cin, cout, k=3):
@@ -329,17 +336,20 @@ def vae_state(*, latent_channels=16, block_out_channels=(128, 256, 512, 512), la
         if cin != cout:
             conv(f"{key}.conv_shortcut", cin, cout, k=1)
 
+    def mid(key, c):
+        resnet(f"{key}.mid_block.resnets.0", c, c)
+        a = f"{key}.mid_block.attentions.0"
+        norm(f"{a}.group_norm", c)
+        for nm in ("to_q", "to_k", "to_v", "to_out.0"):  # diffusers keeps these as Linear layers
+            t[f"{a}.{nm}.weight"] = dr.normal((c, c), 1.0 / math.sqrt(c))
+            t[f"{a}.{nm}.bias"] = torch.zeros((c,), dtype=torch.bfloat16, device=device)
+        resnet(f"{key}.mid_block.resnets.1", c, c)
+
     dd = "decoder"
     rev = list(reversed(block_out_channels))
     ch = rev[0]
     conv(f"{dd}.conv_in", latent_channels, ch)
-    resnet(f"{dd}.mid_block.resnets.0", ch, ch)
-    a = f"{dd}.mid_block.attentions.0"
-    norm(f"{a}.group_norm", ch)
-    for nm in ("to_q", "to_k", "to_v", "to_out.0"):  # diffusers keeps these as Linear layers
-        t[f"{a}.{nm}.weight"] = dr.normal((ch, ch), 1.0 / math.sqrt(ch))
-        t[f"{a}.{nm}.bias"] = torch.zeros((ch,), dtype=torch.bfloat16, device=device)
-    resnet(f"{dd}.mid_block.resnets.1", ch, ch)
+    mid(dd, ch)
     prev = ch
     for i, c in enumerate(rev):
         for j in range(layers_per_block + 1):
@@ -349,6 +359,19 @@ def vae_state(*, latent_channels=16, block_out_channels=(128, 256, 512, 512), la
             conv(f"{dd}.up_blocks.{i}.upsamplers.0.conv", c, c)
     norm(f"{dd}.conv_norm_out", block_out_channels[0])
     conv(f"{dd}.conv_out", block_out_channels[0], 3)
+    if encoder:
+        ee = "encoder"
+        prev = block_out_channels[0]
+        conv(f"{ee}.conv_in", 3, prev)
+        for i, c in enumerate(block_out_channels):
+            for j in range(layers_per_block):
+                resnet(f"{ee}.down_blocks.{i}.resnets.{j}", prev, c)
+                prev = c
+            if i < len(block_out_channels) - 1:
+                conv(f"{ee}.down_blocks.{i}.downsamplers.0.conv", c, c)
+        mid(ee, ch)
+        norm(f"{ee}.conv_norm_out", ch)
+        conv(f"{ee}.conv_out", ch, 2 * latent_channels)
     return t, _meta(None, None)
 
 

@@ -117,8 +117,10 @@ def test_pipeline_refuses_bad_cache_arguments(pair):
     _, tm = pair
     with pytest.raises(ValueError):
         _port(tm, num_inference_steps=1, cache_hit_ratio=0.5)
+    with pytest.raises(ValueError):  # a forced hit ratio is the FB caches' alone, as in JAX
+        _port(tm, num_inference_steps=1, cache="teacache", cache_hit_ratio=0.5)
     with pytest.raises(ValueError):
-        _port(tm, num_inference_steps=1, cache="teacache")
+        _port(tm, num_inference_steps=1, cache="unknown")
 
 
 @pytest.mark.parametrize("tiled", [False, True])

@@ -175,10 +175,13 @@ def test_vae_loader_matches_jax(tmp_path):
     with torch.no_grad():
         out = tm.decode(to_torch(z, "cpu"))
     assert out.shape == ref.shape and np.abs(out.numpy() - ref).max() <= 2e-2
-    # encoder keys are left unread; a state dict without a decoder is refused; encode raises
+    # a decoder-only file loads without an encoder, and encode raises; a partial encoder is a missing key;
+    # a state dict without a decoder is refused
+    assert tm.encoder is None
+    with pytest.raises(ValueError):
+        tm.encode(torch.zeros((1, 64, 64, 3)))
     tstate["encoder.conv_in.weight"] = torch.zeros((32, 3, 3, 3), dtype=torch.bfloat16)
-    load_autoencoder(tstate, **kw, device="cpu")
+    with pytest.raises(KeyError):
+        load_autoencoder(tstate, **kw, device="cpu")
     with pytest.raises(KeyError):
         load_autoencoder({k: v for k, v in tstate.items() if not k.startswith("decoder.")}, **kw, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tm.encode(torch.zeros((1, 3, 64, 64)))

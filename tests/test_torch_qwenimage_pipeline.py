@@ -81,10 +81,13 @@ def test_refusals(pair):
     args = (to_torch(txt, "cpu"), to_torch(neg, "cpu"))
     with pytest.raises(ValueError, match="both prompt branches"):
         pipe(*args, torch.from_numpy(mask), num_inference_steps=1, **KW)
-    for kw in (dict(image=np.zeros((1, 128, 128, 3))), dict(cond_tokens=torch.zeros(1)),
-               dict(control_image=np.zeros((1, 128, 128, 3)))):
-        with pytest.raises(NotImplementedError):
-            pipe(*args, num_inference_steps=1, **KW, **kw)
+    with pytest.raises(NotImplementedError):  # ControlNet is not ported
+        pipe(*args, num_inference_steps=1, **KW, control_image=np.zeros((1, 128, 128, 3)))
+    # edit conditioning needs a VAE with an encoder, and cond_tokens their ids
+    with pytest.raises(ValueError, match="encoder"):
+        pipe(*args, num_inference_steps=1, **KW, image=np.zeros((1, 128, 128, 3)))
+    with pytest.raises(ValueError, match="cond_ids"):
+        pipe(*args, num_inference_steps=1, **KW, cond_tokens=torch.zeros((1, 64, 64), dtype=torch.bfloat16))
     with pytest.raises(ValueError):
         pipe(*args, num_inference_steps=1, cache="double_fb", **KW)
 

@@ -312,9 +312,11 @@ def test_converter_carries_and_checks_the_weights(mixed):
 
 
 def test_random_init_mirrors_the_jax_decoder(tiny):
+    """Decoder and encoder (both packages' ``random_init`` make both)."""
     _, params, _ = tiny
     tv = tvae.AutoencoderKL.random_init(seed=0, **TINY, device="cpu")
     ours = {n: (tuple(b.shape), str(b.dtype).replace("torch.", "")) for n, b in tv.named_buffers()}
-    theirs = {n: (tuple(a.shape), str(a.dtype)) for n, a in params.items() if n.startswith("decoder.")}
+    theirs = {n: (tuple(a.shape), str(a.dtype)) for n, a in params.items()}
     assert ours == theirs
+    assert any(n.startswith("decoder.") for n in ours) and any(n.startswith("encoder.") for n in ours)
     assert tv.scaling_factor == 0.3611 and tv.shift_factor == 0.1159 and tv.tile_latent_size is None
