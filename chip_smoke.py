@@ -91,7 +91,12 @@ Phases, each fatal on failure:
                   image-conditioned paths at the shapes those give them
                   (FLUX.1-Kontext at 1024px: S 512 + 4096 + 4096, and the
                   1008px reference's 512 + 4096 + 3969), each against its
-                  twin with its row's tolerance (logged, no new row);
+                  twin with its row's tolerance (logged, no new row); the
+                  kernels a LoRA'd FLUX.1-dev runs at its ranks, rows *_lora48
+                  and *_lora80 (the LN producer, the qkv/RoPE producer, the
+                  chain producer and residual consumer, the W4A4 GEMM int4 and
+                  unsigned at R 48 and 80, FLUX's shapes), each against its
+                  twin with its rank-32 row's tolerance;
   4. reference -- a small FLUX model (1 + 1 blocks, 6 heads) through the pipeline
                   on the card (kernels) and on the CPU (plain twins), same weights
                   and noise, in the default (f32 stream) and the turbo (bf16
@@ -311,6 +316,28 @@ Phases, each fatal on failure:
                   JAX scripts' sizes and iteration counts, every line logged;
                   every built instantiation launches, no other kernel but V3's
                   W4A4 GEMM; every model phase reads 0 probe launches.
+ 17. lora     -- LoRA on FLUX.1-dev at full width and depth, int4 (default
+                  configuration) and w4a8 turbo: a synthesized rank-16 kohya
+                  LoRA on every leaf of all 57 blocks (every low-rank branch R
+                  48; the AWQ modulation's side branch rank 16) and the
+                  composed pair of it and a rank-32 one at 0.5 (R 80), from
+                  update_lora_params on the base model; each 3 timed 1024px
+                  forwards in rounds with the base's: launch counts equal to the
+                  base's, finite, moved by the LoRA; set_lora_strength(0)'s
+                  distance from the base; the update / set times; one LoRA'd
+                  Kontext request (int4, 1024px reference encoded inside,
+                  min(2, --steps) steps to latents). Rows *_lora48 / *_lora80
+                  count the rank-16 / pair models' forwards.
+ 18. offload  -- utils/offload.py at full size: FLUX.1-dev int4 resident
+                  against OffloadedFluxForward at lookahead 1 and 2, timed in
+                  rounds (outputs bit for bit, launches the resident's under the non-stacked
+                  names, peak allocated below the resident's by at least the
+                  block weights less lookahead + 1 blocks), a copy-only pass
+                  (host-to-card GB/s), OffloadedCachedFluxForward (a miss bit
+                  for bit the resident forward, then two hits); Qwen-Image
+                  int4 (60 blocks) through OffloadedCachedQwenImageForward
+                  (fn_blocks 8) against qwenimage_fb_cached_forward on the
+                  resident model, 3 steps, outputs and hits equal.
 FLUX and Qwen-Image hold their blocks as stacks, so their 4-bit GEMMs and
 dequants count under the stacked modes' names (mode + "_stacked"); a kernel
 row counts every launch of its mode, a *_stacked row the stacked ones alone
@@ -878,6 +905,7 @@ def kernel_phase(dev):
     last_op_kernel_rows(dev, record, failed)
     probe_kernel_rows(dev, record, failed)
     conditioning_kernel_checks(dev, failed)
+    lora_kernel_rows(dev, record)
     return rows, failed
 
 
@@ -4422,6 +4450,416 @@ def highres_bounds() -> dict:
         "flash_fixed": (L + Ls) * bound(4 * HR_S * HEADS * HD * 2, bf16_ops=4 * HR_S * HR_S * HD * HEADS)[0],
     }
 
+# LoRA on the quantized FLUX model (the [lora] phase): a rank-16 kohya LoRA on every leaf makes every low-rank
+# branch R 32 + 16; the composed pair (that LoRA and a rank-32 one) R 32 + 48. The kernels those ranks reach, as
+# rows *_lora48 / *_lora80 (launches: the [lora] forwards of that model)
+LORA_MODELS = {"lora48": 48, "lora80": 80}
+LORA_ROW_KERNELS = ("ln_mod_quant_int8", "qkv_rope_producer", "gemm_w8a8_gelu_quant", "gemm_w8a8_grouped_res",
+                    "gemm_w4a4_int4", "gemm_w4a4_int4_unsigned")
+
+
+def lora_kernel_rows(dev, record):
+    """Rows *_lora48 / *_lora80: the kernels a LoRA'd FLUX.1-dev runs at its
+    ranks, at FLUX's shapes (M 4608; the LN producer and the qkv producer at
+    K 3072 / H 24, the chain pair at fc1 / fc2, the W4A4 GEMM int4 at fc1
+    and with unsigned activations at fc2), each against its twin with its
+    rank-32 row's tolerance (the producers also bit for bit their rank-32
+    launch on the shared columns), timed beside it."""
+    from nunchaku_tpu_torch.ops import checks
+    from nunchaku_tpu_torch.ops.attention import qkv_rope_producer, qkv_rope_producer_plain
+    from nunchaku_tpu_torch.ops.gemm import (gemm_w4a4, gemm_w4a4_plain, gemm_w8a8_grouped_plain,
+                                             gemm_w8a8_grouped_res, svdq_gemm_w8a8_gelu_quant,
+                                             svdq_gemm_w8a8_gelu_quant_plain)
+    from nunchaku_tpu_torch.ops.quantize import ln_mod_quant_int8, ln_mod_quant_int8_plain
+    from nunchaku_tpu_torch.ops.reference import int8_matmul
+
+    m = S_IMG + S_TXT
+    ln_norm = torch.nn.functional.layer_norm
+    for suffix, r in ((f"_{k}", v) for k, v in LORA_MODELS.items()):
+        args = checks.ln_mod_quant_case(1, m, DIM, r, device=dev)
+        err, ok, detail = checks.check_ln_rank(*args)
+        x = args[0]
+        record("ln_mod_quant_int8" + suffix, "nunchaku_tpu_torch/csrc/ln_mod_quant.cu",
+               "nunchaku_tpu/ops/quantize.py:149", f"M={m} K={DIM} R={r}", ok, err, detail,
+               time_ms(lambda: ln_mod_quant_int8(*args), 50), time_ms(lambda: ln_mod_quant_int8_plain(*args), 5),
+               bound(ln_bytes(m, DIM, r), bf16_ops=2 * m * DIM * r), time_ms(lambda: ln_norm(x, (DIM,), eps=1e-6), 50))
+        del args, x
+
+        streams, cos, sin = checks.qkv_rope_case(1, (m,), HEADS, HD, r, device=dev)
+        err, ok, detail = checks.check_qkv_rank(streams, cos, sin)
+        la16, pu = streams[0][3].to(torch.bfloat16), streams[0][4]
+        record("qkv_rope_producer" + suffix, "nunchaku_tpu_torch/csrc/qkv_rope_producer.cu",
+               "nunchaku_tpu/ops/attention.py:158", f"B=1 S={m} H={HEADS} D={HD} R={r}", ok, err, detail,
+               time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer, streams, cos, sin), 50),
+               time_ms(lambda: checks.run_qkv_rope(qkv_rope_producer_plain, streams, cos, sin), 5),
+               bound(rope_bytes(m, r), bf16_ops=2 * m * 3 * HEADS * HD * r), None,
+               lowrank=time_ms(lambda: torch.matmul(la16, pu), 50))
+        del streams, cos, sin, la16, pu
+
+        k, n = DIM, HID
+        args = checks.gelu_quant_case(m, k, n, r, device=dev)
+        err, ok, detail = checks.check_gelu_quant(*args)
+        qa, w = args[0], args[2]
+        record("gemm_w8a8_gelu_quant" + suffix, "nunchaku_tpu_torch/csrc/gemm_w8a8_gelu_quant.cu",
+               "nunchaku_tpu/ops/gemm.py:460", f"M={m} K={k} N={n} R={r}", ok, err, detail,
+               time_ms(lambda: svdq_gemm_w8a8_gelu_quant(*args), 20),
+               time_ms(lambda: svdq_gemm_w8a8_gelu_quant_plain(*args), 3),
+               bound(gemm_bytes(m, k, n, r, m * n + 4 * (n // 1536) * m + 4 * m * r) + 4 * n + 2 * n * r,
+                     2 * m * n * k, 4 * m * n * r),
+               time_ms(lambda: int8_matmul(qa, w), 20))
+        del args, qa, w
+
+        k, n, g = HID, DIM, HID // 1536
+        args = checks.grouped_res_case(m, k, n, g, r, device=dev)
+        err, ok, detail = checks.check_grouped_res(*args)
+        qa, w = args[0], args[2]
+        record("gemm_w8a8_grouped_res" + suffix, "nunchaku_tpu_torch/csrc/gemm_w8a8_grouped.cu",
+               "nunchaku_tpu/ops/gemm.py:395", f"M={m} K={k} N={n} G={g} R={r} +x,gate,extra,extra_lora",
+               ok, err, detail, time_ms(lambda: gemm_w8a8_grouped_res(*args), 20),
+               time_ms(lambda: gemm_w8a8_grouped_plain(*args), 3),
+               bound(gemm_bytes(m, k, n, r, 2 * m * n) + 4 * g * m + res_bytes(m, n, 1, r), 2 * m * n * k,
+                     4 * m * n * r),
+               time_ms(lambda: int8_matmul(qa, w), 20))
+        del args, qa, w
+
+        for name, (k, n), unsigned in (("gemm_w4a4_int4", (DIM, HID), False),
+                                       ("gemm_w4a4_int4_unsigned", (HID, DIM), True)):
+            args, kw = checks.w4a4_case(m, k, n, "int4", unsigned, r=r, device=dev)
+            err, ok, detail = checks.check_w4a4(args, kw)
+            a16, w16 = decoded(args, kw)
+            record(name + suffix, "nunchaku_tpu_torch/csrc/gemm_w4a4.cu", "nunchaku_tpu/ops/gemm.py:125",
+                   f"M={m} K={k} N={n} R={r} int4{' unsigned' if unsigned else ''}", ok, err, detail,
+                   time_ms(lambda: gemm_w4a4(*args, **kw), 20), time_ms(lambda: gemm_w4a4_plain(*args, **kw), 3),
+                   w4a4_bound(m, k, n, 64, r=r), time_ms(lambda: torch.matmul(a16, w16), 20), k_bf_ms(a16, w16))
+            del args, a16, w16
+    torch.cuda.empty_cache()
+
+
+def flux_forward_args(cfg, dev, seed=0):
+    """A 1024px FLUX transformer call's inputs (B 1, 4096 image + 512 text
+    tokens), drawn on the card from ``seed``."""
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, S_TXT, cfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, cfg.pooled_projection_dim), generator=gen, device=dev).to(torch.bfloat16),
+            torch.tensor([0.5], device=dev), make_img_ids(math.isqrt(S_IMG), math.isqrt(S_IMG), dev),
+            torch.zeros((S_TXT, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+
+
+def interleaved_forwards(fns: dict, rounds=3) -> dict:
+    """Each of ``fns`` once untimed, then ``rounds`` rounds calling each in
+    turn, each call timed alone (a shared host's drift falls on all alike):
+    -> {label: (median s a call, launch counts of its timed calls, peak
+    allocated GiB over them, last output, every time)}."""
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    secs, counts, peaks, outs = ({k: [] for k in fns}, {k: {} for k in fns}, dict.fromkeys(fns, 0.0),
+                                 dict.fromkeys(fns))
+    with torch.no_grad():
+        for fn in fns.values():
+            fn()
+        for _ in range(rounds):
+            for label, fn in fns.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                outs[label] = fn()
+                torch.cuda.synchronize()
+                secs[label].append(time.perf_counter() - t0)
+                counts[label] = {k: counts[label].get(k, 0) + v for k, v in launch_counts().items()}
+                peaks[label] = max(peaks[label], torch.cuda.max_memory_allocated() / 2**30)
+    return {k: (sorted(secs[k])[len(secs[k]) // 2], counts[k], peaks[k], outs[k], secs[k]) for k in fns}
+
+
+def rel_err(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def lora_phase(dev, steps: int):
+    """[lora] LoRA on FLUX.1-dev at full width and depth (19 + 38 blocks),
+    int4 (default configuration) and w4a8 turbo: a synthesized rank-16 kohya
+    LoRA on every leaf of every block (every low-rank branch R 48, the AWQ
+    modulation linears a rank-16 side branch) and the composed pair of it
+    and a rank-32 one at strength 0.5 (R 80). Each model 3 timed 1024px
+    forwards after an untimed one, in rounds with the base model's (the
+    median reported): launch counts
+    equal to the base's, output finite and moved by the LoRA; the strength-0
+    model's distance from the base; the times of update_lora_params and
+    set_lora_strength; last, one LoRA'd Kontext request (int4, a 1024px
+    reference encoded inside, min(2, steps) steps to latents). -> (ok,
+    launch counts of each model's forwards by label, all launch counts)."""
+    from nunchaku_tpu_torch import compose_lora, set_lora_strength, update_lora_params
+    from nunchaku_tpu_torch.models.autoencoder import AutoencoderKL
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import FluxPipeline
+    from nunchaku_tpu_torch.tools.synth_checkpoint import lora_state
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sd16 = lora_state(FluxConfig(), 16, "kohya", seed=1, device=dev)[0]
+    sd32 = lora_state(FluxConfig(), 32, "kohya", seed=2, device=dev)[0]
+    pair = compose_lora([(sd16, 1.0), (sd32, 0.5)])
+    lora_mib = sum(t.numel() * t.element_size() for t in sd16.values()) / 2**20
+    log(f"[lora] synthesized kohya LoRAs (rank 16: {len(sd16)} tensors, {lora_mib:.1f} MiB bf16; rank 32) and "
+        f"composed the pair in {time.perf_counter() - t0:.2f} s")
+    ok, by_label, total = True, {k: {} for k in LORA_MODELS}, {}
+    for precision in ("int4", "w4a8"):
+        cfg = FluxConfig(precision=precision)
+        L, Ls = cfg.num_layers, cfg.num_single_layers
+        base = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+        models, apply_s = {"base": base}, {}
+        for label, sd in (("lora48", sd16), ("lora80", pair)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            models[label] = update_lora_params(base, sd)
+            torch.cuda.synchronize()
+            apply_s[label] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        models["strength 0"] = set_lora_strength(models["lora48"], 0.0)
+        torch.cuda.synchronize()
+        set_s = time.perf_counter() - t0
+        qkv = {k: m.transformer_blocks.attn.to_qkv.proj_up.shape[-2] for k, m in models.items()}
+        new_mib = sum(t.numel() * t.element_size() for t in models["lora48"].buffers()
+                      if all(t.data_ptr() != b.data_ptr() for b in base.buffers())) / 2**20
+        log(f"[lora] FLUX.1-dev {precision}: update_lora_params {apply_s['lora48']:.3f} s (rank 16) / "
+            f"{apply_s['lora80']:.3f} s (the pair), set_lora_strength {1e3 * set_s:.1f} ms; qkv ranks {qkv}; the "
+            f"rank-16 model's new buffers {new_mib:.1f} MiB, the rest shared with the base")
+        if precision == "w4a8":
+            for m in models.values():
+                m.set_stream_dtype(torch.bfloat16).enable_fused_qkv_prep()
+        args = flux_forward_args(cfg, dev)
+        res = interleaved_forwards({label: (lambda m=m: m(*args)) for label, m in models.items()})
+        config = "int4" if precision == "int4" else "w4a8 turbo"
+        per = ({"gemm_w4a4_int4_stacked": 6 * L + 3 * Ls, "gemm_w4a4_int4_unsigned_stacked": 2 * L + Ls,
+                "gemv_awq": 2 * L + Ls, "flash_fixed": L + Ls} if precision == "int4"
+               else {k: L * W4A8_TURBO_DUAL[k] + Ls * W4A8_TURBO_SINGLE[k] for k in W4A8_TURBO_DUAL})
+        base_s, base_counts, _, base_out, _ = res["base"]
+        for label, (sec, counts, peak, out, secs) in res.items():
+            finite = bool(torch.isfinite(out.float()).all()) and tuple(out.shape) == (1, S_IMG, 64)
+            moved = rel_err(out, base_out)
+            good = finite and counts == base_counts and check_counts(f"{config} {label}", counts, per, 3, tag="lora")
+            good = good and (label in ("base", "strength 0") or moved > 1e-3)
+            log(f"[lora] {config} {label}: {sec:.4f} s a 1024px forward, the median of {[round(t, 4) for t in secs]} "
+                f"interleaved with the other models' ({sec / base_s:.3f} of the base's), "
+                f"peak allocated {peak:.2f} GiB, finite {finite}, launch counts equal to the base's "
+                f"{counts == base_counts}, rel max distance from the base {moved:.3e}: {'PASS' if good else 'FAIL'}")
+            ok = ok and good
+            if label in by_label:
+                by_label[label] = {k: by_label[label].get(k, 0) + v for k, v in counts.items()}
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        if precision == "int4":
+            vae = AutoencoderKL.random_init(seed=0, device=dev)
+            enc = FluxPipeline(None, vae=vae)
+            ref = reference_image(KONTEXT_REF, 45, dev)
+            n = min(2, steps)
+            finite, _, counts, *_ = serve(
+                FluxPipeline(models["lora48"]), dev, n, 1,
+                f"Kontext int4 + the rank-16 LoRA ({KONTEXT_REF}px reference encoded inside), to latents",
+                lambda seed: kontext_request(enc, ref, embeds_request(cfg, dev)(seed)), tag="lora",
+                guidance_scale=2.5)
+            good = finite and check_counts("kontext int4 LoRA", counts, per, n, {"flash_online": 1}, tag="lora")
+            ok = ok and good
+            total = {k: total.get(k, 0) + v for k, v in counts.items()}
+            del vae, enc, ref
+        del models, base, res, base_out, out
+        torch.cuda.empty_cache()
+    log(f"[lora] phase {time.perf_counter() - t_phase:.1f} s")
+    return ok, by_label, total
+
+
+def unstacked(counts: dict) -> dict:
+    """Non-zero launch counts with each stacked mode's count under its
+    non-stacked name (an offloaded block runs the non-stacked modes)."""
+    out = {}
+    for k, v in counts.items():
+        if v:
+            out[k.removesuffix("_stacked")] = out.get(k.removesuffix("_stacked"), 0) + v
+    return out
+
+
+def cached_steps(step, n=3):
+    """``n`` calls of a cached forward's ``step`` (one input repeated: a
+    miss, then hits), each timed alone: -> (outputs, seconds, launch counts,
+    peak allocated GiB over them)."""
+    from nunchaku_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    outs, secs = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            outs.append(step())
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return outs, secs, launch_counts(), torch.cuda.max_memory_allocated() / 2**30
+
+
+def compare_cached(label, resident, offloaded, hits, need):
+    """The offloaded cached form's 3 steps against the resident cache's: every
+    output bit for bit, hits equal (2: the input repeats), launches the
+    resident's under the non-stacked names, peak allocated lower by at least
+    ``need`` GiB. -> (ok, launch counts of both)."""
+    (r_outs, r_secs, r_counts, r_peak), (o_outs, o_secs, o_counts, o_peak) = resident, offloaded
+    same = all(torch.equal(a, b) for a, b in zip(o_outs, r_outs))
+    finite = all(bool(torch.isfinite(o.float()).all()) for o in o_outs)
+    counts_ok = {k: v for k, v in o_counts.items() if v} == unstacked(r_counts)
+    good = same and finite and hits == (2, 2) and counts_ok and r_peak - o_peak >= need
+    log(f"[offload] {label}, one input 3 times (miss, hit, hit): resident s {[round(s, 4) for s in r_secs]}, offloaded "
+        f"s {[round(s, 4) for s in o_secs]}; hits offloaded / resident {hits}; outputs bit for bit {same}; peak "
+        f"allocated {o_peak:.2f} GiB against {r_peak:.2f} ({r_peak - o_peak:.2f} less, at least {need:.2f} needed); "
+        f"launches { {k: v for k, v in o_counts.items() if v} } (the resident's under their non-stacked names: "
+        f"{counts_ok}): {'PASS' if good else 'FAIL'}")
+    return good, {k: r_counts.get(k, 0) + o_counts.get(k, 0) for k in o_counts}
+
+
+def offload_phase(dev):
+    """[offload] Block offloading (utils/offload.py) at full width and
+    depth: FLUX.1-dev int4 (default configuration), a 1024px forward
+    resident against OffloadedFluxForward (built from a fork of the model)
+    at lookahead 1 and 2, 3 timed rounds of the three after an untimed one
+    (the median reported), each output bit for bit the resident one's,
+    launch counts the resident's with each stacked mode's count under its
+    non-stacked name; then, the model dropped, each offloaded forward's peak
+    allocated memory alone, below the resident's by at least the block
+    weights less the lookahead + 1 slots; the achieved host-to-card
+    rate of a copy-only pass; then the first-block cache resident
+    (fb_cached_forward) against OffloadedCachedFluxForward, and Qwen-Image
+    int4 (60 blocks) resident (qwenimage_fb_cached_forward, fn_blocks 8)
+    against OffloadedCachedQwenImageForward: 3 steps of one input each (a
+    miss, two hits), outputs and hits equal, peak allocated lower by at least
+    the streamed blocks less 2 slots. -> (ok, launch counts)."""
+    from nunchaku_tpu_torch.caching.fbcache import (fb_cached_forward, init_fb_state, init_qwen_fb_state,
+                                                    qwenimage_fb_cached_forward)
+    from nunchaku_tpu_torch.models.linear import fork_module
+    from nunchaku_tpu_torch.models.transformer_flux import FluxConfig, FluxTransformer2DModel
+    from nunchaku_tpu_torch.models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2DModel
+    from nunchaku_tpu_torch.pipeline.pipeline_flux import make_img_ids
+    from nunchaku_tpu_torch.utils.offload import (OffloadedCachedFluxForward, OffloadedCachedQwenImageForward,
+                                                  OffloadedFluxForward)
+
+    def gib(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors) / 2**30
+
+    t_phase = time.perf_counter()
+    cfg = FluxConfig()
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    blocks_gib = gib(t for name in model.STACKS for t in getattr(model, name).buffers())
+    args = flux_forward_args(cfg, dev, seed=1)
+    t0 = time.perf_counter()
+    off = OffloadedFluxForward(fork_module(model), lookahead=1)  # a fork: `model` stays resident to time beside it
+    build_s = time.perf_counter() - t0
+    log(f"[offload] host copies (pinned): {build_s:.2f} s, {(off.dual.host_bytes + off.single.host_bytes) / 2**30:.2f} "
+        f"GiB; a dual block {off.dual.nbytes / 2**20:.1f} MiB, a single block {off.single.nbytes / 2**20:.1f} MiB")
+
+    def offloaded(la):
+        def call():
+            off.dual.lookahead = off.single.lookahead = la
+            return off(*args)
+        return call
+
+    res = interleaved_forwards({"resident": lambda: model(*args), 1: offloaded(1), 2: offloaded(2)})
+    res_s, res_counts, res_peak, ref, secs = res["resident"]
+    log(f"[offload] FLUX.1-dev int4 resident: {res_s:.4f} s a 1024px forward (median of {[round(t, 4) for t in secs]}, "
+        f"interleaved with the offloaded ones), peak allocated {res_peak:.2f} GiB (block weights {blocks_gib:.2f} GiB), "
+        f"launches { {k: v for k, v in res_counts.items() if v} }")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[offload] the model dropped, allocated on the card {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    ok, total = True, dict(res_counts)
+    largest = max(off.dual.nbytes, off.single.nbytes) / 2**30
+    for la in (1, 2):
+        sec, counts, _, out, secs = res[la]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            offloaded(la)()  # alone on the card: its peak
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        same = torch.equal(out, ref)
+        counts_ok = {k: v for k, v in counts.items() if v} == unstacked(res_counts)
+        saved = res_peak - peak
+        need = blocks_gib - (la + 1) * largest
+        good = same and counts_ok and saved >= need
+        log(f"[offload] OffloadedFluxForward lookahead {la}: {sec:.4f} s a forward (median of "
+            f"{[round(t, 4) for t in secs]}; {sec / res_s:.3f} of resident), peak allocated {peak:.3f} GiB (resident "
+            f"{res_peak:.3f}: {saved:.3f} GiB less, at least {need:.3f} needed), output bit for bit the resident's "
+            f"{same}, launches { {k: v for k, v in counts.items() if v} } (the resident's under their non-stacked "
+            f"names: {counts_ok}): {'PASS' if good else 'FAIL'}")
+        ok = ok and good
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    # the copy engine alone: every block of a stack streamed with no compute between
+    for streamer, label in ((off.dual, "dual"), (off.single, "single")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        streamer.run(lambda blk, c: c, None)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        log(f"[offload] copy-only pass over the {label} stack: {streamer.host_bytes / 2**30:.2f} GiB in {sec:.4f} s, "
+            f"{streamer.host_bytes / sec / 1e9:.2f} GB/s host to card (pinned, its own stream)")
+    del off, ref
+
+    # the first-block cache: resident, then offloaded from the same weights (random_init is deterministic on the card)
+    model = FluxTransformer2DModel.random_init(cfg, seed=0, device=dev)
+    state = [init_fb_state(1, S_IMG, S_TXT, cfg.dim, device=dev)]
+
+    def resident_fb():
+        out, state[0] = fb_cached_forward(model, state[0], *args)
+        return out
+
+    resident = cached_steps(resident_fb)
+    r_hits = state[0].hits
+    offc = OffloadedCachedFluxForward(model, lookahead=1)
+    del state  # the resident cache's: the offloaded form keeps its own
+    torch.cuda.empty_cache()
+    good, counts = compare_cached(
+        "OffloadedCachedFluxForward (threshold 0.12) against fb_cached_forward", resident,
+        cached_steps(lambda: offc(*args)), (offc.hits, r_hits), blocks_gib - gib(offc.block0.buffers()) - 2 * largest)
+    ok = ok and good
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    del offc, resident, args
+    torch.cuda.empty_cache()
+
+    qcfg = QwenImageConfig()
+    model = QwenImageTransformer2DModel.random_init(qcfg, seed=0, device=dev)
+    qblocks_gib = gib(model.blocks.buffers())
+    gen = torch.Generator(device=dev).manual_seed(2)
+    qargs = (torch.randn((1, S_IMG, 64), generator=gen, device=dev).to(torch.bfloat16),
+             torch.randn((1, QWEN_S_TXT, qcfg.joint_attention_dim), generator=gen, device=dev).to(torch.bfloat16),
+             torch.tensor([0.5], device=dev), make_img_ids(math.isqrt(S_IMG), math.isqrt(S_IMG), dev))
+    qstate = [init_qwen_fb_state(1, S_IMG, qcfg.dim, device=dev)]
+
+    def resident_qwen():
+        out, qstate[0] = qwenimage_fb_cached_forward(model, qstate[0], *qargs, fn_blocks=8)
+        return out
+
+    with torch.no_grad():  # first use at Qwen's shapes, untimed
+        qwenimage_fb_cached_forward(model, init_qwen_fb_state(1, S_IMG, qcfg.dim, device=dev), *qargs, fn_blocks=8)
+    resident = cached_steps(resident_qwen)
+    r_hits = qstate[0].hits
+    t0 = time.perf_counter()
+    offq = OffloadedCachedQwenImageForward(model, fn_blocks=8)
+    build_s = time.perf_counter() - t0
+    del qstate
+    torch.cuda.empty_cache()
+    head = gib(t for b in offq.head_blocks for t in b.buffers())
+    good, counts = compare_cached(
+        f"Qwen-Image int4 ({qcfg.num_layers} blocks, {qblocks_gib:.2f} GiB of block weights, "
+        f"{offq.blocks.host_bytes / 2**30:.2f} GiB pinned, host copies {build_s:.2f} s): "
+        f"OffloadedCachedQwenImageForward (fn_blocks 8) against qwenimage_fb_cached_forward",
+        resident, cached_steps(lambda: offq(*qargs)), (offq.hits, r_hits),
+        qblocks_gib - head - 2 * offq.blocks.nbytes / 2**30)
+    ok = ok and good
+    total = {k: total.get(k, 0) + v for k, v in counts.items()}
+    del offq, resident
+    torch.cuda.empty_cache()
+    log(f"[offload] phase {time.perf_counter() - t_phase:.1f} s")
+    return ok, total
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4479,11 +4917,18 @@ def main(argv=None) -> int:
     fa_ok, facounts, fapaths = flux_attn_phase(dev)
     lo_ok, locounts, lo2counts = last_ops_phase(dev)
     gp_ok, gpcounts = gemm_probes_phase(dev)
+    lora_ok, lora_by_model, lcounts = lora_phase(dev, args.steps)
+    off_ok, ocounts = offload_phase(dev)
     counts = {k: counts[k] + icounts.get(k, 0) + qcounts[k] + hcounts[k] + ccounts.get(k, 0) + cqcounts.get(k, 0)
               + scounts.get(k, 0) + sacounts.get(k, 0) + zicounts.get(k, 0) + spcounts.get(k, 0) + facounts.get(k, 0)
-              + locounts[k] + gpcounts[k] + kcounts.get(k, 0) + qecounts.get(k, 0) for k in counts}
+              + locounts[k] + gpcounts[k] + kcounts.get(k, 0) + qecounts.get(k, 0) + lcounts.get(k, 0)
+              + ocounts.get(k, 0) for k in counts}
     for name, row in rows.items():
         row["launches"] = row_launches(name, counts)
+    # the LoRA rows count the forwards of the [lora] model at their rank (rank-16 LoRA: R 48; the pair: R 80)
+    for label in LORA_MODELS:
+        for name in LORA_ROW_KERNELS:
+            rows[f"{name}_{label}"]["launches"] = row_launches(name, lora_by_model[label])
     # the rank-128 rows count the [rank128] forwards' launches, the other rows those of the rank-32 paths
     for name in ("ln_mod_quant_int8", "qkv_rope_producer"):
         rows[f"{name}_r128"]["launches"] = rcounts[name]
@@ -4535,7 +4980,7 @@ def main(argv=None) -> int:
         log(f"[bound] {name}: launches per 1024px forward {per}")
     ok = not failed and ref_ok and slice_ok and qwen_ok and len(ran) == len(rows)
     ok = ok and i8_ok and hr_ok and ckpt_ok and ckptq_ok and sdxl_ok and sana_ok and zi_ok and sp_ok and fa_ok and lo_ok
-    ok = ok and gp_ok and sass_ok and r128_ok and r256_ok and zr_ok and kontext_ok and qedit_ok
+    ok = ok and gp_ok and sass_ok and r128_ok and r256_ok and zr_ok and kontext_ok and qedit_ok and lora_ok and off_ok
     per = {k: v for k, v in kcounts.items() if v}
     log(f"[kontext] launches over the phase's requests {per}; [qwen-edit] "
         f"{ {k: v for k, v in qecounts.items() if v} }")
@@ -4551,7 +4996,7 @@ def main(argv=None) -> int:
         f"checkpoint {verdict(ckpt_ok)}, checkpoint-qwen {verdict(ckptq_ok)}, sdxl {verdict(sdxl_ok)}, "
         f"sana {verdict(sana_ok)}, zimage {verdict(zi_ok)}, zimage-r256 {verdict(zr_ok)}, sp {verdict(sp_ok)}, "
         f"flux-attn {verdict(fa_ok)}, "
-        f"last-ops {verdict(lo_ok)}, gemm-probes {verdict(gp_ok)}")
+        f"last-ops {verdict(lo_ok)}, gemm-probes {verdict(gp_ok)}, lora {verdict(lora_ok)}, offload {verdict(off_ok)}")
     if not ok:
         return 1
     print(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"} for r in rows.values()]}))

@@ -5,7 +5,8 @@ or random weights, and SDXL's int4 UNet from random or converted weights, to an 
 packed codes dequantized to per-channel int8 for int8 x int8 products), the
 text encoders, the first-block step caches and TeaCache, image-conditioned
 requests (FLUX.1 Kontext / Fill / Canny-Depth, Qwen-Image edit) through the
-VAE encoder, a tiled VAE decode, and the JAX
+VAE encoder, LoRA on the quantized FLUX model, block offloading
+(``utils.offload``), a tiled VAE decode, and the JAX
 package's Pallas kernels rewritten as hand-written CUDA kernels for
 ``sm_90a`` (``csrc/``). It imports neither JAX nor ``nunchaku_tpu``.
 Entry points place their tensors on the card unless asked for the CPU;
@@ -20,8 +21,9 @@ with ``SanaConfig``, ``ZImageTransformer2DModel`` with ``ZImageConfig``, ``T5Enc
 ``load_sana_transformer``, ``load_zimage_transformer``, ``load_t5_encoder``, ``load_clip_text``,
 ``load_gemma2_encoder``, ``load_autoencoder``, ``load_dc_ae``; each takes
 ``device=``, the card by default), the pipelines (with ``zimage_sigmas`` and FLUX's
-``apply_cache_on_pipe``) and the precision dials
-``requantize_model`` / ``w4a8_cache_dequant``.
+``apply_cache_on_pipe``), the precision dials
+``requantize_model`` / ``w4a8_cache_dequant`` and FLUX's LoRA entry points
+``update_lora_params`` / ``set_lora_strength`` / ``compose_lora``.
 """
 
 __version__ = "0.1.0"
@@ -42,6 +44,8 @@ from .models.transformer_qwenimage import QwenImageConfig, QwenImageTransformer2
 from .models.transformer_sana import SanaConfig, SanaTransformer2DModel
 from .models.transformer_zimage import ZImageConfig, ZImageTransformer2DModel
 from .models.unet_sdxl import SDXLConfig, SDXLUNet2DConditionModel
+from .lora.flux.apply import set_lora_strength, update_lora_params
+from .lora.flux.convert import compose_lora
 from .pipeline.pipeline_flux import FluxPipeline, apply_cache_on_pipe
 from .pipeline.pipeline_qwenimage import QwenImagePipeline
 from .pipeline.pipeline_sana import SanaPipeline

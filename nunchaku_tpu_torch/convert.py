@@ -8,6 +8,9 @@ layer is read from the JAX stacks, built and checked, and copied into the
 port's stack (``linear.build_stacked``). Static attributes (precision, the
 int4 fc2 layers' unsigned activations, head dim) come from the config, and
 every linear's shape is checked against the config's dims.
+A model JAX's ``update_lora_params`` changed carries over too: ranks above
+``cfg.rank`` that differ per leaf, each SVDQ linear's ``lora_up_unit`` and
+``lora_base_rank``, and the AWQ linears' LoRA side branch.
 ``sdxl_from_jax_params`` does the same for the SDXL UNet (its NHWC
 convolution weights transposed to OIHW, its odd-width SVDQ linears kept
 padded), ``vae_from_jax_params`` for the VAE decoder, and
@@ -109,21 +112,29 @@ class _BlockReader:
         self.unsigned_fc2 = cfg.precision == "int4"  # an int4 model's post-GELU layers take unsigned activations
 
     def svdq(self, prefix, layer, k, n, act_unsigned=False, precision=None):
+        """An SVDQ linear at any rank; after JAX's ``update_lora_params`` its
+        ``lora_up_unit`` too, the LoRA rows being the last of ``proj_up``'s
+        (so ``lora_base_rank`` = its rows less the unit's)."""
         P = self.P
+        proj_up, unit = P.get(prefix + ".proj_up", layer), P.opt(prefix + ".lora_up_unit", layer)
         return _check(prefix, SVDQW4A4Linear(
             P.get(prefix + ".qweight", layer), P.get(prefix + ".wscales", layer),
             P.get(prefix + ".smooth", layer), P.get(prefix + ".proj_down", layer),
-            P.get(prefix + ".proj_up", layer), P.opt(prefix + ".bias", layer),
+            proj_up, P.opt(prefix + ".bias", layer),
             P.opt(prefix + ".rescales", layer), precision=precision or self.cfg.precision,
-            act_unsigned=act_unsigned), k, n)
+            act_unsigned=act_unsigned, lora_up_unit=unit,
+            lora_base_rank=None if unit is None else proj_up.shape[0] - unit.shape[0]), k, n)
 
     def mod(self, prefix, layer, n):
-        """The modulation linear: AWQ at int4 / nvfp4, int8 SVDQ otherwise."""
+        """The modulation linear: AWQ at int4 / nvfp4 (with its LoRA side
+        branch where JAX's has one), int8 SVDQ otherwise."""
         P = self.P
         if is_4bit(self.cfg.precision):
             return _check(prefix, AWQW4A16Linear(
                 P.get(prefix + ".qweight", layer), P.get(prefix + ".wscales", layer),
-                P.get(prefix + ".wzeros", layer), P.opt(prefix + ".bias", layer)), self.dim, n)
+                P.get(prefix + ".wzeros", layer), P.opt(prefix + ".bias", layer),
+                *(P.opt(f"{prefix}.{name}", layer) for name in ("lora_down", "lora_up", "lora_up_unit"))),
+                self.dim, n)
         return self.svdq(prefix, layer, self.dim, n, precision="int8")
 
     def attn(self, prefix, layer, joint):

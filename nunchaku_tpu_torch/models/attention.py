@@ -102,23 +102,26 @@ def _halfsplit_qkv_perm(heads: int, head_dim: int, n: int) -> np.ndarray:
 
 
 def _permute_out_channels(lin: SVDQW4A4Linear, perm: np.ndarray) -> None:
-    """Reorder a quantized linear's output channels in place (``copy_``):
-    every N-axis buffer moves together and keeps its storage and layout, so
-    a stacked linear's layer views see the new order."""
+    """Reorder a quantized linear's output channels: every N-axis buffer
+    (a LoRA's unit-strength rows too) moves together, each into a new tensor
+    of its layout, so a model that shares its buffers with another (a LoRA'd
+    model and its base) leaves the other's unchanged. A layer view of a
+    stack would lose its link to the stack: :func:`permute_qk_halfsplit`
+    takes the stacked module, or a module of its own."""
     idx = torch.as_tensor(perm, device=lin.qweight.device)
-    for name in ("qweight", "wscales", "proj_up", "bias", "rescales"):
+    for name in ("qweight", "wscales", "proj_up", "bias", "rescales", "lora_up_unit"):
         t = getattr(lin, name)
         if t is not None:
-            t.copy_(t.index_select(-1, idx))
+            setattr(lin, name, torch.empty_like(t).copy_(t.index_select(-1, idx)))
 
 
 def permute_qk_halfsplit(attn: "FluxAttention") -> None:
     """Put the q/k output channels of the QKV projections and the q/k
-    RMSNorm weights in half-split rope order, in place, and switch the
+    RMSNorm weights in half-split rope order (new tensors) and switch the
     module to the fused prologue. The attention's result is unchanged: q and
-    k move together, v and the output projections stay. ``attn`` may be a
-    stacked module (every layer moves) or a layer's view (its layer of the
-    stack moves)."""
+    k move together, v and the output projections stay. ``attn`` is a
+    stacked module (every layer moves) or an attention of its own; a model
+    rebuilds its layer views afterwards."""
     if attn.prep_fused:
         raise ValueError("the attention weights are already in half-split order")
     if attn.head_dim != KERNEL_HEAD_DIM:
@@ -126,13 +129,12 @@ def permute_qk_halfsplit(attn: "FluxAttention") -> None:
     heads = attn.to_qkv.out_features // 3 // attn.head_dim
     perm = _halfsplit_qkv_perm(heads, attn.head_dim, attn.to_qkv.out_features)
     hperm = torch.as_tensor(_halfsplit_head_perm(attn.head_dim), device=attn.norm_q.device)
-    norms = [attn.norm_q, attn.norm_k]
     _permute_out_channels(attn.to_qkv, perm)
     if attn.add_qkv_proj is not None:
         _permute_out_channels(attn.add_qkv_proj, perm)
-        norms += [attn.norm_added_q, attn.norm_added_k]
-    for t in norms:
-        t.copy_(t.index_select(-1, hperm))
+    for name in ["norm_q", "norm_k"] + (["norm_added_q", "norm_added_k"] if attn.add_qkv_proj is not None else []):
+        t = getattr(attn, name)
+        setattr(attn, name, torch.empty_like(t).copy_(t.index_select(-1, hperm)))
     attn.prep_fused = True
 
 

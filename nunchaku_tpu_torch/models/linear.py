@@ -3,16 +3,17 @@
 weight-only 4-bit ``AWQW4A16Linear``.
 
 Counterparts of ``nunchaku_tpu/models/linear.py`` ``Linear`` (:61),
-``SVDQW4A4Linear`` (:87) and ``AWQW4A16Linear`` (:564, without its LoRA
-branch). Weights keep the JAX package's layouts: (K, N) K-major, packed
-4-bit as (K/2, N) in the block-split-half layout.
+``SVDQW4A4Linear`` (:87) and ``AWQW4A16Linear`` (:564, with its LoRA side
+branch :583-585, :636-646). Weights keep the JAX package's layouts: (K, N)
+K-major, packed 4-bit as (K/2, N) in the block-split-half layout.
 
 Stacked layers (the JAX scans): :func:`stack_modules` and
 :func:`slice_module` (JAX ``transformer_flux.py:96-103``) turn identical
 modules into one whose buffers carry a leading layer axis, and take a
 layer's views back out of it (:func:`build_stacked` stacks layers as they
-are made); :func:`attach_stacked_weights` (JAX ``linear.py:650``) points
-each 4-bit linear of a layer's view at the whole ``(L, ...)`` qweight stack
+are made; :func:`fork_module` copies a module tree, not its tensors);
+:func:`attach_stacked_weights` (JAX ``linear.py:650``) points each 4-bit
+linear of a layer's view at the whole ``(L, ...)`` qweight stack
 and a device-resident layer index, which its GEMM kernel reads
 (``ops/gemm.py`` stacked modes); :class:`StackedLayers` keeps a model's
 per-layer views and indices.
@@ -95,11 +96,17 @@ class SVDQW4A4Linear(nn.Module):
     padded K rows holding zero codes and zero ``proj_down`` rows; ``forward``
     pads the input columns and cuts the output back to ``logical_out``.
     ``in_features`` / ``out_features`` are the buffers' (padded) dims.
+
+    LoRA (``lora.flux.apply.update_lora_params``): a LoRA's ranks are
+    appended to the low-rank branch, so ``proj_up`` rows ``lora_base_rank:``
+    are the LoRA's, at their strength; ``lora_up_unit`` keeps them at unit
+    strength, for ``set_lora_strength``. Both are None without a LoRA.
     """
 
     def __init__(self, qweight, wscales, smooth, proj_down, proj_up, bias=None, rescales=None, *,
                  precision: str = "w4a8", act_unsigned: bool = False, wcodes: str = "int4",
-                 logical_in: int | None = None, logical_out: int | None = None):
+                 logical_in: int | None = None, logical_out: int | None = None,
+                 lora_up_unit: torch.Tensor | None = None, lora_base_rank: int | None = None):
         super().__init__()
         if precision not in ("int8", "w4a8", "int4", "nvfp4"):
             raise NotImplementedError(f"SVDQW4A4Linear precision {precision!r} is not ported")
@@ -114,8 +121,9 @@ class SVDQW4A4Linear(nn.Module):
             qweight = qweight.t().contiguous().t()
         for name, t in (("qweight", qweight), ("wscales", wscales), ("smooth", smooth),
                         ("proj_down", proj_down), ("proj_up", proj_up), ("bias", bias),
-                        ("rescales", rescales)):
+                        ("rescales", rescales), ("lora_up_unit", lora_up_unit)):
             self.register_buffer(name, t)
+        self.lora_base_rank = lora_base_rank
         self.precision = precision
         self.act_unsigned = act_unsigned
         self.wcodes = wcodes
@@ -329,6 +337,18 @@ def slice_module(stacked: nn.Module, i: int) -> nn.Module:
     return out
 
 
+def fork_module(m: nn.Module) -> nn.Module:
+    """A new module tree of ``m``'s structure and settings whose buffers are
+    ``m``'s tensors: a buffer or setting changed on the fork leaves ``m`` as
+    it was (a LoRA'd model shares its unchanged weights with its base)."""
+    new = copy.copy(m)
+    new._parameters = dict(m._parameters)
+    new._buffers = dict(m._buffers)
+    new._non_persistent_buffers_set = set(m._non_persistent_buffers_set)
+    new._modules = {name: None if sub is None else fork_module(sub) for name, sub in m._modules.items()}
+    return new
+
+
 def attach_stacked_weights(block: nn.Module, stacked: nn.Module, layer_idx: torch.Tensor) -> nn.Module:
     """Point every 4-bit linear of the layer view ``block`` at the whole
     (L, ...) qweight stack of ``stacked`` and the 0-d int32 ``layer_idx``
@@ -403,11 +423,17 @@ class AWQW4A16Linear(nn.Module):
     layouts): ``qweight`` (K/2, N) int8, ``wscales`` and ``wzeros`` (K/G, N)
     bf16, ``bias`` (N,) or None. Returns the input's dtype. M < 16 takes the
     GEMV kernel (G = 64), larger M the dequantize-then-multiply route (JAX
-    linear.py:616-647)."""
+    linear.py:616-647). The optional LoRA side branch (JAX :583-585,
+    :636-646): ``lora_down`` (K, r), ``lora_up`` (r, N) at the LoRA's
+    strength and ``lora_up_unit`` at unit strength, all bf16, adds
+    ``(x @ lora_down) @ lora_up`` after the GEMV or the dequantize route: two
+    products of bf16 operands with f32 sums, as torch ops (JAX's ``jnp.dot``
+    outside any kernel)."""
 
-    def __init__(self, qweight, wscales, wzeros, bias=None):
+    def __init__(self, qweight, wscales, wzeros, bias=None, lora_down=None, lora_up=None, lora_up_unit=None):
         super().__init__()
-        for name, t in (("qweight", qweight), ("wscales", wscales), ("wzeros", wzeros), ("bias", bias)):
+        for name, t in (("qweight", qweight), ("wscales", wscales), ("wzeros", wzeros), ("bias", bias),
+                        ("lora_down", lora_down), ("lora_up", lora_up), ("lora_up_unit", lora_up_unit)):
             self.register_buffer(name, t)
         self.in_features = qweight.shape[0] * 2
         self.out_features = qweight.shape[1]
@@ -429,5 +455,8 @@ class AWQW4A16Linear(nn.Module):
         lead = x.shape[:-1]
         m = math.prod(lead)
         fwd = awq_w4a16_linear if m < AWQ_XLA_MIN_M else awq_w4a16_linear_plain
-        out = fwd(x.reshape(m, x.shape[-1]), self.qweight, self.wscales, self.wzeros, self.bias)
+        x2d = x.reshape(m, x.shape[-1])
+        out = fwd(x2d, self.qweight, self.wscales, self.wzeros, self.bias)
+        if self.lora_down is not None:
+            out = out + bf16_matmul(bf16_matmul(x2d, self.lora_down), self.lora_up)
         return out.reshape(*lead, out.shape[-1]).to(x.dtype)

@@ -23,7 +23,10 @@ files of the published layouts filled with random values:
   ``skip_refiners`` for 16-bit refiner linears;
 * :func:`t5_state` (TinyChat W4 linears), :func:`clip_state` and
   :func:`vae_state` (bf16 HF / diffusers files; the VAE's decoder, and its
-  encoder on request).
+  encoder on request);
+* :func:`lora_state` -- a FLUX LoRA at any width and rank, in the diffusers,
+  peft or kohya key flavor (``lora.flux.convert.to_canonical`` reads all
+  three), on every leaf of the chosen blocks.
 
 Every packed byte is a valid weight code (any nibble is an int4 or e2m1
 code) and the packed layouts only permute values drawn independently, so
@@ -372,6 +375,56 @@ def vae_state(*, latent_channels=16, block_out_channels=(128, 256, 512, 512), la
         mid(ee, ch)
         norm(f"{ee}.conv_norm_out", ch)
         conv(f"{ee}.conv_out", ch, 2 * latent_channels)
+    return t, _meta(None, None)
+
+
+def _lora_leaves(flavor: str, dim: int):
+    """(name, K, N) of every LoRA leaf of a dual and of a single block."""
+    if flavor == "kohya":
+        dual = [("img_attn_qkv", dim, 3 * dim), ("txt_attn_qkv", dim, 3 * dim), ("img_attn_proj", dim, dim),
+                ("txt_attn_proj", dim, dim), ("img_mlp_0", dim, 4 * dim), ("img_mlp_2", 4 * dim, dim),
+                ("txt_mlp_0", dim, 4 * dim), ("txt_mlp_2", 4 * dim, dim), ("img_mod_lin", dim, 6 * dim),
+                ("txt_mod_lin", dim, 6 * dim)]
+        single = [("linear1", dim, 7 * dim), ("linear2", 5 * dim, dim), ("modulation_lin", dim, 3 * dim)]
+        return dual, single
+    qkv = [(f"attn.to_{c}", dim, dim) for c in "qkv"] + [(f"attn.add_{c}_proj", dim, dim) for c in "qkv"]
+    dual = qkv + [("attn.to_out.0", dim, dim), ("attn.to_add_out", dim, dim), ("ff.net.0.proj", dim, 4 * dim),
+                  ("ff.net.2", 4 * dim, dim), ("ff_context.net.0.proj", dim, 4 * dim), ("ff_context.net.2", 4 * dim, dim),
+                  ("norm1.linear", dim, 6 * dim), ("norm1_context.linear", dim, 6 * dim)]
+    single = qkv[:3] + [("proj_mlp", dim, 4 * dim), ("proj_out", 5 * dim, dim), ("norm.linear", dim, 3 * dim)]
+    return dual, single
+
+
+def lora_state(cfg, rank: int, flavor: str = "diffusers", layers=None, alpha: float | None = None, seed=0,
+               device="cuda"):
+    """-> (tensors, metadata) of a FLUX LoRA of ``rank`` for the widths of
+    ``cfg`` (a ``FluxConfig``): every leaf of dual blocks ``layers[0]`` and
+    single blocks ``layers[1]`` (default: all of ``cfg``'s). ``flavor``:
+    ``"diffusers"`` (``transformer.<block>.<leaf>.lora_A.weight``, q / k / v
+    apart), ``"peft"`` (``<block>.<leaf>.lora_A.default.weight``) or
+    ``"kohya"`` (``lora_unet_double_blocks_<i>_<leaf>.lora_down.weight``,
+    fused qkv and ``linear1`` / ``linear2``, and ``.alpha``, default the
+    rank). A (r, K) and B (N, r) are ``0.02 N`` in bf16."""
+    if flavor not in ("diffusers", "peft", "kohya"):
+        raise ValueError(f"unknown LoRA flavor {flavor!r}")
+    d, t = _Draw(seed, device), {}
+    dual, single = _lora_leaves(flavor, cfg.dim)
+    if layers is None:
+        layers = (range(cfg.num_layers), range(cfg.num_single_layers))
+    for blocks, leaves, idx in (("transformer_blocks", dual, layers[0]),
+                                ("single_transformer_blocks", single, layers[1])):
+        for i in idx:
+            for leaf, k, n in leaves:
+                if flavor == "kohya":
+                    key = f"lora_unet_{'double' if blocks == 'transformer_blocks' else 'single'}_blocks_{i}_{leaf}"
+                    t[f"{key}.lora_down.weight"] = d.normal((rank, k), 0.02)
+                    t[f"{key}.lora_up.weight"] = d.normal((n, rank), 0.02)
+                    t[f"{key}.alpha"] = torch.tensor(float(rank if alpha is None else alpha), device=device)
+                else:
+                    key = f"{'transformer.' if flavor == 'diffusers' else ''}{blocks}.{i}.{leaf}"
+                    tail = ".default.weight" if flavor == "peft" else ".weight"
+                    t[f"{key}.lora_A{tail}"] = d.normal((rank, k), 0.02)
+                    t[f"{key}.lora_B{tail}"] = d.normal((n, rank), 0.02)
     return t, _meta(None, None)
 
 

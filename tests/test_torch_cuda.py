@@ -1629,3 +1629,60 @@ def test_probe_layouts_and_refusals(dev):
     with pytest.raises(ValueError):
         gemm_probe.gemm_probe_bf16(a, w, a_form="i8", w_form="i8")  # w K-contiguous
     assert not any(launch_counts().values())
+
+
+@pytest.mark.parametrize("lookahead", [1, 2])
+def test_offload_small_blocks_bit_for_bit(dev, lookahead):
+    """Block offloading where each block's copy outlasts its compute (a
+    small int4 FLUX of 6 + 8 blocks at S 64: the streamer's event waits are
+    all that orders copies and reads): five offloaded forwards each bit for
+    bit the resident one, launches the resident's under the non-stacked
+    names; the cached form's miss bit for bit too, then a hit, and its
+    constructor frees the model's stacks on the card."""
+    from nunchaku_tpu_torch.utils.offload import OffloadedCachedFluxForward, OffloadedFluxForward
+
+    cfg = FluxConfig(num_layers=6, num_single_layers=8, num_attention_heads=2, joint_attention_dim=256,
+                     pooled_projection_dim=256, precision="int4")
+    model = FluxTransformer2DModel.random_init(cfg, seed=3, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    args = (torch.randn((1, 64, 64), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, 32, 256), generator=gen, device=dev).to(torch.bfloat16),
+            torch.randn((1, 256), generator=gen, device=dev).to(torch.bfloat16), torch.tensor([0.5], device=dev),
+            make_img_ids(8, 8, dev), torch.zeros((32, 3), dtype=torch.int32, device=dev), torch.tensor([3.5], device=dev))
+    with torch.no_grad():
+        reset_launch_counts()
+        ref = model(*args)
+        resident = {k.removesuffix("_stacked"): v for k, v in launch_counts().items() if v}
+    off = OffloadedFluxForward(copy.deepcopy(model), lookahead=lookahead)
+    assert off.dual.host[0].is_pinned()
+    reset_launch_counts()
+    for _ in range(5):
+        assert torch.equal(off(*args), ref)
+    assert {k: v for k, v in launch_counts().items() if v} == {k: 5 * v for k, v in resident.items()}
+    stacks = sum(t.numel() * t.element_size() for name in model.STACKS for t in getattr(model, name).buffers())
+    before = torch.cuda.memory_allocated()
+    cached = OffloadedCachedFluxForward(model, lookahead=lookahead)
+    block0 = sum(-(-t.numel() * t.element_size() // 512) * 512 for t in cached.block0.buffers())  # the allocator's 512s
+    assert before - torch.cuda.memory_allocated() >= stacks - block0
+    assert torch.equal(cached(*args), ref)
+    cached(*args)
+    assert cached.hits == 1
+
+
+def test_lora_on_the_card_matches_cpu(dev):
+    """``update_lora_params`` / ``set_lora_strength`` on the card give the
+    CPU's buffers bit for bit (the bf16 roundings of A, B and
+    ``unit * strength``), from the same synthesized kohya LoRA."""
+    from nunchaku_tpu_torch import set_lora_strength, update_lora_params
+    from nunchaku_tpu_torch.tools.synth_checkpoint import lora_state
+
+    cfg = FluxConfig(num_layers=2, num_single_layers=2, num_attention_heads=2, joint_attention_dim=256,
+                     pooled_projection_dim=256, precision="int4")
+    cpu = FluxTransformer2DModel.random_init(cfg, seed=5, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    sd = lora_state(cfg, 16, "kohya", alpha=8.0, seed=6, device="cpu")[0]
+    a = set_lora_strength(update_lora_params(cpu, sd, strength=0.7), 0.3)
+    b = set_lora_strength(update_lora_params(card, {k: v.to(dev) for k, v in sd.items()}, strength=0.7), 0.3)
+    bufs = dict(b.named_buffers())
+    for name, t in a.named_buffers():
+        assert torch.equal(t, bufs[name].cpu()), name
